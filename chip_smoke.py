@@ -9,22 +9,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    build of every kernel from ``graphneuralnetworks_tpu_torch/csrc``.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (N=131,072 nodes, E=2,000,000 edges, D=128, float32):
-   K1 (``spmm_csr_f32``) and K2 (``spmm_sddmm_csr_f32``), forward and
-   backward, with times (CUDA events), the plain version's time, a library
+   K1 (``spmm_csr_f32``) and K2 (``spmm_sddmm_csr_f32``, also at GAT's
+   per-head D=32 with dropped attention weights), forward and backward,
+   with times (CUDA events), the plain version's time, a library
    yardstick (``torch.sparse.mm``) where one exists, and the least time the
    card could take (bytes over memory rate, operations over float32 rate).
-3. The main path at full width: ``GNNChain(GCNConv(128, 128, relu),
-   GCNConv(128, 8))`` trained with masked cross-entropy and Adam, 10 steps,
-   with kernel launch counts; then the same with learned edge weights (the
-   weighted backward, K2); then one forward and backward of each model on
-   the card held against the same model on the CPU plain path.
-4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE and GIN, 40
-   epochs, train accuracy > 0.94 and test accuracy > 0.69.
+   2b: the attention kernels K12 (``edge_softmax_f32``), K3
+   (``gat_softmax_f32``), K4 (``gat_bwd_dpi_f32``) and K5
+   (``gat_bwd_rev_f32``) the same way, at the GAT path's per-head shapes
+   (H, D) = (4, 32) and (1, 8); K12 also with dropout masks and with edge
+   values. No single PyTorch call computes these, so no library time.
+3. The main paths at full width, each trained with masked cross-entropy
+   and Adam for 10 steps, with the kernel launch counts of exactly those
+   steps: ``GNNChain(GCNConv(128, 128, relu), GCNConv(128, 8))`` (3a); the
+   same with learned edge weights (3b, the weighted backward K2);
+   ``GNNChain(GATConv(128, 32, relu, heads=4), GATConv(128, 8, heads=1,
+   concat=False))`` without attention dropout (3d: K3, K4, K5) and with
+   dropout 0.6 in training mode (3e: K12, and K2 in its backward). 3c holds
+   one forward and backward of the GCN models and of GAT (3d) on the card
+   against the same model on the CPU plain path, and GAT (3e)'s attention
+   (K12, K2 per head) with one set of dropout masks for both sides.
+4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN and GAT,
+   40 epochs, train accuracy > 0.94 and test accuracy > 0.69.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
-adds a ``torch.profiler`` breakdown of three train steps.
+adds a ``torch.profiler`` breakdown of three train steps of GCN (3a) and
+of GAT (3d, 3e).
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N, E, D = 131_072, 2_000_000, 128
 OUT_D = 8
+GAT_HEADS = 4
 STEPS = 10
 CORA_EPOCHS = 40
 
@@ -142,6 +155,12 @@ def kernel_phase(gnn, g, card: str) -> dict:
     dy8 = torch.randn(N, OUT_D, generator=gen, device=dev)
     e8 = torch.randn(E, OUT_D, generator=gen, device=dev)
     x7 = torch.randn(N, 7, generator=gen, device=dev)
+    # GAT (b)'s backward runs K2 per head at D=32 with w = mask * alpha:
+    # attention weights, about 60% of them dropped to 0
+    x32 = torch.randn(N, D // GAT_HEADS, generator=gen, device=dev)
+    dy32 = torch.randn(N, D // GAT_HEADS, generator=gen, device=dev)
+    w_alpha = (torch.rand(E, generator=gen, device=dev) / 8
+               * ((torch.rand(E, generator=gen, device=dev) < 0.4) / 0.4))
     ir, cr = g.indptr_r, g.col_r
     is_, cs, es = g.indptr_s, g.col_s, g.eid_s
     res = {"k1": {"err": 0.0, "variants": []}, "k2": {"err": 0.0,
@@ -184,8 +203,9 @@ def kernel_phase(gnn, g, card: str) -> dict:
     k1_case("gather-bwd edge rows D=8", (ir, None, None, None, e8))
     k1_case("fwd receiver-CSR D=7 (scalar path)", (ir, cr, None, w, x7))
 
-    for d, xx, dd in ((D, x, dy), (OUT_D, x8, dy8)):
-        args = (is_, cs, es, w, dd, xx)
+    for d, xx, dd, ww in ((D, x, dy, w), (D // GAT_HEADS, x32, dy32, w_alpha),
+                          (OUT_D, x8, dy8, w)):
+        args = (is_, cs, es, ww, dd, xx)
         dx, dw = S.spmm_sddmm(*args)
         rdx, rdw = S.spmm_sddmm_plain(*args)
         err = max(compare(f"K2 dx D={d}", dx, rdx),
@@ -228,6 +248,90 @@ def kernel_phase(gnn, g, card: str) -> dict:
     return res
 
 
+def attention_phase(g, card: str) -> dict:
+    """K12, K3, K4 and K5 against their plain versions at the GAT path's
+    shapes: (H, D) = (4, 32) (layer 1) and (1, 8) (layer 2)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ir, cr, is_, cs = g.indptr_r, g.col_r, g.indptr_s, g.col_s
+    res = {k: {"err": 0.0, "variants": []} for k in ("k3", "k4", "k5",
+                                                      "k12")}
+    bw = peaks(card)[0]
+    log(f"phase 2b: attention kernels vs plain versions (N={N}, E={E}, "
+        "float32)")
+
+    def case(key, label, fn, plain, args, byt, flops, regathered):
+        got, want = fn(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(compare(f"{key.upper()} {label} out{i}", a, b)
+                  for i, (a, b) in enumerate(zip(got, want)))
+        res[key]["err"] = max(res[key]["err"], err)
+        b_ms, b_by = bound(byt, flops, card)
+        res[key]["variants"].append({
+            "case": label, "ms": cuda_ms(lambda: fn(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args), warmup=1, batches=3,
+                                per_batch=2),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "no_reuse_bound_ms": (byt + regathered) / bw * 1e3,
+            "max_abs_err": err})
+        return want
+
+    for h, d in ((4, 32), (1, OUT_D)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        pi, pj, v, dy = rn(N, h), rn(N, h), rn(N, h, d), rn(N, h, d)
+        lg, sl, sv = rn(E, h), rn(N, h), rn(N, h, d)
+        mask = (torch.rand(E, h, generator=gen, device=dev) < 0.4) / 0.4
+        ve = rn(E, h, d)
+        hd = f"H={h} D={d}"
+        # compulsory bytes, float32 and int32 (4 bytes each): indptr N+1;
+        # col E; per-node scalars N*H each; per-edge logits/masks E*H each;
+        # value rows N*H*D (or E*H*D for edge values) and outputs once.
+        idx, nh, nhd = 4 * (N + 1 + E), 4 * N * h, 4 * N * h * d
+        # the no-reuse bound adds what the per-edge gathers read again when
+        # L2 keeps nothing: a value row per edge for a node-table row, and
+        # one scalar per edge for each gathered per-node scalar
+        rows_again, scalar_again = 4 * E * h * d - nhd, 4 * E * h - nh
+        fwd_ops = E * h * (2 * d + 6)   # lrelu/max, exp, sum, D fma
+        case("k12", f"node values {hd}", ES.edge_softmax,
+             ES.edge_softmax_plain, (ir, cr, lg, None, v),
+             idx + 4 * E * h + nhd + nhd + 2 * nh, fwd_ops, rows_again)
+        case("k12", f"node values + dropout mask {hd}", ES.edge_softmax,
+             ES.edge_softmax_plain, (ir, cr, lg, mask, v),
+             idx + 8 * E * h + nhd + nhd + 2 * nh, fwd_ops, rows_again)
+        case("k12", f"edge values + dropout mask {hd}", ES.edge_softmax,
+             ES.edge_softmax_plain, (ir, None, lg, mask, ve),
+             4 * (N + 1) + 8 * E * h + 4 * E * h * d + nhd + 2 * nh,
+             fwd_ops, 0)
+        # K3 gathers pj and the value rows of the senders
+        num, m, s = case("k3", hd, ES.gat_softmax, ES.gat_softmax_plain,
+                         (ir, cr, pi, pj, v, 0.2),
+                         idx + 2 * nh + nhd + nhd + 2 * nh, fwd_ops,
+                         rows_again + scalar_again)
+        out, mx, den = ES.finalize_softmax(num, m, s, sl, sv)
+        bwd = (pi, pj, v, mx, den, (out * dy).sum(-1), dy, 0.2)
+        # five per-node scalars in, v and dy rows in, dpi (K4) or dpj and
+        # dv (K5) out. K4 gathers pj and v rows of the senders, K5 pi, mx,
+        # den, s_n and dy rows of the receivers.
+        case("k4", hd, ES.gat_bwd_dpi, ES.gat_bwd_dpi_plain, (ir, cr) + bwd,
+             idx + 5 * nh + 2 * nhd + nh, E * h * (2 * d + 10),
+             rows_again + scalar_again)
+        case("k5", hd, ES.gat_bwd_rev, ES.gat_bwd_rev_plain,
+             (is_, cs) + bwd, idx + 5 * nh + 2 * nhd + nh + nhd,
+             E * h * (4 * d + 10), rows_again + 4 * scalar_again)
+        del ve, lg, mask
+    for k, r in res.items():
+        for v in r["variants"]:
+            log(f"  time {k.upper():<3} {v['case']:<38} kernel={v['ms']:.4f}"
+                f" ms plain={v['plain_ms']:.4f} ms library=none "
+                f"bound={v['bound_ms']:.4f} ms ({v['bound_by']}) "
+                f"no-reuse bound={v['no_reuse_bound_ms']:.4f} ms")
+    return res
+
+
 # ---- phase 3 ---------------------------------------------------------------
 
 def gcn(M, seed: int, dev):
@@ -236,25 +340,60 @@ def gcn(M, seed: int, dev):
                       M.GCNConv(D, OUT_D, generator=gen, device=dev))
 
 
-def train(model, params, step_args, loss_fn, S, *, steps: int = STEPS):
+def counters():
+    """Every kernel's launch counter (module dicts, updated in place)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax, spmm
+    return (spmm.launches, edge_softmax.launches)
+
+
+def reset_counts() -> None:
+    for c in counters():
+        c.update(dict.fromkeys(c, 0))
+
+
+def read_counts() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
+
+
+def train(model, params, step_args, loss_fn, *, steps: int = STEPS,
+          eval_loss=None):
+    """``steps`` Adam steps with the launch counts of exactly those steps.
+
+    The loss must fall: from the first step's to the last step's, or, with
+    ``eval_loss`` (for training with dropout, whose loss moves with its
+    masks), from ``eval_loss()`` before the steps to after them.
+    """
     from graphneuralnetworks_tpu_torch.training import make_train_step
 
     opt = torch.optim.Adam(params, lr=1e-3)
     step = make_train_step(model, opt, loss_fn)
+    before = float(eval_loss()) if eval_loss is not None else None
     torch.cuda.synchronize()
-    S.launches.update(k1=0, k2=0)
+    reset_counts()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         loss = step(*step_args)
         losses.append(float(loss))     # waits for the step to finish
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(S.launches)
+    launches = read_counts()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+    first, last = losses[0], losses[-1]
+    if eval_loss is not None:
+        first, last = before, float(eval_loss())
+        log(f"  eval loss (no dropout) {first:.6f} -> {last:.6f}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last} "
+                             f"({losses})")
     return losses, times, launches, opt
+
+
+def expect_counts(name: str, launches: dict, per_step: dict) -> None:
+    want = {k: per_step.get(k, 0) * STEPS for k in launches}
+    if launches != want:
+        raise AssertionError(f"{name}: expected launches {want}, got "
+                             f"{launches}")
 
 
 def compare_model(name, model, g, x, args_fn, extra_params=()):
@@ -296,9 +435,18 @@ def compare_model(name, model, g, x, args_fn, extra_params=()):
     return out
 
 
+def gat(M, seed: int, dev, dropout: float = 0.0):
+    """The conv zoo's ``GATConv_h4`` shape with an 8-class head layer."""
+    gen = torch.Generator().manual_seed(seed)
+    return M.GNNChain(
+        M.GATConv(D, D // GAT_HEADS, torch.relu, heads=GAT_HEADS,
+                  dropout=dropout, generator=gen, device=dev),
+        M.GATConv(D, OUT_D, heads=1, concat=False, dropout=dropout,
+                  generator=gen, device=dev))
+
+
 def main_path_phase(g, profile: bool, out_dir) -> dict:
     from graphneuralnetworks_tpu_torch import models as M
-    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
 
     dev = g.device
@@ -318,14 +466,12 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
         return masked_cross_entropy(m(g, x), y, mask)
 
     losses, times, launches, _ = train(model, model.parameters(),
-                                       (g, x, y, mask), loss_fn, S)
+                                       (g, x, y, mask), loss_fn)
     log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f}; ms/step "
         f"median={statistics.median(times):.3f} "
         f"first={times[0]:.3f} all={[round(t, 3) for t in times]}")
     log(f"  launches over {STEPS} steps: {launches}")
-    if launches != {"k1": 3 * STEPS, "k2": 0}:
-        raise AssertionError(f"expected K1 3x and K2 0x per step, got "
-                             f"{launches}")
+    expect_counts("GCN", launches, {"k1": 3})
     res["gcn"] = {"losses": losses, "ms_per_step": times,
                   "median_ms_per_step": statistics.median(times),
                   "launches": launches}
@@ -343,14 +489,11 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
         return masked_cross_entropy(m(g, x, edge_weight=ew), y, mask)
 
     losses_w, times_w, launches_w, _ = train(
-        model_w, list(model_w.parameters()) + [ew], (g, x, y, mask), loss_w,
-        S)
+        model_w, list(model_w.parameters()) + [ew], (g, x, y, mask), loss_w)
     log(f"  loss {losses_w[0]:.6f} -> {losses_w[-1]:.6f}; ms/step "
         f"median={statistics.median(times_w):.3f}")
     log(f"  launches over {STEPS} steps: {launches_w}")
-    if launches_w["k2"] != 2 * STEPS or launches_w["k1"] != 2 * STEPS:
-        raise AssertionError(f"expected K1 2x and K2 2x per step, got "
-                             f"{launches_w}")
+    expect_counts("GCN learned edge weights", launches_w, {"k1": 2, "k2": 2})
     res["gcn_learned_edge_weight"] = {
         "losses": losses_w, "ms_per_step": times_w,
         "median_ms_per_step": statistics.median(times_w),
@@ -363,7 +506,108 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
             "GCN learned edge weights", model_w, g, x,
             lambda extra: {"edge_weight": extra[0]}, [ew]),
     }
+
+    # GAT (a): no attention dropout. Per step each layer launches K3 in the
+    # forward and K4 and K5 in the backward.
+    log(f"phase 3d: GAT train step (GATConv(128,32,relu,heads=4) -> "
+        f"GATConv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
+    model_a = gat(M, 2, dev)
+    losses_a, times_a, launches_a, _ = train(
+        model_a, model_a.parameters(), (g, x, y, mask), loss_fn)
+    log(f"  loss {losses_a[0]:.6f} -> {losses_a[-1]:.6f}; ms/step "
+        f"median={statistics.median(times_a):.3f} "
+        f"first={times_a[0]:.3f} all={[round(t, 3) for t in times_a]}")
+    log(f"  launches over {STEPS} steps: {launches_a}")
+    expect_counts("GAT (a)", launches_a, {"k3": 2, "k4": 2, "k5": 2})
+    res["gat"] = {"losses": losses_a, "ms_per_step": times_a,
+                  "median_ms_per_step": statistics.median(times_a),
+                  "launches": launches_a}
+    if profile:
+        res["gat_profile"] = profile_steps(model_a, (g, x, y, mask), loss_fn,
+                                           None)
+
+    # GAT (b): attention dropout p=0.6 in training mode. Per step each
+    # layer launches K12 in the forward; its backward runs K2 once per head
+    # (4 + 1).
+    log(f"phase 3e: GAT train step with attention dropout 0.6 "
+        f"(deterministic=False), {STEPS} steps")
+    model_b = gat(M, 3, dev, dropout=0.6)
+
+    def loss_drop(m, g, x, y, mask):
+        return masked_cross_entropy(m(g, x, deterministic=False), y, mask)
+
+    def eval_b():
+        with torch.no_grad():
+            return masked_cross_entropy(model_b(g, x), y, mask)
+
+    losses_b, times_b, launches_b, _ = train(
+        model_b, model_b.parameters(), (g, x, y, mask), loss_drop,
+        eval_loss=eval_b)
+    log(f"  loss {losses_b[0]:.6f} -> {losses_b[-1]:.6f}; ms/step "
+        f"median={statistics.median(times_b):.3f} "
+        f"first={times_b[0]:.3f} all={[round(t, 3) for t in times_b]}")
+    log(f"  launches over {STEPS} steps: {launches_b}")
+    expect_counts("GAT (b)", launches_b, {"k12": 2, "k2": GAT_HEADS + 1})
+    res["gat_dropout"] = {"losses": losses_b, "ms_per_step": times_b,
+                          "median_ms_per_step": statistics.median(times_b),
+                          "launches": launches_b}
+    if profile:
+        res["gat_dropout_profile"] = profile_steps(
+            model_b, (g, x, y, mask), loss_drop, None)
+
+    log("phase 3c (GAT): one forward+backward of GAT (a) on the card "
+        "(K3-K5) vs the CPU plain path")
+    res["vs_cpu"]["gat"] = compare_model("GAT", model_a, g, x,
+                                         lambda extra: {})
+    log("phase 3c (GAT dropout): GAT (b)'s attention on the card (K12, K2) "
+        "vs the CPU plain path, one set of dropout masks")
+    res["vs_cpu"]["gat_dropout_attention"] = compare_gat_dropout(g)
     return res
+
+
+def compare_gat_dropout(g) -> dict:
+    """``gat_attention`` with dropout masks, as GAT (b) calls it, on the
+    card and on the CPU with the same inputs and masks: the forward and the
+    gradient of every input, at both layers' (H, D)."""
+    from graphneuralnetworks_tpu_torch.ops.attention import gat_attention
+
+    dev, gc = g.device, g.to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    names = ("pi", "pj", "values", "self_logits", "self_values")
+    out = {}
+    for h, d in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        ins = [rn(N, h), rn(N, h), rn(N, h, d), rn(N, h), rn(N, h, d)]
+        masks = [(torch.rand(rows, h, generator=gen, device=dev) < 0.4) / 0.4
+                 for rows in (E, N)]
+        cot = rn(N, h, d)
+        results = []
+        for gg in (g, gc):
+            dv = gg.device
+            ts = [t.detach().to(dv, copy=True).requires_grad_() for t in ins]
+            before = read_counts()
+            y = gat_attention(gg, ts[0], ts[1], ts[2], 0.2, self_logits=ts[3],
+                              self_values=ts[4],
+                              dropout_masks=tuple(m.to(dv) for m in masks))
+            (y * cot.to(dv)).sum().backward()
+            launched = {k: c - before[k] for k, c in read_counts().items()
+                        if c != before[k]}
+            results.append((y.detach().cpu(), [t.grad.cpu() for t in ts],
+                            launched))
+        (y, grads, launched), (yc, grads_c, launched_c) = results
+        if launched != {"k12": 1, "k2": h} or launched_c:
+            raise AssertionError(f"GAT dropout attention H={h}: launches "
+                                 f"card {launched}, CPU {launched_c}")
+        hd = f"H={h} D={d}"
+        errs = [compare(f"GAT (b) attention {hd} out", y, yc,
+                        rtol=MODEL_RTOL, atol=MODEL_ATOL)]
+        errs += [compare(f"GAT (b) attention {hd} d{nm}", a, b,
+                         rtol=MODEL_RTOL, atol=MODEL_ATOL)
+                 for nm, a, b in zip(names, grads, grads_c)]
+        out[hd] = {"max_abs_err": max(errs), "launches": launched}
+        del ins, masks, results, y, grads, yc, grads_c
+    return out
 
 
 def profile_steps(model, args, loss_fn, out_dir) -> dict:
@@ -381,26 +625,38 @@ def profile_steps(model, args, loss_fn, out_dir) -> dict:
             step(*args)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, host = [], []
     for ev in prof.key_averages():
-        if (not str(ev.device_type).endswith("CUDA")
-                or getattr(ev, "is_user_annotation", False)):
+        if getattr(ev, "is_user_annotation", False):
             continue   # ranges, not kernels: their time is their kernels'
+        if not str(ev.device_type).endswith("CUDA"):
+            if ev.key.startswith("aten::"):
+                host.append((ev.self_cpu_time_total / 1e3 / 3,
+                             ev.count // 3, ev.key))
+            continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((dev_us / 1e3 / 3, ev.count // 3, ev.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    n_ops = sum(r[1] for r in host)
     log(f"  profile (3 steps): wall {wall / 3:.3f} ms/step, device busy "
-        f"{busy:.3f} ms/step ({100 * busy / (wall / 3):.1f}%)")
+        f"{busy:.3f} ms/step ({100 * busy / (wall / 3):.1f}%), "
+        f"{n_ops} aten op calls/step on the host (nested counted)")
     for ms, cnt, key in rows[:20]:
         log(f"    {ms:9.4f} ms/step  x{cnt:<4} {key[:90]}")
+    log("    host self time (profiled), top aten ops: " + ", ".join(
+        f"{key} x{cnt} {ms:.3f} ms" for ms, cnt, key in host[:8]))
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
     return {"wall_ms_per_step": wall / 3, "device_ms_per_step": busy,
+            "aten_ops_per_step": n_ops,
             "top": [{"ms_per_step": ms, "calls_per_step": c, "name": k}
-                    for ms, c, k in rows[:30]]}
+                    for ms, c, k in rows[:30]],
+            "host_top": [{"self_cpu_ms_per_step": ms, "calls_per_step": c,
+                          "name": k} for ms, c, k in host[:30]]}
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -408,7 +664,6 @@ def profile_steps(model, args, loss_fn, out_dir) -> dict:
 def cora_phase(dev) -> dict:
     from graphneuralnetworks_tpu_torch import models as M
     from graphneuralnetworks_tpu_torch.data import load_cora
-    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
     from graphneuralnetworks_tpu_torch.training import (
         make_train_step, masked_accuracy, masked_cross_entropy)
 
@@ -432,21 +687,25 @@ def cora_phase(dev) -> dict:
         if name == "SAGE":
             return M.GNNChain(M.SAGEConv(din, nh, torch.relu, **kw),
                               M.SAGEConv(nh, nh, torch.relu, **kw), head)
+        if name == "GAT":
+            return M.GNNChain(M.GATConv(din, nh, torch.relu, heads=2, **kw),
+                              M.GATConv(2 * nh, nh, torch.relu, heads=2,
+                                        concat=False, **kw), head)
         return M.GNNChain(M.GINConv(M.MLP([din, nh], **kw), 0.01),
                           M.GINConv(M.MLP([nh, nh], **kw), 0.01), head)
 
     out = {"real_dataset": is_real}
-    for name in ("GCN", "GraphConv", "SAGE", "GIN"):
+    for name in ("GCN", "GraphConv", "SAGE", "GIN", "GAT"):
         torch.manual_seed(17)
         model = build(name, torch.Generator().manual_seed(17))
         opt = torch.optim.Adam(model.parameters(), lr=1e-2)
         step = make_train_step(
             model, opt,
             lambda m, g, x, y, mask: masked_cross_entropy(m(g, x), y, mask))
-        S.launches.update(k1=0, k2=0)
+        reset_counts()
         for _ in range(CORA_EPOCHS):
             step(g, x, y, data.train_mask)
-        launches = dict(S.launches)
+        launches = read_counts()
         with torch.no_grad():
             logits = model(g, x)
         tr = float(masked_accuracy(logits, y, data.train_mask))
@@ -456,8 +715,9 @@ def cora_phase(dev) -> dict:
         if not (tr > 0.94 and te > 0.69):
             raise AssertionError(f"{name}: Cora bar missed (train {tr}, "
                                  f"test {te})")
-        if launches["k1"] == 0:
-            raise AssertionError(f"{name}: K1 never launched")
+        kernel = "k3" if name == "GAT" else "k1"
+        if launches[kernel] == 0:
+            raise AssertionError(f"{name}: {kernel.upper()} never launched")
         out[name] = {"train_acc": tr, "test_acc": te, "launches": launches}
     return out
 
@@ -509,24 +769,31 @@ def main() -> int:
         f"({g.num_nodes} nodes, {g.num_edges} edges)")
 
     kern = kernel_phase(gnn, g, card)
+    kern.update(attention_phase(g, card))
     main_res = main_path_phase(g, args.profile, args.out)
     cora = cora_phase(g.device)
 
-    def entry(key, name, line, launches):
+    def entry(key, name, src, line, path):
         head = kern[key]["variants"][0]
         return {"name": name, "route": "cuda",
-                "source": "graphneuralnetworks_tpu_torch/csrc/spmm.cu",
-                "replaces": f"graphneuralnetworks_tpu/ops/pallas/spmm.py:"
+                "source": f"graphneuralnetworks_tpu_torch/csrc/{src}.cu",
+                "replaces": f"graphneuralnetworks_tpu/ops/pallas/{src}.py:"
                             f"{line}",
-                "launches": launches, "max_abs_err": kern[key]["err"],
+                "launches": main_res[path]["launches"][key],
+                "max_abs_err": kern[key]["err"],
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"], "case": head["case"]}
 
+    # each kernel's launches are read from the path that drives it
     kernels = [
-        entry("k1", "spmm_csr_f32", 256, main_res["gcn"]["launches"]["k1"]),
-        entry("k2", "spmm_sddmm_csr_f32", 331,
-              main_res["gcn_learned_edge_weight"]["launches"]["k2"]),
+        entry("k1", "spmm_csr_f32", "spmm", 256, "gcn"),
+        entry("k2", "spmm_sddmm_csr_f32", "spmm", 331,
+              "gcn_learned_edge_weight"),
+        entry("k3", "gat_softmax_f32", "edge_softmax", 804, "gat"),
+        entry("k4", "gat_bwd_dpi_f32", "edge_softmax", 987, "gat"),
+        entry("k5", "gat_bwd_rev_f32", "edge_softmax", 1045, "gat"),
+        entry("k12", "edge_softmax_f32", "edge_softmax", 281, "gat_dropout"),
     ]
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")

@@ -13,8 +13,14 @@ Typical use::
     import graphneuralnetworks_tpu_torch as gnn
     from graphneuralnetworks_tpu_torch import models as M
     g = gnn.rand_graph(1000, 5000, seed=0)
-    model = M.GNNChain(M.GCNConv(16, 32, torch.relu), M.GCNConv(32, 8))
-    y = model(g, torch.randn(1000, 16, device="cuda"))
+    model = M.GNNChain(M.GCNConv(16, 32, torch.relu),
+                       M.GATConv(32, 8, heads=4, dropout=0.6))
+    y = model(g, torch.randn(1000, 16, device="cuda"), deterministic=False)
+
+Attention aggregation (``gnn.ops.gat_attention``,
+``gnn.ops.attention_aggregate``) runs on the edge-softmax kernels of
+``ops.cuda.edge_softmax``; message passing on the SpMM kernels of
+``ops.cuda.spmm``.
 """
 
 import torch

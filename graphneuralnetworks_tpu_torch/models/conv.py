@@ -1,4 +1,4 @@
-"""Convolution layers of the main path: GCN, GraphConv, GIN, SAGE, and MLP.
+"""Convolution layers: GCN, GraphConv, GIN, SAGE, MLP and GAT.
 
 Counterpart of ``graphneuralnetworks_tpu/models/conv.py`` (surfaces from
 GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
@@ -8,7 +8,8 @@ GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
 and added as ``c_i * x_i``.
 
 Constructors take ``generator`` (a ``torch.Generator`` for the Glorot
-init), ``device`` (``None``: the CUDA card) and ``dtype``.
+init), ``device`` (``None``: the CUDA card) and ``dtype``. GAT's self-loop
+is virtual too (:mod:`..ops.attention`).
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ from torch import nn
 from .. import resolve_device
 from ..graph import GraphTuple
 from ..ops import copy_xj, e_mul_xj, propagate, w_mul_xj
-from ..ops.segment import segment_sum
+from ..ops.attention import attention_aggregate, gat_attention
+from ..ops.cuda.edge_softmax import lrelu
+from ..ops.segment import gather, segment_sum
 from ..query import degree
 from .basic import GNNLayer, glorot_uniform
 
-__all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "MLP"]
+__all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "MLP", "GATConv"]
 
 
 def _weight(shape, generator, device, dtype) -> nn.Parameter:
@@ -35,6 +38,20 @@ def _weight(shape, generator, device, dtype) -> nn.Parameter:
 
 def _bias(n, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.zeros(n, dtype=dtype, device=device))
+
+
+def _dense(fan_in, fan_out, use_bias, generator, device,
+           dtype) -> nn.Linear:
+    """``nn.Linear`` with a Glorot weight (``[out, in]``) and a zero bias."""
+    lin = nn.utils.skip_init(nn.Linear, fan_in, fan_out, bias=use_bias,
+                             device=device, dtype=dtype)
+    with torch.no_grad():
+        lin.weight.copy_(glorot_uniform((fan_out, fan_in),
+                                        generator=generator, dtype=dtype,
+                                        device=device))
+        if use_bias:
+            lin.bias.zero_()
+    return lin
 
 
 def _expand_srcdst(x):
@@ -58,16 +75,9 @@ class MLP(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        self.linears = nn.ModuleList()
-        for a, b in zip(dims[:-1], dims[1:]):
-            lin = nn.utils.skip_init(nn.Linear, a, b, bias=use_bias,
-                                     device=device, dtype=dtype)
-            with torch.no_grad():
-                lin.weight.copy_(glorot_uniform((b, a), generator=generator,
-                                                dtype=dtype, device=device))
-                if use_bias:
-                    lin.bias.zero_()
-            self.linears.append(lin)
+        self.linears = nn.ModuleList(
+            _dense(a, b, use_bias, generator, device, dtype)
+            for a, b in zip(dims[:-1], dims[1:]))
         self.act = act
         self.final_act = final_act
 
@@ -250,6 +260,106 @@ class SAGEConv(GNNLayer):
         xj, xi = _expand_srcdst(x)
         m = propagate(copy_xj, g, self.aggr, xj=xj)[: xi.shape[0]]
         out = torch.cat([xi, m], -1) @ self.weight
+        if self.bias is not None:
+            out = out + self.bias
+        return self.act(out) if self.act is not None else out
+
+
+# ---- attention family ------------------------------------------------------
+
+def _attn_dropout_masks(p, gen, n_edges, n_dst, heads, with_self, device,
+                        dtype):
+    """Multiplicative dropout masks (0 or 1/(1-p)) for the attention
+    weights of the edges and, ``with_self``, of the virtual self-loops."""
+    def draw(rows):
+        keep = torch.rand((rows, heads), generator=gen, device=device) < 1 - p
+        return keep.to(dtype) / (1 - p)
+    return draw(n_edges), (draw(n_dst) if with_self else None)
+
+
+class GATConv(GNNLayer):
+    """Graph attention (Velickovic et al.; reference conv.jl:309-411, GNNlib
+    conv.jl:112-167).
+
+    The score ``leaky_relu(a' [W x_i; W x_j; W_e e])`` is linear in the
+    endpoints, so ``a`` is contracted at node level and only the per-head
+    scalars ``pi``/``pj`` meet on the edges. Parameters keep the JAX
+    package's names: ``dense_x`` and ``dense_e`` (``nn.Linear`` without
+    bias), ``a [k*out, heads]`` and ``bias``. With ``dropout > 0`` and
+    ``deterministic=False`` the attention weights are dropped with masks
+    drawn from a generator the layer holds, seeded from ``generator``.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 act: Callable | None = None, *, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 add_self_loops: bool = True, dropout: float = 0.0,
+                 use_bias: bool = True, edge_features: int = 0,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        if add_self_loops and edge_features > 0:
+            raise ValueError("edge features + add_self_loops unsupported "
+                             "(reference conv.jl:332)")
+        device = resolve_device(device)
+        self.dense_x = _dense(in_features, out_features * heads, False,
+                              generator, device, dtype)
+        self.dense_e = (_dense(edge_features, out_features * heads, False,
+                               generator, device, dtype)
+                        if edge_features > 0 else None)
+        k = 3 if edge_features > 0 else 2
+        self.a = _weight((k * out_features, heads), generator, device, dtype)
+        self.bias = (_bias(out_features * heads if concat else out_features,
+                           device, dtype) if use_bias else None)
+        self.dropout = dropout
+        self._gen = (torch.Generator(device=device).manual_seed(
+            int(torch.randint(0, 2**62, (1,), generator=generator)))
+            if dropout > 0 else None)
+        self.act = act
+        self.heads, self.concat = heads, concat
+        self.negative_slope = negative_slope
+        self.add_self_loops = add_self_loops
+        self.out_features = out_features
+
+    def forward(self, g: GraphTuple, x=None, e=None, *,
+                deterministic: bool = True):
+        if x is None:
+            x = g.x
+        xj, xi = _expand_srcdst(x)
+        H, O, slope = self.heads, self.out_features, self.negative_slope
+        Wxj = self.dense_x(xj).reshape(-1, H, O)
+        Wxi = Wxj if xi is xj else self.dense_x(xi).reshape(-1, H, O)
+        a = self.a
+        pi = torch.einsum("nhf,fh->nh", Wxi, a[:O])          # [N_dst, H]
+        pj = torch.einsum("nhf,fh->nh", Wxj, a[O:2 * O])     # [N_src, H]
+        self_logits = self_values = None
+        if self.add_self_loops:
+            pj_self = (pi + pj if xi is xj
+                       else pi + torch.einsum("nhf,fh->nh", Wxi, a[O:2 * O]))
+            self_logits, self_values = lrelu(pj_self, slope), Wxi
+        masks = None
+        if self.dropout > 0 and not deterministic:
+            masks = _attn_dropout_masks(
+                self.dropout, self._gen, g.num_edges,
+                Wxi.shape[0], H, self.add_self_loops, Wxi.device, Wxi.dtype)
+        if e is None and self.dense_e is None:
+            out = gat_attention(g, pi, pj, Wxj, slope,
+                                self_logits=self_logits,
+                                self_values=self_values, dropout_masks=masks,
+                                num_segments=Wxi.shape[0],
+                                pj_weight=a[O:2 * O])
+        else:
+            if e is None or self.dense_e is None:
+                raise ValueError("edge features required/not configured")
+            We = self.dense_e(e).reshape(-1, H, O)
+            raw = (gather(pi, g.receivers) + gather(pj, g.senders)
+                   + torch.einsum("ehf,fh->eh", We, a[2 * O:]))
+            out = attention_aggregate(g, lrelu(raw, slope), Wxj,
+                                      self_logits=self_logits,
+                                      self_values=self_values,
+                                      dropout_masks=masks,
+                                      num_segments=Wxi.shape[0],
+                                      node_values=True)
+        out = out.reshape(-1, H * O) if self.concat else out.mean(1)
         if self.bias is not None:
             out = out + self.bias
         return self.act(out) if self.act is not None else out

@@ -1,0 +1,129 @@
+"""Attention aggregation over in-edges, with a virtual self-loop.
+
+Counterpart of ``graphneuralnetworks_tpu/ops/attention.py`` (reference
+GNNlib conv.jl:112-150 and utils.jl:84-97). The self-loop never becomes an
+edge: its logit and value enter each node's softmax analytically, which is
+the softmax over {in-edges} and {self}. Attention dropout is a pair of
+multiplicative masks (0 or 1/(1-p)) on the normalised weights; the softmax
+denominator is not dropped.
+
+Dispatch: on CUDA tensors both functions go to the kernels of
+:mod:`.cuda.edge_softmax` (K3-K5 for :func:`gat_attention` without
+dropout, K12 otherwise), at any width and any number of head dimensions;
+a shape the kernels cannot take raises. Only CPU tensors take the plain
+path below, the counterpart of the JAX package's XLA path.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..graph import GraphTuple
+from .cuda.edge_softmax import (edge_softmax_aggregate,
+                                edge_softmax_aggregate_nodes,
+                                gat_attention_nodes, lrelu)
+from .segment import gather, segment_max, segment_sum
+
+__all__ = ["attention_aggregate", "gat_attention"]
+
+
+def _kernel_route(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _aggregate_kernels(g, logits, values, self_logits, self_values,
+                       dropout_masks, n, node_values):
+    """:func:`attention_aggregate` on the kernels: the head dimensions
+    ``*H`` (none, one or more) flatten into one for K12 and come back."""
+    shape_h, d = tuple(logits.shape[1:]), values.shape[-1]
+    h = math.prod(shape_h)
+
+    def heads(t, *tail):
+        return None if t is None else t.reshape(t.shape[0], h, *tail)
+
+    dm = dropout_masks
+    if dm is not None:
+        dm = (heads(dm[0]), heads(dm[1]))
+    fn = edge_softmax_aggregate_nodes if node_values else edge_softmax_aggregate
+    out = fn(g, heads(logits), heads(values, d), num_segments=n,
+             self_logits=heads(self_logits), self_values=heads(self_values, d),
+             dropout_masks=dm)
+    return out.reshape((out.shape[0],) + shape_h + (d,))
+
+
+def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
+                  self_logits=None, self_values=None, dropout_masks=None,
+                  num_segments=None, pj_weight=None):
+    """GAT attention with logits ``leaky_relu(pi[r_e] + pj[s_e], slope)``.
+
+    ``pi [n_dst, H]`` / ``pj [N_src, H]`` are the receiver and sender logit
+    projections and ``values [N_src, H, D]`` the senders' node values. On
+    the card without dropout the logits are computed inside the kernels
+    (:func:`~.cuda.edge_softmax.gat_attention_nodes`); otherwise they are
+    gathered and :func:`attention_aggregate` takes over. ``pj_weight`` is
+    accepted for the JAX package's signature and not used.
+    """
+    if _kernel_route(values) and dropout_masks is None:
+        return gat_attention_nodes(g, pi, pj, values, slope,
+                                   self_logits=self_logits,
+                                   self_values=self_values,
+                                   num_segments=num_segments,
+                                   pj_weight=pj_weight)
+    logits = lrelu(gather(pi, g.receivers) + gather(pj, g.senders), slope)
+    return attention_aggregate(g, logits, values, self_logits=self_logits,
+                               self_values=self_values,
+                               dropout_masks=dropout_masks,
+                               num_segments=num_segments, node_values=True)
+
+
+def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,
+                        self_values=None, dropout_masks=None,
+                        num_segments=None, node_values: bool = False):
+    """Softmax ``logits`` over each node's in-edges and sum ``values``.
+
+    Args:
+      logits: ``[E, *H]`` scores, one row per edge (in the graph's order).
+      values: ``[E, *H, D]`` messages or, with ``node_values=True``,
+        ``[N_src, *H, D]`` sender node values (edge ``e`` takes
+        ``values[s_e]``).
+      self_logits/self_values: optional ``[n, *H]`` / ``[n, *H, D]`` virtual
+        self-loop terms.
+      dropout_masks: optional ``(mask_e [E, *H], mask_self [n, *H] or
+        None)`` scales of the normalised attention weights.
+      num_segments: the number of receiving nodes ``n`` (default: all).
+
+    Returns ``[n, *H, D]``.
+    """
+    n = num_segments if num_segments is not None else g.num_nodes
+    if values.dim() != logits.dim() + 1:
+        raise ValueError(f"values {tuple(values.shape)} must have one more "
+                         f"dimension than logits {tuple(logits.shape)}")
+    if _kernel_route(values):
+        return _aggregate_kernels(g, logits, values, self_logits,
+                                  self_values, dropout_masks, n, node_values)
+
+    r = g.receivers
+    if node_values:
+        values = gather(values, g.senders)
+    mx = segment_max(logits, r, n, empty_value=None)   # -inf: no in-edges
+    if self_logits is not None:
+        mx = torch.maximum(mx, self_logits)
+    mx = mx.masked_fill(torch.isneginf(mx), 0.0)
+    ex = torch.exp(logits - gather(mx, r))
+    denom = segment_sum(ex, r, n)
+    if self_logits is not None:
+        ex_self = torch.exp(self_logits - mx)
+        denom = denom + ex_self
+    denom = denom.clamp(min=torch.finfo(ex.dtype).tiny)
+    alpha = ex / gather(denom, r)
+    if dropout_masks is not None:
+        alpha = alpha * dropout_masks[0]
+    out = segment_sum(alpha[..., None] * values, r, n)
+    if self_logits is not None:
+        alpha_self = ex_self / denom
+        if dropout_masks is not None and dropout_masks[1] is not None:
+            alpha_self = alpha_self * dropout_masks[1]
+        out = out + alpha_self[..., None] * self_values
+    return out

@@ -1,0 +1,523 @@
+"""Edge softmax with aggregation on the card: K3, K4, K5 and K12.
+
+Counterpart of ``graphneuralnetworks_tpu/ops/pallas/edge_softmax.py``. The
+TPU kernels stream edge blocks through one-hot matmuls over 128x512
+receiver blocks; here each kernel gives one warp to one (row, head) pair of
+a CSR grouping (``csrc/edge_softmax.cu``):
+
+- K12 ``edge_softmax``: over the receiver CSR, the softmax of given
+  per-edge logits ``[E, H]`` and the sum of node values (``col`` given) or
+  edge values (``col=None``), the numerator scaled by a dropout mask.
+- K3 ``gat_softmax``: the same with GAT's logits
+  ``leaky_relu(pi[r] + pj[s])`` computed in the kernel.
+- K4 ``gat_bwd_dpi`` (receiver CSR) and K5 ``gat_bwd_rev`` (sender CSR):
+  GAT's backward, recomputing each edge's attention weight from per-node
+  scalars.
+
+The forward kernels return the unnormalised ``(num, m, s)``; the virtual
+self-loop folds in afterwards (:func:`finalize_softmax`). Three autograd
+functions sit on top: :func:`edge_softmax_aggregate` (edge values, eager
+backward), :func:`edge_softmax_aggregate_nodes` (node values; backward K2
+once per head) and :func:`gat_attention_nodes` (backward K4 and K5).
+
+Dispatch: a tensor on the CPU takes the plain PyTorch version
+(``*_plain``); a CUDA tensor launches the kernel or raises. ``launches``
+counts kernel launches, and nothing else adds to it. leaky_relu's slope at
+``raw == 0`` is 1, as ``jax.nn.leaky_relu`` differentiates it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from .build import load
+from .spmm import _check, _ptr, _raise_on_error, _route, _row_ids, spmm_sddmm
+
+__all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
+           "gat_bwd_dpi", "gat_bwd_rev", "edge_softmax_plain",
+           "gat_softmax_plain", "gat_bwd_dpi_plain", "gat_bwd_rev_plain",
+           "edge_softmax_aggregate", "edge_softmax_aggregate_nodes",
+           "gat_attention_nodes"]
+
+launches = {"k3": 0, "k4": 0, "k5": 0, "k12": 0}
+
+_NEG_INF = float("-inf")
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("edge_softmax")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn, n_ptr, slope in (("edge_softmax_f32", 8, False),
+                             ("gat_softmax_f32", 8, True),
+                             ("gat_bwd_dpi_f32", 10, True),
+                             ("gat_bwd_rev_f32", 11, True)):
+        f = getattr(lib, fn)
+        f.argtypes = [ptr] * n_ptr + [i32] * 3 + [f32] * slope + [ptr]
+        f.restype = i32
+    lib.gnn_cuda_error_string.argtypes = [i32]
+    lib.gnn_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def lrelu(raw: torch.Tensor, slope: float) -> torch.Tensor:
+    """leaky_relu with ``jax.nn.leaky_relu``'s gradient: slope 1 at 0."""
+    return torch.where(raw >= 0, raw, slope * raw)
+
+
+def _dlrelu(raw: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(raw >= 0, torch.ones_like(raw),
+                       torch.full_like(raw, slope))
+
+
+def finalize_softmax(num, m, den, self_logits=None, self_values=None,
+                     mask_self=None):
+    """Fold the virtual self-loop into a forward's ``(num, m, s)`` and
+    normalise: ``(out, mx, den)``.
+
+    The kernels' row max ``m`` never saw the self logit, so the sums are
+    rescaled by ``exp(m - max(m, self_logits))`` first. ``mx`` is 0 where
+    the row max is ``-inf``, and ``den`` at least ``finfo.tiny``: a node
+    with no in-edges and no self-loop gets ``out = 0``.
+    """
+    if self_logits is not None:
+        m_tot = torch.maximum(m, self_logits)
+        c = torch.exp(m - m_tot).masked_fill(torch.isneginf(m), 0.0)
+        ex_self = torch.exp(self_logits - m_tot)
+        den = den * c + ex_self
+        sv = (self_values if mask_self is None
+              else self_values * mask_self[..., None])
+        num = num * c[..., None] + ex_self[..., None] * sv
+        mx = m_tot
+    else:
+        mx = m
+    mx = mx.masked_fill(torch.isneginf(mx), 0.0)
+    den = den.clamp(min=torch.finfo(num.dtype).tiny)
+    return num / den[..., None], mx, den
+
+
+# ---- plain PyTorch versions (the CPU path, and the reference on the card) --
+
+def _softmax_sums(rows, n, lg, mask, v_e):
+    """``(num, m, s)`` of ``lg [E, H]`` and edge rows ``v_e [E, H, D]``
+    grouped by ``rows``."""
+    m = lg.new_full((n, lg.shape[1]), _NEG_INF).scatter_reduce_(
+        0, rows[:, None].expand_as(lg), lg, "amax")
+    me = m.index_select(0, rows)
+    p = torch.exp(lg - me).masked_fill(torch.isneginf(me), 0.0)
+    s = lg.new_zeros(m.shape).index_add_(0, rows, p)
+    pw = p if mask is None else p * mask
+    num = v_e.new_zeros((n,) + tuple(v_e.shape[1:]))
+    return num.index_add_(0, rows, pw[..., None] * v_e), m, s
+
+
+def edge_softmax_plain(indptr, col, logits, mask, values):
+    """K12's function over a receiver CSR: ``(num, m, s)``.
+
+    ``m[i]`` is the max of row ``i``'s logits (``-inf`` for an empty row),
+    ``s[i] = sum_e exp(lg_e - m[i])`` and ``num[i] = sum_e exp(lg_e - m[i])
+    * mask_e * v_e`` with ``v_e = values[col[e]]`` (node values) or
+    ``values[e]`` (``col=None``, edge values); ``mask=None`` is all ones.
+    """
+    rows = _row_ids(indptr, logits.shape[0])
+    v_e = values if col is None else values.index_select(0, col.long())
+    return _softmax_sums(rows, indptr.numel() - 1, logits, mask, v_e)
+
+
+def gat_softmax_plain(indptr, col, pi, pj, values_n, slope):
+    """K3's function: :func:`edge_softmax_plain` of the node values with
+    logits ``leaky_relu(pi[r_e] + pj[s_e])``."""
+    rows, cols = _row_ids(indptr, col.numel()), col.long()
+    lg = lrelu(pi.index_select(0, rows) + pj.index_select(0, cols), slope)
+    return _softmax_sums(rows, indptr.numel() - 1, lg, None,
+                         values_n.index_select(0, cols))
+
+
+def _gat_edge_terms(r, s, pi, pj, values_n, mx, den, s_n, dy, slope):
+    """Per edge: ``alpha``, ``dy[r]`` and ``dlg = alpha * (<v[s], dy[r]> -
+    s_n[r]) * leaky_relu'(raw)``."""
+    raw = pi.index_select(0, r) + pj.index_select(0, s)
+    alpha = (torch.exp(lrelu(raw, slope) - mx.index_select(0, r))
+             / den.index_select(0, r))
+    dy_e = dy.index_select(0, r)
+    vd = (values_n.index_select(0, s) * dy_e).sum(-1)
+    dlg = alpha * (vd - s_n.index_select(0, r)) * _dlrelu(raw, slope)
+    return alpha, dy_e, dlg
+
+
+def gat_bwd_dpi_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
+                      slope):
+    """K4's function over the receiver CSR: ``dpi[r] = sum_e dlg_e``."""
+    rows = _row_ids(indptr, col.numel())
+    _, _, dlg = _gat_edge_terms(rows, col.long(), pi, pj, values_n, mx, den,
+                                s_n, dy, slope)
+    return pi.new_zeros(pi.shape).index_add_(0, rows, dlg)
+
+
+def gat_bwd_rev_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
+                      slope):
+    """K5's function over the sender CSR (``col``: the receivers):
+    ``(dpj, dv)`` with ``dpj[s] = sum_e dlg_e``, ``dv[s] = sum_e alpha_e
+    dy[r_e]``."""
+    rows = _row_ids(indptr, col.numel())
+    alpha, dy_e, dlg = _gat_edge_terms(col.long(), rows, pi, pj, values_n,
+                                       mx, den, s_n, dy, slope)
+    dpj = pj.new_zeros(pj.shape).index_add_(0, rows, dlg)
+    dv = values_n.new_zeros(values_n.shape).index_add_(
+        0, rows, alpha[..., None] * dy_e)
+    return dpj, dv
+
+
+# ---- kernel wrappers -------------------------------------------------------
+
+def _check_launch(indptr, col, scalars, rows3) -> torch.device:
+    """float32 ``[rows, H]`` scalars and ``[rows, H, D]`` rows, int32 CSR,
+    all contiguous on one card, with one H and one D."""
+    device = indptr.device
+    _check(indptr, "indptr", torch.int32, device)
+    _check(col, "col", torch.int32, device)
+    for ndim, group in ((2, scalars), (3, rows3)):
+        for name, t in group.items():
+            _check(t, name, torch.float32, device)
+            if t is not None and t.dim() != ndim:
+                raise ValueError(f"{name} must have {ndim} dimensions "
+                                 f"([rows, H{', D' * (ndim == 3)}]), got "
+                                 f"{tuple(t.shape)}")
+    heads = {t.shape[1] for t in list(scalars.values()) + list(rows3.values())
+             if t is not None}
+    widths = {t.shape[2] for t in rows3.values()}
+    if len(heads) != 1 or len(widths) != 1:
+        raise ValueError(f"operands disagree on H or D: heads {heads}, "
+                         f"widths {widths}")
+    return device
+
+
+def _same_rows(n: int, **ts) -> None:
+    bad = {k: t.shape[0] for k, t in ts.items()
+           if t is not None and t.shape[0] != n}
+    if bad:
+        raise ValueError(f"expected {n} rows, got {bad}")
+
+
+def _launch(fn: str, key: str, device, *args) -> None:
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, fn)(*args, stream)
+    launches[key] += 1
+    _raise_on_error(lib, code, fn)
+
+
+def _forward_outputs(n, heads, d, device):
+    return (torch.empty((n, heads, d), dtype=torch.float32, device=device),
+            torch.empty((n, heads), dtype=torch.float32, device=device),
+            torch.empty((n, heads), dtype=torch.float32, device=device))
+
+
+def _edge_softmax_kernel(indptr, col, logits, mask, values):
+    device = _check_launch(indptr, col, {"logits": logits, "mask": mask},
+                           {"values": values})
+    n, (_, heads, d) = indptr.numel() - 1, values.shape
+    _same_rows(col.numel() if col is not None else values.shape[0],
+               logits=logits, mask=mask)
+    num, m, s = _forward_outputs(n, heads, d, device)
+    if n == 0 or heads == 0:
+        return num, m, s
+    _launch("edge_softmax_f32", "k12", device, _ptr(indptr), _ptr(col),
+            _ptr(logits), _ptr(mask), _ptr(values), _ptr(num), _ptr(m),
+            _ptr(s), n, heads, d)
+    return num, m, s
+
+
+def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope):
+    device = _check_launch(indptr, col, {"pi": pi, "pj": pj},
+                           {"values_n": values_n})
+    n, (_, heads, d) = indptr.numel() - 1, values_n.shape
+    _same_rows(n, pi=pi)
+    _same_rows(values_n.shape[0], pj=pj)
+    num, m, s = _forward_outputs(n, heads, d, device)
+    if n == 0 or heads == 0:
+        return num, m, s
+    _launch("gat_softmax_f32", "k3", device, _ptr(indptr), _ptr(col),
+            _ptr(pi), _ptr(pj), _ptr(values_n), _ptr(num), _ptr(m), _ptr(s),
+            n, heads, d, float(slope))
+    return num, m, s
+
+
+def _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den, s_n, dy):
+    device = _check_launch(indptr, col, {"pi": pi, "pj": pj, "mx": mx,
+                                         "den": den, "s_n": s_n},
+                           {"values_n": values_n, "dy": dy})
+    # receiver side and sender side
+    _same_rows(pi.shape[0], mx=mx, den=den, s_n=s_n, dy=dy)
+    _same_rows(pj.shape[0], values_n=values_n)
+    return device, tuple(_ptr(t) for t in (indptr, col, pi, pj, values_n,
+                                           mx, den, s_n, dy))
+
+
+def _gat_bwd_dpi_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
+                        slope):
+    device, args = _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den,
+                                 s_n, dy)
+    n, heads, d = indptr.numel() - 1, pi.shape[1], dy.shape[2]
+    _same_rows(n, pi=pi)
+    dpi = torch.empty((n, heads), dtype=torch.float32, device=device)
+    if n == 0 or heads == 0:
+        return dpi
+    _launch("gat_bwd_dpi_f32", "k4", device, *args, _ptr(dpi), n, heads, d,
+            float(slope))
+    return dpi
+
+
+def _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
+                        slope):
+    device, args = _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den,
+                                 s_n, dy)
+    n, heads, d = indptr.numel() - 1, pi.shape[1], dy.shape[2]
+    _same_rows(n, pj=pj)
+    dpj = torch.empty((n, heads), dtype=torch.float32, device=device)
+    dv = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    if n == 0 or heads == 0:
+        return dpj, dv
+    _launch("gat_bwd_rev_f32", "k5", device, *args, _ptr(dpj), _ptr(dv), n,
+            heads, d, float(slope))
+    return dpj, dv
+
+
+def edge_softmax(indptr, col, logits, mask, values):
+    """K12 on CUDA tensors, :func:`edge_softmax_plain` on CPU tensors."""
+    if _route(values) == "cpu":
+        return edge_softmax_plain(indptr, col, logits, mask, values)
+    return _edge_softmax_kernel(indptr, col, logits, mask, values)
+
+
+def gat_softmax(indptr, col, pi, pj, values_n, slope):
+    """K3 on CUDA tensors, :func:`gat_softmax_plain` on CPU tensors."""
+    if _route(values_n) == "cpu":
+        return gat_softmax_plain(indptr, col, pi, pj, values_n, slope)
+    return _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope)
+
+
+def gat_bwd_dpi(indptr, col, pi, pj, values_n, mx, den, s_n, dy, slope):
+    """K4 on CUDA tensors, :func:`gat_bwd_dpi_plain` on CPU tensors."""
+    if _route(dy) == "cpu":
+        return gat_bwd_dpi_plain(indptr, col, pi, pj, values_n, mx, den, s_n,
+                                 dy, slope)
+    return _gat_bwd_dpi_kernel(indptr, col, pi, pj, values_n, mx, den, s_n,
+                               dy, slope)
+
+
+def gat_bwd_rev(indptr, col, pi, pj, values_n, mx, den, s_n, dy, slope):
+    """K5 on CUDA tensors, :func:`gat_bwd_rev_plain` on CPU tensors."""
+    if _route(dy) == "cpu":
+        return gat_bwd_rev_plain(indptr, col, pi, pj, values_n, mx, den, s_n,
+                                 dy, slope)
+    return _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n,
+                               dy, slope)
+
+
+# ---- autograd --------------------------------------------------------------
+
+def _contiguous(*ts):
+    return tuple(None if t is None else t.contiguous() for t in ts)
+
+
+def _self_grads(self_logits, self_values, mask_self, mx, den, s_n, dy):
+    """Gradients of the self logit and self value (edge_softmax.py:1216)."""
+    if self_logits is None:
+        return None, None
+    alpha = torch.exp(self_logits - mx) / den
+    m_alpha = alpha if mask_self is None else alpha * mask_self
+    dsl = m_alpha * (self_values * dy).sum(-1) - alpha * s_n
+    return dsl, m_alpha[..., None] * dy
+
+
+def _edge_alpha(logits, mask_e, mx, den, receivers):
+    alpha = (torch.exp(logits - mx.index_select(0, receivers))
+             / den.index_select(0, receivers))
+    return alpha, (alpha if mask_e is None else alpha * mask_e)
+
+
+class EdgeSoftmaxFunction(torch.autograd.Function):
+    """Softmax over in-edges and sum of EDGE values; K12 forward, eager
+    backward (edge_softmax.py:182-212)."""
+
+    @staticmethod
+    def forward(ctx, logits, values, self_logits, self_values, mask_e,
+                mask_self, indptr_r, receivers):
+        logits, values, mask_e = _contiguous(logits, values, mask_e)
+        num, m, s = edge_softmax(indptr_r, None, logits, mask_e, values)
+        out, mx, den = finalize_softmax(num, m, s, self_logits, self_values,
+                                        mask_self)
+        ctx.save_for_backward(logits, values, self_logits, self_values,
+                              mask_e, mask_self, out, mx, den, receivers)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (logits, values, self_logits, self_values, mask_e, mask_self, out,
+         mx, den, r) = ctx.saved_tensors
+        alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r)
+        dy_e = dy.index_select(0, r)
+        s_n = (out * dy).sum(-1)
+        dl = (m_alpha * (values * dy_e).sum(-1)
+              - alpha * s_n.index_select(0, r))
+        dsl, dsv = _self_grads(self_logits, self_values, mask_self, mx, den,
+                               s_n, dy)
+        return (dl, m_alpha[..., None] * dy_e, dsl, dsv, None, None, None,
+                None)
+
+
+class EdgeSoftmaxNodesFunction(torch.autograd.Function):
+    """Softmax over in-edges and sum of the senders' NODE values; K12
+    forward. Backward: per head, one K2 sweep over the sender CSR with
+    ``w = mask * alpha`` gives both ``dv[:, h]`` and the per-edge
+    ``<v[s_e], dy[r_e]>`` of the logit gradient (edge_softmax.py:1756)."""
+
+    @staticmethod
+    def forward(ctx, logits, values_n, self_logits, self_values, mask_e,
+                mask_self, indptr_r, col_r, indptr_s, col_s, eid_s,
+                receivers):
+        logits, values_n, mask_e = _contiguous(logits, values_n, mask_e)
+        num, m, s = edge_softmax(indptr_r, col_r, logits, mask_e, values_n)
+        out, mx, den = finalize_softmax(num, m, s, self_logits, self_values,
+                                        mask_self)
+        ctx.save_for_backward(logits, values_n, self_logits, self_values,
+                              mask_e, mask_self, out, mx, den, indptr_s,
+                              col_s, eid_s, receivers)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (logits, values_n, self_logits, self_values, mask_e, mask_self, out,
+         mx, den, indptr_s, col_s, eid_s, r) = ctx.saved_tensors
+        alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r)
+        s_n = (out * dy).sum(-1)
+        dv, dots = [], []
+        for h in range(logits.shape[1]):
+            dx, dw = spmm_sddmm(indptr_s, col_s, eid_s, m_alpha[:, h].contiguous(),
+                                dy[:, h].contiguous(),
+                                values_n[:, h].contiguous())
+            dv.append(dx)
+            dots.append(dw)
+        dl = (m_alpha * torch.stack(dots, 1)
+              - alpha * s_n.index_select(0, r))
+        dsl, dsv = _self_grads(self_logits, self_values, mask_self, mx, den,
+                               s_n, dy)
+        return (dl, torch.stack(dv, 1), dsl, dsv) + (None,) * 8
+
+
+class GatAttentionFunction(torch.autograd.Function):
+    """GAT attention with logits ``leaky_relu(pi[r] + pj[s])`` computed in
+    the kernel: K3 forward, K4 (``dpi``) and K5 (``dpj``, ``dv``) backward
+    (edge_softmax.py:870-1229)."""
+
+    @staticmethod
+    def forward(ctx, pi, pj, values_n, self_logits, self_values, indptr_r,
+                col_r, indptr_s, col_s, slope):
+        pi, pj, values_n = _contiguous(pi, pj, values_n)
+        num, m, s = gat_softmax(indptr_r, col_r, pi, pj, values_n, slope)
+        out, mx, den = finalize_softmax(num, m, s, self_logits, self_values)
+        ctx.slope = slope
+        ctx.save_for_backward(pi, pj, values_n, self_logits, self_values,
+                              out, mx, den, indptr_r, col_r, indptr_s, col_s)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (pi, pj, values_n, self_logits, self_values, out, mx, den, indptr_r,
+         col_r, indptr_s, col_s) = ctx.saved_tensors
+        dy = dy.contiguous()
+        s_n = (out * dy).sum(-1)
+        args = (pi, pj, values_n, mx, den, s_n, dy, ctx.slope)
+        need = ctx.needs_input_grad
+        dpi = gat_bwd_dpi(indptr_r, col_r, *args) if need[0] else None
+        dpj = dv = None
+        if need[1] or need[2]:
+            dpj, dv = gat_bwd_rev(indptr_s, col_s, *args)
+        dsl, dsv = _self_grads(self_logits, self_values, None, mx, den, s_n,
+                               dy)
+        return (dpi, dpj, dv, dsl, dsv) + (None,) * 5
+
+
+# ---- entry points ----------------------------------------------------------
+
+def _rows(g, num_segments):
+    """The receiver CSR cut to ``num_segments`` rows.
+
+    Every receiver must be below ``num_segments``: the backward sweeps read
+    the per-receiver state of every edge. Edges are receiver-sorted, so
+    that holds when the cut CSR still holds every edge (read from the card
+    only when the cut drops rows).
+    """
+    n = g.num_nodes if num_segments is None else int(num_segments)
+    return _cut(g, g.indptr_r, n, "receiver", f"num_segments={n}")
+
+
+def _senders(g, n_src: int):
+    """The sender CSR cut to the ``n_src`` rows of the node values; every
+    sender must be below it (the forward gathers ``values_n[s_e]``)."""
+    return _cut(g, g.indptr_s, n_src, "sender", f"{n_src} sender rows")
+
+
+def _cut(g, indptr, n, side, what):
+    if n > g.num_nodes:
+        raise ValueError(f"{what}, but the graph has {g.num_nodes} nodes")
+    indptr = indptr[: n + 1]
+    if n < g.num_nodes and int(indptr[-1]) != g.num_edges:
+        raise ValueError(f"{what}, but some edges have a {side} at or past "
+                         f"it")
+    return indptr
+
+
+def edge_softmax_aggregate(g, logits, values, *, num_segments=None,
+                           self_logits=None, self_values=None,
+                           dropout_masks=None):
+    """Softmax of ``logits [E, H]`` over each node's in-edges, and the
+    attention-weighted sum of edge values ``[E, H, D]`` -> ``[n, H, D]``.
+
+    ``self_logits [n, H]`` / ``self_values [n, H, D]`` add a virtual
+    self-loop; ``dropout_masks = (mask_e [E, H], mask_self [n, H] or
+    None)`` scale the attention weights (0 or 1/(1-p)), not the softmax
+    denominator.
+    """
+    mask_e, mask_self = dropout_masks or (None, None)
+    return EdgeSoftmaxFunction.apply(logits, values, self_logits,
+                                     self_values, mask_e, mask_self,
+                                     _rows(g, num_segments), g.receivers)
+
+
+def edge_softmax_aggregate_nodes(g, logits, values_n, *, num_segments=None,
+                                 self_logits=None, self_values=None,
+                                 dropout_masks=None):
+    """:func:`edge_softmax_aggregate` of the senders' node values
+    ``values_n [N_src, H, D]``: edge ``e`` contributes ``values_n[s_e]``."""
+    mask_e, mask_self = dropout_masks or (None, None)
+    return EdgeSoftmaxNodesFunction.apply(
+        logits, values_n, self_logits, self_values, mask_e, mask_self,
+        _rows(g, num_segments), g.col_r, _senders(g, values_n.shape[0]),
+        g.col_s, g.eid_s, g.receivers)
+
+
+def gat_attention_nodes(g, pi, pj, values_n, slope, *, self_logits=None,
+                        self_values=None, num_segments=None, pj_weight=None):
+    """GAT attention: softmax of ``leaky_relu(pi[r_e] + pj[s_e], slope)``
+    over each receiver's in-edges, summing ``values_n[s_e]``.
+
+    ``pi [n, H]`` holds the ``n`` receivers (``num_segments``, default
+    ``pi``'s rows); ``pj [N_src, H]`` and ``values_n [N_src, H, D]`` are
+    the sender side. ``pj_weight`` (the JAX package's hint for regathering
+    ``pj``) is accepted and not used.
+    """
+    del pj_weight
+    n = pi.shape[0] if num_segments is None else num_segments
+    return GatAttentionFunction.apply(
+        pi, pj, values_n, self_logits, self_values, _rows(g, n), g.col_r,
+        _senders(g, values_n.shape[0]), g.col_s, float(slope))

@@ -1,9 +1,11 @@
-"""Port's main-path layers vs graphneuralnetworks_tpu/models/conv.py.
+"""Port's layers vs graphneuralnetworks_tpu/models/conv.py.
 
 Each layer is built in both packages, the JAX weights (cast to float64) are
 copied into the port with ``load_jax_params``, and the forward output and
 the gradients of every parameter, of the input and, where given, of the
 edge weights are compared (float64, XLA path: rtol 1e-9, atol 1e-10).
+GATConv also runs through its kernel route (the autograd functions the card
+uses, on CPU tensors), and its attention dropout is checked on its own.
 """
 
 import pytest
@@ -18,6 +20,7 @@ from flax import nnx  # noqa: E402
 
 from graphneuralnetworks_tpu import models as JM  # noqa: E402
 from graphneuralnetworks_tpu_torch import models as TM  # noqa: E402
+from graphneuralnetworks_tpu_torch.ops import attention as TA  # noqa: E402
 from torch_parity import (F64_TOL, assert_grads_match,  # noqa: E402
                           directed_graph_arrays, graph_pair, jax_params_f64,
                           pad_rows, port_from_jax, t)
@@ -55,6 +58,20 @@ CASES = {
              lambda: TM.SAGEConv(4, 5, relu_t, **KW), 4, False),
     "sage_sum": (lambda r: JM.SAGEConv(4, 3, aggr="sum", rngs=r),
                  lambda: TM.SAGEConv(4, 3, aggr="sum", **KW), 4, False),
+    "gat": (lambda r: JM.GATConv(4, 3, relu_j, heads=2, rngs=r),
+            lambda: TM.GATConv(4, 3, relu_t, heads=2, **KW), 4, False),
+    "gat_mean_heads": (
+        lambda r: JM.GATConv(4, 3, heads=3, concat=False, rngs=r),
+        lambda: TM.GATConv(4, 3, heads=3, concat=False, **KW), 4, False),
+    "gat_no_self_loops": (
+        lambda r: JM.GATConv(5, 2, heads=2, add_self_loops=False, rngs=r),
+        lambda: TM.GATConv(5, 2, heads=2, add_self_loops=False, **KW), 5,
+        False),
+    "gat_no_self_loops_mean_heads": (
+        lambda r: JM.GATConv(4, 4, relu_j, concat=False,
+                             add_self_loops=False, rngs=r),
+        lambda: TM.GATConv(4, 4, relu_t, concat=False, add_self_loops=False,
+                           **KW), 4, False),
 }
 
 
@@ -129,7 +146,8 @@ def test_load_jax_params_rejects_mismatches():
 def test_layers_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: TM.GCNConv(3, 4), lambda: TM.MLP([3, 4]),
-                 lambda: TM.SAGEConv(3, 4), lambda: TM.GraphConv(3, 4)):
+                 lambda: TM.SAGEConv(3, 4), lambda: TM.GraphConv(3, 4),
+                 lambda: TM.GATConv(3, 4, heads=2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 
@@ -175,3 +193,130 @@ def test_chain_threads_kwargs_and_withgraph_trains_features():
     assert wg._nfeat["x"].grad is not None and conv.weight.grad is not None
     np.testing.assert_allclose(wg(tg, x).detach().numpy(),
                                chain(tg, x).detach().numpy(), **F64_TOL)
+
+
+# ---- GATConv: edge features, bipartite input, kernel route, dropout --------
+
+def _gat_case(jm, tm, jg, tg, jargs, targs, rng, n_out):
+    """Forward and the gradients of every parameter and every float input
+    of ``sum(y * cot)``; ``targs[i]`` are the first rows of ``jargs[i]``."""
+    cot = rng.standard_normal((n_out, tm.out_features * (
+        tm.heads if tm.concat else 1)))
+    gd, params, rest = nnx.split(jm, nnx.Param, ...)
+
+    def jloss(p, *xs):
+        y = nnx.merge(gd, p, rest)(jg, *xs)[:n_out]
+        return jnp.sum(y * cot), y
+
+    def flat(xs):
+        return [a for x in xs for a in (x if isinstance(x, tuple) else (x,))]
+
+    (_, jy), grads = jax.value_and_grad(
+        jloss, argnums=tuple(range(1 + len(jargs))), has_aux=True)(
+        params, *jargs)
+    ty = tm(tg, *targs)
+    (ty * t(cot)).sum().backward()
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               **F64_TOL)
+    for tx, gx in zip(flat(targs), flat(grads[1:])):
+        np.testing.assert_allclose(tx.grad.numpy(),
+                                   np.asarray(gx)[:tx.shape[0]], **F64_TOL)
+    assert_grads_match(tm, jax.tree.map(np.asarray, nnx.to_pure_dict(
+        grads[0])), **F64_TOL)
+
+
+@pytest.fixture(params=["plain", "kernels"])
+def gat_route(request, monkeypatch):
+    if request.param == "kernels":
+        monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
+    return request.param
+
+
+@pytest.mark.parametrize("name", [k for k in CASES if k.startswith("gat")])
+def test_gat_kernel_route_matches_jax(monkeypatch, name):
+    """The GAT cases of :data:`CASES` once more, by the kernel route."""
+    monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
+    test_layer_matches_jax(name)
+
+
+def test_gat_edge_features_matches_jax(gat_route):
+    s, r, n, _ = directed_graph_arrays(seed=13)
+    jg, tg = graph_pair(s, r, n)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((n, 4))
+    e = rng.standard_normal((len(s), 2))            # stored edge order
+    jm = jax_params_f64(JM.GATConv(4, 3, relu_j, heads=2, edge_features=2,
+                                   add_self_loops=False, rngs=nnx.Rngs(3)))
+    tm = port_from_jax(TM.GATConv(4, 3, relu_t, heads=2, edge_features=2,
+                                  add_self_loops=False, **KW), jm)
+    _gat_case(jm, tm, jg, tg,
+              [jnp.asarray(pad_rows(x, jg.n_pad)),
+               jnp.asarray(pad_rows(e, jg.e_pad))],
+              [t(x, grad=True), t(e, grad=True)], rng, n)
+    with pytest.raises(ValueError):
+        tm(tg, t(x))
+    with pytest.raises(ValueError):
+        TM.GATConv(4, 3, edge_features=2, **KW)
+
+
+@pytest.mark.parametrize("add_self_loops", [True, False])
+def test_gat_bipartite_matches_jax(gat_route, add_self_loops):
+    """(x_src, x_dst): 40 source and 30 target nodes."""
+    rng = np.random.default_rng(14)
+    s, r = rng.integers(0, 40, 150), rng.integers(0, 30, 150)
+    jg, tg = graph_pair(s, r, 40)
+    xs, xd = rng.standard_normal((40, 3)), rng.standard_normal((30, 3))
+    jm = jax_params_f64(JM.GATConv(3, 2, heads=2,
+                                   add_self_loops=add_self_loops,
+                                   rngs=nnx.Rngs(4)))
+    tm = port_from_jax(TM.GATConv(3, 2, heads=2,
+                                  add_self_loops=add_self_loops, **KW), jm)
+    _gat_case(jm, tm, jg, tg,
+              [(jnp.asarray(pad_rows(xs, jg.n_pad)), jnp.asarray(xd))],
+              [(t(xs, grad=True), t(xd, grad=True))], rng, 30)
+
+
+def test_gat_dropout_masks_share_and_scale():
+    from graphneuralnetworks_tpu_torch.models.conv import _attn_dropout_masks
+    gen = torch.Generator().manual_seed(0)
+    me, ms = _attn_dropout_masks(0.6, gen, 20000, 500, 4, True, "cpu",
+                                 torch.float64)
+    assert me.shape == (20000, 4) and ms.shape == (500, 4)
+    for m in (me, ms):
+        vals = set(np.unique(m.numpy()).tolist())
+        assert vals <= {0.0, 1 / 0.4}
+    assert abs(float((me == 0).double().mean()) - 0.6) < 0.01
+    _, none = _attn_dropout_masks(0.6, gen, 10, 5, 1, False, "cpu",
+                                  torch.float64)
+    assert none is None
+
+
+@pytest.mark.parametrize("route_kernels", [False, True])
+def test_gat_dropout_is_seeded_and_stochastic(monkeypatch, route_kernels):
+    monkeypatch.setattr(TA, "_kernel_route", lambda t: route_kernels)
+    s, r, n, _ = directed_graph_arrays(seed=15)
+    _, tg = graph_pair(s, r, n)
+    x = t(np.random.default_rng(15).standard_normal((n, 4)))
+
+    def layer(seed, p=0.6):
+        return TM.GATConv(4, 3, heads=2, dropout=p,
+                          generator=torch.Generator().manual_seed(seed), **KW)
+
+    a, b = layer(1), layer(1)
+    ya, yb = a(tg, x, deterministic=False), b(tg, x, deterministic=False)
+    np.testing.assert_array_equal(ya.detach().numpy(), yb.detach().numpy())
+    y_det = a(tg, x)
+    assert np.isfinite(ya.detach().numpy()).all()
+    assert not np.allclose(ya.detach().numpy(), y_det.detach().numpy())
+    # a second stochastic call draws new masks; deterministic=True is the
+    # layer without dropout
+    assert not np.allclose(a(tg, x, deterministic=False).detach().numpy(),
+                           ya.detach().numpy())
+    plain = layer(1, p=0.0)
+    plain.load_state_dict(a.state_dict())
+    np.testing.assert_allclose(plain(tg, x).detach().numpy(),
+                               y_det.detach().numpy(), **F64_TOL)
+    # GNNChain threads deterministic= to the layer
+    chain = TM.GNNChain(layer(2), torch.nn.Linear(6, 2, dtype=torch.float64))
+    y1 = chain(tg, x, deterministic=False)
+    assert not np.allclose(y1.detach().numpy(), chain(tg, x).detach().numpy())

@@ -1,4 +1,5 @@
-"""The SpMM kernels' wrappers and plain versions (no JAX needed).
+"""The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2)
+and edge softmax (K3, K4, K5, K12).
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
   held to) against a dense adjacency product in float64.
@@ -19,7 +20,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import graphneuralnetworks_tpu_torch as tgnn  # noqa: E402
+from graphneuralnetworks_tpu_torch.ops import attention as TA  # noqa: E402
+from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S  # noqa: E402
+
+SLOPE = 0.2
 
 
 def _graph(seed, device, dtype=torch.float64):
@@ -107,3 +112,139 @@ def test_kernels_match_plain_on_card(d):
     torch.cuda.synchronize()
     assert S.launches["k1"] == before["k1"] + 4
     assert S.launches["k2"] == before["k2"] + 1
+
+
+def test_edge_softmax_wrappers_validate_inputs():
+    g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
+    pi, v = torch.randn(16, 2), torch.randn(16, 2, 4)
+    with pytest.raises(TypeError):
+        ES._check_launch(g.indptr_r, g.col_r, {"pi": pi.double()},
+                         {"v": v})
+    with pytest.raises(TypeError):
+        ES._check_launch(g.indptr_r, g.col_r.long(), {"pi": pi}, {"v": v})
+    with pytest.raises(ValueError):        # heads disagree
+        ES._check_launch(g.indptr_r, g.col_r, {"pi": torch.randn(16, 3)},
+                         {"v": v})
+    with pytest.raises(ValueError):        # widths disagree
+        ES._check_launch(g.indptr_r, g.col_r, {"pi": pi},
+                         {"v": v, "dy": torch.randn(16, 2, 5)})
+    with pytest.raises(ValueError):        # not [rows, H, D]
+        ES._check_launch(g.indptr_r, g.col_r, {"pi": pi},
+                         {"v": torch.randn(16, 8)})
+    with pytest.raises(ValueError):
+        ES._check_launch(g.indptr_r, g.col_r, {"pi": pi},
+                         {"v": v.transpose(0, 1)})
+    ES._check_launch(g.indptr_r, None, {"pi": pi, "mask": None}, {"v": v})
+    with pytest.raises(ValueError):        # a row count that does not fit
+        ES._same_rows(16, pi=pi, pj=torch.randn(15, 2))
+    with pytest.raises(ValueError):        # no route for a meta tensor
+        ES.gat_softmax(g.indptr_r, g.col_r, pi, pi,
+                       torch.empty(16, 2, 4, device="meta"), SLOPE)
+
+
+def _attention_inputs(heads, d, device):
+    g = _graph(7, device, torch.float32)        # nodes 40-49: no in-edges
+    gen = torch.Generator(device=device).manual_seed(heads * 1000 + d)
+    n, ne = g.num_nodes, g.num_edges
+
+    def rn(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    keep = torch.rand(ne, heads, device=device, generator=gen) < 0.4
+    return g, dict(pi=rn(n, heads), pj=rn(n, heads), v=rn(n, heads, d),
+                   dy=rn(n, heads, d), lg=rn(ne, heads),
+                   ve=rn(ne, heads, d), sl=rn(n, heads),
+                   sv=rn(n, heads, d), mask=keep.float() / 0.4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 8), (4, 32), (2, 64),
+                                     (1, 200)])
+def test_attention_kernels_match_plain_on_card(heads, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g, x = _attention_inputs(heads, d, "cuda")
+    tol = dict(rtol=1e-5, atol=1e-4)
+    before = dict(ES.launches)
+    for args in ((g.indptr_r, g.col_r, x["lg"], None, x["v"]),
+                 (g.indptr_r, g.col_r, x["lg"], x["mask"], x["v"]),
+                 (g.indptr_r, None, x["lg"], x["mask"], x["ve"])):
+        for a, b in zip(ES.edge_softmax(*args), ES.edge_softmax_plain(*args)):
+            torch.testing.assert_close(a, b, **tol)
+    args = (g.indptr_r, g.col_r, x["pi"], x["pj"], x["v"], SLOPE)
+    got, want = ES.gat_softmax(*args), ES.gat_softmax_plain(*args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **tol)
+    assert torch.isneginf(want[1][40:]).all()
+    out, mx, den = ES.finalize_softmax(*want, x["sl"], x["sv"])
+    bwd = (x["pi"], x["pj"], x["v"], mx, den, (out * x["dy"]).sum(-1),
+           x["dy"], SLOPE)
+    torch.testing.assert_close(ES.gat_bwd_dpi(g.indptr_r, g.col_r, *bwd),
+                               ES.gat_bwd_dpi_plain(g.indptr_r, g.col_r,
+                                                    *bwd), **tol)
+    for a, b in zip(ES.gat_bwd_rev(g.indptr_s, g.col_s, *bwd),
+                    ES.gat_bwd_rev_plain(g.indptr_s, g.col_s, *bwd)):
+        torch.testing.assert_close(a, b, **tol)
+    torch.cuda.synchronize()
+    assert {k: ES.launches[k] - before[k] for k in before} == {
+        "k3": 1, "k4": 1, "k5": 1, "k12": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 8), (4, 32)])
+def test_attention_functions_on_card_match_cpu(heads, d):
+    """gat_attention (K3-K5) and attention_aggregate of node values with
+    dropout (K12, K2 backward) on the card vs the same autograd functions
+    on the CPU (plain versions), forward and every gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    results = {}
+    for device in ("cuda", "cpu"):
+        g, x = _attention_inputs(heads, d, "cuda")
+        g = g.to(device)
+        x = {k: v.to(device).requires_grad_(k not in ("mask", "dy"))
+             for k, v in x.items()}
+        kw = dict(self_logits=x["sl"], self_values=x["sv"])
+        out = (ES.gat_attention_nodes(g, x["pi"], x["pj"], x["v"], SLOPE,
+                                      **kw)
+               + ES.edge_softmax_aggregate_nodes(
+                   g, x["lg"], x["v"], dropout_masks=(x["mask"], None),
+                   **kw))
+        (out * x["dy"]).sum().backward()
+        results[device] = [out.detach()] + [
+            x[k].grad for k in ("pi", "pj", "v", "lg", "sl", "sv")]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_attention_dispatch_takes_kernels_only_on_card():
+    """The kernel route is chosen by the device alone."""
+    assert not TA._kernel_route(torch.zeros(1))
+    assert not TA._kernel_route(torch.empty(1, device="meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape_h", [(), (2, 3)])
+def test_attention_aggregate_head_dims_on_card(shape_h):
+    """``[E, *H]`` logits with no or two head dimensions go to K12 on the
+    card (flattened into one) and match the CPU plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(8, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, ne = g.num_nodes, g.num_edges
+    x = [torch.randn(*s, device="cuda", generator=gen)
+         for s in ((ne,) + shape_h, (n,) + shape_h + (5,),
+                   (n,) + shape_h + (5,))]
+    results = {}
+    for device in ("cuda", "cpu"):
+        lg, v, cot = (t.to(device, copy=True).requires_grad_(i < 2)
+                      for i, t in enumerate(x))
+        before = dict(ES.launches)
+        out = TA.attention_aggregate(g.to(device), lg, v, node_values=True)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert ES.launches["k12"] - before["k12"] == (device == "cuda")
+        results[device] = (out.detach(), lg.grad, v.grad)
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
