@@ -19,30 +19,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``gat_bwd_rev_f32``) the same way, at the GAT path's per-head shapes
    (H, D) = (4, 32) and (1, 8); K12 also with dropout masks and with edge
    values. No single PyTorch call computes these, so no library time.
+   2c: GATv2's kernels K9 (``gatv2_softmax_f32``), K10
+   (``gatv2_bwd_dq_f32`` with ``gatv2_da_reduce_f32``: ``dq`` and ``da``)
+   and K11 (``gatv2_bwd_rev_f32``) the same way, at the GATv2 path's
+   per-head shapes (H, O) = (4, 32) and (1, 8).
 3. The main paths at full width, each trained with masked cross-entropy
    and Adam for 10 steps, with the kernel launch counts of exactly those
    steps: ``GNNChain(GCNConv(128, 128, relu), GCNConv(128, 8))`` (3a); the
    same with learned edge weights (3b, the weighted backward K2);
    ``GNNChain(GATConv(128, 32, relu, heads=4), GATConv(128, 8, heads=1,
    concat=False))`` without attention dropout (3d: K3, K4, K5) and with
-   dropout 0.6 in training mode (3e: K12, and K2 in its backward). 3c holds
-   one forward and backward of the GCN models and of GAT (3d) on the card
-   against the same model on the CPU plain path, and GAT (3e)'s attention
-   (K12, K2 per head) with one set of dropout masks for both sides.
-4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN and GAT,
-   40 epochs, train accuracy > 0.94 and test accuracy > 0.69.
+   dropout 0.6 in training mode (3e: K12, and K2 in its backward);
+   ``GNNChain(GATv2Conv(128, 32, relu, heads=4), GATv2Conv(128, 8,
+   heads=1, concat=False))`` (3f: K9, K10, K11). 3c holds one forward and
+   backward of the GCN models, of GAT (3d) and of GATv2 (3f) on the card
+   against the same model on the CPU plain path, and GAT's and GATv2's
+   attention with one set of dropout masks for both sides (K12, K2 per
+   head).
+4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT and
+   GATv2, 40 epochs, train accuracy > 0.94 and test accuracy > 0.69.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
-adds a ``torch.profiler`` breakdown of three train steps of GCN (3a) and
-of GAT (3d, 3e).
+adds a ``torch.profiler`` breakdown of three train steps of GCN (3a), of
+GAT (3d, 3e) and of GATv2 (3f).
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import os
 import statistics
@@ -70,12 +78,34 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H200": (4.8e12, 67e12),
 # sides sum the same float32 products in a different order (the kernel in
 # CSR order, index_add_ with atomics), so they differ by rounding only.
 RTOL, ATOL = 1e-5, 1e-4
-# Card vs CPU for a whole model: cuBLAS and the CPU BLAS also order their
-# sums differently. A weight gradient sums 131,072 per-node terms whose signs
-# cancel (random labels), so its float32 rounding error relative to its norm
-# is about eps * log2(N) * sqrt(N) = 6e-8 * 17 * 362 ~ 4e-4; gradients are
-# compared by the norm of the difference against 1e-3.
+# Card vs CPU for a whole model: the card in float32 against the same model
+# on the CPU plain path in float64, so that only the card's rounding counts
+# (a float32 CPU side added its own, which moves with the host's BLAS: GATv2
+# read 1.2e-4 and 9.5e-4 in two runs of the same code). A weight gradient
+# sums 131,072 per-node terms whose signs cancel (random labels), so its
+# float32 rounding error relative to its norm is about eps * log2(N) *
+# sqrt(N) = 6e-8 * 17 * 362 ~ 4e-4; gradients are compared by the norm of
+# the difference against 1e-3.
 MODEL_RTOL, MODEL_ATOL, GRAD_NORM_RTOL = 1e-4, 1e-4, 1e-3
+# GATv2's weight gradients also cross leaky_relu's kink: raw = q[r] + k[s]
+# over E*H*O = 256M elements, with q and k from float32 GEMMs (rounding
+# ~7e-7 at |raw| ~ 1.4), so ~256M * 2 * 7e-7 / (1.4 * 2.5) ~ 100 of them
+# land on the other side of 0 than in float64, each moving one term of
+# dense_i's gradient by 0.8 * dlg * a. Against a norm of ~sqrt(2M) such
+# terms that is ~1.3 * sqrt(100 / 128) / sqrt(2M) ~ 8e-4 (measured 1.0e-3
+# on an H100 at 700 W; GAT, with 32x fewer kink elements, 4e-5). GATv2's
+# model check is held to 10x that.
+GATV2_GRAD_NORM_RTOL = 1e-2
+# K10's da [O, H] sums one term per edge, 2M of them, of either sign
+# (|term| ~ 0.4, |da| up to ~1,200 at (4, 32)). A float32 sum's error is a
+# random walk of steps eps/2 * |running sum| over its chain: ~1e-2 for
+# cuBLAS's long chains in the plain einsum (measured 8.5e-3 against the
+# kernel), under 1e-3 for the kernel's (~1,500 terms per warp, then ~1,300
+# warp shares per head). So the kernel's da is held to the plain version run
+# in float64 on the same inputs, elementwise within DA_ATOL_REL * max|da|
+# (~1.2e-2) besides RTOL: ~25x the kernel's expected error. The error does
+# not shrink with one entry's |da|, so the atol follows the array's scale.
+DA_ATOL_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -142,6 +172,43 @@ def bound(bytes_: float, flops: float, card: str) -> tuple[float, str]:
 
 
 # ---- phase 2 ---------------------------------------------------------------
+
+def kernel_case(res, card, key, label, fn, plain, args, byt, flops,
+                regathered, checks=None):
+    """Hold ``fn(*args)`` to ``plain(*args)``, time both and add the case
+    to ``res[key]``; returns the plain outputs. ``byt`` is the compulsory
+    bytes, ``regathered`` what the per-edge gathers read again when L2
+    keeps nothing. ``checks``: per output, its name, tolerance and a
+    reference to hold it to in place of the plain output (or None); by
+    default ``out0``, ``out1``, ... at RTOL / ATOL against the plain ones."""
+    got, want = fn(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    checks = checks or [(f"out{i}", {}, None) for i in range(len(want))]
+    err = max(compare(f"{key.upper()} {label} {name}", a,
+                      b if ref is None else ref, **tol)
+              for (name, tol, ref), a, b in zip(checks, got, want))
+    res[key]["err"] = max(res[key]["err"], err)
+    b_ms, b_by = bound(byt, flops, card)
+    res[key]["variants"].append({
+        "case": label, "ms": cuda_ms(lambda: fn(*args)),
+        "plain_ms": cuda_ms(lambda: plain(*args), warmup=1, batches=3,
+                            per_batch=2),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "no_reuse_bound_ms": (byt + regathered) / peaks(card)[0] * 1e3,
+        "max_abs_err": err})
+    return want
+
+
+def log_times(res, width: int) -> None:
+    for key, r in res.items():
+        for v in r["variants"]:
+            log(f"  time {key.upper():<3} {v['case']:<{width}} "
+                f"kernel={v['ms']:.4f} ms plain={v['plain_ms']:.4f} ms "
+                f"library=none bound={v['bound_ms']:.4f} ms "
+                f"({v['bound_by']}) no-reuse bound="
+                f"{v['no_reuse_bound_ms']:.4f} ms")
+
 
 def kernel_phase(gnn, g, card: str) -> dict:
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
@@ -258,26 +325,10 @@ def attention_phase(g, card: str) -> dict:
     ir, cr, is_, cs = g.indptr_r, g.col_r, g.indptr_s, g.col_s
     res = {k: {"err": 0.0, "variants": []} for k in ("k3", "k4", "k5",
                                                       "k12")}
-    bw = peaks(card)[0]
     log(f"phase 2b: attention kernels vs plain versions (N={N}, E={E}, "
         "float32)")
 
-    def case(key, label, fn, plain, args, byt, flops, regathered):
-        got, want = fn(*args), plain(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(compare(f"{key.upper()} {label} out{i}", a, b)
-                  for i, (a, b) in enumerate(zip(got, want)))
-        res[key]["err"] = max(res[key]["err"], err)
-        b_ms, b_by = bound(byt, flops, card)
-        res[key]["variants"].append({
-            "case": label, "ms": cuda_ms(lambda: fn(*args)),
-            "plain_ms": cuda_ms(lambda: plain(*args), warmup=1, batches=3,
-                                per_batch=2),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "no_reuse_bound_ms": (byt + regathered) / bw * 1e3,
-            "max_abs_err": err})
-        return want
+    case = functools.partial(kernel_case, res, card)
 
     for h, d in ((4, 32), (1, OUT_D)):
         def rn(*shape):
@@ -323,12 +374,67 @@ def attention_phase(g, card: str) -> dict:
              (is_, cs) + bwd, idx + 5 * nh + 2 * nhd + nh + nhd,
              E * h * (4 * d + 10), rows_again + 4 * scalar_again)
         del ve, lg, mask
-    for k, r in res.items():
-        for v in r["variants"]:
-            log(f"  time {k.upper():<3} {v['case']:<38} kernel={v['ms']:.4f}"
-                f" ms plain={v['plain_ms']:.4f} ms library=none "
-                f"bound={v['bound_ms']:.4f} ms ({v['bound_by']}) "
-                f"no-reuse bound={v['no_reuse_bound_ms']:.4f} ms")
+    log_times(res, 38)
+    return res
+
+
+def gatv2_phase(g, card: str) -> dict:
+    """K9, K10 and K11 against their plain versions at the GATv2 path's
+    shapes: (H, O) = (4, 32) (layer 1) and (1, 8) (layer 2)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ir, cr, is_, cs = g.indptr_r, g.col_r, g.indptr_s, g.col_s
+    res = {k: {"err": 0.0, "variants": []} for k in ("k9", "k10", "k11")}
+    log(f"phase 2c: GATv2 kernels vs plain versions (N={N}, E={E}, "
+        "float32)")
+
+    case = functools.partial(kernel_case, res, card)
+
+    for h, o in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D)):
+        def rn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * scale
+        # a at Glorot's scale, so that the logits spread as in training
+        q, k, dy = rn(N, h, o), rn(N, h, o), rn(N, h, o)
+        a = rn(o, h, scale=(2.0 / (o + h)) ** 0.5)
+        hd = f"H={h} O={o}"
+        # compulsory bytes, float32 and int32 (4 bytes each): indptr N+1;
+        # col E; per-node scalars N*H each; rows q, k, dy and outputs
+        # N*H*O each; a and da O*H. K10's per-warp shares of da are
+        # scratch (W*O floats, W the warps of one resident wave) and not
+        # counted.
+        idx, nh, nhd, ah = 4 * (N + 1 + E), 4 * N * h, 4 * N * h * o, 4 * o * h
+        # with no L2 reuse every edge reads a whole row per gathered row
+        # operand (K9 and K10: k[s]; K11: q[r] and dy[r]) and K11 one
+        # scalar per edge for each of mx, den and s_n of the receivers
+        rows_again, scalar_again = 4 * E * h * o - nhd, 4 * E * h - nh
+        num, m, s = case(
+            "k9", hd, ES.gatv2_softmax, ES.gatv2_softmax_plain,
+            (ir, cr, q, k, a, 0.2), idx + 3 * nhd + ah + 2 * nh,
+            E * h * (6 * o + 6),    # add, lrelu, logit fma, value fma; exp
+            rows_again, [(nm, {}, None) for nm in ("num", "m", "s")])
+        out, mx, den = ES.finalize_softmax(num, m, s, rn(N, h), rn(N, h, o))
+        bwd = (q, k, a, mx, den, (out * dy).sum(-1), dy, 0.2)
+        da64 = ES.gatv2_bwd_dq_plain(
+            ir, cr, *[t.double() if torch.is_tensor(t) else t
+                      for t in bwd])[1]
+        da_tol = {"atol": DA_ATOL_REL * float(da64.abs().max())}
+        compare(f"K10 {hd} da, plain float32 vs float64 (info)",
+                ES.gatv2_bwd_dq_plain(ir, cr, *bwd)[1], da64,
+                atol=float("inf"))
+        # add, lrelu, logit and <k, dy> fma, dq and da (or dk) updates
+        bwd_ops = E * h * (11 * o + 8)
+        case("k10", hd, ES.gatv2_bwd_dq, ES.gatv2_bwd_dq_plain,
+             (ir, cr) + bwd, idx + 4 * nhd + 3 * nh + 2 * ah, bwd_ops,
+             rows_again, [("dq", {}, None), ("da vs float64", da_tol, da64)])
+        case("k11", hd, ES.gatv2_bwd_rev, ES.gatv2_bwd_rev_plain,
+             (is_, cs) + bwd, idx + 4 * nhd + 3 * nh + ah, bwd_ops,
+             2 * rows_again + 3 * scalar_again, [("dk", {}, None)])
+        del q, k, dy, num, out, bwd, da64
+    log_times(res, 12)
+    log("  clocks.sm,power.draw,temperature.gpu: "
+        + smi("clocks.sm,power.draw,temperature.gpu"))
     return res
 
 
@@ -396,17 +502,19 @@ def expect_counts(name: str, launches: dict, per_step: dict) -> None:
                              f"{launches}")
 
 
-def compare_model(name, model, g, x, args_fn, extra_params=()):
-    """One forward+backward on the card vs the CPU plain path."""
+def compare_model(name, model, g, x, args_fn, extra_params=(),
+                  grad_rtol=GRAD_NORM_RTOL):
+    """One forward+backward on the card vs the CPU plain path in float64,
+    from the same weights and inputs."""
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
 
-    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_model = copy.deepcopy(model).to("cpu", torch.float64)
     gc = g.to("cpu")
     out = {}
     results = []
     for m, gg, xx, extra in ((model, g, x, extra_params),
-                             (cpu_model, gc, x.cpu(),
-                              [p.detach().cpu().requires_grad_()
+                             (cpu_model, gc, x.cpu().double(),
+                              [p.detach().cpu().double().requires_grad_()
                                for p in extra_params])):
         m.zero_grad(set_to_none=True)
         for p in extra:
@@ -421,17 +529,21 @@ def compare_model(name, model, g, x, args_fn, extra_params=()):
                                 rtol=MODEL_RTOL, atol=MODEL_ATOL)
     compare(f"{name}: loss card vs CPU", ls.cpu().reshape(1),
             lsc.reshape(1), rtol=MODEL_RTOL, atol=MODEL_ATOL)
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(gr, grc)):
-        rel = float((a.cpu().double() - b.double()).norm()
-                    / b.double().norm().clamp(min=1e-30))
-        worst = max(worst, rel)
-        if not rel <= GRAD_NORM_RTOL:
-            raise AssertionError(f"{name}: gradient {i} differs, |a-b|/|b|="
-                                 f"{rel:.3e} > {GRAD_NORM_RTOL:g}")
+    names = [n for n, _ in model.named_parameters()] + [
+        f"extra{i}" for i in range(len(extra_params))]
+    rels = {nm: float((a.cpu().double() - b).norm()
+                      / b.norm().clamp(min=1e-30))
+            for nm, a, b in zip(names, gr, grc)}
+    worst = max(rels, key=rels.get)
+    ok = rels[worst] <= grad_rtol
     log(f"  {name}: {len(gr)} gradients card vs CPU, worst "
-        f"|a-b|/|b|={worst:.3e} (limit {GRAD_NORM_RTOL:g}) ok")
-    out["grad_rel_err"] = worst
+        f"|a-b|/|b|={rels[worst]:.3e} ({worst}; limit {grad_rtol:g}) "
+        f"{'ok' if ok else 'FAIL'}; all: "
+        + ", ".join(f"{k} {v:.1e}" for k, v in rels.items()))
+    if not ok:
+        raise AssertionError(f"{name}: gradient of {worst} differs")
+    out["grad_rel_err"] = rels[worst]
+    out["grad_rel_errs"] = rels
     return out
 
 
@@ -443,6 +555,16 @@ def gat(M, seed: int, dev, dropout: float = 0.0):
                   dropout=dropout, generator=gen, device=dev),
         M.GATConv(D, OUT_D, heads=1, concat=False, dropout=dropout,
                   generator=gen, device=dev))
+
+
+def gatv2(M, seed: int, dev):
+    """The conv zoo's ``GATv2Conv_h4`` shape with an 8-class head layer."""
+    gen = torch.Generator().manual_seed(seed)
+    return M.GNNChain(
+        M.GATv2Conv(D, D // GAT_HEADS, torch.relu, heads=GAT_HEADS,
+                    generator=gen, device=dev),
+        M.GATv2Conv(D, OUT_D, heads=1, concat=False, generator=gen,
+                    device=dev))
 
 
 def main_path_phase(g, profile: bool, out_dir) -> dict:
@@ -561,24 +683,64 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
                                          lambda extra: {})
     log("phase 3c (GAT dropout): GAT (b)'s attention on the card (K12, K2) "
         "vs the CPU plain path, one set of dropout masks")
-    res["vs_cpu"]["gat_dropout_attention"] = compare_gat_dropout(g)
+    res["vs_cpu"]["gat_dropout_attention"] = compare_dropout_attention(
+        g, "GAT (b)", "gat_attention",
+        ("pi", "pj", "values", "self_logits", "self_values"),
+        lambda h, d: [(N, h), (N, h), (N, h, d), (N, h), (N, h, d)])
+
+    # GATv2: no attention dropout. Per step each layer launches K9 in the
+    # forward, and K10 (two launches: dq and the shares of da, then their
+    # sum) and K11 in the backward.
+    log(f"phase 3f: GATv2 train step (GATv2Conv(128,32,relu,heads=4) -> "
+        f"GATv2Conv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
+    model_v2 = gatv2(M, 4, dev)
+    losses_v2, times_v2, launches_v2, _ = train(
+        model_v2, model_v2.parameters(), (g, x, y, mask), loss_fn)
+    log(f"  loss {losses_v2[0]:.6f} -> {losses_v2[-1]:.6f}; ms/step "
+        f"median={statistics.median(times_v2):.3f} "
+        f"first={times_v2[0]:.3f} all={[round(t, 3) for t in times_v2]}")
+    log(f"  launches over {STEPS} steps: {launches_v2}")
+    expect_counts("GATv2", launches_v2, {"k9": 2, "k10": 4, "k11": 2})
+    res["gatv2"] = {"losses": losses_v2, "ms_per_step": times_v2,
+                    "median_ms_per_step": statistics.median(times_v2),
+                    "launches": launches_v2}
+    if profile:
+        res["gatv2_profile"] = profile_steps(model_v2, (g, x, y, mask),
+                                             loss_fn, None)
+    log("phase 3c (GATv2): one forward+backward of GATv2 (3f) on the card "
+        "(K9-K11) vs the CPU plain path")
+    res["vs_cpu"]["gatv2"] = compare_model("GATv2", model_v2, g, x,
+                                           lambda extra: {},
+                                           grad_rtol=GATV2_GRAD_NORM_RTOL)
+    log("phase 3c (GATv2 dropout): gatv2_attention with dropout masks on "
+        "the card (K12, K2) vs the CPU plain path, one set of masks")
+    res["vs_cpu"]["gatv2_dropout_attention"] = compare_dropout_attention(
+        g, "GATv2", "gatv2_attention",
+        ("q", "k", "a", "self_logits", "self_values"),
+        lambda h, d: [(N, h, d), (N, h, d), (d, h), (N, h), (N, h, d)],
+        summed=("a",))
     return res
 
 
-def compare_gat_dropout(g) -> dict:
-    """``gat_attention`` with dropout masks, as GAT (b) calls it, on the
-    card and on the CPU with the same inputs and masks: the forward and the
-    gradient of every input, at both layers' (H, D)."""
-    from graphneuralnetworks_tpu_torch.ops.attention import gat_attention
+def compare_dropout_attention(g, label, fn_name, names, shapes,
+                              summed=()) -> dict:
+    """``ops.attention.<fn_name>(g, x0, x1, x2, 0.2, self_logits=x3,
+    self_values=x4, dropout_masks=...)`` on the card and on the CPU with the
+    same inputs and masks: the forward and the gradient of every input, at
+    both layers' (H, D); ``shapes(h, d)`` gives the five inputs' shapes.
+    The card side must launch K12 once and K2 once per head. The gradients
+    of the inputs in ``summed`` (GATv2's ``a``) sum one term per edge, as a
+    weight gradient does, and are compared by norm (GRAD_NORM_RTOL)."""
+    from graphneuralnetworks_tpu_torch.ops import attention
 
+    fn = getattr(attention, fn_name)
     dev, gc = g.device, g.to("cpu")
     gen = torch.Generator(device=dev).manual_seed(5)
-    names = ("pi", "pj", "values", "self_logits", "self_values")
     out = {}
     for h, d in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D)):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device=dev)
-        ins = [rn(N, h), rn(N, h), rn(N, h, d), rn(N, h), rn(N, h, d)]
+        ins = [rn(*s) for s in shapes(h, d)]
         masks = [(torch.rand(rows, h, generator=gen, device=dev) < 0.4) / 0.4
                  for rows in (E, N)]
         cot = rn(N, h, d)
@@ -587,9 +749,9 @@ def compare_gat_dropout(g) -> dict:
             dv = gg.device
             ts = [t.detach().to(dv, copy=True).requires_grad_() for t in ins]
             before = read_counts()
-            y = gat_attention(gg, ts[0], ts[1], ts[2], 0.2, self_logits=ts[3],
-                              self_values=ts[4],
-                              dropout_masks=tuple(m.to(dv) for m in masks))
+            y = fn(gg, ts[0], ts[1], ts[2], 0.2, self_logits=ts[3],
+                   self_values=ts[4],
+                   dropout_masks=tuple(m.to(dv) for m in masks))
             (y * cot.to(dv)).sum().backward()
             launched = {k: c - before[k] for k, c in read_counts().items()
                         if c != before[k]}
@@ -597,14 +759,25 @@ def compare_gat_dropout(g) -> dict:
                             launched))
         (y, grads, launched), (yc, grads_c, launched_c) = results
         if launched != {"k12": 1, "k2": h} or launched_c:
-            raise AssertionError(f"GAT dropout attention H={h}: launches "
-                                 f"card {launched}, CPU {launched_c}")
+            raise AssertionError(f"{label} dropout attention H={h}: "
+                                 f"launches card {launched}, CPU "
+                                 f"{launched_c}")
         hd = f"H={h} D={d}"
-        errs = [compare(f"GAT (b) attention {hd} out", y, yc,
+        errs = [compare(f"{label} attention {hd} out", y, yc,
                         rtol=MODEL_RTOL, atol=MODEL_ATOL)]
-        errs += [compare(f"GAT (b) attention {hd} d{nm}", a, b,
-                         rtol=MODEL_RTOL, atol=MODEL_ATOL)
-                 for nm, a, b in zip(names, grads, grads_c)]
+        for nm, a, b in zip(names, grads, grads_c):
+            if nm not in summed:
+                errs.append(compare(f"{label} attention {hd} d{nm}", a, b,
+                                    rtol=MODEL_RTOL, atol=MODEL_ATOL))
+                continue
+            rel = float((a.double() - b.double()).norm()
+                        / b.double().norm().clamp(min=1e-30))
+            log(f"  {label} attention {hd} d{nm}: |a-b|/|b|={rel:.3e} "
+                f"(limit {GRAD_NORM_RTOL:g}) "
+                f"{'ok' if rel <= GRAD_NORM_RTOL else 'FAIL'}")
+            if not rel <= GRAD_NORM_RTOL:
+                raise AssertionError(f"{label} attention {hd} d{nm} "
+                                     "differs")
         out[hd] = {"max_abs_err": max(errs), "launches": launched}
         del ins, masks, results, y, grads, yc, grads_c
     return out
@@ -691,11 +864,16 @@ def cora_phase(dev) -> dict:
             return M.GNNChain(M.GATConv(din, nh, torch.relu, heads=2, **kw),
                               M.GATConv(2 * nh, nh, torch.relu, heads=2,
                                         concat=False, **kw), head)
+        if name == "GATv2":
+            return M.GNNChain(
+                M.GATv2Conv(din, nh, torch.relu, heads=2, **kw),
+                M.GATv2Conv(2 * nh, nh, torch.relu, heads=2, concat=False,
+                            **kw), head)
         return M.GNNChain(M.GINConv(M.MLP([din, nh], **kw), 0.01),
                           M.GINConv(M.MLP([nh, nh], **kw), 0.01), head)
 
     out = {"real_dataset": is_real}
-    for name in ("GCN", "GraphConv", "SAGE", "GIN", "GAT"):
+    for name in ("GCN", "GraphConv", "SAGE", "GIN", "GAT", "GATv2"):
         torch.manual_seed(17)
         model = build(name, torch.Generator().manual_seed(17))
         opt = torch.optim.Adam(model.parameters(), lr=1e-2)
@@ -715,7 +893,7 @@ def cora_phase(dev) -> dict:
         if not (tr > 0.94 and te > 0.69):
             raise AssertionError(f"{name}: Cora bar missed (train {tr}, "
                                  f"test {te})")
-        kernel = "k3" if name == "GAT" else "k1"
+        kernel = {"GAT": "k3", "GATv2": "k9"}.get(name, "k1")
         if launches[kernel] == 0:
             raise AssertionError(f"{name}: {kernel.upper()} never launched")
         out[name] = {"train_acc": tr, "test_acc": te, "launches": launches}
@@ -770,6 +948,7 @@ def main() -> int:
 
     kern = kernel_phase(gnn, g, card)
     kern.update(attention_phase(g, card))
+    kern.update(gatv2_phase(g, card))
     main_res = main_path_phase(g, args.profile, args.out)
     cora = cora_phase(g.device)
 
@@ -794,6 +973,10 @@ def main() -> int:
         entry("k4", "gat_bwd_dpi_f32", "edge_softmax", 987, "gat"),
         entry("k5", "gat_bwd_rev_f32", "edge_softmax", 1045, "gat"),
         entry("k12", "edge_softmax_f32", "edge_softmax", 281, "gat_dropout"),
+        entry("k9", "gatv2_softmax_f32", "edge_softmax", 1237, "gatv2"),
+        entry("k10", "gatv2_bwd_dq_f32 + gatv2_da_reduce_f32",
+              "edge_softmax", 1398, "gatv2"),
+        entry("k11", "gatv2_bwd_rev_f32", "edge_softmax", 1464, "gatv2"),
     ]
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")

@@ -1,5 +1,5 @@
-// Edge softmax over a node's in-edges, with aggregation: K3, K4, K5 and K12,
-// float32, for sm_90a.
+// Edge softmax over a node's in-edges, with aggregation: K3, K4, K5, K9, K10,
+// K11 and K12, float32, for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
 //   K12 _flash_kernel         softmax of given per-edge logits, numerator
@@ -8,6 +8,10 @@
 //                             lrelu(pi[r] + pj[s]) computed in the kernel
 //   K4  _gat_bwd_dpi_kernel   GAT backward, dpi, over the receiver CSR
 //   K5  _gat_bwd_rev_kernel   GAT backward, dpj and dv, over the sender CSR
+//   K9  _flash_gatv2_kernel   GATv2: logits <a_h, lrelu(q[r] + k[s])>, values
+//                             k[s] (see the GATv2 section below)
+//   K10 _gatv2_bwd_fwd_kernel GATv2 backward, dq and da, over the receiver CSR
+//   K11 _gatv2_bwd_rev_kernel GATv2 backward, dk, over the sender CSR
 //
 // Layouts (row-major, contiguous):
 //   indptr int32[n_rows + 1], col int32[E]   a CSR grouping of the edges
@@ -24,8 +28,8 @@
 // into vectors (float4 when D % 4 == 0 and the pointers are 16-byte
 // aligned), a warp splits into groups of G lanes (G = the vector count,
 // rounded up to a power of two, at most 32) that take interleaved edges,
-// and rows wider than 32 vectors loop over chunks. The softmax takes two
-// passes over a row's edges: the row max of the logits first (scalars
+// and rows wider than 32 vectors loop over chunks. K3's and K12's softmax
+// takes two passes over a row's edges: the row max of the logits first (scalars
 // only), then exp(logit - max), their sum and the weighted sum of value
 // rows. So no running rescale is needed, and the value rows are read once
 // per chunk.
@@ -41,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -96,6 +102,64 @@ __device__ __forceinline__ float lrelu(float raw, float slope) {
 }
 __device__ __forceinline__ float dlrelu(float raw, float slope) {
   return raw >= 0.f ? 1.f : slope;
+}
+
+// Vector forms for GATv2, whose logits need whole O-wide rows.
+__device__ __forceinline__ float4 lrelu(const float4& r, float slope) {
+  return make_float4(lrelu(r.x, slope), lrelu(r.y, slope), lrelu(r.z, slope),
+                     lrelu(r.w, slope));
+}
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(const float4& a, const float4& b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ void vscale(float& a, float s) { a *= s; }
+__device__ __forceinline__ void vscale(float4& a, float s) {
+  a.x *= s;
+  a.y *= s;
+  a.z *= s;
+  a.w *= s;
+}
+// acc += w * a * lrelu'(raw), componentwise
+__device__ __forceinline__ void axpy_dlrelu(float& acc, float w, float a,
+                                            float raw, float slope) {
+  acc = fmaf(w * a, dlrelu(raw, slope), acc);
+}
+__device__ __forceinline__ void axpy_dlrelu(float4& acc, float w,
+                                            const float4& a, const float4& raw,
+                                            float slope) {
+  axpy_dlrelu(acc.x, w, a.x, raw.x, slope);
+  axpy_dlrelu(acc.y, w, a.y, raw.y, slope);
+  axpy_dlrelu(acc.z, w, a.z, raw.z, slope);
+  axpy_dlrelu(acc.w, w, a.w, raw.w, slope);
+}
+
+// Vector f of head h's attention weights, read from a [O, H] (row-major).
+template <typename V>
+__device__ V load_a(const float* a, int f, int heads, int h);
+template <>
+__device__ __forceinline__ float load_a<float>(const float* a, int f,
+                                               int heads, int h) {
+  return a[(long long)f * heads + h];
+}
+template <>
+__device__ __forceinline__ float4 load_a<float4>(const float* a, int f,
+                                                 int heads, int h) {
+  const float* p = a + (long long)4 * f * heads + h;
+  return make_float4(p[0], p[heads], p[2 * heads], p[3 * heads]);
+}
+
+// Sums over one edge group of g lanes (a power of two); every lane of the
+// warp takes part, and every lane of a group ends with the same bits.
+__device__ __forceinline__ float group_sum(float x, int g) {
+  for (int off = 1; off < g; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+__device__ __forceinline__ void group_sum2(float& x, float& y, int g) {
+  for (int off = 1; off < g; off <<= 1) {
+    x += __shfl_xor_sync(kFull, x, off);
+    y += __shfl_xor_sync(kFull, y, off);
+  }
 }
 
 // Where in the warp a lane works: its edge group and its vector in a chunk.
@@ -335,6 +399,311 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
   if (L.lane == 0) dpj[sh] = acc_pj;
 }
 
+// ---- GATv2: K9, K10, K11 ---------------------------------------------------
+//
+// Per edge e = (r, s) and head h:  raw = q[r] + k[s] (O wide),
+// act = lrelu(raw),  lg = <a[:, h], act>,  and the values are k[s] itself.
+// The logit needs a whole O-wide row, not a gathered scalar as in K3, so
+// each edge group reduces its lanes' shares of <a, act> (and, backward, of
+// <k[s], dy[r]>) with shuffles before the exp. A lane keeps vector f = sub
+// + c * G of the row for c < NC in registers (NC = 1 up to 32 vectors, and
+// rows wider than that loop over NC chunks of 32, NC <= 8).
+//
+// Bound on an H100: memory, as K3-K5. K9 and K10 gather one k row of H*O
+// floats per edge (512 bytes at H=4, O=32), K11 a q row and a dy row plus
+// three per-receiver scalars. K9 reads each k row once, for the logit and
+// the value both: the softmax is one pass, each edge group keeping its own
+// running max, sum and accumulator (rescaled when its max grows), merged
+// across groups at the end. K10 sums da over every edge of the graph with
+// no atomics: its warps stride over the (row, head) tasks with a stride that
+// is a multiple of H, so each warp keeps one head's share of da in
+// registers and writes it once; gatv2_da_reduce_kernel then sums the shares
+// of each entry in a fixed order.
+
+// K9, replacing _flash_gatv2_kernel. Over the receiver CSR, row r, head h:
+//   m = max_e lg_e,  s = sum_e exp(lg_e - m),
+//   num = sum_e exp(lg_e - m) k[s_e]
+// with m = -inf, s = 0, num = 0 for a row without edges.
+template <typename V, int NC>
+__global__ void __launch_bounds__(kThreads)
+gatv2_softmax_kernel(const int* __restrict__ indptr,
+                     const int* __restrict__ col, const V* __restrict__ q,
+                     const V* __restrict__ k, const float* __restrict__ a,
+                     V* __restrict__ num, float* __restrict__ m,
+                     float* __restrict__ s, int n_rows, int heads, int dv,
+                     int log_g, float slope) {
+  int row, h;
+  if (!warp_task(n_rows, heads, row, h)) return;
+  const Lanes L(log_g);
+  const long long rh = (long long)row * heads + h;
+  V qv[NC], av[NC], acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = L.sub + c * L.g;
+    const bool on = f < dv;
+    qv[c] = on ? q[rh * dv + f] : vzero<V>();
+    av[c] = on ? load_a<V>(a, f, heads, h) : vzero<V>();
+    acc[c] = vzero<V>();
+  }
+  float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
+  const int beg = indptr[row], end = indptr[row + 1];
+  for (int base = beg; base < end; base += L.p) {   // warp-uniform trips
+    const int e = base + L.grp;
+    const bool valid = e < end;
+    V kv[NC];
+    float part = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) kv[c] = vzero<V>();
+    if (valid) {
+      const V* kr = k + ((long long)col[e] * heads + h) * dv;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = L.sub + c * L.g;
+        if (f < dv) {
+          kv[c] = kr[f];
+          part += vdot(av[c], lrelu(vadd(qv[c], kv[c]), slope));
+        }
+      }
+    }
+    const float lg = group_sum(part, L.g);
+    if (valid) {
+      if (lg > mg) {
+        const float sc = expf(mg - lg);   // 0 while mg is -inf
+        sg *= sc;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
+        mg = lg;
+      }
+      const float p = lg == -INFINITY ? 0.f : expf(lg - mg);
+      sg += p;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) axpy(acc[c], p, kv[c]);
+    }
+  }
+  // merge the edge groups: rescale each to the row max, then add
+  float mx = mg;
+  for (int off = L.g; off < 32; off <<= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+  const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
+  sg *= sc;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
+  for (int off = L.g; off < 32; off <<= 1) {
+    sg += __shfl_xor_sync(kFull, sg, off);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) add_xor(acc[c], off);
+  }
+  if (L.grp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = L.sub + c * L.g;
+      if (f < dv) num[rh * dv + f] = acc[c];
+    }
+  }
+  if (L.lane == 0) {
+    m[rh] = mx;
+    s[rh] = sg;
+  }
+}
+
+// K10, replacing _gatv2_bwd_fwd_kernel. Over the receiver CSR, row r:
+//   alpha_e = exp(lg_e - mx[r]) / den[r],
+//   dlg_e = alpha_e * (<k[s_e], dy[r]> - s_n[r]),
+//   dq[r] = sum_e dlg_e * a * lrelu'(raw_e),   da += sum_e dlg_e * act_e.
+// Warp gw takes tasks gw, gw + W, ... (W = the grid's warp count, a multiple
+// of H), all of head h = gw % H, and writes its share of da[:, h] to
+// da_part[gw, :] once at the end.
+template <typename V, int NC>
+__global__ void __launch_bounds__(kThreads)
+gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
+                    const int* __restrict__ col, const V* __restrict__ q,
+                    const V* __restrict__ k, const float* __restrict__ a,
+                    const float* __restrict__ mx,
+                    const float* __restrict__ den,
+                    const float* __restrict__ s_n, const V* __restrict__ dy,
+                    V* __restrict__ dq, V* __restrict__ da_part, int n_rows,
+                    int heads, int dv, int log_g, float slope) {
+  const Lanes L(log_g);
+  const long long warps = (long long)gridDim.x * kWarpsPerBlock;
+  const long long gw =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int h = (int)(gw % heads);
+  V av[NC], dav[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = L.sub + c * L.g;
+    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
+    dav[c] = vzero<V>();
+  }
+  const long long tasks = (long long)n_rows * heads;
+  for (long long rh = gw; rh < tasks; rh += warps) {   // warp-uniform
+    const int row = (int)(rh / heads);
+    V qv[NC], dyv[NC], dqv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = L.sub + c * L.g;
+      const bool on = f < dv;
+      qv[c] = on ? q[rh * dv + f] : vzero<V>();
+      dyv[c] = on ? dy[rh * dv + f] : vzero<V>();
+      dqv[c] = vzero<V>();
+    }
+    const float mxr = mx[rh], denr = den[rh], snr = s_n[rh];
+    const int beg = indptr[row], end = indptr[row + 1];
+    for (int base = beg; base < end; base += L.p) {
+      const int e = base + L.grp;
+      const bool valid = e < end;
+      V raw[NC];
+      float plg = 0.f, pvd = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) raw[c] = vzero<V>();
+      if (valid) {
+        const V* kr = k + ((long long)col[e] * heads + h) * dv;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int f = L.sub + c * L.g;
+          if (f < dv) {
+            const V kf = kr[f];
+            raw[c] = vadd(qv[c], kf);
+            plg += vdot(av[c], lrelu(raw[c], slope));
+            pvd += vdot(kf, dyv[c]);
+          }
+        }
+      }
+      group_sum2(plg, pvd, L.g);
+      if (valid) {
+        const float alpha = expf(plg - mxr) / denr;
+        const float dlg = alpha * (pvd - snr);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          axpy_dlrelu(dqv[c], dlg, av[c], raw[c], slope);
+          axpy(dav[c], dlg, lrelu(raw[c], slope));
+        }
+      }
+    }
+    for (int off = L.g; off < 32; off <<= 1) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) add_xor(dqv[c], off);
+    }
+    if (L.grp == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = L.sub + c * L.g;
+        if (f < dv) dq[rh * dv + f] = dqv[c];
+      }
+    }
+  }
+  for (int off = L.g; off < 32; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) add_xor(dav[c], off);
+  }
+  if (L.grp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = L.sub + c * L.g;
+      if (f < dv) da_part[gw * dv + f] = dav[c];
+    }
+  }
+}
+
+// K10's second launch: da[f, h] = sum over the warps w of head h (w = h,
+// h + H, ...) of da_part[w, f]. One warp per entry of da [O, H]; lane i
+// adds the shares w = h + H * (i + 32 j) in order of j, then a fixed
+// shuffle tree adds the lanes: the same order in every run.
+__global__ void __launch_bounds__(kThreads)
+gatv2_da_reduce_kernel(const float* __restrict__ da_part,
+                       float* __restrict__ da, int warps, int heads, int o) {
+  const long long j =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (j >= (long long)o * heads) return;   // warp-uniform
+  const int f = (int)(j / heads), h = (int)(j % heads);
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (long long w = h + (long long)heads * lane; w < warps;
+       w += 32LL * heads)
+    acc += da_part[w * o + f];
+  acc = warp_sum(acc);
+  if (lane == 0) da[j] = acc;
+}
+
+// K11, replacing _gatv2_bwd_rev_kernel. Over the sender CSR, row s (col
+// holds the receivers r_e):
+//   dk[s] = sum_e dlg_e * a * lrelu'(raw_e) + alpha_e * dy[r_e]
+// the logit half and the value half (values are k) in one sum. k[s] stays
+// in registers; each gathered dy row feeds both <k[s], dy[r]> and the sum.
+template <typename V, int NC>
+__global__ void __launch_bounds__(kThreads)
+gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
+                     const int* __restrict__ col, const V* __restrict__ q,
+                     const V* __restrict__ k, const float* __restrict__ a,
+                     const float* __restrict__ mx,
+                     const float* __restrict__ den,
+                     const float* __restrict__ s_n, const V* __restrict__ dy,
+                     V* __restrict__ dk, int n_rows, int heads, int dv,
+                     int log_g, float slope) {
+  int row, h;
+  if (!warp_task(n_rows, heads, row, h)) return;
+  const Lanes L(log_g);
+  const long long sh = (long long)row * heads + h;
+  V kv[NC], av[NC], acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = L.sub + c * L.g;
+    const bool on = f < dv;
+    kv[c] = on ? k[sh * dv + f] : vzero<V>();
+    av[c] = on ? load_a<V>(a, f, heads, h) : vzero<V>();
+    acc[c] = vzero<V>();
+  }
+  const int beg = indptr[row], end = indptr[row + 1];
+  for (int base = beg; base < end; base += L.p) {
+    const int e = base + L.grp;
+    const bool valid = e < end;
+    V raw[NC], dyv[NC];
+    float plg = 0.f, pvd = 0.f, mxr = 0.f, denr = 1.f, snr = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      raw[c] = vzero<V>();
+      dyv[c] = vzero<V>();
+    }
+    if (valid) {
+      const long long rh = (long long)col[e] * heads + h;
+      mxr = mx[rh];
+      denr = den[rh];
+      snr = s_n[rh];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = L.sub + c * L.g;
+        if (f < dv) {
+          dyv[c] = dy[rh * dv + f];
+          raw[c] = vadd(q[rh * dv + f], kv[c]);
+          plg += vdot(av[c], lrelu(raw[c], slope));
+          pvd += vdot(kv[c], dyv[c]);
+        }
+      }
+    }
+    group_sum2(plg, pvd, L.g);
+    if (valid) {
+      const float alpha = expf(plg - mxr) / denr;
+      const float dlg = alpha * (pvd - snr);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        axpy_dlrelu(acc[c], dlg, av[c], raw[c], slope);
+        axpy(acc[c], alpha, dyv[c]);
+      }
+    }
+  }
+  for (int off = L.g; off < 32; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) add_xor(acc[c], off);
+  }
+  if (L.grp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = L.sub + c * L.g;
+      if (f < dv) dk[sh * dv + f] = acc[c];
+    }
+  }
+}
+
 int log_group(int dv) {
   int lg = 0;
   while ((1 << lg) < dv && lg < 5) ++lg;
@@ -348,6 +717,73 @@ bool aligned16(const void* p) {
 unsigned blocks_for(int n_rows, int heads) {
   const long long warps = (long long)n_rows * heads;
   return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+// The GATv2 kernels keep NC register chunks of 32 vectors per lane: calls
+// f with std::integral_constant<int, NC> for the least NC in {1, 2, 4, 8}
+// that holds dv vectors, and returns cudaGetLastError() after it, or
+// cudaErrorInvalidValue (nothing launched) for rows wider than 256 vectors.
+template <typename F>
+int with_chunks(int dv, F&& f) {
+  if (dv <= 32) {
+    f(std::integral_constant<int, 1>{});
+  } else if (dv <= 64) {
+    f(std::integral_constant<int, 2>{});
+  } else if (dv <= 128) {
+    f(std::integral_constant<int, 4>{});
+  } else if (dv <= 256) {
+    f(std::integral_constant<int, 8>{});
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
+int launch_gatv2_softmax(const int* indptr, const int* col, const float* q,
+                         const float* k, const float* a, float* num, float* m,
+                         float* s, int n_rows, int heads, int dv, float slope,
+                         cudaStream_t st) {
+  const unsigned nb = blocks_for(n_rows, heads);
+  return with_chunks(dv, [&](auto nc) {
+    gatv2_softmax_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
+        indptr, col, reinterpret_cast<const V*>(q),
+        reinterpret_cast<const V*>(k), a, reinterpret_cast<V*>(num), m, s,
+        n_rows, heads, dv, log_group(dv), slope);
+  });
+}
+
+template <typename V>
+int launch_gatv2_bwd_dq(const int* indptr, const int* col, const float* q,
+                        const float* k, const float* a, const float* mx,
+                        const float* den, const float* s_n, const float* dy,
+                        float* dq, float* da_part, int n_rows, int heads,
+                        int dv, unsigned blocks, float slope,
+                        cudaStream_t st) {
+  return with_chunks(dv, [&](auto nc) {
+    gatv2_bwd_dq_kernel<V, decltype(nc)::value><<<blocks, kThreads, 0, st>>>(
+        indptr, col, reinterpret_cast<const V*>(q),
+        reinterpret_cast<const V*>(k), a, mx, den, s_n,
+        reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dq),
+        reinterpret_cast<V*>(da_part), n_rows, heads, dv, log_group(dv),
+        slope);
+  });
+}
+
+template <typename V>
+int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
+                         const float* k, const float* a, const float* mx,
+                         const float* den, const float* s_n, const float* dy,
+                         float* dk, int n_rows, int heads, int dv, float slope,
+                         cudaStream_t st) {
+  const unsigned nb = blocks_for(n_rows, heads);
+  return with_chunks(dv, [&](auto nc) {
+    gatv2_bwd_rev_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
+        indptr, col, reinterpret_cast<const V*>(q),
+        reinterpret_cast<const V*>(k), a, mx, den, s_n,
+        reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dk), n_rows,
+        heads, dv, log_group(dv), slope);
+  });
 }
 
 }  // namespace
@@ -443,6 +879,89 @@ int gat_bwd_rev_f32(const int* indptr, const int* col, const float* pi,
         log_group(d), slope);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K9. Over the receiver CSR of n_rows receivers: q [n_rows, H, d],
+// k [n_src, H, d], a [d, H]; num [n_rows, H, d], m and s [n_rows, H].
+// float4 rows take d <= 1024, scalar rows d <= 256; wider returns
+// cudaErrorInvalidValue.
+int gatv2_softmax_f32(const int* indptr, const int* col, const float* q,
+                      const float* k, const float* a, float* num, float* m,
+                      float* s, int n_rows, int heads, int d, float slope,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(num))
+    return launch_gatv2_softmax<float4>(indptr, col, q, k, a, num, m, s,
+                                        n_rows, heads, d / 4, slope, st);
+  return launch_gatv2_softmax<float>(indptr, col, q, k, a, num, m, s, n_rows,
+                                     heads, d, slope, st);
+}
+
+// K10, first launch. Over the receiver CSR: dq [n_rows, H, d] and
+// da_part [8 * blocks, d], each warp's share of da. 8 * blocks must be a
+// multiple of H. Widths as K9.
+int gatv2_bwd_dq_f32(const int* indptr, const int* col, const float* q,
+                     const float* k, const float* a, const float* mx,
+                     const float* den, const float* s_n, const float* dy,
+                     float* dq, float* da_part, int n_rows, int heads, int d,
+                     int blocks, float slope, void* stream) {
+  if (blocks <= 0 || (kWarpsPerBlock * (long long)blocks) % heads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(dy) &&
+      aligned16(dq) && aligned16(da_part))
+    return launch_gatv2_bwd_dq<float4>(indptr, col, q, k, a, mx, den, s_n, dy,
+                                       dq, da_part, n_rows, heads, d / 4,
+                                       (unsigned)blocks, slope, st);
+  return launch_gatv2_bwd_dq<float>(indptr, col, q, k, a, mx, den, s_n, dy,
+                                    dq, da_part, n_rows, heads, d,
+                                    (unsigned)blocks, slope, st);
+}
+
+// K10's blocks that stay resident on one SM at once, for rows of d floats
+// (vec: float4 loads), so that its grid can be one wave: its warps stride
+// over the tasks, and a second, partial wave would leave SMs idle at the
+// end. Returns -1 for rows wider than the kernels take.
+int gatv2_bwd_dq_blocks_per_sm(int d, int vec) {
+  int per_sm = -1;
+  const int dv = vec ? d / 4 : d;
+  const int rc = with_chunks(dv, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    if (vec)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gatv2_bwd_dq_kernel<float4, NC>, kThreads, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gatv2_bwd_dq_kernel<float, NC>, kThreads, 0);
+  });
+  return rc == 0 ? per_sm : -1;
+}
+
+// K10, second launch: da [d, H] from da_part [warps, d].
+int gatv2_da_reduce_f32(const float* da_part, float* da, int warps, int heads,
+                        int d, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nb = blocks_for(d, heads);
+  gatv2_da_reduce_kernel<<<nb, kThreads, 0, st>>>(da_part, da, warps, heads,
+                                                  d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11. Over the sender CSR of n_rows senders: dk [n_rows, H, d]. Widths as
+// K9.
+int gatv2_bwd_rev_f32(const int* indptr, const int* col, const float* q,
+                      const float* k, const float* a, const float* mx,
+                      const float* den, const float* s_n, const float* dy,
+                      float* dk, int n_rows, int heads, int d, float slope,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(dy) &&
+      aligned16(dk))
+    return launch_gatv2_bwd_rev<float4>(indptr, col, q, k, a, mx, den, s_n,
+                                        dy, dk, n_rows, heads, d / 4, slope,
+                                        st);
+  return launch_gatv2_bwd_rev<float>(indptr, col, q, k, a, mx, den, s_n, dy,
+                                     dk, n_rows, heads, d, slope, st);
 }
 
 const char* gnn_cuda_error_string(int code) {

@@ -1,4 +1,4 @@
-"""Convolution layers: GCN, GraphConv, GIN, SAGE, MLP and GAT.
+"""Convolution layers: GCN, GraphConv, GIN, SAGE, MLP, GAT and GATv2.
 
 Counterpart of ``graphneuralnetworks_tpu/models/conv.py`` (surfaces from
 GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
@@ -8,8 +8,8 @@ GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
 and added as ``c_i * x_i``.
 
 Constructors take ``generator`` (a ``torch.Generator`` for the Glorot
-init), ``device`` (``None``: the CUDA card) and ``dtype``. GAT's self-loop
-is virtual too (:mod:`..ops.attention`).
+init), ``device`` (``None``: the CUDA card) and ``dtype``. The attention
+layers' self-loops are virtual too (:mod:`..ops.attention`).
 """
 
 from __future__ import annotations
@@ -22,13 +22,15 @@ from torch import nn
 from .. import resolve_device
 from ..graph import GraphTuple
 from ..ops import copy_xj, e_mul_xj, propagate, w_mul_xj
-from ..ops.attention import attention_aggregate, gat_attention
+from ..ops.attention import (attention_aggregate, gat_attention,
+                             gatv2_attention)
 from ..ops.cuda.edge_softmax import lrelu
 from ..ops.segment import gather, segment_sum
 from ..query import degree
 from .basic import GNNLayer, glorot_uniform
 
-__all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "MLP", "GATConv"]
+__all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "MLP", "GATConv",
+           "GATv2Conv"]
 
 
 def _weight(shape, generator, device, dtype) -> nn.Parameter:
@@ -277,6 +279,15 @@ def _attn_dropout_masks(p, gen, n_edges, n_dst, heads, with_self, device,
     return draw(n_edges), (draw(n_dst) if with_self else None)
 
 
+def _dropout_generator(p, generator, device):
+    """The layer's own generator for its dropout masks, on its device,
+    seeded from ``generator`` (``None`` when ``p == 0``)."""
+    if p <= 0:
+        return None
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 class GATConv(GNNLayer):
     """Graph attention (Velickovic et al.; reference conv.jl:309-411, GNNlib
     conv.jl:112-167).
@@ -311,9 +322,7 @@ class GATConv(GNNLayer):
         self.bias = (_bias(out_features * heads if concat else out_features,
                            device, dtype) if use_bias else None)
         self.dropout = dropout
-        self._gen = (torch.Generator(device=device).manual_seed(
-            int(torch.randint(0, 2**62, (1,), generator=generator)))
-            if dropout > 0 else None)
+        self._gen = _dropout_generator(dropout, generator, device)
         self.act = act
         self.heads, self.concat = heads, concat
         self.negative_slope = negative_slope
@@ -354,6 +363,94 @@ class GATConv(GNNLayer):
             raw = (gather(pi, g.receivers) + gather(pj, g.senders)
                    + torch.einsum("ehf,fh->eh", We, a[2 * O:]))
             out = attention_aggregate(g, lrelu(raw, slope), Wxj,
+                                      self_logits=self_logits,
+                                      self_values=self_values,
+                                      dropout_masks=masks,
+                                      num_segments=Wxi.shape[0],
+                                      node_values=True)
+        out = out.reshape(-1, H * O) if self.concat else out.mean(1)
+        if self.bias is not None:
+            out = out + self.bias
+        return self.act(out) if self.act is not None else out
+
+
+class GATv2Conv(GNNLayer):
+    """GATv2 (Brody et al., "How Attentive are GATs?"; reference
+    conv.jl:413-512, GNNlib conv.jl:171-214).
+
+    The score ``a' leaky_relu(W_i x_i + W_j x_j [+ W_e e])`` puts the
+    leaky_relu before the ``a`` contraction, so it is taken per edge over
+    whole ``[H, O]`` rows, inside the kernels on the card
+    (:func:`~..ops.attention.gatv2_attention`); the values are ``W_j x_j``.
+    Parameters keep the JAX package's names: ``dense_i`` (``nn.Linear``,
+    with bias when ``use_bias``), ``dense_j`` and ``dense_e`` (no bias),
+    ``a [out, heads]`` and ``bias``. Dropout as in :class:`GATConv`.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 act: Callable | None = None, *, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 add_self_loops: bool = True, dropout: float = 0.0,
+                 use_bias: bool = True, edge_features: int = 0,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        if add_self_loops and edge_features > 0:
+            raise ValueError("edge features + add_self_loops unsupported")
+        device = resolve_device(device)
+
+        def dense(fan_in, bias):
+            return _dense(fan_in, out_features * heads, bias, generator,
+                          device, dtype)
+
+        self.dense_i = dense(in_features, use_bias)
+        self.dense_j = dense(in_features, False)
+        self.dense_e = (dense(edge_features, False) if edge_features > 0
+                        else None)
+        self.a = _weight((out_features, heads), generator, device, dtype)
+        self.bias = (_bias(out_features * heads if concat else out_features,
+                           device, dtype) if use_bias else None)
+        self.dropout = dropout
+        self._gen = _dropout_generator(dropout, generator, device)
+        self.act = act
+        self.heads, self.concat = heads, concat
+        self.negative_slope = negative_slope
+        self.add_self_loops = add_self_loops
+        self.out_features = out_features
+
+    def _logits(self, wx):
+        return torch.einsum("...hf,fh->...h",
+                            lrelu(wx, self.negative_slope), self.a)
+
+    def forward(self, g: GraphTuple, x=None, e=None, *,
+                deterministic: bool = True):
+        if x is None:
+            x = g.x
+        xj, xi = _expand_srcdst(x)
+        H, O = self.heads, self.out_features
+        Wxi = self.dense_i(xi).reshape(-1, H, O)
+        Wxj = self.dense_j(xj).reshape(-1, H, O)
+        self_logits = self_values = None
+        if self.add_self_loops:
+            # the self edge: dense_i(x_i) + dense_j(x_i)
+            Wji = Wxj if xi is xj else self.dense_j(xi).reshape(-1, H, O)
+            self_logits, self_values = self._logits(Wxi + Wji), Wji
+        masks = None
+        if self.dropout > 0 and not deterministic:
+            masks = _attn_dropout_masks(
+                self.dropout, self._gen, g.num_edges,
+                Wxi.shape[0], H, self.add_self_loops, Wxi.device, Wxi.dtype)
+        if e is None and self.dense_e is None:
+            out = gatv2_attention(g, Wxi, Wxj, self.a, self.negative_slope,
+                                  self_logits=self_logits,
+                                  self_values=self_values,
+                                  dropout_masks=masks,
+                                  num_segments=Wxi.shape[0])
+        else:
+            if e is None or self.dense_e is None:
+                raise ValueError("edge features required/not configured")
+            wx = (gather(Wxi, g.receivers) + gather(Wxj, g.senders)
+                  + self.dense_e(e).reshape(-1, H, O))
+            out = attention_aggregate(g, self._logits(wx), Wxj,
                                       self_logits=self_logits,
                                       self_values=self_values,
                                       dropout_masks=masks,

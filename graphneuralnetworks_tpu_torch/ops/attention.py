@@ -7,11 +7,11 @@ the softmax over {in-edges} and {self}. Attention dropout is a pair of
 multiplicative masks (0 or 1/(1-p)) on the normalised weights; the softmax
 denominator is not dropped.
 
-Dispatch: on CUDA tensors both functions go to the kernels of
-:mod:`.cuda.edge_softmax` (K3-K5 for :func:`gat_attention` without
-dropout, K12 otherwise), at any width and any number of head dimensions;
-a shape the kernels cannot take raises. Only CPU tensors take the plain
-path below, the counterpart of the JAX package's XLA path.
+Dispatch: on CUDA tensors every function goes to the kernels of
+:mod:`.cuda.edge_softmax` (K3-K5 for :func:`gat_attention` and K9-K11 for
+:func:`gatv2_attention` without dropout, K12 otherwise), at any number of
+head dimensions; a shape the kernels cannot take raises. Only CPU tensors
+take the plain path below, the counterpart of the JAX package's XLA path.
 """
 
 from __future__ import annotations
@@ -23,10 +23,11 @@ import torch
 from ..graph import GraphTuple
 from .cuda.edge_softmax import (edge_softmax_aggregate,
                                 edge_softmax_aggregate_nodes,
-                                gat_attention_nodes, lrelu)
+                                gat_attention_nodes, gatv2_attention_nodes,
+                                lrelu)
 from .segment import gather, segment_max, segment_sum
 
-__all__ = ["attention_aggregate", "gat_attention"]
+__all__ = ["attention_aggregate", "gat_attention", "gatv2_attention"]
 
 
 def _kernel_route(t: torch.Tensor) -> bool:
@@ -73,6 +74,31 @@ def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
                                    pj_weight=pj_weight)
     logits = lrelu(gather(pi, g.receivers) + gather(pj, g.senders), slope)
     return attention_aggregate(g, logits, values, self_logits=self_logits,
+                               self_values=self_values,
+                               dropout_masks=dropout_masks,
+                               num_segments=num_segments, node_values=True)
+
+
+def gatv2_attention(g: GraphTuple, q, k, a, slope: float, *,
+                    self_logits=None, self_values=None, dropout_masks=None,
+                    num_segments=None):
+    """GATv2 attention: logits ``<a_h, leaky_relu(q[r_e] + k[s_e])>``, values
+    ``k[s_e]``.
+
+    ``q [n_dst, H, O]`` / ``k [N_src, H, O]`` are the receiver and sender
+    projections and ``a [O, H]`` the attention weights. On the card without
+    dropout the logits are computed inside the kernels
+    (:func:`~.cuda.edge_softmax.gatv2_attention_nodes`); otherwise they are
+    gathered and :func:`attention_aggregate` takes over.
+    """
+    if _kernel_route(k) and dropout_masks is None:
+        return gatv2_attention_nodes(g, q, k, a, slope,
+                                     self_logits=self_logits,
+                                     self_values=self_values,
+                                     num_segments=num_segments)
+    wx = gather(q, g.receivers) + gather(k, g.senders)
+    logits = torch.einsum("ehf,fh->eh", lrelu(wx, slope), a)
+    return attention_aggregate(g, logits, k, self_logits=self_logits,
                                self_values=self_values,
                                dropout_masks=dropout_masks,
                                num_segments=num_segments, node_values=True)

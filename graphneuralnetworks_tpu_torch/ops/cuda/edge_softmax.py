@@ -1,4 +1,4 @@
-"""Edge softmax with aggregation on the card: K3, K4, K5 and K12.
+"""Edge softmax with aggregation on the card: K3, K4, K5, K9, K10, K11, K12.
 
 Counterpart of ``graphneuralnetworks_tpu/ops/pallas/edge_softmax.py``. The
 TPU kernels stream edge blocks through one-hot matmuls over 128x512
@@ -13,12 +13,18 @@ a CSR grouping (``csrc/edge_softmax.cu``):
 - K4 ``gat_bwd_dpi`` (receiver CSR) and K5 ``gat_bwd_rev`` (sender CSR):
   GAT's backward, recomputing each edge's attention weight from per-node
   scalars.
+- K9 ``gatv2_softmax``: GATv2's logits ``<a_h, leaky_relu(q[r] + k[s])>``
+  with the values ``k[s]``, one pass over each row's edges.
+- K10 ``gatv2_bwd_dq`` (receiver CSR: ``dq`` and ``da``, the latter in two
+  launches, per-warp shares then a fixed-order sum) and K11
+  ``gatv2_bwd_rev`` (sender CSR: ``dk``): GATv2's backward.
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
-self-loop folds in afterwards (:func:`finalize_softmax`). Three autograd
+self-loop folds in afterwards (:func:`finalize_softmax`). Four autograd
 functions sit on top: :func:`edge_softmax_aggregate` (edge values, eager
 backward), :func:`edge_softmax_aggregate_nodes` (node values; backward K2
-once per head) and :func:`gat_attention_nodes` (backward K4 and K5).
+once per head), :func:`gat_attention_nodes` (backward K4 and K5) and
+:func:`gatv2_attention_nodes` (forward K9, backward K10 and K11).
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``*_plain``); a CUDA tensor launches the kernel or raises. ``launches``
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -38,27 +45,39 @@ from .build import load
 from .spmm import _check, _ptr, _raise_on_error, _route, _row_ids, spmm_sddmm
 
 __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
-           "gat_bwd_dpi", "gat_bwd_rev", "edge_softmax_plain",
-           "gat_softmax_plain", "gat_bwd_dpi_plain", "gat_bwd_rev_plain",
+           "gat_bwd_dpi", "gat_bwd_rev", "gatv2_softmax", "gatv2_bwd_dq",
+           "gatv2_bwd_rev", "edge_softmax_plain", "gat_softmax_plain",
+           "gat_bwd_dpi_plain", "gat_bwd_rev_plain", "gatv2_softmax_plain",
+           "gatv2_bwd_dq_plain", "gatv2_bwd_rev_plain",
            "edge_softmax_aggregate", "edge_softmax_aggregate_nodes",
-           "gat_attention_nodes"]
+           "gat_attention_nodes", "gatv2_attention_nodes"]
 
-launches = {"k3": 0, "k4": 0, "k5": 0, "k12": 0}
+launches = {"k3": 0, "k4": 0, "k5": 0, "k9": 0, "k10": 0, "k11": 0,
+            "k12": 0}
 
 _NEG_INF = float("-inf")
+# The GATv2 kernels hold a row in at most 8 register chunks of 32 vectors
+# per lane (csrc/edge_softmax.cu): float4 vectors when O % 4 == 0.
+_GATV2_MAX_VECTORS = 256
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("edge_softmax")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn, n_ptr, slope in (("edge_softmax_f32", 8, False),
-                             ("gat_softmax_f32", 8, True),
-                             ("gat_bwd_dpi_f32", 10, True),
-                             ("gat_bwd_rev_f32", 11, True)):
+    for fn, n_ptr, n_int, slope in (("edge_softmax_f32", 8, 3, False),
+                                    ("gat_softmax_f32", 8, 3, True),
+                                    ("gat_bwd_dpi_f32", 10, 3, True),
+                                    ("gat_bwd_rev_f32", 11, 3, True),
+                                    ("gatv2_softmax_f32", 8, 3, True),
+                                    ("gatv2_bwd_dq_f32", 11, 4, True),
+                                    ("gatv2_da_reduce_f32", 2, 3, False),
+                                    ("gatv2_bwd_rev_f32", 10, 3, True)):
         f = getattr(lib, fn)
-        f.argtypes = [ptr] * n_ptr + [i32] * 3 + [f32] * slope + [ptr]
+        f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * slope + [ptr]
         f.restype = i32
+    lib.gatv2_bwd_dq_blocks_per_sm.argtypes = [i32, i32]
+    lib.gatv2_bwd_dq_blocks_per_sm.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -170,6 +189,57 @@ def gat_bwd_rev_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     dv = values_n.new_zeros(values_n.shape).index_add_(
         0, rows, alpha[..., None] * dy_e)
     return dpj, dv
+
+
+def _gatv2_logits(r, s, q, k, a, slope):
+    """Per edge: ``k[s]``, ``raw = q[r] + k[s]``, ``act = leaky_relu(raw)``
+    and the logit ``<a[:, h], act>`` (``a`` is ``[O, H]``)."""
+    k_e = k.index_select(0, s)
+    raw = q.index_select(0, r) + k_e
+    act = lrelu(raw, slope)
+    return k_e, raw, act, (act * a.t()).sum(-1)
+
+
+def gatv2_softmax_plain(indptr, col, q, k, a, slope):
+    """K9's function over the receiver CSR: :func:`edge_softmax_plain` of
+    the values ``k[s_e]`` with logits ``<a_h, leaky_relu(q[r_e] +
+    k[s_e])>``."""
+    rows = _row_ids(indptr, col.numel())
+    k_e, _, _, lg = _gatv2_logits(rows, col.long(), q, k, a, slope)
+    return _softmax_sums(rows, indptr.numel() - 1, lg, None, k_e)
+
+
+def _gatv2_edge_terms(r, s, q, k, a, mx, den, s_n, dy, slope):
+    """Per edge: ``alpha``, ``dy[r]``, ``act``, ``dlg = alpha * (<k[s],
+    dy[r]> - s_n[r])`` and ``dlg * a * leaky_relu'(raw)``."""
+    k_e, raw, act, lg = _gatv2_logits(r, s, q, k, a, slope)
+    alpha = torch.exp(lg - mx.index_select(0, r)) / den.index_select(0, r)
+    dy_e = dy.index_select(0, r)
+    dlg = alpha * ((k_e * dy_e).sum(-1) - s_n.index_select(0, r))
+    draw = dlg[..., None] * a.t() * _dlrelu(raw, slope)
+    return alpha, dy_e, act, dlg, draw
+
+
+def gatv2_bwd_dq_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+    """K10's function over the receiver CSR: ``(dq, da)`` with ``dq[r] =
+    sum_e dlg_e a lrelu'(raw_e)`` and ``da [O, H] = sum_e act_e^T dlg_e``
+    (edge_softmax.py:1444-1459)."""
+    rows = _row_ids(indptr, col.numel())
+    _, _, act, dlg, draw = _gatv2_edge_terms(rows, col.long(), q, k, a, mx,
+                                             den, s_n, dy, slope)
+    dq = q.new_zeros(q.shape).index_add_(0, rows, draw)
+    return dq, torch.einsum("ehf,eh->fh", act, dlg)
+
+
+def gatv2_bwd_rev_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+    """K11's function over the sender CSR (``col``: the receivers):
+    ``dk[s] = sum_e dlg_e a lrelu'(raw_e) + alpha_e dy[r_e]``
+    (edge_softmax.py:1506-1516)."""
+    rows = _row_ids(indptr, col.numel())
+    alpha, dy_e, _, _, draw = _gatv2_edge_terms(col.long(), rows, q, k, a,
+                                                mx, den, s_n, dy, slope)
+    return k.new_zeros(k.shape).index_add_(0, rows,
+                                           draw + alpha[..., None] * dy_e)
 
 
 # ---- kernel wrappers -------------------------------------------------------
@@ -288,6 +358,113 @@ def _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     return dpj, dv
 
 
+def _float4_rows(d: int, *rows) -> bool:
+    """Whether the kernels load rows of ``d`` floats as float4 (the rule of
+    csrc/edge_softmax.cu: O % 4 == 0 and every row operand 16-byte
+    aligned)."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
+
+
+def _check_gatv2_width(d: int, *rows) -> None:
+    """The GATv2 kernels take a head's row in at most 256 vectors: 1024
+    floats with float4 loads, else 256."""
+    if (d // 4 if _float4_rows(d, *rows) else d) > _GATV2_MAX_VECTORS:
+        raise ValueError(
+            f"the GATv2 kernels take rows of at most "
+            f"{4 * _GATV2_MAX_VECTORS} floats per head "
+            f"({_GATV2_MAX_VECTORS} when O % 4 != 0 or a row operand is not "
+            f"16-byte aligned), got O={d}")
+
+
+def _gatv2_args(indptr, col, q, k, a, scalars, rows3) -> torch.device:
+    """Checks shared by K9-K11: float32 contiguous ``[rows, H, O]`` rows and
+    ``[rows, H]`` scalars on one card, ``a [O, H]``, a width they take."""
+    device = _check_launch(indptr, col, {"a": a, **scalars},
+                           {"q": q, "k": k, **rows3})
+    if a.shape[0] != q.shape[2]:
+        raise ValueError(f"a must be [O, H] = [{q.shape[2]}, {q.shape[1]}], "
+                         f"got {tuple(a.shape)}")
+    _check_gatv2_width(q.shape[2], q, k, *rows3.values())
+    return device
+
+
+def _gatv2_softmax_kernel(indptr, col, q, k, a, slope):
+    device = _gatv2_args(indptr, col, q, k, a, {}, {})
+    n, (_, heads, d) = indptr.numel() - 1, q.shape
+    _same_rows(n, q=q)
+    num, m, s = _forward_outputs(n, heads, d, device)
+    if n == 0 or heads == 0:
+        return num, m, s
+    _launch("gatv2_softmax_f32", "k9", device, _ptr(indptr), _ptr(col),
+            _ptr(q), _ptr(k), _ptr(a), _ptr(num), _ptr(m), _ptr(s), n,
+            heads, d, float(slope))
+    return num, m, s
+
+
+def _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy):
+    device = _gatv2_args(indptr, col, q, k, a,
+                         {"mx": mx, "den": den, "s_n": s_n}, {"dy": dy})
+    _same_rows(q.shape[0], mx=mx, den=den, s_n=s_n, dy=dy)   # receivers
+    return device, tuple(_ptr(t) for t in (indptr, col, q, k, a, mx, den,
+                                           s_n, dy))
+
+
+_WARPS_PER_BLOCK = 8     # kWarpsPerBlock of csrc/edge_softmax.cu
+
+
+@functools.cache
+def _dq_resident_blocks(index: int, d: int, vec: bool) -> int:
+    """How many blocks of K10 (for rows of ``d`` floats) the card ``index``
+    holds at once: the CUDA occupancy of its instantiation times the SMs."""
+    with torch.cuda.device(index):
+        per_sm = _lib().gatv2_bwd_dq_blocks_per_sm(d, int(vec))
+    if per_sm <= 0:
+        raise RuntimeError(f"no occupancy for gatv2_bwd_dq at O={d}")
+    return per_sm * torch.cuda.get_device_properties(
+        index).multi_processor_count
+
+
+def _dq_blocks(tasks: int, heads: int, resident: int) -> int:
+    """K10's grid: blocks of 8 warps, one wave of the ``resident`` blocks
+    the card holds at once, or fewer when the ``tasks`` (row, head) pairs
+    need fewer warps, rounded up so that the warp count is a multiple of H:
+    each warp then keeps one head's share of ``da``."""
+    unit = heads // math.gcd(_WARPS_PER_BLOCK, heads)
+    want = min(-(-tasks // _WARPS_PER_BLOCK), resident)
+    return max(unit, -(-want // unit) * unit)
+
+
+def _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+    device, args = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy)
+    n, heads, d = indptr.numel() - 1, q.shape[1], q.shape[2]
+    _same_rows(n, q=q)
+    dq = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    da = torch.empty((d, heads), dtype=torch.float32, device=device)
+    if n == 0 or heads == 0 or d == 0:
+        return dq, da.zero_()
+    blocks = _dq_blocks(n * heads, heads, _dq_resident_blocks(
+        device.index, d, _float4_rows(d, q, k, dy)))
+    warps = _WARPS_PER_BLOCK * blocks
+    part = torch.empty((warps, d), dtype=torch.float32, device=device)
+    _launch("gatv2_bwd_dq_f32", "k10", device, *args, _ptr(dq), _ptr(part),
+            n, heads, d, blocks, float(slope))
+    _launch("gatv2_da_reduce_f32", "k10", device, _ptr(part), _ptr(da),
+            warps, heads, d)
+    return dq, da
+
+
+def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+    device, args = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy)
+    n, heads, d = indptr.numel() - 1, k.shape[1], k.shape[2]
+    _same_rows(n, k=k)
+    dk = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    if n == 0 or heads == 0 or d == 0:
+        return dk
+    _launch("gatv2_bwd_rev_f32", "k11", device, *args, _ptr(dk), n, heads,
+            d, float(slope))
+    return dk
+
+
 def edge_softmax(indptr, col, logits, mask, values):
     """K12 on CUDA tensors, :func:`edge_softmax_plain` on CPU tensors."""
     if _route(values) == "cpu":
@@ -318,6 +495,30 @@ def gat_bwd_rev(indptr, col, pi, pj, values_n, mx, den, s_n, dy, slope):
                                  dy, slope)
     return _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n,
                                dy, slope)
+
+
+def gatv2_softmax(indptr, col, q, k, a, slope):
+    """K9 on CUDA tensors, :func:`gatv2_softmax_plain` on CPU tensors."""
+    if _route(k) == "cpu":
+        return gatv2_softmax_plain(indptr, col, q, k, a, slope)
+    return _gatv2_softmax_kernel(indptr, col, q, k, a, slope)
+
+
+def gatv2_bwd_dq(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+    """K10 on CUDA tensors, :func:`gatv2_bwd_dq_plain` on CPU tensors."""
+    if _route(dy) == "cpu":
+        return gatv2_bwd_dq_plain(indptr, col, q, k, a, mx, den, s_n, dy,
+                                  slope)
+    return _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope)
+
+
+def gatv2_bwd_rev(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+    """K11 on CUDA tensors, :func:`gatv2_bwd_rev_plain` on CPU tensors."""
+    if _route(dy) == "cpu":
+        return gatv2_bwd_rev_plain(indptr, col, q, k, a, mx, den, s_n, dy,
+                                   slope)
+    return _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy,
+                                 slope)
 
 
 # ---- autograd --------------------------------------------------------------
@@ -447,6 +648,41 @@ class GatAttentionFunction(torch.autograd.Function):
         return (dpi, dpj, dv, dsl, dsv) + (None,) * 5
 
 
+class GatV2AttentionFunction(torch.autograd.Function):
+    """GATv2 attention with logits ``<a_h, leaky_relu(q[r] + k[s])>`` and
+    values ``k[s]``: K9 forward, K10 (``dq``, ``da``) and K11 (``dk``)
+    backward (edge_softmax.py:1305-1647)."""
+
+    @staticmethod
+    def forward(ctx, q, k, a, self_logits, self_values, indptr_r, col_r,
+                indptr_s, col_s, slope):
+        q, k, a = _contiguous(q, k, a)
+        num, m, s = gatv2_softmax(indptr_r, col_r, q, k, a, slope)
+        out, mx, den = finalize_softmax(num, m, s, self_logits, self_values)
+        ctx.slope = slope
+        ctx.save_for_backward(q, k, a, self_logits, self_values, out, mx,
+                              den, indptr_r, col_r, indptr_s, col_s)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (q, k, a, self_logits, self_values, out, mx, den, indptr_r, col_r,
+         indptr_s, col_s) = ctx.saved_tensors
+        dy = dy.contiguous()
+        s_n = (out * dy).sum(-1)
+        args = (q, k, a, mx, den, s_n, dy, ctx.slope)
+        need = ctx.needs_input_grad
+        dq = dk = da = None
+        if need[0] or need[2]:
+            dq, da = gatv2_bwd_dq(indptr_r, col_r, *args)
+        if need[1]:
+            dk = gatv2_bwd_rev(indptr_s, col_s, *args)
+        dsl, dsv = _self_grads(self_logits, self_values, None, mx, den, s_n,
+                               dy)
+        return (dq, dk, da, dsl, dsv) + (None,) * 5
+
+
 # ---- entry points ----------------------------------------------------------
 
 def _rows(g, num_segments):
@@ -521,3 +757,18 @@ def gat_attention_nodes(g, pi, pj, values_n, slope, *, self_logits=None,
     return GatAttentionFunction.apply(
         pi, pj, values_n, self_logits, self_values, _rows(g, n), g.col_r,
         _senders(g, values_n.shape[0]), g.col_s, float(slope))
+
+
+def gatv2_attention_nodes(g, q, k, a, slope, *, self_logits=None,
+                          self_values=None, num_segments=None):
+    """GATv2 attention: softmax of ``<a[:, h], leaky_relu(q[r_e] + k[s_e],
+    slope)>`` over each receiver's in-edges, summing ``k[s_e]``.
+
+    ``q [n, H, O]`` holds the ``n`` receivers (``num_segments``, default
+    ``q``'s rows), ``k [N_src, H, O]`` the senders (also the values) and
+    ``a [O, H]`` the attention weights.
+    """
+    n = q.shape[0] if num_segments is None else num_segments
+    return GatV2AttentionFunction.apply(
+        q, k, a, self_logits, self_values, _rows(g, n), g.col_r,
+        _senders(g, k.shape[0]), g.col_s, float(slope))

@@ -1,15 +1,18 @@
 """Port's attention (ops/attention.py, ops/cuda/edge_softmax.py) vs JAX.
 
 ``attention_aggregate`` (edge and node values, 1 and 2 heads, with and
-without the virtual self-loop, with and without numpy-made dropout masks)
-and ``gat_attention`` (1, 2 and 4 heads, with and without the self-loop):
-the forward and the gradient of every input, against
+without the virtual self-loop, with and without numpy-made dropout masks),
+``gat_attention`` and ``gatv2_attention`` (1, 2 and 4 heads, with and
+without the self-loop; GATv2 also with dropout masks): the forward and the
+gradient of every input, against
 
 - the JAX XLA path (graphs without ``build_spmm_aux``), float64 on both
   sides: only summation order differs, rtol 1e-9, atol 1e-10;
-- the JAX Pallas path (``build_spmm_aux=True``: K3, K4, K5 and K12 in
-  interpret mode), float32, at the JAX package's kernel tolerances
-  (forward 1e-5, gradients rtol 1e-4 / atol 1e-5).
+- the JAX Pallas path (``build_spmm_aux=True``: K3, K4, K5 and K12, or K9,
+  K10 and K11, in interpret mode), float32, at the JAX package's kernel
+  tolerances (forward 1e-5, gradients rtol 1e-4 / atol 1e-5; GATv2's
+  forward 2e-5, gradients rtol 2e-4 / atol 3e-5, as its own tests hold its
+  kernels to its XLA path).
 
 The port is run by two routes on the CPU: ``plain`` is what a CPU tensor
 takes (the counterpart of the XLA path), ``kernels`` sends the same CPU
@@ -35,8 +38,12 @@ from torch_parity import F64_TOL, directed_graph_arrays, graph_pair  # noqa: E40
 
 PALLAS_FWD = dict(rtol=1e-5, atol=1e-5)
 PALLAS_GRAD = dict(rtol=1e-4, atol=1e-5)
+# tests/test_pallas_edge_softmax.py::test_gatv2_kernel_matches_xla
+PALLAS_V2_FWD = dict(rtol=2e-5, atol=2e-5)
+PALLAS_V2_GRAD = dict(rtol=2e-4, atol=3e-5)
 SLOPE = 0.2
 D = 3
+O = 5     # GATv2's per-head width
 
 
 @pytest.fixture(params=["plain", "kernels"])
@@ -157,6 +164,40 @@ def _run_gat(aux, dtype, heads, with_self, fwd_tol, grad_tol):
              fwd_tol, grad_tol)
 
 
+def _run_gatv2(aux, dtype, heads, with_self, fwd_tol, grad_tol,
+               dropout=False):
+    """``gatv2_attention``: the gradients of q, k, a and the self-loop
+    terms; with ``dropout``, numpy-made masks (the gathered route)."""
+    jg, tg, n, ne = _graph(aux, dtype)
+    rng = np.random.default_rng(20 + heads + 8 * with_self + 16 * dropout)
+    q = rng.standard_normal((jg.n_pad, heads, O))
+    k = rng.standard_normal((jg.n_pad, heads, O))
+    a = rng.standard_normal((O, heads))
+    sl = rng.standard_normal((jg.n_pad, heads)) if with_self else None
+    sv = rng.standard_normal((jg.n_pad, heads, O)) if with_self else None
+    cot = rng.standard_normal((n, heads, O))
+    jdm = tdm = None
+    if dropout:
+        me, ms = _masks(rng, jg, heads, with_self)
+        jdt = jnp.float64 if dtype == np.float64 else jnp.float32
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+        jdm = (jnp.asarray(me, jdt),
+               None if ms is None else jnp.asarray(ms, jdt))
+        tdm = (torch.tensor(me[:ne], dtype=tdt),
+               None if ms is None else torch.tensor(ms[:n], dtype=tdt))
+
+    def jax_fn(q_, k_, a_, sl_, sv_):
+        return JA.gatv2_attention(jg, q_, k_, a_, SLOPE, self_logits=sl_,
+                                  self_values=sv_, dropout_masks=jdm)
+
+    def port_fn(q_, k_, a_, sl_, sv_):
+        return TA.gatv2_attention(tg, q_, k_, a_, SLOPE, self_logits=sl_,
+                                  self_values=sv_, dropout_masks=tdm)
+
+    _compare(jax_fn, port_fn, [q, k, a, sl, sv], [n, n, O, n, n], cot, dtype,
+             fwd_tol, grad_tol)
+
+
 AGG = [(h, nv, ws, dr) for h in (1, 2) for nv in (False, True)
        for ws in (False, True) for dr in (False, True)]
 AGG_IDS = [f"h{h}-{'node' if nv else 'edge'}-{'self' if ws else 'noself'}-"
@@ -194,6 +235,29 @@ def test_gat_attention_matches_pallas_f32(monkeypatch, heads, with_self):
     _run_gat(True, np.float32, heads, with_self, PALLAS_FWD, PALLAS_GRAD)
 
 
+@pytest.mark.parametrize("with_self", [False, True])
+@pytest.mark.parametrize("heads", [1, 2, 4])
+def test_gatv2_attention_matches_xla_f64(route, heads, with_self):
+    _run_gatv2(False, np.float64, heads, with_self, F64_TOL, F64_TOL)
+
+
+@pytest.mark.parametrize("with_self", [False, True])
+@pytest.mark.parametrize("heads", [1, 2, 4])
+def test_gatv2_attention_matches_pallas_f32(monkeypatch, heads, with_self):
+    monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
+    _run_gatv2(True, np.float32, heads, with_self, PALLAS_V2_FWD,
+               PALLAS_V2_GRAD)
+
+
+@pytest.mark.parametrize("with_self", [False, True])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_gatv2_attention_dropout_matches_xla_f64(route, heads, with_self):
+    """With dropout masks both routes take the gathered logits and K12's
+    autograd function (on the card: K12, and K2 per head backward)."""
+    _run_gatv2(False, np.float64, heads, with_self, F64_TOL, F64_TOL,
+               dropout=True)
+
+
 # ---- the autograd functions in float64 -------------------------------------
 
 def _small(seed=0, heads=2):
@@ -220,6 +284,20 @@ def test_gat_attention_function_gradcheck(with_self):
     def f(pi, pj, v, sl=None, sv=None):
         return ES.gat_attention_nodes(g, pi, pj, v, SLOPE, self_logits=sl,
                                       self_values=sv)
+
+    assert torch.autograd.gradcheck(f, tuple(args))
+
+
+@pytest.mark.parametrize("with_self", [False, True])
+def test_gatv2_attention_function_gradcheck(with_self):
+    g, n, _, x, _ = _small(7)
+    args = [x(n, 2, 3), x(n, 2, 3), x(3, 2)]
+    if with_self:
+        args += [x(n, 2), x(n, 2, 3)]
+
+    def f(q, k, a, sl=None, sv=None):
+        return ES.gatv2_attention_nodes(g, q, k, a, SLOPE, self_logits=sl,
+                                        self_values=sv)
 
     assert torch.autograd.gradcheck(f, tuple(args))
 
@@ -307,6 +385,11 @@ def test_cpu_tensors_launch_nothing(route):
     out = TA.attention_aggregate(g, x(ne, 2), x(n, 2, 3), node_values=True,
                                  dropout_masks=(mask(ne, 2), None))
     out.sum().backward()
+    for dm in (None, (mask(ne, 2), mask(n, 2))):
+        out = TA.gatv2_attention(g, x(n, 2, 3), x(n, 2, 3), x(3, 2), SLOPE,
+                                 self_logits=x(n, 2), self_values=x(n, 2, 3),
+                                 dropout_masks=dm)
+        out.sum().backward()
     assert ES.launches == before
 
 
@@ -346,10 +429,11 @@ def test_rows_past_the_cut_raise(side):
     the entry points refuse it before any kernel runs."""
     g = tgnn.graph([0, 1, 2, 3], [3, 0, 1, 2], num_nodes=4, device="cpu")
     pi, pj, v = torch.zeros(4, 1), torch.zeros(4, 1), torch.zeros(4, 1, 2)
-    lg = torch.zeros(4, 1)
+    lg, a = torch.zeros(4, 1), torch.zeros(2, 1)
     if side == "receiver":
         pi = pi[:3]
         calls = [lambda: ES.gat_attention_nodes(g, pi, pj, v, SLOPE),
+                 lambda: ES.gatv2_attention_nodes(g, v[:3], v, a, SLOPE),
                  lambda: ES.edge_softmax_aggregate_nodes(g, lg, v,
                                                          num_segments=3),
                  lambda: ES.edge_softmax_aggregate(g, lg, torch.zeros(4, 1, 2),
@@ -357,6 +441,8 @@ def test_rows_past_the_cut_raise(side):
     else:
         pj, v = pj[:3], v[:3]
         calls = [lambda: ES.gat_attention_nodes(g, pi, pj, v, SLOPE),
+                 lambda: ES.gatv2_attention_nodes(
+                     g, torch.zeros(4, 1, 2), v, a, SLOPE),
                  lambda: ES.edge_softmax_aggregate_nodes(g, lg, v)]
     for call in calls:
         with pytest.raises(ValueError, match=f"a {side} at or past"):
@@ -366,3 +452,51 @@ def test_rows_past_the_cut_raise(side):
     out = ES.gat_attention_nodes(g2, torch.zeros(3, 1), torch.zeros(3, 1),
                                  torch.ones(3, 1, 2), SLOPE)
     np.testing.assert_allclose(out.numpy(), 1.0)
+
+
+def test_bipartite_gatv2_attention_kernels_match_plain(monkeypatch):
+    """20 receivers (``num_segments``) of 30 nodes: the kernel route cuts
+    the receiver CSR to q's rows and the sender CSR to k's."""
+    rng = np.random.default_rng(8)
+    s, r = rng.integers(0, 30, 120), rng.integers(0, 20, 120)
+    g = tgnn.graph(s, r, num_nodes=30, device="cpu")
+
+    def x(*shape):
+        return torch.tensor(rng.standard_normal(shape), requires_grad=True)
+
+    ins = [x(20, 2, 3), x(30, 2, 3), x(3, 2), x(20, 2), x(20, 2, 3)]
+    cot = torch.tensor(rng.standard_normal((20, 2, 3)))
+    results = []
+    for kernels in (False, True):
+        monkeypatch.setattr(TA, "_kernel_route", lambda t, k=kernels: k)
+        for t in ins:
+            t.grad = None
+        out = TA.gatv2_attention(g, *ins[:3], SLOPE, self_logits=ins[3],
+                                 self_values=ins[4], num_segments=20)
+        (out * cot).sum().backward()
+        results.append([out.detach()] + [t.grad for t in ins])
+    for a, b in zip(*results):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **F64_TOL)
+
+
+def test_gatv2_backward_computes_only_what_is_needed(monkeypatch):
+    """``needs_input_grad``: with only ``k`` requiring a gradient the
+    receiver-side sweep (K10) is skipped, and with only ``q`` the sender
+    side (K11)."""
+    g, n, _, x, _ = _small(9)
+    calls = []
+    for name in ("gatv2_bwd_dq", "gatv2_bwd_rev"):
+        fn = getattr(ES, name)
+        monkeypatch.setattr(ES, name, lambda *a, _f=fn, _n=name:
+                            calls.append(_n) or _f(*a))
+    for grad_of, want in ((1, ["gatv2_bwd_rev"]), (0, ["gatv2_bwd_dq"]),
+                          (2, ["gatv2_bwd_dq"])):
+        ins = [x(n, 2, 3).detach(), x(n, 2, 3).detach(), x(3, 2).detach()]
+        ins[grad_of].requires_grad_()
+        calls.clear()
+        ES.gatv2_attention_nodes(g, *ins, SLOPE).sum().backward()
+        assert calls == want
+        assert all((t.grad is not None) == (i == grad_of)
+                   for i, t in enumerate(ins))
+
+

@@ -4,8 +4,10 @@ Each layer is built in both packages, the JAX weights (cast to float64) are
 copied into the port with ``load_jax_params``, and the forward output and
 the gradients of every parameter, of the input and, where given, of the
 edge weights are compared (float64, XLA path: rtol 1e-9, atol 1e-10).
-GATConv also runs through its kernel route (the autograd functions the card
-uses, on CPU tensors), and its attention dropout is checked on its own.
+GATConv and GATv2Conv also run through their kernel route (the autograd
+functions the card uses, on CPU tensors); their attention dropout is
+checked on its own and, for GATv2Conv, against JAX with numpy-made masks
+shared by both packages.
 """
 
 import pytest
@@ -72,6 +74,22 @@ CASES = {
                              add_self_loops=False, rngs=r),
         lambda: TM.GATConv(4, 4, relu_t, concat=False, add_self_loops=False,
                            **KW), 4, False),
+    "gatv2": (lambda r: JM.GATv2Conv(4, 3, relu_j, heads=2, rngs=r),
+              lambda: TM.GATv2Conv(4, 3, relu_t, heads=2, **KW), 4, False),
+    "gatv2_one_head": (lambda r: JM.GATv2Conv(4, 5, rngs=r),
+                       lambda: TM.GATv2Conv(4, 5, **KW), 4, False),
+    "gatv2_mean_heads": (
+        lambda r: JM.GATv2Conv(4, 3, heads=3, concat=False, rngs=r),
+        lambda: TM.GATv2Conv(4, 3, heads=3, concat=False, **KW), 4, False),
+    "gatv2_no_self_loops": (
+        lambda r: JM.GATv2Conv(5, 2, heads=2, add_self_loops=False, rngs=r),
+        lambda: TM.GATv2Conv(5, 2, heads=2, add_self_loops=False, **KW), 5,
+        False),
+    "gatv2_no_bias_mean_heads": (
+        lambda r: JM.GATv2Conv(4, 4, relu_j, heads=2, concat=False,
+                               use_bias=False, rngs=r),
+        lambda: TM.GATv2Conv(4, 4, relu_t, heads=2, concat=False,
+                             use_bias=False, **KW), 4, False),
 }
 
 
@@ -197,15 +215,16 @@ def test_chain_threads_kwargs_and_withgraph_trains_features():
 
 # ---- GATConv: edge features, bipartite input, kernel route, dropout --------
 
-def _gat_case(jm, tm, jg, tg, jargs, targs, rng, n_out):
+def _gat_case(jm, tm, jg, tg, jargs, targs, rng, n_out, **call_kw):
     """Forward and the gradients of every parameter and every float input
-    of ``sum(y * cot)``; ``targs[i]`` are the first rows of ``jargs[i]``."""
+    of ``sum(y * cot)``; ``targs[i]`` are the first rows of ``jargs[i]``;
+    ``call_kw`` go to both layers' calls."""
     cot = rng.standard_normal((n_out, tm.out_features * (
         tm.heads if tm.concat else 1)))
     gd, params, rest = nnx.split(jm, nnx.Param, ...)
 
     def jloss(p, *xs):
-        y = nnx.merge(gd, p, rest)(jg, *xs)[:n_out]
+        y = nnx.merge(gd, p, rest)(jg, *xs, **call_kw)[:n_out]
         return jnp.sum(y * cot), y
 
     def flat(xs):
@@ -214,7 +233,7 @@ def _gat_case(jm, tm, jg, tg, jargs, targs, rng, n_out):
     (_, jy), grads = jax.value_and_grad(
         jloss, argnums=tuple(range(1 + len(jargs))), has_aux=True)(
         params, *jargs)
-    ty = tm(tg, *targs)
+    ty = tm(tg, *targs, **call_kw)
     (ty * t(cot)).sum().backward()
     np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
                                **F64_TOL)
@@ -320,3 +339,97 @@ def test_gat_dropout_is_seeded_and_stochastic(monkeypatch, route_kernels):
     chain = TM.GNNChain(layer(2), torch.nn.Linear(6, 2, dtype=torch.float64))
     y1 = chain(tg, x, deterministic=False)
     assert not np.allclose(y1.detach().numpy(), chain(tg, x).detach().numpy())
+
+
+# ---- GATv2Conv: edge features, bipartite input, dropout --------------------
+
+def test_gatv2_edge_features_matches_jax(gat_route):
+    s, r, n, _ = directed_graph_arrays(seed=17)
+    jg, tg = graph_pair(s, r, n)
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((n, 4))
+    e = rng.standard_normal((len(s), 2))            # stored edge order
+    jm = jax_params_f64(JM.GATv2Conv(4, 3, relu_j, heads=2, edge_features=2,
+                                     add_self_loops=False, rngs=nnx.Rngs(5)))
+    tm = port_from_jax(TM.GATv2Conv(4, 3, relu_t, heads=2, edge_features=2,
+                                    add_self_loops=False, **KW), jm)
+    _gat_case(jm, tm, jg, tg,
+              [jnp.asarray(pad_rows(x, jg.n_pad)),
+               jnp.asarray(pad_rows(e, jg.e_pad))],
+              [t(x, grad=True), t(e, grad=True)], rng, n)
+    with pytest.raises(ValueError):
+        tm(tg, t(x))
+    with pytest.raises(ValueError):
+        TM.GATv2Conv(4, 3, edge_features=2, **KW)
+
+
+@pytest.mark.parametrize("add_self_loops", [True, False])
+def test_gatv2_bipartite_matches_jax(gat_route, add_self_loops):
+    """(x_src, x_dst): 40 source and 30 target nodes."""
+    rng = np.random.default_rng(18)
+    s, r = rng.integers(0, 40, 150), rng.integers(0, 30, 150)
+    jg, tg = graph_pair(s, r, 40)
+    xs, xd = rng.standard_normal((40, 3)), rng.standard_normal((30, 3))
+    jm = jax_params_f64(JM.GATv2Conv(3, 2, heads=2,
+                                     add_self_loops=add_self_loops,
+                                     rngs=nnx.Rngs(6)))
+    tm = port_from_jax(TM.GATv2Conv(3, 2, heads=2,
+                                    add_self_loops=add_self_loops, **KW), jm)
+    _gat_case(jm, tm, jg, tg,
+              [(jnp.asarray(pad_rows(xs, jg.n_pad)), jnp.asarray(xd))],
+              [(t(xs, grad=True), t(xd, grad=True))], rng, 30)
+
+
+@pytest.mark.parametrize("add_self_loops", [True, False])
+def test_gatv2_dropout_shared_masks_match_jax(gat_route, monkeypatch,
+                                              add_self_loops):
+    """deterministic=False with the same numpy-made masks in both packages
+    (each package's mask draw is replaced): forward and every gradient."""
+    from graphneuralnetworks_tpu.models import conv as jconv
+    from graphneuralnetworks_tpu_torch.models import conv as tconv
+
+    s, r, n, _ = directed_graph_arrays(seed=19)
+    jg, tg = graph_pair(s, r, n)
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((n, 4))
+    me = (rng.random((jg.e_pad, 2)) < 0.4) / 0.4
+    ms = (rng.random((jg.n_pad, 2)) < 0.4) / 0.4
+    monkeypatch.setattr(
+        jconv, "_attn_dropout_masks",
+        lambda module, g, n_dst, h, det, with_self: None if det else (
+            jnp.asarray(me), jnp.asarray(ms) if with_self else None))
+    monkeypatch.setattr(
+        tconv, "_attn_dropout_masks",
+        lambda p, gen, n_edges, n_dst, h, with_self, device, dtype: (
+            t(me[:n_edges]), t(ms[:n_dst]) if with_self else None))
+    jm = jax_params_f64(JM.GATv2Conv(4, 3, heads=2, dropout=0.6,
+                                     add_self_loops=add_self_loops,
+                                     rngs=nnx.Rngs(7)))
+    tm = port_from_jax(TM.GATv2Conv(4, 3, heads=2, dropout=0.6,
+                                    add_self_loops=add_self_loops, **KW), jm)
+    _gat_case(jm, tm, jg, tg, [jnp.asarray(pad_rows(x, jg.n_pad))],
+              [t(x, grad=True)], rng, n, deterministic=False)
+
+
+def test_gatv2_dropout_is_seeded_and_stochastic(gat_route):
+    s, r, n, _ = directed_graph_arrays(seed=20)
+    _, tg = graph_pair(s, r, n)
+    x = t(np.random.default_rng(20).standard_normal((n, 4)))
+
+    def layer(seed, p=0.6):
+        return TM.GATv2Conv(4, 3, heads=2, dropout=p,
+                            generator=torch.Generator().manual_seed(seed),
+                            **KW)
+
+    a, b = layer(1), layer(1)
+    ya, yb = a(tg, x, deterministic=False), b(tg, x, deterministic=False)
+    np.testing.assert_array_equal(ya.detach().numpy(), yb.detach().numpy())
+    y_det = a(tg, x)
+    assert np.isfinite(ya.detach().numpy()).all()
+    assert not np.allclose(ya.detach().numpy(), y_det.detach().numpy())
+    assert not np.allclose(a(tg, x, deterministic=False).detach().numpy(),
+                           ya.detach().numpy())
+    plain = layer(1, p=0.0)
+    plain.load_state_dict(a.state_dict())
+    np.testing.assert_allclose(plain(tg, x).detach().numpy(),
+                               y_det.detach().numpy(), **F64_TOL)

@@ -1,8 +1,8 @@
 """The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2)
-and edge softmax (K3, K4, K5, K12).
+and edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11).
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
-  held to) against a dense adjacency product in float64.
+  held to) against a dense adjacency product or per-edge loops in float64.
 - The wrappers' input checks, and the dispatch rule: CPU tensors take the
   plain version, CUDA tensors the kernel, anything else raises.
 - ``gpu``-marked: the CUDA kernels against the plain versions on the card.
@@ -187,7 +187,7 @@ def test_attention_kernels_match_plain_on_card(heads, d):
         torch.testing.assert_close(a, b, **tol)
     torch.cuda.synchronize()
     assert {k: ES.launches[k] - before[k] for k in before} == {
-        "k3": 1, "k4": 1, "k5": 1, "k12": 3}
+        "k3": 1, "k4": 1, "k5": 1, "k9": 0, "k10": 0, "k11": 0, "k12": 3}
 
 
 @pytest.mark.gpu
@@ -246,5 +246,179 @@ def test_attention_aggregate_head_dims_on_card(shape_h):
         torch.cuda.synchronize()
         assert ES.launches["k12"] - before["k12"] == (device == "cuda")
         results[device] = (out.detach(), lg.grad, v.grad)
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---- GATv2: K9, K10, K11 ---------------------------------------------------
+
+def _lrelu_np(x):
+    return np.where(x >= 0, x, SLOPE * x)
+
+
+def test_gatv2_plain_versions_match_loops():
+    """K9-K11's plain versions against the formulas written out edge by
+    edge (edge_softmax.py:1283-1296, 1444-1459, 1506-1516), float64."""
+    g = _graph(9, "cpu")
+    n, heads, o = g.num_nodes, 2, 3
+    rng = np.random.default_rng(9)
+    q, k, dy = (rng.standard_normal((n, heads, o)) for _ in range(3))
+    a = rng.standard_normal((o, heads))
+    ss, rs = g.senders.numpy(), g.receivers.numpy()
+    lg = np.einsum("ehf,fh->eh", _lrelu_np(q[rs] + k[ss]), a)
+    m = np.full((n, heads), -np.inf)
+    np.maximum.at(m, rs, lg)
+    p = np.exp(lg - m[rs])
+    s = np.zeros((n, heads))
+    np.add.at(s, rs, p)
+    num = np.zeros((n, heads, o))
+    np.add.at(num, rs, p[..., None] * k[ss])
+    tq, tk, ta, tdy = (torch.tensor(v) for v in (q, k, a, dy))
+    got = ES.gatv2_softmax_plain(g.indptr_r, g.col_r, tq, tk, ta, SLOPE)
+    for x, want in zip(got, (num, m, s)):
+        np.testing.assert_allclose(x.numpy(), want, rtol=1e-12, atol=1e-12)
+
+    out, mx, den = ES.finalize_softmax(*got)
+    s_n = (out * tdy).sum(-1)
+    mx_, den_, sn_ = (v.numpy() for v in (mx, den, s_n))
+    dq, da, dk = np.zeros_like(q), np.zeros_like(a), np.zeros_like(k)
+    for e, (r, sd) in enumerate(zip(rs, ss)):
+        raw = q[r] + k[sd]
+        act = _lrelu_np(raw)
+        alpha = np.exp((act * a.T).sum(-1) - mx_[r]) / den_[r]
+        dlg = alpha * ((k[sd] * dy[r]).sum(-1) - sn_[r])
+        draw = dlg[:, None] * a.T * np.where(raw >= 0, 1.0, SLOPE)
+        dq[r] += draw
+        da += (act * dlg[:, None]).T
+        dk[sd] += draw + alpha[:, None] * dy[r]
+    bwd = (tq, tk, ta, mx, den, s_n, tdy, SLOPE)
+    got_dq, got_da = ES.gatv2_bwd_dq_plain(g.indptr_r, g.col_r, *bwd)
+    got_dk = ES.gatv2_bwd_rev_plain(g.indptr_s, g.col_s, *bwd)
+    for x, want in ((got_dq, dq), (got_da, da), (got_dk, dk)):
+        np.testing.assert_allclose(x.numpy(), want, rtol=1e-10, atol=1e-12)
+
+
+def test_gatv2_wrappers_validate_inputs():
+    g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
+    q, k, a = torch.randn(16, 2, 4), torch.randn(16, 2, 4), torch.randn(4, 2)
+    with pytest.raises(TypeError):
+        ES._gatv2_args(g.indptr_r, g.col_r, q.double(), k, a, {}, {})
+    with pytest.raises(ValueError):        # a is not [O, H]
+        ES._gatv2_args(g.indptr_r, g.col_r, q, k, torch.randn(3, 2), {}, {})
+    with pytest.raises(ValueError):        # a's heads disagree
+        ES._gatv2_args(g.indptr_r, g.col_r, q, k, torch.randn(4, 3), {}, {})
+    ES._gatv2_args(g.indptr_r, g.col_r, q, k, a, {"mx": torch.randn(16, 2)},
+                   {"dy": torch.randn(16, 2, 4)})
+    # widths: 256 vectors of float4 (1024 floats) or of float (256 floats)
+    wide = torch.empty(1, 1, 1028)
+    ES._check_gatv2_width(1024, wide)
+    ES._check_gatv2_width(255, wide)
+    for d, t in ((1028, wide), (257, wide),
+                 (1024, torch.empty(1025)[1:])):   # 4 bytes off: no float4
+        with pytest.raises(ValueError, match="at most 1024 floats"):
+            ES._check_gatv2_width(d, t)
+    with pytest.raises(ValueError):        # no route for a meta tensor
+        ES.gatv2_softmax(g.indptr_r, g.col_r, q, torch.empty(
+            16, 2, 4, device="meta"), a, SLOPE)
+
+
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 5, 6, 8, 12, 16])
+def test_gatv2_dq_grid_keeps_one_head_per_warp(heads):
+    """K10's warps stride over the (row, head) tasks by the grid's warp
+    count, which must be a multiple of H; the grid is one wave of the
+    blocks the card holds at once (here 5 per SM on 132 SMs), or fewer
+    when the tasks need fewer warps, rounded up to a multiple of H."""
+    resident = 5 * 132
+    for tasks in (1, 7, 8 * heads, 1000 * heads, 131072 * heads):
+        blocks = ES._dq_blocks(tasks, heads, resident)
+        warps = 8 * blocks
+        assert warps % heads == 0
+        assert blocks < min(resident, -(-tasks // 8)) + heads
+        assert warps >= min(tasks, 8 * resident)
+
+
+def test_gatv2_cpu_tensors_launch_nothing():
+    g = _graph(10, "cpu", torch.float32)
+    n = g.num_nodes
+    q, k, dy = (torch.randn(n, 2, 4) for _ in range(3))
+    a = torch.randn(4, 2)
+    before = dict(ES.launches)
+    num, m, s = ES.gatv2_softmax(g.indptr_r, g.col_r, q, k, a, SLOPE)
+    out, mx, den = ES.finalize_softmax(num, m, s)
+    bwd = (q, k, a, mx, den, (out * dy).sum(-1), dy, SLOPE)
+    ES.gatv2_bwd_dq(g.indptr_r, g.col_r, *bwd)
+    ES.gatv2_bwd_rev(g.indptr_s, g.col_s, *bwd)
+    assert ES.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 8), (4, 32), (2, 64),
+                                     (1, 67), (1, 200)])
+def test_gatv2_kernels_match_plain_on_card(heads, d):
+    """K9, K10 (dq and da) and K11 against their plain versions; nodes
+    40-49 have no in-edges and no out-edges. (1, 67) takes scalar loads in
+    three chunks of 32, (1, 200) float4 loads in two."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(11, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(heads * 1000 + d)
+    n = g.num_nodes
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, k, dy = rn(n, heads, d), rn(n, heads, d), rn(n, heads, d)
+    a = rn(d, heads)
+    tol = dict(rtol=1e-5, atol=1e-4)
+    before = dict(ES.launches)
+    args = (g.indptr_r, g.col_r, q, k, a, SLOPE)
+    got, want = ES.gatv2_softmax(*args), ES.gatv2_softmax_plain(*args)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, **tol)
+    assert torch.isneginf(got[1][40:]).all() and (got[2][40:] == 0).all()
+    out, mx, den = ES.finalize_softmax(*want, rn(n, heads), rn(n, heads, d))
+    bwd = (q, k, a, mx, den, (out * dy).sum(-1), dy, SLOPE)
+    for x, y in zip(ES.gatv2_bwd_dq(g.indptr_r, g.col_r, *bwd),
+                    ES.gatv2_bwd_dq_plain(g.indptr_r, g.col_r, *bwd)):
+        torch.testing.assert_close(x, y, **tol)
+    torch.testing.assert_close(ES.gatv2_bwd_rev(g.indptr_s, g.col_s, *bwd),
+                               ES.gatv2_bwd_rev_plain(g.indptr_s, g.col_s,
+                                                      *bwd), **tol)
+    torch.cuda.synchronize()
+    assert {k_: ES.launches[k_] - before[k_] for k_ in before} == {
+        "k3": 0, "k4": 0, "k5": 0, "k9": 1, "k10": 2, "k11": 1, "k12": 0}
+    with pytest.raises(ValueError, match="at most 1024 floats"):
+        ES.gatv2_softmax(g.indptr_r, g.col_r, rn(n, 1, 1028), rn(n, 1, 1028),
+                         rn(1028, 1), SLOPE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 8), (4, 32)])
+def test_gatv2_attention_on_card_matches_cpu(heads, d):
+    """gatv2_attention on the card (K9 forward, K10 and K11 backward) vs the
+    same autograd function on the CPU (plain versions): the forward and the
+    gradients of q, k, a and the self-loop terms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(12, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(heads + d)
+    n = g.num_nodes
+    shapes = ((n, heads, d), (n, heads, d), (d, heads), (n, heads),
+              (n, heads, d), (n, heads, d))
+    ins = [torch.randn(*s, device="cuda", generator=gen) for s in shapes]
+    results = {}
+    for device in ("cuda", "cpu"):
+        ts = [t.to(device, copy=True).requires_grad_(i < 5)
+              for i, t in enumerate(ins)]
+        before = dict(ES.launches)
+        out = TA.gatv2_attention(g.to(device), *ts[:3], SLOPE,
+                                 self_logits=ts[3], self_values=ts[4])
+        (out * ts[5]).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: ES.launches[k] - before[k] for k in before
+                    if ES.launches[k] != before[k]}
+        assert launched == ({"k9": 1, "k10": 2, "k11": 1}
+                            if device == "cuda" else {})
+        results[device] = [out.detach()] + [t.grad for t in ts[:5]]
     for a, b in zip(results["cuda"], results["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

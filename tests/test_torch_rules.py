@@ -51,6 +51,7 @@ from graphneuralnetworks_tpu_torch import models as M
 g = gnn.rand_graph(20, 60, seed=0, device="cpu")
 model = M.GNNChain(M.GCNConv(3, 4, torch.relu, device="cpu"),
                    M.GATConv(4, 2, heads=2, dropout=0.5, device="cpu"),
+                   M.GATv2Conv(4, 2, heads=2, dropout=0.5, device="cpu"),
                    M.SAGEConv(4, 2, device="cpu"))
 y = model(g, torch.randn(20, 3), deterministic=False)
 y.sum().backward()
@@ -106,5 +107,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
         tgnn.data.synthetic_cora(num_nodes=50, num_features=14)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tgnn.models.GATConv(3, 4, heads=2, dropout=0.5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgnn.models.GATv2Conv(3, 4, heads=2, dropout=0.5)
     g = tgnn.graph(np.array([0, 1]), np.array([1, 0]), device="cpu")
     assert g.device.type == "cpu" and g.indptr_r.device.type == "cpu"
