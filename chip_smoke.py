@@ -23,27 +23,44 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``gatv2_bwd_dq_f32`` with ``gatv2_da_reduce_f32``: ``dq`` and ``da``)
    and K11 (``gatv2_bwd_rev_f32``) the same way, at the GATv2 path's
    per-head shapes (H, O) = (4, 32) and (1, 8).
-3. The main paths at full width, each trained with masked cross-entropy
-   and Adam for 10 steps, with the kernel launch counts of exactly those
-   steps: ``GNNChain(GCNConv(128, 128, relu), GCNConv(128, 8))`` (3a); the
-   same with learned edge weights (3b, the weighted backward K2);
-   ``GNNChain(GATConv(128, 32, relu, heads=4), GATConv(128, 8, heads=1,
-   concat=False))`` without attention dropout (3d: K3, K4, K5) and with
-   dropout 0.6 in training mode (3e: K12, and K2 in its backward);
-   ``GNNChain(GATv2Conv(128, 32, relu, heads=4), GATv2Conv(128, 8,
-   heads=1, concat=False))`` (3f: K9, K10, K11). 3c holds one forward and
-   backward of the GCN models, of GAT (3d) and of GATv2 (3f) on the card
-   against the same model on the CPU plain path, and GAT's and GATv2's
-   attention with one set of dropout masks for both sides (K12, K2 per
-   head).
-4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT and
-   GATv2, 40 epochs, train accuracy > 0.94 and test accuracy > 0.69.
+   2d: dot attention's kernels K6 (``dot_softmax_f32``), K7
+   (``dot_bwd_dq_f32``) and K8 (``dot_bwd_rev_f32``) at (H, O, D) =
+   (4, 32, 32) (Transformer layer 1), (1, 8, 8) (its head layer) and
+   (1, 128, 128) (AGNN), and with a leaky_relu slope at (4, 32, 32).
+   2e: K13 (``sddmm_csr_f32``) at D = 32, 128 and 512 and at (H, D) =
+   (4, 32), its backward (K1 twice) against the plain autograd, with the
+   library yardstick ``torch.sparse.sampled_addmm`` and the plain
+   two-gather ``xi_dot_xj`` beside it.
+3. The main paths at full width, each trained with Adam for 10 steps, with
+   the kernel launch counts of exactly those steps; masked cross-entropy
+   unless said otherwise: ``GNNChain(GCNConv(128, 128, relu),
+   GCNConv(128, 8))`` (3a); the same with learned edge weights (3b, the
+   weighted backward K2); ``GNNChain(GATConv(128, 32, relu, heads=4),
+   GATConv(128, 8, heads=1, concat=False))`` without attention dropout
+   (3d: K3, K4, K5) and with dropout 0.6 in training mode (3e: K12, and K2
+   in its backward); ``GNNChain(GATv2Conv(128, 32, relu, heads=4),
+   GATv2Conv(128, 8, heads=1, concat=False))`` (3f: K9, K10, K11);
+   ``GNNChain(TransformerConv(128, 32, heads=4), TransformerConv(128, 8,
+   heads=1, concat=False))`` (3g: K6, K7, K8); ``GNNChain(Linear(128,
+   128), relu, AGNNConv(), AGNNConv(), Linear(128, 8))`` (3h: K6, K7, K8);
+   link prediction, a GCN encoder ``GNNChain(GCNConv(128, 128, relu),
+   GCNConv(128, 128))`` with ``DotDecoder`` on the 2M edges and on 2M
+   negative edges, binary cross-entropy (3i: K13, and K1). 3c holds one
+   forward and backward of the GCN models, of GAT (3d), GATv2 (3f),
+   Transformer (3g, also with virtual self-loops and with edge features,
+   whose route is K12), AGNN (3h) and the link step (3i) on the card
+   against the same model on the CPU plain path in float64, and GAT's and
+   GATv2's attention with one set of dropout masks for both sides (K12, K2
+   per head).
+4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT,
+   GATv2 and Transformer, 40 epochs, train accuracy > 0.94 and test
+   accuracy > 0.69.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a), of
-GAT (3d, 3e) and of GATv2 (3f).
+GAT (3d, 3e), GATv2 (3f), Transformer (3g) and AGNN (3h).
 """
 
 from __future__ import annotations
@@ -106,6 +123,14 @@ GATV2_GRAD_NORM_RTOL = 1e-2
 # (~1.2e-2) besides RTOL: ~25x the kernel's expected error. The error does
 # not shrink with one entry's |da|, so the atol follows the array's scale.
 DA_ATOL_REL = 1e-5
+# The key bias of a TransformerConv (W4.bias) shifts every logit of a
+# receiver's softmax, the self logit <q[r], k[r]> too, by the same
+# <q[r], b>, which the softmax does not see: its gradient is 0 in exact
+# arithmetic and float rounding on both sides (~1e-8 against ~1e-17), so
+# |a-b|/|b| says nothing.
+# Such a gradient is held to the model's largest gradient norm instead:
+# |a-b| <= GRAD_NORM_RTOL * ZERO_GRAD_FLOOR * max |grad|.
+ZERO_GRAD_FLOOR = 1e-3
 
 
 def log(msg: str) -> None:
@@ -203,9 +228,11 @@ def kernel_case(res, card, key, label, fn, plain, args, byt, flops,
 def log_times(res, width: int) -> None:
     for key, r in res.items():
         for v in r["variants"]:
+            lib = ("none" if v["library_ms"] is None
+                   else f"{v['library_ms']:.4f} ms")
             log(f"  time {key.upper():<3} {v['case']:<{width}} "
                 f"kernel={v['ms']:.4f} ms plain={v['plain_ms']:.4f} ms "
-                f"library=none bound={v['bound_ms']:.4f} ms "
+                f"library={lib} bound={v['bound_ms']:.4f} ms "
                 f"({v['bound_by']}) no-reuse bound="
                 f"{v['no_reuse_bound_ms']:.4f} ms")
 
@@ -438,6 +465,138 @@ def gatv2_phase(g, card: str) -> dict:
     return res
 
 
+def dot_phase(g, card: str) -> dict:
+    """K6, K7 and K8 against their plain versions at the dot-attention
+    paths' shapes: (H, O, D) = (4, 32, 32) (Transformer layer 1), (1, 8, 8)
+    (its head layer), (1, 128, 128) (AGNN), and (4, 32, 32) with a
+    leaky_relu slope."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ir, cr, is_, cs = g.indptr_r, g.col_r, g.indptr_s, g.col_s
+    res = {k: {"err": 0.0, "variants": []} for k in ("k6", "k7", "k8")}
+    log(f"phase 2d: dot-attention kernels vs plain versions (N={N}, E={E}, "
+        "float32)")
+
+    case = functools.partial(kernel_case, res, card)
+
+    for h, o, d, slope in ((GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, None),
+                           (1, OUT_D, OUT_D, None), (1, D, D, None),
+                           (GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, 0.2)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        # scale 1/sqrt(O), as TransformerConv: logits of unit spread
+        q, k, v, dy, scale = rn(N, h, o), rn(N, h, o), rn(N, h, d), \
+            rn(N, h, d), o ** -0.5
+        hd = f"H={h} O={o} D={d}" + ("" if slope is None else
+                                     f" slope={slope}")
+        # compulsory bytes, float32 and int32 (4 bytes each): indptr N+1;
+        # col E; per-node scalars N*H each; rows q, k (N*H*O), v, dy
+        # (N*H*D) and the outputs once
+        idx, nh = 4 * (N + 1 + E), 4 * N * h
+        no_, nd = 4 * N * h * o, 4 * N * h * d
+        # with no L2 reuse every edge reads a whole row per gathered row
+        # operand (K6 and K7: k[s] and v[s]; K8: q[r] and dy[r]) and K8 one
+        # scalar per edge for each of mx, den and s_n of the receivers
+        rows_again = 4 * E * h * (o + d) - no_ - nd
+        scalar_again = 4 * E * h - nh
+        num, m, s = case(
+            "k6", hd, ES.dot_softmax, ES.dot_softmax_plain,
+            (ir, cr, q, k, v, scale, slope), idx + 2 * no_ + 2 * nd + 2 * nh,
+            E * h * (2 * o + 2 * d + 8),    # dot, value fma; exp, rescale
+            rows_again, [(nm, {}, None) for nm in ("num", "m", "s")])
+        out, mx, den = ES.finalize_softmax(num, m, s, rn(N, h), rn(N, h, d))
+        bwd = (q, k, v, mx, den, (out * dy).sum(-1), dy, scale, slope)
+        # two dots per edge, then dq (K7) or dk and dv (K8) updates
+        case("k7", hd, ES.dot_bwd_dq, ES.dot_bwd_dq_plain, (ir, cr) + bwd,
+             idx + 3 * no_ + 2 * nd + 3 * nh, E * h * (4 * o + 2 * d + 10),
+             rows_again, [("dq", {}, None)])
+        case("k8", hd, ES.dot_bwd_rev, ES.dot_bwd_rev_plain, (is_, cs) + bwd,
+             idx + 3 * no_ + 3 * nd + 3 * nh, E * h * (4 * o + 4 * d + 10),
+             rows_again + 3 * scalar_again, [("dk", {}, None),
+                                             ("dv", {}, None)])
+        del q, k, v, dy, num, out, bwd
+    log_times(res, 26)
+    log("  clocks.sm,power.draw,temperature.gpu: "
+        + smi("clocks.sm,power.draw,temperature.gpu"))
+    return res
+
+
+def sddmm_phase(g, card: str) -> dict:
+    """K13 against its plain version at D = 128 (``DotDecoder`` at the
+    link path's width), 32, 512 and (H, D) = (4, 32)
+    (``dot_attention_logits`` of Transformer layer 1), with the library
+    yardstick ``torch.sparse.sampled_addmm`` (the receiver CSR with all-ones
+    values times ``xi @ xj^T``) and the plain two-gather ``xi_dot_xj``
+    (what a CPU tensor takes, run on the card) beside it; and K13's
+    backward, K1 twice, against the plain autograd."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import sddmm as SD
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ir, cr = g.indptr_r, g.col_r
+    res = {"k13": {"err": 0.0, "variants": [], "library_error": None}}
+    log(f"phase 2e: SDDMM kernel vs plain version (N={N}, E={E}, float32)")
+    pattern = torch.sparse_csr_tensor(ir, cr, torch.ones(E, device=dev),
+                                      (N, N))
+    for h, d in ((1, D), (1, 32), (1, 512), (GAT_HEADS, D // GAT_HEADS)):
+        xi = torch.randn(N, h, d, generator=gen, device=dev)
+        xj = torch.randn(N, h, d, generator=gen, device=dev)
+        # compulsory bytes: indptr, col, both node tables and out once; with
+        # no L2 reuse every edge reads its sender's row
+        byt = 4 * (N + 1 + E) + 2 * 4 * N * h * d + 4 * E * h
+        case = f"H={h} D={d}" if h > 1 else f"D={d}"
+        kernel_case(res, card, "k13", case, SD.sddmm_csr, SD.sddmm_plain,
+                    (ir, cr, xi, xj), byt, 2 * E * h * d,
+                    4 * E * h * d - 4 * N * h * d)
+        v = res["k13"]["variants"][-1]
+        r, s = g.receivers, g.senders
+        v["two_gather_ms"] = cuda_ms(
+            lambda: (xi[:, 0].index_select(0, r)
+                     * xj[:, 0].index_select(0, s)).sum(-1),
+            warmup=1, batches=3, per_batch=2) if h == 1 else None
+        if h == 1:
+            a, b = xi[:, 0], xj[:, 0].t()
+            try:
+                lib = torch.sparse.sampled_addmm(pattern, a, b, beta=0.0)
+                compare(f"K13 {case} vs sampled_addmm (info)",
+                        SD.sddmm_csr(ir, cr, xi, xj)[:, 0], lib.values(),
+                        atol=float("inf"))
+                v["library_ms"] = cuda_ms(lambda: torch.sparse.sampled_addmm(
+                    pattern, a, b, beta=0.0))
+            except (RuntimeError, ValueError) as err:
+                res["k13"]["library_error"] = str(err)[:300]
+                log(f"  torch.sparse.sampled_addmm refused: {err}")
+        log(f"  time K13 {case:<10} kernel={v['ms']:.4f} ms "
+            f"plain={v['plain_ms']:.4f} ms two-gather xi_dot_xj="
+            + (f"{v['two_gather_ms']:.4f} ms" if v["two_gather_ms"]
+               is not None else "n/a")
+            + " library=" + (f"{v['library_ms']:.4f} ms"
+                             if v["library_ms"] is not None else "none")
+            + f" bound={v['bound_ms']:.4f} ms ({v['bound_by']}) no-reuse "
+            f"bound={v['no_reuse_bound_ms']:.4f} ms")
+        del xi, xj
+    # the backward: K1 over the receiver CSR (dxi) and over the sender CSR
+    # (dxj), one launch each at H = 1
+    xi = torch.randn(N, D, generator=gen, device=dev)
+    xj = torch.randn(N, D, generator=gen, device=dev)
+    dl = torch.randn(E, generator=gen, device=dev)
+    grads = []
+    for fn in (lambda a, b: SD.sddmm(g, a, b),
+               lambda a, b: SD.sddmm_plain(ir, cr, a[:, None],
+                                           b[:, None])[:, 0]):
+        a, b = xi.clone().requires_grad_(), xj.clone().requires_grad_()
+        (fn(a, b) * dl).sum().backward()
+        grads.append((a.grad, b.grad))
+    res["k13"]["err"] = max(res["k13"]["err"],
+                            compare("K13 backward dxi (K1)", grads[0][0],
+                                    grads[1][0]),
+                            compare("K13 backward dxj (K1)", grads[0][1],
+                                    grads[1][1]))
+    return res
+
+
 # ---- phase 3 ---------------------------------------------------------------
 
 def gcn(M, seed: int, dev):
@@ -448,8 +607,9 @@ def gcn(M, seed: int, dev):
 
 def counters():
     """Every kernel's launch counter (module dicts, updated in place)."""
-    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax, spmm
-    return (spmm.launches, edge_softmax.launches)
+    from graphneuralnetworks_tpu_torch.ops.cuda import (edge_softmax, sddmm,
+                                                        spmm)
+    return (spmm.launches, edge_softmax.launches, sddmm.launches)
 
 
 def reset_counts() -> None:
@@ -502,12 +662,36 @@ def expect_counts(name: str, launches: dict, per_step: dict) -> None:
                              f"{launches}")
 
 
+def launched_since(before: dict) -> dict:
+    """The launches of each kernel since the counts ``before``, nonzero
+    ones only."""
+    return {k: c - before[k] for k, c in read_counts().items()
+            if c != before[k]}
+
+
+def expect_launched(name: str, before: dict, want: dict) -> None:
+    """The kernels launched since the counts ``before`` are ``want``."""
+    launched = launched_since(before)
+    if launched != want:
+        raise AssertionError(f"{name}: launches {launched}, expected {want}")
+
+
 def compare_model(name, model, g, x, args_fn, extra_params=(),
-                  grad_rtol=GRAD_NORM_RTOL):
+                  grad_rtol=GRAD_NORM_RTOL, forward=None, zero_grads=()):
     """One forward+backward on the card vs the CPU plain path in float64,
-    from the same weights and inputs."""
+    from the same weights and inputs. ``forward(m, g, x, extra) -> (out,
+    loss)`` replaces the default: masked cross-entropy of ``m(g, x,
+    **args_fn(extra))``. The parameters whose names end with one of
+    ``zero_grads`` have a gradient that is 0 in exact arithmetic (see
+    ZERO_GRAD_FLOOR)."""
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
 
+    def node_classes(m, gg, xx, extra):
+        logits = m(gg, xx, **args_fn(extra))
+        return logits, masked_cross_entropy(logits, gg.nodes["y"],
+                                            gg.node_mask)
+
+    forward = forward or node_classes
     cpu_model = copy.deepcopy(model).to("cpu", torch.float64)
     gc = g.to("cpu")
     out = {}
@@ -519,8 +703,7 @@ def compare_model(name, model, g, x, args_fn, extra_params=(),
         m.zero_grad(set_to_none=True)
         for p in extra:
             p.grad = None
-        logits = m(gg, xx, **args_fn(extra))
-        loss = masked_cross_entropy(logits, gg.nodes["y"], gg.node_mask)
+        logits, loss = forward(m, gg, xx, extra)
         loss.backward()
         grads = [p.grad for p in m.parameters()] + [p.grad for p in extra]
         results.append((logits.detach(), loss.detach(), grads))
@@ -531,8 +714,10 @@ def compare_model(name, model, g, x, args_fn, extra_params=(),
             lsc.reshape(1), rtol=MODEL_RTOL, atol=MODEL_ATOL)
     names = [n for n, _ in model.named_parameters()] + [
         f"extra{i}" for i in range(len(extra_params))]
+    largest = max(float(b.norm()) for b in grc)
     rels = {nm: float((a.cpu().double() - b).norm()
-                      / b.norm().clamp(min=1e-30))
+                      / b.norm().clamp(min=1e-30 if not nm.endswith(
+                          zero_grads) else ZERO_GRAD_FLOOR * largest))
             for nm, a, b in zip(names, gr, grc)}
     worst = max(rels, key=rels.get)
     ok = rels[worst] <= grad_rtol
@@ -567,8 +752,52 @@ def gatv2(M, seed: int, dev):
                     device=dev))
 
 
+def transformer(M, seed: int, dev, **kw):
+    """The conv zoo's ``TransformerConv_h4`` shape with an 8-class head
+    layer; ``kw`` go to both layers."""
+    gen = torch.Generator().manual_seed(seed)
+    return M.GNNChain(
+        M.TransformerConv(D, D // GAT_HEADS, heads=GAT_HEADS, generator=gen,
+                          device=dev, **kw),
+        M.TransformerConv(D, OUT_D, heads=1, concat=False, generator=gen,
+                          device=dev, **kw))
+
+
+def agnn(M, seed: int, dev):
+    """The conv zoo's ``AGNNConv`` (two of them, between a 128-wide input
+    layer and an 8-class head)."""
+    torch.manual_seed(seed)
+    return M.GNNChain(torch.nn.Linear(D, D, device=dev), torch.relu,
+                      M.AGNNConv(device=dev), M.AGNNConv(device=dev),
+                      torch.nn.Linear(D, OUT_D, device=dev))
+
+
+class LinkModel(torch.nn.Module):
+    """examples/link_prediction.py's model: a GCN encoder on the message
+    graph, ``DotDecoder`` scores on a positive and a negative graph."""
+
+    def __init__(self, M, seed: int, dev):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.enc = M.GNNChain(M.GCNConv(D, D, torch.relu, generator=gen,
+                                        device=dev),
+                              M.GCNConv(D, D, generator=gen, device=dev))
+        self.dec = M.DotDecoder()
+
+    def forward(self, g_msg, pos_g, neg_g, x):
+        h = self.enc(g_msg, x)
+        return self.dec(pos_g, h)[:, 0], self.dec(neg_g, h)[:, 0]
+
+
+def link_loss(pos, neg):
+    """Binary cross-entropy of the positive and negative edge scores, with
+    log-sigmoid (examples/link_prediction.py:56-60)."""
+    return -(torch.nn.functional.logsigmoid(pos).mean()
+             + torch.nn.functional.logsigmoid(-neg).mean())
+
+
 def main_path_phase(g, profile: bool, out_dir) -> dict:
-    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch import models as M, rand_graph
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
 
     dev = g.device
@@ -587,20 +816,8 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     def loss_fn(m, g, x, y, mask):
         return masked_cross_entropy(m(g, x), y, mask)
 
-    losses, times, launches, _ = train(model, model.parameters(),
-                                       (g, x, y, mask), loss_fn)
-    log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f}; ms/step "
-        f"median={statistics.median(times):.3f} "
-        f"first={times[0]:.3f} all={[round(t, 3) for t in times]}")
-    log(f"  launches over {STEPS} steps: {launches}")
-    expect_counts("GCN", launches, {"k1": 3})
-    res["gcn"] = {"losses": losses, "ms_per_step": times,
-                  "median_ms_per_step": statistics.median(times),
-                  "launches": launches}
-
-    if profile:
-        res["profile"] = profile_steps(model, (g, x, y, mask), loss_fn,
-                                       out_dir)
+    res["gcn"] = train_phase("GCN", model, (g, x, y, mask), loss_fn,
+                             {"k1": 3}, profile, trace_dir=out_dir)
 
     log("phase 3b: the same GCN with learned edge weights "
         f"(weighted backward), {STEPS} steps")
@@ -610,16 +827,9 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     def loss_w(m, g, x, y, mask):
         return masked_cross_entropy(m(g, x, edge_weight=ew), y, mask)
 
-    losses_w, times_w, launches_w, _ = train(
-        model_w, list(model_w.parameters()) + [ew], (g, x, y, mask), loss_w)
-    log(f"  loss {losses_w[0]:.6f} -> {losses_w[-1]:.6f}; ms/step "
-        f"median={statistics.median(times_w):.3f}")
-    log(f"  launches over {STEPS} steps: {launches_w}")
-    expect_counts("GCN learned edge weights", launches_w, {"k1": 2, "k2": 2})
-    res["gcn_learned_edge_weight"] = {
-        "losses": losses_w, "ms_per_step": times_w,
-        "median_ms_per_step": statistics.median(times_w),
-        "launches": launches_w}
+    res["gcn_learned_edge_weight"] = train_phase(
+        "GCN learned edge weights", model_w, (g, x, y, mask), loss_w,
+        {"k1": 2, "k2": 2}, False, params=list(model_w.parameters()) + [ew])
 
     log("phase 3c: one forward+backward on the card vs the CPU plain path")
     res["vs_cpu"] = {
@@ -634,19 +844,8 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     log(f"phase 3d: GAT train step (GATConv(128,32,relu,heads=4) -> "
         f"GATConv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
     model_a = gat(M, 2, dev)
-    losses_a, times_a, launches_a, _ = train(
-        model_a, model_a.parameters(), (g, x, y, mask), loss_fn)
-    log(f"  loss {losses_a[0]:.6f} -> {losses_a[-1]:.6f}; ms/step "
-        f"median={statistics.median(times_a):.3f} "
-        f"first={times_a[0]:.3f} all={[round(t, 3) for t in times_a]}")
-    log(f"  launches over {STEPS} steps: {launches_a}")
-    expect_counts("GAT (a)", launches_a, {"k3": 2, "k4": 2, "k5": 2})
-    res["gat"] = {"losses": losses_a, "ms_per_step": times_a,
-                  "median_ms_per_step": statistics.median(times_a),
-                  "launches": launches_a}
-    if profile:
-        res["gat_profile"] = profile_steps(model_a, (g, x, y, mask), loss_fn,
-                                           None)
+    res["gat"] = train_phase("GAT (a)", model_a, (g, x, y, mask), loss_fn,
+                             {"k3": 2, "k4": 2, "k5": 2}, profile)
 
     # GAT (b): attention dropout p=0.6 in training mode. Per step each
     # layer launches K12 in the forward; its backward runs K2 once per head
@@ -662,20 +861,9 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
         with torch.no_grad():
             return masked_cross_entropy(model_b(g, x), y, mask)
 
-    losses_b, times_b, launches_b, _ = train(
-        model_b, model_b.parameters(), (g, x, y, mask), loss_drop,
-        eval_loss=eval_b)
-    log(f"  loss {losses_b[0]:.6f} -> {losses_b[-1]:.6f}; ms/step "
-        f"median={statistics.median(times_b):.3f} "
-        f"first={times_b[0]:.3f} all={[round(t, 3) for t in times_b]}")
-    log(f"  launches over {STEPS} steps: {launches_b}")
-    expect_counts("GAT (b)", launches_b, {"k12": 2, "k2": GAT_HEADS + 1})
-    res["gat_dropout"] = {"losses": losses_b, "ms_per_step": times_b,
-                          "median_ms_per_step": statistics.median(times_b),
-                          "launches": launches_b}
-    if profile:
-        res["gat_dropout_profile"] = profile_steps(
-            model_b, (g, x, y, mask), loss_drop, None)
+    res["gat_dropout"] = train_phase(
+        "GAT (b)", model_b, (g, x, y, mask), loss_drop,
+        {"k12": 2, "k2": GAT_HEADS + 1}, profile, eval_loss=eval_b)
 
     log("phase 3c (GAT): one forward+backward of GAT (a) on the card "
         "(K3-K5) vs the CPU plain path")
@@ -694,19 +882,8 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     log(f"phase 3f: GATv2 train step (GATv2Conv(128,32,relu,heads=4) -> "
         f"GATv2Conv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
     model_v2 = gatv2(M, 4, dev)
-    losses_v2, times_v2, launches_v2, _ = train(
-        model_v2, model_v2.parameters(), (g, x, y, mask), loss_fn)
-    log(f"  loss {losses_v2[0]:.6f} -> {losses_v2[-1]:.6f}; ms/step "
-        f"median={statistics.median(times_v2):.3f} "
-        f"first={times_v2[0]:.3f} all={[round(t, 3) for t in times_v2]}")
-    log(f"  launches over {STEPS} steps: {launches_v2}")
-    expect_counts("GATv2", launches_v2, {"k9": 2, "k10": 4, "k11": 2})
-    res["gatv2"] = {"losses": losses_v2, "ms_per_step": times_v2,
-                    "median_ms_per_step": statistics.median(times_v2),
-                    "launches": launches_v2}
-    if profile:
-        res["gatv2_profile"] = profile_steps(model_v2, (g, x, y, mask),
-                                             loss_fn, None)
+    res["gatv2"] = train_phase("GATv2", model_v2, (g, x, y, mask), loss_fn,
+                               {"k9": 2, "k10": 4, "k11": 2}, profile)
     log("phase 3c (GATv2): one forward+backward of GATv2 (3f) on the card "
         "(K9-K11) vs the CPU plain path")
     res["vs_cpu"]["gatv2"] = compare_model("GATv2", model_v2, g, x,
@@ -719,7 +896,97 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
         ("q", "k", "a", "self_logits", "self_values"),
         lambda h, d: [(N, h, d), (N, h, d), (d, h), (N, h), (N, h, d)],
         summed=("a",))
+
+    # Transformer: per step each layer launches K6 in the forward, K7 (dq)
+    # and K8 (dk, dv) in the backward; q, k and v are projections of a
+    # tensor that needs a gradient in both layers
+    log(f"phase 3g: Transformer train step (TransformerConv(128,32,heads=4)"
+        f" -> TransformerConv(128,8,heads=1,concat=False)), {STEPS} steps")
+    model_t = transformer(M, 5, dev)
+    res["transformer"] = train_phase("Transformer", model_t, (g, x, y, mask),
+                                     loss_fn, {"k6": 2, "k7": 2, "k8": 2},
+                                     profile)
+    log("phase 3c (Transformer): one forward+backward on the card (K6-K8) "
+        "vs the CPU plain path; also with virtual self-loops, and with edge "
+        "features (gathered logits, K12 with edge values)")
+    res["vs_cpu"]["transformer"] = compare_model(
+        "Transformer", model_t, g, x, lambda extra: {},
+        zero_grads=("W4.bias",))
+    res["vs_cpu"]["transformer_self_loops"] = compare_model(
+        "Transformer self-loops", transformer(M, 6, dev, add_self_loops=True),
+        g, x, lambda extra: {}, zero_grads=("W4.bias",))
+    gen = torch.Generator().manual_seed(7)
+    e = torch.nn.Parameter(torch.randn(E, 16, generator=gen).to(dev))
+    model_te = M.GNNChain(M.TransformerConv(D, OUT_D, heads=2, concat=False,
+                                            edge_features=16, generator=gen,
+                                            device=dev))
+    before = read_counts()
+    res["vs_cpu"]["transformer_edge_features"] = compare_model(
+        "Transformer edge features", model_te, g, x,
+        lambda extra: {"e": extra[0]}, [e], zero_grads=("W4.bias",))
+    expect_launched("Transformer edge features", before, {"k12": 1})
+    del e, model_te
+
+    # AGNN: two AGNNConv layers, each K6 forward and K7, K8 backward
+    log(f"phase 3h: AGNN train step (Linear(128,128), relu, AGNNConv(), "
+        f"AGNNConv(), Linear(128,8)), {STEPS} steps")
+    model_ag = agnn(M, 8, dev)
+    res["agnn"] = train_phase("AGNN", model_ag, (g, x, y, mask), loss_fn,
+                              {"k6": 2, "k7": 2, "k8": 2}, profile)
+    log("phase 3c (AGNN): one forward+backward on the card (K6-K8) vs the "
+        "CPU plain path")
+    res["vs_cpu"]["agnn"] = compare_model("AGNN", model_ag, g, x,
+                                          lambda extra: {})
+
+    # Link prediction: the encoder launches K1 in both layers' forwards and
+    # in the second layer's backward (the first layer propagates x, which
+    # needs no gradient: W comes after the propagation at 128 -> 128): 3.
+    # Each DotDecoder launches K13 forward and K1 twice backward (dxi over
+    # the receiver CSR, dxj over the sender CSR; x is both): 2 and 4.
+    log(f"phase 3i: link-prediction train step (GCN encoder, DotDecoder on "
+        f"the {E} edges and on {E} negative edges, binary cross-entropy), "
+        f"{STEPS} steps")
+    gneg = rand_graph(N, E, seed=2, device=dev)
+    model_l = LinkModel(M, 9, dev)
+
+    def loss_link(m, g, gneg, x):
+        return link_loss(*m(g, g, gneg, x))
+
+    res["link"] = train_phase("link prediction", model_l, (g, gneg, x),
+                              loss_link, {"k13": 2, "k1": 3 + 4}, False)
+    log("phase 3c (link): one forward+backward of the link step on the "
+        "card (K1, K13) vs the CPU plain path")
+    gneg_cpu = gneg.to("cpu")
+
+    def link_forward(m, gg, xx, extra):
+        pos, neg = m(gg, gg, gneg_cpu if xx.device.type == "cpu" else gneg,
+                     xx)
+        return torch.cat([pos, neg]), link_loss(pos, neg)
+
+    res["vs_cpu"]["link"] = compare_model("link prediction", model_l, g, x,
+                                          None, forward=link_forward)
     return res
+
+
+def train_phase(name, model, args, loss_fn, per_step, profile, *,
+                params=None, eval_loss=None, trace_dir=None) -> dict:
+    """:func:`train` of ``params`` (default: the model's), its log lines,
+    the launch counts checked against ``per_step`` and, with ``profile``, a
+    :func:`profile_steps` breakdown (its trace written to ``trace_dir``)."""
+    losses, times, launches, _ = train(
+        model, model.parameters() if params is None else params, args,
+        loss_fn, eval_loss=eval_loss)
+    log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f}; ms/step "
+        f"median={statistics.median(times):.3f} "
+        f"first={times[0]:.3f} all={[round(t, 3) for t in times]}")
+    log(f"  launches over {STEPS} steps: {launches}")
+    expect_counts(name, launches, per_step)
+    out = {"losses": losses, "ms_per_step": times,
+           "median_ms_per_step": statistics.median(times),
+           "launches": launches}
+    if profile:
+        out["profile"] = profile_steps(model, args, loss_fn, trace_dir)
+    return out
 
 
 def compare_dropout_attention(g, label, fn_name, names, shapes,
@@ -753,8 +1020,7 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
                    self_values=ts[4],
                    dropout_masks=tuple(m.to(dv) for m in masks))
             (y * cot.to(dv)).sum().backward()
-            launched = {k: c - before[k] for k, c in read_counts().items()
-                        if c != before[k]}
+            launched = launched_since(before)
             results.append((y.detach().cpu(), [t.grad.cpu() for t in ts],
                             launched))
         (y, grads, launched), (yc, grads_c, launched_c) = results
@@ -869,11 +1135,16 @@ def cora_phase(dev) -> dict:
                 M.GATv2Conv(din, nh, torch.relu, heads=2, **kw),
                 M.GATv2Conv(2 * nh, nh, torch.relu, heads=2, concat=False,
                             **kw), head)
+        if name == "Transformer":   # tests/test_integration_cora.py:70-74
+            return M.GNNChain(
+                M.TransformerConv(din, nh, heads=2, concat=False, **kw),
+                M.TransformerConv(nh, nh, heads=2, concat=False, **kw), head)
         return M.GNNChain(M.GINConv(M.MLP([din, nh], **kw), 0.01),
                           M.GINConv(M.MLP([nh, nh], **kw), 0.01), head)
 
     out = {"real_dataset": is_real}
-    for name in ("GCN", "GraphConv", "SAGE", "GIN", "GAT", "GATv2"):
+    for name in ("GCN", "GraphConv", "SAGE", "GIN", "GAT", "GATv2",
+                 "Transformer"):
         torch.manual_seed(17)
         model = build(name, torch.Generator().manual_seed(17))
         opt = torch.optim.Adam(model.parameters(), lr=1e-2)
@@ -893,7 +1164,8 @@ def cora_phase(dev) -> dict:
         if not (tr > 0.94 and te > 0.69):
             raise AssertionError(f"{name}: Cora bar missed (train {tr}, "
                                  f"test {te})")
-        kernel = {"GAT": "k3", "GATv2": "k9"}.get(name, "k1")
+        kernel = {"GAT": "k3", "GATv2": "k9", "Transformer": "k6"}.get(
+            name, "k1")
         if launches[kernel] == 0:
             raise AssertionError(f"{name}: {kernel.upper()} never launched")
         out[name] = {"train_acc": tr, "test_acc": te, "launches": launches}
@@ -949,6 +1221,8 @@ def main() -> int:
     kern = kernel_phase(gnn, g, card)
     kern.update(attention_phase(g, card))
     kern.update(gatv2_phase(g, card))
+    kern.update(dot_phase(g, card))
+    kern.update(sddmm_phase(g, card))
     main_res = main_path_phase(g, args.profile, args.out)
     cora = cora_phase(g.device)
 
@@ -977,6 +1251,10 @@ def main() -> int:
         entry("k10", "gatv2_bwd_dq_f32 + gatv2_da_reduce_f32",
               "edge_softmax", 1398, "gatv2"),
         entry("k11", "gatv2_bwd_rev_f32", "edge_softmax", 1464, "gatv2"),
+        entry("k6", "dot_softmax_f32", "edge_softmax", 295, "transformer"),
+        entry("k7", "dot_bwd_dq_f32", "edge_softmax", 546, "transformer"),
+        entry("k8", "dot_bwd_rev_f32", "edge_softmax", 599, "transformer"),
+        entry("k13", "sddmm_csr_f32", "sddmm", 36, "link"),
     ]
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")

@@ -1,5 +1,5 @@
-// Edge softmax over a node's in-edges, with aggregation: K3, K4, K5, K9, K10,
-// K11 and K12, float32, for sm_90a.
+// Edge softmax over a node's in-edges, with aggregation: K3 to K12, float32,
+// for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
 //   K12 _flash_kernel         softmax of given per-edge logits, numerator
@@ -12,6 +12,10 @@
 //                             k[s] (see the GATv2 section below)
 //   K10 _gatv2_bwd_fwd_kernel GATv2 backward, dq and da, over the receiver CSR
 //   K11 _gatv2_bwd_rev_kernel GATv2 backward, dk, over the sender CSR
+//   K6  _flash_dot_kernel     dot attention: logits lrelu(scale <q[r], k[s]>),
+//                             values v[s] (see the dot section below)
+//   K7  _dot_bwd_dq_kernel    dot attention backward, dq, receiver CSR
+//   K8  _dot_bwd_dkv_kernel   dot attention backward, dk and dv, sender CSR
 //
 // Layouts (row-major, contiguous):
 //   indptr int32[n_rows + 1], col int32[E]   a CSR grouping of the edges
@@ -46,6 +50,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -704,6 +709,267 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
   }
 }
 
+// ---- dot attention: K6, K7, K8 ---------------------------------------------
+//
+// Per edge e = (r, s) and head h:  raw = scale * <q[r], k[s]> (O wide),
+// lg = lrelu(raw, slope), and the values v[s] (D wide; D need not equal O).
+// The plain dot is slope 1: lrelu(raw, 1) == raw and its slope is 1
+// everywhere, bit for bit. As in K9, each edge group of G lanes reduces its
+// lanes' shares of the O-wide dot with shuffles before the exp. A lane keeps
+// vector f = sub + c * G (c < NC) of the logit side (f < ov) and of the
+// value side (f < dv) in registers, with G and NC sized for the wider side;
+// both sides take float4 vectors only when O % 4 == 0 and D % 4 == 0.
+//
+// Bound on an H100: memory. K6 and K7 gather one k row (H*O floats) and
+// one v row (H*D floats) per edge: 1 KB at H=4, O=D=32, and at H=1,
+// O=D=128. K6 reads each once: the softmax is one pass, each edge group
+// keeping a running max, sum and accumulator (rescaled when its max grows),
+// merged across groups at the end. K7 and K8 recompute alpha from the
+// finalised mx and den (4-byte per-node scalars) instead of reading a
+// stored [E, H] array; K8 gathers the receivers' q and dy rows and their
+// mx, den and s_n.
+
+// K6, replacing _flash_dot_kernel. Over the receiver CSR, row r, head h:
+//   m = max_e lg_e,  s = sum_e exp(lg_e - m),  num = sum_e exp(lg_e - m) v[s_e]
+// with m = -inf, s = 0, num = 0 for a row without edges.
+template <typename V, int NC>
+__global__ void __launch_bounds__(kThreads)
+dot_softmax_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
+                   const V* __restrict__ q, const V* __restrict__ k,
+                   const V* __restrict__ v, V* __restrict__ num,
+                   float* __restrict__ m, float* __restrict__ s, int n_rows,
+                   int heads, int ov, int dv, int log_g, float scale,
+                   float slope) {
+  int row, h;
+  if (!warp_task(n_rows, heads, row, h)) return;
+  const Lanes L(log_g);
+  const long long rh = (long long)row * heads + h;
+  V qv[NC], acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = L.sub + c * L.g;
+    qv[c] = f < ov ? q[rh * ov + f] : vzero<V>();
+    acc[c] = vzero<V>();
+  }
+  float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
+  const int beg = indptr[row], end = indptr[row + 1];
+  for (int base = beg; base < end; base += L.p) {   // warp-uniform trips
+    const int e = base + L.grp;
+    const bool valid = e < end;
+    V vv[NC];   // the value row, loaded before the reduction to overlap it
+    float part = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) vv[c] = vzero<V>();
+    if (valid) {
+      const long long src = (long long)col[e] * heads + h;
+      const V* kr = k + src * ov;
+      const V* vr = v + src * dv;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = L.sub + c * L.g;
+        if (f < ov) part += vdot(qv[c], kr[f]);
+        if (f < dv) vv[c] = vr[f];
+      }
+    }
+    const float lg = lrelu(scale * group_sum(part, L.g), slope);
+    if (valid) {
+      if (lg > mg) {
+        const float sc = expf(mg - lg);   // 0 while mg is -inf
+        sg *= sc;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
+        mg = lg;
+      }
+      const float p = lg == -INFINITY ? 0.f : expf(lg - mg);
+      sg += p;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) axpy(acc[c], p, vv[c]);
+    }
+  }
+  // merge the edge groups: rescale each to the row max, then add
+  float mx = mg;
+  for (int off = L.g; off < 32; off <<= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+  const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
+  sg *= sc;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
+  for (int off = L.g; off < 32; off <<= 1) {
+    sg += __shfl_xor_sync(kFull, sg, off);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) add_xor(acc[c], off);
+  }
+  if (L.grp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = L.sub + c * L.g;
+      if (f < dv) num[rh * dv + f] = acc[c];
+    }
+  }
+  if (L.lane == 0) {
+    m[rh] = mx;
+    s[rh] = sg;
+  }
+}
+
+// K7, replacing _dot_bwd_dq_kernel. Over the receiver CSR, row r:
+//   alpha_e = exp(lg_e - mx[r]) / den[r],
+//   dlg_e = alpha_e * (<v[s_e], dy[r]> - s_n[r]) * scale * lrelu'(raw_e),
+//   dq[r] = sum_e dlg_e * k[s_e].
+// q[r] and dy[r] stay in registers; each edge's two dots are reduced
+// together in one shuffle tree.
+template <typename V, int NC>
+__global__ void __launch_bounds__(kThreads)
+dot_bwd_dq_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
+                  const V* __restrict__ q, const V* __restrict__ k,
+                  const V* __restrict__ v, const float* __restrict__ mx,
+                  const float* __restrict__ den,
+                  const float* __restrict__ s_n, const V* __restrict__ dy,
+                  V* __restrict__ dq, int n_rows, int heads, int ov, int dv,
+                  int log_g, float scale, float slope) {
+  int row, h;
+  if (!warp_task(n_rows, heads, row, h)) return;
+  const Lanes L(log_g);
+  const long long rh = (long long)row * heads + h;
+  V qv[NC], dyv[NC], dqv[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = L.sub + c * L.g;
+    qv[c] = f < ov ? q[rh * ov + f] : vzero<V>();
+    dyv[c] = f < dv ? dy[rh * dv + f] : vzero<V>();
+    dqv[c] = vzero<V>();
+  }
+  const float mxr = mx[rh], denr = den[rh], snr = s_n[rh];
+  const int beg = indptr[row], end = indptr[row + 1];
+  for (int base = beg; base < end; base += L.p) {
+    const int e = base + L.grp;
+    const bool valid = e < end;
+    V kv[NC];
+    float plg = 0.f, pvd = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) kv[c] = vzero<V>();
+    if (valid) {
+      const long long src = (long long)col[e] * heads + h;
+      const V* kr = k + src * ov;
+      const V* vr = v + src * dv;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = L.sub + c * L.g;
+        if (f < ov) {
+          kv[c] = kr[f];
+          plg += vdot(qv[c], kv[c]);
+        }
+        if (f < dv) pvd += vdot(vr[f], dyv[c]);
+      }
+    }
+    group_sum2(plg, pvd, L.g);
+    if (valid) {
+      const float raw = scale * plg;
+      const float alpha = expf(lrelu(raw, slope) - mxr) / denr;
+      const float dlg = alpha * (pvd - snr) * scale * dlrelu(raw, slope);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) axpy(dqv[c], dlg, kv[c]);
+    }
+  }
+  for (int off = L.g; off < 32; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) add_xor(dqv[c], off);
+  }
+  if (L.grp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = L.sub + c * L.g;
+      if (f < ov) dq[rh * ov + f] = dqv[c];
+    }
+  }
+}
+
+// K8, replacing _dot_bwd_dkv_kernel. Over the sender CSR, row s (col holds
+// the receivers r_e), with alpha_e and dlg_e as in K7:
+//   dk[s] = sum_e dlg_e * q[r_e],   dv[s] = sum_e alpha_e * dy[r_e].
+// k[s] and v[s] stay in registers; each gathered q row feeds the logit and
+// dk, each gathered dy row <v[s], dy[r]> and dv.
+template <typename V, int NC>
+__global__ void __launch_bounds__(kThreads)
+dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
+                   const V* __restrict__ q, const V* __restrict__ k,
+                   const V* __restrict__ v, const float* __restrict__ mx,
+                   const float* __restrict__ den,
+                   const float* __restrict__ s_n, const V* __restrict__ dy,
+                   V* __restrict__ dk, V* __restrict__ dv_out, int n_rows,
+                   int heads, int ov, int dv, int log_g, float scale,
+                   float slope) {
+  int row, h;
+  if (!warp_task(n_rows, heads, row, h)) return;
+  const Lanes L(log_g);
+  const long long sh = (long long)row * heads + h;
+  V kv[NC], vv[NC], dka[NC], dva[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = L.sub + c * L.g;
+    kv[c] = f < ov ? k[sh * ov + f] : vzero<V>();
+    vv[c] = f < dv ? v[sh * dv + f] : vzero<V>();
+    dka[c] = vzero<V>();
+    dva[c] = vzero<V>();
+  }
+  const int beg = indptr[row], end = indptr[row + 1];
+  for (int base = beg; base < end; base += L.p) {
+    const int e = base + L.grp;
+    const bool valid = e < end;
+    V qg[NC], dyg[NC];
+    float plg = 0.f, pvd = 0.f, mxr = 0.f, denr = 1.f, snr = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      qg[c] = vzero<V>();
+      dyg[c] = vzero<V>();
+    }
+    if (valid) {
+      const long long rh = (long long)col[e] * heads + h;
+      mxr = mx[rh];
+      denr = den[rh];
+      snr = s_n[rh];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = L.sub + c * L.g;
+        if (f < ov) {
+          qg[c] = q[rh * ov + f];
+          plg += vdot(qg[c], kv[c]);
+        }
+        if (f < dv) {
+          dyg[c] = dy[rh * dv + f];
+          pvd += vdot(vv[c], dyg[c]);
+        }
+      }
+    }
+    group_sum2(plg, pvd, L.g);
+    if (valid) {
+      const float raw = scale * plg;
+      const float alpha = expf(lrelu(raw, slope) - mxr) / denr;
+      const float dlg = alpha * (pvd - snr) * scale * dlrelu(raw, slope);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        axpy(dka[c], dlg, qg[c]);
+        axpy(dva[c], alpha, dyg[c]);
+      }
+    }
+  }
+  for (int off = L.g; off < 32; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      add_xor(dka[c], off);
+      add_xor(dva[c], off);
+    }
+  }
+  if (L.grp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = L.sub + c * L.g;
+      if (f < ov) dk[sh * ov + f] = dka[c];
+      if (f < dv) dv_out[sh * dv + f] = dva[c];
+    }
+  }
+}
+
 int log_group(int dv) {
   int lg = 0;
   while ((1 << lg) < dv && lg < 5) ++lg;
@@ -784,6 +1050,66 @@ int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
         reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dk), n_rows,
         heads, dv, log_group(dv), slope);
   });
+}
+
+// The dot kernels size G and NC for the wider of the logit side (ov
+// vectors) and the value side (dv vectors).
+template <typename V>
+int launch_dot_softmax(const int* indptr, const int* col, const float* q,
+                       const float* k, const float* v, float* num, float* m,
+                       float* s, int n_rows, int heads, int ov, int dv,
+                       float scale, float slope, cudaStream_t st) {
+  const unsigned nb = blocks_for(n_rows, heads);
+  const int wide = ov > dv ? ov : dv;
+  return with_chunks(wide, [&](auto nc) {
+    dot_softmax_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
+        indptr, col, reinterpret_cast<const V*>(q),
+        reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v),
+        reinterpret_cast<V*>(num), m, s, n_rows, heads, ov, dv,
+        log_group(wide), scale, slope);
+  });
+}
+
+template <typename V>
+int launch_dot_bwd_dq(const int* indptr, const int* col, const float* q,
+                      const float* k, const float* v, const float* mx,
+                      const float* den, const float* s_n, const float* dy,
+                      float* dq, int n_rows, int heads, int ov, int dv,
+                      float scale, float slope, cudaStream_t st) {
+  const unsigned nb = blocks_for(n_rows, heads);
+  const int wide = ov > dv ? ov : dv;
+  return with_chunks(wide, [&](auto nc) {
+    dot_bwd_dq_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
+        indptr, col, reinterpret_cast<const V*>(q),
+        reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v), mx,
+        den, s_n, reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dq),
+        n_rows, heads, ov, dv, log_group(wide), scale, slope);
+  });
+}
+
+template <typename V>
+int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
+                       const float* k, const float* v, const float* mx,
+                       const float* den, const float* s_n, const float* dy,
+                       float* dk, float* dv_out, int n_rows, int heads, int ov,
+                       int dv, float scale, float slope, cudaStream_t st) {
+  const unsigned nb = blocks_for(n_rows, heads);
+  const int wide = ov > dv ? ov : dv;
+  return with_chunks(wide, [&](auto nc) {
+    dot_bwd_rev_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
+        indptr, col, reinterpret_cast<const V*>(q),
+        reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v), mx,
+        den, s_n, reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dk),
+        reinterpret_cast<V*>(dv_out), n_rows, heads, ov, dv, log_group(wide),
+        scale, slope);
+  });
+}
+
+bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
+  if (o % 4 != 0 || d % 4 != 0) return false;
+  for (const void* p : rows)
+    if (!aligned16(p)) return false;
+  return true;
 }
 
 }  // namespace
@@ -962,6 +1288,57 @@ int gatv2_bwd_rev_f32(const int* indptr, const int* col, const float* q,
                                         st);
   return launch_gatv2_bwd_rev<float>(indptr, col, q, k, a, mx, den, s_n, dy,
                                      dk, n_rows, heads, d, slope, st);
+}
+
+// K6. Over the receiver CSR of n_rows receivers: q [n_rows, H, o],
+// k [n_src, H, o], v [n_src, H, d]; num [n_rows, H, d], m and s
+// [n_rows, H]. slope 1 is the plain dot. float4 vectors when o and d are
+// multiples of 4 and every row pointer is 16-byte aligned; the wider of o
+// and d may be 1024 floats with float4 vectors, 256 without; wider returns
+// cudaErrorInvalidValue.
+int dot_softmax_f32(const int* indptr, const int* col, const float* q,
+                    const float* k, const float* v, float* num, float* m,
+                    float* s, int n_rows, int heads, int o, int d, float scale,
+                    float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dot_float4(o, d, {q, k, v, num}))
+    return launch_dot_softmax<float4>(indptr, col, q, k, v, num, m, s, n_rows,
+                                      heads, o / 4, d / 4, scale, slope, st);
+  return launch_dot_softmax<float>(indptr, col, q, k, v, num, m, s, n_rows,
+                                   heads, o, d, scale, slope, st);
+}
+
+// K7. Over the receiver CSR: dq [n_rows, H, o]. mx, den, s_n and dy
+// [n_rows, H(, d)] are the receivers'. Widths as K6.
+int dot_bwd_dq_f32(const int* indptr, const int* col, const float* q,
+                   const float* k, const float* v, const float* mx,
+                   const float* den, const float* s_n, const float* dy,
+                   float* dq, int n_rows, int heads, int o, int d, float scale,
+                   float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dot_float4(o, d, {q, k, v, dy, dq}))
+    return launch_dot_bwd_dq<float4>(indptr, col, q, k, v, mx, den, s_n, dy,
+                                     dq, n_rows, heads, o / 4, d / 4, scale,
+                                     slope, st);
+  return launch_dot_bwd_dq<float>(indptr, col, q, k, v, mx, den, s_n, dy, dq,
+                                  n_rows, heads, o, d, scale, slope, st);
+}
+
+// K8. Over the sender CSR of n_rows senders: dk [n_rows, H, o] and
+// dv [n_rows, H, d]; q, mx, den, s_n and dy are the receivers'. Widths as
+// K6.
+int dot_bwd_rev_f32(const int* indptr, const int* col, const float* q,
+                    const float* k, const float* v, const float* mx,
+                    const float* den, const float* s_n, const float* dy,
+                    float* dk, float* dv, int n_rows, int heads, int o, int d,
+                    float scale, float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dot_float4(o, d, {q, k, v, dy, dk, dv}))
+    return launch_dot_bwd_rev<float4>(indptr, col, q, k, v, mx, den, s_n, dy,
+                                      dk, dv, n_rows, heads, o / 4, d / 4,
+                                      scale, slope, st);
+  return launch_dot_bwd_rev<float>(indptr, col, q, k, v, mx, den, s_n, dy, dk,
+                                   dv, n_rows, heads, o, d, scale, slope, st);
 }
 
 const char* gnn_cuda_error_string(int code) {

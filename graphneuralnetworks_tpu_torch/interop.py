@@ -16,6 +16,10 @@ from torch import nn
 
 __all__ = ["load_jax_params"]
 
+# nnx.BatchNorm's names -> torch.nn.BatchNorm1d's (``bias`` is the same)
+_BATCH_NORM = {"scale": "weight", "mean": "running_mean",
+               "var": "running_var"}
+
 
 def _child(module: nn.Module, key) -> nn.Module:
     if isinstance(module, (nn.ModuleList, nn.Sequential)):
@@ -33,6 +37,8 @@ def _load(module: nn.Module, tree: Mapping, path: str) -> None:
         if isinstance(module, nn.Linear) and key == "kernel":
             # nnx.Linear stores [in, out]; torch.nn.Linear [out, in]
             target, arr = module.weight, arr.T
+        elif isinstance(module, nn.BatchNorm1d) and key in _BATCH_NORM:
+            target = getattr(module, _BATCH_NORM[key])
         else:
             target = getattr(module, str(key), None)
         if not isinstance(target, torch.Tensor):
@@ -49,8 +55,10 @@ def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
 
     Conv weights are ``[in, out]`` in both packages and copy as they are;
     Dense kernels (``nnx.Linear``, in :class:`~.models.MLP` or a head) are
-    transposed into ``torch.nn.Linear.weight``. Raises on a name or shape
-    that does not match.
+    transposed into ``torch.nn.Linear.weight``; ``nnx.BatchNorm``'s
+    ``scale`` goes to the weight and, given ``nnx.state(model,
+    nnx.BatchStat)`` as dicts, its ``mean`` and ``var`` to the running
+    statistics. Raises on a name or shape that does not match.
     """
     with torch.no_grad():
         _load(module, params, "")

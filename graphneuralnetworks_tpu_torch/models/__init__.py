@@ -1,8 +1,10 @@
 """Layers and containers."""
 
-from .basic import GNNChain, GNNLayer, WithGraph, glorot_uniform
-from .conv import (GATConv, GATv2Conv, GCNConv, GINConv, GraphConv, MLP,
-                   SAGEConv)
+from .basic import DotDecoder, GNNChain, GNNLayer, WithGraph, glorot_uniform
+from .conv import (AGNNConv, BatchNorm, GATConv, GATv2Conv, GCNConv, GINConv,
+                   GraphConv, MLP, SAGEConv, TransformerConv)
 
-__all__ = ["GNNChain", "GNNLayer", "WithGraph", "glorot_uniform", "GATConv",
-           "GATv2Conv", "GCNConv", "GINConv", "GraphConv", "MLP", "SAGEConv"]
+__all__ = ["DotDecoder", "GNNChain", "GNNLayer", "WithGraph",
+           "glorot_uniform", "AGNNConv", "BatchNorm", "GATConv", "GATv2Conv",
+           "GCNConv", "GINConv", "GraphConv", "MLP", "SAGEConv",
+           "TransformerConv"]

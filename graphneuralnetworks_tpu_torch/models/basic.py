@@ -1,4 +1,5 @@
-"""Model basics: GNNLayer base, GNNChain, WithGraph, Glorot init.
+"""Model basics: GNNLayer base, GNNChain, WithGraph, DotDecoder, Glorot
+init.
 
 Counterpart of ``graphneuralnetworks_tpu/models/basic.py`` (reference
 GraphNeuralNetworks basic.jl). Layers are ``torch.nn.Module``s taking
@@ -15,8 +16,10 @@ from torch import nn
 
 from .. import resolve_device
 from ..graph import GraphTuple
+from ..ops.msgpass import apply_edges, xi_dot_xj
 
-__all__ = ["GNNLayer", "GNNChain", "WithGraph", "glorot_uniform"]
+__all__ = ["GNNLayer", "GNNChain", "WithGraph", "DotDecoder",
+           "glorot_uniform"]
 
 
 def glorot_uniform(shape, *, generator: torch.Generator | None = None,
@@ -156,3 +159,14 @@ class WithGraph(nn.Module):
         if isinstance(x, GraphTuple):
             return self.model(x, *args, **kw)
         return self.model(self._graph(), x, *args, **kw)
+
+
+class DotDecoder(GNNLayer):
+    """Per-edge dot product of endpoint features -> ``[E, 1]``, the
+    link-prediction decoder (reference basic.jl:210-212). On the card one
+    SDDMM (K13)."""
+
+    def forward(self, g: GraphTuple, x=None):
+        if x is None:
+            x = g.x
+        return apply_edges(xi_dot_xj, g, xi=x, xj=x)

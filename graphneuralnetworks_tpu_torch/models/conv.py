@@ -1,4 +1,5 @@
-"""Convolution layers: GCN, GraphConv, GIN, SAGE, MLP, GAT and GATv2.
+"""Convolution layers: GCN, GraphConv, GIN, SAGE, MLP, GAT, GATv2, AGNN
+and Transformer.
 
 Counterpart of ``graphneuralnetworks_tpu/models/conv.py`` (surfaces from
 GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
@@ -14,6 +15,8 @@ layers' self-loops are virtual too (:mod:`..ops.attention`).
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Callable
 
 import torch
@@ -22,15 +25,15 @@ from torch import nn
 from .. import resolve_device
 from ..graph import GraphTuple
 from ..ops import copy_xj, e_mul_xj, propagate, w_mul_xj
-from ..ops.attention import (attention_aggregate, gat_attention,
-                             gatv2_attention)
+from ..ops.attention import (attention_aggregate, dot_attention,
+                             gat_attention, gatv2_attention)
 from ..ops.cuda.edge_softmax import lrelu
 from ..ops.segment import gather, segment_sum
 from ..query import degree
 from .basic import GNNLayer, glorot_uniform
 
 __all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "MLP", "GATConv",
-           "GATv2Conv"]
+           "GATv2Conv", "AGNNConv", "TransformerConv", "BatchNorm"]
 
 
 def _weight(shape, generator, device, dtype) -> nn.Parameter:
@@ -460,3 +463,174 @@ class GATv2Conv(GNNLayer):
         if self.bias is not None:
             out = out + self.bias
         return self.act(out) if self.act is not None else out
+
+
+class AGNNConv(GNNLayer):
+    """Attention-based GNN (Thekumparampil et al.; reference
+    conv.jl:988-1002, GNNlib conv.jl:337-352): cosine-similarity attention
+    with a temperature ``beta``, over in-edges and a virtual self-loop.
+
+    ``beta`` (shape ``(1,)``) is a parameter, or a buffer when
+    ``trainable=False``. It folds into the query, so the logits
+    ``beta <x_i/|x_i|, x_j/|x_j|>`` are computed inside the dot-attention
+    kernels on the card (:func:`~..ops.attention.dot_attention`).
+    """
+
+    def __init__(self, *, init_beta: float = 1.0, add_self_loops: bool = True,
+                 trainable: bool = True, device=None, dtype=torch.float32):
+        super().__init__()
+        beta = torch.full((1,), init_beta, dtype=dtype,
+                          device=resolve_device(device))
+        if trainable:
+            self.beta = nn.Parameter(beta)
+        else:
+            self.register_buffer("beta", beta)
+        self.add_self_loops = add_self_loops
+
+    def forward(self, g: GraphTuple, x=None):
+        if x is None:
+            x = g.x
+        beta = self.beta[0]
+        norm = torch.sqrt((x * x).sum(-1, keepdim=True).clamp(min=1e-24))
+        xn = x / norm
+        self_logits = self_values = None
+        if self.add_self_loops:
+            self_logits = (beta * (xn * xn).sum(-1))[:, None]     # [N, 1]
+            self_values = x[:, None, :]
+        return dot_attention(g, (beta * xn)[:, None, :], xn[:, None, :],
+                             x[:, None, :], 1.0, self_logits=self_logits,
+                             self_values=self_values)[:, 0, :]
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """``nnx.BatchNorm`` over ``[N, C]``: momentum 0.99 of the running
+    average (torch's ``momentum=0.01``), eps 1e-5, and the BIASED batch
+    variance ``max(E[x^2] - E[x]^2, 0)`` both to normalise and to update the
+    running variance (``torch.nn.BatchNorm1d`` updates it with the unbiased
+    one). ``use_running_average`` chooses the running statistics (JAX's
+    ``deterministic``), not ``self.training``. Parameters ``weight`` and
+    ``bias`` are nnx's ``scale`` and ``bias``, buffers ``running_mean`` and
+    ``running_var`` its ``mean`` and ``var``.
+    """
+
+    decay = 0.99    # nnx's momentum
+
+    def __init__(self, num_features: int, *, device=None,
+                 dtype=torch.float32):
+        super().__init__(num_features, eps=1e-5, momentum=1 - self.decay,
+                         device=resolve_device(device), dtype=dtype)
+
+    def forward(self, x, use_running_average: bool = True):
+        if use_running_average:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = x.mean(0)
+            var = ((x * x).mean(0) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                for stat, new in ((self.running_mean, mean),
+                                  (self.running_var, var)):
+                    stat.copy_(self.decay * stat + (1 - self.decay) * new)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+class TransformerConv(GNNLayer):
+    """UniMP transformer conv (Shi et al.; reference conv.jl:1473-1547, GNNlib
+    conv.jl:553-629): scaled dot-product attention over in-edges, with an
+    optional root weight ``W1``, gating ``W5``, edge features ``W6``, a
+    virtual self-loop, skip connection, batch norms and a feed-forward
+    block.
+
+    Without edge features the logits ``<W3 x_i, W4 x_j> / sqrt(out)`` are
+    computed inside the dot-attention kernels on the card, summing the
+    values ``W2 x_j``; with edge features ``e`` the keys and values shift
+    per edge and the logits are gathered, then :func:`attention_aggregate`
+    (edge values) takes over. Parameters keep the JAX package's names:
+    ``W1``-``W6`` (``nn.Linear``), ``FF`` (:class:`MLP`), ``BN1``, ``BN2``
+    (:class:`BatchNorm`, applied with the running statistics when
+    ``deterministic``).
+    """
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 heads: int = 1, concat: bool = True,
+                 add_self_loops: bool = False, bias_qkv: bool = True,
+                 bias_root: bool = True, root_weight: bool = True,
+                 gating: bool = False, skip_connection: bool = False,
+                 batch_norm: bool = False, ff_channels: int = 0,
+                 edge_features: int = 0, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if add_self_loops and edge_features > 0:
+            raise ValueError("edge features + add_self_loops unsupported")
+        device = resolve_device(device)
+        O, H = out_features, heads
+        out_mha = O * (H if concat else 1)
+
+        def mk(fan_in, fan_out, bias):
+            return _dense(fan_in, fan_out, bias, generator, device, dtype)
+
+        self.W1 = mk(in_features, out_mha, bias_root) if root_weight else None
+        self.W2 = mk(in_features, O * H, bias_qkv)
+        self.W3 = mk(in_features, O * H, bias_qkv)
+        self.W4 = mk(in_features, O * H, bias_qkv)
+        self.W5 = mk(3 * out_mha, 1, False) if gating else None
+        self.W6 = (mk(edge_features, O * H, bias_qkv) if edge_features > 0
+                   else None)
+        self.FF = (MLP([out_mha, ff_channels, out_mha], torch.relu,
+                       generator=generator, device=device, dtype=dtype)
+                   if ff_channels > 0 else None)
+        bn = functools.partial(BatchNorm, out_mha, device=device, dtype=dtype)
+        self.BN1 = bn() if batch_norm else None
+        self.BN2 = bn() if batch_norm and ff_channels > 0 else None
+        self.heads, self.concat = H, concat
+        self.out_features = O
+        self.add_self_loops = add_self_loops
+        self.skip_connection = skip_connection
+        self.sqrt_out = math.sqrt(O)
+
+    def forward(self, g: GraphTuple, x=None, e=None, *,
+                deterministic: bool = True):
+        if x is None:
+            x = g.x
+        H, O = self.heads, self.out_features
+        W1x = self.W1(x) if self.W1 is not None else None
+        W2x = self.W2(x).reshape(-1, H, O)
+        W3x = self.W3(x).reshape(-1, H, O)
+        W4x = self.W4(x).reshape(-1, H, O)
+        self_logits = self_values = None
+        if self.add_self_loops:
+            self_logits = (W3x * W4x).sum(-1) / self.sqrt_out
+            self_values = W2x
+        if e is not None:
+            if self.W6 is None:
+                raise ValueError("edge features not configured")
+            W6e = self.W6(e).reshape(-1, H, O)
+            key = gather(W4x, g.senders) + W6e
+            val = gather(W2x, g.senders) + W6e
+            logits = (gather(W3x, g.receivers) * key).sum(-1) / self.sqrt_out
+            h = attention_aggregate(g, logits, val, self_logits=self_logits,
+                                    self_values=self_values)
+        else:
+            h = dot_attention(g, W3x, W4x, W2x, 1.0 / self.sqrt_out,
+                              self_logits=self_logits,
+                              self_values=self_values)
+        h = h.reshape(-1, H * O) if self.concat else h.mean(1)
+        if W1x is not None:
+            if self.W5 is not None:
+                beta = torch.sigmoid(self.W5(torch.cat([h, W1x, h - W1x],
+                                                       -1)))
+                h = beta * W1x + (1.0 - beta) * h
+            else:
+                h = h + W1x
+        if self.skip_connection:
+            h = h + x
+        if self.BN1 is not None:
+            h = self.BN1(h, use_running_average=deterministic)
+        if self.FF is not None:
+            h1 = h
+            h = self.FF(h)
+            if self.skip_connection:
+                h = h + h1
+            if self.BN2 is not None:
+                h = self.BN2(h, use_running_average=deterministic)
+        return h

@@ -9,29 +9,39 @@ denominator is not dropped.
 
 Dispatch: on CUDA tensors every function goes to the kernels of
 :mod:`.cuda.edge_softmax` (K3-K5 for :func:`gat_attention` and K9-K11 for
-:func:`gatv2_attention` without dropout, K12 otherwise), at any number of
-head dimensions; a shape the kernels cannot take raises. Only CPU tensors
-take the plain path below, the counterpart of the JAX package's XLA path.
+:func:`gatv2_attention` without dropout, K6-K8 for :func:`dot_attention`,
+K12 otherwise) or :mod:`.cuda.sddmm` (K13 for :func:`dot_attention_logits`,
+all heads in one launch), at any number of head dimensions; a shape the
+kernels cannot take raises. Only CPU tensors take the plain path below, the
+counterpart of the JAX package's XLA path.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..graph import GraphTuple
-from .cuda.edge_softmax import (edge_softmax_aggregate,
+from .cuda.edge_softmax import (dot_attention_nodes, edge_softmax_aggregate,
                                 edge_softmax_aggregate_nodes,
                                 gat_attention_nodes, gatv2_attention_nodes,
                                 lrelu)
+from .cuda.sddmm import sddmm
 from .segment import gather, segment_max, segment_sum
 
-__all__ = ["attention_aggregate", "gat_attention", "gatv2_attention"]
+__all__ = ["attention_aggregate", "gat_attention", "gatv2_attention",
+           "dot_attention", "dot_attention_logits"]
 
 
 def _kernel_route(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
+
+
+def _flat_heads(t, *tail, h):
+    """``[rows, *H, *tail]`` -> ``[rows, h, *tail]`` (None stays None)."""
+    return None if t is None else t.reshape(t.shape[0], h, *tail)
 
 
 def _aggregate_kernels(g, logits, values, self_logits, self_values,
@@ -39,11 +49,7 @@ def _aggregate_kernels(g, logits, values, self_logits, self_values,
     """:func:`attention_aggregate` on the kernels: the head dimensions
     ``*H`` (none, one or more) flatten into one for K12 and come back."""
     shape_h, d = tuple(logits.shape[1:]), values.shape[-1]
-    h = math.prod(shape_h)
-
-    def heads(t, *tail):
-        return None if t is None else t.reshape(t.shape[0], h, *tail)
-
+    heads = functools.partial(_flat_heads, h=math.prod(shape_h))
     dm = dropout_masks
     if dm is not None:
         dm = (heads(dm[0]), heads(dm[1]))
@@ -102,6 +108,42 @@ def gatv2_attention(g: GraphTuple, q, k, a, slope: float, *,
                                self_values=self_values,
                                dropout_masks=dropout_masks,
                                num_segments=num_segments, node_values=True)
+
+
+def dot_attention(g: GraphTuple, q, k, values, scale: float = 1.0, *,
+                  self_logits=None, self_values=None, num_segments=None):
+    """Attention with logits ``scale * <q[r_e], k[s_e]>`` (Transformer,
+    AGNN).
+
+    ``q [n_dst, *H, O]`` / ``k [N_src, *H, O]`` are the receiver and sender
+    projections and ``values [N_src, *H, D]`` the senders' node values;
+    ``self_logits [n_dst, *H]`` (already scaled) and ``self_values`` add the
+    virtual self-loop. On the card the logits are computed inside the
+    kernels (:func:`~.cuda.edge_softmax.dot_attention_nodes`, the head
+    dimensions flattened into one); otherwise
+    :func:`dot_attention_logits` and :func:`attention_aggregate` take over.
+    """
+    if _kernel_route(values):
+        shape_h, d = tuple(q.shape[1:-1]), values.shape[-1]
+        heads = functools.partial(_flat_heads, h=math.prod(shape_h))
+        out = dot_attention_nodes(
+            g, heads(q, q.shape[-1]), heads(k, k.shape[-1]), heads(values, d),
+            scale, self_logits=heads(self_logits),
+            self_values=heads(self_values, d), num_segments=num_segments)
+        return out.reshape((out.shape[0],) + shape_h + (d,))
+    logits = dot_attention_logits(g, q, k) * scale
+    return attention_aggregate(g, logits, values, self_logits=self_logits,
+                               self_values=self_values,
+                               num_segments=num_segments, node_values=True)
+
+
+def dot_attention_logits(g: GraphTuple, qi, kj):
+    """Per-edge endpoint dots ``<qi[r_e], kj[s_e]>``: ``[N, *H, O]`` ->
+    ``[E, *H]`` (``[N, O]`` -> ``[E]``). On the card, one launch of K13
+    for all heads (:func:`~.cuda.sddmm.sddmm`)."""
+    if _kernel_route(kj):
+        return sddmm(g, qi, kj)
+    return (gather(qi, g.receivers) * gather(kj, g.senders)).sum(-1)
 
 
 def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,

@@ -1,12 +1,12 @@
 """Hand-written CUDA kernels (``csrc/``) and their PyTorch wrappers.
 
-``ops.cuda.spmm`` is the SpMM module (K1, K2) and ``ops.cuda.edge_softmax``
-the attention module (K3, K4, K5, K12); each ``launches`` dict counts its
-kernel launches. The function named like the module is
-``ops.cuda.spmm.spmm``.
+``ops.cuda.spmm`` is the SpMM module (K1, K2), ``ops.cuda.edge_softmax``
+the attention module (K3 to K12) and ``ops.cuda.sddmm`` the per-edge dot
+(K13); each ``launches`` dict counts its kernel launches. The function
+named like the module is ``ops.cuda.spmm.spmm``.
 """
 
-from . import build, edge_softmax, gather, spmm
+from . import build, edge_softmax, gather, sddmm, spmm
 from .gather import fast_gather
 
-__all__ = ["build", "edge_softmax", "gather", "spmm", "fast_gather"]
+__all__ = ["build", "edge_softmax", "gather", "sddmm", "spmm", "fast_gather"]

@@ -1,4 +1,4 @@
-"""Edge softmax with aggregation on the card: K3, K4, K5, K9, K10, K11, K12.
+"""Edge softmax with aggregation on the card: K3 to K12.
 
 Counterpart of ``graphneuralnetworks_tpu/ops/pallas/edge_softmax.py``. The
 TPU kernels stream edge blocks through one-hot matmuls over 128x512
@@ -18,13 +18,18 @@ a CSR grouping (``csrc/edge_softmax.cu``):
 - K10 ``gatv2_bwd_dq`` (receiver CSR: ``dq`` and ``da``, the latter in two
   launches, per-warp shares then a fixed-order sum) and K11
   ``gatv2_bwd_rev`` (sender CSR: ``dk``): GATv2's backward.
+- K6 ``dot_softmax``: dot-product logits ``lrelu(scale <q[r], k[s]>)``
+  (the plain dot when ``slope`` is None) with the values ``v[s]``, one pass
+  over each row's edges; K7 ``dot_bwd_dq`` (receiver CSR: ``dq``) and K8
+  ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward.
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
-self-loop folds in afterwards (:func:`finalize_softmax`). Four autograd
+self-loop folds in afterwards (:func:`finalize_softmax`). Five autograd
 functions sit on top: :func:`edge_softmax_aggregate` (edge values, eager
 backward), :func:`edge_softmax_aggregate_nodes` (node values; backward K2
-once per head), :func:`gat_attention_nodes` (backward K4 and K5) and
-:func:`gatv2_attention_nodes` (forward K9, backward K10 and K11).
+once per head), :func:`gat_attention_nodes` (backward K4 and K5),
+:func:`gatv2_attention_nodes` (forward K9, backward K10 and K11) and
+:func:`dot_attention_nodes` (forward K6, backward K7 and K8).
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``*_plain``); a CUDA tensor launches the kernel or raises. ``launches``
@@ -48,33 +53,40 @@ __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
            "gat_bwd_dpi", "gat_bwd_rev", "gatv2_softmax", "gatv2_bwd_dq",
            "gatv2_bwd_rev", "edge_softmax_plain", "gat_softmax_plain",
            "gat_bwd_dpi_plain", "gat_bwd_rev_plain", "gatv2_softmax_plain",
-           "gatv2_bwd_dq_plain", "gatv2_bwd_rev_plain",
+           "gatv2_bwd_dq_plain", "gatv2_bwd_rev_plain", "dot_softmax",
+           "dot_bwd_dq", "dot_bwd_rev", "dot_softmax_plain",
+           "dot_bwd_dq_plain", "dot_bwd_rev_plain",
            "edge_softmax_aggregate", "edge_softmax_aggregate_nodes",
-           "gat_attention_nodes", "gatv2_attention_nodes"]
+           "gat_attention_nodes", "gatv2_attention_nodes",
+           "dot_attention_nodes"]
 
-launches = {"k3": 0, "k4": 0, "k5": 0, "k9": 0, "k10": 0, "k11": 0,
-            "k12": 0}
+launches = {"k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0, "k9": 0,
+            "k10": 0, "k11": 0, "k12": 0}
 
 _NEG_INF = float("-inf")
-# The GATv2 kernels hold a row in at most 8 register chunks of 32 vectors
-# per lane (csrc/edge_softmax.cu): float4 vectors when O % 4 == 0.
-_GATV2_MAX_VECTORS = 256
+# The GATv2 and dot kernels hold a row in at most 8 register chunks of 32
+# vectors per lane (csrc/edge_softmax.cu): float4 vectors when the widths
+# are multiples of 4 and the row operands 16-byte aligned.
+_MAX_VECTORS = 256
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("edge_softmax")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn, n_ptr, n_int, slope in (("edge_softmax_f32", 8, 3, False),
-                                    ("gat_softmax_f32", 8, 3, True),
-                                    ("gat_bwd_dpi_f32", 10, 3, True),
-                                    ("gat_bwd_rev_f32", 11, 3, True),
-                                    ("gatv2_softmax_f32", 8, 3, True),
-                                    ("gatv2_bwd_dq_f32", 11, 4, True),
-                                    ("gatv2_da_reduce_f32", 2, 3, False),
-                                    ("gatv2_bwd_rev_f32", 10, 3, True)):
+    for fn, n_ptr, n_int, n_f32 in (("edge_softmax_f32", 8, 3, 0),
+                                    ("gat_softmax_f32", 8, 3, 1),
+                                    ("gat_bwd_dpi_f32", 10, 3, 1),
+                                    ("gat_bwd_rev_f32", 11, 3, 1),
+                                    ("gatv2_softmax_f32", 8, 3, 1),
+                                    ("gatv2_bwd_dq_f32", 11, 4, 1),
+                                    ("gatv2_da_reduce_f32", 2, 3, 0),
+                                    ("gatv2_bwd_rev_f32", 10, 3, 1),
+                                    ("dot_softmax_f32", 8, 4, 2),
+                                    ("dot_bwd_dq_f32", 10, 4, 2),
+                                    ("dot_bwd_rev_f32", 11, 4, 2)):
         f = getattr(lib, fn)
-        f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * slope + [ptr]
+        f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * n_f32 + [ptr]
         f.restype = i32
     lib.gatv2_bwd_dq_blocks_per_sm.argtypes = [i32, i32]
     lib.gatv2_bwd_dq_blocks_per_sm.restype = i32
@@ -242,25 +254,81 @@ def gatv2_bwd_rev_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
                                            draw + alpha[..., None] * dy_e)
 
 
+def _dot_logits(r, s, q, k, scale, slope):
+    """Per edge: ``raw = scale * <q[r], k[s]>`` and the logit, ``raw`` or
+    ``leaky_relu(raw, slope)``."""
+    raw = scale * (q.index_select(0, r) * k.index_select(0, s)).sum(-1)
+    return raw, (raw if slope is None else lrelu(raw, slope))
+
+
+def dot_softmax_plain(indptr, col, q, k, v, scale, slope):
+    """K6's function over the receiver CSR: :func:`edge_softmax_plain` of
+    the values ``v[s_e]`` with logits ``scale * <q[r_e], k[s_e]>``, through
+    ``leaky_relu(., slope)`` unless ``slope`` is None
+    (edge_softmax.py:295-339)."""
+    rows, cols = _row_ids(indptr, col.numel()), col.long()
+    _, lg = _dot_logits(rows, cols, q, k, scale, slope)
+    return _softmax_sums(rows, indptr.numel() - 1, lg, None,
+                         v.index_select(0, cols))
+
+
+def _dot_edge_terms(r, s, q, k, v, mx, den, s_n, dy, scale, slope):
+    """Per edge: ``alpha``, ``dy[r]`` and ``dlg = alpha * (<v[s], dy[r]> -
+    s_n[r]) * dsig`` with ``dsig = scale * leaky_relu'(raw)``."""
+    raw, lg = _dot_logits(r, s, q, k, scale, slope)
+    alpha = torch.exp(lg - mx.index_select(0, r)) / den.index_select(0, r)
+    dy_e = dy.index_select(0, r)
+    dsig = scale if slope is None else scale * _dlrelu(raw, slope)
+    vd = (v.index_select(0, s) * dy_e).sum(-1)
+    return alpha, dy_e, alpha * (vd - s_n.index_select(0, r)) * dsig
+
+
+def dot_bwd_dq_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
+    """K7's function over the receiver CSR: ``dq[r] = sum_e dlg_e k[s_e]``
+    (edge_softmax.py:546-596)."""
+    rows, cols = _row_ids(indptr, col.numel()), col.long()
+    _, _, dlg = _dot_edge_terms(rows, cols, q, k, v, mx, den, s_n, dy, scale,
+                                slope)
+    return q.new_zeros(q.shape).index_add_(
+        0, rows, dlg[..., None] * k.index_select(0, cols))
+
+
+def dot_bwd_rev_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
+    """K8's function over the sender CSR (``col``: the receivers): ``(dk,
+    dv)`` with ``dk[s] = sum_e dlg_e q[r_e]`` and ``dv[s] = sum_e alpha_e
+    dy[r_e]`` (edge_softmax.py:599-650)."""
+    rows, recv = _row_ids(indptr, col.numel()), col.long()
+    alpha, dy_e, dlg = _dot_edge_terms(recv, rows, q, k, v, mx, den, s_n, dy,
+                                       scale, slope)
+    dk = k.new_zeros(k.shape).index_add_(
+        0, rows, dlg[..., None] * q.index_select(0, recv))
+    dv = v.new_zeros(v.shape).index_add_(0, rows, alpha[..., None] * dy_e)
+    return dk, dv
+
+
 # ---- kernel wrappers -------------------------------------------------------
 
-def _check_launch(indptr, col, scalars, rows3) -> torch.device:
+def _check_launch(indptr, col, scalars, rows3, values3=None) -> torch.device:
     """float32 ``[rows, H]`` scalars and ``[rows, H, D]`` rows, int32 CSR,
-    all contiguous on one card, with one H and one D."""
+    all contiguous on one card, with one H and one D. ``values3``: rows
+    of a width of their own (dot attention's values beside ``q`` and
+    ``k``), one width among them."""
     device = indptr.device
     _check(indptr, "indptr", torch.int32, device)
     _check(col, "col", torch.int32, device)
-    for ndim, group in ((2, scalars), (3, rows3)):
+    values3 = values3 or {}
+    for ndim, group in ((2, scalars), (3, rows3), (3, values3)):
         for name, t in group.items():
             _check(t, name, torch.float32, device)
             if t is not None and t.dim() != ndim:
                 raise ValueError(f"{name} must have {ndim} dimensions "
                                  f"([rows, H{', D' * (ndim == 3)}]), got "
                                  f"{tuple(t.shape)}")
-    heads = {t.shape[1] for t in list(scalars.values()) + list(rows3.values())
-             if t is not None}
-    widths = {t.shape[2] for t in rows3.values()}
-    if len(heads) != 1 or len(widths) != 1:
+    heads = {t.shape[1] for group in (scalars, rows3, values3)
+             for t in group.values() if t is not None}
+    widths = [{t.shape[2] for t in group.values()}
+              for group in (rows3, values3) if group]
+    if len(heads) != 1 or any(len(w) != 1 for w in widths):
         raise ValueError(f"operands disagree on H or D: heads {heads}, "
                          f"widths {widths}")
     return device
@@ -365,15 +433,18 @@ def _float4_rows(d: int, *rows) -> bool:
     return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
 
 
-def _check_gatv2_width(d: int, *rows) -> None:
-    """The GATv2 kernels take a head's row in at most 256 vectors: 1024
-    floats with float4 loads, else 256."""
-    if (d // 4 if _float4_rows(d, *rows) else d) > _GATV2_MAX_VECTORS:
+def _check_width(kernels: str, widths: str, d: int, vec: bool) -> None:
+    """The GATv2 and dot kernels take a head's row in at most 256 vectors:
+    1024 floats with float4 loads, else 256."""
+    if (d // 4 if vec else d) > _MAX_VECTORS:
         raise ValueError(
-            f"the GATv2 kernels take rows of at most "
-            f"{4 * _GATV2_MAX_VECTORS} floats per head "
-            f"({_GATV2_MAX_VECTORS} when O % 4 != 0 or a row operand is not "
-            f"16-byte aligned), got O={d}")
+            f"the {kernels} kernels take rows of at most {4 * _MAX_VECTORS} "
+            f"floats per head ({_MAX_VECTORS} when {widths} % 4 != 0 or a "
+            f"row operand is not 16-byte aligned), got {d}")
+
+
+def _check_gatv2_width(d: int, *rows) -> None:
+    _check_width("GATv2", "O", d, _float4_rows(d, *rows))
 
 
 def _gatv2_args(indptr, col, q, k, a, scalars, rows3) -> torch.device:
@@ -465,6 +536,74 @@ def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope):
     return dk
 
 
+def _dot_args(indptr, col, q, k, v, scalars, rows_o, rows_d):
+    """Checks shared by K6-K8: float32 contiguous ``[rows, H, O]`` (``q``,
+    ``k``, ``rows_o``) and ``[rows, H, D]`` (``v``, ``rows_d``) rows and
+    ``[rows, H]`` scalars on one card; ``k`` and ``v`` have the senders'
+    rows; a width the kernels take. Returns the device and the pointers
+    of ``indptr, col, q, k, v``."""
+    device = _check_launch(indptr, col, scalars, {"q": q, "k": k, **rows_o},
+                           {"v": v, **rows_d})
+    _same_rows(v.shape[0], k=k)
+    o, d = q.shape[2], v.shape[2]
+    rows = (q, k, v, *rows_o.values(), *rows_d.values())
+    _check_width("dot-attention", "O or D", max(o, d),
+                 _float4_rows(o, *rows) and d % 4 == 0)
+    return device, tuple(_ptr(t) for t in (indptr, col, q, k, v))
+
+
+def _kernel_slope(slope) -> float:
+    """The kernels' slope: None (the plain dot) is slope 1, which is the
+    identity bit for bit."""
+    return 1.0 if slope is None else float(slope)
+
+
+def _dot_softmax_kernel(indptr, col, q, k, v, scale, slope):
+    device, args = _dot_args(indptr, col, q, k, v, {}, {}, {})
+    n, heads, o, d = indptr.numel() - 1, q.shape[1], q.shape[2], v.shape[2]
+    _same_rows(n, q=q)
+    num, m, s = _forward_outputs(n, heads, d, device)
+    if n == 0 or heads == 0:
+        return num, m, s
+    _launch("dot_softmax_f32", "k6", device, *args, _ptr(num), _ptr(m),
+            _ptr(s), n, heads, o, d, float(scale), _kernel_slope(slope))
+    return num, m, s
+
+
+def _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy):
+    device, args = _dot_args(indptr, col, q, k, v,
+                             {"mx": mx, "den": den, "s_n": s_n}, {},
+                             {"dy": dy})
+    _same_rows(q.shape[0], mx=mx, den=den, s_n=s_n, dy=dy)   # receivers
+    return device, args + tuple(_ptr(t) for t in (mx, den, s_n, dy))
+
+
+def _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
+    device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy)
+    n, heads, o, d = indptr.numel() - 1, q.shape[1], q.shape[2], v.shape[2]
+    _same_rows(n, q=q)
+    dq = torch.empty((n, heads, o), dtype=torch.float32, device=device)
+    if n == 0 or heads == 0:
+        return dq
+    _launch("dot_bwd_dq_f32", "k7", device, *args, _ptr(dq), n, heads, o, d,
+            float(scale), _kernel_slope(slope))
+    return dq
+
+
+def _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
+                        slope):
+    device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy)
+    n, heads, o, d = indptr.numel() - 1, k.shape[1], k.shape[2], v.shape[2]
+    _same_rows(n, k=k)
+    dk = torch.empty((n, heads, o), dtype=torch.float32, device=device)
+    dv = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    if n == 0 or heads == 0:
+        return dk, dv
+    _launch("dot_bwd_rev_f32", "k8", device, *args, _ptr(dk), _ptr(dv), n,
+            heads, o, d, float(scale), _kernel_slope(slope))
+    return dk, dv
+
+
 def edge_softmax(indptr, col, logits, mask, values):
     """K12 on CUDA tensors, :func:`edge_softmax_plain` on CPU tensors."""
     if _route(values) == "cpu":
@@ -519,6 +658,31 @@ def gatv2_bwd_rev(indptr, col, q, k, a, mx, den, s_n, dy, slope):
                                    slope)
     return _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy,
                                  slope)
+
+
+def dot_softmax(indptr, col, q, k, v, scale, slope):
+    """K6 on CUDA tensors, :func:`dot_softmax_plain` on CPU tensors."""
+    if _route(v) == "cpu":
+        return dot_softmax_plain(indptr, col, q, k, v, scale, slope)
+    return _dot_softmax_kernel(indptr, col, q, k, v, scale, slope)
+
+
+def dot_bwd_dq(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
+    """K7 on CUDA tensors, :func:`dot_bwd_dq_plain` on CPU tensors."""
+    if _route(dy) == "cpu":
+        return dot_bwd_dq_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale,
+                                slope)
+    return _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
+                              slope)
+
+
+def dot_bwd_rev(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
+    """K8 on CUDA tensors, :func:`dot_bwd_rev_plain` on CPU tensors."""
+    if _route(dy) == "cpu":
+        return dot_bwd_rev_plain(indptr, col, q, k, v, mx, den, s_n, dy,
+                                 scale, slope)
+    return _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
+                               slope)
 
 
 # ---- autograd --------------------------------------------------------------
@@ -683,6 +847,40 @@ class GatV2AttentionFunction(torch.autograd.Function):
         return (dq, dk, da, dsl, dsv) + (None,) * 5
 
 
+class DotAttentionFunction(torch.autograd.Function):
+    """Dot attention with logits ``lrelu(scale <q[r], k[s]>)`` (the plain
+    dot when ``slope`` is None) and values ``v[s]``: K6 forward, K7
+    (``dq``) and K8 (``dk``, ``dv``) backward (edge_softmax.py:473-783)."""
+
+    @staticmethod
+    def forward(ctx, q, k, values_n, self_logits, self_values, indptr_r,
+                col_r, indptr_s, col_s, scale, slope):
+        q, k, values_n = _contiguous(q, k, values_n)
+        num, m, s = dot_softmax(indptr_r, col_r, q, k, values_n, scale, slope)
+        out, mx, den = finalize_softmax(num, m, s, self_logits, self_values)
+        ctx.scale, ctx.slope = scale, slope
+        ctx.save_for_backward(q, k, values_n, self_logits, self_values, out,
+                              mx, den, indptr_r, col_r, indptr_s, col_s)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        (q, k, values_n, self_logits, self_values, out, mx, den, indptr_r,
+         col_r, indptr_s, col_s) = ctx.saved_tensors
+        dy = dy.contiguous()
+        s_n = (out * dy).sum(-1)
+        args = (q, k, values_n, mx, den, s_n, dy, ctx.scale, ctx.slope)
+        need = ctx.needs_input_grad
+        dq = dot_bwd_dq(indptr_r, col_r, *args) if need[0] else None
+        dk = dv = None
+        if need[1] or need[2]:
+            dk, dv = dot_bwd_rev(indptr_s, col_s, *args)
+        dsl, dsv = _self_grads(self_logits, self_values, None, mx, den, s_n,
+                               dy)
+        return (dq, dk, dv, dsl, dsv) + (None,) * 6
+
+
 # ---- entry points ----------------------------------------------------------
 
 def _rows(g, num_segments):
@@ -772,3 +970,21 @@ def gatv2_attention_nodes(g, q, k, a, slope, *, self_logits=None,
     return GatV2AttentionFunction.apply(
         q, k, a, self_logits, self_values, _rows(g, n), g.col_r,
         _senders(g, k.shape[0]), g.col_s, float(slope))
+
+
+def dot_attention_nodes(g, q, k, values_n, scale, slope=None, *,
+                        self_logits=None, self_values=None, num_segments=None):
+    """Dot attention: softmax of ``scale * <q[r_e], k[s_e]>`` (through
+    ``leaky_relu(., slope)`` unless ``slope`` is None) over each receiver's
+    in-edges, summing ``values_n[s_e]``.
+
+    ``q [n, H, O]`` holds the ``n`` receivers (``num_segments``, default
+    ``q``'s rows), ``k [N_src, H, O]`` and ``values_n [N_src, H, D]`` the
+    senders. ``self_logits [n, H]`` enter the softmax as they are (already
+    scaled), with ``self_values [n, H, D]``.
+    """
+    n = q.shape[0] if num_segments is None else num_segments
+    return DotAttentionFunction.apply(
+        q, k, values_n, self_logits, self_values, _rows(g, n), g.col_r,
+        _senders(g, values_n.shape[0]), g.col_s, float(scale),
+        None if slope is None else float(slope))

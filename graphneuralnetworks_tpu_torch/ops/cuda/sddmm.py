@@ -1,0 +1,145 @@
+"""Per-edge endpoint dots on the card: kernel K13, its plain version,
+autograd.
+
+Counterpart of ``graphneuralnetworks_tpu/ops/pallas/sddmm.py``. The TPU
+kernel distributes receiver rows to edge slots by a one-hot matmul over
+128x512 blocks and ungroups the result by a gather; here one warp takes one
+(receiver, head) pair of the receiver CSR and writes each edge's dot in
+edge order (``csrc/sddmm.cu``):
+
+- K13 ``sddmm_csr``: ``out[e, h] = <xi[r_e, h], xj[s_e, h]>``, all heads in
+  one launch.
+
+Its gradient is two weighted SpMMs on K1 (sddmm.py:143-155): ``dxi[r] =
+sum_{e -> r} dl_e xj[s_e]`` over the receiver CSR and ``dxj[s] = sum_{e:
+s_e = s} dl_e xi[r_e]`` over the sender CSR, once per head.
+
+Dispatch: a tensor on the CPU takes the plain PyTorch version
+(``sddmm_plain``); a CUDA tensor launches the kernel or raises.
+``launches`` counts kernel launches, and nothing else adds to it. Unlike
+the JAX package, which takes its kernel only at widths above 256, the card
+takes K13 at every width.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from .build import load
+from .edge_softmax import _rows, _senders
+from .spmm import _check, _ptr, _raise_on_error, _route, _row_ids, spmm_csr
+
+__all__ = ["launches", "sddmm_csr", "sddmm_plain", "SddmmFunction", "sddmm"]
+
+launches = {"k13": 0}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("sddmm")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sddmm_csr_f32.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.sddmm_csr_f32.restype = i32
+    lib.gnn_cuda_error_string.argtypes = [i32]
+    lib.gnn_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def sddmm_plain(indptr, col, xi, xj):
+    """K13's function over the receiver CSR: ``out[e] = <xi[r_e], xj[col_e]>``
+    per head, ``xi [n, H, D]`` and ``xj [N_src, H, D]`` -> ``[E, H]`` in CSR
+    (edge) order."""
+    rows = _row_ids(indptr, col.numel())
+    return (xi.index_select(0, rows) * xj.index_select(0, col.long())).sum(-1)
+
+
+def _sddmm_kernel(indptr, col, xi, xj):
+    device = xi.device
+    _check(indptr, "indptr", torch.int32, device)
+    _check(col, "col", torch.int32, device)
+    for name, t in (("xi", xi), ("xj", xj)):
+        _check(t, name, torch.float32, device)
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be [rows, H, D], got "
+                             f"{tuple(t.shape)}")
+    if xi.shape[1:] != xj.shape[1:]:
+        raise ValueError(f"xi {tuple(xi.shape)} and xj {tuple(xj.shape)} "
+                         "disagree on H or D")
+    n, (_, heads, d) = indptr.numel() - 1, xi.shape
+    if xi.shape[0] != n:
+        raise ValueError(f"xi has {xi.shape[0]} rows, the CSR {n}")
+    out = torch.empty((col.numel(), heads), dtype=torch.float32,
+                      device=device)
+    if n == 0 or heads == 0 or col.numel() == 0:
+        return out
+    if d == 0:
+        return out.zero_()
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sddmm_csr_f32(_ptr(indptr), _ptr(col), _ptr(xi), _ptr(xj),
+                                 _ptr(out), n, heads, d, stream)
+    launches["k13"] += 1
+    _raise_on_error(lib, code, "sddmm_csr_f32")
+    return out
+
+
+def sddmm_csr(indptr, col, xi, xj):
+    """K13 on CUDA tensors, :func:`sddmm_plain` on CPU tensors."""
+    if _route(xj) == "cpu":
+        return sddmm_plain(indptr, col, xi, xj)
+    return _sddmm_kernel(indptr, col, xi, xj)
+
+
+class SddmmFunction(torch.autograd.Function):
+    """``out[e, h] = <xi[r_e, h], xj[s_e, h]>`` for ``xi [n, H, D]``, ``xj
+    [N_src, H, D]``: K13 forward; backward K1 over the receiver CSR for
+    ``dxi`` and over the sender CSR for ``dxj``, per head."""
+
+    @staticmethod
+    def forward(ctx, xi, xj, indptr_r, col_r, indptr_s, col_s, eid_s):
+        xi, xj = xi.contiguous(), xj.contiguous()
+        ctx.save_for_backward(xi, xj, indptr_r, col_r, indptr_s, col_s,
+                              eid_s)
+        return sddmm_csr(indptr_r, col_r, xi, xj)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dl):
+        xi, xj, indptr_r, col_r, indptr_s, col_s, eid_s = ctx.saved_tensors
+        need_i, need_j = ctx.needs_input_grad[:2]
+        dxi = torch.empty_like(xi) if need_i else None
+        dxj = torch.empty_like(xj) if need_j else None
+        for h in range(xi.shape[1]):
+            w = dl[:, h].contiguous()
+            if need_i:
+                dxi[:, h] = spmm_csr(indptr_r, col_r, None, w,
+                                     xj[:, h].contiguous())
+            if need_j:
+                dxj[:, h] = spmm_csr(indptr_s, col_s, eid_s, w,
+                                     xi[:, h].contiguous())
+        return dxi, dxj, None, None, None, None, None
+
+
+def sddmm(g, xi, xj):
+    """``<xi[r_e], xj[s_e]>`` for every edge of ``g``, in edge order.
+
+    ``xi [n, *H, D]`` holds the receivers, ``xj [N_src, *H, D]`` the
+    senders; the head dimensions ``*H`` (none, one or more) flatten into
+    one for the kernel. Returns ``[E, *H]``.
+    """
+    shape_h, d = tuple(xi.shape[1:-1]), xi.shape[-1]
+    if tuple(xj.shape[1:]) != shape_h + (d,):
+        raise ValueError(f"xi {tuple(xi.shape)} and xj {tuple(xj.shape)} "
+                         "disagree on the head dimensions or D")
+    h = math.prod(shape_h)
+    out = SddmmFunction.apply(
+        xi.reshape(xi.shape[0], h, d), xj.reshape(xj.shape[0], h, d),
+        _rows(g, xi.shape[0]), g.col_r, _senders(g, xj.shape[0]), g.col_s,
+        g.eid_s)
+    return out.reshape((out.shape[0],) + shape_h)

@@ -5,7 +5,9 @@ GNNlib msgpass.jl:69-238), with the same message vocabulary.
 
 - ``apply_edges(f, g, xi, xj, e)`` gathers ``xi`` on receivers and ``xj``
   on senders and maps ``f(xi, xj, e)`` over the edges. Node arrays gather
-  through :func:`~.cuda.fast_gather`, whose backward is the K1 kernel.
+  through :func:`~.cuda.fast_gather`, whose backward is the K1 kernel. On
+  the card, ``xi_dot_xj`` of two node matrices is one SDDMM (K13, whose
+  backward is K1 twice) at every width.
 - ``aggregate_neighbors(g, aggr, m)`` reduces edge messages onto receivers.
 - ``propagate(f, g, aggr, ...)`` composes the two, except that a sum (or
   mean) of ``copy_xj`` / ``w_mul_xj`` / ``e_mul_xj`` messages with scalar
@@ -21,6 +23,7 @@ import torch
 
 from ..graph import GraphTuple
 from .cuda.gather import fast_gather
+from .cuda.sddmm import sddmm
 from .cuda.spmm import spmm
 from .segment import gather, segment_reduce
 
@@ -40,6 +43,19 @@ def _map_leaves(fn, x):
     return fn(x)
 
 
+def _kernel_route(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _sddmm_message(f, g, xi, xj, e) -> bool:
+    """Whether ``f(xi, xj, e)`` is one SDDMM on the card: ``xi_dot_xj`` of
+    two ``[num_nodes, D]`` CUDA tensors and no edge features."""
+    return (f is xi_dot_xj and e is None
+            and all(isinstance(v, torch.Tensor) and v.dim() == 2
+                    and v.shape[0] == g.num_nodes for v in (xi, xj))
+            and _kernel_route(xj))
+
+
 def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
     """Gather endpoint features and apply ``f`` over edges.
 
@@ -47,6 +63,9 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
     ``e`` an edge tensor ``[num_edges, ...]`` (or dict); returns whatever
     ``f`` returns on edge-shaped inputs.
     """
+    if _sddmm_message(f, g, xi, xj, e):
+        return sddmm(g, xi, xj)[:, None]
+
     def take_r(v):
         if v.dim() == 2 and v.shape[0] == g.num_nodes:
             return fast_gather(v, g.receivers, g.indptr_r, None)

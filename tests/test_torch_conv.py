@@ -4,10 +4,13 @@ Each layer is built in both packages, the JAX weights (cast to float64) are
 copied into the port with ``load_jax_params``, and the forward output and
 the gradients of every parameter, of the input and, where given, of the
 edge weights are compared (float64, XLA path: rtol 1e-9, atol 1e-10).
-GATConv and GATv2Conv also run through their kernel route (the autograd
-functions the card uses, on CPU tensors); their attention dropout is
-checked on its own and, for GATv2Conv, against JAX with numpy-made masks
-shared by both packages.
+GATConv, GATv2Conv, AGNNConv and TransformerConv also run through their
+kernel route (the autograd functions the card uses, on CPU tensors); the
+GAT layers' attention dropout is checked on its own and, for GATv2Conv,
+against JAX with numpy-made masks shared by both packages.
+TransformerConv's batch norms (``nnx.BatchNorm``) are checked in training
+mode and then in eval mode after the running statistics moved, and
+``DotDecoder`` edge by edge.
 """
 
 import pytest
@@ -90,6 +93,46 @@ CASES = {
                                use_bias=False, rngs=r),
         lambda: TM.GATv2Conv(4, 4, relu_t, heads=2, concat=False,
                              use_bias=False, **KW), 4, False),
+    "agnn": (lambda r: JM.AGNNConv(init_beta=0.7, rngs=r),
+             lambda: TM.AGNNConv(init_beta=0.7, **KW), 4, False),
+    "agnn_no_self_loops": (
+        lambda r: JM.AGNNConv(add_self_loops=False, rngs=r),
+        lambda: TM.AGNNConv(add_self_loops=False, **KW), 3, False),
+    # beta stays a float32 array in JAX: 0.75 is exact in both widths
+    "agnn_fixed_beta": (
+        lambda r: JM.AGNNConv(init_beta=0.75, trainable=False, rngs=r),
+        lambda: TM.AGNNConv(init_beta=0.75, trainable=False, **KW), 4,
+        False),
+    # the option sets of tests/test_conv_layers.py:280-295, then self-loops,
+    # skip connections and batch norms (running statistics: eval mode)
+    "transformer": (lambda r: JM.TransformerConv(4, 3, rngs=r),
+                    lambda: TM.TransformerConv(4, 3, **KW), 4, False),
+    "transformer_gating": (
+        lambda r: JM.TransformerConv(4, 3, gating=True, bias_qkv=False,
+                                     rngs=r),
+        lambda: TM.TransformerConv(4, 3, gating=True, bias_qkv=False, **KW),
+        4, False),
+    "transformer_ff_no_root": (
+        lambda r: JM.TransformerConv(4, 3, root_weight=False, ff_channels=8,
+                                     rngs=r),
+        lambda: TM.TransformerConv(4, 3, root_weight=False, ff_channels=8,
+                                   **KW), 4, False),
+    "transformer_mean_heads": (
+        lambda r: JM.TransformerConv(4, 3, heads=2, concat=False, rngs=r),
+        lambda: TM.TransformerConv(4, 3, heads=2, concat=False, **KW), 4,
+        False),
+    "transformer_self_loops": (
+        lambda r: JM.TransformerConv(4, 3, heads=2, add_self_loops=True,
+                                     rngs=r),
+        lambda: TM.TransformerConv(4, 3, heads=2, add_self_loops=True, **KW),
+        4, False),
+    "transformer_skip_gating_ff_bn": (
+        lambda r: JM.TransformerConv(6, 3, heads=2, skip_connection=True,
+                                     gating=True, ff_channels=5,
+                                     batch_norm=True, rngs=r),
+        lambda: TM.TransformerConv(6, 3, heads=2, skip_connection=True,
+                                   gating=True, ff_channels=5,
+                                   batch_norm=True, **KW), 6, False),
 }
 
 
@@ -165,7 +208,8 @@ def test_layers_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: TM.GCNConv(3, 4), lambda: TM.MLP([3, 4]),
                  lambda: TM.SAGEConv(3, 4), lambda: TM.GraphConv(3, 4),
-                 lambda: TM.GATConv(3, 4, heads=2)):
+                 lambda: TM.GATConv(3, 4, heads=2), lambda: TM.AGNNConv(),
+                 lambda: TM.TransformerConv(3, 4, heads=2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 
@@ -251,9 +295,11 @@ def gat_route(request, monkeypatch):
     return request.param
 
 
-@pytest.mark.parametrize("name", [k for k in CASES if k.startswith("gat")])
+@pytest.mark.parametrize("name", [k for k in CASES if k.startswith(
+    ("gat", "agnn", "transformer"))])
 def test_gat_kernel_route_matches_jax(monkeypatch, name):
-    """The GAT cases of :data:`CASES` once more, by the kernel route."""
+    """The attention cases of :data:`CASES` once more, by the kernel
+    route."""
     monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
     test_layer_matches_jax(name)
 
@@ -433,3 +479,111 @@ def test_gatv2_dropout_is_seeded_and_stochastic(gat_route):
     plain.load_state_dict(a.state_dict())
     np.testing.assert_allclose(plain(tg, x).detach().numpy(),
                                y_det.detach().numpy(), **F64_TOL)
+
+
+# ---- TransformerConv: edge features, batch norms; DotDecoder ---------------
+
+def test_transformer_edge_features_matches_jax(gat_route):
+    """Edge features shift keys and values per edge: gathered logits, then
+    the softmax of edge values (K12 on the card)."""
+    s, r, n, _ = directed_graph_arrays(seed=21)
+    jg, tg = graph_pair(s, r, n)
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((n, 4))
+    e = rng.standard_normal((len(s), 2))            # stored edge order
+    jm = jax_params_f64(JM.TransformerConv(4, 3, heads=2, edge_features=2,
+                                           gating=True, rngs=nnx.Rngs(8)))
+    tm = port_from_jax(TM.TransformerConv(4, 3, heads=2, edge_features=2,
+                                          gating=True, **KW), jm)
+    _gat_case(jm, tm, jg, tg,
+              [jnp.asarray(pad_rows(x, jg.n_pad)),
+               jnp.asarray(pad_rows(e, jg.e_pad))],
+              [t(x, grad=True), t(e, grad=True)], rng, n)
+    with pytest.raises(ValueError, match="not configured"):
+        TM.TransformerConv(4, 3, **KW)(tg, t(x), t(e))
+    with pytest.raises(ValueError, match="add_self_loops"):
+        TM.TransformerConv(4, 3, edge_features=2, add_self_loops=True, **KW)
+
+
+def test_transformer_batch_norm_train_then_eval_matches_jax(gat_route):
+    """``batch_norm=True, ff_channels=5``: one training-mode call
+    (``deterministic=False``: batch statistics, running statistics updated
+    with nnx's momentum 0.99 and biased variance), forward and every
+    gradient; then an eval-mode call on the moved running statistics. The
+    JAX graph is built without padding rows, which its batch norm would
+    count."""
+    from graphneuralnetworks_tpu_torch.interop import load_jax_params
+    s, r, n, _ = directed_graph_arrays(seed=22)
+    import graphneuralnetworks_tpu as jgnn
+    jg = jgnn.graph(s, r, num_nodes=n, n_pad=n, e_pad=len(s))
+    _, tg = graph_pair(s, r, n)
+    rng = np.random.default_rng(22)
+    x, x2 = rng.standard_normal((n, 4)), rng.standard_normal((n, 4))
+    jm = jax_params_f64(JM.TransformerConv(4, 3, heads=2, batch_norm=True,
+                                           ff_channels=5, rngs=nnx.Rngs(9)))
+    nnx.update(jm, jax.tree.map(lambda a: a.astype(jnp.float64),
+                                nnx.state(jm, nnx.BatchStat)))
+    tm = port_from_jax(TM.TransformerConv(4, 3, heads=2, batch_norm=True,
+                                          ff_channels=5, **KW), jm)
+    cot = rng.standard_normal((n, 6))
+
+    def jloss(m, xp):
+        y = m(jg, xp, deterministic=False)
+        return jnp.sum(y * cot), y
+
+    # nnx's transform also moves jm's running statistics, once
+    (_, jy), (gp, gx) = nnx.value_and_grad(jloss, argnums=(0, 1),
+                                           has_aux=True)(jm, jnp.asarray(x))
+    tx = t(x, grad=True)
+    ty = tm(tg, tx, deterministic=False)            # moves the port's stats
+    (ty * t(cot)).sum().backward()
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               **F64_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **F64_TOL)
+    assert_grads_match(tm, jax.tree.map(np.asarray, nnx.to_pure_dict(gp)),
+                       **F64_TOL)
+    stats = jax.tree.map(np.asarray, nnx.to_pure_dict(
+        nnx.state(jm, nnx.BatchStat)))
+    np.testing.assert_allclose(tm.BN1.running_var.numpy(),
+                               stats["BN1"]["var"], **F64_TOL)
+    np.testing.assert_allclose(tm.BN2.running_mean.numpy(),
+                               stats["BN2"]["mean"], **F64_TOL)
+    assert not np.allclose(stats["BN1"]["var"], 1.0)
+    jy = jm(jg, jnp.asarray(x2))
+    np.testing.assert_allclose(tm(tg, t(x2)).detach().numpy(),
+                               np.asarray(jy), **F64_TOL)
+    # the statistics also carry across on their own
+    fresh = port_from_jax(TM.TransformerConv(4, 3, heads=2, batch_norm=True,
+                                             ff_channels=5, **KW), jm)
+    load_jax_params(fresh, stats)
+    np.testing.assert_allclose(fresh(tg, t(x2)).detach().numpy(),
+                               np.asarray(jy), **F64_TOL)
+
+
+def test_dot_decoder_matches_jax(gat_route, monkeypatch):
+    """``apply_edges(xi_dot_xj, g, x, x)`` -> ``[E, 1]`` and the gradient of
+    ``x``, through the SDDMM route (K13, K1 twice) on ``kernels``."""
+    from graphneuralnetworks_tpu_torch.ops import msgpass as TMP
+    if gat_route == "kernels":
+        monkeypatch.setattr(TMP, "_kernel_route", lambda t: True)
+    s, r, n, _ = directed_graph_arrays(seed=23)
+    jg, tg = graph_pair(s, r, n)
+    ne = len(s)
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((n, 5))
+    cot = rng.standard_normal((ne, 1))
+
+    def jloss(xp):
+        y = JM.DotDecoder()(jg, xp)[:ne]
+        return jnp.sum(y * cot), y
+
+    (_, jy), jgx = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(pad_rows(x, jg.n_pad)))
+    tx = t(x, grad=True)
+    ty = TM.DotDecoder()(tg, tx)
+    assert ty.shape == (ne, 1)
+    (ty * t(cot)).sum().backward()
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               **F64_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx)[:n],
+                               **F64_TOL)

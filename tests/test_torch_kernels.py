@@ -1,5 +1,6 @@
-"""The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2)
-and edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11).
+"""The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2),
+edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11; dot attention's K6,
+K7, K8) and the per-edge dot (K13).
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
   held to) against a dense adjacency product or per-edge loops in float64.
@@ -22,6 +23,7 @@ import torch  # noqa: E402
 import graphneuralnetworks_tpu_torch as tgnn  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops import attention as TA  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES  # noqa: E402
+from graphneuralnetworks_tpu_torch.ops.cuda import sddmm as SD  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S  # noqa: E402
 
 SLOPE = 0.2
@@ -186,8 +188,9 @@ def test_attention_kernels_match_plain_on_card(heads, d):
                     ES.gat_bwd_rev_plain(g.indptr_s, g.col_s, *bwd)):
         torch.testing.assert_close(a, b, **tol)
     torch.cuda.synchronize()
-    assert {k: ES.launches[k] - before[k] for k in before} == {
-        "k3": 1, "k4": 1, "k5": 1, "k9": 0, "k10": 0, "k11": 0, "k12": 3}
+    assert {k: ES.launches[k] - before[k] for k in before
+            if ES.launches[k] != before[k]} == {"k3": 1, "k4": 1, "k5": 1,
+                                                "k12": 3}
 
 
 @pytest.mark.gpu
@@ -385,8 +388,8 @@ def test_gatv2_kernels_match_plain_on_card(heads, d):
                                ES.gatv2_bwd_rev_plain(g.indptr_s, g.col_s,
                                                       *bwd), **tol)
     torch.cuda.synchronize()
-    assert {k_: ES.launches[k_] - before[k_] for k_ in before} == {
-        "k3": 0, "k4": 0, "k5": 0, "k9": 1, "k10": 2, "k11": 1, "k12": 0}
+    assert {k_: ES.launches[k_] - before[k_] for k_ in before
+            if ES.launches[k_] != before[k_]} == {"k9": 1, "k10": 2, "k11": 1}
     with pytest.raises(ValueError, match="at most 1024 floats"):
         ES.gatv2_softmax(g.indptr_r, g.col_r, rn(n, 1, 1028), rn(n, 1, 1028),
                          rn(1028, 1), SLOPE)
@@ -420,5 +423,199 @@ def test_gatv2_attention_on_card_matches_cpu(heads, d):
         assert launched == ({"k9": 1, "k10": 2, "k11": 1}
                             if device == "cuda" else {})
         results[device] = [out.detach()] + [t.grad for t in ts[:5]]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---- dot attention: K6, K7, K8; the per-edge dot: K13 ----------------------
+
+DOT_SCALE = 0.37
+
+
+def test_dot_plain_versions_match_loops():
+    """K6-K8's and K13's plain versions against the formulas written out
+    edge by edge (edge_softmax.py:295-339, 546-650; sddmm.py:36-51), float64,
+    O != D, with and without a slope."""
+    g = _graph(13, "cpu")
+    n, heads, o, d = g.num_nodes, 2, 3, 4
+    rng = np.random.default_rng(13)
+    q, k = rng.standard_normal((n, heads, o)), rng.standard_normal(
+        (n, heads, o))
+    v, dy = rng.standard_normal((n, heads, d)), rng.standard_normal(
+        (n, heads, d))
+    ss, rs = g.senders.numpy(), g.receivers.numpy()
+    tq, tk, tv, tdy = (torch.tensor(a) for a in (q, k, v, dy))
+    np.testing.assert_allclose(
+        SD.sddmm_plain(g.indptr_r, g.col_r, tq, tk).numpy(),
+        np.einsum("ehf,ehf->eh", q[rs], k[ss]), rtol=1e-12, atol=1e-12)
+    for slope in (None, SLOPE):
+        raw = DOT_SCALE * np.einsum("ehf,ehf->eh", q[rs], k[ss])
+        lg = raw if slope is None else _lrelu_np(raw)
+        m = np.full((n, heads), -np.inf)
+        np.maximum.at(m, rs, lg)
+        p = np.exp(lg - m[rs])
+        s = np.zeros((n, heads))
+        np.add.at(s, rs, p)
+        num = np.zeros((n, heads, d))
+        np.add.at(num, rs, p[..., None] * v[ss])
+        got = ES.dot_softmax_plain(g.indptr_r, g.col_r, tq, tk, tv,
+                                   DOT_SCALE, slope)
+        for x, want in zip(got, (num, m, s)):
+            np.testing.assert_allclose(x.numpy(), want, rtol=1e-12,
+                                       atol=1e-12)
+        out, mx, den = ES.finalize_softmax(*got)
+        s_n = (out * tdy).sum(-1)
+        mx_, den_, sn_ = (a.numpy() for a in (mx, den, s_n))
+        dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+        for e, (r, sd) in enumerate(zip(rs, ss)):
+            alpha = np.exp(lg[e] - mx_[r]) / den_[r]
+            dsig = DOT_SCALE * (1.0 if slope is None
+                                else np.where(raw[e] >= 0, 1.0, SLOPE))
+            dlg = alpha * ((v[sd] * dy[r]).sum(-1) - sn_[r]) * dsig
+            dq[r] += dlg[:, None] * k[sd]
+            dk[sd] += dlg[:, None] * q[r]
+            dv[sd] += alpha[:, None] * dy[r]
+        bwd = (tq, tk, tv, mx, den, s_n, tdy, DOT_SCALE, slope)
+        got_dq = ES.dot_bwd_dq_plain(g.indptr_r, g.col_r, *bwd)
+        got_dk, got_dv = ES.dot_bwd_rev_plain(g.indptr_s, g.col_s, *bwd)
+        for x, want in ((got_dq, dq), (got_dk, dk), (got_dv, dv)):
+            np.testing.assert_allclose(x.numpy(), want, rtol=1e-10,
+                                       atol=1e-12)
+
+
+def test_dot_and_sddmm_wrappers_validate_inputs():
+    g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
+    q, k, v = torch.randn(16, 2, 4), torch.randn(16, 2, 4), torch.randn(
+        16, 2, 6)
+    ES._dot_args(g.indptr_r, g.col_r, q, k, v, {"mx": torch.randn(16, 2)},
+                 {}, {"dy": torch.randn(16, 2, 6)})
+    with pytest.raises(TypeError):
+        ES._dot_args(g.indptr_r, g.col_r, q.double(), k, v, {}, {}, {})
+    with pytest.raises(ValueError):        # values' heads disagree
+        ES._dot_args(g.indptr_r, g.col_r, q, k, torch.randn(16, 3, 6), {},
+                     {}, {})
+    with pytest.raises(ValueError):        # dy is not D wide
+        ES._dot_args(g.indptr_r, g.col_r, q, k, v, {}, {},
+                     {"dy": torch.randn(16, 2, 4)})
+    with pytest.raises(ValueError):        # k and v: the senders, one count
+        ES._dot_args(g.indptr_r, g.col_r, q, k, v[:15], {}, {}, {})
+    # the wider of O and D sets the register chunks: 1024 floats with
+    # float4 vectors, 256 without
+    ES._dot_args(g.indptr_r, g.col_r, torch.randn(16, 1, 8),
+                 torch.randn(16, 1, 8), torch.randn(16, 1, 1024), {}, {}, {})
+    for o, d in ((8, 1028), (1028, 8), (5, 257)):
+        with pytest.raises(ValueError, match="at most 1024 floats"):
+            ES._dot_args(g.indptr_r, g.col_r, torch.randn(16, 1, o),
+                         torch.randn(16, 1, o), torch.randn(16, 1, d), {}, {},
+                         {})
+    with pytest.raises(ValueError):        # no route for a meta tensor
+        ES.dot_softmax(g.indptr_r, g.col_r, q, k,
+                       torch.empty(16, 2, 6, device="meta"), 1.0, None)
+    with pytest.raises(ValueError):
+        SD.sddmm_csr(g.indptr_r, g.col_r, q,
+                     torch.empty(16, 2, 4, device="meta"))
+    with pytest.raises(ValueError, match="disagree"):
+        SD.sddmm(g, q, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o,d", [(1, 1, 1), (1, 8, 8), (4, 32, 32),
+                                       (2, 64, 16), (1, 67, 5),
+                                       (1, 128, 128)])
+def test_dot_kernels_match_plain_on_card(heads, o, d):
+    """K6, K7 and K8 (plain dot, and with a slope) and K13 against their
+    plain versions; nodes 40-49 have no in-edges and no out-edges. (1, 67,
+    5) takes scalar loads in three chunks of 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(14, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(heads * 1000 + o + d)
+    n = g.num_nodes
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    q, k = rn(n, heads, o), rn(n, heads, o)
+    v, dy = rn(n, heads, d), rn(n, heads, d)
+    scale = o ** -0.5
+    tol = dict(rtol=1e-5, atol=1e-4)
+    before = (dict(ES.launches), dict(SD.launches))
+    for slope in (None, SLOPE):
+        args = (g.indptr_r, g.col_r, q, k, v, scale, slope)
+        got, want = ES.dot_softmax(*args), ES.dot_softmax_plain(*args)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, **tol)
+        assert torch.isneginf(got[1][40:]).all() and (got[2][40:] == 0).all()
+        out, mx, den = ES.finalize_softmax(*want, rn(n, heads),
+                                           rn(n, heads, d))
+        bwd = (q, k, v, mx, den, (out * dy).sum(-1), dy, scale, slope)
+        torch.testing.assert_close(
+            ES.dot_bwd_dq(g.indptr_r, g.col_r, *bwd),
+            ES.dot_bwd_dq_plain(g.indptr_r, g.col_r, *bwd), **tol)
+        for x, y in zip(ES.dot_bwd_rev(g.indptr_s, g.col_s, *bwd),
+                        ES.dot_bwd_rev_plain(g.indptr_s, g.col_s, *bwd)):
+            torch.testing.assert_close(x, y, **tol)
+    torch.testing.assert_close(SD.sddmm_csr(g.indptr_r, g.col_r, q, k),
+                               SD.sddmm_plain(g.indptr_r, g.col_r, q, k),
+                               **tol)
+    torch.cuda.synchronize()
+    launched = {kk: c - before[0].get(kk, 0) for kk, c in ES.launches.items()
+                if c != before[0].get(kk, 0)}
+    assert launched == {"k6": 2, "k7": 2, "k8": 2}
+    assert SD.launches["k13"] == before[1]["k13"] + 1
+    with pytest.raises(ValueError, match="at most 1024 floats"):
+        ES.dot_softmax(g.indptr_r, g.col_r, rn(n, 1, 8), rn(n, 1, 8),
+                       rn(n, 1, 1028), 1.0, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 7, 32, 128, 512, 1028])
+def test_sddmm_kernel_matches_plain_on_card(d):
+    """K13 at every width (no gate): rows wider than 32 vectors loop over
+    chunks and add to out[e]; (1028) takes more chunks than the dot
+    kernels' register limit allows them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(15, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    xi = torch.randn(g.num_nodes, 1, d, device="cuda", generator=gen)
+    xj = torch.randn(g.num_nodes, 1, d, device="cuda", generator=gen)
+    torch.testing.assert_close(SD.sddmm_csr(g.indptr_r, g.col_r, xi, xj),
+                               SD.sddmm_plain(g.indptr_r, g.col_r, xi, xj),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o,d", [(1, 8, 8), (4, 32, 32), (2, 6, 4)])
+def test_dot_attention_on_card_matches_cpu(heads, o, d):
+    """dot_attention on the card (K6 forward, K7 and K8 backward) and
+    dot_attention_logits (K13 forward, K1 backward) vs the same functions
+    on the CPU, the forward and every gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(16, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(heads + o + d)
+    n = g.num_nodes
+    shapes = ((n, heads, o), (n, heads, o), (n, heads, d), (n, heads),
+              (n, heads, d), (n, heads, d))
+    ins = [torch.randn(*s, device="cuda", generator=gen) for s in shapes]
+    results = {}
+    for device in ("cuda", "cpu"):
+        ts = [t.to(device, copy=True).requires_grad_(i < 5)
+              for i, t in enumerate(ins)]
+        gd = g.to(device)
+        before = (dict(ES.launches), dict(SD.launches), dict(S.launches))
+        out = TA.dot_attention(gd, *ts[:3], o ** -0.5, self_logits=ts[3],
+                               self_values=ts[4])
+        lg = TA.dot_attention_logits(gd, ts[0], ts[1])
+        ((out * ts[5]).sum() + (lg * lg).sum()).backward()
+        torch.cuda.synchronize()
+        after = (ES.launches, SD.launches, S.launches)
+        launched = {k: c - b[k] for b, a in zip(before, after)
+                    for k, c in a.items() if c != b[k]}
+        assert launched == ({"k6": 1, "k7": 1, "k8": 1, "k13": 1,
+                             "k1": 2 * heads} if device == "cuda" else {})
+        results[device] = [out.detach(), lg.detach()] + [t.grad
+                                                         for t in ts[:5]]
     for a, b in zip(results["cuda"], results["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

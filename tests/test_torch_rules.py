@@ -52,9 +52,12 @@ g = gnn.rand_graph(20, 60, seed=0, device="cpu")
 model = M.GNNChain(M.GCNConv(3, 4, torch.relu, device="cpu"),
                    M.GATConv(4, 2, heads=2, dropout=0.5, device="cpu"),
                    M.GATv2Conv(4, 2, heads=2, dropout=0.5, device="cpu"),
+                   M.TransformerConv(4, 2, heads=2, batch_norm=True,
+                                     device="cpu"),
+                   M.AGNNConv(device="cpu"),
                    M.SAGEConv(4, 2, device="cpu"))
 y = model(g, torch.randn(20, 3), deterministic=False)
-y.sum().backward()
+(y.sum() + M.DotDecoder()(g, y).sum()).backward()
 assert y.shape == (20, 2)
 bad = sorted(m for m in sys.modules if blocked(m))
 assert not bad, bad
@@ -109,5 +112,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         tgnn.models.GATConv(3, 4, heads=2, dropout=0.5)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tgnn.models.GATv2Conv(3, 4, heads=2, dropout=0.5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgnn.models.TransformerConv(3, 4, heads=2, batch_norm=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgnn.models.AGNNConv()
     g = tgnn.graph(np.array([0, 1]), np.array([1, 0]), device="cpu")
     assert g.device.type == "cpu" and g.indptr_r.device.type == "cpu"

@@ -5,7 +5,7 @@
   parameters match (rtol 1e-9, atol 1e-10). ``optax.adam`` and
   ``torch.optim.Adam`` apply the same update.
 - The Cora bar (tests/test_integration_cora.py): GCN, GraphConv, SAGE, GIN,
-  GAT and GATv2, 40 epochs of Adam, train accuracy > 0.94 and test
+  GAT, GATv2 and Transformer, 40 epochs of Adam, train accuracy > 0.94 and test
   accuracy > 0.69, on the same seeded Cora analogue, which both packages
   build identically.
 """
@@ -151,12 +151,16 @@ def _cora_model(name, din, nh, nout):
         return TM.GNNChain(TM.GATv2Conv(din, nh, torch.relu, heads=2, **kw),
                            TM.GATv2Conv(2 * nh, nh, torch.relu, heads=2,
                                         concat=False, **kw), head)
+    if name == "Transformer":      # tests/test_integration_cora.py:70-74
+        return TM.GNNChain(
+            TM.TransformerConv(din, nh, heads=2, concat=False, **kw),
+            TM.TransformerConv(nh, nh, heads=2, concat=False, **kw), head)
     return TM.GNNChain(TM.GINConv(TM.MLP([din, nh], **kw), 0.01),
                        TM.GINConv(TM.MLP([nh, nh], **kw), 0.01), head)
 
 
 @pytest.mark.parametrize("name", ["GCN", "GraphConv", "SAGE", "GIN", "GAT",
-                                  "GATv2"])
+                                  "GATv2", "Transformer"])
 def test_cora_accuracy_bar(name):
     torch.manual_seed(17)
     data, _ = load_cora(seed=1, device="cpu")
