@@ -31,6 +31,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (4, 32), its backward (K1 twice) against the plain autograd, with the
    library yardstick ``torch.sparse.sampled_addmm`` and the plain
    two-gather ``xi_dot_xj`` beside it.
+   2f: K14 (``segment_max_csr_f32``, max and min) and its backward
+   (``segment_max_bwd_csr_f32``) over the receiver CSR at F = 128
+   (EdgeConv layer 1's messages), 8 (its head layer) and 4 (``[E, H]``
+   logits, H=4), and over the graph CSR of the 3k batch at F = 64, on
+   values rounded to a grid of 1/4 (exact ties) with a NaN entry and with
+   rows emptied (checked against the plain versions bit for bit); timed
+   beside the plain version, the library yardstick
+   ``torch.segment_reduce(data, "max", offsets=indptr)`` and
+   ``scatter_reduce("amax")``.
 3. The main paths at full width, each trained with Adam for 10 steps, with
    the kernel launch counts of exactly those steps; masked cross-entropy
    unless said otherwise: ``GNNChain(GCNConv(128, 128, relu),
@@ -45,13 +54,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    128), relu, AGNNConv(), AGNNConv(), Linear(128, 8))`` (3h: K6, K7, K8);
    link prediction, a GCN encoder ``GNNChain(GCNConv(128, 128, relu),
    GCNConv(128, 128))`` with ``DotDecoder`` on the 2M edges and on 2M
-   negative edges, binary cross-entropy (3i: K13, and K1). 3c holds one
+   negative edges, binary cross-entropy (3i: K13, and K1);
+   ``GNNChain(EdgeConv(MLP([256, 128])), relu, EdgeConv(MLP([256, 8])))``
+   with max aggregation (3j: K14 and its backward, K1 as the endpoint
+   gathers' backward); graph classification, examples/
+   graph_classification.py's model (``GraphConv(7, 64, relu)``,
+   ``GraphConv(64, 64, relu)``, ``GlobalPool("max")``, ``Linear(64, 2)``)
+   on one ``batch`` of 4,096 ``synthetic_tudataset`` graphs, graph-level
+   cross-entropy (3k: K1, K14 over the graph CSR). 3c holds one
    forward and backward of the GCN models, of GAT (3d), GATv2 (3f),
    Transformer (3g, also with virtual self-loops and with edge features,
    whose route is K12), AGNN (3h) and the link step (3i) on the card
    against the same model on the CPU plain path in float64, and GAT's and
    GATv2's attention with one set of dropout masks for both sides (K12, K2
-   per head).
+   per head); also EdgeConv (3j), graph classification (3k) with
+   ``GlobalPool`` max and mean, ``GlobalAttentionPool``, ``Set2Set`` and
+   ``TopKPool`` on the 3k batch, ``softmax_edge_neighbors`` at H=4 and
+   ``GraphConv(aggr="max")`` on the main graph.
 4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT,
    GATv2 and Transformer, 40 epochs, train accuracy > 0.94 and test
    accuracy > 0.69.
@@ -60,7 +79,8 @@ It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a), of
-GAT (3d, 3e), GATv2 (3f), Transformer (3g) and AGNN (3h).
+GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), EdgeConv (3j) and
+graph classification (3k).
 """
 
 from __future__ import annotations
@@ -85,6 +105,9 @@ OUT_D = 8
 GAT_HEADS = 4
 STEPS = 10
 CORA_EPOCHS = 40
+# the graph-classification batch (3k): synthetic_tudataset graphs of 7
+# one-hot features, examples/graph_classification.py's hidden width
+TUD_GRAPHS, TUD_FEATURES, TUD_HIDDEN = 4096, 7, 64
 
 # Published peaks (NVIDIA data sheets): memory bytes/s and float32 FLOP/s
 # outside the tensor cores, by card name. The SXM part is the default.
@@ -131,6 +154,20 @@ DA_ATOL_REL = 1e-5
 # Such a gradient is held to the model's largest gradient norm instead:
 # |a-b| <= GRAD_NORM_RTOL * ZERO_GRAD_FLOOR * max |grad|.
 ZERO_GRAD_FLOOR = 1e-3
+# EdgeConv (3j) card vs CPU: a max aggregation routes each output's
+# cotangent to one edge, and the card's float32 messages (a GEMM over
+# [x_i; x_j - x_i], 256 wide: rms rounding 3.7e-7 at a spread of 1.41,
+# measured against float64 at layer 1's shapes) can reorder a receiver's
+# top two of ~15 candidates. The top gap of 15 draws has density ~2.2 /
+# sigma at 0, so a maximum flips with probability ~2.2 * 3.7e-7 / (1.41 *
+# sqrt(pi)) ~ 4.5e-7: ~7.5 of layer 1's N * 128 = 16.7M maxima, ~0.9 of
+# layer 2's 1M. A flip sends dy[r, c] to another in-edge of r, moving row c
+# of layer 1's weight gradient by dy * (x_j' - x_j) (norm ~16 |dy|) against
+# a gradient norm of ~|dy| sqrt(N * 128 * 384) ~ 8.0e4 |dy|: 2.0e-4 per
+# flip, ~5.5e-4 for 7.5 flips; one flip of layer 2 moves its gradient by
+# ~4.7e-4. EdgeConv's model check is held to 10x that. Exact ties (equal
+# values on both sides) split their cotangent the same way on both.
+EDGECONV_GRAD_NORM_RTOL = 5e-3
 
 
 def log(msg: str) -> None:
@@ -597,6 +634,141 @@ def sddmm_phase(g, card: str) -> dict:
     return res
 
 
+def _empty_rows(indptr: torch.Tensor, every: int) -> tuple[torch.Tensor,
+                                                            int]:
+    """A copy of ``indptr`` whose rows 0, every, 2 * every, ... have no
+    entries (each gives its entries to the next row), and their count."""
+    out = indptr.clone()
+    idx = torch.arange(1, indptr.numel() - 1, every, device=indptr.device)
+    out[idx] = indptr[idx - 1]
+    return out, idx.numel()
+
+
+def same_bits(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """``got`` equals ``ref`` exactly, NaN where ``ref`` is NaN."""
+    same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+    ok = got.shape == ref.shape and bool(same.all())
+    log(f"  {name:<44} {'equal bits' if ok else 'FAIL'} "
+        f"(NaN {int(torch.isnan(ref).sum())}, "
+        f"+-inf {int(torch.isinf(ref).sum())})")
+    if not ok:
+        raise AssertionError(f"{name}: kernel and plain version disagree")
+
+
+def segment_phase(g, gb, card: str) -> dict:
+    """K14 (max and min) and its backward against their plain versions over
+    the main graph's receiver CSR at F = 128, 8 and 4 and over the graph
+    CSR of the 3k batch at F = 64.
+
+    The checks run on values rounded to a grid of 1/4 (exact ties), with
+    one NaN entry, over a copy of the CSR with rows emptied: a max picks one
+    of its inputs and the backward divides the same cotangent by the same
+    count, so kernel and plain version agree bit for bit (tolerance 0). The
+    times run over the CSR as it is, beside the plain version, the library
+    yardstick ``torch.segment_reduce(data, "max", offsets=indptr)`` and
+    ``scatter_reduce("amax")`` over the expanded row ids.
+    """
+    from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG
+    from graphneuralnetworks_tpu_torch.ops.cuda.spmm import _row_ids
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res = {"k14": {"err": 0.0, "variants": []},
+           "k14_bwd": {"err": 0.0, "variants": []}}
+    bw = peaks(card)[0]
+    log("phase 2f: segment-max kernel K14 and its backward vs plain "
+        "versions (float32)")
+    cases = [("receiver CSR F=128 (EdgeConv layer 1)", g.indptr_r, D, 1024),
+             ("receiver CSR F=8 (EdgeConv layer 2)", g.indptr_r, OUT_D,
+              1024),
+             ("receiver CSR F=4 ([E, H] logits, H=4)", g.indptr_r,
+              GAT_HEADS, 1024),
+             (f"graph CSR of the 3k batch F={TUD_HIDDEN}", gb.indptr_g,
+              TUD_HIDDEN, 64)]
+    for label, ip, f, every in cases:
+        n_rows, rows = ip.numel() - 1, int(ip[-1])
+        data = torch.round(torch.randn(rows, f, generator=gen, device=dev)
+                           * 4) / 4
+        dy = torch.randn(n_rows, f, generator=gen, device=dev)
+        checked = data.clone()
+        checked[rows // 3, f // 2] = float("nan")
+        holes, n_holes = _empty_rows(ip, every)
+        for op, kern, plain in (("max", SG.segment_max_csr,
+                                 SG.segment_max_plain),
+                                ("min", SG.segment_min_csr,
+                                 SG.segment_min_plain)):
+            want = plain(holes, checked)
+            same_bits(f"K14 {op} {label}", kern(holes, checked), want)
+            empty = int(torch.isinf(want).all(1).sum())
+            if empty < n_holes or int(torch.isnan(want).sum()) != 1:
+                raise AssertionError(f"K14 {op} {label}: {empty} rows "
+                                     f"without entries (>= {n_holes} "
+                                     "expected) or no NaN")
+        out = SG.segment_max_plain(holes, checked)
+        same_bits(f"K14 backward {label}",
+                  SG.segment_max_bwd_csr(holes, checked, out, dy),
+                  SG.segment_max_bwd_plain(holes, checked, out, dy))
+        rid = _row_ids(holes, rows)
+        count = torch.zeros_like(out).index_add_(
+            0, rid, (checked == out.index_select(0, rid)).float())
+        ties = int((count >= 2).sum())
+        log(f"  {label}: {ties} of {count.numel()} maxima tied "
+            f"({100 * ties / count.numel():.1f} %)")
+        if ties == 0:
+            raise AssertionError(f"{label}: the grid made no ties")
+
+        # times over the CSR as it is, no NaN
+        out = SG.segment_max_csr(ip, data)
+        same_bits(f"K14 {label} vs torch.segment_reduce", out,
+                  torch.segment_reduce(data, "max", offsets=ip))
+        lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "max",
+                                                      offsets=ip))
+        rid = _row_ids(ip, rows)[:, None].expand(rows, f)
+        init = torch.full((n_rows, f), float("-inf"), device=dev)
+        # compulsory bytes: indptr, the entries and the outputs once each
+        # (the rows are contiguous: with no L2 reuse the kernel reads no
+        # more); the backward reads indptr, the entries, out and dy and
+        # writes ddata, and with no L2 reuse its second sweep reads the
+        # entries again
+        byt = 4 * (n_rows + 1) + 4 * rows * f + 4 * n_rows * f
+        b_ms, b_by = bound(byt, rows * f, card)
+        res["k14"]["variants"].append({
+            "case": label, "f": f, "ms": cuda_ms(
+                lambda: SG.segment_max_csr(ip, data)),
+            "plain_ms": cuda_ms(lambda: SG.segment_max_plain(ip, data),
+                                warmup=1, batches=3, per_batch=2),
+            "library_ms": lib_ms,
+            "scatter_reduce_ms": cuda_ms(lambda: init.scatter_reduce(
+                0, rid, data, "amax", include_self=False)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "no_reuse_bound_ms": byt / bw * 1e3, "max_abs_err": 0.0})
+        byt_b = 4 * (n_rows + 1) + 8 * rows * f + 8 * n_rows * f
+        b_ms, b_by = bound(byt_b, 2 * rows * f, card)
+        res["k14_bwd"]["variants"].append({
+            "case": label, "f": f, "ms": cuda_ms(
+                lambda: SG.segment_max_bwd_csr(ip, data, out, dy)),
+            "plain_ms": cuda_ms(
+                lambda: SG.segment_max_bwd_plain(ip, data, out, dy),
+                warmup=1, batches=3, per_batch=2),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "no_reuse_bound_ms": (byt_b + 4 * rows * f) / bw * 1e3,
+            "max_abs_err": 0.0})
+        v = res["k14"]["variants"][-1]
+        log(f"  time K14 {label:<40} kernel={v['ms']:.4f} ms plain="
+            f"{v['plain_ms']:.4f} ms library={lib_ms:.4f} ms "
+            f"scatter_reduce={v['scatter_reduce_ms']:.4f} ms "
+            f"bound={v['bound_ms']:.4f} ms ({v['bound_by']})")
+        v = res["k14_bwd"]["variants"][-1]
+        log(f"  time K14 backward {label:<31} kernel={v['ms']:.4f} ms "
+            f"plain={v['plain_ms']:.4f} ms bound={v['bound_ms']:.4f} ms "
+            f"({v['bound_by']}) no-reuse bound="
+            f"{v['no_reuse_bound_ms']:.4f} ms")
+        del data, dy, checked, out, rid, init, count
+    log("  clocks.sm,power.draw,temperature.gpu: "
+        + smi("clocks.sm,power.draw,temperature.gpu"))
+    return res
+
+
 # ---- phase 3 ---------------------------------------------------------------
 
 def gcn(M, seed: int, dev):
@@ -608,8 +780,9 @@ def gcn(M, seed: int, dev):
 def counters():
     """Every kernel's launch counter (module dicts, updated in place)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import (edge_softmax, sddmm,
-                                                        spmm)
-    return (spmm.launches, edge_softmax.launches, sddmm.launches)
+                                                        segment, spmm)
+    return (spmm.launches, edge_softmax.launches, sddmm.launches,
+            segment.launches)
 
 
 def reset_counts() -> None:
@@ -968,6 +1141,198 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     return res
 
 
+def edgeconv(M, seed: int, dev):
+    """The conv zoo's ``EdgeConv(MLP([2d, d]))`` at d=128
+    (``benchmarks/zoo_sweep_r5.py:61``), relu, and an 8-class EdgeConv
+    head; max aggregation."""
+    gen = torch.Generator().manual_seed(seed)
+    return M.GNNChain(
+        M.EdgeConv(M.MLP([2 * D, D], generator=gen, device=dev)), torch.relu,
+        M.EdgeConv(M.MLP([2 * D, OUT_D], generator=gen, device=dev)))
+
+
+def graph_classifier(M, seed: int, dev, aggr: str, pool=None, width=None):
+    """examples/graph_classification.py's model (``:50-55``):
+    ``GraphConv(7, 64, relu)``, ``GraphConv(64, 64, relu)``, a pooling
+    layer (``GlobalPool(aggr)`` unless ``pool`` is given, of output
+    ``width``), ``Linear(., 2)``."""
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    h = TUD_HIDDEN
+    return M.GNNChain(
+        M.GraphConv(TUD_FEATURES, h, torch.relu, generator=gen, device=dev),
+        M.GraphConv(h, h, torch.relu, generator=gen, device=dev),
+        pool if pool is not None else M.GlobalPool(aggr),
+        torch.nn.Linear(width or h, 2, device=dev))
+
+
+def graph_loss(logits, gb):
+    """The example's graph-level cross-entropy (``:58-65``)."""
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+    return masked_cross_entropy(logits, gb.globals_["y"], gb.graph_mask)
+
+
+def compare_function(name, fn, g, inputs, want_launches) -> dict:
+    """``fn(g, *inputs)`` on the card in float32 and on the CPU plain path
+    in float64: the output and every input's gradient at MODEL_RTOL /
+    MODEL_ATOL, and the card's launches."""
+    gen = torch.Generator(device=g.device).manual_seed(10)
+    results = []
+    for gg, dt in ((g, torch.float32), (g.to("cpu"), torch.float64)):
+        ts = [t.detach().to(gg.device, dt, copy=True).requires_grad_()
+              for t in inputs]
+        before = read_counts()
+        out = fn(gg, *ts)
+        if not results:
+            cot = torch.randn(out.shape, generator=gen, device=g.device)
+        (out * cot.to(gg.device, dt)).sum().backward()
+        results.append((out.detach().cpu(), [t.grad.cpu() for t in ts],
+                        launched_since(before)))
+    (y, grads, launched), (yc, grads_c, launched_c) = results
+    if launched != want_launches or launched_c:
+        raise AssertionError(f"{name}: launches card {launched} (expected "
+                             f"{want_launches}), CPU {launched_c}")
+    errs = [compare(f"{name} out", y, yc, rtol=MODEL_RTOL, atol=MODEL_ATOL)]
+    errs += [compare(f"{name} d(input {i})", a, b, rtol=MODEL_RTOL,
+                     atol=MODEL_ATOL) for i, (a, b) in enumerate(
+                         zip(grads, grads_c))]
+    return {"max_abs_err": max(errs), "launches": launched}
+
+
+def graph_path_phase(g, gb, profile: bool, out_dir) -> dict:
+    """3j (EdgeConv), 3k (graph classification) and their card-vs-CPU
+    checks, with the pooling layers and the graph-wise ops."""
+    from graphneuralnetworks_tpu_torch import models as M, ops
+
+    dev = g.device
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((N, D)),
+                        dtype=torch.float32, device=dev)
+    y = torch.as_tensor(np.random.default_rng(4).integers(0, OUT_D, N),
+                        device=dev)
+    g = g.with_nodes(y=y)
+    mask = g.node_mask
+    res = {"vs_cpu": {}}
+
+    def loss_fn(m, g, x, y, mask):
+        from graphneuralnetworks_tpu_torch.training import \
+            masked_cross_entropy
+        return masked_cross_entropy(m(g, x), y, mask)
+
+    # EdgeConv: per step each layer launches K14 forward and backward; the
+    # second layer's endpoint gathers (receivers, senders) K1 in backward
+    # (the first layer's input needs no gradient)
+    log(f"phase 3j: EdgeConv train step (EdgeConv(MLP([256,128])), relu, "
+        f"EdgeConv(MLP([256,8])), max aggregation), {STEPS} steps")
+    model_ec = edgeconv(M, 11, dev)
+    torch.cuda.reset_peak_memory_stats()
+    res["edgeconv"] = train_phase("EdgeConv", model_ec, (g, x, y, mask),
+                                  loss_fn, {"k14": 2, "k14_bwd": 2, "k1": 2},
+                                  profile)
+    res["edgeconv"]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  peak device memory {res['edgeconv']['peak_memory_gb']:.2f} GB")
+    log("phase 3c (EdgeConv): one forward+backward on the card (K14, K1) vs "
+        "the CPU plain path")
+    before = read_counts()
+    res["vs_cpu"]["edgeconv"] = compare_model(
+        "EdgeConv", model_ec, g, x, lambda extra: {},
+        grad_rtol=EDGECONV_GRAD_NORM_RTOL)
+    expect_launched("EdgeConv", before, {"k14": 2, "k14_bwd": 2, "k1": 2})
+    del model_ec
+
+    # graph classification: K1 in both GraphConv forwards and in the second
+    # one's backward; GlobalPool("max") K14 forward and backward over the
+    # batch's graph CSR
+    log(f"phase 3k: graph classification train step on one batch of "
+        f"{gb.num_graphs} graphs ({gb.num_nodes} nodes, {gb.num_edges} "
+        f"edges): GraphConv(7,64,relu), GraphConv(64,64,relu), "
+        f"GlobalPool(max), Linear(64,2), {STEPS} steps")
+    xg = gb.x
+
+    def graph_step_loss(m, gb, x):
+        return graph_loss(m(gb, x), gb)
+
+    def graph_forward(m, gg, xx, extra):
+        logits = m(gg, xx)
+        return logits, graph_loss(logits, gg)
+
+    model_gc = graph_classifier(M, 12, dev, "max")
+    res["graph_classification"] = train_phase(
+        "graph classification", model_gc, (gb, xg), graph_step_loss,
+        {"k1": 3, "k14": 1, "k14_bwd": 1}, profile)
+    log("phase 3c (graph classification): one forward+backward on the card "
+        "vs the CPU plain path, GlobalPool max and mean")
+    for aggr, model, want in (
+            ("max", model_gc, {"k1": 3, "k14": 1, "k14_bwd": 1}),
+            ("mean", graph_classifier(M, 13, dev, "mean"), {"k1": 3})):
+        before = read_counts()
+        res["vs_cpu"][f"graph_classification_{aggr}"] = compare_model(
+            f"graph classification ({aggr})", model, gb, xg, None,
+            forward=graph_forward)
+        expect_launched(f"graph classification ({aggr})", before, want)
+
+    log("phase 3c (pooling): GlobalAttentionPool, Set2Set and TopKPool on "
+        "the 3k batch, card vs the CPU plain path")
+    h = TUD_HIDDEN
+    gen = torch.Generator().manual_seed(14)
+    xh = torch.randn(gb.num_nodes, h, generator=gen).to(dev)
+    torch.manual_seed(14)
+    pools = {
+        # softmax_nodes' max step: one K14 forward, no backward
+        "global_attention_pool": (M.GNNChain(
+            M.GlobalAttentionPool(torch.nn.Linear(h, 1, device=dev),
+                                  torch.nn.Linear(h, h, device=dev)),
+            torch.nn.Linear(h, 2, device=dev)), {"k14": 1}),
+        # one softmax_nodes per iteration
+        "set2set": (M.GNNChain(M.Set2Set(h, 3, generator=gen, device=dev),
+                               torch.nn.Linear(2 * h, 2, device=dev)),
+                    {"k14": 3}),
+    }
+    for name, (model, want) in pools.items():
+        before = read_counts()
+        # fgate's bias shifts all of a graph's gate logits alike, which the
+        # softmax does not see: a gradient of 0 (ZERO_GRAD_FLOOR)
+        res["vs_cpu"][name] = compare_model(name, model, gb, xh, None,
+                                            forward=graph_forward,
+                                            zero_grads=("fgate.bias",))
+        expect_launched(name, before, want)
+    # TopKPool keeps the 1024 best of ~78k continuous scores: at a float32
+    # rounding of ~1e-7 against gaps of ~1e-4 near the k-th score, two
+    # neighbours swap ranks now and then, so the rows are compared in node
+    # order and the loss does not depend on the order; the kept set must
+    # agree
+    topk = M.TopKPool(h, 1024, generator=gen, device=dev)
+    w_topk = torch.randn(h, generator=gen).to(dev)
+    kept = []
+
+    def topk_forward(m, gg, xx, extra):
+        out, idx = m(gg, xx)
+        order = torch.argsort(idx)
+        kept.append(idx[order].cpu())
+        return out[order], ((out @ w_topk.to(out)) ** 2).sum()
+
+    res["vs_cpu"]["topk_pool"] = compare_model("TopKPool", topk, gb, xh,
+                                               None, forward=topk_forward)
+    if not torch.equal(kept[0], kept[1]):
+        raise AssertionError("TopKPool: the card and the CPU keep other "
+                             "nodes")
+
+    log("phase 3c (softmax_edge_neighbors, GraphConv max): on the main graph, "
+        "card vs the CPU plain path")
+    lg = torch.randn(E, GAT_HEADS, generator=gen).to(dev)
+    res["vs_cpu"]["softmax_edge_neighbors"] = compare_function(
+        f"softmax_edge_neighbors H={GAT_HEADS}", ops.softmax_edge_neighbors,
+        g, [lg], {"k14": 1})
+    before = read_counts()
+    # the messages are x_j themselves, equal on both sides: the same maxima;
+    # x needs no gradient, so the max has no backward here (3j runs it)
+    res["vs_cpu"]["graphconv_max"] = compare_model(
+        "GraphConv(aggr=max)", M.GNNChain(M.GraphConv(
+            D, OUT_D, aggr="max", generator=gen, device=dev)), g, x,
+        lambda extra: {})
+    expect_launched("GraphConv(aggr=max)", before, {"k14": 1})
+    return res
+
+
 def train_phase(name, model, args, loss_fn, per_step, profile, *,
                 params=None, eval_loss=None, trace_dir=None) -> dict:
     """:func:`train` of ``params`` (default: the model's), its log lines,
@@ -1174,6 +1539,24 @@ def cora_phase(dev) -> dict:
 
 # ---- main ------------------------------------------------------------------
 
+def tud_batch(gnn, dev):
+    """The 3k batch: ``synthetic_tudataset(TUD_GRAPHS)`` built on the host
+    and joined by ``batch`` onto the card, with the host's time for each."""
+    t0 = time.perf_counter()
+    graphs, _ = gnn.data.synthetic_tudataset(TUD_GRAPHS, seed=0,
+                                             device="cpu")
+    t1 = time.perf_counter()
+    gb = gnn.batch(graphs, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"  3k batch: synthetic_tudataset({TUD_GRAPHS}) {t1 - t0:.2f} s, "
+        f"batch {t2 - t1:.2f} s on the host ({gb.num_nodes} nodes, "
+        f"{gb.num_edges} edges)")
+    return gb, {"dataset_s": t1 - t0, "batch_s": t2 - t1,
+                "num_nodes": gb.num_nodes, "num_edges": gb.num_edges}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1217,21 +1600,27 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  graph build: {time.perf_counter() - t0:.2f} s "
         f"({g.num_nodes} nodes, {g.num_edges} edges)")
+    gb, tud = tud_batch(gnn, g.device)
 
     kern = kernel_phase(gnn, g, card)
     kern.update(attention_phase(g, card))
     kern.update(gatv2_phase(g, card))
     kern.update(dot_phase(g, card))
     kern.update(sddmm_phase(g, card))
+    kern.update(segment_phase(g, gb, card))
     main_res = main_path_phase(g, args.profile, args.out)
+    graph_res = graph_path_phase(g, gb, args.profile, args.out)
+    main_res["vs_cpu"].update(graph_res.pop("vs_cpu"))
+    main_res.update(graph_res)
+    main_res["tud_batch"] = tud
     cora = cora_phase(g.device)
 
-    def entry(key, name, src, line, path):
+    def entry(key, name, src, line, path, pallas=None):
         head = kern[key]["variants"][0]
         return {"name": name, "route": "cuda",
                 "source": f"graphneuralnetworks_tpu_torch/csrc/{src}.cu",
-                "replaces": f"graphneuralnetworks_tpu/ops/pallas/{src}.py:"
-                            f"{line}",
+                "replaces": "graphneuralnetworks_tpu/ops/pallas/"
+                            f"{pallas or src}.py:{line}",
                 "launches": main_res[path]["launches"][key],
                 "max_abs_err": kern[key]["err"],
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1255,6 +1644,10 @@ def main() -> int:
         entry("k7", "dot_bwd_dq_f32", "edge_softmax", 546, "transformer"),
         entry("k8", "dot_bwd_rev_f32", "edge_softmax", 599, "transformer"),
         entry("k13", "sddmm_csr_f32", "sddmm", 36, "link"),
+        entry("k14", "segment_max_csr_f32", "segment", 51, "edgeconv",
+              "edge_softmax"),
+        entry("k14_bwd", "segment_max_bwd_csr_f32", "segment", 51,
+              "edgeconv", "edge_softmax"),
     ]
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")

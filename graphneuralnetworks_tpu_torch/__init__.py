@@ -20,7 +20,10 @@ Typical use::
 Attention aggregation (``gnn.ops.gat_attention``,
 ``gnn.ops.attention_aggregate``) runs on the edge-softmax kernels of
 ``ops.cuda.edge_softmax``; message passing on the SpMM kernels of
-``ops.cuda.spmm``.
+``ops.cuda.spmm``; max and min aggregation, the graph-wise ops of
+``gnn.ops`` (``reduce_nodes``, ``softmax_nodes``, ...) and pooling on the
+segment-max kernel of ``ops.cuda.segment``. ``gnn.batch`` joins graphs into
+one for graph-level tasks.
 """
 
 import torch
@@ -44,10 +47,12 @@ from .graph import GraphTuple, graph, from_dense_adjacency  # noqa: E402
 from .generate import rand_graph  # noqa: E402
 from .query import degree  # noqa: E402
 from .utils import edge_decoding, normalize_graphdata  # noqa: E402
-from . import models, training, data, interop  # noqa: E402
+from .transform import batch  # noqa: E402
+from . import models, training, data, interop, transform  # noqa: E402
 
 __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
            "from_dense_adjacency", "rand_graph", "degree", "edge_decoding",
-           "normalize_graphdata", "models", "training", "data", "interop"]
+           "normalize_graphdata", "batch", "models", "training", "data",
+           "interop", "transform"]
 
 __version__ = "0.1.0"

@@ -1,10 +1,12 @@
-"""Node-classification data: the Cora analogue and the real Cora files.
+"""Node- and graph-classification data: the Cora analogue, the real Cora
+files and the MUTAG analogue.
 
 Counterpart of ``graphneuralnetworks_tpu/data/datasets.py``
-(``synthetic_cora``, ``load_cora`` and the Planetoid readers). The data is
-built with numpy exactly as there, so one seed gives the same graph,
-features and splits in both packages; the graph and the masks are then
-placed on ``device`` (``None``: the CUDA card) at true size.
+(``synthetic_cora``, ``load_cora``, the Planetoid readers and
+``synthetic_tudataset``). The data is built with numpy exactly as there, so
+one seed gives the same graphs, features, labels and splits in both
+packages; the graphs and the masks are then placed on ``device`` (``None``:
+the CUDA card) at true size.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .. import resolve_device
 from ..graph import GraphTuple, graph
 
 __all__ = ["NodeClassificationData", "synthetic_cora", "planetoid_from_raw",
-           "planetoid_from_files", "load_cora"]
+           "planetoid_from_files", "load_cora", "synthetic_tudataset"]
 
 
 @dataclasses.dataclass
@@ -192,3 +194,45 @@ def load_cora(*, seed: int = 0, device=None
             return planetoid_from_files(os.path.join(c, "cora.npz"),
                                         device=device), True
     return synthetic_cora(seed=seed, device=device), False
+
+
+def synthetic_tudataset(num_graphs: int = 188, *, seed: int = 0,
+                        min_nodes: int = 10, max_nodes: int = 28,
+                        num_features: int = 7, device=None
+                        ) -> tuple[list[GraphTuple], np.ndarray]:
+    """MUTAG-analog binary graph-classification set: ``(graphs, labels)``.
+
+    Each graph has one-hot "atom type" node features ``x`` and its label as
+    ``globals_["y"]``. Positive graphs (about 2 in 3, as in MUTAG) hold a
+    ring motif and a shifted type distribution; negatives are trees.
+    """
+    rng = np.random.default_rng(seed)
+    device = resolve_device(device)
+    graphs, labels = [], []
+    for _ in range(num_graphs):
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        label = int(rng.random() < 0.66)
+        # a random spanning tree
+        s_list, r_list = [], []
+        for v in range(1, n):
+            u = int(rng.integers(0, v))
+            s_list += [u, v]
+            r_list += [v, u]
+        if label:
+            # a ring over a random subset (the "motif")
+            k = min(6, n)
+            ring = rng.choice(n, k, replace=False)
+            for a, b in zip(ring, np.roll(ring, 1)):
+                s_list += [int(a), int(b)]
+                r_list += [int(b), int(a)]
+        probs = np.full(num_features, 1.0 / num_features)
+        if label:
+            probs = np.array([0.3, 0.3, 0.1, 0.1, 0.1, 0.05, 0.05])
+            probs = probs[:num_features] / probs[:num_features].sum()
+        types = rng.choice(num_features, n, p=probs)
+        x = np.eye(num_features, dtype=np.float32)[types]
+        graphs.append(graph(s_list, r_list, num_nodes=n, nodes={"x": x},
+                            globals_={"y": np.asarray([label], np.int64)},
+                            device=device))
+        labels.append(label)
+    return graphs, np.asarray(labels, np.int64)

@@ -13,9 +13,15 @@ edge groupings on the host once and moves them to the device:
   edge id.
 - by sender: ``indptr_s``, ``col_s`` (the receivers in sender order) and
   ``eid_s`` (the edge id of each position), from a stable argsort.
+- by graph, when ``node_graph_id`` is non-decreasing (what ``batch``
+  produces, and what the JAX package's ``reduce_nodes`` assumes): the
+  nodes of graph ``b`` are ``indptr_g[b]:indptr_g[b+1]`` (``int32[G + 1]``)
+  and, because an edge belongs to its receiver's graph and edges are
+  receiver-sorted, its edges ``indptr_ge[b]:indptr_ge[b+1]``. Both are None
+  for unsorted ids.
 
-The SpMM kernels (``ops/cuda``) run over these; they take the place of the
-JAX package's ``SpmmAux`` block groupings.
+The kernels (``ops/cuda``) run over these; they take the place of the JAX
+package's ``SpmmAux`` block groupings.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ class GraphTuple:
     edges: FeatureDict = dataclasses.field(default_factory=dict)
     globals_: FeatureDict = dataclasses.field(default_factory=dict)
     edge_weight: torch.Tensor | None = None
+    indptr_g: torch.Tensor | None = None   # int32[G + 1] nodes by graph
+    indptr_ge: torch.Tensor | None = None  # int32[G + 1] edges by graph
 
     @property
     def device(self) -> torch.device:
@@ -181,12 +189,20 @@ def graph(senders, receivers, *, num_nodes=None, nodes=None, edges=None,
         edge_weight = edge_weight[order_t.to(device)]
 
     by_s = np.argsort(s, kind="stable")
+    ng = int(num_graphs)
     if node_graph_id is None:
-        gid = torch.zeros(nn, dtype=torch.int64, device=device)
+        gid_np = np.zeros(nn, np.int64)
     else:
-        gid = _tensor(node_graph_id, device).long()
-        if gid.shape[0] != nn:
+        gid_np = np.asarray(node_graph_id.cpu() if isinstance(
+            node_graph_id, torch.Tensor) else node_graph_id).astype(np.int64)
+        if gid_np.shape != (nn,):
             raise ValueError("node_graph_id length mismatch")
+    indptr_r = _indptr(r, nn)
+    indptr_g = indptr_ge = None
+    if (np.all(gid_np[1:] >= gid_np[:-1])
+            and (nn == 0 or (gid_np[0] >= 0 and gid_np[-1] < ng))):
+        indptr_g = _indptr(gid_np, ng)
+        indptr_ge = indptr_r[indptr_g]
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -196,17 +212,19 @@ def graph(senders, receivers, *, num_nodes=None, nodes=None, edges=None,
         receivers=dev(r),
         num_nodes=nn,
         num_edges=ne,
-        num_graphs=int(num_graphs),
-        node_graph_id=gid,
-        indptr_r=dev(_indptr(r, nn)),
+        num_graphs=ng,
+        node_graph_id=dev(gid_np),
+        indptr_r=dev(indptr_r),
         col_r=dev(s.astype(np.int32)),
         indptr_s=dev(_indptr(s, nn)),
         col_s=dev(r[by_s].astype(np.int32)),
         eid_s=dev(by_s.astype(np.int32)),
         nodes=_feats(nodes, nn, "node", device),
         edges=_feats(edges, ne, "edge", device, order_t),
-        globals_=_feats(globals_, int(num_graphs), "global", device),
+        globals_=_feats(globals_, ng, "global", device),
         edge_weight=edge_weight,
+        indptr_g=None if indptr_g is None else dev(indptr_g),
+        indptr_ge=None if indptr_ge is None else dev(indptr_ge),
     )
 
 

@@ -27,7 +27,30 @@ def _child(module: nn.Module, key) -> nn.Module:
     return getattr(module, str(key))
 
 
+# nnx.OptimizedLSTMCell's (dense, key) -> torch.nn.LSTMCell's name
+_LSTM = {("dense_i", "kernel"): "weight_ih", ("dense_h", "kernel"): "weight_hh",
+         ("dense_h", "bias"): "bias_hh"}
+
+
+def _load_lstm(cell: nn.LSTMCell, tree: Mapping, path: str) -> None:
+    """``nnx.OptimizedLSTMCell``'s ``dense_i`` (kernel ``[in, 4h]``, no
+    bias) and ``dense_h`` (kernel ``[h, 4h]``, bias ``[4h]``) into the torch
+    cell, gates in the same order (i, f, g, o): kernels transposed, the one
+    bias to ``bias_hh``, and ``bias_ih`` zeroed."""
+    cell.bias_ih.zero_()
+    for dense, sub in tree.items():
+        for key, value in sub.items():
+            where = f"{path}/{dense}/{key}"
+            if (dense, key) not in _LSTM:
+                raise KeyError(f"{where}: no such parameter in LSTMCell")
+            arr = np.asarray(value)
+            _copy(getattr(cell, _LSTM[dense, key]),
+                  arr.T if key == "kernel" else arr, where)
+
+
 def _load(module: nn.Module, tree: Mapping, path: str) -> None:
+    if isinstance(module, nn.LSTMCell):
+        return _load_lstm(module, tree, path)
     for key, value in tree.items():
         where = f"{path}/{key}"
         if isinstance(value, Mapping):
@@ -44,10 +67,14 @@ def _load(module: nn.Module, tree: Mapping, path: str) -> None:
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"{where}: no such parameter in "
                            f"{type(module).__name__}")
-        if tuple(target.shape) != arr.shape:
-            raise ValueError(f"{where}: shape {arr.shape} != "
-                             f"{tuple(target.shape)}")
-        target.copy_(torch.tensor(arr))
+        _copy(target, arr, where)
+
+
+def _copy(target: torch.Tensor, arr: np.ndarray, where: str) -> None:
+    if tuple(target.shape) != arr.shape:
+        raise ValueError(f"{where}: shape {arr.shape} != "
+                         f"{tuple(target.shape)}")
+    target.copy_(torch.tensor(arr))
 
 
 def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
@@ -58,7 +85,10 @@ def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     transposed into ``torch.nn.Linear.weight``; ``nnx.BatchNorm``'s
     ``scale`` goes to the weight and, given ``nnx.state(model,
     nnx.BatchStat)`` as dicts, its ``mean`` and ``var`` to the running
-    statistics. Raises on a name or shape that does not match.
+    statistics; ``nnx.OptimizedLSTMCell`` (``Set2Set.lstm``) to
+    ``torch.nn.LSTMCell`` (see :func:`_load_lstm`). Pooling and
+    ``EdgeConv`` keep the JAX names (``p``, ``fgate``, ``ffeat``, ``nn``).
+    Raises on a name or shape that does not match.
     """
     with torch.no_grad():
         _load(module, params, "")

@@ -1,5 +1,5 @@
-"""Convolution layers: GCN, GraphConv, GIN, SAGE, MLP, GAT, GATv2, AGNN
-and Transformer.
+"""Convolution layers: GCN, GraphConv, GIN, SAGE, EdgeConv, MLP, GAT,
+GATv2, AGNN and Transformer.
 
 Counterpart of ``graphneuralnetworks_tpu/models/conv.py`` (surfaces from
 GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
@@ -24,7 +24,8 @@ from torch import nn
 
 from .. import resolve_device
 from ..graph import GraphTuple
-from ..ops import copy_xj, e_mul_xj, propagate, w_mul_xj
+from ..ops import (aggregate_neighbors, apply_edges, copy_xj, e_mul_xj,
+                   propagate, w_mul_xj)
 from ..ops.attention import (attention_aggregate, dot_attention,
                              gat_attention, gatv2_attention)
 from ..ops.cuda.edge_softmax import lrelu
@@ -32,8 +33,9 @@ from ..ops.segment import gather, segment_sum
 from ..query import degree
 from .basic import GNNLayer, glorot_uniform
 
-__all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "MLP", "GATConv",
-           "GATv2Conv", "AGNNConv", "TransformerConv", "BatchNorm"]
+__all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "EdgeConv", "MLP",
+           "GATConv", "GATv2Conv", "AGNNConv", "TransformerConv",
+           "BatchNorm"]
 
 
 def _weight(shape, generator, device, dtype) -> nn.Parameter:
@@ -268,6 +270,30 @@ class SAGEConv(GNNLayer):
         if self.bias is not None:
             out = out + self.bias
         return self.act(out) if self.act is not None else out
+
+
+class EdgeConv(GNNLayer):
+    """Dynamic edge conv (Wang et al., DGCNN; reference conv.jl:575-590,
+    GNNlib conv.jl:237-246): ``aggr_j nn([x_i; x_j - x_i])``, max by
+    default. The ``[E, 2 in]`` messages go through ``nn`` on the edges; on
+    the card a max or min aggregation is one K14 over the receiver CSR,
+    and the endpoint gathers' backward is K1."""
+
+    def __init__(self, nn_module: nn.Module, *, aggr="max"):
+        super().__init__()
+        self.nn = nn_module
+        self.aggr = aggr
+
+    def forward(self, g: GraphTuple, x=None):
+        if x is None:
+            x = g.x
+        xj, xi = _expand_srcdst(x)
+
+        def msg(xi_e, xj_e, e):
+            return self.nn(torch.cat([xi_e, xj_e - xi_e], -1))
+
+        m = apply_edges(msg, g, xi=xi, xj=xj)
+        return aggregate_neighbors(g, self.aggr, m, num_segments=xi.shape[0])
 
 
 # ---- attention family ------------------------------------------------------

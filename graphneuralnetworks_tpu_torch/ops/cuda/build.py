@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_all", "build_logs",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-SOURCES = ("spmm", "edge_softmax", "sddmm")
+SOURCES = ("spmm", "edge_softmax", "sddmm", "segment")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

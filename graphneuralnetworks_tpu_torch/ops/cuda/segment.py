@@ -1,0 +1,183 @@
+"""Per-row max and min over a CSR on the card: kernel K14 and its
+backward, their plain versions, autograd.
+
+Counterpart of ``graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
+segment_max_grouped``. The TPU kernel takes a running max of ``[E, H]``
+logits per 128-row receiver block through a one-hot mask; here one warp
+takes one (CSR row, chunk of columns) and walks the row's entries, which
+are contiguous rows of the data (``csrc/segment.cu``):
+
+- K14 ``segment_max_csr`` / ``segment_min_csr``: ``out[r] = max (min) of
+  data[indptr[r]:indptr[r+1]]`` over the leading axis, ``-inf`` (``+inf``)
+  for a row without entries, NaN where an entry is NaN.
+- its backward ``segment_max_bwd_csr``: the cotangent of each output split
+  evenly over the entries that equal it (ties), 0 for the others. JAX's
+  K14 has no gradient of its own; this is the gradient JAX and PyTorch give
+  their segment max, without the two ``[rows, F]`` gathers of ``out`` and
+  ``dy`` an eager backward needs.
+
+Dispatch: a tensor on the CPU takes the plain PyTorch version
+(``*_plain``, the port's ``ops.segment`` reductions over ids expanded from
+``indptr``); a CUDA tensor launches the kernel or raises. ``launches``
+counts kernel launches, and nothing else adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from .. import segment as _segment
+from .build import load
+from .spmm import _INT32_MAX, _check, _ptr, _raise_on_error, _route, _row_ids
+
+__all__ = ["launches", "segment_max_csr", "segment_min_csr",
+           "segment_max_bwd_csr", "segment_max_plain", "segment_min_plain",
+           "segment_max_bwd_plain", "SegmentMaxFunction"]
+
+launches = {"k14": 0, "k14_bwd": 0}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("segment")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.segment_max_csr_f32.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.segment_max_csr_f32.restype = i32
+    lib.segment_max_bwd_csr_f32.argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
+    lib.segment_max_bwd_csr_f32.restype = i32
+    lib.gnn_cuda_error_string.argtypes = [i32]
+    lib.gnn_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---- plain PyTorch versions (the CPU path, and the reference on the card) --
+
+def _extreme_plain(op_min: bool, indptr, data):
+    rows = _row_ids(indptr, data.shape[0])
+    return _segment._segment_extreme(op_min, data, rows, indptr.numel() - 1,
+                                     empty_value=None)
+
+
+def segment_max_plain(indptr, data):
+    """K14's function: ``out[r] = max(data[indptr[r]:indptr[r+1]])`` over
+    the leading axis, ``-inf`` for a row without entries."""
+    return _extreme_plain(False, indptr, data)
+
+
+def segment_min_plain(indptr, data):
+    """The same with min, ``+inf`` for a row without entries."""
+    return _extreme_plain(True, indptr, data)
+
+
+def segment_max_bwd_plain(indptr, data, out, dy):
+    """``ddata[e] = dy[r] * (data[e] == out[r]) / count`` for entry ``e`` of
+    row ``r``, ``count`` the entries of the row equal to ``out[r]`` (0 where
+    there are none: a NaN output)."""
+    rows = _row_ids(indptr, data.shape[0])
+    hit = data == out.index_select(0, rows)
+    count = torch.zeros_like(out).index_add_(0, rows, hit.to(out.dtype))
+    share = dy / count.clamp(min=1)
+    return torch.where(hit, share.index_select(0, rows), 0)
+
+
+# ---- kernel wrappers -------------------------------------------------------
+
+def _check_launch(indptr, *dense) -> None:
+    device = dense[0].device
+    _check(indptr, "indptr", torch.int32, device)
+    for i, t in enumerate(dense):
+        _check(t, f"dense operand {i}", torch.float32, device)
+    if dense[0].shape[0] > _INT32_MAX:
+        raise ValueError("the CUDA kernels index entries with int32: at most "
+                         f"{_INT32_MAX} rows of data")
+
+
+def _segment_extreme_kernel(op_min: bool, indptr, data):
+    _check_launch(indptr, data)
+    n_rows = indptr.numel() - 1
+    out = torch.empty((n_rows,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    f = out[0].numel() if n_rows else 0
+    if n_rows == 0 or f == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.segment_max_csr_f32(_ptr(indptr), _ptr(data), _ptr(out),
+                                       n_rows, f, int(op_min), stream)
+    launches["k14"] += 1
+    _raise_on_error(lib, code, "segment_max_csr_f32")
+    return out
+
+
+def _segment_max_bwd_kernel(indptr, data, out, dy):
+    _check_launch(indptr, data, out, dy)
+    n_rows = indptr.numel() - 1
+    if out.shape != dy.shape or out.shape[1:] != data.shape[1:] \
+            or out.shape[0] != n_rows:
+        raise ValueError(f"data {tuple(data.shape)}, out {tuple(out.shape)} "
+                         f"and dy {tuple(dy.shape)} do not match a CSR of "
+                         f"{n_rows} rows")
+    ddata = torch.empty_like(data)
+    f = out[0].numel() if n_rows else 0
+    if n_rows == 0 or f == 0 or data.shape[0] == 0:
+        return ddata.zero_()
+    lib = _lib()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.segment_max_bwd_csr_f32(_ptr(indptr), _ptr(data),
+                                           _ptr(out), _ptr(dy), _ptr(ddata),
+                                           n_rows, f, stream)
+    launches["k14_bwd"] += 1
+    _raise_on_error(lib, code, "segment_max_bwd_csr_f32")
+    return ddata
+
+
+def segment_max_csr(indptr, data):
+    """K14 (max) on a CUDA tensor, :func:`segment_max_plain` on a CPU one.
+
+    ``indptr`` (``int32[R + 1]``) groups the rows of ``data [rows, *F]`` in
+    order; its last entry must be ``rows``. Returns ``[R, *F]``."""
+    if _route(data) == "cpu":
+        return segment_max_plain(indptr, data)
+    return _segment_extreme_kernel(False, indptr, data)
+
+
+def segment_min_csr(indptr, data):
+    """K14 (min) on a CUDA tensor, :func:`segment_min_plain` on a CPU one."""
+    if _route(data) == "cpu":
+        return segment_min_plain(indptr, data)
+    return _segment_extreme_kernel(True, indptr, data)
+
+
+def segment_max_bwd_csr(indptr, data, out, dy):
+    """K14's backward on CUDA tensors, :func:`segment_max_bwd_plain` on CPU
+    tensors; the same for max and min."""
+    if _route(data) == "cpu":
+        return segment_max_bwd_plain(indptr, data, out, dy)
+    return _segment_max_bwd_kernel(indptr, data, out, dy)
+
+
+class SegmentMaxFunction(torch.autograd.Function):
+    """``apply(data, indptr, op_min)``: ``out[r] = max`` (``op_min``: min)
+    ``of data[indptr[r]:indptr[r+1]]`` over the leading axis, ``-inf``
+    (``+inf``) for rows without entries: K14 forward, its backward kernel
+    backward."""
+
+    @staticmethod
+    def forward(ctx, data, indptr, op_min):
+        data = data.contiguous()
+        out = (segment_min_csr if op_min else segment_max_csr)(indptr, data)
+        ctx.save_for_backward(indptr, data, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        indptr, data, out = ctx.saved_tensors
+        return (segment_max_bwd_csr(indptr, data, out, dy.contiguous()),
+                None, None)

@@ -8,7 +8,9 @@ GNNlib msgpass.jl:69-238), with the same message vocabulary.
   through :func:`~.cuda.fast_gather`, whose backward is the K1 kernel. On
   the card, ``xi_dot_xj`` of two node matrices is one SDDMM (K13, whose
   backward is K1 twice) at every width.
-- ``aggregate_neighbors(g, aggr, m)`` reduces edge messages onto receivers.
+- ``aggregate_neighbors(g, aggr, m)`` reduces edge messages onto receivers;
+  on the card ``max`` and ``min`` are one K14 over the receiver CSR (its
+  backward a kernel too), whatever the message width.
 - ``propagate(f, g, aggr, ...)`` composes the two, except that a sum (or
   mean) of ``copy_xj`` / ``w_mul_xj`` / ``e_mul_xj`` messages with scalar
   edge weights is one SpMM (:func:`~.cuda.spmm`); mean is that sum divided
@@ -22,10 +24,11 @@ from typing import Callable, Mapping
 import torch
 
 from ..graph import GraphTuple
+from .cuda.edge_softmax import _rows
 from .cuda.gather import fast_gather
 from .cuda.sddmm import sddmm
 from .cuda.spmm import spmm
-from .segment import gather, segment_reduce
+from .segment import gather, is_extreme, segment_reduce
 
 __all__ = ["apply_edges", "aggregate_neighbors", "propagate", "copy_xi",
            "copy_xj", "xi_dot_xj", "xi_sub_xj", "xj_sub_xi", "e_mul_xj",
@@ -79,11 +82,21 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
     return f(_map_leaves(take_r, xi), _map_leaves(take_s, xj), e)
 
 
+def _receiver_csr(g: GraphTuple, n: int) -> torch.Tensor:
+    """The receiver CSR with ``n`` rows: cut (every receiver must stay
+    below ``n``) or extended by rows without edges."""
+    if n <= g.num_nodes:
+        return _rows(g, n)
+    return torch.cat([g.indptr_r, g.indptr_r[-1:].expand(n - g.num_nodes)])
+
+
 def aggregate_neighbors(g: GraphTuple, aggr, m, *, num_segments=None):
     """Reduce edge messages onto receiving nodes; ``mean`` divides by the
     true in-degree and empty segments give 0."""
     n = num_segments if num_segments is not None else g.num_nodes
-    return _map_leaves(lambda v: segment_reduce(aggr, v, g.receivers, n), m)
+    indptr = _receiver_csr(g, n) if is_extreme(aggr) else None
+    return _map_leaves(lambda v: segment_reduce(aggr, v, g.receivers, n,
+                                                indptr=indptr), m)
 
 
 def _spmm_message(f, g, xj, e):

@@ -6,6 +6,14 @@ math, an empty segment sums to 0, ``mean`` divides by the true count of
 rows, and ``max``/``min`` give ``empty_value`` for an empty segment. These
 are the plain versions the kernels are held to. The port's graphs carry no
 padding, so the message-passing layer calls them without a mask.
+
+``segment_max``, ``segment_min`` and ``segment_softmax`` also take a CSR
+``indptr`` (``int32[num_segments + 1]``) that groups the rows of ``data`` in
+order, segment by segment (the receiver grouping of receiver-sorted edges,
+or the graph grouping of a batch). Given one, a CUDA tensor reduces on the
+K14 kernel (``ops/cuda/segment.py``); without one, or on the CPU, the
+reduction is PyTorch's ``scatter_reduce`` over arbitrary ids, as JAX's is
+XLA's.
 """
 
 from __future__ import annotations
@@ -14,8 +22,15 @@ from typing import Callable
 
 import torch
 
+from .cuda.segment import SegmentMaxFunction
+
 __all__ = ["gather", "segment_sum", "segment_mean", "segment_max",
-           "segment_min", "segment_prod", "segment_reduce", "AGGREGATIONS"]
+           "segment_min", "segment_prod", "segment_reduce", "segment_softmax",
+           "AGGREGATIONS"]
+
+
+def _kernel_route(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -50,13 +65,25 @@ def segment_mean(data, segment_ids, num_segments, *, mask=None):
 
 
 def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
-                     mask=None, empty_value=0.0):
+                     mask=None, empty_value=0.0, indptr=None):
     fill = float("inf") if op_min else float("-inf")
     data = _masked(data, mask, fill)
-    idx = segment_ids.reshape(segment_ids.shape + (1,) * (data.dim() - 1))
-    out = _out(data, num_segments, fill).scatter_reduce(
-        0, idx.expand_as(data), data, "amin" if op_min else "amax",
-        include_self=False)
+    if indptr is not None and indptr.numel() != num_segments + 1:
+        raise ValueError(f"indptr has {indptr.numel()} entries for "
+                         f"{num_segments} segments")
+    if segment_ids.shape[0] != data.shape[0]:
+        # the kernel trusts indptr[-1] == rows of data, which a CSR built
+        # with segment_ids (the graph's receivers or node_graph_id) has
+        raise ValueError(f"{segment_ids.shape[0]} segment ids for "
+                         f"{data.shape[0]} rows of data")
+    if indptr is not None and _kernel_route(data):
+        out = SegmentMaxFunction.apply(data, indptr, op_min)
+    else:
+        idx = segment_ids.reshape(segment_ids.shape
+                                  + (1,) * (data.dim() - 1))
+        out = _out(data, num_segments, fill).scatter_reduce(
+            0, idx.expand_as(data), data, "amin" if op_min else "amax",
+            include_self=False)
     if empty_value is not None:
         # untouched or fully masked segments come back as +-inf
         out = torch.where(out == fill, torch.full_like(out, empty_value), out)
@@ -64,15 +91,21 @@ def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
 
 
 def segment_max(data, segment_ids, num_segments, *, mask=None,
-                empty_value=0.0):
+                empty_value=0.0, indptr=None):
+    """Masked segment max; empty segments get ``empty_value`` (None: -inf).
+    With ``indptr``, K14 on the card (module docstring)."""
     return _segment_extreme(False, data, segment_ids, num_segments,
-                            mask=mask, empty_value=empty_value)
+                            mask=mask, empty_value=empty_value,
+                            indptr=indptr)
 
 
 def segment_min(data, segment_ids, num_segments, *, mask=None,
-                empty_value=0.0):
+                empty_value=0.0, indptr=None):
+    """Masked segment min; empty segments get ``empty_value`` (None: +inf).
+    With ``indptr``, K14 on the card (module docstring)."""
     return _segment_extreme(True, data, segment_ids, num_segments,
-                            mask=mask, empty_value=empty_value)
+                            mask=mask, empty_value=empty_value,
+                            indptr=indptr)
 
 
 def segment_prod(data, segment_ids, num_segments, *, mask=None):
@@ -94,13 +127,46 @@ AGGREGATIONS: dict[str, Callable] = {
 }
 
 
-def segment_reduce(aggr, data, segment_ids, num_segments, *, mask=None):
-    """Dispatch on ``aggr`` in {sum, mean, max, min, prod} (and aliases)."""
+def aggregation(aggr) -> Callable:
+    """The segment function of ``aggr`` (a name, an alias or a callable
+    such as ``max``); raises ``ValueError`` on an unknown one."""
     if callable(aggr):
         aggr = getattr(aggr, "__name__", str(aggr))
     try:
-        fn = AGGREGATIONS[str(aggr)]
+        return AGGREGATIONS[str(aggr)]
     except KeyError:
         raise ValueError(f"unknown aggregation {aggr!r}; "
                          f"expected one of {list(AGGREGATIONS)}") from None
-    return fn(data, segment_ids, num_segments, mask=mask)
+
+
+def is_extreme(aggr) -> bool:
+    """Whether ``aggr`` is max or min, the reductions K14 takes."""
+    return aggregation(aggr) in (segment_max, segment_min)
+
+
+def segment_reduce(aggr, data, segment_ids, num_segments, *, mask=None,
+                   indptr=None):
+    """Dispatch on ``aggr`` in {sum, mean, max, min, prod} (and aliases).
+    ``indptr`` reaches max and min only; the others ignore it."""
+    kw = {"indptr": indptr} if is_extreme(aggr) else {}
+    return aggregation(aggr)(data, segment_ids, num_segments, mask=mask,
+                             **kw)
+
+
+def segment_softmax(data, segment_ids, num_segments, *, mask=None,
+                    indptr=None):
+    """Numerically stable per-segment softmax over the leading axis (JAX
+    ``ops/segment.py:segment_softmax``): segment max, exp of the shifted
+    values, segment sum, normalise; masked entries give 0.
+
+    The max only shifts the exponent, which the softmax does not see, so no
+    gradient flows through it (exact arithmetic gives it none either): on
+    the card with ``indptr`` it is one K14 forward and no backward.
+    """
+    mx = segment_max(data.detach(), segment_ids, num_segments, mask=mask,
+                     empty_value=0.0, indptr=indptr)
+    ex = torch.exp(data - gather(mx, segment_ids))
+    ex = _masked(ex, mask, 0)
+    denom = segment_sum(ex, segment_ids, num_segments)
+    denom = denom.clamp(min=torch.finfo(ex.dtype).tiny)
+    return ex / gather(denom, segment_ids)

@@ -10,7 +10,10 @@ GAT layers' attention dropout is checked on its own and, for GATv2Conv,
 against JAX with numpy-made masks shared by both packages.
 TransformerConv's batch norms (``nnx.BatchNorm``) are checked in training
 mode and then in eval mode after the running statistics moved, and
-``DotDecoder`` edge by edge.
+``DotDecoder`` edge by edge. The layers with a max or min aggregation
+(GraphConv, SAGEConv, GINConv, EdgeConv) also run through K14's route
+(``SegmentMaxFunction``, the autograd function the card uses), and
+EdgeConv on the reference's two 4-node test graphs too.
 """
 
 import pytest
@@ -25,7 +28,9 @@ from flax import nnx  # noqa: E402
 
 from graphneuralnetworks_tpu import models as JM  # noqa: E402
 from graphneuralnetworks_tpu_torch import models as TM  # noqa: E402
+import graphneuralnetworks_tpu_torch as tgnn  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops import attention as TA  # noqa: E402
+from graphneuralnetworks_tpu_torch.ops import segment as TS  # noqa: E402
 from torch_parity import (F64_TOL, assert_grads_match,  # noqa: E402
                           directed_graph_arrays, graph_pair, jax_params_f64,
                           pad_rows, port_from_jax, t)
@@ -59,6 +64,24 @@ CASES = {
     "gin": (lambda r: JM.GINConv(JM.MLP([4, 8, 3], relu_j, rngs=r), 0.1),
             lambda: TM.GINConv(TM.MLP([4, 8, 3], relu_t, **KW), 0.1), 4,
             False),
+    "gin_max": (lambda r: JM.GINConv(JM.MLP([4, 3], relu_j, rngs=r), 0.1,
+                                     aggr="max"),
+                lambda: TM.GINConv(TM.MLP([4, 3], relu_t, **KW), 0.1,
+                                   aggr="max"), 4, False),
+    "sage_max": (lambda r: JM.SAGEConv(4, 3, relu_j, aggr="max", rngs=r),
+                 lambda: TM.SAGEConv(4, 3, relu_t, aggr="max", **KW), 4,
+                 False),
+    "edgeconv": (lambda r: JM.EdgeConv(JM.MLP([8, 6, 3], relu_j, rngs=r)),
+                 lambda: TM.EdgeConv(TM.MLP([8, 6, 3], relu_t, **KW)), 4,
+                 False),
+    "edgeconv_min": (lambda r: JM.EdgeConv(JM.MLP([6, 3], rngs=r),
+                                           aggr="min"),
+                     lambda: TM.EdgeConv(TM.MLP([6, 3], **KW), aggr="min"),
+                     3, False),
+    "edgeconv_mean": (lambda r: JM.EdgeConv(JM.MLP([6, 3], rngs=r),
+                                            aggr="mean"),
+                      lambda: TM.EdgeConv(TM.MLP([6, 3], **KW),
+                                          aggr="mean"), 3, False),
     "sage": (lambda r: JM.SAGEConv(4, 5, relu_j, rngs=r),
              lambda: TM.SAGEConv(4, 5, relu_t, **KW), 4, False),
     "sage_sum": (lambda r: JM.SAGEConv(4, 3, aggr="sum", rngs=r),
@@ -177,6 +200,54 @@ def test_layer_matches_jax(name):
                        **F64_TOL)
 
 
+@pytest.mark.parametrize("name", ["graphconv_max", "gin_max", "sage_max",
+                                  "edgeconv", "edgeconv_min"])
+def test_max_aggregation_kernel_route_matches_jax(monkeypatch, name):
+    """The max and min cases of :data:`CASES` once more, by K14's route."""
+    monkeypatch.setattr(TS, "_kernel_route", lambda t: True)
+    test_layer_matches_jax(name)
+
+
+@pytest.mark.parametrize("route_kernels", [False, True])
+@pytest.mark.parametrize("aggr", ["max", "mean"])
+def test_edgeconv_on_fixture_graphs_matches_jax(test_graphs, monkeypatch,
+                                                route_kernels, aggr):
+    """EdgeConv on the reference's 4-node test graphs (one with an isolated
+    vertex: a row without in-edges), forward and every gradient."""
+    if route_kernels:
+        monkeypatch.setattr(TS, "_kernel_route", lambda t: True)
+    rng = np.random.default_rng(24)
+    for jg in test_graphs:
+        n, ne = int(jg.num_nodes), int(jg.num_edges)
+        tg = tgnn.graph(np.asarray(jg.senders)[:ne],
+                        np.asarray(jg.receivers)[:ne], num_nodes=n,
+                        device="cpu")
+        jm = jax_params_f64(JM.EdgeConv(JM.MLP([6, 5, 2], relu_j,
+                                               rngs=nnx.Rngs(3)), aggr=aggr))
+        tm = port_from_jax(TM.EdgeConv(TM.MLP([6, 5, 2], relu_t, **KW),
+                                       aggr=aggr), jm)
+        x = rng.standard_normal((n, 3))
+        cot = rng.standard_normal((n, 2))
+        gd, params, rest = nnx.split(jm, nnx.Param, ...)
+
+        def jloss(p, xp):
+            y = nnx.merge(gd, p, rest)(jg, xp)[:n]
+            return jnp.sum(y * cot), y
+
+        (_, jy), (gp, gx) = jax.value_and_grad(
+            jloss, argnums=(0, 1), has_aux=True)(
+            params, jnp.asarray(pad_rows(x, jg.n_pad)))
+        tx = t(x, grad=True)
+        ty = tm(tg, tx)
+        (ty * t(cot)).sum().backward()
+        np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                                   **F64_TOL)
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx)[:n],
+                                   **F64_TOL)
+        assert_grads_match(tm, jax.tree.map(np.asarray,
+                                            nnx.to_pure_dict(gp)), **F64_TOL)
+
+
 def test_gcn_norm_fn_and_conv_weight_overrides():
     s, r, n, w = directed_graph_arrays(seed=9)
     jg, tg = graph_pair(s, r, n, w)
@@ -209,7 +280,8 @@ def test_layers_default_to_the_card(monkeypatch):
     for make in (lambda: TM.GCNConv(3, 4), lambda: TM.MLP([3, 4]),
                  lambda: TM.SAGEConv(3, 4), lambda: TM.GraphConv(3, 4),
                  lambda: TM.GATConv(3, 4, heads=2), lambda: TM.AGNNConv(),
-                 lambda: TM.TransformerConv(3, 4, heads=2)):
+                 lambda: TM.TransformerConv(3, 4, heads=2),
+                 lambda: TM.TopKPool(3, 2), lambda: TM.Set2Set(3, 2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 

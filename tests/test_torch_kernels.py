@@ -1,6 +1,7 @@
 """The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2),
 edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11; dot attention's K6,
-K7, K8) and the per-edge dot (K13).
+K7, K8), the per-edge dot (K13) and the segment max (K14 and its
+backward).
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
   held to) against a dense adjacency product or per-edge loops in float64.
@@ -24,6 +25,7 @@ import graphneuralnetworks_tpu_torch as tgnn  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops import attention as TA  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import sddmm as SD  # noqa: E402
+from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S  # noqa: E402
 
 SLOPE = 0.2
@@ -619,3 +621,154 @@ def test_dot_attention_on_card_matches_cpu(heads, o, d):
                                                          for t in ts[:5]]
     for a, b in zip(results["cuda"], results["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---- segment max (K14) -------------------------------------------------------
+
+def _segment_inputs(f, device, seed=0):
+    """A CSR of 40 rows over 150 entries with rows 5, 6 and 30 empty, data
+    ``[150, f]`` on a coarse grid (exact ties) with one NaN entry, and a
+    cotangent ``[40, f]``, float32."""
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.choice([i for i in range(40) if i not in (5, 6, 30)],
+                             150))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=40))])
+    data = np.round(rng.standard_normal((150, f)) * 2) / 2
+    data[17, f // 2] = np.nan
+    dy = rng.standard_normal((40, f))
+    def tt(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=device)
+    return ids, tt(indptr, torch.int32), tt(data), tt(dy)
+
+
+def test_segment_plain_versions_match_loops():
+    ids, indptr, data, dy = _segment_inputs(3, "cpu")
+    d = data.numpy()
+    mx, mn = SG.segment_max_plain(indptr, data), SG.segment_min_plain(
+        indptr, data)
+    want_mx, want_mn = np.full((40, 3), -np.inf), np.full((40, 3), np.inf)
+    for r in range(40):
+        rows = d[ids == r]
+        if len(rows):
+            want_mx[r] = np.max(rows, 0)     # NaN wins, as in the kernel
+            want_mn[r] = np.min(rows, 0)
+    np.testing.assert_array_equal(mx.numpy(), want_mx)
+    np.testing.assert_array_equal(mn.numpy(), want_mn)
+    dd = SG.segment_max_bwd_plain(indptr, data, mx, dy).numpy()
+    for e, r in enumerate(ids):
+        hits = d[ids == r] == want_mx[r]
+        want = np.where(d[e] == want_mx[r], dy.numpy()[r]
+                        / np.maximum(hits.sum(0), 1), 0)
+        np.testing.assert_array_equal(dd[e], want.astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 3, 4, 8, 64, 128, 200, 260])
+def test_segment_max_kernels_match_plain_on_card(f):
+    """K14 (max, min) and its backward against the plain versions: equal
+    bits (a max picks one of its inputs; the backward divides the same dy
+    by the same count), rows without entries, exact ties, a NaN entry.
+    Widths past 128 floats take several chunks per row; 3 and 1 the scalar
+    path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    _, indptr, data, dy = _segment_inputs(f, "cuda", seed=f)
+    before = dict(SG.launches)
+    for kernel, plain in ((SG.segment_max_csr, SG.segment_max_plain),
+                          (SG.segment_min_csr, SG.segment_min_plain)):
+        torch.testing.assert_close(kernel(indptr, data),
+                                   plain(indptr, data), rtol=0, atol=0,
+                                   equal_nan=True)
+    out = SG.segment_max_plain(indptr, data)
+    torch.testing.assert_close(SG.segment_max_bwd_csr(indptr, data, out, dy),
+                               SG.segment_max_bwd_plain(indptr, data, out,
+                                                        dy), rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert SG.launches["k14"] == before["k14"] + 2
+    assert SG.launches["k14_bwd"] == before["k14_bwd"] + 1
+
+
+@pytest.mark.gpu
+def test_graph_ops_on_card_match_cpu():
+    """The graph-wise ops, max aggregation and pooling on the card (K14)
+    against the same functions on the CPU, forward and input gradients,
+    with the launches of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    graphs, _ = tgnn.data.synthetic_tudataset(6, seed=1, device="cpu")
+    gb = tgnn.batch(graphs, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(gb.num_nodes, 5, device="cuda", generator=gen)
+    e = torch.randn(gb.num_edges, 4, device="cuda", generator=gen)
+    ops = tgnn.ops
+    cases = [
+        (lambda g, x, e: ops.reduce_nodes("max", g, x), {"k14": 1,
+                                                         "k14_bwd": 1}),
+        (lambda g, x, e: ops.reduce_edges("min", g, e), {"k14": 1,
+                                                         "k14_bwd": 1}),
+        (lambda g, x, e: ops.softmax_nodes(g, x), {"k14": 1}),
+        (lambda g, x, e: ops.softmax_edges(g, e), {"k14": 1}),
+        (lambda g, x, e: ops.softmax_edge_neighbors(g, e), {"k14": 1}),
+        (lambda g, x, e: ops.aggregate_neighbors(g, "max", e),
+         {"k14": 1, "k14_bwd": 1}),
+        (lambda g, x, e: tgnn.models.GlobalPool("min")(g, x),
+         {"k14": 1, "k14_bwd": 1}),
+    ]
+    for i, (fn, launches) in enumerate(cases):
+        results = {}
+        for device in ("cuda", "cpu"):
+            xs, es = (v.to(device, copy=True).requires_grad_()
+                      for v in (x, e))
+            before = dict(SG.launches)
+            out = fn(gb.to(device), xs, es)
+            (out * out).sum().backward()
+            torch.cuda.synchronize()
+            launched = {k: c - before[k] for k, c in SG.launches.items()
+                        if c != before[k]}
+            assert launched == (launches if device == "cuda" else {}), i
+            results[device] = [out.detach(), xs.grad, es.grad]
+        for a, b in zip(results["cuda"], results["cpu"]):
+            if b is not None:
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["graphconv", "sage", "gin", "edgeconv",
+                                  "edgeconv_min"])
+def test_max_aggregation_layers_on_card_match_cpu(name):
+    """Each layer with a max or min aggregation reaches K14 on the card
+    (one forward, one backward launch) and matches itself on the CPU,
+    forward and the gradients of the input and of every parameter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    M = tgnn.models
+    gen = torch.Generator().manual_seed(4)
+    kw = dict(generator=gen, device="cpu")
+    layer = {
+        "graphconv": lambda: M.GraphConv(5, 4, aggr="max", **kw),
+        "sage": lambda: M.SAGEConv(5, 4, aggr="max", **kw),
+        "gin": lambda: M.GINConv(M.MLP([5, 4], **kw), 0.1, aggr="max"),
+        "edgeconv": lambda: M.EdgeConv(M.MLP([10, 6, 4], **kw)),
+        "edgeconv_min": lambda: M.EdgeConv(M.MLP([10, 4], **kw),
+                                           aggr="min"),
+    }[name]()
+    graphs, _ = tgnn.data.synthetic_tudataset(6, seed=2, device="cpu")
+    g = tgnn.batch(graphs, device="cpu")
+    x = torch.randn(g.num_nodes, 5, generator=gen)
+    results = {}
+    for device in ("cuda", "cpu"):
+        m = layer.to(device)
+        m.zero_grad(set_to_none=True)
+        xs = x.to(device).requires_grad_()
+        before = dict(SG.launches)
+        out = m(g.to(device), xs)
+        (out * out).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: c - before[k] for k, c in SG.launches.items()
+                    if c != before[k]}
+        assert launched == ({"k14": 1, "k14_bwd": 1} if device == "cuda"
+                            else {})
+        results[device] = [out.detach().cpu(), xs.grad.cpu()] + [
+            p.grad.cpu() for p in m.parameters()]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

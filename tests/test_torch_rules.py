@@ -59,6 +59,16 @@ model = M.GNNChain(M.GCNConv(3, 4, torch.relu, device="cpu"),
 y = model(g, torch.randn(20, 3), deterministic=False)
 (y.sum() + M.DotDecoder()(g, y).sum()).backward()
 assert y.shape == (20, 2)
+graphs, _ = gnn.data.synthetic_tudataset(4, device="cpu")
+gb = gnn.batch(graphs, device="cpu")
+pools = M.GNNChain(M.EdgeConv(M.MLP([14, 6], device="cpu")),
+                   M.GraphConv(6, 6, aggr="max", device="cpu"))
+h = pools(gb, gb.x)
+u = (M.GlobalPool("max")(gb, h).sum() + M.Set2Set(6, 2, device="cpu")(gb, h).sum()
+     + M.GlobalAttentionPool(torch.nn.Linear(6, 1))(gb, h).sum()
+     + M.TopKPool(6, 3, device="cpu")(gb, h)[0].sum()
+     + gnn.ops.softmax_edge_neighbors(gb, h[gb.senders]).sum())
+u.backward()
 bad = sorted(m for m in sys.modules if blocked(m))
 assert not bad, bad
 print("OK")
@@ -116,5 +126,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         tgnn.models.TransformerConv(3, 4, heads=2, batch_norm=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tgnn.models.AGNNConv()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgnn.data.synthetic_tudataset(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgnn.models.Set2Set(3, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgnn.models.TopKPool(3, 2)
+    graphs, _ = tgnn.data.synthetic_tudataset(2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgnn.batch(graphs)
     g = tgnn.graph(np.array([0, 1]), np.array([1, 0]), device="cpu")
     assert g.device.type == "cpu" and g.indptr_r.device.type == "cpu"

@@ -4,6 +4,11 @@
   the same weights (float64, XLA path): the loss at each step and the final
   parameters match (rtol 1e-9, atol 1e-10). ``optax.adam`` and
   ``torch.optim.Adam`` apply the same update.
+- Three Adam steps of examples/graph_classification.py's model (two
+  GraphConv layers, GlobalPool with max or mean, a Dense head, narrowed to
+  width 8) on a batch of ``synthetic_tudataset(8)``, its graph-level
+  cross-entropy, in both packages: the same, by the plain route and by
+  K14's route (``SegmentMaxFunction``, as on the card).
 - The Cora bar (tests/test_integration_cora.py): GCN, GraphConv, SAGE, GIN,
   GAT, GATv2 and Transformer, 40 epochs of Adam, train accuracy > 0.94 and test
   accuracy > 0.69, on the same seeded Cora analogue, which both packages
@@ -29,9 +34,13 @@ from graphneuralnetworks_tpu import models as JM  # noqa: E402
 from graphneuralnetworks_tpu import training as JT  # noqa: E402
 from graphneuralnetworks_tpu.data.datasets import \
     synthetic_cora as j_synthetic_cora  # noqa: E402
+from graphneuralnetworks_tpu.data.datasets import \
+    synthetic_tudataset as j_tudataset  # noqa: E402
 from graphneuralnetworks_tpu_torch import models as TM  # noqa: E402
 from graphneuralnetworks_tpu_torch import training as TT  # noqa: E402
-from graphneuralnetworks_tpu_torch.data import load_cora, synthetic_cora  # noqa: E402
+from graphneuralnetworks_tpu_torch.data import (  # noqa: E402
+    load_cora, synthetic_cora, synthetic_tudataset)
+from graphneuralnetworks_tpu_torch.ops import segment as TS  # noqa: E402
 from graphneuralnetworks_tpu_torch.interop import load_jax_params  # noqa: E402
 from torch_parity import (F64_TOL, jax_params_f64, pad_rows,  # noqa: E402
                           port_from_jax, pure_params, t)
@@ -72,6 +81,44 @@ def test_adam_steps_match_jax():
         tloss = tstep(tg, t(x), torch.tensor(y), torch.tensor(mask))
         np.testing.assert_allclose(float(tloss), float(jloss), **F64_TOL)
 
+    want = load_jax_params(copy.deepcopy(tm), pure_params(state.model(params)))
+    for (name, p), (_, q) in zip(tm.named_parameters(),
+                                 want.named_parameters()):
+        np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(),
+                                   err_msg=name, **F64_TOL)
+
+
+@pytest.mark.parametrize("route_kernels", [False, True])
+@pytest.mark.parametrize("aggr", ["max", "mean"])
+def test_graph_classification_steps_match_jax(monkeypatch, route_kernels,
+                                              aggr):
+    if route_kernels:
+        monkeypatch.setattr(TS, "_kernel_route", lambda t: True)
+    jb = jgnn.batch(j_tudataset(8, seed=2)[0])
+    tb = tgnn.batch(synthetic_tudataset(8, seed=2, device="cpu")[0],
+                    device="cpu")
+    r = nnx.Rngs(5)
+    jm = jax_params_f64(JM.GNNChain(
+        JM.GraphConv(7, 8, jax.nn.relu, rngs=r),
+        JM.GraphConv(8, 8, jax.nn.relu, rngs=r), JM.GlobalPool(aggr),
+        nnx.Linear(8, 2, rngs=r)))
+    tm = port_from_jax(TM.GNNChain(
+        TM.GraphConv(7, 8, torch.relu, **KW),
+        TM.GraphConv(8, 8, torch.relu, **KW), TM.GlobalPool(aggr),
+        torch.nn.Linear(8, 2, dtype=torch.float64)), jm)
+
+    state = JT.TrainState(jm, optax.adam(1e-2))
+    jstep = JT.make_train_step(state, lambda m, g: JT.masked_cross_entropy(
+        m(g, g.x.astype(jnp.float64)), g.globals_["y"], g.graph_mask))
+    tstep = TT.make_train_step(tm, torch.optim.Adam(tm.parameters(), 1e-2),
+                               lambda m, g: TT.masked_cross_entropy(
+                                   m(g, g.x.double()), g.globals_["y"],
+                                   g.graph_mask))
+    params, opt_state = state.params, state.opt_state
+    for _ in range(3):
+        params, opt_state, jloss = jstep(params, opt_state, jb)
+        tloss = tstep(tb)
+        np.testing.assert_allclose(float(tloss), float(jloss), **F64_TOL)
     want = load_jax_params(copy.deepcopy(tm), pure_params(state.model(params)))
     for (name, p), (_, q) in zip(tm.named_parameters(),
                                  want.named_parameters()):
