@@ -29,8 +29,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (1, 128, 128) (AGNN), and with a leaky_relu slope at (4, 32, 32).
    2e: K13 (``sddmm_csr_f32``) at D = 32, 128 and 512 and at (H, D) =
    (4, 32), its backward (K1 twice) against the plain autograd, with the
-   library yardstick ``torch.sparse.sampled_addmm`` and the plain
-   two-gather ``xi_dot_xj`` beside it.
+   library yardstick ``torch.sparse.sampled_addmm`` (batched over the
+   heads at H=4) and the plain two-gather ``xi_dot_xj`` beside it.
    2f: K14 (``segment_max_csr_f32``, max and min) and its backward
    (``segment_max_bwd_csr_f32``) over the receiver CSR at F = 128
    (EdgeConv layer 1's messages), 8 (its head layer) and 4 (``[E, H]``
@@ -40,6 +40,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside the plain version, the library yardstick
    ``torch.segment_reduce(data, "max", offsets=indptr)`` and
    ``scatter_reduce("amax")``.
+   Every timed row of phase 2 has ``ms`` (CUDA events around 10
+   back-to-back calls: the host's gaps between launches count),
+   ``device_ms`` (the kernels' own time per call from ``torch.profiler``),
+   ``host_us`` (the wrapper's host time per call, no synchronise among the
+   calls), and for a library yardstick its ``library_ms`` and
+   ``library_device_ms``.
 3. The main paths at full width, each trained with Adam for 10 steps, with
    the kernel launch counts of exactly those steps; masked cross-entropy
    unless said otherwise: ``GNNChain(GCNConv(128, 128, relu),
@@ -79,8 +85,11 @@ It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a), of
-GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), EdgeConv (3j) and
-graph classification (3k).
+GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
+(3i), EdgeConv (3j) and graph classification (3k). ``--sweep`` times K14
+and its backward at every rows per warp (the measurement behind the
+wrapper's choice); ``--only 2e,2f`` runs phase 1 and the named kernel
+phases only, and prints no result line.
 """
 
 from __future__ import annotations
@@ -207,6 +216,90 @@ def cuda_ms(fn, *, warmup: int = 3, batches: int = 11,
     return statistics.median(times)
 
 
+def device_rows(prof, steps: int = 1) -> list:
+    """``(ms, launches, name)`` per device kernel of a profiler run, each
+    divided by ``steps``, largest first."""
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "is_user_annotation", False):
+            continue   # ranges, not kernels: their time is their kernels'
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / steps, ev.count // steps, ev.key))
+    return sorted(rows, reverse=True)
+
+
+DEVICE_RECORDS = []   # per device_ms call: kernels seen, calls made
+
+
+def device_ms(fn, calls: int = 20, retries: int = 3) -> float:
+    """The card's own time per call: every kernel that ``calls`` calls
+    launch, by ``torch.profiler`` (CUPTI's start and end of each kernel), so
+    that the host's time between launches is not counted. Per kernel name,
+    its mean time times its launches per call (its records over ``calls``,
+    rounded, at least 1): a record the profiler loses does not shrink the
+    sum. Each call's counts go to ``DEVICE_RECORDS``."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        if retries:   # the profiler now and then returns no kernel records
+            log("  (the profiler saw no device time: measuring again)")
+            return device_ms(fn, calls, retries - 1)
+        raise AssertionError("the profiler saw no device time")
+    DEVICE_RECORDS.append({"calls": calls, "records": {
+        name[:60]: n for _, n, name in rows}})
+    return sum(ms / n * max(1, round(n / calls)) for ms, n, _ in rows)
+
+
+def host_us(fn, *, batches: int = 10, calls: int = 100) -> float:
+    """The host's time per call, in µs: the least over ``batches`` of
+    ``calls`` back-to-back calls on the host clock with no synchronise among
+    them (what the wrapper costs the host, the launch included). The least,
+    not the median: the host's cores are shared, and other work only ever
+    adds to a batch's time (medians moved 2x between runs on one card)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(times)
+
+
+def timings(fn, plain=None, lib=None) -> dict:
+    """A kernel wrapper's times: ``ms`` (CUDA events over back-to-back
+    calls, host gaps included), ``device_ms`` (the profiler's kernel time),
+    ``host_us`` (:func:`host_us`); the plain version's CUDA-event time and
+    the library call's CUDA-event and device times where given."""
+    out = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+           "host_us": host_us(fn), "plain_ms": None, "library_ms": None,
+           "library_device_ms": None}
+    if plain is not None:
+        out["plain_ms"] = cuda_ms(plain, warmup=1, batches=3, per_batch=2)
+    if lib is not None:
+        out["library_ms"] = cuda_ms(lib)
+        out["library_device_ms"] = device_ms(lib)
+    return out
+
+
+def fmt_ms(v) -> str:
+    return "none" if v is None else f"{v:.4f} ms"
+
+
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, *,
             rtol: float = RTOL, atol: float = ATOL) -> float:
     if got.shape != ref.shape:
@@ -236,13 +329,15 @@ def bound(bytes_: float, flops: float, card: str) -> tuple[float, str]:
 # ---- phase 2 ---------------------------------------------------------------
 
 def kernel_case(res, card, key, label, fn, plain, args, byt, flops,
-                regathered, checks=None):
-    """Hold ``fn(*args)`` to ``plain(*args)``, time both and add the case
-    to ``res[key]``; returns the plain outputs. ``byt`` is the compulsory
-    bytes, ``regathered`` what the per-edge gathers read again when L2
-    keeps nothing. ``checks``: per output, its name, tolerance and a
-    reference to hold it to in place of the plain output (or None); by
-    default ``out0``, ``out1``, ... at RTOL / ATOL against the plain ones."""
+                regathered, checks=None, lib=None):
+    """Hold ``fn(*args)`` to ``plain(*args)``, time both (and ``lib()``,
+    one PyTorch call computing the same function, if given) and add the
+    case to ``res[key]``; returns the plain outputs. ``byt`` is the
+    compulsory bytes, ``regathered`` what the per-edge gathers read again
+    when L2 keeps nothing. ``checks``: per output, its name, tolerance and
+    a reference to hold it to in place of the plain output (or None); by
+    default ``out0``, ``out1``, ... at RTOL / ATOL against the plain
+    ones."""
     got, want = fn(*args), plain(*args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -253,10 +348,9 @@ def kernel_case(res, card, key, label, fn, plain, args, byt, flops,
     res[key]["err"] = max(res[key]["err"], err)
     b_ms, b_by = bound(byt, flops, card)
     res[key]["variants"].append({
-        "case": label, "ms": cuda_ms(lambda: fn(*args)),
-        "plain_ms": cuda_ms(lambda: plain(*args), warmup=1, batches=3,
-                            per_batch=2),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "case": label, **timings(lambda: fn(*args), lambda: plain(*args),
+                                 lib),
+        "bound_ms": b_ms, "bound_by": b_by,
         "no_reuse_bound_ms": (byt + regathered) / peaks(card)[0] * 1e3,
         "max_abs_err": err})
     return want
@@ -265,12 +359,12 @@ def kernel_case(res, card, key, label, fn, plain, args, byt, flops,
 def log_times(res, width: int) -> None:
     for key, r in res.items():
         for v in r["variants"]:
-            lib = ("none" if v["library_ms"] is None
-                   else f"{v['library_ms']:.4f} ms")
             log(f"  time {key.upper():<3} {v['case']:<{width}} "
-                f"kernel={v['ms']:.4f} ms plain={v['plain_ms']:.4f} ms "
-                f"library={lib} bound={v['bound_ms']:.4f} ms "
-                f"({v['bound_by']}) no-reuse bound="
+                f"kernel={v['ms']:.4f} ms device={v['device_ms']:.4f} ms "
+                f"host={v['host_us']:.1f} us plain={fmt_ms(v['plain_ms'])} "
+                f"library={fmt_ms(v['library_ms'])} (device "
+                f"{fmt_ms(v['library_device_ms'])}) bound="
+                f"{v['bound_ms']:.4f} ms ({v['bound_by']}) no-reuse bound="
                 f"{v['no_reuse_bound_ms']:.4f} ms")
 
 
@@ -298,7 +392,7 @@ def kernel_phase(gnn, g, card: str) -> dict:
                                                       "variants": []}}
     bw = peaks(card)[0]
 
-    def k1_case(label, args, lib=None):
+    def k1_case(label, args, lib):
         indptr, col, eid, w_, src = args
         d = src.shape[1]
         y = S.spmm_csr(*args)
@@ -311,28 +405,44 @@ def kernel_phase(gnn, g, card: str) -> dict:
         byt = idx + 4 * (src.shape[0] + N) * d
         no_reuse = idx + 4 * (E + N) * d if col is not None else byt
         b_ms, b_by = bound(byt, (1 if w_ is None else 2) * E * d, card)
+        # the library call computes the same function: held to the same
+        # tolerance as the plain version before it is timed
+        compare(f"K1 {label} vs library", y, lib())
         res["k1"]["variants"].append({
-            "case": label, "d": d, "ms": cuda_ms(lambda: S.spmm_csr(*args)),
-            "plain_ms": cuda_ms(lambda: S.spmm_plain(*args)),
-            "library_ms": cuda_ms(lib) if lib is not None else None,
+            "case": label, "d": d,
+            **timings(lambda: S.spmm_csr(*args), lambda: S.spmm_plain(*args),
+                      lib),
             "bound_ms": b_ms, "bound_by": b_by,
             "no_reuse_bound_ms": no_reuse / bw * 1e3, "max_abs_err": err})
 
-    a_ones = torch.sparse_csr_tensor(ir, cr, torch.ones(E, device=dev),
-                                     (N, N))
-    a_w = torch.sparse_csr_tensor(ir, cr, w, (N, N))
+    # the library yardsticks: torch.sparse.mm over CSR tensors of the
+    # receiver grouping and of the sender grouping (values w[eid] in
+    # sender order), and segment_reduce for rows already in CSR order
+    def csr(indptr, col, vals):
+        return torch.sparse_csr_tensor(indptr, col, vals, (N, N))
+
+    a_ones = csr(ir, cr, torch.ones(E, device=dev))
+    a_w = csr(ir, cr, w)
+    s_ones = csr(is_, cs, torch.ones(E, device=dev))
+    s_w = csr(is_, cs, w.index_select(0, es.long()))
     log("phase 2: kernels vs plain versions "
         f"(N={N}, E={E}, D={D}, float32)")
     k1_case("fwd receiver-CSR D=128", (ir, cr, None, None, x),
             lambda: torch.sparse.mm(a_ones, x))
     k1_case("fwd receiver-CSR weighted D=128", (ir, cr, None, w, x),
             lambda: torch.sparse.mm(a_w, x))
-    k1_case("bwd sender-CSR D=128", (is_, cs, es, None, dy))
-    k1_case("bwd sender-CSR weighted D=128", (is_, cs, es, w, dy))
-    k1_case("fwd receiver-CSR D=8", (ir, cr, None, None, x8))
-    k1_case("bwd sender-CSR D=8", (is_, cs, es, None, dy8))
-    k1_case("gather-bwd edge rows D=8", (ir, None, None, None, e8))
-    k1_case("fwd receiver-CSR D=7 (scalar path)", (ir, cr, None, w, x7))
+    k1_case("bwd sender-CSR D=128", (is_, cs, es, None, dy),
+            lambda: torch.sparse.mm(s_ones, dy))
+    k1_case("bwd sender-CSR weighted D=128", (is_, cs, es, w, dy),
+            lambda: torch.sparse.mm(s_w, dy))
+    k1_case("fwd receiver-CSR D=8", (ir, cr, None, None, x8),
+            lambda: torch.sparse.mm(a_ones, x8))
+    k1_case("bwd sender-CSR D=8", (is_, cs, es, None, dy8),
+            lambda: torch.sparse.mm(s_ones, dy8))
+    k1_case("gather-bwd edge rows D=8", (ir, None, None, None, e8),
+            lambda: torch.segment_reduce(e8, "sum", offsets=ir))
+    k1_case("fwd receiver-CSR D=7 (scalar path)", (ir, cr, None, w, x7),
+            lambda: torch.sparse.mm(a_w, x7))
 
     for d, xx, dd, ww in ((D, x, dy, w), (D // GAT_HEADS, x32, dy32, w_alpha),
                           (OUT_D, x8, dy8, w)):
@@ -347,9 +457,9 @@ def kernel_phase(gnn, g, card: str) -> dict:
         b_ms, b_by = bound(byt, 4 * E * d, card)
         res["k2"]["variants"].append({
             "case": f"bwd sender-CSR D={d}", "d": d,
-            "ms": cuda_ms(lambda: S.spmm_sddmm(*args)),
-            "plain_ms": cuda_ms(lambda: S.spmm_sddmm_plain(*args)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            **timings(lambda: S.spmm_sddmm(*args),
+                      lambda: S.spmm_sddmm_plain(*args)),
+            "bound_ms": b_ms, "bound_by": b_by,
             "no_reuse_bound_ms": (byt + 4 * (E - N) * d) / bw * 1e3,
             "max_abs_err": err})
 
@@ -366,14 +476,7 @@ def kernel_phase(gnn, g, card: str) -> dict:
     compare("propagate(e_mul_xj) dx", xr.grad, xp.grad)
     compare("propagate(e_mul_xj) dw", wr.grad, wp.grad)
 
-    for k in ("k1", "k2"):
-        for v in res[k]["variants"]:
-            lib = (f"{v['library_ms']:.4f}" if v["library_ms"] is not None
-                   else "none")
-            log(f"  time {k.upper()} {v['case']:<34} kernel={v['ms']:.4f} ms "
-                f"plain={v['plain_ms']:.4f} ms library={lib} ms "
-                f"bound={v['bound_ms']:.4f} ms ({v['bound_by']}) "
-                f"no-reuse bound={v['no_reuse_bound_ms']:.4f} ms")
+    log_times(res, 34)
     log("  clocks.sm,power.draw,temperature.gpu: "
         + smi("clocks.sm,power.draw,temperature.gpu"))
     return res
@@ -573,47 +676,44 @@ def sddmm_phase(g, card: str) -> dict:
     dev = g.device
     gen = torch.Generator(device=dev).manual_seed(6)
     ir, cr = g.indptr_r, g.col_r
-    res = {"k13": {"err": 0.0, "variants": [], "library_error": None}}
+    res = {"k13": {"err": 0.0, "variants": []}}
     log(f"phase 2e: SDDMM kernel vs plain version (N={N}, E={E}, float32)")
-    pattern = torch.sparse_csr_tensor(ir, cr, torch.ones(E, device=dev),
-                                      (N, N))
     for h, d in ((1, D), (1, 32), (1, 512), (GAT_HEADS, D // GAT_HEADS)):
         xi = torch.randn(N, h, d, generator=gen, device=dev)
         xj = torch.randn(N, h, d, generator=gen, device=dev)
+        # the library yardstick: the receiver CSR with all-ones values
+        # times xi @ xj^T, batched over the heads where there are several
+        if h == 1:
+            pattern = torch.sparse_csr_tensor(
+                ir, cr, torch.ones(E, device=dev), (N, N))
+            a, b = xi[:, 0], xj[:, 0].t()
+        else:
+            pattern = torch.sparse_csr_tensor(
+                ir.expand(h, -1).contiguous(), cr.expand(h, -1).contiguous(),
+                torch.ones(h, E, device=dev), (h, N, N))
+            a, b = xi.transpose(0, 1).contiguous(), xj.permute(1, 2, 0)
+
+        def lib():
+            return torch.sparse.sampled_addmm(pattern, a, b, beta=0.0)
+
         # compulsory bytes: indptr, col, both node tables and out once; with
         # no L2 reuse every edge reads its sender's row
         byt = 4 * (N + 1 + E) + 2 * 4 * N * h * d + 4 * E * h
         case = f"H={h} D={d}" if h > 1 else f"D={d}"
+        compare(f"K13 {case} vs sampled_addmm", SD.sddmm_csr(ir, cr, xi, xj),
+                lib().values().reshape(h, E).t())
         kernel_case(res, card, "k13", case, SD.sddmm_csr, SD.sddmm_plain,
                     (ir, cr, xi, xj), byt, 2 * E * h * d,
-                    4 * E * h * d - 4 * N * h * d)
+                    4 * E * h * d - 4 * N * h * d, lib=lib)
         v = res["k13"]["variants"][-1]
         r, s = g.receivers, g.senders
         v["two_gather_ms"] = cuda_ms(
-            lambda: (xi[:, 0].index_select(0, r)
-                     * xj[:, 0].index_select(0, s)).sum(-1),
-            warmup=1, batches=3, per_batch=2) if h == 1 else None
-        if h == 1:
-            a, b = xi[:, 0], xj[:, 0].t()
-            try:
-                lib = torch.sparse.sampled_addmm(pattern, a, b, beta=0.0)
-                compare(f"K13 {case} vs sampled_addmm (info)",
-                        SD.sddmm_csr(ir, cr, xi, xj)[:, 0], lib.values(),
-                        atol=float("inf"))
-                v["library_ms"] = cuda_ms(lambda: torch.sparse.sampled_addmm(
-                    pattern, a, b, beta=0.0))
-            except (RuntimeError, ValueError) as err:
-                res["k13"]["library_error"] = str(err)[:300]
-                log(f"  torch.sparse.sampled_addmm refused: {err}")
-        log(f"  time K13 {case:<10} kernel={v['ms']:.4f} ms "
-            f"plain={v['plain_ms']:.4f} ms two-gather xi_dot_xj="
-            + (f"{v['two_gather_ms']:.4f} ms" if v["two_gather_ms"]
-               is not None else "n/a")
-            + " library=" + (f"{v['library_ms']:.4f} ms"
-                             if v["library_ms"] is not None else "none")
-            + f" bound={v['bound_ms']:.4f} ms ({v['bound_by']}) no-reuse "
-            f"bound={v['no_reuse_bound_ms']:.4f} ms")
-        del xi, xj
+            lambda: (xi.index_select(0, r) * xj.index_select(0, s)).sum(-1),
+            warmup=1, batches=3, per_batch=2)
+        log(f"  time K13 {case:<10} two-gather xi_dot_xj="
+            f"{v['two_gather_ms']:.4f} ms")
+        del xi, xj, pattern, a, b
+    log_times(res, 10)
     # the backward: K1 over the receiver CSR (dxi) and over the sender CSR
     # (dxj), one launch each at H = 1
     xi = torch.randn(N, D, generator=gen, device=dev)
@@ -721,8 +821,6 @@ def segment_phase(g, gb, card: str) -> dict:
         out = SG.segment_max_csr(ip, data)
         same_bits(f"K14 {label} vs torch.segment_reduce", out,
                   torch.segment_reduce(data, "max", offsets=ip))
-        lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "max",
-                                                      offsets=ip))
         rid = _row_ids(ip, rows)[:, None].expand(rows, f)
         init = torch.full((n_rows, f), float("-inf"), device=dev)
         # compulsory bytes: indptr, the entries and the outputs once each
@@ -733,11 +831,10 @@ def segment_phase(g, gb, card: str) -> dict:
         byt = 4 * (n_rows + 1) + 4 * rows * f + 4 * n_rows * f
         b_ms, b_by = bound(byt, rows * f, card)
         res["k14"]["variants"].append({
-            "case": label, "f": f, "ms": cuda_ms(
-                lambda: SG.segment_max_csr(ip, data)),
-            "plain_ms": cuda_ms(lambda: SG.segment_max_plain(ip, data),
-                                warmup=1, batches=3, per_batch=2),
-            "library_ms": lib_ms,
+            "case": label, "f": f,
+            **timings(lambda: SG.segment_max_csr(ip, data),
+                      lambda: SG.segment_max_plain(ip, data),
+                      lambda: torch.segment_reduce(data, "max", offsets=ip)),
             "scatter_reduce_ms": cuda_ms(lambda: init.scatter_reduce(
                 0, rid, data, "amax", include_self=False)),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -745,28 +842,69 @@ def segment_phase(g, gb, card: str) -> dict:
         byt_b = 4 * (n_rows + 1) + 8 * rows * f + 8 * n_rows * f
         b_ms, b_by = bound(byt_b, 2 * rows * f, card)
         res["k14_bwd"]["variants"].append({
-            "case": label, "f": f, "ms": cuda_ms(
-                lambda: SG.segment_max_bwd_csr(ip, data, out, dy)),
-            "plain_ms": cuda_ms(
-                lambda: SG.segment_max_bwd_plain(ip, data, out, dy),
-                warmup=1, batches=3, per_batch=2),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "case": label, "f": f,
+            **timings(lambda: SG.segment_max_bwd_csr(ip, data, out, dy),
+                      lambda: SG.segment_max_bwd_plain(ip, data, out, dy)),
+            "bound_ms": b_ms, "bound_by": b_by,
             "no_reuse_bound_ms": (byt_b + 4 * rows * f) / bw * 1e3,
             "max_abs_err": 0.0})
-        v = res["k14"]["variants"][-1]
-        log(f"  time K14 {label:<40} kernel={v['ms']:.4f} ms plain="
-            f"{v['plain_ms']:.4f} ms library={lib_ms:.4f} ms "
-            f"scatter_reduce={v['scatter_reduce_ms']:.4f} ms "
-            f"bound={v['bound_ms']:.4f} ms ({v['bound_by']})")
-        v = res["k14_bwd"]["variants"][-1]
-        log(f"  time K14 backward {label:<31} kernel={v['ms']:.4f} ms "
-            f"plain={v['plain_ms']:.4f} ms bound={v['bound_ms']:.4f} ms "
-            f"({v['bound_by']}) no-reuse bound="
-            f"{v['no_reuse_bound_ms']:.4f} ms")
+        log(f"  time K14 {label:<40} scatter_reduce="
+            f"{res['k14']['variants'][-1]['scatter_reduce_ms']:.4f} ms")
         del data, dy, checked, out, rid, init, count
+    log_times(res, 40)
     log("  clocks.sm,power.draw,temperature.gpu: "
         + smi("clocks.sm,power.draw,temperature.gpu"))
     return res
+
+
+def tuning_sweep(g, gb, card: str) -> dict:
+    """``--sweep``: the device time of K14 and its backward at every rows
+    per warp the width allows, at phase 2f's shapes: the measurement behind
+    ``ops/cuda/segment.py:_FWD_ENTRIES_PER_GROUP`` and
+    ``_BWD_ENTRIES_PER_GROUP``. Each layout is checked against the
+    wrapper's own choice first (bit for bit)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {"k14": []}
+    log("sweep: K14 rows per warp (device ms, profiler)")
+    for label, ip, f in (("receiver CSR F=4", g.indptr_r, GAT_HEADS),
+                         ("receiver CSR F=8", g.indptr_r, OUT_D),
+                         ("receiver CSR F=128", g.indptr_r, D),
+                         ("graph CSR F=64", gb.indptr_g, TUD_HIDDEN)):
+        n_rows, rows = ip.numel() - 1, int(ip[-1])
+        data = torch.randn(rows, f, generator=gen, device=dev)
+        dy = torch.randn(n_rows, f, generator=gen, device=dev)
+        mx = SG.segment_max_csr(ip, data)
+        bwd = SG.segment_max_bwd_csr(ip, data, mx, dy)
+        fv = f // 4 if f % 4 == 0 else f
+        chosen = [SG._rows_per_warp(fv, n_rows, rows, k) for k in (
+            SG._FWD_ENTRIES_PER_GROUP, SG._BWD_ENTRIES_PER_GROUP)]
+        for log_rows in range(6 - min((fv - 1).bit_length(), 5)):
+            same_bits(f"K14 {label} 2^{log_rows} rows/warp",
+                      SG._segment_extreme_kernel(False, ip, data, log_rows),
+                      mx)
+            same_bits(f"K14 backward {label} 2^{log_rows} rows/warp",
+                      SG._segment_max_bwd_kernel(ip, data, mx, dy, log_rows),
+                      bwd)
+            row = {"case": label, "log_rows": log_rows,
+                   "chosen_fwd": log_rows == chosen[0],
+                   "chosen_bwd": log_rows == chosen[1],
+                   "device_ms": device_ms(lambda: SG._segment_extreme_kernel(
+                       False, ip, data, log_rows)),
+                   "bwd_device_ms": device_ms(
+                       lambda: SG._segment_max_bwd_kernel(ip, data, mx, dy,
+                                                          log_rows))}
+            out["k14"].append(row)
+            log(f"  K14 {label:<20} 2^{log_rows} rows/warp fwd "
+                f"{row['device_ms']:.4f} ms{' (chosen)' * row['chosen_fwd']} "
+                f"bwd {row['bwd_device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen_bwd']}")
+        del data, dy, mx, bwd
+    log("  clocks.sm,power.draw,temperature.gpu: "
+        + smi("clocks.sm,power.draw,temperature.gpu"))
+    return out
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -1126,7 +1264,7 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
         return link_loss(*m(g, g, gneg, x))
 
     res["link"] = train_phase("link prediction", model_l, (g, gneg, x),
-                              loss_link, {"k13": 2, "k1": 3 + 4}, False)
+                              loss_link, {"k13": 2, "k1": 3 + 4}, profile)
     log("phase 3c (link): one forward+backward of the link step on the "
         "card (K1, K13) vs the CPU plain path")
     gneg_cpu = gneg.to("cpu")
@@ -1429,21 +1567,11 @@ def profile_steps(model, args, loss_fn, out_dir) -> dict:
             step(*args)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows, host = [], []
-    for ev in prof.key_averages():
-        if getattr(ev, "is_user_annotation", False):
-            continue   # ranges, not kernels: their time is their kernels'
-        if not str(ev.device_type).endswith("CUDA"):
-            if ev.key.startswith("aten::"):
-                host.append((ev.self_cpu_time_total / 1e3 / 3,
-                             ev.count // 3, ev.key))
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / 3, ev.count // 3, ev.key))
-    rows.sort(reverse=True)
-    host.sort(reverse=True)
+    rows = device_rows(prof, 3)
+    host = sorted(((ev.self_cpu_time_total / 1e3 / 3, ev.count // 3, ev.key)
+                   for ev in prof.key_averages()
+                   if not str(ev.device_type).endswith("CUDA")
+                   and ev.key.startswith("aten::")), reverse=True)
     busy = sum(r[0] for r in rows)
     n_ops = sum(r[1] for r in host)
     log(f"  profile (3 steps): wall {wall / 3:.3f} ms/step, device busy "
@@ -1563,6 +1691,13 @@ def main() -> int:
                     help="directory for chip_smoke.json (and the trace)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of the train step")
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help="run phase 1 and only these kernel phases, in this "
+                         "order (comma-separated, of 2,2b,2c,2d,2e,2f), then "
+                         "stop without a result line")
+    ap.add_argument("--sweep", action="store_true",
+                    help="after phase 2, time K14 and its backward at "
+                         "every rows per warp")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1602,12 +1737,26 @@ def main() -> int:
         f"({g.num_nodes} nodes, {g.num_edges} edges)")
     gb, tud = tud_batch(gnn, g.device)
 
-    kern = kernel_phase(gnn, g, card)
-    kern.update(attention_phase(g, card))
-    kern.update(gatv2_phase(g, card))
-    kern.update(dot_phase(g, card))
-    kern.update(sddmm_phase(g, card))
-    kern.update(segment_phase(g, gb, card))
+    kernel_phases = {"2": lambda: kernel_phase(gnn, g, card),
+                     "2b": lambda: attention_phase(g, card),
+                     "2c": lambda: gatv2_phase(g, card),
+                     "2d": lambda: dot_phase(g, card),
+                     "2e": lambda: sddmm_phase(g, card),
+                     "2f": lambda: segment_phase(g, gb, card)}
+    kern = {}
+    for phase in (args.only.split(",") if args.only else kernel_phases):
+        kern.update(kernel_phases[phase]())
+    sweep = tuning_sweep(g, gb, card) if args.sweep else None
+    if args.only:
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, "
+            f"{args.only} only: no result)")
+        if args.out:
+            with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+                json.dump({"card": card_line, "torch": torch.__version__,
+                           "cuda": torch.version.cuda, "build_s": build_s,
+                           "kernels": kern, "sweep": sweep,
+                           "device_records": DEVICE_RECORDS}, f, indent=1)
+        return 0
     main_res = main_path_phase(g, args.profile, args.out)
     graph_res = graph_path_phase(g, gb, args.profile, args.out)
     main_res["vs_cpu"].update(graph_res.pop("vs_cpu"))
@@ -1625,7 +1774,9 @@ def main() -> int:
                 "max_abs_err": kern[key]["err"],
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "case": head["case"]}
+                "library_ms": head["library_ms"], "case": head["case"],
+                "device_ms": head["device_ms"], "host_us": head["host_us"],
+                "library_device_ms": head["library_device_ms"]}
 
     # each kernel's launches are read from the path that drives it
     kernels = [
@@ -1655,8 +1806,10 @@ def main() -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card_line, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
-                       "kernels": kern, "main_path": main_res,
-                       "cora": cora, "total_s": total_s}, f, indent=1)
+                       "kernels": kern, "sweep": sweep,
+                       "device_records": DEVICE_RECORDS,
+                       "main_path": main_res, "cora": cora,
+                       "total_s": total_s}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -12,25 +12,50 @@
 // receiver CSR is the edge id and the kernel writes out[e] in edge order
 // directly: nothing to ungroup.
 //
-// Layout of the work: one warp owns one (row, head) pair, all heads in one
-// launch. A head's D floats split into vectors (float4 when D % 4 == 0 and
-// xi, xj are 16-byte aligned) and the warp into edge groups of G lanes (G =
-// the vector count rounded up to a power of two, at most 32) that take
-// interleaved edges; each group reduces its edge's dot with shuffles. Rows
-// wider than 32 vectors loop over chunks: the receiver's chunk stays in a
-// register, and chunks after the first add to out[e], which the same lane
-// owns in every chunk. Every output is written by one lane in a fixed order:
-// no atomics, the same bits in every run.
+// Bound on an H100: memory, and what decides it is the gathered table. Each
+// edge gathers one xj row of H*D floats against 2*H*D flops: at N = 131,072,
+// E = 2M and H*D = 128 that is ~1.1 GB through the L2 against 0.15 GB of
+// compulsory traffic, with a 64 MB table under random senders that the
+// 50 MB L2 holds only in part.
 //
-// Bound on an H100: memory. Each edge gathers one xj row of H*D floats (512
-// bytes at H=1, D=128) against 2*H*D flops; the receiver's row is read once
-// per chunk and stays in a register. The compulsory traffic (each input and
-// output once) is smaller than the gathered traffic, and the L2's reuse of
-// gathered rows decides where between the two the kernel lands. Reducing
-// each edge on its own costs log2 G shuffles per edge; two variants that
-// batch 8 or 32 edges per lane and reduce them together (B - 1 shuffles for
-// B edges) ran no faster at D = 128 (the 32-edge one 3.4x slower, at 246
-// registers): the gathered rows, not the shuffles, set the time.
+// Layout of the work:
+// (a) One warp takes kPairs = 4 consecutive (row, head) pairs, one after
+//     the other. A head's D floats split into vectors (float4 when the
+//     caller asks: D % 4 == 0 and xi, xj 16-byte aligned) and the warp into
+//     edge groups of G lanes (G = the vector count rounded up to a power of
+//     two, at most 32). The warp loads its rows' indptr entries in one load
+//     and 32 of a row's column indices in another, broadcasts each edge's
+//     sender by a shuffle, and each group issues kUnroll = 4 gathers before
+//     it reduces any of them by shuffles. The next pair's xi vector and
+//     first indices are loaded before the current pair's gathers: the first
+//     port's warp waited on indptr, then col, then each gathered row in turn.
+//     The kernel is held to 64 registers (4 blocks of 8 warps per SM) with
+//     no spills; left free, the look-ahead took 80 (3 blocks).
+// (b) The gathered rows are loaded with an L2 evict_last policy and the
+//     operands read once with evict-first loads (below).
+// (c) Rows wider than 32 vectors run as one launch per chunk of 32 vectors
+//     (128 floats with float4), in order on the stream; chunks after the
+//     first add their partial dot to out[e], in the order the first port
+//     added them, so the per-edge sum order is unchanged.
+// Every output is written by one lane in a fixed order: no atomics, the
+// same bits in every run.
+//
+// Tried and dropped (chip_smoke.py --sweep on an H100 at 700 W): cutting the
+// senders into contiguous tiles that fit an L2 budget, the grid ordered tile
+// by tile and each warp taking only its row's edges in its tile. Tiles of
+// 12-32 MB (T = 2-6) were slower than one tile at every width, from 1 %
+// (D = 128, T = 2) to 3.6x (H = 4, D = 32, T = 6): each tile re-reads xi and
+// the indices (T * 72 MB at D = 128), and gathers that hit the L2 are held
+// by its throughput. One pair per warp was 4-37 % slower than 4, and the L2
+// priorities gain 1-3 %. Against the 64-register kernel, the look-ahead at
+// 80 registers ran 14-24 % slower, and no look-ahead (48-64 registers) 2-8 %
+// slower (D = 32 to 512).
+//
+// Measured (the profiler's device time, N = 131,072, E = 2M; PERF.md §6):
+// 0.285 ms at D = 128 against 0.373 for the first port and 0.346 for
+// torch.sparse.sampled_addmm; 1.22 ms at D = 512 (1.67, 1.48). That is
+// 0.86x the bound with no L2 reuse at D = 128: ~3.8 TB/s of gathered rows
+// through the L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +65,8 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
+constexpr int kUnroll = 4;   // gathers a group issues before reducing
+constexpr int kPairs = 4;    // (row, head) pairs per warp
 
 template <typename V> __device__ __forceinline__ V vzero();
 template <> __device__ __forceinline__ float vzero<float>() { return 0.f; }
@@ -47,46 +74,117 @@ template <> __device__ __forceinline__ float4 vzero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// L2 eviction priorities (sm_80+): the gathered rows are loaded with an
+// evict_last policy (createpolicy and the .L2::cache_hint load qualifier),
+// what a warp reads once (its xi vectors, its column indices) with
+// ld.global.cs (evict first), so that the streamed operands do not push
+// gathered rows out of the L2.
+__device__ __forceinline__ unsigned long long keep_policy() {
+  unsigned long long p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ float ld_keep(const float* a,
+                                         unsigned long long p) {
+  float v;
+  asm("ld.global.L2::cache_hint.f32 %0, [%1], %2;"
+      : "=f"(v) : "l"(a), "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 ld_keep(const float4* a,
+                                          unsigned long long p) {
+  float4 v;
+  asm("ld.global.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(a), "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ float vdot(float a, float b) { return a * b; }
 __device__ __forceinline__ float vdot(const float4& a, const float4& b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-// K13. Over the receiver CSR, row r, head h: out[e, h] = <xi[r, h], xj[col[e],
-// h]> for each position e of the row.
+// K13 over the receiver CSR for column vectors [c0, c0 + G) of each head:
+// out[e, h] (+)= <xi[r, h], xj[col[e], h]> over that chunk, for each
+// position e of row r. A warp takes kPairs consecutive (row, head) pairs,
+// one after the other: the indptr entries of all their rows come in one
+// load, and the next pair's xi vector and first 32 column indices are
+// loaded before the current pair's gathers, so that only the gathers wait
+// on memory.
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 sddmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
                  const V* __restrict__ xi, const V* __restrict__ xj,
                  float* __restrict__ out, int n_rows, int heads, int dv,
-                 int log_g) {
-  const long long w =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (w >= (long long)n_rows * heads) return;   // warp-uniform
-  const int row = (int)(w / heads), h = (int)(w % heads);
+                 int log_g, int c0) {
   const int lane = threadIdx.x & 31;
+  const long long n_pairs = (long long)n_rows * heads;
+  const long long q0 =
+      ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kPairs;
+  if (q0 >= n_pairs) return;   // warp-uniform
+  const long long q_end = q0 + kPairs < n_pairs ? q0 + kPairs : n_pairs;
   const int g = 1 << log_g;    // lanes per edge group
   const int p = 32 >> log_g;   // edge groups per warp
   const int grp = lane >> log_g;
   const int sub = lane & (g - 1);
-  const int beg = indptr[row], end = indptr[row + 1];
-  for (int c0 = 0; c0 < dv; c0 += g) {
-    const int f = c0 + sub;
-    const bool active = f < dv;
-    const V xr = active ? xi[w * dv + f] : vzero<V>();
-    for (int base = beg; base < end; base += p) {   // warp-uniform trips
-      const int e = base + grp;
-      const bool ok = e < end;
-      float part = 0.f;
-      if (ok && active)
-        part = vdot(xr, xj[((long long)col[e] * heads + h) * dv + f]);
-      for (int off = 1; off < g; off <<= 1)
-        part += __shfl_xor_sync(kFull, part, off);
-      if (ok && sub == 0) {
-        float* o = out + (long long)e * heads + h;
-        *o = c0 == 0 ? part : *o + part;
+  const int f = c0 + sub;
+  const bool active = f < dv;
+  const unsigned long long pol = keep_policy();
+  // lane i holds indptr[r0 + i] for the warp's rows r0 .. r0 + nr - 1
+  const int r0 = (int)(q0 / heads);
+  const int nr = (int)((q_end - 1) / heads) - r0 + 1;   // <= kPairs
+  const int ip = lane <= nr ? indptr[r0 + lane] : 0;
+  // pair q's range, first 32 column indices and xi vector
+  auto fetch = [&](long long q, int& beg, int& end, int& c, V& xr) {
+    const int r = (int)(q / heads) - r0;
+    beg = __shfl_sync(kFull, ip, r);
+    end = __shfl_sync(kFull, ip, r + 1);
+    c = beg + lane < end ? __ldcs(col + beg + lane) : 0;
+    xr = active ? __ldcs(xi + q * dv + f) : vzero<V>();
+  };
+  int beg, end, c;
+  V xr;
+  fetch(q0, beg, end, c, xr);
+  for (long long q = q0; q < q_end; ++q) {   // warp-uniform trips
+    int nbeg = 0, nend = 0, nc = 0;
+    V nxr = vzero<V>();
+    if (q + 1 < q_end) fetch(q + 1, nbeg, nend, nc, nxr);
+    const int h = (int)(q % heads);
+    for (int base = beg; base < end; base += 32) {   // warp-uniform trips
+      if (base != beg) c = base + lane < end ? __ldcs(col + base + lane) : 0;
+      const int n = end - base < 32 ? end - base : 32;
+      for (int k0 = 0; k0 < n; k0 += p * kUnroll) {   // warp-uniform trips
+        V v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {   // edge k's sender from lane k
+          const int k = k0 + u * p + grp;
+          const int s = __shfl_sync(kFull, c, k & 31);
+          v[u] = k < n && active
+              ? ld_keep(xj + ((long long)s * heads + h) * dv + f, pol)
+              : vzero<V>();
+        }
+        float part[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) part[u] = vdot(xr, v[u]);
+        for (int off = 1; off < g; off <<= 1) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            part[u] += __shfl_xor_sync(kFull, part[u], off);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int k = k0 + u * p + grp;
+          if (k < n && sub == 0) {
+            float* o = out + (long long)(base + k) * heads + h;
+            *o = c0 > 0 ? *o + part[u] : part[u];
+          }
+        }
       }
     }
+    beg = nbeg;
+    end = nend;
+    c = nc;
+    xr = nxr;
   }
 }
 
@@ -100,31 +198,45 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// One launch per chunk of 32 vectors of a head's row, in order.
+template <typename V>
+int launch(const int* indptr, const int* col, const float* xi,
+           const float* xj, float* out, int n_rows, int heads, int dv,
+           cudaStream_t st) {
+  const long long warps = ((long long)n_rows * heads + kPairs - 1) / kPairs;
+  const unsigned blocks =
+      (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const int lg = log_group(dv);
+  for (int c0 = 0; c0 < dv; c0 += 1 << lg) {
+    sddmm_csr_kernel<V><<<blocks, kThreads, 0, st>>>(
+        indptr, col, reinterpret_cast<const V*>(xi),
+        reinterpret_cast<const V*>(xj), out, n_rows, heads, dv, lg, c0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success). The caller
-// allocates out [E, heads] and makes sure n_rows > 0, heads > 0, d > 0 and
-// n_rows * heads < 2^34 (one warp per pair in one grid).
+// Returns cudaGetLastError() after the launches (0 on success), or
+// cudaErrorInvalidValue without launching when vec4 is set but d % 4 != 0 or
+// xi, xj are not 16-byte aligned. The caller allocates out [E, heads] and
+// makes sure n_rows > 0, heads > 0, d > 0 and n_rows * heads < 2^35.
+// vec4: load rows as float4.
 int sddmm_csr_f32(const int* indptr, const int* col, const float* xi,
                   const float* xj, float* out, int n_rows, int heads, int d,
-                  void* stream) {
+                  int vec4, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long warps = (long long)n_rows * heads;
-  const unsigned nb =
-      (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (d % 4 == 0 && aligned16(xi) && aligned16(xj)) {
-    const int dv = d / 4;
-    sddmm_csr_kernel<float4><<<nb, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const float4*>(xi),
-        reinterpret_cast<const float4*>(xj), out, n_rows, heads, dv,
-        log_group(dv));
-  } else {
-    sddmm_csr_kernel<float><<<nb, kThreads, 0, st>>>(
-        indptr, col, xi, xj, out, n_rows, heads, d, log_group(d));
+  if (vec4) {
+    if (d % 4 != 0 || !aligned16(xi) || !aligned16(xj))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch<float4>(indptr, col, xi, xj, out, n_rows, heads, d / 4,
+                          st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(indptr, col, xi, xj, out, n_rows, heads, d, st);
 }
 
 const char* gnn_cuda_error_string(int code) {

@@ -21,15 +21,23 @@
 // output's entries no gradient (no entry equals NaN). A tie splits the
 // cotangent evenly, the gradient JAX and PyTorch both give.
 //
-// Layout of the work: one warp owns one (row, chunk of 32 column vectors).
-// Columns go to lanes as float4 when F % 4 == 0 and the pointers are 16-byte
-// aligned, else as scalars. A row narrower than 32 vectors splits the warp
-// into edge groups of G lanes (G = the vector count rounded up to a power of
-// two) that take interleaved entries; the groups' partial results meet by
-// shuffles at the end. Each output is written by one lane, each entry of
-// ddata by one lane, with no atomics: the same bits in every run. Max and min
-// are one loop with the comparison reversed, not -max(-x), which would cost
-// two more passes over [rows, F].
+// Layout of the work. A row's columns go to lanes as float4 when the caller
+// asks for it (F % 4 == 0, pointers 16-byte aligned), else as scalars; G
+// lanes (the vector count rounded up to a power of two, at most 32) cover a
+// row's width, or a chunk of 32 vectors of a wider row. A warp takes R = 2^
+// log_rows consecutive rows (R = 1 for chunked rows): each row owns 32 / R
+// lanes, which split into P = 32 / (R G) edge groups that take interleaved
+// entries, four independent loads in flight per lane to the row's end (the
+// loads past it masked to the identity); the groups of one row meet by
+// shuffles that never cross into another row's lanes. Each output is
+// written by one lane, each entry of ddata by one lane, with no atomics.
+// Max and min are one loop with the comparison reversed, not -max(-x),
+// which would cost two more passes over [rows, F]. The caller (ops/cuda/
+// segment.py:_rows_per_warp) picks R from the width and the mean row length
+// so that each edge group walks at least 4 entries in the forward, 2 in the
+// backward (which reads each entry twice). R = 1 at F = 4 left a warp with
+// ~15 entries of one float4 for 32 groups, half its lanes idle, and 16
+// waves of warps that each waited on indptr, then data, then 5 shuffles.
 //
 // Bound on an H100: memory. The forward reads each entry once (4 bytes
 // against one comparison) and writes each output once; the rows are
@@ -37,6 +45,16 @@
 // backward counts the ties of a row in a first sweep and writes ddata in a
 // second; the second sweep re-reads the row's entries, which the first just
 // brought into L1/L2 (a row of 15 entries at F = 128 is 7.5 KB).
+//
+// Measured (chip_smoke.py --sweep, H100 at 700 W, N = 131,072, E = 2M; the
+// profiler's device time): at F = 4, 0.053 ms at R = 1 against 0.011-0.014
+// at R = 4-32; at F = 8, 0.051 at R = 1, 0.028-0.029 at R = 4-8; the
+// backward 0.067 / 0.074 ms at R = 1, 0.031 / 0.053 at R = 8 / 4. Wide rows
+// (F = 128) and the 3k batch's graph CSR (F = 64, ~19 entries) keep R = 1.
+// Masking the last loads, where a scalar tail loop waited on one load after
+// another, took 8-13 % off the forward at F = 4 and 8 and 7-8 % off the
+// backward. Not built: a warp that reads its rows' contiguous span coalesced
+// and reduces it by a segmented scan over lanes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -107,31 +125,42 @@ __device__ __forceinline__ float4 route(const float4& d, const float4& o,
                      route(d.z, o.z, s.z), route(d.w, o.w, s.w));
 }
 
-// The (row, chunk) a warp owns and the column vector its lane handles.
+// The (row, chunk) a lane works on and the column vector it handles.
 struct Task {
-  int beg, end;   // the row's entries
-  int grp, p;     // this lane's edge group, the number of groups
+  int beg, end;   // the row's entries (none for a row past the last)
+  int grp, p;     // this lane's edge group, the row's number of groups
+  int seg;        // lanes per row: the row's groups meet within them
+  int g;          // lanes per column vector group (G)
   long long o;    // the output position (row * fv + f)
   int f;          // column vector
-  bool active;    // f < fv
+  bool active;    // the row exists and f < fv
 };
 
+// Warp w takes rows [w / chunks * R, ... + R) and chunk w % chunks; lane l
+// the row (l >> (5 - log_rows)). False (warp-uniform) past the last warp.
 __device__ __forceinline__ bool task(const int* __restrict__ indptr,
                                      int n_rows, int fv, int chunks,
-                                     int log_g, Task& t) {
+                                     int log_g, int log_rows, Task& t) {
   const long long w =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (w >= (long long)n_rows * chunks) return false;   // warp-uniform
-  const int row = (int)(w / chunks), chunk = (int)(w % chunks);
+  const long long blocks_of_rows =
+      ((long long)n_rows + (1 << log_rows) - 1) >> log_rows;
+  if (w >= blocks_of_rows * chunks) return false;
+  const int chunk = (int)(w % chunks);
   const int lane = threadIdx.x & 31;
-  const int g = 1 << log_g;
-  t.p = 32 >> log_g;
-  t.grp = lane >> log_g;
-  t.f = chunk * g + (lane & (g - 1));
-  t.active = t.f < fv;
-  t.o = (long long)row * fv + t.f;
-  t.beg = indptr[row];
-  t.end = indptr[row + 1];
+  const int log_seg = 5 - log_rows;
+  const long long row = ((w / chunks) << log_rows) + (lane >> log_seg);
+  const int sl = lane & ((1 << log_seg) - 1);   // lane within the row
+  t.g = 1 << log_g;
+  t.seg = 1 << log_seg;
+  t.p = t.seg >> log_g;
+  t.grp = sl >> log_g;
+  t.f = chunk * t.g + (sl & (t.g - 1));
+  const bool live = row < n_rows;
+  t.active = live && t.f < fv;
+  t.o = row * fv + t.f;
+  t.beg = live ? indptr[row] : 0;
+  t.end = live ? indptr[row + 1] : 0;
   return true;
 }
 
@@ -140,17 +169,30 @@ template <typename V, bool kMin>
 __global__ void __launch_bounds__(kThreads)
 segment_extreme_kernel(const int* __restrict__ indptr,
                        const V* __restrict__ data, V* __restrict__ out,
-                       int n_rows, int fv, int chunks, int log_g) {
+                       int n_rows, int fv, int chunks, int log_g,
+                       int log_rows) {
   Task t;
-  if (!task(indptr, n_rows, fv, chunks, log_g, t)) return;
-  V acc = vfill<V>(kMin ? CUDART_INF_F : -CUDART_INF_F);
+  if (!task(indptr, n_rows, fv, chunks, log_g, log_rows, t)) return;
+  const V none = vfill<V>(kMin ? CUDART_INF_F : -CUDART_INF_F);
+  V acc = none;
   if (t.active) {
-#pragma unroll 4
-    for (int e = t.beg + t.grp; e < t.end; e += t.p)
-      acc = pick<kMin>(acc, data[(long long)e * fv + t.f]);
+    const V* col = data + t.f;
+    const int s = t.p;
+    // four loads issued before any comparison, those past the row's end
+    // masked to the identity (pick(acc, none) is acc, bit for bit), so the
+    // tail of a short row does not wait on one load after another; entries
+    // in order
+    for (int e = t.beg + t.grp; e < t.end; e += 4 * s) {
+      V a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        a[u] = e + u * s < t.end ? col[(long long)(e + u * s) * fv] : none;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc = pick<kMin>(acc, a[u]);
+    }
   }
-  // the groups' lanes of one column are 1 << log_g apart
-  for (int off = 32 / t.p; off < 32; off <<= 1)
+  // the groups' lanes of one column are G apart, within the row's lanes
+  for (int off = t.g; off < t.seg; off <<= 1)
     acc = pick<kMin>(acc, shfl(acc, off));
   if (t.active && t.grp == 0) out[t.o] = acc;
 }
@@ -163,24 +205,41 @@ segment_extreme_bwd_kernel(const int* __restrict__ indptr,
                            const V* __restrict__ data,
                            const V* __restrict__ out,
                            const V* __restrict__ dy, V* __restrict__ ddata,
-                           int n_rows, int fv, int chunks, int log_g) {
+                           int n_rows, int fv, int chunks, int log_g,
+                           int log_rows) {
   Task t;
-  if (!task(indptr, n_rows, fv, chunks, log_g, t)) return;
+  if (!task(indptr, n_rows, fv, chunks, log_g, log_rows, t)) return;
   const V o = t.active ? out[t.o] : vfill<V>(0.f);
-  V cnt = vfill<V>(0.f);
-  if (t.active) {
-#pragma unroll 4
-    for (int e = t.beg + t.grp; e < t.end; e += t.p)
-      cnt = add(cnt, hit(data[(long long)e * fv + t.f], o));
+  const V zero = vfill<V>(0.f);
+  V cnt = zero;
+  if (t.active) {   // four loads in flight, as in the forward
+    for (int e = t.beg + t.grp; e < t.end; e += 4 * t.p) {
+      V h[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = e + u * t.p;
+        h[u] = k < t.end ? hit(data[(long long)k * fv + t.f], o) : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) cnt = add(cnt, h[u]);
+    }
   }
-  for (int off = 32 / t.p; off < 32; off <<= 1)   // exact: small integers
+  for (int off = t.g; off < t.seg; off <<= 1)   // exact: small integers
     cnt = add(cnt, shfl(cnt, off));
   if (!t.active) return;
   const V s = share(dy[t.o], cnt);
-#pragma unroll 4
-  for (int e = t.beg + t.grp; e < t.end; e += t.p) {
-    const long long i = (long long)e * fv + t.f;
-    ddata[i] = route(data[i], o, s);
+  for (int e = t.beg + t.grp; e < t.end; e += 4 * t.p) {
+    V d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = e + u * t.p;
+      d[u] = k < t.end ? data[(long long)k * fv + t.f] : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = e + u * t.p;
+      if (k < t.end) ddata[(long long)k * fv + t.f] = route(d[u], o, s);
+    }
   }
 }
 
@@ -194,74 +253,90 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// Grid of one warp per (row, chunk of 32 vectors).
+// Grid of one warp per (R rows, chunk of 32 vectors); 0 blocks when the
+// caller's rows per warp does not fit the width.
 struct Shape {
   int fv, chunks, log_g;
   unsigned blocks;
 };
 
-Shape shape(int n_rows, int fv) {
+Shape shape(int n_rows, int fv, int log_rows) {
   Shape s;
   s.fv = fv;
   s.log_g = log_group(fv);
   s.chunks = (fv + 31) / 32;
-  const long long warps = (long long)n_rows * s.chunks;
+  s.blocks = 0;
+  if (log_rows < 0 || s.log_g + log_rows > 5) return s;
+  const long long warps =
+      (((long long)n_rows + (1 << log_rows) - 1) >> log_rows) * s.chunks;
   s.blocks = (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
   return s;
+}
+
+template <typename V, bool kMin>
+int launch_fwd(const int* indptr, const float* data, float* out, int n_rows,
+               int fv, int log_rows, cudaStream_t st) {
+  const Shape s = shape(n_rows, fv, log_rows);
+  if (s.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  segment_extreme_kernel<V, kMin><<<s.blocks, kThreads, 0, st>>>(
+      indptr, reinterpret_cast<const V*>(data), reinterpret_cast<V*>(out),
+      n_rows, s.fv, s.chunks, s.log_g, log_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success). The caller
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue without launching when vec4 is set but f % 4 != 0 or
+// a pointer is not 16-byte aligned, or when log_rows is negative or R rows
+// of the width do not fit in a warp (log2 G + log_rows > 5). The caller
 // allocates out [n_rows, f] and makes sure n_rows > 0, f > 0, that indptr's
-// last entry is data's row count, and that the grid of n_rows times a row's
-// chunks of 32 column vectors (float4 or scalar) has fewer than 2^34 warps.
+// last entry is data's row count, and that the grid has fewer than 2^34
+// warps. vec4: load the columns as float4; log_rows: log2 of the rows per
+// warp.
 int segment_max_csr_f32(const int* indptr, const float* data, float* out,
-                        int n_rows, int f, int op_min, void* stream) {
+                        int n_rows, int f, int op_min, int vec4,
+                        int log_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f % 4 == 0 && aligned16(data) && aligned16(out)) {
-    const Shape s = shape(n_rows, f / 4);
-    const float4* d4 = reinterpret_cast<const float4*>(data);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    if (op_min)
-      segment_extreme_kernel<float4, true><<<s.blocks, kThreads, 0, st>>>(
-          indptr, d4, o4, n_rows, s.fv, s.chunks, s.log_g);
-    else
-      segment_extreme_kernel<float4, false><<<s.blocks, kThreads, 0, st>>>(
-          indptr, d4, o4, n_rows, s.fv, s.chunks, s.log_g);
-  } else {
-    const Shape s = shape(n_rows, f);
-    if (op_min)
-      segment_extreme_kernel<float, true><<<s.blocks, kThreads, 0, st>>>(
-          indptr, data, out, n_rows, s.fv, s.chunks, s.log_g);
-    else
-      segment_extreme_kernel<float, false><<<s.blocks, kThreads, 0, st>>>(
-          indptr, data, out, n_rows, s.fv, s.chunks, s.log_g);
+  if (vec4) {
+    if (f % 4 != 0 || !aligned16(data) || !aligned16(out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return op_min
+        ? launch_fwd<float4, true>(indptr, data, out, n_rows, f / 4,
+                                   log_rows, st)
+        : launch_fwd<float4, false>(indptr, data, out, n_rows, f / 4,
+                                    log_rows, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return op_min ? launch_fwd<float, true>(indptr, data, out, n_rows, f,
+                                          log_rows, st)
+                : launch_fwd<float, false>(indptr, data, out, n_rows, f,
+                                           log_rows, st);
 }
 
 // The same contract; ddata [rows, f] gets every entry of the CSR. Max and
 // min share it: it routes dy to the entries that equal out.
 int segment_max_bwd_csr_f32(const int* indptr, const float* data,
                             const float* out, const float* dy, float* ddata,
-                            int n_rows, int f, void* stream) {
+                            int n_rows, int f, int vec4, int log_rows,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f % 4 == 0 && aligned16(data) && aligned16(out) && aligned16(dy) &&
-      aligned16(ddata)) {
-    const Shape s = shape(n_rows, f / 4);
+  if (vec4 && (f % 4 != 0 || !aligned16(data) || !aligned16(out) ||
+               !aligned16(dy) || !aligned16(ddata)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s = shape(n_rows, vec4 ? f / 4 : f, log_rows);
+  if (s.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec4)
     segment_extreme_bwd_kernel<float4><<<s.blocks, kThreads, 0, st>>>(
         indptr, reinterpret_cast<const float4*>(data),
         reinterpret_cast<const float4*>(out),
         reinterpret_cast<const float4*>(dy), reinterpret_cast<float4*>(ddata),
-        n_rows, s.fv, s.chunks, s.log_g);
-  } else {
-    const Shape s = shape(n_rows, f);
+        n_rows, s.fv, s.chunks, s.log_g, log_rows);
+  else
     segment_extreme_bwd_kernel<float><<<s.blocks, kThreads, 0, st>>>(
-        indptr, data, out, dy, ddata, n_rows, s.fv, s.chunks, s.log_g);
-  }
+        indptr, data, out, dy, ddata, n_rows, s.fv, s.chunks, s.log_g,
+        log_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

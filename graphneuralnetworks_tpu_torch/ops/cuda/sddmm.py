@@ -3,12 +3,14 @@ autograd.
 
 Counterpart of ``graphneuralnetworks_tpu/ops/pallas/sddmm.py``. The TPU
 kernel distributes receiver rows to edge slots by a one-hot matmul over
-128x512 blocks and ungroups the result by a gather; here one warp takes one
-(receiver, head) pair of the receiver CSR and writes each edge's dot in
+128x512 blocks and ungroups the result by a gather; here a warp takes
+(receiver, head) pairs of the receiver CSR and writes each edge's dot in
 edge order (``csrc/sddmm.cu``):
 
 - K13 ``sddmm_csr``: ``out[e, h] = <xi[r_e, h], xj[s_e, h]>``, all heads in
-  one launch.
+  one launch (one per chunk of 128 floats of a wider row); a warp takes
+  four (receiver, head) pairs in turn and loads the next pair's operands
+  while the current pair's gathers are in flight.
 
 Its gradient is two weighted SpMMs on K1 (sddmm.py:143-155): ``dxi[r] =
 sum_{e -> r} dl_e xj[s_e]`` over the receiver CSR and ``dxj[s] = sum_{e:
@@ -31,8 +33,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .build import load
-from .edge_softmax import _rows, _senders
-from .spmm import _check, _ptr, _raise_on_error, _route, _row_ids, spmm_csr
+from .edge_softmax import _float4_rows, _rows, _senders
+from .spmm import (_call_on, _check, _ptr, _raise_on_error, _route, _row_ids,
+                   spmm_csr)
 
 __all__ = ["launches", "sddmm_csr", "sddmm_plain", "SddmmFunction", "sddmm"]
 
@@ -43,7 +46,7 @@ launches = {"k13": 0}
 def _lib() -> ctypes.CDLL:
     lib = load("sddmm")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sddmm_csr_f32.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.sddmm_csr_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.sddmm_csr_f32.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
@@ -73,19 +76,17 @@ def _sddmm_kernel(indptr, col, xi, xj):
     n, (_, heads, d) = indptr.numel() - 1, xi.shape
     if xi.shape[0] != n:
         raise ValueError(f"xi has {xi.shape[0]} rows, the CSR {n}")
-    out = torch.empty((col.numel(), heads), dtype=torch.float32,
-                      device=device)
+    out = xi.new_empty((col.numel(), heads))
     if n == 0 or heads == 0 or col.numel() == 0:
         return out
     if d == 0:
         return out.zero_()
     lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sddmm_csr_f32(_ptr(indptr), _ptr(col), _ptr(xi), _ptr(xj),
-                                 _ptr(out), n, heads, d, stream)
-    launches["k13"] += 1
+    code = _call_on(device, lib.sddmm_csr_f32, _ptr(indptr), _ptr(col),
+                    _ptr(xi), _ptr(xj), _ptr(out), n, heads, d,
+                    int(_float4_rows(d, xi, xj)))
     _raise_on_error(lib, code, "sddmm_csr_f32")
+    launches["k13"] += 1
     return out
 
 

@@ -3,9 +3,10 @@ backward, their plain versions, autograd.
 
 Counterpart of ``graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
 segment_max_grouped``. The TPU kernel takes a running max of ``[E, H]``
-logits per 128-row receiver block through a one-hot mask; here one warp
-takes one (CSR row, chunk of columns) and walks the row's entries, which
-are contiguous rows of the data (``csrc/segment.cu``):
+logits per 128-row receiver block through a one-hot mask; here a warp
+takes several narrow CSR rows (``_rows_per_warp``) or one (row, chunk of
+columns) of a wide one, and walks the rows' entries, which are contiguous
+rows of the data (``csrc/segment.cu``):
 
 - K14 ``segment_max_csr`` / ``segment_min_csr``: ``out[r] = max (min) of
   data[indptr[r]:indptr[r+1]]`` over the leading axis, ``-inf`` (``+inf``)
@@ -26,13 +27,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from .. import segment as _segment
 from .build import load
-from .spmm import _INT32_MAX, _check, _ptr, _raise_on_error, _route, _row_ids
+from .edge_softmax import _float4_rows
+from .spmm import (_INT32_MAX, _call_on, _check, _ptr, _raise_on_error,
+                   _route, _row_ids)
 
 __all__ = ["launches", "segment_max_csr", "segment_min_csr",
            "segment_max_bwd_csr", "segment_max_plain", "segment_min_plain",
@@ -41,13 +45,21 @@ __all__ = ["launches", "segment_max_csr", "segment_min_csr",
 launches = {"k14": 0, "k14_bwd": 0}
 
 
+# Entries of a row that each edge group of K14 walks at least, on average,
+# in the forward and in the backward (which reads each entry twice): fewer
+# rows per warp leave lanes idle, more leave too few loads in flight per
+# lane. Measured by chip_smoke.py --sweep, which times every choice.
+_FWD_ENTRIES_PER_GROUP = 4
+_BWD_ENTRIES_PER_GROUP = 2
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("segment")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.segment_max_csr_f32.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.segment_max_csr_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.segment_max_csr_f32.restype = i32
-    lib.segment_max_bwd_csr_f32.argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
+    lib.segment_max_bwd_csr_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.segment_max_bwd_csr_f32.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
@@ -96,25 +108,45 @@ def _check_launch(indptr, *dense) -> None:
                          f"{_INT32_MAX} rows of data")
 
 
-def _segment_extreme_kernel(op_min: bool, indptr, data):
+def _rows_per_warp(fv: int, n_rows: int, entries: int,
+                   per_group: int) -> int:
+    """log2 of the CSR rows one warp of K14 or its backward takes, for rows
+    of ``fv`` column vectors and ``entries / n_rows`` entries on average:
+    the row's lanes split into the most edge groups (a power of two, each
+    of ``G`` lanes, ``G`` the vector count rounded up to a power of two)
+    that still walk ``per_group`` entries each, and the warp's 32 lanes
+    take as many such rows as fit. Rows of 32 vectors or more take one warp
+    per row (0)."""
+    log_g = min((fv - 1).bit_length(), 5)
+    if log_g == 5 or n_rows == 0:
+        return 0
+    mean, groups = entries / n_rows, 1
+    while groups < 32 >> log_g and mean / (2 * groups) >= per_group:
+        groups *= 2
+    return 5 - log_g - (groups.bit_length() - 1)
+
+
+def _segment_extreme_kernel(op_min: bool, indptr, data, log_rows=None):
     _check_launch(indptr, data)
     n_rows = indptr.numel() - 1
-    out = torch.empty((n_rows,) + tuple(data.shape[1:]), dtype=data.dtype,
-                      device=data.device)
-    f = out[0].numel() if n_rows else 0
+    out = data.new_empty((n_rows, *data.shape[1:]))
+    f = math.prod(data.shape[1:])
     if n_rows == 0 or f == 0:
         return out
+    vec = _float4_rows(f, data, out)
+    if log_rows is None:
+        log_rows = _rows_per_warp(f // 4 if vec else f, n_rows,
+                                  data.shape[0], _FWD_ENTRIES_PER_GROUP)
     lib = _lib()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.segment_max_csr_f32(_ptr(indptr), _ptr(data), _ptr(out),
-                                       n_rows, f, int(op_min), stream)
-    launches["k14"] += 1
+    code = _call_on(data.device, lib.segment_max_csr_f32, _ptr(indptr),
+                    _ptr(data), _ptr(out), n_rows, f, int(op_min), int(vec),
+                    log_rows)
     _raise_on_error(lib, code, "segment_max_csr_f32")
+    launches["k14"] += 1
     return out
 
 
-def _segment_max_bwd_kernel(indptr, data, out, dy):
+def _segment_max_bwd_kernel(indptr, data, out, dy, log_rows=None):
     _check_launch(indptr, data, out, dy)
     n_rows = indptr.numel() - 1
     if out.shape != dy.shape or out.shape[1:] != data.shape[1:] \
@@ -123,17 +155,19 @@ def _segment_max_bwd_kernel(indptr, data, out, dy):
                          f"and dy {tuple(dy.shape)} do not match a CSR of "
                          f"{n_rows} rows")
     ddata = torch.empty_like(data)
-    f = out[0].numel() if n_rows else 0
+    f = math.prod(data.shape[1:])
     if n_rows == 0 or f == 0 or data.shape[0] == 0:
         return ddata.zero_()
+    vec = _float4_rows(f, data, out, dy, ddata)
+    if log_rows is None:
+        log_rows = _rows_per_warp(f // 4 if vec else f, n_rows,
+                                  data.shape[0], _BWD_ENTRIES_PER_GROUP)
     lib = _lib()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.segment_max_bwd_csr_f32(_ptr(indptr), _ptr(data),
-                                           _ptr(out), _ptr(dy), _ptr(ddata),
-                                           n_rows, f, stream)
-    launches["k14_bwd"] += 1
+    code = _call_on(data.device, lib.segment_max_bwd_csr_f32, _ptr(indptr),
+                    _ptr(data), _ptr(out), _ptr(dy), _ptr(ddata), n_rows, f,
+                    int(vec), log_rows)
     _raise_on_error(lib, code, "segment_max_bwd_csr_f32")
+    launches["k14_bwd"] += 1
     return ddata
 
 

@@ -51,6 +51,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _call_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` the current CUDA device and
+    ``stream`` its current stream (a raw ``cudaStream_t``): what ``with
+    torch.cuda.device(device)`` around ``torch.cuda.current_stream()``
+    gives, without the context manager's host cost when ``device`` is
+    current already."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def _raise_on_error(lib, code: int, what: str) -> None:
     if code != 0:
         msg = lib.gnn_cuda_error_string(code).decode()

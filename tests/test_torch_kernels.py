@@ -587,6 +587,41 @@ def test_sddmm_kernel_matches_plain_on_card(d):
                                rtol=1e-5, atol=1e-4)
 
 
+def _ragged_graph(seed):
+    """50 nodes, 290 edges: receivers 40-48 have none, row 49 takes 40 (two
+    batches of 32 column indices), the others ~6; every node sends."""
+    rng = np.random.default_rng(seed)
+    s = np.concatenate([np.arange(50), rng.integers(0, 50, 200),
+                        rng.integers(0, 6, 40)])
+    r = np.concatenate([rng.integers(0, 40, 250), np.full(40, 49)])
+    return tgnn.graph(s, r, num_nodes=50, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(h, d) for h in (1, 4)
+                                     for d in (1, 7, 32, 128, 260, 512)])
+def test_sddmm_pairs_per_warp_on_card(heads, d):
+    """K13, four (row, head) pairs per warp with the next pair's operands
+    loaded ahead, against the plain version: rows without edges, a row of
+    40 edges, 50 and 200 pairs (a short last warp at one head). 260 and 512
+    take several chunks of 128 floats, 7 and 1 scalar loads. Two calls give
+    the same bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _ragged_graph(heads * 1000 + d)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    xi = torch.randn(50, heads, d, device="cuda", generator=gen)
+    xj = torch.randn(50, heads, d, device="cuda", generator=gen)
+    args = (g.indptr_r, g.col_r, xi, xj)
+    before = SD.launches["k13"]
+    got = SD.sddmm_csr(*args)
+    torch.testing.assert_close(got, SD.sddmm_plain(*args), rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(SD.sddmm_csr(*args), got)
+    torch.cuda.synchronize()
+    assert SD.launches["k13"] == before + 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("heads,o,d", [(1, 8, 8), (4, 32, 32), (2, 6, 4)])
 def test_dot_attention_on_card_matches_cpu(heads, o, d):
@@ -686,6 +721,88 @@ def test_segment_max_kernels_match_plain_on_card(f):
     torch.cuda.synchronize()
     assert SG.launches["k14"] == before["k14"] + 2
     assert SG.launches["k14_bwd"] == before["k14_bwd"] + 1
+
+
+@pytest.mark.parametrize("fv,n_rows,entries,per_group,want", [
+    (1, 131072, 2_000_000, 4, 4),   # F=4 logits: 16 rows of 2 groups
+    (1, 131072, 2_000_000, 2, 3),   # its backward: 8 rows of 4 groups
+    (2, 131072, 2_000_000, 4, 3),   # F=8: 8 rows of 2 groups of 2 lanes
+    (2, 131072, 2_000_000, 2, 2),   # its backward: 4 rows of 4 groups
+    (16, 4096, 77_556, 4, 0),       # graph CSR F=64: one row, 2 groups
+    (16, 4096, 4096 * 5, 4, 1),     # short rows: 2 rows, 1 group each
+    (32, 131072, 2_000_000, 2, 0),  # 32 vectors: one warp per row
+    (200, 10, 100, 4, 0),           # chunks of 32 vectors
+    (1, 40, 150, 4, 5),             # 3.75 entries: one lane per row
+    (1, 10, 10_000, 4, 0),          # 1,000 entries: 32 groups
+    (3, 7, 0, 2, 3),                # no entries at all
+])
+def test_rows_per_warp_rule(fv, n_rows, entries, per_group, want):
+    """K14's rows per warp: the most edge groups (powers of two, of G
+    lanes) that each still walk ``per_group`` entries on average, and as
+    many rows as fit in 32 lanes; wide rows one per warp. The wrappers'
+    targets: _FWD_ENTRIES_PER_GROUP and _BWD_ENTRIES_PER_GROUP."""
+    assert (SG._FWD_ENTRIES_PER_GROUP, SG._BWD_ENTRIES_PER_GROUP) == (4, 2)
+    log_rows = SG._rows_per_warp(fv, n_rows, entries, per_group)
+    assert log_rows == want
+    log_g = min((fv - 1).bit_length(), 5)
+    assert 0 <= log_rows <= 5 - log_g
+    groups = 32 >> (log_g + log_rows)
+    mean = entries / n_rows
+    if groups > 1:
+        assert mean / groups >= per_group
+    if log_rows > 0:   # one more group would walk too few entries
+        assert mean / (2 * groups) < per_group
+
+
+def _rows_per_warp_csr(f, seed):
+    """A CSR of 45 rows (a multiple of no rows-per-warp above 1) whose rows
+    0, 3, 4, 7, 8, 15, 16, 31, 32 and 44 (on the boundaries of 2 to 32 rows
+    per warp) are empty and row 20 has 40 entries, over data on a grid of
+    1/2 (exact ties) with one NaN; and a cotangent. float32 on the card."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 7, 45)
+    counts[[0, 3, 4, 7, 8, 15, 16, 31, 32, 44]] = 0
+    counts[20] = 40
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    data = np.round(rng.standard_normal((indptr[-1], f)) * 2) / 2
+    data[indptr[20] + 5, f // 2] = np.nan
+    dy = rng.standard_normal((45, f))
+    return (torch.tensor(indptr, dtype=torch.int32, device="cuda"),
+            torch.tensor(data, dtype=torch.float32, device="cuda"),
+            torch.tensor(dy, dtype=torch.float32, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 2, 3, 4, 5, 8, 16])
+def test_segment_max_rows_per_warp_on_card(f):
+    """K14 max and min and its backward at every rows-per-warp the width
+    allows (and the wrapper's own choice), bit for bit against the plain
+    versions: empty rows on warp boundaries, a row of 40 entries, ties and
+    a NaN. A layout wider than the warp is refused and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    indptr, data, dy = _rows_per_warp_csr(f, seed=f)
+    want = {op_min: (SG.segment_min_plain if op_min
+                     else SG.segment_max_plain)(indptr, data)
+            for op_min in (False, True)}
+    out = want[False]
+    want_bwd = SG.segment_max_bwd_plain(indptr, data, out, dy)
+    log_g = ((f // 4 if f % 4 == 0 else f) - 1).bit_length()
+    for log_rows in (None, *range(6 - log_g)):
+        for op_min in (False, True):
+            torch.testing.assert_close(
+                SG._segment_extreme_kernel(op_min, indptr, data, log_rows),
+                want[op_min], rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(
+            SG._segment_max_bwd_kernel(indptr, data, out, dy, log_rows),
+            want_bwd, rtol=0, atol=0)
+    before = dict(SG.launches)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        SG._segment_extreme_kernel(False, indptr, data, 6 - log_g)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        SG._segment_max_bwd_kernel(indptr, data, out, dy, 6 - log_g)
+    torch.cuda.synchronize()
+    assert SG.launches == before
 
 
 @pytest.mark.gpu
