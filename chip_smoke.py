@@ -9,7 +9,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    build of every kernel from ``graphneuralnetworks_tpu_torch/csrc``.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (N=131,072 nodes, E=2,000,000 edges, D=128, float32):
-   K1 (``spmm_csr_f32``) and K2 (``spmm_sddmm_csr_f32``, also at GAT's
+   K1 (``spmm_csr_f32``: every case a phase-3 path launches, each row
+   naming the paths, EdgeConv's gather backward over ``[E, 128]`` edge rows
+   included) and K2 (``spmm_sddmm_csr_f32``, also at GAT's
    per-head D=32 with dropped attention weights), forward and backward,
    with times (CUDA events), the plain version's time, a library
    yardstick (``torch.sparse.mm``) where one exists, and the least time the
@@ -86,10 +88,12 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a), of
 GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j) and graph classification (3k). ``--sweep`` times K14
-and its backward at every rows per warp (the measurement behind the
-wrapper's choice); ``--only 2e,2f`` runs phase 1 and the named kernel
-phases only, and prints no result line.
+(3i), EdgeConv (3j) and graph classification (3k). ``--sweep`` times K1,
+K8, K14 and its backward at every layout (the measurement behind the
+wrappers' choices; each K1 and K8 layout held to the plain version first),
+K1's gather-rate ceiling at D=128, and K1 and K8 at every rows per warp on
+an R-MAT graph of skewed degrees; ``--only 2e,2f`` runs phase 1 and
+the named kernel phases only, and prints no result line.
 """
 
 from __future__ import annotations
@@ -301,7 +305,8 @@ def fmt_ms(v) -> str:
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, *,
-            rtol: float = RTOL, atol: float = ATOL) -> float:
+            rtol: float = RTOL, atol: float = ATOL,
+            quiet: bool = False) -> float:
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(ref.shape)}")
@@ -313,8 +318,9 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, *,
     rel = float((diff / (ref.double().abs() + atol)).max()) if diff.numel() \
         else 0.0
     ok = bool((diff <= atol + rtol * ref.double().abs()).all())
-    log(f"  {name:<34} max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-        f"(rtol={rtol:g}, atol={atol:g}) {'ok' if ok else 'FAIL'}")
+    if not quiet or not ok:
+        log(f"  {name:<34} max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+            f"(rtol={rtol:g}, atol={atol:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel and plain version disagree")
     return err
@@ -392,7 +398,7 @@ def kernel_phase(gnn, g, card: str) -> dict:
                                                       "variants": []}}
     bw = peaks(card)[0]
 
-    def k1_case(label, args, lib):
+    def k1_case(label, paths, args, lib):
         indptr, col, eid, w_, src = args
         d = src.shape[1]
         y = S.spmm_csr(*args)
@@ -409,17 +415,18 @@ def kernel_phase(gnn, g, card: str) -> dict:
         # tolerance as the plain version before it is timed
         compare(f"K1 {label} vs library", y, lib())
         res["k1"]["variants"].append({
-            "case": label, "d": d,
+            "case": label, "paths": paths, "d": d,
             **timings(lambda: S.spmm_csr(*args), lambda: S.spmm_plain(*args),
                       lib),
             "bound_ms": b_ms, "bound_by": b_by,
             "no_reuse_bound_ms": no_reuse / bw * 1e3, "max_abs_err": err})
+        log(f"  K1 {label}: launched by {paths}")
 
     # the library yardsticks: torch.sparse.mm over CSR tensors of the
     # receiver grouping and of the sender grouping (values w[eid] in
     # sender order), and segment_reduce for rows already in CSR order
-    def csr(indptr, col, vals):
-        return torch.sparse_csr_tensor(indptr, col, vals, (N, N))
+    def csr(indptr, col, vals, cols=N):
+        return torch.sparse_csr_tensor(indptr, col, vals, (N, cols))
 
     a_ones = csr(ir, cr, torch.ones(E, device=dev))
     a_w = csr(ir, cr, w)
@@ -427,22 +434,41 @@ def kernel_phase(gnn, g, card: str) -> dict:
     s_w = csr(is_, cs, w.index_select(0, es.long()))
     log("phase 2: kernels vs plain versions "
         f"(N={N}, E={E}, D={D}, float32)")
-    k1_case("fwd receiver-CSR D=128", (ir, cr, None, None, x),
-            lambda: torch.sparse.mm(a_ones, x))
-    k1_case("fwd receiver-CSR weighted D=128", (ir, cr, None, w, x),
+    # which phase-3 path launches each case, per train step
+    k1_case("fwd receiver-CSR D=128",
+            "GCN layer 1 fwd (3a, 1/step); link encoder fwd (3i, 2/step)",
+            (ir, cr, None, None, x), lambda: torch.sparse.mm(a_ones, x))
+    k1_case("fwd receiver-CSR weighted D=128",
+            "DotDecoder bwd dxi (3i, 2/step)", (ir, cr, None, w, x),
             lambda: torch.sparse.mm(a_w, x))
-    k1_case("bwd sender-CSR D=128", (is_, cs, es, None, dy),
-            lambda: torch.sparse.mm(s_ones, dy))
-    k1_case("bwd sender-CSR weighted D=128", (is_, cs, es, w, dy),
+    k1_case("bwd sender-CSR D=128", "link encoder layer 2 bwd (3i, 1/step)",
+            (is_, cs, es, None, dy), lambda: torch.sparse.mm(s_ones, dy))
+    k1_case("bwd sender-CSR weighted D=128",
+            "DotDecoder bwd dxj (3i, 2/step)", (is_, cs, es, w, dy),
             lambda: torch.sparse.mm(s_w, dy))
-    k1_case("fwd receiver-CSR D=8", (ir, cr, None, None, x8),
-            lambda: torch.sparse.mm(a_ones, x8))
-    k1_case("bwd sender-CSR D=8", (is_, cs, es, None, dy8),
-            lambda: torch.sparse.mm(s_ones, dy8))
-    k1_case("gather-bwd edge rows D=8", (ir, None, None, None, e8),
+    k1_case("fwd receiver-CSR D=8", "GCN layer 2 fwd (3a, 1/step)",
+            (ir, cr, None, None, x8), lambda: torch.sparse.mm(a_ones, x8))
+    k1_case("bwd sender-CSR D=8", "GCN layer 2 bwd (3a, 1/step)",
+            (is_, cs, es, None, dy8), lambda: torch.sparse.mm(s_ones, dy8))
+    k1_case("gather-bwd edge rows D=8",
+            "none of phase 3 (fast_gather's backward at a narrow width)",
+            (ir, None, None, None, e8),
             lambda: torch.segment_reduce(e8, "sum", offsets=ir))
-    k1_case("fwd receiver-CSR D=7 (scalar path)", (ir, cr, None, w, x7),
-            lambda: torch.sparse.mm(a_w, x7))
+    k1_case("fwd receiver-CSR D=7 (scalar path)",
+            "graph classification layer 1 fwd (3k, 1/step, on its batch)",
+            (ir, cr, None, w, x7), lambda: torch.sparse.mm(a_w, x7))
+    # EdgeConv layer 2's endpoint gathers: the backward of x[receivers]
+    # sums [E, 128] rows already in receiver order; that of x[senders]
+    # gathers them by edge id in sender order
+    e128 = torch.randn(E, D, generator=gen, device=dev)
+    k1_case("gather-bwd edge rows D=128", "EdgeConv layer 2 bwd x_i "
+            "(3j, 1/step)", (ir, None, None, None, e128),
+            lambda: torch.segment_reduce(e128, "sum", offsets=ir))
+    s_eid = csr(is_, es, torch.ones(E, device=dev), cols=E)
+    k1_case("gather-bwd edge rows by eid D=128",
+            "EdgeConv layer 2 bwd x_j (3j, 1/step)",
+            (is_, es, None, None, e128), lambda: torch.sparse.mm(s_eid, e128))
+    del e128, s_eid
 
     for d, xx, dd, ww in ((D, x, dy, w), (D // GAT_HEADS, x32, dy32, w_alpha),
                           (OUT_D, x8, dy8, w)):
@@ -857,17 +883,310 @@ def segment_phase(g, gb, card: str) -> dict:
     return res
 
 
-def tuning_sweep(g, gb, card: str) -> dict:
-    """``--sweep``: the device time of K14 and its backward at every rows
-    per warp the width allows, at phase 2f's shapes: the measurement behind
+def _k1_cases(g, seed: int, exact: bool = False) -> list:
+    """K1's cases of phase 2 that phase 3 launches, on ``g``: ``(label,
+    args)`` with ``args`` as ``spmm_csr`` takes them. ``exact``: rows of
+    integers in [-8, 8] and weights 1 or 2, so that every partial sum of a
+    row of fewer than 2^20 edges is an integer float32 holds exactly: any
+    summation order gives the same bits."""
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ir, cr, is_, cs, es = (g.indptr_r, g.col_r, g.indptr_s, g.col_s,
+                           g.eid_s)
+    n, e = g.num_nodes, g.num_edges
+
+    def rows(*shape):
+        if exact:
+            return torch.randint(-8, 9, shape, generator=gen,
+                                 device=dev).float()
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x, x8, x7 = rows(n, D), rows(n, OUT_D), rows(n, 7)
+    e8, e128 = rows(e, OUT_D), rows(e, D)
+    w = (torch.randint(1, 3, (e,), generator=gen, device=dev).float()
+         if exact else torch.rand(e, generator=gen, device=dev) + 0.5)
+    return [("fwd receiver-CSR D=128", (ir, cr, None, None, x)),
+            ("bwd sender-CSR weighted D=128", (is_, cs, es, w, x)),
+            ("fwd receiver-CSR D=8", (ir, cr, None, None, x8)),
+            ("bwd sender-CSR D=8", (is_, cs, es, None, x8)),
+            ("gather-bwd edge rows D=8", (ir, None, None, None, e8)),
+            ("gather-bwd edge rows D=128", (ir, None, None, None, e128)),
+            ("gather-bwd edge rows by eid D=128", (is_, es, None, None,
+                                                   e128)),
+            ("fwd receiver-CSR D=7 (scalar path)", (ir, cr, None, w, x7))]
+
+
+def _k1_chosen(S, args):
+    src, indptr = args[-1], args[0]
+    d = src.shape[1]
+    vec = d % 4 == 0
+    n_edges = args[1].numel() if args[1] is not None else src.shape[0]
+    return S._spmm_layout(d // 4 if vec else d, 16 if vec else 4,
+                          src.shape[0], indptr.numel() - 1, n_edges)
+
+
+def k1_sweep(g) -> dict:
+    """K1 at every layout (rows per warp, strip width, gathers in flight per
+    edge group, register cap) the width allows, at phase 2's shapes that phase
+    3 launches, each held to the plain version at RTOL / ATOL before it is
+    timed (device ms): the measurement behind ``ops/cuda/spmm.py``'s
+    ``_K1_*`` constants. Then the gather-rate ceiling at D=128: the same
+    receiver CSR rows with (a) the graph's random senders, (b) senders
+    drawn from the first 16 MB of the table (32,768 rows, which the L2
+    holds) and (c) ``col[e] = e mod N`` (the table read in order), each
+    with whole rows one gather at a time (the first port's order), whole
+    rows eight gathers in flight, and strips of 8 vectors (the chosen
+    layout for the table). Explicit layouts run from the sweep build."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    dev = g.device
+    ir, cr = g.indptr_r, g.col_r
+    out = {"k1": [], "k1_ceiling": []}
+    log("sweep: K1 layouts (device ms, profiler; log2 rows per warp, log2 "
+        "strip vectors, gathers in flight, register cap)")
+    cases = _k1_cases(g, 12)
+    x = cases[0][1][-1]
+    for label, args in cases:
+        d = args[-1].shape[1]
+        fv = d // 4 if d % 4 == 0 else d
+        chosen = _k1_chosen(S, args)
+        ref = S.spmm_plain(*args)
+        # strips narrower than the row's G for wide rows only
+        log_g = min((fv - 1).bit_length(), 5)
+        for lay in [(log_rows, strip, unroll, cap)
+                    for strip in ((3, 4, 5) if log_g == 5 else (log_g,))
+                    for log_rows in range(6 - strip)
+                    for unroll in (1, 2, 4, 8) for cap in (0, 64)]:
+            err = compare(f"K1 {label} {lay}",
+                          S._spmm_csr_kernel(*args, layout=lay), ref,
+                          quiet=True)
+            row = {"case": label, "log_rows": lay[0], "log_strip": lay[1],
+                   "unroll": lay[2], "reg_cap": lay[3],
+                   "chosen": lay == chosen,
+                   "max_abs_err": err,
+                   "device_ms": device_ms(
+                       lambda: S._spmm_csr_kernel(*args, layout=lay))}
+            out["k1"].append(row)
+            log(f"  K1 {label:<34} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+        del ref
+    del cases
+    # the gather-rate ceiling: K1 over the receiver CSR at D=128 with the
+    # senders replaced, at each gathers-in-flight
+    slice_rows = 16 * 2**20 // (4 * D)
+    e_ids = torch.arange(E, device=dev, dtype=torch.int32)
+    for label, col in (("(a) random senders", cr),
+                       ("(b) senders in a 16 MB slice",
+                        torch.remainder(cr, slice_rows)),
+                       ("(c) col[e] = e mod N, in order",
+                        torch.remainder(e_ids, N))):
+        args = (ir, col.contiguous(), None, None, x)
+        ref = S.spmm_plain(*args)
+        for lay in ((0, 5, 1, 0), (0, 5, 8, 64), (2, 3, 8, 64)):
+            err = compare(f"K1 ceiling {label} {lay}",
+                          S._spmm_csr_kernel(*args, layout=lay), ref,
+                          quiet=True)
+            t = device_ms(lambda: S._spmm_csr_kernel(*args, layout=lay))
+            out["k1_ceiling"].append({
+                "case": label, "layout": lay, "device_ms": t,
+                "max_abs_err": err, "gathered_tb_s": 4 * E * D / t / 1e9})
+            log(f"  K1 ceiling D=128 {label:<32} {lay}: {t:.4f} ms"
+                f" ({4 * E * D / t / 1e9:.2f} TB/s of gathered rows)")
+        del ref
+    return out
+
+
+K8_SWEEP_SHAPES = ((GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS),
+                   (1, OUT_D, OUT_D), (1, D, D), (1, 2 * D, 2 * D))
+
+
+def _k8_args(ES, g, h, o, d, gen):
+    """K8's arguments at (H, O, D) on ``g``: random q, k, v, dy, and the
+    row max, denominator and ``<out, dy>`` of the forward K6 gives."""
+    dev, n = g.device, g.num_nodes
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    q, k, v, dy, scale = rn(n, h, o), rn(n, h, o), rn(n, h, d), \
+        rn(n, h, d), o ** -0.5
+    num, m, s = ES.dot_softmax(g.indptr_r, g.col_r, q, k, v, scale, None)
+    outp, mx, den = ES.finalize_softmax(num, m, s, rn(n, h), rn(n, h, d))
+    return (g.indptr_s, g.col_s, q, k, v, mx, den, (outp * dy).sum(-1), dy,
+            scale, None)
+
+
+def k8_sweep(g) -> list:
+    """K8 at every layout (rows per warp, edges in flight per edge group,
+    register cap) the library's sweep build holds, at phase 2d's shapes and
+    at (1, 256, 256) (two register chunks), each held to the plain version
+    at RTOL / ATOL before it is timed (device ms): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K8_*`` constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(13)
+    out = []
+    log("sweep: K8 layouts (device ms, profiler; log2 rows per warp, edges "
+        "in flight, register cap)")
+    for h, o, d in K8_SWEEP_SHAPES:
+        args = _k8_args(ES, g, h, o, d, gen)
+        ref = ES.dot_bwd_rev_plain(*args)
+        hd = f"H={h} O={o} D={d}"
+        ov = o // 4
+        log_g = min((ov - 1).bit_length(), 5)
+        nc = 1 << max(0, (ov - 1).bit_length() - 5)
+        chosen = ES._dot_bwd_rev_layout(ov, d // 4, N, E)
+        for lay in [(log_rows, unroll, cap) for log_rows in range(6 - log_g)
+                    for unroll in (1, 2, 4) for cap in (0, 64)
+                    if nc * unroll <= 4 or unroll == 1
+                    if cap == 0 or nc <= 2]:
+            got = ES._dot_bwd_rev_kernel(*args, layout=lay)
+            err = max(compare(f"K8 {hd} {lay} {nm}", a, b, quiet=True)
+                      for nm, a, b in zip(("dk", "dv"), got, ref))
+            row = {"case": hd, "log_rows": lay[0], "unroll": lay[1],
+                   "reg_cap": lay[2], "chosen": lay == chosen,
+                   "max_abs_err": err,
+                   "device_ms": device_ms(
+                       lambda: ES._dot_bwd_rev_kernel(*args, layout=lay))}
+            out.append(row)
+            log(f"  K8 {hd:<20} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+        del args, ref, got
+    return out
+
+
+def rmat_graph(gnn, seed: int = 17):
+    """A Graph500 R-MAT graph (Kronecker generator, initiator A, B, C =
+    0.57, 0.19, 0.19; vertex labels permuted at random) of 2^17 = N nodes
+    and E directed edges, duplicates and self-loops kept as the generator
+    makes them: the main path's N and E with a skewed degree distribution
+    (power-law tails on both sides) in place of ``rand_graph``'s near-Poisson
+    one."""
+    rng = np.random.default_rng(seed)
+    scale = N.bit_length() - 1
+    s = np.zeros(E, np.int64)
+    r = np.zeros(E, np.int64)
+    for bit in range(scale):
+        u = rng.random(E)
+        down = u >= 0.57 + 0.19           # quadrant C or D: sender bit set
+        right = ((u >= 0.57) & (u < 0.57 + 0.19)) | (u >= 0.57 + 0.19 + 0.19)
+        s |= down.astype(np.int64) << bit
+        r |= right.astype(np.int64) << bit
+    perm = rng.permutation(N)
+    return gnn.graph(perm[s], perm[r], num_nodes=N)
+
+
+def _k8_exact_args(g, h, o, d, gen):
+    """K8's arguments at (H, O, D) on ``g`` whose every sum is exact in
+    float32: ``k = 0``, ``mx = 0`` and ``den = 1`` make each alpha
+    ``exp(0) / 1 = 1``; ``q``, ``v``, ``dy`` in {-1, 0, 1}, ``s_n`` in
+    [-2, 2] and ``scale = 0.5`` make each ``dlg`` a half-integer of at most
+    ``(D + 2) / 2``, so the sums of rows of fewer than 2^16 edges are
+    exact: the kernel at any layout equals the plain version bit for bit,
+    hub rows of ~19k edges included. The memory traffic is that of real
+    inputs (nothing in K8 branches on values)."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    q, v, dy = ri(-1, 1, n, h, o), ri(-1, 1, n, h, d), ri(-1, 1, n, h, d)
+    k = torch.zeros(n, h, o, device=dev)
+    mx, den = torch.zeros(n, h, device=dev), torch.ones(n, h, device=dev)
+    return (g.indptr_s, g.col_s, q, k, v, mx, den, ri(-2, 2, n, h), dy, 0.5,
+            None)
+
+
+def skew_sweep(gnn) -> dict:
+    """K1 and K8 on :func:`rmat_graph` at every rows per warp, the rest of
+    the layout as the wrappers choose it, beside the wrapper's own choice
+    (the shipped build), each held to the plain version bit for bit on
+    inputs whose sums are exact (``_k1_cases(exact=True)``,
+    :func:`_k8_exact_args`): whether rows that share a warp lose to one
+    row per warp when a hub holds the warp to its longest row."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    g = rmat_graph(gnn)
+    degrees = {}
+    for side, ip in (("receiver", g.indptr_r), ("sender", g.indptr_s)):
+        lens = torch.diff(ip)
+        degrees[side] = {"max": int(lens.max()), "mean": E / N,
+                         "empty_rows": int((lens == 0).sum())}
+    log(f"sweep: R-MAT graph ({N} nodes, {E} edges; row lengths "
+        f"{degrees}), device ms by log2 rows per warp")
+    out = {"degrees": degrees, "k1": [], "k8": []}
+    for label, args in _k1_cases(g, 14, exact=True):
+        ref = S.spmm_plain(*args)
+        chosen = _k1_chosen(S, args)
+        same_bits(f"K1 R-MAT {label} chosen", S._spmm_csr_kernel(*args),
+                  ref)
+        row = {"case": label, "chosen": chosen,
+               "device_ms": device_ms(lambda: S._spmm_csr_kernel(*args)),
+               "by_log_rows": {}}
+        for log_rows in range(6 - chosen[1]):
+            lay = (log_rows,) + chosen[1:]
+            same_bits(f"K1 R-MAT {label} {lay}",
+                      S._spmm_csr_kernel(*args, layout=lay), ref)
+            row["by_log_rows"][log_rows] = device_ms(
+                lambda: S._spmm_csr_kernel(*args, layout=lay))
+        out["k1"].append(row)
+        log(f"  K1 {label:<34} chosen {chosen} {row['device_ms']:.4f} ms; "
+            + ", ".join(f"2^{k}: {v:.4f}"
+                        for k, v in row["by_log_rows"].items()))
+        del ref
+    gen = torch.Generator(device=g.device).manual_seed(15)
+    for h, o, d in K8_SWEEP_SHAPES[:3]:
+        args = _k8_exact_args(g, h, o, d, gen)
+        ref = ES.dot_bwd_rev_plain(*args)
+        hd = f"H={h} O={o} D={d}"
+        chosen = ES._dot_bwd_rev_layout(o // 4, d // 4, N, E)
+        for nm, a, b in zip(("dk", "dv"), ES._dot_bwd_rev_kernel(*args),
+                            ref):
+            same_bits(f"K8 R-MAT {hd} chosen {nm}", a, b)
+        row = {"case": hd, "chosen": chosen,
+               "device_ms": device_ms(lambda: ES._dot_bwd_rev_kernel(*args)),
+               "by_log_rows": {}}
+        for log_rows in range(6 - min((o // 4 - 1).bit_length(), 5)):
+            lay = (log_rows,) + chosen[1:]
+            for nm, a, b in zip(("dk", "dv"),
+                                ES._dot_bwd_rev_kernel(*args, layout=lay),
+                                ref):
+                same_bits(f"K8 R-MAT {hd} {lay} {nm}", a, b)
+            row["by_log_rows"][log_rows] = device_ms(
+                lambda: ES._dot_bwd_rev_kernel(*args, layout=lay))
+        out["k8"].append(row)
+        log(f"  K8 {hd:<20} chosen {chosen} {row['device_ms']:.4f} ms; "
+            + ", ".join(f"2^{k}: {v:.4f}"
+                        for k, v in row["by_log_rows"].items()))
+        del args, ref
+    return out
+
+
+def tuning_sweep(gnn, g, gb) -> dict:
+    """``--sweep``: the sweep build of K1's and K8's libraries (every
+    instance), :func:`k1_sweep`, :func:`k8_sweep`, :func:`skew_sweep`, and
+    the device time of K14 and its backward at every rows per warp the
+    width allows, at phase 2f's shapes: the measurement behind
     ``ops/cuda/segment.py:_FWD_ENTRIES_PER_GROUP`` and
-    ``_BWD_ENTRIES_PER_GROUP``. Each layout is checked against the
+    ``_BWD_ENTRIES_PER_GROUP``. Each K14 layout is checked against the
     wrapper's own choice first (bit for bit)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import build as B
     from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG
 
     dev = g.device
     gen = torch.Generator(device=dev).manual_seed(11)
-    out = {"k14": []}
+    t0 = time.perf_counter()
+    B.build("spmm", "edge_softmax", sweep=True)
+    log(f"sweep build: {time.perf_counter() - t0:.2f} s")
+    for name, text in B.build_logs().items():
+        for line in text.splitlines():
+            if name.endswith("-sweep") and ("registers" in line
+                                            or "spill" in line):
+                log(f"  ptxas {name}: {line.strip()}")
+    out = {**k1_sweep(g), "k8": k8_sweep(g), "skew": skew_sweep(gnn),
+           "k14": []}
     log("sweep: K14 rows per warp (device ms, profiler)")
     for label, ip, f in (("receiver CSR F=4", g.indptr_r, GAT_HEADS),
                          ("receiver CSR F=8", g.indptr_r, OUT_D),
@@ -1696,8 +2015,8 @@ def main() -> int:
                          "order (comma-separated, of 2,2b,2c,2d,2e,2f), then "
                          "stop without a result line")
     ap.add_argument("--sweep", action="store_true",
-                    help="after phase 2, time K14 and its backward at "
-                         "every rows per warp")
+                    help="after phase 2, time K1, K8, K14 and its backward "
+                         "at every layout, and K1's gather-rate ceiling")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1746,7 +2065,7 @@ def main() -> int:
     kern = {}
     for phase in (args.only.split(",") if args.only else kernel_phases):
         kern.update(kernel_phases[phase]())
-    sweep = tuning_sweep(g, gb, card) if args.sweep else None
+    sweep = tuning_sweep(gnn, g, gb) if args.sweep else None
     if args.only:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, "
             f"{args.only} only: no result)")

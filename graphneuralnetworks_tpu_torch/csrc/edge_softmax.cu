@@ -889,84 +889,158 @@ dot_bwd_dq_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 //   dk[s] = sum_e dlg_e * q[r_e],   dv[s] = sum_e alpha_e * dy[r_e].
 // k[s] and v[s] stay in registers; each gathered q row feeds the logit and
 // dk, each gathered dy row <v[s], dy[r]> and dv.
-template <typename V, int NC>
-__global__ void __launch_bounds__(kThreads)
+//
+// Layout: a warp takes R = 2^log_rows consecutive sender rows of one head;
+// heads run in the grid's second dimension, one after the other over all
+// rows. Each row owns 32 / R lanes, split into edge groups of G lanes (a
+// head's row in NC chunks of G vectors). The row's lanes load a window of
+// 32 / R receivers at once and the next window ahead; each group issues
+// the loads of U edges (receiver scalars, q and dy rows) before it reduces
+// any of their dots. Loop bounds are the longest of the warp's rows
+// (warp-uniform); past a row's end nothing is loaded or added, and a warp
+// whose rows walk fewer index windows one after another on all 32 lanes
+// (a hub among them) takes them so (see spmm_csr_kernel in spmm.cu). A
+// group adds its edges in CSR order, the groups then by a fixed shuffle
+// tree. The caller (ops/cuda/edge_softmax.py:_dot_bwd_rev_layout) picks R,
+// U and a register cap.
+//
+// The first port gave one (row, head) pair a warp, heads interleaved in
+// the grid, and waited on col[e], then the gathers, then two shuffle
+// trees, one edge at a time at AGNN's H = 1, O = D = 128. Heads in the
+// grid's second dimension make the resident warps gather one head's slices
+// of q and dy (32 MB at N = 131,072, H = 4, O = D = 32, which the L2
+// holds). Putting a row's heads side by side on a warp, to load a
+// receiver's index and scalars once for all of them, measured slower
+// (chip_smoke.py --sweep, an H100 at 700 W: 0.737 ms against 0.587 for one
+// head per warp and 0.840 for the first port, PERF.md §6).
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
                    const V* __restrict__ q, const V* __restrict__ k,
                    const V* __restrict__ v, const float* __restrict__ mx,
                    const float* __restrict__ den,
                    const float* __restrict__ s_n, const V* __restrict__ dy,
                    V* __restrict__ dk, V* __restrict__ dv_out, int n_rows,
-                   int heads, int ov, int dv, int log_g, float scale,
-                   float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const Lanes L(log_g);
-  const long long sh = (long long)row * heads + h;
-  V kv[NC], vv[NC], dka[NC], dva[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int f = L.sub + c * L.g;
-    kv[c] = f < ov ? k[sh * ov + f] : vzero<V>();
-    vv[c] = f < dv ? v[sh * dv + f] : vzero<V>();
-    dka[c] = vzero<V>();
-    dva[c] = vzero<V>();
-  }
-  const int beg = indptr[row], end = indptr[row + 1];
-  for (int base = beg; base < end; base += L.p) {
-    const int e = base + L.grp;
-    const bool valid = e < end;
-    V qg[NC], dyg[NC];
-    float plg = 0.f, pvd = 0.f, mxr = 0.f, denr = 1.f, snr = 0.f;
+                   int heads, int ov, int dv, int log_g, int log_rows,
+                   float scale, float slope) {
+  // blockIdx.y is the head: no division on the way to the first load
+  const int rb = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (rb >= ((n_rows + (1 << log_rows) - 1) >> log_rows)) return;
+  const int lane = threadIdx.x & 31;   // (warp-uniform exit above)
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  // Sums sender row `row` (starting at `beg`, `len` edges) on the lanes of
+  // its segment of 2^log_seg lanes; `longest` is the longest row of the
+  // warp's segments (warp-uniform).
+  auto walk = [&](int row, int beg, int len, int longest, int log_seg) {
+    const int seg = 1 << log_seg;              // lanes per row
+    const int first = lane & ~(seg - 1);
+    const int sl = lane & (seg - 1);
+    const int p = seg >> log_g;                // edge groups per row
+    const int grp = sl >> log_g;
+    const bool live = row < n_rows;
+    const long long sh = (long long)row * heads + h;
+    V kv[NC], vv[NC], dka[NC], dva[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      qg[c] = vzero<V>();
-      dyg[c] = vzero<V>();
+      const int f = sub + c * g;
+      kv[c] = live && f < ov ? k[sh * ov + f] : vzero<V>();
+      vv[c] = live && f < dv ? v[sh * dv + f] : vzero<V>();
+      dka[c] = vzero<V>();
+      dva[c] = vzero<V>();
     }
-    if (valid) {
-      const long long rh = (long long)col[e] * heads + h;
-      mxr = mx[rh];
-      denr = den[rh];
-      snr = s_n[rh];
+    int c = sl < len ? col[beg + sl] : 0;   // the first window
+    for (int w0 = 0; w0 < longest; w0 += seg) {   // warp-uniform trips
+      const int nc = w0 + seg + sl < len ? col[beg + w0 + seg + sl] : 0;
+      const int cnt = min(seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += p * U) {   // warp-uniform trips
+        V qg[U][NC], dyg[U][NC];
+        float mxr[U], denr[U], snr[U], plg[U], pvd[U];
+        bool ok[U];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = L.sub + c * L.g;
-        if (f < ov) {
-          qg[c] = q[rh * ov + f];
-          plg += vdot(qg[c], kv[c]);
+        for (int u = 0; u < U; ++u) {   // the loads of U edges first
+          const int j = j0 + u * p + grp;
+          const int r = __shfl_sync(kFull, c, first + (j & (seg - 1)));
+          ok[u] = live && j < seg && w0 + j < len;
+          const long long rh = (long long)r * heads + h;
+          mxr[u] = ok[u] ? mx[rh] : 0.f;
+          denr[u] = ok[u] ? den[rh] : 1.f;
+          snr[u] = ok[u] ? s_n[rh] : 0.f;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            const int f = sub + cc * g;
+            qg[u][cc] = ok[u] && f < ov ? q[rh * ov + f] : vzero<V>();
+            dyg[u][cc] = ok[u] && f < dv ? dy[rh * dv + f] : vzero<V>();
+          }
         }
-        if (f < dv) {
-          dyg[c] = dy[rh * dv + f];
-          pvd += vdot(vv[c], dyg[c]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          plg[u] = 0.f;
+          pvd[u] = 0.f;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            plg[u] += vdot(qg[u][cc], kv[cc]);
+            pvd[u] += vdot(vv[cc], dyg[u][cc]);
+          }
+        }
+        for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            plg[u] += __shfl_xor_sync(kFull, plg[u], off);
+            pvd[u] += __shfl_xor_sync(kFull, pvd[u], off);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (!ok[u]) continue;
+          const float raw = scale * plg[u];
+          const float alpha = expf(lrelu(raw, slope) - mxr[u]) / denr[u];
+          const float dlg =
+              alpha * (pvd[u] - snr[u]) * scale * dlrelu(raw, slope);
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            axpy(dka[cc], dlg, qg[u][cc]);
+            axpy(dva[cc], alpha, dyg[u][cc]);
+          }
         }
       }
+      c = nc;
     }
-    group_sum2(plg, pvd, L.g);
-    if (valid) {
-      const float raw = scale * plg;
-      const float alpha = expf(lrelu(raw, slope) - mxr) / denr;
-      const float dlg = alpha * (pvd - snr) * scale * dlrelu(raw, slope);
+    // the groups' lanes of one vector are G apart, within the row's lanes
+    for (int off = g; off < seg; off <<= 1) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        axpy(dka[c], dlg, qg[c]);
-        axpy(dva[c], alpha, dyg[c]);
+      for (int cc = 0; cc < NC; ++cc) {
+        add_xor(dka[cc], off);
+        add_xor(dva[cc], off);
       }
     }
-  }
-  for (int off = L.g; off < 32; off <<= 1) {
+    if (live && grp == 0) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      add_xor(dka[c], off);
-      add_xor(dva[c], off);
+      for (int cc = 0; cc < NC; ++cc) {
+        const int f = sub + cc * g;
+        if (f < ov) dk[sh * ov + f] = dka[cc];
+        if (f < dv) dv_out[sh * dv + f] = dva[cc];
+      }
     }
-  }
-  if (L.grp == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int f = L.sub + c * L.g;
-      if (f < ov) dk[sh * ov + f] = dka[c];
-      if (f < dv) dv_out[sh * dv + f] = dva[c];
+  };
+  // one row after another on all 32 lanes where that walks fewer index
+  // windows than the rows side by side (a hub among them): as K1
+  const int log_seg = 5 - log_rows;
+  const int row = (rb << log_rows) + (lane >> log_seg);
+  const int beg = row < n_rows ? indptr[row] : 0;
+  const int len = row < n_rows ? indptr[row + 1] - beg : 0;
+  const int longest = __reduce_max_sync(kFull, len);
+  const int alone = __reduce_add_sync(
+      kFull, (lane & ((1 << log_seg) - 1)) == 0 ? (len + 31) >> 5 : 0);
+  if (alone < (longest + (1 << log_seg) - 1) >> log_seg) {
+    for (int i = 0; i < 1 << log_rows; ++i) {
+      const int li = __shfl_sync(kFull, len, i << log_seg);
+      walk((rb << log_rows) + i, __shfl_sync(kFull, beg, i << log_seg), li,
+           li, 5);
     }
+  } else {
+    walk(row, beg, len, longest, log_seg);
   }
 }
 
@@ -1087,22 +1161,66 @@ int launch_dot_bwd_dq(const int* indptr, const int* col, const float* q,
   });
 }
 
+// K8's instances. The library holds the ones that
+// ops/cuda/edge_softmax.py:_dot_bwd_rev_layout picks: at NC = 1, U = 2
+// held to 64 registers (4 blocks of 8 warps per SM); at NC >= 2, U = 1 and
+// no cap (the float4 instance of NC = 2, U = 2 at 64 registers spills).
+// Built with GNN_SWEEP (the build chip_smoke.py --sweep times) it also
+// holds the others: (NC, U) with NC * U <= 4, with no cap or, at NC <= 2,
+// 64 registers. Returns cudaErrorInvalidValue (nothing launched) for a
+// layout the library does not hold, for rows wider than 256 vectors, for R
+// rows that do not fit in a warp or for 2^16 heads or more.
 template <typename V>
 int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
                        const float* k, const float* v, const float* mx,
                        const float* den, const float* s_n, const float* dy,
                        float* dk, float* dv_out, int n_rows, int heads, int ov,
-                       int dv, float scale, float slope, cudaStream_t st) {
-  const unsigned nb = blocks_for(n_rows, heads);
+                       int dv, int log_rows, int unroll, int reg_cap,
+                       float scale, float slope, cudaStream_t st) {
   const int wide = ov > dv ? ov : dv;
-  return with_chunks(wide, [&](auto nc) {
-    dot_bwd_rev_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const V*>(q),
-        reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v), mx,
-        den, s_n, reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dk),
-        reinterpret_cast<V*>(dv_out), n_rows, heads, ov, dv, log_group(wide),
-        scale, slope);
+  const int lg = log_group(wide);
+  if (log_rows < 0 || lg + log_rows > 5 || heads >= 65536)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int row_blocks = (n_rows + (1 << log_rows) - 1) >> log_rows;
+  const dim3 nb((row_blocks + kWarpsPerBlock - 1) / kWarpsPerBlock, heads);
+  bool launched = false;
+  auto go = [&](auto nc, auto un, auto minb) {
+    constexpr int NC = decltype(nc)::value, U = decltype(un)::value;
+    dot_bwd_rev_kernel<V, NC, U, decltype(minb)::value>
+        <<<nb, kThreads, 0, st>>>(
+            indptr, col, reinterpret_cast<const V*>(q),
+            reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v), mx,
+            den, s_n, reinterpret_cast<const V*>(dy),
+            reinterpret_cast<V*>(dk), reinterpret_cast<V*>(dv_out), n_rows,
+            heads, ov, dv, lg, log_rows, scale, slope);
+    launched = true;
+  };
+  using I1 = std::integral_constant<int, 1>;
+  using I2 = std::integral_constant<int, 2>;
+  using I4 = std::integral_constant<int, 4>;
+  const int rc = with_chunks(wide, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+#ifndef GNN_SWEEP
+    if constexpr (NC == 1) {
+      if (unroll == 2 && reg_cap == 64) go(nc, I2{}, I4{});
+    } else {
+      if (unroll == 1 && reg_cap == 0) go(nc, I1{}, I1{});
+    }
+#else
+    auto pick = [&](auto un) {   // U = un, with no cap or at 64 registers
+      if (unroll != decltype(un)::value) return;
+      if (reg_cap == 0) go(nc, un, I1{});
+      if constexpr (NC <= 2) {
+        if (reg_cap == 64) go(nc, un, I4{});
+      }
+    };
+    pick(I1{});
+    if constexpr (NC <= 2) pick(I2{});
+    if constexpr (NC == 1) pick(I4{});
+#endif
   });
+  if (rc != 0) return rc;
+  return launched ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
@@ -1326,19 +1444,24 @@ int dot_bwd_dq_f32(const int* indptr, const int* col, const float* q,
 
 // K8. Over the sender CSR of n_rows senders: dk [n_rows, H, o] and
 // dv [n_rows, H, d]; q, mx, den, s_n and dy are the receivers'. Widths as
-// K6.
+// K6. log_rows: log2 of the sender rows per warp; unroll: the edges an edge
+// group loads before it reduces them; reg_cap: 0 (none) or 64 registers per
+// thread (see launch_dot_bwd_rev for the instances built).
 int dot_bwd_rev_f32(const int* indptr, const int* col, const float* q,
                     const float* k, const float* v, const float* mx,
                     const float* den, const float* s_n, const float* dy,
                     float* dk, float* dv, int n_rows, int heads, int o, int d,
-                    float scale, float slope, void* stream) {
+                    int log_rows, int unroll, int reg_cap, float scale,
+                    float slope, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dot_float4(o, d, {q, k, v, dy, dk, dv}))
     return launch_dot_bwd_rev<float4>(indptr, col, q, k, v, mx, den, s_n, dy,
                                       dk, dv, n_rows, heads, o / 4, d / 4,
-                                      scale, slope, st);
+                                      log_rows, unroll, reg_cap, scale,
+                                      slope, st);
   return launch_dot_bwd_rev<float>(indptr, col, q, k, v, mx, den, s_n, dy, dk,
-                                   dv, n_rows, heads, o, d, scale, slope, st);
+                                   dv, n_rows, heads, o, d, log_rows, unroll,
+                                   reg_cap, scale, slope, st);
 }
 
 const char* gnn_cuda_error_string(int code) {

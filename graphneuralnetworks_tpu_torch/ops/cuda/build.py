@@ -7,6 +7,10 @@ edited source builds anew and a stale library is never loaded. Nothing is
 built at import: the first call that launches a kernel builds its library,
 and :func:`build_all` builds every source at once, one ``nvcc`` process per
 source, all started together. A failed build raises; nothing falls back.
+
+``sweep=True`` builds a second library of a source with ``-DGNN_SWEEP``:
+it holds every kernel instance that ``chip_smoke.py --sweep`` times, where
+the first holds only the ones the wrappers choose.
 """
 
 from __future__ import annotations
@@ -18,8 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_all", "build_logs",
-           "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "SWEEP_FLAGS", "build", "build_all",
+           "build_logs", "load"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -27,8 +31,9 @@ BUILD_DIR = _PKG.parent / "build"
 SOURCES = ("spmm", "edge_softmax", "sddmm", "segment")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SWEEP_FLAGS = ("-DGNN_SWEEP",)
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, bool], ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
 
 
@@ -43,20 +48,25 @@ def _nvcc() -> str:
                        "source at first use and need the CUDA toolkit")
 
 
-def _library_path(name: str) -> Path:
+def _flags(sweep: bool) -> tuple[str, ...]:
+    return NVCC_FLAGS + SWEEP_FLAGS if sweep else NVCC_FLAGS
+
+
+def _library_path(name: str, sweep: bool) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha1(src + " ".join(_flags(sweep)).encode()).hexdigest()
+    return BUILD_DIR / f"{name}{'-sweep' * sweep}-{digest[:16]}.so"
 
 
-def build(*names: str) -> dict[str, Path]:
-    """Compile each named source that has no library yet, all in parallel.
+def build(*names: str, sweep: bool = False) -> dict[str, Path]:
+    """Compile each named source that has no library yet, all in parallel
+    (with ``sweep``, the sweep build of each).
 
     Returns the library path of every name. Raises ``RuntimeError`` with the
     compiler's output when any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _library_path(n) for n in names}
+    paths = {n: _library_path(n, sweep) for n in names}
     nvcc = None
     running = {}
     for n, path in paths.items():
@@ -64,14 +74,14 @@ def build(*names: str) -> dict[str, Path]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *_flags(sweep), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         running[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp)
     failed = []
     for n, (proc, tmp) in running.items():
         out, _ = proc.communicate()
-        _logs[n] = out
+        _logs[f"{n}-sweep" if sweep else n] = out
         if proc.returncode != 0:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
@@ -89,14 +99,16 @@ def build_all() -> dict[str, Path]:
 
 def build_logs() -> dict[str, str]:
     """Compiler output (``-Xptxas=-v`` register and spill report) of the
-    builds this process ran."""
+    builds this process ran, by source name (``<name>-sweep`` for a sweep
+    build)."""
     return dict(_logs)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, sweep: bool = False) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with ``sweep``, its sweep
+    build), built first if needed."""
+    lib = _libs.get((name, sweep))
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)[name]))
-        _libs[name] = lib
+        lib = ctypes.CDLL(str(build(name, sweep=sweep)[name]))
+        _libs[name, sweep] = lib
     return lib

@@ -21,7 +21,9 @@ a CSR grouping (``csrc/edge_softmax.cu``):
 - K6 ``dot_softmax``: dot-product logits ``lrelu(scale <q[r], k[s]>)``
   (the plain dot when ``slope`` is None) with the values ``v[s]``, one pass
   over each row's edges; K7 ``dot_bwd_dq`` (receiver CSR: ``dq``) and K8
-  ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward.
+  ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward. K8 takes
+  several sender rows of one head per warp, heads one after the other over
+  all rows, and several edges in flight (:func:`_dot_bwd_rev_layout`).
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
 self-loop folds in afterwards (:func:`finalize_softmax`). Five autograd
@@ -47,7 +49,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .build import load
-from .spmm import _check, _ptr, _raise_on_error, _route, _row_ids, spmm_sddmm
+from .spmm import (_call_on, _check, _float4_rows, _ptr, _raise_on_error,
+                   _route, _row_ids, _windowed_rows, spmm_sddmm)
 
 __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
            "gat_bwd_dpi", "gat_bwd_rev", "gatv2_softmax", "gatv2_bwd_dq",
@@ -69,10 +72,22 @@ _NEG_INF = float("-inf")
 # are multiples of 4 and the row operands 16-byte aligned.
 _MAX_VECTORS = 256
 
+# K8's layout (csrc/edge_softmax.cu, dot_bwd_rev_kernel), from
+# chip_smoke.py --sweep, which times every choice (PERF.md §6): the
+# index windows a sender row's lanes take on average (spmm._windowed_rows),
+# and, for rows of one register chunk (32 vectors), the edges a group loads
+# before it reduces them and the register cap; uncapped, two edges in
+# flight cost more warps than they gain. Wider rows take one edge at a time
+# and no cap: two chunks of q and dy rows for two edges held to 64
+# registers spill.
+_K8_WINDOWS_PER_ROW = 2
+_K8_UNROLL = 2
+_K8_REG_CAP = 64
+
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("edge_softmax")
+def _lib(sweep: bool = False) -> ctypes.CDLL:
+    lib = load("edge_softmax", sweep=sweep)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, n_ptr, n_int, n_f32 in (("edge_softmax_f32", 8, 3, 0),
                                     ("gat_softmax_f32", 8, 3, 1),
@@ -84,7 +99,7 @@ def _lib() -> ctypes.CDLL:
                                     ("gatv2_bwd_rev_f32", 10, 3, 1),
                                     ("dot_softmax_f32", 8, 4, 2),
                                     ("dot_bwd_dq_f32", 10, 4, 2),
-                                    ("dot_bwd_rev_f32", 11, 4, 2)):
+                                    ("dot_bwd_rev_f32", 11, 7, 2)):
         f = getattr(lib, fn)
         f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * n_f32 + [ptr]
         f.restype = i32
@@ -341,11 +356,9 @@ def _same_rows(n: int, **ts) -> None:
         raise ValueError(f"expected {n} rows, got {bad}")
 
 
-def _launch(fn: str, key: str, device, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, fn)(*args, stream)
+def _launch(fn: str, key: str, device, *args, sweep: bool = False) -> None:
+    lib = _lib(sweep)
+    code = _call_on(device, getattr(lib, fn), *args)
     launches[key] += 1
     _raise_on_error(lib, code, fn)
 
@@ -424,13 +437,6 @@ def _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     _launch("gat_bwd_rev_f32", "k5", device, *args, _ptr(dpj), _ptr(dv), n,
             heads, d, float(slope))
     return dpj, dv
-
-
-def _float4_rows(d: int, *rows) -> bool:
-    """Whether the kernels load rows of ``d`` floats as float4 (the rule of
-    csrc/edge_softmax.cu: O % 4 == 0 and every row operand 16-byte
-    aligned)."""
-    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
 
 
 def _check_width(kernels: str, widths: str, d: int, vec: bool) -> None:
@@ -590,8 +596,27 @@ def _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
     return dq
 
 
+def _dot_bwd_rev_layout(ov: int, dv: int, n_rows: int,
+                        entries: int) -> tuple[int, int, int]:
+    """K8's ``(log_rows, unroll, reg_cap)`` for a head of ``ov`` (q, k) and
+    ``dv`` (v, dy) vectors and ``entries / n_rows`` edges per sender on
+    average: :func:`_windowed_rows` rows of ``G``-lane edge groups at
+    ``_K8_WINDOWS_PER_ROW``; ``_K8_UNROLL`` edges in flight at
+    ``_K8_REG_CAP`` registers for rows of one register chunk (at most 32
+    vectors), one edge and no cap for wider rows."""
+    wide = max(ov, dv, 1)
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
+    if wide <= 32:
+        return log_rows, _K8_UNROLL, _K8_REG_CAP
+    return log_rows, 1, 0
+
+
 def _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
-                        slope):
+                        slope, layout=None):
+    """K8 at :func:`_dot_bwd_rev_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap)``) from the sweep build of the library,
+    which holds every (unroll, reg_cap) instance (``build.load``)."""
     device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy)
     n, heads, o, d = indptr.numel() - 1, k.shape[1], k.shape[2], v.shape[2]
     _same_rows(n, k=k)
@@ -599,8 +624,14 @@ def _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
     dv = torch.empty((n, heads, d), dtype=torch.float32, device=device)
     if n == 0 or heads == 0:
         return dk, dv
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(o, q, k, v, dy, dk, dv) and d % 4 == 0
+        layout = _dot_bwd_rev_layout(o // 4 if vec else o,
+                                     d // 4 if vec else d, n, col.numel())
     _launch("dot_bwd_rev_f32", "k8", device, *args, _ptr(dk), _ptr(dv), n,
-            heads, o, d, float(scale), _kernel_slope(slope))
+            heads, o, d, *layout, float(scale), _kernel_slope(slope),
+            sweep=sweep)
     return dk, dv
 
 

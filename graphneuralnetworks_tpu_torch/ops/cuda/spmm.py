@@ -2,14 +2,18 @@
 
 Counterpart of ``graphneuralnetworks_tpu/ops/pallas/spmm.py``. The TPU
 kernels scatter through one-hot matmuls over 128x512 receiver blocks; here
-the graph carries two CSR groupings (``graph.py``) and each kernel gives one
-warp to one output row (``csrc/spmm.cu``):
+the graph carries two CSR groupings (``graph.py``) and the kernels walk
+their rows (``csrc/spmm.cu``):
 
 - K1 ``spmm_csr``: ``y[i] = sum_k w[eid[k]] * x[col[k]]`` over row ``i``.
   Over the receiver CSR it is the forward SpMM; over the sender CSR it is
-  the backward for ``x``.
+  the backward for ``x``. Wide rows split into strips whose slice of the
+  gathered table the L2 holds; a warp takes several rows of one strip, and
+  each edge group issues several gathers before it adds them
+  (:func:`_spmm_layout`).
 - K2 ``spmm_sddmm``: over the sender CSR, ``dx[s] = sum w_e * dy[r_e]`` and
-  ``dw_e = <dy[r_e], x[s]>`` in one sweep: the weighted backward.
+  ``dw_e = <dy[r_e], x[s]>`` in one sweep: the weighted backward; one warp
+  per row.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``spmm_plain`` / ``spmm_sddmm_plain``); a CUDA tensor launches the kernel
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -33,12 +38,26 @@ launches = {"k1": 0, "k2": 0}
 
 _INT32_MAX = 2**31 - 1
 
+# K1's layout (csrc/spmm.cu), from chip_smoke.py --sweep, which times
+# every choice (PERF.md §6): the bytes of the table slice one strip
+# may gather from (the L2 keeps a 16 MB slice: strips of 8 float4 beat
+# whole rows by ~30 % at D = 128; a strip is at least one 128-byte line),
+# the index windows a row's lanes take on average (fixes the rows per warp,
+# :func:`_windowed_rows`), and the gathers an edge group issues before it
+# adds them with the register cap (0: none), for groups of fewer than 128
+# bytes and for the others.
+_K1_STRIP_BYTES = 16 * 2**20
+_K1_LINE_BYTES = 128
+_K1_WINDOWS_PER_ROW = 2
+_K1_NARROW = (2, 0)
+_K1_WIDE = (8, 64)
+
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load("spmm")
+def _lib(sweep: bool = False) -> ctypes.CDLL:
+    lib = load("spmm", sweep=sweep)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spmm_csr_f32.argtypes = [ptr] * 6 + [i32, i32, ptr]
+    lib.spmm_csr_f32.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.spmm_csr_f32.restype = i32
     lib.spmm_sddmm_csr_f32.argtypes = [ptr] * 8 + [i32, i32, ptr]
     lib.spmm_sddmm_csr_f32.restype = i32
@@ -62,6 +81,54 @@ def _call_on(device: torch.device, fn, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(device):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def _float4_rows(d: int, *rows) -> bool:
+    """Whether the kernels load rows of ``d`` floats as float4: ``d % 4 ==
+    0`` and every row operand 16-byte aligned."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
+
+
+def _windowed_rows(log_group: int, n_rows: int, entries: int,
+                   windows: float) -> int:
+    """log2 of the CSR rows one warp of K1 or K8 takes: each row owns the
+    power of two of lanes nearest ``entries / n_rows / windows`` (so that
+    it walks its edges in about ``windows`` windows of one index per lane,
+    the next loaded while the current one's rows are gathered), at least
+    the ``2^log_group`` lanes of one edge group and at most the warp's 32.
+    At N = 131,072, E = 2M (15.3 edges a row) that is 8 lanes: 4 rows per
+    warp at D = 8 (4 groups of 2 lanes a row) and at D = 7 (one group of 8
+    lanes), the fastest layouts of the sweep."""
+    mean = entries / n_rows if n_rows else 0.0
+    log_seg = round(math.log2(mean / windows)) if mean > windows else 0
+    return 5 - min(5, max(log_group, log_seg))
+
+
+def _spmm_layout(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
+                 entries: int) -> tuple[int, int, int, int]:
+    """K1's ``(log_rows, log_strip, unroll, reg_cap)`` for rows of ``fv``
+    vectors of ``vec_bytes`` (16: float4, 4: float) gathered from a table
+    of ``table_rows`` rows, over ``n_rows`` output rows of ``entries /
+    n_rows`` edges on average.
+
+    Strip: the row's whole ``G`` vectors when the table fits in
+    ``_K1_STRIP_BYTES``, else the widest power of two of vectors, down to
+    one ``_K1_LINE_BYTES`` line, whose slice of the table fits; whole rows
+    again when not even that fits (nothing for the L2 to keep). Rows per
+    warp: :func:`_windowed_rows` for groups of one strip. ``_K1_WIDE``
+    (unroll, reg_cap) for groups of a line or more, else ``_K1_NARROW``."""
+    log_g = min((fv - 1).bit_length(), 5)
+    log_line = max(0, (_K1_LINE_BYTES // vec_bytes - 1).bit_length())
+    log_strip = log_g
+    while (log_strip > log_line
+           and table_rows * vec_bytes << log_strip > _K1_STRIP_BYTES):
+        log_strip -= 1
+    if table_rows * vec_bytes << log_strip > _K1_STRIP_BYTES:
+        log_strip = log_g
+    unroll, cap = (_K1_WIDE if vec_bytes << log_strip >= _K1_LINE_BYTES
+                   else _K1_NARROW)
+    return (_windowed_rows(log_strip, n_rows, entries, _K1_WINDOWS_PER_ROW),
+            log_strip, unroll, cap)
 
 
 def _raise_on_error(lib, code: int, what: str) -> None:
@@ -143,17 +210,24 @@ def spmm_sddmm_plain(indptr, col, eid, w, dy, x):
 
 # ---- kernel wrappers -------------------------------------------------------
 
-def _spmm_csr_kernel(indptr, col, eid, w, x):
+def _spmm_csr_kernel(indptr, col, eid, w, x, layout=None):
+    """K1 at :func:`_spmm_layout`'s layout, or at ``layout`` (``(log_rows,
+    log_strip, unroll, reg_cap)``) from the sweep build of the library,
+    which holds every (unroll, reg_cap) instance (``build.load``)."""
     _check_launch(indptr, col, eid, w, x)
     n_rows, d = indptr.numel() - 1, x.shape[1]
     y = torch.empty((n_rows, d), dtype=x.dtype, device=x.device)
     if n_rows == 0 or d == 0:
         return y
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spmm_csr_f32(_ptr(indptr), _ptr(col), _ptr(eid), _ptr(w),
-                                _ptr(x), _ptr(y), n_rows, d, stream)
+    vec = _float4_rows(d, x, y)
+    lib = _lib(sweep=layout is not None)
+    if layout is None:
+        n_edges = col.numel() if col is not None else x.shape[0]
+        layout = _spmm_layout(d // 4 if vec else d, 16 if vec else 4,
+                              x.shape[0], n_rows, n_edges)
+    code = _call_on(x.device, lib.spmm_csr_f32, _ptr(indptr), _ptr(col),
+                    _ptr(eid), _ptr(w), _ptr(x), _ptr(y), n_rows, d,
+                    int(vec), *layout)
     launches["k1"] += 1
     _raise_on_error(lib, code, "spmm_csr_f32")
     return y
@@ -172,11 +246,9 @@ def _spmm_sddmm_kernel(indptr, col, eid, w, dy, x):
     if d == 0:
         return dx, dw.zero_()
     lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.spmm_sddmm_csr_f32(_ptr(indptr), _ptr(col), _ptr(eid),
-                                      _ptr(w), _ptr(dy), _ptr(x), _ptr(dx),
-                                      _ptr(dw), n_rows, d, stream)
+    code = _call_on(x.device, lib.spmm_sddmm_csr_f32, _ptr(indptr),
+                    _ptr(col), _ptr(eid), _ptr(w), _ptr(dy), _ptr(x),
+                    _ptr(dx), _ptr(dw), n_rows, d)
     launches["k2"] += 1
     _raise_on_error(lib, code, "spmm_sddmm_csr_f32")
     return dx, dw

@@ -1,0 +1,387 @@
+"""The layouts of K1 (``spmm_csr_f32``) and K8 (``dot_bwd_rev_f32``): their
+choosers, the wrappers passing a layout through, and (``gpu``-marked) every
+layout on the card against the plain versions.
+
+- CPU: :func:`~ops.cuda.spmm._spmm_layout` and
+  :func:`~ops.cuda.edge_softmax._dot_bwd_rev_layout` give a layout the
+  kernels take for every width, head count and mean row length, empty
+  graphs included; the wrappers hand that layout (or the caller's) to the
+  library call unchanged.
+- ``gpu``: each layout the sweep runs, on a graph with empty rows, a row of
+  more than 32 edges and a row of more than 1024, against ``spmm_plain``
+  and ``dot_bwd_rev_plain``; two runs of each kernel give the same bits.
+  This file imports no JAX, so on a machine with a card and no JAX it runs
+  without the suite's conftest:
+
+      python -m pytest tests/test_torch_spmm_layouts.py --noconftest -o addopts="" -m gpu
+"""
+
+import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES  # noqa: E402
+from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S  # noqa: E402
+
+MEAN_ROW_LENGTHS = [0, 0.5, 1, 3, 15.26, 100, 2048]
+
+
+def _log_g(vectors: int) -> int:
+    return min((vectors - 1).bit_length(), 5)
+
+
+@pytest.mark.parametrize("mean", MEAN_ROW_LENGTHS)
+def test_spmm_layout_is_valid_for_every_width(mean):
+    """K1's chooser: a strip no wider than the row's G and at least one
+    128-byte line unless the row is narrower, R rows of a strip fit in a
+    warp, the unroll and the register cap are ones the kernel was built
+    for; for tables small and large, empty graphs included."""
+    for n_rows in (0, 1, 7, 131_072):
+        entries = round(mean * n_rows)
+        for table_rows in {n_rows, entries, 2_000_000}:
+            for width in range(1, 1025):
+                for fv, vb in {(width, 4), (max(1, width // 4), 16)}:
+                    log_rows, strip, unroll, cap = S._spmm_layout(
+                        fv, vb, table_rows, n_rows, entries)
+                    assert 0 <= strip <= _log_g(fv)
+                    assert vb << strip >= min(128, vb << _log_g(fv))
+                    assert 0 <= log_rows <= 5 - strip
+                    assert unroll in (1, 2, 4, 8) and cap in (0, 64)
+
+
+@pytest.mark.parametrize("fv,vec_bytes,table_rows,want", [
+    (32, 16, 131_072, (2, 3, 8, 64)),     # D=128 nodes: 16 MB strips
+    (32, 16, 2_000_000, (0, 5, 8, 64)),   # [E, 128] edge rows: whole rows
+    (32, 16, 4096, (0, 5, 8, 64)),        # a 2 MB table: whole rows
+    (2, 16, 131_072, (2, 1, 2, 0)),       # D=8
+    (7, 4, 131_072, (2, 3, 2, 0)),        # D=7, floats
+    (129, 4, 131_072, (0, 5, 8, 64)),     # floats: 32 a line already
+])
+def test_spmm_layout_at_the_measured_shapes(fv, vec_bytes, table_rows, want):
+    """The layouts K1 takes at N = 131,072, E = 2M (15.3 edges a row): the
+    fastest of chip_smoke.py --sweep at D = 128, 8 and 7."""
+    assert S._spmm_layout(fv, vec_bytes, table_rows, 131_072,
+                          2_000_000) == want
+
+
+@pytest.mark.parametrize("log_group,n_rows,entries,want", [
+    (1, 131_072, 2_000_000, 2),   # D=8: 8 lanes a row, 4 groups of 2
+    (3, 131_072, 2_000_000, 2),   # D=7: 8 lanes a row, one group of 8
+    (0, 131_072, 2_000_000, 2),   # D=4: 8 lanes a row, 8 groups of 1
+    (5, 131_072, 2_000_000, 0),   # D=128: one row per warp
+    (2, 4096, 77_556, 2),         # 18.9 edges a row: 8 lanes
+    (0, 1000, 64_000, 0),         # 64 edges a row: 32 lanes
+    (0, 1000, 2_048_000, 0),      # 2,048 edges a row
+    (0, 1000, 500, 5),            # half an edge a row: one lane
+    (2, 1000, 500, 3),            # but at least one group of 4 lanes
+    (0, 0, 0, 5),                 # no rows
+])
+def test_windowed_rows_rule(log_group, n_rows, entries, want):
+    """K1's and K8's rows per warp: each row owns the power of two of lanes
+    nearest its mean edges over ``windows`` (2), at least one edge group,
+    at most 32."""
+    assert S._K1_WINDOWS_PER_ROW == ES._K8_WINDOWS_PER_ROW == 2
+    assert S._windowed_rows(log_group, n_rows, entries, 2) == want
+
+
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_dot_bwd_rev_layout_is_valid(n_rows, mean):
+    """K8's chooser: R rows of G lanes fit in a warp, and (NC, U, cap) is
+    an instance the kernel's library holds (NC = 1: U = 2 at 64 registers;
+    wider: U = 1, no cap), for every width on either side up to 256 vectors
+    (1024 floats), at each mean row length and for an empty graph."""
+    for ov in range(1, 257):
+        for dv in sorted({1, 7, 32, ov, 256}):
+            wide = max(ov, dv)
+            log_rows, unroll, cap = ES._dot_bwd_rev_layout(
+                ov, dv, n_rows, round(mean * n_rows))
+            assert 0 <= log_rows <= 5 - _log_g(wide)
+            assert (unroll, cap) == ((2, 64) if wide <= 32 else (1, 0))
+
+
+def test_dot_bwd_rev_layout_at_the_measured_shapes():
+    """Transformer layer 1 (H=4, O=D=32: 8 float4 vectors a head) and its
+    head layer (H=1, 2 vectors) take 4 rows per warp; AGNN (H=1, 32
+    vectors) one row per warp, each with 2 edges in flight at 64
+    registers: the fastest of chip_smoke.py --sweep. Rows of 64 vectors
+    (O = D = 256) take one edge at a time, uncapped."""
+    n, e = 131_072, 2_000_000
+    assert ES._dot_bwd_rev_layout(8, 8, n, e) == (2, 2, 64)
+    assert ES._dot_bwd_rev_layout(2, 2, n, e) == (2, 2, 64)
+    assert ES._dot_bwd_rev_layout(32, 32, n, e) == (0, 2, 64)
+    assert ES._dot_bwd_rev_layout(64, 64, n, e) == (0, 1, 0)
+
+
+def test_sweep_build_is_a_library_of_its_own():
+    """The sweep build of a source compiles with ``-DGNN_SWEEP`` into a
+    library of another name, so the shipped one never holds its extra
+    instances and neither build replaces the other."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import build as B
+
+    for name in B.SOURCES:
+        shipped, sweep = B._library_path(name, False), B._library_path(
+            name, True)
+        assert shipped != sweep and shipped.parent == sweep.parent
+        assert sweep.name.startswith(f"{name}-sweep-")
+    assert "-DGNN_SWEEP" not in B._flags(False)
+    assert B._flags(True) == B.NVCC_FLAGS + ("-DGNN_SWEEP",)
+
+
+class _FakeLib:
+    """Stands in for a kernel library: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+
+def _fake_launches(monkeypatch, module):
+    """Fake libraries of ``module``: ``{False: shipped, True: sweep}``."""
+    libs = {False: _FakeLib(), True: _FakeLib()}
+    monkeypatch.setattr(module, "_lib", lambda sweep=False: libs[sweep])
+    monkeypatch.setattr(module, "_call_on",
+                        lambda device, fn, *args: fn(*args, None))
+    return libs
+
+
+@pytest.mark.parametrize("d", [7, 8, 128])
+def test_spmm_wrapper_passes_the_layout(monkeypatch, d):
+    """``_spmm_csr_kernel`` passes ``_spmm_layout``'s choice to the shipped
+    library, or the caller's layout to the sweep build, as the last four
+    integers before the stream."""
+    libs = _fake_launches(monkeypatch, S)
+    rng = np.random.default_rng(d)
+    counts = rng.integers(0, 30, 64)
+    indptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                          dtype=torch.int32)
+    n_edges = int(indptr[-1])
+    col = torch.tensor(rng.integers(0, 64, n_edges), dtype=torch.int32)
+    x = torch.randn(64, d)
+    before = S.launches["k1"]
+    S._spmm_csr_kernel(indptr, col, None, None, x)
+    S._spmm_csr_kernel(indptr, col, None, None, x, layout=(1, 0, 4, 0))
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0
+    want = S._spmm_layout(d // 4 if vec else d, 16 if vec else 4, 64, 64,
+                          n_edges)
+    calls = libs[False].calls + libs[True].calls
+    assert [c[1][-5:-1] for c in calls] == [want, (1, 0, 4, 0)]
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 1]
+    assert all(c[0] == "spmm_csr_f32" for c in calls)
+    assert S.launches["k1"] == before + 2
+
+
+@pytest.mark.parametrize("heads,o,d", [(4, 32, 32), (1, 8, 8), (3, 5, 7)])
+def test_dot_bwd_rev_wrapper_passes_the_layout(monkeypatch, heads, o, d):
+    """``_dot_bwd_rev_kernel`` passes ``_dot_bwd_rev_layout``'s choice to
+    the shipped library, or the caller's layout to the sweep build, as the
+    three integers after the widths."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads + o + d)
+    counts = rng.integers(0, 30, 40)
+    indptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                          dtype=torch.int32)
+    n_edges = int(indptr[-1])
+    col = torch.tensor(rng.integers(0, 50, n_edges), dtype=torch.int32)
+    q, dy = torch.randn(50, heads, o), torch.randn(50, heads, d)
+    k, v = torch.randn(40, heads, o), torch.randn(40, heads, d)
+    mx, den, s_n = (torch.randn(50, heads) for _ in range(3))
+    args = (indptr, col, q, k, v, mx, den, s_n, dy, 0.5, None)
+    before = ES.launches["k8"]
+    ES._dot_bwd_rev_kernel(*args)
+    ES._dot_bwd_rev_kernel(*args, layout=(0, 4, 64))
+    vec = o % 4 == 0 and d % 4 == 0
+    want = ES._dot_bwd_rev_layout(o // 4 if vec else o, d // 4 if vec else d,
+                                  40, n_edges)
+    calls = libs[False].calls + libs[True].calls
+    assert [c[1][15:18] for c in calls] == [want, (0, 4, 64)]
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 1]
+    assert all(c[0] == "dot_bwd_rev_f32" for c in calls)
+    assert all(c[1][11:15] == (40, heads, o, d) for c in calls)
+    assert ES.launches["k8"] == before + 2
+
+
+# ---- on the card -----------------------------------------------------------
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _groupings(seed, n_src=300, n_dst=260):
+    """Edges from ``n_src`` senders to ``n_dst`` receivers (bipartite when
+    they differ): 2,000 random ones among the first 200 of each side (the
+    rest have no edges), receiver 5 and sender 9 with 1,100 more, receiver
+    7 and sender 11 with 40 more; sorted by receiver. Returns the receiver
+    CSR ``(indptr_r, col_r)`` (col: senders), the sender CSR ``(indptr_s,
+    col_s, eid_s)`` (col: receivers) as int32 card tensors, and E."""
+    rng = np.random.default_rng(seed)
+    s = np.concatenate([rng.integers(0, 200, 2000), rng.integers(0, 200, 1100),
+                        np.full(1100, 9), rng.integers(0, 200, 40),
+                        np.full(40, 11)])
+    r = np.concatenate([rng.integers(0, 200, 2000), np.full(1100, 5),
+                        rng.integers(0, 200, 1100), np.full(40, 7),
+                        rng.integers(0, 200, 40)])
+    order = np.argsort(r, kind="stable")
+    s, r = s[order], r[order]
+    by_s = np.argsort(s, kind="stable")
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device="cuda")
+
+    def indptr(ids, n):
+        return np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=n))])
+
+    indptr_r, indptr_s = indptr(r, n_dst), indptr(s, n_src)
+    return (t(indptr_r), t(s)), (t(indptr_s), t(r[by_s]), t(by_s)), len(s)
+
+
+# Kernel and plain version sum a row in other orders. Over the row of
+# 1,100 edges of unit-spread terms the partial sums s_k grow as sqrt(k) and
+# each float32 addition rounds by up to eps / 2 * |s_k|: in the worst order
+# the error is eps / 2 * sum_k |s_k| ~ 6e-8 * 0.55 * 1100^1.5 = 1.2e-3. Its
+# typical size is far smaller (~1.4e-5 rms per side), but the tail is long:
+# the largest of 512 columns reached 1.5e-4 in float32 simulations of two
+# orders, and 3.0e-4 on an H100 (index_add_'s atomics against the
+# kernel). So the rows are held to 1e-3 absolute, 1e-5 relative; a lost or
+# doubled edge moves a sum by ~1.
+TOL = dict(rtol=1e-5, atol=1e-3)
+
+
+def _k1_layouts(fv):
+    """Every K1 layout: each strip width up to the row's G and rows per
+    warp the strip allows, at each unroll and register cap."""
+    return [(rows, strip, u, cap) for strip in range(_log_g(fv) + 1)
+            for rows in range(6 - strip) for u in (1, 2, 4, 8)
+            for cap in (0, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 7, 8, 32, 128, 129, 512])
+def test_spmm_layouts_on_card(d):
+    """K1 at every layout and the default, weighted and unweighted, over
+    the receiver CSR, the sender CSR with ``eid``, and ``col=None`` (the
+    gather backward), against ``spmm_plain``; two runs give the same
+    bits."""
+    _needs_card()
+    (ir, cr), (is_, cs, es), n_edges = _groupings(d, n_src=260)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn(260, d, device="cuda", generator=gen)
+    e = torch.randn(n_edges, d, device="cuda", generator=gen)
+    w = torch.rand(n_edges, device="cuda", generator=gen) + 0.5
+    fv = d // 4 if d % 4 == 0 else d
+    for args in ((ir, cr, None, None, x), (ir, cr, None, w, x),
+                 (is_, cs, es, None, x), (is_, cs, es, w, x),
+                 (ir, None, None, None, e), (ir, None, None, w, e)):
+        want = S.spmm_plain(*args)
+        assert (want[200:] == 0).all()
+        first = S.spmm_csr(*args)
+        torch.testing.assert_close(first, want, **TOL)
+        torch.testing.assert_close(S.spmm_csr(*args), first, rtol=0, atol=0)
+        for lay in _k1_layouts(fv):
+            torch.testing.assert_close(S._spmm_csr_kernel(*args, layout=lay),
+                                       want, **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_spmm_refuses_a_layout_it_does_not_have():
+    """A layout wider than a warp, an unroll or a register cap the kernel
+    was not built for, a strip wider than the row's G or negative: the
+    launch is refused, nothing runs."""
+    _needs_card()
+    (ir, cr), _, _ = _groupings(1)
+    x = torch.randn(260, 8, device="cuda")
+    for lay in ((5, 1, 1, 0), (0, 1, 3, 0), (0, 1, 1, 32), (1, 1, 0, 0),
+                (0, 1, 0, 64), (0, 0, 0, 0), (0, 2, 1, 0), (0, -1, 1, 0)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            S._spmm_csr_kernel(ir, cr, None, None, x, layout=lay)
+
+
+def _k8_layouts(ov, dv):
+    """Every K8 layout of the sweep build: rows per warp, and (U, cap) with
+    NC * U <= 4 (U = 1 always), a cap only for NC <= 2."""
+    wide = max(ov, dv)
+    nc = 1 << max(0, (wide - 1).bit_length() - 5)
+    return [(rows, u, cap) for rows in range(6 - _log_g(wide))
+            for u in (1, 2, 4) for cap in (0, 64)
+            if (u == 1 or nc * u <= 4) and (cap == 0 or nc <= 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o,d", [(1, 8, 8), (4, 32, 32), (1, 128, 128),
+                                       (2, 4, 12), (3, 5, 7), (1, 256, 256)])
+def test_dot_bwd_rev_layouts_on_card(heads, o, d):
+    """K8 at every layout and the default, with and without a slope, over
+    a bipartite sender CSR (300 senders, 260 receivers), against
+    ``dot_bwd_rev_plain``; two runs give the same bits."""
+    _needs_card()
+    _, (is_, cs, _), _ = _groupings(heads * 100 + o + d)
+    gen = torch.Generator(device="cuda").manual_seed(heads + o + d)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, dy = rn(260, heads, o), rn(260, heads, d)
+    k, v = rn(300, heads, o), rn(300, heads, d)
+    # logits of unit spread under a row max of 3 or more: alpha ~1 or
+    # less, terms of unit spread as for K1 (TOL)
+    mx, s_n = rn(260, heads).abs() + 3, rn(260, heads)
+    den = torch.rand(260, heads, device="cuda", generator=gen) + 1
+    vec = o % 4 == 0 and d % 4 == 0
+    layouts = _k8_layouts(o // 4 if vec else o, d // 4 if vec else d)
+    tol = TOL
+    for slope in (None, 0.2):
+        args = (is_, cs, q, k, v, mx, den, s_n, dy, o ** -0.5, slope)
+        want = ES.dot_bwd_rev_plain(*args)
+        assert (want[0][200:] == 0).all() and (want[1][200:] == 0).all()
+        first = ES.dot_bwd_rev(*args)
+        again = ES.dot_bwd_rev(*args)
+        for a, b, c in zip(first, want, again):
+            torch.testing.assert_close(a, b, **tol)
+            torch.testing.assert_close(c, a, rtol=0, atol=0)
+        for lay in layouts:
+            for a, b in zip(ES._dot_bwd_rev_kernel(*args, layout=lay), want):
+                torch.testing.assert_close(a, b, **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_shipped_build_holds_only_the_chosen_instances():
+    """The shipped libraries launch the (unroll, reg_cap) pairs the
+    choosers pick and refuse the sweep's others (nothing runs): K1 (2, 0)
+    and (8, 64); K8 (2, 64) for rows of one register chunk, (1, 0) wider."""
+    _needs_card()
+    (ir, cr), (is_, cs, _), _ = _groupings(2)
+    x = torch.randn(260, 8, device="cuda")
+    y = torch.empty_like(x)
+    lib = S._lib()
+    for (unroll, cap), ok in (((2, 0), True), ((8, 64), True),
+                              ((1, 0), False), ((4, 64), False),
+                              ((2, 64), False), ((8, 0), False)):
+        code = S._call_on(x.device, lib.spmm_csr_f32, S._ptr(ir), S._ptr(cr),
+                          None, None, S._ptr(x), S._ptr(y), 260, 8, 1, 0, 1,
+                          unroll, cap)
+        assert (code == 0) == ok, (unroll, cap, code)
+    for o, (unroll, cap), ok in ((8, (2, 64), True), (8, (1, 0), False),
+                                 (8, (4, 64), False), (256, (1, 0), True),
+                                 (256, (2, 64), False), (256, (1, 64), False)):
+        q, k, v, dy = (torch.randn(n, 1, o, device="cuda")
+                       for n in (260, 300, 300, 260))
+        mx, den, s_n = (torch.randn(260, 1, device="cuda") for _ in range(3))
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        code = S._call_on(
+            x.device, ES._lib().dot_bwd_rev_f32,
+            *(S._ptr(t) for t in (is_, cs, q, k, v, mx, den, s_n, dy, dk,
+                                  dv)), 300, 1, o, o, 0, unroll, cap, 0.5,
+            0.0)
+        assert (code == 0) == ok, (o, unroll, cap, code)
+    torch.cuda.synchronize()
