@@ -88,12 +88,13 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a), of
 GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j) and graph classification (3k). ``--sweep`` times K1,
-K8, K14 and its backward at every layout (the measurement behind the
-wrappers' choices; each K1 and K8 layout held to the plain version first),
-K1's gather-rate ceiling at D=128, and K1 and K8 at every rows per warp on
-an R-MAT graph of skewed degrees; ``--only 2e,2f`` runs phase 1 and
-the named kernel phases only, and prints no result line.
+(3i), EdgeConv (3j) and graph classification (3k), with K1's, K6's, K7's
+and K8's device time per step. ``--sweep`` times K1, K6, K7, K8, K14 and
+its backward at every layout (the measurement behind the wrappers'
+choices; each K1, K6, K7 and K8 layout held to the plain version first),
+K1's gather-rate ceiling at D=128, and K1, K6, K7 and K8 at every rows per
+warp on an R-MAT graph of skewed degrees; ``--only 2e,2f`` runs phase 1
+and the named kernel phases only, and prints no result line.
 """
 
 from __future__ import annotations
@@ -658,31 +659,42 @@ def dot_phase(g, card: str) -> dict:
         hd = f"H={h} O={o} D={d}" + ("" if slope is None else
                                      f" slope={slope}")
         # compulsory bytes, float32 and int32 (4 bytes each): indptr N+1;
-        # col E; per-node scalars N*H each; rows q, k (N*H*O), v, dy
-        # (N*H*D) and the outputs once
-        idx, nh = 4 * (N + 1 + E), 4 * N * h
+        # col E; per-node scalars N*H each; per-edge raw logits E*H; rows
+        # q, k (N*H*O), v, dy (N*H*D) and the outputs once
+        idx, nh, eh = 4 * (N + 1 + E), 4 * N * h, 4 * E * h
         no_, nd = 4 * N * h * o, 4 * N * h * d
         # with no L2 reuse every edge reads a whole row per gathered row
         # operand (K6 and K7: k[s] and v[s]; K8: q[r] and dy[r]) and K8 one
         # scalar per edge for each of mx, den and s_n of the receivers
         rows_again = 4 * E * h * (o + d) - no_ - nd
         scalar_again = 4 * E * h - nh
-        num, m, s = case(
-            "k6", hd, ES.dot_softmax, ES.dot_softmax_plain,
-            (ir, cr, q, k, v, scale, slope), idx + 2 * no_ + 2 * nd + 2 * nh,
+        # as the main path calls them: K6 also writes each edge's raw
+        # logit, which K7 reads in place of q (DotAttentionFunction)
+        raws = [torch.empty(E, h, device=dev) for _ in range(2)]
+
+        def k6(*a, _raw=raws[0]):
+            return ES.dot_softmax(*a, _raw) + (_raw,)
+
+        def k6_plain(*a, _raw=raws[1]):
+            return ES.dot_softmax_plain(*a, _raw) + (_raw,)
+
+        num, m, s, raw = case(
+            "k6", hd, k6, k6_plain, (ir, cr, q, k, v, scale, slope),
+            idx + 2 * no_ + 2 * nd + 2 * nh + eh,
             E * h * (2 * o + 2 * d + 8),    # dot, value fma; exp, rescale
-            rows_again, [(nm, {}, None) for nm in ("num", "m", "s")])
+            rows_again, [(nm, {}, None) for nm in ("num", "m", "s", "raw")])
         out, mx, den = ES.finalize_softmax(num, m, s, rn(N, h), rn(N, h, d))
         bwd = (q, k, v, mx, den, (out * dy).sum(-1), dy, scale, slope)
-        # two dots per edge, then dq (K7) or dk and dv (K8) updates
-        case("k7", hd, ES.dot_bwd_dq, ES.dot_bwd_dq_plain, (ir, cr) + bwd,
-             idx + 3 * no_ + 2 * nd + 3 * nh, E * h * (4 * o + 2 * d + 10),
-             rows_again, [("dq", {}, None)])
+        # K7: <v[s], dy[r]> per edge, then the dq update
+        case("k7", hd, ES.dot_bwd_dq, ES.dot_bwd_dq_plain,
+             (ir, cr) + bwd + (raw,), idx + 2 * no_ + 2 * nd + 3 * nh + eh,
+             E * h * (2 * o + 2 * d + 10), rows_again, [("dq", {}, None)])
+        # K8: two dots per edge, then the dk and dv updates
         case("k8", hd, ES.dot_bwd_rev, ES.dot_bwd_rev_plain, (is_, cs) + bwd,
              idx + 3 * no_ + 3 * nd + 3 * nh, E * h * (4 * o + 4 * d + 10),
              rows_again + 3 * scalar_again, [("dk", {}, None),
                                              ("dv", {}, None)])
-        del q, k, v, dy, num, out, bwd
+        del q, k, v, dy, num, out, bwd, raw, raws
     log_times(res, 26)
     log("  clocks.sm,power.draw,temperature.gpu: "
         + smi("clocks.sm,power.draw,temperature.gpu"))
@@ -1055,6 +1067,79 @@ def k8_sweep(g) -> list:
     return out
 
 
+def _recv_layouts(ov: int, dv: int, vec: bool) -> list:
+    """Every K6 and K7 layout of the sweep build: rows (rows per warp, and
+    (edges in flight, register cap) as K8's sweep holds them), then strips
+    of one 128-byte line (rows per warp, gathers in flight 1-8, uncapped
+    and at 64 registers)."""
+    wide = max(ov, dv)
+    log_g = min((wide - 1).bit_length(), 5)
+    nc = 1 << max(0, (wide - 1).bit_length() - 5)
+    log_s = 3 if vec else 5
+    return ([(0, r, u, cap) for r in range(6 - log_g) for u in (1, 2, 4)
+             for cap in (0, 64) if nc * u <= 4 or u == 1
+             if cap == 0 or nc <= 2]
+            + [(1, r, u, cap) for r in range(6 - log_s)
+               for u in (1, 2, 4, 8) for cap in (0, 64)])
+
+
+def recv_sweep(g) -> list:
+    """K6 and K7 at every layout the library's sweep build holds
+    (:func:`_recv_layouts`), at phase 2d's shapes and at (1, 256, 256),
+    each held to the plain version at RTOL / ATOL before it is timed
+    (device ms): K6 writing the raw logits, K7 from them and recomputing
+    them. The measurement behind ``ops/cuda/edge_softmax.py``'s
+    ``_DOT_*`` constants and the raw-logit residual."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = []
+    log("sweep: K6, K7 layouts (device ms, profiler; strips, log2 rows per "
+        "warp, edges or gathers in flight, register cap)")
+    for h, o, d in K8_SWEEP_SHAPES:
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        q, k, v, dy, scale = rn(N, h, o), rn(N, h, o), rn(N, h, d), \
+            rn(N, h, d), o ** -0.5
+        raw_ref = torch.empty(E, h, device=dev)
+        fwd = (g.indptr_r, g.col_r, q, k, v, scale, None)
+        ref6 = ES.dot_softmax_plain(*fwd, raw_ref)
+        outp, mx, den = ES.finalize_softmax(*ref6, rn(N, h), rn(N, h, d))
+        bwd = (g.indptr_r, g.col_r, q, k, v, mx, den, (outp * dy).sum(-1),
+               dy, scale, None)
+        ref7 = ES.dot_bwd_dq_plain(*bwd)
+        hd = f"H={h} O={o} D={d}"
+        ov, dv = o // 4, d // 4
+        chosen = ES._dot_recv_layout(ov, dv, 16, N, N, E)
+        raw = torch.empty(E, h, device=dev)
+        for lay in _recv_layouts(ov, dv, True):
+            got = ES._dot_softmax_kernel(*fwd, raw, lay)
+            err = max(compare(f"K6 {hd} {lay} {nm}", a, b, quiet=True)
+                      for nm, a, b in zip(("num", "m", "s", "raw"),
+                                          got + (raw,), ref6 + (raw_ref,)))
+            runs = [("k6", True, err, lambda: ES._dot_softmax_kernel(
+                *fwd, raw, lay))]
+            for given in (raw_ref, None):
+                err = compare(f"K7 {hd} {lay} raw={given is not None}",
+                              ES._dot_bwd_dq_kernel(*bwd, given, lay), ref7,
+                              quiet=True)
+                runs.append(("k7", given is not None, err,
+                             lambda given=given: ES._dot_bwd_dq_kernel(
+                                 *bwd, given, lay)))
+            for key, with_raw, err, fn in runs:
+                row = {"kernel": key, "case": hd, "strips": lay[0],
+                       "log_rows": lay[1], "unroll": lay[2],
+                       "reg_cap": lay[3], "raw": with_raw,
+                       "chosen": lay == chosen and with_raw,
+                       "max_abs_err": err, "device_ms": device_ms(fn)}
+                out.append(row)
+                log(f"  {key.upper()} {hd:<20} {lay} raw={int(with_raw)} "
+                    f"{row['device_ms']:.4f} ms{' (chosen)' * row['chosen']}")
+        del q, k, v, dy, raw, raw_ref, ref6, ref7, outp, bwd, fwd
+    return out
+
+
 def rmat_graph(gnn, seed: int = 17):
     """A Graph500 R-MAT graph (Kronecker generator, initiator A, B, C =
     0.57, 0.19, 0.19; vertex labels permuted at random) of 2^17 = N nodes
@@ -1098,13 +1183,38 @@ def _k8_exact_args(g, h, o, d, gen):
             None)
 
 
+def _recv_exact_args(g, h, o, d, gen):
+    """K6's and K7's arguments at (H, O, D) on ``g`` whose every sum is
+    exact in float32: ``q = 0`` makes every raw logit 0 and every weight
+    ``exp(0 - 0) = 1``, so K6 sums ``v`` rows of integers in [-8, 8] and
+    counts; K7 takes those raw logits with ``mx = 0``, ``den = 1``, ``v``,
+    ``dy``, ``k`` in {-1, 0, 1}, ``s_n`` in [-2, 2] and ``scale = 0.5``,
+    so each ``dlg`` is a half-integer of at most ``(D + 2) / 2``. Rows of
+    fewer than 2^16 edges (R-MAT's hubs of ~19k included) then sum exactly
+    in any order. Returns K6's and K7's arguments."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    q, k = torch.zeros(n, h, o, device=dev), ri(-1, 1, n, h, o)
+    fwd = (g.indptr_r, g.col_r, q, k, ri(-8, 8, n, h, d), 0.5, None)
+    mx, den = torch.zeros(n, h, device=dev), torch.ones(n, h, device=dev)
+    bwd = (g.indptr_r, g.col_r, q, k, ri(-1, 1, n, h, d), mx, den,
+           ri(-2, 2, n, h), ri(-1, 1, n, h, d), 0.5, None,
+           torch.zeros(g.num_edges, h, device=dev))
+    return fwd, bwd
+
+
 def skew_sweep(gnn) -> dict:
-    """K1 and K8 on :func:`rmat_graph` at every rows per warp, the rest of
-    the layout as the wrappers choose it, beside the wrapper's own choice
-    (the shipped build), each held to the plain version bit for bit on
-    inputs whose sums are exact (``_k1_cases(exact=True)``,
-    :func:`_k8_exact_args`): whether rows that share a warp lose to one
-    row per warp when a hub holds the warp to its longest row."""
+    """K1, K8, K6 and K7 on :func:`rmat_graph` at every rows per warp, the
+    rest of the layout as the wrappers choose it, beside the wrapper's own
+    choice (the shipped build), each held to the plain version bit for bit
+    on inputs whose sums are exact (``_k1_cases(exact=True)``,
+    :func:`_k8_exact_args`, :func:`_recv_exact_args`): whether rows that
+    share a warp lose to one row per warp when a hub holds the warp to its
+    longest row."""
     from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
@@ -1161,12 +1271,49 @@ def skew_sweep(gnn) -> dict:
             + ", ".join(f"2^{k}: {v:.4f}"
                         for k, v in row["by_log_rows"].items()))
         del args, ref
+    gen = torch.Generator(device=g.device).manual_seed(16)
+    out["k6"], out["k7"] = [], []
+    for h, o, d in K8_SWEEP_SHAPES[:3]:
+        fwd, bwd = _recv_exact_args(g, h, o, d, gen)
+        hd = f"H={h} O={o} D={d}"
+        chosen = ES._dot_recv_layout(o // 4, d // 4, 16, N, N, E)
+        for key, fn, plain, args in (
+                ("k6", ES._dot_softmax_kernel, ES.dot_softmax_plain, fwd),
+                ("k7", ES._dot_bwd_dq_kernel, ES.dot_bwd_dq_plain, bwd)):
+            ref = plain(*args)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+
+            def check(label, got, ref=ref):
+                got = got if isinstance(got, tuple) else (got,)
+                for i, (a, b) in enumerate(zip(got, ref)):
+                    same_bits(f"{key.upper()} R-MAT {hd} {label} out{i}", a,
+                              b)
+
+            check("chosen", fn(*args))
+            row = {"case": hd, "chosen": chosen,
+                   "device_ms": device_ms(lambda: fn(*args)),
+                   "by_log_rows": {}}
+            log_g = (3 if chosen[0] else
+                     min((max(o, d) // 4 - 1).bit_length(), 5))
+            for log_rows in range(6 - log_g):
+                lay = (chosen[0], log_rows) + chosen[2:]
+                check(str(lay), fn(*args, layout=lay))
+                row["by_log_rows"][log_rows] = device_ms(
+                    lambda: fn(*args, layout=lay))
+            out[key].append(row)
+            log(f"  {key.upper()} {hd:<20} chosen {chosen} "
+                f"{row['device_ms']:.4f} ms; "
+                + ", ".join(f"2^{k}: {v:.4f}"
+                            for k, v in row["by_log_rows"].items()))
+            del ref
+        del fwd, bwd
     return out
 
 
 def tuning_sweep(gnn, g, gb) -> dict:
-    """``--sweep``: the sweep build of K1's and K8's libraries (every
-    instance), :func:`k1_sweep`, :func:`k8_sweep`, :func:`skew_sweep`, and
+    """``--sweep``: the sweep build of K1's, K6's, K7's and K8's libraries
+    (every instance), :func:`k1_sweep`, :func:`k8_sweep`,
+    :func:`recv_sweep`, :func:`skew_sweep`, and
     the device time of K14 and its backward at every rows per warp the
     width allows, at phase 2f's shapes: the measurement behind
     ``ops/cuda/segment.py:_FWD_ENTRIES_PER_GROUP`` and
@@ -1185,8 +1332,8 @@ def tuning_sweep(gnn, g, gb) -> dict:
             if name.endswith("-sweep") and ("registers" in line
                                             or "spill" in line):
                 log(f"  ptxas {name}: {line.strip()}")
-    out = {**k1_sweep(g), "k8": k8_sweep(g), "skew": skew_sweep(gnn),
-           "k14": []}
+    out = {**k1_sweep(g), "k8": k8_sweep(g), "k6_k7": recv_sweep(g),
+           "skew": skew_sweep(gnn), "k14": []}
     log("sweep: K14 rows per warp (device ms, profiler)")
     for label, ip, f in (("receiver CSR F=4", g.indptr_r, GAT_HEADS),
                          ("receiver CSR F=8", g.indptr_r, OUT_D),
@@ -1871,6 +2018,19 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
     return out
 
 
+# The device kernels of the hand-written kernels whose time a profiled step
+# reports on its own (by the kernels' names in csrc/): K6 and K7 launch
+# several passes in strips, told apart by the template argument 6 or 7.
+STEP_KERNELS = {
+    "k1": ("spmm_csr_kernel<",),
+    "k6": ("dot_softmax_rows_kernel<", "dot_strip_dots_kernel<6,",
+           "dot_strip_stats_kernel<6>", "dot_strip_spmm_kernel<6,"),
+    "k7": ("dot_bwd_dq_rows_kernel<", "dot_strip_dots_kernel<7,",
+           "dot_strip_stats_kernel<7>", "dot_strip_spmm_kernel<7,"),
+    "k8": ("dot_bwd_rev_kernel<",),
+}
+
+
 def profile_steps(model, args, loss_fn, out_dir) -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
     from graphneuralnetworks_tpu_torch.training import make_train_step
@@ -1893,9 +2053,15 @@ def profile_steps(model, args, loss_fn, out_dir) -> dict:
                    and ev.key.startswith("aten::")), reverse=True)
     busy = sum(r[0] for r in rows)
     n_ops = sum(r[1] for r in host)
+    kernels = {k: sum(ms for ms, _, key in rows
+                      if any(p in key for p in pats))
+               for k, pats in STEP_KERNELS.items()}
+    kernels = {k: v for k, v in kernels.items() if v > 0}
     log(f"  profile (3 steps): wall {wall / 3:.3f} ms/step, device busy "
         f"{busy:.3f} ms/step ({100 * busy / (wall / 3):.1f}%), "
-        f"{n_ops} aten op calls/step on the host (nested counted)")
+        f"{n_ops} aten op calls/step on the host (nested counted); "
+        + ", ".join(f"{k.upper()} {v:.4f} ms/step ({100 * v / busy:.1f}%)"
+                    for k, v in kernels.items()))
     for ms, cnt, key in rows[:20]:
         log(f"    {ms:9.4f} ms/step  x{cnt:<4} {key[:90]}")
     log("    host self time (profiled), top aten ops: " + ", ".join(
@@ -1903,7 +2069,7 @@ def profile_steps(model, args, loss_fn, out_dir) -> dict:
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
     return {"wall_ms_per_step": wall / 3, "device_ms_per_step": busy,
-            "aten_ops_per_step": n_ops,
+            "aten_ops_per_step": n_ops, "kernel_ms_per_step": kernels,
             "top": [{"ms_per_step": ms, "calls_per_step": c, "name": k}
                     for ms, c, k in rows[:30]],
             "host_top": [{"self_cpu_ms_per_step": ms, "calls_per_step": c,
@@ -2015,8 +2181,9 @@ def main() -> int:
                          "order (comma-separated, of 2,2b,2c,2d,2e,2f), then "
                          "stop without a result line")
     ap.add_argument("--sweep", action="store_true",
-                    help="after phase 2, time K1, K8, K14 and its backward "
-                         "at every layout, and K1's gather-rate ceiling")
+                    help="after phase 2, time K1, K6, K7, K8, K14 and its "
+                         "backward at every layout, and K1's gather-rate "
+                         "ceiling")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

@@ -26,17 +26,18 @@
 // Edges are stored sorted by receiver, so a position of the receiver CSR is
 // the edge id; the sender CSR's col holds the receivers.
 //
-// Layout of the work: one warp owns one (row, head) pair, so all heads run
-// in one launch and every output entry is written once by one warp, in a
-// fixed order, with no atomics. As in spmm.cu, a head's D floats are split
-// into vectors (float4 when D % 4 == 0 and the pointers are 16-byte
-// aligned), a warp splits into groups of G lanes (G = the vector count,
-// rounded up to a power of two, at most 32) that take interleaved edges,
-// and rows wider than 32 vectors loop over chunks. K3's and K12's softmax
-// takes two passes over a row's edges: the row max of the logits first (scalars
-// only), then exp(logit - max), their sum and the weighted sum of value
-// rows. So no running rescale is needed, and the value rows are read once
-// per chunk.
+// Layout of the work (K3-K5, K9-K12; the dot kernels K6-K8 take rows and
+// strips of their own, see the dot section): one warp owns one (row, head)
+// pair, so all heads run in one launch and every output entry is written
+// once by one warp, in a fixed order, with no atomics. As in spmm.cu, a
+// head's D floats are split into vectors (float4 when D % 4 == 0 and the
+// pointers are 16-byte aligned), a warp splits into groups of G lanes (G =
+// the vector count, rounded up to a power of two, at most 32) that take
+// interleaved edges, and rows wider than 32 vectors loop over chunks. K3's
+// and K12's softmax takes two passes over a row's edges: the row max of the
+// logits first (scalars only), then exp(logit - max), their sum and the
+// weighted sum of value rows. So no running rescale is needed, and the
+// value rows are read once per chunk.
 //
 // Bound on an H100: memory. Each edge costs one gathered value row of H*D
 // floats (512 bytes at H=4, D=32) against about 2*H*D flops and H exps.
@@ -714,205 +715,564 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
 // Per edge e = (r, s) and head h:  raw = scale * <q[r], k[s]> (O wide),
 // lg = lrelu(raw, slope), and the values v[s] (D wide; D need not equal O).
 // The plain dot is slope 1: lrelu(raw, 1) == raw and its slope is 1
-// everywhere, bit for bit. As in K9, each edge group of G lanes reduces its
-// lanes' shares of the O-wide dot with shuffles before the exp. A lane keeps
-// vector f = sub + c * G (c < NC) of the logit side (f < ov) and of the
-// value side (f < dv) in registers, with G and NC sized for the wider side;
-// both sides take float4 vectors only when O % 4 == 0 and D % 4 == 0.
+// everywhere, bit for bit. A head's rows split into vectors (float4 only
+// when O % 4 == 0 and D % 4 == 0) and edge groups of G lanes (G = the wider
+// side's vector count rounded up to a power of two, at most 32; wider rows
+// in NC register chunks of G vectors); an edge group reduces its lanes'
+// shares of a dot with shuffles.
 //
 // Bound on an H100: memory. K6 and K7 gather one k row (H*O floats) and
-// one v row (H*D floats) per edge: 1 KB at H=4, O=D=32, and at H=1,
-// O=D=128. K6 reads each once: the softmax is one pass, each edge group
-// keeping a running max, sum and accumulator (rescaled when its max grows),
-// merged across groups at the end. K7 and K8 recompute alpha from the
-// finalised mx and den (4-byte per-node scalars) instead of reading a
-// stored [E, H] array; K8 gathers the receivers' q and dy rows and their
-// mx, den and s_n.
+// one v row (H*D floats) per edge, K8 one q and one dy row: 1 KB at H=4,
+// O=D=32, and at H=1, O=D=128, 2.1 GB a call at E = 2M. The compulsory
+// traffic is an eighth of that, so the L2's reuse of gathered rows decides
+// where between the two a kernel lands. The first port gave one (row,
+// head) pair a warp, heads interleaved in the grid, and each edge group
+// waited on col[e], then the gathers, then a shuffle tree, one edge at a
+// time: its warps gathered whole rows from all of the 64 MB tables, which
+// the 50 MB L2 cannot hold, at 0.90-1.06x the no-L2-reuse bound.
+//
+// The layouts (chosen per call by ops/cuda/edge_softmax.py:_dot_recv_layout
+// and _dot_bwd_rev_layout, from chip_smoke.py --sweep):
+// - Rows (K6, K7 and K8 when a head is at most one 128-byte line wide, or
+//   its slice of the gathered tables fits the L2): heads in the grid's
+//   second dimension, one after the other over all rows, so the resident
+//   warps gather one head's slice of the tables (16 MB each at N = 131,072,
+//   H = 4, O = D = 32); R = 2^log_rows rows per warp, each on 32 / R lanes,
+//   which load a window of 32 / R edge indices at once and the next ahead;
+//   each group issues the gathers of U edges before it reduces any of
+//   them; a warp whose rows walk fewer index windows one after another on
+//   all 32 lanes (a hub among them) takes them so (walk_rows).
+// - Strips (K6 and K7 for heads wider than a line whose tables the L2
+//   cannot hold: AGNN's H = 1, O = D = 128): the logit spans the whole head,
+//   so it is built in passes over 128-byte column strips, each pass
+//   gathering from one strip's slice of the table (16 MB at N = 131,072),
+//   which the L2 keeps, as K1's strips (spmm.cu). Partial dots per strip go
+//   to an [H, strips, E] scratch buffer (dot_strip_dots_kernel); a pass per
+//   row sums them in strip order into each edge's raw logit and weight
+//   (dot_strip_stats_kernel); a weighted SpMM over the strips of the other
+//   table writes the output (dot_strip_spmm_kernel).
+// Every output entry is written once by one lane, every sum taken in a fixed
+// order: results are the same bits from run to run, with no atomics.
 
-// K6, replacing _flash_dot_kernel. Over the receiver CSR, row r, head h:
-//   m = max_e lg_e,  s = sum_e exp(lg_e - m),  num = sum_e exp(lg_e - m) v[s_e]
-// with m = -inf, s = 0, num = 0 for a row without edges.
-template <typename V, int NC>
-__global__ void __launch_bounds__(kThreads)
-dot_softmax_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                   const V* __restrict__ q, const V* __restrict__ k,
-                   const V* __restrict__ v, V* __restrict__ num,
-                   float* __restrict__ m, float* __restrict__ s, int n_rows,
-                   int heads, int ov, int dv, int log_g, float scale,
-                   float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const Lanes L(log_g);
-  const long long rh = (long long)row * heads + h;
-  V qv[NC], acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int f = L.sub + c * L.g;
-    qv[c] = f < ov ? q[rh * ov + f] : vzero<V>();
-    acc[c] = vzero<V>();
-  }
-  float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
-  const int beg = indptr[row], end = indptr[row + 1];
-  for (int base = beg; base < end; base += L.p) {   // warp-uniform trips
-    const int e = base + L.grp;
-    const bool valid = e < end;
-    V vv[NC];   // the value row, loaded before the reduction to overlap it
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) vv[c] = vzero<V>();
-    if (valid) {
-      const long long src = (long long)col[e] * heads + h;
-      const V* kr = k + src * ov;
-      const V* vr = v + src * dv;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = L.sub + c * L.g;
-        if (f < ov) part += vdot(qv[c], kr[f]);
-        if (f < dv) vv[c] = vr[f];
-      }
+// Calls walk(row, beg, len, longest, log_seg) for the R = 2^log_rows rows
+// of warp rb side by side, row i on the 2^log_seg = 32 / R lanes from
+// i * 32 / R (len: the row's edges from beg; longest: the longest of the
+// warp's rows, warp-uniform), or, where that walks fewer index windows,
+// once for each row on all 32 lanes (log_seg = 5), one after another. A
+// hub holds the rows beside it to its length, on 32 / R lanes: this is the
+// switch of K1 (spmm.cu). The choice depends on the warp's rows alone, so
+// the sums keep their order from run to run.
+template <typename Walk>
+__device__ __forceinline__ void walk_rows(const int* __restrict__ indptr,
+                                          int rb, int lane, int n_rows,
+                                          int log_rows, Walk&& walk) {
+  const int log_seg = 5 - log_rows;
+  const int row = (rb << log_rows) + (lane >> log_seg);
+  const int beg = row < n_rows ? indptr[row] : 0;
+  const int len = row < n_rows ? indptr[row + 1] - beg : 0;
+  const int longest = __reduce_max_sync(kFull, len);
+  const int alone = __reduce_add_sync(
+      kFull, (lane & ((1 << log_seg) - 1)) == 0 ? (len + 31) >> 5 : 0);
+  if (alone < (longest + (1 << log_seg) - 1) >> log_seg) {
+    for (int i = 0; i < 1 << log_rows; ++i) {
+      const int li = __shfl_sync(kFull, len, i << log_seg);
+      walk((rb << log_rows) + i, __shfl_sync(kFull, beg, i << log_seg), li,
+           li, 5);
     }
-    const float lg = lrelu(scale * group_sum(part, L.g), slope);
-    if (valid) {
-      if (lg > mg) {
-        const float sc = expf(mg - lg);   // 0 while mg is -inf
-        sg *= sc;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
-        mg = lg;
-      }
-      const float p = lg == -INFINITY ? 0.f : expf(lg - mg);
-      sg += p;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) axpy(acc[c], p, vv[c]);
-    }
-  }
-  // merge the edge groups: rescale each to the row max, then add
-  float mx = mg;
-  for (int off = L.g; off < 32; off <<= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-  const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
-  sg *= sc;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
-  for (int off = L.g; off < 32; off <<= 1) {
-    sg += __shfl_xor_sync(kFull, sg, off);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) add_xor(acc[c], off);
-  }
-  if (L.grp == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int f = L.sub + c * L.g;
-      if (f < dv) num[rh * dv + f] = acc[c];
-    }
-  }
-  if (L.lane == 0) {
-    m[rh] = mx;
-    s[rh] = sg;
+  } else {
+    walk(row, beg, len, longest, log_seg);
   }
 }
 
-// K7, replacing _dot_bwd_dq_kernel. Over the receiver CSR, row r:
-//   alpha_e = exp(lg_e - mx[r]) / den[r],
-//   dlg_e = alpha_e * (<v[s_e], dy[r]> - s_n[r]) * scale * lrelu'(raw_e),
-//   dq[r] = sum_e dlg_e * k[s_e].
-// q[r] and dy[r] stay in registers; each edge's two dots are reduced
-// together in one shuffle tree.
-template <typename V, int NC>
-__global__ void __launch_bounds__(kThreads)
-dot_bwd_dq_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                  const V* __restrict__ q, const V* __restrict__ k,
-                  const V* __restrict__ v, const float* __restrict__ mx,
-                  const float* __restrict__ den,
-                  const float* __restrict__ s_n, const V* __restrict__ dy,
-                  V* __restrict__ dq, int n_rows, int heads, int ov, int dv,
-                  int log_g, float scale, float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const Lanes L(log_g);
-  const long long rh = (long long)row * heads + h;
-  V qv[NC], dyv[NC], dqv[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int f = L.sub + c * L.g;
-    qv[c] = f < ov ? q[rh * ov + f] : vzero<V>();
-    dyv[c] = f < dv ? dy[rh * dv + f] : vzero<V>();
-    dqv[c] = vzero<V>();
+// Where a lane of a row walk works: the row's segment of 2^log_seg lanes,
+// its edge groups of 2^log_g lanes, and this lane's place in both.
+struct Seg {
+  int seg, first, sl, p, grp;
+  __device__ Seg(int lane, int log_seg, int log_g) {
+    seg = 1 << log_seg;              // lanes per row
+    first = lane & ~(seg - 1);       // the row's first lane
+    sl = lane & (seg - 1);           // lane within the row
+    p = seg >> log_g;                // edge groups per row
+    grp = sl >> log_g;
   }
-  const float mxr = mx[rh], denr = den[rh], snr = s_n[rh];
-  const int beg = indptr[row], end = indptr[row + 1];
-  for (int base = beg; base < end; base += L.p) {
-    const int e = base + L.grp;
-    const bool valid = e < end;
-    V kv[NC];
-    float plg = 0.f, pvd = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) kv[c] = vzero<V>();
-    if (valid) {
-      const long long src = (long long)col[e] * heads + h;
-      const V* kr = k + src * ov;
-      const V* vr = v + src * dv;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = L.sub + c * L.g;
-        if (f < ov) {
-          kv[c] = kr[f];
-          plg += vdot(qv[c], kv[c]);
-        }
-        if (f < dv) pvd += vdot(vr[f], dyv[c]);
-      }
-    }
-    group_sum2(plg, pvd, L.g);
-    if (valid) {
-      const float raw = scale * plg;
-      const float alpha = expf(lrelu(raw, slope) - mxr) / denr;
-      const float dlg = alpha * (pvd - snr) * scale * dlrelu(raw, slope);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) axpy(dqv[c], dlg, kv[c]);
-    }
-  }
-  for (int off = L.g; off < 32; off <<= 1) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) add_xor(dqv[c], off);
-  }
-  if (L.grp == 0) {
+  // The window position of edge u of a batch starting at j0 (U edges per
+  // group, interleaved over the groups), and the lane holding its index.
+  __device__ int pos(int j0, int u) const { return j0 + u * p + grp; }
+  __device__ int holder(int j) const { return first + (j & (seg - 1)); }
+};
+
+// The first warp of a row-walking kernel's block, or -1 past the rows
+// (blockIdx.y is a head or a strip: no division on the way to the first
+// load).
+__device__ __forceinline__ int row_block(int n_rows, int log_rows) {
+  const int rb = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  return rb < ((n_rows + (1 << log_rows) - 1) >> log_rows) ? rb : -1;
+}
+
+// K6 in rows, replacing _flash_dot_kernel. Over the receiver CSR, row r,
+// head h:
+//   m = max_e lg_e,  s = sum_e exp(lg_e - m),  num = sum_e exp(lg_e - m) v[s_e]
+// with m = -inf, s = 0, num = 0 for a row without edges, and raw_out[e, h]
+// = raw_e where raw_out is given (K7's residual). One pass: each edge group
+// keeps a running max, sum and accumulator, rescaled when the max of a
+// batch of U edges exceeds it, adding its edges in CSR order; the row's
+// groups then merge by a fixed shuffle tree.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+dot_softmax_rows_kernel(const int* __restrict__ indptr,
+                        const int* __restrict__ col, const V* __restrict__ q,
+                        const V* __restrict__ k, const V* __restrict__ v,
+                        V* __restrict__ num, float* __restrict__ m,
+                        float* __restrict__ s, float* __restrict__ raw_out,
+                        int n_rows, int heads, int ov, int dv, int log_g,
+                        int log_rows, float scale, float slope) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long rh = (long long)row * heads + h;
+    V qv[NC], acc[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int f = L.sub + c * L.g;
-      if (f < ov) dq[rh * ov + f] = dqv[c];
+      const int f = sub + c * g;
+      qv[c] = live && f < ov ? q[rh * ov + f] : vzero<V>();
+      acc[c] = vzero<V>();
+    }
+    float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
+    int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
+    for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+      const int nc =
+          w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
+      const int cnt = min(S.seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+        V kg[U][NC], vg[U][NC];
+        float lg[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {   // the gathers of U edges first
+          const int j = S.pos(j0, u);
+          const int src = __shfl_sync(kFull, c, S.holder(j));
+          ok[u] = live && j < S.seg && w0 + j < len;
+          const long long sh = (long long)src * heads + h;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            const int f = sub + cc * g;
+            kg[u][cc] = ok[u] && f < ov ? k[sh * ov + f] : vzero<V>();
+            vg[u][cc] = ok[u] && f < dv ? v[sh * dv + f] : vzero<V>();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          lg[u] = 0.f;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) lg[u] += vdot(qv[cc], kg[u][cc]);
+        }
+        for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            lg[u] += __shfl_xor_sync(kFull, lg[u], off);
+        }
+        // the batch's max first, so that the group rescales once and the
+        // U exps do not wait on each other
+        float bm = mg;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float raw = scale * lg[u];
+          if (ok[u] && raw_out != nullptr && sub == 0)
+            raw_out[(long long)(beg + w0 + S.pos(j0, u)) * heads + h] = raw;
+          lg[u] = ok[u] ? lrelu(raw, slope) : -INFINITY;
+          bm = fmaxf(bm, lg[u]);
+        }
+        if (bm > mg) {
+          const float sc = expf(mg - bm);   // 0 while mg is -inf
+          sg *= sc;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+          mg = bm;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float pe = lg[u] == -INFINITY ? 0.f : expf(lg[u] - mg);
+          sg += pe;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], pe, vg[u][cc]);
+        }
+      }
+      c = nc;
+    }
+    // merge the row's groups (G lanes apart): rescale each to the row max,
+    // then add
+    float mx = mg;
+    for (int off = g; off < S.seg; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
+    sg *= sc;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+    for (int off = g; off < S.seg; off <<= 1) {
+      sg += __shfl_xor_sync(kFull, sg, off);
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) add_xor(acc[cc], off);
+    }
+    if (live && S.grp == 0) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int f = sub + cc * g;
+        if (f < dv) num[rh * dv + f] = acc[cc];
+      }
+    }
+    if (live && S.sl == 0) {
+      m[rh] = mx;
+      s[rh] = sg;
+    }
+  });
+}
+
+// K7's weight of an edge: dlg = alpha * (<v[s], dy[r]> - s_n[r]) * scale *
+// lrelu'(raw), alpha = exp(lrelu(raw) - mx[r]) / den[r].
+__device__ __forceinline__ float dot_dlg(float raw, float pvd, float mxr,
+                                         float denr, float snr, float scale,
+                                         float slope) {
+  const float alpha = expf(lrelu(raw, slope) - mxr) / denr;
+  return alpha * (pvd - snr) * scale * dlrelu(raw, slope);
+}
+
+// K7 in rows, replacing _dot_bwd_dq_kernel. Over the receiver CSR, row r:
+//   dq[r] = sum_e dlg_e * k[s_e]
+// with raw_e read from K6's residual raw [E, H] where given, else
+// recomputed from q[r] (then each edge's two dots reduce in one tree).
+// dy[r] and the row's mx, den and s_n stay in registers.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
+                       const int* __restrict__ col, const V* __restrict__ q,
+                       const V* __restrict__ k, const V* __restrict__ v,
+                       const float* __restrict__ mx,
+                       const float* __restrict__ den,
+                       const float* __restrict__ s_n,
+                       const V* __restrict__ dy,
+                       const float* __restrict__ raw, V* __restrict__ dq,
+                       int n_rows, int heads, int ov, int dv, int log_g,
+                       int log_rows, float scale, float slope) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  const bool given = raw != nullptr;         // uniform over the grid
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long rh = (long long)row * heads + h;
+    V qv[NC], dyv[NC], dqa[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = sub + c * g;
+      qv[c] = live && !given && f < ov ? q[rh * ov + f] : vzero<V>();
+      dyv[c] = live && f < dv ? dy[rh * dv + f] : vzero<V>();
+      dqa[c] = vzero<V>();
+    }
+    const float mxr = live ? mx[rh] : 0.f, denr = live ? den[rh] : 1.f;
+    const float snr = live ? s_n[rh] : 0.f;
+    // lane sl holds window position w0 + sl: its sender and raw logit
+    auto fetch = [&](int w0, int& c, float& rw) {
+      c = 0;
+      rw = 0.f;
+      if (w0 + S.sl < len) {
+        const int e = beg + w0 + S.sl;
+        c = col[e];
+        if (given) rw = raw[(long long)e * heads + h];
+      }
+    };
+    int c, nc;
+    float rw, nrw;
+    fetch(0, c, rw);
+    for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+      fetch(w0 + S.seg, nc, nrw);                   // the next window, ahead
+      const int cnt = min(S.seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+        V kg[U][NC], vg[U][NC];
+        float plg[U], pvd[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {   // the gathers of U edges first
+          const int j = S.pos(j0, u);
+          const int hold = S.holder(j);
+          const int src = __shfl_sync(kFull, c, hold);
+          plg[u] = __shfl_sync(kFull, rw, hold);
+          ok[u] = live && j < S.seg && w0 + j < len;
+          const long long sh = (long long)src * heads + h;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            const int f = sub + cc * g;
+            kg[u][cc] = ok[u] && f < ov ? k[sh * ov + f] : vzero<V>();
+            vg[u][cc] = ok[u] && f < dv ? v[sh * dv + f] : vzero<V>();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          pvd[u] = 0.f;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) pvd[u] += vdot(vg[u][cc], dyv[cc]);
+        }
+        if (given) {
+          for (int off = 1; off < g; off <<= 1) {
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              pvd[u] += __shfl_xor_sync(kFull, pvd[u], off);
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            plg[u] = 0.f;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) plg[u] += vdot(qv[cc], kg[u][cc]);
+          }
+          for (int off = 1; off < g; off <<= 1) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              plg[u] += __shfl_xor_sync(kFull, plg[u], off);
+              pvd[u] += __shfl_xor_sync(kFull, pvd[u], off);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) plg[u] *= scale;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (!ok[u]) continue;
+          const float dlg =
+              dot_dlg(plg[u], pvd[u], mxr, denr, snr, scale, slope);
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) axpy(dqa[cc], dlg, kg[u][cc]);
+        }
+      }
+      c = nc;
+      rw = nrw;
+    }
+    for (int off = g; off < S.seg; off <<= 1) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) add_xor(dqa[cc], off);
+    }
+    if (live && S.grp == 0) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int f = sub + cc * g;
+        if (f < ov) dq[rh * ov + f] = dqa[cc];
+      }
+    }
+  });
+}
+
+// The strip passes. Block column y = h * n_strips + j takes strip j (vectors
+// j * S + sub, S = 2^log_s lanes an edge group: one 128-byte line) of head
+// h, so the grid runs head by head, strip after strip, over all rows. KK
+// (6 or 7) names the kernel a pass serves, so a profile tells them apart.
+
+// part[y, e] = <a[r, h, strip j], b[s_e, h, strip j]> over the receiver
+// CSR: K6's partial logits (a = q, b = k) and K7's partial <v[s], dy[r]>
+// (a = dy, b = v).
+template <int KK, typename V, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+dot_strip_dots_kernel(const int* __restrict__ indptr,
+                      const int* __restrict__ col, const V* __restrict__ a,
+                      const V* __restrict__ b, float* __restrict__ part,
+                      int n_rows, int heads, int width, int n_strips,
+                      long long n_edges, int log_s, int log_rows) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_s;
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y / n_strips;
+  const int f = (blockIdx.y - h * n_strips) * g + sub;
+  const bool active = f < width;
+  float* out = part + (long long)blockIdx.y * n_edges;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_s);
+    const bool live = row < n_rows;
+    const V av = live && active ? a[((long long)row * heads + h) * width + f]
+                                : vzero<V>();
+    int c = S.sl < len ? col[beg + S.sl] : 0;
+    for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+      const int nc =
+          w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
+      const int cnt = min(S.seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+        V bg[U];
+        float dt[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = S.pos(j0, u);
+          const int src = __shfl_sync(kFull, c, S.holder(j));
+          ok[u] = live && j < S.seg && w0 + j < len;
+          bg[u] = ok[u] && active
+                      ? b[((long long)src * heads + h) * width + f]
+                      : vzero<V>();
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) dt[u] = vdot(av, bg[u]);
+        for (int off = 1; off < g; off <<= 1) {
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            dt[u] += __shfl_xor_sync(kFull, dt[u], off);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (ok[u] && sub == 0) out[beg + w0 + S.pos(j0, u)] = dt[u];
+      }
+      c = nc;
+    }
+  });
+}
+
+// One warp per (receiver row, head), lanes over the row's edges. KK == 6:
+// raw_e = scale * (the sum of part_lg's strips in order), written to raw
+// [E, H]; the row's m and s; the weight w[h, e] = exp(lg_e - m). KK == 7:
+// raw_e from raw where given, else from part_lg as for K6; pvd_e the sum of
+// part_vd's strips; w[h, e] = dlg_e (dot_dlg).
+template <int KK>
+__global__ void __launch_bounds__(kThreads)
+dot_strip_stats_kernel(const int* __restrict__ indptr,
+                       const float* __restrict__ part_lg, int lg_strips,
+                       const float* __restrict__ part_vd, int vd_strips,
+                       float* __restrict__ raw, const float* __restrict__ mx,
+                       const float* __restrict__ den,
+                       const float* __restrict__ s_n, float* __restrict__ w,
+                       float* __restrict__ m, float* __restrict__ s,
+                       int n_rows, int heads, long long n_edges, float scale,
+                       float slope) {
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n_rows) return;                 // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.y;
+  const long long rh = (long long)row * heads + h;
+  const int beg = indptr[row], end = indptr[row + 1];
+  float* wh = w + (long long)h * n_edges;
+  auto strip_sum = [&](const float* part, int n, int e) {
+    float t = 0.f;
+    for (int j = 0; j < n; ++j) t += part[((long long)h * n + j) * n_edges + e];
+    return t;
+  };
+  if constexpr (KK == 6) {
+    float ml = -INFINITY;
+    for (int e = beg + lane; e < end; e += 32) {
+      const float r = scale * strip_sum(part_lg, lg_strips, e);
+      raw[(long long)e * heads + h] = r;
+      ml = fmaxf(ml, lrelu(r, slope));
+    }
+    const float mr = warp_max(ml);
+    float sl = 0.f;
+    for (int e = beg + lane; e < end; e += 32) {   // this lane's own writes
+      const float l = lrelu(raw[(long long)e * heads + h], slope);
+      const float pe = l == -INFINITY ? 0.f : expf(l - mr);
+      wh[e] = pe;
+      sl += pe;
+    }
+    sl = warp_sum(sl);
+    if (lane == 0) {
+      m[rh] = mr;
+      s[rh] = sl;
+    }
+  } else {
+    const float mxr = mx[rh], denr = den[rh], snr = s_n[rh];
+    for (int e = beg + lane; e < end; e += 32) {
+      const float r = raw != nullptr ? raw[(long long)e * heads + h]
+                                     : scale * strip_sum(part_lg, lg_strips, e);
+      wh[e] = dot_dlg(r, strip_sum(part_vd, vd_strips, e), mxr, denr, snr,
+                      scale, slope);
     }
   }
+}
+
+// out[r, h, strip j] = sum_e w[h, e] * x[s_e, h, strip j] over the receiver
+// CSR, shaped as K1 (spmm.cu): K6's num (x = v, w = exp(lg - m)) and K7's
+// dq (x = k, w = dlg). Rows without edges are written as zeros.
+template <int KK, typename V, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+dot_strip_spmm_kernel(const int* __restrict__ indptr,
+                      const int* __restrict__ col,
+                      const float* __restrict__ w, const V* __restrict__ x,
+                      V* __restrict__ out, int n_rows, int heads, int width,
+                      int n_strips, long long n_edges, int log_s,
+                      int log_rows) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_s;
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y / n_strips;
+  const int f = (blockIdx.y - h * n_strips) * g + sub;
+  const bool active = f < width;
+  const float* wh = w + (long long)h * n_edges;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_s);
+    const bool live = row < n_rows;
+    auto fetch = [&](int w0, int& c, float& wt) {
+      c = 0;
+      wt = 0.f;
+      if (w0 + S.sl < len) {
+        c = col[beg + w0 + S.sl];
+        wt = wh[beg + w0 + S.sl];
+      }
+    };
+    int c, nc;
+    float wt, nwt;
+    fetch(0, c, wt);
+    V acc = vzero<V>();
+    for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+      fetch(w0 + S.seg, nc, nwt);                   // the next window, ahead
+      const int cnt = min(S.seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+        V xg[U];
+        float wj[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = S.pos(j0, u);
+          const int hold = S.holder(j);
+          const int src = __shfl_sync(kFull, c, hold);
+          wj[u] = __shfl_sync(kFull, wt, hold);
+          const bool ok = live && active && j < S.seg && w0 + j < len;
+          if (!ok) wj[u] = 0.f;
+          xg[u] = ok ? x[((long long)src * heads + h) * width + f]
+                     : vzero<V>();
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) axpy(acc, wj[u], xg[u]);
+      }
+      c = nc;
+      wt = nwt;
+    }
+    for (int off = g; off < S.seg; off <<= 1) add_xor(acc, off);
+    if (live && active && S.grp == 0)
+      out[((long long)row * heads + h) * width + f] = acc;
+  });
 }
 
 // K8, replacing _dot_bwd_dkv_kernel. Over the sender CSR, row s (col holds
 // the receivers r_e), with alpha_e and dlg_e as in K7:
 //   dk[s] = sum_e dlg_e * q[r_e],   dv[s] = sum_e alpha_e * dy[r_e].
 // k[s] and v[s] stay in registers; each gathered q row feeds the logit and
-// dk, each gathered dy row <v[s], dy[r]> and dv.
-//
-// Layout: a warp takes R = 2^log_rows consecutive sender rows of one head;
-// heads run in the grid's second dimension, one after the other over all
-// rows. Each row owns 32 / R lanes, split into edge groups of G lanes (a
-// head's row in NC chunks of G vectors). The row's lanes load a window of
-// 32 / R receivers at once and the next window ahead; each group issues
-// the loads of U edges (receiver scalars, q and dy rows) before it reduces
-// any of their dots. Loop bounds are the longest of the warp's rows
-// (warp-uniform); past a row's end nothing is loaded or added, and a warp
-// whose rows walk fewer index windows one after another on all 32 lanes
-// (a hub among them) takes them so (see spmm_csr_kernel in spmm.cu). A
-// group adds its edges in CSR order, the groups then by a fixed shuffle
-// tree. The caller (ops/cuda/edge_softmax.py:_dot_bwd_rev_layout) picks R,
-// U and a register cap.
-//
-// The first port gave one (row, head) pair a warp, heads interleaved in
-// the grid, and waited on col[e], then the gathers, then two shuffle
-// trees, one edge at a time at AGNN's H = 1, O = D = 128. Heads in the
-// grid's second dimension make the resident warps gather one head's slices
-// of q and dy (32 MB at N = 131,072, H = 4, O = D = 32, which the L2
-// holds). Putting a row's heads side by side on a warp, to load a
-// receiver's index and scalars once for all of them, measured slower
-// (chip_smoke.py --sweep, an H100 at 700 W: 0.737 ms against 0.587 for one
-// head per warp and 0.840 for the first port, PERF.md §6).
+// dk, each gathered dy row <v[s], dy[r]> and dv. Rows, as K6 and K7 (see
+// above): heads in the grid's second dimension make the resident warps
+// gather one head's slices of q and dy (32 MB at N = 131,072, H = 4, O = D
+// = 32, which the L2 holds). Putting a row's heads side by side on a warp,
+// to load a receiver's index and scalars once for all of them, measured
+// slower (chip_smoke.py --sweep, an H100 at 700 W: 0.737 ms against 0.587
+// for one head per warp and 0.840 for the first port, PERF.md §6). Each
+// group loads U edges' receiver scalars, q and dy rows before it reduces
+// any of their dots.
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
@@ -923,22 +1283,15 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
                    V* __restrict__ dk, V* __restrict__ dv_out, int n_rows,
                    int heads, int ov, int dv, int log_g, int log_rows,
                    float scale, float slope) {
-  // blockIdx.y is the head: no division on the way to the first load
-  const int rb = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (rb >= ((n_rows + (1 << log_rows) - 1) >> log_rows)) return;
-  const int lane = threadIdx.x & 31;   // (warp-uniform exit above)
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
   const int g = 1 << log_g;                  // lanes per edge group
   const int sub = lane & (g - 1);
   const int h = blockIdx.y;
-  // Sums sender row `row` (starting at `beg`, `len` edges) on the lanes of
-  // its segment of 2^log_seg lanes; `longest` is the longest row of the
-  // warp's segments (warp-uniform).
-  auto walk = [&](int row, int beg, int len, int longest, int log_seg) {
-    const int seg = 1 << log_seg;              // lanes per row
-    const int first = lane & ~(seg - 1);
-    const int sl = lane & (seg - 1);
-    const int p = seg >> log_g;                // edge groups per row
-    const int grp = sl >> log_g;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long sh = (long long)row * heads + h;
     V kv[NC], vv[NC], dka[NC], dva[NC];
@@ -950,19 +1303,20 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
       dka[c] = vzero<V>();
       dva[c] = vzero<V>();
     }
-    int c = sl < len ? col[beg + sl] : 0;   // the first window
-    for (int w0 = 0; w0 < longest; w0 += seg) {   // warp-uniform trips
-      const int nc = w0 + seg + sl < len ? col[beg + w0 + seg + sl] : 0;
-      const int cnt = min(seg, longest - w0);
-      for (int j0 = 0; j0 < cnt; j0 += p * U) {   // warp-uniform trips
+    int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
+    for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+      const int nc =
+          w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
+      const int cnt = min(S.seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
         V qg[U][NC], dyg[U][NC];
         float mxr[U], denr[U], snr[U], plg[U], pvd[U];
         bool ok[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {   // the loads of U edges first
-          const int j = j0 + u * p + grp;
-          const int r = __shfl_sync(kFull, c, first + (j & (seg - 1)));
-          ok[u] = live && j < seg && w0 + j < len;
+          const int j = S.pos(j0, u);
+          const int r = __shfl_sync(kFull, c, S.holder(j));
+          ok[u] = live && j < S.seg && w0 + j < len;
           const long long rh = (long long)r * heads + h;
           mxr[u] = ok[u] ? mx[rh] : 0.f;
           denr[u] = ok[u] ? den[rh] : 1.f;
@@ -1008,14 +1362,14 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
       c = nc;
     }
     // the groups' lanes of one vector are G apart, within the row's lanes
-    for (int off = g; off < seg; off <<= 1) {
+    for (int off = g; off < S.seg; off <<= 1) {
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         add_xor(dka[cc], off);
         add_xor(dva[cc], off);
       }
     }
-    if (live && grp == 0) {
+    if (live && S.grp == 0) {
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int f = sub + cc * g;
@@ -1023,25 +1377,7 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
         if (f < dv) dv_out[sh * dv + f] = dva[cc];
       }
     }
-  };
-  // one row after another on all 32 lanes where that walks fewer index
-  // windows than the rows side by side (a hub among them): as K1
-  const int log_seg = 5 - log_rows;
-  const int row = (rb << log_rows) + (lane >> log_seg);
-  const int beg = row < n_rows ? indptr[row] : 0;
-  const int len = row < n_rows ? indptr[row + 1] - beg : 0;
-  const int longest = __reduce_max_sync(kFull, len);
-  const int alone = __reduce_add_sync(
-      kFull, (lane & ((1 << log_seg) - 1)) == 0 ? (len + 31) >> 5 : 0);
-  if (alone < (longest + (1 << log_seg) - 1) >> log_seg) {
-    for (int i = 0; i < 1 << log_rows; ++i) {
-      const int li = __shfl_sync(kFull, len, i << log_seg);
-      walk((rb << log_rows) + i, __shfl_sync(kFull, beg, i << log_seg), li,
-           li, 5);
-    }
-  } else {
-    walk(row, beg, len, longest, log_seg);
-  }
+  });
 }
 
 int log_group(int dv) {
@@ -1126,50 +1462,254 @@ int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
   });
 }
 
-// The dot kernels size G and NC for the wider of the logit side (ov
-// vectors) and the value side (dv vectors).
+using I0 = std::integral_constant<int, 0>;
+using I1 = std::integral_constant<int, 1>;
+using I2 = std::integral_constant<int, 2>;
+using I4 = std::integral_constant<int, 4>;
+using I8 = std::integral_constant<int, 8>;
+using I64 = std::integral_constant<int, 64>;
+
+// Blocks per SM a register cap asks of __launch_bounds__: 64 registers a
+// thread is 4 blocks of 8 warps.
+template <int CAP>
+using MinBlocks = std::integral_constant<int, CAP == 64 ? 4 : 1>;
+
+// The row kernels' instances (K6, K7 and K8 in rows). Calls go(nc, un,
+// minb) for the instance of NC register chunks that holds `wide` vectors at
+// U = unroll edges in flight and reg_cap (0: none; 64) where the library
+// holds it, and returns cudaGetLastError() after it; cudaErrorInvalidValue,
+// with nothing launched, where it does not or for rows wider than 256
+// vectors. Built with GNN_SWEEP (the build chip_smoke.py --sweep times) the
+// library holds U in {1, 2, 4} with NC * U <= 4 (U = 1 at every NC), each
+// uncapped and, at NC <= 2, at 64 registers; the shipped library holds
+// only the pairs for which Pick::holds(NC, U, cap), the ones the wrapper
+// picks.
+template <typename Pick, typename Go>
+int with_row_instances(int wide, int unroll, int reg_cap, Go&& go) {
+  bool launched = false;
+  const int rc = with_chunks(wide, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    auto pick = [&](auto un, auto cap) {
+      constexpr int UU = decltype(un)::value, C = decltype(cap)::value;
+#ifdef GNN_SWEEP
+      constexpr bool built = (UU == 1 || NC * UU <= 4) && (C == 0 || NC <= 2);
+#else
+      constexpr bool built = Pick::holds(NC, UU, C);
+#endif
+      if constexpr (built) {
+        if (unroll == UU && reg_cap == C) {
+          go(nc, un, MinBlocks<C>{});
+          launched = true;
+        }
+      }
+    };
+    pick(I1{}, I0{});
+    pick(I1{}, I64{});
+    pick(I2{}, I0{});
+    pick(I2{}, I64{});
+    pick(I4{}, I0{});
+    pick(I4{}, I64{});
+  });
+  if (rc != 0) return rc;
+  return launched ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The strip kernels' instances: go(un, minb) at U = unroll and reg_cap
+// where the library holds them (the sweep build: U in {1, 2, 4, 8}, each
+// uncapped and at 64 registers; the shipped library: Pick::kUnroll at
+// Pick::kCap). Returns cudaGetLastError() after it, or
+// cudaErrorInvalidValue with nothing launched.
+template <typename Pick, typename Go>
+int with_strip_instances(int unroll, int reg_cap, Go&& go) {
+  bool launched = false;
+  auto pick = [&](auto un, auto cap) {
+    constexpr int UU = decltype(un)::value, C = decltype(cap)::value;
+#ifdef GNN_SWEEP
+    constexpr bool built = true;
+#else
+    constexpr bool built = Pick::kUnroll == UU && Pick::kCap == C;
+#endif
+    if constexpr (built) {
+      if (unroll == UU && reg_cap == C) {
+        go(un, MinBlocks<C>{});
+        launched = true;
+      }
+    }
+  };
+  pick(I1{}, I0{});
+  pick(I1{}, I64{});
+  pick(I2{}, I0{});
+  pick(I2{}, I64{});
+  pick(I4{}, I0{});
+  pick(I4{}, I64{});
+  pick(I8{}, I0{});
+  pick(I8{}, I64{});
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shipped instances, from chip_smoke.py --sweep (PERF.md §6), as
+// ops/cuda/edge_softmax.py's _DOT_* and _K8_* constants pick them: rows of
+// one register chunk take edges in flight at 64 registers (K8 2; K6 and
+// K7 4 for groups of a 128-byte line or more, 2 for narrower ones), wider
+// rows one edge, uncapped (two chunks of two edges at 64 registers
+// spill); strips 4 gathers in flight, uncapped.
+struct K8Pick {
+  static constexpr bool holds(int nc, int u, int cap) {
+    return nc == 1 ? u == 2 && cap == 64 : u == 1 && cap == 0;
+  }
+};
+struct RecvPick {
+  static constexpr bool holds(int nc, int u, int cap) {
+    return nc == 1 ? (u == 2 || u == 4) && cap == 64 : u == 1 && cap == 0;
+  }
+};
+struct StripPick {
+  static constexpr int kUnroll = 4;
+  static constexpr int kCap = 0;
+};
+
+// log2 of the vectors of one 128-byte line: a strip, and the lanes of its
+// edge groups.
+template <typename V>
+constexpr int log_line() {
+  return sizeof(V) == 16 ? 3 : 5;
+}
+
+// The grid of a row-walking pass: blocks of 8 warps of 2^log_rows rows
+// each, by `columns` (heads, or heads times strips).
+dim3 row_grid(int n_rows, int log_rows, int columns) {
+  const int row_blocks = (n_rows + (1 << log_rows) - 1) >> log_rows;
+  return dim3((row_blocks + kWarpsPerBlock - 1) / kWarpsPerBlock, columns);
+}
+
+// The layout checks shared by K6 and K7: whether log_rows rows of groups
+// of 2^log_g lanes fit a warp and the grid's columns fit its second
+// dimension.
+bool dot_layout_ok(int log_g, int log_rows, long long columns) {
+  return log_rows >= 0 && log_g + log_rows <= 5 && columns < 65536;
+}
+
 template <typename V>
 int launch_dot_softmax(const int* indptr, const int* col, const float* q,
                        const float* k, const float* v, float* num, float* m,
-                       float* s, int n_rows, int heads, int ov, int dv,
+                       float* s, float* raw, float* scratch, int n_rows,
+                       int heads, int ov, int dv, long long n_edges,
+                       int strips, int log_rows, int unroll, int reg_cap,
                        float scale, float slope, cudaStream_t st) {
-  const unsigned nb = blocks_for(n_rows, heads);
+  const V* qv = reinterpret_cast<const V*>(q);
+  const V* kv = reinterpret_cast<const V*>(k);
+  const V* vv = reinterpret_cast<const V*>(v);
+  V* numv = reinterpret_cast<V*>(num);
   const int wide = ov > dv ? ov : dv;
-  return with_chunks(wide, [&](auto nc) {
-    dot_softmax_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const V*>(q),
-        reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v),
-        reinterpret_cast<V*>(num), m, s, n_rows, heads, ov, dv,
-        log_group(wide), scale, slope);
-  });
+  if (!strips) {
+    const int lg = log_group(wide);
+    if (!dot_layout_ok(lg, log_rows, heads))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid = row_grid(n_rows, log_rows, heads);
+    return with_row_instances<RecvPick>(
+        wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+          dot_softmax_rows_kernel<V, decltype(nc)::value,
+                                  decltype(un)::value, decltype(minb)::value>
+              <<<grid, kThreads, 0, st>>>(indptr, col, qv, kv, vv, numv, m,
+                                          s, raw, n_rows, heads, ov, dv, lg,
+                                          log_rows, scale, slope);
+        });
+  }
+  const int log_s = log_line<V>(), sv = 1 << log_s;
+  const int ns_o = (ov + sv - 1) / sv, ns_d = (dv + sv - 1) / sv;
+  const long long columns = (long long)heads * (ns_o > ns_d ? ns_o : ns_d);
+  if ((n_edges > 0 && (raw == nullptr || scratch == nullptr)) || ov == 0 ||
+      !dot_layout_ok(log_s, log_rows, columns))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* part = scratch;
+  float* w = scratch + (long long)heads * ns_o * n_edges;
+  return with_strip_instances<StripPick>(
+      unroll, reg_cap, [&](auto un, auto minb) {
+        constexpr int U = decltype(un)::value, MINB = decltype(minb)::value;
+        dot_strip_dots_kernel<6, V, U, MINB>
+            <<<row_grid(n_rows, log_rows, heads * ns_o), kThreads, 0, st>>>(
+                indptr, col, qv, kv, part, n_rows, heads, ov, ns_o, n_edges,
+                log_s, log_rows);
+        dot_strip_stats_kernel<6>
+            <<<row_grid(n_rows, 0, heads), kThreads, 0, st>>>(
+                indptr, part, ns_o, nullptr, 0, raw, nullptr, nullptr,
+                nullptr, w, m, s, n_rows, heads, n_edges, scale, slope);
+        if (dv > 0)
+          dot_strip_spmm_kernel<6, V, U, MINB>
+              <<<row_grid(n_rows, log_rows, heads * ns_d), kThreads, 0,
+                 st>>>(indptr, col, w, vv, numv, n_rows, heads, dv, ns_d,
+                       n_edges, log_s, log_rows);
+      });
 }
 
 template <typename V>
 int launch_dot_bwd_dq(const int* indptr, const int* col, const float* q,
                       const float* k, const float* v, const float* mx,
                       const float* den, const float* s_n, const float* dy,
-                      float* dq, int n_rows, int heads, int ov, int dv,
-                      float scale, float slope, cudaStream_t st) {
-  const unsigned nb = blocks_for(n_rows, heads);
+                      const float* raw, float* dq, float* scratch,
+                      int n_rows, int heads, int ov, int dv,
+                      long long n_edges, int strips, int log_rows, int unroll,
+                      int reg_cap, float scale, float slope,
+                      cudaStream_t st) {
+  const V* qv = reinterpret_cast<const V*>(q);
+  const V* kv = reinterpret_cast<const V*>(k);
+  const V* vv = reinterpret_cast<const V*>(v);
+  const V* dyv = reinterpret_cast<const V*>(dy);
+  V* dqv = reinterpret_cast<V*>(dq);
   const int wide = ov > dv ? ov : dv;
-  return with_chunks(wide, [&](auto nc) {
-    dot_bwd_dq_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const V*>(q),
-        reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v), mx,
-        den, s_n, reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dq),
-        n_rows, heads, ov, dv, log_group(wide), scale, slope);
-  });
+  if (!strips) {
+    const int lg = log_group(wide);
+    if (!dot_layout_ok(lg, log_rows, heads))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid = row_grid(n_rows, log_rows, heads);
+    return with_row_instances<RecvPick>(
+        wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+          dot_bwd_dq_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
+                                 decltype(minb)::value>
+              <<<grid, kThreads, 0, st>>>(indptr, col, qv, kv, vv, mx, den,
+                                          s_n, dyv, raw, dqv, n_rows, heads,
+                                          ov, dv, lg, log_rows, scale, slope);
+        });
+  }
+  const int log_s = log_line<V>(), sv = 1 << log_s;
+  const int ns_o = (ov + sv - 1) / sv, ns_d = (dv + sv - 1) / sv;
+  const long long columns = (long long)heads * (ns_o > ns_d ? ns_o : ns_d);
+  if ((n_edges > 0 && scratch == nullptr) || ov == 0 ||
+      !dot_layout_ok(log_s, log_rows, columns))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // scratch: w [H, E], the partial <v, dy> [H, ns_d, E] and, with no
+  // raw logits given, the partial logits [H, ns_o, E]
+  float* w = scratch;
+  float* part_vd = w + (long long)heads * n_edges;
+  float* part_lg = part_vd + (long long)heads * ns_d * n_edges;
+  return with_strip_instances<StripPick>(
+      unroll, reg_cap, [&](auto un, auto minb) {
+        constexpr int U = decltype(un)::value, MINB = decltype(minb)::value;
+        if (dv > 0)
+          dot_strip_dots_kernel<7, V, U, MINB>
+              <<<row_grid(n_rows, log_rows, heads * ns_d), kThreads, 0,
+                 st>>>(indptr, col, dyv, vv, part_vd, n_rows, heads, dv,
+                       ns_d, n_edges, log_s, log_rows);
+        if (raw == nullptr)
+          dot_strip_dots_kernel<7, V, U, MINB>
+              <<<row_grid(n_rows, log_rows, heads * ns_o), kThreads, 0,
+                 st>>>(indptr, col, qv, kv, part_lg, n_rows, heads, ov,
+                       ns_o, n_edges, log_s, log_rows);
+        dot_strip_stats_kernel<7>
+            <<<row_grid(n_rows, 0, heads), kThreads, 0, st>>>(
+                indptr, part_lg, raw == nullptr ? ns_o : 0, part_vd, ns_d,
+                const_cast<float*>(raw), mx, den, s_n, w, nullptr, nullptr,
+                n_rows, heads, n_edges, scale, slope);
+        dot_strip_spmm_kernel<7, V, U, MINB>
+            <<<row_grid(n_rows, log_rows, heads * ns_o), kThreads, 0, st>>>(
+                indptr, col, w, kv, dqv, n_rows, heads, ov, ns_o, n_edges,
+                log_s, log_rows);
+      });
 }
 
-// K8's instances. The library holds the ones that
-// ops/cuda/edge_softmax.py:_dot_bwd_rev_layout picks: at NC = 1, U = 2
-// held to 64 registers (4 blocks of 8 warps per SM); at NC >= 2, U = 1 and
-// no cap (the float4 instance of NC = 2, U = 2 at 64 registers spills).
-// Built with GNN_SWEEP (the build chip_smoke.py --sweep times) it also
-// holds the others: (NC, U) with NC * U <= 4, with no cap or, at NC <= 2,
-// 64 registers. Returns cudaErrorInvalidValue (nothing launched) for a
-// layout the library does not hold, for rows wider than 256 vectors, for R
-// rows that do not fit in a warp or for 2^16 heads or more.
+// K8 in rows (see dot_bwd_rev_kernel), at the instances with_row_instances
+// holds.
 template <typename V>
 int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
                        const float* k, const float* v, const float* mx,
@@ -1179,48 +1719,19 @@ int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
                        float scale, float slope, cudaStream_t st) {
   const int wide = ov > dv ? ov : dv;
   const int lg = log_group(wide);
-  if (log_rows < 0 || lg + log_rows > 5 || heads >= 65536)
+  if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int row_blocks = (n_rows + (1 << log_rows) - 1) >> log_rows;
-  const dim3 nb((row_blocks + kWarpsPerBlock - 1) / kWarpsPerBlock, heads);
-  bool launched = false;
-  auto go = [&](auto nc, auto un, auto minb) {
-    constexpr int NC = decltype(nc)::value, U = decltype(un)::value;
-    dot_bwd_rev_kernel<V, NC, U, decltype(minb)::value>
-        <<<nb, kThreads, 0, st>>>(
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  return with_row_instances<K8Pick>(
+      wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        dot_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
+                           decltype(minb)::value><<<grid, kThreads, 0, st>>>(
             indptr, col, reinterpret_cast<const V*>(q),
             reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v), mx,
             den, s_n, reinterpret_cast<const V*>(dy),
             reinterpret_cast<V*>(dk), reinterpret_cast<V*>(dv_out), n_rows,
             heads, ov, dv, lg, log_rows, scale, slope);
-    launched = true;
-  };
-  using I1 = std::integral_constant<int, 1>;
-  using I2 = std::integral_constant<int, 2>;
-  using I4 = std::integral_constant<int, 4>;
-  const int rc = with_chunks(wide, [&](auto nc) {
-    constexpr int NC = decltype(nc)::value;
-#ifndef GNN_SWEEP
-    if constexpr (NC == 1) {
-      if (unroll == 2 && reg_cap == 64) go(nc, I2{}, I4{});
-    } else {
-      if (unroll == 1 && reg_cap == 0) go(nc, I1{}, I1{});
-    }
-#else
-    auto pick = [&](auto un) {   // U = un, with no cap or at 64 registers
-      if (unroll != decltype(un)::value) return;
-      if (reg_cap == 0) go(nc, un, I1{});
-      if constexpr (NC <= 2) {
-        if (reg_cap == 64) go(nc, un, I4{});
-      }
-    };
-    pick(I1{});
-    if constexpr (NC <= 2) pick(I2{});
-    if constexpr (NC == 1) pick(I4{});
-#endif
-  });
-  if (rc != 0) return rc;
-  return launched ? 0 : static_cast<int>(cudaErrorInvalidValue);
+      });
 }
 
 bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
@@ -1408,45 +1919,65 @@ int gatv2_bwd_rev_f32(const int* indptr, const int* col, const float* q,
                                      dk, n_rows, heads, d, slope, st);
 }
 
-// K6. Over the receiver CSR of n_rows receivers: q [n_rows, H, o],
-// k [n_src, H, o], v [n_src, H, d]; num [n_rows, H, d], m and s
-// [n_rows, H]. slope 1 is the plain dot. float4 vectors when o and d are
-// multiples of 4 and every row pointer is 16-byte aligned; the wider of o
-// and d may be 1024 floats with float4 vectors, 256 without; wider returns
-// cudaErrorInvalidValue.
+// K6. Over the receiver CSR of n_rows receivers and n_edges edges:
+// q [n_rows, H, o], k [n_src, H, o], v [n_src, H, d]; num [n_rows, H, d],
+// m and s [n_rows, H], raw [n_edges, H] each edge's raw logit scale * <q[r],
+// k[s]> (NULL: not written, in rows only). slope 1 is the plain dot. float4
+// vectors when o and d are multiples of 4 and every row pointer is 16-byte
+// aligned; the wider of o and d may be 1024 floats with float4 vectors, 256
+// without; wider returns cudaErrorInvalidValue. The layout: strips 0 (rows)
+// or 1 (strips; raw required, and scratch of H * (ceil(o / S) + 1) *
+// n_edges floats, S = 8 float4 vectors or 32 floats: one 128-byte line);
+// log_rows: log2 of the rows per warp; unroll: the edges (rows) or gathers
+// (strips) a group issues before it reduces them; reg_cap: 0 (none) or 64
+// registers a thread (see with_row_instances and with_strip_instances for
+// the instances built).
 int dot_softmax_f32(const int* indptr, const int* col, const float* q,
                     const float* k, const float* v, float* num, float* m,
-                    float* s, int n_rows, int heads, int o, int d, float scale,
+                    float* s, float* raw, float* scratch, int n_rows,
+                    int heads, int o, int d, int n_edges, int strips,
+                    int log_rows, int unroll, int reg_cap, float scale,
                     float slope, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dot_float4(o, d, {q, k, v, num}))
-    return launch_dot_softmax<float4>(indptr, col, q, k, v, num, m, s, n_rows,
-                                      heads, o / 4, d / 4, scale, slope, st);
-  return launch_dot_softmax<float>(indptr, col, q, k, v, num, m, s, n_rows,
-                                   heads, o, d, scale, slope, st);
+    return launch_dot_softmax<float4>(
+        indptr, col, q, k, v, num, m, s, raw, scratch, n_rows, heads, o / 4,
+        d / 4, n_edges, strips, log_rows, unroll, reg_cap, scale, slope, st);
+  return launch_dot_softmax<float>(indptr, col, q, k, v, num, m, s, raw,
+                                   scratch, n_rows, heads, o, d, n_edges,
+                                   strips, log_rows, unroll, reg_cap, scale,
+                                   slope, st);
 }
 
 // K7. Over the receiver CSR: dq [n_rows, H, o]. mx, den, s_n and dy
-// [n_rows, H(, d)] are the receivers'. Widths as K6.
+// [n_rows, H(, d)] are the receivers'; raw [n_edges, H] K6's raw logits
+// (NULL: recomputed from q and k). Widths and layout as K6; strips take
+// scratch of H * (1 + ceil(d / S)) * n_edges floats, plus H * ceil(o / S) *
+// n_edges without raw.
 int dot_bwd_dq_f32(const int* indptr, const int* col, const float* q,
                    const float* k, const float* v, const float* mx,
                    const float* den, const float* s_n, const float* dy,
-                   float* dq, int n_rows, int heads, int o, int d, float scale,
+                   const float* raw, float* dq, float* scratch, int n_rows,
+                   int heads, int o, int d, int n_edges, int strips,
+                   int log_rows, int unroll, int reg_cap, float scale,
                    float slope, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dot_float4(o, d, {q, k, v, dy, dq}))
-    return launch_dot_bwd_dq<float4>(indptr, col, q, k, v, mx, den, s_n, dy,
-                                     dq, n_rows, heads, o / 4, d / 4, scale,
-                                     slope, st);
-  return launch_dot_bwd_dq<float>(indptr, col, q, k, v, mx, den, s_n, dy, dq,
-                                  n_rows, heads, o, d, scale, slope, st);
+    return launch_dot_bwd_dq<float4>(
+        indptr, col, q, k, v, mx, den, s_n, dy, raw, dq, scratch, n_rows,
+        heads, o / 4, d / 4, n_edges, strips, log_rows, unroll, reg_cap,
+        scale, slope, st);
+  return launch_dot_bwd_dq<float>(indptr, col, q, k, v, mx, den, s_n, dy,
+                                  raw, dq, scratch, n_rows, heads, o, d,
+                                  n_edges, strips, log_rows, unroll, reg_cap,
+                                  scale, slope, st);
 }
 
 // K8. Over the sender CSR of n_rows senders: dk [n_rows, H, o] and
 // dv [n_rows, H, d]; q, mx, den, s_n and dy are the receivers'. Widths as
 // K6. log_rows: log2 of the sender rows per warp; unroll: the edges an edge
 // group loads before it reduces them; reg_cap: 0 (none) or 64 registers per
-// thread (see launch_dot_bwd_rev for the instances built).
+// thread (see with_row_instances for the instances built).
 int dot_bwd_rev_f32(const int* indptr, const int* col, const float* q,
                     const float* k, const float* v, const float* mx,
                     const float* den, const float* s_n, const float* dy,

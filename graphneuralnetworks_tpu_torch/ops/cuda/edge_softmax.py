@@ -19,11 +19,14 @@ a CSR grouping (``csrc/edge_softmax.cu``):
   launches, per-warp shares then a fixed-order sum) and K11
   ``gatv2_bwd_rev`` (sender CSR: ``dk``): GATv2's backward.
 - K6 ``dot_softmax``: dot-product logits ``lrelu(scale <q[r], k[s]>)``
-  (the plain dot when ``slope`` is None) with the values ``v[s]``, one pass
-  over each row's edges; K7 ``dot_bwd_dq`` (receiver CSR: ``dq``) and K8
-  ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward. K8 takes
-  several sender rows of one head per warp, heads one after the other over
-  all rows, and several edges in flight (:func:`_dot_bwd_rev_layout`).
+  (the plain dot when ``slope`` is None) with the values ``v[s]``, and
+  each edge's raw logit where asked (K7's residual); K7 ``dot_bwd_dq``
+  (receiver CSR: ``dq``, from those raw logits where given) and K8
+  ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward. They take
+  several rows of one head per warp, heads one after the other over all
+  rows, and several edges in flight; K6 and K7 build a head wider than one
+  128-byte line whose table the L2 cannot hold in passes over column
+  strips (:func:`_dot_recv_layout`, :func:`_dot_bwd_rev_layout`).
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
 self-loop folds in afterwards (:func:`finalize_softmax`). Five autograd
@@ -72,17 +75,28 @@ _NEG_INF = float("-inf")
 # are multiples of 4 and the row operands 16-byte aligned.
 _MAX_VECTORS = 256
 
-# K8's layout (csrc/edge_softmax.cu, dot_bwd_rev_kernel), from
-# chip_smoke.py --sweep, which times every choice (PERF.md §6): the
-# index windows a sender row's lanes take on average (spmm._windowed_rows),
-# and, for rows of one register chunk (32 vectors), the edges a group loads
+# The dot kernels' layouts (csrc/edge_softmax.cu), from chip_smoke.py
+# --sweep, which times every choice (PERF.md §6). Rows (K6, K7, K8): the
+# index windows a row's lanes take on average (spmm._windowed_rows), and,
+# for rows of one register chunk (32 vectors), the edges a group loads
 # before it reduces them and the register cap; uncapped, two edges in
 # flight cost more warps than they gain. Wider rows take one edge at a time
-# and no cap: two chunks of q and dy rows for two edges held to 64
-# registers spill.
+# and no cap: two chunks of two edges' rows held to 64 registers spill.
+# K6 and K7 in rows of one register chunk take (edges in flight, register
+# cap) _DOT_ROWS_LINE for edge groups of a 128-byte line or more and
+# _DOT_ROWS_NARROW for narrower ones. Strips (K6, K7): a head wider than
+# one line whose slice of the gathered tables exceeds _DOT_STRIP_BYTES (the
+# L2 keeps a 16 MB slice, as for K1's strips) goes in passes over strips of
+# one line, each with _DOT_STRIP_INSTANCE (gathers in flight, register
+# cap).
 _K8_WINDOWS_PER_ROW = 2
 _K8_UNROLL = 2
 _K8_REG_CAP = 64
+_DOT_ROWS_LINE = (4, 64)
+_DOT_ROWS_NARROW = (2, 64)
+_DOT_STRIP_BYTES = 16 * 2**20
+_DOT_LINE_BYTES = 128
+_DOT_STRIP_INSTANCE = (4, 0)
 
 
 @functools.cache
@@ -97,8 +111,8 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
                                     ("gatv2_bwd_dq_f32", 11, 4, 1),
                                     ("gatv2_da_reduce_f32", 2, 3, 0),
                                     ("gatv2_bwd_rev_f32", 10, 3, 1),
-                                    ("dot_softmax_f32", 8, 4, 2),
-                                    ("dot_bwd_dq_f32", 10, 4, 2),
+                                    ("dot_softmax_f32", 10, 9, 2),
+                                    ("dot_bwd_dq_f32", 12, 9, 2),
                                     ("dot_bwd_rev_f32", 11, 7, 2)):
         f = getattr(lib, fn)
         f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * n_f32 + [ptr]
@@ -276,21 +290,29 @@ def _dot_logits(r, s, q, k, scale, slope):
     return raw, (raw if slope is None else lrelu(raw, slope))
 
 
-def dot_softmax_plain(indptr, col, q, k, v, scale, slope):
+def dot_softmax_plain(indptr, col, q, k, v, scale, slope, raw_out=None):
     """K6's function over the receiver CSR: :func:`edge_softmax_plain` of
     the values ``v[s_e]`` with logits ``scale * <q[r_e], k[s_e]>``, through
     ``leaky_relu(., slope)`` unless ``slope`` is None
-    (edge_softmax.py:295-339)."""
+    (edge_softmax.py:295-339). ``raw_out [E, H]``, where given, receives
+    each edge's raw logit ``scale * <q[r_e], k[s_e]>``."""
     rows, cols = _row_ids(indptr, col.numel()), col.long()
-    _, lg = _dot_logits(rows, cols, q, k, scale, slope)
+    raw, lg = _dot_logits(rows, cols, q, k, scale, slope)
+    if raw_out is not None:
+        raw_out.copy_(raw)
     return _softmax_sums(rows, indptr.numel() - 1, lg, None,
                          v.index_select(0, cols))
 
 
-def _dot_edge_terms(r, s, q, k, v, mx, den, s_n, dy, scale, slope):
+def _dot_edge_terms(r, s, q, k, v, mx, den, s_n, dy, scale, slope,
+                    raw=None):
     """Per edge: ``alpha``, ``dy[r]`` and ``dlg = alpha * (<v[s], dy[r]> -
-    s_n[r]) * dsig`` with ``dsig = scale * leaky_relu'(raw)``."""
-    raw, lg = _dot_logits(r, s, q, k, scale, slope)
+    s_n[r]) * dsig`` with ``dsig = scale * leaky_relu'(raw)``; the raw
+    logits computed, or ``raw`` (by edge) where given."""
+    if raw is None:
+        raw, lg = _dot_logits(r, s, q, k, scale, slope)
+    else:
+        lg = raw if slope is None else lrelu(raw, slope)
     alpha = torch.exp(lg - mx.index_select(0, r)) / den.index_select(0, r)
     dy_e = dy.index_select(0, r)
     dsig = scale if slope is None else scale * _dlrelu(raw, slope)
@@ -298,12 +320,14 @@ def _dot_edge_terms(r, s, q, k, v, mx, den, s_n, dy, scale, slope):
     return alpha, dy_e, alpha * (vd - s_n.index_select(0, r)) * dsig
 
 
-def dot_bwd_dq_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
+def dot_bwd_dq_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
+                     raw=None):
     """K7's function over the receiver CSR: ``dq[r] = sum_e dlg_e k[s_e]``
-    (edge_softmax.py:546-596)."""
+    (edge_softmax.py:546-596), with the raw logits ``raw [E, H]`` (K6's
+    residual) where given."""
     rows, cols = _row_ids(indptr, col.numel()), col.long()
     _, _, dlg = _dot_edge_terms(rows, cols, q, k, v, mx, den, s_n, dy, scale,
-                                slope)
+                                slope, raw)
     return q.new_zeros(q.shape).index_add_(
         0, rows, dlg[..., None] * k.index_select(0, cols))
 
@@ -564,35 +588,115 @@ def _kernel_slope(slope) -> float:
     return 1.0 if slope is None else float(slope)
 
 
-def _dot_softmax_kernel(indptr, col, q, k, v, scale, slope):
-    device, args = _dot_args(indptr, col, q, k, v, {}, {}, {})
+def _vectors(width: int, vec: bool) -> int:
+    return width // 4 if vec else width
+
+
+def _dot_recv_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
+                     n_rows: int, entries: int) -> tuple[int, int, int, int]:
+    """K6's and K7's ``(strips, log_rows, unroll, reg_cap)`` for a head of
+    ``ov`` (q, k) and ``dv`` (v, dy) vectors of ``vec_bytes`` (16: float4,
+    4: float), ``n_src`` sender rows and ``entries / n_rows`` edges per
+    receiver on average.
+
+    Strips (1) for a head wider than one ``_DOT_LINE_BYTES`` line whose
+    slice of the wider gathered table exceeds ``_DOT_STRIP_BYTES``:
+    :func:`_windowed_rows` rows of one-line edge groups at
+    ``_DOT_STRIP_INSTANCE``. Else rows (0), as many per warp as K8's:
+    for rows of one register chunk ``_DOT_ROWS_LINE`` or
+    ``_DOT_ROWS_NARROW``, for wider rows one edge in flight, uncapped."""
+    wide = max(ov, dv, 1)
+    line = _DOT_LINE_BYTES // vec_bytes
+    if wide > line and n_src * wide * vec_bytes > _DOT_STRIP_BYTES:
+        log_s = (line - 1).bit_length()
+        return (1, _windowed_rows(log_s, n_rows, entries,
+                                  _K8_WINDOWS_PER_ROW)) + _DOT_STRIP_INSTANCE
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
+    if wide > 32:
+        return 0, log_rows, 1, 0
+    return (0, log_rows) + (_DOT_ROWS_LINE if vec_bytes << log_g
+                            >= _DOT_LINE_BYTES else _DOT_ROWS_NARROW)
+
+
+def _strips(width: int, vec: bool) -> int:
+    """The one-line strips of a head of ``width`` floats."""
+    return -(-_vectors(width, vec) // (_DOT_LINE_BYTES // (16 if vec else 4)))
+
+
+def _recv_layout(layout, o, d, vec, n_src, n_rows, entries):
+    """``layout``, or :func:`_dot_recv_layout`'s where it is None; and
+    whether the call goes to the sweep build."""
+    if layout is not None:
+        return tuple(layout), True
+    return _dot_recv_layout(_vectors(o, vec), _vectors(d, vec),
+                            16 if vec else 4, n_src, n_rows, entries), False
+
+
+def _dot_softmax_kernel(indptr, col, q, k, v, scale, slope, raw_out=None,
+                        layout=None):
+    """K6 at :func:`_dot_recv_layout`'s layout, or at ``layout``
+    (``(strips, log_rows, unroll, reg_cap)``) from the sweep build of the
+    library, which holds every instance (``build.load``). Strips allocate
+    their scratch: the partial logits of every strip and the weights,
+    ``H * (strips + 1) * E`` floats, and ``raw_out`` where not given."""
+    device, args = _dot_args(indptr, col, q, k, v, {"raw_out": raw_out}, {},
+                             {})
     n, heads, o, d = indptr.numel() - 1, q.shape[1], q.shape[2], v.shape[2]
+    n_edges = col.numel()
     _same_rows(n, q=q)
+    _same_rows(n_edges, raw_out=raw_out)
     num, m, s = _forward_outputs(n, heads, d, device)
     if n == 0 or heads == 0:
         return num, m, s
+    vec = _float4_rows(o, q, k, v, num) and d % 4 == 0
+    layout, sweep = _recv_layout(layout, o, d, vec, k.shape[0], n, n_edges)
+    scratch = None
+    if layout[0]:
+        if raw_out is None:
+            raw_out = torch.empty((n_edges, heads), dtype=torch.float32,
+                                  device=device)
+        scratch = torch.empty(heads * (_strips(o, vec) + 1) * n_edges,
+                              dtype=torch.float32, device=device)
     _launch("dot_softmax_f32", "k6", device, *args, _ptr(num), _ptr(m),
-            _ptr(s), n, heads, o, d, float(scale), _kernel_slope(slope))
+            _ptr(s), _ptr(raw_out), _ptr(scratch), n, heads, o, d, n_edges,
+            *layout, float(scale), _kernel_slope(slope), sweep=sweep)
     return num, m, s
 
 
-def _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy):
+def _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy, raw=None):
     device, args = _dot_args(indptr, col, q, k, v,
-                             {"mx": mx, "den": den, "s_n": s_n}, {},
-                             {"dy": dy})
+                             {"mx": mx, "den": den, "s_n": s_n, "raw": raw},
+                             {}, {"dy": dy})
     _same_rows(q.shape[0], mx=mx, den=den, s_n=s_n, dy=dy)   # receivers
+    _same_rows(col.numel(), raw=raw)                         # edges
     return device, args + tuple(_ptr(t) for t in (mx, den, s_n, dy))
 
 
-def _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
-    device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy)
+def _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
+                       raw=None, layout=None):
+    """K7 at :func:`_dot_recv_layout`'s layout, or at ``layout`` from the
+    sweep build (as :func:`_dot_softmax_kernel`). ``raw [E, H]``: K6's raw
+    logits, else recomputed from ``q`` and ``k``. Strips allocate their
+    scratch: the weights and the partial ``<v, dy>`` of every strip, and
+    without ``raw`` the partial logits."""
+    device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy, raw)
     n, heads, o, d = indptr.numel() - 1, q.shape[1], q.shape[2], v.shape[2]
+    n_edges = col.numel()
     _same_rows(n, q=q)
     dq = torch.empty((n, heads, o), dtype=torch.float32, device=device)
     if n == 0 or heads == 0:
         return dq
-    _launch("dot_bwd_dq_f32", "k7", device, *args, _ptr(dq), n, heads, o, d,
-            float(scale), _kernel_slope(slope))
+    vec = _float4_rows(o, q, k, v, dy, dq) and d % 4 == 0
+    layout, sweep = _recv_layout(layout, o, d, vec, k.shape[0], n, n_edges)
+    scratch = None
+    if layout[0]:
+        parts = 1 + _strips(d, vec) + (_strips(o, vec) if raw is None else 0)
+        scratch = torch.empty(heads * parts * n_edges, dtype=torch.float32,
+                              device=device)
+    _launch("dot_bwd_dq_f32", "k7", device, *args, _ptr(raw), _ptr(dq),
+            _ptr(scratch), n, heads, o, d, n_edges, *layout, float(scale),
+            _kernel_slope(slope), sweep=sweep)
     return dq
 
 
@@ -627,8 +731,8 @@ def _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
     sweep = layout is not None
     if not sweep:
         vec = _float4_rows(o, q, k, v, dy, dk, dv) and d % 4 == 0
-        layout = _dot_bwd_rev_layout(o // 4 if vec else o,
-                                     d // 4 if vec else d, n, col.numel())
+        layout = _dot_bwd_rev_layout(_vectors(o, vec), _vectors(d, vec), n,
+                                     col.numel())
     _launch("dot_bwd_rev_f32", "k8", device, *args, _ptr(dk), _ptr(dv), n,
             heads, o, d, *layout, float(scale), _kernel_slope(slope),
             sweep=sweep)
@@ -691,20 +795,21 @@ def gatv2_bwd_rev(indptr, col, q, k, a, mx, den, s_n, dy, slope):
                                  slope)
 
 
-def dot_softmax(indptr, col, q, k, v, scale, slope):
+def dot_softmax(indptr, col, q, k, v, scale, slope, raw_out=None):
     """K6 on CUDA tensors, :func:`dot_softmax_plain` on CPU tensors."""
     if _route(v) == "cpu":
-        return dot_softmax_plain(indptr, col, q, k, v, scale, slope)
-    return _dot_softmax_kernel(indptr, col, q, k, v, scale, slope)
+        return dot_softmax_plain(indptr, col, q, k, v, scale, slope, raw_out)
+    return _dot_softmax_kernel(indptr, col, q, k, v, scale, slope, raw_out)
 
 
-def dot_bwd_dq(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
+def dot_bwd_dq(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
+               raw=None):
     """K7 on CUDA tensors, :func:`dot_bwd_dq_plain` on CPU tensors."""
     if _route(dy) == "cpu":
         return dot_bwd_dq_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale,
-                                slope)
+                                slope, raw)
     return _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
-                              slope)
+                              slope, raw)
 
 
 def dot_bwd_rev(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
@@ -881,29 +986,38 @@ class GatV2AttentionFunction(torch.autograd.Function):
 class DotAttentionFunction(torch.autograd.Function):
     """Dot attention with logits ``lrelu(scale <q[r], k[s]>)`` (the plain
     dot when ``slope`` is None) and values ``v[s]``: K6 forward, K7
-    (``dq``) and K8 (``dk``, ``dv``) backward (edge_softmax.py:473-783)."""
+    (``dq``) and K8 (``dk``, ``dv``) backward (edge_softmax.py:473-783).
+
+    Where ``q`` needs a gradient, K6 also writes each edge's raw logit, an
+    ``[E, H]`` residual (8 MB at E = 2M, H = 1), from which K7 takes the
+    logits instead of building them again; the JAX package saves the
+    gathered ``k`` and ``v`` rows for the same reason
+    (edge_softmax.py:538-542)."""
 
     @staticmethod
     def forward(ctx, q, k, values_n, self_logits, self_values, indptr_r,
                 col_r, indptr_s, col_s, scale, slope):
         q, k, values_n = _contiguous(q, k, values_n)
-        num, m, s = dot_softmax(indptr_r, col_r, q, k, values_n, scale, slope)
+        raw = (q.new_empty((col_r.numel(), q.shape[1]))
+               if ctx.needs_input_grad[0] else None)
+        num, m, s = dot_softmax(indptr_r, col_r, q, k, values_n, scale, slope,
+                                raw)
         out, mx, den = finalize_softmax(num, m, s, self_logits, self_values)
         ctx.scale, ctx.slope = scale, slope
         ctx.save_for_backward(q, k, values_n, self_logits, self_values, out,
-                              mx, den, indptr_r, col_r, indptr_s, col_s)
+                              mx, den, indptr_r, col_r, indptr_s, col_s, raw)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
         (q, k, values_n, self_logits, self_values, out, mx, den, indptr_r,
-         col_r, indptr_s, col_s) = ctx.saved_tensors
+         col_r, indptr_s, col_s, raw) = ctx.saved_tensors
         dy = dy.contiguous()
         s_n = (out * dy).sum(-1)
         args = (q, k, values_n, mx, den, s_n, dy, ctx.scale, ctx.slope)
         need = ctx.needs_input_grad
-        dq = dot_bwd_dq(indptr_r, col_r, *args) if need[0] else None
+        dq = dot_bwd_dq(indptr_r, col_r, *args, raw) if need[0] else None
         dk = dv = None
         if need[1] or need[2]:
             dk, dv = dot_bwd_rev(indptr_s, col_s, *args)

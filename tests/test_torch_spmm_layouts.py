@@ -1,15 +1,18 @@
-"""The layouts of K1 (``spmm_csr_f32``) and K8 (``dot_bwd_rev_f32``): their
-choosers, the wrappers passing a layout through, and (``gpu``-marked) every
-layout on the card against the plain versions.
+"""The layouts of K1 (``spmm_csr_f32``), K6 (``dot_softmax_f32``), K7
+(``dot_bwd_dq_f32``) and K8 (``dot_bwd_rev_f32``): their choosers, the
+wrappers passing a layout through, and (``gpu``-marked) every layout on the
+card against the plain versions.
 
-- CPU: :func:`~ops.cuda.spmm._spmm_layout` and
+- CPU: :func:`~ops.cuda.spmm._spmm_layout`,
+  :func:`~ops.cuda.edge_softmax._dot_recv_layout` and
   :func:`~ops.cuda.edge_softmax._dot_bwd_rev_layout` give a layout the
   kernels take for every width, head count and mean row length, empty
   graphs included; the wrappers hand that layout (or the caller's) to the
-  library call unchanged.
+  library call unchanged, with the scratch a strip layout needs.
 - ``gpu``: each layout the sweep runs, on a graph with empty rows, a row of
-  more than 32 edges and a row of more than 1024, against ``spmm_plain``
-  and ``dot_bwd_rev_plain``; two runs of each kernel give the same bits.
+  more than 32 edges and a row of more than 1024, against ``spmm_plain``,
+  ``dot_softmax_plain``, ``dot_bwd_dq_plain`` and ``dot_bwd_rev_plain``;
+  two runs of each kernel give the same bits.
   This file imports no JAX, so on a machine with a card and no JAX it runs
   without the suite's conftest:
 
@@ -209,6 +212,206 @@ def test_dot_bwd_rev_wrapper_passes_the_layout(monkeypatch, heads, o, d):
     assert ES.launches["k8"] == before + 2
 
 
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_dot_recv_layout_is_valid(n_rows, mean):
+    """K6's and K7's chooser: strips only for a head wider than one
+    128-byte line, with R rows of one-line groups in a warp and the strip
+    instance the library holds; else K8's rows per warp, with (U, cap) an
+    instance the library holds: for rows of one register chunk 4 edges in
+    flight for groups of a line or more, 2 for narrower, at 64 registers;
+    one edge uncapped for wider rows. For every width on either side up to
+    256 vectors of float4 or float, small and large sender tables, each
+    mean row length and an empty graph."""
+    entries = round(mean * n_rows)
+    for vec_bytes in (4, 16):
+        line = 128 // vec_bytes
+        for n_src in (n_rows, 4096, 131_072):
+            for ov in range(1, 257):
+                for dv in sorted({1, 7, 32, ov, 256}):
+                    wide = max(ov, dv)
+                    lay = ES._dot_recv_layout(ov, dv, vec_bytes, n_src,
+                                              n_rows, entries)
+                    if lay[0]:
+                        assert wide > line
+                        assert n_src * wide * vec_bytes > 16 * 2**20
+                        assert 0 <= lay[1] <= 5 - _log_g(line)
+                        assert lay[2:] == ES._DOT_STRIP_INSTANCE
+                    else:
+                        rows = ES._dot_bwd_rev_layout(ov, dv, n_rows,
+                                                      entries)
+                        assert lay[1] == rows[0]
+                        line_group = vec_bytes << _log_g(wide) >= 128
+                        assert lay[2:] == ((1, 0) if wide > 32 else
+                                           (4, 64) if line_group else
+                                           (2, 64))
+
+
+@pytest.mark.parametrize("ov,dv,vec_bytes,n_src,want", [
+    (8, 8, 16, 131_072, (0, 2, 4, 64)),     # Transformer layer 1 (4, 32, 32)
+    (2, 2, 16, 131_072, (0, 2, 2, 64)),     # its head layer (1, 8, 8)
+    (32, 32, 16, 131_072, (1, 2, 4, 0)),    # AGNN (1, 128, 128): strips
+    (64, 64, 16, 131_072, (1, 2, 4, 0)),    # (1, 256, 256)
+    (32, 32, 16, 2_708, (0, 0, 4, 64)),     # a 1.4 MB table: rows
+    (64, 64, 16, 2_708, (0, 0, 1, 0)),      # two register chunks: rows
+    (67, 5, 4, 131_072, (1, 0, 4, 0)),      # floats: one group a line
+])
+def test_dot_recv_layout_at_the_measured_shapes(ov, dv, vec_bytes, n_src,
+                                                want):
+    """The layouts K6 and K7 take at N = 131,072, E = 2M (15.3 edges a
+    row), the fastest of chip_smoke.py --sweep: rows at the Transformer's
+    shapes, strips of one line at AGNN's, whose 64 MB tables the L2 cannot
+    hold."""
+    assert ES._dot_recv_layout(ov, dv, vec_bytes, n_src, 131_072,
+                               2_000_000) == want
+
+
+def _dot_inputs(heads, o, d, n_dst=50, n_src=40, seed=0):
+    """A receiver CSR of ``n_dst`` rows over ``n_src`` senders, and random
+    float32 q, k, v, dy, mx, den, s_n on the CPU."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 30, n_dst)
+    indptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                          dtype=torch.int32)
+    col = torch.tensor(rng.integers(0, n_src, int(indptr[-1])),
+                       dtype=torch.int32)
+    q, dy = torch.randn(n_dst, heads, o), torch.randn(n_dst, heads, d)
+    k, v = torch.randn(n_src, heads, o), torch.randn(n_src, heads, d)
+    mx, den, s_n = (torch.randn(n_dst, heads) for _ in range(3))
+    return indptr, col, q, k, v, dy, mx, den, s_n
+
+
+@pytest.mark.parametrize("heads,o,d", [(4, 32, 32), (1, 8, 8), (3, 5, 7),
+                                       (1, 128, 128)])
+def test_dot_softmax_wrapper_passes_the_layout(monkeypatch, heads, o, d):
+    """``_dot_softmax_kernel`` passes ``_dot_recv_layout``'s choice to the
+    shipped library, or the caller's layout to the sweep build, as the four
+    integers after the edge count; a strip layout gets ``raw`` (the
+    caller's, else its own) and scratch of ``H * (strips + 1) * E``
+    floats."""
+    libs = _fake_launches(monkeypatch, ES)
+    indptr, col, q, k, v, *_ = _dot_inputs(heads, o, d, seed=heads + o + d)
+    n_edges = col.numel()
+    args = (indptr, col, q, k, v, 0.5, None)
+    allocs = []
+    empty = torch.empty
+    monkeypatch.setattr(ES.torch, "empty", lambda *a, **kw: allocs.append(
+        a[0]) or empty(*a, **kw))
+    raw = torch.empty(n_edges, heads)
+    before = ES.launches["k6"]
+    ES._dot_softmax_kernel(*args)
+    ES._dot_softmax_kernel(*args, raw_out=raw, layout=(0, 1, 4, 0))
+    ES._dot_softmax_kernel(*args, layout=(1, 0, 8, 64))
+    vec = o % 4 == 0 and d % 4 == 0
+    want = ES._dot_recv_layout(o // 4 if vec else o, d // 4 if vec else d,
+                               16 if vec else 4, 40, 50, n_edges)
+    calls = libs[False].calls + libs[True].calls
+    assert [c[1][15:19] for c in calls] == [want, (0, 1, 4, 0), (1, 0, 8,
+                                                                 64)]
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 2]
+    assert all(c[0] == "dot_softmax_f32" for c in calls)
+    assert all(c[1][10:15] == (50, heads, o, d, n_edges) for c in calls)
+    assert calls[1][1][8] == raw.data_ptr() and calls[1][1][9] is None
+    assert calls[2][1][8] is not None and calls[2][1][9] is not None
+    strips = -(-(o // 4 if vec else o) // (8 if vec else 32))
+    assert heads * (strips + 1) * n_edges in allocs
+    assert ES.launches["k6"] == before + 3
+
+
+@pytest.mark.parametrize("heads,o,d", [(4, 32, 32), (1, 8, 8), (3, 5, 7),
+                                       (2, 128, 64)])
+def test_dot_bwd_dq_wrapper_passes_the_layout(monkeypatch, heads, o, d):
+    """``_dot_bwd_dq_kernel`` passes the layout as K6's wrapper does and
+    ``raw`` as given; a strip layout gets scratch for the weights and the
+    partial ``<v, dy>`` of every strip, and without ``raw`` for the
+    partial logits too."""
+    libs = _fake_launches(monkeypatch, ES)
+    indptr, col, q, k, v, dy, mx, den, s_n = _dot_inputs(
+        heads, o, d, seed=heads * o + d)
+    n_edges = col.numel()
+    raw = torch.randn(n_edges, heads)
+    allocs = []
+    empty = torch.empty
+    monkeypatch.setattr(ES.torch, "empty", lambda *a, **kw: allocs.append(
+        a[0]) or empty(*a, **kw))
+    args = (indptr, col, q, k, v, mx, den, s_n, dy, 0.5, 0.2)
+    before = ES.launches["k7"]
+    ES._dot_bwd_dq_kernel(*args)
+    ES._dot_bwd_dq_kernel(*args, raw)
+    ES._dot_bwd_dq_kernel(*args, raw, layout=(1, 0, 4, 0))
+    ES._dot_bwd_dq_kernel(*args, layout=(1, 0, 4, 0))
+    vec = o % 4 == 0 and d % 4 == 0
+    want = ES._dot_recv_layout(o // 4 if vec else o, d // 4 if vec else d,
+                               16 if vec else 4, 40, 50, n_edges)
+    calls = libs[False].calls + libs[True].calls
+    assert [c[1][17:21] for c in calls] == [want, want, (1, 0, 4, 0),
+                                            (1, 0, 4, 0)]
+    assert [len(libs[False].calls), len(libs[True].calls)] == [2, 2]
+    assert all(c[0] == "dot_bwd_dq_f32" for c in calls)
+    assert all(c[1][12:17] == (50, heads, o, d, n_edges) for c in calls)
+    assert [c[1][9] for c in calls] == [None, raw.data_ptr(),
+                                        raw.data_ptr(), None]
+    line = 8 if vec else 32
+    so, sd = (-(-(w // 4 if vec else w) // line) for w in (o, d))
+    assert heads * (1 + sd) * n_edges in allocs
+    assert heads * (1 + sd + so) * n_edges in allocs
+    assert ES.launches["k7"] == before + 4
+
+
+def test_dot_plain_versions_take_the_raw_logits():
+    """``dot_softmax_plain`` writes each edge's raw logit where asked, and
+    ``dot_bwd_dq_plain`` from those raw logits gives what it gives
+    recomputing them; with and without a slope."""
+    indptr, col, q, k, v, dy, mx, den, s_n = (
+        t.double() if t.is_floating_point() else t
+        for t in _dot_inputs(2, 6, 4, seed=3))
+    q = q[:50]
+    rows = torch.repeat_interleave(torch.arange(50), torch.diff(indptr).long())
+    want = 0.4 * (q[rows] * k[col.long()]).sum(-1)
+    for slope in (None, 0.2):
+        raw = torch.full((col.numel(), 2), float("nan"), dtype=torch.float64)
+        ES.dot_softmax_plain(indptr, col, q, k, v, 0.4, slope, raw)
+        torch.testing.assert_close(raw, want, rtol=1e-12, atol=1e-12)
+        args = (indptr, col, q, k, v, mx, den, s_n, dy, 0.4, slope)
+        torch.testing.assert_close(ES.dot_bwd_dq_plain(*args, raw),
+                                   ES.dot_bwd_dq_plain(*args),
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_dot_attention_saves_the_raw_logits_for_dq(monkeypatch):
+    """``DotAttentionFunction`` hands K7 the raw logits K6 wrote, and only
+    when ``q`` needs a gradient; a wrong residual changes ``dq``, so K7
+    reads it."""
+    import graphneuralnetworks_tpu_torch as tgnn
+
+    rng = np.random.default_rng(8)
+    g = tgnn.graph(rng.integers(0, 30, 150), rng.integers(0, 30, 150),
+                   num_nodes=30, device="cpu")
+    seen = []
+    bwd_dq = ES.dot_bwd_dq
+    monkeypatch.setattr(ES, "dot_bwd_dq", lambda *a: seen.append(a[11])
+                        or bwd_dq(*a))
+    q, k, v = (torch.tensor(rng.standard_normal((30, 2, w)),
+                            requires_grad=True) for w in (3, 3, 4))
+    ES.dot_attention_nodes(g, q, k, v, 0.5, 0.2).sum().backward()
+    (raw,) = seen
+    rows = g.receivers.long()
+    torch.testing.assert_close(
+        raw, 0.5 * (q[rows] * k[g.col_r.long()]).sum(-1).detach(),
+        rtol=1e-12, atol=1e-12)
+    dq = q.grad.clone()
+    monkeypatch.setattr(ES, "dot_bwd_dq", lambda *a: bwd_dq(
+        *a[:11], a[11] + 1.0))
+    q.grad = None
+    ES.dot_attention_nodes(g, q, k, v, 0.5, 0.2).sum().backward()
+    assert not torch.allclose(q.grad, dq)
+    seen.clear()
+    monkeypatch.setattr(ES, "dot_bwd_dq", lambda *a: seen.append(a)
+                        or bwd_dq(*a))
+    ES.dot_attention_nodes(g, q.detach(), k, v, 0.5).sum().backward()
+    assert seen == []
+
+
 # ---- on the card -----------------------------------------------------------
 
 def _needs_card():
@@ -354,11 +557,80 @@ def test_dot_bwd_rev_layouts_on_card(heads, o, d):
     torch.cuda.synchronize()
 
 
+def _dot_recv_layouts(ov, dv, vec):
+    """Every K6 and K7 layout of the sweep build: rows as K8's
+    (:func:`_k8_layouts`), and strips of one line at each rows per warp the
+    line allows, U in {1, 2, 4, 8}, uncapped and at 64 registers."""
+    log_s = 3 if vec else 5
+    return ([(0,) + lay for lay in _k8_layouts(ov, dv)]
+            + [(1, rows, u, cap) for rows in range(6 - log_s)
+               for u in (1, 2, 4, 8) for cap in (0, 64)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o,d", [(1, 8, 8), (4, 32, 32), (1, 128, 128),
+                                       (1, 256, 256), (3, 5, 7), (2, 64, 16)])
+def test_dot_recv_layouts_on_card(heads, o, d):
+    """K6 and K7 at every layout and the default, with and without a
+    slope, K7 from K6's raw logits and recomputing them, over a bipartite
+    receiver CSR (260 receivers of 300 senders, empty rows, rows of 40 and
+    1,100 edges), against ``dot_softmax_plain`` and ``dot_bwd_dq_plain``;
+    two runs of the default give the same bits."""
+    _needs_card()
+    (ir, cr), _, n_edges = _groupings(heads * 100 + o + d)
+    gen = torch.Generator(device="cuda").manual_seed(heads * o + d)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, dy = rn(260, heads, o), rn(260, heads, d)
+    k, v = rn(300, heads, o), rn(300, heads, d)
+    vec = o % 4 == 0 and d % 4 == 0
+    layouts = _dot_recv_layouts(o // 4 if vec else o, d // 4 if vec else d,
+                                vec)
+    for slope in (None, 0.2):
+        args = (ir, cr, q, k, v, o ** -0.5, slope)
+        raw_want = torch.empty(n_edges, heads, device="cuda")
+        want = ES.dot_softmax_plain(*args, raw_want)
+        assert torch.isneginf(want[1][200:]).all()
+        assert (want[2][200:] == 0).all() and (want[0][200:] == 0).all()
+        out, mx, den = ES.finalize_softmax(*want, rn(260, heads),
+                                           rn(260, heads, d))
+        bwd = (ir, cr, q, k, v, mx, den, (out * dy).sum(-1), dy, o ** -0.5,
+               slope)
+        dq_want = ES.dot_bwd_dq_plain(*bwd)
+        raw = torch.empty_like(raw_want)
+        first = ES.dot_softmax(*args, raw)
+        again = ES.dot_softmax(*args)
+        for a, b, c in zip(first, want, again):
+            torch.testing.assert_close(a, b, **TOL)
+            torch.testing.assert_close(c, a, rtol=0, atol=0)
+        torch.testing.assert_close(raw, raw_want, rtol=1e-5, atol=1e-5)
+        dq = ES.dot_bwd_dq(*bwd, raw)
+        torch.testing.assert_close(dq, dq_want, **TOL)
+        torch.testing.assert_close(ES.dot_bwd_dq(*bwd, raw), dq, rtol=0,
+                                   atol=0)
+        for lay in layouts:
+            got_raw = torch.full_like(raw, float("nan"))
+            got = ES._dot_softmax_kernel(*args, raw_out=got_raw, layout=lay)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, **TOL)
+            torch.testing.assert_close(got_raw, raw_want, rtol=1e-5,
+                                       atol=1e-5)
+            for given in (raw, None):
+                torch.testing.assert_close(
+                    ES._dot_bwd_dq_kernel(*bwd, given, layout=lay), dq_want,
+                    **TOL)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_shipped_build_holds_only_the_chosen_instances():
     """The shipped libraries launch the (unroll, reg_cap) pairs the
     choosers pick and refuse the sweep's others (nothing runs): K1 (2, 0)
-    and (8, 64); K8 (2, 64) for rows of one register chunk, (1, 0) wider."""
+    and (8, 64); K8 (2, 64) for rows of one register chunk, (1, 0) wider;
+    K6 and K7 in rows (2, 64) and (4, 64) for rows of one register chunk,
+    (1, 0) wider, and in strips (4, 0)."""
     _needs_card()
     (ir, cr), (is_, cs, _), _ = _groupings(2)
     x = torch.randn(260, 8, device="cuda")
@@ -384,4 +656,29 @@ def test_shipped_build_holds_only_the_chosen_instances():
                                   dv)), 300, 1, o, o, 0, unroll, cap, 0.5,
             0.0)
         assert (code == 0) == ok, (o, unroll, cap, code)
+    n_edges = cr.numel()
+    raw = torch.randn(n_edges, 1, device="cuda")
+    for o, (strips, unroll, cap), ok in (
+            (8, (0, 2, 64), True), (8, (0, 4, 64), True),
+            (8, (0, 1, 0), False), (8, (0, 4, 0), False),
+            (256, (0, 1, 0), True), (256, (0, 2, 64), False),
+            (128, (1, 4, 0), True), (128, (1, 8, 64), False),
+            (128, (1, 4, 64), False), (128, (1, 1, 0), False)):
+        q, dy = (torch.randn(260, 1, o, device="cuda") for _ in range(2))
+        k, v = (torch.randn(300, 1, o, device="cuda") for _ in range(2))
+        mx, den, s_n = (torch.randn(260, 1, device="cuda") for _ in range(3))
+        num, dq = torch.empty_like(q), torch.empty_like(q)
+        m, s = torch.empty_like(mx), torch.empty_like(mx)
+        scratch = torch.empty(8 * n_edges, device="cuda")
+        code = S._call_on(
+            x.device, ES._lib().dot_softmax_f32,
+            *(S._ptr(t) for t in (ir, cr, q, k, v, num, m, s, raw, scratch)),
+            260, 1, o, o, n_edges, strips, 0, unroll, cap, 0.5, 1.0)
+        assert (code == 0) == ok, ("k6", o, strips, unroll, cap, code)
+        code = S._call_on(
+            x.device, ES._lib().dot_bwd_dq_f32,
+            *(S._ptr(t) for t in (ir, cr, q, k, v, mx, den, s_n, dy, raw, dq,
+                                  scratch)),
+            260, 1, o, o, n_edges, strips, 0, unroll, cap, 0.5, 1.0)
+        assert (code == 0) == ok, ("k7", o, strips, unroll, cap, code)
     torch.cuda.synchronize()
