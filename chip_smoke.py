@@ -11,8 +11,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    path's shape (N=131,072 nodes, E=2,000,000 edges, D=128, float32):
    K1 (``spmm_csr_f32``: every case a phase-3 path launches, each row
    naming the paths, EdgeConv's gather backward over ``[E, 128]`` edge rows
-   included) and K2 (``spmm_sddmm_csr_f32``, also at GAT's
-   per-head D=32 with dropped attention weights), forward and backward,
+   included) and K2 (``spmm_sddmm_csr_f32``, also at D=32 and 8 and at GAT
+   (b)'s H=4, D=32 in one launch with dropped attention weights), forward
+   and backward,
    with times (CUDA events), the plain version's time, a library
    yardstick (``torch.sparse.mm``) where one exists, and the least time the
    card could take (bytes over memory rate, operations over float32 rate).
@@ -55,7 +56,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    weighted backward K2); ``GNNChain(GATConv(128, 32, relu, heads=4),
    GATConv(128, 8, heads=1, concat=False))`` without attention dropout
    (3d: K3, K4, K5) and with dropout 0.6 in training mode (3e: K12, and K2
-   in its backward); ``GNNChain(GATv2Conv(128, 32, relu, heads=4),
+   in its backward, once per layer for all heads);
+   ``GNNChain(GATv2Conv(128, 32, relu, heads=4),
    GATv2Conv(128, 8, heads=1, concat=False))`` (3f: K9, K10, K11);
    ``GNNChain(TransformerConv(128, 32, heads=4), TransformerConv(128, 8,
    heads=1, concat=False))`` (3g: K6, K7, K8); ``GNNChain(Linear(128,
@@ -74,8 +76,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Transformer (3g, also with virtual self-loops and with edge features,
    whose route is K12), AGNN (3h) and the link step (3i) on the card
    against the same model on the CPU plain path in float64, and GAT's and
-   GATv2's attention with one set of dropout masks for both sides (K12, K2
-   per head); also EdgeConv (3j), graph classification (3k) with
+   GATv2's attention with one set of dropout masks for both sides (K12, and
+   K2 once for all heads); also EdgeConv (3j), graph classification (3k) with
    ``GlobalPool`` max and mean, ``GlobalAttentionPool``, ``Set2Set`` and
    ``TopKPool`` on the 3k batch, ``softmax_edge_neighbors`` at H=4 and
    ``GraphConv(aggr="max")`` on the main graph.
@@ -86,15 +88,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
-adds a ``torch.profiler`` breakdown of three train steps of GCN (3a), of
-GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j) and graph classification (3k), with K1's, K6's, K7's
-and K8's device time per step. ``--sweep`` times K1, K6, K7, K8, K14 and
-its backward at every layout (the measurement behind the wrappers'
-choices; each K1, K6, K7 and K8 layout held to the plain version first),
-K1's gather-rate ceiling at D=128, and K1, K6, K7 and K8 at every rows per
-warp on an R-MAT graph of skewed degrees; ``--only 2e,2f`` runs phase 1
-and the named kernel phases only, and prints no result line.
+adds a ``torch.profiler`` breakdown of three train steps of GCN (3a, 3b),
+of GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
+(3i), EdgeConv (3j) and graph classification (3k), with K1's, K2's, K6's,
+K7's, K8's and K11's device time per step. ``--sweep`` times K1, K2, K6,
+K7, K8, K11, K14 and its backward at every layout (the measurement behind
+the wrappers' choices; each K1, K2, K6, K7, K8 and K11 layout held to the
+plain version first), K1's gather-rate ceiling at D=128, and K1, K2, K6,
+K7, K8 and K11 at every rows per warp on an R-MAT graph of skewed degrees;
+``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
+and 3b, with ``--profile`` its profile: this script copied into an older
+checkout profiles that checkout's 3b), and prints no result line.
 """
 
 from __future__ import annotations
@@ -246,7 +250,8 @@ def device_ms(fn, calls: int = 20, retries: int = 3) -> float:
     that the host's time between launches is not counted. Per kernel name,
     its mean time times its launches per call (its records over ``calls``,
     rounded, at least 1): a record the profiler loses does not shrink the
-    sum. Each call's counts go to ``DEVICE_RECORDS``."""
+    sum. Each call's counts and per-kernel times go to
+    ``DEVICE_RECORDS``."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
@@ -263,7 +268,8 @@ def device_ms(fn, calls: int = 20, retries: int = 3) -> float:
             return device_ms(fn, calls, retries - 1)
         raise AssertionError("the profiler saw no device time")
     DEVICE_RECORDS.append({"calls": calls, "records": {
-        name[:60]: n for _, n, name in rows}})
+        name[:60]: n for _, n, name in rows}, "ms_per_call": {
+        name[:60]: ms / calls for ms, _, name in rows}})
     return sum(ms / n * max(1, round(n / calls)) for ms, n, _ in rows)
 
 
@@ -387,12 +393,16 @@ def kernel_phase(gnn, g, card: str) -> dict:
     dy8 = torch.randn(N, OUT_D, generator=gen, device=dev)
     e8 = torch.randn(E, OUT_D, generator=gen, device=dev)
     x7 = torch.randn(N, 7, generator=gen, device=dev)
-    # GAT (b)'s backward runs K2 per head at D=32 with w = mask * alpha:
-    # attention weights, about 60% of them dropped to 0
+    # GAT (b)'s backward runs K2 once for its H=4 heads of D=32 with w =
+    # mask * alpha: attention weights, about 60% of them dropped to 0 (the
+    # first port ran it once per head, the D=32 case)
     x32 = torch.randn(N, D // GAT_HEADS, generator=gen, device=dev)
     dy32 = torch.randn(N, D // GAT_HEADS, generator=gen, device=dev)
     w_alpha = (torch.rand(E, generator=gen, device=dev) / 8
                * ((torch.rand(E, generator=gen, device=dev) < 0.4) / 0.4))
+    w_alpha4 = (torch.rand(E, GAT_HEADS, generator=gen, device=dev) / 8
+                * ((torch.rand(E, GAT_HEADS, generator=gen, device=dev)
+                    < 0.4) / 0.4))
     ir, cr = g.indptr_r, g.col_r
     is_, cs, es = g.indptr_s, g.col_s, g.eid_s
     res = {"k1": {"err": 0.0, "variants": []}, "k2": {"err": 0.0,
@@ -471,23 +481,29 @@ def kernel_phase(gnn, g, card: str) -> dict:
             (is_, es, None, None, e128), lambda: torch.sparse.mm(s_eid, e128))
     del e128, s_eid
 
-    for d, xx, dd, ww in ((D, x, dy, w), (D // GAT_HEADS, x32, dy32, w_alpha),
-                          (OUT_D, x8, dy8, w)):
+    heads_d = (N, GAT_HEADS, D // GAT_HEADS)
+    for label, xx, dd, ww in (
+            (f"D={D}", x, dy, w), (f"D={D // GAT_HEADS}", x32, dy32, w_alpha),
+            (f"H={GAT_HEADS} D={D // GAT_HEADS} one launch",
+             x.view(heads_d), dy.view(heads_d), w_alpha4),
+            (f"D={OUT_D}", x8, dy8, w)):
         args = (is_, cs, es, ww, dd, xx)
         dx, dw = S.spmm_sddmm(*args)
         rdx, rdw = S.spmm_sddmm_plain(*args)
-        err = max(compare(f"K2 dx D={d}", dx, rdx),
-                  compare(f"K2 dw D={d}", dw, rdw))
+        err = max(compare(f"K2 dx {label}", dx, rdx),
+                  compare(f"K2 dw {label}", dw, rdw))
         res["k2"]["err"] = max(res["k2"]["err"], err)
-        # dy, x and dx rows; indptr, col, eid, w and dw entries
-        byt = 4 * (3 * N * d + (N + 1) + 4 * E)
-        b_ms, b_by = bound(byt, 4 * E * d, card)
+        h, d = ww.numel() // E, xx.shape[-1]
+        # dy, x and dx rows; indptr, col and eid entries; w and dw per
+        # edge and head
+        byt = 4 * (3 * N * h * d + (N + 1) + 2 * E + 2 * E * h)
+        b_ms, b_by = bound(byt, 4 * E * h * d, card)
         res["k2"]["variants"].append({
-            "case": f"bwd sender-CSR D={d}", "d": d,
+            "case": f"bwd sender-CSR {label}", "d": d, "heads": h,
             **timings(lambda: S.spmm_sddmm(*args),
                       lambda: S.spmm_sddmm_plain(*args)),
             "bound_ms": b_ms, "bound_by": b_by,
-            "no_reuse_bound_ms": (byt + 4 * (E - N) * d) / bw * 1e3,
+            "no_reuse_bound_ms": (byt + 4 * (E - N) * h * d) / bw * 1e3,
             "max_abs_err": err})
 
     # the autograd function end to end: forward K1, backward K2 / K1
@@ -1008,6 +1024,146 @@ def k1_sweep(g) -> dict:
     return out
 
 
+def _k2_cases(g, seed: int, exact: bool = False) -> list:
+    """K2's cases of phase 2 that phase 3 launches, on ``g``: ``(label,
+    args)`` with ``args`` as ``spmm_sddmm`` takes them. ``exact``: rows of
+    integers in [-8, 8] and weights 1 or 2, so that every sum (``dx``
+    over a row's edges, ``dw`` over a row's D floats) is of integers that
+    float32 holds exactly: any summation order gives the same bits."""
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    is_, cs, es = g.indptr_s, g.col_s, g.eid_s
+    n, e = g.num_nodes, g.num_edges
+
+    def rows(*shape):
+        if exact:
+            return torch.randint(-8, 9, shape, generator=gen,
+                                 device=dev).float()
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def weights(*shape):
+        if exact:
+            return torch.randint(1, 3, shape, generator=gen,
+                                 device=dev).float()
+        return torch.rand(*shape, generator=gen, device=dev) + 0.5
+
+    hd = (n, GAT_HEADS, D // GAT_HEADS)
+    return [(f"D={D} (3b layer 1)", (is_, cs, es, weights(e), rows(n, D),
+                                     rows(n, D))),
+            (f"H={GAT_HEADS} D={D // GAT_HEADS} (3e layer 1)",
+             (is_, cs, es, weights(e, GAT_HEADS), rows(*hd), rows(*hd))),
+            (f"D={OUT_D} (3b, 3e layer 2)",
+             (is_, cs, es, weights(e), rows(n, OUT_D), rows(n, OUT_D)))]
+
+
+def _k2_chosen(S, args):
+    indptr, col, dy, x = args[0], args[1], args[4], args[5]
+    d = x.shape[-1]
+    vec = d % 4 == 0
+    return S._spmm_sddmm_layout(d // 4 if vec else d, 16 if vec else 4,
+                                dy.shape[0], indptr.numel() - 1, col.numel(),
+                                1 if x.dim() == 2 else x.shape[1])
+
+
+def k2_sweep(g) -> list:
+    """K2 at every layout (rows per warp, strip width, gathers in flight per
+    edge group, register cap; narrower strips only for rows of 32 vectors,
+    as K1's sweep; weights and dots by sender-CSR position or by edge id)
+    at the cases phase 3 launches (:func:`_k2_cases`), each
+    held to the plain version at RTOL / ATOL before it is timed (device
+    ms): the measurement behind ``ops/cuda/spmm.py``'s ``_K2_*``
+    constants. Explicit layouts run from the sweep build."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    out = []
+    log("sweep: K2 layouts (device ms, profiler; log2 rows per warp, log2 "
+        "strip vectors, gathers in flight, register cap, by position)")
+    for label, args in _k2_cases(g, 21):
+        d = args[-1].shape[-1]
+        fv = d // 4 if d % 4 == 0 else d
+        log_g = min((fv - 1).bit_length(), 5)
+        chosen = _k2_chosen(S, args)
+        ref = S.spmm_sddmm_plain(*args)
+        for lay in [(log_rows, strip, unroll, cap, by_position)
+                    for by_position in (1, 0)
+                    for strip in ((3, 4, 5) if log_g == 5 else (log_g,))
+                    for log_rows in range(6 - strip)
+                    for unroll in (1, 2, 4, 8) for cap in (0, 64)]:
+            got = S._spmm_sddmm_kernel(*args, layout=lay)
+            err = max(compare(f"K2 {label} {lay} {nm}", a, b, quiet=True)
+                      for nm, a, b in zip(("dx", "dw"), got, ref))
+            row = {"case": label, "log_rows": lay[0], "log_strip": lay[1],
+                   "unroll": lay[2], "reg_cap": lay[3],
+                   "by_position": lay[4], "chosen": lay == chosen,
+                   "max_abs_err": err,
+                   "device_ms": device_ms(
+                       lambda: S._spmm_sddmm_kernel(*args, layout=lay))}
+            out.append(row)
+            log(f"  K2 {label:<22} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+        del ref, got
+    return out
+
+
+GATV2_SHAPES = ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D))
+
+
+def _k11_args(ES, g, h, o, gen):
+    """K11's arguments at (H, O) on ``g``: random q, k, dy, ``a`` at
+    Glorot's scale, and the row max, denominator and ``<out, dy>`` of the
+    forward K9 gives."""
+    dev, n = g.device, g.num_nodes
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    q, k, dy = rn(n, h, o), rn(n, h, o), rn(n, h, o)
+    a = rn(o, h) * (2.0 / (o + h)) ** 0.5
+    num, m, s = ES.gatv2_softmax(g.indptr_r, g.col_r, q, k, a, 0.2)
+    outp, mx, den = ES.finalize_softmax(num, m, s, rn(n, h), rn(n, h, o))
+    return (g.indptr_s, g.col_s, q, k, a, mx, den, (outp * dy).sum(-1), dy,
+            0.2)
+
+
+def k11_sweep(g) -> list:
+    """K11 at every layout (rows per warp, edges in flight per edge group,
+    register cap, the receivers' scalars packed or not; a packed call's
+    time includes its stack) the library's sweep build holds, at phase
+    2c's shapes,
+    each held to the plain version at RTOL / ATOL before it is timed
+    (device ms): the measurement behind ``ops/cuda/edge_softmax.py``'s
+    ``_K11_*`` constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(23)
+    out = []
+    log("sweep: K11 layouts (device ms, profiler; log2 rows per warp, edges "
+        "in flight, register cap, packed scalars)")
+    for h, o in GATV2_SHAPES:
+        args = _k11_args(ES, g, h, o, gen)
+        ref = ES.gatv2_bwd_rev_plain(*args)
+        hd = f"H={h} O={o}"
+        ov = o // 4
+        chosen = ES._gatv2_bwd_rev_layout(ov, 16, N, E)
+        for lay in [(log_rows, unroll, cap, packed) for packed in (0, 1)
+                    for log_rows in range(6 - min((ov - 1).bit_length(), 5))
+                    for unroll in (1, 2, 4) for cap in (0, 64)]:
+            err = compare(f"K11 {hd} {lay}",
+                          ES._gatv2_bwd_rev_kernel(*args, layout=lay), ref,
+                          quiet=True)
+            row = {"case": hd, "log_rows": lay[0], "unroll": lay[1],
+                   "reg_cap": lay[2], "packed": lay[3],
+                   "chosen": lay == chosen,
+                   "max_abs_err": err,
+                   "device_ms": device_ms(
+                       lambda: ES._gatv2_bwd_rev_kernel(*args, layout=lay))}
+            out.append(row)
+            log(f"  K11 {hd:<12} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+        del args, ref
+    return out
+
+
 K8_SWEEP_SHAPES = ((GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS),
                    (1, OUT_D, OUT_D), (1, D, D), (1, 2 * D, 2 * D))
 
@@ -1207,14 +1363,37 @@ def _recv_exact_args(g, h, o, d, gen):
     return fwd, bwd
 
 
+def _k11_exact_args(g, h, o, gen):
+    """K11's arguments at (H, O) on ``g`` whose every sum is exact in
+    float32: ``q[r] = c`` and ``k[s] = -c`` for one ``c`` in {-1, 0, 1}
+    per (head, feature) make every ``raw`` 0 (where leaky_relu's slope is
+    1) and every logit 0; ``mx = 0`` and ``den = 1`` make each alpha 1;
+    ``dy`` and ``a`` in {-1, 0, 1} and ``s_n`` in [-2, 2] make each term of
+    ``dk`` an integer of at most ``O + 3``, so rows of fewer than 2^16
+    edges sum exactly in any order. The memory traffic is that of real
+    inputs (nothing in K11 branches on values)."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    c = ri(-1, 1, 1, h, o)
+    q, k = c.expand(n, h, o).contiguous(), (-c).expand(n, h, o).contiguous()
+    mx, den = torch.zeros(n, h, device=dev), torch.ones(n, h, device=dev)
+    return (g.indptr_s, g.col_s, q, k, ri(-1, 1, o, h), mx, den,
+            ri(-2, 2, n, h), ri(-1, 1, n, h, o), 0.2)
+
+
 def skew_sweep(gnn) -> dict:
-    """K1, K8, K6 and K7 on :func:`rmat_graph` at every rows per warp, the
-    rest of the layout as the wrappers choose it, beside the wrapper's own
-    choice (the shipped build), each held to the plain version bit for bit
-    on inputs whose sums are exact (``_k1_cases(exact=True)``,
-    :func:`_k8_exact_args`, :func:`_recv_exact_args`): whether rows that
-    share a warp lose to one row per warp when a hub holds the warp to its
-    longest row."""
+    """K1, K8, K6, K7, K2 and K11 on :func:`rmat_graph` at every rows per
+    warp, the rest of the layout as the wrappers choose it, beside the
+    wrapper's own choice (the shipped build), each held to the plain
+    version bit for bit on inputs whose sums are exact
+    (``_k1_cases(exact=True)``, :func:`_k8_exact_args`,
+    :func:`_recv_exact_args`, ``_k2_cases(exact=True)``,
+    :func:`_k11_exact_args`): whether rows that share a warp lose to one
+    row per warp when a hub holds the warp to its longest row."""
     from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
@@ -1307,13 +1486,59 @@ def skew_sweep(gnn) -> dict:
                             for k, v in row["by_log_rows"].items()))
             del ref
         del fwd, bwd
+    out["k2"] = []
+    for label, args in _k2_cases(g, 22, exact=True):
+        ref = S.spmm_sddmm_plain(*args)
+        chosen = _k2_chosen(S, args)
+        for nm, a, b in zip(("dx", "dw"), S._spmm_sddmm_kernel(*args), ref):
+            same_bits(f"K2 R-MAT {label} chosen {nm}", a, b)
+        row = {"case": label, "chosen": chosen,
+               "device_ms": device_ms(lambda: S._spmm_sddmm_kernel(*args)),
+               "by_log_rows": {}}
+        for log_rows in range(6 - chosen[1]):
+            lay = (log_rows,) + chosen[1:]
+            for nm, a, b in zip(("dx", "dw"),
+                                S._spmm_sddmm_kernel(*args, layout=lay), ref):
+                same_bits(f"K2 R-MAT {label} {lay} {nm}", a, b)
+            row["by_log_rows"][log_rows] = device_ms(
+                lambda: S._spmm_sddmm_kernel(*args, layout=lay))
+        out["k2"].append(row)
+        log(f"  K2 {label:<22} chosen {chosen} {row['device_ms']:.4f} ms; "
+            + ", ".join(f"2^{k}: {v:.4f}"
+                        for k, v in row["by_log_rows"].items()))
+        del args, ref
+    gen = torch.Generator(device=g.device).manual_seed(24)
+    out["k11"] = []
+    for h, o in GATV2_SHAPES:
+        args = _k11_exact_args(g, h, o, gen)
+        ref = ES.gatv2_bwd_rev_plain(*args)
+        hd = f"H={h} O={o}"
+        chosen = ES._gatv2_bwd_rev_layout(o // 4, 16, N, E)
+        same_bits(f"K11 R-MAT {hd} chosen", ES._gatv2_bwd_rev_kernel(*args),
+                  ref)
+        row = {"case": hd, "chosen": chosen,
+               "device_ms": device_ms(
+                   lambda: ES._gatv2_bwd_rev_kernel(*args)),
+               "by_log_rows": {}}
+        for log_rows in range(6 - min((o // 4 - 1).bit_length(), 5)):
+            lay = (log_rows,) + chosen[1:]
+            same_bits(f"K11 R-MAT {hd} {lay}",
+                      ES._gatv2_bwd_rev_kernel(*args, layout=lay), ref)
+            row["by_log_rows"][log_rows] = device_ms(
+                lambda: ES._gatv2_bwd_rev_kernel(*args, layout=lay))
+        out["k11"].append(row)
+        log(f"  K11 {hd:<12} chosen {chosen} {row['device_ms']:.4f} ms; "
+            + ", ".join(f"2^{k}: {v:.4f}"
+                        for k, v in row["by_log_rows"].items()))
+        del args, ref
     return out
 
 
 def tuning_sweep(gnn, g, gb) -> dict:
-    """``--sweep``: the sweep build of K1's, K6's, K7's and K8's libraries
-    (every instance), :func:`k1_sweep`, :func:`k8_sweep`,
-    :func:`recv_sweep`, :func:`skew_sweep`, and
+    """``--sweep``: the sweep build of K1's, K2's, K6's, K7's, K8's and
+    K11's libraries (every instance), :func:`k1_sweep`, :func:`k2_sweep`,
+    :func:`k8_sweep`, :func:`k11_sweep`, :func:`recv_sweep`,
+    :func:`skew_sweep`, and
     the device time of K14 and its backward at every rows per warp the
     width allows, at phase 2f's shapes: the measurement behind
     ``ops/cuda/segment.py:_FWD_ENTRIES_PER_GROUP`` and
@@ -1332,7 +1557,8 @@ def tuning_sweep(gnn, g, gb) -> dict:
             if name.endswith("-sweep") and ("registers" in line
                                             or "spill" in line):
                 log(f"  ptxas {name}: {line.strip()}")
-    out = {**k1_sweep(g), "k8": k8_sweep(g), "k6_k7": recv_sweep(g),
+    out = {**k1_sweep(g), "k2": k2_sweep(g), "k8": k8_sweep(g),
+           "k11": k11_sweep(g), "k6_k7": recv_sweep(g),
            "skew": skew_sweep(gnn), "k14": []}
     log("sweep: K14 rows per warp (device ms, profiler)")
     for label, ip, f in (("receiver CSR F=4", g.indptr_r, GAT_HEADS),
@@ -1573,17 +1799,44 @@ def link_loss(pos, neg):
              + torch.nn.functional.logsigmoid(-neg).mean())
 
 
-def main_path_phase(g, profile: bool, out_dir) -> dict:
-    from graphneuralnetworks_tpu_torch import models as M, rand_graph
-    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
-
+def node_inputs(g):
+    """The node-level paths' inputs on ``g``: the graph with labels, the
+    features ``x [N, 128]``, the labels and the training mask."""
     dev = g.device
     x = torch.as_tensor(np.random.default_rng(0).standard_normal((N, D)),
                         dtype=torch.float32, device=dev)
     y = torch.as_tensor(np.random.default_rng(4).integers(0, OUT_D, N),
                         device=dev)
     g = g.with_nodes(y=y)
-    mask = g.node_mask
+    return g, x, y, g.node_mask
+
+
+def learned_weights_phase(g, x, y, mask, profile: bool):
+    """3b: the GCN of 3a with learned edge weights (K2 in both layers'
+    backward); returns its results, the model and the weights."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    log("phase 3b: the same GCN with learned edge weights "
+        f"(weighted backward), {STEPS} steps")
+    model_w = gcn(M, 1, g.device)
+    ew = torch.nn.Parameter(torch.ones(E, device=g.device))
+
+    def loss_w(m, g, x, y, mask):
+        return masked_cross_entropy(m(g, x, edge_weight=ew), y, mask)
+
+    res = train_phase("GCN learned edge weights", model_w, (g, x, y, mask),
+                      loss_w, {"k1": 2, "k2": 2}, profile,
+                      params=list(model_w.parameters()) + [ew])
+    return res, model_w, ew
+
+
+def main_path_phase(g, profile: bool, out_dir) -> dict:
+    from graphneuralnetworks_tpu_torch import models as M, rand_graph
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    dev = g.device
+    g, x, y, mask = node_inputs(g)
     res = {}
 
     log("phase 3a: GCN train step (GCNConv(128,128,relu) -> GCNConv(128,8), "
@@ -1596,17 +1849,8 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     res["gcn"] = train_phase("GCN", model, (g, x, y, mask), loss_fn,
                              {"k1": 3}, profile, trace_dir=out_dir)
 
-    log("phase 3b: the same GCN with learned edge weights "
-        f"(weighted backward), {STEPS} steps")
-    model_w = gcn(M, 1, dev)
-    ew = torch.nn.Parameter(torch.ones(E, device=dev))
-
-    def loss_w(m, g, x, y, mask):
-        return masked_cross_entropy(m(g, x, edge_weight=ew), y, mask)
-
-    res["gcn_learned_edge_weight"] = train_phase(
-        "GCN learned edge weights", model_w, (g, x, y, mask), loss_w,
-        {"k1": 2, "k2": 2}, False, params=list(model_w.parameters()) + [ew])
+    res["gcn_learned_edge_weight"], model_w, ew = learned_weights_phase(
+        g, x, y, mask, profile)
 
     log("phase 3c: one forward+backward on the card vs the CPU plain path")
     res["vs_cpu"] = {
@@ -1625,8 +1869,8 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
                              {"k3": 2, "k4": 2, "k5": 2}, profile)
 
     # GAT (b): attention dropout p=0.6 in training mode. Per step each
-    # layer launches K12 in the forward; its backward runs K2 once per head
-    # (4 + 1).
+    # layer launches K12 in the forward and K2, once for all its heads, in
+    # the backward.
     log(f"phase 3e: GAT train step with attention dropout 0.6 "
         f"(deterministic=False), {STEPS} steps")
     model_b = gat(M, 3, dev, dropout=0.6)
@@ -1640,7 +1884,7 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
 
     res["gat_dropout"] = train_phase(
         "GAT (b)", model_b, (g, x, y, mask), loss_drop,
-        {"k12": 2, "k2": GAT_HEADS + 1}, profile, eval_loss=eval_b)
+        {"k12": 2, "k2": 2}, profile, eval_loss=eval_b)
 
     log("phase 3c (GAT): one forward+backward of GAT (a) on the card "
         "(K3-K5) vs the CPU plain path")
@@ -1954,7 +2198,8 @@ def train_phase(name, model, args, loss_fn, per_step, profile, *,
            "median_ms_per_step": statistics.median(times),
            "launches": launches}
     if profile:
-        out["profile"] = profile_steps(model, args, loss_fn, trace_dir)
+        out["profile"] = profile_steps(model, args, loss_fn, trace_dir,
+                                       params)
     return out
 
 
@@ -1964,9 +2209,10 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
     self_values=x4, dropout_masks=...)`` on the card and on the CPU with the
     same inputs and masks: the forward and the gradient of every input, at
     both layers' (H, D); ``shapes(h, d)`` gives the five inputs' shapes.
-    The card side must launch K12 once and K2 once per head. The gradients
-    of the inputs in ``summed`` (GATv2's ``a``) sum one term per edge, as a
-    weight gradient does, and are compared by norm (GRAD_NORM_RTOL)."""
+    The card side must launch K12 once and K2 once, for all heads. The
+    gradients of the inputs in ``summed`` (GATv2's ``a``) sum one term per
+    edge, as a weight gradient does, and are compared by norm
+    (GRAD_NORM_RTOL)."""
     from graphneuralnetworks_tpu_torch.ops import attention
 
     fn = getattr(attention, fn_name)
@@ -1993,7 +2239,7 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
             results.append((y.detach().cpu(), [t.grad.cpu() for t in ts],
                             launched))
         (y, grads, launched), (yc, grads_c, launched_c) = results
-        if launched != {"k12": 1, "k2": h} or launched_c:
+        if launched != {"k12": 1, "k2": 1} or launched_c:
             raise AssertionError(f"{label} dropout attention H={h}: "
                                  f"launches card {launched}, CPU "
                                  f"{launched_c}")
@@ -2019,23 +2265,28 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
 
 
 # The device kernels of the hand-written kernels whose time a profiled step
-# reports on its own (by the kernels' names in csrc/): K6 and K7 launch
-# several passes in strips, told apart by the template argument 6 or 7.
+# reports on its own (by the kernels' names in csrc/): K2 launches a pass
+# before and after its sweep, K6 and K7 several passes in strips, told
+# apart by the template argument 6 or 7.
 STEP_KERNELS = {
     "k1": ("spmm_csr_kernel<",),
+    "k2": ("spmm_sddmm_csr_kernel<", "spmm_sddmm_weights_kernel",
+           "spmm_sddmm_sum_kernel"),
     "k6": ("dot_softmax_rows_kernel<", "dot_strip_dots_kernel<6,",
            "dot_strip_stats_kernel<6>", "dot_strip_spmm_kernel<6,"),
     "k7": ("dot_bwd_dq_rows_kernel<", "dot_strip_dots_kernel<7,",
            "dot_strip_stats_kernel<7>", "dot_strip_spmm_kernel<7,"),
     "k8": ("dot_bwd_rev_kernel<",),
+    "k11": ("gatv2_bwd_rev_kernel<",),
 }
 
 
-def profile_steps(model, args, loss_fn, out_dir) -> dict:
+def profile_steps(model, args, loss_fn, out_dir, params=None) -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
     from graphneuralnetworks_tpu_torch.training import make_train_step
 
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt = torch.optim.Adam(model.parameters() if params is None else params,
+                           lr=1e-3)
     step = make_train_step(model, opt, loss_fn)
     step(*args)
     torch.cuda.synchronize()
@@ -2177,13 +2428,13 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of the train step")
     ap.add_argument("--only", default=None, metavar="PHASES",
-                    help="run phase 1 and only these kernel phases, in this "
-                         "order (comma-separated, of 2,2b,2c,2d,2e,2f), then "
-                         "stop without a result line")
+                    help="run phase 1 and only these phases, in this order "
+                         "(comma-separated, of 2,2b,2c,2d,2e,2f and the "
+                         "train phase 3b), then stop without a result line")
     ap.add_argument("--sweep", action="store_true",
-                    help="after phase 2, time K1, K6, K7, K8, K14 and its "
-                         "backward at every layout, and K1's gather-rate "
-                         "ceiling")
+                    help="after phase 2, time K1, K2, K6, K7, K8, K11, K14 "
+                         "and its backward at every layout, and K1's "
+                         "gather-rate ceiling")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2229,9 +2480,13 @@ def main() -> int:
                      "2d": lambda: dot_phase(g, card),
                      "2e": lambda: sddmm_phase(g, card),
                      "2f": lambda: segment_phase(g, gb, card)}
-    kern = {}
+    kern, only_train = {}, {}
     for phase in (args.only.split(",") if args.only else kernel_phases):
-        kern.update(kernel_phases[phase]())
+        if phase == "3b":
+            only_train["3b"] = learned_weights_phase(*node_inputs(g),
+                                                     args.profile)[0]
+        else:
+            kern.update(kernel_phases[phase]())
     sweep = tuning_sweep(gnn, g, gb) if args.sweep else None
     if args.only:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, "
@@ -2241,6 +2496,7 @@ def main() -> int:
                 json.dump({"card": card_line, "torch": torch.__version__,
                            "cuda": torch.version.cuda, "build_s": build_s,
                            "kernels": kern, "sweep": sweep,
+                           "train": only_train,
                            "device_records": DEVICE_RECORDS}, f, indent=1)
         return 0
     main_res = main_path_phase(g, args.profile, args.out)

@@ -26,14 +26,15 @@
 // Edges are stored sorted by receiver, so a position of the receiver CSR is
 // the edge id; the sender CSR's col holds the receivers.
 //
-// Layout of the work (K3-K5, K9-K12; the dot kernels K6-K8 take rows and
-// strips of their own, see the dot section): one warp owns one (row, head)
-// pair, so all heads run in one launch and every output entry is written
-// once by one warp, in a fixed order, with no atomics. As in spmm.cu, a
-// head's D floats are split into vectors (float4 when D % 4 == 0 and the
-// pointers are 16-byte aligned), a warp splits into groups of G lanes (G =
-// the vector count, rounded up to a power of two, at most 32) that take
-// interleaved edges, and rows wider than 32 vectors loop over chunks. K3's
+// Layout of the work (K3-K5, K9, K10, K12; the dot kernels K6-K8 take rows
+// and strips of their own, see the dot section, and K11 takes K8's rows):
+// one warp owns one (row, head) pair, so all heads run in one launch and
+// every output entry is written once by one warp, in a fixed order, with
+// no atomics. As in spmm.cu, a head's D floats are split into vectors
+// (float4 when D % 4 == 0 and the pointers are 16-byte aligned), a warp
+// splits into groups of G lanes (G = the vector count, rounded up to a
+// power of two, at most 32) that take interleaved edges, and rows wider
+// than 32 vectors loop over chunks. K3's
 // and K12's softmax takes two passes over a row's edges: the row max of the
 // logits first (scalars only), then exp(logit - max), their sum and the
 // weighted sum of value rows. So no running rescale is needed, and the
@@ -629,85 +630,6 @@ gatv2_da_reduce_kernel(const float* __restrict__ da_part,
     acc += da_part[w * o + f];
   acc = warp_sum(acc);
   if (lane == 0) da[j] = acc;
-}
-
-// K11, replacing _gatv2_bwd_rev_kernel. Over the sender CSR, row s (col
-// holds the receivers r_e):
-//   dk[s] = sum_e dlg_e * a * lrelu'(raw_e) + alpha_e * dy[r_e]
-// the logit half and the value half (values are k) in one sum. k[s] stays
-// in registers; each gathered dy row feeds both <k[s], dy[r]> and the sum.
-template <typename V, int NC>
-__global__ void __launch_bounds__(kThreads)
-gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
-                     const int* __restrict__ col, const V* __restrict__ q,
-                     const V* __restrict__ k, const float* __restrict__ a,
-                     const float* __restrict__ mx,
-                     const float* __restrict__ den,
-                     const float* __restrict__ s_n, const V* __restrict__ dy,
-                     V* __restrict__ dk, int n_rows, int heads, int dv,
-                     int log_g, float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const Lanes L(log_g);
-  const long long sh = (long long)row * heads + h;
-  V kv[NC], av[NC], acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int f = L.sub + c * L.g;
-    const bool on = f < dv;
-    kv[c] = on ? k[sh * dv + f] : vzero<V>();
-    av[c] = on ? load_a<V>(a, f, heads, h) : vzero<V>();
-    acc[c] = vzero<V>();
-  }
-  const int beg = indptr[row], end = indptr[row + 1];
-  for (int base = beg; base < end; base += L.p) {
-    const int e = base + L.grp;
-    const bool valid = e < end;
-    V raw[NC], dyv[NC];
-    float plg = 0.f, pvd = 0.f, mxr = 0.f, denr = 1.f, snr = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      raw[c] = vzero<V>();
-      dyv[c] = vzero<V>();
-    }
-    if (valid) {
-      const long long rh = (long long)col[e] * heads + h;
-      mxr = mx[rh];
-      denr = den[rh];
-      snr = s_n[rh];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = L.sub + c * L.g;
-        if (f < dv) {
-          dyv[c] = dy[rh * dv + f];
-          raw[c] = vadd(q[rh * dv + f], kv[c]);
-          plg += vdot(av[c], lrelu(raw[c], slope));
-          pvd += vdot(kv[c], dyv[c]);
-        }
-      }
-    }
-    group_sum2(plg, pvd, L.g);
-    if (valid) {
-      const float alpha = expf(plg - mxr) / denr;
-      const float dlg = alpha * (pvd - snr);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        axpy_dlrelu(acc[c], dlg, av[c], raw[c], slope);
-        axpy(acc[c], alpha, dyv[c]);
-      }
-    }
-  }
-  for (int off = L.g; off < 32; off <<= 1) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) add_xor(acc[c], off);
-  }
-  if (L.grp == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int f = L.sub + c * L.g;
-      if (f < dv) dk[sh * dv + f] = acc[c];
-    }
-  }
 }
 
 // ---- dot attention: K6, K7, K8 ---------------------------------------------
@@ -1380,6 +1302,140 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
   });
 }
 
+// K11, replacing _gatv2_bwd_rev_kernel. Over the sender CSR, row s (col
+// holds the receivers r_e), head h:
+//   dk[s] = sum_e dlg_e * a * lrelu'(raw_e) + alpha_e * dy[r_e]
+// with raw_e = q[r_e] + k[s], alpha_e = exp(<a, lrelu(raw_e)> - mx[r]) /
+// den[r] and dlg_e = alpha_e * (<k[s], dy[r]> - s_n[r]): the logit half and
+// the value half (values are k) in one sum. K8's rows (see
+// dot_bwd_rev_kernel): heads in the grid's second dimension, so the
+// resident warps gather one head's slices of q and dy; R rows per warp, the
+// window of receiver indices loaded ahead; each group loads U edges'
+// receiver scalars, q and dy rows before it reduces any of their dots, and
+// reduces both dots of the U edges in one shuffle tree; the hub switch
+// (walk_rows). k[s] and a stay in registers. With stats, each receiver's
+// (mx, den, s_n) come packed as one float4 [rows, H, 4]: one 16-byte load
+// an edge in place of three 4-byte ones. The first port gave a (row,
+// head) pair a warp, heads interleaved in the grid, and waited on col[e],
+// then the receiver's scalars and rows, then the tree, one edge at a time.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
+                     const int* __restrict__ col, const V* __restrict__ q,
+                     const V* __restrict__ k, const float* __restrict__ a,
+                     const float* __restrict__ mx,
+                     const float* __restrict__ den,
+                     const float* __restrict__ s_n,
+                     const float4* __restrict__ stats,
+                     const V* __restrict__ dy, V* __restrict__ dk,
+                     int n_rows, int heads, int dv, int log_g, int log_rows,
+                     float slope) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  V av[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = sub + c * g;
+    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
+  }
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long sh = (long long)row * heads + h;
+    V kv[NC], acc[NC];
+    // k and dk stream past the L2 (evict-first), which keeps the head's
+    // slices of q and dy that the pass gathers from
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = sub + c * g;
+      kv[c] = live && f < dv ? __ldcs(k + sh * dv + f) : vzero<V>();
+      acc[c] = vzero<V>();
+    }
+    int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
+    for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+      const int nc =
+          w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
+      const int cnt = min(S.seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+        V raw[U][NC], dyg[U][NC];
+        float mxr[U], denr[U], snr[U], plg[U], pvd[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {   // the loads of U edges first
+          const int j = S.pos(j0, u);
+          const int r = __shfl_sync(kFull, c, S.holder(j));
+          ok[u] = live && j < S.seg && w0 + j < len;
+          const long long rh = (long long)r * heads + h;
+          if (stats) {   // one 16-byte load for the three (uniform)
+            const float4 st =
+                ok[u] ? stats[rh] : make_float4(0.f, 1.f, 0.f, 0.f);
+            mxr[u] = st.x;
+            denr[u] = st.y;
+            snr[u] = st.z;
+          } else {
+            mxr[u] = ok[u] ? mx[rh] : 0.f;
+            denr[u] = ok[u] ? den[rh] : 1.f;
+            snr[u] = ok[u] ? s_n[rh] : 0.f;
+          }
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            const int f = sub + cc * g;
+            raw[u][cc] = ok[u] && f < dv ? q[rh * dv + f] : vzero<V>();
+            dyg[u][cc] = ok[u] && f < dv ? dy[rh * dv + f] : vzero<V>();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          plg[u] = 0.f;
+          pvd[u] = 0.f;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            raw[u][cc] = vadd(raw[u][cc], kv[cc]);
+            plg[u] += vdot(av[cc], lrelu(raw[u][cc], slope));
+            pvd[u] += vdot(kv[cc], dyg[u][cc]);
+          }
+        }
+        for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            plg[u] += __shfl_xor_sync(kFull, plg[u], off);
+            pvd[u] += __shfl_xor_sync(kFull, pvd[u], off);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (!ok[u]) continue;
+          const float alpha = expf(plg[u] - mxr[u]) / denr[u];
+          const float dlg = alpha * (pvd[u] - snr[u]);
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            axpy_dlrelu(acc[cc], dlg, av[cc], raw[u][cc], slope);
+            axpy(acc[cc], alpha, dyg[u][cc]);
+          }
+        }
+      }
+      c = nc;
+    }
+    // the groups' lanes of one vector are G apart, within the row's lanes
+    for (int off = g; off < S.seg; off <<= 1) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) add_xor(acc[cc], off);
+    }
+    if (live && S.grp == 0) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int f = sub + cc * g;
+        if (f < dv) __stcs(dk + sh * dv + f, acc[cc]);
+      }
+    }
+  });
+}
+
 int log_group(int dv) {
   int lg = 0;
   while ((1 << lg) < dv && lg < 5) ++lg;
@@ -1443,22 +1499,6 @@ int launch_gatv2_bwd_dq(const int* indptr, const int* col, const float* q,
         reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dq),
         reinterpret_cast<V*>(da_part), n_rows, heads, dv, log_group(dv),
         slope);
-  });
-}
-
-template <typename V>
-int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
-                         const float* k, const float* a, const float* mx,
-                         const float* den, const float* s_n, const float* dy,
-                         float* dk, int n_rows, int heads, int dv, float slope,
-                         cudaStream_t st) {
-  const unsigned nb = blocks_for(n_rows, heads);
-  return with_chunks(dv, [&](auto nc) {
-    gatv2_bwd_rev_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const V*>(q),
-        reinterpret_cast<const V*>(k), a, mx, den, s_n,
-        reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dk), n_rows,
-        heads, dv, log_group(dv), slope);
   });
 }
 
@@ -1549,12 +1589,17 @@ int with_strip_instances(int unroll, int reg_cap, Go&& go) {
 }
 
 // The shipped instances, from chip_smoke.py --sweep (PERF.md §6), as
-// ops/cuda/edge_softmax.py's _DOT_* and _K8_* constants pick them: rows of
-// one register chunk take edges in flight at 64 registers (K8 2; K6 and
-// K7 4 for groups of a 128-byte line or more, 2 for narrower ones), wider
-// rows one edge, uncapped (two chunks of two edges at 64 registers
-// spill); strips 4 gathers in flight, uncapped.
+// ops/cuda/edge_softmax.py's _DOT_*, _K8_* and _K11_* constants pick them:
+// rows of one register chunk take edges in flight at 64 registers (K8 and
+// K11 2; K6 and K7 4 for groups of a 128-byte line or more, 2 for narrower
+// ones), wider rows one edge, uncapped (two chunks of two edges at 64
+// registers spill); strips 4 gathers in flight, uncapped.
 struct K8Pick {
+  static constexpr bool holds(int nc, int u, int cap) {
+    return nc == 1 ? u == 2 && cap == 64 : u == 1 && cap == 0;
+  }
+};
+struct K11Pick {
   static constexpr bool holds(int nc, int u, int cap) {
     return nc == 1 ? u == 2 && cap == 64 : u == 1 && cap == 0;
   }
@@ -1734,6 +1779,33 @@ int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
       });
 }
 
+// K11 in rows (see gatv2_bwd_rev_kernel), at the instances
+// with_row_instances holds.
+template <typename V>
+int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
+                         const float* k, const float* a, const float* mx,
+                         const float* den, const float* s_n,
+                         const float* stats, const float* dy, float* dk,
+                         int n_rows, int heads, int dv,
+                         int log_rows, int unroll, int reg_cap, float slope,
+                         cudaStream_t st) {
+  const int lg = log_group(dv);
+  if (!dot_layout_ok(lg, log_rows, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  return with_row_instances<K11Pick>(
+      dv, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        gatv2_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
+                             decltype(minb)::value>
+            <<<grid, kThreads, 0, st>>>(
+                indptr, col, reinterpret_cast<const V*>(q),
+                reinterpret_cast<const V*>(k), a, mx, den, s_n,
+                reinterpret_cast<const float4*>(stats),
+                reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dk),
+                n_rows, heads, dv, lg, log_rows, slope);
+      });
+}
+
 bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
   if (o % 4 != 0 || d % 4 != 0) return false;
   for (const void* p : rows)
@@ -1902,21 +1974,29 @@ int gatv2_da_reduce_f32(const float* da_part, float* da, int warps, int heads,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K11. Over the sender CSR of n_rows senders: dk [n_rows, H, d]. Widths as
-// K9.
+// K11. Over the sender CSR of n_rows senders: dk [n_rows, H, d]; q, mx,
+// den, s_n and dy are the receivers'. stats (NULL: none) packs mx, den and
+// s_n as [rows, H, 4] (the fourth unused), 16-byte aligned, read in their
+// place. Widths as K9. log_rows: log2 of the sender rows per warp; unroll:
+// the edges an edge group loads before it reduces them; reg_cap: 0 (none)
+// or 64 registers per thread (see with_row_instances and K11Pick for the
+// instances built).
 int gatv2_bwd_rev_f32(const int* indptr, const int* col, const float* q,
                       const float* k, const float* a, const float* mx,
-                      const float* den, const float* s_n, const float* dy,
-                      float* dk, int n_rows, int heads, int d, float slope,
-                      void* stream) {
+                      const float* den, const float* s_n, const float* stats,
+                      const float* dy, float* dk, int n_rows, int heads,
+                      int d, int log_rows, int unroll, int reg_cap,
+                      float slope, void* stream) {
+  if (!aligned16(stats)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(dy) &&
       aligned16(dk))
     return launch_gatv2_bwd_rev<float4>(indptr, col, q, k, a, mx, den, s_n,
-                                        dy, dk, n_rows, heads, d / 4, slope,
-                                        st);
-  return launch_gatv2_bwd_rev<float>(indptr, col, q, k, a, mx, den, s_n, dy,
-                                     dk, n_rows, heads, d, slope, st);
+                                        stats, dy, dk, n_rows, heads, d / 4,
+                                        log_rows, unroll, reg_cap, slope, st);
+  return launch_gatv2_bwd_rev<float>(indptr, col, q, k, a, mx, den, s_n,
+                                     stats, dy, dk, n_rows, heads, d,
+                                     log_rows, unroll, reg_cap, slope, st);
 }
 
 // K6. Over the receiver CSR of n_rows receivers and n_edges edges:

@@ -17,7 +17,8 @@ a CSR grouping (``csrc/edge_softmax.cu``):
   with the values ``k[s]``, one pass over each row's edges.
 - K10 ``gatv2_bwd_dq`` (receiver CSR: ``dq`` and ``da``, the latter in two
   launches, per-warp shares then a fixed-order sum) and K11
-  ``gatv2_bwd_rev`` (sender CSR: ``dk``): GATv2's backward.
+  ``gatv2_bwd_rev`` (sender CSR: ``dk``, in K8's rows:
+  :func:`_gatv2_bwd_rev_layout`): GATv2's backward.
 - K6 ``dot_softmax``: dot-product logits ``lrelu(scale <q[r], k[s]>)``
   (the plain dot when ``slope`` is None) with the values ``v[s]``, and
   each edge's raw logit where asked (K7's residual); K7 ``dot_bwd_dq``
@@ -31,8 +32,8 @@ a CSR grouping (``csrc/edge_softmax.cu``):
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
 self-loop folds in afterwards (:func:`finalize_softmax`). Five autograd
 functions sit on top: :func:`edge_softmax_aggregate` (edge values, eager
-backward), :func:`edge_softmax_aggregate_nodes` (node values; backward K2
-once per head), :func:`gat_attention_nodes` (backward K4 and K5),
+backward), :func:`edge_softmax_aggregate_nodes` (node values; backward one
+K2 for all heads), :func:`gat_attention_nodes` (backward K4 and K5),
 :func:`gatv2_attention_nodes` (forward K9, backward K10 and K11) and
 :func:`dot_attention_nodes` (forward K6, backward K7 and K8).
 
@@ -92,6 +93,17 @@ _MAX_VECTORS = 256
 _K8_WINDOWS_PER_ROW = 2
 _K8_UNROLL = 2
 _K8_REG_CAP = 64
+# K11 takes K8's rows (heads in the grid, rows per warp, edges in flight),
+# with its own (edges in flight, register cap) for rows of one register
+# chunk from the same sweep; wider rows one edge, uncapped. Edge groups
+# narrower than _K11_PACK_BELOW bytes read the receivers' mx, den and s_n
+# packed as one float4 each (an eager stack before the launch), one 16-byte
+# load an edge in place of three 4-byte ones: at (1, 8) 0.059 against 0.080
+# device-ms, the stack included; at (4, 32) the stack costs more than the
+# loads save (PERF.md §6).
+_K11_UNROLL = 2
+_K11_REG_CAP = 64
+_K11_PACK_BELOW = 128
 _DOT_ROWS_LINE = (4, 64)
 _DOT_ROWS_NARROW = (2, 64)
 _DOT_STRIP_BYTES = 16 * 2**20
@@ -110,7 +122,7 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
                                     ("gatv2_softmax_f32", 8, 3, 1),
                                     ("gatv2_bwd_dq_f32", 11, 4, 1),
                                     ("gatv2_da_reduce_f32", 2, 3, 0),
-                                    ("gatv2_bwd_rev_f32", 10, 3, 1),
+                                    ("gatv2_bwd_rev_f32", 11, 6, 1),
                                     ("dot_softmax_f32", 10, 9, 2),
                                     ("dot_bwd_dq_f32", 12, 9, 2),
                                     ("dot_bwd_rev_f32", 11, 7, 2)):
@@ -554,15 +566,46 @@ def _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope):
     return dq, da
 
 
-def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+def _gatv2_bwd_rev_layout(ov: int, vec_bytes: int, n_rows: int,
+                          entries: int) -> tuple[int, int, int, int]:
+    """K11's ``(log_rows, unroll, reg_cap, packed)`` for a head of ``ov``
+    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
+    n_rows`` edges per sender on average: K8's rows per warp
+    (:func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K8_WINDOWS_PER_ROW``); ``_K11_UNROLL`` edges in flight at
+    ``_K11_REG_CAP`` registers for rows of one register chunk (at most 32
+    vectors), one edge and no cap for wider rows; the receivers' scalars
+    packed for groups narrower than ``_K11_PACK_BELOW`` bytes."""
+    log_g = min((max(ov, 1) - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
+    packed = int(vec_bytes << log_g < _K11_PACK_BELOW)
+    if ov <= 32:
+        return log_rows, _K11_UNROLL, _K11_REG_CAP, packed
+    return log_rows, 1, 0, packed
+
+
+def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
+                          layout=None):
+    """K11 at :func:`_gatv2_bwd_rev_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap, packed)``) from the sweep build of the
+    library, which holds every (unroll, reg_cap) instance (``build.load``).
+    ``packed`` stacks the receivers' ``(mx, den, s_n)`` into ``[rows, H,
+    4]`` for the kernel to read in one load an edge."""
     device, args = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy)
     n, heads, d = indptr.numel() - 1, k.shape[1], k.shape[2]
     _same_rows(n, k=k)
     dk = torch.empty((n, heads, d), dtype=torch.float32, device=device)
     if n == 0 or heads == 0 or d == 0:
         return dk
-    _launch("gatv2_bwd_rev_f32", "k11", device, *args, _ptr(dk), n, heads,
-            d, float(slope))
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(d, q, k, dy, dk)
+        layout = _gatv2_bwd_rev_layout(_vectors(d, vec), 16 if vec else 4, n,
+                                       col.numel())
+    stats = torch.stack((mx, den, s_n, mx), -1) if layout[3] else None
+    _launch("gatv2_bwd_rev_f32", "k11", device, *args[:8], _ptr(stats),
+            args[8], _ptr(dk), n, heads, d, *layout[:3], float(slope),
+            sweep=sweep)
     return dk
 
 
@@ -876,8 +919,8 @@ class EdgeSoftmaxFunction(torch.autograd.Function):
 
 class EdgeSoftmaxNodesFunction(torch.autograd.Function):
     """Softmax over in-edges and sum of the senders' NODE values; K12
-    forward. Backward: per head, one K2 sweep over the sender CSR with
-    ``w = mask * alpha`` gives both ``dv[:, h]`` and the per-edge
+    forward. Backward: one K2 sweep over the sender CSR, every head in one
+    launch, with ``w = mask * alpha`` gives both ``dv`` and the per-edge
     ``<v[s_e], dy[r_e]>`` of the logit gradient (edge_softmax.py:1756)."""
 
     @staticmethod
@@ -899,19 +942,13 @@ class EdgeSoftmaxNodesFunction(torch.autograd.Function):
         (logits, values_n, self_logits, self_values, mask_e, mask_self, out,
          mx, den, indptr_s, col_s, eid_s, r) = ctx.saved_tensors
         alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r)
+        dy, m_alpha = _contiguous(dy, m_alpha)
         s_n = (out * dy).sum(-1)
-        dv, dots = [], []
-        for h in range(logits.shape[1]):
-            dx, dw = spmm_sddmm(indptr_s, col_s, eid_s, m_alpha[:, h].contiguous(),
-                                dy[:, h].contiguous(),
-                                values_n[:, h].contiguous())
-            dv.append(dx)
-            dots.append(dw)
-        dl = (m_alpha * torch.stack(dots, 1)
-              - alpha * s_n.index_select(0, r))
+        dv, dots = spmm_sddmm(indptr_s, col_s, eid_s, m_alpha, dy, values_n)
+        dl = m_alpha * dots - alpha * s_n.index_select(0, r)
         dsl, dsv = _self_grads(self_logits, self_values, mask_self, mx, den,
                                s_n, dy)
-        return (dl, torch.stack(dv, 1), dsl, dsv) + (None,) * 8
+        return (dl, dv, dsl, dsv) + (None,) * 8
 
 
 class GatAttentionFunction(torch.autograd.Function):

@@ -12,8 +12,11 @@ their rows (``csrc/spmm.cu``):
   each edge group issues several gathers before it adds them
   (:func:`_spmm_layout`).
 - K2 ``spmm_sddmm``: over the sender CSR, ``dx[s] = sum w_e * dy[r_e]`` and
-  ``dw_e = <dy[r_e], x[s]>`` in one sweep: the weighted backward; one warp
-  per row.
+  ``dw_e = <dy[r_e], x[s]>`` in one sweep: the weighted backward, every
+  head of rows of ``[., H, D]`` in one launch. K1's walk, strips and rows
+  per warp (:func:`_spmm_sddmm_layout`); the dots of several strips or
+  heads go through scratch by sender-CSR position, and a pass after the
+  sweep adds them and writes them by edge id.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``spmm_plain`` / ``spmm_sddmm_plain``); a CUDA tensor launches the kernel
@@ -45,12 +48,20 @@ _INT32_MAX = 2**31 - 1
 # the index windows a row's lanes take on average (fixes the rows per warp,
 # :func:`_windowed_rows`), and the gathers an edge group issues before it
 # adds them with the register cap (0: none), for groups of fewer than 128
-# bytes and for the others.
+# bytes and for the others. K2 takes K1's strips and rows per warp (two
+# strips of 256 bytes beat four of 128 by 4 % at D = 128 on the uniform
+# graph and lost by a quarter on R-MAT, where a hub's warp walks each
+# strip: PERF.md §6), (gathers in flight, register cap) of its own, and
+# reads its weights and writes its dots by sender-CSR position
+# (csrc/spmm.cu) for several heads; one head takes them by edge id (0.8 %
+# faster at D = 128, a third at D = 8).
 _K1_STRIP_BYTES = 16 * 2**20
 _K1_LINE_BYTES = 128
 _K1_WINDOWS_PER_ROW = 2
 _K1_NARROW = (2, 0)
 _K1_WIDE = (8, 64)
+_K2_NARROW = (2, 0)
+_K2_WIDE = (4, 64)
 
 
 @functools.cache
@@ -59,7 +70,7 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.spmm_csr_f32.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.spmm_csr_f32.restype = i32
-    lib.spmm_sddmm_csr_f32.argtypes = [ptr] * 8 + [i32, i32, ptr]
+    lib.spmm_sddmm_csr_f32.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
     lib.spmm_sddmm_csr_f32.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
@@ -104,19 +115,18 @@ def _windowed_rows(log_group: int, n_rows: int, entries: int,
     return 5 - min(5, max(log_group, log_seg))
 
 
-def _spmm_layout(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
-                 entries: int) -> tuple[int, int, int, int]:
-    """K1's ``(log_rows, log_strip, unroll, reg_cap)`` for rows of ``fv``
-    vectors of ``vec_bytes`` (16: float4, 4: float) gathered from a table
-    of ``table_rows`` rows, over ``n_rows`` output rows of ``entries /
-    n_rows`` edges on average.
+def _strip_rows(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
+                entries: int) -> tuple[int, int]:
+    """K1's and K2's ``(log_rows, log_strip)`` for rows of ``fv`` vectors of
+    ``vec_bytes`` (16: float4, 4: float) gathered from a table of
+    ``table_rows`` rows, over ``n_rows`` output rows of ``entries / n_rows``
+    edges on average.
 
     Strip: the row's whole ``G`` vectors when the table fits in
     ``_K1_STRIP_BYTES``, else the widest power of two of vectors, down to
     one ``_K1_LINE_BYTES`` line, whose slice of the table fits; whole rows
     again when not even that fits (nothing for the L2 to keep). Rows per
-    warp: :func:`_windowed_rows` for groups of one strip. ``_K1_WIDE``
-    (unroll, reg_cap) for groups of a line or more, else ``_K1_NARROW``."""
+    warp: :func:`_windowed_rows` for groups of one strip."""
     log_g = min((fv - 1).bit_length(), 5)
     log_line = max(0, (_K1_LINE_BYTES // vec_bytes - 1).bit_length())
     log_strip = log_g
@@ -125,10 +135,35 @@ def _spmm_layout(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
         log_strip -= 1
     if table_rows * vec_bytes << log_strip > _K1_STRIP_BYTES:
         log_strip = log_g
-    unroll, cap = (_K1_WIDE if vec_bytes << log_strip >= _K1_LINE_BYTES
-                   else _K1_NARROW)
     return (_windowed_rows(log_strip, n_rows, entries, _K1_WINDOWS_PER_ROW),
-            log_strip, unroll, cap)
+            log_strip)
+
+
+def _spmm_layout(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
+                 entries: int) -> tuple[int, int, int, int]:
+    """K1's ``(log_rows, log_strip, unroll, reg_cap)``: :func:`_strip_rows`,
+    and ``_K1_WIDE`` (unroll, reg_cap) for groups of a line or more, else
+    ``_K1_NARROW``."""
+    log_rows, log_strip = _strip_rows(fv, vec_bytes, table_rows, n_rows,
+                                      entries)
+    wide = vec_bytes << log_strip >= _K1_LINE_BYTES
+    return (log_rows, log_strip) + (_K1_WIDE if wide else _K1_NARROW)
+
+
+def _spmm_sddmm_layout(fv: int, vec_bytes: int, table_rows: int,
+                       n_rows: int, entries: int, heads: int = 1
+                       ) -> tuple[int, int, int, int, int]:
+    """K2's ``(log_rows, log_strip, unroll, reg_cap, by_position)`` for
+    ``heads`` heads of ``fv`` vectors gathered from ``table_rows`` rows of
+    ``dy``: K1's strip and rows per warp (:func:`_strip_rows`; heads run
+    one after the other, so one head's slice is the table), ``_K2_WIDE``
+    (unroll, reg_cap) for groups of a line or more, else ``_K2_NARROW``; by
+    position for more than one head."""
+    log_rows, log_strip = _strip_rows(fv, vec_bytes, table_rows, n_rows,
+                                      entries)
+    wide = vec_bytes << log_strip >= _K1_LINE_BYTES
+    return ((log_rows, log_strip) + (_K2_WIDE if wide else _K2_NARROW)
+            + (int(heads > 1),))
 
 
 def _raise_on_error(lib, code: int, what: str) -> None:
@@ -194,6 +229,8 @@ def spmm_plain(indptr, col, eid, w, x):
 def spmm_sddmm_plain(indptr, col, eid, w, dy, x):
     """Over a sender CSR: ``(dx, dw)`` with ``dx[s] = sum w_e dy[col_e]`` and
     ``dw[eid_e] = <dy[col_e], x[s]>`` (unweighted). ``dx`` has ``x``'s rows.
+    Rows of ``[., H, D]`` take it per head, with ``w`` and ``dw`` ``[E,
+    H]``; rows of ``[., D]`` with ``[E]``.
     """
     n_edges = col.numel()
     rows = _row_ids(indptr, n_edges)
@@ -204,7 +241,7 @@ def spmm_sddmm_plain(indptr, col, eid, w, dy, x):
         dyv.dtype).unsqueeze(-1)
     dx = x.new_zeros(x.shape).index_add_(0, rows, scaled)
     dots = (dyv * x.index_select(0, rows)).sum(-1)
-    dw = dots.new_empty(n_edges).index_copy_(0, ids, dots)
+    dw = dots.new_empty(dots.shape).index_copy_(0, ids, dots)
     return dx, dw
 
 
@@ -233,22 +270,61 @@ def _spmm_csr_kernel(indptr, col, eid, w, x, layout=None):
     return y
 
 
-def _spmm_sddmm_kernel(indptr, col, eid, w, dy, x):
-    _check_launch(indptr, col, eid, w, dy, x)
-    n_rows, d = indptr.numel() - 1, x.shape[1]
-    if x.shape[0] != n_rows or dy.shape[1] != d:
-        raise ValueError(f"x {tuple(x.shape)} / dy {tuple(dy.shape)} do not "
-                         f"match a sender CSR of {n_rows} rows")
+def _check_sddmm(indptr, col, eid, w, dy, x) -> int:
+    """K2's operands: float32 rows ``dy``, ``x`` of one shape past the first
+    dimension, ``[., D]`` or ``[., H, D]``; ``w`` ``[E]`` or ``[E, H]`` to
+    match, or None; int32 CSR; all contiguous on one device. Returns H."""
+    device = x.device
+    if x.dim() not in (2, 3) or dy.shape[1:] != x.shape[1:]:
+        raise ValueError(f"dy {tuple(dy.shape)} and x {tuple(x.shape)} must "
+                         "be [rows, D] or [rows, H, D] alike")
+    for name, t in (("dy", dy), ("x", x), ("w", w)):
+        _check(t, name, torch.float32, device)
+    for name, t in (("indptr", indptr), ("col", col), ("eid", eid)):
+        _check(t, name, torch.int32, device)
+    if w is not None and w.shape != (col.numel(),) + x.shape[1:-1]:
+        raise ValueError(f"w must be {(col.numel(),) + x.shape[1:-1]}, got "
+                         f"{tuple(w.shape)}")
+    if col.numel() > _INT32_MAX:
+        raise ValueError("the CUDA kernels index edges with int32: at most "
+                         f"{_INT32_MAX} edges")
+    return 1 if x.dim() == 2 else x.shape[1]
+
+
+def _spmm_sddmm_kernel(indptr, col, eid, w, dy, x, layout=None):
+    """K2 at :func:`_spmm_sddmm_layout`'s layout, or at ``layout``
+    (``(log_rows, log_strip, unroll, reg_cap, by_position)``) from the sweep
+    build of the library, which holds every (unroll, reg_cap) instance
+    (``build.load``). Scratch: by position, ``H * strips * E`` floats for
+    the dots of every strip and ``H * E`` for the weights; else the dots'
+    where a head spans several strips."""
+    heads = _check_sddmm(indptr, col, eid, w, dy, x)
+    n_rows, d, n_edges = indptr.numel() - 1, x.shape[-1], col.numel()
+    if x.shape[0] != n_rows:
+        raise ValueError(f"x {tuple(x.shape)} does not match a sender CSR "
+                         f"of {n_rows} rows")
     dx = torch.empty_like(x)
-    dw = torch.empty(col.numel(), dtype=torch.float32, device=x.device)
-    if n_rows == 0 or col.numel() == 0:
+    dw = torch.empty((n_edges,) + x.shape[1:-1], dtype=torch.float32,
+                     device=x.device)
+    if n_rows == 0 or n_edges == 0 or heads == 0:
         return dx.zero_(), dw
     if d == 0:
         return dx, dw.zero_()
-    lib = _lib()
+    vec = _float4_rows(d, dy, x, dx)
+    fv = d // 4 if vec else d
+    lib = _lib(sweep=layout is not None)
+    if layout is None:
+        layout = _spmm_sddmm_layout(fv, 16 if vec else 4, dy.shape[0], n_rows,
+                                    n_edges, heads)
+    strips = -(-fv >> layout[1])
+    parts = (strips + (w is not None) if layout[4] else
+             strips if strips > 1 else 0)
+    scratch = (torch.empty(heads * parts * n_edges, dtype=torch.float32,
+                           device=x.device) if parts else None)
     code = _call_on(x.device, lib.spmm_sddmm_csr_f32, _ptr(indptr),
                     _ptr(col), _ptr(eid), _ptr(w), _ptr(dy), _ptr(x),
-                    _ptr(dx), _ptr(dw), n_rows, d)
+                    _ptr(dx), _ptr(dw), _ptr(scratch), n_rows, heads, d,
+                    n_edges, int(vec), *layout)
     launches["k2"] += 1
     _raise_on_error(lib, code, "spmm_sddmm_csr_f32")
     return dx, dw
@@ -268,7 +344,10 @@ def spmm_csr(indptr, col, eid, w, x):
 
 
 def spmm_sddmm(indptr, col, eid, w, dy, x):
-    """K2 on CUDA tensors, :func:`spmm_sddmm_plain` on CPU tensors."""
+    """K2 on CUDA tensors, :func:`spmm_sddmm_plain` on CPU tensors: ``(dx,
+    dw)`` over a sender CSR, for rows ``dy``, ``x`` of ``[., D]`` (``w``,
+    ``dw``: ``[E]``) or ``[., H, D]`` (``[E, H]``, every head in one
+    launch)."""
     if _route(x) == "cpu":
         return spmm_sddmm_plain(indptr, col, eid, w, dy, x)
     return _spmm_sddmm_kernel(indptr, col, eid, w, dy, x)

@@ -1,18 +1,23 @@
-"""The layouts of K1 (``spmm_csr_f32``), K6 (``dot_softmax_f32``), K7
-(``dot_bwd_dq_f32``) and K8 (``dot_bwd_rev_f32``): their choosers, the
-wrappers passing a layout through, and (``gpu``-marked) every layout on the
-card against the plain versions.
+"""The layouts of K1 (``spmm_csr_f32``), K2 (``spmm_sddmm_csr_f32``), K6
+(``dot_softmax_f32``), K7 (``dot_bwd_dq_f32``), K8 (``dot_bwd_rev_f32``) and
+K11 (``gatv2_bwd_rev_f32``): their choosers, the wrappers passing a layout
+through, and (``gpu``-marked) every layout on the card against the plain
+versions.
 
 - CPU: :func:`~ops.cuda.spmm._spmm_layout`,
-  :func:`~ops.cuda.edge_softmax._dot_recv_layout` and
-  :func:`~ops.cuda.edge_softmax._dot_bwd_rev_layout` give a layout the
+  :func:`~ops.cuda.spmm._spmm_sddmm_layout`,
+  :func:`~ops.cuda.edge_softmax._dot_recv_layout`,
+  :func:`~ops.cuda.edge_softmax._dot_bwd_rev_layout` and
+  :func:`~ops.cuda.edge_softmax._gatv2_bwd_rev_layout` give a layout the
   kernels take for every width, head count and mean row length, empty
   graphs included; the wrappers hand that layout (or the caller's) to the
-  library call unchanged, with the scratch a strip layout needs.
+  library call unchanged, with the scratch a strip layout needs; K2's
+  plain version takes heads as its per-head loop does.
 - ``gpu``: each layout the sweep runs, on a graph with empty rows, a row of
   more than 32 edges and a row of more than 1024, against ``spmm_plain``,
-  ``dot_softmax_plain``, ``dot_bwd_dq_plain`` and ``dot_bwd_rev_plain``;
-  two runs of each kernel give the same bits.
+  ``spmm_sddmm_plain``, ``dot_softmax_plain``, ``dot_bwd_dq_plain``,
+  ``dot_bwd_rev_plain`` and ``gatv2_bwd_rev_plain``; two runs of each
+  kernel give the same bits.
   This file imports no JAX, so on a machine with a card and no JAX it runs
   without the suite's conftest:
 
@@ -119,6 +124,82 @@ def test_dot_bwd_rev_layout_at_the_measured_shapes():
     assert ES._dot_bwd_rev_layout(64, 64, n, e) == (0, 1, 0)
 
 
+@pytest.mark.parametrize("mean", MEAN_ROW_LENGTHS)
+def test_spmm_sddmm_layout_is_valid_for_every_width(mean):
+    """K2's chooser: K1's strip and rows per warp; an (unroll, reg_cap)
+    pair the shipped library holds for the group's width; the weights and
+    dots by sender-CSR position for more than one head. For tables small
+    and large, one head and four, empty graphs included."""
+    for n_rows in (0, 1, 7, 131_072):
+        entries = round(mean * n_rows)
+        for table_rows in {n_rows, entries, 2_000_000}:
+            for width in range(1, 1025):
+                for fv, vb in {(width, 4), (max(1, width // 4), 16)}:
+                    k1 = S._spmm_layout(fv, vb, table_rows, n_rows, entries)
+                    for heads in (1, 4):
+                        rows, strip, unroll, cap, by_position = (
+                            S._spmm_sddmm_layout(fv, vb, table_rows, n_rows,
+                                                 entries, heads))
+                        assert (rows, strip) == k1[:2]
+                        line = vb << strip >= 128
+                        assert (unroll, cap) == (S._K2_WIDE if line else
+                                                 S._K2_NARROW)
+                        assert by_position == int(heads > 1)
+
+
+@pytest.mark.parametrize("fv,vec_bytes,heads,want", [
+    (32, 16, 1, (2, 3, 4, 64, 0)),   # D=128: 4 strips of a line
+    (8, 16, 4, (2, 3, 4, 64, 1)),    # GAT (b) H=4, D=32: a head whole
+    (2, 16, 1, (2, 1, 2, 0, 0)),     # D=8: whole rows, dots by edge id
+    (7, 4, 1, (2, 3, 2, 0, 0)),      # D=7, floats
+    (129, 4, 1, (0, 5, 4, 64, 0)),   # floats: 5 strips of a line
+])
+def test_spmm_sddmm_layout_at_the_measured_shapes(fv, vec_bytes, heads,
+                                                  want):
+    """The layouts K2 takes at N = 131,072, E = 2M (15.3 edges a row), from
+    chip_smoke.py --sweep at D = 128, (4, 32) and 8: K1's strips (one line
+    where a head's table exceeds 16 MB, else whole heads), 4 gathers in
+    flight at 64 registers for a line, the weights and dots by sender-CSR
+    position for several heads, by edge id for one."""
+    assert S._spmm_sddmm_layout(fv, vec_bytes, 131_072, 131_072, 2_000_000,
+                                heads) == want
+
+
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_gatv2_bwd_rev_layout_is_valid(n_rows, mean):
+    """K11's chooser: K8's rows per warp for the head's G lanes, (U, cap)
+    an instance the shipped library holds (rows of one register chunk
+    ``(_K11_UNROLL, _K11_REG_CAP)``, wider ones one edge uncapped) and the
+    receivers' scalars packed for edge groups narrower than a 128-byte
+    line, for every width up to 256 vectors of float4 or float, at each
+    mean row length and for an empty graph."""
+    for vec_bytes in (4, 16):
+        for ov in range(1, 257):
+            log_rows, unroll, cap, packed = ES._gatv2_bwd_rev_layout(
+                ov, vec_bytes, n_rows, round(mean * n_rows))
+            assert packed == int(vec_bytes << _log_g(ov) < 128)
+            assert 0 <= log_rows <= 5 - _log_g(ov)
+            assert log_rows == ES._dot_bwd_rev_layout(
+                ov, ov, n_rows, round(mean * n_rows))[0]
+            assert (unroll, cap) == ((ES._K11_UNROLL, ES._K11_REG_CAP)
+                                     if ov <= 32 else (1, 0))
+
+
+def test_gatv2_bwd_rev_layout_at_the_measured_shapes():
+    """GATv2 layer 1 (H=4, O=32: 8 float4 vectors a head) and its head
+    layer (H=1, O=8: 2 vectors) take 4 rows per warp, (1, 128) one row per
+    warp, each with the sweep's fastest edges in flight and register cap;
+    rows of 64 vectors one edge at a time, uncapped. The head layer's
+    32-byte groups read the receivers' scalars packed."""
+    n, e = 131_072, 2_000_000
+    assert ES._gatv2_bwd_rev_layout(8, 16, n, e) == (2, 2, 64, 0)
+    assert ES._gatv2_bwd_rev_layout(2, 16, n, e) == (2, 2, 64, 1)
+    assert ES._gatv2_bwd_rev_layout(32, 16, n, e) == (0, 2, 64, 0)
+    assert ES._gatv2_bwd_rev_layout(64, 16, n, e) == (0, 1, 0, 0)
+    assert ES._gatv2_bwd_rev_layout(7, 4, n, e) == (2, 2, 64, 1)
+
+
 def test_sweep_build_is_a_library_of_its_own():
     """The sweep build of a source compiles with ``-DGNN_SWEEP`` into a
     library of another name, so the shipped one never holds its extra
@@ -210,6 +291,127 @@ def test_dot_bwd_rev_wrapper_passes_the_layout(monkeypatch, heads, o, d):
     assert all(c[0] == "dot_bwd_rev_f32" for c in calls)
     assert all(c[1][11:15] == (40, heads, o, d) for c in calls)
     assert ES.launches["k8"] == before + 2
+
+
+def _csr(rng, n_rows, n_cols, empty_every=0):
+    """A random CSR of ``n_rows`` rows of 0-29 edges into ``n_cols``
+    columns (every ``empty_every``-th row empty), int32 on the CPU."""
+    counts = rng.integers(0, 30, n_rows)
+    if empty_every:
+        counts[::empty_every] = 0
+    indptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                          dtype=torch.int32)
+    col = torch.tensor(rng.integers(0, n_cols, int(indptr[-1])),
+                       dtype=torch.int32)
+    return indptr, col
+
+
+@pytest.mark.parametrize("heads,d", [(4, 32), (1, 8), (3, 7)])
+def test_spmm_sddmm_wrapper_passes_the_layout(monkeypatch, heads, d):
+    """``_spmm_sddmm_kernel`` passes ``_spmm_sddmm_layout``'s choice to the
+    shipped library, or the caller's layout to the sweep build, as the last
+    five integers before the stream, after ``(rows, H, D, E, float4)``.
+    Scratch: by position ``H * (strips + 1) * E`` floats with weights, ``H
+    * strips * E`` without; else ``H * strips * E`` where strips split a
+    head, none for one strip a head. One head takes rows of ``[., D]``."""
+    libs = _fake_launches(monkeypatch, S)
+    rng = np.random.default_rng(heads * 10 + d)
+    indptr, col = _csr(rng, 40, 50)
+    n_edges = col.numel()
+    eid = torch.tensor(rng.permutation(n_edges), dtype=torch.int32)
+    shape = (heads, d) if heads > 1 else (d,)
+    dy, x = torch.randn(50, *shape), torch.randn(40, *shape)
+    w = torch.rand(n_edges, *shape[:-1])
+    allocs = []
+    empty = torch.empty
+    monkeypatch.setattr(S.torch, "empty", lambda *a, **kw: allocs.append(
+        a[0]) or empty(*a, **kw))
+    before = S.launches["k2"]
+    dx, dw = S._spmm_sddmm_kernel(indptr, col, eid, w, dy, x)
+    assert dx.shape == x.shape and dw.shape == (n_edges,) + shape[:-1]
+    scratch = [allocs[1:]]
+    layouts = [(1, 0, 4, 0, 1), (1, 0, 4, 0, 0)]
+    for lay in layouts:
+        allocs.clear()
+        S._spmm_sddmm_kernel(indptr, col, eid, None, dy, x, layout=lay)
+        scratch.append(allocs[1:])
+    vec = d % 4 == 0
+    fv = d // 4 if vec else d
+    want = S._spmm_sddmm_layout(fv, 16 if vec else 4, 50, 40, n_edges,
+                                heads)
+    calls = libs[False].calls + libs[True].calls
+    assert [c[1][-6:-1] for c in calls] == [want] + layouts
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 2]
+    assert all(c[0] == "spmm_sddmm_csr_f32" for c in calls)
+    assert all(c[1][9:14] == (40, heads, d, n_edges, int(vec))
+               for c in calls)
+    strips = -(-fv >> want[1])
+    assert want[4] == int(heads > 1)
+    assert scratch == [[heads * (strips + 1) * n_edges] if want[4] else [],
+                       [heads * fv * n_edges],             # no weights
+                       [heads * fv * n_edges] if fv > 1 else []]
+    assert (calls[2][1][8] is None) == (fv == 1)
+    assert calls[1][1][3] is None                  # w = None
+    assert S.launches["k2"] == before + 3
+
+
+@pytest.mark.parametrize("heads,o", [(4, 32), (1, 8), (3, 7)])
+def test_gatv2_bwd_rev_wrapper_passes_the_layout(monkeypatch, heads, o):
+    """``_gatv2_bwd_rev_kernel`` passes ``_gatv2_bwd_rev_layout``'s choice
+    to the shipped library, or the caller's layout to the sweep build, as
+    the three integers after ``(rows, H, O)``; a packed layout hands the
+    kernel ``(mx, den, s_n)`` stacked as ``[rows, H, 4]`` after ``s_n``."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads + o)
+    indptr, col = _csr(rng, 40, 50)
+    q, dy = torch.randn(50, heads, o), torch.randn(50, heads, o)
+    k, a = torch.randn(40, heads, o), torch.randn(o, heads)
+    mx, den, s_n = (torch.randn(50, heads) for _ in range(3))
+    args = (indptr, col, q, k, a, mx, den, s_n, dy, 0.2)
+    stacks = []
+    stack = torch.stack
+    monkeypatch.setattr(ES.torch, "stack", lambda *a, **kw: stacks.append(
+        stack(*a, **kw)) or stacks[-1])
+    before = ES.launches["k11"]
+    ES._gatv2_bwd_rev_kernel(*args)
+    ES._gatv2_bwd_rev_kernel(*args, layout=(0, 4, 64, 1))
+    vec = o % 4 == 0
+    want = ES._gatv2_bwd_rev_layout(o // 4 if vec else o, 16 if vec else 4,
+                                    40, col.numel())
+    calls = libs[False].calls + libs[True].calls
+    assert [c[1][14:17] for c in calls] == [want[:3], (0, 4, 64)]
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 1]
+    assert all(c[0] == "gatv2_bwd_rev_f32" for c in calls)
+    assert all(c[1][11:14] == (40, heads, o) for c in calls)
+    assert (calls[0][1][8] is None) == (not want[3])
+    (st,) = stacks[-1:]
+    assert calls[1][1][8] == st.data_ptr() and st.shape == (50, heads, 4)
+    assert torch.equal(st[..., :3], torch.stack((mx, den, s_n), -1))
+    assert ES.launches["k11"] == before + 2
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_spmm_sddmm_plain_takes_heads(weighted):
+    """``spmm_sddmm_plain`` on rows of ``[., H, D]`` gives, bit for bit in
+    float64, what a loop over the heads gives on ``[., D]`` slices: over a
+    sender CSR with empty rows and an ``eid`` permutation, a bipartite ``x``
+    (40 senders) against ``dy`` of 50 receivers, weighted or not."""
+    rng = np.random.default_rng(7)
+    indptr, col = _csr(rng, 40, 50, empty_every=3)
+    n_edges = col.numel()
+    eid = torch.tensor(rng.permutation(n_edges), dtype=torch.int32)
+    heads, d = 3, 5
+    dy = torch.tensor(rng.standard_normal((50, heads, d)))
+    x = torch.tensor(rng.standard_normal((40, heads, d)))
+    w = torch.tensor(rng.random((n_edges, heads))) if weighted else None
+    dx, dw = S.spmm_sddmm_plain(indptr, col, eid, w, dy, x)
+    assert dx.shape == x.shape and dw.shape == (n_edges, heads)
+    assert (dx[::3] == 0).all()
+    for h in range(heads):
+        dxh, dwh = S.spmm_sddmm_plain(
+            indptr, col, eid, None if w is None else w[:, h].contiguous(),
+            dy[:, h].contiguous(), x[:, h].contiguous())
+        assert torch.equal(dx[:, h], dxh) and torch.equal(dw[:, h], dwh)
 
 
 @pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
@@ -557,6 +759,82 @@ def test_dot_bwd_rev_layouts_on_card(heads, o, d):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 7, 8, 32, 128, 129, 512])
+def test_spmm_sddmm_layouts_on_card(d):
+    """K2 at every layout of the sweep build (K1's, :func:`_k1_layouts`,
+    each by position and by edge id) and the default, weighted and
+    unweighted, at one head (rows of ``[., D]``)
+    and three (``[., 3, D]``), over a bipartite sender CSR (300 senders of
+    260 receivers, empty rows, rows of 40 and 1,100 edges) with ``eid``,
+    against ``spmm_sddmm_plain``; two runs of the default give the same
+    bits."""
+    _needs_card()
+    _, (is_, cs, es), n_edges = _groupings(d + 7)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    fv = d // 4 if d % 4 == 0 else d
+    for heads in (1, 3):
+        shape = (d,) if heads == 1 else (heads, d)
+        dy, x = rn(260, *shape), rn(300, *shape)
+        w = torch.rand(n_edges, *shape[:-1], device="cuda",
+                       generator=gen) + 0.5
+        for ww in (w, None):
+            args = (is_, cs, es, ww, dy, x)
+            want = S.spmm_sddmm_plain(*args)
+            assert (want[0][200:] == 0).all()
+            first, again = S.spmm_sddmm(*args), S.spmm_sddmm(*args)
+            for a, b, c in zip(first, want, again):
+                torch.testing.assert_close(a, b, **TOL)
+                torch.testing.assert_close(c, a, rtol=0, atol=0)
+            for lay in _k1_layouts(fv):
+                for by_position in (0, 1):
+                    got = S._spmm_sddmm_kernel(*args,
+                                               layout=lay + (by_position,))
+                    for a, b in zip(got, want):
+                        torch.testing.assert_close(a, b, **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o", [(1, 8), (4, 32), (1, 128), (2, 7)])
+def test_gatv2_bwd_rev_layouts_on_card(heads, o):
+    """K11 at every layout of the sweep build (K8's, :func:`_k8_layouts`,
+    each with the receivers' scalars packed and not) and the default, over a bipartite sender CSR (300 senders of 260
+    receivers, empty rows, rows of 40 and 1,100 edges), with the receivers'
+    row max and denominator from the forward and ``a`` at Glorot's scale,
+    against ``gatv2_bwd_rev_plain``; two runs of the default give the same
+    bits."""
+    _needs_card()
+    (ir, cr), (is_, cs, _), _ = _groupings(heads * 100 + o)
+    gen = torch.Generator(device="cuda").manual_seed(heads + o)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, dy, k = rn(260, heads, o), rn(260, heads, o), rn(300, heads, o)
+    a = rn(o, heads) * (2.0 / (o + heads)) ** 0.5
+    num, m, s = ES.gatv2_softmax_plain(ir, cr, q, k, a, 0.2)
+    out, mx, den = ES.finalize_softmax(num, m, s, rn(260, heads),
+                                       rn(260, heads, o))
+    args = (is_, cs, q, k, a, mx, den, (out * dy).sum(-1), dy, 0.2)
+    want = ES.gatv2_bwd_rev_plain(*args)
+    assert (want[200:] == 0).all()
+    first, again = ES.gatv2_bwd_rev(*args), ES.gatv2_bwd_rev(*args)
+    torch.testing.assert_close(first, want, **TOL)
+    torch.testing.assert_close(again, first, rtol=0, atol=0)
+    ov = o // 4 if o % 4 == 0 else o
+    for lay in _k8_layouts(ov, ov):
+        for packed in (0, 1):
+            torch.testing.assert_close(
+                ES._gatv2_bwd_rev_kernel(*args, layout=lay + (packed,)),
+                want, **TOL)
+    torch.cuda.synchronize()
+
+
 def _dot_recv_layouts(ov, dv, vec):
     """Every K6 and K7 layout of the sweep build: rows as K8's
     (:func:`_k8_layouts`), and strips of one line at each rows per warp the
@@ -628,9 +906,9 @@ def test_dot_recv_layouts_on_card(heads, o, d):
 def test_shipped_build_holds_only_the_chosen_instances():
     """The shipped libraries launch the (unroll, reg_cap) pairs the
     choosers pick and refuse the sweep's others (nothing runs): K1 (2, 0)
-    and (8, 64); K8 (2, 64) for rows of one register chunk, (1, 0) wider;
-    K6 and K7 in rows (2, 64) and (4, 64) for rows of one register chunk,
-    (1, 0) wider, and in strips (4, 0)."""
+    and (8, 64); K2 (2, 0) and (4, 64); K8 and K11 (2, 64) for rows of one
+    register chunk, (1, 0) wider; K6 and K7 in rows (2, 64) and (4, 64)
+    for rows of one register chunk, (1, 0) wider, and in strips (4, 0)."""
     _needs_card()
     (ir, cr), (is_, cs, _), _ = _groupings(2)
     x = torch.randn(260, 8, device="cuda")
@@ -643,6 +921,17 @@ def test_shipped_build_holds_only_the_chosen_instances():
                           None, None, S._ptr(x), S._ptr(y), 260, 8, 1, 0, 1,
                           unroll, cap)
         assert (code == 0) == ok, (unroll, cap, code)
+    xs, dys = torch.randn(300, 8, device="cuda"), torch.randn(260, 8,
+                                                              device="cuda")
+    dx, dw = torch.empty_like(xs), torch.empty(cs.numel(), device="cuda")
+    for (unroll, cap), ok in (((2, 0), True), ((4, 64), True),
+                              ((1, 0), False), ((8, 64), False),
+                              ((2, 64), False), ((4, 0), False)):
+        code = S._call_on(x.device, lib.spmm_sddmm_csr_f32,
+                          *(S._ptr(t) for t in (is_, cs, None, None, dys, xs,
+                                                dx, dw, None)),
+                          300, 1, 8, cs.numel(), 1, 0, 1, unroll, cap, 0)
+        assert (code == 0) == ok, ("k2", unroll, cap, code)
     for o, (unroll, cap), ok in ((8, (2, 64), True), (8, (1, 0), False),
                                  (8, (4, 64), False), (256, (1, 0), True),
                                  (256, (2, 64), False), (256, (1, 64), False)):
@@ -656,6 +945,13 @@ def test_shipped_build_holds_only_the_chosen_instances():
                                   dv)), 300, 1, o, o, 0, unroll, cap, 0.5,
             0.0)
         assert (code == 0) == ok, (o, unroll, cap, code)
+        a = torch.randn(o, 1, device="cuda")
+        code = S._call_on(
+            x.device, ES._lib().gatv2_bwd_rev_f32,
+            *(S._ptr(t) for t in (is_, cs, dy, k, a, mx, den, s_n, None, dy,
+                                  dk)),
+            300, 1, o, 0, unroll, cap, 0.2)
+        assert (code == 0) == ok, ("k11", o, unroll, cap, code)
     n_edges = cr.numel()
     raw = torch.randn(n_edges, 1, device="cuda")
     for o, (strips, unroll, cap), ok in (
