@@ -90,15 +90,18 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a, 3b),
 of GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j) and graph classification (3k), with K1's, K2's, K6's,
-K7's, K8's and K11's device time per step. ``--sweep`` times K1, K2, K6,
-K7, K8, K11, K14 and its backward at every layout (the measurement behind
-the wrappers' choices; each K1, K2, K6, K7, K8 and K11 layout held to the
+(3i), EdgeConv (3j) and graph classification (3k), with K1's, K2's, K5's,
+K6's, K7's, K8's, K10's and K11's device time per step. ``--sweep`` times
+K1, K2, K5, K6, K7, K8, K10, K11, K14 and its backward at every layout (the
+measurement behind the wrappers' choices; each layout but K14's held to the
 plain version first), K1's gather-rate ceiling at D=128, and K1, K2, K6,
-K7, K8 and K11 at every rows per warp on an R-MAT graph of skewed degrees;
+K7, K8 and K11 at every rows per warp and K10 and K5 at one row per warp on
+an R-MAT graph of skewed degrees (``--sweep k5,k10,skew`` runs the named
+sweeps only);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and 3b, with ``--profile`` its profile: this script copied into an older
-checkout profiles that checkout's 3b), and prints no result line.
+and the train phases 3b, 3d and 3f, with ``--profile`` their profiles:
+this script copied into an older checkout profiles that checkout's
+steps), and prints no result line.
 """
 
 from __future__ import annotations
@@ -611,9 +614,8 @@ def gatv2_phase(g, card: str) -> dict:
         hd = f"H={h} O={o}"
         # compulsory bytes, float32 and int32 (4 bytes each): indptr N+1;
         # col E; per-node scalars N*H each; rows q, k, dy and outputs
-        # N*H*O each; a and da O*H. K10's per-warp shares of da are
-        # scratch (W*O floats, W the warps of one resident wave) and not
-        # counted.
+        # N*H*O each; a and da O*H. K10's per-block shares of da are
+        # scratch (H*O*B floats, B its blocks per head) and not counted.
         idx, nh, nhd, ah = 4 * (N + 1 + E), 4 * N * h, 4 * N * h * o, 4 * o * h
         # with no L2 reuse every edge reads a whole row per gathered row
         # operand (K9 and K10: k[s]; K11: q[r] and dy[r]) and K11 one
@@ -638,6 +640,11 @@ def gatv2_phase(g, card: str) -> dict:
         case("k10", hd, ES.gatv2_bwd_dq, ES.gatv2_bwd_dq_plain,
              (ir, cr) + bwd, idx + 4 * nhd + 3 * nh + 2 * ah, bwd_ops,
              rows_again, [("dq", {}, None), ("da vs float64", da_tol, da64)])
+        # the dq walk and the da reduce apart, from its device_ms record
+        v10 = res["k10"]["variants"][-1]
+        v10["walk_ms"], v10["reduce_ms"] = _split_k10(DEVICE_RECORDS[-1])
+        log(f"  K10 {hd} device ms: dq walk {v10['walk_ms']:.4f}, da reduce "
+            f"{v10['reduce_ms']:.4f}")
         case("k11", hd, ES.gatv2_bwd_rev, ES.gatv2_bwd_rev_plain,
              (is_, cs) + bwd, idx + 4 * nhd + 3 * nh + ah, bwd_ops,
              2 * rows_again + 3 * scalar_again, [("dk", {}, None)])
@@ -1106,6 +1113,8 @@ def k2_sweep(g) -> list:
 
 
 GATV2_SHAPES = ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D))
+# the sweeps of --sweep (K6 and K7 are one, recv_sweep; skew the R-MAT graph)
+SWEEPS = ("k1", "k2", "k5", "k6_k7", "k8", "k10", "k11", "k14", "skew")
 
 
 def _k11_args(ES, g, h, o, gen):
@@ -1161,6 +1170,129 @@ def k11_sweep(g) -> list:
             log(f"  K11 {hd:<12} {lay} {row['device_ms']:.4f} ms"
                 f"{' (chosen)' * row['chosen']}")
         del args, ref
+    return out
+
+
+def _k10_args(ES, g, h, o, gen):
+    """K10's arguments at (H, O) on ``g``: :func:`_k11_args` over the
+    receiver CSR."""
+    return (g.indptr_r, g.col_r) + _k11_args(ES, g, h, o, gen)[2:]
+
+
+def _rows_layouts(wide: int) -> list:
+    """The (log2 rows per warp, edges in flight, register cap) the sweep
+    build holds for rows of ``wide`` vectors (K8's, K10's, K11's and K5's
+    instances: U in {1, 2, 4} with NC * U <= 4, a cap only for NC <= 2)."""
+    log_g = min((wide - 1).bit_length(), 5)
+    nc = 1 << max(0, (wide - 1).bit_length() - 5)
+    return [(log_rows, unroll, cap) for log_rows in range(6 - log_g)
+            for unroll in (1, 2, 4) for cap in (0, 64)
+            if nc * unroll <= 4 or unroll == 1 if cap == 0 or nc <= 2]
+
+
+def _split_k10(record: dict) -> tuple[float, float]:
+    """K10's device ms per call split into the dq walk and the da reduce,
+    from one ``DEVICE_RECORDS`` entry, each kernel counted as
+    :func:`device_ms` counts it (its mean time times its launches a
+    call)."""
+    calls, walk, red = record["calls"], 0.0, 0.0
+    for name, n in record["records"].items():
+        t = (record["ms_per_call"][name] * calls / n
+             * max(1, round(n / calls)))
+        if "da_reduce" in name:
+            red += t
+        else:
+            walk += t
+    return walk, red
+
+
+def k10_sweep(g) -> list:
+    """K10 at every layout (rows per warp, edges in flight per edge group,
+    register cap) the library's sweep build holds, at phase 2c's shapes,
+    each held to the plain version first (``dq`` at RTOL / ATOL, ``da``
+    against the plain version in float64 at DA_ATOL_REL) and timed (device
+    ms, the dq walk and the da reduce apart): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K10_*`` constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(25)
+    out = []
+    log("sweep: K10 layouts (device ms, profiler, = dq walk + da reduce; "
+        "log2 rows per warp, edges in flight, register cap)")
+    for h, o in GATV2_SHAPES:
+        args = _k10_args(ES, g, h, o, gen)
+        dq_ref = ES.gatv2_bwd_dq_plain(*args)[0]
+        da64 = ES.gatv2_bwd_dq_plain(*[
+            t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+            for t in args])[1]
+        da_atol = DA_ATOL_REL * float(da64.abs().max())
+        hd = f"H={h} O={o}"
+        chosen = ES._gatv2_bwd_dq_layout(o // 4, 16, N, E)
+        for lay in _rows_layouts(o // 4):
+            dq, da = ES._gatv2_bwd_dq_kernel(*args, layout=lay)
+            err = max(compare(f"K10 {hd} {lay} dq", dq, dq_ref, quiet=True),
+                      compare(f"K10 {hd} {lay} da vs float64", da, da64,
+                              atol=da_atol, quiet=True))
+            t = device_ms(lambda: ES._gatv2_bwd_dq_kernel(*args, layout=lay))
+            walk, red = _split_k10(DEVICE_RECORDS[-1])
+            row = {"case": hd, "log_rows": lay[0], "unroll": lay[1],
+                   "reg_cap": lay[2], "chosen": lay == chosen,
+                   "max_abs_err": err, "device_ms": t, "walk_ms": walk,
+                   "reduce_ms": red}
+            out.append(row)
+            log(f"  K10 {hd:<12} {lay} {t:.4f} ms (= {walk:.4f} + "
+                f"{red:.4f}){' (chosen)' * row['chosen']}")
+        del args, dq_ref, da64
+    return out
+
+
+def _k5_args(ES, g, h, d, gen):
+    """K5's arguments at (H, D) on ``g``: random pi, pj, v, dy, and the
+    row max, denominator and ``<out, dy>`` of the forward K3 gives."""
+    dev, n = g.device, g.num_nodes
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    pi, pj, v, dy = rn(n, h), rn(n, h), rn(n, h, d), rn(n, h, d)
+    num, m, s = ES.gat_softmax(g.indptr_r, g.col_r, pi, pj, v, 0.2)
+    outp, mx, den = ES.finalize_softmax(num, m, s, rn(n, h), rn(n, h, d))
+    return (g.indptr_s, g.col_s, pi, pj, v, mx, den, (outp * dy).sum(-1), dy,
+            0.2)
+
+
+def k5_sweep(g) -> list:
+    """K5 at every layout (rows per warp, edges in flight per edge group,
+    register cap, the receivers' scalars packed or not; a packed call's
+    time includes its stack) the library's sweep build holds, at phase
+    2b's shapes, each held to the plain version at RTOL / ATOL before it
+    is timed (device ms): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K5_*`` constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(26)
+    out = []
+    log("sweep: K5 layouts (device ms, profiler; log2 rows per warp, edges "
+        "in flight, register cap, packed scalars)")
+    for h, d in GATV2_SHAPES:
+        args = _k5_args(ES, g, h, d, gen)
+        ref = ES.gat_bwd_rev_plain(*args)
+        hd = f"H={h} D={d}"
+        chosen = ES._gat_bwd_rev_layout(d // 4, 16, N, E)
+        for lay in [lay + (packed,) for packed in (0, 1)
+                    for lay in _rows_layouts(d // 4)]:
+            got = ES._gat_bwd_rev_kernel(*args, layout=lay)
+            err = max(compare(f"K5 {hd} {lay} {nm}", a, b, quiet=True)
+                      for nm, a, b in zip(("dpj", "dv"), got, ref))
+            row = {"case": hd, "log_rows": lay[0], "unroll": lay[1],
+                   "reg_cap": lay[2], "packed": lay[3],
+                   "chosen": lay == chosen, "max_abs_err": err,
+                   "device_ms": device_ms(
+                       lambda: ES._gat_bwd_rev_kernel(*args, layout=lay))}
+            out.append(row)
+            log(f"  K5 {hd:<12} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+        del args, ref, got
     return out
 
 
@@ -1385,15 +1517,69 @@ def _k11_exact_args(g, h, o, gen):
             ri(-2, 2, n, h), ri(-1, 1, n, h, o), 0.2)
 
 
-def skew_sweep(gnn) -> dict:
+def _k10_exact_args(g, h, o, gen):
+    """K10's arguments at (H, O) on ``g`` whose every sum is exact in
+    float32: per (head, feature) constants ``q[r] = c1`` in {0, 1} and
+    ``k[s] = c2`` in {0, 1}, nonzero in at most 2 features a head, make
+    every ``raw = c1 + c2`` in {0, 1, 2} (where leaky_relu's slope is 1)
+    and every logit the head's integer ``L = <a, raw>`` for ``a`` in {-1,
+    0, 1}; ``mx = L`` and ``den = 1`` make each alpha ``exp(0) / 1 = 1``;
+    ``dy`` in {-1, 0, 1} and ``s_n`` in [-2, 2] make each ``dlg`` an
+    integer of at most 4, so every term of ``dq`` (``dlg * a``) and of
+    ``da`` (``dlg * act``) is an integer of at most 8, and E * 8 < 2^24:
+    both sum exactly in any order. The memory traffic is that of real
+    inputs (nothing in K10 branches on values)."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    c1 = ri(0, 1, 1, h, o)
+    c2 = torch.zeros(1, h, o, device=dev)
+    c2[..., :2] = ri(0, 1, 1, h, min(2, o))
+    a = ri(-1, 1, o, h)
+    q, k = c1.expand(n, h, o).contiguous(), c2.expand(n, h, o).contiguous()
+    mx = ((c1 + c2)[0].t() * a).sum(0).expand(n, h).contiguous()
+    den = torch.ones(n, h, device=dev)
+    return (g.indptr_r, g.col_r, q, k, a, mx, den, ri(-2, 2, n, h),
+            ri(-1, 1, n, h, o), 0.2)
+
+
+def _k5_exact_args(g, h, d, gen):
+    """K5's arguments at (H, D) on ``g`` whose every sum is exact in
+    float32: ``pi[r] = c`` and ``pj[s] = -c`` for one ``c`` in {-1, 0, 1}
+    per head make every ``raw`` 0 (where leaky_relu's slope is 1) and
+    every logit 0; ``mx = 0`` and ``den = 1`` make each alpha 1; ``v`` and
+    ``dy`` in {-1, 0, 1} and ``s_n`` in [-2, 2] make each term of ``dv`` an
+    integer of at most 1 and of ``dpj`` one of at most ``D + 2``, so rows
+    of fewer than 2^16 edges sum exactly in any order. The memory traffic
+    is that of real inputs (nothing in K5 branches on values)."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    c = ri(-1, 1, 1, h)
+    pi, pj = c.expand(n, h).contiguous(), (-c).expand(n, h).contiguous()
+    mx, den = torch.zeros(n, h, device=dev), torch.ones(n, h, device=dev)
+    return (g.indptr_s, g.col_s, pi, pj, ri(-1, 1, n, h, d), mx, den,
+            ri(-2, 2, n, h), ri(-1, 1, n, h, d), 0.2)
+
+
+def skew_sweep(gnn, kernels=SWEEPS) -> dict:
     """K1, K8, K6, K7, K2 and K11 on :func:`rmat_graph` at every rows per
-    warp, the rest of the layout as the wrappers choose it, beside the
-    wrapper's own choice (the shipped build), each held to the plain
-    version bit for bit on inputs whose sums are exact
-    (``_k1_cases(exact=True)``, :func:`_k8_exact_args`,
+    warp, the rest of the layout as the wrappers choose it, K10 and K5 at
+    one row per warp, each beside the wrapper's own choice (the shipped
+    build), each held to the plain version bit for bit on inputs whose
+    sums are exact (``_k1_cases(exact=True)``, :func:`_k8_exact_args`,
     :func:`_recv_exact_args`, ``_k2_cases(exact=True)``,
-    :func:`_k11_exact_args`): whether rows that share a warp lose to one
-    row per warp when a hub holds the warp to its longest row."""
+    :func:`_k11_exact_args`, :func:`_k10_exact_args`,
+    :func:`_k5_exact_args`; K10 and K5 twice, the same bits each time):
+    whether rows that share a warp lose to one row per warp when a hub
+    holds the warp to its longest row. ``kernels``: the names of
+    :data:`SWEEPS` to run (K6 and K7 are ``k6_k7``)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
@@ -1406,7 +1592,8 @@ def skew_sweep(gnn) -> dict:
     log(f"sweep: R-MAT graph ({N} nodes, {E} edges; row lengths "
         f"{degrees}), device ms by log2 rows per warp")
     out = {"degrees": degrees, "k1": [], "k8": []}
-    for label, args in _k1_cases(g, 14, exact=True):
+    for label, args in (_k1_cases(g, 14, exact=True) if "k1" in kernels
+                        else ()):
         ref = S.spmm_plain(*args)
         chosen = _k1_chosen(S, args)
         same_bits(f"K1 R-MAT {label} chosen", S._spmm_csr_kernel(*args),
@@ -1426,7 +1613,7 @@ def skew_sweep(gnn) -> dict:
                         for k, v in row["by_log_rows"].items()))
         del ref
     gen = torch.Generator(device=g.device).manual_seed(15)
-    for h, o, d in K8_SWEEP_SHAPES[:3]:
+    for h, o, d in K8_SWEEP_SHAPES[:3] if "k8" in kernels else ():
         args = _k8_exact_args(g, h, o, d, gen)
         ref = ES.dot_bwd_rev_plain(*args)
         hd = f"H={h} O={o} D={d}"
@@ -1452,7 +1639,7 @@ def skew_sweep(gnn) -> dict:
         del args, ref
     gen = torch.Generator(device=g.device).manual_seed(16)
     out["k6"], out["k7"] = [], []
-    for h, o, d in K8_SWEEP_SHAPES[:3]:
+    for h, o, d in K8_SWEEP_SHAPES[:3] if "k6_k7" in kernels else ():
         fwd, bwd = _recv_exact_args(g, h, o, d, gen)
         hd = f"H={h} O={o} D={d}"
         chosen = ES._dot_recv_layout(o // 4, d // 4, 16, N, N, E)
@@ -1487,7 +1674,8 @@ def skew_sweep(gnn) -> dict:
             del ref
         del fwd, bwd
     out["k2"] = []
-    for label, args in _k2_cases(g, 22, exact=True):
+    for label, args in (_k2_cases(g, 22, exact=True) if "k2" in kernels
+                        else ()):
         ref = S.spmm_sddmm_plain(*args)
         chosen = _k2_chosen(S, args)
         for nm, a, b in zip(("dx", "dw"), S._spmm_sddmm_kernel(*args), ref):
@@ -1509,7 +1697,7 @@ def skew_sweep(gnn) -> dict:
         del args, ref
     gen = torch.Generator(device=g.device).manual_seed(24)
     out["k11"] = []
-    for h, o in GATV2_SHAPES:
+    for h, o in GATV2_SHAPES if "k11" in kernels else ():
         args = _k11_exact_args(g, h, o, gen)
         ref = ES.gatv2_bwd_rev_plain(*args)
         hd = f"H={h} O={o}"
@@ -1531,35 +1719,55 @@ def skew_sweep(gnn) -> dict:
             + ", ".join(f"2^{k}: {v:.4f}"
                         for k, v in row["by_log_rows"].items()))
         del args, ref
+    # K10 and K5 at the chosen layout and at one row per warp (the rest of
+    # the layout as chosen), each run twice: the same bits as the plain
+    # version and as each other
+    gen = torch.Generator(device=g.device).manual_seed(27)
+    out["k10"], out["k5"] = [], []
+    for h, o in GATV2_SHAPES:
+        hd = f"H={h} O={o}"
+        for key, fn, plain, make, chosen in (
+                ("k10", ES._gatv2_bwd_dq_kernel, ES.gatv2_bwd_dq_plain,
+                 _k10_exact_args, ES._gatv2_bwd_dq_layout(o // 4, 16, N, E)),
+                ("k5", ES._gat_bwd_rev_kernel, ES.gat_bwd_rev_plain,
+                 _k5_exact_args, ES._gat_bwd_rev_layout(o // 4, 16, N, E))):
+            if key not in kernels:
+                continue
+            args = make(g, h, o, gen)
+            ref = plain(*args)
+            row = {"case": hd, "chosen": chosen, "device_ms": {},
+                   "walk_reduce_ms": {}}
+            for label, lay in (("chosen", None), ("one row per warp",
+                                                  (0,) + chosen[1:])):
+                for run in (1, 2):
+                    for i, (a, b) in enumerate(zip(fn(*args, layout=lay),
+                                                   ref)):
+                        same_bits(f"{key.upper()} R-MAT {hd} {label} run "
+                                  f"{run} out{i}", a, b)
+                row["device_ms"][label] = device_ms(
+                    lambda: fn(*args, layout=lay))
+                if key == "k10":
+                    row["walk_reduce_ms"][label] = _split_k10(
+                        DEVICE_RECORDS[-1])
+            out[key].append(row)
+            log(f"  {key.upper()} {hd:<12} chosen {chosen} "
+                + ", ".join(f"{k}: {v:.4f} ms"
+                            for k, v in row["device_ms"].items()))
+            del args, ref
     return out
 
 
-def tuning_sweep(gnn, g, gb) -> dict:
-    """``--sweep``: the sweep build of K1's, K2's, K6's, K7's, K8's and
-    K11's libraries (every instance), :func:`k1_sweep`, :func:`k2_sweep`,
-    :func:`k8_sweep`, :func:`k11_sweep`, :func:`recv_sweep`,
-    :func:`skew_sweep`, and
-    the device time of K14 and its backward at every rows per warp the
-    width allows, at phase 2f's shapes: the measurement behind
+def k14_sweep(g, gb) -> list:
+    """The device time of K14 and its backward at every rows per warp the
+    width allows, at phase 2f's shapes, each checked against the wrapper's
+    own choice first (bit for bit): the measurement behind
     ``ops/cuda/segment.py:_FWD_ENTRIES_PER_GROUP`` and
-    ``_BWD_ENTRIES_PER_GROUP``. Each K14 layout is checked against the
-    wrapper's own choice first (bit for bit)."""
-    from graphneuralnetworks_tpu_torch.ops.cuda import build as B
+    ``_BWD_ENTRIES_PER_GROUP``."""
     from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG
 
     dev = g.device
     gen = torch.Generator(device=dev).manual_seed(11)
-    t0 = time.perf_counter()
-    B.build("spmm", "edge_softmax", sweep=True)
-    log(f"sweep build: {time.perf_counter() - t0:.2f} s")
-    for name, text in B.build_logs().items():
-        for line in text.splitlines():
-            if name.endswith("-sweep") and ("registers" in line
-                                            or "spill" in line):
-                log(f"  ptxas {name}: {line.strip()}")
-    out = {**k1_sweep(g), "k2": k2_sweep(g), "k8": k8_sweep(g),
-           "k11": k11_sweep(g), "k6_k7": recv_sweep(g),
-           "skew": skew_sweep(gnn), "k14": []}
+    out = []
     log("sweep: K14 rows per warp (device ms, profiler)")
     for label, ip, f in (("receiver CSR F=4", g.indptr_r, GAT_HEADS),
                          ("receiver CSR F=8", g.indptr_r, OUT_D),
@@ -1588,12 +1796,43 @@ def tuning_sweep(gnn, g, gb) -> dict:
                    "bwd_device_ms": device_ms(
                        lambda: SG._segment_max_bwd_kernel(ip, data, mx, dy,
                                                           log_rows))}
-            out["k14"].append(row)
+            out.append(row)
             log(f"  K14 {label:<20} 2^{log_rows} rows/warp fwd "
                 f"{row['device_ms']:.4f} ms{' (chosen)' * row['chosen_fwd']} "
                 f"bwd {row['bwd_device_ms']:.4f} ms"
                 f"{' (chosen)' * row['chosen_bwd']}")
         del data, dy, mx, bwd
+    return out
+
+
+def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
+    """``--sweep``: the sweep build of K1's, K2's, K5's, K6's, K7's, K8's,
+    K10's and K11's libraries (every instance), then of :data:`SWEEPS` the
+    ``names`` in order: :func:`k1_sweep`, :func:`k2_sweep`,
+    :func:`k5_sweep`, :func:`recv_sweep` (``k6_k7``), :func:`k8_sweep`,
+    :func:`k10_sweep`, :func:`k11_sweep`, :func:`k14_sweep` and
+    :func:`skew_sweep` (of the named kernels)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import build as B
+
+    t0 = time.perf_counter()
+    B.build("spmm", "edge_softmax", sweep=True)
+    log(f"sweep build: {time.perf_counter() - t0:.2f} s")
+    for name, text in B.build_logs().items():
+        for line in text.splitlines():
+            if name.endswith("-sweep") and ("registers" in line
+                                            or "spill" in line):
+                log(f"  ptxas {name}: {line.strip()}")
+    runs = {"k1": lambda: k1_sweep(g), "k2": lambda: {"k2": k2_sweep(g)},
+            "k5": lambda: {"k5": k5_sweep(g)},
+            "k6_k7": lambda: {"k6_k7": recv_sweep(g)},
+            "k8": lambda: {"k8": k8_sweep(g)},
+            "k10": lambda: {"k10": k10_sweep(g)},
+            "k11": lambda: {"k11": k11_sweep(g)},
+            "skew": lambda: {"skew": skew_sweep(gnn, names)},
+            "k14": lambda: {"k14": k14_sweep(g, gb)}}
+    out = {}
+    for name in names:
+        out.update(runs[name]())
     log("  clocks.sm,power.draw,temperature.gpu: "
         + smi("clocks.sm,power.draw,temperature.gpu"))
     return out
@@ -1831,6 +2070,43 @@ def learned_weights_phase(g, x, y, mask, profile: bool):
     return res, model_w, ew
 
 
+def gat_a_phase(g, x, y, mask, profile: bool):
+    """3d: GAT without attention dropout. Per step each layer launches K3
+    in the forward and K4 and K5 in the backward. Returns its results and
+    the model."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    log(f"phase 3d: GAT train step (GATConv(128,32,relu,heads=4) -> "
+        f"GATConv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
+    model = gat(M, 2, g.device)
+
+    def loss_fn(m, g, x, y, mask):
+        return masked_cross_entropy(m(g, x), y, mask)
+
+    return train_phase("GAT (a)", model, (g, x, y, mask), loss_fn,
+                       {"k3": 2, "k4": 2, "k5": 2}, profile), model
+
+
+def gatv2_train_phase(g, x, y, mask, profile: bool):
+    """3f: GATv2 without attention dropout. Per step each layer launches K9
+    in the forward, and K10 (two launches: dq and the blocks' shares of da,
+    then their sum) and K11 in the backward. Returns its results and the
+    model."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    log(f"phase 3f: GATv2 train step (GATv2Conv(128,32,relu,heads=4) -> "
+        f"GATv2Conv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
+    model = gatv2(M, 4, g.device)
+
+    def loss_fn(m, g, x, y, mask):
+        return masked_cross_entropy(m(g, x), y, mask)
+
+    return train_phase("GATv2", model, (g, x, y, mask), loss_fn,
+                       {"k9": 2, "k10": 4, "k11": 2}, profile), model
+
+
 def main_path_phase(g, profile: bool, out_dir) -> dict:
     from graphneuralnetworks_tpu_torch import models as M, rand_graph
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
@@ -1860,13 +2136,7 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
             lambda extra: {"edge_weight": extra[0]}, [ew]),
     }
 
-    # GAT (a): no attention dropout. Per step each layer launches K3 in the
-    # forward and K4 and K5 in the backward.
-    log(f"phase 3d: GAT train step (GATConv(128,32,relu,heads=4) -> "
-        f"GATConv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
-    model_a = gat(M, 2, dev)
-    res["gat"] = train_phase("GAT (a)", model_a, (g, x, y, mask), loss_fn,
-                             {"k3": 2, "k4": 2, "k5": 2}, profile)
+    res["gat"], model_a = gat_a_phase(g, x, y, mask, profile)
 
     # GAT (b): attention dropout p=0.6 in training mode. Per step each
     # layer launches K12 in the forward and K2, once for all its heads, in
@@ -1897,14 +2167,7 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
         ("pi", "pj", "values", "self_logits", "self_values"),
         lambda h, d: [(N, h), (N, h), (N, h, d), (N, h), (N, h, d)])
 
-    # GATv2: no attention dropout. Per step each layer launches K9 in the
-    # forward, and K10 (two launches: dq and the shares of da, then their
-    # sum) and K11 in the backward.
-    log(f"phase 3f: GATv2 train step (GATv2Conv(128,32,relu,heads=4) -> "
-        f"GATv2Conv(128,8,heads=1,concat=False), dropout 0), {STEPS} steps")
-    model_v2 = gatv2(M, 4, dev)
-    res["gatv2"] = train_phase("GATv2", model_v2, (g, x, y, mask), loss_fn,
-                               {"k9": 2, "k10": 4, "k11": 2}, profile)
+    res["gatv2"], model_v2 = gatv2_train_phase(g, x, y, mask, profile)
     log("phase 3c (GATv2): one forward+backward of GATv2 (3f) on the card "
         "(K9-K11) vs the CPU plain path")
     res["vs_cpu"]["gatv2"] = compare_model("GATv2", model_v2, g, x,
@@ -2267,7 +2530,7 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
 # The device kernels of the hand-written kernels whose time a profiled step
 # reports on its own (by the kernels' names in csrc/): K2 launches a pass
 # before and after its sweep, K6 and K7 several passes in strips, told
-# apart by the template argument 6 or 7.
+# apart by the template argument 6 or 7, K10 its da reduce after its walk.
 STEP_KERNELS = {
     "k1": ("spmm_csr_kernel<",),
     "k2": ("spmm_sddmm_csr_kernel<", "spmm_sddmm_weights_kernel",
@@ -2278,6 +2541,8 @@ STEP_KERNELS = {
            "dot_strip_stats_kernel<7>", "dot_strip_spmm_kernel<7,"),
     "k8": ("dot_bwd_rev_kernel<",),
     "k11": ("gatv2_bwd_rev_kernel<",),
+    "k10": ("gatv2_bwd_dq_kernel<", "gatv2_da_reduce_kernel"),
+    "k5": ("gat_bwd_rev_kernel<",),
 }
 
 
@@ -2430,11 +2695,15 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f and the "
-                         "train phase 3b), then stop without a result line")
-    ap.add_argument("--sweep", action="store_true",
-                    help="after phase 2, time K1, K2, K6, K7, K8, K11, K14 "
-                         "and its backward at every layout, and K1's "
-                         "gather-rate ceiling")
+                         "train phases 3b, 3d and 3f), then stop without a "
+                         "result line")
+    ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
+                    default=None, metavar="NAMES",
+                    help="after phase 2, time K1, K2, K5, K6, K7, K8, K10, "
+                         "K11, K14 and its backward at every layout, K1's "
+                         "gather-rate ceiling, and the R-MAT graph (skew); "
+                         "NAMES (comma-separated, of "
+                         f"{','.join(SWEEPS)}) runs those only")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2482,12 +2751,18 @@ def main() -> int:
                      "2f": lambda: segment_phase(g, gb, card)}
     kern, only_train = {}, {}
     for phase in (args.only.split(",") if args.only else kernel_phases):
-        if phase == "3b":
-            only_train["3b"] = learned_weights_phase(*node_inputs(g),
-                                                     args.profile)[0]
+        train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
+                      "3f": gatv2_train_phase}
+        if phase in train_only:
+            only_train[phase] = train_only[phase](*node_inputs(g),
+                                                  args.profile)[0]
         else:
             kern.update(kernel_phases[phase]())
-    sweep = tuning_sweep(gnn, g, gb) if args.sweep else None
+    if args.sweep and not set(args.sweep.split(",")) <= set(SWEEPS):
+        raise ValueError(f"--sweep takes names of {SWEEPS}, got "
+                         f"{args.sweep}")
+    sweep = (tuning_sweep(gnn, g, gb, tuple(args.sweep.split(",")))
+             if args.sweep else None)
     if args.only:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, "
             f"{args.only} only: no result)")

@@ -26,8 +26,9 @@
 // Edges are stored sorted by receiver, so a position of the receiver CSR is
 // the edge id; the sender CSR's col holds the receivers.
 //
-// Layout of the work (K3-K5, K9, K10, K12; the dot kernels K6-K8 take rows
-// and strips of their own, see the dot section, and K11 takes K8's rows):
+// Layout of the work (K3, K4, K9, K12; the dot kernels K6-K8 take rows
+// and strips of their own, see the dot section, and K5, K10 and K11 take
+// K8's rows):
 // one warp owns one (row, head) pair, so all heads run in one launch and
 // every output entry is written once by one warp, in a fixed order, with
 // no atomics. As in spmm.cu, a head's D floats are split into vectors
@@ -348,64 +349,6 @@ gat_bwd_dpi_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
   if (L.lane == 0) dpi[rh] = acc;
 }
 
-// K5, replacing _gat_bwd_rev_kernel. Over the sender CSR, row s (col holds
-// the receivers r_e):
-//   dv[s]  = sum_e alpha_e * dy[r_e]
-//   dpj[s] = sum_e alpha_e * (<v[s], dy[r_e]> - s_n[r_e]) * lrelu'(raw_e)
-// v[s] stays in registers; each gathered dy row feeds both sums.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                   const float* __restrict__ pi, const float* __restrict__ pj,
-                   const V* __restrict__ v, const float* __restrict__ mx,
-                   const float* __restrict__ den,
-                   const float* __restrict__ s_n, const V* __restrict__ dy,
-                   float* __restrict__ dpj, V* __restrict__ dv_out,
-                   int n_rows, int heads, int dv, int log_g, float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const Lanes L(log_g);
-  const long long sh = (long long)row * heads + h;
-  const int beg = indptr[row], end = indptr[row + 1];
-  const float pjs = pj[sh];
-  float acc_pj = 0.f;
-  for (int c0 = 0; c0 == 0 || c0 < dv; c0 += L.g) {
-    const int f = c0 + L.sub;
-    const bool active = f < dv;
-    const V vs = active ? v[sh * dv + f] : vzero<V>();
-    V acc = vzero<V>();
-    for (int base = beg; base < end; base += 32) {
-      const int e = base + L.lane;
-      int my_r = 0;
-      float my_a = 0.f, my_w = 0.f;
-      if (e < end) {
-        my_r = col[e];
-        const long long rh = (long long)my_r * heads + h;
-        const float raw = pi[rh] + pjs;
-        my_a = expf(lrelu(raw, slope) - mx[rh]) / den[rh];
-        my_w = my_a * dlrelu(raw, slope);
-        if (c0 == 0) acc_pj -= my_w * s_n[rh];
-      }
-      const int cnt = min(32, end - base);
-      for (int j0 = 0; j0 < cnt; j0 += L.p) {
-        const int j = j0 + L.grp;
-        const int r = __shfl_sync(kFull, my_r, j);
-        const float aj = __shfl_sync(kFull, my_a, j);
-        const float wj = __shfl_sync(kFull, my_w, j);
-        if (active && j < cnt) {
-          const V d = dy[((long long)r * heads + h) * dv + f];
-          axpy(acc, aj, d);
-          acc_pj = fmaf(wj, vdot(vs, d), acc_pj);
-        }
-      }
-    }
-    for (int off = L.g; off < 32; off <<= 1) add_xor(acc, off);
-    if (active && L.grp == 0) dv_out[sh * dv + f] = acc;
-  }
-  acc_pj = warp_sum(acc_pj);
-  if (L.lane == 0) dpj[sh] = acc_pj;
-}
-
 // ---- GATv2: K9, K10, K11 ---------------------------------------------------
 //
 // Per edge e = (r, s) and head h:  raw = q[r] + k[s] (O wide),
@@ -421,11 +364,8 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 // three per-receiver scalars. K9 reads each k row once, for the logit and
 // the value both: the softmax is one pass, each edge group keeping its own
 // running max, sum and accumulator (rescaled when its max grows), merged
-// across groups at the end. K10 sums da over every edge of the graph with
-// no atomics: its warps stride over the (row, head) tasks with a stride that
-// is a multiple of H, so each warp keeps one head's share of da in
-// registers and writes it once; gatv2_da_reduce_kernel then sums the shares
-// of each entry in a fixed order.
+// across groups at the end. K10 and K11 take K8's rows (after the dot
+// section).
 
 // K9, replacing _flash_gatv2_kernel. Over the receiver CSR, row r, head h:
 //   m = max_e lg_e,  s = sum_e exp(lg_e - m),
@@ -511,125 +451,6 @@ gatv2_softmax_kernel(const int* __restrict__ indptr,
     m[rh] = mx;
     s[rh] = sg;
   }
-}
-
-// K10, replacing _gatv2_bwd_fwd_kernel. Over the receiver CSR, row r:
-//   alpha_e = exp(lg_e - mx[r]) / den[r],
-//   dlg_e = alpha_e * (<k[s_e], dy[r]> - s_n[r]),
-//   dq[r] = sum_e dlg_e * a * lrelu'(raw_e),   da += sum_e dlg_e * act_e.
-// Warp gw takes tasks gw, gw + W, ... (W = the grid's warp count, a multiple
-// of H), all of head h = gw % H, and writes its share of da[:, h] to
-// da_part[gw, :] once at the end.
-template <typename V, int NC>
-__global__ void __launch_bounds__(kThreads)
-gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
-                    const int* __restrict__ col, const V* __restrict__ q,
-                    const V* __restrict__ k, const float* __restrict__ a,
-                    const float* __restrict__ mx,
-                    const float* __restrict__ den,
-                    const float* __restrict__ s_n, const V* __restrict__ dy,
-                    V* __restrict__ dq, V* __restrict__ da_part, int n_rows,
-                    int heads, int dv, int log_g, float slope) {
-  const Lanes L(log_g);
-  const long long warps = (long long)gridDim.x * kWarpsPerBlock;
-  const long long gw =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int h = (int)(gw % heads);
-  V av[NC], dav[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int f = L.sub + c * L.g;
-    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
-    dav[c] = vzero<V>();
-  }
-  const long long tasks = (long long)n_rows * heads;
-  for (long long rh = gw; rh < tasks; rh += warps) {   // warp-uniform
-    const int row = (int)(rh / heads);
-    V qv[NC], dyv[NC], dqv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int f = L.sub + c * L.g;
-      const bool on = f < dv;
-      qv[c] = on ? q[rh * dv + f] : vzero<V>();
-      dyv[c] = on ? dy[rh * dv + f] : vzero<V>();
-      dqv[c] = vzero<V>();
-    }
-    const float mxr = mx[rh], denr = den[rh], snr = s_n[rh];
-    const int beg = indptr[row], end = indptr[row + 1];
-    for (int base = beg; base < end; base += L.p) {
-      const int e = base + L.grp;
-      const bool valid = e < end;
-      V raw[NC];
-      float plg = 0.f, pvd = 0.f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) raw[c] = vzero<V>();
-      if (valid) {
-        const V* kr = k + ((long long)col[e] * heads + h) * dv;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int f = L.sub + c * L.g;
-          if (f < dv) {
-            const V kf = kr[f];
-            raw[c] = vadd(qv[c], kf);
-            plg += vdot(av[c], lrelu(raw[c], slope));
-            pvd += vdot(kf, dyv[c]);
-          }
-        }
-      }
-      group_sum2(plg, pvd, L.g);
-      if (valid) {
-        const float alpha = expf(plg - mxr) / denr;
-        const float dlg = alpha * (pvd - snr);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          axpy_dlrelu(dqv[c], dlg, av[c], raw[c], slope);
-          axpy(dav[c], dlg, lrelu(raw[c], slope));
-        }
-      }
-    }
-    for (int off = L.g; off < 32; off <<= 1) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) add_xor(dqv[c], off);
-    }
-    if (L.grp == 0) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = L.sub + c * L.g;
-        if (f < dv) dq[rh * dv + f] = dqv[c];
-      }
-    }
-  }
-  for (int off = L.g; off < 32; off <<= 1) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) add_xor(dav[c], off);
-  }
-  if (L.grp == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int f = L.sub + c * L.g;
-      if (f < dv) da_part[gw * dv + f] = dav[c];
-    }
-  }
-}
-
-// K10's second launch: da[f, h] = sum over the warps w of head h (w = h,
-// h + H, ...) of da_part[w, f]. One warp per entry of da [O, H]; lane i
-// adds the shares w = h + H * (i + 32 j) in order of j, then a fixed
-// shuffle tree adds the lanes: the same order in every run.
-__global__ void __launch_bounds__(kThreads)
-gatv2_da_reduce_kernel(const float* __restrict__ da_part,
-                       float* __restrict__ da, int warps, int heads, int o) {
-  const long long j =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (j >= (long long)o * heads) return;   // warp-uniform
-  const int f = (int)(j / heads), h = (int)(j % heads);
-  const int lane = threadIdx.x & 31;
-  float acc = 0.f;
-  for (long long w = h + (long long)heads * lane; w < warps;
-       w += 32LL * heads)
-    acc += da_part[w * o + f];
-  acc = warp_sum(acc);
-  if (lane == 0) da[j] = acc;
 }
 
 // ---- dot attention: K6, K7, K8 ---------------------------------------------
@@ -1436,6 +1257,297 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
   });
 }
 
+// K10, replacing _gatv2_bwd_fwd_kernel. Over the receiver CSR, row r, head
+// h, with alpha_e and dlg_e as in K11:
+//   dq[r] = sum_e dlg_e * a * lrelu'(raw_e),   da[:, h] += sum_e dlg_e * act_e
+// K9's receiver walk in K8's rows: heads in the grid's second dimension, so
+// the resident warps gather one head's slice of k (16 MB at N = 131,072, H
+// = 4, O = 32, which the L2 holds); R rows per warp, the window of sender
+// indices loaded ahead, the hub switch (walk_rows); each row's q, dy, mx,
+// den and s_n loaded once before its edges; each group loads U edges' k
+// rows before it reduces any of their dots, and reduces the 2U dots in one
+// shuffle tree. a, dq and this warp's share of da stay in registers. da
+// with no atomics: the block's 8 warps (all of head h) put their shares in
+// shared memory, and the block adds them in warp order and writes one
+// partial per entry to da_part [H, O, blocks], the blocks of a head side
+// by side for gatv2_da_reduce_kernel to read in order. The first port gave
+// a (row, head) pair a warp in a persistent grid, heads interleaved, and
+// waited on col[e], then the k row, then the tree, one edge at a time.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
+                    const int* __restrict__ col, const V* __restrict__ q,
+                    const V* __restrict__ k, const float* __restrict__ a,
+                    const float* __restrict__ mx,
+                    const float* __restrict__ den,
+                    const float* __restrict__ s_n, const V* __restrict__ dy,
+                    V* __restrict__ dq, float* __restrict__ da_part,
+                    int n_rows, int heads, int dv, int log_g, int log_rows,
+                    float slope) {
+  extern __shared__ float da_warps[];        // [8 warps][O floats]
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  V av[NC], dav[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = sub + c * g;
+    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
+    dav[c] = vzero<V>();
+  }
+  const int rb = row_block(n_rows, log_rows);
+  if (rb >= 0) {                    // warp-uniform; every warp meets below
+    walk_rows(indptr, rb, lane, n_rows, log_rows,
+              [&](int row, int beg, int len, int longest, int log_seg) {
+      const Seg S(lane, log_seg, log_g);
+      const bool live = row < n_rows;
+      const long long rh = (long long)row * heads + h;
+      V qv[NC], dyv[NC], dqa[NC];
+      // q, dy and dq stream past the L2 (evict-first), which keeps the
+      // head's slice of k that the pass gathers from
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = sub + c * g;
+        qv[c] = live && f < dv ? __ldcs(q + rh * dv + f) : vzero<V>();
+        dyv[c] = live && f < dv ? __ldcs(dy + rh * dv + f) : vzero<V>();
+        dqa[c] = vzero<V>();
+      }
+      const float mxr = live ? mx[rh] : 0.f, denr = live ? den[rh] : 1.f;
+      const float snr = live ? s_n[rh] : 0.f;
+      int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
+      for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+        const int nc =
+            w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
+        const int cnt = min(S.seg, longest - w0);
+        for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+          V raw[U][NC];
+          float plg[U], pvd[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {   // the gathers of U edges first
+            const int j = S.pos(j0, u);
+            const int src = __shfl_sync(kFull, c, S.holder(j));
+            ok[u] = live && j < S.seg && w0 + j < len;
+            const long long sh = (long long)src * heads + h;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              const int f = sub + cc * g;
+              raw[u][cc] = ok[u] && f < dv ? k[sh * dv + f] : vzero<V>();
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            plg[u] = 0.f;
+            pvd[u] = 0.f;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              pvd[u] += vdot(raw[u][cc], dyv[cc]);
+              raw[u][cc] = vadd(qv[cc], raw[u][cc]);
+              plg[u] += vdot(av[cc], lrelu(raw[u][cc], slope));
+            }
+          }
+          for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              plg[u] += __shfl_xor_sync(kFull, plg[u], off);
+              pvd[u] += __shfl_xor_sync(kFull, pvd[u], off);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (!ok[u]) continue;
+            const float alpha = expf(plg[u] - mxr) / denr;
+            const float dlg = alpha * (pvd[u] - snr);
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              axpy_dlrelu(dqa[cc], dlg, av[cc], raw[u][cc], slope);
+              axpy(dav[cc], dlg, lrelu(raw[u][cc], slope));
+            }
+          }
+        }
+        c = nc;
+      }
+      // the groups' lanes of one vector are G apart, within the row's lanes
+      for (int off = g; off < S.seg; off <<= 1) {
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) add_xor(dqa[cc], off);
+      }
+      if (live && S.grp == 0) {
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          const int f = sub + cc * g;
+          if (f < dv) __stcs(dq + rh * dv + f, dqa[cc]);
+        }
+      }
+    });
+  }
+  // this warp's share of da[:, h]: the lanes of one vector are G apart
+  for (int off = g; off < 32; off <<= 1) {
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) add_xor(dav[cc], off);
+  }
+  V* mine = reinterpret_cast<V*>(da_warps) + (threadIdx.x >> 5) * dv;
+  if (lane < g) {
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      const int f = sub + cc * g;
+      if (f < dv) mine[f] = dav[cc];
+    }
+  }
+  __syncthreads();
+  const int o = dv * (int)(sizeof(V) / sizeof(float));
+  for (int f = threadIdx.x; f < o; f += kThreads) {   // the warps in order
+    float t = 0.f;
+    for (int w = 0; w < kWarpsPerBlock; ++w) t += da_warps[w * o + f];
+    da_part[((long long)h * o + f) * gridDim.x + blockIdx.x] = t;
+  }
+}
+
+// K10's second launch: da[f, h] = the sum over blocks b of da_part[h, f, b].
+// One block per entry: thread t adds b = t, t + 256, ... in order, a fixed
+// shuffle tree adds each warp's lanes, and thread 0 the 8 warps in order:
+// the same bits in every run.
+__global__ void __launch_bounds__(kThreads)
+gatv2_da_reduce_kernel(const float* __restrict__ da_part,
+                       float* __restrict__ da, int blocks, int heads, int o) {
+  __shared__ float warp_sums[kWarpsPerBlock];
+  const int f = blockIdx.x, h = blockIdx.y;
+  const float* p = da_part + ((long long)h * o + f) * blocks;
+  float acc = 0.f;
+  for (int b = threadIdx.x; b < blocks; b += kThreads) acc += p[b];
+  acc = warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kWarpsPerBlock; ++w) t += warp_sums[w];
+    da[(long long)f * heads + h] = t;
+  }
+}
+
+// K5, replacing _gat_bwd_rev_kernel. Over the sender CSR, row s (col holds
+// the receivers r_e), head h:
+//   alpha_e = exp(lrelu(raw_e) - mx[r]) / den[r],  raw_e = pi[r] + pj[s]
+//   dv[s]  = sum_e alpha_e * dy[r_e]
+//   dpj[s] = sum_e alpha_e * (<v[s], dy[r_e]> - s_n[r_e]) * lrelu'(raw_e)
+// K8's sender walk with a scalar logit: heads in the grid's second
+// dimension, so the resident warps gather one head's slice of dy (16 MB at
+// N = 131,072, H = 4, D = 32); R rows per warp, the window of receiver
+// indices loaded ahead, the hub switch (walk_rows); each group loads U
+// edges' receiver scalars and dy rows before it uses any of them. v[s]
+// stays in registers; each lane adds w_e * (its share of <v[s], dy[r_e]>)
+// to its own partial of dpj, with no shuffle per edge, and one fixed tree
+// over the row's lanes closes it. With stats, each receiver's (pi, mx, den,
+// s_n) come packed as one float4 [rows, H, 4]: one 16-byte load an edge in
+// place of four 4-byte ones. Rows wider than NC * G vectors (256 at most)
+// take passes of NC * G vectors, each walking the row's edges again.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
+                   const float* __restrict__ pi, const float* __restrict__ pj,
+                   const V* __restrict__ v, const float* __restrict__ mx,
+                   const float* __restrict__ den,
+                   const float* __restrict__ s_n,
+                   const float4* __restrict__ stats, const V* __restrict__ dy,
+                   float* __restrict__ dpj, V* __restrict__ dv_out,
+                   int n_rows, int heads, int dv, int log_g, int log_rows,
+                   float slope) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long sh = (long long)row * heads + h;
+    const float pjs = live ? pj[sh] : 0.f;
+    float acc_pj = 0.f;   // this lane's share of dpj[s]
+    // at least one pass, so that dpj is summed when D == 0
+    for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
+      V vs[NC], acc[NC];
+      // v and dv stream past the L2 (evict-first), which keeps the head's
+      // slice of dy that the pass gathers from
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = f0 + sub + c * g;
+        vs[c] = live && f < dv ? __ldcs(v + sh * dv + f) : vzero<V>();
+        acc[c] = vzero<V>();
+      }
+      int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
+      for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+        const int nc =
+            w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
+        const int cnt = min(S.seg, longest - w0);
+        for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+          V dyg[U][NC];
+          float pir[U], mxr[U], denr[U], snr[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {   // the loads of U edges first
+            const int j = S.pos(j0, u);
+            const int r = __shfl_sync(kFull, c, S.holder(j));
+            ok[u] = live && j < S.seg && w0 + j < len;
+            const long long rh = (long long)r * heads + h;
+            if (stats) {   // one 16-byte load for the four (uniform)
+              const float4 st =
+                  ok[u] ? stats[rh] : make_float4(0.f, 0.f, 1.f, 0.f);
+              pir[u] = st.x;
+              mxr[u] = st.y;
+              denr[u] = st.z;
+              snr[u] = st.w;
+            } else {
+              pir[u] = ok[u] ? pi[rh] : 0.f;
+              mxr[u] = ok[u] ? mx[rh] : 0.f;
+              denr[u] = ok[u] ? den[rh] : 1.f;
+              snr[u] = ok[u] ? s_n[rh] : 0.f;
+            }
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              const int f = f0 + sub + cc * g;
+              dyg[u][cc] = ok[u] && f < dv ? dy[rh * dv + f] : vzero<V>();
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (!ok[u]) continue;
+            const float raw = pir[u] + pjs;
+            const float alpha = expf(lrelu(raw, slope) - mxr[u]) / denr[u];
+            const float w = alpha * dlrelu(raw, slope);
+            float part = 0.f;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              axpy(acc[cc], alpha, dyg[u][cc]);
+              part += vdot(vs[cc], dyg[u][cc]);
+            }
+            acc_pj = fmaf(w, part, acc_pj);
+            if (f0 == 0 && sub == 0) acc_pj -= w * snr[u];   // once an edge
+          }
+        }
+        c = nc;
+      }
+      // the groups' lanes of one vector are G apart, within the row's lanes
+      for (int off = g; off < S.seg; off <<= 1) {
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) add_xor(acc[cc], off);
+      }
+      if (live && S.grp == 0) {
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          const int f = f0 + sub + cc * g;
+          if (f < dv) __stcs(dv_out + sh * dv + f, acc[cc]);
+        }
+      }
+    }
+    for (int off = 1; off < S.seg; off <<= 1)   // the row's lanes
+      acc_pj += __shfl_xor_sync(kFull, acc_pj, off);
+    if (live && S.sl == 0) dpj[sh] = acc_pj;
+  });
+}
+
 int log_group(int dv) {
   int lg = 0;
   while ((1 << lg) < dv && lg < 5) ++lg;
@@ -1482,23 +1594,6 @@ int launch_gatv2_softmax(const int* indptr, const int* col, const float* q,
         indptr, col, reinterpret_cast<const V*>(q),
         reinterpret_cast<const V*>(k), a, reinterpret_cast<V*>(num), m, s,
         n_rows, heads, dv, log_group(dv), slope);
-  });
-}
-
-template <typename V>
-int launch_gatv2_bwd_dq(const int* indptr, const int* col, const float* q,
-                        const float* k, const float* a, const float* mx,
-                        const float* den, const float* s_n, const float* dy,
-                        float* dq, float* da_part, int n_rows, int heads,
-                        int dv, unsigned blocks, float slope,
-                        cudaStream_t st) {
-  return with_chunks(dv, [&](auto nc) {
-    gatv2_bwd_dq_kernel<V, decltype(nc)::value><<<blocks, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const V*>(q),
-        reinterpret_cast<const V*>(k), a, mx, den, s_n,
-        reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dq),
-        reinterpret_cast<V*>(da_part), n_rows, heads, dv, log_group(dv),
-        slope);
   });
 }
 
@@ -1591,9 +1686,9 @@ int with_strip_instances(int unroll, int reg_cap, Go&& go) {
 // The shipped instances, from chip_smoke.py --sweep (PERF.md §6), as
 // ops/cuda/edge_softmax.py's _DOT_*, _K8_* and _K11_* constants pick them:
 // rows of one register chunk take edges in flight at 64 registers (K8 and
-// K11 2; K6 and K7 4 for groups of a 128-byte line or more, 2 for narrower
-// ones), wider rows one edge, uncapped (two chunks of two edges at 64
-// registers spill); strips 4 gathers in flight, uncapped.
+// K11 2; K6, K7, K10 and K5 4 for groups of a 128-byte line or more, 2 for
+// narrower ones), wider rows one edge, uncapped (two chunks of two edges
+// at 64 registers spill); strips 4 gathers in flight, uncapped.
 struct K8Pick {
   static constexpr bool holds(int nc, int u, int cap) {
     return nc == 1 ? u == 2 && cap == 64 : u == 1 && cap == 0;
@@ -1609,6 +1704,8 @@ struct RecvPick {
     return nc == 1 ? (u == 2 || u == 4) && cap == 64 : u == 1 && cap == 0;
   }
 };
+using K10Pick = RecvPick;
+using K5Pick = RecvPick;
 struct StripPick {
   static constexpr int kUnroll = 4;
   static constexpr int kCap = 0;
@@ -1806,6 +1903,59 @@ int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
       });
 }
 
+// K10 in rows (see gatv2_bwd_dq_kernel), at the instances
+// with_row_instances holds; the block's warps share O floats each of
+// dynamic shared memory.
+template <typename V>
+int launch_gatv2_bwd_dq(const int* indptr, const int* col, const float* q,
+                        const float* k, const float* a, const float* mx,
+                        const float* den, const float* s_n, const float* dy,
+                        float* dq, float* da_part, int n_rows, int heads,
+                        int dv, int log_rows, int unroll, int reg_cap,
+                        float slope, cudaStream_t st) {
+  const int lg = log_group(dv);
+  if (!dot_layout_ok(lg, log_rows, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  const size_t smem = sizeof(V) * kWarpsPerBlock * dv;
+  return with_row_instances<K10Pick>(
+      dv, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        gatv2_bwd_dq_kernel<V, decltype(nc)::value, decltype(un)::value,
+                            decltype(minb)::value>
+            <<<grid, kThreads, smem, st>>>(
+                indptr, col, reinterpret_cast<const V*>(q),
+                reinterpret_cast<const V*>(k), a, mx, den, s_n,
+                reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dq),
+                da_part, n_rows, heads, dv, lg, log_rows, slope);
+      });
+}
+
+// K5 in rows (see gat_bwd_rev_kernel), at the instances with_row_instances
+// holds: rows up to 256 vectors in registers, wider ones in passes of 256.
+template <typename V>
+int launch_gat_bwd_rev(const int* indptr, const int* col, const float* pi,
+                       const float* pj, const float* v, const float* mx,
+                       const float* den, const float* s_n,
+                       const float* stats, const float* dy, float* dpj,
+                       float* dv_out, int n_rows, int heads, int dv,
+                       int log_rows, int unroll, int reg_cap, float slope,
+                       cudaStream_t st) {
+  const int wide = dv < 256 ? dv : 256;
+  const int lg = log_group(wide);
+  if (!dot_layout_ok(lg, log_rows, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  return with_row_instances<K5Pick>(
+      wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        gat_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
+                           decltype(minb)::value><<<grid, kThreads, 0, st>>>(
+            indptr, col, pi, pj, reinterpret_cast<const V*>(v), mx, den, s_n,
+            reinterpret_cast<const float4*>(stats),
+            reinterpret_cast<const V*>(dy), dpj, reinterpret_cast<V*>(dv_out),
+            n_rows, heads, dv, lg, log_rows, slope);
+      });
+}
+
 bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
   if (o % 4 != 0 || d % 4 != 0) return false;
   for (const void* p : rows)
@@ -1885,27 +2035,28 @@ int gat_bwd_dpi_f32(const int* indptr, const int* col, const float* pi,
 }
 
 // K5. Over the sender CSR of n_rows senders: dpj [n_rows, H] and
-// dv [n_rows, H, d].
+// dv [n_rows, H, d]; pi, mx, den, s_n and dy are the receivers'. stats
+// (NULL: none) packs pi, mx, den and s_n as [rows, H, 4], 16-byte aligned,
+// read in their place. Any d: rows of more than 256 vectors (float4 when d
+// % 4 == 0 and v, dy and dv are 16-byte aligned) take passes of 256.
+// log_rows, unroll and reg_cap as K11 (see with_row_instances and K5Pick
+// for the instances built).
 int gat_bwd_rev_f32(const int* indptr, const int* col, const float* pi,
                     const float* pj, const float* v, const float* mx,
-                    const float* den, const float* s_n, const float* dy,
-                    float* dpj, float* dv, int n_rows, int heads, int d,
+                    const float* den, const float* s_n, const float* stats,
+                    const float* dy, float* dpj, float* dv, int n_rows,
+                    int heads, int d, int log_rows, int unroll, int reg_cap,
                     float slope, void* stream) {
+  if (!aligned16(stats)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(n_rows, heads);
-  if (d % 4 == 0 && aligned16(v) && aligned16(dy) && aligned16(dv)) {
-    const int dvec = d / 4;
-    gat_bwd_rev_kernel<float4><<<nb, kThreads, 0, st>>>(
-        indptr, col, pi, pj, reinterpret_cast<const float4*>(v), mx, den, s_n,
-        reinterpret_cast<const float4*>(dy), dpj,
-        reinterpret_cast<float4*>(dv), n_rows, heads, dvec, log_group(dvec),
-        slope);
-  } else {
-    gat_bwd_rev_kernel<float><<<nb, kThreads, 0, st>>>(
-        indptr, col, pi, pj, v, mx, den, s_n, dy, dpj, dv, n_rows, heads, d,
-        log_group(d), slope);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d % 4 == 0 && aligned16(v) && aligned16(dy) && aligned16(dv))
+    return launch_gat_bwd_rev<float4>(indptr, col, pi, pj, v, mx, den, s_n,
+                                      stats, dy, dpj, dv, n_rows, heads,
+                                      d / 4, log_rows, unroll, reg_cap, slope,
+                                      st);
+  return launch_gat_bwd_rev<float>(indptr, col, pi, pj, v, mx, den, s_n,
+                                   stats, dy, dpj, dv, n_rows, heads, d,
+                                   log_rows, unroll, reg_cap, slope, st);
 }
 
 // K9. Over the receiver CSR of n_rows receivers: q [n_rows, H, d],
@@ -1925,52 +2076,35 @@ int gatv2_softmax_f32(const int* indptr, const int* col, const float* q,
 }
 
 // K10, first launch. Over the receiver CSR: dq [n_rows, H, d] and
-// da_part [8 * blocks, d], each warp's share of da. 8 * blocks must be a
-// multiple of H. Widths as K9.
+// da_part [H, d, blocks], each block's share of da (blocks: the grid's
+// first dimension, ceil(ceil(n_rows / 2^log_rows) / 8)). Widths as K9;
+// log_rows, unroll and reg_cap as K11 (see with_row_instances and K10Pick
+// for the instances built).
 int gatv2_bwd_dq_f32(const int* indptr, const int* col, const float* q,
                      const float* k, const float* a, const float* mx,
                      const float* den, const float* s_n, const float* dy,
                      float* dq, float* da_part, int n_rows, int heads, int d,
-                     int blocks, float slope, void* stream) {
-  if (blocks <= 0 || (kWarpsPerBlock * (long long)blocks) % heads != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+                     int log_rows, int unroll, int reg_cap, float slope,
+                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(dy) &&
-      aligned16(dq) && aligned16(da_part))
+      aligned16(dq))
     return launch_gatv2_bwd_dq<float4>(indptr, col, q, k, a, mx, den, s_n, dy,
                                        dq, da_part, n_rows, heads, d / 4,
-                                       (unsigned)blocks, slope, st);
+                                       log_rows, unroll, reg_cap, slope, st);
   return launch_gatv2_bwd_dq<float>(indptr, col, q, k, a, mx, den, s_n, dy,
-                                    dq, da_part, n_rows, heads, d,
-                                    (unsigned)blocks, slope, st);
+                                    dq, da_part, n_rows, heads, d, log_rows,
+                                    unroll, reg_cap, slope, st);
 }
 
-// K10's blocks that stay resident on one SM at once, for rows of d floats
-// (vec: float4 loads), so that its grid can be one wave: its warps stride
-// over the tasks, and a second, partial wave would leave SMs idle at the
-// end. Returns -1 for rows wider than the kernels take.
-int gatv2_bwd_dq_blocks_per_sm(int d, int vec) {
-  int per_sm = -1;
-  const int dv = vec ? d / 4 : d;
-  const int rc = with_chunks(dv, [&](auto nc) {
-    constexpr int NC = decltype(nc)::value;
-    if (vec)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gatv2_bwd_dq_kernel<float4, NC>, kThreads, 0);
-    else
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gatv2_bwd_dq_kernel<float, NC>, kThreads, 0);
-  });
-  return rc == 0 ? per_sm : -1;
-}
-
-// K10, second launch: da [d, H] from da_part [warps, d].
-int gatv2_da_reduce_f32(const float* da_part, float* da, int warps, int heads,
-                        int d, void* stream) {
+// K10, second launch: da [d, H] from da_part [H, d, blocks].
+int gatv2_da_reduce_f32(const float* da_part, float* da, int blocks,
+                        int heads, int d, void* stream) {
+  if (d <= 0 || heads <= 0 || heads >= 65536)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(d, heads);
-  gatv2_da_reduce_kernel<<<nb, kThreads, 0, st>>>(da_part, da, warps, heads,
-                                                  d);
+  gatv2_da_reduce_kernel<<<dim3(d, heads), kThreads, 0, st>>>(
+      da_part, da, blocks, heads, d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,15 +10,16 @@ a CSR grouping (``csrc/edge_softmax.cu``):
   edge values (``col=None``), the numerator scaled by a dropout mask.
 - K3 ``gat_softmax``: the same with GAT's logits
   ``leaky_relu(pi[r] + pj[s])`` computed in the kernel.
-- K4 ``gat_bwd_dpi`` (receiver CSR) and K5 ``gat_bwd_rev`` (sender CSR):
-  GAT's backward, recomputing each edge's attention weight from per-node
-  scalars.
+- K4 ``gat_bwd_dpi`` (receiver CSR) and K5 ``gat_bwd_rev`` (sender CSR,
+  in K8's rows: :func:`_gat_bwd_rev_layout`): GAT's backward, recomputing
+  each edge's attention weight from per-node scalars.
 - K9 ``gatv2_softmax``: GATv2's logits ``<a_h, leaky_relu(q[r] + k[s])>``
   with the values ``k[s]``, one pass over each row's edges.
 - K10 ``gatv2_bwd_dq`` (receiver CSR: ``dq`` and ``da``, the latter in two
-  launches, per-warp shares then a fixed-order sum) and K11
-  ``gatv2_bwd_rev`` (sender CSR: ``dk``, in K8's rows:
-  :func:`_gatv2_bwd_rev_layout`): GATv2's backward.
+  launches, per-block shares then a fixed-order sum; in K8's rows:
+  :func:`_gatv2_bwd_dq_layout`) and K11 ``gatv2_bwd_rev`` (sender CSR:
+  ``dk``, in K8's rows: :func:`_gatv2_bwd_rev_layout`): GATv2's
+  backward.
 - K6 ``dot_softmax``: dot-product logits ``lrelu(scale <q[r], k[s]>)``
   (the plain dot when ``slope`` is None) with the values ``v[s]``, and
   each edge's raw logit where asked (K7's residual); K7 ``dot_bwd_dq``
@@ -47,7 +48,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -104,6 +104,17 @@ _K8_REG_CAP = 64
 _K11_UNROLL = 2
 _K11_REG_CAP = 64
 _K11_PACK_BELOW = 128
+# K10 and K5 take K8's rows too, and for rows of one register chunk K6's
+# and K7's (edges in flight, register cap), the fastest for them too in
+# the same sweep: 4 edges for groups of a line, 2 for narrower ones; wider
+# rows one edge, uncapped. K10's rows take _K10_WINDOWS_PER_ROW index
+# windows on average (8 rows a warp at (1, 8) beat 4 by 10 %). K5's edge
+# groups of at most _K5_PACK_UP_TO bytes read the receivers' pi, mx, den
+# and s_n packed as one float4 each (an eager stack before the launch): at
+# (4, 32) and (1, 8) the packed layouts won, the stack included (PERF.md
+# §6); wider groups were not measured.
+_K10_WINDOWS_PER_ROW = 4
+_K5_PACK_UP_TO = 128
 _DOT_ROWS_LINE = (4, 64)
 _DOT_ROWS_NARROW = (2, 64)
 _DOT_STRIP_BYTES = 16 * 2**20
@@ -118,9 +129,9 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
     for fn, n_ptr, n_int, n_f32 in (("edge_softmax_f32", 8, 3, 0),
                                     ("gat_softmax_f32", 8, 3, 1),
                                     ("gat_bwd_dpi_f32", 10, 3, 1),
-                                    ("gat_bwd_rev_f32", 11, 3, 1),
+                                    ("gat_bwd_rev_f32", 12, 6, 1),
                                     ("gatv2_softmax_f32", 8, 3, 1),
-                                    ("gatv2_bwd_dq_f32", 11, 4, 1),
+                                    ("gatv2_bwd_dq_f32", 11, 6, 1),
                                     ("gatv2_da_reduce_f32", 2, 3, 0),
                                     ("gatv2_bwd_rev_f32", 11, 6, 1),
                                     ("dot_softmax_f32", 10, 9, 2),
@@ -129,8 +140,6 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * n_f32 + [ptr]
         f.restype = i32
-    lib.gatv2_bwd_dq_blocks_per_sm.argtypes = [i32, i32]
-    lib.gatv2_bwd_dq_blocks_per_sm.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -460,8 +469,42 @@ def _gat_bwd_dpi_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     return dpi
 
 
+def _rows_instance(wide: int, group_bytes: int) -> tuple[int, int]:
+    """``(edges in flight, register cap)`` of K5, K6, K7 and K10 in rows of
+    ``wide`` vectors in edge groups of ``group_bytes``: for rows of one
+    register chunk (at most 32 vectors) ``_DOT_ROWS_LINE`` for groups of a
+    128-byte line or more, ``_DOT_ROWS_NARROW`` for narrower ones; one
+    edge, uncapped, for wider rows."""
+    if wide > 32:
+        return 1, 0
+    return (_DOT_ROWS_LINE if group_bytes >= _DOT_LINE_BYTES
+            else _DOT_ROWS_NARROW)
+
+
+def _gat_bwd_rev_layout(dv: int, vec_bytes: int, n_rows: int,
+                        entries: int) -> tuple[int, int, int, int]:
+    """K5's ``(log_rows, unroll, reg_cap, packed)`` for a head of ``dv``
+    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
+    n_rows`` edges per sender on average: K8's rows per warp
+    (:func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K8_WINDOWS_PER_ROW``; rows wider than 256 vectors go in passes of
+    256, groups of 32 lanes), :func:`_rows_instance`, and the receivers'
+    scalars packed for groups of at most ``_K5_PACK_UP_TO`` bytes."""
+    wide = min(max(dv, 1), _MAX_VECTORS)
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
+    group = vec_bytes << log_g
+    return ((log_rows,) + _rows_instance(wide, group)
+            + (int(group <= _K5_PACK_UP_TO),))
+
+
 def _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
-                        slope):
+                        slope, layout=None):
+    """K5 at :func:`_gat_bwd_rev_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap, packed)``) from the sweep build of the
+    library, which holds every (unroll, reg_cap) instance (``build.load``).
+    ``packed`` stacks the receivers' ``(pi, mx, den, s_n)`` into ``[rows,
+    H, 4]`` for the kernel to read in one load an edge."""
     device, args = _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den,
                                  s_n, dy)
     n, heads, d = indptr.numel() - 1, pi.shape[1], dy.shape[2]
@@ -470,8 +513,15 @@ def _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     dv = torch.empty((n, heads, d), dtype=torch.float32, device=device)
     if n == 0 or heads == 0:
         return dpj, dv
-    _launch("gat_bwd_rev_f32", "k5", device, *args, _ptr(dpj), _ptr(dv), n,
-            heads, d, float(slope))
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(d, values_n, dy, dv)
+        layout = _gat_bwd_rev_layout(_vectors(d, vec), 16 if vec else 4, n,
+                                     col.numel())
+    stats = torch.stack((pi, mx, den, s_n), -1) if layout[3] else None
+    _launch("gat_bwd_rev_f32", "k5", device, *args[:8], _ptr(stats),
+            args[8], _ptr(dpj), _ptr(dv), n, heads, d, *layout[:3],
+            float(slope), sweep=sweep)
     return dpj, dv
 
 
@@ -525,29 +575,33 @@ def _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy):
 _WARPS_PER_BLOCK = 8     # kWarpsPerBlock of csrc/edge_softmax.cu
 
 
-@functools.cache
-def _dq_resident_blocks(index: int, d: int, vec: bool) -> int:
-    """How many blocks of K10 (for rows of ``d`` floats) the card ``index``
-    holds at once: the CUDA occupancy of its instantiation times the SMs."""
-    with torch.cuda.device(index):
-        per_sm = _lib().gatv2_bwd_dq_blocks_per_sm(d, int(vec))
-    if per_sm <= 0:
-        raise RuntimeError(f"no occupancy for gatv2_bwd_dq at O={d}")
-    return per_sm * torch.cuda.get_device_properties(
-        index).multi_processor_count
+def _gatv2_bwd_dq_layout(ov: int, vec_bytes: int, n_rows: int,
+                         entries: int) -> tuple[int, int, int]:
+    """K10's ``(log_rows, unroll, reg_cap)`` for a head of ``ov`` vectors
+    of ``vec_bytes`` (16: float4, 4: float) and ``entries / n_rows`` edges
+    per receiver on average: :func:`_windowed_rows` of ``G``-lane edge
+    groups at ``_K10_WINDOWS_PER_ROW``, and :func:`_rows_instance`."""
+    log_g = min((max(ov, 1) - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K10_WINDOWS_PER_ROW)
+    return (log_rows,) + _rows_instance(ov, vec_bytes << log_g)
 
 
-def _dq_blocks(tasks: int, heads: int, resident: int) -> int:
-    """K10's grid: blocks of 8 warps, one wave of the ``resident`` blocks
-    the card holds at once, or fewer when the ``tasks`` (row, head) pairs
-    need fewer warps, rounded up so that the warp count is a multiple of H:
-    each warp then keeps one head's share of ``da``."""
-    unit = heads // math.gcd(_WARPS_PER_BLOCK, heads)
-    want = min(-(-tasks // _WARPS_PER_BLOCK), resident)
-    return max(unit, -(-want // unit) * unit)
+def _dq_blocks(n_rows: int, log_rows: int) -> int:
+    """K10's blocks per head: 8 warps of ``2^log_rows`` rows each over the
+    ``n_rows`` receivers. The grid is that by H (one head a block, so every
+    warp keeps one head's share of ``da``), and each block writes one
+    partial of ``da`` per entry."""
+    row_blocks = -(-n_rows >> log_rows)
+    return -(-row_blocks // _WARPS_PER_BLOCK)
 
 
-def _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope):
+def _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
+                         layout=None):
+    """K10 at :func:`_gatv2_bwd_dq_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap)``) from the sweep build of the library,
+    which holds every (unroll, reg_cap) instance (``build.load``). The dq
+    walk writes each block's share of ``da`` to ``[H, O, blocks]`` scratch
+    (:func:`_dq_blocks`), which a second launch sums in a fixed order."""
     device, args = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy)
     n, heads, d = indptr.numel() - 1, q.shape[1], q.shape[2]
     _same_rows(n, q=q)
@@ -555,14 +609,18 @@ def _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope):
     da = torch.empty((d, heads), dtype=torch.float32, device=device)
     if n == 0 or heads == 0 or d == 0:
         return dq, da.zero_()
-    blocks = _dq_blocks(n * heads, heads, _dq_resident_blocks(
-        device.index, d, _float4_rows(d, q, k, dy)))
-    warps = _WARPS_PER_BLOCK * blocks
-    part = torch.empty((warps, d), dtype=torch.float32, device=device)
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(d, q, k, dy, dq)
+        layout = _gatv2_bwd_dq_layout(_vectors(d, vec), 16 if vec else 4, n,
+                                      col.numel())
+    blocks = _dq_blocks(n, layout[0])
+    part = torch.empty((heads, d, blocks), dtype=torch.float32,
+                       device=device)
     _launch("gatv2_bwd_dq_f32", "k10", device, *args, _ptr(dq), _ptr(part),
-            n, heads, d, blocks, float(slope))
+            n, heads, d, *layout, float(slope), sweep=sweep)
     _launch("gatv2_da_reduce_f32", "k10", device, _ptr(part), _ptr(da),
-            warps, heads, d)
+            blocks, heads, d, sweep=sweep)
     return dq, da
 
 
@@ -656,10 +714,7 @@ def _dot_recv_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
                                   _K8_WINDOWS_PER_ROW)) + _DOT_STRIP_INSTANCE
     log_g = min((wide - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
-    if wide > 32:
-        return 0, log_rows, 1, 0
-    return (0, log_rows) + (_DOT_ROWS_LINE if vec_bytes << log_g
-                            >= _DOT_LINE_BYTES else _DOT_ROWS_NARROW)
+    return (0, log_rows) + _rows_instance(wide, vec_bytes << log_g)
 
 
 def _strips(width: int, vec: bool) -> int:

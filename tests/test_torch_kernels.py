@@ -328,18 +328,45 @@ def test_gatv2_wrappers_validate_inputs():
 
 
 @pytest.mark.parametrize("heads", [1, 2, 3, 4, 5, 6, 8, 12, 16])
-def test_gatv2_dq_grid_keeps_one_head_per_warp(heads):
-    """K10's warps stride over the (row, head) tasks by the grid's warp
-    count, which must be a multiple of H; the grid is one wave of the
-    blocks the card holds at once (here 5 per SM on 132 SMs), or fewer
-    when the tasks need fewer warps, rounded up to a multiple of H."""
-    resident = 5 * 132
-    for tasks in (1, 7, 8 * heads, 1000 * heads, 131072 * heads):
-        blocks = ES._dq_blocks(tasks, heads, resident)
-        warps = 8 * blocks
-        assert warps % heads == 0
-        assert blocks < min(resident, -(-tasks // 8)) + heads
-        assert warps >= min(tasks, 8 * resident)
+def test_gatv2_dq_grid_keeps_one_head_per_warp(heads, monkeypatch):
+    """K10's grid is ``_dq_blocks`` blocks of 8 warps of ``2^log_rows``
+    receiver rows by H: every warp walks rows of the one head of its block,
+    the blocks cover every row once, and ``da``'s scratch holds one partial
+    per block and entry, ``[H, O, blocks]``, which the second launch reads
+    with the same block count."""
+    for n in (1, 7, 8, 1000, 131_072):
+        for log_rows in range(6):
+            blocks = ES._dq_blocks(n, log_rows)
+            rows = 8 << log_rows
+            assert (blocks - 1) * rows < n <= blocks * rows
+    libs = {False: [], True: []}
+
+    class _Lib:
+        def __init__(self, calls):
+            self.calls = calls
+
+        def __getattr__(self, name):
+            return lambda *args: self.calls.append((name, args)) or 0
+
+    monkeypatch.setattr(ES, "_lib", lambda sweep=False: _Lib(libs[sweep]))
+    monkeypatch.setattr(ES, "_call_on", lambda device, fn, *a: fn(*a, None))
+    allocs = []
+    empty = torch.empty
+    monkeypatch.setattr(ES.torch, "empty", lambda *a, **kw: allocs.append(
+        a[0]) or empty(*a, **kw))
+    g = _graph(10, "cpu", torch.float32)
+    n, o = g.num_nodes, 8
+    q, k, dy = (torch.randn(n, heads, o) for _ in range(3))
+    mx, den, s_n = (torch.randn(n, heads) for _ in range(3))
+    ES._gatv2_bwd_dq_kernel(g.indptr_r, g.col_r, q, k, torch.randn(o, heads),
+                            mx, den, s_n, dy, SLOPE)
+    (walk, walk_args), (reduce_, reduce_args) = libs[False]
+    log_rows = walk_args[14]
+    blocks = ES._dq_blocks(n, log_rows)
+    assert (walk, reduce_) == ("gatv2_bwd_dq_f32", "gatv2_da_reduce_f32")
+    assert walk_args[11:14] == (n, heads, o)
+    assert (heads, o, blocks) in allocs
+    assert reduce_args[2:5] == (blocks, heads, o)
 
 
 def test_gatv2_cpu_tensors_launch_nothing():

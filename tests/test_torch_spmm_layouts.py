@@ -1,23 +1,27 @@
 """The layouts of K1 (``spmm_csr_f32``), K2 (``spmm_sddmm_csr_f32``), K6
-(``dot_softmax_f32``), K7 (``dot_bwd_dq_f32``), K8 (``dot_bwd_rev_f32``) and
-K11 (``gatv2_bwd_rev_f32``): their choosers, the wrappers passing a layout
+(``dot_softmax_f32``), K7 (``dot_bwd_dq_f32``), K8 (``dot_bwd_rev_f32``),
+K11 (``gatv2_bwd_rev_f32``), K10 (``gatv2_bwd_dq_f32``) and K5
+(``gat_bwd_rev_f32``): their choosers, the wrappers passing a layout
 through, and (``gpu``-marked) every layout on the card against the plain
 versions.
 
 - CPU: :func:`~ops.cuda.spmm._spmm_layout`,
   :func:`~ops.cuda.spmm._spmm_sddmm_layout`,
   :func:`~ops.cuda.edge_softmax._dot_recv_layout`,
-  :func:`~ops.cuda.edge_softmax._dot_bwd_rev_layout` and
-  :func:`~ops.cuda.edge_softmax._gatv2_bwd_rev_layout` give a layout the
+  :func:`~ops.cuda.edge_softmax._dot_bwd_rev_layout`,
+  :func:`~ops.cuda.edge_softmax._gatv2_bwd_rev_layout`,
+  :func:`~ops.cuda.edge_softmax._gatv2_bwd_dq_layout` and
+  :func:`~ops.cuda.edge_softmax._gat_bwd_rev_layout` give a layout the
   kernels take for every width, head count and mean row length, empty
   graphs included; the wrappers hand that layout (or the caller's) to the
-  library call unchanged, with the scratch a strip layout needs; K2's
-  plain version takes heads as its per-head loop does.
+  library call unchanged, with the scratch a strip layout or K10's ``da``
+  needs and K5's and K11's packed scalars; K2's plain version takes heads
+  as its per-head loop does.
 - ``gpu``: each layout the sweep runs, on a graph with empty rows, a row of
   more than 32 edges and a row of more than 1024, against ``spmm_plain``,
   ``spmm_sddmm_plain``, ``dot_softmax_plain``, ``dot_bwd_dq_plain``,
-  ``dot_bwd_rev_plain`` and ``gatv2_bwd_rev_plain``; two runs of each
-  kernel give the same bits.
+  ``dot_bwd_rev_plain``, ``gatv2_bwd_rev_plain``, ``gatv2_bwd_dq_plain``
+  and ``gat_bwd_rev_plain``; two runs of each kernel give the same bits.
   This file imports no JAX, so on a machine with a card and no JAX it runs
   without the suite's conftest:
 
@@ -198,6 +202,86 @@ def test_gatv2_bwd_rev_layout_at_the_measured_shapes():
     assert ES._gatv2_bwd_rev_layout(32, 16, n, e) == (0, 2, 64, 0)
     assert ES._gatv2_bwd_rev_layout(64, 16, n, e) == (0, 1, 0, 0)
     assert ES._gatv2_bwd_rev_layout(7, 4, n, e) == (2, 2, 64, 1)
+
+
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_gatv2_bwd_dq_layout_is_valid(n_rows, mean):
+    """K10's chooser: rows per warp for the head's G lanes at
+    ``_K10_WINDOWS_PER_ROW`` index windows a row, and (U, cap) an instance
+    the shipped library holds (rows of one register chunk K6's and K7's
+    ``_DOT_ROWS_LINE`` for groups of a 128-byte line, ``_DOT_ROWS_NARROW``
+    for narrower ones; wider rows one edge uncapped), for every width up
+    to 256 vectors of float4 or float, at each mean row length and for an
+    empty graph."""
+    entries = round(mean * n_rows)
+    for vec_bytes in (4, 16):
+        for ov in range(1, 257):
+            log_rows, unroll, cap = ES._gatv2_bwd_dq_layout(
+                ov, vec_bytes, n_rows, entries)
+            assert 0 <= log_rows <= 5 - _log_g(ov)
+            assert log_rows == S._windowed_rows(_log_g(ov), n_rows, entries,
+                                                ES._K10_WINDOWS_PER_ROW)
+            line = vec_bytes << _log_g(ov) >= 128
+            assert (unroll, cap) == ((1, 0) if ov > 32 else
+                                     ES._DOT_ROWS_LINE if line else
+                                     ES._DOT_ROWS_NARROW)
+            assert (unroll, cap) in ((1, 0), (2, 64), (4, 64))
+
+
+def test_gatv2_bwd_dq_layout_at_the_measured_shapes():
+    """GATv2 layer 1 (H=4, O=32: 8 float4 vectors a head, one 128-byte
+    line) takes 4 rows per warp and 4 edges in flight at 64 registers, its
+    head layer (H=1, O=8: 2 vectors) 8 rows per warp and 2 edges: the
+    fastest of chip_smoke.py --sweep. (1, 128) one row per warp; rows of 64
+    vectors one edge at a time, uncapped."""
+    n, e = 131_072, 2_000_000
+    assert ES._gatv2_bwd_dq_layout(8, 16, n, e) == (2, 4, 64)
+    assert ES._gatv2_bwd_dq_layout(2, 16, n, e) == (3, 2, 64)
+    assert ES._gatv2_bwd_dq_layout(32, 16, n, e) == (0, 4, 64)
+    assert ES._gatv2_bwd_dq_layout(64, 16, n, e) == (0, 1, 0)
+    assert ES._gatv2_bwd_dq_layout(7, 4, n, e) == (2, 2, 64)
+
+
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_gat_bwd_rev_layout_is_valid(n_rows, mean):
+    """K5's chooser: K8's rows per warp for the head's G lanes (rows wider
+    than 256 vectors go in passes of 256, on groups of 32 lanes), (U, cap)
+    an instance the shipped library holds (as K10's) and the receivers'
+    scalars packed for edge groups of at most ``_K5_PACK_UP_TO`` bytes,
+    for every width up to 300 vectors of float4 or float, at each mean row
+    length and for an empty graph."""
+    entries = round(mean * n_rows)
+    for vec_bytes in (4, 16):
+        for dv in range(0, 301):
+            wide = min(max(dv, 1), 256)
+            group = vec_bytes << _log_g(wide)
+            log_rows, unroll, cap, packed = ES._gat_bwd_rev_layout(
+                dv, vec_bytes, n_rows, entries)
+            assert packed == int(group <= ES._K5_PACK_UP_TO)
+            assert 0 <= log_rows <= 5 - _log_g(wide)
+            assert log_rows == ES._dot_bwd_rev_layout(wide, wide, n_rows,
+                                                      entries)[0]
+            assert (unroll, cap) == ES._rows_instance(wide, group)
+            assert (unroll, cap) in ((1, 0), (2, 64), (4, 64))
+            assert wide <= 32 or (unroll, cap) == (1, 0)
+
+
+def test_gat_bwd_rev_layout_at_the_measured_shapes():
+    """GAT layer 1 (H=4, D=32: 8 float4 vectors a head, one 128-byte line)
+    and its head layer (H=1, D=8: 2 vectors) take 4 rows per warp, 4 and 2
+    edges in flight at 64 registers, and the receivers' scalars packed:
+    the fastest of chip_smoke.py --sweep, the stack included. (1, 128) one
+    row per warp, unpacked (groups of 512 bytes, not measured); rows of 64
+    vectors or more one edge at a time, uncapped."""
+    n, e = 131_072, 2_000_000
+    assert ES._gat_bwd_rev_layout(8, 16, n, e) == (2, 4, 64, 1)
+    assert ES._gat_bwd_rev_layout(2, 16, n, e) == (2, 2, 64, 1)
+    assert ES._gat_bwd_rev_layout(32, 16, n, e) == (0, 4, 64, 0)
+    assert ES._gat_bwd_rev_layout(64, 16, n, e) == (0, 1, 0, 0)
+    assert ES._gat_bwd_rev_layout(275, 16, n, e) == (0, 1, 0, 0)
+    assert ES._gat_bwd_rev_layout(7, 4, n, e) == (2, 2, 64, 1)
 
 
 def test_sweep_build_is_a_library_of_its_own():
@@ -388,6 +472,80 @@ def test_gatv2_bwd_rev_wrapper_passes_the_layout(monkeypatch, heads, o):
     assert calls[1][1][8] == st.data_ptr() and st.shape == (50, heads, 4)
     assert torch.equal(st[..., :3], torch.stack((mx, den, s_n), -1))
     assert ES.launches["k11"] == before + 2
+
+
+@pytest.mark.parametrize("heads,o", [(4, 32), (1, 8), (3, 7)])
+def test_gatv2_bwd_dq_wrapper_passes_the_layout(monkeypatch, heads, o):
+    """``_gatv2_bwd_dq_kernel`` passes ``_gatv2_bwd_dq_layout``'s choice
+    to the shipped library, or the caller's layout to the sweep build, as
+    the three integers after ``(rows, H, O)``; the dq walk gets scratch of
+    ``[H, O, blocks]`` for the blocks' shares of ``da``, and the second
+    launch, from the same library, reads it with the same block count and
+    writes ``da [O, H]``."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads * 7 + o)
+    indptr, col = _csr(rng, 40, 50)
+    q, dy = torch.randn(40, heads, o), torch.randn(40, heads, o)
+    k, a = torch.randn(50, heads, o), torch.randn(o, heads)
+    mx, den, s_n = (torch.randn(40, heads) for _ in range(3))
+    args = (indptr, col, q, k, a, mx, den, s_n, dy, 0.2)
+    allocs = []
+    empty = torch.empty
+    monkeypatch.setattr(ES.torch, "empty", lambda *a, **kw: allocs.append(
+        a[0]) or empty(*a, **kw))
+    before = ES.launches["k10"]
+    dq, da = ES._gatv2_bwd_dq_kernel(*args)
+    assert dq.shape == (40, heads, o) and da.shape == (o, heads)
+    ES._gatv2_bwd_dq_kernel(*args, layout=(0, 4, 64))
+    vec = o % 4 == 0
+    want = ES._gatv2_bwd_dq_layout(o // 4 if vec else o, 16 if vec else 4,
+                                   40, col.numel())
+    for lib, lay in ((libs[False], want), (libs[True], (0, 4, 64))):
+        (walk, walk_args), (red, red_args) = lib.calls
+        assert (walk, red) == ("gatv2_bwd_dq_f32", "gatv2_da_reduce_f32")
+        assert walk_args[11:17] == (40, heads, o) + lay
+        blocks = ES._dq_blocks(40, lay[0])
+        assert (heads, o, blocks) in allocs
+        assert red_args[0] == walk_args[10]
+        assert red_args[2:5] == (blocks, heads, o)
+    assert ES.launches["k10"] == before + 4
+
+
+@pytest.mark.parametrize("heads,d", [(4, 32), (1, 8), (3, 7)])
+def test_gat_bwd_rev_wrapper_passes_the_layout(monkeypatch, heads, d):
+    """``_gat_bwd_rev_kernel`` passes ``_gat_bwd_rev_layout``'s choice to
+    the shipped library, or the caller's layout to the sweep build, as the
+    three integers after ``(rows, H, D)``; a packed layout hands the kernel
+    ``(pi, mx, den, s_n)`` stacked as ``[rows, H, 4]`` after ``s_n``."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads * 3 + d)
+    indptr, col = _csr(rng, 40, 50)
+    pi, mx, den, s_n = (torch.randn(50, heads) for _ in range(4))
+    pj, v = torch.randn(40, heads), torch.randn(40, heads, d)
+    dy = torch.randn(50, heads, d)
+    args = (indptr, col, pi, pj, v, mx, den, s_n, dy, 0.2)
+    stacks = []
+    stack = torch.stack
+    monkeypatch.setattr(ES.torch, "stack", lambda *a, **kw: stacks.append(
+        stack(*a, **kw)) or stacks[-1])
+    before = ES.launches["k5"]
+    dpj, dv = ES._gat_bwd_rev_kernel(*args)
+    assert dpj.shape == (40, heads) and dv.shape == (40, heads, d)
+    ES._gat_bwd_rev_kernel(*args, layout=(0, 4, 64, 1))
+    vec = d % 4 == 0
+    want = ES._gat_bwd_rev_layout(d // 4 if vec else d, 16 if vec else 4,
+                                  40, col.numel())
+    calls = libs[False].calls + libs[True].calls
+    assert [c[1][15:18] for c in calls] == [want[:3], (0, 4, 64)]
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 1]
+    assert all(c[0] == "gat_bwd_rev_f32" for c in calls)
+    assert all(c[1][12:15] == (40, heads, d) for c in calls)
+    assert (calls[0][1][8] is None) == (not want[3])
+    st = stacks[-1]
+    assert calls[1][1][8] == st.data_ptr() and st.shape == (50, heads, 4)
+    assert torch.equal(st, stack((pi, mx, den, s_n), -1))
+    assert calls[1][1][9] == dy.data_ptr()
+    assert ES.launches["k5"] == before + 2
 
 
 @pytest.mark.parametrize("weighted", [True, False])
@@ -835,6 +993,90 @@ def test_gatv2_bwd_rev_layouts_on_card(heads, o):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o", [(1, 8), (4, 32), (1, 128), (2, 7),
+                                     (1, 1024)])
+def test_gatv2_bwd_dq_layouts_on_card(heads, o):
+    """K10 at every layout of the sweep build (K8's, :func:`_k8_layouts`)
+    and the default, over a bipartite receiver CSR (260 receivers of 300
+    senders, empty rows, rows of 40 and 1,100 edges), with the receivers'
+    row max and denominator from the forward and ``a`` at Glorot's scale,
+    against ``gatv2_bwd_dq_plain``: ``dq`` in float32, ``da`` against the
+    plain version in float64 (only the kernel's rounding counts); two runs
+    of each layout give the same bits, ``da`` included."""
+    _needs_card()
+    (ir, cr), _, _ = _groupings(heads * 100 + o + 1)
+    gen = torch.Generator(device="cuda").manual_seed(heads + o + 1)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, dy, k = rn(260, heads, o), rn(260, heads, o), rn(300, heads, o)
+    a = rn(o, heads) * (2.0 / (o + heads)) ** 0.5
+    num, m, s = ES.gatv2_softmax_plain(ir, cr, q, k, a, 0.2)
+    out, mx, den = ES.finalize_softmax(num, m, s, rn(260, heads),
+                                       rn(260, heads, o))
+    args = (ir, cr, q, k, a, mx, den, (out * dy).sum(-1), dy, 0.2)
+    dq_want = ES.gatv2_bwd_dq_plain(*args)[0]
+    da_want = ES.gatv2_bwd_dq_plain(*(
+        t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+        for t in args))[1]
+    assert (dq_want[200:] == 0).all()
+    ov = o // 4 if o % 4 == 0 else o
+    for lay in [None] + _k8_layouts(ov, ov):
+        first = ES._gatv2_bwd_dq_kernel(*args, layout=lay)
+        again = ES._gatv2_bwd_dq_kernel(*args, layout=lay)
+        torch.testing.assert_close(first[0], dq_want, **TOL)
+        torch.testing.assert_close(first[1].double(), da_want, **TOL)
+        for a_, b_ in zip(again, first):
+            torch.testing.assert_close(a_, b_, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+def _k5_layouts(dv):
+    """Every K5 layout of the sweep build: K8's (:func:`_k8_layouts`) for
+    rows of up to 256 vectors (wider ones go in passes of 256), each with
+    the receivers' scalars packed and not."""
+    wide = min(dv, 256)
+    return [lay + (packed,) for lay in _k8_layouts(wide, wide)
+            for packed in (0, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 8), (4, 32), (1, 128), (2, 7),
+                                     (1, 1100), (2, 300)])
+def test_gat_bwd_rev_layouts_on_card(heads, d):
+    """K5 at every layout of the sweep build (:func:`_k5_layouts`) and the
+    default, over a bipartite sender CSR (300 senders of 260 receivers,
+    empty rows, rows of 40 and 1,100 edges), with the receivers' row max
+    and denominator from the forward, against ``gat_bwd_rev_plain``; (1,
+    1100) takes two passes of 256 float4 vectors, (2, 300) scalar loads in
+    two passes of 256; two runs of the default give the same bits."""
+    _needs_card()
+    (ir, cr), (is_, cs, _), _ = _groupings(heads * 100 + d + 2)
+    gen = torch.Generator(device="cuda").manual_seed(heads + d + 2)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    pi, pj = rn(260, heads), rn(300, heads)
+    v, dy = rn(300, heads, d), rn(260, heads, d)
+    num, m, s = ES.gat_softmax_plain(ir, cr, pi, pj, v, 0.2)
+    out, mx, den = ES.finalize_softmax(num, m, s, rn(260, heads),
+                                       rn(260, heads, d))
+    args = (is_, cs, pi, pj, v, mx, den, (out * dy).sum(-1), dy, 0.2)
+    want = ES.gat_bwd_rev_plain(*args)
+    assert (want[0][200:] == 0).all() and (want[1][200:] == 0).all()
+    first, again = ES.gat_bwd_rev(*args), ES.gat_bwd_rev(*args)
+    for a_, b_, c_ in zip(first, want, again):
+        torch.testing.assert_close(a_, b_, **TOL)
+        torch.testing.assert_close(c_, a_, rtol=0, atol=0)
+    for lay in _k5_layouts(d // 4 if d % 4 == 0 else d):
+        for a_, b_ in zip(ES._gat_bwd_rev_kernel(*args, layout=lay), want):
+            torch.testing.assert_close(a_, b_, **TOL)
+    torch.cuda.synchronize()
+
+
 def _dot_recv_layouts(ov, dv, vec):
     """Every K6 and K7 layout of the sweep build: rows as K8's
     (:func:`_k8_layouts`), and strips of one line at each rows per warp the
@@ -907,8 +1149,9 @@ def test_shipped_build_holds_only_the_chosen_instances():
     """The shipped libraries launch the (unroll, reg_cap) pairs the
     choosers pick and refuse the sweep's others (nothing runs): K1 (2, 0)
     and (8, 64); K2 (2, 0) and (4, 64); K8 and K11 (2, 64) for rows of one
-    register chunk, (1, 0) wider; K6 and K7 in rows (2, 64) and (4, 64)
-    for rows of one register chunk, (1, 0) wider, and in strips (4, 0)."""
+    register chunk, (1, 0) wider; K6, K7, K10 and K5 in rows (2, 64) and
+    (4, 64) for rows of one register chunk, (1, 0) wider, and K6 and K7 in
+    strips (4, 0)."""
     _needs_card()
     (ir, cr), (is_, cs, _), _ = _groupings(2)
     x = torch.randn(260, 8, device="cuda")
@@ -952,6 +1195,29 @@ def test_shipped_build_holds_only_the_chosen_instances():
                                   dk)),
             300, 1, o, 0, unroll, cap, 0.2)
         assert (code == 0) == ok, ("k11", o, unroll, cap, code)
+    for o, (unroll, cap), ok in ((8, (2, 64), True), (8, (4, 64), True),
+                                 (8, (1, 0), False), (8, (4, 0), False),
+                                 (256, (1, 0), True), (256, (2, 64), False)):
+        q, k, v, dy = (torch.randn(n, 1, o, device="cuda")
+                       for n in (260, 300, 300, 260))
+        mx, den, s_n = (torch.randn(260, 1, device="cuda") for _ in range(3))
+        a = torch.randn(o, 1, device="cuda")
+        dq, dv = torch.empty_like(q), torch.empty_like(v)
+        part = torch.empty(o * ES._dq_blocks(260, 0), device="cuda")
+        code = S._call_on(
+            x.device, ES._lib().gatv2_bwd_dq_f32,
+            *(S._ptr(t) for t in (ir, cr, q, k, a, mx, den, s_n, dy, dq,
+                                  part)),
+            260, 1, o, 0, unroll, cap, 0.2)
+        assert (code == 0) == ok, ("k10", o, unroll, cap, code)
+        pj, dpj = torch.randn(300, 1, device="cuda"), torch.empty(
+            300, 1, device="cuda")
+        code = S._call_on(
+            x.device, ES._lib().gat_bwd_rev_f32,
+            *(S._ptr(t) for t in (is_, cs, mx, pj, v, mx, den, s_n, None, dy,
+                                  dpj, dv)),
+            300, 1, o, 0, unroll, cap, 0.2)
+        assert (code == 0) == ok, ("k5", o, unroll, cap, code)
     n_edges = cr.numel()
     raw = torch.randn(n_edges, 1, device="cuda")
     for o, (strips, unroll, cap), ok in (
