@@ -90,14 +90,14 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a, 3b),
 of GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j) and graph classification (3k), with K1's, K2's, K5's,
-K6's, K7's, K8's, K10's and K11's device time per step. ``--sweep`` times
-K1, K2, K5, K6, K7, K8, K10, K11, K14 and its backward at every layout (the
-measurement behind the wrappers' choices; each layout but K14's held to the
-plain version first), K1's gather-rate ceiling at D=128, and K1, K2, K6,
-K7, K8 and K11 at every rows per warp and K10 and K5 at one row per warp on
-an R-MAT graph of skewed degrees (``--sweep k5,k10,skew`` runs the named
-sweeps only);
+(3i), EdgeConv (3j) and graph classification (3k), with K1's, K2's, K3's,
+K5's, K6's, K7's, K8's, K9's, K10's and K11's device time per step.
+``--sweep`` times K1, K2, K3, K5, K6, K7, K8, K9, K10, K11, K14 and its
+backward at every layout (the measurement behind the wrappers' choices;
+each layout but K14's held to the plain version first), K1's gather-rate
+ceiling at D=128, and K1, K2, K6, K7, K8 and K11 at every rows per warp and
+K10, K5, K9 and K3 at one row per warp on an R-MAT graph of skewed degrees
+(``--sweep k3,k9,skew`` runs the named sweeps only);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
 and the train phases 3b, 3d and 3f, with ``--profile`` their profiles:
 this script copied into an older checkout profiles that checkout's
@@ -1114,7 +1114,8 @@ def k2_sweep(g) -> list:
 
 GATV2_SHAPES = ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D))
 # the sweeps of --sweep (K6 and K7 are one, recv_sweep; skew the R-MAT graph)
-SWEEPS = ("k1", "k2", "k5", "k6_k7", "k8", "k10", "k11", "k14", "skew")
+SWEEPS = ("k1", "k2", "k3", "k5", "k6_k7", "k8", "k9", "k10", "k11", "k14",
+          "skew")
 
 
 def _k11_args(ES, g, h, o, gen):
@@ -1243,6 +1244,90 @@ def k10_sweep(g) -> list:
             log(f"  K10 {hd:<12} {lay} {t:.4f} ms (= {walk:.4f} + "
                 f"{red:.4f}){' (chosen)' * row['chosen']}")
         del args, dq_ref, da64
+    return out
+
+
+def _k9_args(g, h, o, gen):
+    """K9's arguments at (H, O) on ``g``: random q and k, ``a`` at Glorot's
+    scale (so that the logits spread as in training)."""
+    dev, n = g.device, g.num_nodes
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    a = rn(o, h) * (2.0 / (o + h)) ** 0.5
+    return g.indptr_r, g.col_r, rn(n, h, o), rn(n, h, o), a, 0.2
+
+
+def _k3_args(g, h, d, gen):
+    """K3's arguments at (H, D) on ``g``: random pi, pj and v."""
+    dev, n = g.device, g.num_nodes
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    return g.indptr_r, g.col_r, rn(n, h), rn(n, h), rn(n, h, d), 0.2
+
+
+def _forward_sweep(key, fn, plain, args, hd, layouts, chosen, names):
+    """Hold ``fn(*args, layout=lay)`` to ``plain(*args)`` at RTOL / ATOL
+    for each of ``layouts``, then time it (device ms): one row each."""
+    ref = plain(*args)
+    out = []
+    for lay in layouts:
+        got = fn(*args, layout=lay)
+        err = max(compare(f"{key.upper()} {hd} {lay} {nm}", a, b, quiet=True)
+                  for nm, a, b in zip(names, got, ref))
+        row = {"case": hd, "layout": list(lay), "chosen": lay == chosen,
+               "max_abs_err": err,
+               "device_ms": device_ms(lambda: fn(*args, layout=lay))}
+        out.append(row)
+        log(f"  {key.upper()} {hd:<12} {lay} {row['device_ms']:.4f} ms"
+            f"{' (chosen)' * row['chosen']}")
+    return out
+
+
+def k9_sweep(g) -> list:
+    """K9 at every layout (rows per warp, edges in flight per edge group,
+    register cap) the library's sweep build holds, at phase 2c's shapes,
+    each held to the plain version at RTOL / ATOL before it is timed
+    (device ms): the measurement behind ``ops/cuda/edge_softmax.py``'s
+    ``_K9_*`` constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(28)
+    out = []
+    log("sweep: K9 layouts (device ms, profiler; log2 rows per warp, edges "
+        "in flight, register cap)")
+    for h, o in GATV2_SHAPES:
+        out += _forward_sweep(
+            "k9", ES._gatv2_softmax_kernel, ES.gatv2_softmax_plain,
+            _k9_args(g, h, o, gen), f"H={h} O={o}",
+            _rows_layouts(o // 4), ES._gatv2_softmax_layout(o // 4, 16, N, E),
+            ("num", "m", "s"))
+    return out
+
+
+def k3_sweep(g) -> list:
+    """K3 at every layout (rows per warp, edges in flight per edge group,
+    register cap, pj loaded ahead by the lane holding the index or by every
+    lane of the group) the library's sweep build holds, at phase 2b's
+    shapes, each held to the plain version at RTOL / ATOL before it is
+    timed (device ms): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K3_*`` constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(29)
+    out = []
+    log("sweep: K3 layouts (device ms, profiler; log2 rows per warp, edges "
+        "in flight, register cap, pj ahead)")
+    for h, d in GATV2_SHAPES:
+        out += _forward_sweep(
+            "k3", ES._gat_softmax_kernel, ES.gat_softmax_plain,
+            _k3_args(g, h, d, gen), f"H={h} D={d}",
+            [lay + (ahead,) for ahead in (0, 1)
+             for lay in _rows_layouts(d // 4)],
+            ES._gat_softmax_layout(d // 4, 16, N, E), ("num", "m", "s"))
     return out
 
 
@@ -1568,15 +1653,56 @@ def _k5_exact_args(g, h, d, gen):
             ri(-2, 2, n, h), ri(-1, 1, n, h, d), 0.2)
 
 
+def _k9_exact_args(g, h, o, gen):
+    """K9's arguments at (H, O) on ``g`` whose every sum is exact in
+    float32: per (head, feature) constants ``q[r] = c1`` and ``k[s] = c2``
+    in {0, 1} with ``a`` in {-1, 0, 1} make every ``raw = c1 + c2`` in {0,
+    1, 2} (where leaky_relu's slope is 1) and every logit the head's
+    integer ``L = <a, raw>``, so every weight is ``exp(L - L) = 1`` and
+    ``num`` is a row's edge count times ``c2``: exact in any order. The
+    memory traffic is that of real inputs (nothing in K9 branches on
+    values)."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    c1, c2 = ri(0, 1, 1, h, o), ri(0, 1, 1, h, o)
+    q, k = c1.expand(n, h, o).contiguous(), c2.expand(n, h, o).contiguous()
+    return g.indptr_r, g.col_r, q, k, ri(-1, 1, o, h), 0.2
+
+
+def _k3_exact_args(g, h, d, gen):
+    """K3's arguments at (H, D) on ``g`` whose every sum is exact in
+    float32: ``pi[r] = c`` and ``pj[s] = -c`` for one ``c`` in {-1, 0, 1}
+    per head make every logit ``lrelu(0) = 0`` and every weight ``exp(0) =
+    1``, so ``s`` counts a row's edges and ``num`` sums ``v`` rows of
+    integers in [-8, 8]: rows of fewer than 2^20 edges sum exactly in any
+    order. The memory traffic is that of real inputs (nothing in K3
+    branches on values)."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    c = ri(-1, 1, 1, h)
+    pi, pj = c.expand(n, h).contiguous(), (-c).expand(n, h).contiguous()
+    return g.indptr_r, g.col_r, pi, pj, ri(-8, 8, n, h, d), 0.2
+
+
 def skew_sweep(gnn, kernels=SWEEPS) -> dict:
     """K1, K8, K6, K7, K2 and K11 on :func:`rmat_graph` at every rows per
-    warp, the rest of the layout as the wrappers choose it, K10 and K5 at
-    one row per warp, each beside the wrapper's own choice (the shipped
-    build), each held to the plain version bit for bit on inputs whose
-    sums are exact (``_k1_cases(exact=True)``, :func:`_k8_exact_args`,
-    :func:`_recv_exact_args`, ``_k2_cases(exact=True)``,
-    :func:`_k11_exact_args`, :func:`_k10_exact_args`,
-    :func:`_k5_exact_args`; K10 and K5 twice, the same bits each time):
+    warp, the rest of the layout as the wrappers choose it, K10, K5, K9
+    and K3 at one row per warp, each beside the wrapper's own choice (the
+    shipped build), each held to the plain version bit for bit on inputs
+    whose sums are exact (``_k1_cases(exact=True)``,
+    :func:`_k8_exact_args`, :func:`_recv_exact_args`,
+    ``_k2_cases(exact=True)``, :func:`_k11_exact_args`,
+    :func:`_k10_exact_args`, :func:`_k5_exact_args`,
+    :func:`_k9_exact_args`, :func:`_k3_exact_args`; K10, K5, K9 and K3
+    twice, the same bits each time):
     whether rows that share a warp lose to one row per warp when a hub
     holds the warp to its longest row. ``kernels``: the names of
     :data:`SWEEPS` to run (K6 and K7 are ``k6_k7``)."""
@@ -1719,18 +1845,22 @@ def skew_sweep(gnn, kernels=SWEEPS) -> dict:
             + ", ".join(f"2^{k}: {v:.4f}"
                         for k, v in row["by_log_rows"].items()))
         del args, ref
-    # K10 and K5 at the chosen layout and at one row per warp (the rest of
-    # the layout as chosen), each run twice: the same bits as the plain
-    # version and as each other
+    # K10, K5, K9 and K3 at the chosen layout and at one row per warp (the
+    # rest of the layout as chosen), each run twice: the same bits as the
+    # plain version and as each other
     gen = torch.Generator(device=g.device).manual_seed(27)
-    out["k10"], out["k5"] = [], []
+    out["k10"], out["k5"], out["k9"], out["k3"] = [], [], [], []
     for h, o in GATV2_SHAPES:
         hd = f"H={h} O={o}"
         for key, fn, plain, make, chosen in (
                 ("k10", ES._gatv2_bwd_dq_kernel, ES.gatv2_bwd_dq_plain,
                  _k10_exact_args, ES._gatv2_bwd_dq_layout(o // 4, 16, N, E)),
                 ("k5", ES._gat_bwd_rev_kernel, ES.gat_bwd_rev_plain,
-                 _k5_exact_args, ES._gat_bwd_rev_layout(o // 4, 16, N, E))):
+                 _k5_exact_args, ES._gat_bwd_rev_layout(o // 4, 16, N, E)),
+                ("k9", ES._gatv2_softmax_kernel, ES.gatv2_softmax_plain,
+                 _k9_exact_args, ES._gatv2_softmax_layout(o // 4, 16, N, E)),
+                ("k3", ES._gat_softmax_kernel, ES.gat_softmax_plain,
+                 _k3_exact_args, ES._gat_softmax_layout(o // 4, 16, N, E))):
             if key not in kernels:
                 continue
             args = make(g, h, o, gen)
@@ -1806,12 +1936,12 @@ def k14_sweep(g, gb) -> list:
 
 
 def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
-    """``--sweep``: the sweep build of K1's, K2's, K5's, K6's, K7's, K8's,
-    K10's and K11's libraries (every instance), then of :data:`SWEEPS` the
-    ``names`` in order: :func:`k1_sweep`, :func:`k2_sweep`,
+    """``--sweep``: the sweep build of the ``spmm`` and ``edge_softmax``
+    libraries (every instance), then of :data:`SWEEPS` the ``names`` in
+    order: :func:`k1_sweep`, :func:`k2_sweep`, :func:`k3_sweep`,
     :func:`k5_sweep`, :func:`recv_sweep` (``k6_k7``), :func:`k8_sweep`,
-    :func:`k10_sweep`, :func:`k11_sweep`, :func:`k14_sweep` and
-    :func:`skew_sweep` (of the named kernels)."""
+    :func:`k9_sweep`, :func:`k10_sweep`, :func:`k11_sweep`,
+    :func:`k14_sweep` and :func:`skew_sweep` (of the named kernels)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import build as B
 
     t0 = time.perf_counter()
@@ -1823,7 +1953,9 @@ def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
                                             or "spill" in line):
                 log(f"  ptxas {name}: {line.strip()}")
     runs = {"k1": lambda: k1_sweep(g), "k2": lambda: {"k2": k2_sweep(g)},
+            "k3": lambda: {"k3": k3_sweep(g)},
             "k5": lambda: {"k5": k5_sweep(g)},
+            "k9": lambda: {"k9": k9_sweep(g)},
             "k6_k7": lambda: {"k6_k7": recv_sweep(g)},
             "k8": lambda: {"k8": k8_sweep(g)},
             "k10": lambda: {"k10": k10_sweep(g)},
@@ -2543,6 +2675,8 @@ STEP_KERNELS = {
     "k11": ("gatv2_bwd_rev_kernel<",),
     "k10": ("gatv2_bwd_dq_kernel<", "gatv2_da_reduce_kernel"),
     "k5": ("gat_bwd_rev_kernel<",),
+    "k9": ("gatv2_softmax_rows_kernel<",),
+    "k3": ("gat_softmax_rows_kernel<",),
 }
 
 
@@ -2699,10 +2833,10 @@ def main() -> int:
                          "result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
-                    help="after phase 2, time K1, K2, K5, K6, K7, K8, K10, "
-                         "K11, K14 and its backward at every layout, K1's "
-                         "gather-rate ceiling, and the R-MAT graph (skew); "
-                         "NAMES (comma-separated, of "
+                    help="after phase 2, time K1, K2, K3, K5, K6, K7, K8, "
+                         "K9, K10, K11, K14 and its backward at every "
+                         "layout, K1's gather-rate ceiling, and the R-MAT "
+                         "graph (skew); NAMES (comma-separated, of "
                          f"{','.join(SWEEPS)}) runs those only")
     args = ap.parse_args()
 

@@ -26,20 +26,19 @@
 // Edges are stored sorted by receiver, so a position of the receiver CSR is
 // the edge id; the sender CSR's col holds the receivers.
 //
-// Layout of the work (K3, K4, K9, K12; the dot kernels K6-K8 take rows
-// and strips of their own, see the dot section, and K5, K10 and K11 take
-// K8's rows):
+// Layout of the work (K4, K12; the dot kernels K6-K8 take rows and strips
+// of their own, see the dot section, and K3, K5, K9, K10 and K11 take K8's
+// rows):
 // one warp owns one (row, head) pair, so all heads run in one launch and
 // every output entry is written once by one warp, in a fixed order, with
 // no atomics. As in spmm.cu, a head's D floats are split into vectors
 // (float4 when D % 4 == 0 and the pointers are 16-byte aligned), a warp
 // splits into groups of G lanes (G = the vector count, rounded up to a
 // power of two, at most 32) that take interleaved edges, and rows wider
-// than 32 vectors loop over chunks. K3's
-// and K12's softmax takes two passes over a row's edges: the row max of the
-// logits first (scalars only), then exp(logit - max), their sum and the
-// weighted sum of value rows. So no running rescale is needed, and the
-// value rows are read once per chunk.
+// than 32 vectors loop over chunks. K12's softmax takes two passes over a
+// row's edges: the row max of the logits first (scalars only), then
+// exp(logit - max), their sum and the weighted sum of value rows. So no
+// running rescale is needed, and the value rows are read once per chunk.
 //
 // Bound on an H100: memory. Each edge costs one gathered value row of H*D
 // floats (512 bytes at H=4, D=32) against about 2*H*D flops and H exps.
@@ -157,19 +156,6 @@ __device__ __forceinline__ float4 load_a<float4>(const float* a, int f,
   return make_float4(p[0], p[heads], p[2 * heads], p[3 * heads]);
 }
 
-// Sums over one edge group of g lanes (a power of two); every lane of the
-// warp takes part, and every lane of a group ends with the same bits.
-__device__ __forceinline__ float group_sum(float x, int g) {
-  for (int off = 1; off < g; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-__device__ __forceinline__ void group_sum2(float& x, float& y, int g) {
-  for (int off = 1; off < g; off <<= 1) {
-    x += __shfl_xor_sync(kFull, x, off);
-    y += __shfl_xor_sync(kFull, y, off);
-  }
-}
-
 // Where in the warp a lane works: its edge group and its vector in a chunk.
 struct Lanes {
   int lane, g, p, grp, sub;
@@ -201,15 +187,6 @@ struct GivenLogit {    // K12: logits[e, h]
     return lg[(long long)e * heads + h];
   }
 };
-struct GatLogit {      // K3: lrelu(pi[r, h] + pj[c, h])
-  const float* pj;
-  float pir, slope;
-  int heads, h;
-  __device__ float operator()(int, int c) const {
-    return lrelu(pir + pj[(long long)c * heads + h], slope);
-  }
-};
-
 // One (row, head) of the forward softmax-aggregate over a receiver CSR row
 // [beg, end):  m = max_e lg_e,  p_e = exp(lg_e - m),  s = sum_e p_e,
 // num = sum_e p_e * mask_e * v[src_e]  with src_e = col[e] (node values) or
@@ -276,24 +253,6 @@ edge_softmax_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
   const long long rh = (long long)row * heads + h;
   softmax_aggregate_row<V>(indptr[row], indptr[row + 1], col, mask, v, heads,
                            h, dv, log_g, GivenLogit{lg, heads, h},
-                           num + rh * dv, m + rh, s + rh);
-}
-
-// K3, replacing _flash_gat_kernel. Over the receiver CSR; values are node
-// rows of the senders.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gat_softmax_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                   const float* __restrict__ pi, const float* __restrict__ pj,
-                   const V* __restrict__ v, V* __restrict__ num,
-                   float* __restrict__ m, float* __restrict__ s, int n_rows,
-                   int heads, int dv, int log_g, float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const long long rh = (long long)row * heads + h;
-  softmax_aggregate_row<V>(indptr[row], indptr[row + 1], col, nullptr, v,
-                           heads, h, dv, log_g,
-                           GatLogit{pj, pi[rh], slope, heads, h},
                            num + rh * dv, m + rh, s + rh);
 }
 
@@ -364,94 +323,8 @@ gat_bwd_dpi_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 // three per-receiver scalars. K9 reads each k row once, for the logit and
 // the value both: the softmax is one pass, each edge group keeping its own
 // running max, sum and accumulator (rescaled when its max grows), merged
-// across groups at the end. K10 and K11 take K8's rows (after the dot
+// across groups at the end. K9, K10 and K11 take K8's rows (after the dot
 // section).
-
-// K9, replacing _flash_gatv2_kernel. Over the receiver CSR, row r, head h:
-//   m = max_e lg_e,  s = sum_e exp(lg_e - m),
-//   num = sum_e exp(lg_e - m) k[s_e]
-// with m = -inf, s = 0, num = 0 for a row without edges.
-template <typename V, int NC>
-__global__ void __launch_bounds__(kThreads)
-gatv2_softmax_kernel(const int* __restrict__ indptr,
-                     const int* __restrict__ col, const V* __restrict__ q,
-                     const V* __restrict__ k, const float* __restrict__ a,
-                     V* __restrict__ num, float* __restrict__ m,
-                     float* __restrict__ s, int n_rows, int heads, int dv,
-                     int log_g, float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const Lanes L(log_g);
-  const long long rh = (long long)row * heads + h;
-  V qv[NC], av[NC], acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int f = L.sub + c * L.g;
-    const bool on = f < dv;
-    qv[c] = on ? q[rh * dv + f] : vzero<V>();
-    av[c] = on ? load_a<V>(a, f, heads, h) : vzero<V>();
-    acc[c] = vzero<V>();
-  }
-  float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
-  const int beg = indptr[row], end = indptr[row + 1];
-  for (int base = beg; base < end; base += L.p) {   // warp-uniform trips
-    const int e = base + L.grp;
-    const bool valid = e < end;
-    V kv[NC];
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) kv[c] = vzero<V>();
-    if (valid) {
-      const V* kr = k + ((long long)col[e] * heads + h) * dv;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int f = L.sub + c * L.g;
-        if (f < dv) {
-          kv[c] = kr[f];
-          part += vdot(av[c], lrelu(vadd(qv[c], kv[c]), slope));
-        }
-      }
-    }
-    const float lg = group_sum(part, L.g);
-    if (valid) {
-      if (lg > mg) {
-        const float sc = expf(mg - lg);   // 0 while mg is -inf
-        sg *= sc;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
-        mg = lg;
-      }
-      const float p = lg == -INFINITY ? 0.f : expf(lg - mg);
-      sg += p;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) axpy(acc[c], p, kv[c]);
-    }
-  }
-  // merge the edge groups: rescale each to the row max, then add
-  float mx = mg;
-  for (int off = L.g; off < 32; off <<= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-  const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
-  sg *= sc;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) vscale(acc[c], sc);
-  for (int off = L.g; off < 32; off <<= 1) {
-    sg += __shfl_xor_sync(kFull, sg, off);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) add_xor(acc[c], off);
-  }
-  if (L.grp == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int f = L.sub + c * L.g;
-      if (f < dv) num[rh * dv + f] = acc[c];
-    }
-  }
-  if (L.lane == 0) {
-    m[rh] = mx;
-    s[rh] = sg;
-  }
-}
 
 // ---- dot attention: K6, K7, K8 ---------------------------------------------
 //
@@ -1548,6 +1421,288 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
   });
 }
 
+// K9 in rows, replacing _flash_gatv2_kernel. Over the receiver CSR, row r,
+// head h:
+//   m = max_e lg_e,  s = sum_e exp(lg_e - m),  num = sum_e exp(lg_e - m) k[s_e]
+// with lg_e = <a[:, h], lrelu(q[r] + k[s_e])>, and m = -inf, s = 0, num = 0
+// for a row without edges or whose logits are all -inf. K10's receiver walk
+// in K8's rows: heads in the grid's second dimension, so the resident warps
+// gather one head's slice of k (16 MB at N = 131,072, H = 4, O = 32, which
+// the L2 holds); R rows per warp, the window of sender indices loaded
+// ahead, the hub switch (walk_rows). Each group issues U edges' k rows
+// before it reduces any of them, and the U partial logits go through one
+// interleaved shuffle tree. The softmax is K6's one pass: the batch's max
+// first, one rescale, then the U edges added in CSR order; the row's groups
+// merge by a fixed tree. Each k row is the logit's operand and the value
+// both, so an edge is one gather. a[:, h] and q[r] stay in registers; q and
+// num stream past the L2 (evict-first). The first port gave a (row, head)
+// pair a warp, heads side by side, and waited on col[e], then the k row,
+// then the tree, then the exp, one edge at a time.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+gatv2_softmax_rows_kernel(const int* __restrict__ indptr,
+                          const int* __restrict__ col, const V* __restrict__ q,
+                          const V* __restrict__ k, const float* __restrict__ a,
+                          V* __restrict__ num, float* __restrict__ m,
+                          float* __restrict__ s, int n_rows, int heads,
+                          int dv, int log_g, int log_rows, float slope) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  V av[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int f = sub + c * g;
+    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
+  }
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long rh = (long long)row * heads + h;
+    V qv[NC], acc[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = sub + c * g;
+      qv[c] = live && f < dv ? __ldcs(q + rh * dv + f) : vzero<V>();
+      acc[c] = vzero<V>();
+    }
+    float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
+    int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
+    for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+      const int nc =
+          w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
+      const int cnt = min(S.seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+        V kg[U][NC];
+        float lg[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {   // the gathers of U edges first
+          const int j = S.pos(j0, u);
+          const int src = __shfl_sync(kFull, c, S.holder(j));
+          ok[u] = live && j < S.seg && w0 + j < len;
+          const long long sh = (long long)src * heads + h;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            const int f = sub + cc * g;
+            kg[u][cc] = ok[u] && f < dv ? k[sh * dv + f] : vzero<V>();
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          lg[u] = 0.f;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc)
+            lg[u] += vdot(av[cc], lrelu(vadd(qv[cc], kg[u][cc]), slope));
+        }
+        for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            lg[u] += __shfl_xor_sync(kFull, lg[u], off);
+        }
+        // the batch's max first, so that the group rescales once and the
+        // U exps do not wait on each other
+        float bm = mg;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          lg[u] = ok[u] ? lg[u] : -INFINITY;
+          bm = fmaxf(bm, lg[u]);
+        }
+        if (bm > mg) {
+          const float sc = expf(mg - bm);   // 0 while mg is -inf
+          sg *= sc;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+          mg = bm;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float pe = lg[u] == -INFINITY ? 0.f : expf(lg[u] - mg);
+          sg += pe;
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], pe, kg[u][cc]);
+        }
+      }
+      c = nc;
+    }
+    // merge the row's groups (G lanes apart): rescale each to the row max,
+    // then add
+    float mx = mg;
+    for (int off = g; off < S.seg; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
+    sg *= sc;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+    for (int off = g; off < S.seg; off <<= 1) {
+      sg += __shfl_xor_sync(kFull, sg, off);
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) add_xor(acc[cc], off);
+    }
+    if (live && S.grp == 0) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int f = sub + cc * g;
+        if (f < dv) __stcs(num + rh * dv + f, acc[cc]);
+      }
+    }
+    if (live && S.sl == 0) {
+      m[rh] = mx;
+      s[rh] = sg;
+    }
+  });
+}
+
+// K3 in rows, replacing _flash_gat_kernel. Over the receiver CSR, row r,
+// head h, with the scalar logit lg_e = lrelu(pi[r, h] + pj[s_e, h]):
+//   m = max_e lg_e,  s = sum_e exp(lg_e - m),  num = sum_e exp(lg_e - m) v[s_e]
+// with m = -inf, s = 0, num = 0 for a row without edges or whose logits are
+// all -inf. K6's rows with a scalar logit: heads in the grid's second
+// dimension, so the resident warps gather one head's slice of v (16 MB at
+// N = 131,072, H = 4, D = 32); R rows per warp, the window of sender
+// indices loaded ahead, the hub switch (walk_rows); each group issues U
+// edges' v rows before it adds any of them, and the softmax is K6's one
+// pass (the batch's max first, one rescale, the edges added in CSR order,
+// the row's groups merged by a fixed tree). pi[r, h] stays in a register;
+// each edge gathers one v row and one pj scalar. With ahead, the lane that
+// holds an edge's index loads its pj one window ahead (the indices two
+// windows ahead) and hands the scalar along with the index; without it,
+// every lane of the group loads pj beside the v row. Rows wider than NC * G
+// vectors (256 at most) take passes of NC * G vectors; each pass walks the
+// row again and rebuilds the same m and s, bit for bit, and the first pass
+// writes them. num streams past the L2 (evict-first). The first port gave a
+// (row, head) pair a warp, heads side by side, and took two passes over a
+// row's edges, gathering each pj twice.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+gat_softmax_rows_kernel(const int* __restrict__ indptr,
+                        const int* __restrict__ col,
+                        const float* __restrict__ pi,
+                        const float* __restrict__ pj, const V* __restrict__ v,
+                        V* __restrict__ num, float* __restrict__ m,
+                        float* __restrict__ s, int n_rows, int heads, int dv,
+                        int log_g, int log_rows, int ahead, float slope) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long rh = (long long)row * heads + h;
+    const float pir = live ? pi[rh] : 0.f;
+    // at least one pass, so that s is summed when D == 0
+    for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
+      V acc[NC];
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) acc[cc] = vzero<V>();
+      float mg = -INFINITY, sg = 0.f;   // this edge group's running max, sum
+      // this lane's index of the window, of the next one (ahead), and the
+      // pj of its edge of the window (ahead)
+      int c = S.sl < len ? col[beg + S.sl] : 0;
+      int nc = ahead && S.seg + S.sl < len ? col[beg + S.seg + S.sl] : 0;
+      float pc = ahead && S.sl < len ? pj[(long long)c * heads + h] : 0.f;
+      for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+        int nn;
+        float npc = 0.f;
+        if (ahead) {   // indices two windows ahead, pj one
+          const int j2 = w0 + 2 * S.seg + S.sl;
+          nn = j2 < len ? col[beg + j2] : 0;
+          if (w0 + S.seg + S.sl < len) npc = pj[(long long)nc * heads + h];
+        } else {
+          const int j1 = w0 + S.seg + S.sl;
+          nn = j1 < len ? col[beg + j1] : 0;
+        }
+        const int cnt = min(S.seg, longest - w0);
+        for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+          V vg[U][NC];
+          float lg[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {   // the gathers of U edges first
+            const int j = S.pos(j0, u);
+            const int src = __shfl_sync(kFull, c, S.holder(j));
+            ok[u] = live && j < S.seg && w0 + j < len;
+            const long long sh = (long long)src * heads + h;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              const int f = f0 + sub + cc * g;
+              vg[u][cc] = ok[u] && f < dv ? v[sh * dv + f] : vzero<V>();
+            }
+            if (!ahead) lg[u] = ok[u] ? pj[sh] : 0.f;
+          }
+          if (ahead) {
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              lg[u] = __shfl_sync(kFull, pc, S.holder(S.pos(j0, u)));
+          }
+          // the batch's max first, so that the group rescales once and the
+          // U exps do not wait on each other
+          float bm = mg;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            lg[u] = ok[u] ? lrelu(pir + lg[u], slope) : -INFINITY;
+            bm = fmaxf(bm, lg[u]);
+          }
+          if (bm > mg) {
+            const float sc = expf(mg - bm);   // 0 while mg is -inf
+            sg *= sc;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+            mg = bm;
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const float pe = lg[u] == -INFINITY ? 0.f : expf(lg[u] - mg);
+            sg += pe;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], pe, vg[u][cc]);
+          }
+        }
+        if (ahead) {
+          c = nc;
+          nc = nn;
+          pc = npc;
+        } else {
+          c = nn;
+        }
+      }
+      // merge the row's groups (G lanes apart): rescale each to the row
+      // max, then add
+      float mx = mg;
+      for (int off = g; off < S.seg; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
+      sg *= sc;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+      for (int off = g; off < S.seg; off <<= 1) {
+        sg += __shfl_xor_sync(kFull, sg, off);
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) add_xor(acc[cc], off);
+      }
+      if (live && S.grp == 0) {
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          const int f = f0 + sub + cc * g;
+          if (f < dv) __stcs(num + rh * dv + f, acc[cc]);
+        }
+      }
+      if (live && S.sl == 0 && f0 == 0) {
+        m[rh] = mx;
+        s[rh] = sg;
+      }
+    }
+  });
+}
+
 int log_group(int dv) {
   int lg = 0;
   while ((1 << lg) < dv && lg < 5) ++lg;
@@ -1581,20 +1736,6 @@ int with_chunks(int dv, F&& f) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename V>
-int launch_gatv2_softmax(const int* indptr, const int* col, const float* q,
-                         const float* k, const float* a, float* num, float* m,
-                         float* s, int n_rows, int heads, int dv, float slope,
-                         cudaStream_t st) {
-  const unsigned nb = blocks_for(n_rows, heads);
-  return with_chunks(dv, [&](auto nc) {
-    gatv2_softmax_kernel<V, decltype(nc)::value><<<nb, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const V*>(q),
-        reinterpret_cast<const V*>(k), a, reinterpret_cast<V*>(num), m, s,
-        n_rows, heads, dv, log_group(dv), slope);
-  });
 }
 
 using I0 = std::integral_constant<int, 0>;
@@ -1684,11 +1825,12 @@ int with_strip_instances(int unroll, int reg_cap, Go&& go) {
 }
 
 // The shipped instances, from chip_smoke.py --sweep (PERF.md §6), as
-// ops/cuda/edge_softmax.py's _DOT_*, _K8_* and _K11_* constants pick them:
-// rows of one register chunk take edges in flight at 64 registers (K8 and
-// K11 2; K6, K7, K10 and K5 4 for groups of a 128-byte line or more, 2 for
-// narrower ones), wider rows one edge, uncapped (two chunks of two edges
-// at 64 registers spill); strips 4 gathers in flight, uncapped.
+// ops/cuda/edge_softmax.py's _DOT_*, _K8_*, _K11_*, _K9_* and _K3_*
+// constants pick them: rows of one register chunk take edges in flight at
+// 64 registers (K8 and K11 2; K6, K7, K10, K5, K9 and K3 4 for groups of a
+// 128-byte line or more; K6, K7, K10 and K5 2 for narrower ones, K9 2
+// uncapped, K3 1 uncapped), wider rows one edge, uncapped (two chunks of
+// two edges at 64 registers spill); strips 4 gathers in flight, uncapped.
 struct K8Pick {
   static constexpr bool holds(int nc, int u, int cap) {
     return nc == 1 ? u == 2 && cap == 64 : u == 1 && cap == 0;
@@ -1706,6 +1848,18 @@ struct RecvPick {
 };
 using K10Pick = RecvPick;
 using K5Pick = RecvPick;
+struct K9Pick {
+  static constexpr bool holds(int nc, int u, int cap) {
+    return nc == 1 ? (u == 4 && cap == 64) || (u == 2 && cap == 0)
+                   : u == 1 && cap == 0;
+  }
+};
+struct K3Pick {
+  static constexpr bool holds(int nc, int u, int cap) {
+    return nc == 1 ? (u == 4 && cap == 64) || (u == 1 && cap == 0)
+                   : u == 1 && cap == 0;
+  }
+};
 struct StripPick {
   static constexpr int kUnroll = 4;
   static constexpr int kCap = 0;
@@ -1956,6 +2110,54 @@ int launch_gat_bwd_rev(const int* indptr, const int* col, const float* pi,
       });
 }
 
+// K9 in rows (see gatv2_softmax_rows_kernel), at the instances
+// with_row_instances holds.
+template <typename V>
+int launch_gatv2_softmax(const int* indptr, const int* col, const float* q,
+                         const float* k, const float* a, float* num, float* m,
+                         float* s, int n_rows, int heads, int dv,
+                         int log_rows, int unroll, int reg_cap, float slope,
+                         cudaStream_t st) {
+  const int lg = log_group(dv);
+  if (!dot_layout_ok(lg, log_rows, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  return with_row_instances<K9Pick>(
+      dv, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        gatv2_softmax_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
+                                  decltype(minb)::value>
+            <<<grid, kThreads, 0, st>>>(
+                indptr, col, reinterpret_cast<const V*>(q),
+                reinterpret_cast<const V*>(k), a, reinterpret_cast<V*>(num),
+                m, s, n_rows, heads, dv, lg, log_rows, slope);
+      });
+}
+
+// K3 in rows (see gat_softmax_rows_kernel), at the instances
+// with_row_instances holds: rows up to 256 vectors in registers, wider ones
+// in passes of 256.
+template <typename V>
+int launch_gat_softmax(const int* indptr, const int* col, const float* pi,
+                       const float* pj, const float* v, float* num, float* m,
+                       float* s, int n_rows, int heads, int dv, int log_rows,
+                       int unroll, int reg_cap, int ahead, float slope,
+                       cudaStream_t st) {
+  const int wide = dv < 256 ? dv : 256;
+  const int lg = log_group(wide);
+  if (!dot_layout_ok(lg, log_rows, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  return with_row_instances<K3Pick>(
+      wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        gat_softmax_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
+                                decltype(minb)::value>
+            <<<grid, kThreads, 0, st>>>(
+                indptr, col, pi, pj, reinterpret_cast<const V*>(v),
+                reinterpret_cast<V*>(num), m, s, n_rows, heads, dv, lg,
+                log_rows, ahead, slope);
+      });
+}
+
 bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
   if (o % 4 != 0 || d % 4 != 0) return false;
   for (const void* p : rows)
@@ -1992,24 +2194,23 @@ int edge_softmax_f32(const int* indptr, const int* col, const float* lg,
 }
 
 // K3. pi [n_rows, H], pj [n_src, H], v [n_src, H, d]; outputs as K12.
+// Any d: rows of more than 256 vectors (float4 when d % 4 == 0 and v and
+// num are 16-byte aligned) take passes of 256. log_rows, unroll and reg_cap
+// as K11 (see with_row_instances and K3Pick for the instances built); ahead
+// (0 or 1): the lane holding an edge's index loads its pj one window ahead.
 int gat_softmax_f32(const int* indptr, const int* col, const float* pi,
                     const float* pj, const float* v, float* num, float* m,
-                    float* s, int n_rows, int heads, int d, float slope,
+                    float* s, int n_rows, int heads, int d, int log_rows,
+                    int unroll, int reg_cap, int ahead, float slope,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(n_rows, heads);
-  if (d % 4 == 0 && aligned16(v) && aligned16(num)) {
-    const int dv = d / 4;
-    gat_softmax_kernel<float4><<<nb, kThreads, 0, st>>>(
-        indptr, col, pi, pj, reinterpret_cast<const float4*>(v),
-        reinterpret_cast<float4*>(num), m, s, n_rows, heads, dv,
-        log_group(dv), slope);
-  } else {
-    gat_softmax_kernel<float><<<nb, kThreads, 0, st>>>(
-        indptr, col, pi, pj, v, num, m, s, n_rows, heads, d, log_group(d),
-        slope);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d % 4 == 0 && aligned16(v) && aligned16(num))
+    return launch_gat_softmax<float4>(indptr, col, pi, pj, v, num, m, s,
+                                      n_rows, heads, d / 4, log_rows, unroll,
+                                      reg_cap, ahead, slope, st);
+  return launch_gat_softmax<float>(indptr, col, pi, pj, v, num, m, s, n_rows,
+                                   heads, d, log_rows, unroll, reg_cap,
+                                   ahead, slope, st);
 }
 
 // K4. Over the receiver CSR of n_rows receivers: dpi [n_rows, H].
@@ -2062,17 +2263,20 @@ int gat_bwd_rev_f32(const int* indptr, const int* col, const float* pi,
 // K9. Over the receiver CSR of n_rows receivers: q [n_rows, H, d],
 // k [n_src, H, d], a [d, H]; num [n_rows, H, d], m and s [n_rows, H].
 // float4 rows take d <= 1024, scalar rows d <= 256; wider returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue. log_rows, unroll and reg_cap as K11 (see
+// with_row_instances and K9Pick for the instances built).
 int gatv2_softmax_f32(const int* indptr, const int* col, const float* q,
                       const float* k, const float* a, float* num, float* m,
-                      float* s, int n_rows, int heads, int d, float slope,
-                      void* stream) {
+                      float* s, int n_rows, int heads, int d, int log_rows,
+                      int unroll, int reg_cap, float slope, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(num))
     return launch_gatv2_softmax<float4>(indptr, col, q, k, a, num, m, s,
-                                        n_rows, heads, d / 4, slope, st);
+                                        n_rows, heads, d / 4, log_rows,
+                                        unroll, reg_cap, slope, st);
   return launch_gatv2_softmax<float>(indptr, col, q, k, a, num, m, s, n_rows,
-                                     heads, d, slope, st);
+                                     heads, d, log_rows, unroll, reg_cap,
+                                     slope, st);
 }
 
 // K10, first launch. Over the receiver CSR: dq [n_rows, H, d] and

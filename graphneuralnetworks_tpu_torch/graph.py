@@ -67,6 +67,15 @@ class GraphTuple:
     def device(self) -> torch.device:
         return self.senders.device
 
+    @property
+    def sorted_by_receivers(self) -> bool:
+        """Always True: ``graph()`` sorts the edges by receiver (module
+        docstring). JAX's ``GraphTuple`` carries it as a field, and code
+        ported from there passes it to the segment ops as ``sorted=``. A
+        port of ``reverse``, which swaps senders and receivers, must
+        revisit it."""
+        return True
+
     # ---- masks (all True: no padding; kept for API parity) -----------------
     @property
     def node_mask(self) -> torch.Tensor:

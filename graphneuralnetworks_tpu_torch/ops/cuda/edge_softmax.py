@@ -9,12 +9,14 @@ a CSR grouping (``csrc/edge_softmax.cu``):
   per-edge logits ``[E, H]`` and the sum of node values (``col`` given) or
   edge values (``col=None``), the numerator scaled by a dropout mask.
 - K3 ``gat_softmax``: the same with GAT's logits
-  ``leaky_relu(pi[r] + pj[s])`` computed in the kernel.
+  ``leaky_relu(pi[r] + pj[s])`` computed in the kernel, one pass over each
+  row's edges in K8's rows (:func:`_gat_softmax_layout`).
 - K4 ``gat_bwd_dpi`` (receiver CSR) and K5 ``gat_bwd_rev`` (sender CSR,
   in K8's rows: :func:`_gat_bwd_rev_layout`): GAT's backward, recomputing
   each edge's attention weight from per-node scalars.
 - K9 ``gatv2_softmax``: GATv2's logits ``<a_h, leaky_relu(q[r] + k[s])>``
-  with the values ``k[s]``, one pass over each row's edges.
+  with the values ``k[s]``, one pass over each row's edges in K8's rows
+  (:func:`_gatv2_softmax_layout`).
 - K10 ``gatv2_bwd_dq`` (receiver CSR: ``dq`` and ``da``, the latter in two
   launches, per-block shares then a fixed-order sum; in K8's rows:
   :func:`_gatv2_bwd_dq_layout`) and K11 ``gatv2_bwd_rev`` (sender CSR:
@@ -115,6 +117,22 @@ _K11_PACK_BELOW = 128
 # §6); wider groups were not measured.
 _K10_WINDOWS_PER_ROW = 4
 _K5_PACK_UP_TO = 128
+# K9 and K3, the forward kernels of GATv2 and GAT, take K10's receiver walk
+# in K8's rows, with rows per warp from _K9_WINDOWS_PER_ROW and
+# _K3_WINDOWS_PER_ROW index windows a row and, for rows of one register
+# chunk, (edges in flight, register cap) _K9_ROWS_LINE or _K9_ROWS_NARROW,
+# and (edges in flight, register cap, pj ahead) _K3_ROWS_LINE or
+# _K3_ROWS_NARROW, for edge groups of a 128-byte line or more and narrower
+# ones: the fastest of chip_smoke.py --sweep k3,k9 (PERF.md §6). With pj
+# ahead, K3's lane that holds an edge's index loads its pj one window
+# ahead; without, every lane of the group loads it beside the value row.
+# Wider rows take one edge, uncapped (K3 with pj ahead, unmeasured).
+_K9_WINDOWS_PER_ROW = 8
+_K9_ROWS_LINE = (4, 64)
+_K9_ROWS_NARROW = (2, 0)
+_K3_WINDOWS_PER_ROW = 2
+_K3_ROWS_LINE = (4, 64, 1)
+_K3_ROWS_NARROW = (1, 0, 0)
 _DOT_ROWS_LINE = (4, 64)
 _DOT_ROWS_NARROW = (2, 64)
 _DOT_STRIP_BYTES = 16 * 2**20
@@ -127,10 +145,10 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
     lib = load("edge_softmax", sweep=sweep)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, n_ptr, n_int, n_f32 in (("edge_softmax_f32", 8, 3, 0),
-                                    ("gat_softmax_f32", 8, 3, 1),
+                                    ("gat_softmax_f32", 8, 7, 1),
                                     ("gat_bwd_dpi_f32", 10, 3, 1),
                                     ("gat_bwd_rev_f32", 12, 6, 1),
-                                    ("gatv2_softmax_f32", 8, 3, 1),
+                                    ("gatv2_softmax_f32", 8, 6, 1),
                                     ("gatv2_bwd_dq_f32", 11, 6, 1),
                                     ("gatv2_da_reduce_f32", 2, 3, 0),
                                     ("gatv2_bwd_rev_f32", 11, 6, 1),
@@ -429,7 +447,26 @@ def _edge_softmax_kernel(indptr, col, logits, mask, values):
     return num, m, s
 
 
-def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope):
+def _gat_softmax_layout(dv: int, vec_bytes: int, n_rows: int,
+                        entries: int) -> tuple[int, int, int, int]:
+    """K3's ``(log_rows, unroll, reg_cap, ahead)`` for a head of ``dv``
+    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
+    n_rows`` edges per receiver on average: :func:`_windowed_rows` of
+    ``G``-lane edge groups at ``_K3_WINDOWS_PER_ROW`` (rows wider than 256
+    vectors go in passes of 256, groups of 32 lanes), and
+    :func:`_rows_instance` of ``_K3_ROWS_LINE`` and ``_K3_ROWS_NARROW``."""
+    wide = min(max(dv, 1), _MAX_VECTORS)
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K3_WINDOWS_PER_ROW)
+    return (log_rows,) + _rows_instance(wide, vec_bytes << log_g,
+                                        _K3_ROWS_LINE, _K3_ROWS_NARROW)
+
+
+def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope, layout=None):
+    """K3 at :func:`_gat_softmax_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap, ahead)``) from the sweep build of the
+    library, which holds every (unroll, reg_cap) instance
+    (``build.load``)."""
     device = _check_launch(indptr, col, {"pi": pi, "pj": pj},
                            {"values_n": values_n})
     n, (_, heads, d) = indptr.numel() - 1, values_n.shape
@@ -438,9 +475,14 @@ def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope):
     num, m, s = _forward_outputs(n, heads, d, device)
     if n == 0 or heads == 0:
         return num, m, s
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(d, values_n, num)
+        layout = _gat_softmax_layout(_vectors(d, vec), 16 if vec else 4, n,
+                                     col.numel())
     _launch("gat_softmax_f32", "k3", device, _ptr(indptr), _ptr(col),
             _ptr(pi), _ptr(pj), _ptr(values_n), _ptr(num), _ptr(m), _ptr(s),
-            n, heads, d, float(slope))
+            n, heads, d, *layout, float(slope), sweep=sweep)
     return num, m, s
 
 
@@ -469,16 +511,17 @@ def _gat_bwd_dpi_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     return dpi
 
 
-def _rows_instance(wide: int, group_bytes: int) -> tuple[int, int]:
-    """``(edges in flight, register cap)`` of K5, K6, K7 and K10 in rows of
-    ``wide`` vectors in edge groups of ``group_bytes``: for rows of one
-    register chunk (at most 32 vectors) ``_DOT_ROWS_LINE`` for groups of a
-    128-byte line or more, ``_DOT_ROWS_NARROW`` for narrower ones; one
-    edge, uncapped, for wider rows."""
+def _rows_instance(wide: int, group_bytes: int, line=_DOT_ROWS_LINE,
+                   narrow=_DOT_ROWS_NARROW) -> tuple[int, ...]:
+    """``(edges in flight, register cap)`` of K5, K6, K7 and K10 (and, with
+    their own ``line`` and ``narrow``, of K9 and K3) in rows of ``wide``
+    vectors in edge groups of ``group_bytes``: for rows of one register
+    chunk (at most 32 vectors) ``line`` for groups of a 128-byte line or
+    more, ``narrow`` for narrower ones; one edge, uncapped, for wider rows
+    (with the rest of ``line``)."""
     if wide > 32:
-        return 1, 0
-    return (_DOT_ROWS_LINE if group_bytes >= _DOT_LINE_BYTES
-            else _DOT_ROWS_NARROW)
+        return (1, 0) + tuple(line[2:])
+    return tuple(line if group_bytes >= _DOT_LINE_BYTES else narrow)
 
 
 def _gat_bwd_rev_layout(dv: int, vec_bytes: int, n_rows: int,
@@ -551,16 +594,37 @@ def _gatv2_args(indptr, col, q, k, a, scalars, rows3) -> torch.device:
     return device
 
 
-def _gatv2_softmax_kernel(indptr, col, q, k, a, slope):
+def _gatv2_softmax_layout(ov: int, vec_bytes: int, n_rows: int,
+                          entries: int) -> tuple[int, int, int]:
+    """K9's ``(log_rows, unroll, reg_cap)`` for a head of ``ov`` vectors of
+    ``vec_bytes`` (16: float4, 4: float) and ``entries / n_rows`` edges per
+    receiver on average: :func:`_windowed_rows` of ``G``-lane edge groups
+    at ``_K9_WINDOWS_PER_ROW``, and :func:`_rows_instance` of
+    ``_K9_ROWS_LINE`` and ``_K9_ROWS_NARROW``."""
+    log_g = min((max(ov, 1) - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K9_WINDOWS_PER_ROW)
+    return (log_rows,) + _rows_instance(ov, vec_bytes << log_g,
+                                        _K9_ROWS_LINE, _K9_ROWS_NARROW)
+
+
+def _gatv2_softmax_kernel(indptr, col, q, k, a, slope, layout=None):
+    """K9 at :func:`_gatv2_softmax_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap)``) from the sweep build of the library,
+    which holds every (unroll, reg_cap) instance (``build.load``)."""
     device = _gatv2_args(indptr, col, q, k, a, {}, {})
     n, (_, heads, d) = indptr.numel() - 1, q.shape
     _same_rows(n, q=q)
     num, m, s = _forward_outputs(n, heads, d, device)
     if n == 0 or heads == 0:
         return num, m, s
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(d, q, k, num)
+        layout = _gatv2_softmax_layout(_vectors(d, vec), 16 if vec else 4, n,
+                                       col.numel())
     _launch("gatv2_softmax_f32", "k9", device, _ptr(indptr), _ptr(col),
             _ptr(q), _ptr(k), _ptr(a), _ptr(num), _ptr(m), _ptr(s), n,
-            heads, d, float(slope))
+            heads, d, *layout, float(slope), sweep=sweep)
     return num, m, s
 
 

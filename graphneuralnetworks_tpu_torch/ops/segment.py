@@ -14,6 +14,10 @@ or the graph grouping of a batch). Given one, a CUDA tensor reduces on the
 K14 kernel (``ops/cuda/segment.py``); without one, or on the CPU, the
 reduction is PyTorch's ``scatter_reduce`` over arbitrary ids, as JAX's is
 XLA's.
+
+Every reduction takes JAX's ``sorted=`` keyword (``indices_are_sorted``,
+a hint to XLA) and ignores it: the results here do not depend on the order
+of the ids.
 """
 
 from __future__ import annotations
@@ -49,13 +53,14 @@ def _out(data, num_segments, fill):
     return data.new_full((num_segments,) + tuple(data.shape[1:]), fill)
 
 
-def segment_sum(data, segment_ids, num_segments, *, mask=None):
+def segment_sum(data, segment_ids, num_segments, *, mask=None, sorted=False):
     """Masked segment sum; empty segments get 0."""
     data = _masked(data, mask, 0)
     return _out(data, num_segments, 0).index_add(0, segment_ids, data)
 
 
-def segment_mean(data, segment_ids, num_segments, *, mask=None):
+def segment_mean(data, segment_ids, num_segments, *, mask=None,
+                 sorted=False):
     """Masked segment mean dividing by the true segment size; empty -> 0."""
     s = segment_sum(data, segment_ids, num_segments, mask=mask)
     ones = data.new_ones(data.shape[:1])
@@ -90,7 +95,7 @@ def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
     return out
 
 
-def segment_max(data, segment_ids, num_segments, *, mask=None,
+def segment_max(data, segment_ids, num_segments, *, mask=None, sorted=False,
                 empty_value=0.0, indptr=None):
     """Masked segment max; empty segments get ``empty_value`` (None: -inf).
     With ``indptr``, K14 on the card (module docstring)."""
@@ -99,7 +104,7 @@ def segment_max(data, segment_ids, num_segments, *, mask=None,
                             indptr=indptr)
 
 
-def segment_min(data, segment_ids, num_segments, *, mask=None,
+def segment_min(data, segment_ids, num_segments, *, mask=None, sorted=False,
                 empty_value=0.0, indptr=None):
     """Masked segment min; empty segments get ``empty_value`` (None: +inf).
     With ``indptr``, K14 on the card (module docstring)."""
@@ -108,7 +113,7 @@ def segment_min(data, segment_ids, num_segments, *, mask=None,
                             indptr=indptr)
 
 
-def segment_prod(data, segment_ids, num_segments, *, mask=None):
+def segment_prod(data, segment_ids, num_segments, *, mask=None, sorted=False):
     data = _masked(data, mask, 1)
     idx = segment_ids.reshape(segment_ids.shape + (1,) * (data.dim() - 1))
     return _out(data, num_segments, 1).scatter_reduce(
@@ -145,16 +150,17 @@ def is_extreme(aggr) -> bool:
 
 
 def segment_reduce(aggr, data, segment_ids, num_segments, *, mask=None,
-                   indptr=None):
-    """Dispatch on ``aggr`` in {sum, mean, max, min, prod} (and aliases).
-    ``indptr`` reaches max and min only; the others ignore it."""
+                   sorted=False, indptr=None):
+    """Dispatch on ``aggr`` in {sum, mean, max, min, prod} (and aliases),
+    passing ``sorted`` on as JAX's does. ``indptr`` reaches max and min
+    only; the others ignore it."""
     kw = {"indptr": indptr} if is_extreme(aggr) else {}
     return aggregation(aggr)(data, segment_ids, num_segments, mask=mask,
-                             **kw)
+                             sorted=sorted, **kw)
 
 
 def segment_softmax(data, segment_ids, num_segments, *, mask=None,
-                    indptr=None):
+                    sorted=False, indptr=None):
     """Numerically stable per-segment softmax over the leading axis (JAX
     ``ops/segment.py:segment_softmax``): segment max, exp of the shifted
     values, segment sum, normalise; masked entries give 0.

@@ -94,3 +94,51 @@ def test_gather_matches_jax():
     (out * t(cot)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), x[idx], **F64_TOL)
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad), **F64_TOL)
+
+
+SORTED_CALLS = {
+    "sum": lambda m, *a, **kw: m.segment_sum(*a, **kw),
+    "mean": lambda m, *a, **kw: m.segment_mean(*a, **kw),
+    "max": lambda m, *a, **kw: m.segment_max(*a, **kw),
+    "min": lambda m, *a, **kw: m.segment_min(*a, **kw),
+    "prod": lambda m, *a, **kw: m.segment_prod(*a, **kw),
+    "reduce": lambda m, *a, **kw: m.segment_reduce("max", *a, **kw),
+    "softmax": lambda m, *a, **kw: m.segment_softmax(*a, **kw),
+}
+
+
+@pytest.mark.parametrize("op", list(SORTED_CALLS))
+def test_segment_ops_take_sorted_as_jax_does(op):
+    """Each of the seven segment ops takes JAX's ``sorted=`` keyword, as a
+    call copied from the reference passes it, and gives JAX's result on
+    sorted ids with a mask (the port ignores the hint)."""
+    ids, data, mask, _ = _inputs(4, 3)
+    order = np.argsort(ids, kind="stable")
+    ids, data, mask = ids[order], data[order], mask[order]
+    call = SORTED_CALLS[op]
+    got = call(tseg, t(data), torch.tensor(ids), N_SEG,
+               mask=torch.tensor(mask), sorted=True)
+    want = call(jseg, jnp.asarray(data), jnp.asarray(ids), N_SEG,
+                mask=jnp.asarray(mask), sorted=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F64_TOL)
+
+
+def test_graph_is_sorted_by_receivers():
+    """The port's ``GraphTuple.sorted_by_receivers`` is True, as JAX's is
+    for a graph built with its default ``sort=True``, so ported code can
+    pass it on as ``sorted=``; it is read-only."""
+    import graphneuralnetworks_tpu as jgnn
+    import graphneuralnetworks_tpu_torch as tgnn
+
+    rng = np.random.default_rng(5)
+    s, r = rng.integers(0, 20, 60), rng.integers(0, 20, 60)
+    tg = tgnn.graph(s, r, num_nodes=20, device="cpu")
+    assert tg.sorted_by_receivers is True
+    assert jgnn.graph(s, r, num_nodes=20).sorted_by_receivers is True
+    with pytest.raises(AttributeError):
+        tg.sorted_by_receivers = False
+    x = t(rng.standard_normal((60, 2)))
+    np.testing.assert_allclose(
+        tseg.segment_sum(x, tg.receivers, 20,
+                         sorted=tg.sorted_by_receivers).numpy(),
+        tseg.segment_sum(x, tg.receivers, 20).numpy(), rtol=0, atol=0)

@@ -1,7 +1,8 @@
 """The layouts of K1 (``spmm_csr_f32``), K2 (``spmm_sddmm_csr_f32``), K6
 (``dot_softmax_f32``), K7 (``dot_bwd_dq_f32``), K8 (``dot_bwd_rev_f32``),
-K11 (``gatv2_bwd_rev_f32``), K10 (``gatv2_bwd_dq_f32``) and K5
-(``gat_bwd_rev_f32``): their choosers, the wrappers passing a layout
+K11 (``gatv2_bwd_rev_f32``), K10 (``gatv2_bwd_dq_f32``), K5
+(``gat_bwd_rev_f32``), K9 (``gatv2_softmax_f32``) and K3
+(``gat_softmax_f32``): their choosers, the wrappers passing a layout
 through, and (``gpu``-marked) every layout on the card against the plain
 versions.
 
@@ -10,8 +11,10 @@ versions.
   :func:`~ops.cuda.edge_softmax._dot_recv_layout`,
   :func:`~ops.cuda.edge_softmax._dot_bwd_rev_layout`,
   :func:`~ops.cuda.edge_softmax._gatv2_bwd_rev_layout`,
-  :func:`~ops.cuda.edge_softmax._gatv2_bwd_dq_layout` and
-  :func:`~ops.cuda.edge_softmax._gat_bwd_rev_layout` give a layout the
+  :func:`~ops.cuda.edge_softmax._gatv2_bwd_dq_layout`,
+  :func:`~ops.cuda.edge_softmax._gat_bwd_rev_layout`,
+  :func:`~ops.cuda.edge_softmax._gatv2_softmax_layout` and
+  :func:`~ops.cuda.edge_softmax._gat_softmax_layout` give a layout the
   kernels take for every width, head count and mean row length, empty
   graphs included; the wrappers hand that layout (or the caller's) to the
   library call unchanged, with the scratch a strip layout or K10's ``da``
@@ -20,8 +23,9 @@ versions.
 - ``gpu``: each layout the sweep runs, on a graph with empty rows, a row of
   more than 32 edges and a row of more than 1024, against ``spmm_plain``,
   ``spmm_sddmm_plain``, ``dot_softmax_plain``, ``dot_bwd_dq_plain``,
-  ``dot_bwd_rev_plain``, ``gatv2_bwd_rev_plain``, ``gatv2_bwd_dq_plain``
-  and ``gat_bwd_rev_plain``; two runs of each kernel give the same bits.
+  ``dot_bwd_rev_plain``, ``gatv2_bwd_rev_plain``, ``gatv2_bwd_dq_plain``,
+  ``gat_bwd_rev_plain``, ``gatv2_softmax_plain`` and ``gat_softmax_plain``;
+  two runs of each kernel give the same bits.
   This file imports no JAX, so on a machine with a card and no JAX it runs
   without the suite's conftest:
 
@@ -282,6 +286,92 @@ def test_gat_bwd_rev_layout_at_the_measured_shapes():
     assert ES._gat_bwd_rev_layout(64, 16, n, e) == (0, 1, 0, 0)
     assert ES._gat_bwd_rev_layout(275, 16, n, e) == (0, 1, 0, 0)
     assert ES._gat_bwd_rev_layout(7, 4, n, e) == (2, 2, 64, 1)
+
+
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_gatv2_softmax_layout_is_valid(n_rows, mean):
+    """K9's chooser: rows per warp for the head's G lanes at
+    ``_K9_WINDOWS_PER_ROW`` index windows a row, and (U, cap) an instance
+    the shipped library holds (rows of one register chunk
+    ``_K9_ROWS_LINE`` for groups of a 128-byte line, ``_K9_ROWS_NARROW``
+    for narrower ones; wider rows one edge uncapped), for every width up
+    to 256 vectors of float4 or float, at each mean row length and for an
+    empty graph."""
+    entries = round(mean * n_rows)
+    for vec_bytes in (4, 16):
+        for ov in range(0, 257):
+            log_rows, unroll, cap = ES._gatv2_softmax_layout(
+                ov, vec_bytes, n_rows, entries)
+            log_g = _log_g(max(ov, 1))
+            assert 0 <= log_rows <= 5 - log_g
+            assert log_rows == S._windowed_rows(log_g, n_rows, entries,
+                                                ES._K9_WINDOWS_PER_ROW)
+            line = vec_bytes << log_g >= 128
+            assert (unroll, cap) == ((1, 0) if ov > 32 else
+                                     ES._K9_ROWS_LINE if line else
+                                     ES._K9_ROWS_NARROW)
+            assert (unroll, cap) in ((1, 0), (2, 0), (4, 64))
+
+
+def test_gatv2_softmax_layout_at_the_measured_shapes():
+    """GATv2 layer 1 (H=4, O=32: 8 float4 vectors a head, one 128-byte
+    line) takes 4 rows per warp and 4 edges in flight at 64 registers, its
+    head layer (H=1, O=8: 2 vectors) 16 rows per warp and 2 edges,
+    uncapped: the fastest of chip_smoke.py --sweep k9 (PERF.md §6; at (1,
+    8) 8 rows a warp tie within 0.1 %). (1, 128) one row per warp; rows of
+    64 vectors one edge at a time, uncapped."""
+    n, e = 131_072, 2_000_000
+    assert ES._gatv2_softmax_layout(8, 16, n, e) == (2, 4, 64)
+    assert ES._gatv2_softmax_layout(2, 16, n, e) == (4, 2, 0)
+    assert ES._gatv2_softmax_layout(32, 16, n, e) == (0, 4, 64)
+    assert ES._gatv2_softmax_layout(64, 16, n, e) == (0, 1, 0)
+    assert ES._gatv2_softmax_layout(7, 4, n, e) == (2, 2, 0)
+
+
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_gat_softmax_layout_is_valid(n_rows, mean):
+    """K3's chooser: rows per warp for the head's G lanes at
+    ``_K3_WINDOWS_PER_ROW`` (rows wider than 256 vectors go in passes of
+    256, groups of 32 lanes), and (U, cap, ahead) with an instance the
+    shipped library holds (rows of one register chunk ``_K3_ROWS_LINE``
+    for groups of a 128-byte line, ``_K3_ROWS_NARROW`` for narrower ones;
+    wider rows one edge uncapped, pj ahead), for every width up to 300
+    vectors of float4 or float (0 included: K3 takes any D), at each mean
+    row length and for an empty graph."""
+    entries = round(mean * n_rows)
+    for vec_bytes in (4, 16):
+        for dv in range(0, 301):
+            wide = min(max(dv, 1), 256)
+            log_rows, unroll, cap, ahead = ES._gat_softmax_layout(
+                dv, vec_bytes, n_rows, entries)
+            assert 0 <= log_rows <= 5 - _log_g(wide)
+            assert log_rows == S._windowed_rows(_log_g(wide), n_rows,
+                                                entries,
+                                                ES._K3_WINDOWS_PER_ROW)
+            line = vec_bytes << _log_g(wide) >= 128
+            assert (unroll, cap, ahead) == (
+                (1, 0, ES._K3_ROWS_LINE[2]) if wide > 32 else
+                ES._K3_ROWS_LINE if line else ES._K3_ROWS_NARROW)
+            assert (unroll, cap) in ((1, 0), (4, 64)) and ahead in (0, 1)
+
+
+def test_gat_softmax_layout_at_the_measured_shapes():
+    """GAT layer 1 (H=4, D=32: 8 float4 vectors a head, one 128-byte line)
+    takes 4 rows per warp and 4 edges in flight at 64 registers with pj
+    loaded ahead by the lane holding the index, its head layer (H=1, D=8: 2
+    vectors) 4 rows per warp and one edge, uncapped, with pj loaded by
+    every lane: the fastest of chip_smoke.py --sweep k3 (PERF.md §6). (1,
+    128) one row per warp; rows of 64 vectors or more one edge at a time,
+    uncapped, pj ahead (not measured)."""
+    n, e = 131_072, 2_000_000
+    assert ES._gat_softmax_layout(8, 16, n, e) == (2, 4, 64, 1)
+    assert ES._gat_softmax_layout(2, 16, n, e) == (2, 1, 0, 0)
+    assert ES._gat_softmax_layout(32, 16, n, e) == (0, 4, 64, 1)
+    assert ES._gat_softmax_layout(64, 16, n, e) == (0, 1, 0, 1)
+    assert ES._gat_softmax_layout(275, 16, n, e) == (0, 1, 0, 1)
+    assert ES._gat_softmax_layout(7, 4, n, e) == (2, 1, 0, 0)
 
 
 def test_sweep_build_is_a_library_of_its_own():
@@ -546,6 +636,62 @@ def test_gat_bwd_rev_wrapper_passes_the_layout(monkeypatch, heads, d):
     assert torch.equal(st, stack((pi, mx, den, s_n), -1))
     assert calls[1][1][9] == dy.data_ptr()
     assert ES.launches["k5"] == before + 2
+
+
+@pytest.mark.parametrize("heads,o", [(4, 32), (1, 8), (3, 7)])
+def test_gatv2_softmax_wrapper_passes_the_layout(monkeypatch, heads, o):
+    """``_gatv2_softmax_kernel`` passes ``_gatv2_softmax_layout``'s choice
+    to the shipped library, or the caller's layout to the sweep build, as
+    the three integers after ``(rows, H, O)``: one launch a call."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads * 5 + o)
+    indptr, col = _csr(rng, 40, 50)
+    q, k, a = torch.randn(40, heads, o), torch.randn(50, heads, o), \
+        torch.randn(o, heads)
+    before = ES.launches["k9"]
+    num, m, s = ES._gatv2_softmax_kernel(indptr, col, q, k, a, 0.2)
+    assert num.shape == (40, heads, o) and m.shape == s.shape == (40, heads)
+    ES._gatv2_softmax_kernel(indptr, col, q, k, a, 0.2, layout=(0, 4, 64))
+    vec = o % 4 == 0
+    want = ES._gatv2_softmax_layout(o // 4 if vec else o, 16 if vec else 4,
+                                    40, col.numel())
+    calls = libs[False].calls + libs[True].calls
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 1]
+    assert all(c[0] == "gatv2_softmax_f32" for c in calls)
+    assert [c[1][8:14] for c in calls] == [(40, heads, o) + want,
+                                           (40, heads, o, 0, 4, 64)]
+    assert all(c[1][2:5] == tuple(t.data_ptr() for t in (q, k, a))
+               for c in calls)
+    assert all(c[1][14] == pytest.approx(0.2) for c in calls)
+    assert ES.launches["k9"] == before + 2
+
+
+@pytest.mark.parametrize("heads,d", [(4, 32), (1, 8), (3, 7), (1, 1100),
+                                     (2, 0)])
+def test_gat_softmax_wrapper_passes_the_layout(monkeypatch, heads, d):
+    """``_gat_softmax_kernel`` passes ``_gat_softmax_layout``'s choice to
+    the shipped library, or the caller's layout to the sweep build, as the
+    four integers after ``(rows, H, D)``: one launch a call, at any D."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads * 11 + d)
+    indptr, col = _csr(rng, 40, 50)
+    pi, pj, v = torch.randn(40, heads), torch.randn(50, heads), \
+        torch.randn(50, heads, d)
+    before = ES.launches["k3"]
+    num, m, s = ES._gat_softmax_kernel(indptr, col, pi, pj, v, 0.2)
+    assert num.shape == (40, heads, d) and m.shape == s.shape == (40, heads)
+    ES._gat_softmax_kernel(indptr, col, pi, pj, v, 0.2, layout=(0, 4, 64, 0))
+    vec = d % 4 == 0
+    want = ES._gat_softmax_layout(d // 4 if vec else d, 16 if vec else 4,
+                                  40, col.numel())
+    calls = libs[False].calls + libs[True].calls
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 1]
+    assert all(c[0] == "gat_softmax_f32" for c in calls)
+    assert [c[1][8:15] for c in calls] == [(40, heads, d) + want,
+                                           (40, heads, d, 0, 4, 64, 0)]
+    assert all(c[1][2:5] == tuple(t.data_ptr() for t in (pi, pj, v))
+               for c in calls)
+    assert ES.launches["k3"] == before + 2
 
 
 @pytest.mark.parametrize("weighted", [True, False])
@@ -1077,6 +1223,83 @@ def test_gat_bwd_rev_layouts_on_card(heads, d):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o", [(1, 8), (4, 32), (1, 128), (2, 7),
+                                     (1, 1024)])
+def test_gatv2_softmax_layouts_on_card(heads, o):
+    """K9 at every layout of the sweep build (K8's, :func:`_k8_layouts`)
+    and the default, over a bipartite receiver CSR (260 receivers of 300
+    senders, empty rows, rows of 40 and 1,100 edges), with ``a`` at
+    Glorot's scale, against ``gatv2_softmax_plain``: an empty row gets m =
+    -inf, s = 0 and num = 0; two runs of each layout give the same bits."""
+    _needs_card()
+    (ir, cr), _, _ = _groupings(heads * 100 + o + 3)
+    gen = torch.Generator(device="cuda").manual_seed(heads + o + 3)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, k = rn(260, heads, o), rn(300, heads, o)
+    a = rn(o, heads) * (2.0 / (o + heads)) ** 0.5
+    args = (ir, cr, q, k, a, 0.2)
+    want = ES.gatv2_softmax_plain(*args)
+    assert torch.isneginf(want[1][200:]).all()
+    assert (want[2][200:] == 0).all() and (want[0][200:] == 0).all()
+    ov = o // 4 if o % 4 == 0 else o
+    for lay in [None] + _k8_layouts(ov, ov):
+        first = ES._gatv2_softmax_kernel(*args, layout=lay)
+        again = ES._gatv2_softmax_kernel(*args, layout=lay)
+        for a_, b_, c_ in zip(first, want, again):
+            torch.testing.assert_close(a_, b_, **TOL)
+            torch.testing.assert_close(c_, a_, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+def _k3_layouts(dv):
+    """Every K3 layout of the sweep build: K8's (:func:`_k8_layouts`) for
+    rows of up to 256 vectors (wider ones go in passes of 256), each with
+    pj loaded ahead by the lane holding the index and by every lane."""
+    wide = min(dv, 256)
+    return [lay + (ahead,) for lay in _k8_layouts(wide, wide)
+            for ahead in (0, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 8), (4, 32), (1, 128), (2, 7),
+                                     (1, 1024), (1, 1100), (2, 300)])
+def test_gat_softmax_layouts_on_card(heads, d):
+    """K3 at every layout of the sweep build (:func:`_k3_layouts`) and the
+    default, over a bipartite receiver CSR (260 receivers of 300 senders,
+    empty rows, rows of 40 and 1,100 edges), against
+    ``gat_softmax_plain``; (1, 1100) takes two passes of 256 float4
+    vectors, (2, 300) scalar loads in two passes of 256. Receiver 7 (a row
+    of 40 edges and more) has pi = -inf, so all its logits are -inf, and
+    sender 11 (40 edges and more) pj = -inf: those rows and the empty ones
+    get m = -inf, s = 0 and num = 0; two runs of each layout give the same
+    bits."""
+    _needs_card()
+    (ir, cr), _, _ = _groupings(heads * 100 + d + 4)
+    gen = torch.Generator(device="cuda").manual_seed(heads + d + 4)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    pi, pj, v = rn(260, heads), rn(300, heads), rn(300, heads, d)
+    pi[7], pj[11] = float("-inf"), float("-inf")
+    args = (ir, cr, pi, pj, v, 0.2)
+    want = ES.gat_softmax_plain(*args)
+    for row in [7] + list(range(200, 260)):
+        assert torch.isneginf(want[1][row]).all()
+        assert (want[2][row] == 0).all() and (want[0][row] == 0).all()
+    for lay in [None] + _k3_layouts(d // 4 if d % 4 == 0 else d):
+        first = ES._gat_softmax_kernel(*args, layout=lay)
+        again = ES._gat_softmax_kernel(*args, layout=lay)
+        for a_, b_, c_ in zip(first, want, again):
+            torch.testing.assert_close(a_, b_, **TOL)
+            torch.testing.assert_close(c_, a_, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
 def _dot_recv_layouts(ov, dv, vec):
     """Every K6 and K7 layout of the sweep build: rows as K8's
     (:func:`_k8_layouts`), and strips of one line at each rows per warp the
@@ -1151,7 +1374,8 @@ def test_shipped_build_holds_only_the_chosen_instances():
     and (8, 64); K2 (2, 0) and (4, 64); K8 and K11 (2, 64) for rows of one
     register chunk, (1, 0) wider; K6, K7, K10 and K5 in rows (2, 64) and
     (4, 64) for rows of one register chunk, (1, 0) wider, and K6 and K7 in
-    strips (4, 0)."""
+    strips (4, 0); K9 (4, 64) and (2, 0), K3 (4, 64) and (1, 0) (each
+    with pj ahead or not) for rows of one register chunk, (1, 0) wider."""
     _needs_card()
     (ir, cr), (is_, cs, _), _ = _groupings(2)
     x = torch.randn(260, 8, device="cuda")
@@ -1218,6 +1442,29 @@ def test_shipped_build_holds_only_the_chosen_instances():
                                   dpj, dv)),
             300, 1, o, 0, unroll, cap, 0.2)
         assert (code == 0) == ok, ("k5", o, unroll, cap, code)
+    for o, (unroll, cap), k9_ok, k3_ok in (
+            (8, (4, 64), True, True), (8, (2, 0), True, False),
+            (8, (1, 0), False, True), (8, (2, 64), False, False),
+            (8, (4, 0), False, False), (256, (1, 0), True, True),
+            (256, (2, 64), False, False), (256, (1, 64), False, False)):
+        q, k, v = (torch.randn(n, 1, o, device="cuda")
+                   for n in (260, 300, 300))
+        pi, pj = torch.randn(260, 1, device="cuda"), torch.randn(
+            300, 1, device="cuda")
+        a = torch.randn(o, 1, device="cuda")
+        num, m, s = torch.empty_like(q), torch.empty_like(pi), \
+            torch.empty_like(pi)
+        code = S._call_on(
+            x.device, ES._lib().gatv2_softmax_f32,
+            *(S._ptr(t) for t in (ir, cr, q, k, a, num, m, s)),
+            260, 1, o, 0, unroll, cap, 0.2)
+        assert (code == 0) == k9_ok, ("k9", o, unroll, cap, code)
+        for ahead in (0, 1):
+            code = S._call_on(
+                x.device, ES._lib().gat_softmax_f32,
+                *(S._ptr(t) for t in (ir, cr, pi, pj, v, num, m, s)),
+                260, 1, o, 0, unroll, cap, ahead, 0.2)
+            assert (code == 0) == k3_ok, ("k3", o, unroll, cap, ahead, code)
     n_edges = cr.numel()
     raw = torch.randn(n_edges, 1, device="cuda")
     for o, (strips, unroll, cap), ok in (
