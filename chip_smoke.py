@@ -90,16 +90,16 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a, 3b),
 of GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j) and graph classification (3k), with K1's, K2's, K3's,
-K5's, K6's, K7's, K8's, K9's, K10's and K11's device time per step.
-``--sweep`` times K1, K2, K3, K5, K6, K7, K8, K9, K10, K11, K14 and its
-backward at every layout (the measurement behind the wrappers' choices;
-each layout but K14's held to the plain version first), K1's gather-rate
-ceiling at D=128, and K1, K2, K6, K7, K8 and K11 at every rows per warp and
-K10, K5, K9 and K3 at one row per warp on an R-MAT graph of skewed degrees
-(``--sweep k3,k9,skew`` runs the named sweeps only);
+(3i), EdgeConv (3j) and graph classification (3k), with the device time
+per step of each kernel of :data:`STEP_KERNELS` (K1-K12).
+``--sweep`` times K1-K12, K14 and its backward at every layout (the
+measurement behind the wrappers' choices; each layout but K14's held to
+the plain version first), K1's gather-rate ceiling at D=128, and K1, K2,
+K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
+at one row per warp on an R-MAT graph of skewed degrees (``--sweep
+k12,k4,skew`` runs the named sweeps only);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and the train phases 3b, 3d and 3f, with ``--profile`` their profiles:
+and the train phases 3b, 3d, 3e and 3f, with ``--profile`` their profiles:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
 """
@@ -200,6 +200,28 @@ def smi(query: str) -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def log_ptxas(name: str, text: str) -> None:
+    """The ``-Xptxas=-v`` report of library ``name``'s build: its number of
+    kernel instances and the most registers one uses, and each instance
+    that spills, by its mangled name."""
+    fn, count, regs, spills = None, 0, 0, []
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn, count = line.split("Function properties for", 1)[1].strip(), \
+                count + 1
+        elif "bytes spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            if any(nums[1:]):
+                spills.append(f"{fn}: {line.strip()}")
+        elif "Used" in line and "registers" in line:
+            regs = max(regs, int(line.split("Used", 1)[1].split()[0]))
+    log(f"  ptxas {name}: {count} functions, at most {regs} registers, "
+        f"{len(spills)} spill")
+    for item in spills:
+        log(f"    spills: {item}")
 
 
 def peaks(name: str) -> tuple[float, float]:
@@ -1114,8 +1136,8 @@ def k2_sweep(g) -> list:
 
 GATV2_SHAPES = ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D))
 # the sweeps of --sweep (K6 and K7 are one, recv_sweep; skew the R-MAT graph)
-SWEEPS = ("k1", "k2", "k3", "k5", "k6_k7", "k8", "k9", "k10", "k11", "k14",
-          "skew")
+SWEEPS = ("k1", "k2", "k3", "k4", "k5", "k6_k7", "k8", "k9", "k10", "k11",
+          "k12", "k14", "skew")
 
 
 def _k11_args(ES, g, h, o, gen):
@@ -1328,6 +1350,90 @@ def k3_sweep(g) -> list:
             [lay + (ahead,) for ahead in (0, 1)
              for lay in _rows_layouts(d // 4)],
             ES._gat_softmax_layout(d // 4, 16, N, E), ("num", "m", "s"))
+    return out
+
+
+def _k4_args(ES, g, h, d, gen):
+    """K4's arguments at (H, D) on ``g``: :func:`_k5_args` over the
+    receiver CSR."""
+    return (g.indptr_r, g.col_r) + _k5_args(ES, g, h, d, gen)[2:]
+
+
+def _k4_as_tuples(ES):
+    """K4's kernel and plain version returning ``(dpi,)``, as the other
+    kernels return their outputs."""
+    return (lambda *a, layout=None: (
+                ES._gat_bwd_dpi_kernel(*a, layout=layout),),
+            lambda *a: (ES.gat_bwd_dpi_plain(*a),))
+
+
+def k4_sweep(g) -> list:
+    """K4 at every layout (rows per warp, edges in flight per edge group,
+    register cap, pj loaded ahead by the lane holding the index or by every
+    lane of the group) the library's sweep build holds, at phase 2b's
+    shapes, each held to the plain version at RTOL / ATOL before it is
+    timed (device ms): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K4_*`` constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(30)
+    out = []
+    log("sweep: K4 layouts (device ms, profiler; log2 rows per warp, edges "
+        "in flight, register cap, pj ahead)")
+    for h, d in GATV2_SHAPES:
+        out += _forward_sweep(
+            "k4", *_k4_as_tuples(ES), _k4_args(ES, g, h, d, gen),
+            f"H={h} D={d}",
+            [lay + (ahead,) for ahead in (0, 1)
+             for lay in _rows_layouts(d // 4)],
+            ES._gat_bwd_dpi_layout(d // 4, 16, N, E), ("dpi",))
+    return out
+
+
+def _k12_cases(g, h, d, gen):
+    """K12's three cases at (H, D) on ``g``, as phase 2b runs them: node
+    values without and with a dropout mask, edge values with one; random
+    logits, values and a mask keeping 40 % (scaled by 1 / 0.4)."""
+    dev = g.device
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    lg, v = rn(E, h), rn(N, h, d)
+    mask = (torch.rand(E, h, generator=gen, device=dev) < 0.4) / 0.4
+    ir, cr = g.indptr_r, g.col_r
+    return (("node values", (ir, cr, lg, None, v), True),
+            ("node values + dropout mask", (ir, cr, lg, mask, v), True),
+            ("edge values + dropout mask", (ir, None, lg, mask, rn(E, h, d)),
+             False))
+
+
+def k12_sweep(g) -> list:
+    """K12 at every layout (rows per warp, edges in flight per edge group,
+    register cap, and at H > 1 the heads one after the other or
+    interleaved in the grid, at H = 1 the chosen one) the library's sweep
+    build holds, at phase 2b's shapes and cases, each held
+    to the plain version at RTOL / ATOL before it is timed (device ms): the
+    measurement behind ``ops/cuda/edge_softmax.py``'s ``_K12_*``
+    constants."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    gen = torch.Generator(device=g.device).manual_seed(31)
+    out = []
+    log("sweep: K12 layouts (device ms, profiler; log2 rows per warp, edges "
+        "in flight, register cap, heads interleaved)")
+    for h, d in GATV2_SHAPES:
+        for label, args, nodes in _k12_cases(g, h, d, gen):
+            chosen = ES._edge_softmax_layout(d // 4, 16, N, E, nodes)
+            # one head: both orders are the same, so only the chosen one
+            orders = (0, 1) if h > 1 else chosen[3:]
+            out += _forward_sweep(
+                "k12", ES._edge_softmax_kernel, ES.edge_softmax_plain, args,
+                f"{label} H={h} D={d}",
+                [lay + (interleave,) for interleave in orders
+                 for lay in _rows_layouts(d // 4)], chosen,
+                ("num", "m", "s"))
+            del args
     return out
 
 
@@ -1692,6 +1798,36 @@ def _k3_exact_args(g, h, d, gen):
     return g.indptr_r, g.col_r, pi, pj, ri(-8, 8, n, h, d), 0.2
 
 
+def _k4_exact_args(g, h, d, gen):
+    """K4's arguments at (H, D) on ``g`` whose every sum is exact in
+    float32: :func:`_k5_exact_args` over the receiver CSR. Each alpha and
+    leaky_relu's slope are 1, so each edge adds an integer of at most ``D +
+    2`` to ``dpi``: rows of fewer than 2^16 edges sum exactly in any
+    order."""
+    return (g.indptr_r, g.col_r) + _k5_exact_args(g, h, d, gen)[2:]
+
+
+def _k12_exact_args(g, h, d, gen, edge_values=False):
+    """K12's arguments at (H, D) on ``g`` whose every sum is exact in
+    float32: every edge's logit is its receiver's integer ``c[r]`` in [-2,
+    2] (per head), so every weight is ``exp(c - c) = 1``; the mask in {0,
+    1, 2} and the node values (or, with ``edge_values``, the edge values)
+    integers in [-8, 8] make ``s`` a row's edge count and ``num`` a sum of
+    integers of at most 16: rows of fewer than 2^20 edges sum exactly in
+    any order. The memory traffic is that of real inputs (K12 branches on
+    no value but the running max)."""
+    dev, n = g.device, g.num_nodes
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float()
+
+    lg = ri(-2, 2, n, h).index_select(0, g.receivers.long())
+    vals = ri(-8, 8, g.num_edges if edge_values else n, h, d)
+    return (g.indptr_r, None if edge_values else g.col_r, lg,
+            ri(0, 2, g.num_edges, h), vals)
+
+
 def skew_sweep(gnn, kernels=SWEEPS) -> dict:
     """K1, K8, K6, K7, K2 and K11 on :func:`rmat_graph` at every rows per
     warp, the rest of the layout as the wrappers choose it, K10, K5, K9
@@ -1845,34 +1981,44 @@ def skew_sweep(gnn, kernels=SWEEPS) -> dict:
             + ", ".join(f"2^{k}: {v:.4f}"
                         for k, v in row["by_log_rows"].items()))
         del args, ref
-    # K10, K5, K9 and K3 at the chosen layout and at one row per warp (the
-    # rest of the layout as chosen), each run twice: the same bits as the
-    # plain version and as each other
+    # K10, K5, K9, K3, K4 and K12 at the chosen layout and at one row per
+    # warp (the rest of the layout as chosen), each run twice: the same
+    # bits as the plain version and as each other
     gen = torch.Generator(device=g.device).manual_seed(27)
-    out["k10"], out["k5"], out["k9"], out["k3"] = [], [], [], []
+    for key in ("k10", "k5", "k9", "k3", "k4", "k12"):
+        out[key] = []
     for h, o in GATV2_SHAPES:
         hd = f"H={h} O={o}"
-        for key, fn, plain, make, chosen in (
-                ("k10", ES._gatv2_bwd_dq_kernel, ES.gatv2_bwd_dq_plain,
+        for key, case, fn, plain, make, chosen in (
+                ("k10", hd, ES._gatv2_bwd_dq_kernel, ES.gatv2_bwd_dq_plain,
                  _k10_exact_args, ES._gatv2_bwd_dq_layout(o // 4, 16, N, E)),
-                ("k5", ES._gat_bwd_rev_kernel, ES.gat_bwd_rev_plain,
+                ("k5", hd, ES._gat_bwd_rev_kernel, ES.gat_bwd_rev_plain,
                  _k5_exact_args, ES._gat_bwd_rev_layout(o // 4, 16, N, E)),
-                ("k9", ES._gatv2_softmax_kernel, ES.gatv2_softmax_plain,
+                ("k9", hd, ES._gatv2_softmax_kernel, ES.gatv2_softmax_plain,
                  _k9_exact_args, ES._gatv2_softmax_layout(o // 4, 16, N, E)),
-                ("k3", ES._gat_softmax_kernel, ES.gat_softmax_plain,
-                 _k3_exact_args, ES._gat_softmax_layout(o // 4, 16, N, E))):
+                ("k3", hd, ES._gat_softmax_kernel, ES.gat_softmax_plain,
+                 _k3_exact_args, ES._gat_softmax_layout(o // 4, 16, N, E)),
+                ("k4", hd, *_k4_as_tuples(ES), _k4_exact_args,
+                 ES._gat_bwd_dpi_layout(o // 4, 16, N, E)),
+                ("k12", f"node values + mask {hd}", ES._edge_softmax_kernel,
+                 ES.edge_softmax_plain, _k12_exact_args,
+                 ES._edge_softmax_layout(o // 4, 16, N, E, True)),
+                ("k12", f"edge values + mask {hd}", ES._edge_softmax_kernel,
+                 ES.edge_softmax_plain,
+                 functools.partial(_k12_exact_args, edge_values=True),
+                 ES._edge_softmax_layout(o // 4, 16, N, E, False))):
             if key not in kernels:
                 continue
             args = make(g, h, o, gen)
             ref = plain(*args)
-            row = {"case": hd, "chosen": chosen, "device_ms": {},
+            row = {"case": case, "chosen": chosen, "device_ms": {},
                    "walk_reduce_ms": {}}
             for label, lay in (("chosen", None), ("one row per warp",
                                                   (0,) + chosen[1:])):
                 for run in (1, 2):
                     for i, (a, b) in enumerate(zip(fn(*args, layout=lay),
                                                    ref)):
-                        same_bits(f"{key.upper()} R-MAT {hd} {label} run "
+                        same_bits(f"{key.upper()} R-MAT {case} {label} run "
                                   f"{run} out{i}", a, b)
                 row["device_ms"][label] = device_ms(
                     lambda: fn(*args, layout=lay))
@@ -1880,7 +2026,7 @@ def skew_sweep(gnn, kernels=SWEEPS) -> dict:
                     row["walk_reduce_ms"][label] = _split_k10(
                         DEVICE_RECORDS[-1])
             out[key].append(row)
-            log(f"  {key.upper()} {hd:<12} chosen {chosen} "
+            log(f"  {key.upper()} {case:<12} chosen {chosen} "
                 + ", ".join(f"{k}: {v:.4f} ms"
                             for k, v in row["device_ms"].items()))
             del args, ref
@@ -1939,21 +2085,22 @@ def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
     """``--sweep``: the sweep build of the ``spmm`` and ``edge_softmax``
     libraries (every instance), then of :data:`SWEEPS` the ``names`` in
     order: :func:`k1_sweep`, :func:`k2_sweep`, :func:`k3_sweep`,
-    :func:`k5_sweep`, :func:`recv_sweep` (``k6_k7``), :func:`k8_sweep`,
-    :func:`k9_sweep`, :func:`k10_sweep`, :func:`k11_sweep`,
-    :func:`k14_sweep` and :func:`skew_sweep` (of the named kernels)."""
+    :func:`k4_sweep`, :func:`k5_sweep`, :func:`recv_sweep` (``k6_k7``),
+    :func:`k8_sweep`, :func:`k9_sweep`, :func:`k10_sweep`,
+    :func:`k11_sweep`, :func:`k12_sweep`, :func:`k14_sweep` and
+    :func:`skew_sweep` (of the named kernels)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import build as B
 
     t0 = time.perf_counter()
     B.build("spmm", "edge_softmax", sweep=True)
     log(f"sweep build: {time.perf_counter() - t0:.2f} s")
     for name, text in B.build_logs().items():
-        for line in text.splitlines():
-            if name.endswith("-sweep") and ("registers" in line
-                                            or "spill" in line):
-                log(f"  ptxas {name}: {line.strip()}")
+        if name.endswith("-sweep"):
+            log_ptxas(name, text)
     runs = {"k1": lambda: k1_sweep(g), "k2": lambda: {"k2": k2_sweep(g)},
             "k3": lambda: {"k3": k3_sweep(g)},
+            "k4": lambda: {"k4": k4_sweep(g)},
+            "k12": lambda: {"k12": k12_sweep(g)},
             "k5": lambda: {"k5": k5_sweep(g)},
             "k9": lambda: {"k9": k9_sweep(g)},
             "k6_k7": lambda: {"k6_k7": recv_sweep(g)},
@@ -2220,6 +2367,28 @@ def gat_a_phase(g, x, y, mask, profile: bool):
                        {"k3": 2, "k4": 2, "k5": 2}, profile), model
 
 
+def gat_b_phase(g, x, y, mask, profile: bool):
+    """3e: GAT with attention dropout p=0.6 in training mode. Per step each
+    layer launches K12 in the forward and K2, once for all its heads, in
+    the backward. Returns its results and the model."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    log(f"phase 3e: GAT train step with attention dropout 0.6 "
+        f"(deterministic=False), {STEPS} steps")
+    model = gat(M, 3, g.device, dropout=0.6)
+
+    def loss_drop(m, g, x, y, mask):
+        return masked_cross_entropy(m(g, x, deterministic=False), y, mask)
+
+    def eval_b():
+        with torch.no_grad():
+            return masked_cross_entropy(model(g, x), y, mask)
+
+    return train_phase("GAT (b)", model, (g, x, y, mask), loss_drop,
+                       {"k12": 2, "k2": 2}, profile, eval_loss=eval_b), model
+
+
 def gatv2_train_phase(g, x, y, mask, profile: bool):
     """3f: GATv2 without attention dropout. Per step each layer launches K9
     in the forward, and K10 (two launches: dq and the blocks' shares of da,
@@ -2269,24 +2438,7 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     }
 
     res["gat"], model_a = gat_a_phase(g, x, y, mask, profile)
-
-    # GAT (b): attention dropout p=0.6 in training mode. Per step each
-    # layer launches K12 in the forward and K2, once for all its heads, in
-    # the backward.
-    log(f"phase 3e: GAT train step with attention dropout 0.6 "
-        f"(deterministic=False), {STEPS} steps")
-    model_b = gat(M, 3, dev, dropout=0.6)
-
-    def loss_drop(m, g, x, y, mask):
-        return masked_cross_entropy(m(g, x, deterministic=False), y, mask)
-
-    def eval_b():
-        with torch.no_grad():
-            return masked_cross_entropy(model_b(g, x), y, mask)
-
-    res["gat_dropout"] = train_phase(
-        "GAT (b)", model_b, (g, x, y, mask), loss_drop,
-        {"k12": 2, "k2": 2}, profile, eval_loss=eval_b)
+    res["gat_dropout"], _ = gat_b_phase(g, x, y, mask, profile)
 
     log("phase 3c (GAT): one forward+backward of GAT (a) on the card "
         "(K3-K5) vs the CPU plain path")
@@ -2677,7 +2829,50 @@ STEP_KERNELS = {
     "k5": ("gat_bwd_rev_kernel<",),
     "k9": ("gatv2_softmax_rows_kernel<",),
     "k3": ("gat_softmax_rows_kernel<",),
+    "k4": ("gat_bwd_dpi_rows_kernel<",),
+    "k12": ("edge_softmax_rows_kernel<",),
 }
+
+
+def op_sites(step, args) -> list:
+    """``(device ms, calls, op, site)`` of one profiled ``step(*args)``: the
+    device time of the kernels each outermost aten op launched (the ops
+    inside it counted with it), summed by op, first input's shape and call
+    site, largest first. The site is the backward function that ran the op
+    (``in <name>``), if any, and the two innermost frames in the port's
+    package of its Python stack (the stacks of ops that the autograd
+    engine runs may lag behind; the backward function names them)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    # verbose: the events keep their Python stacks
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  with_stack=True, record_shapes=True,
+                  experimental_config=torch._C._profiler._ExperimentalConfig(
+                      verbose=True)) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    sums = {}
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA") or ev.device_time_total <= 0:
+            continue
+        parent = ev.cpu_parent
+        if not ev.name.startswith("aten::") or (
+                parent is not None and parent.name.startswith("aten::")):
+            continue
+        while parent is not None and not parent.name.startswith(
+                "autograd::engine::evaluate_function: "):
+            parent = parent.cpu_parent
+        where = (() if parent is None else
+                 (f"in {parent.name.split(': ', 1)[1]}",)) + tuple(
+            f.split("graphneuralnetworks_tpu_torch/")[-1]
+            for f in (ev.stack or [])
+            if "graphneuralnetworks_tpu_torch" in f)[:2]
+        shape = list(ev.input_shapes[0]) if ev.input_shapes else []
+        key = (f"{ev.name} {shape}", where)
+        ms, n = sums.get(key, (0.0, 0))
+        sums[key] = (ms + ev.device_time_total / 1e3, n + 1)
+    return sorted(((ms, n, name, list(where))
+                   for (name, where), (ms, n) in sums.items()), reverse=True)
 
 
 def profile_steps(model, args, loss_fn, out_dir, params=None) -> dict:
@@ -2718,8 +2913,15 @@ def profile_steps(model, args, loss_fn, out_dir, params=None) -> dict:
         f"{key} x{cnt} {ms:.3f} ms" for ms, cnt, key in host[:8]))
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
+    sites = op_sites(step, args)
+    log("    device time by op and call site (one step, nested ops "
+        "counted in each): " + "; ".join(
+            f"{key} x{cnt} {ms:.3f} ms at {' < '.join(where) or '-'}"
+            for ms, cnt, key, where in sites[:12]))
     return {"wall_ms_per_step": wall / 3, "device_ms_per_step": busy,
             "aten_ops_per_step": n_ops, "kernel_ms_per_step": kernels,
+            "sites": [{"ms": ms, "calls": c, "op": k, "at": w}
+                      for ms, c, k, w in sites[:30]],
             "top": [{"ms_per_step": ms, "calls_per_step": c, "name": k}
                     for ms, c, k in rows[:30]],
             "host_top": [{"self_cpu_ms_per_step": ms, "calls_per_step": c,
@@ -2829,12 +3031,12 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f and the "
-                         "train phases 3b, 3d and 3f), then stop without a "
-                         "result line")
+                         "train phases 3b, 3d, 3e and 3f), then stop "
+                         "without a result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
-                    help="after phase 2, time K1, K2, K3, K5, K6, K7, K8, "
-                         "K9, K10, K11, K14 and its backward at every "
+                    help="after phase 2, time K1-K12, K14 and its "
+                         "backward at every "
                          "layout, K1's gather-rate ceiling, and the R-MAT "
                          "graph (skew); NAMES (comma-separated, of "
                          f"{','.join(SWEEPS)}) runs those only")
@@ -2866,9 +3068,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"  kernel build: {build_s:.2f} s ({', '.join(B.SOURCES)})")
     for name, text in B.build_logs().items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        log_ptxas(name, text)
 
     t0 = time.perf_counter()
     g = gnn.rand_graph(N, E, seed=1)
@@ -2886,7 +3086,7 @@ def main() -> int:
     kern, only_train = {}, {}
     for phase in (args.only.split(",") if args.only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
-                      "3f": gatv2_train_phase}
+                      "3e": gat_b_phase, "3f": gatv2_train_phase}
         if phase in train_only:
             only_train[phase] = train_only[phase](*node_inputs(g),
                                                   args.profile)[0]

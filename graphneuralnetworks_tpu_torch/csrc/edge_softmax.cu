@@ -26,19 +26,25 @@
 // Edges are stored sorted by receiver, so a position of the receiver CSR is
 // the edge id; the sender CSR's col holds the receivers.
 //
-// Layout of the work (K4, K12; the dot kernels K6-K8 take rows and strips
-// of their own, see the dot section, and K3, K5, K9, K10 and K11 take K8's
-// rows):
-// one warp owns one (row, head) pair, so all heads run in one launch and
-// every output entry is written once by one warp, in a fixed order, with
-// no atomics. As in spmm.cu, a head's D floats are split into vectors
-// (float4 when D % 4 == 0 and the pointers are 16-byte aligned), a warp
-// splits into groups of G lanes (G = the vector count, rounded up to a
-// power of two, at most 32) that take interleaved edges, and rows wider
-// than 32 vectors loop over chunks. K12's softmax takes two passes over a
-// row's edges: the row max of the logits first (scalars only), then
-// exp(logit - max), their sum and the weighted sum of value rows. So no
-// running rescale is needed, and the value rows are read once per chunk.
+// Layout of the work (every kernel; K6 and K7 also take column strips, see the
+// dot section): rows. Heads go in the grid's second dimension, one after the
+// other over all rows, so the resident warps gather from one head's slice of a
+// node table (16 MB at N = 131,072, H = 4, D = 32, which the 50 MB L2 keeps);
+// K12 with edge values, which it streams rather than gathers, puts them side
+// by side in the first. A warp takes R = 2^log_rows rows side by side, each on
+// 32 / R lanes, which load a window of edge indices (and the edges' own
+// scalars, where a kernel reads them by CSR position) with the next window
+// ahead. A head's D floats split into vectors (float4 when D % 4 == 0 and the
+// row pointers are 16-byte aligned), a row's lanes into edge groups of G lanes
+// (G = the vector count rounded up to a power of two, at most 32) that take
+// interleaved edges, and each group issues the loads of U edges before it
+// reduces any of them. A warp whose rows walk fewer index windows one after
+// another on all 32 lanes (a hub among them) takes them so (walk_rows). Rows
+// wider than NC * G vectors take passes. Every output entry is written once by
+// one lane and every sum is taken in a fixed order, with no atomics: the same
+// bits from run to run. The softmax kernels take one pass over a row's edges:
+// each edge group keeps a running max, sum and accumulator, rescaled once per
+// batch of U edges, and the row's groups merge by a fixed tree.
 //
 // Bound on an H100: memory. Each edge costs one gathered value row of H*D
 // floats (512 bytes at H=4, D=32) against about 2*H*D flops and H exps.
@@ -154,158 +160,6 @@ __device__ __forceinline__ float4 load_a<float4>(const float* a, int f,
                                                  int heads, int h) {
   const float* p = a + (long long)4 * f * heads + h;
   return make_float4(p[0], p[heads], p[2 * heads], p[3 * heads]);
-}
-
-// Where in the warp a lane works: its edge group and its vector in a chunk.
-struct Lanes {
-  int lane, g, p, grp, sub;
-  __device__ Lanes(int log_g) {
-    lane = threadIdx.x & 31;
-    g = 1 << log_g;     // lanes per edge group
-    p = 32 >> log_g;    // edge groups per warp
-    grp = lane >> log_g;
-    sub = lane & (g - 1);
-  }
-};
-
-// The (row, head) pair of this warp, or false past the last one.
-__device__ __forceinline__ bool warp_task(int n_rows, int heads, int& row,
-                                          int& h) {
-  const long long w =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (w >= (long long)n_rows * heads) return false;  // warp-uniform
-  row = (int)(w / heads);
-  h = (int)(w % heads);
-  return true;
-}
-
-// Logit of receiver-CSR position e whose sender is c.
-struct GivenLogit {    // K12: logits[e, h]
-  const float* lg;
-  int heads, h;
-  __device__ float operator()(int e, int) const {
-    return lg[(long long)e * heads + h];
-  }
-};
-// One (row, head) of the forward softmax-aggregate over a receiver CSR row
-// [beg, end):  m = max_e lg_e,  p_e = exp(lg_e - m),  s = sum_e p_e,
-// num = sum_e p_e * mask_e * v[src_e]  with src_e = col[e] (node values) or
-// e (edge values, col == NULL). A row with no edges, or whose logits are all
-// -inf, gets m = -inf, s = 0 and num = 0.
-template <typename V, typename Logit>
-__device__ void softmax_aggregate_row(int beg, int end, const int* col,
-                                      const float* mask, const V* v,
-                                      int heads, int h, int dv, int log_g,
-                                      const Logit& logit, V* num_row,
-                                      float* m_out, float* s_out) {
-  const Lanes L(log_g);
-  float mx = -INFINITY;
-  for (int e = beg + L.lane; e < end; e += 32)
-    mx = fmaxf(mx, logit(e, col ? col[e] : e));
-  mx = warp_max(mx);
-  const bool dead = mx == -INFINITY;
-  float s = 0.f;
-  // at least one pass, so that s is summed when D == 0
-  for (int c0 = 0; c0 == 0 || c0 < dv; c0 += L.g) {
-    const int f = c0 + L.sub;
-    const bool active = f < dv;
-    V acc = vzero<V>();
-    for (int base = beg; base < end; base += 32) {
-      const int e = base + L.lane;
-      int my_src = 0;
-      float my_w = 0.f;
-      if (e < end) {
-        my_src = col ? col[e] : e;
-        const float pe = dead ? 0.f : expf(logit(e, my_src) - mx);
-        if (c0 == 0) s += pe;
-        my_w = mask ? pe * mask[(long long)e * heads + h] : pe;
-      }
-      const int cnt = min(32, end - base);
-      for (int j0 = 0; j0 < cnt; j0 += L.p) {  // warp-uniform trip count
-        const int j = j0 + L.grp;
-        const int src = __shfl_sync(kFull, my_src, j);
-        const float wj = __shfl_sync(kFull, my_w, j);
-        if (active && j < cnt)
-          axpy(acc, wj, v[((long long)src * heads + h) * dv + f]);
-      }
-    }
-    for (int off = L.g; off < 32; off <<= 1) add_xor(acc, off);
-    if (active && L.grp == 0) num_row[f] = acc;
-  }
-  s = warp_sum(s);
-  if (L.lane == 0) {
-    *m_out = mx;
-    *s_out = s;
-  }
-}
-
-// K12, replacing _flash_kernel. Over the receiver CSR.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-edge_softmax_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                    const float* __restrict__ lg,
-                    const float* __restrict__ mask, const V* __restrict__ v,
-                    V* __restrict__ num, float* __restrict__ m,
-                    float* __restrict__ s, int n_rows, int heads, int dv,
-                    int log_g) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const long long rh = (long long)row * heads + h;
-  softmax_aggregate_row<V>(indptr[row], indptr[row + 1], col, mask, v, heads,
-                           h, dv, log_g, GivenLogit{lg, heads, h},
-                           num + rh * dv, m + rh, s + rh);
-}
-
-// K4, replacing _gat_bwd_dpi_kernel. Over the receiver CSR, row r:
-//   alpha_e = exp(lrelu(raw_e) - mx[r]) / den[r],  raw_e = pi[r] + pj[s_e]
-//   dpi[r]  = sum_e alpha_e * (<v[s_e], dy[r]> - s_n[r]) * lrelu'(raw_e)
-// dy[r] stays in registers; each lane adds w_e * (its share of the dot), the
-// lane that owns edge e subtracts w_e * s_n[r] once, and one warp sum
-// gives dpi.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_dpi_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                   const float* __restrict__ pi, const float* __restrict__ pj,
-                   const V* __restrict__ v, const float* __restrict__ mx,
-                   const float* __restrict__ den,
-                   const float* __restrict__ s_n, const V* __restrict__ dy,
-                   float* __restrict__ dpi, int n_rows, int heads, int dv,
-                   int log_g, float slope) {
-  int row, h;
-  if (!warp_task(n_rows, heads, row, h)) return;
-  const Lanes L(log_g);
-  const long long rh = (long long)row * heads + h;
-  const int beg = indptr[row], end = indptr[row + 1];
-  const float pir = pi[rh], mxr = mx[rh], denr = den[rh], snr = s_n[rh];
-  float acc = 0.f;
-  for (int c0 = 0; c0 == 0 || c0 < dv; c0 += L.g) {
-    const int f = c0 + L.sub;
-    const bool active = f < dv;
-    const V dyr = active ? dy[rh * dv + f] : vzero<V>();
-    for (int base = beg; base < end; base += 32) {
-      const int e = base + L.lane;
-      int my_col = 0;
-      float my_w = 0.f;
-      if (e < end) {
-        my_col = col[e];
-        const float raw = pir + pj[(long long)my_col * heads + h];
-        const float alpha = expf(lrelu(raw, slope) - mxr) / denr;
-        my_w = alpha * dlrelu(raw, slope);
-        if (c0 == 0) acc -= my_w * snr;
-      }
-      const int cnt = min(32, end - base);
-      for (int j0 = 0; j0 < cnt; j0 += L.p) {
-        const int j = j0 + L.grp;
-        const int c = __shfl_sync(kFull, my_col, j);
-        const float wj = __shfl_sync(kFull, my_w, j);
-        if (active && j < cnt)
-          acc = fmaf(wj, vdot(v[((long long)c * heads + h) * dv + f], dyr),
-                     acc);
-      }
-    }
-  }
-  acc = warp_sum(acc);
-  if (L.lane == 0) dpi[rh] = acc;
 }
 
 // ---- GATv2: K9, K10, K11 ---------------------------------------------------
@@ -1703,6 +1557,276 @@ gat_softmax_rows_kernel(const int* __restrict__ indptr,
   });
 }
 
+// K12 in rows, replacing _flash_kernel. Over the receiver CSR, row r, head
+// h, with the given logits lg[e, h]:
+//   m = max_e lg_e,  s = sum_e exp(lg_e - m),
+//   num = sum_e exp(lg_e - m) * mask[e, h] * v_e
+// with v_e = v[col[e]] (node values) or v[e] (edge values, col == NULL),
+// mask == NULL all ones, and m = -inf, s = 0, num = 0 for a row without
+// edges or whose logits are all -inf. K3's rows and one-pass softmax: R
+// rows per warp, the hub switch (walk_rows); each group issues U edges'
+// value rows before it adds any of them. Edges are stored sorted by
+// receiver, so lg and mask are read by CSR position, as col is: the lane
+// that loads an edge's index loads its logit and mask with it, a window
+// ahead, and hands the three to the group by shuffle. Heads go in the
+// grid's second dimension, so the resident warps gather one head's slice
+// of v (16 MB at N = 131,072, H = 4, D = 32). lg and mask are then read
+// in place, with a stride of H floats (head-major copies, their transposes
+// timed with the call, were slower). With interleave, block b takes head
+// b mod H of row block b / H instead: the blocks that run together read
+// every head of the same edges, which suits edge values, streamed rather
+// than gathered. The per-edge scalars and edge values stream past the L2
+// (evict-first), and so does num. Rows wider than NC * G vectors (256 at
+// most) take passes of NC * G vectors; each pass walks the row again and
+// rebuilds the same m and s, bit for bit, and the first pass writes them.
+// The first port gave a (row, head) pair a warp, heads side by side, and
+// took two passes over a row's edges, each edge waiting on its index
+// before its value row.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+edge_softmax_rows_kernel(const int* __restrict__ indptr,
+                         const int* __restrict__ col,
+                         const float* __restrict__ lg,
+                         const float* __restrict__ mask,
+                         const V* __restrict__ v, V* __restrict__ num,
+                         float* __restrict__ m, float* __restrict__ s,
+                         int n_rows, int heads, int dv, int log_g,
+                         int log_rows, int interleave) {
+  const int h = interleave ? blockIdx.x % heads : blockIdx.y;
+  const int xb = interleave ? blockIdx.x / heads : blockIdx.x;
+  const int rb = xb * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (rb >= ((n_rows + (1 << log_rows) - 1) >> log_rows)) return;  // uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  // head h's logit and mask of edge e: at e * heads from lg_h and mask_h
+  const float* lg_h = lg + h;
+  const float* mask_h = mask ? mask + h : nullptr;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long rh = (long long)row * heads + h;
+    // lane sl holds window position w0 + sl: its sender, logit and mask
+    auto fetch = [&](int w0, int& c, float& l, float& k) {
+      const int j = w0 + S.sl;
+      const long long e = (long long)beg + j;
+      c = col && j < len ? col[e] : 0;
+      l = j < len ? __ldcs(lg_h + e * heads) : -INFINITY;
+      k = mask_h && j < len ? __ldcs(mask_h + e * heads) : 1.f;
+    };
+    // at least one pass, so that s is summed when D == 0
+    for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
+      V acc[NC];
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) acc[cc] = vzero<V>();
+      float mg = -INFINITY, sg = 0.f;   // this edge group's running max, sum
+      int c, nc;
+      float l, nl, k, nk;
+      fetch(0, c, l, k);
+      for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+        fetch(w0 + S.seg, nc, nl, nk);                // the next window, ahead
+        const int cnt = min(S.seg, longest - w0);
+        for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+          V vg[U][NC];
+          float le[U], mk[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {   // the loads of U edges first
+            const int j = S.pos(j0, u);
+            const int hold = S.holder(j);
+            // col and mask are uniform over the grid
+            const int src = col ? __shfl_sync(kFull, c, hold) : beg + w0 + j;
+            le[u] = __shfl_sync(kFull, l, hold);
+            mk[u] = mask_h ? __shfl_sync(kFull, k, hold) : 1.f;
+            ok[u] = live && j < S.seg && w0 + j < len;
+            const long long sh = (long long)src * heads + h;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              const int f = f0 + sub + cc * g;
+              if (!ok[u] || f >= dv)
+                vg[u][cc] = vzero<V>();
+              else
+                vg[u][cc] = col ? v[sh * dv + f] : __ldcs(v + sh * dv + f);
+            }
+          }
+          // the batch's max first, so that the group rescales once and the
+          // U exps do not wait on each other
+          float bm = mg;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            le[u] = ok[u] ? le[u] : -INFINITY;
+            bm = fmaxf(bm, le[u]);
+          }
+          if (bm > mg) {
+            const float sc = expf(mg - bm);   // 0 while mg is -inf
+            sg *= sc;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+            mg = bm;
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const float pe = le[u] == -INFINITY ? 0.f : expf(le[u] - mg);
+            sg += pe;
+            const float w = pe * mk[u];
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], w, vg[u][cc]);
+          }
+        }
+        c = nc;
+        l = nl;
+        k = nk;
+      }
+      // merge the row's groups (G lanes apart): rescale each to the row
+      // max, then add
+      float mx = mg;
+      for (int off = g; off < S.seg; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      const float sc = mg == -INFINITY ? 0.f : expf(mg - mx);
+      sg *= sc;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) vscale(acc[cc], sc);
+      for (int off = g; off < S.seg; off <<= 1) {
+        sg += __shfl_xor_sync(kFull, sg, off);
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) add_xor(acc[cc], off);
+      }
+      if (live && S.grp == 0) {
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          const int f = f0 + sub + cc * g;
+          if (f < dv) __stcs(num + rh * dv + f, acc[cc]);
+        }
+      }
+      if (live && S.sl == 0 && f0 == 0) {
+        m[rh] = mx;
+        s[rh] = sg;
+      }
+    }
+  });
+}
+
+// K4 in rows, replacing _gat_bwd_dpi_kernel. Over the receiver CSR, row r,
+// head h:
+//   alpha_e = exp(lrelu(raw_e) - mx[r]) / den[r],  raw_e = pi[r] + pj[s_e]
+//   dpi[r]  = sum_e alpha_e * (<v[s_e], dy[r]> - s_n[r]) * lrelu'(raw_e)
+// K3's receiver walk over the same gathers: heads in the grid's second
+// dimension, so the resident warps gather one head's slice of v (16 MB at
+// N = 131,072, H = 4, D = 32); R rows per warp, the window of sender
+// indices loaded ahead, the hub switch (walk_rows); each group loads U
+// edges' v rows and pj scalars before it uses any of them, pj by the lane
+// holding the index one window ahead (ahead) or by every lane of the group
+// beside the v row. dy[r] stays in registers (streamed past the L2), and
+// the row's pi, mx, den and s_n are loaded once. Each lane adds w_e * (its
+// share of <v[s_e], dy[r]>) to its own partial of dpi, with no shuffle per
+// edge; one lane of the group subtracts w_e * s_n[r] once an edge, in the
+// first pass; one fixed tree over the row's lanes closes the sum. Rows
+// wider than NC * G vectors (256 at most) take passes of NC * G vectors,
+// each walking the row's edges again. The first port gave a (row, head)
+// pair a warp, heads side by side, shuffled each edge's index and weight
+// to every lane, and regathered pj for every 32 vectors of a wide row.
+template <typename V, int NC, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+gat_bwd_dpi_rows_kernel(const int* __restrict__ indptr,
+                        const int* __restrict__ col,
+                        const float* __restrict__ pi,
+                        const float* __restrict__ pj, const V* __restrict__ v,
+                        const float* __restrict__ mx,
+                        const float* __restrict__ den,
+                        const float* __restrict__ s_n,
+                        const V* __restrict__ dy, float* __restrict__ dpi,
+                        int n_rows, int heads, int dv, int log_g,
+                        int log_rows, int ahead, float slope) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long rh = (long long)row * heads + h;
+    const float pir = live ? pi[rh] : 0.f, mxr = live ? mx[rh] : 0.f;
+    const float denr = live ? den[rh] : 1.f, snr = live ? s_n[rh] : 0.f;
+    float acc = 0.f;   // this lane's share of dpi[r]
+    // at least one pass, so that dpi is summed when D == 0
+    for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
+      V dyv[NC];
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        const int f = f0 + sub + cc * g;
+        dyv[cc] = live && f < dv ? __ldcs(dy + rh * dv + f) : vzero<V>();
+      }
+      // this lane's index of the window, of the next one (ahead), and the
+      // pj of its edge of the window (ahead)
+      int c = S.sl < len ? col[beg + S.sl] : 0;
+      int nc = ahead && S.seg + S.sl < len ? col[beg + S.seg + S.sl] : 0;
+      float pc = ahead && S.sl < len ? pj[(long long)c * heads + h] : 0.f;
+      for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
+        int nn;
+        float npc = 0.f;
+        if (ahead) {   // indices two windows ahead, pj one
+          const int j2 = w0 + 2 * S.seg + S.sl;
+          nn = j2 < len ? col[beg + j2] : 0;
+          if (w0 + S.seg + S.sl < len) npc = pj[(long long)nc * heads + h];
+        } else {
+          const int j1 = w0 + S.seg + S.sl;
+          nn = j1 < len ? col[beg + j1] : 0;
+        }
+        const int cnt = min(S.seg, longest - w0);
+        for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
+          V vg[U][NC];
+          float pje[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {   // the loads of U edges first
+            const int j = S.pos(j0, u);
+            const int src = __shfl_sync(kFull, c, S.holder(j));
+            ok[u] = live && j < S.seg && w0 + j < len;
+            const long long sh = (long long)src * heads + h;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              const int f = f0 + sub + cc * g;
+              vg[u][cc] = ok[u] && f < dv ? v[sh * dv + f] : vzero<V>();
+            }
+            if (!ahead) pje[u] = ok[u] ? pj[sh] : 0.f;
+          }
+          if (ahead) {
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              pje[u] = __shfl_sync(kFull, pc, S.holder(S.pos(j0, u)));
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (!ok[u]) continue;
+            const float raw = pir + pje[u];
+            const float alpha = expf(lrelu(raw, slope) - mxr) / denr;
+            const float w = alpha * dlrelu(raw, slope);
+            float part = 0.f;
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) part += vdot(vg[u][cc], dyv[cc]);
+            acc = fmaf(w, part, acc);
+            if (f0 == 0 && sub == 0) acc -= w * snr;   // once an edge
+          }
+        }
+        if (ahead) {
+          c = nc;
+          nc = nn;
+          pc = npc;
+        } else {
+          c = nn;
+        }
+      }
+    }
+    for (int off = 1; off < S.seg; off <<= 1)   // the row's lanes
+      acc += __shfl_xor_sync(kFull, acc, off);
+    if (live && S.sl == 0) dpi[rh] = acc;
+  });
+}
+
 int log_group(int dv) {
   int lg = 0;
   while ((1 << lg) < dv && lg < 5) ++lg;
@@ -1711,11 +1835,6 @@ int log_group(int dv) {
 
 bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-unsigned blocks_for(int n_rows, int heads) {
-  const long long warps = (long long)n_rows * heads;
-  return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
 // The GATv2 kernels keep NC register chunks of 32 vectors per lane: calls
@@ -1825,12 +1944,13 @@ int with_strip_instances(int unroll, int reg_cap, Go&& go) {
 }
 
 // The shipped instances, from chip_smoke.py --sweep (PERF.md §6), as
-// ops/cuda/edge_softmax.py's _DOT_*, _K8_*, _K11_*, _K9_* and _K3_*
-// constants pick them: rows of one register chunk take edges in flight at
-// 64 registers (K8 and K11 2; K6, K7, K10, K5, K9 and K3 4 for groups of a
-// 128-byte line or more; K6, K7, K10 and K5 2 for narrower ones, K9 2
-// uncapped, K3 1 uncapped), wider rows one edge, uncapped (two chunks of
-// two edges at 64 registers spill); strips 4 gathers in flight, uncapped.
+// ops/cuda/edge_softmax.py's _DOT_*, _K8_*, _K11_*, _K9_*, _K3_*, _K12_*
+// and _K4_* constants pick them: rows of one register chunk take edges in
+// flight at 64 registers (K8 and K11 2; K6, K7, K10, K5, K9, K3, K12 and
+// K4 4 for groups of a 128-byte line or more; K6, K7, K10, K5, K12 and K4
+// 2 for narrower ones, K9 2 uncapped, K3 1 uncapped), wider rows one edge,
+// uncapped (two chunks of two edges at 64 registers spill); strips 4
+// gathers in flight, uncapped.
 struct K8Pick {
   static constexpr bool holds(int nc, int u, int cap) {
     return nc == 1 ? u == 2 && cap == 64 : u == 1 && cap == 0;
@@ -1848,6 +1968,8 @@ struct RecvPick {
 };
 using K10Pick = RecvPick;
 using K5Pick = RecvPick;
+using K12Pick = RecvPick;
+using K4Pick = RecvPick;
 struct K9Pick {
   static constexpr bool holds(int nc, int u, int cap) {
     return nc == 1 ? (u == 4 && cap == 64) || (u == 2 && cap == 0)
@@ -2158,6 +2280,63 @@ int launch_gat_softmax(const int* indptr, const int* col, const float* pi,
       });
 }
 
+// K12 in rows (see edge_softmax_rows_kernel), at the instances
+// with_row_instances holds: rows up to 256 vectors in registers, wider ones
+// in passes of 256. interleave is 0 or 1.
+template <typename V>
+int launch_edge_softmax(const int* indptr, const int* col, const float* lg,
+                        const float* mask, const float* v, float* num,
+                        float* m, float* s, int n_rows, int heads, int dv,
+                        int log_rows, int unroll, int reg_cap, int interleave,
+                        cudaStream_t st) {
+  const int wide = dv < 256 ? dv : 256;
+  const int lg_ = log_group(wide);
+  if (!dot_layout_ok(lg_, log_rows, interleave ? 1 : heads) ||
+      interleave & ~1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid = row_grid(n_rows, log_rows, heads);
+  if (interleave) {   // heads side by side in the grid's first dimension
+    if ((long long)grid.x * heads > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    grid = dim3(grid.x * heads, 1);
+  }
+  return with_row_instances<K12Pick>(
+      wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        edge_softmax_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
+                                 decltype(minb)::value>
+            <<<grid, kThreads, 0, st>>>(
+                indptr, col, lg, mask, reinterpret_cast<const V*>(v),
+                reinterpret_cast<V*>(num), m, s, n_rows, heads, dv, lg_,
+                log_rows, interleave);
+      });
+}
+
+// K4 in rows (see gat_bwd_dpi_rows_kernel), at the instances
+// with_row_instances holds: rows up to 256 vectors in registers, wider ones
+// in passes of 256.
+template <typename V>
+int launch_gat_bwd_dpi(const int* indptr, const int* col, const float* pi,
+                       const float* pj, const float* v, const float* mx,
+                       const float* den, const float* s_n, const float* dy,
+                       float* dpi, int n_rows, int heads, int dv,
+                       int log_rows, int unroll, int reg_cap, int ahead,
+                       float slope, cudaStream_t st) {
+  const int wide = dv < 256 ? dv : 256;
+  const int lg = log_group(wide);
+  if (!dot_layout_ok(lg, log_rows, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  return with_row_instances<K4Pick>(
+      wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
+        gat_bwd_dpi_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
+                                decltype(minb)::value>
+            <<<grid, kThreads, 0, st>>>(
+                indptr, col, pi, pj, reinterpret_cast<const V*>(v), mx, den,
+                s_n, reinterpret_cast<const V*>(dy), dpi, n_rows, heads, dv,
+                lg, log_rows, ahead, slope);
+      });
+}
+
 bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
   if (o % 4 != 0 || d % 4 != 0) return false;
   for (const void* p : rows)
@@ -2168,29 +2347,31 @@ bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
 }  // namespace
 
 // Every function returns cudaGetLastError() after the launch (0 on
-// success). The caller allocates every output, makes sure n_rows > 0 and
-// heads > 0, and that rows * heads warps fit one grid (n_rows * heads <
-// 2^34).
+// success), or cudaErrorInvalidValue, with nothing launched, for a layout
+// or width the library does not take. The caller allocates every output
+// and makes sure n_rows > 0 and 0 < heads < 65536 (the grid's second
+// dimension).
 extern "C" {
 
 // K12. num [n_rows, H, d], m and s [n_rows, H]. col == NULL: values are
 // per edge [E, H, d]; else per node, indexed by col. mask may be NULL.
+// lg and mask [E, H]. Any d: rows of more than 256 vectors (float4 when
+// d % 4 == 0 and v and num are 16-byte aligned) take passes of 256.
+// log_rows, unroll and reg_cap as K11 (see with_row_instances and K12Pick
+// for the instances built); interleave (0 or 1) as
+// edge_softmax_rows_kernel reads it.
 int edge_softmax_f32(const int* indptr, const int* col, const float* lg,
                      const float* mask, const float* v, float* num, float* m,
-                     float* s, int n_rows, int heads, int d, void* stream) {
+                     float* s, int n_rows, int heads, int d, int log_rows,
+                     int unroll, int reg_cap, int interleave, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(n_rows, heads);
-  if (d % 4 == 0 && aligned16(v) && aligned16(num)) {
-    const int dv = d / 4;
-    edge_softmax_kernel<float4><<<nb, kThreads, 0, st>>>(
-        indptr, col, lg, mask, reinterpret_cast<const float4*>(v),
-        reinterpret_cast<float4*>(num), m, s, n_rows, heads, dv,
-        log_group(dv));
-  } else {
-    edge_softmax_kernel<float><<<nb, kThreads, 0, st>>>(
-        indptr, col, lg, mask, v, num, m, s, n_rows, heads, d, log_group(d));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d % 4 == 0 && aligned16(v) && aligned16(num))
+    return launch_edge_softmax<float4>(indptr, col, lg, mask, v, num, m, s,
+                                       n_rows, heads, d / 4, log_rows, unroll,
+                                       reg_cap, interleave, st);
+  return launch_edge_softmax<float>(indptr, col, lg, mask, v, num, m, s,
+                                    n_rows, heads, d, log_rows, unroll,
+                                    reg_cap, interleave, st);
 }
 
 // K3. pi [n_rows, H], pj [n_src, H], v [n_src, H, d]; outputs as K12.
@@ -2213,26 +2394,24 @@ int gat_softmax_f32(const int* indptr, const int* col, const float* pi,
                                    ahead, slope, st);
 }
 
-// K4. Over the receiver CSR of n_rows receivers: dpi [n_rows, H].
+// K4. Over the receiver CSR of n_rows receivers: dpi [n_rows, H]; pj and
+// v are the senders'. Any d, as K3. log_rows, unroll, reg_cap and ahead as
+// K3 (see with_row_instances and K4Pick for the instances built).
 int gat_bwd_dpi_f32(const int* indptr, const int* col, const float* pi,
                     const float* pj, const float* v, const float* mx,
                     const float* den, const float* s_n, const float* dy,
-                    float* dpi, int n_rows, int heads, int d, float slope,
+                    float* dpi, int n_rows, int heads, int d, int log_rows,
+                    int unroll, int reg_cap, int ahead, float slope,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(n_rows, heads);
-  if (d % 4 == 0 && aligned16(v) && aligned16(dy)) {
-    const int dv = d / 4;
-    gat_bwd_dpi_kernel<float4><<<nb, kThreads, 0, st>>>(
-        indptr, col, pi, pj, reinterpret_cast<const float4*>(v), mx, den, s_n,
-        reinterpret_cast<const float4*>(dy), dpi, n_rows, heads, dv,
-        log_group(dv), slope);
-  } else {
-    gat_bwd_dpi_kernel<float><<<nb, kThreads, 0, st>>>(
-        indptr, col, pi, pj, v, mx, den, s_n, dy, dpi, n_rows, heads, d,
-        log_group(d), slope);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d % 4 == 0 && aligned16(v) && aligned16(dy))
+    return launch_gat_bwd_dpi<float4>(indptr, col, pi, pj, v, mx, den, s_n,
+                                      dy, dpi, n_rows, heads, d / 4,
+                                      log_rows, unroll, reg_cap, ahead, slope,
+                                      st);
+  return launch_gat_bwd_dpi<float>(indptr, col, pi, pj, v, mx, den, s_n, dy,
+                                   dpi, n_rows, heads, d, log_rows, unroll,
+                                   reg_cap, ahead, slope, st);
 }
 
 // K5. Over the sender CSR of n_rows senders: dpj [n_rows, H] and

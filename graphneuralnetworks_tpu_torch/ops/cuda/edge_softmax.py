@@ -2,35 +2,35 @@
 
 Counterpart of ``graphneuralnetworks_tpu/ops/pallas/edge_softmax.py``. The
 TPU kernels stream edge blocks through one-hot matmuls over 128x512
-receiver blocks; here each kernel gives one warp to one (row, head) pair of
-a CSR grouping (``csrc/edge_softmax.cu``):
+receiver blocks; here each kernel walks a CSR grouping in rows: heads one
+after the other in the grid, several rows of one head per warp, several
+edges in flight (``csrc/edge_softmax.cu``):
 
 - K12 ``edge_softmax``: over the receiver CSR, the softmax of given
   per-edge logits ``[E, H]`` and the sum of node values (``col`` given) or
-  edge values (``col=None``), the numerator scaled by a dropout mask.
+  edge values (``col=None``), the numerator scaled by a dropout mask, one
+  pass over each row's edges (:func:`_edge_softmax_layout`).
 - K3 ``gat_softmax``: the same with GAT's logits
-  ``leaky_relu(pi[r] + pj[s])`` computed in the kernel, one pass over each
-  row's edges in K8's rows (:func:`_gat_softmax_layout`).
-- K4 ``gat_bwd_dpi`` (receiver CSR) and K5 ``gat_bwd_rev`` (sender CSR,
-  in K8's rows: :func:`_gat_bwd_rev_layout`): GAT's backward, recomputing
-  each edge's attention weight from per-node scalars.
+  ``leaky_relu(pi[r] + pj[s])`` computed in the kernel
+  (:func:`_gat_softmax_layout`).
+- K4 ``gat_bwd_dpi`` (receiver CSR: :func:`_gat_bwd_dpi_layout`) and K5
+  ``gat_bwd_rev`` (sender CSR: :func:`_gat_bwd_rev_layout`): GAT's
+  backward, recomputing each edge's attention weight from per-node
+  scalars.
 - K9 ``gatv2_softmax``: GATv2's logits ``<a_h, leaky_relu(q[r] + k[s])>``
-  with the values ``k[s]``, one pass over each row's edges in K8's rows
-  (:func:`_gatv2_softmax_layout`).
+  with the values ``k[s]`` (:func:`_gatv2_softmax_layout`).
 - K10 ``gatv2_bwd_dq`` (receiver CSR: ``dq`` and ``da``, the latter in two
-  launches, per-block shares then a fixed-order sum; in K8's rows:
+  launches, per-block shares then a fixed-order sum:
   :func:`_gatv2_bwd_dq_layout`) and K11 ``gatv2_bwd_rev`` (sender CSR:
-  ``dk``, in K8's rows: :func:`_gatv2_bwd_rev_layout`): GATv2's
-  backward.
+  ``dk``: :func:`_gatv2_bwd_rev_layout`): GATv2's backward.
 - K6 ``dot_softmax``: dot-product logits ``lrelu(scale <q[r], k[s]>)``
   (the plain dot when ``slope`` is None) with the values ``v[s]``, and
   each edge's raw logit where asked (K7's residual); K7 ``dot_bwd_dq``
   (receiver CSR: ``dq``, from those raw logits where given) and K8
-  ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward. They take
-  several rows of one head per warp, heads one after the other over all
-  rows, and several edges in flight; K6 and K7 build a head wider than one
-  128-byte line whose table the L2 cannot hold in passes over column
-  strips (:func:`_dot_recv_layout`, :func:`_dot_bwd_rev_layout`).
+  ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward. K6 and K7
+  build a head wider than one 128-byte line whose table the L2 cannot hold
+  in passes over column strips (:func:`_dot_recv_layout`,
+  :func:`_dot_bwd_rev_layout`).
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
 self-loop folds in afterwards (:func:`finalize_softmax`). Five autograd
@@ -133,6 +133,23 @@ _K9_ROWS_NARROW = (2, 0)
 _K3_WINDOWS_PER_ROW = 2
 _K3_ROWS_LINE = (4, 64, 1)
 _K3_ROWS_NARROW = (1, 0, 0)
+# K12 and K4 take K3's walk: rows per warp from _K12_WINDOWS_PER_ROW and
+# _K4_WINDOWS_PER_ROW index windows a row and, for rows of one register
+# chunk, (edges in flight, register cap) _K12_ROWS_LINE or _K12_ROWS_NARROW
+# and (edges in flight, register cap, pj ahead) _K4_ROWS_LINE or
+# _K4_ROWS_NARROW, for edge groups of a 128-byte line or more and narrower
+# ones: the fastest of chip_smoke.py --sweep k12,k4 (PERF.md §6; at (1, 8)
+# 8 rows a warp for K12, 4 for K4). Wider rows take one edge, uncapped (K4
+# with pj ahead, unmeasured). K12 reads its [E, H] logits and mask in place
+# by CSR position, with a stride of H; with edge values it interleaves the
+# heads in the grid (the blocks of every head of the same rows run
+# together, as the streamed values suit), with node values it does not.
+_K12_WINDOWS_PER_ROW = 4
+_K12_ROWS_LINE = (4, 64)
+_K12_ROWS_NARROW = (2, 64)
+_K4_WINDOWS_PER_ROW = 2
+_K4_ROWS_LINE = (4, 64, 1)
+_K4_ROWS_NARROW = (2, 64, 0)
 _DOT_ROWS_LINE = (4, 64)
 _DOT_ROWS_NARROW = (2, 64)
 _DOT_STRIP_BYTES = 16 * 2**20
@@ -144,9 +161,9 @@ _DOT_STRIP_INSTANCE = (4, 0)
 def _lib(sweep: bool = False) -> ctypes.CDLL:
     lib = load("edge_softmax", sweep=sweep)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn, n_ptr, n_int, n_f32 in (("edge_softmax_f32", 8, 3, 0),
+    for fn, n_ptr, n_int, n_f32 in (("edge_softmax_f32", 8, 7, 0),
                                     ("gat_softmax_f32", 8, 7, 1),
-                                    ("gat_bwd_dpi_f32", 10, 3, 1),
+                                    ("gat_bwd_dpi_f32", 10, 7, 1),
                                     ("gat_bwd_rev_f32", 12, 6, 1),
                                     ("gatv2_softmax_f32", 8, 6, 1),
                                     ("gatv2_bwd_dq_f32", 11, 6, 1),
@@ -432,18 +449,45 @@ def _forward_outputs(n, heads, d, device):
             torch.empty((n, heads), dtype=torch.float32, device=device))
 
 
-def _edge_softmax_kernel(indptr, col, logits, mask, values):
+def _edge_softmax_layout(dv: int, vec_bytes: int, n_rows: int, entries: int,
+                         node_values: bool) -> tuple[int, int, int, int]:
+    """K12's ``(log_rows, unroll, reg_cap, interleave)`` for a head of
+    ``dv`` vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
+    n_rows`` edges per receiver on average, with node values or edge
+    values: :func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K12_WINDOWS_PER_ROW`` (rows wider than 256 vectors go in passes of
+    256, groups of 32 lanes), :func:`_rows_instance` of ``_K12_ROWS_LINE``
+    and ``_K12_ROWS_NARROW``, and the heads interleaved in the grid for
+    edge values only."""
+    wide = min(max(dv, 1), _MAX_VECTORS)
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K12_WINDOWS_PER_ROW)
+    return ((log_rows,) + _rows_instance(wide, vec_bytes << log_g,
+                                         _K12_ROWS_LINE, _K12_ROWS_NARROW)
+            + (int(not node_values),))
+
+
+def _edge_softmax_kernel(indptr, col, logits, mask, values, layout=None):
+    """K12 at :func:`_edge_softmax_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap, interleave)``) from the sweep build of
+    the library, which holds every (unroll, reg_cap) instance
+    (``build.load``)."""
     device = _check_launch(indptr, col, {"logits": logits, "mask": mask},
                            {"values": values})
     n, (_, heads, d) = indptr.numel() - 1, values.shape
-    _same_rows(col.numel() if col is not None else values.shape[0],
-               logits=logits, mask=mask)
+    n_edges = col.numel() if col is not None else values.shape[0]
+    _same_rows(n_edges, logits=logits, mask=mask)
     num, m, s = _forward_outputs(n, heads, d, device)
     if n == 0 or heads == 0:
         return num, m, s
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(d, values, num)
+        layout = _edge_softmax_layout(_vectors(d, vec), 16 if vec else 4, n,
+                                      n_edges, col is not None)
     _launch("edge_softmax_f32", "k12", device, _ptr(indptr), _ptr(col),
             _ptr(logits), _ptr(mask), _ptr(values), _ptr(num), _ptr(m),
-            _ptr(s), n, heads, d)
+            _ptr(s), n, heads, d, *layout, sweep=sweep)
     return num, m, s
 
 
@@ -497,8 +541,27 @@ def _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den, s_n, dy):
                                            mx, den, s_n, dy))
 
 
+def _gat_bwd_dpi_layout(dv: int, vec_bytes: int, n_rows: int,
+                        entries: int) -> tuple[int, int, int, int]:
+    """K4's ``(log_rows, unroll, reg_cap, ahead)`` for a head of ``dv``
+    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
+    n_rows`` edges per receiver on average: :func:`_windowed_rows` of
+    ``G``-lane edge groups at ``_K4_WINDOWS_PER_ROW`` (rows wider than 256
+    vectors go in passes of 256, groups of 32 lanes), and
+    :func:`_rows_instance` of ``_K4_ROWS_LINE`` and ``_K4_ROWS_NARROW``."""
+    wide = min(max(dv, 1), _MAX_VECTORS)
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K4_WINDOWS_PER_ROW)
+    return (log_rows,) + _rows_instance(wide, vec_bytes << log_g,
+                                        _K4_ROWS_LINE, _K4_ROWS_NARROW)
+
+
 def _gat_bwd_dpi_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
-                        slope):
+                        slope, layout=None):
+    """K4 at :func:`_gat_bwd_dpi_layout`'s layout, or at ``layout``
+    (``(log_rows, unroll, reg_cap, ahead)``) from the sweep build of the
+    library, which holds every (unroll, reg_cap) instance
+    (``build.load``)."""
     device, args = _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den,
                                  s_n, dy)
     n, heads, d = indptr.numel() - 1, pi.shape[1], dy.shape[2]
@@ -506,15 +569,21 @@ def _gat_bwd_dpi_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     dpi = torch.empty((n, heads), dtype=torch.float32, device=device)
     if n == 0 or heads == 0:
         return dpi
+    sweep = layout is not None
+    if not sweep:
+        vec = _float4_rows(d, values_n, dy)
+        layout = _gat_bwd_dpi_layout(_vectors(d, vec), 16 if vec else 4, n,
+                                     col.numel())
     _launch("gat_bwd_dpi_f32", "k4", device, *args, _ptr(dpi), n, heads, d,
-            float(slope))
+            *layout, float(slope), sweep=sweep)
     return dpi
 
 
 def _rows_instance(wide: int, group_bytes: int, line=_DOT_ROWS_LINE,
                    narrow=_DOT_ROWS_NARROW) -> tuple[int, ...]:
     """``(edges in flight, register cap)`` of K5, K6, K7 and K10 (and, with
-    their own ``line`` and ``narrow``, of K9 and K3) in rows of ``wide``
+    their own ``line`` and ``narrow``, of K9, K3, K12 and K4) in rows of
+    ``wide``
     vectors in edge groups of ``group_bytes``: for rows of one register
     chunk (at most 32 vectors) ``line`` for groups of a 128-byte line or
     more, ``narrow`` for narrower ones; one edge, uncapped, for wider rows

@@ -1,8 +1,9 @@
 """The layouts of K1 (``spmm_csr_f32``), K2 (``spmm_sddmm_csr_f32``), K6
 (``dot_softmax_f32``), K7 (``dot_bwd_dq_f32``), K8 (``dot_bwd_rev_f32``),
 K11 (``gatv2_bwd_rev_f32``), K10 (``gatv2_bwd_dq_f32``), K5
-(``gat_bwd_rev_f32``), K9 (``gatv2_softmax_f32``) and K3
-(``gat_softmax_f32``): their choosers, the wrappers passing a layout
+(``gat_bwd_rev_f32``), K9 (``gatv2_softmax_f32``), K3
+(``gat_softmax_f32``), K12 (``edge_softmax_f32``) and K4
+(``gat_bwd_dpi_f32``): their choosers, the wrappers passing a layout
 through, and (``gpu``-marked) every layout on the card against the plain
 versions.
 
@@ -13,19 +14,22 @@ versions.
   :func:`~ops.cuda.edge_softmax._gatv2_bwd_rev_layout`,
   :func:`~ops.cuda.edge_softmax._gatv2_bwd_dq_layout`,
   :func:`~ops.cuda.edge_softmax._gat_bwd_rev_layout`,
-  :func:`~ops.cuda.edge_softmax._gatv2_softmax_layout` and
-  :func:`~ops.cuda.edge_softmax._gat_softmax_layout` give a layout the
+  :func:`~ops.cuda.edge_softmax._gatv2_softmax_layout`,
+  :func:`~ops.cuda.edge_softmax._gat_softmax_layout`,
+  :func:`~ops.cuda.edge_softmax._edge_softmax_layout` and
+  :func:`~ops.cuda.edge_softmax._gat_bwd_dpi_layout` give a layout the
   kernels take for every width, head count and mean row length, empty
   graphs included; the wrappers hand that layout (or the caller's) to the
   library call unchanged, with the scratch a strip layout or K10's ``da``
-  needs and K5's and K11's packed scalars; K2's plain version takes heads
-  as its per-head loop does.
+  needs and K5's and K11's packed scalars; K2's
+  plain version takes heads as its per-head loop does.
 - ``gpu``: each layout the sweep runs, on a graph with empty rows, a row of
   more than 32 edges and a row of more than 1024, against ``spmm_plain``,
   ``spmm_sddmm_plain``, ``dot_softmax_plain``, ``dot_bwd_dq_plain``,
   ``dot_bwd_rev_plain``, ``gatv2_bwd_rev_plain``, ``gatv2_bwd_dq_plain``,
-  ``gat_bwd_rev_plain``, ``gatv2_softmax_plain`` and ``gat_softmax_plain``;
-  two runs of each kernel give the same bits.
+  ``gat_bwd_rev_plain``, ``gatv2_softmax_plain``, ``gat_softmax_plain``,
+  ``edge_softmax_plain`` and ``gat_bwd_dpi_plain``; two runs of each
+  kernel give the same bits.
   This file imports no JAX, so on a machine with a card and no JAX it runs
   without the suite's conftest:
 
@@ -43,6 +47,9 @@ from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES  # noqa: E
 from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S  # noqa: E402
 
 MEAN_ROW_LENGTHS = [0, 0.5, 1, 3, 15.26, 100, 2048]
+# The (unroll, reg_cap) pairs the shipped library holds for K12 and K4
+# (csrc/edge_softmax.cu, K12Pick and K4Pick)
+K12_INSTANCES = K4_INSTANCES = ((1, 0), (2, 64), (4, 64))
 
 
 def _log_g(vectors: int) -> int:
@@ -374,6 +381,101 @@ def test_gat_softmax_layout_at_the_measured_shapes():
     assert ES._gat_softmax_layout(7, 4, n, e) == (2, 1, 0, 0)
 
 
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_edge_softmax_layout_is_valid(n_rows, mean):
+    """K12's chooser: rows per warp for the head's G lanes at
+    ``_K12_WINDOWS_PER_ROW`` (rows wider than 256 vectors go in passes of
+    256, groups of 32 lanes), (U, cap) an instance the shipped library
+    holds (rows of one register chunk ``_K12_ROWS_LINE`` for groups of a
+    128-byte line, ``_K12_ROWS_NARROW`` for narrower ones; wider rows one
+    edge uncapped), and the heads interleaved in the grid for edge values
+    only; for every width up to 300 vectors of float4 or float (0 included: K12 takes any
+    D), node and edge values, at each mean row length and for an empty
+    graph."""
+    entries = round(mean * n_rows)
+    for vec_bytes in (4, 16):
+        for dv in range(0, 301):
+            wide = min(max(dv, 1), 256)
+            line = vec_bytes << _log_g(wide) >= 128
+            for nodes in (True, False):
+                log_rows, unroll, cap, interleave = (
+                    ES._edge_softmax_layout(dv, vec_bytes, n_rows, entries,
+                                            nodes))
+                assert 0 <= log_rows <= 5 - _log_g(wide)
+                assert log_rows == S._windowed_rows(
+                    _log_g(wide), n_rows, entries, ES._K12_WINDOWS_PER_ROW)
+                assert (unroll, cap) == (
+                    (1, 0) if wide > 32 else
+                    ES._K12_ROWS_LINE if line else ES._K12_ROWS_NARROW)
+                assert interleave == (0 if nodes else 1)
+                assert (unroll, cap) in K12_INSTANCES
+
+
+@pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
+    (131_072, m) for m in MEAN_ROW_LENGTHS])
+def test_gat_bwd_dpi_layout_is_valid(n_rows, mean):
+    """K4's chooser: rows per warp for the head's G lanes at
+    ``_K4_WINDOWS_PER_ROW`` (rows wider than 256 vectors go in passes of
+    256, groups of 32 lanes), and (U, cap, ahead) with an instance the
+    shipped library holds (rows of one register chunk ``_K4_ROWS_LINE``
+    for groups of a 128-byte line, ``_K4_ROWS_NARROW`` for narrower ones;
+    wider rows one edge uncapped, with ``_K4_ROWS_LINE``'s ahead), for
+    every width up to 300 vectors of float4 or float (0 included: K4 takes
+    any D), at each mean row length and for an empty graph."""
+    entries = round(mean * n_rows)
+    for vec_bytes in (4, 16):
+        for dv in range(0, 301):
+            wide = min(max(dv, 1), 256)
+            log_rows, unroll, cap, ahead = ES._gat_bwd_dpi_layout(
+                dv, vec_bytes, n_rows, entries)
+            assert 0 <= log_rows <= 5 - _log_g(wide)
+            assert log_rows == S._windowed_rows(_log_g(wide), n_rows,
+                                                entries,
+                                                ES._K4_WINDOWS_PER_ROW)
+            line = vec_bytes << _log_g(wide) >= 128
+            assert (unroll, cap, ahead) == (
+                (1, 0, ES._K4_ROWS_LINE[2]) if wide > 32 else
+                ES._K4_ROWS_LINE if line else ES._K4_ROWS_NARROW)
+            assert (unroll, cap) in K4_INSTANCES and ahead in (0, 1)
+
+
+def test_edge_softmax_layout_at_the_measured_shapes():
+    """GAT (b) layer 1 (H=4, D=32: 8 float4 vectors a head, one 128-byte
+    line) takes 4 rows per warp and 4 edges in flight at 64 registers,
+    reading the logits and mask in place with a stride; its head layer
+    (H=1, D=8: 2 vectors) 8 rows per warp and 2 edges at 64 registers: the
+    fastest of chip_smoke.py --sweep k12 (PERF.md §6). Edge values take the
+    same rows with the heads interleaved in the grid. (1, 128) one row per
+    warp; rows of 64 vectors or more one edge at a time, uncapped."""
+    n, e = 131_072, 2_000_000
+    assert ES._edge_softmax_layout(8, 16, n, e, True) == (2, 4, 64, 0)
+    assert ES._edge_softmax_layout(8, 16, n, e, False) == (2, 4, 64, 1)
+    assert ES._edge_softmax_layout(2, 16, n, e, True) == (3, 2, 64, 0)
+    assert ES._edge_softmax_layout(2, 16, n, e, False) == (3, 2, 64, 1)
+    assert ES._edge_softmax_layout(32, 16, n, e, True) == (0, 4, 64, 0)
+    assert ES._edge_softmax_layout(64, 16, n, e, True) == (0, 1, 0, 0)
+    assert ES._edge_softmax_layout(275, 16, n, e, False) == (0, 1, 0, 1)
+    assert ES._edge_softmax_layout(7, 4, n, e, True) == (2, 2, 64, 0)
+
+
+def test_gat_bwd_dpi_layout_at_the_measured_shapes():
+    """GAT (a) layer 1 (H=4, D=32: one 128-byte line a head) takes 4 rows
+    per warp and 4 edges in flight at 64 registers with pj loaded ahead by
+    the lane holding the index, its head layer (H=1, D=8: 2 vectors) 4 rows
+    per warp and 2 edges at 64 registers with pj loaded by every lane: the
+    fastest of chip_smoke.py --sweep k4 (PERF.md §6). (1, 128) one row per
+    warp; rows of 64 vectors or more one edge at a time, uncapped, pj
+    ahead (not measured)."""
+    n, e = 131_072, 2_000_000
+    assert ES._gat_bwd_dpi_layout(8, 16, n, e) == (2, 4, 64, 1)
+    assert ES._gat_bwd_dpi_layout(2, 16, n, e) == (2, 2, 64, 0)
+    assert ES._gat_bwd_dpi_layout(32, 16, n, e) == (0, 4, 64, 1)
+    assert ES._gat_bwd_dpi_layout(64, 16, n, e) == (0, 1, 0, 1)
+    assert ES._gat_bwd_dpi_layout(275, 16, n, e) == (0, 1, 0, 1)
+    assert ES._gat_bwd_dpi_layout(7, 4, n, e) == (2, 2, 64, 0)
+
+
 def test_sweep_build_is_a_library_of_its_own():
     """The sweep build of a source compiles with ``-DGNN_SWEEP`` into a
     library of another name, so the shipped one never holds its extra
@@ -692,6 +794,77 @@ def test_gat_softmax_wrapper_passes_the_layout(monkeypatch, heads, d):
     assert all(c[1][2:5] == tuple(t.data_ptr() for t in (pi, pj, v))
                for c in calls)
     assert ES.launches["k3"] == before + 2
+
+
+@pytest.mark.parametrize("heads,d", [(4, 32), (1, 8), (3, 7), (1, 1100),
+                                     (2, 0)])
+def test_edge_softmax_wrapper_passes_the_layout(monkeypatch, heads, d):
+    """``_edge_softmax_kernel`` passes ``_edge_softmax_layout``'s choice to
+    the shipped library, or the caller's layout to the sweep build, as the
+    four integers after ``(rows, H, D)``, with the caller's ``[E, H]``
+    logits and mask in place: one launch a call, at any D, with node values
+    (``col``) and edge values (no ``col``), with and without a mask."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads * 13 + d)
+    indptr, col = _csr(rng, 40, 50)
+    n_edges = col.numel()
+    lg, mask = torch.randn(n_edges, heads), torch.rand(n_edges, heads)
+    v, ve = torch.randn(50, heads, d), torch.randn(n_edges, heads, d)
+    layouts = [(0, 4, 64, 0), (1, 2, 0, 1)]
+    before = ES.launches["k12"]
+    for c, vals, mk in ((col, v, None), (col, v, mask), (None, ve, mask)):
+        for lib in libs.values():
+            lib.calls.clear()
+        num, m, s = ES._edge_softmax_kernel(indptr, c, lg, mk, vals)
+        assert num.shape == (40, heads, d) and m.shape == s.shape == (
+            40, heads)
+        for lay in layouts:
+            ES._edge_softmax_kernel(indptr, c, lg, mk, vals, layout=lay)
+        vec = d % 4 == 0
+        want = ES._edge_softmax_layout(d // 4 if vec else d, 16 if vec else 4,
+                                       40, n_edges, c is not None)
+        calls = libs[False].calls + libs[True].calls
+        assert [len(libs[False].calls), len(libs[True].calls)] == [1, 2]
+        assert all(name == "edge_softmax_f32" for name, _ in calls)
+        assert [a[8:15] for _, a in calls] == [
+            (40, heads, d) + lay for lay in [want] + layouts]
+        for _, a in calls:
+            assert a[0:5] == (indptr.data_ptr(), ES._ptr(c), lg.data_ptr(),
+                              ES._ptr(mk), vals.data_ptr())
+    assert ES.launches["k12"] == before + 9
+
+
+@pytest.mark.parametrize("heads,d", [(4, 32), (1, 8), (3, 7), (1, 1100),
+                                     (2, 0)])
+def test_gat_bwd_dpi_wrapper_passes_the_layout(monkeypatch, heads, d):
+    """``_gat_bwd_dpi_kernel`` passes ``_gat_bwd_dpi_layout``'s choice to
+    the shipped library, or the caller's layout to the sweep build, as the
+    four integers after ``(rows, H, D)``, with every operand's pointer and
+    the slope: one launch a call, at any D."""
+    libs = _fake_launches(monkeypatch, ES)
+    rng = np.random.default_rng(heads * 17 + d)
+    indptr, col = _csr(rng, 40, 50)
+    pi, mx, den, s_n = (torch.randn(40, heads) for _ in range(4))
+    pj, v = torch.randn(50, heads), torch.randn(50, heads, d)
+    dy = torch.randn(40, heads, d)
+    args = (indptr, col, pi, pj, v, mx, den, s_n, dy, 0.2)
+    before = ES.launches["k4"]
+    dpi = ES._gat_bwd_dpi_kernel(*args)
+    assert dpi.shape == (40, heads)
+    ES._gat_bwd_dpi_kernel(*args, layout=(0, 4, 64, 0))
+    vec = d % 4 == 0
+    want = ES._gat_bwd_dpi_layout(d // 4 if vec else d, 16 if vec else 4,
+                                  40, col.numel())
+    calls = libs[False].calls + libs[True].calls
+    assert [len(libs[False].calls), len(libs[True].calls)] == [1, 1]
+    assert all(c[0] == "gat_bwd_dpi_f32" for c in calls)
+    assert [c[1][10:17] for c in calls] == [(40, heads, d) + want,
+                                            (40, heads, d, 0, 4, 64, 0)]
+    assert all(c[1][:9] == tuple(t.data_ptr() for t in args[:9])
+               for c in calls)
+    assert calls[0][1][9] == dpi.data_ptr()
+    assert all(c[1][17] == pytest.approx(0.2) for c in calls)
+    assert ES.launches["k4"] == before + 2
 
 
 @pytest.mark.parametrize("weighted", [True, False])
@@ -1300,6 +1473,95 @@ def test_gat_softmax_layouts_on_card(heads, d):
     torch.cuda.synchronize()
 
 
+def _k12_layouts(dv):
+    """Every K12 layout of the sweep build: K8's (:func:`_k8_layouts`) for
+    rows of up to 256 vectors (wider ones go in passes of 256), each with
+    the heads one after the other and interleaved in the grid."""
+    wide = min(max(dv, 1), 256)
+    return [lay + (interleave,) for lay in _k8_layouts(wide, wide)
+            for interleave in (0, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 8), (4, 32), (2, 7), (1, 1100),
+                                     (2, 300)])
+def test_edge_softmax_layouts_on_card(heads, d):
+    """K12 at every layout of the sweep build (:func:`_k12_layouts`) and
+    the default, over a bipartite receiver CSR (260 receivers of 300
+    senders, empty rows, rows of 40 and 1,100 edges), with node values and
+    without and with a dropout mask, and with edge values and a mask,
+    against ``edge_softmax_plain``; (1, 1100) takes two passes of 256
+    float4 vectors, (2, 7) scalar loads. The logits of receiver 7 (a row
+    of 40 edges and more) are all -inf: it and the empty rows get m = -inf,
+    s = 0 and num = 0; two runs of each layout give the same bits."""
+    _needs_card()
+    (ir, cr), _, n_edges = _groupings(heads * 100 + d + 5)
+    gen = torch.Generator(device="cuda").manual_seed(heads + d + 5)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    lg = rn(n_edges, heads)
+    lg[int(ir[7]):int(ir[8])] = float("-inf")
+    mask = (torch.rand(n_edges, heads, device="cuda", generator=gen)
+            < 0.4) / 0.4
+    v, ve = rn(300, heads, d), rn(n_edges, heads, d)
+    for args in ((ir, cr, lg, None, v), (ir, cr, lg, mask, v),
+                 (ir, None, lg, mask, ve)):
+        want = ES.edge_softmax_plain(*args)
+        for row in [7] + list(range(200, 260)):
+            assert torch.isneginf(want[1][row]).all()
+            assert (want[2][row] == 0).all() and (want[0][row] == 0).all()
+        for lay in [None] + _k12_layouts(d // 4 if d % 4 == 0 else d):
+            first = ES._edge_softmax_kernel(*args, layout=lay)
+            again = ES._edge_softmax_kernel(*args, layout=lay)
+            for a_, b_, c_ in zip(first, want, again):
+                torch.testing.assert_close(a_, b_, **TOL)
+                torch.testing.assert_close(c_, a_, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 8), (4, 32), (2, 7), (1, 1100),
+                                     (2, 300), (2, 0)])
+def test_gat_bwd_dpi_layouts_on_card(heads, d):
+    """K4 at every layout of the sweep build (K3's, :func:`_k3_layouts`)
+    and the default, over a bipartite receiver CSR (260 receivers of 300
+    senders, empty rows, rows of 40 and 1,100 edges), against
+    ``gat_bwd_dpi_plain``, with the row max and denominator of the forward
+    without self-loops: receiver 7 (a row of 40 edges and more) has pi =
+    -inf, so it and the empty rows get mx = 0 and den = finfo.tiny, as
+    ``finalize_softmax`` sets them, and dpi = 0. (1, 1100) takes two passes
+    of 256 float4 vectors; D = 0 gives dpi = -sum_e w_e s_n; two runs of
+    each layout give the same bits."""
+    _needs_card()
+    (ir, cr), _, _ = _groupings(heads * 100 + d + 6)
+    gen = torch.Generator(device="cuda").manual_seed(heads + d + 6)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    pi, pj, v, dy = rn(260, heads), rn(300, heads), rn(300, heads, d), \
+        rn(260, heads, d)
+    pi[7] = float("-inf")
+    out, mx, den = ES.finalize_softmax(
+        *ES.gat_softmax_plain(ir, cr, pi, pj, v, 0.2))
+    tiny = torch.finfo(torch.float32).tiny
+    for row in [7] + list(range(200, 260)):
+        assert (mx[row] == 0).all() and (den[row] == tiny).all()
+    s_n = (out * dy).sum(-1) + rn(260, heads)
+    args = (ir, cr, pi, pj, v, mx, den, s_n, dy, 0.2)
+    want = ES.gat_bwd_dpi_plain(*args)
+    assert (want[7] == 0).all() and (want[200:] == 0).all()
+    assert (want[:200] != 0).any()
+    for lay in [None] + _k3_layouts(max(d // 4 if d % 4 == 0 else d, 1)):
+        first = ES._gat_bwd_dpi_kernel(*args, layout=lay)
+        torch.testing.assert_close(first, want, **TOL)
+        torch.testing.assert_close(ES._gat_bwd_dpi_kernel(*args, layout=lay),
+                                   first, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
 def _dot_recv_layouts(ov, dv, vec):
     """Every K6 and K7 layout of the sweep build: rows as K8's
     (:func:`_k8_layouts`), and strips of one line at each rows per warp the
@@ -1372,10 +1634,11 @@ def test_shipped_build_holds_only_the_chosen_instances():
     """The shipped libraries launch the (unroll, reg_cap) pairs the
     choosers pick and refuse the sweep's others (nothing runs): K1 (2, 0)
     and (8, 64); K2 (2, 0) and (4, 64); K8 and K11 (2, 64) for rows of one
-    register chunk, (1, 0) wider; K6, K7, K10 and K5 in rows (2, 64) and
-    (4, 64) for rows of one register chunk, (1, 0) wider, and K6 and K7 in
-    strips (4, 0); K9 (4, 64) and (2, 0), K3 (4, 64) and (1, 0) (each
-    with pj ahead or not) for rows of one register chunk, (1, 0) wider."""
+    register chunk, (1, 0) wider; K6, K7, K10, K5, K12 (with the heads
+    interleaved or not) and K4 (with pj ahead or not) in rows (2, 64) and (4, 64)
+    for rows of one register chunk, (1, 0) wider, and K6 and K7 in strips
+    (4, 0); K9 (4, 64) and (2, 0), K3 (4, 64) and (1, 0) (each with pj
+    ahead or not) for rows of one register chunk, (1, 0) wider."""
     _needs_card()
     (ir, cr), (is_, cs, _), _ = _groupings(2)
     x = torch.randn(260, 8, device="cuda")
@@ -1442,6 +1705,22 @@ def test_shipped_build_holds_only_the_chosen_instances():
                                   dpj, dv)),
             300, 1, o, 0, unroll, cap, 0.2)
         assert (code == 0) == ok, ("k5", o, unroll, cap, code)
+        lg, num = torch.randn(cr.numel(), 1, device="cuda"), torch.empty_like(
+            q)
+        m, s = torch.empty_like(mx), torch.empty_like(mx)
+        for interleave in (0, 1):
+            code = S._call_on(
+                x.device, ES._lib().edge_softmax_f32,
+                *(S._ptr(t) for t in (ir, cr, lg, lg, v, num, m, s)),
+                260, 1, o, 0, unroll, cap, interleave)
+            assert (code == 0) == ok, ("k12", o, unroll, cap, code)
+        for ahead in (0, 1):
+            code = S._call_on(
+                x.device, ES._lib().gat_bwd_dpi_f32,
+                *(S._ptr(t) for t in (ir, cr, mx, pj, v, mx, den, s_n, dy,
+                                      dpj)),
+                260, 1, o, 0, unroll, cap, ahead, 0.2)
+            assert (code == 0) == ok, ("k4", o, unroll, cap, ahead, code)
     for o, (unroll, cap), k9_ok, k3_ok in (
             (8, (4, 64), True, True), (8, (2, 0), True, False),
             (8, (1, 0), False, True), (8, (2, 64), False, False),
