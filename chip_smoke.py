@@ -10,10 +10,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (N=131,072 nodes, E=2,000,000 edges, D=128, float32):
    K1 (``spmm_csr_f32``: every case a phase-3 path launches, each row
-   naming the paths, EdgeConv's gather backward over ``[E, 128]`` edge rows
-   included) and K2 (``spmm_sddmm_csr_f32``, also at D=32 and 8 and at GAT
-   (b)'s H=4, D=32 in one launch with dropped attention weights), forward
-   and backward,
+   naming the paths, EdgeConv's gather backward over ``[E, 128]`` edge rows,
+   ChebConv's power iteration at D=1 and the forward over ``g.reverse()``'s
+   receiver CSR through its edge-id map included) and K2
+   (``spmm_sddmm_csr_f32``, also at D=32 and 8 and at GAT (b)'s H=4, D=32
+   in one launch with dropped attention weights), forward and backward,
    with times (CUDA events), the plain version's time, a library
    yardstick (``torch.sparse.mm``) where one exists, and the least time the
    card could take (bytes over memory rate, operations over float32 rate).
@@ -80,18 +81,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    K2 once for all heads); also EdgeConv (3j), graph classification (3k) with
    ``GlobalPool`` max and mean, ``GlobalAttentionPool``, ``Set2Set`` and
    ``TopKPool`` on the 3k batch, ``softmax_edge_neighbors`` at H=4 and
-   ``GraphConv(aggr="max")`` on the main graph.
+   ``GraphConv(aggr="max")`` on the main graph. 3l: the conv zoo's
+   propagation rows (``benchmarks/zoo_sweep_r5.py:44-67``) as
+   ``GNNChain(L(128, 128), relu, L(128, 8))``: ChebConv k=3 with
+   ``lambda_max=2.0`` and by default (a power iteration of 50 SpMMs at D=1
+   in every call), SGConv k=2, TAGConv k=3, DConv k=2 on the graph and on
+   its ``reverse``, ResGatedGraphConv, and ``GatedGraphConv(128, 2)`` then
+   ``Linear(128, 8)`` (all K1), each trained and held card vs CPU as 3c
+   holds the others, with DConv also on the reverse of a weighted graph.
 4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT,
-   GATv2 and Transformer, 40 epochs, train accuracy > 0.94 and test
-   accuracy > 0.69.
+   GATv2, ResGated and Transformer, 40 epochs, train accuracy > 0.94 and
+   test accuracy > 0.69.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a, 3b),
 of GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j) and graph classification (3k), with the device time
-per step of each kernel of :data:`STEP_KERNELS` (K1-K12).
+(3i), EdgeConv (3j), graph classification (3k) and each 3l model, with
+the device time per step of each kernel of :data:`STEP_KERNELS` (K1-K12).
 ``--sweep`` times K1-K12, K14 and its backward at every layout (the
 measurement behind the wrappers' choices; each layout but K14's held to
 the plain version first), K1's gather-rate ceiling at D=128, and K1, K2,
@@ -99,7 +107,8 @@ K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees (``--sweep
 k12,k4,skew`` runs the named sweeps only);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and the train phases 3b, 3d, 3e and 3f, with ``--profile`` their profiles:
+and the train phases 3b, 3d, 3e, 3f and 3l, with ``--profile`` their
+profiles:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
 """
@@ -441,9 +450,11 @@ def kernel_phase(gnn, g, card: str) -> dict:
         ref = S.spmm_plain(*args)
         err = compare(f"K1 {label}", y, ref)
         res["k1"]["err"] = max(res["k1"]["err"], err)
-        # compulsory bytes: indptr, col, eid, w, the source rows and the
-        # output once each; with no reuse every edge reads a whole row
-        idx = 4 * ((N + 1) + sum(E for t in (col, eid, w_) if t is not None))
+        # compulsory bytes: indptr, col, eid (read only with w), w, the
+        # source rows and the output once each; with no reuse every edge
+        # reads a whole row
+        read = (col, w_) + ((eid,) if w_ is not None else ())
+        idx = 4 * ((N + 1) + sum(E for t in read if t is not None))
         byt = idx + 4 * (src.shape[0] + N) * d
         no_reuse = idx + 4 * (E + N) * d if col is not None else byt
         b_ms, b_by = bound(byt, (1 if w_ is None else 2) * E * d, card)
@@ -505,6 +516,23 @@ def kernel_phase(gnn, g, card: str) -> dict:
             "EdgeConv layer 2 bwd x_j (3j, 1/step)",
             (is_, es, None, None, e128), lambda: torch.sparse.mm(s_eid, e128))
     del e128, s_eid
+    # ChebConv's power iteration: one [N, 1] column (one graph)
+    x1 = torch.randn(N, 1, generator=gen, device=dev)
+    k1_case("fwd receiver-CSR D=1",
+            f"default ChebConv's power iteration (3l, {CHEB_POWER_K1}/step)",
+            (ir, cr, None, None, x1), lambda: torch.sparse.mm(a_ones, x1))
+    # g.reverse()'s receiver CSR is g's sender CSR, its positions mapped to
+    # edge ids by eid_r (the weights stay in edge order)
+    gr = g.reverse()
+    k1_case("fwd reversed-graph receiver-CSR D=128",
+            "DConv over g.reverse() fwd (3l, 2/step; on the reverse, 2)",
+            (gr.indptr_r, gr.col_r, gr.eid_r, None, x),
+            lambda: torch.sparse.mm(s_ones, x))
+    k1_case("fwd reversed-graph receiver-CSR weighted by eid_r D=128",
+            "DConv on the weighted graph's reverse (3c, 2 fwd)",
+            (gr.indptr_r, gr.col_r, gr.eid_r, w, x),
+            lambda: torch.sparse.mm(s_w, x))
+    del x1, gr
 
     heads_d = (N, GAT_HEADS, D // GAT_HEADS)
     for label, xx, dd, ww in (
@@ -2119,6 +2147,10 @@ def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
 
 # ---- phase 3 ---------------------------------------------------------------
 
+# the default ChebConv's K1 launches a call: cheb_lambda_max's 50 power
+# iterations and its closing Rayleigh quotient, one SpMM each at D = 1
+CHEB_POWER_K1 = 2 * (50 + 1)
+
 def gcn(M, seed: int, dev):
     gen = torch.Generator().manual_seed(seed)
     return M.GNNChain(M.GCNConv(D, D, torch.relu, generator=gen, device=dev),
@@ -2534,6 +2566,93 @@ def main_path_phase(g, profile: bool, out_dir) -> dict:
     res["vs_cpu"]["link"] = compare_model("link prediction", model_l, g, x,
                                           None, forward=link_forward)
     return res
+
+
+def zoo_models(M, dev) -> dict:
+    """Phase 3l: the conv zoo's propagation rows (benchmarks/zoo_sweep_r5.py:
+    44-67, d = 128) as ``GNNChain(L(128, 128), relu, L(128, 8))``, and
+    ``GatedGraphConv(128, 2)`` (state width 128) then ``Linear(128, 8)``.
+    name -> (model, the call's keywords, trains on ``g.reverse()``, K1
+    launches a train step). The input x needs no gradient, so the first
+    layer launches K1 in its forward only (GatedGraphConv's and
+    ResGatedGraphConv's K1 are their parameters' backward).
+    - ChebConv k=3: two hops a layer, their backward in layer 2 (6); the
+      default adds its power iteration in each layer (CHEB_POWER_K1);
+    - SGConv k=2: two hops a layer, layer 2's backward (6);
+    - TAGConv k=3: three hops a layer, layer 2's backward (9);
+    - DConv k=2: one hop over g and one over its reverse a layer, layer 2's
+      backward (6);
+    - ResGatedGraphConv: the backward of the three endpoint gathers (Ax by
+      receiver, Bx and Vx by sender) in each layer (6);
+    - GatedGraphConv: one SpMM a GRU step, forward and backward (4).
+    """
+    torch.manual_seed(20)
+    gen = torch.Generator().manual_seed(20)
+    kw = dict(generator=gen, device=dev)
+
+    def chain(make):
+        return M.GNNChain(make(D, D), torch.relu, make(D, OUT_D))
+
+    def cheb():
+        return chain(lambda a, b: M.ChebConv(a, b, 3, **kw))
+
+    def dconv():
+        return chain(lambda a, b: M.DConv(a, b, 2, **kw))
+
+    return {
+        "ChebConv_lam2": (cheb(), {"lambda_max": 2.0}, False, 6),
+        "ChebConv": (cheb(), {}, False, 6 + CHEB_POWER_K1),
+        "SGConv": (chain(lambda a, b: M.SGConv(a, b, 2, **kw)), {}, False,
+                   6),
+        "TAGConv": (chain(lambda a, b: M.TAGConv(a, b, 3, **kw)), {}, False,
+                    9),
+        "DConv": (dconv(), {}, False, 6),
+        "DConv_reverse": (dconv(), {}, True, 6),
+        "ResGatedGraphConv": (chain(lambda a, b: M.ResGatedGraphConv(
+            a, b, **kw)), {}, False, 6),
+        "GatedGraphConv": (M.GNNChain(M.GatedGraphConv(D, 2, **kw),
+                                      torch.nn.Linear(D, OUT_D, device=dev)),
+                           {}, False, 4),
+    }
+
+
+def propagation_phase(g, x, y, mask, profile: bool):
+    """3l: each :func:`zoo_models` model trained for STEPS steps with its
+    K1 launches asserted, then one forward and backward on the card against
+    the CPU plain path in float64 (3c's tolerances) with its launches; also
+    DConv on a weighted graph's reverse (K1 reading the weights through
+    ``eid_r``). Returns the results and None (the ``--only`` form)."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    res = {"vs_cpu": {}}
+    gr = g.reverse()
+    for name, (model, call, on_reverse, k1) in zoo_models(M, g.device).items():
+        gg = gr if on_reverse else g
+        log(f"phase 3l: {name} train step ({'on g.reverse(), ' if on_reverse
+                                              else ''}{call or 'defaults'}),"
+            f" {STEPS} steps")
+
+        def loss_fn(m, g, x, y, mask, call=call):
+            return masked_cross_entropy(m(g, x, **call), y, mask)
+
+        res[name] = train_phase(name, model, (gg, x, y, mask), loss_fn,
+                                {"k1": k1}, profile)
+        before = read_counts()
+        res["vs_cpu"][name] = compare_model(name, model, gg, x,
+                                            lambda extra, call=call: call)
+        expect_launched(name, before, {"k1": k1})
+    log("phase 3c (DConv weighted): DConv on the reverse of the graph with "
+        "edge weights, card (K1 by eid_r) vs the CPU plain path")
+    gen = torch.Generator(device=g.device).manual_seed(21)
+    gw = g.replace(edge_weight=torch.rand(E, generator=gen, device=g.device)
+                   + 0.5).reverse()
+    before = read_counts()
+    res["vs_cpu"]["DConv_weighted_reverse"] = compare_model(
+        "DConv weighted reverse", zoo_models(M, g.device)["DConv"][0], gw, x,
+        lambda extra: {})
+    expect_launched("DConv weighted reverse", before, {"k1": 6})
+    return res, None
 
 
 def edgeconv(M, seed: int, dev):
@@ -2965,6 +3084,10 @@ def cora_phase(dev) -> dict:
                 M.GATv2Conv(din, nh, torch.relu, heads=2, **kw),
                 M.GATv2Conv(2 * nh, nh, torch.relu, heads=2, concat=False,
                             **kw), head)
+        if name == "ResGated":      # tests/test_integration_cora.py:65-69
+            return M.GNNChain(
+                M.ResGatedGraphConv(din, nh, torch.relu, **kw),
+                M.ResGatedGraphConv(nh, nh, torch.relu, **kw), head)
         if name == "Transformer":   # tests/test_integration_cora.py:70-74
             return M.GNNChain(
                 M.TransformerConv(din, nh, heads=2, concat=False, **kw),
@@ -2974,7 +3097,7 @@ def cora_phase(dev) -> dict:
 
     out = {"real_dataset": is_real}
     for name in ("GCN", "GraphConv", "SAGE", "GIN", "GAT", "GATv2",
-                 "Transformer"):
+                 "ResGated", "Transformer"):
         torch.manual_seed(17)
         model = build(name, torch.Generator().manual_seed(17))
         opt = torch.optim.Adam(model.parameters(), lr=1e-2)
@@ -3031,7 +3154,7 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f and the "
-                         "train phases 3b, 3d, 3e and 3f), then stop "
+                         "train phases 3b, 3d, 3e, 3f and 3l), then stop "
                          "without a result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
@@ -3086,7 +3209,8 @@ def main() -> int:
     kern, only_train = {}, {}
     for phase in (args.only.split(",") if args.only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
-                      "3e": gat_b_phase, "3f": gatv2_train_phase}
+                      "3e": gat_b_phase, "3f": gatv2_train_phase,
+                      "3l": propagation_phase}
         if phase in train_only:
             only_train[phase] = train_only[phase](*node_inputs(g),
                                                   args.profile)[0]
@@ -3112,6 +3236,9 @@ def main() -> int:
     graph_res = graph_path_phase(g, gb, args.profile, args.out)
     main_res["vs_cpu"].update(graph_res.pop("vs_cpu"))
     main_res.update(graph_res)
+    zoo_res, _ = propagation_phase(*node_inputs(g), args.profile)
+    main_res["vs_cpu"].update(zoo_res.pop("vs_cpu"))
+    main_res["propagation"] = zoo_res
     main_res["tud_batch"] = tud
     cora = cora_phase(g.device)
 

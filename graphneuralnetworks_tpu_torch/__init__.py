@@ -45,14 +45,15 @@ def resolve_device(device) -> torch.device:
 from . import ops  # noqa: E402
 from .graph import GraphTuple, graph, from_dense_adjacency  # noqa: E402
 from .generate import rand_graph  # noqa: E402
-from .query import degree  # noqa: E402
+from . import query  # noqa: E402
+from .query import *  # noqa: E402,F401,F403
 from .utils import edge_decoding, normalize_graphdata  # noqa: E402
 from .transform import batch  # noqa: E402
 from . import models, training, data, interop, transform  # noqa: E402
 
 __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
-           "from_dense_adjacency", "rand_graph", "degree", "edge_decoding",
+           "from_dense_adjacency", "rand_graph", "edge_decoding",
            "normalize_graphdata", "batch", "models", "training", "data",
-           "interop", "transform"]
+           "interop", "transform", "query"] + query.__all__
 
 __version__ = "0.1.0"

@@ -22,6 +22,16 @@ edge groupings on the host once and moves them to the device:
 
 The kernels (``ops/cuda``) run over these; they take the place of the JAX
 package's ``SpmmAux`` block groupings.
+
+``reverse()`` swaps senders and receivers and keeps the edge order, as the
+JAX package's does, so an edge array of ``g`` is still one of
+``g.reverse()``. Its receiver grouping is ``g``'s sender grouping, whose
+positions are not edge ids: ``eid_r`` maps them (``g``'s ``eid_s``), and
+its sender grouping is ``g``'s receiver grouping, whose positions are
+(``eid_s`` None). A graph from ``graph()`` has ``eid_r`` None: its edges
+are receiver-sorted (``sorted_by_receivers``). A route that reads an edge
+array by receiver-CSR position either reads it through ``eid_r`` or raises
+on a reversed graph (:func:`receiver_positions_are_edge_ids`).
 """
 
 from __future__ import annotations
@@ -55,13 +65,14 @@ class GraphTuple:
     col_r: torch.Tensor                    # int32[E] senders
     indptr_s: torch.Tensor                 # int32[N + 1]
     col_s: torch.Tensor                    # int32[E] receivers, sender order
-    eid_s: torch.Tensor                    # int32[E] edge id, sender order
+    eid_s: torch.Tensor | None             # int32[E] edge id, sender order
     nodes: FeatureDict = dataclasses.field(default_factory=dict)
     edges: FeatureDict = dataclasses.field(default_factory=dict)
     globals_: FeatureDict = dataclasses.field(default_factory=dict)
     edge_weight: torch.Tensor | None = None
     indptr_g: torch.Tensor | None = None   # int32[G + 1] nodes by graph
     indptr_ge: torch.Tensor | None = None  # int32[G + 1] edges by graph
+    eid_r: torch.Tensor | None = None      # int32[E] edge id, receiver order
 
     @property
     def device(self) -> torch.device:
@@ -69,12 +80,11 @@ class GraphTuple:
 
     @property
     def sorted_by_receivers(self) -> bool:
-        """Always True: ``graph()`` sorts the edges by receiver (module
-        docstring). JAX's ``GraphTuple`` carries it as a field, and code
-        ported from there passes it to the segment ops as ``sorted=``. A
-        port of ``reverse``, which swaps senders and receivers, must
-        revisit it."""
-        return True
+        """Whether the edges are in receiver order: True for a graph from
+        ``graph()``, False after :meth:`reverse` (as JAX sets it). JAX's
+        ``GraphTuple`` carries it as a field, and code ported from there
+        passes it to the segment ops as ``sorted=``."""
+        return self.eid_r is None
 
     # ---- masks (all True: no padding; kept for API parity) -----------------
     @property
@@ -118,6 +128,16 @@ class GraphTuple:
     def with_globals(self, **feats) -> "GraphTuple":
         return self.replace(globals_={**self.globals_, **feats})
 
+    def reverse(self) -> "GraphTuple":
+        """Every edge turned round (senders and receivers swapped), in the
+        same edge order: the two groupings swap, with no copy and no sort
+        (module docstring). ``reverse().reverse()`` is ``self``'s
+        groupings again."""
+        return self.replace(
+            senders=self.receivers, receivers=self.senders,
+            indptr_r=self.indptr_s, col_r=self.col_s, eid_r=self.eid_s,
+            indptr_s=self.indptr_r, col_s=self.col_r, eid_s=self.eid_r)
+
     def to(self, device) -> "GraphTuple":
         """The same graph with every tensor on ``device``."""
         def mv(v):
@@ -134,6 +154,16 @@ class GraphTuple:
                 f"num_edges={self.num_edges}, num_graphs={self.num_graphs}, "
                 f"device={self.device}, nodes={list(self.nodes)}, "
                 f"edges={list(self.edges)}, globals={list(self.globals_)})")
+
+
+def receiver_positions_are_edge_ids(g: GraphTuple, route: str) -> None:
+    """Raise ``ValueError`` if ``route``, which reads edge arrays by
+    receiver-CSR position, is given a reversed graph, whose receiver-CSR
+    positions are not edge ids (``eid_r``)."""
+    if g.eid_r is not None:
+        raise ValueError(f"{route} reads edge arrays in receiver-CSR order, "
+                         "which on a reversed graph (GraphTuple.reverse) is "
+                         "not the edge order: it does not take one")
 
 
 def _tensor(v, device) -> torch.Tensor:

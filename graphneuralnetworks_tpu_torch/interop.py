@@ -80,9 +80,12 @@ def _copy(target: torch.Tensor, arr: np.ndarray, where: str) -> None:
 def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Fill ``module``'s parameters from ``params`` in place; returns it.
 
-    Conv weights are ``[in, out]`` in both packages and copy as they are;
-    Dense kernels (``nnx.Linear``, in :class:`~.models.MLP` or a head) are
-    transposed into ``torch.nn.Linear.weight``; ``nnx.BatchNorm``'s
+    Conv weights are ``[in, out]`` in both packages (stacked ones
+    ``[k, in, out]``, DConv's ``[2, k, in, out]``) and copy as they are;
+    Dense kernels (``nnx.Linear``, in :class:`~.models.MLP`, a head or
+    ``nnx.GRUCell``'s ``dense_i``/``dense_h``, which
+    :class:`~.models.GRUCell` keeps) are transposed into
+    ``torch.nn.Linear.weight``; ``nnx.BatchNorm``'s
     ``scale`` goes to the weight and, given ``nnx.state(model,
     nnx.BatchStat)`` as dicts, its ``mean`` and ``var`` to the running
     statistics; ``nnx.OptimizedLSTMCell`` (``Set2Set.lstm``) to

@@ -24,11 +24,12 @@ __all__ = ["GNNLayer", "GNNChain", "WithGraph", "DotDecoder",
 
 def glorot_uniform(shape, *, generator: torch.Generator | None = None,
                    dtype=torch.float32, device=None) -> torch.Tensor:
-    """Glorot (Xavier) uniform for a 2-D ``shape``: ``U(-a, a)`` with
-    ``a = sqrt(6 / (shape[0] + shape[1]))``. Drawn on the CPU from
-    ``generator`` so that one seed gives one init on any device."""
-    fan_a, fan_b = shape
-    limit = math.sqrt(6.0 / (fan_a + fan_b))
+    """Glorot (Xavier) uniform: ``U(-a, a)`` with ``a = sqrt(6 / (shape[-2]
+    + shape[-1]) / r)``, ``r`` the product of the leading dimensions (1 for
+    a 2-D ``shape``), as flax's ``glorot_uniform`` counts fans. Drawn on the
+    CPU from ``generator`` so that one seed gives one init on any device."""
+    *lead, fan_a, fan_b = shape
+    limit = math.sqrt(6.0 / (fan_a + fan_b) / math.prod(lead))
     u = torch.rand(shape, generator=generator, dtype=torch.float64)
     return ((2 * u - 1) * limit).to(dtype=dtype,
                                     device=resolve_device(device))

@@ -1,5 +1,6 @@
 """Convolution layers: GCN, GraphConv, GIN, SAGE, EdgeConv, MLP, GAT,
-GATv2, AGNN and Transformer.
+GATv2, AGNN, Transformer, ResGatedGraph, GatedGraph, and the propagation
+family Cheb, SG, TAG and DConv.
 
 Counterpart of ``graphneuralnetworks_tpu/models/conv.py`` (surfaces from
 GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
@@ -10,7 +11,10 @@ and added as ``c_i * x_i``.
 
 Constructors take ``generator`` (a ``torch.Generator`` for the Glorot
 init), ``device`` (``None``: the CUDA card) and ``dtype``. The attention
-layers' self-loops are virtual too (:mod:`..ops.attention`).
+layers' self-loops are virtual too (:mod:`..ops.attention`). The
+propagation family runs every hop as one SpMM (K1) through ``propagate``;
+``DConv`` also over ``g.reverse()``, whose forward reads the edge weights
+through the reversed graph's edge-id map.
 """
 
 from __future__ import annotations
@@ -30,12 +34,18 @@ from ..ops.attention import (attention_aggregate, dot_attention,
                              gat_attention, gatv2_attention)
 from ..ops.cuda.edge_softmax import lrelu
 from ..ops.segment import gather, segment_sum
-from ..query import degree
+from ..query import degree, jax_n_pad, power_eigmax, scaled_laplacian
 from .basic import GNNLayer, glorot_uniform
 
 __all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "EdgeConv", "MLP",
            "GATConv", "GATv2Conv", "AGNNConv", "TransformerConv",
-           "BatchNorm"]
+           "BatchNorm", "ResGatedGraphConv", "GatedGraphConv", "GRUCell",
+           "ChebConv", "cheb_lambda_max", "SGConv", "TAGConv", "DConv"]
+
+# ChebConv takes the matrix-free path where the JAX package's default padded
+# node count round_up(N + 1, 8) exceeds 2048 (its ``g.n_pad > 2048``,
+# conv.py:294): from N = 2048 nodes on
+_CHEB_DENSE_MAX_N_PAD = 2048
 
 
 def _weight(shape, generator, device, dtype) -> nn.Parameter:
@@ -660,3 +670,329 @@ class TransformerConv(GNNLayer):
             if self.BN2 is not None:
                 h = self.BN2(h, use_running_average=deterministic)
         return h
+
+
+# ---- gated layers -----------------------------------------------------------
+
+class ResGatedGraphConv(GNNLayer):
+    """Residual gated graph conv (Bresson & Laurent; reference
+    conv.jl:838-867, GNNlib conv.jl:287-300): ``act(U x_i + sum_j eta_ij *
+    V x_j + b)`` with ``eta_ij = sigmoid(A x_i + B x_j)``. The messages are
+    dicts of endpoint gathers (``fast_gather``, whose backward is K1),
+    summed by ``segment_sum``. Parameters ``A``, ``B``, ``U``, ``V`` (``[in,
+    out]``) and ``bias``, as in the JAX package."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 act: Callable | None = None, *, use_bias: bool = True,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        for name in ("A", "B", "U", "V"):
+            setattr(self, name, _weight((in_features, out_features),
+                                        generator, device, dtype))
+        self.bias = _bias(out_features, device, dtype) if use_bias else None
+        self.act = act
+
+    def forward(self, g: GraphTuple, x=None):
+        if x is None:
+            x = g.x
+        xj, xi = _expand_srcdst(x)
+
+        def msg(xi_e, xj_e, e):
+            return torch.sigmoid(xi_e["Ax"] + xj_e["Bx"]) * xj_e["Vx"]
+
+        m = propagate(msg, g, "sum", xi={"Ax": xi @ self.A},
+                      xj={"Bx": xj @ self.B, "Vx": xj @ self.V})
+        out = xi @ self.U + m[: xi.shape[0]]
+        if self.bias is not None:
+            out = out + self.bias
+        return self.act(out) if self.act is not None else out
+
+
+class GRUCell(nn.Module):
+    """``flax.nnx.GRUCell``: ``dense_i`` (``nn.Linear(in, 3H)``, with a bias)
+    and ``dense_h`` (``nn.Linear(H, 3H)``, none), gates in the order (r, z,
+    n), ``n = tanh(xi_n + r * hh_n)`` and ``h' = (1 - z) n + z h``; called
+    as ``cell(h, x)`` and returning ``h'``. ``torch.nn.GRUCell`` adds a
+    trainable bias to ``hh_n``, which this layout has not."""
+
+    def __init__(self, in_features: int, hidden_features: int, *,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        h3 = 3 * hidden_features
+        self.dense_i = _dense(in_features, h3, True, generator, device,
+                              dtype)
+        self.dense_h = nn.utils.skip_init(nn.Linear, hidden_features, h3,
+                                          bias=False, device=device,
+                                          dtype=dtype)
+        with torch.no_grad():   # flax's recurrent init: orthogonal columns
+            q, r = torch.linalg.qr(torch.randn(
+                (h3, hidden_features), generator=generator,
+                dtype=torch.float64))
+            self.dense_h.weight.copy_(q * torch.sign(torch.diagonal(r)))
+
+    def forward(self, h, x):
+        xi_r, xi_z, xi_n = self.dense_i(x).chunk(3, -1)
+        hh_r, hh_z, hh_n = self.dense_h(h).chunk(3, -1)
+        r = torch.sigmoid(xi_r + hh_r)
+        z = torch.sigmoid(xi_z + hh_z)
+        n = torch.tanh(xi_n + r * hh_n)
+        return (1.0 - z) * n + z * h
+
+
+class GatedGraphConv(GNNLayer):
+    """Gated graph sequence NN (Li et al.; reference conv.jl:515-539, GNNlib
+    conv.jl:218-233): ``num_layers`` GRU steps ``h = gru(h, aggr_j (h
+    W_l)_j)``, the input zero-padded to ``out_features`` channels.
+    Parameters ``weight [num_layers, out, out]`` and ``gru``
+    (:class:`GRUCell`)."""
+
+    def __init__(self, out_features: int, num_layers: int, *, aggr="sum",
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = _weight((num_layers, out_features, out_features),
+                              generator, device, dtype)
+        self.gru = GRUCell(out_features, out_features, generator=generator,
+                           device=device, dtype=dtype)
+        self.out_features = out_features
+        self.num_layers = num_layers
+        self.aggr = aggr
+
+    def forward(self, g: GraphTuple, x=None):
+        if x is None:
+            x = g.x
+        din = x.shape[-1]
+        if din > self.out_features:
+            raise ValueError("input features must be <= out_features")
+        h = nn.functional.pad(x, (0, self.out_features - din))
+        for i in range(self.num_layers):
+            m = propagate(copy_xj, g, self.aggr, xj=h @ self.weight[i])
+            h = self.gru(h, m)
+        return h
+
+
+# ---- propagation family: Cheb, SG, TAG, DConv -------------------------------
+
+def _lap_operator(g: GraphTuple, dtype):
+    """Matrix-free normalized Laplacian ``v -> v - D^-1/2 A^T D^-1/2 v``
+    with the weighted in-degree ``D``: one SpMM (K1) an application, over
+    ``v``'s columns (the JAX package's ``_lap_operator``, conv.py:203). It
+    is the symmetric Laplacian on a bidirected graph."""
+    d_isqrt = _inv_sqrt(degree(g, dir="in", dtype=dtype))[:, None]
+    w = None if g.edge_weight is None else g.edge_weight.to(dtype)
+
+    def lap(v):
+        xj = v * d_isqrt
+        av = (propagate(copy_xj, g, "sum", xj=xj) if w is None
+              else propagate(e_mul_xj, g, "sum", xj=xj, e=w))
+        return v - d_isqrt * av
+
+    return lap
+
+
+def cheb_lambda_max(g: GraphTuple, dtype=torch.float32,
+                    power_iters: int = 50) -> torch.Tensor:
+    """Each graph's normalized-Laplacian λ_max, matrix-free (``[G]``; the
+    JAX package's ``cheb_lambda_max``, conv.py:224): a power iteration of
+    ``[N, G]`` columns, so K1 runs at D = G. Pass it as
+    ``ChebConv(...)(g, x, lambda_max=...)`` to compute it once and not on
+    every call."""
+    return power_eigmax(g, _lap_operator(g, dtype), dtype, power_iters)
+
+
+def _scaled_laplacian_apply(g: GraphTuple, dtype, lambda_max=None,
+                            power_iters: int = 50):
+    """Matrix-free ``v -> (2 L / λ_max - I) v``; ``lambda_max`` None runs
+    the power iteration, a scalar or a per-graph ``[G]`` tensor skips it
+    (conv.py:252)."""
+    lap = _lap_operator(g, dtype)
+    if lambda_max is None:
+        lam = power_eigmax(g, lap, dtype, power_iters)[g.node_graph_id]
+    else:
+        lam = torch.as_tensor(lambda_max, dtype=dtype, device=g.device)
+        lam = (lam[g.node_graph_id] if lam.dim() == 1
+               else lam.expand(g.num_nodes))
+    s_node = (2.0 / lam.clamp(min=1e-12))[:, None]
+    return lambda v: s_node * lap(v) - v
+
+
+class ChebConv(GNNLayer):
+    """Chebyshev spectral convolution (reference conv.jl:162-185, GNNlib
+    conv.jl:83-98): ``sum_k T_k(L~) x W_k``, ``L~ = 2 L / λ_max - I``.
+
+    As in the JAX package (conv.py:275-316) it takes one of two paths. A
+    graph of fewer than 2048 nodes with no ``lambda_max`` gets the dense
+    :func:`~..query.scaled_laplacian` (out-edge convention, 100 power
+    iterations); a larger graph, or a given ``lambda_max`` (a scalar or a
+    ``[G]`` tensor), the matrix-free operator (in-edge convention, 50 power
+    iterations when λ_max is not given, every hop one K1). The two agree
+    on bidirected graphs. ``weight`` is ``[k, in, out]``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, k: int, *,
+                 use_bias: bool = True, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = _weight((k, in_features, out_features), generator,
+                              device, dtype)
+        self.bias = _bias(out_features, device, dtype) if use_bias else None
+        self.k = k
+
+    def forward(self, g: GraphTuple, x=None, *, lambda_max=None):
+        if x is None:
+            x = g.x
+        if (lambda_max is not None
+                or jax_n_pad(g.num_nodes) > _CHEB_DENSE_MAX_N_PAD):
+            lhat = _scaled_laplacian_apply(g, x.dtype, lambda_max)
+        else:
+            L = scaled_laplacian(g, dtype=x.dtype)
+
+            def lhat(v):
+                return L @ v
+        W = self.weight
+        z_prev, z = x, lhat(x)
+        y = x @ W[0]
+        if self.k > 1:
+            y = y + z @ W[1]
+        for k in range(2, self.k):
+            z, z_prev = 2.0 * lhat(z) - z_prev, z
+            y = y + z @ W[k]
+        return y + self.bias if self.bias is not None else y
+
+
+class SGConv(GNNLayer):
+    """Simplified GCN (Wu et al.; reference conv.jl:1197-1225, GNNlib
+    conv.jl:501-549): ``W (D^-1/2 (A + I) D^-1/2)^k x + b``, ``W`` on the
+    cheaper side as in :class:`GCNConv`."""
+
+    def __init__(self, in_features: int, out_features: int, k: int = 1, *,
+                 add_self_loops: bool = True, use_edge_weight: bool = False,
+                 use_bias: bool = True, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = _weight((in_features, out_features), generator, device,
+                              dtype)
+        self.bias = _bias(out_features, device, dtype) if use_bias else None
+        self.k = k
+        self.add_self_loops = add_self_loops
+        self.use_edge_weight = use_edge_weight
+
+    def forward(self, g: GraphTuple, x=None, edge_weight=None):
+        if x is None:
+            x = g.x
+        W = self.weight
+        din, dout = W.shape
+        if dout < din:
+            x = x @ W
+        kw = dict(edge_weight=edge_weight,
+                  use_edge_weight=self.use_edge_weight,
+                  add_self_loops=self.add_self_loops)
+        c = _gcn_norm(g, norm_fn=None, dtype=x.dtype, **kw)
+        for _ in range(self.k):
+            x = _gcn_propagate(g, x, c, **kw)
+        if dout >= din:
+            x = x @ W
+        return x + self.bias if self.bias is not None else x
+
+
+class TAGConv(GNNLayer):
+    """Topology-adaptive GCN (Du et al.; reference conv.jl:1265-1293, GNNlib
+    conv.jl:634-692), with the JAX package's cumulative ``sum_pow``: hop
+    ``i`` adds ``(x_1 + ... + x_i) W``."""
+
+    def __init__(self, in_features: int, out_features: int, k: int = 3, *,
+                 add_self_loops: bool = True, use_edge_weight: bool = False,
+                 use_bias: bool = True, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = _weight((in_features, out_features), generator, device,
+                              dtype)
+        self.bias = _bias(out_features, device, dtype) if use_bias else None
+        self.k = k
+        self.add_self_loops = add_self_loops
+        self.use_edge_weight = use_edge_weight
+
+    def forward(self, g: GraphTuple, x=None, edge_weight=None):
+        if x is None:
+            x = g.x
+        kw = dict(edge_weight=edge_weight,
+                  use_edge_weight=self.use_edge_weight,
+                  add_self_loops=self.add_self_loops)
+        c = _gcn_norm(g, norm_fn=None, dtype=x.dtype, **kw)
+        sum_pow = sum_total = None
+        for _ in range(self.k):
+            x = _gcn_propagate(g, x, c, **kw)
+            sum_pow = x if sum_pow is None else sum_pow + x
+            inc = sum_pow @ self.weight
+            sum_total = inc if sum_total is None else sum_total + inc
+        if self.bias is not None:
+            sum_total = sum_total + self.bias
+        return sum_total
+
+
+class DConv(GNNLayer):
+    """Diffusion conv (Li et al., DCRNN; reference conv.jl:1574-1595, GNNlib
+    conv.jl:696-725) over ``g`` and ``g.reverse()``, each hop one K1 with
+    the graph's own edge weights.
+
+    By default the transition divides by the (clamped) out- and in-degrees;
+    ``reference_exact=True`` multiplies by the raw degrees and keeps the
+    reference's loop bounds, which apply the order-2 weights ``W[:, 1]``
+    again (the JAX package's two modes, conv.py:1051-1114). ``weights`` is
+    ``[2, k, in, out]``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, k: int, *,
+                 use_bias: bool = True, reference_exact: bool = False,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.weights = _weight((2, k, in_features, out_features), generator,
+                               device, dtype)
+        self.bias = _bias(out_features, device, dtype) if use_bias else None
+        self.k = k
+        self.reference_exact = reference_exact
+
+    def forward(self, g: GraphTuple, x=None):
+        if x is None:
+            x = g.x
+        W = self.weights
+        gt = g.reverse()
+
+        def prop(graph, xj):
+            # each graph's own weights (w_mul_xj with e=None), in edge order
+            return propagate(w_mul_xj, graph, "sum", xj=xj)
+
+        h = x @ W[0, 0] + x @ W[1, 0]
+        T0 = x
+        d_out = degree(g, dir="out", dtype=x.dtype)[:, None]
+        d_in = degree(g, dir="in", dtype=x.dtype)[:, None]
+        if self.reference_exact:
+            # GNNlib conv.jl:705-723: raw-degree scaling, unclamped, and the
+            # `for i in 2:l.k` loop that revisits the order-2 weight slot
+            if self.k > 1:
+                T1_out = prop(g, T0 * d_out)
+                T1_in = prop(gt, T0 * d_in)
+                h = h + T1_in @ W[0, 1] + T1_out @ W[1, 1]
+                for i in range(1, self.k):
+                    T2_in = 2.0 * prop(gt, T1_in * d_in) - T0
+                    T2_out = 2.0 * prop(g, T1_out * d_out) - T0
+                    h = h + T2_in @ W[0, i] + T2_out @ W[1, i]
+                    T1_in, T1_out = T2_in, T2_out
+            return h + self.bias if self.bias is not None else h
+        d_out, d_in = d_out.clamp(min=1.0), d_in.clamp(min=1.0)
+        if self.k > 1:
+            T1_out = prop(g, T0 / d_out)
+            T1_in = prop(gt, T0 / d_in)
+            h = h + T1_in @ W[0, 1] + T1_out @ W[1, 1]
+            for i in range(2, self.k):
+                T2_in = 2.0 * prop(gt, T1_in / d_in) - T0
+                T2_out = 2.0 * prop(g, T1_out / d_out) - T0
+                h = h + T2_in @ W[0, i] + T2_out @ W[1, i]
+                T1_in, T1_out = T2_in, T2_out
+        return h + self.bias if self.bias is not None else h

@@ -54,6 +54,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from ...graph import receiver_positions_are_edge_ids
 from .build import load
 from .spmm import (_call_on, _check, _float4_rows, _ptr, _raise_on_error,
                    _route, _row_ids, _windowed_rows, spmm_sddmm)
@@ -1261,6 +1262,8 @@ def _rows(g, num_segments):
     that holds when the cut CSR still holds every edge (read from the card
     only when the cut drops rows).
     """
+    receiver_positions_are_edge_ids(g, "the card's attention and SDDMM "
+                                    "kernels (K3-K13)")
     n = g.num_nodes if num_segments is None else int(num_segments)
     return _cut(g, g.indptr_r, n, "receiver", f"num_segments={n}")
 

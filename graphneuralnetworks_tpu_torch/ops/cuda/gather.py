@@ -3,10 +3,11 @@
 Counterpart of ``graphneuralnetworks_tpu/ops/pallas/gather.py:fast_gather``.
 The forward is a plain ``x[idx]``. Its gradient is a scatter-add of edge
 rows onto nodes, which here is K1 over the CSR that groups edges by
-``idx``: the receiver CSR for ``x[receivers]`` (edge ids are CSR positions,
-``col=None``, rows read in order) and the sender CSR for ``x[senders]``
-(``col=eid_s``). Each node row of the gradient is summed in a fixed order
-within one warp (several narrow rows share a warp), with no atomics.
+``idx``: the receiver CSR for ``x[receivers]`` (``col=eid_r``: None where
+edge ids are CSR positions, rows read in order) and the sender CSR for
+``x[senders]`` (``col=eid_s``; None on a reversed graph). Each node row of
+the gradient is summed in a fixed order within one warp (several narrow
+rows share a warp), with no atomics.
 """
 
 from __future__ import annotations

@@ -356,21 +356,23 @@ def spmm_sddmm(indptr, col, eid, w, dy, x):
 class SpmmFunction(torch.autograd.Function):
     """``y[i] = sum_{e: r_e = i} w_e * x[s_e]`` with a kernel backward.
 
-    Forward: K1 over the receiver CSR. Backward: K2 over the sender CSR when
-    ``w`` needs a gradient, else K1 over the sender CSR. ``x`` may have
-    fewer rows than the graph has nodes (a bipartite source side); every
-    sender must index one of its rows.
+    Forward: K1 over the receiver CSR, reading ``w`` through ``eid_r`` (a
+    reversed graph's; None: CSR positions are edge ids). Backward: K2 over
+    the sender CSR when ``w`` needs a gradient, else K1 over the sender
+    CSR. ``x`` may have fewer rows than the graph has nodes (a bipartite
+    source side); every sender must index one of its rows.
     """
 
     @staticmethod
-    def forward(ctx, x, w, indptr_r, col_r, indptr_s, col_s, eid_s):
+    def forward(ctx, x, w, indptr_r, col_r, indptr_s, col_s, eid_s,
+                eid_r=None):
         if x.shape[0] > indptr_s.numel() - 1:
             raise ValueError(f"x has {x.shape[0]} rows, the graph "
                              f"{indptr_s.numel() - 1} nodes")
         x = x.contiguous()
         w = None if w is None else w.contiguous()
         ctx.save_for_backward(x, w, indptr_s, col_s, eid_s)
-        return spmm_csr(indptr_r, col_r, None, w, x)
+        return spmm_csr(indptr_r, col_r, eid_r, w, x)
 
     @staticmethod
     @once_differentiable
@@ -386,7 +388,7 @@ class SpmmFunction(torch.autograd.Function):
             dx = dx if need_x else None
         elif need_x:
             dx = spmm_csr(ip, col_s, eid_s, w, dy)
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def spmm(g, x, *, edge_weight=None, weighted: bool = False):
@@ -402,4 +404,4 @@ def spmm(g, x, *, edge_weight=None, weighted: bool = False):
     if w is not None:
         w = w.to(x.dtype)
     return SpmmFunction.apply(x, w, g.indptr_r, g.col_r, g.indptr_s,
-                              g.col_s, g.eid_s)
+                              g.col_s, g.eid_s, g.eid_r)

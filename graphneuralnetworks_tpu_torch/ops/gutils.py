@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..graph import GraphTuple
+from .msgpass import _receiver_csr
 from .segment import gather, is_extreme, segment_reduce, segment_softmax
 
 __all__ = ["reduce_nodes", "reduce_edges", "softmax_nodes", "softmax_edges",
@@ -71,8 +72,11 @@ def softmax_edges(g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
 
 def softmax_edge_neighbors(g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
     """Softmax over each node's incoming edges, the attention primitive
-    (utils.jl:84-97): max-subtracted for stability."""
-    return segment_softmax(e, g.receivers, g.num_nodes, indptr=g.indptr_r)
+    (utils.jl:84-97): max-subtracted for stability. Its max step is K14 over
+    the receiver CSR on the card, so a reversed graph raises there."""
+    indptr = _receiver_csr(g, g.num_nodes, e, "softmax_edge_neighbors on "
+                           "the card (K14)")
+    return segment_softmax(e, g.receivers, g.num_nodes, indptr=indptr)
 
 
 def broadcast_nodes(g: GraphTuple, u: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,9 @@ GNNlib msgpass.jl:69-238), with the same message vocabulary.
   backward is K1 twice) at every width.
 - ``aggregate_neighbors(g, aggr, m)`` reduces edge messages onto receivers;
   on the card ``max`` and ``min`` are one K14 over the receiver CSR (its
-  backward a kernel too), whatever the message width.
+  backward a kernel too), whatever the message width. K14 reads the
+  messages in receiver-CSR order, so on the card it raises for a reversed
+  graph (``GraphTuple.reverse``), whose edges are not in that order.
 - ``propagate(f, g, aggr, ...)`` composes the two, except that a sum (or
   mean) of ``copy_xj`` / ``w_mul_xj`` / ``e_mul_xj`` messages with scalar
   edge weights is one SpMM (:func:`~.cuda.spmm`); mean is that sum divided
@@ -23,7 +25,8 @@ from typing import Callable, Mapping
 
 import torch
 
-from ..graph import GraphTuple
+from ..graph import GraphTuple, receiver_positions_are_edge_ids
+from . import segment
 from .cuda.edge_softmax import _rows
 from .cuda.gather import fast_gather
 from .cuda.sddmm import sddmm
@@ -71,7 +74,7 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
 
     def take_r(v):
         if v.dim() == 2 and v.shape[0] == g.num_nodes:
-            return fast_gather(v, g.receivers, g.indptr_r, None)
+            return fast_gather(v, g.receivers, g.indptr_r, g.eid_r)
         return gather(v, g.receivers)
 
     def take_s(v):
@@ -82,9 +85,16 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
     return f(_map_leaves(take_r, xi), _map_leaves(take_s, xj), e)
 
 
-def _receiver_csr(g: GraphTuple, n: int) -> torch.Tensor:
-    """The receiver CSR with ``n`` rows: cut (every receiver must stay
-    below ``n``) or extended by rows without edges."""
+def _receiver_csr(g: GraphTuple, n: int, v: torch.Tensor, route: str):
+    """The receiver CSR with ``n`` rows that K14 takes for the edge rows
+    ``v``: cut (every receiver must stay below ``n``) or extended by rows
+    without edges. A reversed graph's edges are not in its order: None
+    where ``v`` takes the plain reduction (which reads receiver ids), and
+    ``route`` raises on the card."""
+    if not g.sorted_by_receivers:
+        if segment._kernel_route(v):
+            receiver_positions_are_edge_ids(g, route)
+        return None
     if n <= g.num_nodes:
         return _rows(g, n)
     return torch.cat([g.indptr_r, g.indptr_r[-1:].expand(n - g.num_nodes)])
@@ -94,9 +104,14 @@ def aggregate_neighbors(g: GraphTuple, aggr, m, *, num_segments=None):
     """Reduce edge messages onto receiving nodes; ``mean`` divides by the
     true in-degree and empty segments give 0."""
     n = num_segments if num_segments is not None else g.num_nodes
-    indptr = _receiver_csr(g, n) if is_extreme(aggr) else None
-    return _map_leaves(lambda v: segment_reduce(aggr, v, g.receivers, n,
-                                                indptr=indptr), m)
+
+    def reduce(v):
+        indptr = (_receiver_csr(g, n, v, f"aggregate_neighbors({aggr!r}) "
+                                "on the card (K14)")
+                  if is_extreme(aggr) else None)
+        return segment_reduce(aggr, v, g.receivers, n, indptr=indptr)
+
+    return _map_leaves(reduce, m)
 
 
 def _spmm_message(f, g, xj, e):

@@ -13,7 +13,11 @@ mode and then in eval mode after the running statistics moved, and
 ``DotDecoder`` edge by edge. The layers with a max or min aggregation
 (GraphConv, SAGEConv, GINConv, EdgeConv) also run through K14's route
 (``SegmentMaxFunction``, the autograd function the card uses), and
-EdgeConv on the reference's two 4-node test graphs too.
+EdgeConv on the reference's two 4-node test graphs too. The propagation
+family (ResGatedGraph, SG, TAG, DConv over ``g.reverse()`` in both modes,
+GatedGraph with its GRU cell, ChebConv with ``lambda_max`` given) is held to
+JAX the same way; ChebConv's power-iteration paths are in
+``tests/test_torch_cheb.py``.
 """
 
 import pytest
@@ -37,6 +41,20 @@ from torch_parity import (F64_TOL, assert_grads_match,  # noqa: E402
 
 KW = dict(device="cpu", dtype=torch.float64)
 relu_j, relu_t = jax.nn.relu, torch.relu
+CHEB_LAMBDA = 1.7
+
+
+class _JaxChebLam(JM.ChebConv):
+    """ChebConv called with a fixed ``lambda_max`` (the zoo's
+    ``ChebConv_lam2`` pattern, benchmarks/zoo_sweep_r5.py:46-52)."""
+
+    def __call__(self, g, x=None):
+        return super().__call__(g, x, lambda_max=CHEB_LAMBDA)
+
+
+class _TorchChebLam(TM.ChebConv):
+    def forward(self, g, x=None):
+        return super().forward(g, x, lambda_max=CHEB_LAMBDA)
 
 # name: (JAX layer, port layer, input width, passes explicit edge weights)
 CASES = {
@@ -149,6 +167,56 @@ CASES = {
                                      rngs=r),
         lambda: TM.TransformerConv(4, 3, heads=2, add_self_loops=True, **KW),
         4, False),
+    "resgated": (lambda r: JM.ResGatedGraphConv(4, 3, relu_j, rngs=r),
+                 lambda: TM.ResGatedGraphConv(4, 3, relu_t, **KW), 4, False),
+    "resgated_no_bias": (
+        lambda r: JM.ResGatedGraphConv(3, 5, use_bias=False, rngs=r),
+        lambda: TM.ResGatedGraphConv(3, 5, use_bias=False, **KW), 3, False),
+    # SGConv: W before the hops when out < in, after them otherwise
+    "sgconv_k1": (lambda r: JM.SGConv(3, 5, rngs=r),
+                  lambda: TM.SGConv(3, 5, **KW), 3, False),
+    "sgconv_k2_dout_lt_din": (lambda r: JM.SGConv(6, 2, 2, rngs=r),
+                              lambda: TM.SGConv(6, 2, 2, **KW), 6, False),
+    "sgconv_k2_no_self_loops": (
+        lambda r: JM.SGConv(4, 4, 2, add_self_loops=False, rngs=r),
+        lambda: TM.SGConv(4, 4, 2, add_self_loops=False, **KW), 4, False),
+    "sgconv_k2_use_edge_weight": (
+        lambda r: JM.SGConv(3, 5, 2, use_edge_weight=True, rngs=r),
+        lambda: TM.SGConv(3, 5, 2, use_edge_weight=True, **KW), 3, False),
+    "sgconv_k2_explicit_edge_weight_dout_lt_din": (
+        lambda r: JM.SGConv(5, 2, 2, rngs=r),
+        lambda: TM.SGConv(5, 2, 2, **KW), 5, True),
+    "tagconv": (lambda r: JM.TAGConv(4, 3, 3, rngs=r),
+                lambda: TM.TAGConv(4, 3, 3, **KW), 4, False),
+    "tagconv_use_edge_weight_no_self_loops": (
+        lambda r: JM.TAGConv(3, 4, 2, add_self_loops=False,
+                             use_edge_weight=True, rngs=r),
+        lambda: TM.TAGConv(3, 4, 2, add_self_loops=False,
+                           use_edge_weight=True, **KW), 3, False),
+    "tagconv_explicit_edge_weight": (
+        lambda r: JM.TAGConv(4, 2, 3, use_bias=False, rngs=r),
+        lambda: TM.TAGConv(4, 2, 3, use_bias=False, **KW), 4, True),
+    # DConv runs over g and g.reverse(), the graph's weights on both
+    "dconv": (lambda r: JM.DConv(4, 3, 3, rngs=r),
+              lambda: TM.DConv(4, 3, 3, **KW), 4, False),
+    "dconv_k1": (lambda r: JM.DConv(3, 2, 1, rngs=r),
+                 lambda: TM.DConv(3, 2, 1, **KW), 3, False),
+    "dconv_reference_exact": (
+        lambda r: JM.DConv(4, 3, 3, reference_exact=True, rngs=r),
+        lambda: TM.DConv(4, 3, 3, reference_exact=True, **KW), 4, False),
+    # the input zero-padded to out_features (3 -> 5)
+    "gatedgraph": (lambda r: JM.GatedGraphConv(5, 2, rngs=r),
+                   lambda: TM.GatedGraphConv(5, 2, **KW), 3, False),
+    "gatedgraph_mean": (lambda r: JM.GatedGraphConv(4, 3, aggr="mean",
+                                                    rngs=r),
+                        lambda: TM.GatedGraphConv(4, 3, aggr="mean", **KW),
+                        4, False),
+    "gatedgraph_max": (lambda r: JM.GatedGraphConv(4, 2, aggr="max", rngs=r),
+                       lambda: TM.GatedGraphConv(4, 2, aggr="max", **KW), 2,
+                       False),
+    # lambda_max given: the matrix-free path at any size, no power iteration
+    "cheb_lambda_given": (lambda r: _JaxChebLam(4, 3, 3, rngs=r),
+                          lambda: _TorchChebLam(4, 3, 3, **KW), 4, False),
     "transformer_skip_gating_ff_bn": (
         lambda r: JM.TransformerConv(6, 3, heads=2, skip_connection=True,
                                      gating=True, ff_channels=5,
@@ -201,7 +269,8 @@ def test_layer_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", ["graphconv_max", "gin_max", "sage_max",
-                                  "edgeconv", "edgeconv_min"])
+                                  "edgeconv", "edgeconv_min",
+                                  "gatedgraph_max"])
 def test_max_aggregation_kernel_route_matches_jax(monkeypatch, name):
     """The max and min cases of :data:`CASES` once more, by K14's route."""
     monkeypatch.setattr(TS, "_kernel_route", lambda t: True)
@@ -248,6 +317,42 @@ def test_edgeconv_on_fixture_graphs_matches_jax(test_graphs, monkeypatch,
                                             nnx.to_pure_dict(gp)), **F64_TOL)
 
 
+def test_gatedgraph_rejects_a_wider_input():
+    with pytest.raises(ValueError, match="out_features"):
+        TM.GatedGraphConv(3, 1, **KW)(
+            tgnn.graph([0, 1], [1, 0], device="cpu"),
+            torch.zeros(2, 4, dtype=torch.float64))
+
+
+def test_gru_cell_matches_flax():
+    """The port's ``GRUCell`` against ``nnx.GRUCell`` called as
+    ``GatedGraphConv`` calls it, ``cell(h, x)``, with every gradient."""
+    rng = np.random.default_rng(41)
+    h, x = rng.standard_normal((6, 4)), rng.standard_normal((6, 3))
+    cot = rng.standard_normal((6, 4))
+    jc = jax_params_f64(nnx.GRUCell(3, 4, rngs=nnx.Rngs(5)))
+    tc = port_from_jax(TM.GRUCell(3, 4, **KW), jc)
+    gd, params, rest = nnx.split(jc, nnx.Param, ...)
+
+    def jloss(p, hp, xp):
+        y, _ = nnx.merge(gd, p, rest)(hp, xp)
+        return jnp.sum(y * cot), y
+
+    (_, jy), (gp, gh, gx) = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(params, jnp.asarray(h),
+                                                jnp.asarray(x))
+    th, tx = t(h, grad=True), t(x, grad=True)
+    ty = tc(th, tx)
+    (ty * t(cot)).sum().backward()
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               **F64_TOL)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(gh), **F64_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **F64_TOL)
+    assert_grads_match(tc, jax.tree.map(np.asarray, nnx.to_pure_dict(gp)),
+                       **F64_TOL)
+    assert tc.dense_h.bias is None and tc.dense_i.bias is not None
+
+
 def test_gcn_norm_fn_and_conv_weight_overrides():
     s, r, n, w = directed_graph_arrays(seed=9)
     jg, tg = graph_pair(s, r, n, w)
@@ -273,6 +378,16 @@ def test_load_jax_params_rejects_mismatches():
     from graphneuralnetworks_tpu_torch.interop import load_jax_params
     with pytest.raises(KeyError):
         load_jax_params(tm, {"kernel": np.zeros((3, 5))})
+    # GatedGraphConv's GRU cell: dense_h has no bias, a wrong width raises
+    jg = JM.GatedGraphConv(4, 2, rngs=nnx.Rngs(0))
+    with pytest.raises(ValueError):
+        port_from_jax(TM.GatedGraphConv(5, 2, **KW), jg)
+    with pytest.raises(KeyError):
+        load_jax_params(TM.GatedGraphConv(4, 2, **KW),
+                        {"gru": {"dense_h": {"bias": np.zeros(12)}}})
+    with pytest.raises(ValueError):      # DConv's [2, k, in, out]
+        port_from_jax(TM.DConv(3, 4, 3, **KW),
+                      JM.DConv(3, 4, 2, rngs=nnx.Rngs(0)))
 
 
 def test_layers_default_to_the_card(monkeypatch):
@@ -281,7 +396,11 @@ def test_layers_default_to_the_card(monkeypatch):
                  lambda: TM.SAGEConv(3, 4), lambda: TM.GraphConv(3, 4),
                  lambda: TM.GATConv(3, 4, heads=2), lambda: TM.AGNNConv(),
                  lambda: TM.TransformerConv(3, 4, heads=2),
-                 lambda: TM.TopKPool(3, 2), lambda: TM.Set2Set(3, 2)):
+                 lambda: TM.TopKPool(3, 2), lambda: TM.Set2Set(3, 2),
+                 lambda: TM.ResGatedGraphConv(3, 4),
+                 lambda: TM.GatedGraphConv(4, 2), lambda: TM.GRUCell(3, 4),
+                 lambda: TM.ChebConv(3, 4, 2), lambda: TM.SGConv(3, 4),
+                 lambda: TM.TAGConv(3, 4), lambda: TM.DConv(3, 4, 2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 

@@ -14,6 +14,8 @@ backward).
       python -m pytest tests/test_torch_kernels.py --noconftest -o addopts="" -m gpu
 """
 
+import copy
+
 import pytest
 
 pytest.importorskip("torch")
@@ -916,3 +918,119 @@ def test_max_aggregation_layers_on_card_match_cpu(name):
             p.grad.cpu() for p in m.parameters()]
     for a, b in zip(results["cuda"], results["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_k1_one_column_and_reversed_edge_ids_on_card():
+    """K1 at D = 1 (the matrix-free ChebConv's power iteration, one column a
+    graph) and K1's forward over a reversed graph's receiver CSR, reading
+    the weights through its edge-id map, against the plain version; then
+    ``propagate`` and ``apply_edges`` on the reversed graph on the card
+    against the CPU, with their launches (K1 forward, K2 backward with the
+    weights' gradient by CSR position, K1 as the receiver gather's
+    backward through ``eid_r``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n, e = 3000, 45000
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = tgnn.rand_graph(n, e, seed=8, device="cuda")
+    w = torch.rand(g.num_edges, device="cuda", generator=gen) + 0.5
+    gr = g.replace(edge_weight=w).reverse()
+    for d in (1, 8, 128):
+        x = torch.randn(n, d, device="cuda", generator=gen)
+        for args in ((g.indptr_r, g.col_r, None, None, x),
+                     (g.indptr_r, g.col_r, None, w, x),
+                     (g.indptr_s, g.col_s, g.eid_s, w, x),
+                     (gr.indptr_r, gr.col_r, gr.eid_r, w, x),
+                     (gr.indptr_r, gr.col_r, gr.eid_r, None, x)):
+            torch.testing.assert_close(S.spmm_csr(*args),
+                                       S.spmm_plain(*args),
+                                       rtol=1e-5, atol=1e-5)
+    x = torch.randn(n, 4, device="cuda", generator=gen)
+    results = {}
+    for device in ("cuda", "cpu"):
+        gd = gr.to(device)
+        xs = x.to(device, copy=True).requires_grad_()
+        ws = w.to(device, copy=True).requires_grad_()
+        before = dict(S.launches)
+        y = tgnn.ops.propagate(tgnn.ops.w_mul_xj, gd, "sum", xj=xs, e=ws)
+        m = tgnn.ops.apply_edges(lambda a, b, _: a * b, gd, xs, xs)
+        (y * y).sum().backward()
+        (m * m).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: c - before[k] for k, c in S.launches.items()
+                    if c != before[k]}
+        assert launched == ({"k1": 3, "k2": 1} if device == "cuda" else {})
+        results[device] = [y.detach().cpu(), m.detach().cpu(),
+                           xs.grad.cpu(), ws.grad.cpu()]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["resgated", "sgconv", "tagconv", "dconv",
+                                  "dconv_reference_exact", "gatedgraph",
+                                  "cheb_lambda_given", "cheb_power"])
+def test_propagation_layers_on_card_match_cpu(name):
+    """The propagation family on the card in float32 (K1 every hop; DConv
+    over the weighted graph and its reverse; ChebConv's matrix-free path
+    at N = 2100 >= 2048, by default with its power iteration at D = 1)
+    against itself on the CPU in float64, forward and the gradients of the
+    input and of every parameter.
+
+    Tolerance: an element passes through ~50 float32 roundings (a 5-wide
+    GEMM, up to three hops of ~15 terms, the ``2 T - T0`` recursions, the
+    GRU's gates), each up to 6e-8 of the largest term it adds, so its error
+    is within ~3e-6 of the tensor's largest value: atol 1e-5 * max|b|
+    (CPU float32 against float64 reads 2e-7 to 4e-7 of it for every case;
+    DConv's raw-degree mode reaches 7e4 in its outputs, 7e9 in its input
+    gradient, and cancels in ``2 T - T0``, so an elementwise rtol alone
+    fails it: 2.9e-4 on one of 8,400 elements, card float32 against CPU
+    float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    M = tgnn.models
+    gen = torch.Generator().manual_seed(9)
+    kw = dict(generator=gen, device="cpu")
+    layer = {
+        "resgated": lambda: M.ResGatedGraphConv(5, 4, torch.relu, **kw),
+        "sgconv": lambda: M.SGConv(5, 4, 2, **kw),
+        "tagconv": lambda: M.TAGConv(5, 4, 3, **kw),
+        "dconv": lambda: M.DConv(5, 4, 3, **kw),
+        "dconv_reference_exact": lambda: M.DConv(5, 4, 2,
+                                                 reference_exact=True, **kw),
+        "gatedgraph": lambda: M.GatedGraphConv(6, 2, **kw),
+        "cheb_lambda_given": lambda: M.ChebConv(5, 4, 3, **kw),
+        "cheb_power": lambda: M.ChebConv(5, 4, 3, **kw),
+    }[name]()
+    call = {"cheb_lambda_given": {"lambda_max": 2.0}}.get(name, {})
+    g = tgnn.rand_graph(2100, 30000, seed=10, device="cpu")
+    g = g.replace(edge_weight=torch.rand(g.num_edges, generator=gen) + 0.5)
+    x = torch.randn(g.num_nodes, 5, generator=gen)
+    results = {}
+    for device, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        m = copy.deepcopy(layer).to(device, dt)
+        xs = x.to(device, dt).requires_grad_()
+        before = dict(S.launches)
+        out = m(g.to(device), xs, **call)
+        (out * out).sum().backward()
+        torch.cuda.synchronize()
+        assert (S.launches["k1"] > before["k1"]) is (device == "cuda")
+        results[device] = [out.detach().cpu(), xs.grad.cpu()] + [
+            p.grad.cpu() for p in m.parameters()]
+    for a, b in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a.double(), b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_start_vector_on_card_equals_cpu():
+    """The power iterations' start vector (``query.start_vector``) is the
+    same bits on the card as on the CPU, in float32 and float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from graphneuralnetworks_tpu_torch.query import start_vector
+    for dt in (torch.float32, torch.float64):
+        torch.testing.assert_close(start_vector((300, 2), dt, "cuda").cpu(),
+                                   start_vector((300, 2), dt, "cpu"),
+                                   rtol=0, atol=0)

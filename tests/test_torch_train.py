@@ -198,6 +198,10 @@ def _cora_model(name, din, nh, nout):
         return TM.GNNChain(TM.GATv2Conv(din, nh, torch.relu, heads=2, **kw),
                            TM.GATv2Conv(2 * nh, nh, torch.relu, heads=2,
                                         concat=False, **kw), head)
+    if name == "ResGated":         # tests/test_integration_cora.py:65-69
+        return TM.GNNChain(
+            TM.ResGatedGraphConv(din, nh, torch.relu, **kw),
+            TM.ResGatedGraphConv(nh, nh, torch.relu, **kw), head)
     if name == "Transformer":      # tests/test_integration_cora.py:70-74
         return TM.GNNChain(
             TM.TransformerConv(din, nh, heads=2, concat=False, **kw),
@@ -207,7 +211,7 @@ def _cora_model(name, din, nh, nout):
 
 
 @pytest.mark.parametrize("name", ["GCN", "GraphConv", "SAGE", "GIN", "GAT",
-                                  "GATv2", "Transformer"])
+                                  "GATv2", "ResGated", "Transformer"])
 def test_cora_accuracy_bar(name):
     torch.manual_seed(17)
     data, _ = load_cora(seed=1, device="cpu")
