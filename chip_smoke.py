@@ -89,6 +89,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its ``reverse``, ResGatedGraphConv, and ``GatedGraphConv(128, 2)`` then
    ``Linear(128, 8)`` (all K1), each trained and held card vs CPU as 3c
    holds the others, with DConv also on the reverse of a weighted graph.
+   3m and 3n: bench.py's north star, neighbor-sampled GraphSAGE at
+   ogbn-products scale (its synthetic analog, bench.py:387-464: N =
+   2,449,029, E = 123,718,280, skewed in-degrees, 196,615 train seeds, X
+   ``[N, 100]`` class prototypes with noise, 47 classes; the in-CSR built
+   on the card), ``GNNChain(SAGEConv(100, 256, relu), SAGEConv(256, 256,
+   relu), Linear(256, 47))``, batch 1024, fanouts (15, 10), Adam at 1e-3,
+   cross-entropy over the seed rows: 3m over ``NeighborLoader`` (the C++
+   sampler, batches grouped on the card) through ``Prefetcher(size=4,
+   workers=1)``, 10 warm-up batches then a window of 30; 3n over
+   ``DeviceSampler.sample_blocks`` and ``apply_blocks``, 5 then 40. Each
+   prints ms per batch, sampled edges per second, the set-up seconds, the
+   losses (which must fall) and K1's three launches a step; 3m also the
+   sampler's host ms per batch and utilisation. 3c holds one step of each
+   card vs CPU, and ``sample`` against ``sample_blocks`` on the seed rows.
+   Before them, 2g holds K1 at their shapes to the plain version and
+   ``torch.sparse.mm`` and times it: 3n's block 0 receiver CSR at D = 100,
+   block 1's at D = 256 and its sender CSR at D = 256 (weighted by the
+   edge validity), 3m's batch graph at D = 100 and 256 forward and 256
+   backward.
 4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT,
    GATv2, ResGated and Transformer, 40 epochs, train accuracy > 0.94 and
    test accuracy > 0.69.
@@ -98,17 +117,18 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a, 3b),
 of GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j), graph classification (3k) and each 3l model, with
+(3i), EdgeConv (3j), graph classification (3k) and each 3l model, and of
+three batches of 3m and of 3n (sampling included), with
 the device time per step of each kernel of :data:`STEP_KERNELS` (K1-K12).
 ``--sweep`` times K1-K12, K14 and its backward at every layout (the
 measurement behind the wrappers' choices; each layout but K14's held to
 the plain version first), K1's gather-rate ceiling at D=128, and K1, K2,
 K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees (``--sweep
-k12,k4,skew`` runs the named sweeps only);
+k12,k4,skew`` runs the named sweeps only; with k1, K1 also at 2g's shapes);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and the train phases 3b, 3d, 3e, 3f and 3l, with ``--profile`` their
-profiles:
+and the train phases 3b, 3d, 3e, 3f, 3l, 3m and 3n, with ``--profile``
+their profiles; ``--only 3m,3n`` runs 2g with them:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
 """
@@ -415,6 +435,36 @@ def log_times(res, width: int) -> None:
                 f"{v['no_reuse_bound_ms']:.4f} ms")
 
 
+def k1_timed_case(res, card, label, paths, args, lib) -> None:
+    """Hold K1 (``spmm_csr`` on ``args``) to its plain version and to
+    ``lib()``, one PyTorch call computing the same function, at RTOL /
+    ATOL; time all three and add the case to ``res["k1"]``. Compulsory
+    bytes: indptr, col, eid (read only with w), w, the source rows and the
+    output once each; with no reuse every edge reads a whole row."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    indptr, col, eid, w_, src = args
+    n_rows, d = indptr.numel() - 1, src.shape[1]
+    n_edges = col.numel() if col is not None else src.shape[0]
+    y = S.spmm_csr(*args)
+    err = compare(f"K1 {label}", y, S.spmm_plain(*args))
+    res["k1"]["err"] = max(res["k1"]["err"], err)
+    read = (col, w_) + ((eid,) if w_ is not None else ())
+    idx = 4 * ((n_rows + 1) + sum(n_edges for t in read if t is not None))
+    byt = idx + 4 * (src.shape[0] + n_rows) * d
+    no_reuse = idx + 4 * (n_edges + n_rows) * d if col is not None else byt
+    b_ms, b_by = bound(byt, (1 if w_ is None else 2) * n_edges * d, card)
+    compare(f"K1 {label} vs library", y, lib())
+    res["k1"]["variants"].append({
+        "case": label, "paths": paths, "d": d,
+        **timings(lambda: S.spmm_csr(*args), lambda: S.spmm_plain(*args),
+                  lib),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "no_reuse_bound_ms": no_reuse / peaks(card)[0] * 1e3,
+        "max_abs_err": err})
+    log(f"  K1 {label}: launched by {paths}")
+
+
 def kernel_phase(gnn, g, card: str) -> dict:
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
@@ -444,30 +494,7 @@ def kernel_phase(gnn, g, card: str) -> dict:
     bw = peaks(card)[0]
 
     def k1_case(label, paths, args, lib):
-        indptr, col, eid, w_, src = args
-        d = src.shape[1]
-        y = S.spmm_csr(*args)
-        ref = S.spmm_plain(*args)
-        err = compare(f"K1 {label}", y, ref)
-        res["k1"]["err"] = max(res["k1"]["err"], err)
-        # compulsory bytes: indptr, col, eid (read only with w), w, the
-        # source rows and the output once each; with no reuse every edge
-        # reads a whole row
-        read = (col, w_) + ((eid,) if w_ is not None else ())
-        idx = 4 * ((N + 1) + sum(E for t in read if t is not None))
-        byt = idx + 4 * (src.shape[0] + N) * d
-        no_reuse = idx + 4 * (E + N) * d if col is not None else byt
-        b_ms, b_by = bound(byt, (1 if w_ is None else 2) * E * d, card)
-        # the library call computes the same function: held to the same
-        # tolerance as the plain version before it is timed
-        compare(f"K1 {label} vs library", y, lib())
-        res["k1"]["variants"].append({
-            "case": label, "paths": paths, "d": d,
-            **timings(lambda: S.spmm_csr(*args), lambda: S.spmm_plain(*args),
-                      lib),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "no_reuse_bound_ms": no_reuse / bw * 1e3, "max_abs_err": err})
-        log(f"  K1 {label}: launched by {paths}")
+        k1_timed_case(res, card, label, paths, args, lib)
 
     # the library yardsticks: torch.sparse.mm over CSR tensors of the
     # receiver grouping and of the sender grouping (values w[eid] in
@@ -1010,6 +1037,42 @@ def _k1_chosen(S, args):
                           src.shape[0], indptr.numel() - 1, n_edges)
 
 
+def k1_layout_sweep(cases) -> list:
+    """K1 at every layout (log2 rows per warp, log2 strip vectors, gathers
+    in flight per edge group, register cap) the width allows, on each
+    ``(label, args)`` of ``cases``, each held to the plain version at RTOL /
+    ATOL before it is timed (device ms). Explicit layouts run from the
+    sweep build."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    rows_out = []
+    for label, args in cases:
+        d = args[-1].shape[1]
+        fv = d // 4 if d % 4 == 0 else d
+        chosen = _k1_chosen(S, args)
+        ref = S.spmm_plain(*args)
+        # strips narrower than the row's G for wide rows only
+        log_g = min((fv - 1).bit_length(), 5)
+        for lay in [(log_rows, strip, unroll, cap)
+                    for strip in ((3, 4, 5) if log_g == 5 else (log_g,))
+                    for log_rows in range(6 - strip)
+                    for unroll in (1, 2, 4, 8) for cap in (0, 64)]:
+            err = compare(f"K1 {label} {lay}",
+                          S._spmm_csr_kernel(*args, layout=lay), ref,
+                          quiet=True)
+            row = {"case": label, "log_rows": lay[0], "log_strip": lay[1],
+                   "unroll": lay[2], "reg_cap": lay[3],
+                   "chosen": lay == chosen,
+                   "max_abs_err": err,
+                   "device_ms": device_ms(
+                       lambda: S._spmm_csr_kernel(*args, layout=lay))}
+            rows_out.append(row)
+            log(f"  K1 {label:<34} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+        del ref
+    return rows_out
+
+
 def k1_sweep(g) -> dict:
     """K1 at every layout (rows per warp, strip width, gathers in flight per
     edge group, register cap) the width allows, at phase 2's shapes that phase
@@ -1031,30 +1094,7 @@ def k1_sweep(g) -> dict:
         "strip vectors, gathers in flight, register cap)")
     cases = _k1_cases(g, 12)
     x = cases[0][1][-1]
-    for label, args in cases:
-        d = args[-1].shape[1]
-        fv = d // 4 if d % 4 == 0 else d
-        chosen = _k1_chosen(S, args)
-        ref = S.spmm_plain(*args)
-        # strips narrower than the row's G for wide rows only
-        log_g = min((fv - 1).bit_length(), 5)
-        for lay in [(log_rows, strip, unroll, cap)
-                    for strip in ((3, 4, 5) if log_g == 5 else (log_g,))
-                    for log_rows in range(6 - strip)
-                    for unroll in (1, 2, 4, 8) for cap in (0, 64)]:
-            err = compare(f"K1 {label} {lay}",
-                          S._spmm_csr_kernel(*args, layout=lay), ref,
-                          quiet=True)
-            row = {"case": label, "log_rows": lay[0], "log_strip": lay[1],
-                   "unroll": lay[2], "reg_cap": lay[3],
-                   "chosen": lay == chosen,
-                   "max_abs_err": err,
-                   "device_ms": device_ms(
-                       lambda: S._spmm_csr_kernel(*args, layout=lay))}
-            out["k1"].append(row)
-            log(f"  K1 {label:<34} {lay} {row['device_ms']:.4f} ms"
-                f"{' (chosen)' * row['chosen']}")
-        del ref
+    out["k1"] = k1_layout_sweep(cases)
     del cases
     # the gather-rate ceiling: K1 over the receiver CSR at D=128 with the
     # senders replaced, at each gathers-in-flight
@@ -2208,8 +2248,9 @@ def train(model, params, step_args, loss_fn, *, steps: int = STEPS,
     return losses, times, launches, opt
 
 
-def expect_counts(name: str, launches: dict, per_step: dict) -> None:
-    want = {k: per_step.get(k, 0) * STEPS for k in launches}
+def expect_counts(name: str, launches: dict, per_step: dict,
+                  steps: int = STEPS) -> None:
+    want = {k: per_step.get(k, 0) * steps for k in launches}
     if launches != want:
         raise AssertionError(f"{name}: expected launches {want}, got "
                              f"{launches}")
@@ -2953,8 +2994,8 @@ STEP_KERNELS = {
 }
 
 
-def op_sites(step, args) -> list:
-    """``(device ms, calls, op, site)`` of one profiled ``step(*args)``: the
+def op_sites(step) -> list:
+    """``(device ms, calls, op, site)`` of one profiled ``step()``: the
     device time of the kernels each outermost aten op launched (the ops
     inside it counted with it), summed by op, first input's shape and call
     site, largest first. The site is the backward function that ran the op
@@ -2968,7 +3009,7 @@ def op_sites(step, args) -> list:
                   with_stack=True, record_shapes=True,
                   experimental_config=torch._C._profiler._ExperimentalConfig(
                       verbose=True)) as prof:
-        step(*args)
+        step()
         torch.cuda.synchronize()
     sums = {}
     for ev in prof.events():
@@ -2995,19 +3036,29 @@ def op_sites(step, args) -> list:
 
 
 def profile_steps(model, args, loss_fn, out_dir, params=None) -> dict:
-    from torch.profiler import ProfilerActivity, profile as tprofile
     from graphneuralnetworks_tpu_torch.training import make_train_step
 
     opt = torch.optim.Adam(model.parameters() if params is None else params,
                            lr=1e-3)
     step = make_train_step(model, opt, loss_fn)
-    step(*args)
+    return profile_calls(lambda: step(*args), out_dir)
+
+
+def profile_calls(step, out_dir) -> dict:
+    """A ``torch.profiler`` breakdown of three calls of ``step()`` (after
+    one unprofiled): wall and device ms per call, the busy share, aten op
+    calls on the host, the time of each kernel of :data:`STEP_KERNELS`, the
+    top kernels and host ops, and the device time by op and call site
+    (:func:`op_sites`, one more call)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    step()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            step(*args)
+            step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof, 3)
@@ -3032,7 +3083,7 @@ def profile_steps(model, args, loss_fn, out_dir, params=None) -> dict:
         f"{key} x{cnt} {ms:.3f} ms" for ms, cnt, key in host[:8]))
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
-    sites = op_sites(step, args)
+    sites = op_sites(step)
     log("    device time by op and call site (one step, nested ops "
         "counted in each): " + "; ".join(
             f"{key} x{cnt} {ms:.3f} ms at {' < '.join(where) or '-'}"
@@ -3045,6 +3096,369 @@ def profile_steps(model, args, loss_fn, out_dir, params=None) -> dict:
                     for ms, c, k in rows[:30]],
             "host_top": [{"self_cpu_ms_per_step": ms, "calls_per_step": c,
                           "name": k} for ms, c, k in host[:30]]}
+
+
+# ---- phases 2g, 3m and 3n: neighbor-sampled GraphSAGE at ogbn scale -------
+
+# bench.py's north star (BASELINE.md: epoch time on ogbn-products, GraphSAGE,
+# neighbor-sampled): its synthetic ogbn-products analog at full size
+# (_sage_graph, bench.py:387-443), GraphSAGE 100 -> 256 -> 256 -> 47, batch
+# 1024, fanouts (15, 10) (_run_sage_epoch, _run_sage_device, :467-717)
+SAGE_N, SAGE_E, SAGE_TRAIN = 2_449_029, 123_718_280, 196_615
+SAGE_D, SAGE_HIDDEN, SAGE_CLASSES = 100, 256, 47
+SAGE_BS, SAGE_FANOUTS = 1024, (15, 10)
+# 3m: warm-up batches, then the measured window (bench.py measures 30);
+# 3n: warm-up, then bench.py's BENCH_SAGE_NB default of 40
+SAGE_WARM, SAGE_WINDOW = 10, 30
+SAGE_DEV_WARM, SAGE_DEV_BATCHES = 5, 40
+# losses averaged at the head and the tail of a run (bench.py:700-702)
+SAGE_LOSS_AVG = 5
+
+
+def sage_data(dev) -> dict:
+    """The north-star graph, its train seeds, features and labels.
+
+    bench.py's synthetic recipe draw for draw: ``s`` uniform and ``r = N *
+    u**2`` (skewed in-degrees) from ``default_rng(0)``, the seeds
+    ``default_rng(1).choice(N, 196_615, replace=False)``. The in-CSR is
+    built on the card (``sampling.in_csr``, a stable sort) and copied to
+    the host for the C++ sampler. X ``[N, 100]`` and y (47 classes) follow
+    bench.py's learnable class-prototype recipe (``_sage_features``), drawn
+    by a seeded generator on the card."""
+    from graphneuralnetworks_tpu_torch.sampling import in_csr
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, SAGE_N, SAGE_E, dtype=np.int32)
+    r = (SAGE_N * rng.random(SAGE_E) ** 2).astype(np.int32)
+    t1 = time.perf_counter()
+    csr_send_t, csr_eid_t, ptr_t = in_csr(torch.from_numpy(s).to(dev),
+                                          torch.from_numpy(r).to(dev), SAGE_N)
+    del s, r
+    csr = tuple(t.cpu().numpy() for t in (csr_send_t, csr_eid_t, ptr_t))
+    del csr_eid_t
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    seeds = np.random.default_rng(1).choice(SAGE_N, SAGE_TRAIN,
+                                            replace=False)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    y = torch.randint(0, SAGE_CLASSES, (SAGE_N,), generator=gen, device=dev)
+    proto = torch.randn(SAGE_CLASSES, SAGE_D, generator=gen, device=dev)
+    X = proto[y] + 0.8 * torch.randn(SAGE_N, SAGE_D, generator=gen,
+                                     device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    deg = np.diff(csr[2])
+    setup = {"draw_s": t1 - t0, "csr_on_card_and_to_host_s": t2 - t1,
+             "features_s": t3 - t2,
+             "in_degree": {"min": int(deg.min()),
+                           "median": float(np.median(deg)),
+                           "max": int(deg.max()),
+                           "zero": int((deg == 0).sum())}}
+    log(f"  sage graph: N={SAGE_N} E={SAGE_E}: numpy draws {t1 - t0:.2f} "
+        f"s, CSR on the card and to the host {t2 - t1:.2f} s, features "
+        f"{t3 - t2:.2f} s; in-degree {setup['in_degree']}")
+    return {"csr": csr, "csr_send_t": csr_send_t, "ptr_t": ptr_t,
+            "seeds": seeds, "X": X, "y": y, "setup": setup}
+
+
+def sage_model(M, dev):
+    gen = torch.Generator().manual_seed(14)
+    torch.manual_seed(14)
+    return M.GNNChain(
+        M.SAGEConv(SAGE_D, SAGE_HIDDEN, torch.relu, generator=gen, device=dev),
+        M.SAGEConv(SAGE_HIDDEN, SAGE_HIDDEN, torch.relu, generator=gen,
+                   device=dev),
+        torch.nn.Linear(SAGE_HIDDEN, SAGE_CLASSES, device=dev))
+
+
+def sage_loss(logits, nid, y):
+    """Softmax cross-entropy over the batch's first ``SAGE_BS`` rows, the
+    seeds (bench.py:672-673)."""
+    return torch.nn.functional.cross_entropy(
+        logits[:SAGE_BS], y.index_select(0, nid[:SAGE_BS]))
+
+
+def sage_kernel_cases(res, card, gm, blocks) -> list:
+    """Phase 2g: K1 at the shapes 3m and 3n give it, held to the plain
+    version and ``torch.sparse.mm`` and timed (:func:`k1_timed_case`). 3n's
+    blocks carry ``edge_valid``, which K1 takes as 0/1 weights: block 0's
+    receiver CSR at D = 100 (16,384 rows of 10 or 15 edges among 169,984),
+    block 1's at D = 256 and its sender CSR at D = 256 (layer 2's
+    backward). 3m's batch graph (unweighted) at D = 100 and 256 forward
+    and 256 backward. Returns ``(label, args)`` per case for the sweep."""
+    dev = (gm or blocks[0]).device
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = []
+
+    def case(label, paths, indptr, col, eid, w, vals, d):
+        n_rows = indptr.numel() - 1
+        x = torch.randn(n_rows, d, generator=gen, device=dev)
+        a = torch.sparse_csr_tensor(indptr, col, vals, (n_rows, n_rows))
+        args = (indptr, col, eid, w, x)
+        k1_timed_case(res, card, label, paths, args,
+                      lambda: torch.sparse.mm(a, x))
+        cases.append((label, args))
+
+    if blocks is not None:
+        b0, b1 = blocks
+        w0, w1 = (b.edge_valid.float() for b in blocks)
+        # a block's sender grouping positions are its edge ids (eid_s None)
+        case("3n block 0 fwd receiver-CSR valid-weighted D=100",
+             "3n SAGE layer 1 fwd (1/step)", b0.indptr_r, b0.col_r, None,
+             w0, w0, SAGE_D)
+        case("3n block 1 fwd receiver-CSR valid-weighted D=256",
+             "3n SAGE layer 2 fwd (1/step)", b1.indptr_r, b1.col_r, None,
+             w1, w1, SAGE_HIDDEN)
+        case("3n block 1 bwd sender-CSR valid-weighted D=256",
+             "3n SAGE layer 2 bwd (1/step)", b1.indptr_s, b1.col_s,
+             b1.eid_s, w1, w1, SAGE_HIDDEN)
+    if gm is not None:
+        ones = torch.ones(gm.num_edges, device=dev)
+        case("3m batch fwd receiver-CSR D=100", "3m SAGE layer 1 fwd "
+             "(1/step)", gm.indptr_r, gm.col_r, None, None, ones, SAGE_D)
+        case("3m batch fwd receiver-CSR D=256", "3m SAGE layer 2 fwd "
+             "(1/step)", gm.indptr_r, gm.col_r, None, None, ones,
+             SAGE_HIDDEN)
+        case("3m batch bwd sender-CSR D=256", "3m SAGE layer 2 bwd "
+             "(1/step)", gm.indptr_s, gm.col_s, gm.eid_s, None, ones,
+             SAGE_HIDDEN)
+    return cases
+
+
+def sage_losses(name, losses) -> tuple[float, float]:
+    """The mean loss of the first and of the last ``SAGE_LOSS_AVG`` steps;
+    raises unless every loss is finite and the tail's is below the
+    head's (the learnable target must train: bench.py:589-590, 715-716)."""
+    lv = [float(v) for v in losses]
+    if not all(np.isfinite(lv)):
+        raise AssertionError(f"{name}: non-finite loss: {lv}")
+    head = sum(lv[:SAGE_LOSS_AVG]) / SAGE_LOSS_AVG
+    tail = sum(lv[-SAGE_LOSS_AVG:]) / SAGE_LOSS_AVG
+    log(f"  loss: head {head:.6f} -> tail {tail:.6f} ({len(lv)} steps: "
+        f"{[round(v, 4) for v in lv]})")
+    if not tail < head:
+        raise AssertionError(f"{name}: loss did not fall: {head} -> {tail}")
+    return head, tail
+
+
+def sage_host_phase(data, loader, dev, profile) -> dict:
+    """3m: ``NeighborLoader`` over the C++ sampler through
+    ``Prefetcher(size=4, workers=1)``, Adam at 1e-3: ``SAGE_WARM`` batches,
+    then a window of ``SAGE_WINDOW`` with the launch counts of exactly its
+    steps (K1 three a step: each conv's forward, layer 2's x-backward;
+    ``X[nid]`` needs no gradient). Losses are read after the window."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.sampling import Prefetcher
+    from graphneuralnetworks_tpu_torch.training import make_train_step
+
+    log(f"phase 3m: GraphSAGE over NeighborLoader + Prefetcher(size=4, "
+        f"workers=1), batch {SAGE_BS}, fanouts {SAGE_FANOUTS}, "
+        f"{SAGE_WARM} warm-up batches and {SAGE_WINDOW} measured")
+    X, y = data["X"], data["y"]
+    model = sage_model(M, dev)
+
+    def loss_fn(m, gb):
+        nid = gb.nodes["NID"]
+        return sage_loss(m(gb, X.index_select(0, nid)), nid, y)
+
+    step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                   lr=1e-3), loss_fn)
+    pf = Prefetcher(loader, size=4, workers=1)
+    batches = iter(pf)
+    losses = [step(next(batches)) for _ in range(SAGE_WARM)]
+    torch.cuda.synchronize()
+    reset_counts()
+    busy0, edges = pf.host_busy_s, 0
+    t0 = time.perf_counter()
+    for _ in range(SAGE_WINDOW):
+        gb = next(batches)
+        edges += gb.num_edges
+        losses.append(step(gb))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = pf.host_busy_s - busy0
+    launches = read_counts()
+    head, tail = sage_losses("3m", losses)
+    expect_counts("3m", launches, {"k1": 3}, steps=SAGE_WINDOW)
+    out = {"ms_per_batch": wall / SAGE_WINDOW * 1e3,
+           "sampled_edges_per_s": edges / wall,
+           "sampler_host_ms_per_batch": busy / SAGE_WINDOW * 1e3,
+           "sampler_util": busy / wall, "window_batches": SAGE_WINDOW,
+           "edges_per_batch": edges / SAGE_WINDOW, "loss_head": head,
+           "loss_tail": tail, "losses": [float(v) for v in losses],
+           "launches": launches,
+           "epoch_s": wall / SAGE_WINDOW * len(loader)}
+    log(f"  3m: {out['ms_per_batch']:.3f} ms/batch (host clock over "
+        f"{SAGE_WINDOW}), {out['sampled_edges_per_s']:.4g} sampled edges/s "
+        f"({out['edges_per_batch']:.0f} a batch), sampler "
+        f"{out['sampler_host_ms_per_batch']:.3f} host-ms/batch, "
+        f"utilisation {out['sampler_util']:.3f}; launches {launches}")
+    if profile:
+        out["profile"] = profile_calls(lambda: step(next(batches)), None)
+    log("phase 3c (3m): one forward+backward of the SAGE model on a 3m "
+        "batch, card vs the CPU plain path")
+    gb = next(batches)
+    nid = gb.nodes["NID"]
+
+    def forward(m, gg, xx, extra):
+        logits = m(gg, xx)[:SAGE_BS]
+        return logits, torch.nn.functional.cross_entropy(
+            logits, gg.nodes["y"][:SAGE_BS])
+
+    # 3c's tolerances hold at these shapes: a weight gradient sums at most
+    # 169,984 per-node terms, so its float32 error by norm is about
+    # eps * log2(N) * sqrt(N) = 6e-8 * 17.4 * 412 ~ 4.3e-4 < 1e-3
+    out["vs_cpu"] = compare_model(
+        "SAGE on a 3m batch", model, gb.with_nodes(y=y.index_select(0, nid)),
+        X.index_select(0, nid), None, forward=forward)
+    return out
+
+
+def sage_device_phase(gnn, data, sampler, dev, profile) -> dict:
+    """3n: ``DeviceSampler.sample_blocks`` and ``apply_blocks`` with a CUDA
+    ``torch.Generator``, Adam at 1e-3: ``SAGE_DEV_WARM`` batches, then
+    ``SAGE_DEV_BATCHES`` measured with their launch counts (K1 three a
+    step, as 3m). Seeds are drawn from the train seeds with replacement
+    (bench.py:565). Then ``sample`` against ``sample_blocks`` on one draw,
+    and the blocks card vs CPU."""
+    from graphneuralnetworks_tpu_torch import models as M
+
+    log(f"phase 3n: GraphSAGE over DeviceSampler.sample_blocks, batch "
+        f"{SAGE_BS}, fanouts {SAGE_FANOUTS}, {SAGE_DEV_WARM} warm-up "
+        f"batches and {SAGE_DEV_BATCHES} measured")
+    X, y = data["X"], data["y"]
+    model = sage_model(M, dev)
+    convs, head = list(model.layers[:2]), model.layers[2]
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    picks = torch.from_numpy(np.random.default_rng(4).choice(
+        data["seeds"], (SAGE_DEV_WARM + SAGE_DEV_BATCHES + 8, SAGE_BS))
+    ).to(dev, torch.int32)
+    picked = iter(picks)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        blocks, nid = sampler.sample_blocks(gen, next(picked))
+        h = gnn.apply_blocks(blocks, convs, X.index_select(0, nid))
+        loss = sage_loss(head(h[:SAGE_BS]), nid, y)
+        loss.backward()
+        opt.step()
+        return loss.detach(), blocks[0].edge_valid.sum()
+
+    losses = [step()[0] for _ in range(SAGE_DEV_WARM)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    counted = [step() for _ in range(SAGE_DEV_BATCHES)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses += [c[0] for c in counted]
+    edges = sum(int(c[1]) for c in counted)
+    head_loss, tail_loss = sage_losses("3n", losses)
+    expect_counts("3n", launches, {"k1": 3}, steps=SAGE_DEV_BATCHES)
+    out = {"ms_per_batch": wall / SAGE_DEV_BATCHES * 1e3,
+           "sampled_edges_per_s": edges / wall,
+           "valid_edges_per_batch": edges / SAGE_DEV_BATCHES,
+           "batches": SAGE_DEV_BATCHES, "loss_head": head_loss,
+           "loss_tail": tail_loss, "losses": [float(v) for v in losses],
+           "launches": launches}
+    log(f"  3n: {out['ms_per_batch']:.3f} ms/batch (host clock over "
+        f"{SAGE_DEV_BATCHES}), {out['sampled_edges_per_s']:.4g} sampled "
+        f"(valid) edges/s ({out['valid_edges_per_batch']:.0f} of "
+        f"{sampler.e_total} a batch); launches {launches}")
+    if profile:
+        out["profile"] = profile_calls(step, None)
+
+    log("phase 3c (3n): sample against sample_blocks on one draw (seed "
+        "rows), then the blocks card vs the CPU plain path")
+    seeds = next(picked)
+    state = gen.get_state()
+    full = sampler.sample(gen, seeds)
+    gen.set_state(state)
+    blocks, nid = sampler.sample_blocks(gen, seeds)
+    e1 = blocks[1].num_edges
+    if not (torch.equal(nid, full.nodes["NID"]) and torch.equal(
+            blocks[1].edge_valid, full.edge_valid[:e1])):
+        raise AssertionError("3n: sample and sample_blocks drew apart")
+    with torch.no_grad():
+        h = X.index_select(0, nid)
+        for c in convs:
+            h = c(full, h)
+        # both float32 on the card: the same sums over other layouts
+        # (rows per warp, GEMM shapes), so rounding only (RTOL / ATOL)
+        out["sample_vs_blocks_err"] = compare(
+            "3n sample vs sample_blocks logits", head(h[:SAGE_BS]),
+            head(gnn.apply_blocks(blocks, convs, X.index_select(0, nid))
+                 [:SAGE_BS]))
+    blocks_cpu = [b.to("cpu") for b in blocks]
+    labels = y.index_select(0, nid[:SAGE_BS])
+
+    def forward(m, gg, xx, extra):
+        on_card = xx.device.type == "cuda"
+        hh = gnn.apply_blocks(blocks if on_card else blocks_cpu,
+                              list(m.layers[:2]), xx)
+        logits = m.layers[2](hh[:SAGE_BS])
+        return logits, torch.nn.functional.cross_entropy(
+            logits, labels if on_card else labels.cpu())
+
+    out["vs_cpu"] = compare_model("SAGE on a 3n block set", model,
+                                  blocks[0], X.index_select(0, nid), None,
+                                  forward=forward)
+    return out
+
+
+def sage_phases(gnn, dev, card, which, profile, sweep) -> tuple:
+    """Phases 2g, 3m and 3n (``which`` of "3m", "3n") on one north-star
+    graph: its set-up, the loader's and the sampler's, then 2g's K1 cases
+    on a 3m batch and a 3n draw (and, with ``sweep``, K1 at every layout
+    there), then 3m and 3n. Returns ``(results, {"k1": 2g's cases})``."""
+    from graphneuralnetworks_tpu_torch.device_sampler import DeviceSampler
+    from graphneuralnetworks_tpu_torch.sampling import NeighborLoader
+
+    log(f"phases 2g, {', '.join(which)}: neighbor-sampled GraphSAGE at "
+        "ogbn-products scale")
+    data = sage_data(dev)
+    res = {"setup": data["setup"]}
+    loader = sampler = gm = blocks = None
+    if "3m" in which:
+        t0 = time.perf_counter()
+        loader = NeighborLoader.from_csr(
+            *data["csr"], num_nodes=SAGE_N,
+            num_neighbors=list(SAGE_FANOUTS), batch_size=SAGE_BS,
+            input_nodes=data["seeds"], minimal_batch=True, seed=2,
+            device=dev)
+        gm = loader.sample_batch(data["seeds"][:SAGE_BS],
+                                 np.random.default_rng(5))
+        torch.cuda.synchronize()
+        res["setup"]["loader_and_first_batch_s"] = time.perf_counter() - t0
+    if "3n" in which:
+        t0 = time.perf_counter()
+        sampler = DeviceSampler.build(data["csr_send_t"], data["ptr_t"],
+                                      fanouts=SAGE_FANOUTS,
+                                      batch_size=SAGE_BS, device=dev)
+        torch.cuda.synchronize()
+        res["setup"]["device_sampler_build_s"] = time.perf_counter() - t0
+        blocks, _ = sampler.sample_blocks(
+            torch.Generator(device=dev).manual_seed(6),
+            torch.from_numpy(data["seeds"][:SAGE_BS]).to(dev))
+    log("  set-up seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in res["setup"].items()
+        if isinstance(v, float)))
+    log("phase 2g: K1 at the shapes of 3m and 3n vs the plain version")
+    kern = {"k1": {"err": 0.0, "variants": []}}
+    cases = sage_kernel_cases(kern, card, gm, blocks)
+    log_times(kern, 50)
+    if sweep:
+        res["k1_sweep"] = k1_layout_sweep(cases)
+    del cases
+    if loader is not None:
+        res["sage_host"] = sage_host_phase(data, loader, dev, profile)
+    if sampler is not None:
+        res["sage_device"] = sage_device_phase(gnn, data, sampler, dev,
+                                               profile)
+    return res, kern
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -3154,8 +3568,9 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f and the "
-                         "train phases 3b, 3d, 3e, 3f and 3l), then stop "
-                         "without a result line")
+                         "train phases 3b, 3d, 3e, 3f, 3l, 3m and 3n; 3m "
+                         "and 3n run last, with 2g), then stop without a "
+                         "result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
                     help="after phase 2, time K1-K12, K14 and its "
@@ -3207,10 +3622,14 @@ def main() -> int:
                      "2e": lambda: sddmm_phase(g, card),
                      "2f": lambda: segment_phase(g, gb, card)}
     kern, only_train = {}, {}
-    for phase in (args.only.split(",") if args.only else kernel_phases):
+    only = args.only.split(",") if args.only else None
+    sage_which = [p for p in ("3m", "3n") if only is None or p in only]
+    for phase in (only if only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
                       "3l": propagation_phase}
+        if phase in sage_which:
+            continue
         if phase in train_only:
             only_train[phase] = train_only[phase](*node_inputs(g),
                                                   args.profile)[0]
@@ -3221,7 +3640,20 @@ def main() -> int:
                          f"{args.sweep}")
     sweep = (tuning_sweep(gnn, g, gb, tuple(args.sweep.split(",")))
              if args.sweep else None)
+
+    def run_sage():
+        """2g, 3m, 3n; 2g's K1 cases join phase 2's."""
+        res, sage_kern = sage_phases(
+            gnn, g.device, card, sage_which, args.profile,
+            bool(args.sweep) and "k1" in args.sweep.split(","))
+        k1 = kern.setdefault("k1", {"err": 0.0, "variants": []})
+        k1["err"] = max(k1["err"], sage_kern["k1"]["err"])
+        k1["variants"] += sage_kern["k1"]["variants"]
+        return res
+
     if args.only:
+        if sage_which:
+            only_train["sage"] = run_sage()
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, "
             f"{args.only} only: no result)")
         if args.out:
@@ -3240,6 +3672,10 @@ def main() -> int:
     main_res["vs_cpu"].update(zoo_res.pop("vs_cpu"))
     main_res["propagation"] = zoo_res
     main_res["tud_batch"] = tud
+    sage = run_sage()
+    for key in ("sage_host", "sage_device"):
+        main_res["vs_cpu"][key] = sage[key].pop("vs_cpu")
+    main_res["sage"] = sage
     cora = cora_phase(g.device)
 
     def entry(key, name, src, line, path, pallas=None):

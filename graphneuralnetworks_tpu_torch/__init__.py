@@ -24,6 +24,12 @@ Attention aggregation (``gnn.ops.gat_attention``,
 ``gnn.ops`` (``reduce_nodes``, ``softmax_nodes``, ...) and pooling on the
 segment-max kernel of ``ops.cuda.segment``. ``gnn.batch`` joins graphs into
 one for graph-level tasks.
+
+Sampled training on large graphs: ``gnn.NeighborLoader`` (the C++ sampler,
+``gnn.native``, built with ``g++`` at first use) yields batches whose
+groupings are built on the card (``gnn.device_graph``), and
+``sampling.Prefetcher`` samples ahead in threads; ``gnn.DeviceSampler``
+samples on the card itself, with ``apply_blocks`` for its per-layer blocks.
 """
 
 import torch
@@ -43,17 +49,25 @@ def resolve_device(device) -> torch.device:
 
 
 from . import ops  # noqa: E402
-from .graph import GraphTuple, graph, from_dense_adjacency  # noqa: E402
+from .graph import (GraphTuple, graph, device_graph,  # noqa: E402
+                    from_dense_adjacency)
 from .generate import rand_graph  # noqa: E402
 from . import query  # noqa: E402
 from .query import *  # noqa: E402,F401,F403
 from .utils import edge_decoding, normalize_graphdata  # noqa: E402
 from .transform import batch  # noqa: E402
 from . import models, training, data, interop, transform  # noqa: E402
+from . import native, sampling, device_sampler  # noqa: E402
+from .sampling import (sample_neighbors, induced_subgraph,  # noqa: E402
+                       NeighborLoader)
+from .device_sampler import DeviceSampler, apply_blocks  # noqa: E402
 
 __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
-           "from_dense_adjacency", "rand_graph", "edge_decoding",
-           "normalize_graphdata", "batch", "models", "training", "data",
-           "interop", "transform", "query"] + query.__all__
+           "device_graph", "from_dense_adjacency", "rand_graph",
+           "edge_decoding", "normalize_graphdata", "batch", "models",
+           "training", "data", "interop", "transform", "query", "native",
+           "sampling", "device_sampler", "sample_neighbors",
+           "induced_subgraph", "NeighborLoader", "DeviceSampler",
+           "apply_blocks"] + query.__all__
 
 __version__ = "0.1.0"

@@ -3,16 +3,30 @@
 Counterpart of ``graphneuralnetworks_tpu/graph.py``. The JAX container pads
 every array to a static capacity because XLA compiles for fixed shapes;
 PyTorch runs eagerly, so here node arrays are ``[num_nodes, ...]`` and edge
-arrays ``[num_edges, ...]``, and ``node_mask``/``edge_mask`` are all True.
+arrays ``[num_edges, ...]``, with no padding: ``node_mask`` is all True, and
+so is ``edge_mask`` unless the graph carries ``edge_valid``.
 
-Edges are stored sorted by receiver (stable), and ``graph()`` builds both
-edge groupings on the host once and moves them to the device:
+``edge_valid`` (``bool[E]``, in edge order, as JAX's field) marks the edges
+that count. ``DeviceSampler`` sets it: its slot graph keeps one structure
+for every batch, and the draws below a node with no in-edges (or past a
+node's degree, without replacement) are invalid slots. ``edge_mask``
+returns it. The sum and mean of ``propagate``'s SpMM route honour it
+(invalid edges weigh 0; mean divides by the count of valid in-edges), and
+so do ``query.degree`` and the layers on those two; every other route that
+reads edges raises on such a graph (:func:`no_edge_valid`).
+
+Edges are stored sorted by receiver (stable). ``graph()`` builds both edge
+groupings on the host once and moves them to the device; ``device_graph()``
+builds the same arrays on the device of its COO tensors (a loader's batch),
+with no copy back to the host:
 
 - by receiver: ``indptr_r`` (``int32[N + 1]``) and ``col_r`` (the senders,
   ``int32[E]``). Because edges are receiver-sorted, a CSR position is the
   edge id.
 - by sender: ``indptr_s``, ``col_s`` (the receivers in sender order) and
-  ``eid_s`` (the edge id of each position), from a stable argsort.
+  ``eid_s`` (the edge id of each position), from a stable argsort; None
+  where the positions are the edge ids (a reversed graph's, the device
+  sampler's slot graphs, whose senders ascend).
 - by graph, when ``node_graph_id`` is non-decreasing (what ``batch``
   produces, and what the JAX package's ``reduce_nodes`` assumes): the
   nodes of graph ``b`` are ``indptr_g[b]:indptr_g[b+1]`` (``int32[G + 1]``)
@@ -44,7 +58,7 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["GraphTuple", "graph", "from_dense_adjacency"]
+__all__ = ["GraphTuple", "graph", "device_graph", "from_dense_adjacency"]
 
 FeatureDict = dict[str, torch.Tensor]
 
@@ -73,6 +87,7 @@ class GraphTuple:
     indptr_g: torch.Tensor | None = None   # int32[G + 1] nodes by graph
     indptr_ge: torch.Tensor | None = None  # int32[G + 1] edges by graph
     eid_r: torch.Tensor | None = None      # int32[E] edge id, receiver order
+    edge_valid: torch.Tensor | None = None  # bool[E] edges that count
 
     @property
     def device(self) -> torch.device:
@@ -86,13 +101,17 @@ class GraphTuple:
         passes it to the segment ops as ``sorted=``."""
         return self.eid_r is None
 
-    # ---- masks (all True: no padding; kept for API parity) -----------------
+    # ---- masks (no padding: all True but for edge_valid) -------------------
     @property
     def node_mask(self) -> torch.Tensor:
         return torch.ones(self.num_nodes, dtype=torch.bool, device=self.device)
 
     @property
     def edge_mask(self) -> torch.Tensor:
+        """``bool[E]``: ``edge_valid`` where the graph has it, else all
+        True (JAX's mask of the real edges ANDed with ``edge_valid``)."""
+        if self.edge_valid is not None:
+            return self.edge_valid
         return torch.ones(self.num_edges, dtype=torch.bool, device=self.device)
 
     @property
@@ -164,6 +183,17 @@ def receiver_positions_are_edge_ids(g: GraphTuple, route: str) -> None:
         raise ValueError(f"{route} reads edge arrays in receiver-CSR order, "
                          "which on a reversed graph (GraphTuple.reverse) is "
                          "not the edge order: it does not take one")
+
+
+def no_edge_valid(g: GraphTuple, route: str) -> None:
+    """Raise ``ValueError`` if ``route``, which does not honour
+    ``edge_valid`` (it would count the invalid edges), is given a graph that
+    carries it."""
+    if g.edge_valid is not None:
+        raise ValueError(f"{route} does not honour edge_valid: it would "
+                         "count the invalid edges of a sampled slot graph "
+                         "(DeviceSampler); only propagate's sum and mean "
+                         "of copy_xj, w_mul_xj and e_mul_xj take one")
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -264,6 +294,75 @@ def graph(senders, receivers, *, num_nodes=None, nodes=None, edges=None,
         edge_weight=edge_weight,
         indptr_g=None if indptr_g is None else dev(indptr_g),
         indptr_ge=None if indptr_ge is None else dev(indptr_ge),
+    )
+
+
+def device_graph(senders: torch.Tensor, receivers: torch.Tensor, *,
+                 num_nodes: int, nodes=None, edges=None,
+                 edge_weight=None) -> GraphTuple:
+    """:func:`graph` of one graph whose COO ``senders[k] -> receivers[k]``
+    are tensors already on their device: the groupings are built there.
+
+    A stable ``torch.sort`` puts the edges in receiver order and a second
+    one groups them by sender; ``torch.searchsorted`` over the sorted keys
+    gives both ``indptr``s. Nothing is read back to the host (no
+    ``bincount``, ``nonzero``, ``.item()`` or range check), so a loader's
+    batch is queued on the card behind the step before it. The arrays equal
+    :func:`graph`'s for the same edges, the stable tie order included. The
+    caller vouches that every id lies in ``[0, num_nodes)``: a sampler's
+    local ids do. ``nodes``, ``edges`` and ``edge_weight`` are tensors, the
+    edge ones in the input edge order.
+    """
+    s = senders.reshape(-1)
+    r = receivers.reshape(-1)
+    if s.shape != r.shape:
+        raise ValueError("senders/receivers length mismatch")
+    nn, ne = int(num_nodes), int(s.numel())
+    if ne > _INT32_MAX or nn > _INT32_MAX:
+        raise ValueError(f"at most {_INT32_MAX} nodes and edges (the edge "
+                         "groupings are int32)")
+    dev = s.device
+    # int32 keys: half the radix passes of int64 ones
+    r_sorted, order = torch.sort(r.int(), stable=True)
+    s_sorted = s.int()[order]
+    s_keys, by_s = torch.sort(s_sorted, stable=True)
+    ids = torch.arange(nn + 1, device=dev, dtype=torch.int32)
+    indptr_r = torch.searchsorted(r_sorted, ids, out_int32=True)
+
+    def in_order(v, what):
+        if v is None:
+            return None
+        if v.shape[0] != ne:
+            raise ValueError(f"{what}: leading dim {v.shape[0]} != {ne}")
+        return v[order]
+
+    def node_feats(feats):
+        for k, v in (feats or {}).items():
+            if v.shape[0] != nn:
+                raise ValueError(f"node feature {k!r}: leading dim "
+                                 f"{v.shape[0]} != {nn}")
+        return dict(feats or {})
+
+    return GraphTuple(
+        senders=s_sorted.long(),
+        receivers=r_sorted.long(),
+        num_nodes=nn,
+        num_edges=ne,
+        num_graphs=1,
+        node_graph_id=torch.zeros(nn, dtype=torch.int64, device=dev),
+        indptr_r=indptr_r,
+        col_r=s_sorted,
+        indptr_s=torch.searchsorted(s_keys, ids, out_int32=True),
+        col_s=r_sorted[by_s],
+        eid_s=by_s.int(),
+        nodes=node_feats(nodes),
+        edges={k: in_order(v, f"edge feature {k!r}")
+               for k, v in (edges or {}).items()},
+        edge_weight=in_order(edge_weight, "edge_weight"),
+        # one graph: [0, N] and [0, E], made on the device (a host tensor
+        # would be a copy)
+        indptr_g=torch.arange(2, device=dev, dtype=torch.int32) * nn,
+        indptr_ge=torch.arange(2, device=dev, dtype=torch.int32) * ne,
     )
 
 

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..graph import GraphTuple
+from ..graph import GraphTuple, no_edge_valid
 from ..ops import (aggregate_neighbors, apply_edges, copy_xj, e_mul_xj,
                    propagate, w_mul_xj)
 from ..ops.attention import (attention_aggregate, dot_attention,
@@ -189,6 +189,7 @@ class GCNConv(GNNLayer):
         """Separate unweighted out/in-degree norms for source and target
         node sets, ``W`` after propagation, no self-loop (GNNlib
         conv.jl:45-70)."""
+        no_edge_valid(g, "GCNConv on a bipartite input")
         xj, xi = _expand_srcdst(x)
         ones = xj.new_ones(g.num_edges)
         cout = segment_sum(ones, g.senders, xj.shape[0])

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from ..graph import GraphTuple
+from ..graph import GraphTuple, no_edge_valid
 from .cuda.edge_softmax import (dot_attention_nodes, edge_softmax_aggregate,
                                 edge_softmax_aggregate_nodes,
                                 gat_attention_nodes, gatv2_attention_nodes,
@@ -72,6 +72,7 @@ def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
     gathered and :func:`attention_aggregate` takes over. ``pj_weight`` is
     accepted for the JAX package's signature and not used.
     """
+    no_edge_valid(g, "gat_attention")
     if _kernel_route(values) and dropout_masks is None:
         return gat_attention_nodes(g, pi, pj, values, slope,
                                    self_logits=self_logits,
@@ -97,6 +98,7 @@ def gatv2_attention(g: GraphTuple, q, k, a, slope: float, *,
     (:func:`~.cuda.edge_softmax.gatv2_attention_nodes`); otherwise they are
     gathered and :func:`attention_aggregate` takes over.
     """
+    no_edge_valid(g, "gatv2_attention")
     if _kernel_route(k) and dropout_masks is None:
         return gatv2_attention_nodes(g, q, k, a, slope,
                                      self_logits=self_logits,
@@ -123,6 +125,7 @@ def dot_attention(g: GraphTuple, q, k, values, scale: float = 1.0, *,
     dimensions flattened into one); otherwise
     :func:`dot_attention_logits` and :func:`attention_aggregate` take over.
     """
+    no_edge_valid(g, "dot_attention")
     if _kernel_route(values):
         shape_h, d = tuple(q.shape[1:-1]), values.shape[-1]
         heads = functools.partial(_flat_heads, h=math.prod(shape_h))
@@ -141,6 +144,7 @@ def dot_attention_logits(g: GraphTuple, qi, kj):
     """Per-edge endpoint dots ``<qi[r_e], kj[s_e]>``: ``[N, *H, O]`` ->
     ``[E, *H]`` (``[N, O]`` -> ``[E]``). On the card, one launch of K13
     for all heads (:func:`~.cuda.sddmm.sddmm`)."""
+    no_edge_valid(g, "dot_attention_logits")
     if _kernel_route(kj):
         return sddmm(g, qi, kj)
     return (gather(qi, g.receivers) * gather(kj, g.senders)).sum(-1)
@@ -164,6 +168,7 @@ def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,
 
     Returns ``[n, *H, D]``.
     """
+    no_edge_valid(g, "attention_aggregate")
     n = num_segments if num_segments is not None else g.num_nodes
     if values.dim() != logits.dim() + 1:
         raise ValueError(f"values {tuple(values.shape)} must have one more "

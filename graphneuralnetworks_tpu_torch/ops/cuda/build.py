@@ -11,6 +11,9 @@ source, all started together. A failed build raises; nothing falls back.
 ``sweep=True`` builds a second library of a source with ``-DGNN_SWEEP``:
 it holds every kernel instance that ``chip_smoke.py --sweep`` times, where
 the first holds only the ones the wrappers choose.
+
+:func:`load_host` builds a host source, ``csrc/<name>.cc`` (the neighbor
+sampler), with ``g++`` into the same directory, by the same digest rule.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "SWEEP_FLAGS", "build", "build_all",
-           "build_logs", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "SWEEP_FLAGS", "HOST_FLAGS", "build",
+           "build_all", "build_logs", "load", "load_host"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -32,8 +35,9 @@ SOURCES = ("spmm", "edge_softmax", "sddmm", "segment")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 SWEEP_FLAGS = ("-DGNN_SWEEP",)
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-_libs: dict[tuple[str, bool], ctypes.CDLL] = {}
+_libs: dict[tuple[str, bool | str], ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
 
 
@@ -111,4 +115,36 @@ def load(name: str, sweep: bool = False) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build(name, sweep=sweep)[name]))
         _libs[name, sweep] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cc``, compiled
+    with ``g++`` (:data:`HOST_FLAGS`) into ``build/<name>-<digest>.so``
+    first if needed. Raises ``RuntimeError`` with the compiler's output
+    when the build fails; nothing falls back."""
+    lib = _libs.get((name, "host"))
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cc"
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(HOST_FLAGS).encode()).hexdigest()
+    path = BUILD_DIR / f"{name}-{digest[:16]}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"g++ not found: {src.name} is built from "
+                               "source at first use")
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        _logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed for {src.name} (exit "
+                               f"{proc.returncode}):\n{_logs[name]}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _libs[name, "host"] = lib
     return lib

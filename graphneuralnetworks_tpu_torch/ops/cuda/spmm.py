@@ -396,11 +396,16 @@ def spmm(g, x, *, edge_weight=None, weighted: bool = False):
 
     ``edge_weight`` (one per edge, in the graph's edge order) or, with
     ``weighted=True``, the graph's own ``edge_weight`` scales each message;
-    with neither the product is unweighted.
+    with neither the product is unweighted. On a graph with ``edge_valid``
+    an invalid edge weighs 0 (JAX folds ``edge_mask`` into the weights the
+    same way), so K1 runs weighted; the 0/1 weights need no gradient.
     """
     w = None
     if edge_weight is not None or weighted:
         w = edge_weight if edge_weight is not None else g.edge_weight
+    if g.edge_valid is not None:
+        w = (g.edge_valid.to(x.dtype) if w is None
+             else torch.where(g.edge_valid, w, torch.zeros_like(w)))
     if w is not None:
         w = w.to(x.dtype)
     return SpmmFunction.apply(x, w, g.indptr_r, g.col_r, g.indptr_s,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..graph import GraphTuple
+from ..graph import GraphTuple, no_edge_valid
 from .msgpass import _receiver_csr
 from .segment import gather, is_extreme, segment_reduce, segment_softmax
 
@@ -53,6 +53,7 @@ def reduce_nodes(aggr, g: GraphTuple, x: torch.Tensor) -> torch.Tensor:
 
 def reduce_edges(aggr, g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
     """Per-graph reduction of edge features (utils.jl:33-42)."""
+    no_edge_valid(g, "reduce_edges")
     indptr = _graph_csr(g, g.indptr_ge, e) if is_extreme(aggr) else None
     return segment_reduce(aggr, e, edge_graph_id(g), g.num_graphs,
                           indptr=indptr)
@@ -66,6 +67,7 @@ def softmax_nodes(g: GraphTuple, x: torch.Tensor) -> torch.Tensor:
 
 def softmax_edges(g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
     """Graph-wise softmax over edges (utils.jl:63-72)."""
+    no_edge_valid(g, "softmax_edges")
     return segment_softmax(e, edge_graph_id(g), g.num_graphs,
                            indptr=_graph_csr(g, g.indptr_ge, e))
 
@@ -74,6 +76,7 @@ def softmax_edge_neighbors(g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
     """Softmax over each node's incoming edges, the attention primitive
     (utils.jl:84-97): max-subtracted for stability. Its max step is K14 over
     the receiver CSR on the card, so a reversed graph raises there."""
+    no_edge_valid(g, "softmax_edge_neighbors")
     indptr = _receiver_csr(g, g.num_nodes, e, "softmax_edge_neighbors on "
                            "the card (K14)")
     return segment_softmax(e, g.receivers, g.num_nodes, indptr=indptr)

@@ -17,6 +17,11 @@ GNNlib msgpass.jl:69-238), with the same message vocabulary.
   mean) of ``copy_xj`` / ``w_mul_xj`` / ``e_mul_xj`` messages with scalar
   edge weights is one SpMM (:func:`~.cuda.spmm`); mean is that sum divided
   by the true in-degree, at every graph size.
+
+On a graph with ``edge_valid`` (``DeviceSampler``'s) that SpMM route is the
+one that honours it: an invalid edge weighs 0 and mean divides by the
+count of valid in-edges. ``apply_edges`` and ``aggregate_neighbors`` raise
+on such a graph (their messages and reductions would count every edge).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from typing import Callable, Mapping
 
 import torch
 
-from ..graph import GraphTuple, receiver_positions_are_edge_ids
+from ..graph import (GraphTuple, no_edge_valid,
+                     receiver_positions_are_edge_ids)
 from . import segment
 from .cuda.edge_softmax import _rows
 from .cuda.gather import fast_gather
@@ -69,6 +75,7 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
     ``e`` an edge tensor ``[num_edges, ...]`` (or dict); returns whatever
     ``f`` returns on edge-shaped inputs.
     """
+    no_edge_valid(g, "apply_edges")
     if _sddmm_message(f, g, xi, xj, e):
         return sddmm(g, xi, xj)[:, None]
 
@@ -103,6 +110,7 @@ def _receiver_csr(g: GraphTuple, n: int, v: torch.Tensor, route: str):
 def aggregate_neighbors(g: GraphTuple, aggr, m, *, num_segments=None):
     """Reduce edge messages onto receiving nodes; ``mean`` divides by the
     true in-degree and empty segments give 0."""
+    no_edge_valid(g, f"aggregate_neighbors({aggr!r})")
     n = num_segments if num_segments is not None else g.num_nodes
 
     def reduce(v):
@@ -125,6 +133,19 @@ def _spmm_message(f, g, xj, e):
     return None
 
 
+def _in_degree(g: GraphTuple) -> torch.Tensor:
+    """Each node's count of in-edges that count: ``diff(indptr_r)``, or with
+    ``edge_valid`` the valid ones, as the difference of a running count of
+    the validity in receiver-CSR order at each row's ends (no read back to
+    the host, unlike a ``bincount``)."""
+    if g.edge_valid is None:
+        return torch.diff(g.indptr_r)
+    v = g.edge_valid if g.eid_r is None else g.edge_valid[g.eid_r.long()]
+    c = torch.cat([v.new_zeros(1, dtype=torch.int64), torch.cumsum(v, 0)])
+    ip = g.indptr_r.long()
+    return c[ip[1:]] - c[ip[:-1]]
+
+
 def propagate(f: Callable, g: GraphTuple, aggr, *, xi=None, xj=None, e=None):
     """``aggregate_neighbors(g, aggr, apply_edges(f, g, xi, xj, e))``, with
     the SpMM fast path described in the module docstring."""
@@ -133,7 +154,7 @@ def propagate(f: Callable, g: GraphTuple, aggr, *, xi=None, xj=None, e=None):
         y = _spmm_message(f, g, xj, e)
         if y is not None:
             if aggr == "mean":
-                deg = torch.diff(g.indptr_r).to(y.dtype).clamp(min=1)
+                deg = _in_degree(g).to(y.dtype).clamp(min=1)
                 y = y / deg[:, None]
             return y
     if f is w_mul_xj and e is None:

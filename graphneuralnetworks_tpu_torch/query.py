@@ -9,19 +9,22 @@ and ``[num_graphs]``. Gradients reach edge weights through ``degree`` and
 An unweighted degree is a difference of CSR offsets; a weighted one is a
 segment sum of the weights. The dense queries (adjacency, Laplacians,
 ``khop_adj``) are for small graphs: they refuse the graph sizes the JAX
-package refuses (:func:`_check_dense`). The power iterations behind
-``laplacian_lambda_max`` and ``scaled_laplacian`` start from a vector drawn
-by a ``torch.Generator`` seeded 20240607 on the CPU in float64
-(:func:`start_vector`): the same vector on every device, but not the bits of
-JAX's ``jax.random.key(20240607)`` draw, so the two packages agree on
-``λ_max`` to the iteration's convergence, not to rounding.
+package refuses (:func:`_check_dense`). ``degree`` and
+``adjacency_matrix`` (and the queries on them) count only the valid edges
+of a graph with ``edge_valid``, as JAX's do through ``edge_mask``; the
+structural queries on the edge list raise on one. The power iterations
+behind ``laplacian_lambda_max`` and ``scaled_laplacian`` start from a
+vector drawn by a ``torch.Generator`` seeded 20240607 on the CPU in
+float64 (:func:`start_vector`): the same vector on every device, but not
+the bits of JAX's ``jax.random.key(20240607)`` draw, so the two packages
+agree on ``λ_max`` to the iteration's convergence, not to rounding.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .graph import GraphTuple
+from .graph import GraphTuple, no_edge_valid
 from .ops.segment import gather, segment_sum
 
 __all__ = ["degree", "adjacency_matrix", "laplacian_matrix",
@@ -55,6 +58,9 @@ def degree(g: GraphTuple, *, dir: str = "out", edge_weight=None,
         ew = None
     else:
         ew = edge_weight
+    if g.edge_valid is not None:
+        ew = (g.edge_valid.to(dtype) if ew is None
+              else torch.where(g.edge_valid, ew, torch.zeros_like(ew)))
     out = 0
     for side, indptr, idx in (("out", g.indptr_s, g.senders),
                               ("in", g.indptr_r, g.receivers)):
@@ -97,6 +103,8 @@ def adjacency_matrix(g: GraphTuple, *, dtype=torch.float32,
     n = g.num_nodes
     w = (g.edge_weight.to(dtype) if weighted and g.edge_weight is not None
          else torch.ones(g.num_edges, dtype=dtype, device=g.device))
+    if g.edge_valid is not None:
+        w = torch.where(g.edge_valid, w, torch.zeros_like(w))
     return torch.zeros((n, n), dtype=dtype, device=g.device).index_put(
         (g.senders, g.receivers), w, accumulate=True)
 
@@ -194,6 +202,7 @@ def graph_indicator(g: GraphTuple, *, edges: bool = False) -> torch.Tensor:
 
 def has_self_loops(g: GraphTuple) -> torch.Tensor:
     """Any edge with ``s == r`` (query.jl:553-560)."""
+    no_edge_valid(g, "has_self_loops")
     return (g.senders == g.receivers).any()
 
 
@@ -203,6 +212,7 @@ def _edge_keys(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
 
 def has_multi_edges(g: GraphTuple) -> torch.Tensor:
     """Any ``(s, r)`` pair that appears twice (query.jl:562-568)."""
+    no_edge_valid(g, "has_multi_edges")
     k = _edge_keys(g.senders, g.receivers, g.num_nodes)
     return (k[1:] == k[:-1]).any()
 
@@ -211,6 +221,7 @@ def is_bidirected(g: GraphTuple) -> torch.Tensor:
     """Every edge has its reverse (query.jl:570-579): the set of ``(s, r)``
     pairs equals that of ``(r, s)``. The JAX package compares the dense
     adjacency's support with its transpose; this needs no dense matrix."""
+    no_edge_valid(g, "is_bidirected")
     n = g.num_nodes
     a = torch.unique(_edge_keys(g.senders, g.receivers, n))
     b = torch.unique(_edge_keys(g.receivers, g.senders, n))
@@ -219,6 +230,7 @@ def is_bidirected(g: GraphTuple) -> torch.Tensor:
 
 def has_edge(g: GraphTuple, i: int, j: int) -> torch.Tensor:
     """Whether the edge ``i -> j`` exists (Graphs.has_edge)."""
+    no_edge_valid(g, "has_edge")
     return ((g.senders == i) & (g.receivers == j)).any()
 
 
@@ -271,6 +283,7 @@ def graph_features(g: GraphTuple):
 def adjacency_list(g: GraphTuple, *, dir: str = "out") -> list[list[int]]:
     """Each node's out-neighbours (``dir="out"``) or in-neighbours, in edge
     order (query.jl:176-206). Reads the edges to the host."""
+    no_edge_valid(g, "adjacency_list")
     s = g.senders.cpu().numpy()
     r = g.receivers.cpu().numpy()
     a, b = (s, r) if dir == "out" else (r, s)

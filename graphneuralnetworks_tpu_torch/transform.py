@@ -14,7 +14,7 @@ from typing import Sequence
 
 import numpy as np
 
-from .graph import GraphTuple, graph
+from .graph import GraphTuple, graph, no_edge_valid
 
 __all__ = ["batch"]
 
@@ -43,6 +43,8 @@ def batch(graphs: Sequence[GraphTuple], *, device=None) -> GraphTuple:
     ``device=None`` places the batch on the CUDA card."""
     if not graphs:
         raise ValueError("batch needs at least one graph")
+    for g in graphs:
+        no_edge_valid(g, "batch")
     sizes_n = [g.num_nodes for g in graphs]
     sizes_e = [g.num_edges for g in graphs]
     off = np.cumsum([0] + sizes_n)
