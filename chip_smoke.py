@@ -327,6 +327,59 @@ def device_ms(fn, calls: int = 20, retries: int = 3) -> float:
     return sum(ms / n * max(1, round(n / calls)) for ms, n, _ in rows)
 
 
+# more than twice the H100's 50 MB L2: a write of this many bytes leaves
+# nothing of an earlier call's inputs there
+L2_FLUSH_BYTES = 128 << 20
+
+
+def cold_device_ms(fn, pats, calls: int = 20, retries: int = 3) -> float:
+    """The device time per call of the kernels of ``fn`` whose names hold
+    one of ``pats``, when every call follows a write of
+    :data:`L2_FLUSH_BYTES`: what the kernel takes when its inputs come from
+    HBM, as in a step whose other work has evicted them (back-to-back calls
+    on inputs smaller than L2 find them there). The flush's own kernel is
+    not counted. As in :func:`device_ms`, each kernel's mean time counts
+    once per launch a call makes, so a record the profiler loses does not
+    shrink the sum."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    buf = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(m / n * max(1, round(n / calls))
+             for m, n, key in device_rows(prof)
+             if any(p in key for p in pats))
+    if ms == 0:
+        if retries:   # the profiler now and then returns no kernel records
+            return cold_device_ms(fn, pats, calls, retries - 1)
+        raise AssertionError("the profiler saw no device time")
+    return ms
+
+
+def launch_ms(prof, pats, steps: int) -> list:
+    """Per launch of the kernels whose names hold one of ``pats``, in launch
+    order within a step, its device time in ms: the median over ``steps``
+    profiled steps of the launch at that position ([] when the profiler
+    kept no such record or the launches do not split evenly by step; a
+    caller checks the length against the launches it expects, since a
+    lost record shifts the positions)."""
+    evs = sorted((e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and any(p in e.name for p in pats)),
+                 key=lambda e: e.time_range.start)
+    if not evs or len(evs) % steps:
+        return []
+    per = len(evs) // steps
+    return [statistics.median(evs[s * per + i].time_range.elapsed_us() / 1e3
+                              for s in range(steps)) for i in range(per)]
+
+
 def host_us(fn, *, batches: int = 10, calls: int = 100) -> float:
     """The host's time per call, in µs: the least over ``batches`` of
     ``calls`` back-to-back calls on the host clock with no synchronise among
@@ -430,17 +483,33 @@ def log_times(res, width: int) -> None:
                 f"kernel={v['ms']:.4f} ms device={v['device_ms']:.4f} ms "
                 f"host={v['host_us']:.1f} us plain={fmt_ms(v['plain_ms'])} "
                 f"library={fmt_ms(v['library_ms'])} (device "
-                f"{fmt_ms(v['library_device_ms'])}) bound="
+                f"{fmt_ms(v['library_device_ms'])})"
+                + (f" L2-flushed device={v['cold_device_ms']:.4f} ms"
+                   if "cold_device_ms" in v else "") + " bound="
                 f"{v['bound_ms']:.4f} ms ({v['bound_by']}) no-reuse bound="
                 f"{v['no_reuse_bound_ms']:.4f} ms")
+
+
+def k1_source_rows(col, eid, w_, n_src: int) -> int:
+    """The rows of K1's source table that its function reads: those that an
+    edge of nonzero weight references (``w[eid[k]]``; every edge when
+    unweighted), or every row when ``col`` is None."""
+    if col is None:
+        return n_src
+    if w_ is not None:
+        we = w_ if eid is None else w_.index_select(0, eid.long())
+        col = col[we != 0]
+    return int(torch.unique(col).numel())
 
 
 def k1_timed_case(res, card, label, paths, args, lib) -> None:
     """Hold K1 (``spmm_csr`` on ``args``) to its plain version and to
     ``lib()``, one PyTorch call computing the same function, at RTOL /
-    ATOL; time all three and add the case to ``res["k1"]``. Compulsory
-    bytes: indptr, col, eid (read only with w), w, the source rows and the
-    output once each; with no reuse every edge reads a whole row."""
+    ATOL; time all three and add the case to ``res["k1"]``, with K1's
+    device time when each call follows an L2 flush (:func:`cold_device_ms`).
+    Compulsory bytes: indptr, col, eid (read only with w), w, the output
+    and the source rows that the function reads (:func:`k1_source_rows`)
+    once each; with no reuse every edge reads a whole row."""
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
     indptr, col, eid, w_, src = args
@@ -451,18 +520,22 @@ def k1_timed_case(res, card, label, paths, args, lib) -> None:
     res["k1"]["err"] = max(res["k1"]["err"], err)
     read = (col, w_) + ((eid,) if w_ is not None else ())
     idx = 4 * ((n_rows + 1) + sum(n_edges for t in read if t is not None))
-    byt = idx + 4 * (src.shape[0] + n_rows) * d
+    src_rows = k1_source_rows(col, eid, w_, src.shape[0])
+    byt = idx + 4 * (src_rows + n_rows) * d
     no_reuse = idx + 4 * (n_edges + n_rows) * d if col is not None else byt
     b_ms, b_by = bound(byt, (1 if w_ is None else 2) * n_edges * d, card)
     compare(f"K1 {label} vs library", y, lib())
     res["k1"]["variants"].append({
-        "case": label, "paths": paths, "d": d,
+        "case": label, "paths": paths, "d": d, "source_rows": src_rows,
         **timings(lambda: S.spmm_csr(*args), lambda: S.spmm_plain(*args),
                   lib),
+        "cold_device_ms": cold_device_ms(lambda: S.spmm_csr(*args),
+                                         STEP_KERNELS["k1"]),
         "bound_ms": b_ms, "bound_by": b_by,
         "no_reuse_bound_ms": no_reuse / peaks(card)[0] * 1e3,
         "max_abs_err": err})
-    log(f"  K1 {label}: launched by {paths}")
+    log(f"  K1 {label}: launched by {paths}; reads {src_rows} of "
+        f"{src.shape[0]} source rows")
 
 
 def kernel_phase(gnn, g, card: str) -> dict:
@@ -3072,11 +3145,15 @@ def profile_calls(step, out_dir) -> dict:
                       if any(p in key for p in pats))
                for k, pats in STEP_KERNELS.items()}
     kernels = {k: v for k, v in kernels.items() if v > 0}
+    launches = {k: launch_ms(prof, STEP_KERNELS[k], 3) for k in kernels}
     log(f"  profile (3 steps): wall {wall / 3:.3f} ms/step, device busy "
         f"{busy:.3f} ms/step ({100 * busy / (wall / 3):.1f}%), "
         f"{n_ops} aten op calls/step on the host (nested counted); "
         + ", ".join(f"{k.upper()} {v:.4f} ms/step ({100 * v / busy:.1f}%)"
                     for k, v in kernels.items()))
+    for k, v in launches.items():
+        log(f"    {k.upper()} per launch, in step order: "
+            + ", ".join(f"{ms:.4f}" for ms in v) + " ms")
     for ms, cnt, key in rows[:20]:
         log(f"    {ms:9.4f} ms/step  x{cnt:<4} {key[:90]}")
     log("    host self time (profiled), top aten ops: " + ", ".join(
@@ -3090,6 +3167,7 @@ def profile_calls(step, out_dir) -> dict:
             for ms, cnt, key, where in sites[:12]))
     return {"wall_ms_per_step": wall / 3, "device_ms_per_step": busy,
             "aten_ops_per_step": n_ops, "kernel_ms_per_step": kernels,
+            "kernel_ms_per_launch": launches,
             "sites": [{"ms": ms, "calls": c, "op": k, "at": w}
                       for ms, c, k, w in sites[:30]],
             "top": [{"ms_per_step": ms, "calls_per_step": c, "name": k}
@@ -3458,7 +3536,38 @@ def sage_phases(gnn, dev, card, which, profile, sweep) -> tuple:
     if sampler is not None:
         res["sage_device"] = sage_device_phase(gnn, data, sampler, dev,
                                                profile)
+    if profile:
+        k1_in_step(res, kern)
     return res, kern
+
+
+def k1_in_step(res, kern) -> None:
+    """K1's device time per launch inside a 3m and a 3n step (their
+    profiles: layer 1's forward, layer 2's forward, layer 2's backward)
+    beside 2g's case of the same shape, its bound and its L2-flushed
+    time: the kernel as the step runs it, its inputs evicted or not by the
+    work around it."""
+    for key, tag in (("sage_host", "3m"), ("sage_device", "3n")):
+        prof = res.get(key, {}).get("profile")
+        if not prof:
+            continue
+        cases = [v for v in kern["k1"]["variants"]
+                 if v["case"].startswith(tag)]
+        per_launch = prof["kernel_ms_per_launch"].get("k1", [])
+        if len(per_launch) != len(cases):
+            log(f"  K1 in the {tag} step: not measured (the profiler kept "
+                f"{len(per_launch)} positions of {len(cases)})")
+            continue
+        rows = [{"case": v["case"], "in_step_ms": ms,
+                 "cold_device_ms": v["cold_device_ms"],
+                 "device_ms": v["device_ms"], "bound_ms": v["bound_ms"]}
+                for v, ms in zip(cases, per_launch)]
+        res[key]["k1_in_step"] = rows
+        for r in rows:
+            log(f"  K1 in the {tag} step: {r['case']}: {r['in_step_ms']:.4f}"
+                f" ms (2g: L2-flushed {r['cold_device_ms']:.4f} ms, "
+                f"back-to-back {r['device_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms)")
 
 
 # ---- phase 4 ---------------------------------------------------------------

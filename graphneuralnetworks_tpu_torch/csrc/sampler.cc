@@ -7,8 +7,9 @@
 // Julia; here the layered fixed-fanout expansion is a C++ hot loop
 // (epoch-stamped node dedup + xorshift RNG) feeding the host->device batch
 // pipeline. Built with g++ as a plain shared library into the repository's
-// build/ (ops/cuda/build.py:load_host) and bound via ctypes, which releases
-// the GIL for the call: Prefetcher threads sample while the step runs.
+// build/ (ops/cuda/build.py:load with host=True) and bound via ctypes, which
+// releases the GIL for the call: Prefetcher threads sample while the step
+// runs.
 
 #include <algorithm>
 #include <cstdint>

@@ -220,9 +220,29 @@ def _feats(feats, n: int, what: str, device, order=None) -> FeatureDict:
     return out
 
 
-def _indptr(keys: np.ndarray, n: int) -> np.ndarray:
-    counts = np.bincount(keys, minlength=n)
-    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+def group_by(keys: torch.Tensor, n: int):
+    """Group the positions of ``keys`` (ids in ``[0, n)``) by id, on the
+    keys' device: ``(sorted keys, order, indptr)``, int32 but ``order``
+    (int64), from a stable ``torch.sort`` (ties keep their position order)
+    and ``torch.searchsorted`` over the sorted keys. Nothing is read back
+    to the host (no ``bincount`` or ``nonzero``). Every edge grouping of the
+    package is built here."""
+    # int32 keys: half the radix passes of int64 ones on the card
+    k_sorted, order = torch.sort(keys.int(), stable=True)
+    ids = torch.arange(int(n) + 1, device=keys.device, dtype=torch.int32)
+    return k_sorted, order, torch.searchsorted(k_sorted, ids, out_int32=True)
+
+
+def _groupings(s: torch.Tensor, r: torch.Tensor, nn: int):
+    """Both edge groupings of COO ``s -> r``: ``order`` (receiver order of
+    the input edges) and the senders, receivers, ``indptr_r``, ``col_r``,
+    ``indptr_s``, ``col_s`` and ``eid_s`` fields of a GraphTuple."""
+    r_sorted, order, indptr_r = group_by(r, nn)
+    s_sorted = s.int()[order]
+    _, by_s, indptr_s = group_by(s_sorted, nn)
+    return order, dict(senders=s_sorted.long(), receivers=r_sorted.long(),
+                       indptr_r=indptr_r, col_r=s_sorted, indptr_s=indptr_s,
+                       col_s=r_sorted[by_s], eid_s=by_s.int())
 
 
 def graph(senders, receivers, *, num_nodes=None, nodes=None, edges=None,
@@ -234,8 +254,8 @@ def graph(senders, receivers, *, num_nodes=None, nodes=None, edges=None,
     per node/edge/graph. ``device=None`` places the graph on the CUDA card.
     """
     device = resolve_device(device)
-    s = np.asarray(senders, dtype=np.int64).reshape(-1)
-    r = np.asarray(receivers, dtype=np.int64).reshape(-1)
+    s = np.ascontiguousarray(senders, dtype=np.int64).reshape(-1)
+    r = np.ascontiguousarray(receivers, dtype=np.int64).reshape(-1)
     if s.shape != r.shape:
         raise ValueError("senders/receivers length mismatch")
     ne = int(s.shape[0])
@@ -248,16 +268,14 @@ def graph(senders, receivers, *, num_nodes=None, nodes=None, edges=None,
         raise ValueError(f"at most {_INT32_MAX} nodes and edges (the edge "
                          "groupings are int32)")
 
-    order = np.argsort(r, kind="stable")
-    s, r = s[order], r[order]
-    order_t = torch.from_numpy(order)
+    order, groups = _groupings(torch.from_numpy(s).to(device),
+                               torch.from_numpy(r).to(device), nn)
     if edge_weight is not None:
         edge_weight = _tensor(edge_weight, device).reshape(-1)
         if edge_weight.shape[0] != ne:
             raise ValueError("edge_weight length mismatch")
-        edge_weight = edge_weight[order_t.to(device)]
+        edge_weight = edge_weight[order]
 
-    by_s = np.argsort(s, kind="stable")
     ng = int(num_graphs)
     if node_graph_id is None:
         gid_np = np.zeros(nn, np.int64)
@@ -266,34 +284,25 @@ def graph(senders, receivers, *, num_nodes=None, nodes=None, edges=None,
             node_graph_id, torch.Tensor) else node_graph_id).astype(np.int64)
         if gid_np.shape != (nn,):
             raise ValueError("node_graph_id length mismatch")
-    indptr_r = _indptr(r, nn)
+    gid = torch.from_numpy(gid_np).to(device)
     indptr_g = indptr_ge = None
     if (np.all(gid_np[1:] >= gid_np[:-1])
             and (nn == 0 or (gid_np[0] >= 0 and gid_np[-1] < ng))):
-        indptr_g = _indptr(gid_np, ng)
-        indptr_ge = indptr_r[indptr_g]
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        indptr_g = group_by(gid, ng)[2]
+        indptr_ge = groups["indptr_r"][indptr_g]
 
     return GraphTuple(
-        senders=dev(s),
-        receivers=dev(r),
         num_nodes=nn,
         num_edges=ne,
         num_graphs=ng,
-        node_graph_id=dev(gid_np),
-        indptr_r=dev(indptr_r),
-        col_r=dev(s.astype(np.int32)),
-        indptr_s=dev(_indptr(s, nn)),
-        col_s=dev(r[by_s].astype(np.int32)),
-        eid_s=dev(by_s.astype(np.int32)),
+        node_graph_id=gid,
+        **groups,
         nodes=_feats(nodes, nn, "node", device),
-        edges=_feats(edges, ne, "edge", device, order_t),
+        edges=_feats(edges, ne, "edge", device, order),
         globals_=_feats(globals_, ng, "global", device),
         edge_weight=edge_weight,
-        indptr_g=None if indptr_g is None else dev(indptr_g),
-        indptr_ge=None if indptr_ge is None else dev(indptr_ge),
+        indptr_g=indptr_g,
+        indptr_ge=indptr_ge,
     )
 
 
@@ -303,15 +312,12 @@ def device_graph(senders: torch.Tensor, receivers: torch.Tensor, *,
     """:func:`graph` of one graph whose COO ``senders[k] -> receivers[k]``
     are tensors already on their device: the groupings are built there.
 
-    A stable ``torch.sort`` puts the edges in receiver order and a second
-    one groups them by sender; ``torch.searchsorted`` over the sorted keys
-    gives both ``indptr``s. Nothing is read back to the host (no
-    ``bincount``, ``nonzero``, ``.item()`` or range check), so a loader's
-    batch is queued on the card behind the step before it. The arrays equal
-    :func:`graph`'s for the same edges, the stable tie order included. The
-    caller vouches that every id lies in ``[0, num_nodes)``: a sampler's
-    local ids do. ``nodes``, ``edges`` and ``edge_weight`` are tensors, the
-    edge ones in the input edge order.
+    The groupings are :func:`graph`'s (:func:`group_by` by receiver, then
+    by sender). Nothing is read back to the host (no ``.item()`` or range
+    check), so a loader's batch is queued on the card behind the step
+    before it. The caller vouches that every id lies in ``[0, num_nodes)``:
+    a sampler's local ids do. ``nodes``, ``edges`` and ``edge_weight`` are
+    tensors, the edge ones in the input edge order.
     """
     s = senders.reshape(-1)
     r = receivers.reshape(-1)
@@ -322,12 +328,7 @@ def device_graph(senders: torch.Tensor, receivers: torch.Tensor, *,
         raise ValueError(f"at most {_INT32_MAX} nodes and edges (the edge "
                          "groupings are int32)")
     dev = s.device
-    # int32 keys: half the radix passes of int64 ones
-    r_sorted, order = torch.sort(r.int(), stable=True)
-    s_sorted = s.int()[order]
-    s_keys, by_s = torch.sort(s_sorted, stable=True)
-    ids = torch.arange(nn + 1, device=dev, dtype=torch.int32)
-    indptr_r = torch.searchsorted(r_sorted, ids, out_int32=True)
+    order, groups = _groupings(s, r, nn)
 
     def in_order(v, what):
         if v is None:
@@ -344,17 +345,11 @@ def device_graph(senders: torch.Tensor, receivers: torch.Tensor, *,
         return dict(feats or {})
 
     return GraphTuple(
-        senders=s_sorted.long(),
-        receivers=r_sorted.long(),
         num_nodes=nn,
         num_edges=ne,
         num_graphs=1,
         node_graph_id=torch.zeros(nn, dtype=torch.int64, device=dev),
-        indptr_r=indptr_r,
-        col_r=s_sorted,
-        indptr_s=torch.searchsorted(s_keys, ids, out_int32=True),
-        col_s=r_sorted[by_s],
-        eid_s=by_s.int(),
+        **groups,
         nodes=node_feats(nodes),
         edges={k: in_order(v, f"edge feature {k!r}")
                for k, v in (edges or {}).items()},

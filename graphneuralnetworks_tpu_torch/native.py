@@ -2,7 +2,7 @@
 
 Counterpart of ``graphneuralnetworks_tpu/native``: the same source, built
 with ``g++`` into the repository's ``build/`` at first use
-(``ops/cuda/build.py:load_host``), never into a package directory. The
+(``ops/cuda/build.py:load(..., host=True)``), never into a package directory. The
 xorshift RNG lives in the C++, so for one seed the two packages' batches
 are the same bits. ctypes releases the GIL for the call, so ``Prefetcher``
 threads sample while the step runs.
@@ -24,9 +24,9 @@ __all__ = ["sample_layers", "available"]
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    from .ops.cuda.build import load_host
+    from .ops.cuda.build import load
 
-    lib = load_host("sampler")
+    lib = load("sampler", host=True)
     fn = lib.gnn_sample_layers
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)

@@ -12,8 +12,9 @@ source, all started together. A failed build raises; nothing falls back.
 it holds every kernel instance that ``chip_smoke.py --sweep`` times, where
 the first holds only the ones the wrappers choose.
 
-:func:`load_host` builds a host source, ``csrc/<name>.cc`` (the neighbor
-sampler), with ``g++`` into the same directory, by the same digest rule.
+``host=True`` builds a host source, ``csrc/<name>.cc`` (the neighbor
+sampler), with ``g++`` (:data:`HOST_FLAGS`) into the same directory, by the
+same digest rule.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "SWEEP_FLAGS", "HOST_FLAGS", "build",
-           "build_all", "build_logs", "load", "load_host"]
+           "build_all", "build_logs", "load"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -37,11 +38,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SWEEP_FLAGS = ("-DGNN_SWEEP",)
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-_libs: dict[tuple[str, bool | str], ctypes.CDLL] = {}
+_libs: dict[tuple[str, bool, bool], ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def _compiler(host: bool) -> str:
+    if host:
+        found = shutil.which("g++")
+        if found:
+            return found
+        raise RuntimeError("g++ not found: the host sources are built from "
+                           "source at first use")
     found = shutil.which("nvcc")
     if found:
         return found
@@ -52,33 +59,43 @@ def _nvcc() -> str:
                        "source at first use and need the CUDA toolkit")
 
 
-def _flags(sweep: bool) -> tuple[str, ...]:
+def _flags(sweep: bool, host: bool = False) -> tuple[str, ...]:
+    if host:
+        return HOST_FLAGS
     return NVCC_FLAGS + SWEEP_FLAGS if sweep else NVCC_FLAGS
 
 
-def _library_path(name: str, sweep: bool) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(_flags(sweep)).encode()).hexdigest()
+def _source(name: str, host: bool) -> Path:
+    return CSRC / f"{name}.{'cc' if host else 'cu'}"
+
+
+def _library_path(name: str, sweep: bool, host: bool = False) -> Path:
+    src = _source(name, host).read_bytes()
+    digest = hashlib.sha1(src + " ".join(_flags(sweep, host)).encode()
+                          ).hexdigest()
     return BUILD_DIR / f"{name}{'-sweep' * sweep}-{digest[:16]}.so"
 
 
-def build(*names: str, sweep: bool = False) -> dict[str, Path]:
+def build(*names: str, sweep: bool = False,
+          host: bool = False) -> dict[str, Path]:
     """Compile each named source that has no library yet, all in parallel
-    (with ``sweep``, the sweep build of each).
+    (with ``sweep``, the sweep build of each; with ``host``, the host
+    sources ``csrc/<name>.cc`` by ``g++``).
 
     Returns the library path of every name. Raises ``RuntimeError`` with the
     compiler's output when any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _library_path(n, sweep) for n in names}
-    nvcc = None
+    paths = {n: _library_path(n, sweep, host) for n in names}
+    cc = None
     running = {}
     for n, path in paths.items():
         if path.exists():
             continue
-        nvcc = nvcc or _nvcc()
+        cc = cc or _compiler(host)
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *_flags(sweep), "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [cc, *_flags(sweep, host), "-o", str(tmp),
+               str(_source(n, host))]
         running[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp)
@@ -87,12 +104,14 @@ def build(*names: str, sweep: bool = False) -> dict[str, Path]:
         out, _ = proc.communicate()
         _logs[f"{n}-sweep" if sweep else n] = out
         if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+            failed.append(f"{_source(n, host).name} (exit "
+                          f"{proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, paths[n])
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError(f"{'g++' if host else 'nvcc'} failed for "
+                           + "\n".join(failed))
     return paths
 
 
@@ -108,43 +127,11 @@ def build_logs() -> dict[str, str]:
     return dict(_logs)
 
 
-def load(name: str, sweep: bool = False) -> ctypes.CDLL:
+def load(name: str, sweep: bool = False, host: bool = False) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (with ``sweep``, its sweep
-    build), built first if needed."""
-    lib = _libs.get((name, sweep))
+    build; with ``host``, of ``csrc/<name>.cc``), built first if needed."""
+    lib = _libs.get((name, sweep, host))
     if lib is None:
-        lib = ctypes.CDLL(str(build(name, sweep=sweep)[name]))
-        _libs[name, sweep] = lib
-    return lib
-
-
-def load_host(name: str) -> ctypes.CDLL:
-    """The loaded library of the host source ``csrc/<name>.cc``, compiled
-    with ``g++`` (:data:`HOST_FLAGS`) into ``build/<name>-<digest>.so``
-    first if needed. Raises ``RuntimeError`` with the compiler's output
-    when the build fails; nothing falls back."""
-    lib = _libs.get((name, "host"))
-    if lib is not None:
-        return lib
-    src = CSRC / f"{name}.cc"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(HOST_FLAGS).encode()).hexdigest()
-    path = BUILD_DIR / f"{name}-{digest[:16]}.so"
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cxx = shutil.which("g++")
-        if cxx is None:
-            raise RuntimeError(f"g++ not found: {src.name} is built from "
-                               "source at first use")
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o", str(tmp)],
-                              capture_output=True, text=True)
-        _logs[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed for {src.name} (exit "
-                               f"{proc.returncode}):\n{_logs[name]}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
-    _libs[name, "host"] = lib
+        lib = ctypes.CDLL(str(build(name, sweep=sweep, host=host)[name]))
+        _libs[name, sweep, host] = lib
     return lib

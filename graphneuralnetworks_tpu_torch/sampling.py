@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import native, resolve_device
-from .graph import GraphTuple, device_graph, graph
+from .graph import GraphTuple, device_graph, graph, group_by
 
 __all__ = ["sample_neighbors", "induced_subgraph", "NeighborLoader",
            "Prefetcher", "in_csr"]
@@ -157,27 +157,20 @@ class Prefetcher:
 
 def _csr_by(ids: np.ndarray, nn: int):
     """Group edge indices by node id: returns (order, ptr)."""
-    order = np.argsort(ids, kind="stable")
-    counts = np.bincount(ids, minlength=nn)
-    ptr = np.concatenate([[0], np.cumsum(counts)])
-    return order, ptr
+    _, order, ptr = group_by(torch.from_numpy(np.ascontiguousarray(ids)), nn)
+    return order.numpy(), ptr.long().numpy()
 
 
 def in_csr(senders: torch.Tensor, receivers: torch.Tensor, num_nodes: int):
     """The in-edge CSR ``(csr_send, csr_eid, ptr)`` that
     :meth:`NeighborLoader.from_csr` and :meth:`DeviceSampler.build
-    <.device_sampler.DeviceSampler.build>` take, built on the tensors'
-    device: a stable ``torch.sort`` of the receivers (``csr_eid``, int32),
-    the senders in that order (``csr_send``, int32) and ``searchsorted``
-    row offsets (``ptr``, int64). The same arrays as the loader's numpy
-    build (``_csr_by``); on the card the sort of an ogbn-scale edge list
-    takes a fraction of a second where the host's stable argsort takes
-    tens."""
-    r_sorted, order = torch.sort(receivers.int(), stable=True)
-    ids = torch.arange(int(num_nodes) + 1, device=receivers.device,
-                       dtype=torch.int32)
-    return (senders.int()[order], order.int(),
-            torch.searchsorted(r_sorted, ids))
+    <.device_sampler.DeviceSampler.build>` take, grouped on the tensors'
+    device by :func:`~.graph.group_by`: the senders in receiver order
+    (``csr_send``, int32), their edge ids (``csr_eid``, int32) and the row
+    offsets (``ptr``, int64). On the card the stable sort of an ogbn-scale
+    edge list takes a fraction of a second where the host's takes tens."""
+    _, order, ptr = group_by(receivers, num_nodes)
+    return senders.int()[order], order.int(), ptr.long()
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -206,7 +206,10 @@ def test_in_csr_matches_the_loaders_numpy_build():
     got = TS.in_csr(torch.from_numpy(s), torch.from_numpy(r), n)
     assert got[0].dtype == got[1].dtype == torch.int32
     assert got[2].dtype == torch.int64
-    ref_order, ref_ptr = TS._csr_by(r, n)
+    ref_order = np.argsort(r, kind="stable")
+    ref_ptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=n))])
+    np.testing.assert_array_equal(TS._csr_by(r, n)[0], ref_order)
+    np.testing.assert_array_equal(TS._csr_by(r, n)[1], ref_ptr)
     np.testing.assert_array_equal(got[1].numpy(), ref_order)
     np.testing.assert_array_equal(got[0].numpy(), s[ref_order])
     np.testing.assert_array_equal(got[2].numpy(), ref_ptr)
@@ -305,6 +308,24 @@ def _same_groupings(a, b):
         assert torch.equal(a.edges[k], b.edges[k]), k
 
 
+def _numpy_groupings(s, r, n):
+    """The groupings by numpy's stable argsort and bincount, independent of
+    the package's torch build."""
+    s, r = np.asarray(s, np.int64), np.asarray(r, np.int64)
+    order = np.argsort(r, kind="stable")
+    s, r = s[order], r[order]
+    by_s = np.argsort(s, kind="stable")
+
+    def indptr(keys):
+        return np.concatenate([[0], np.cumsum(np.bincount(
+            keys, minlength=n))]).astype(np.int32)
+
+    return order, {"senders": s, "receivers": r, "indptr_r": indptr(r),
+                   "col_r": s.astype(np.int32), "indptr_s": indptr(s),
+                   "col_s": r[by_s].astype(np.int32),
+                   "eid_s": by_s.astype(np.int32)}
+
+
 @pytest.mark.parametrize("case", ["repeated_seeds", "empty", "isolated"])
 def test_device_graph_equals_graph(case):
     if case == "repeated_seeds":
@@ -331,6 +352,14 @@ def test_device_graph_equals_graph(case):
         num_nodes=n, edges={"e": torch.from_numpy(ef)},
         edge_weight=None if w is None else torch.from_numpy(w))
     _same_groupings(host, dev)
+    order, want = _numpy_groupings(s, r, n)
+    for f, a in want.items():
+        got = getattr(host, f)
+        assert got.dtype == torch.from_numpy(a).dtype, f
+        np.testing.assert_array_equal(got.numpy(), a, err_msg=f)
+    np.testing.assert_array_equal(host.edges["e"].numpy(), ef[order])
+    if w is not None:
+        np.testing.assert_array_equal(host.edge_weight.numpy(), w[order])
 
 
 def test_sage_steps_over_loader_batches_match_jax():
