@@ -44,6 +44,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside the plain version, the library yardstick
    ``torch.segment_reduce(data, "max", offsets=indptr)`` and
    ``scatter_reduce("amax")``.
+   2h: the bfloat16 kernels (``spmm_csr_bf16``, ``gat_softmax_bf16``,
+   ``gat_bwd_dpi_bf16``, ``gat_bwd_rev_bf16``): K1 over the receiver CSR
+   at D = 128 (bench.py's ``large_pallas_bf16``) and 8 and over the sender
+   CSR at D = 128 and 8, K3, K4 and K5 at (H, D) = (4, 32), (1, 8) and
+   (1, 128) (bench.py's ``attention_bf16``), each held to its plain version
+   within one bfloat16 ulp, timed beside the float32 kernel on the same
+   values (device ms) and, for K1, ``torch.sparse.mm`` on a bfloat16 CSR
+   where it runs.
    Every timed row of phase 2 has ``ms`` (CUDA events around 10
    back-to-back calls: the host's gaps between launches count),
    ``device_ms`` (the kernels' own time per call from ``torch.profiler``),
@@ -89,6 +97,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its ``reverse``, ResGatedGraphConv, and ``GatedGraphConv(128, 2)`` then
    ``Linear(128, 8)`` (all K1), each trained and held card vs CPU as 3c
    holds the others, with DConv also on the reverse of a weighted graph.
+   3o: 3a's GCN and 3d's GAT in ``models.Precision`` (bfloat16 compute,
+   float32 master parameters and Adam), a float32 loss of the bfloat16
+   logits, 10 steps each, profiled: K1's bfloat16 variant 3 times a GCN
+   step, K3's, K4's and K5's twice a GAT step, no float32 kernel; one step
+   of each card vs CPU in bfloat16 and in float64, and every parameter
+   gradient float32.
    3m and 3n: bench.py's north star, neighbor-sampled GraphSAGE at
    ogbn-products scale (its synthetic analog, bench.py:387-464: N =
    2,449,029, E = 123,718,280, skewed in-degrees, 196,615 train seeds, X
@@ -127,7 +141,7 @@ K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees (``--sweep
 k12,k4,skew`` runs the named sweeps only; with k1, K1 also at 2g's shapes);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and the train phases 3b, 3d, 3e, 3f, 3l, 3m and 3n, with ``--profile``
+and the train phases 3b, 3d, 3e, 3f, 3l, 3o, 3m and 3n, with ``--profile``
 their profiles; ``--only 3m,3n`` runs 2g with them:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
@@ -218,6 +232,34 @@ ZERO_GRAD_FLOOR = 1e-3
 # ~4.7e-4. EdgeConv's model check is held to 10x that. Exact ties (equal
 # values on both sides) split their cotangent the same way on both.
 EDGECONV_GRAD_NORM_RTOL = 5e-3
+# bfloat16 (2h, 3o). Its unit roundoff is u = 2^-8: rounding to nearest
+# moves a value by at most u of its size, and one ulp is 2u. 2h: a bfloat16
+# kernel and its plain version each round one float32 sum, taken in another
+# order (float32: ATOL), so the results may land one ulp apart: |kernel -
+# plain| <= one bfloat16 ulp of |plain| + ATOL; float32 outputs (the softmax
+# state) at RTOL / ATOL. 3o, a Precision model's step card vs CPU: count,
+# along a path through a layer, the bfloat16 results the card and the CPU
+# may round differently (a float32 sum in another order, or inputs already
+# apart): GCNConv's c = rsqrt(deg + 1), x * c, the SpMM, agg + x, * c, the
+# dense product and + bias, 7; GATConv's dense product, pi, pj, pi + pj,
+# leaky_relu, the attention sum (num), its normalisation (out), + bias and
+# the mean over heads, 9. Each moves a value by at most u of the values'
+# scale on each side, and the layers' gains are about 1 (normalised
+# propagation and attention, Glorot weights), so two layers of R put the
+# logits within 2 * 2R u of max |logits| of the CPU's bfloat16 path (both
+# sides round: GCN 28 u = 0.11, GAT 36 u = 0.14) and within (2R +
+# BF16_CASTS) u of float64, which also sees x and the parameters cast to
+# bfloat16, 3 casts a layer (GCN 20 u, GAT 24 u). A cross-entropy moves by
+# at most twice its logits' largest move (the label's logit, the
+# log-sum-exp), and so does their mean, the loss. A gradient carries the
+# forward's error (the activations it multiplies) and the backward's own
+# roundings, which a layer takes at most as often as its forward, and one
+# more, the weight gradient's product: by norm within 2 * (4R + 1) u of the
+# CPU's bfloat16 path (GCN 58 u = 0.23, GAT 74 u = 0.29) and (4R +
+# BF16_CASTS + 1) u of float64 (GCN 35 u = 0.14, GAT 43 u = 0.17).
+BF16_U = 2.0 ** -8
+BF16_ROUNDINGS = {"GCN": 7, "GAT": 9}   # per layer, see above
+BF16_CASTS = 6
 
 
 def log(msg: str) -> None:
@@ -675,6 +717,138 @@ def kernel_phase(gnn, g, card: str) -> dict:
     log_times(res, 34)
     log("  clocks.sm,power.draw,temperature.gpu: "
         + smi("clocks.sm,power.draw,temperature.gpu"))
+    return res
+
+
+def compare_bf16(name: str, got: torch.Tensor, ref: torch.Tensor, *,
+                 quiet: bool = False) -> float:
+    """Hold a bfloat16 output to its plain version within one bfloat16 ulp
+    of ``|ref|`` plus ATOL (see BF16_U); a float32 one (the softmax state)
+    by :func:`compare`."""
+    if ref.dtype != torch.bfloat16:
+        return compare(name, got, ref, quiet=quiet)
+    if got.dtype != torch.bfloat16 or got.shape != ref.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {ref.dtype} {tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    a, b = got.detach().double(), ref.detach().double()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        b.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 7)
+    diff = (a - b).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    worst = float((diff / (ulp + ATOL)).max()) if diff.numel() else 0.0
+    ok = worst <= 1.0
+    if not quiet or not ok:
+        log(f"  {name:<38} max_abs_err={err:.3e} |err|/(ulp+atol) at most "
+            f"{worst:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel and plain version disagree")
+    return err
+
+
+def bf16_phase(g, card: str) -> dict:
+    """2h: the bfloat16 kernels, K1, K3, K4 and K5, against their plain
+    versions on the card: K1 over the receiver CSR at D=128 (bench.py's
+    ``large_pallas_bf16``, :142-147) and 8, over the sender CSR at D=128
+    and 8 (3o's GCN launches the D=8 ones and the receiver D=128); K3, K4
+    and K5 at (H, D) = (4, 32) and (1, 8) (3o's GAT) and (1, 128) (bench.py's
+    ``attention_bf16``, :235-250). Each row has the bfloat16 kernel's times,
+    the float32 kernel's device time on the same values widened
+    (``f32_device_ms``, this call), the bound at 2 bytes a row element (4 an
+    index or a float32 state entry) and, for K1, ``torch.sparse.mm`` on a
+    bfloat16 CSR, or the error it raised (``library_error``)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    dev, bf = g.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ir, cr, is_, cs, es = g.indptr_r, g.col_r, g.indptr_s, g.col_s, g.eid_s
+    res = {k: {"err": 0.0, "variants": []}
+           for k in ("k1_bf16", "k3_bf16", "k4_bf16", "k5_bf16")}
+    log(f"phase 2h: bfloat16 kernels vs plain versions (N={N}, E={E})")
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    def case(key, label, fn, plain, args, byt, flops, lib=None):
+        got, want = fn(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(compare_bf16(f"{key.upper()} {label} out{i}", a, b)
+                  for i, (a, b) in enumerate(zip(got, want)))
+        res[key]["err"] = max(res[key]["err"], err)
+        wide = tuple(t.float() if isinstance(t, torch.Tensor)
+                     and t.dtype == bf else t for t in args)
+        lib_error = None
+        if lib is not None:
+            try:   # a yardstick only: where it cannot run, say why
+                lib_err = float((lib().double() - want[0].double()).abs()
+                                .max())
+                log(f"  {key.upper()} {label} library max_abs_err="
+                    f"{lib_err:.3e} (logged, not held)")
+            except RuntimeError as exc:
+                lib_error, lib = str(exc).splitlines()[0], None
+                log(f"  {key.upper()} {label} library: {lib_error}")
+        b_ms, b_by = bound(byt, flops, card)
+        res[key]["variants"].append({
+            "case": label, **timings(lambda: fn(*args), lambda: plain(*args),
+                                     lib),
+            "f32_device_ms": device_ms(lambda: fn(*wide)),
+            "library_error": lib_error, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err})
+        return want
+
+    def csr(indptr, col):
+        return torch.sparse_csr_tensor(indptr, col,
+                                       torch.ones(E, dtype=bf, device=dev),
+                                       (N, N))
+
+    a_r, a_s = csr(ir, cr), csr(is_, cs)
+    for label, args, a in (
+            (f"fwd receiver-CSR D={D}", (ir, cr, None, None, rn(N, D)), a_r),
+            (f"fwd receiver-CSR D={OUT_D}", (ir, cr, None, None,
+                                             rn(N, OUT_D)), a_r),
+            (f"bwd sender-CSR D={D}", (is_, cs, es, None, rn(N, D)), a_s),
+            (f"bwd sender-CSR D={OUT_D}", (is_, cs, es, None,
+                                           rn(N, OUT_D)), a_s)):
+        rows, d = args[0].numel() - 1, args[4].shape[1]
+        src = k1_source_rows(args[1], args[2], None, N)
+        byt = 4 * (rows + 1 + E) + 2 * (src + rows) * d
+        case("k1_bf16", label, S.spmm_csr, S.spmm_plain, args, byt, E * d,
+             lambda a=a, x=args[4]: torch.sparse.mm(a, x))
+    del a_r, a_s
+
+    for h, d in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D), (1, D)):
+        pi, pj, v, dy, sl, sv = (rn(N, h), rn(N, h), rn(N, h, d),
+                                 rn(N, h, d), rn(N, h), rn(N, h, d))
+        hd = f"H={h} D={d}"
+        # int32 indptr and col; bfloat16 per-node scalars (2 N H bytes
+        # each) and rows (2 N H D); float32 state (4 N H)
+        idx, s2, s4, rows = 4 * (N + 1 + E), 2 * N * h, 4 * N * h, \
+            2 * N * h * d
+        num, m, s_ = case("k3_bf16", hd, ES.gat_softmax, ES.gat_softmax_plain,
+                          (ir, cr, pi, pj, v, 0.2),
+                          idx + 2 * s2 + rows + rows + 2 * s4,
+                          E * h * (2 * d + 6))
+        out, mx, den = ES.finalize_softmax(num, m, s_, sl, sv)
+        s_n = (out.float() * dy.float()).sum(-1)
+        bwd = (pi, pj, v, mx, den, s_n, dy, 0.2)
+        case("k4_bf16", hd, ES.gat_bwd_dpi, ES.gat_bwd_dpi_plain,
+             (ir, cr) + bwd, idx + 2 * s2 + 3 * s4 + 2 * rows + s2,
+             E * h * (2 * d + 10))
+        case("k5_bf16", hd, ES.gat_bwd_rev, ES.gat_bwd_rev_plain,
+             (is_, cs) + bwd, idx + 2 * s2 + 3 * s4 + 2 * rows + s2 + rows,
+             E * h * (4 * d + 10))
+    for key, r in res.items():
+        for v in r["variants"]:
+            log(f"  time {key.upper():<8} {v['case']:<24} "
+                f"kernel={v['ms']:.4f} ms device={v['device_ms']:.4f} ms "
+                f"(float32 kernel device={v['f32_device_ms']:.4f} ms) "
+                f"host={v['host_us']:.1f} us plain={fmt_ms(v['plain_ms'])} "
+                f"library={fmt_ms(v['library_ms'])} (device "
+                f"{fmt_ms(v['library_device_ms'])}) bound="
+                f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
     return res
 
 
@@ -1278,6 +1452,7 @@ def k2_sweep(g) -> list:
 GATV2_SHAPES = ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D))
 # the sweeps of --sweep (K6 and K7 are one, recv_sweep; skew the R-MAT graph)
 SWEEPS = ("k1", "k2", "k3", "k4", "k5", "k6_k7", "k8", "k9", "k10", "k11",
+          "bf16",
           "k12", "k14", "skew")
 
 
@@ -2222,6 +2397,86 @@ def k14_sweep(g, gb) -> list:
     return out
 
 
+def bf16_sweep(g) -> list:
+    """The bfloat16 kernels at every layout their instances allow, at 2h's
+    shapes, each held to the plain version (one ulp, :func:`compare_bf16`)
+    before it is timed (device ms): K1 over the receiver CSR at D = 128 and
+    8 and the sender CSR at D = 8 (every rows per warp, strip, gathers in
+    flight and register cap of the sweep build); K3, K4 and K5 at (4, 32),
+    (1, 8) and (1, 128) at every rows per warp, with and without ``pj``
+    ahead (K3, K4) or the packed scalars (K5), at each (edges in flight,
+    register cap) of their shipped bfloat16 instances (one register
+    chunk)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    dev, bf = g.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    out = []
+
+    def sweep(key, label, fn, plain, args, layouts, chosen):
+        ref = plain(*args)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for lay in layouts:
+            got = fn(*args, layout=lay)
+            got = got if isinstance(got, tuple) else (got,)
+            err = max(compare_bf16(f"{key} {label} {lay}", a, b, quiet=True)
+                      for a, b in zip(got, ref))
+            row = {"kernel": key, "case": label, "layout": list(lay),
+                   "chosen": lay == chosen, "max_abs_err": err,
+                   "device_ms": device_ms(lambda: fn(*args, layout=lay))}
+            out.append(row)
+            log(f"  {key} {label:<24} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+
+    for label, indptr, col, eid, d in (
+            (f"fwd receiver-CSR D={D}", g.indptr_r, g.col_r, None, D),
+            (f"fwd receiver-CSR D={OUT_D}", g.indptr_r, g.col_r, None,
+             OUT_D),
+            (f"bwd sender-CSR D={OUT_D}", g.indptr_s, g.col_s, g.eid_s,
+             OUT_D)):
+        x = rn(N, d)
+        args = (indptr, col, eid, None, x)
+        fv, vec = S._row_vectors(d, 2, x, x)
+        log_g = min((fv - 1).bit_length(), 5)
+        chosen = S._spmm_layout(fv, vec, N, N, E)
+        sweep("K1", label, S._spmm_csr_kernel, S.spmm_plain, args,
+              [(rows, strip, unroll, cap) for strip in range(log_g + 1)
+               for rows in range(6 - strip) for unroll in (1, 2, 4, 8)
+               for cap in (0, 64)], chosen)
+    ir, cr, is_, cs = g.indptr_r, g.col_r, g.indptr_s, g.col_s
+    for h, d in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D), (1, D)):
+        pi, pj, v, dy, sl, sv = (rn(N, h), rn(N, h), rn(N, h, d),
+                                 rn(N, h, d), rn(N, h), rn(N, h, d))
+        hd = f"H={h} D={d}"
+        fv, vec = S._row_vectors(d, 2, v, v)
+        log_g = min((fv - 1).bit_length(), 5)
+        rows = range(6 - log_g)
+        fwd = (ir, cr, pi, pj, v, 0.2)
+        sweep("K3", hd, ES._gat_softmax_kernel, ES.gat_softmax_plain, fwd,
+              [(r, u, c, a) for r in rows for u, c in ((4, 64), (1, 0))
+               for a in (0, 1)],
+              ES._gat_softmax_layout(fv, vec, N, E, ES._BF16_MAX_VECTORS))
+        out_, mx, den = ES.finalize_softmax(*ES.gat_softmax_plain(*fwd), sl,
+                                            sv)
+        bwd = (pi, pj, v, mx, den, (out_.float() * dy.float()).sum(-1), dy,
+               0.2)
+        pairs = ((2, 64), (4, 64))
+        sweep("K4", hd, ES._gat_bwd_dpi_kernel, ES.gat_bwd_dpi_plain,
+              (ir, cr) + bwd,
+              [(r, u, c, a) for r in rows for u, c in pairs for a in (0, 1)],
+              ES._gat_bwd_dpi_layout(fv, vec, N, E, ES._BF16_MAX_VECTORS))
+        sweep("K5", hd, ES._gat_bwd_rev_kernel, ES.gat_bwd_rev_plain,
+              (is_, cs) + bwd,
+              [(r, u, c, p) for r in rows for u, c in pairs for p in (0, 1)],
+              ES._gat_bwd_rev_layout(fv, vec, N, E, ES._BF16_MAX_VECTORS))
+    return out
+
+
 def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
     """``--sweep``: the sweep build of the ``spmm`` and ``edge_softmax``
     libraries (every instance), then of :data:`SWEEPS` the ``names`` in
@@ -2249,6 +2504,7 @@ def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
             "k10": lambda: {"k10": k10_sweep(g)},
             "k11": lambda: {"k11": k11_sweep(g)},
             "skew": lambda: {"skew": skew_sweep(gnn, names)},
+            "bf16": lambda: {"bf16": bf16_sweep(g)},
             "k14": lambda: {"k14": k14_sweep(g, gb)}}
     out = {}
     for name in names:
@@ -2552,6 +2808,101 @@ def gatv2_train_phase(g, x, y, mask, profile: bool):
 
     return train_phase("GATv2", model, (g, x, y, mask), loss_fn,
                        {"k9": 2, "k10": 4, "k11": 2}, profile), model
+
+
+def compare_precision_model(name, model, g, x) -> dict:
+    """3o's card vs CPU: one forward and backward of the Precision model
+    ``model`` (float32 loss of its bfloat16 logits) on the card, against
+    the same model on the CPU plain path in bfloat16 and, unwrapped, in
+    float64, from the same weights; the tolerances of BF16_ROUNDINGS."""
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    gc = g.to("cpu")
+    sides = {"card": (model, g, x),
+             "CPU bfloat16": (copy.deepcopy(model).to("cpu"), gc, x.cpu()),
+             "CPU float64": (copy.deepcopy(model.module).to(
+                 "cpu", torch.float64), gc, x.cpu().double())}
+    results = {}
+    for side, (m, gg, xx) in sides.items():
+        m.zero_grad(set_to_none=True)
+        logits = m(gg, xx)
+        loss = masked_cross_entropy(
+            logits if logits.dtype == torch.float64 else logits.float(),
+            gg.nodes["y"], gg.node_mask)
+        loss.backward()
+        results[side] = (logits.detach().cpu().double(),
+                         loss.detach().cpu().double().reshape(1),
+                         [p.grad.cpu().double() for p in m.parameters()])
+    bad = [n for n, p in model.named_parameters()
+           if p.grad.dtype != torch.float32 or not torch.isfinite(
+               p.grad).all()]
+    if bad:
+        raise AssertionError(f"{name} bf16: gradients not finite float32: "
+                             f"{bad}")
+    rounds = 2 * BF16_ROUNDINGS[name]       # two layers
+    names = [n for n, _ in model.named_parameters()]
+    lg, ls, gr = results["card"]
+    out = {}
+    for side, k in (("CPU bfloat16", 2 * rounds),
+                    ("CPU float64", rounds + BF16_CASTS)):
+        lc, lsc, grc = results[side]
+        tol = k * BF16_U
+        out[side] = {
+            "logits_err": compare(f"{name} bf16: logits card vs {side}", lg,
+                                  lc, rtol=0, atol=tol * float(
+                                      lc.abs().max())),
+            "loss_err": compare(f"{name} bf16: loss card vs {side}", ls, lsc,
+                                rtol=0, atol=2 * tol * float(
+                                    lc.abs().max()))}
+        rels = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
+                for n, a, b in zip(names, gr, grc)}
+        worst = max(rels, key=rels.get)
+        limit = BF16_U * (2 * (2 * rounds + 1) if side == "CPU bfloat16"
+                          else 2 * rounds + BF16_CASTS + 1)
+        ok = rels[worst] <= limit
+        log(f"  {name} bf16: gradients card vs {side}, worst |a-b|/|b|="
+            f"{rels[worst]:.3e} ({worst}; limit {limit:.4g}) "
+            f"{'ok' if ok else 'FAIL'}; all: "
+            + ", ".join(f"{k} {v:.1e}" for k, v in rels.items()))
+        if not ok:
+            raise AssertionError(f"{name} bf16: gradient of {worst} "
+                                 f"differs from {side}")
+        out[side]["grad_rel_errs"] = rels
+    return out
+
+
+def precision_phase(g, x, y, mask, profile: bool):
+    """3o: 3a's GCN and 3d's GAT (a) in ``models.Precision``: bfloat16
+    compute with float32 master parameters, 10 Adam steps each on a float32
+    loss of the bfloat16 logits. Per step the GCN launches K1's bfloat16
+    variant 3 times, the GAT K3's, K4's and K5's twice each, and nothing in
+    float32. Each is profiled (ms per step, device ms, busy) and one step is
+    held card vs CPU (:func:`compare_precision_model`). Returns the results
+    and None (the ``--only`` form); ``profile`` is not needed, 3o always
+    profiles."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    del profile
+
+    def loss_fn(m, g, x, y, mask):
+        return masked_cross_entropy(m(g, x).float(), y, mask)
+
+    res = {"vs_cpu": {}}
+    for name, key, build, seed, per_step in (
+            ("GCN", "gcn_bf16", gcn, 0, {"k1_bf16": 3}),
+            ("GAT", "gat_bf16", gat, 2,
+             {"k3_bf16": 2, "k4_bf16": 2, "k5_bf16": 2})):
+        log(f"phase 3o: {name} of 3{'a' if name == 'GCN' else 'd'} in "
+            f"bfloat16 (models.Precision, float32 master parameters, Adam "
+            f"lr=1e-3), {STEPS} steps")
+        model = M.Precision(build(M, seed, g.device))
+        res[key] = train_phase(f"{name} bf16", model, (g, x, y, mask),
+                               loss_fn, per_step, True)
+        log(f"phase 3o (3c): one step of the {name} bf16 model on the card "
+            "vs the CPU plain path in bfloat16 and in float64")
+        res["vs_cpu"][key] = compare_precision_model(name, model, g, x)
+    return res, None
 
 
 def main_path_phase(g, profile: bool, out_dir) -> dict:
@@ -3676,9 +4027,9 @@ def main() -> int:
                     help="add a torch.profiler breakdown of the train step")
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
-                         "(comma-separated, of 2,2b,2c,2d,2e,2f and the "
-                         "train phases 3b, 3d, 3e, 3f, 3l, 3m and 3n; 3m "
-                         "and 3n run last, with 2g), then stop without a "
+                         "(comma-separated, of 2,2b,2c,2d,2e,2f,2h and the "
+                         "train phases 3b, 3d, 3e, 3f, 3l, 3o, 3m and 3n; "
+                         "3m and 3n run last, with 2g), then stop without a "
                          "result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
@@ -3725,6 +4076,7 @@ def main() -> int:
     gb, tud = tud_batch(gnn, g.device)
 
     kernel_phases = {"2": lambda: kernel_phase(gnn, g, card),
+                     "2h": lambda: bf16_phase(g, card),
                      "2b": lambda: attention_phase(g, card),
                      "2c": lambda: gatv2_phase(g, card),
                      "2d": lambda: dot_phase(g, card),
@@ -3736,7 +4088,7 @@ def main() -> int:
     for phase in (only if only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
-                      "3l": propagation_phase}
+                      "3l": propagation_phase, "3o": precision_phase}
         if phase in sage_which:
             continue
         if phase in train_only:
@@ -3780,6 +4132,9 @@ def main() -> int:
     zoo_res, _ = propagation_phase(*node_inputs(g), args.profile)
     main_res["vs_cpu"].update(zoo_res.pop("vs_cpu"))
     main_res["propagation"] = zoo_res
+    bf16_res, _ = precision_phase(*node_inputs(g), args.profile)
+    main_res["vs_cpu"].update(bf16_res.pop("vs_cpu"))
+    main_res.update(bf16_res)
     main_res["tud_batch"] = tud
     sage = run_sage()
     for key in ("sage_host", "sage_device"):
@@ -3799,16 +4154,25 @@ def main() -> int:
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"], "case": head["case"],
                 "device_ms": head["device_ms"], "host_us": head["host_us"],
-                "library_device_ms": head["library_device_ms"]}
+                "library_device_ms": head["library_device_ms"],
+                **{k: head[k] for k in ("f32_device_ms", "library_error")
+                   if k in head}}
 
     # each kernel's launches are read from the path that drives it
     kernels = [
         entry("k1", "spmm_csr_f32", "spmm", 256, "gcn"),
         entry("k2", "spmm_sddmm_csr_f32", "spmm", 331,
               "gcn_learned_edge_weight"),
+        entry("k1_bf16", "spmm_csr_bf16", "spmm", 256, "gcn_bf16"),
         entry("k3", "gat_softmax_f32", "edge_softmax", 804, "gat"),
+        entry("k3_bf16", "gat_softmax_bf16", "edge_softmax", 804,
+              "gat_bf16"),
         entry("k4", "gat_bwd_dpi_f32", "edge_softmax", 987, "gat"),
+        entry("k4_bf16", "gat_bwd_dpi_bf16", "edge_softmax", 987,
+              "gat_bf16"),
         entry("k5", "gat_bwd_rev_f32", "edge_softmax", 1045, "gat"),
+        entry("k5_bf16", "gat_bwd_rev_bf16", "edge_softmax", 1045,
+              "gat_bf16"),
         entry("k12", "edge_softmax_f32", "edge_softmax", 281, "gat_dropout"),
         entry("k9", "gatv2_softmax_f32", "edge_softmax", 1237, "gatv2"),
         entry("k10", "gatv2_bwd_dq_f32 + gatv2_da_reduce_f32",

@@ -1,5 +1,5 @@
-// Edge softmax over a node's in-edges, with aggregation: K3 to K12, float32,
-// for sm_90a.
+// Edge softmax over a node's in-edges, with aggregation: K3 to K12, float32
+// (K3, K4 and K5 also bfloat16, vec.cuh), for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
 //   K12 _flash_kernel         softmax of given per-edge logits, numerator
@@ -61,42 +61,12 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "vec.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
-
-template <typename V> __device__ __forceinline__ V vzero();
-template <> __device__ __forceinline__ float vzero<float>() { return 0.f; }
-template <> __device__ __forceinline__ float4 vzero<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ void axpy(float& a, float w, float v) {
-  a = fmaf(w, v, a);
-}
-__device__ __forceinline__ void axpy(float4& a, float w, const float4& v) {
-  a.x = fmaf(w, v.x, a.x);
-  a.y = fmaf(w, v.y, a.y);
-  a.z = fmaf(w, v.z, a.z);
-  a.w = fmaf(w, v.w, a.w);
-}
-
-__device__ __forceinline__ float vdot(float a, float b) { return a * b; }
-__device__ __forceinline__ float vdot(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void add_xor(float& a, int off) {
-  a += __shfl_xor_sync(kFull, a, off);
-}
-__device__ __forceinline__ void add_xor(float4& a, int off) {
-  a.x += __shfl_xor_sync(kFull, a.x, off);
-  a.y += __shfl_xor_sync(kFull, a.y, off);
-  a.z += __shfl_xor_sync(kFull, a.z, off);
-  a.w += __shfl_xor_sync(kFull, a.w, off);
-}
 
 __device__ __forceinline__ float warp_sum(float a) {
   for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(kFull, a, off);
@@ -125,13 +95,6 @@ __device__ __forceinline__ float4 lrelu(const float4& r, float slope) {
 __device__ __forceinline__ float vadd(float a, float b) { return a + b; }
 __device__ __forceinline__ float4 vadd(const float4& a, const float4& b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-__device__ __forceinline__ void vscale(float& a, float s) { a *= s; }
-__device__ __forceinline__ void vscale(float4& a, float s) {
-  a.x *= s;
-  a.y *= s;
-  a.z *= s;
-  a.w *= s;
 }
 // acc += w * a * lrelu'(raw), componentwise
 __device__ __forceinline__ void axpy_dlrelu(float& acc, float w, float a,
@@ -1168,16 +1131,19 @@ gatv2_da_reduce_kernel(const float* __restrict__ da_part,
 // over the row's lanes closes it. With stats, each receiver's (pi, mx, den,
 // s_n) come packed as one float4 [rows, H, 4]: one 16-byte load an edge in
 // place of four 4-byte ones. Rows wider than NC * G vectors (256 at most)
-// take passes of NC * G vectors, each walking the row's edges again.
+// take passes of NC * G vectors, each walking the row's edges again. V, the
+// rows' storage vector, as K3's: bfloat16 rows, pi, pj and dpj, float32
+// mx, den, s_n and stats, float32 sums, dv and dpj rounded once.
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                   const float* __restrict__ pi, const float* __restrict__ pj,
-                   const V* __restrict__ v, const float* __restrict__ mx,
+                   const Scalar<V>* __restrict__ pi,
+                   const Scalar<V>* __restrict__ pj, const V* __restrict__ v,
+                   const float* __restrict__ mx,
                    const float* __restrict__ den,
                    const float* __restrict__ s_n,
                    const float4* __restrict__ stats, const V* __restrict__ dy,
-                   float* __restrict__ dpj, V* __restrict__ dv_out,
+                   Scalar<V>* __restrict__ dpj, V* __restrict__ dv_out,
                    int n_rows, int heads, int dv, int log_g, int log_rows,
                    float slope) {
   const int rb = row_block(n_rows, log_rows);
@@ -1191,18 +1157,19 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long sh = (long long)row * heads + h;
-    const float pjs = live ? pj[sh] : 0.f;
+    const float pjs = live ? ldf(pj + sh) : 0.f;
     float acc_pj = 0.f;   // this lane's share of dpj[s]
     // at least one pass, so that dpj is summed when D == 0
     for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
-      V vs[NC], acc[NC];
+      Acc<V> vs[NC], acc[NC];
       // v and dv stream past the L2 (evict-first), which keeps the head's
       // slice of dy that the pass gathers from
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int f = f0 + sub + c * g;
-        vs[c] = live && f < dv ? __ldcs(v + sh * dv + f) : vzero<V>();
-        acc[c] = vzero<V>();
+        vs[c] = live && f < dv ? widen(ld_cs(v + sh * dv + f))
+                               : vzero<Acc<V>>();
+        acc[c] = vzero<Acc<V>>();
       }
       int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
       for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
@@ -1227,7 +1194,7 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
               denr[u] = st.z;
               snr[u] = st.w;
             } else {
-              pir[u] = ok[u] ? pi[rh] : 0.f;
+              pir[u] = ok[u] ? ldf(pi + rh) : 0.f;
               mxr[u] = ok[u] ? mx[rh] : 0.f;
               denr[u] = ok[u] ? den[rh] : 1.f;
               snr[u] = ok[u] ? s_n[rh] : 0.f;
@@ -1247,8 +1214,9 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
             float part = 0.f;
 #pragma unroll
             for (int cc = 0; cc < NC; ++cc) {
-              axpy(acc[cc], alpha, dyg[u][cc]);
-              part += vdot(vs[cc], dyg[u][cc]);
+              const Acc<V> d = widen(dyg[u][cc]);
+              axpy(acc[cc], alpha, d);
+              part += vdot(vs[cc], d);
             }
             acc_pj = fmaf(w, part, acc_pj);
             if (f0 == 0 && sub == 0) acc_pj -= w * snr[u];   // once an edge
@@ -1265,13 +1233,13 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
           const int f = f0 + sub + cc * g;
-          if (f < dv) __stcs(dv_out + sh * dv + f, acc[cc]);
+          if (f < dv) st_cs(dv_out + sh * dv + f, narrow<V>(acc[cc]));
         }
       }
     }
     for (int off = 1; off < S.seg; off <<= 1)   // the row's lanes
       acc_pj += __shfl_xor_sync(kFull, acc_pj, off);
-    if (live && S.sl == 0) dpj[sh] = acc_pj;
+    if (live && S.sl == 0) stf(dpj + sh, acc_pj);
   });
 }
 
@@ -1431,13 +1399,21 @@ gatv2_softmax_rows_kernel(const int* __restrict__ indptr,
 // writes them. num streams past the L2 (evict-first). The first port gave a
 // (row, head) pair a warp, heads side by side, and took two passes over a
 // row's edges, gathering each pj twice.
+//
+// V is the rows' storage vector (vec.cuh): float4 or float, or for
+// bfloat16 values bf16x8, bf16x4 or bf16x1, with bfloat16 pi and pj. The
+// logits, the softmax state (m, s) and the sums are float32, each gathered
+// row widened where it is added; num is rounded once when stored. The
+// bfloat16 instances hold one register chunk (NC = 1): wider rows take
+// passes of 32 vectors.
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 gat_softmax_rows_kernel(const int* __restrict__ indptr,
                         const int* __restrict__ col,
-                        const float* __restrict__ pi,
-                        const float* __restrict__ pj, const V* __restrict__ v,
-                        V* __restrict__ num, float* __restrict__ m,
+                        const Scalar<V>* __restrict__ pi,
+                        const Scalar<V>* __restrict__ pj,
+                        const V* __restrict__ v, V* __restrict__ num,
+                        float* __restrict__ m,
                         float* __restrict__ s, int n_rows, int heads, int dv,
                         int log_g, int log_rows, int ahead, float slope) {
   const int rb = row_block(n_rows, log_rows);
@@ -1451,25 +1427,27 @@ gat_softmax_rows_kernel(const int* __restrict__ indptr,
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long rh = (long long)row * heads + h;
-    const float pir = live ? pi[rh] : 0.f;
+    const float pir = live ? ldf(pi + rh) : 0.f;
     // at least one pass, so that s is summed when D == 0
     for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
-      V acc[NC];
+      Acc<V> acc[NC];
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) acc[cc] = vzero<V>();
+      for (int cc = 0; cc < NC; ++cc) acc[cc] = vzero<Acc<V>>();
       float mg = -INFINITY, sg = 0.f;   // this edge group's running max, sum
       // this lane's index of the window, of the next one (ahead), and the
       // pj of its edge of the window (ahead)
       int c = S.sl < len ? col[beg + S.sl] : 0;
       int nc = ahead && S.seg + S.sl < len ? col[beg + S.seg + S.sl] : 0;
-      float pc = ahead && S.sl < len ? pj[(long long)c * heads + h] : 0.f;
+      float pc = ahead && S.sl < len ? ldf(pj + (long long)c * heads + h)
+                                     : 0.f;
       for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
         int nn;
         float npc = 0.f;
         if (ahead) {   // indices two windows ahead, pj one
           const int j2 = w0 + 2 * S.seg + S.sl;
           nn = j2 < len ? col[beg + j2] : 0;
-          if (w0 + S.seg + S.sl < len) npc = pj[(long long)nc * heads + h];
+          if (w0 + S.seg + S.sl < len)
+            npc = ldf(pj + (long long)nc * heads + h);
         } else {
           const int j1 = w0 + S.seg + S.sl;
           nn = j1 < len ? col[beg + j1] : 0;
@@ -1490,7 +1468,7 @@ gat_softmax_rows_kernel(const int* __restrict__ indptr,
               const int f = f0 + sub + cc * g;
               vg[u][cc] = ok[u] && f < dv ? v[sh * dv + f] : vzero<V>();
             }
-            if (!ahead) lg[u] = ok[u] ? pj[sh] : 0.f;
+            if (!ahead) lg[u] = ok[u] ? ldf(pj + sh) : 0.f;
           }
           if (ahead) {
 #pragma unroll
@@ -1517,7 +1495,8 @@ gat_softmax_rows_kernel(const int* __restrict__ indptr,
             const float pe = lg[u] == -INFINITY ? 0.f : expf(lg[u] - mg);
             sg += pe;
 #pragma unroll
-            for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], pe, vg[u][cc]);
+            for (int cc = 0; cc < NC; ++cc)
+              axpy(acc[cc], pe, widen(vg[u][cc]));
           }
         }
         if (ahead) {
@@ -1546,7 +1525,7 @@ gat_softmax_rows_kernel(const int* __restrict__ indptr,
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
           const int f = f0 + sub + cc * g;
-          if (f < dv) __stcs(num + rh * dv + f, acc[cc]);
+          if (f < dv) st_cs(num + rh * dv + f, narrow<V>(acc[cc]));
         }
       }
       if (live && S.sl == 0 && f0 == 0) {
@@ -1725,17 +1704,20 @@ edge_softmax_rows_kernel(const int* __restrict__ indptr,
 // wider than NC * G vectors (256 at most) take passes of NC * G vectors,
 // each walking the row's edges again. The first port gave a (row, head)
 // pair a warp, heads side by side, shuffled each edge's index and weight
-// to every lane, and regathered pj for every 32 vectors of a wide row.
+// to every lane, and regathered pj for every 32 vectors of a wide row. V,
+// the rows' storage vector, as K3's: bfloat16 rows, pi, pj and dpi, float32
+// mx, den and s_n, a float32 sum, dpi rounded once.
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 gat_bwd_dpi_rows_kernel(const int* __restrict__ indptr,
                         const int* __restrict__ col,
-                        const float* __restrict__ pi,
-                        const float* __restrict__ pj, const V* __restrict__ v,
-                        const float* __restrict__ mx,
+                        const Scalar<V>* __restrict__ pi,
+                        const Scalar<V>* __restrict__ pj,
+                        const V* __restrict__ v, const float* __restrict__ mx,
                         const float* __restrict__ den,
                         const float* __restrict__ s_n,
-                        const V* __restrict__ dy, float* __restrict__ dpi,
+                        const V* __restrict__ dy,
+                        Scalar<V>* __restrict__ dpi,
                         int n_rows, int heads, int dv, int log_g,
                         int log_rows, int ahead, float slope) {
   const int rb = row_block(n_rows, log_rows);
@@ -1749,29 +1731,32 @@ gat_bwd_dpi_rows_kernel(const int* __restrict__ indptr,
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long rh = (long long)row * heads + h;
-    const float pir = live ? pi[rh] : 0.f, mxr = live ? mx[rh] : 0.f;
+    const float pir = live ? ldf(pi + rh) : 0.f, mxr = live ? mx[rh] : 0.f;
     const float denr = live ? den[rh] : 1.f, snr = live ? s_n[rh] : 0.f;
     float acc = 0.f;   // this lane's share of dpi[r]
     // at least one pass, so that dpi is summed when D == 0
     for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
-      V dyv[NC];
+      Acc<V> dyv[NC];
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int f = f0 + sub + cc * g;
-        dyv[cc] = live && f < dv ? __ldcs(dy + rh * dv + f) : vzero<V>();
+        dyv[cc] = live && f < dv ? widen(ld_cs(dy + rh * dv + f))
+                                 : vzero<Acc<V>>();
       }
       // this lane's index of the window, of the next one (ahead), and the
       // pj of its edge of the window (ahead)
       int c = S.sl < len ? col[beg + S.sl] : 0;
       int nc = ahead && S.seg + S.sl < len ? col[beg + S.seg + S.sl] : 0;
-      float pc = ahead && S.sl < len ? pj[(long long)c * heads + h] : 0.f;
+      float pc = ahead && S.sl < len ? ldf(pj + (long long)c * heads + h)
+                                     : 0.f;
       for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
         int nn;
         float npc = 0.f;
         if (ahead) {   // indices two windows ahead, pj one
           const int j2 = w0 + 2 * S.seg + S.sl;
           nn = j2 < len ? col[beg + j2] : 0;
-          if (w0 + S.seg + S.sl < len) npc = pj[(long long)nc * heads + h];
+          if (w0 + S.seg + S.sl < len)
+            npc = ldf(pj + (long long)nc * heads + h);
         } else {
           const int j1 = w0 + S.seg + S.sl;
           nn = j1 < len ? col[beg + j1] : 0;
@@ -1792,7 +1777,7 @@ gat_bwd_dpi_rows_kernel(const int* __restrict__ indptr,
               const int f = f0 + sub + cc * g;
               vg[u][cc] = ok[u] && f < dv ? v[sh * dv + f] : vzero<V>();
             }
-            if (!ahead) pje[u] = ok[u] ? pj[sh] : 0.f;
+            if (!ahead) pje[u] = ok[u] ? ldf(pj + sh) : 0.f;
           }
           if (ahead) {
 #pragma unroll
@@ -1807,7 +1792,8 @@ gat_bwd_dpi_rows_kernel(const int* __restrict__ indptr,
             const float w = alpha * dlrelu(raw, slope);
             float part = 0.f;
 #pragma unroll
-            for (int cc = 0; cc < NC; ++cc) part += vdot(vg[u][cc], dyv[cc]);
+            for (int cc = 0; cc < NC; ++cc)
+              part += vdot(widen(vg[u][cc]), dyv[cc]);
             acc = fmaf(w, part, acc);
             if (f0 == 0 && sub == 0) acc -= w * snr;   // once an edge
           }
@@ -1823,7 +1809,7 @@ gat_bwd_dpi_rows_kernel(const int* __restrict__ indptr,
     }
     for (int off = 1; off < S.seg; off <<= 1)   // the row's lanes
       acc += __shfl_xor_sync(kFull, acc, off);
-    if (live && S.sl == 0) dpi[rh] = acc;
+    if (live && S.sl == 0) stf(dpi + rh, acc);
   });
 }
 
@@ -1878,19 +1864,26 @@ using MinBlocks = std::integral_constant<int, CAP == 64 ? 4 : 1>;
 // library holds U in {1, 2, 4} with NC * U <= 4 (U = 1 at every NC), each
 // uncapped and, at NC <= 2, at 64 registers; the shipped library holds
 // only the pairs for which Pick::holds(NC, U, cap), the ones the wrapper
-// picks.
-template <typename Pick, typename Go>
+// picks. With kOneChunk (the bfloat16 instances of K3, K4 and K5) only NC
+// = 1 (rows of at most 32 vectors; the launcher takes wider rows in passes
+// of 32) and only Pick's pairs, in either build.
+template <typename Pick, bool kOneChunk = false, typename Go>
 int with_row_instances(int wide, int unroll, int reg_cap, Go&& go) {
+  if (kOneChunk && wide > 32) return static_cast<int>(cudaErrorInvalidValue);
   bool launched = false;
   const int rc = with_chunks(wide, [&](auto nc) {
     constexpr int NC = decltype(nc)::value;
     auto pick = [&](auto un, auto cap) {
       constexpr int UU = decltype(un)::value, C = decltype(cap)::value;
 #ifdef GNN_SWEEP
-      constexpr bool built = (UU == 1 || NC * UU <= 4) && (C == 0 || NC <= 2);
+      constexpr bool sweep = true;
 #else
-      constexpr bool built = Pick::holds(NC, UU, C);
+      constexpr bool sweep = false;
 #endif
+      constexpr bool built =
+          kOneChunk ? NC == 1 && Pick::holds(NC, UU, C)
+          : sweep   ? (UU == 1 || NC * UU <= 4) && (C == 0 || NC <= 2)
+                    : Pick::holds(NC, UU, C);
       if constexpr (built) {
         if (unroll == UU && reg_cap == C) {
           go(nc, un, MinBlocks<C>{});
@@ -1986,6 +1979,13 @@ struct StripPick {
   static constexpr int kUnroll = 4;
   static constexpr int kCap = 0;
 };
+
+// Whether V is a bfloat16 storage vector, and the widest rows, in vectors,
+// that its instances of K3, K4 and K5 hold in registers (passes beyond).
+template <typename V>
+constexpr bool kLow = !std::is_same<Acc<V>, V>::value;
+template <typename V>
+constexpr int kMaxWide = kLow<V> ? 32 : 256;
 
 // log2 of the vectors of one 128-byte line: a strip, and the lanes of its
 // edge groups.
@@ -2209,26 +2209,26 @@ int launch_gatv2_bwd_dq(const int* indptr, const int* col, const float* q,
 // K5 in rows (see gat_bwd_rev_kernel), at the instances with_row_instances
 // holds: rows up to 256 vectors in registers, wider ones in passes of 256.
 template <typename V>
-int launch_gat_bwd_rev(const int* indptr, const int* col, const float* pi,
-                       const float* pj, const float* v, const float* mx,
-                       const float* den, const float* s_n,
-                       const float* stats, const float* dy, float* dpj,
-                       float* dv_out, int n_rows, int heads, int dv,
-                       int log_rows, int unroll, int reg_cap, float slope,
-                       cudaStream_t st) {
-  const int wide = dv < 256 ? dv : 256;
+int launch_gat_bwd_rev(const int* indptr, const int* col,
+                       const Scalar<V>* pi, const Scalar<V>* pj,
+                       const void* v, const float* mx, const float* den,
+                       const float* s_n, const float* stats, const void* dy,
+                       Scalar<V>* dpj, void* dv_out, int n_rows, int heads,
+                       int dv, int log_rows, int unroll, int reg_cap,
+                       float slope, cudaStream_t st) {
+  const int wide = dv < kMaxWide<V> ? dv : kMaxWide<V>;
   const int lg = log_group(wide);
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K5Pick>(
+  return with_row_instances<K5Pick, kLow<V>>(
       wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         gat_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
                            decltype(minb)::value><<<grid, kThreads, 0, st>>>(
-            indptr, col, pi, pj, reinterpret_cast<const V*>(v), mx, den, s_n,
+            indptr, col, pi, pj, static_cast<const V*>(v), mx, den, s_n,
             reinterpret_cast<const float4*>(stats),
-            reinterpret_cast<const V*>(dy), dpj, reinterpret_cast<V*>(dv_out),
-            n_rows, heads, dv, lg, log_rows, slope);
+            static_cast<const V*>(dy), dpj, static_cast<V*>(dv_out), n_rows,
+            heads, dv, lg, log_rows, slope);
       });
 }
 
@@ -2259,24 +2259,25 @@ int launch_gatv2_softmax(const int* indptr, const int* col, const float* q,
 // with_row_instances holds: rows up to 256 vectors in registers, wider ones
 // in passes of 256.
 template <typename V>
-int launch_gat_softmax(const int* indptr, const int* col, const float* pi,
-                       const float* pj, const float* v, float* num, float* m,
-                       float* s, int n_rows, int heads, int dv, int log_rows,
+int launch_gat_softmax(const int* indptr, const int* col,
+                       const Scalar<V>* pi, const Scalar<V>* pj,
+                       const void* v, void* num, float* m, float* s,
+                       int n_rows, int heads, int dv, int log_rows,
                        int unroll, int reg_cap, int ahead, float slope,
                        cudaStream_t st) {
-  const int wide = dv < 256 ? dv : 256;
+  const int wide = dv < kMaxWide<V> ? dv : kMaxWide<V>;
   const int lg = log_group(wide);
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K3Pick>(
+  return with_row_instances<K3Pick, kLow<V>>(
       wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         gat_softmax_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
                                 decltype(minb)::value>
             <<<grid, kThreads, 0, st>>>(
-                indptr, col, pi, pj, reinterpret_cast<const V*>(v),
-                reinterpret_cast<V*>(num), m, s, n_rows, heads, dv, lg,
-                log_rows, ahead, slope);
+                indptr, col, pi, pj, static_cast<const V*>(v),
+                static_cast<V*>(num), m, s, n_rows, heads, dv, lg, log_rows,
+                ahead, slope);
       });
 }
 
@@ -2315,25 +2316,26 @@ int launch_edge_softmax(const int* indptr, const int* col, const float* lg,
 // with_row_instances holds: rows up to 256 vectors in registers, wider ones
 // in passes of 256.
 template <typename V>
-int launch_gat_bwd_dpi(const int* indptr, const int* col, const float* pi,
-                       const float* pj, const float* v, const float* mx,
-                       const float* den, const float* s_n, const float* dy,
-                       float* dpi, int n_rows, int heads, int dv,
-                       int log_rows, int unroll, int reg_cap, int ahead,
-                       float slope, cudaStream_t st) {
-  const int wide = dv < 256 ? dv : 256;
+int launch_gat_bwd_dpi(const int* indptr, const int* col,
+                       const Scalar<V>* pi, const Scalar<V>* pj,
+                       const void* v, const float* mx, const float* den,
+                       const float* s_n, const void* dy, Scalar<V>* dpi,
+                       int n_rows, int heads, int dv, int log_rows,
+                       int unroll, int reg_cap, int ahead, float slope,
+                       cudaStream_t st) {
+  const int wide = dv < kMaxWide<V> ? dv : kMaxWide<V>;
   const int lg = log_group(wide);
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K4Pick>(
+  return with_row_instances<K4Pick, kLow<V>>(
       wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         gat_bwd_dpi_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
                                 decltype(minb)::value>
             <<<grid, kThreads, 0, st>>>(
-                indptr, col, pi, pj, reinterpret_cast<const V*>(v), mx, den,
-                s_n, reinterpret_cast<const V*>(dy), dpi, n_rows, heads, dv,
-                lg, log_rows, ahead, slope);
+                indptr, col, pi, pj, static_cast<const V*>(v), mx, den, s_n,
+                static_cast<const V*>(dy), dpi, n_rows, heads, dv, lg,
+                log_rows, ahead, slope);
       });
 }
 
@@ -2437,6 +2439,86 @@ int gat_bwd_rev_f32(const int* indptr, const int* col, const float* pi,
   return launch_gat_bwd_rev<float>(indptr, col, pi, pj, v, mx, den, s_n,
                                    stats, dy, dpj, dv, n_rows, heads, d,
                                    log_rows, unroll, reg_cap, slope, st);
+}
+
+// K3, K4 and K5 on bfloat16 rows and per-node scalars (pi, pj; dpi, dpj),
+// with the float32 softmax state (m, s; mx, den, s_n; stats), as
+// gat_softmax_f32, gat_bwd_dpi_f32 and gat_bwd_rev_f32: each sum in
+// float32, each bfloat16 output rounded once. A row loads in the widest
+// vector it takes (bf16_vec_bytes of the value and output rows: 8 values,
+// 4, or one); the instances hold one register chunk of 32 vectors (see
+// with_row_instances), wider rows take passes of 32.
+int gat_softmax_bf16(const int* indptr, const int* col, const bf16x1* pi,
+                     const bf16x1* pj, const bf16x1* v, bf16x1* num, float* m,
+                     float* s, int n_rows, int heads, int d, int log_rows,
+                     int unroll, int reg_cap, int ahead, float slope,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bf16_vec_bytes(d, {v, num})) {
+    case 16:
+      return launch_gat_softmax<bf16x8>(indptr, col, pi, pj, v, num, m, s,
+                                        n_rows, heads, d / 8, log_rows,
+                                        unroll, reg_cap, ahead, slope, st);
+    case 8:
+      return launch_gat_softmax<bf16x4>(indptr, col, pi, pj, v, num, m, s,
+                                        n_rows, heads, d / 4, log_rows,
+                                        unroll, reg_cap, ahead, slope, st);
+    default:
+      return launch_gat_softmax<bf16x1>(indptr, col, pi, pj, v, num, m, s,
+                                        n_rows, heads, d, log_rows, unroll,
+                                        reg_cap, ahead, slope, st);
+  }
+}
+
+int gat_bwd_dpi_bf16(const int* indptr, const int* col, const bf16x1* pi,
+                     const bf16x1* pj, const bf16x1* v, const float* mx,
+                     const float* den, const float* s_n, const bf16x1* dy,
+                     bf16x1* dpi, int n_rows, int heads, int d, int log_rows,
+                     int unroll, int reg_cap, int ahead, float slope,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bf16_vec_bytes(d, {v, dy})) {
+    case 16:
+      return launch_gat_bwd_dpi<bf16x8>(indptr, col, pi, pj, v, mx, den, s_n,
+                                        dy, dpi, n_rows, heads, d / 8,
+                                        log_rows, unroll, reg_cap, ahead,
+                                        slope, st);
+    case 8:
+      return launch_gat_bwd_dpi<bf16x4>(indptr, col, pi, pj, v, mx, den, s_n,
+                                        dy, dpi, n_rows, heads, d / 4,
+                                        log_rows, unroll, reg_cap, ahead,
+                                        slope, st);
+    default:
+      return launch_gat_bwd_dpi<bf16x1>(indptr, col, pi, pj, v, mx, den, s_n,
+                                        dy, dpi, n_rows, heads, d, log_rows,
+                                        unroll, reg_cap, ahead, slope, st);
+  }
+}
+
+int gat_bwd_rev_bf16(const int* indptr, const int* col, const bf16x1* pi,
+                     const bf16x1* pj, const bf16x1* v, const float* mx,
+                     const float* den, const float* s_n, const float* stats,
+                     const bf16x1* dy, bf16x1* dpj, bf16x1* dv, int n_rows,
+                     int heads, int d, int log_rows, int unroll, int reg_cap,
+                     float slope, void* stream) {
+  if (!aligned16(stats)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bf16_vec_bytes(d, {v, dy, dv})) {
+    case 16:
+      return launch_gat_bwd_rev<bf16x8>(indptr, col, pi, pj, v, mx, den, s_n,
+                                        stats, dy, dpj, dv, n_rows, heads,
+                                        d / 8, log_rows, unroll, reg_cap,
+                                        slope, st);
+    case 8:
+      return launch_gat_bwd_rev<bf16x4>(indptr, col, pi, pj, v, mx, den, s_n,
+                                        stats, dy, dpj, dv, n_rows, heads,
+                                        d / 4, log_rows, unroll, reg_cap,
+                                        slope, st);
+    default:
+      return launch_gat_bwd_rev<bf16x1>(indptr, col, pi, pj, v, mx, den, s_n,
+                                        stats, dy, dpj, dv, n_rows, heads, d,
+                                        log_rows, unroll, reg_cap, slope, st);
+  }
 }
 
 // K9. Over the receiver CSR of n_rows receivers: q [n_rows, H, d],

@@ -1,5 +1,6 @@
 // CSR sparse x dense products for message passing: K1 (SpMM) and K2 (the
-// fused weighted-SpMM backward), float32, for sm_90a.
+// fused weighted-SpMM backward), float32 (K1 also bfloat16, vec.cuh), for
+// sm_90a.
 //
 // Both kernels walk a compressed-sparse-row edge grouping:
 //   indptr int32[n_rows + 1]   edges of row i are positions [indptr[i], indptr[i+1])
@@ -68,42 +69,12 @@
 
 #include <type_traits>
 
+#include "vec.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
-
-template <typename V> __device__ __forceinline__ V vzero();
-template <> __device__ __forceinline__ float vzero<float>() { return 0.f; }
-template <> __device__ __forceinline__ float4 vzero<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ void axpy(float& a, float w, float v) {
-  a = fmaf(w, v, a);
-}
-__device__ __forceinline__ void axpy(float4& a, float w, const float4& v) {
-  a.x = fmaf(w, v.x, a.x);
-  a.y = fmaf(w, v.y, a.y);
-  a.z = fmaf(w, v.z, a.z);
-  a.w = fmaf(w, v.w, a.w);
-}
-
-__device__ __forceinline__ float vdot(float a, float b) { return a * b; }
-__device__ __forceinline__ float vdot(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void add_xor(float& a, int off) {
-  a += __shfl_xor_sync(kFull, a, off);
-}
-__device__ __forceinline__ void add_xor(float4& a, int off) {
-  a.x += __shfl_xor_sync(kFull, a.x, off);
-  a.y += __shfl_xor_sync(kFull, a.y, off);
-  a.z += __shfl_xor_sync(kFull, a.z, off);
-  a.w += __shfl_xor_sync(kFull, a.w, off);
-}
 
 // The first warp of a row-walking kernel's block, or -1 past the rows
 // (blockIdx.y is a strip, or a head and strip: no division on the way to
@@ -164,12 +135,18 @@ __device__ __forceinline__ void walk_rows(const int* __restrict__ indptr,
 // row's end is masked to weight 0 and never loaded. A group adds its edges
 // in CSR order, the groups then by a fixed shuffle tree; a hub switches the
 // warp to one row after another (walk_rows).
+//
+// V is the rows' storage vector (vec.cuh): float4 or float, or for
+// bfloat16 rows bf16x8, bf16x4 or bf16x1, whose weights are bfloat16 too.
+// The gathers load V, and each is widened to float where it is added, so
+// that the sum is float32 and y is rounded once when stored.
 template <typename V, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 spmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
-                const int* __restrict__ eid, const float* __restrict__ w,
-                const V* __restrict__ x, V* __restrict__ y, int n_rows,
-                int dv, int log_g, int log_rows) {
+                const int* __restrict__ eid,
+                const Scalar<V>* __restrict__ w, const V* __restrict__ x,
+                V* __restrict__ y, int n_rows, int dv, int log_g,
+                int log_rows) {
   const int rb = row_block(n_rows, log_rows);
   if (rb < 0) return;                  // warp-uniform
   const int lane = threadIdx.x & 31;
@@ -191,13 +168,13 @@ spmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
       if (w0 + sl < len) {
         const int k = beg + w0 + sl;
         c = col ? col[k] : k;
-        wt = w ? w[eid ? eid[k] : k] : 1.f;
+        wt = w ? ldf(w + (eid ? eid[k] : k)) : 1.f;
       }
     };
     int c, nc;
     float wt, nwt;
     fetch(0, c, wt);
-    V acc = vzero<V>();
+    Acc<V> acc = vzero<Acc<V>>();
     for (int w0 = 0; w0 < longest; w0 += seg) {   // warp-uniform trips
       fetch(w0 + seg, nc, nwt);                   // the next window, ahead
       const int cnt = min(seg, longest - w0);
@@ -215,14 +192,14 @@ spmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
           v[u] = ok ? x[(long long)cj * dv + f] : vzero<V>();
         }
 #pragma unroll
-        for (int u = 0; u < U; ++u) axpy(acc, wj[u], v[u]);
+        for (int u = 0; u < U; ++u) axpy(acc, wj[u], widen(v[u]));
       }
       c = nc;
       wt = nwt;
     }
     // the groups' lanes of one column are G apart, within the row's lanes
     for (int off = g; off < seg; off <<= 1) add_xor(acc, off);
-    if (active && grp == 0) y[(long long)row * dv + f] = acc;
+    if (active && grp == 0) y[(long long)row * dv + f] = narrow<V>(acc);
   });
 }
 
@@ -512,6 +489,29 @@ struct K2Pick {
   }
 };
 
+// K1 over rows of dv vectors V (see spmm_csr_f32 for the checks): the grid
+// of strips and the instance of (unroll, reg_cap), then cudaGetLastError().
+template <typename V>
+int launch_spmm_csr(const int* indptr, const int* col, const int* eid,
+                    const Scalar<V>* w, const void* x, void* y, int n_rows,
+                    int dv, int log_rows, int log_strip, int unroll,
+                    int reg_cap, cudaStream_t s) {
+  if (!layout_ok(dv, log_rows, log_strip))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows,
+                             (dv + (1 << log_strip) - 1) >> log_strip);
+  const bool launched = with_instances<K1Pick>(
+      unroll, reg_cap, [&](auto un, auto minb) {
+        spmm_csr_kernel<V, decltype(un)::value, decltype(minb)::value>
+            <<<grid, kThreads, 0, s>>>(indptr, col, eid, w,
+                                       static_cast<const V*>(x),
+                                       static_cast<V*>(y), n_rows, dv,
+                                       log_strip, log_rows);
+      });
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -534,25 +534,35 @@ int spmm_csr_f32(const int* indptr, const int* col, const int* eid,
                  int reg_cap, void* stream) {
   if (vec4 && (d % 4 != 0 || !aligned16(x) || !aligned16(y)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dv = vec4 ? d / 4 : d;
-  if (!layout_ok(dv, log_rows, log_strip))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = row_grid(n_rows, log_rows,
-                             (dv + (1 << log_strip) - 1) >> log_strip);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto vec) {
-    using V = decltype(vec);
-    return with_instances<K1Pick>(unroll, reg_cap, [&](auto un, auto minb) {
-      spmm_csr_kernel<V, decltype(un)::value, decltype(minb)::value>
-          <<<grid, kThreads, 0, s>>>(indptr, col, eid, w,
-                                     reinterpret_cast<const V*>(x),
-                                     reinterpret_cast<V*>(y), n_rows, dv,
-                                     log_strip, log_rows);
-    });
-  };
-  if (!(vec4 ? launch(float4{}) : launch(float{})))
+  if (vec4)
+    return launch_spmm_csr<float4>(indptr, col, eid, w, x, y, n_rows, d / 4,
+                                   log_rows, log_strip, unroll, reg_cap, s);
+  return launch_spmm_csr<float>(indptr, col, eid, w, x, y, n_rows, d,
+                                log_rows, log_strip, unroll, reg_cap, s);
+}
+
+// K1 on bfloat16 rows and weights, summed in float32 and rounded once (see
+// spmm_csr_kernel): as spmm_csr_f32, with vec_bytes in place of vec4, the
+// bytes of the vector a row is loaded in: 16 (8 values; d % 8 == 0, x and y
+// 16-byte aligned), 8 (4 values; d % 4 == 0, 8-byte aligned) or 2 (one
+// value). Anything else returns cudaErrorInvalidValue with nothing
+// launched. The library holds the instances of K1Pick for each vector.
+int spmm_csr_bf16(const int* indptr, const int* col, const int* eid,
+                  const bf16x1* w, const bf16x1* x, bf16x1* y, int n_rows,
+                  int d, int vec_bytes, int log_rows, int log_strip,
+                  int unroll, int reg_cap, void* stream) {
+  if (!bf16_vec_ok(d, vec_bytes, {x, y}))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_bytes == 16)
+    return launch_spmm_csr<bf16x8>(indptr, col, eid, w, x, y, n_rows, d / 8,
+                                   log_rows, log_strip, unroll, reg_cap, s);
+  if (vec_bytes == 8)
+    return launch_spmm_csr<bf16x4>(indptr, col, eid, w, x, y, n_rows, d / 4,
+                                   log_rows, log_strip, unroll, reg_cap, s);
+  return launch_spmm_csr<bf16x1>(indptr, col, eid, w, x, y, n_rows, d,
+                                 log_rows, log_strip, unroll, reg_cap, s);
 }
 
 // K2. Over the sender CSR of n_rows senders and n_edges edges: dy

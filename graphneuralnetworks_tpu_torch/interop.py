@@ -90,7 +90,9 @@ def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     nnx.BatchStat)`` as dicts, its ``mean`` and ``var`` to the running
     statistics; ``nnx.OptimizedLSTMCell`` (``Set2Set.lstm``) to
     ``torch.nn.LSTMCell`` (see :func:`_load_lstm`). Pooling and
-    ``EdgeConv`` keep the JAX names (``p``, ``fgate``, ``ffeat``, ``nn``).
+    ``EdgeConv`` keep the JAX names (``p``, ``fgate``, ``ffeat``, ``nn``),
+    and :class:`~.models.Precision` JAX's ``module``, under which
+    ``nnx.state(Precision(...))`` nests the wrapped model.
     Raises on a name or shape that does not match.
     """
     with torch.no_grad():

@@ -1,6 +1,7 @@
 """Layers, containers and pooling."""
 
-from .basic import DotDecoder, GNNChain, GNNLayer, WithGraph, glorot_uniform
+from .basic import (DotDecoder, GNNChain, GNNLayer, Precision, WithGraph,
+                    glorot_uniform)
 from .conv import (AGNNConv, BatchNorm, ChebConv, DConv, EdgeConv, GATConv,
                    GATv2Conv, GatedGraphConv, GCNConv, GINConv, GraphConv,
                    GRUCell, MLP, ResGatedGraphConv, SAGEConv, SGConv,
@@ -8,7 +9,7 @@ from .conv import (AGNNConv, BatchNorm, ChebConv, DConv, EdgeConv, GATConv,
 from .pool import (GlobalAttentionPool, GlobalPool, Set2Set, TopKPool,
                    topk_index)
 
-__all__ = ["DotDecoder", "GNNChain", "GNNLayer", "WithGraph",
+__all__ = ["DotDecoder", "GNNChain", "GNNLayer", "Precision", "WithGraph",
            "glorot_uniform", "AGNNConv", "BatchNorm", "EdgeConv", "GATConv",
            "GATv2Conv", "GCNConv", "GINConv", "GraphConv", "MLP", "SAGEConv",
            "TransformerConv", "ResGatedGraphConv", "GatedGraphConv",

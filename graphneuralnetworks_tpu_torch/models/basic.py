@@ -1,5 +1,5 @@
-"""Model basics: GNNLayer base, GNNChain, WithGraph, DotDecoder, Glorot
-init.
+"""Model basics: GNNLayer base, GNNChain, WithGraph, Precision, DotDecoder,
+Glorot init.
 
 Counterpart of ``graphneuralnetworks_tpu/models/basic.py`` (reference
 GraphNeuralNetworks basic.jl). Layers are ``torch.nn.Module``s taking
@@ -13,12 +13,13 @@ import math
 
 import torch
 from torch import nn
+from torch.utils import _pytree
 
 from .. import resolve_device
 from ..graph import GraphTuple
 from ..ops.msgpass import apply_edges, xi_dot_xj
 
-__all__ = ["GNNLayer", "GNNChain", "WithGraph", "DotDecoder",
+__all__ = ["GNNLayer", "GNNChain", "WithGraph", "Precision", "DotDecoder",
            "glorot_uniform"]
 
 
@@ -160,6 +161,47 @@ class WithGraph(nn.Module):
         if isinstance(x, GraphTuple):
             return self.model(x, *args, **kw)
         return self.model(self._graph(), x, *args, **kw)
+
+
+class Precision(GNNLayer):
+    """Run a layer or chain in ``dtype`` (bfloat16 by default) with float32
+    master parameters (JAX ``models/basic.py:148-184``).
+
+    At call time every floating parameter and buffer of ``module``, and
+    every floating tensor in ``x``, ``*args`` and ``**kw`` (nested in
+    lists, tuples and dicts too), is cast to ``dtype``; the graph is left
+    as it is. ``module`` then runs entirely in ``dtype`` through
+    ``torch.func.functional_call``, so gradients flow back through the
+    casts and reach the parameters in their own type: the optimizer's
+    state and updates stay float32. The kernels keep their sums and softmax
+    state in float32 (K1, K3-K5; ``ops/cuda``). This is not
+    ``torch.autocast``, which keeps some ops in float32 and casts per op.
+
+    Example::
+
+        model = Precision(GNNChain(GCNConv(16, 32, torch.relu),
+                                   GATConv(32, 8)))
+        y = model(g, x)            # bfloat16
+        loss = f(y.float())
+    """
+
+    def __init__(self, module: nn.Module, dtype=torch.bfloat16):
+        super().__init__()
+        self.module = module
+        self.dtype = dtype
+
+    def _cast(self, v):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.to(self.dtype)
+        return v
+
+    def forward(self, g: GraphTuple, x=None, *args, **kw):
+        state = {name: self._cast(t) for name, t in
+                 [*self.module.named_parameters(),
+                  *self.module.named_buffers()]}
+        x, args, kw = _pytree.tree_map(self._cast, (x, args, kw))
+        return torch.func.functional_call(self.module, state,
+                                          (g, x, *args), kw)
 
 
 class DotDecoder(GNNLayer):

@@ -14,6 +14,11 @@ K12 otherwise) or :mod:`.cuda.sddmm` (K13 for :func:`dot_attention_logits`,
 all heads in one launch), at any number of head dimensions; a shape the
 kernels cannot take raises. Only CPU tensors take the plain path below, the
 counterpart of the JAX package's XLA path.
+
+bfloat16: on the card only :func:`gat_attention` without dropout takes it
+(K3-K5); every other kernel route raises ``TypeError``. The plain path
+computes bfloat16 values as those kernels do: logits, softmax and sums in
+float32, the output rounded once to bfloat16.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from .cuda.edge_softmax import (dot_attention_nodes, edge_softmax_aggregate,
                                 gat_attention_nodes, gatv2_attention_nodes,
                                 lrelu)
 from .cuda.sddmm import sddmm
+from .cuda.spmm import _work_dtype
 from .segment import gather, segment_max, segment_sum
 
 __all__ = ["attention_aggregate", "gat_attention", "gatv2_attention",
@@ -79,7 +85,9 @@ def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
                                    self_values=self_values,
                                    num_segments=num_segments,
                                    pj_weight=pj_weight)
-    logits = lrelu(gather(pi, g.receivers) + gather(pj, g.senders), slope)
+    work = _work_dtype(values.dtype)   # float32 logits for bfloat16
+    logits = lrelu(gather(pi.to(work), g.receivers)
+                   + gather(pj.to(work), g.senders), slope)
     return attention_aggregate(g, logits, values, self_logits=self_logits,
                                self_values=self_values,
                                dropout_masks=dropout_masks,
@@ -176,6 +184,17 @@ def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,
     if _kernel_route(values):
         return _aggregate_kernels(g, logits, values, self_logits,
                                   self_values, dropout_masks, n, node_values)
+    work = _work_dtype(values.dtype)
+    if work != values.dtype:   # bfloat16: in float32, rounded once
+        def up(t):
+            return None if t is None else t.to(work)
+        out = attention_aggregate(
+            g, up(logits), up(values), self_logits=up(self_logits),
+            self_values=up(self_values), num_segments=num_segments,
+            node_values=node_values,
+            dropout_masks=None if dropout_masks is None
+            else tuple(up(m) for m in dropout_masks))
+        return out.to(values.dtype)
 
     r = g.receivers
     if node_values:

@@ -2,8 +2,9 @@
 
 Each source ``csrc/<name>.cu`` has a plain C interface and compiles on its
 own into ``build/<name>-<digest>.so`` at the repository root (the directory
-is git-ignored). The digest covers the source text and the flags, so an
-edited source builds anew and a stale library is never loaded. Nothing is
+is git-ignored). The digest covers the source text, the headers of
+``csrc/`` (``*.cuh``) and the flags, so an edited source or header builds
+anew and a stale library is never loaded. Nothing is
 built at import: the first call that launches a kernel builds its library,
 and :func:`build_all` builds every source at once, one ``nvcc`` process per
 source, all started together. A failed build raises; nothing falls back.
@@ -71,6 +72,8 @@ def _source(name: str, host: bool) -> Path:
 
 def _library_path(name: str, sweep: bool, host: bool = False) -> Path:
     src = _source(name, host).read_bytes()
+    if not host:
+        src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(_flags(sweep, host)).encode()
                           ).hexdigest()
     return BUILD_DIR / f"{name}{'-sweep' * sweep}-{digest[:16]}.so"

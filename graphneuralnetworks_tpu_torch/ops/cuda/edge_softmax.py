@@ -40,9 +40,18 @@ K2 for all heads), :func:`gat_attention_nodes` (backward K4 and K5),
 :func:`gatv2_attention_nodes` (forward K9, backward K10 and K11) and
 :func:`dot_attention_nodes` (forward K6, backward K7 and K8).
 
+Mixed precision: K3, K4 and K5 also take bfloat16 node values, ``dy``
+and ``pi``/``pj``, with the softmax state (``m``, ``s``; ``mx``, ``den``,
+``s_n``) in float32, as the TPU kernels keep it: every sum is float32 and
+each bfloat16 output (``num``, ``dpi``, ``dpj``, ``dv``) is rounded once,
+in its primal's type; :func:`finalize_softmax` returns ``num``'s type. The
+plain versions compute bfloat16 inputs the same way. Every other kernel
+here raises ``TypeError`` on bfloat16.
+
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``*_plain``); a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches, and nothing else adds to it. leaky_relu's slope at
+counts kernel launches (``k3_bf16``, ...: the bfloat16 variants), and
+nothing else adds to it. leaky_relu's slope at
 ``raw == 0`` is 1, as ``jax.nn.leaky_relu`` differentiates it.
 """
 
@@ -57,7 +66,8 @@ from torch.autograd.function import once_differentiable
 from ...graph import receiver_positions_are_edge_ids
 from .build import load
 from .spmm import (_call_on, _check, _float4_rows, _ptr, _raise_on_error,
-                   _route, _row_ids, _windowed_rows, spmm_sddmm)
+                   _route, _row_ids, _row_vectors, _windowed_rows,
+                   _work_dtype, spmm_sddmm)
 
 __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
            "gat_bwd_dpi", "gat_bwd_rev", "gatv2_softmax", "gatv2_bwd_dq",
@@ -71,13 +81,17 @@ __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
            "dot_attention_nodes"]
 
 launches = {"k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0, "k9": 0,
-            "k10": 0, "k11": 0, "k12": 0}
+            "k10": 0, "k11": 0, "k12": 0, "k3_bf16": 0, "k4_bf16": 0,
+            "k5_bf16": 0}
 
 _NEG_INF = float("-inf")
 # The GATv2 and dot kernels hold a row in at most 8 register chunks of 32
 # vectors per lane (csrc/edge_softmax.cu): float4 vectors when the widths
 # are multiples of 4 and the row operands 16-byte aligned.
 _MAX_VECTORS = 256
+# K3, K4 and K5 on bfloat16 rows hold one register chunk (csrc/edge_softmax.cu
+# with_row_instances): wider rows take passes of 32 vectors (256 values).
+_BF16_MAX_VECTORS = 32
 
 # The dot kernels' layouts (csrc/edge_softmax.cu), from chip_smoke.py
 # --sweep, which times every choice (PERF.md §6). Rows (K6, K7, K8): the
@@ -166,6 +180,9 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
                                     ("gat_softmax_f32", 8, 7, 1),
                                     ("gat_bwd_dpi_f32", 10, 7, 1),
                                     ("gat_bwd_rev_f32", 12, 6, 1),
+                                    ("gat_softmax_bf16", 8, 7, 1),
+                                    ("gat_bwd_dpi_bf16", 10, 7, 1),
+                                    ("gat_bwd_rev_bf16", 12, 6, 1),
                                     ("gatv2_softmax_f32", 8, 6, 1),
                                     ("gatv2_bwd_dq_f32", 11, 6, 1),
                                     ("gatv2_da_reduce_f32", 2, 3, 0),
@@ -199,8 +216,11 @@ def finalize_softmax(num, m, den, self_logits=None, self_values=None,
     The kernels' row max ``m`` never saw the self logit, so the sums are
     rescaled by ``exp(m - max(m, self_logits))`` first. ``mx`` is 0 where
     the row max is ``-inf``, and ``den`` at least ``finfo.tiny``: a node
-    with no in-edges and no self-loop gets ``out = 0``.
+    with no in-edges and no self-loop gets ``out = 0``. ``out`` keeps
+    ``num``'s type (a bfloat16 ``num`` over a float32 ``den`` is divided in
+    float32 and rounded once); ``mx`` and ``den`` keep the state's.
     """
+    out_dtype = num.dtype
     if self_logits is not None:
         m_tot = torch.maximum(m, self_logits)
         c = torch.exp(m - m_tot).masked_fill(torch.isneginf(m), 0.0)
@@ -213,8 +233,8 @@ def finalize_softmax(num, m, den, self_logits=None, self_values=None,
     else:
         mx = m
     mx = mx.masked_fill(torch.isneginf(mx), 0.0)
-    den = den.clamp(min=torch.finfo(num.dtype).tiny)
-    return num / den[..., None], mx, den
+    den = den.clamp(min=torch.finfo(out_dtype).tiny)
+    return (num / den[..., None]).to(out_dtype), mx, den
 
 
 # ---- plain PyTorch versions (the CPU path, and the reference on the card) --
@@ -247,46 +267,56 @@ def edge_softmax_plain(indptr, col, logits, mask, values):
 
 def gat_softmax_plain(indptr, col, pi, pj, values_n, slope):
     """K3's function: :func:`edge_softmax_plain` of the node values with
-    logits ``leaky_relu(pi[r_e] + pj[s_e])``."""
+    logits ``leaky_relu(pi[r_e] + pj[s_e])``. bfloat16 inputs as the
+    kernel takes them: logits, ``m``, ``s`` and the sums in float32, ``num``
+    rounded once to bfloat16."""
     rows, cols = _row_ids(indptr, col.numel()), col.long()
-    lg = lrelu(pi.index_select(0, rows) + pj.index_select(0, cols), slope)
-    return _softmax_sums(rows, indptr.numel() - 1, lg, None,
-                         values_n.index_select(0, cols))
+    work = _work_dtype(values_n.dtype)
+    lg = lrelu(pi.index_select(0, rows).to(work)
+               + pj.index_select(0, cols).to(work), slope)
+    num, m, s = _softmax_sums(rows, indptr.numel() - 1, lg, None,
+                              values_n.index_select(0, cols).to(work))
+    return num.to(values_n.dtype), m, s
 
 
 def _gat_edge_terms(r, s, pi, pj, values_n, mx, den, s_n, dy, slope):
     """Per edge: ``alpha``, ``dy[r]`` and ``dlg = alpha * (<v[s], dy[r]> -
-    s_n[r]) * leaky_relu'(raw)``."""
-    raw = pi.index_select(0, r) + pj.index_select(0, s)
-    alpha = (torch.exp(lrelu(raw, slope) - mx.index_select(0, r))
-             / den.index_select(0, r))
-    dy_e = dy.index_select(0, r)
-    vd = (values_n.index_select(0, s) * dy_e).sum(-1)
-    dlg = alpha * (vd - s_n.index_select(0, r)) * _dlrelu(raw, slope)
+    s_n[r]) * leaky_relu'(raw)``, in the work type of ``values_n``
+    (float32 for bfloat16 inputs)."""
+    work = _work_dtype(values_n.dtype)
+    raw = pi.index_select(0, r).to(work) + pj.index_select(0, s).to(work)
+    alpha = (torch.exp(lrelu(raw, slope) - mx.index_select(0, r).to(work))
+             / den.index_select(0, r).to(work))
+    dy_e = dy.index_select(0, r).to(work)
+    vd = (values_n.index_select(0, s).to(work) * dy_e).sum(-1)
+    dlg = (alpha * (vd - s_n.index_select(0, r).to(work))
+           * _dlrelu(raw, slope))
     return alpha, dy_e, dlg
 
 
 def gat_bwd_dpi_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
                       slope):
-    """K4's function over the receiver CSR: ``dpi[r] = sum_e dlg_e``."""
+    """K4's function over the receiver CSR: ``dpi[r] = sum_e dlg_e``, in
+    ``pi``'s type (summed in float32 for bfloat16)."""
     rows = _row_ids(indptr, col.numel())
     _, _, dlg = _gat_edge_terms(rows, col.long(), pi, pj, values_n, mx, den,
                                 s_n, dy, slope)
-    return pi.new_zeros(pi.shape).index_add_(0, rows, dlg)
+    return dlg.new_zeros(pi.shape).index_add_(0, rows, dlg).to(pi.dtype)
 
 
 def gat_bwd_rev_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
                       slope):
     """K5's function over the sender CSR (``col``: the receivers):
     ``(dpj, dv)`` with ``dpj[s] = sum_e dlg_e``, ``dv[s] = sum_e alpha_e
-    dy[r_e]``."""
+    dy[r_e]``, in ``pj``'s and ``values_n``'s types (summed in float32 for
+    bfloat16)."""
     rows = _row_ids(indptr, col.numel())
     alpha, dy_e, dlg = _gat_edge_terms(col.long(), rows, pi, pj, values_n,
                                        mx, den, s_n, dy, slope)
-    dpj = pj.new_zeros(pj.shape).index_add_(0, rows, dlg)
-    dv = values_n.new_zeros(values_n.shape).index_add_(
+    dpj = dlg.new_zeros(pj.shape).index_add_(0, rows, dlg)
+    dv = dy_e.new_zeros(values_n.shape).index_add_(
         0, rows, alpha[..., None] * dy_e)
-    return dpj, dv
+    return dpj.to(pj.dtype), dv.to(values_n.dtype)
 
 
 def _gatv2_logits(r, s, q, k, a, slope):
@@ -404,23 +434,31 @@ def dot_bwd_rev_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
 
 # ---- kernel wrappers -------------------------------------------------------
 
-def _check_launch(indptr, col, scalars, rows3, values3=None) -> torch.device:
-    """float32 ``[rows, H]`` scalars and ``[rows, H, D]`` rows, int32 CSR,
-    all contiguous on one card, with one H and one D. ``values3``: rows
-    of a width of their own (dot attention's values beside ``q`` and
-    ``k``), one width among them."""
+def _check_launch(indptr, col, scalars, rows3, values3=None, state=None,
+                  bf16=False) -> torch.device:
+    """``[rows, H]`` scalars and ``[rows, H, D]`` rows of one float type,
+    float32 or, with ``bf16`` (K3, K4 and K5), bfloat16 (a mix raises
+    ``TypeError``, as does bfloat16 without ``bf16``); the float32 softmax
+    state ``state`` ``[rows, H]``; int32 CSR; all contiguous on one card,
+    with one H and one D. ``values3``: rows of a width of their own (dot
+    attention's values beside ``q`` and ``k``), one width among them."""
     device = indptr.device
     _check(indptr, "indptr", torch.int32, device)
     _check(col, "col", torch.int32, device)
-    values3 = values3 or {}
-    for ndim, group in ((2, scalars), (3, rows3), (3, values3)):
+    values3, state = values3 or {}, state or {}
+    first = next(t for group in (rows3, values3, scalars)
+                 for t in group.values() if t is not None)
+    dtype = (torch.bfloat16 if bf16 and first.dtype == torch.bfloat16
+             else torch.float32)
+    for ndim, group, want in ((2, scalars, dtype), (3, rows3, dtype),
+                              (3, values3, dtype), (2, state, torch.float32)):
         for name, t in group.items():
-            _check(t, name, torch.float32, device)
+            _check(t, name, want, device)
             if t is not None and t.dim() != ndim:
                 raise ValueError(f"{name} must have {ndim} dimensions "
                                  f"([rows, H{', D' * (ndim == 3)}]), got "
                                  f"{tuple(t.shape)}")
-    heads = {t.shape[1] for group in (scalars, rows3, values3)
+    heads = {t.shape[1] for group in (scalars, rows3, values3, state)
              for t in group.values() if t is not None}
     widths = [{t.shape[2] for t in group.values()}
               for group in (rows3, values3) if group]
@@ -444,8 +482,10 @@ def _launch(fn: str, key: str, device, *args, sweep: bool = False) -> None:
     _raise_on_error(lib, code, fn)
 
 
-def _forward_outputs(n, heads, d, device):
-    return (torch.empty((n, heads, d), dtype=torch.float32, device=device),
+def _forward_outputs(n, heads, d, device, dtype=torch.float32):
+    """``num [n, H, d]`` in the values' ``dtype``, ``m`` and ``s [n, H]``
+    in float32."""
+    return (torch.empty((n, heads, d), dtype=dtype, device=device),
             torch.empty((n, heads), dtype=torch.float32, device=device),
             torch.empty((n, heads), dtype=torch.float32, device=device))
 
@@ -492,15 +532,17 @@ def _edge_softmax_kernel(indptr, col, logits, mask, values, layout=None):
     return num, m, s
 
 
-def _gat_softmax_layout(dv: int, vec_bytes: int, n_rows: int,
-                        entries: int) -> tuple[int, int, int, int]:
+def _gat_softmax_layout(dv: int, vec_bytes: int, n_rows: int, entries: int,
+                        max_vectors: int = _MAX_VECTORS
+                        ) -> tuple[int, int, int, int]:
     """K3's ``(log_rows, unroll, reg_cap, ahead)`` for a head of ``dv``
-    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
-    n_rows`` edges per receiver on average: :func:`_windowed_rows` of
-    ``G``-lane edge groups at ``_K3_WINDOWS_PER_ROW`` (rows wider than 256
-    vectors go in passes of 256, groups of 32 lanes), and
-    :func:`_rows_instance` of ``_K3_ROWS_LINE`` and ``_K3_ROWS_NARROW``."""
-    wide = min(max(dv, 1), _MAX_VECTORS)
+    vectors of ``vec_bytes`` (:func:`~.spmm._row_vectors`: 16, 8, 4 or 2)
+    and ``entries / n_rows`` edges per receiver on average:
+    :func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K3_WINDOWS_PER_ROW`` (rows wider than ``max_vectors`` go in passes
+    of that many, groups of 32 lanes), and :func:`_rows_instance` of
+    ``_K3_ROWS_LINE`` and ``_K3_ROWS_NARROW``."""
+    wide = min(max(dv, 1), max_vectors)
     log_g = min((wide - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K3_WINDOWS_PER_ROW)
     return (log_rows,) + _rows_instance(wide, vec_bytes << log_g,
@@ -513,28 +555,45 @@ def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope, layout=None):
     library, which holds every (unroll, reg_cap) instance
     (``build.load``)."""
     device = _check_launch(indptr, col, {"pi": pi, "pj": pj},
-                           {"values_n": values_n})
+                           {"values_n": values_n}, bf16=True)
     n, (_, heads, d) = indptr.numel() - 1, values_n.shape
     _same_rows(n, pi=pi)
     _same_rows(values_n.shape[0], pj=pj)
-    num, m, s = _forward_outputs(n, heads, d, device)
+    num, m, s = _forward_outputs(n, heads, d, device, values_n.dtype)
     if n == 0 or heads == 0:
         return num, m, s
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(d, values_n, num)
-        layout = _gat_softmax_layout(_vectors(d, vec), 16 if vec else 4, n,
-                                     col.numel())
-    _launch("gat_softmax_f32", "k3", device, _ptr(indptr), _ptr(col),
-            _ptr(pi), _ptr(pj), _ptr(values_n), _ptr(num), _ptr(m), _ptr(s),
-            n, heads, d, *layout, float(slope), sweep=sweep)
+        layout = _gat_softmax_layout(
+            *_row_vectors(d, values_n.element_size(), values_n, num), n,
+            col.numel(), _max_vectors(values_n))
+    _launch(*_gat_fn("gat_softmax", "k3", values_n), device, _ptr(indptr),
+            _ptr(col), _ptr(pi), _ptr(pj), _ptr(values_n), _ptr(num),
+            _ptr(m), _ptr(s), n, heads, d, *layout, float(slope),
+            sweep=sweep)
     return num, m, s
 
 
+def _gat_fn(fn: str, key: str, values: torch.Tensor) -> tuple[str, str]:
+    """The library function ``fn`` of a GAT kernel and its launch counter
+    ``key`` for ``values``' type."""
+    if values.dtype == torch.bfloat16:
+        return f"{fn}_bf16", f"{key}_bf16"
+    return f"{fn}_f32", key
+
+
+def _max_vectors(values: torch.Tensor) -> int:
+    """The widest row, in vectors, the GAT kernels hold in registers for
+    ``values``' type (wider rows take passes)."""
+    return (_BF16_MAX_VECTORS if values.dtype == torch.bfloat16
+            else _MAX_VECTORS)
+
+
 def _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den, s_n, dy):
-    device = _check_launch(indptr, col, {"pi": pi, "pj": pj, "mx": mx,
-                                         "den": den, "s_n": s_n},
-                           {"values_n": values_n, "dy": dy})
+    device = _check_launch(indptr, col, {"pi": pi, "pj": pj},
+                           {"values_n": values_n, "dy": dy},
+                           state={"mx": mx, "den": den, "s_n": s_n},
+                           bf16=True)
     # receiver side and sender side
     _same_rows(pi.shape[0], mx=mx, den=den, s_n=s_n, dy=dy)
     _same_rows(pj.shape[0], values_n=values_n)
@@ -542,15 +601,17 @@ def _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den, s_n, dy):
                                            mx, den, s_n, dy))
 
 
-def _gat_bwd_dpi_layout(dv: int, vec_bytes: int, n_rows: int,
-                        entries: int) -> tuple[int, int, int, int]:
+def _gat_bwd_dpi_layout(dv: int, vec_bytes: int, n_rows: int, entries: int,
+                        max_vectors: int = _MAX_VECTORS
+                        ) -> tuple[int, int, int, int]:
     """K4's ``(log_rows, unroll, reg_cap, ahead)`` for a head of ``dv``
-    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
-    n_rows`` edges per receiver on average: :func:`_windowed_rows` of
-    ``G``-lane edge groups at ``_K4_WINDOWS_PER_ROW`` (rows wider than 256
-    vectors go in passes of 256, groups of 32 lanes), and
-    :func:`_rows_instance` of ``_K4_ROWS_LINE`` and ``_K4_ROWS_NARROW``."""
-    wide = min(max(dv, 1), _MAX_VECTORS)
+    vectors of ``vec_bytes`` (:func:`~.spmm._row_vectors`: 16, 8, 4 or 2)
+    and ``entries / n_rows`` edges per receiver on average:
+    :func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K4_WINDOWS_PER_ROW`` (rows wider than ``max_vectors`` go in passes
+    of that many, groups of 32 lanes), and :func:`_rows_instance` of
+    ``_K4_ROWS_LINE`` and ``_K4_ROWS_NARROW``."""
+    wide = min(max(dv, 1), max_vectors)
     log_g = min((wide - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K4_WINDOWS_PER_ROW)
     return (log_rows,) + _rows_instance(wide, vec_bytes << log_g,
@@ -567,16 +628,16 @@ def _gat_bwd_dpi_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
                                  s_n, dy)
     n, heads, d = indptr.numel() - 1, pi.shape[1], dy.shape[2]
     _same_rows(n, pi=pi)
-    dpi = torch.empty((n, heads), dtype=torch.float32, device=device)
+    dpi = torch.empty((n, heads), dtype=pi.dtype, device=device)
     if n == 0 or heads == 0:
         return dpi
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(d, values_n, dy)
-        layout = _gat_bwd_dpi_layout(_vectors(d, vec), 16 if vec else 4, n,
-                                     col.numel())
-    _launch("gat_bwd_dpi_f32", "k4", device, *args, _ptr(dpi), n, heads, d,
-            *layout, float(slope), sweep=sweep)
+        layout = _gat_bwd_dpi_layout(
+            *_row_vectors(d, dy.element_size(), values_n, dy), n,
+            col.numel(), _max_vectors(dy))
+    _launch(*_gat_fn("gat_bwd_dpi", "k4", dy), device, *args, _ptr(dpi), n,
+            heads, d, *layout, float(slope), sweep=sweep)
     return dpi
 
 
@@ -594,16 +655,18 @@ def _rows_instance(wide: int, group_bytes: int, line=_DOT_ROWS_LINE,
     return tuple(line if group_bytes >= _DOT_LINE_BYTES else narrow)
 
 
-def _gat_bwd_rev_layout(dv: int, vec_bytes: int, n_rows: int,
-                        entries: int) -> tuple[int, int, int, int]:
+def _gat_bwd_rev_layout(dv: int, vec_bytes: int, n_rows: int, entries: int,
+                        max_vectors: int = _MAX_VECTORS
+                        ) -> tuple[int, int, int, int]:
     """K5's ``(log_rows, unroll, reg_cap, packed)`` for a head of ``dv``
-    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
-    n_rows`` edges per sender on average: K8's rows per warp
-    (:func:`_windowed_rows` of ``G``-lane edge groups at
-    ``_K8_WINDOWS_PER_ROW``; rows wider than 256 vectors go in passes of
-    256, groups of 32 lanes), :func:`_rows_instance`, and the receivers'
-    scalars packed for groups of at most ``_K5_PACK_UP_TO`` bytes."""
-    wide = min(max(dv, 1), _MAX_VECTORS)
+    vectors of ``vec_bytes`` (:func:`~.spmm._row_vectors`: 16, 8, 4 or 2)
+    and ``entries / n_rows`` edges per sender on average: K8's rows per
+    warp (:func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K8_WINDOWS_PER_ROW``; rows wider than ``max_vectors`` go in passes
+    of that many, groups of 32 lanes), :func:`_rows_instance`, and the
+    receivers' scalars packed for groups of at most ``_K5_PACK_UP_TO``
+    bytes."""
+    wide = min(max(dv, 1), max_vectors)
     log_g = min((wide - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
     group = vec_bytes << log_g
@@ -617,24 +680,26 @@ def _gat_bwd_rev_kernel(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     (``(log_rows, unroll, reg_cap, packed)``) from the sweep build of the
     library, which holds every (unroll, reg_cap) instance (``build.load``).
     ``packed`` stacks the receivers' ``(pi, mx, den, s_n)`` into ``[rows,
-    H, 4]`` for the kernel to read in one load an edge."""
+    H, 4]`` float32 for the kernel to read in one load an edge (a bfloat16
+    ``pi`` widened exactly)."""
     device, args = _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den,
                                  s_n, dy)
     n, heads, d = indptr.numel() - 1, pi.shape[1], dy.shape[2]
     _same_rows(n, pj=pj)
-    dpj = torch.empty((n, heads), dtype=torch.float32, device=device)
-    dv = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    dpj = torch.empty((n, heads), dtype=pj.dtype, device=device)
+    dv = torch.empty((n, heads, d), dtype=values_n.dtype, device=device)
     if n == 0 or heads == 0:
         return dpj, dv
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(d, values_n, dy, dv)
-        layout = _gat_bwd_rev_layout(_vectors(d, vec), 16 if vec else 4, n,
-                                     col.numel())
-    stats = torch.stack((pi, mx, den, s_n), -1) if layout[3] else None
-    _launch("gat_bwd_rev_f32", "k5", device, *args[:8], _ptr(stats),
-            args[8], _ptr(dpj), _ptr(dv), n, heads, d, *layout[:3],
-            float(slope), sweep=sweep)
+        layout = _gat_bwd_rev_layout(
+            *_row_vectors(d, dy.element_size(), values_n, dy, dv), n,
+            col.numel(), _max_vectors(dy))
+    stats = (torch.stack((pi.float(), mx, den, s_n), -1) if layout[3]
+             else None)
+    _launch(*_gat_fn("gat_bwd_rev", "k5", dy), device, *args[:8],
+            _ptr(stats), args[8], _ptr(dpj), _ptr(dv), n, heads, d,
+            *layout[:3], float(slope), sweep=sweep)
     return dpj, dv
 
 
@@ -1060,13 +1125,16 @@ def _contiguous(*ts):
 
 
 def _self_grads(self_logits, self_values, mask_self, mx, den, s_n, dy):
-    """Gradients of the self logit and self value (edge_softmax.py:1216)."""
+    """Gradients of the self logit and self value (edge_softmax.py:1216),
+    in the self inputs' types (a bfloat16 pair is computed against the
+    float32 state and rounded once, as JAX casts them)."""
     if self_logits is None:
         return None, None
     alpha = torch.exp(self_logits - mx) / den
     m_alpha = alpha if mask_self is None else alpha * mask_self
     dsl = m_alpha * (self_values * dy).sum(-1) - alpha * s_n
-    return dsl, m_alpha[..., None] * dy
+    return (dsl.to(self_logits.dtype),
+            (m_alpha[..., None] * dy).to(self_values.dtype))
 
 
 def _edge_alpha(logits, mask_e, mx, den, receivers):
@@ -1162,7 +1230,9 @@ class GatAttentionFunction(torch.autograd.Function):
         (pi, pj, values_n, self_logits, self_values, out, mx, den, indptr_r,
          col_r, indptr_s, col_s) = ctx.saved_tensors
         dy = dy.contiguous()
-        s_n = (out * dy).sum(-1)
+        # float32 for bfloat16 rows, as the state (edge_softmax.py:1121)
+        work = _work_dtype(out.dtype)
+        s_n = (out.to(work) * dy.to(work)).sum(-1)
         args = (pi, pj, values_n, mx, den, s_n, dy, ctx.slope)
         need = ctx.needs_input_grad
         dpi = gat_bwd_dpi(indptr_r, col_r, *args) if need[0] else None

@@ -8,6 +8,10 @@ edge ids are CSR positions, rows read in order) and the sender CSR for
 ``x[senders]`` (``col=eid_s``; None on a reversed graph). Each node row of
 the gradient is summed in a fixed order within one warp (several narrow
 rows share a warp), with no atomics.
+
+On the card the backward takes float32 only: a bfloat16 ``dy`` raises
+``TypeError`` (K1 over edge rows is not among the bfloat16 routes yet;
+ROADMAP.md queue 1), where a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .spmm import spmm_csr
+from .spmm import _BF16_NOT_PORTED, spmm_csr
 
 __all__ = ["fast_gather"]
 
@@ -31,6 +35,9 @@ class _GatherFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         indptr, col = ctx.saved_tensors
+        if dy.is_cuda and dy.dtype == torch.bfloat16:
+            raise TypeError("fast_gather's backward on the card (K1 over "
+                            f"edge rows) takes float32: {_BF16_NOT_PORTED}")
         return spmm_csr(indptr, col, None, None, dy.contiguous()), None, None, None
 
 

@@ -18,9 +18,17 @@ their rows (``csrc/spmm.cu``):
   heads go through scratch by sender-CSR position, and a pass after the
   sweep adds them and writes them by edge id.
 
+K1 takes float32 or bfloat16 rows (``x``, ``w`` and ``y`` of one type):
+bfloat16 rows are loaded 8, 4 or 1 to a vector, summed in float32 and
+rounded once (``csrc/vec.cuh``), as the TPU kernel sums each block with an
+f32 dot. K2 takes float32 only and raises ``TypeError`` on bfloat16. The
+plain versions take bfloat16 the same way: computed in float32 from the
+bfloat16 values, rounded once at the end.
+
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``spmm_plain`` / ``spmm_sddmm_plain``); a CUDA tensor launches the kernel
-or raises. ``launches`` counts kernel launches, and nothing else adds to it.
+or raises. ``launches`` counts kernel launches, and nothing else adds to it
+(``k1_bf16``: K1's bfloat16 variant).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from .build import load
 __all__ = ["launches", "spmm_csr", "spmm_sddmm", "spmm_plain",
            "spmm_sddmm_plain", "SpmmFunction", "spmm"]
 
-launches = {"k1": 0, "k2": 0}
+launches = {"k1": 0, "k2": 0, "k1_bf16": 0}
 
 _INT32_MAX = 2**31 - 1
 
@@ -68,8 +76,9 @@ _K2_WIDE = (4, 64)
 def _lib(sweep: bool = False) -> ctypes.CDLL:
     lib = load("spmm", sweep=sweep)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spmm_csr_f32.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
-    lib.spmm_csr_f32.restype = i32
+    for fn in ("spmm_csr_f32", "spmm_csr_bf16"):
+        getattr(lib, fn).argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+        getattr(lib, fn).restype = i32
     lib.spmm_sddmm_csr_f32.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
     lib.spmm_sddmm_csr_f32.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
@@ -97,7 +106,22 @@ def _call_on(device: torch.device, fn, *args) -> int:
 def _float4_rows(d: int, *rows) -> bool:
     """Whether the kernels load rows of ``d`` floats as float4: ``d % 4 ==
     0`` and every row operand 16-byte aligned."""
-    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
+    return _row_vectors(d, 4, *rows)[1] == 16
+
+
+def _row_vectors(d: int, elem: int, *rows) -> tuple[int, int]:
+    """``(vectors, vector bytes)`` in which the kernels load rows of ``d``
+    elements of ``elem`` bytes: float32 rows as float4 (16 bytes) where
+    ``d % 4 == 0`` and every row operand (None ones aside) is 16-byte
+    aligned, else one float; bfloat16 rows (``elem == 2``) as 8 values (16
+    bytes, ``d % 8 == 0``, 16-byte aligned), else 4 (8 bytes, ``d % 4 ==
+    0``, 8-byte aligned), else one (``csrc/vec.cuh``: bf16_vec_bytes)."""
+    for vec in (16, 8) if elem == 2 else (16,):
+        per = vec // elem
+        if d % per == 0 and all(t is None or t.data_ptr() % vec == 0
+                                for t in rows):
+            return d // per, vec
+    return d, elem
 
 
 def _windowed_rows(log_group: int, n_rows: int, entries: int,
@@ -118,7 +142,8 @@ def _windowed_rows(log_group: int, n_rows: int, entries: int,
 def _strip_rows(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
                 entries: int) -> tuple[int, int]:
     """K1's and K2's ``(log_rows, log_strip)`` for rows of ``fv`` vectors of
-    ``vec_bytes`` (16: float4, 4: float) gathered from a table of
+    ``vec_bytes`` (:func:`_row_vectors`: 16, 8, 4 or 2) gathered from a
+    table of
     ``table_rows`` rows, over ``n_rows`` output rows of ``entries / n_rows``
     edges on average.
 
@@ -172,12 +197,20 @@ def _raise_on_error(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
+# Where a float32-only kernel meets bfloat16
+_BF16_NOT_PORTED = ("bfloat16 runs on K1 and on GAT's K3, K4 and K5 only; "
+                    "this kernel's bfloat16 variant is not ported yet "
+                    "(ROADMAP.md queue 1 item 2b)")
+
+
 def _check(t, name: str, dtype, device) -> None:
     if t is None:
         return
     if t.dtype != dtype:
+        why = (f": {_BF16_NOT_PORTED}" if t.dtype == torch.bfloat16
+               and dtype == torch.float32 else "")
         raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got "
-                        f"{t.dtype}")
+                        f"{t.dtype}{why}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
@@ -185,15 +218,21 @@ def _check(t, name: str, dtype, device) -> None:
 
 
 def _check_launch(indptr, col, eid, w, *dense) -> None:
-    device = dense[0].device
+    """K1's operands: rows ``dense`` and weights ``w`` of one float type,
+    float32 or bfloat16 (a mix raises ``TypeError``), int32 CSR, all
+    contiguous on one device."""
+    device, dtype = dense[0].device, dense[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the K1 kernel takes float32 or bfloat16 rows, got "
+                        f"{dtype}")
     for i, t in enumerate(dense):
-        _check(t, f"dense operand {i}", torch.float32, device)
+        _check(t, f"dense operand {i}", dtype, device)
         if t.dim() != 2:
             raise ValueError(f"dense operand {i} must be 2-D, got "
                              f"{tuple(t.shape)}")
     for name, t in (("indptr", indptr), ("col", col), ("eid", eid)):
         _check(t, name, torch.int32, device)
-    _check(w, "w", torch.float32, device)
+    _check(w, "w", dtype, device)
     n_edges = col.numel() if col is not None else dense[0].shape[0]
     if n_edges > _INT32_MAX or dense[0].shape[1] > _INT32_MAX:
         raise ValueError("the CUDA kernels index edges with int32: at most "
@@ -210,20 +249,30 @@ def _row_ids(indptr: torch.Tensor, n_edges: int) -> torch.Tensor:
         output_size=n_edges)
 
 
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions (and the kernels) compute a ``dtype``
+    input in: float32 for bfloat16 and float16, else ``dtype`` itself."""
+    return (torch.float32 if dtype in (torch.bfloat16, torch.float16)
+            else dtype)
+
+
 def spmm_plain(indptr, col, eid, w, x):
     """``y[i] = sum_{k in [indptr[i], indptr[i+1])} w[eid[k]] * x[col[k]]``.
 
     ``col=None`` reads ``x[k]`` (rows already in grouping order),
-    ``eid=None`` reads ``w[k]``, ``w=None`` is unweighted.
+    ``eid=None`` reads ``w[k]``, ``w=None`` is unweighted. A bfloat16 ``x``
+    (and ``w``) is summed in float32 and ``y`` rounded once to bfloat16.
     """
     n_edges = col.numel() if col is not None else x.shape[0]
     rows = _row_ids(indptr, n_edges)
+    work = _work_dtype(x.dtype)
     src = x if col is None else x.index_select(0, col.long())
+    src = src.to(work)
     if w is not None:
         we = w if eid is None else w.index_select(0, eid.long())
-        src = src * we.to(src.dtype).unsqueeze(-1)
-    out = x.new_zeros((indptr.numel() - 1, x.shape[1]))
-    return out.index_add_(0, rows, src)
+        src = src * we.to(work).unsqueeze(-1)
+    out = src.new_zeros((indptr.numel() - 1, x.shape[1]))
+    return out.index_add_(0, rows, src).to(x.dtype)
 
 
 def spmm_sddmm_plain(indptr, col, eid, w, dy, x):
@@ -234,15 +283,16 @@ def spmm_sddmm_plain(indptr, col, eid, w, dy, x):
     """
     n_edges = col.numel()
     rows = _row_ids(indptr, n_edges)
-    dyv = dy.index_select(0, col.long())
+    work = _work_dtype(x.dtype)
+    dyv = dy.index_select(0, col.long()).to(work)
     ids = (eid.long() if eid is not None
            else torch.arange(n_edges, device=dy.device))
     scaled = dyv if w is None else dyv * w.index_select(0, ids).to(
-        dyv.dtype).unsqueeze(-1)
-    dx = x.new_zeros(x.shape).index_add_(0, rows, scaled)
-    dots = (dyv * x.index_select(0, rows)).sum(-1)
+        work).unsqueeze(-1)
+    dx = dyv.new_zeros(x.shape).index_add_(0, rows, scaled)
+    dots = (dyv * x.index_select(0, rows).to(work)).sum(-1)
     dw = dots.new_empty(dots.shape).index_copy_(0, ids, dots)
-    return dx, dw
+    return dx.to(x.dtype), dw.to(x.dtype if w is None else w.dtype)
 
 
 # ---- kernel wrappers -------------------------------------------------------
@@ -256,17 +306,20 @@ def _spmm_csr_kernel(indptr, col, eid, w, x, layout=None):
     y = torch.empty((n_rows, d), dtype=x.dtype, device=x.device)
     if n_rows == 0 or d == 0:
         return y
-    vec = _float4_rows(d, x, y)
+    fv, vec_bytes = _row_vectors(d, x.element_size(), x, y)
+    bf16 = x.dtype == torch.bfloat16
     lib = _lib(sweep=layout is not None)
     if layout is None:
         n_edges = col.numel() if col is not None else x.shape[0]
-        layout = _spmm_layout(d // 4 if vec else d, 16 if vec else 4,
-                              x.shape[0], n_rows, n_edges)
-    code = _call_on(x.device, lib.spmm_csr_f32, _ptr(indptr), _ptr(col),
+        layout = _spmm_layout(fv, vec_bytes, x.shape[0], n_rows, n_edges)
+    # the float32 library takes whether rows are float4, the bfloat16 one
+    # the vector's bytes
+    fn = "spmm_csr_bf16" if bf16 else "spmm_csr_f32"
+    code = _call_on(x.device, getattr(lib, fn), _ptr(indptr), _ptr(col),
                     _ptr(eid), _ptr(w), _ptr(x), _ptr(y), n_rows, d,
-                    int(vec), *layout)
-    launches["k1"] += 1
-    _raise_on_error(lib, code, "spmm_csr_f32")
+                    vec_bytes if bf16 else int(vec_bytes == 16), *layout)
+    launches["k1_bf16" if bf16 else "k1"] += 1
+    _raise_on_error(lib, code, fn)
     return y
 
 
@@ -347,7 +400,8 @@ def spmm_sddmm(indptr, col, eid, w, dy, x):
     """K2 on CUDA tensors, :func:`spmm_sddmm_plain` on CPU tensors: ``(dx,
     dw)`` over a sender CSR, for rows ``dy``, ``x`` of ``[., D]`` (``w``,
     ``dw``: ``[E]``) or ``[., H, D]`` (``[E, H]``, every head in one
-    launch)."""
+    launch). The plain version takes bfloat16 as :func:`spmm_plain` does;
+    the kernel raises on it."""
     if _route(x) == "cpu":
         return spmm_sddmm_plain(indptr, col, eid, w, dy, x)
     return _spmm_sddmm_kernel(indptr, col, eid, w, dy, x)

@@ -1,7 +1,8 @@
 """The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2),
 edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11; dot attention's K6,
 K7, K8), the per-edge dot (K13) and the segment max (K14 and its
-backward).
+backward); K1, K3, K4 and K5 also on bfloat16, and every other route's
+raise on it.
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
   held to) against a dense adjacency product or per-edge loops in float64.
@@ -1034,3 +1035,129 @@ def test_start_vector_on_card_equals_cpu():
         torch.testing.assert_close(start_vector((300, 2), dt, "cuda").cpu(),
                                    start_vector((300, 2), dt, "cpu"),
                                    rtol=0, atol=0)
+
+
+# ---- bfloat16: K1, K3, K4, K5 ----------------------------------------------
+
+def _assert_bf16_close(got, want):
+    """Kernel and plain version each round one float32 sum to bfloat16;
+    their sums differ in order only (float32: the float32 cases' 1e-4), so
+    a rounding may land one bfloat16 ulp apart."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.double().cpu(), want.double().cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 7)
+    err = (g - w).abs()
+    assert bool((err <= ulp + 1e-4).all()), float((err / (ulp + 1e-4)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 7, 8, 12, 128])
+def test_spmm_bf16_kernel_matches_plain_on_card(d):
+    """K1 on bfloat16 rows and weights: 16-byte vectors (d = 8, 128), 8-byte
+    ones (12) and single values (1, 7), over the receiver CSR (nodes 40-49
+    have no in-edges) and the sender CSR, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(6, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn(g.num_nodes, d, device="cuda", generator=gen).bfloat16()
+    w = g.edge_weight.bfloat16()
+    before = dict(S.launches)
+    for args in ((g.indptr_r, g.col_r, None, None, x),
+                 (g.indptr_r, g.col_r, None, w, x),
+                 (g.indptr_s, g.col_s, g.eid_s, w, x)):
+        got = S.spmm_csr(*args)
+        _assert_bf16_close(got, S.spmm_plain(*args))
+        assert (got[40:] == 0).all()          # no in-edges (no out-edges)
+    torch.cuda.synchronize()
+    assert S.launches["k1_bf16"] == before["k1_bf16"] + 3
+    assert S.launches["k1"] == before["k1"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 7), (2, 12), (1, 8), (4, 32),
+                                     (1, 128), (1, 264)])
+def test_gat_bf16_kernels_match_plain_on_card(heads, d):
+    """K3, K4 and K5 on bfloat16 rows and scalars with the float32 state:
+    16-byte vectors (8, 32, 128; 264: 33 vectors, two passes), 8-byte ones
+    (12) and single values (7); nodes 40-49 have no in-edges. Outputs in
+    their primals' types; m, s at the float32 tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g, x = _attention_inputs(heads, d, "cuda")
+    x = {k: v.bfloat16() for k, v in x.items()}
+    before = dict(ES.launches)
+    args = (g.indptr_r, g.col_r, x["pi"], x["pj"], x["v"], SLOPE)
+    (num, m, s), (pnum, pm, ps) = (ES.gat_softmax(*args),
+                                   ES.gat_softmax_plain(*args))
+    _assert_bf16_close(num, pnum)
+    for a, b in ((m, pm), (s, ps)):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    assert torch.isneginf(pm[40:]).all() and (num[40:] == 0).all()
+    out, mx, den = ES.finalize_softmax(pnum, pm, ps, x["sl"], x["sv"])
+    s_n = (out.float() * x["dy"].float()).sum(-1)
+    bwd = (x["pi"], x["pj"], x["v"], mx, den, s_n, x["dy"], SLOPE)
+    _assert_bf16_close(ES.gat_bwd_dpi(g.indptr_r, g.col_r, *bwd),
+                       ES.gat_bwd_dpi_plain(g.indptr_r, g.col_r, *bwd))
+    for a, b in zip(ES.gat_bwd_rev(g.indptr_s, g.col_s, *bwd),
+                    ES.gat_bwd_rev_plain(g.indptr_s, g.col_s, *bwd)):
+        _assert_bf16_close(a, b)
+    torch.cuda.synchronize()
+    assert {k: ES.launches[k] - before[k] for k in before
+            if ES.launches[k] != before[k]} == {"k3_bf16": 1, "k4_bf16": 1,
+                                                "k5_bf16": 1}
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_refuse_a_mix_on_card():
+    """float32 weights with bfloat16 rows (K1), a float32 pi with bfloat16
+    values (K3) or a bfloat16 state (K4): TypeError, nothing launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g, x = _attention_inputs(2, 8, "cuda")
+    b = {k: v.bfloat16() for k, v in x.items()}
+    before = {**S.launches, **ES.launches}
+    with pytest.raises(TypeError):
+        S.spmm_csr(g.indptr_r, g.col_r, None, g.edge_weight,
+                   b["v"][:, 0].contiguous())
+    with pytest.raises(TypeError):
+        ES.gat_softmax(g.indptr_r, g.col_r, x["pi"], b["pj"], b["v"], SLOPE)
+    with pytest.raises(TypeError):
+        ES.gat_bwd_dpi(g.indptr_r, g.col_r, b["pi"], b["pj"], b["v"],
+                       b["pi"], b["pi"], b["pi"], b["dy"], SLOPE)
+    assert {**S.launches, **ES.launches} == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["K2", "K6-K8", "K9-K11", "K12", "K13",
+                                   "K14", "gather backward"])
+def test_float32_only_routes_raise_on_bf16_on_card(route):
+    """Every kernel route but K1 and K3-K5 raises TypeError naming bfloat16
+    on a bfloat16 CUDA tensor; there is no cast to float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(9, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n, ne = g.num_nodes, g.num_edges
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+    x, w = rn(n, 8).requires_grad_(), rn(ne).requires_grad_()
+    q = rn(n, 2, 4)
+    ops = tgnn.ops
+    calls = {
+        "K2": lambda: ops.propagate(ops.e_mul_xj, g, "sum", xj=x,
+                                    e=w).float().sum().backward(),
+        "K6-K8": lambda: TA.dot_attention(g, q, q, q),
+        "K9-K11": lambda: TA.gatv2_attention(g, q, q, rn(4, 2), SLOPE),
+        "K12": lambda: TA.attention_aggregate(g, rn(ne, 2), q,
+                                              node_values=True),
+        "K13": lambda: TA.dot_attention_logits(g, q, q),
+        "K14": lambda: ops.aggregate_neighbors(g, "max", rn(ne, 8)),
+        "gather backward": lambda: ops.apply_edges(
+            ops.copy_xj, g, xj=x).float().sum().backward(),
+    }
+    with pytest.raises(TypeError, match="bfloat16"):
+        calls[route]()
