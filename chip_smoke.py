@@ -103,6 +103,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    step, K3's, K4's and K5's twice a GAT step, no float32 kernel; one step
    of each card vs CPU in bfloat16 and in float64, and every parameter
    gradient float32.
+   3p: heterogeneous graphs, ``benchmarks/hetero_temporal_bench_r5.py:
+   57-111``: two node types of 65,536 nodes, three relations of 350,000
+   uniform edges each (``user rates item``, ``item rated_by user``, ``user
+   follows user``), ``HeteroGraphConv({rates: SAGEConv(128, 128),
+   rated_by: SAGEConv(128, 128), follows: GraphConv(128, 128)})``: the
+   forward and the forward and backward through ``x_user`` timed (host
+   median, device ms), 10 Adam steps on the layer and ``x_user`` with the
+   benchmark's loss, profiled, K1 3 times a forward and 5 a step (one
+   backward per relation from ``user``); one step card vs CPU in float64.
+   3q: recurrences, ``:115-137``: ``GNNRecurrence(TGCNCell(128, 128))`` and
+   ``GNNRecurrence(GConvGRUCell(128, 128, 2))`` over T = 8 steps on
+   ``rand_graph(65,536, 1,000,000, seed=2)``: each forward timed, GConvGRU
+   with its default λ_max (one ``cheb_lambda_max``, 51 K1 launches at D =
+   1, a call) and with ``lambda_max=`` computed once (48 at D = 128), both
+   profiled; 10 Adam steps of TGCN on a regression loss (72 K1 a step);
+   TGCN and GConvGRU card vs CPU in float64 over the first 2 steps, and
+   GConvLSTM, DCGRU, EvolveGCNO and A3TGCN at d = 16 over T = 8, forward
+   and backward, card vs CPU with their K1 launches. Before them, 2i holds
+   K1 at their shapes to the plain version and ``torch.sparse.mm`` and
+   times it: 3p's relation receiver CSR at D = 128 and its sender CSR cut
+   to the ``user`` rows, 3q's receiver CSR at D = 128 and D = 1 and its
+   sender CSR at D = 128.
    3m and 3n: bench.py's north star, neighbor-sampled GraphSAGE at
    ogbn-products scale (its synthetic analog, bench.py:387-464: N =
    2,449,029, E = 123,718,280, skewed in-degrees, 196,615 train seeds, X
@@ -141,8 +163,9 @@ K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees (``--sweep
 k12,k4,skew`` runs the named sweeps only; with k1, K1 also at 2g's shapes);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and the train phases 3b, 3d, 3e, 3f, 3l, 3o, 3m and 3n, with ``--profile``
-their profiles; ``--only 3m,3n`` runs 2g with them:
+and the train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3m and 3n, with
+``--profile`` their profiles; 3o, 3p and 3q always profile; ``--only
+3p,3q`` runs 2i with them, ``--only 3m,3n`` 2g:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
 """
@@ -3608,6 +3631,21 @@ def sage_loss(logits, nid, y):
         logits[:SAGE_BS], y.index_select(0, nid[:SAGE_BS]))
 
 
+def k1_csr_case(res, card, label, paths, indptr, col, eid, w, vals, d,
+                gen) -> tuple:
+    """K1 over a square CSR (weights ``w`` or None) on a random ``[rows,
+    d]`` source table, held and timed by :func:`k1_timed_case` with
+    ``torch.sparse.mm`` over the same CSR (values ``vals``) as the library
+    yardstick; returns K1's arguments."""
+    n_rows = indptr.numel() - 1
+    x = torch.randn(n_rows, d, generator=gen, device=indptr.device)
+    a = torch.sparse_csr_tensor(indptr, col, vals, (n_rows, n_rows))
+    args = (indptr, col, eid, w, x)
+    k1_timed_case(res, card, label, paths, args,
+                  lambda: torch.sparse.mm(a, x))
+    return args
+
+
 def sage_kernel_cases(res, card, gm, blocks) -> list:
     """Phase 2g: K1 at the shapes 3m and 3n give it, held to the plain
     version and ``torch.sparse.mm`` and timed (:func:`k1_timed_case`). 3n's
@@ -3620,14 +3658,8 @@ def sage_kernel_cases(res, card, gm, blocks) -> list:
     gen = torch.Generator(device=dev).manual_seed(21)
     cases = []
 
-    def case(label, paths, indptr, col, eid, w, vals, d):
-        n_rows = indptr.numel() - 1
-        x = torch.randn(n_rows, d, generator=gen, device=dev)
-        a = torch.sparse_csr_tensor(indptr, col, vals, (n_rows, n_rows))
-        args = (indptr, col, eid, w, x)
-        k1_timed_case(res, card, label, paths, args,
-                      lambda: torch.sparse.mm(a, x))
-        cases.append((label, args))
+    def case(label, *args):
+        cases.append((label, k1_csr_case(res, card, label, *args, gen)))
 
     if blocks is not None:
         b0, b1 = blocks
@@ -3921,6 +3953,328 @@ def k1_in_step(res, kern) -> None:
                 f"{r['bound_ms']:.4f} ms)")
 
 
+# ---- phases 2i, 3p and 3q: heterogeneous and temporal graphs --------------
+
+# benchmarks/hetero_temporal_bench_r5.py: 3p (:57-111) two node types of
+# 65,536 nodes and three relations of 350,000 uniform edges each, drawn by
+# numpy.random.default_rng(0) in its order, d = 128; 3q (:115-137) T = 8
+# steps on rand_graph(65,536, 1,000,000, seed=2), d = 128
+HT_USERS = HT_ITEMS = 65_536
+HT_REL_EDGES = 350_000
+HT_RELATIONS = (("user", "rates", "item"), ("item", "rated_by", "user"),
+                ("user", "follows", "user"))
+HT_T, HT_N, HT_E = 8, 65_536, 1_000_000
+# 3q's card-vs-CPU checks: the first HT_CHECK_T steps of the sequence at
+# d = 128 (a step of the recurrence already carries its state into the
+# next); the other cells run the whole sequence at HT_SMALL_D
+HT_CHECK_T, HT_SMALL_D = 2, 16
+# K1 launches of one cheb_lambda_max call: 50 power iterations and the
+# closing Rayleigh quotient, one SpMM at D = 1 each
+CHEB_LAMBDA_K1 = 50 + 1
+# 3q's TGCN and A3TGCN card vs CPU: the first GCNConv of each gate ends in
+# relu, whose kink passes a pre-activation's cotangent or not by its sign.
+# A float32 pre-activation (a 128-wide product of O(1) terms and a ~15-term
+# sum: rounding ~1e-6 at a spread ~1) falls on the other side of 0 than in
+# float64 with probability ~2 * 1e-6 * 0.4 = 8e-7: ~13 of one gate's
+# 16.7M pre-activations over HT_CHECK_T steps at N = 65,536. A flip moves
+# one entry of that layer's bias gradient by its cotangent g, against a
+# norm of ~|g| sqrt(128 N HT_CHECK_T) (terms of random sign): 2.4e-4 each,
+# ~9e-4 for 13 (the weight gradient alike). On the CPU at N = 3,000,
+# float32 against float64, one flip read 2.1e-3 and, with gelu in place
+# of relu, the same gradient 7e-7. Held to 10x the estimate.
+RELU_GRAD_NORM_RTOL = 1e-2
+
+
+def timed_calls(name: str, fn, per_call: dict, calls: int = 10) -> dict:
+    """``fn``'s kernel launches in one call, checked against ``per_call``;
+    the host's median over ``calls`` calls, each synchronised; and the
+    card's own time per call (:func:`device_ms`)."""
+    fn()
+    torch.cuda.synchronize()
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts(name, launches, per_call, steps=1)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = device_ms(fn, calls=5)
+    log(f"  {name}: host median {statistics.median(times):.3f} ms/call "
+        f"(all {[round(t, 3) for t in times]}), device {dev_ms:.3f} ms/call;"
+        f" launches a call {({k: v for k, v in launches.items() if v})}")
+    return {"median_ms": statistics.median(times), "ms": times,
+            "device_ms": dev_ms, "launches": launches}
+
+
+def hetero_conv(M, dev):
+    """3p's layer: SAGE on the two rating relations, GraphConv on
+    ``follows`` (the benchmark's, seeds 0, 1, 2)."""
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+    return M.HeteroGraphConv({
+        HT_RELATIONS[0]: M.SAGEConv(D, D, generator=gen(0), device=dev),
+        HT_RELATIONS[1]: M.SAGEConv(D, D, generator=gen(1), device=dev),
+        HT_RELATIONS[2]: M.GraphConv(D, D, generator=gen(2), device=dev)})
+
+
+def hetero_loss(out):
+    """The benchmark's loss: ``(sum out_user^2 + sum out_item^2) * 1e-6``."""
+    return (out["user"].square().sum() + out["item"].square().sum()) * 1e-6
+
+
+def hetero_phase(gnn, dev, card) -> tuple:
+    """2i (3p's K1 cases) and 3p: the forward, the forward
+    and backward through ``x_user`` (the benchmark's two rows) and 10 Adam
+    steps on the layer's parameters and ``x_user``, each with its K1
+    launches checked against the count stated from the code, the steps
+    profiled; one step card vs CPU in float64 (:func:`compare_model`).
+    Returns the results and ``{"k1": 2i's cases}``."""
+    from graphneuralnetworks_tpu_torch import models as M
+
+    log("phase 3p: HeteroGraphConv(SAGE, SAGE, GraphConv) over two types of "
+        f"{HT_USERS} nodes and three relations of {HT_REL_EDGES} edges, "
+        f"d = {D} (benchmarks/hetero_temporal_bench_r5.py:57-111)")
+    rng = np.random.default_rng(0)
+    sizes = {"user": HT_USERS, "item": HT_ITEMS}
+    rels = {et: (rng.integers(0, sizes[et[0]], HT_REL_EDGES, dtype=np.int64),
+                 rng.integers(0, sizes[et[2]], HT_REL_EDGES, dtype=np.int64))
+            for et in HT_RELATIONS}
+    t0 = time.perf_counter()
+    hg = gnn.heterograph(rels, num_nodes=sizes, device=dev)
+    torch.cuda.synchronize()
+    res = {"graph_build_s": time.perf_counter() - t0}
+    x = {t: torch.as_tensor(rng.standard_normal((n, D)), dtype=torch.float32,
+                            device=dev) for t, n in sizes.items()}
+    log(f"  heterograph (three relations grouped on the card): "
+        f"{res['graph_build_s']:.2f} s")
+    conv = hetero_conv(M, dev)
+    # K1 a step: one forward per relation (SAGE mean and GraphConv sum: one
+    # SpMM each), and one sender-CSR backward per relation whose source
+    # type needs a gradient: x_user's, in "rates" and "follows"
+    fwd_k1 = len(conv.etypes)
+    step_k1 = fwd_k1 + sum(et[0] == "user" for et in conv.etypes)
+
+    log("phase 2i: K1 at 3p's shapes vs the plain version")
+    kern = {"k1": {"err": 0.0, "variants": []}}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rg = hg.relation_graph(HT_RELATIONS[0])
+    ones = torch.ones(HT_REL_EDGES, device=dev)
+    k1_csr_case(kern, card, "3p relation fwd receiver-CSR D=128",
+                f"3p HeteroGraphConv fwd, one a relation ({fwd_k1}/step)",
+                rg.indptr_r, rg.col_r, None, None, ones, D, gen)
+    # the sender CSR cut to the source type's rows (both types have
+    # HT_USERS nodes here, so the cut CSR stays square)
+    k1_csr_case(kern, card, "3p relation bwd sender-CSR D=128",
+                f"3p bwd of the relations from user ({step_k1 - fwd_k1}"
+                "/step)", rg.indptr_s[: HT_USERS + 1], rg.col_s, rg.eid_s,
+                None, ones, D, gen)
+    log_times(kern, 40)
+
+    def fwd():
+        with torch.no_grad():
+            return conv(hg, x)
+
+    xu = x["user"].clone().requires_grad_()
+
+    def fwd_bwd():
+        loss = hetero_loss(conv(hg, {"user": xu, "item": x["item"]}))
+        return torch.autograd.grad(loss, [xu])[0]
+
+    res["fwd"] = timed_calls("3p fwd", fwd, {"k1": fwd_k1})
+    res["fwd_bwd_x_user"] = timed_calls("3p fwd+bwd(x_user)", fwd_bwd,
+                                        {"k1": step_k1})
+    log(f"phase 3p: {STEPS} Adam steps (lr=1e-3) on the layer's parameters "
+        "and x_user, the benchmark's loss")
+    xu_p = torch.nn.Parameter(x["user"].clone())
+
+    def loss_fn(m, g, xu, xi):
+        return hetero_loss(m(g, {"user": xu, "item": xi}))
+
+    res["train"] = train_phase("HeteroGraphConv", conv, (hg, xu_p, x["item"]),
+                               loss_fn, {"k1": step_k1}, True,
+                               params=[*conv.parameters(), xu_p])
+    log("phase 3p (3c): one step of the layer on the card vs the CPU plain "
+        "path in float64, the gradient of x_user too (extra0)")
+
+    def step(m, g, xi, extra):
+        out = m(g, {"user": extra[0], "item": xi})
+        return torch.cat([out["user"], out["item"]]), hetero_loss(out)
+
+    res["vs_cpu"] = compare_model(
+        "HeteroGraphConv", conv, hg, x["item"], None,
+        [x["user"].clone().requires_grad_()], forward=step)
+    return res, kern
+
+
+def temporal_models(M, dev, d):
+    """3q's recurrences at width ``d`` (generators seeded 3 to 8)."""
+    def gen(seed):
+        return dict(generator=torch.Generator().manual_seed(seed),
+                    device=dev)
+    return {"TGCN": M.TGCN(d, d, **gen(3)),
+            "GConvGRU": M.GConvGRU(d, d, 2, **gen(4)),
+            "GConvLSTM": M.GConvLSTM(d, d, 2, **gen(5)),
+            "DCGRU": M.DCGRU(d, d, 2, **gen(6)),
+            "EvolveGCNO": M.EvolveGCNO(d, d, **gen(7)),
+            "A3TGCN": M.A3TGCN(d, d, **gen(8))}
+
+
+def temporal_k1(name: str, t: int, backward: bool) -> int:
+    """K1 launches of one call of 3q's model ``name`` over ``t`` steps
+    (inputs that need no gradient; with ``backward``, its parameters'
+    backward too), counted from the code:
+    - TGCN (A3TGCN's recurrence): three gates of two GCNConvs, one SpMM
+      each (W after the propagation at in = out); backward, layer 2's of
+      each gate (layer 1 propagates the input);
+    - GConvGRU: six ChebConvs k=2, one hop each; backward, the three on
+      the state, but at step 0 only conv_h_h's (r * h needs a gradient, the
+      zero h does not);
+    - GConvLSTM: eight ChebConvs k=2; backward, the four on the state from
+      step 1 on;
+    - DCGRU: three DConvs k=2, one hop over g and one over its reverse;
+      backward, the three from step 1 on, and dconv_c's at step 0 (its h *
+      r needs a gradient);
+    - EvolveGCNO: one GCNConv on the input; no backward SpMM (the weight
+      comes after the propagation).
+    The default ChebConv cells add one cheb_lambda_max (CHEB_LAMBDA_K1) a
+    call; these counts take lambda_max as given."""
+    fwd, bwd = {"TGCN": (6, 3 * t), "A3TGCN": (6, 3 * t),
+                "GConvGRU": (6, 1 + 3 * (t - 1)),
+                "GConvLSTM": (8, 4 * (t - 1)),
+                "DCGRU": (6, 2 + 6 * (t - 1)), "EvolveGCNO": (1, 0)}[name]
+    return fwd * t + (bwd if backward else 0)
+
+
+def temporal_phase(gnn, dev, card) -> tuple:
+    """2i (3q's K1 cases) and 3q: TGCN's and GConvGRU's
+    forward over T = 8 steps (GConvGRU with the default λ_max, once a call,
+    and with lambda_max= computed once), cheb_lambda_max alone, 10 Adam
+    steps of TGCN on a regression loss, each with its K1 launches checked
+    (D = 128 and D = 1 apart: the power iteration is the only D = 1 work),
+    profiled; card vs CPU in float64 over the first HT_CHECK_T steps, and
+    GConvLSTM, DCGRU, EvolveGCNO and A3TGCN at d = HT_SMALL_D over all T,
+    forward and backward, not timed. Returns the results and ``{"k1":
+    2i's cases}``."""
+    from graphneuralnetworks_tpu_torch import models as M
+
+    log(f"phase 3q: GNNRecurrence(TGCNCell({D}, {D})) and "
+        f"GNNRecurrence(GConvGRUCell({D}, {D}, 2)) over T = {HT_T} steps on "
+        f"rand_graph({HT_N}, {HT_E}, seed=2) "
+        "(benchmarks/hetero_temporal_bench_r5.py:115-137)")
+    t0 = time.perf_counter()
+    g = gnn.rand_graph(HT_N, HT_E, seed=2, device=dev)
+    torch.cuda.synchronize()
+    res = {"graph_build_s": time.perf_counter() - t0, "vs_cpu": {}}
+    gen = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn(HT_T, HT_N, D, generator=gen, device=dev)
+    target = torch.randn(HT_T, HT_N, D, generator=gen, device=dev)
+
+    log("phase 2i: K1 at 3q's shapes vs the plain version")
+    kern = {"k1": {"err": 0.0, "variants": []}}
+    ones = torch.ones(HT_E, device=dev)
+    for label, paths, csr, d in (
+            ("3q fwd receiver-CSR D=128",
+             f"3q TGCN and GConvGRU fwd (6/step, {6 * HT_T}/call)",
+             (g.indptr_r, g.col_r, None), D),
+            ("3q bwd sender-CSR D=128", f"3q TGCN bwd (3/step, "
+             f"{3 * HT_T}/call)", (g.indptr_s, g.col_s, g.eid_s), D),
+            ("3q fwd receiver-CSR D=1",
+             f"3q cheb_lambda_max ({CHEB_LAMBDA_K1}/call)",
+             (g.indptr_r, g.col_r, None), 1)):
+        k1_csr_case(kern, card, label, paths, *csr, None, ones, d, gen)
+    log_times(kern, 40)
+
+    models = temporal_models(M, dev, D)
+    tgcn, gru = models["TGCN"], models["GConvGRU"]
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    res["cheb_lambda_max"] = timed_calls(
+        "3q cheb_lambda_max (D = 1)", lambda: M.cheb_lambda_max(g),
+        {"k1": CHEB_LAMBDA_K1})
+    lam = M.cheb_lambda_max(g)
+    log(f"  lambda_max = {float(lam[0]):.6f}")
+    res["tgcn_fwd"] = timed_calls(
+        "3q TGCN fwd (D = 128)", no_grad(lambda: tgcn(g, x)),
+        {"k1": temporal_k1("TGCN", HT_T, False)})
+    res["gconvgru_fwd"] = timed_calls(
+        "3q GConvGRU fwd, default lambda_max (D = 128 and D = 1)",
+        no_grad(lambda: gru(g, x)),
+        {"k1": temporal_k1("GConvGRU", HT_T, False) + CHEB_LAMBDA_K1})
+    res["gconvgru_fwd_lambda"] = timed_calls(
+        "3q GConvGRU fwd, lambda_max given (D = 128)",
+        no_grad(lambda: gru(g, x, lambda_max=lam)),
+        {"k1": temporal_k1("GConvGRU", HT_T, False)})
+    for key, fn in (("gconvgru_fwd", lambda: gru(g, x)),
+                    ("gconvgru_fwd_lambda",
+                     lambda: gru(g, x, lambda_max=lam))):
+        log(f"  profile of {key}:")
+        res[key]["profile"] = profile_calls(no_grad(fn), None)
+
+    log(f"phase 3q: TGCN, {STEPS} Adam steps (lr=1e-3), mean squared error "
+        "against a target drawn from the seed")
+
+    def loss_fn(m, g, x, target):
+        return (m(g, x) - target).square().mean()
+
+    res["tgcn_train"] = train_phase(
+        "TGCN", tgcn, (g, x, target), loss_fn,
+        {"k1": temporal_k1("TGCN", HT_T, True)}, True)
+
+    log(f"phase 3q (3c): TGCN and GConvGRU (lambda_max given) over the first "
+        f"{HT_CHECK_T} steps, the card vs the CPU plain path in float64")
+
+    def seq_step(target, **call):
+        """A recurrence's output and its squared error against
+        ``target`` (its CPU float64 copy on the CPU side)."""
+        on_cpu = target.cpu().double()
+
+        def run(m, g, x, extra):
+            y = m(g, x, **{k: v.to(x.device, x.dtype)
+                           for k, v in call.items()})
+            return y, (y - (target if x.is_cuda else on_cpu)).square().mean()
+        return run
+
+    xc, tc = x[:HT_CHECK_T].contiguous(), target[:HT_CHECK_T]
+    res["vs_cpu"]["tgcn"] = compare_model(
+        "TGCN", tgcn, g, xc, None, forward=seq_step(tc),
+        grad_rtol=RELU_GRAD_NORM_RTOL)
+    res["vs_cpu"]["gconvgru"] = compare_model(
+        "GConvGRU", gru, g, xc, None, forward=seq_step(tc, lambda_max=lam))
+    del models, tgcn, gru, x, target
+
+    log(f"phase 3q (3c): GConvLSTM (lambda_max given), DCGRU, EvolveGCNO and "
+        f"A3TGCN at d = {HT_SMALL_D} over T = {HT_T}, forward and backward, "
+        "the card vs the CPU plain path in float64, with K1's launches")
+    small = temporal_models(M, dev, HT_SMALL_D)
+    xs = torch.randn(HT_T, HT_N, HT_SMALL_D, generator=gen, device=dev)
+    for name in ("GConvLSTM", "DCGRU", "EvolveGCNO", "A3TGCN"):
+        out_shape = (HT_N, HT_SMALL_D) if name == "A3TGCN" else xs.shape
+        target = torch.randn(out_shape, generator=gen, device=dev)
+        call = {"lambda_max": lam} if name == "GConvLSTM" else {}
+        before = read_counts()
+        # A3TGCN: its scores' biases shift every step's score of a node
+        # alike, which the softmax over time does not see (0 gradient)
+        res["vs_cpu"][name] = compare_model(
+            name, small[name], g, xs, None,
+            forward=seq_step(target, **call),
+            grad_rtol=(RELU_GRAD_NORM_RTOL if name == "A3TGCN"
+                       else GRAD_NORM_RTOL),
+            zero_grads=(("dense1.bias", "dense2.bias") if name == "A3TGCN"
+                        else ()))
+        expect_launched(name, before,
+                        {"k1": temporal_k1(name, HT_T, True)})
+    return res, kern
+
+
 # ---- phase 4 ---------------------------------------------------------------
 
 def cora_phase(dev) -> dict:
@@ -4028,8 +4382,9 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f,2h and the "
-                         "train phases 3b, 3d, 3e, 3f, 3l, 3o, 3m and 3n; "
-                         "3m and 3n run last, with 2g), then stop without a "
+                         "train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3m "
+                         "and 3n; 3p and 3q run 2i's cases with them, 3m "
+                         "and 3n run last, with 2g), then stop without a "
                          "result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
@@ -4083,6 +4438,15 @@ def main() -> int:
                      "2e": lambda: sddmm_phase(g, card),
                      "2f": lambda: segment_phase(g, gb, card)}
     kern, only_train = {}, {}
+
+    def merge_k1(extra):
+        """Add the K1 cases of 2g or 2i to phase 2's."""
+        k1 = kern.setdefault("k1", {"err": 0.0, "variants": []})
+        k1["err"] = max(k1["err"], extra["k1"]["err"])
+        k1["variants"] += extra["k1"]["variants"]
+
+    ht_phases = {"3p": lambda: hetero_phase(gnn, g.device, card),
+                 "3q": lambda: temporal_phase(gnn, g.device, card)}
     only = args.only.split(",") if args.only else None
     sage_which = [p for p in ("3m", "3n") if only is None or p in only]
     for phase in (only if only else kernel_phases):
@@ -4091,7 +4455,10 @@ def main() -> int:
                       "3l": propagation_phase, "3o": precision_phase}
         if phase in sage_which:
             continue
-        if phase in train_only:
+        if phase in ht_phases:
+            only_train[phase], extra = ht_phases[phase]()
+            merge_k1(extra)
+        elif phase in train_only:
             only_train[phase] = train_only[phase](*node_inputs(g),
                                                   args.profile)[0]
         else:
@@ -4107,9 +4474,7 @@ def main() -> int:
         res, sage_kern = sage_phases(
             gnn, g.device, card, sage_which, args.profile,
             bool(args.sweep) and "k1" in args.sweep.split(","))
-        k1 = kern.setdefault("k1", {"err": 0.0, "variants": []})
-        k1["err"] = max(k1["err"], sage_kern["k1"]["err"])
-        k1["variants"] += sage_kern["k1"]["variants"]
+        merge_k1(sage_kern)
         return res
 
     if args.only:
@@ -4135,6 +4500,14 @@ def main() -> int:
     bf16_res, _ = precision_phase(*node_inputs(g), args.profile)
     main_res["vs_cpu"].update(bf16_res.pop("vs_cpu"))
     main_res.update(bf16_res)
+    main_res["hetero"], extra = ht_phases["3p"]()
+    merge_k1(extra)
+    main_res["vs_cpu"]["hetero"] = main_res["hetero"].pop("vs_cpu")
+    main_res["temporal"], extra = ht_phases["3q"]()
+    merge_k1(extra)
+    main_res["vs_cpu"].update(
+        {f"temporal_{k}": v
+         for k, v in main_res["temporal"].pop("vs_cpu").items()})
     main_res["tud_batch"] = tud
     sage = run_sage()
     for key in ("sage_host", "sage_device"):

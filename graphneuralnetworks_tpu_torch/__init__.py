@@ -30,6 +30,21 @@ Sampled training on large graphs: ``gnn.NeighborLoader`` (the C++ sampler,
 groupings are built on the card (``gnn.device_graph``), and
 ``sampling.Prefetcher`` samples ahead in threads; ``gnn.DeviceSampler``
 samples on the card itself, with ``apply_blocks`` for its per-layer blocks.
+
+Heterogeneous graphs: ``gnn.heterograph`` builds typed node sets and
+relations (each relation's groupings built once, on the card), and
+``models.HeteroGraphConv`` runs one layer per relation. Temporal graphs:
+``gnn.TemporalGraph`` holds snapshots, and ``models.GNNRecurrence`` runs a
+recurrent cell (``TGCNCell``, ``GConvGRUCell``, ...) over ``[T, N, D]``
+features on one graph or over the snapshots::
+
+    hg = gnn.heterograph({("user", "rates", "item"): (s, r)},
+                         num_nodes={"user": 100, "item": 50}, device="cpu")
+    conv = M.HeteroGraphConv({("user", "rates", "item"):
+                              M.SAGEConv(16, 8, device="cpu")})
+    out = conv(hg, {"user": xu, "item": xi})       # {"item": [50, 8]}
+    rnn = M.TGCN(16, 8, device="cpu")
+    h = rnn(g, x_seq)                               # [T, N, 8]
 """
 
 import torch
@@ -61,6 +76,11 @@ from . import native, sampling, device_sampler  # noqa: E402
 from .sampling import (sample_neighbors, induced_subgraph,  # noqa: E402
                        NeighborLoader)
 from .device_sampler import DeviceSampler, apply_blocks  # noqa: E402
+from .heterograph import (HeteroGraphTuple, Relation,  # noqa: E402
+                          add_edges_hetero, add_self_loops_hetero,
+                          batch_hetero, heterograph,
+                          rand_bipartite_heterograph, rand_heterograph)
+from .temporal import TemporalGraph  # noqa: E402
 
 __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
            "device_graph", "from_dense_adjacency", "rand_graph",
@@ -68,6 +88,9 @@ __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
            "training", "data", "interop", "transform", "query", "native",
            "sampling", "device_sampler", "sample_neighbors",
            "induced_subgraph", "NeighborLoader", "DeviceSampler",
-           "apply_blocks"] + query.__all__
+           "apply_blocks", "HeteroGraphTuple", "Relation", "heterograph",
+           "rand_heterograph", "rand_bipartite_heterograph",
+           "add_self_loops_hetero", "add_edges_hetero", "batch_hetero",
+           "TemporalGraph"] + query.__all__
 
 __version__ = "0.1.0"

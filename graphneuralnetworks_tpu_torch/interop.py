@@ -89,10 +89,16 @@ def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     ``scale`` goes to the weight and, given ``nnx.state(model,
     nnx.BatchStat)`` as dicts, its ``mean`` and ``var`` to the running
     statistics; ``nnx.OptimizedLSTMCell`` (``Set2Set.lstm``) to
-    ``torch.nn.LSTMCell`` (see :func:`_load_lstm`). Pooling and
-    ``EdgeConv`` keep the JAX names (``p``, ``fgate``, ``ffeat``, ``nn``),
-    and :class:`~.models.Precision` JAX's ``module``, under which
-    ``nnx.state(Precision(...))`` nests the wrapped model.
+    ``torch.nn.LSTMCell`` (see :func:`_load_lstm`; also
+    ``EvolveGCNOCell.lstm``). Pooling and ``EdgeConv`` keep the JAX names
+    (``p``, ``fgate``, ``ffeat``, ``nn``), and :class:`~.models.Precision`
+    JAX's ``module``, under which ``nnx.state(Precision(...))`` nests the
+    wrapped model. So do the hetero and recurrent layers:
+    ``HeteroGraphConv.convs`` (a list, by position), ``GNNRecurrence.cell``,
+    the cells' convs (``conv_x_r``, ``dconv_u``, ``conv_z``, ...), TGCN's
+    and A3TGCN's Dense layers (``dense_z``, ``dense1``: kernels
+    transposed) and GConvLSTM's peephole vectors ``w_i``, ... and biases
+    ``b_i``, ... (copied as they are).
     Raises on a name or shape that does not match.
     """
     with torch.no_grad():

@@ -1,4 +1,4 @@
-"""Layers, containers and pooling."""
+"""Layers, containers, pooling, and the hetero and recurrent layers."""
 
 from .basic import (DotDecoder, GNNChain, GNNLayer, Precision, WithGraph,
                     glorot_uniform)
@@ -6,6 +6,10 @@ from .conv import (AGNNConv, BatchNorm, ChebConv, DConv, EdgeConv, GATConv,
                    GATv2Conv, GatedGraphConv, GCNConv, GINConv, GraphConv,
                    GRUCell, MLP, ResGatedGraphConv, SAGEConv, SGConv,
                    TAGConv, TransformerConv, cheb_lambda_max)
+from .heteroconv import HeteroGraphConv
+from .temporalconv import (A3TGCN, DCGRU, DCGRUCell, EvolveGCNO,
+                           EvolveGCNOCell, GConvGRU, GConvGRUCell, GConvLSTM,
+                           GConvLSTMCell, GNNRecurrence, TGCN, TGCNCell)
 from .pool import (GlobalAttentionPool, GlobalPool, Set2Set, TopKPool,
                    topk_index)
 
@@ -15,4 +19,7 @@ __all__ = ["DotDecoder", "GNNChain", "GNNLayer", "Precision", "WithGraph",
            "TransformerConv", "ResGatedGraphConv", "GatedGraphConv",
            "GRUCell", "ChebConv", "cheb_lambda_max", "SGConv", "TAGConv",
            "DConv", "GlobalAttentionPool", "GlobalPool", "Set2Set",
-           "TopKPool", "topk_index"]
+           "TopKPool", "topk_index", "HeteroGraphConv", "GNNRecurrence",
+           "GConvGRUCell", "GConvLSTMCell", "DCGRUCell", "EvolveGCNOCell",
+           "TGCNCell", "GConvGRU", "GConvLSTM", "DCGRU", "EvolveGCNO", "TGCN",
+           "A3TGCN"]

@@ -16,7 +16,9 @@ GNNlib msgpass.jl:69-238), with the same message vocabulary.
 - ``propagate(f, g, aggr, ...)`` composes the two, except that a sum (or
   mean) of ``copy_xj`` / ``w_mul_xj`` / ``e_mul_xj`` messages with scalar
   edge weights is one SpMM (:func:`~.cuda.spmm`); mean is that sum divided
-  by the true in-degree, at every graph size.
+  by the in-degree, at every graph size, counted as the JAX package counts
+  it: in ``y``'s dtype, so a bfloat16 count stops at 256
+  (:func:`~.segment.count_as`).
 
 On a graph with ``edge_valid`` (``DeviceSampler``'s) that SpMM route is the
 one that honours it: an invalid edge weighs 0 and mean divides by the
@@ -37,7 +39,7 @@ from .cuda.edge_softmax import _rows
 from .cuda.gather import fast_gather
 from .cuda.sddmm import sddmm
 from .cuda.spmm import spmm
-from .segment import gather, is_extreme, segment_reduce
+from .segment import count_as, gather, is_extreme, segment_reduce
 
 __all__ = ["apply_edges", "aggregate_neighbors", "propagate", "copy_xi",
            "copy_xj", "xi_dot_xj", "xi_sub_xj", "xj_sub_xi", "e_mul_xj",
@@ -154,7 +156,7 @@ def propagate(f: Callable, g: GraphTuple, aggr, *, xi=None, xj=None, e=None):
         y = _spmm_message(f, g, xj, e)
         if y is not None:
             if aggr == "mean":
-                deg = _in_degree(g).to(y.dtype).clamp(min=1)
+                deg = count_as(_in_degree(g), y.dtype).clamp(min=1)
                 y = y / deg[:, None]
             return y
     if f is w_mul_xj and e is None:

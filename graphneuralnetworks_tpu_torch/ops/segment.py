@@ -28,9 +28,9 @@ import torch
 
 from .cuda.segment import SegmentMaxFunction
 
-__all__ = ["gather", "segment_sum", "segment_mean", "segment_max",
-           "segment_min", "segment_prod", "segment_reduce", "segment_softmax",
-           "AGGREGATIONS"]
+__all__ = ["gather", "count_as", "segment_sum", "segment_mean",
+           "segment_max", "segment_min", "segment_prod", "segment_reduce",
+           "segment_softmax", "AGGREGATIONS"]
 
 
 def _kernel_route(t: torch.Tensor) -> bool:
@@ -57,6 +57,20 @@ def segment_sum(data, segment_ids, num_segments, *, mask=None, sorted=False):
     """Masked segment sum; empty segments get 0."""
     data = _masked(data, mask, 0)
     return _out(data, num_segments, 0).index_add(0, segment_ids, data)
+
+
+def count_as(counts: torch.Tensor, dtype) -> torch.Tensor:
+    """Exact counts as ``dtype`` holds a sum of that many ones, the way the
+    JAX package counts degrees and means (a scatter-add of ones in
+    ``dtype``): a floating sum stops at ``2 / eps`` (the first integer whose
+    successor rounds back to it: 256 in bfloat16, 2048 in float16, 2^24 in
+    float32), so the count is clamped there, then cast. Integer counts
+    (``diff`` of a CSR's offsets) need no scatter."""
+    if dtype.is_floating_point:
+        stop = int(2 / torch.finfo(dtype).eps)
+        if stop <= torch.iinfo(counts.dtype).max:   # else past any count
+            counts = counts.clamp(max=stop)
+    return counts.to(dtype)
 
 
 def segment_mean(data, segment_ids, num_segments, *, mask=None,

@@ -6,8 +6,9 @@ matrices and ``[G_pad]`` vectors; here they are ``[num_nodes, num_nodes]``
 and ``[num_graphs]``. Gradients reach edge weights through ``degree`` and
 ``adjacency_matrix`` and never the index structure, as there.
 
-An unweighted degree is a difference of CSR offsets; a weighted one is a
-segment sum of the weights. The dense queries (adjacency, Laplacians,
+An unweighted degree is a difference of CSR offsets, clamped where a sum
+of ones in the requested dtype stops growing; a weighted one is a segment
+sum of the weights in that dtype. The dense queries (adjacency, Laplacians,
 ``khop_adj``) are for small graphs: they refuse the graph sizes the JAX
 package refuses (:func:`_check_dense`). ``degree`` and
 ``adjacency_matrix`` (and the queries on them) count only the valid edges
@@ -25,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .graph import GraphTuple, no_edge_valid
-from .ops.segment import gather, segment_sum
+from .ops.segment import count_as, gather, segment_sum
 
 __all__ = ["degree", "adjacency_matrix", "laplacian_matrix",
            "normalized_adjacency", "normalized_laplacian",
@@ -46,6 +47,9 @@ def degree(g: GraphTuple, *, dir: str = "out", edge_weight=None,
            dtype=torch.float32) -> torch.Tensor:
     """Weighted or unweighted degree, ``[num_nodes]``.
 
+    Counted in ``dtype``, as the JAX package's sum of ones (or weights) in
+    ``dtype`` counts: an unweighted bfloat16 degree stops at 256
+    (:func:`~.ops.segment.count_as`).
     ``edge_weight=None`` uses ``g.edge_weight`` if present, ``False`` forces
     unweighted, and a tensor gives the weights. ``dir`` is "out", "in" or
     "both".
@@ -66,7 +70,7 @@ def degree(g: GraphTuple, *, dir: str = "out", edge_weight=None,
                               ("in", g.indptr_r, g.receivers)):
         if dir in (side, "both"):
             if ew is None:
-                out = out + torch.diff(indptr).to(dtype)
+                out = out + count_as(torch.diff(indptr), dtype)
             else:
                 out = out + segment_sum(ew.to(dtype), idx, g.num_nodes)
     return out

@@ -41,6 +41,12 @@ nearest moves a value by at most u times its size; one ulp is 2u):
   weights), so two layers give 10 u = 0.039 of max |out|, below JAX's own
   0.05 for bfloat16 against float32. The gradients by norm, the same
   count: 10 u.
+- Degree counts (star graphs, hub in-degree 255, 256, 257 and 1,099):
+  ``degree`` exactly; ``propagate``'s mean bit for bit on integer rows
+  (every float32 sum exact); ``Precision(GCNConv)`` within 10 u of
+  ``|m| @ |W|`` per output (each test's docstring).
+- BatchNorm under ``Precision``: its running statistics stay at their
+  initial values on both sides (exact).
 """
 
 import copy
@@ -507,3 +513,151 @@ def test_bf16_kernels_refuse_a_mix_of_types(case):
     # the same operands, all of one type, pass
     S._check_launch(ir, cr, None, z(40), z(16, 4))
     ES._gat_bwd_args(ir, cr, **bwd)
+
+
+# ---- degree counts in the requested dtype --------------------------------
+#
+# The JAX package counts an unweighted degree, and its kernel-path mean's
+# divisor, as a sum of ones in the requested dtype; a bfloat16 sum of ones
+# stops at 256 (256 + 1 rounds back to 256). The port clamps its exact
+# integer count there (``ops.segment.count_as``). Star graphs put one hub
+# at in-degree 255, 256, 257 and 1,099, beside extra edges among the
+# leaves.
+
+STAR_DEGREES = [255, 256, 257, 1099]
+
+
+def _star(k, extra, seed):
+    """Node 0 receives one edge from each of nodes 1..k; ``extra`` random
+    edges join the leaves."""
+    rng = np.random.default_rng(seed)
+    n = k + 1
+    s = np.concatenate([np.arange(1, n), rng.integers(1, n, extra)])
+    r = np.concatenate([np.zeros(k, np.int64), rng.integers(1, n, extra)])
+    return s, r, n
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("k", STAR_DEGREES)
+def test_star_degree_matches_jax(k, dtype):
+    """``degree`` in every direction equals JAX's sum of ones in the dtype
+    exactly (bfloat16 stops at 256; float16 at 2048, past these counts),
+    and so does a literal sum of ones in the dtype by ``index_add`` (the
+    port's ``segment_sum``), the other way to count."""
+    s, r, n = _star(k, 40, k)
+    jg, tg = graph_pair(s, r, n)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    for d in ("in", "out", "both"):
+        got = tgnn.degree(tg, dir=d, dtype=td)
+        assert got.dtype == td
+        want = _np(jgnn.degree(jg, dir=d, dtype=jd)[:n])
+        np.testing.assert_array_equal(_np(got), want, err_msg=d)
+        if d == "in":
+            literal = torch.zeros(n, dtype=td).index_add_(
+                0, tg.receivers, torch.ones(tg.num_edges, dtype=td))
+            np.testing.assert_array_equal(_np(literal), want)
+            assert _np(got)[0] == (min(k, 256) if dtype == "bfloat16"
+                                   else k)
+
+
+@pytest.mark.parametrize("k", STAR_DEGREES)
+def test_star_propagate_mean_matches_jax_kernel_path(monkeypatch, k):
+    """``propagate(copy_xj, mean)`` in bfloat16 against JAX's kernel path
+    (its size gate lowered to 0, as ``tests/test_pallas_spmm.py:157``
+    does), which divides the Pallas sum by a bfloat16 count. Integer rows
+    make every float32 sum exact, so the forward is held bit for bit (the
+    all-ones column gives the hub ``round(k) / 256`` past 256); the
+    gradient within one bfloat16 ulp plus the float32 tolerance."""
+    from graphneuralnetworks_tpu.ops import msgpass as JMP
+    monkeypatch.setattr(JMP, "_MEAN_KERNEL_MIN_EDGES", 0)
+    s, r, n = _star(k, 60, k + 1)
+    jg, tg = graph_pair(s, r, n, aux=True)
+    rng = np.random.default_rng(k)
+    x = rng.integers(-3, 4, (n, 5)).astype(np.float32)
+    x[:, 0] = 1.0
+    cot = rng.integers(-2, 3, (n, 5)).astype(np.float32)
+    jx, tx = _pair(pad_rows(x, jg.n_pad))
+    tx = tx[:n].requires_grad_()
+
+    def jloss(xp):
+        y = jops.propagate(jops.copy_xj, jg, "mean", xj=xp)
+        return jnp.sum(y[:n].astype(jnp.float32) * cot), y[:n]
+
+    (_, jy), jdx = jax.value_and_grad(jloss, has_aux=True)(jx)
+    ty = tops.propagate(tops.copy_xj, tg, "mean", xj=tx)
+    (ty.float() * torch.tensor(cot)).sum().backward()
+    assert ty.dtype == torch.bfloat16 and tx.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(ty), _np(jy))
+    hub = float(torch.tensor(float(k)).to(torch.bfloat16)) / min(k, 256)
+    assert float(ty[0, 0].detach()) == hub
+    got, want = _np(tx.grad), _np(jdx[:n])
+    tol = _bf16_ulp(want) + F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(want)
+    assert np.all(np.abs(got - want) <= tol)
+
+
+def test_precision_gcn_on_a_star_matches_jax(monkeypatch):
+    """``Precision(GCNConv(8, 8))`` with JAX's parameters on the star of
+    in-degree 1,099: JAX normalises the hub by ``rsqrt(256 + 1)`` rounded
+    to bfloat16, and so must the port. Each output is held within 10 u of
+    S = |m| @ |W| (m the normalised aggregate): each side rounds ``x * c``,
+    the sum, ``agg + x``, ``* c`` and the product at most u of S each (the
+    bias is 0). Counting exactly, as the port did, moves the hub row by a
+    factor of sqrt(1100 / 257) = 2.07, far outside that."""
+    s, r, n = _star(1099, 60, 3)
+    jg, tg = graph_pair(s, r, n, aux=True)
+    x = np.random.default_rng(3).standard_normal((n, 8)).astype(np.float32)
+    jm = JM.Precision(JM.GCNConv(8, 8, rngs=nnx.Rngs(4)))
+    jy = _np(jm(jg, jnp.asarray(pad_rows(x, jg.n_pad)))[:n])
+    tm = load_jax_params(TM.Precision(TM.GCNConv(8, 8, device="cpu")),
+                         pure_params(jm))
+    m = _np(tm(tg, torch.tensor(x), conv_weight=torch.eye(8)))
+    W = tm.module.weight.detach().double().numpy()
+    tol = 10 * U * (np.abs(m) @ np.abs(W)) + 1e-6
+
+    def port():
+        return _np(tm(tg, torch.tensor(x)))
+
+    assert np.all(np.abs(port() - jy) <= tol)
+    monkeypatch.setattr(tgnn.query, "count_as", lambda c, d: c.to(d))
+    exact = port()
+    assert not np.all(np.abs(exact - jy)[0] <= tol[0])
+    ratio = np.abs(jy[0]).sum() / np.abs(exact[0]).sum()
+    assert abs(ratio - np.sqrt(1100 / 257)) < 0.05
+
+
+def test_precision_drops_batchnorm_running_stats():
+    """A BatchNorm called in training mode inside Precision keeps its
+    initial running statistics on both sides: JAX updates a merged copy
+    (``nnx.merge(gd, low)``), the port the bfloat16 copies that
+    ``functional_call`` swaps in. The same call outside Precision moves
+    them."""
+    class JProbe(nnx.Module):
+        def __init__(self):
+            self.bn = nnx.BatchNorm(4, rngs=nnx.Rngs(0))
+
+        def __call__(self, g, x):
+            return self.bn(x, use_running_average=False)
+
+    class TProbe(TM.GNNLayer):
+        def __init__(self):
+            super().__init__()
+            self.bn = TM.BatchNorm(4, device="cpu")
+
+        def forward(self, g, x):
+            return self.bn(x, use_running_average=False)
+
+    jg, tg, _ = _graphs(5)
+    x = np.random.default_rng(5).standard_normal((N, 4)).astype(np.float32)
+    x += 3.0
+    jm, tm = JM.Precision(JProbe()), TM.Precision(TProbe())
+    jy = jm(jg, jnp.asarray(pad_rows(x, jg.n_pad))[:N])
+    ty = tm(tg, torch.tensor(x))
+    assert jy.dtype == jnp.bfloat16 and ty.dtype == torch.bfloat16
+    bn = tm.module.bn
+    for stat, init in (("mean", 0.0), ("var", 1.0)):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jm.module.bn, stat)[...]), np.full(4, init))
+        np.testing.assert_array_equal(
+            getattr(bn, f"running_{stat}").numpy(), np.full(4, init))
+    tm.module(tg, torch.tensor(x))
+    assert np.all(bn.running_mean.numpy() > 0.01)
