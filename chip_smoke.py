@@ -147,6 +147,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT,
    GATv2, ResGated and Transformer, 40 epochs, train accuracy > 0.94 and
    test accuracy > 0.69.
+5. The examples that run on the graph toolkit and the data layer. 3r:
+   examples/link_prediction.py on the main graph: ``rand_edge_split(g,
+   0.9)`` (pairs kept together), 3i's ``LinkModel`` trained for 10 Adam
+   steps at the example's 1e-2, each on a fresh ``negative_sample`` of the
+   training graph (as many as its edges, one generator) built on the card,
+   binary cross-entropy, the held-out link accuracy after steps 1 and 10
+   (the training edges' mean logit must exceed the negatives' and that of
+   their ends re-paired at random by 5 standard errors; on this uniform
+   random graph the held-out edges carry no signal); the split's
+   seconds, the draw's host ms apart from its graph build, ms per step
+   with and without the draw, K13 2 and K1 7 launches a step,
+   the steps profiled, one step card vs CPU in float64 on the same
+   negatives. Before it, 2j holds K13 over the negatives' receiver CSR at
+   D = 128 (against ``torch.sparse.sampled_addmm``), its backward K1 over
+   their receiver and sender CSRs, and K1 over the training graph's two
+   CSRs (against ``torch.sparse.mm``) to their plain versions, timed, also
+   after an L2 flush. 3s: examples/graph_classification.py's loop as it
+   stands: ``synthetic_tudataset(188)``, two ``DataLoader``s (batch 32, 2
+   size buckets, the training one shuffled; a bucket's short batch filled
+   with empty graphs) built on the card, ``GraphConv(7, 64, relu)``,
+   ``GraphConv(64, 64, relu)``, ``GlobalPool("mean")``, ``Linear(64, 2)``,
+   Adam at 1e-3 for 30 epochs; ms per batch, the loader's host ms per
+   batch, K1's 3 launches a batch, the train and test accuracy, the steps
+   profiled, one short batch (fillers included) card vs CPU in float64.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -163,9 +187,11 @@ K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees (``--sweep
 k12,k4,skew`` runs the named sweeps only; with k1, K1 also at 2g's shapes);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and the train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3m and 3n, with
-``--profile`` their profiles; 3o, 3p and 3q always profile; ``--only
-3p,3q`` runs 2i with them, ``--only 3m,3n`` 2g:
+and the train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3s, 2j, 3r, 3m and
+3n, with ``--profile`` their profiles; 3o, 3p, 3q, 3r and 3s always
+profile, and with ``--profile`` 3r also breaks the host's split and draw
+down by function under ``cProfile``; ``--only 3p,3q`` runs 2i with
+them, ``--only 3m,3n`` 2g, ``--only 2j,3r,3s`` the examples' phases:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
 """
@@ -345,8 +371,10 @@ def cuda_ms(fn, *, warmup: int = 3, batches: int = 11,
 
 
 def device_rows(prof, steps: int = 1) -> list:
-    """``(ms, launches, name)`` per device kernel of a profiler run, each
-    divided by ``steps``, largest first."""
+    """``(ms, launches, name)`` per device kernel of a profiler run of
+    ``steps`` like steps, largest first: its launches per step (its records
+    over ``steps``, rounded, at least 1) and its mean time times those, so
+    that a record the profiler loses does not shrink a step's time."""
     rows = []
     for ev in prof.key_averages():
         if getattr(ev, "is_user_annotation", False):
@@ -356,7 +384,8 @@ def device_rows(prof, steps: int = 1) -> list:
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0:
-            rows.append((dev_us / 1e3 / steps, ev.count // steps, ev.key))
+            per = max(1, round(ev.count / steps))
+            rows.append((dev_us / 1e3 / ev.count * per, per, ev.key))
     return sorted(rows, reverse=True)
 
 
@@ -3527,7 +3556,8 @@ def profile_calls(step, out_dir) -> dict:
                     for k, v in kernels.items()))
     for k, v in launches.items():
         log(f"    {k.upper()} per launch, in step order: "
-            + ", ".join(f"{ms:.4f}" for ms in v) + " ms")
+            + (", ".join(f"{ms:.4f}" for ms in v) + " ms" if v else
+               "not split (the profiler lost a record)"))
     for ms, cnt, key in rows[:20]:
         log(f"    {ms:9.4f} ms/step  x{cnt:<4} {key[:90]}")
     log("    host self time (profiled), top aten ops: " + ", ".join(
@@ -4277,6 +4307,388 @@ def temporal_phase(gnn, dev, card) -> tuple:
 
 # ---- phase 4 ---------------------------------------------------------------
 
+# ---- phases 2j, 3r and 3s: the link-prediction and graph-classification
+# examples ------------------------------------------------------------------
+
+# 3r: examples/link_prediction.py's split fraction and seed (:33-34), its
+# negatives' seed (:67) and its learning rate (:51), on the main graph
+LINK_FRAC, LINK_SPLIT_SEED, LINK_NEG_SEED, LINK_LR = 0.9, 0, 7, 1e-2
+# 3s: examples/graph_classification.py's data, split, loaders and optimiser
+# (:27-45): synthetic_tudataset(188, seed=0), 150 train graphs, batches of
+# 32 from 2 size buckets, Adam at 1e-3 for 30 epochs
+EX_TUD_GRAPHS, EX_TUD_TRAIN, EX_TUD_BS, EX_TUD_BUCKETS = 188, 150, 32, 2
+EX_TUD_LR, EX_TUD_EPOCHS = 1e-3, 30
+
+
+def link_kernel_cases(res, card, train_g, neg, gen) -> None:
+    """Phase 2j: K13 over 3r's negative graph's receiver CSR at D = 128
+    (``DotDecoder`` on the negatives) and its backward, K1 over the same
+    graph's receiver CSR (dxi) and sender CSR (dxj) weighted by the
+    upstream gradient, and K1 over ``train_g``'s receiver and sender CSRs
+    (the GCN encoder), each held to its plain version and to its library
+    call (``torch.sparse.sampled_addmm``, ``torch.sparse.mm``) and timed,
+    also after an L2 flush."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import sddmm as SD
+
+    dev = neg.device
+    ir, cr, e = neg.indptr_r, neg.col_r, neg.num_edges
+    xi = torch.randn(N, 1, D, generator=gen, device=dev)
+    xj = torch.randn(N, 1, D, generator=gen, device=dev)
+    pattern = torch.sparse_csr_tensor(ir, cr, torch.ones(e, device=dev),
+                                      (N, N))
+
+    def lib():
+        return torch.sparse.sampled_addmm(pattern, xi[:, 0], xj[:, 0].t(),
+                                          beta=0.0)
+
+    label = "3r negatives receiver-CSR D=128"
+    compare(f"K13 {label} vs sampled_addmm", SD.sddmm_csr(ir, cr, xi, xj),
+            lib().values()[:, None])
+    kernel_case(res, card, "k13", label, SD.sddmm_csr, SD.sddmm_plain,
+                (ir, cr, xi, xj), 4 * (N + 1 + e) + 2 * 4 * N * D + 4 * e,
+                2 * e * D, 4 * e * D - 4 * N * D, lib=lib)
+    res["k13"]["variants"][-1].update(
+        paths="3r DotDecoder on the negatives (1/step)",
+        cold_device_ms=cold_device_ms(lambda: SD.sddmm_csr(ir, cr, xi, xj),
+                                      ("sddmm_csr_kernel",)))
+    del pattern, xi, xj
+    dl = torch.randn(e, generator=gen, device=dev)
+    k1_csr_case(res, card, "3r negatives bwd dxi receiver-CSR weighted "
+                "D=128", "3r DotDecoder(negatives) bwd (1/step)", ir, cr,
+                None, dl, dl, D, gen)
+    k1_csr_case(res, card, "3r negatives bwd dxj sender-CSR weighted D=128",
+                "3r DotDecoder(negatives) bwd (1/step)", neg.indptr_s,
+                neg.col_s, neg.eid_s, dl, dl[neg.eid_s.long()], D, gen)
+    ones = torch.ones(train_g.num_edges, device=dev)
+    k1_csr_case(res, card, "3r train_g fwd receiver-CSR D=128",
+                "3r GCN encoder fwd (2/step)", train_g.indptr_r,
+                train_g.col_r, None, None, ones, D, gen)
+    k1_csr_case(res, card, "3r train_g bwd sender-CSR D=128",
+                "3r GCN encoder bwd (1/step); the positives' DotDecoder "
+                "bwd is over train_g too (2/step, weighted)",
+                train_g.indptr_s, train_g.col_s, train_g.eid_s, None, ones,
+                D, gen)
+
+
+def host_profile(name: str, fn) -> list:
+    """``fn()`` once under ``cProfile``: the host's own time of each
+    function it runs, largest first (the top 8 logged and returned)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    rows = sorted(((tt * 1e3, nc, f"{func[2]} ({os.path.basename(func[0])}"
+                    f":{func[1]})") for func, (_, nc, tt, _, _)
+                   in pstats.Stats(prof).stats.items()), reverse=True)[:8]
+    log(f"  {name}, host ms by function (cProfile, one call): "
+        + "; ".join(f"{where} {ms:.1f} x{n}" for ms, n, where in rows))
+    return [{"ms": ms, "calls": n, "function": where}
+            for ms, n, where in rows]
+
+
+def link_eval(gnn, model, g, train_g, test_g, x, rng) -> dict:
+    """examples/link_prediction.py's held-out check (:72-90): fresh
+    negatives of the whole graph, as many as the held-out edges, from the
+    training draws' generator; accuracy at threshold 0 averaged over the
+    held-out edges and the negatives. Also each side's mean logit and
+    share above 0, and how many standard errors the training edges' mean
+    logit lies above the negatives' and above that of the same ends paired
+    at random (the training senders permuted: the same degrees, no edge).
+    On a uniform random graph a held-out edge's ends are no closer in
+    ``train_g`` than a random pair, so the held-out means agree and the
+    accuracy says nothing; the training edges, which the encoder aggregates
+    over, must lead both by more than 5 standard errors, which a decoder on
+    the wrong pairs or real edges drawn as negatives would not."""
+    def z(a, b):
+        return float((a.mean() - b.mean())
+                     / (a.var() / a.numel() + b.var() / b.numel()).sqrt())
+
+    neg_t = gnn.negative_sample(g, num_neg_edges=test_g.num_edges, rng=rng)
+    perm = torch.randperm(train_g.num_edges,
+                          generator=torch.Generator().manual_seed(5))
+    ctl = gnn.graph(train_g.senders.cpu()[perm], train_g.receivers.cpu(),
+                    num_nodes=train_g.num_nodes, device=x.device)
+    with torch.no_grad():
+        pos, neg = model(train_g, test_g, neg_t, x)
+        trn, rep = model(train_g, train_g, ctl, x)
+    return {"acc": 0.5 * (float((pos > 0).float().mean())
+                          + float((neg < 0).float().mean())),
+            "heldout_pos_mean": float(pos.mean()),
+            "neg_mean": float(neg.mean()),
+            "heldout_pos_above_0": float((pos > 0).float().mean()),
+            "neg_above_0": float((neg > 0).float().mean()),
+            "train_pos_mean": float(trn.mean()),
+            "repaired_mean": float(rep.mean()),
+            "train_vs_neg_se": z(trn, neg),
+            "train_vs_repaired_se": z(trn, rep),
+            "heldout_vs_neg_se": z(pos, neg)}
+
+
+def link_example_phases(gnn, g, card, which, profile=False) -> tuple:
+    """2j and 3r (``which`` of "2j", "3r"): examples/link_prediction.py's
+    flow on the main graph (N = 131,072, E = 2M, bidirected, x [N, 128]):
+    ``rand_edge_split(g, 0.9)``; 3i's ``LinkModel`` (GCN encoder 128 ->
+    128 -> 128, ``DotDecoder``) trained for STEPS Adam steps at the
+    example's 1e-2, each on a fresh ``negative_sample`` of ``train_g`` (as
+    many as its edges, one generator for the run) built on the card, the
+    example's binary cross-entropy; its held-out accuracy after steps 1 and
+    10, with the training edges held above the negatives (:func:`link_eval`);
+    the draws timed on the host apart from the graph builds; K13 2 and
+    K1 7 launches a step; the steps profiled; one step card vs CPU in
+    float64 on the same negatives. 2j first holds K13 and K1 at these
+    shapes. Returns the results and 2j's ``{"k13": ..., "k1": ...}``."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch import transform as T
+    from graphneuralnetworks_tpu_torch.training import make_train_step
+
+    dev = g.device
+    kern = {"k1": {"err": 0.0, "variants": []},
+            "k13": {"err": 0.0, "variants": []}}
+    log(f"phase 3r: examples/link_prediction.py on the main graph ({N} "
+        f"nodes, {E} edges): rand_edge_split(g, {LINK_FRAC})")
+    t0 = time.perf_counter()
+    train_g, test_g = gnn.rand_edge_split(
+        g, LINK_FRAC, rng=np.random.default_rng(LINK_SPLIT_SEED))
+    torch.cuda.synchronize()
+    res = {"split_s": time.perf_counter() - t0,
+           "train_edges": train_g.num_edges, "test_edges": test_g.num_edges}
+    if train_g.num_edges + test_g.num_edges != E or not (
+            bool(gnn.is_bidirected(train_g))
+            and bool(gnn.is_bidirected(test_g))):
+        raise AssertionError("rand_edge_split lost edges or split a pair")
+    log(f"  rand_edge_split: {res['split_s']:.3f} s ({train_g.num_edges} "
+        f"train, {test_g.num_edges} held-out edges, both bidirected; numpy "
+        f"{np.__version__})")
+    if profile:
+        res["split_profile"] = host_profile("rand_edge_split", lambda: (
+            gnn.rand_edge_split(g, LINK_FRAC,
+                                rng=np.random.default_rng(LINK_SPLIT_SEED)),
+            torch.cuda.synchronize()))
+    x = node_inputs(g)[1]
+    want = train_g.num_edges
+
+    if "2j" in which:
+        log("phase 2j: K13 and K1 at 3r's shapes vs the plain versions")
+        neg0 = gnn.negative_sample(train_g, num_neg_edges=want,
+                                   rng=np.random.default_rng(LINK_NEG_SEED))
+        link_kernel_cases(kern, card, train_g, neg0,
+                          torch.Generator(device=dev).manual_seed(33))
+        log_times(kern, 48)
+        del neg0
+    if "3r" not in which:
+        return res, kern
+
+    # the draw's host part (negative_sample before its graph build) and the
+    # build, apart, on the first draws of the run's seed
+    rng = np.random.default_rng(LINK_NEG_SEED)
+    host_ms, build_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s, r = T._negative_edges(train_g, want, None, rng)
+        t1 = time.perf_counter()
+        gnn.graph(s, r, num_nodes=N, device=dev)
+        torch.cuda.synchronize()
+        host_ms.append((t1 - t0) * 1e3)
+        build_ms.append((time.perf_counter() - t1) * 1e3)
+    res["negative_sample_host_ms"] = host_ms
+    res["negative_graph_build_ms"] = build_ms
+    if profile:
+        res["negative_sample_profile"] = host_profile(
+            "negative_sample's host draw",
+            lambda: T._negative_edges(train_g, want, None, rng))
+    log(f"  negative_sample({want}) on the host: median "
+        f"{statistics.median(host_ms):.1f} ms/call (all "
+        f"{[round(v, 1) for v in host_ms]}); its graph build on the card "
+        f"{statistics.median(build_ms):.1f} ms ({s.size} edges)")
+
+    log(f"phase 3r: {STEPS} Adam steps (lr={LINK_LR}), each on a fresh "
+        "negative_sample of train_g")
+    model = LinkModel(M, 9, dev)
+
+    def loss_fn(m, gm, neg, xx):
+        return link_loss(*m(gm, gm, neg, xx))
+
+    step = make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=LINK_LR), loss_fn)
+    rng = np.random.default_rng(LINK_NEG_SEED)
+    launches = dict.fromkeys(read_counts(), 0)
+    draw_ms, step_ms, losses, evals = [], [], [], []
+    torch.cuda.synchronize()
+    for epoch in range(1, STEPS + 1):
+        t0 = time.perf_counter()
+        neg = gnn.negative_sample(train_g, num_neg_edges=want, rng=rng)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        before = read_counts()
+        losses.append(float(step(train_g, neg, x)))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        draw_ms.append((t1 - t0) * 1e3)
+        for k, v in launched_since(before).items():
+            launches[k] += v
+        if epoch % 10 == 0 or epoch == 1:
+            ev = link_eval(gnn, model, g, train_g, test_g, x, rng)
+            evals.append(ev)
+            log(f"  step {epoch:3d}  loss {losses[-1]:.4f}  link acc "
+                f"{ev['acc']:.4f} (mean logit: held-out edges "
+                f"{ev['heldout_pos_mean']:.4f}, negatives "
+                f"{ev['neg_mean']:.4f}, training edges "
+                f"{ev['train_pos_mean']:.4f}, their ends re-paired "
+                f"{ev['repaired_mean']:.4f}; standard errors: training "
+                f"edges over negatives {ev['train_vs_neg_se']:.1f}, over "
+                f"re-paired {ev['train_vs_repaired_se']:.1f}, held-out "
+                f"over negatives {ev['heldout_vs_neg_se']:.1f}; above 0: "
+                f"held-out {ev['heldout_pos_above_0']:.4f}, negatives "
+                f"{ev['neg_above_0']:.4f})")
+    with_draw = [a + b for a, b in zip(draw_ms, step_ms)]
+    log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f}; ms/step median "
+        f"{statistics.median(step_ms):.3f} without the draw, "
+        f"{statistics.median(with_draw):.3f} with it (negative_sample and "
+        f"its build: {statistics.median(draw_ms):.1f}); all steps "
+        f"{[round(v, 3) for v in step_ms]}")
+    log(f"  launches over {STEPS} steps: {launches}")
+    expect_counts("3r link prediction", launches, {"k13": 2, "k1": 3 + 4})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"3r: the loss did not fall: {losses}")
+    if not all(np.isfinite(list(a.values())).all()
+               and min(a["train_vs_neg_se"], a["train_vs_repaired_se"]) > 5
+               for a in evals):
+        raise AssertionError("3r: the training edges do not score above the "
+                             f"negatives and their ends re-paired: {evals}")
+    res.update(losses=losses, link_eval=evals, launches=launches,
+               ms_per_step=step_ms, draw_ms=draw_ms,
+               median_ms_per_step=statistics.median(step_ms),
+               median_ms_per_step_with_draw=statistics.median(with_draw))
+    res["profile"] = profile_steps(model, (train_g, neg, x), loss_fn, None)
+
+    log("phase 3r (3c): one step on the card (K1, K13) vs the CPU plain path "
+        "in float64, the same negatives on both sides")
+    neg_cpu = neg.to("cpu")
+
+    def link_forward(m, gg, xx, extra):
+        pos, ng = m(gg, gg, neg_cpu if xx.device.type == "cpu" else neg, xx)
+        return torch.cat([pos, ng]), link_loss(pos, ng)
+
+    before = read_counts()
+    res["vs_cpu"] = compare_model("link prediction (3r)", model, train_g, x,
+                                  None, forward=link_forward)
+    expect_launched("link prediction (3r)", before, {"k13": 2, "k1": 7})
+    return res, kern
+
+
+def graph_example_phase(gnn, dev) -> dict:
+    """3s: examples/graph_classification.py's loop as it stands (:27-95):
+    ``synthetic_tudataset(188, seed=0)``, ``DataLoader``s of the first 150
+    (shuffled, seed 1) and the other 38 graphs, batch 32, 2 buckets, built
+    on the card; ``GraphConv(7, 64, relu)``, ``GraphConv(64, 64, relu)``,
+    ``GlobalPool("mean")``, ``Linear(64, 2)``, Adam at 1e-3 for 30 epochs;
+    the train and test accuracy after epochs 1, 5, ..., 30 (iterating the
+    train loader there draws, as in the example). The short batches are
+    filled with empty graphs, which count in the loss and the accuracy.
+    Per batch: the loader's host ms, the step, K1's 3 launches; the steps
+    profiled over one epoch's batches; one short batch card vs CPU in
+    float64."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import make_train_step
+
+    log(f"phase 3s: examples/graph_classification.py: synthetic_tudataset("
+        f"{EX_TUD_GRAPHS}), DataLoader(batch_size={EX_TUD_BS}, "
+        f"num_buckets={EX_TUD_BUCKETS}), GraphConv(7,64,relu), "
+        f"GraphConv(64,64,relu), GlobalPool(mean), Linear(64,2), Adam "
+        f"lr={EX_TUD_LR}, {EX_TUD_EPOCHS} epochs")
+    graphs, _ = gnn.data.synthetic_tudataset(EX_TUD_GRAPHS, seed=0,
+                                             device="cpu")
+    train_loader = gnn.data.DataLoader(
+        graphs[:EX_TUD_TRAIN], batch_size=EX_TUD_BS, shuffle=True, seed=1,
+        num_buckets=EX_TUD_BUCKETS, device=dev)
+    test_loader = gnn.data.DataLoader(
+        graphs[EX_TUD_TRAIN:], batch_size=EX_TUD_BS,
+        num_buckets=EX_TUD_BUCKETS, device=dev)
+    model = graph_classifier(M, 15, dev, "mean")
+
+    def loss_fn(m, gb):
+        return graph_loss(m(gb, gb.x), gb)
+
+    step = make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=EX_TUD_LR), loss_fn)
+
+    def evaluate(loader):
+        hit = total = 0.0
+        with torch.no_grad():
+            for gb in loader:
+                mask = gb.graph_mask
+                pred = model(gb, gb.x).argmax(-1)
+                hit += float(((pred == gb.globals_["y"]) & mask).sum())
+                total += float(mask.sum())
+        return hit / max(total, 1)
+
+    launches = dict.fromkeys(read_counts(), 0)
+    loader_ms, batch_ms, losses, history = [], [], [], []
+    n_batches = 0
+    torch.cuda.synchronize()
+    for epoch in range(1, EX_TUD_EPOCHS + 1):
+        it = iter(train_loader)
+        epoch_losses = []
+        while True:
+            t0 = time.perf_counter()
+            gb = next(it, None)
+            t1 = time.perf_counter()
+            if gb is None:
+                break
+            before = read_counts()
+            epoch_losses.append(float(step(gb)))   # waits for the step
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            loader_ms.append((t1 - t0) * 1e3)
+            for k, v in launched_since(before).items():
+                launches[k] += v
+            n_batches += 1
+        losses.append(float(np.mean(epoch_losses)))
+        if epoch % 5 == 0 or epoch == 1:
+            history.append((epoch, evaluate(train_loader),
+                            evaluate(test_loader)))
+            log(f"  epoch {epoch:3d}  loss {epoch_losses[-1]:.4f}  train "
+                f"{history[-1][1]:.3f}  test {history[-1][2]:.3f}")
+    log(f"  {n_batches} batches: ms/batch median "
+        f"{statistics.median(batch_ms):.3f} (the loader's host ms/batch "
+        f"{statistics.median(loader_ms):.3f}); mean loss of epoch 1 "
+        f"{losses[0]:.4f}, of epoch {EX_TUD_EPOCHS} {losses[-1]:.4f}")
+    log(f"  launches over {n_batches} batches: {launches}")
+    expect_counts("3s graph classification", launches, {"k1": 3},
+                  steps=n_batches)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"3s: the loss did not fall: {losses}")
+    res = {"batches": n_batches, "losses": losses, "accuracy": history,
+           "ms_per_batch": batch_ms, "loader_ms": loader_ms,
+           "median_ms_per_batch": statistics.median(batch_ms),
+           "median_loader_ms": statistics.median(loader_ms),
+           "launches": launches, "train_acc": history[-1][1],
+           "test_acc": history[-1][2]}
+    batches = list(train_loader)
+    cycle = iter(batches * 3)
+    res["profile"] = profile_calls(lambda: step(next(cycle)), None)
+
+    def empty(gb):
+        return int((gb.indptr_g[1:] == gb.indptr_g[:-1]).sum())
+
+    short = max(batches, key=empty)
+    res["fillers_in_checked_batch"] = empty(short)
+    log(f"phase 3s (3c): a short batch ({short.num_graphs} graphs, "
+        f"{empty(short)} of them empty fillers) on the card vs the CPU plain "
+        "path in float64")
+
+    def forward(m, gg, xx, extra):
+        logits = m(gg, xx)
+        return logits, graph_loss(logits, gg)
+
+    before = read_counts()
+    res["vs_cpu"] = compare_model("graph classification (3s)", model, short,
+                                  short.x, None, forward=forward)
+    expect_launched("graph classification (3s)", before, {"k1": 3})
+    return res
+
+
 def cora_phase(dev) -> dict:
     from graphneuralnetworks_tpu_torch import models as M
     from graphneuralnetworks_tpu_torch.data import load_cora
@@ -4382,10 +4794,11 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f,2h and the "
-                         "train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3m "
-                         "and 3n; 3p and 3q run 2i's cases with them, 3m "
-                         "and 3n run last, with 2g), then stop without a "
-                         "result line")
+                         "train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3s, "
+                         "3m and 3n, and 2j and 3r; 3p and 3q run 2i's "
+                         "cases with them; 2j and 3r run after the others "
+                         "(on one edge split), 3m and 3n last, with 2g), "
+                         "then stop without a result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
                     help="after phase 2, time K1-K12, K14 and its "
@@ -4439,25 +4852,29 @@ def main() -> int:
                      "2f": lambda: segment_phase(g, gb, card)}
     kern, only_train = {}, {}
 
-    def merge_k1(extra):
-        """Add the K1 cases of 2g or 2i to phase 2's."""
-        k1 = kern.setdefault("k1", {"err": 0.0, "variants": []})
-        k1["err"] = max(k1["err"], extra["k1"]["err"])
-        k1["variants"] += extra["k1"]["variants"]
+    def merge_kernels(extra):
+        """Add the cases of 2g, 2i or 2j to phase 2's, kernel by kernel."""
+        for key, val in extra.items():
+            k = kern.setdefault(key, {"err": 0.0, "variants": []})
+            k["err"] = max(k["err"], val["err"])
+            k["variants"] += val["variants"]
 
     ht_phases = {"3p": lambda: hetero_phase(gnn, g.device, card),
                  "3q": lambda: temporal_phase(gnn, g.device, card)}
     only = args.only.split(",") if args.only else None
     sage_which = [p for p in ("3m", "3n") if only is None or p in only]
+    link_which = [p for p in ("2j", "3r") if only is None or p in only]
     for phase in (only if only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
                       "3l": propagation_phase, "3o": precision_phase}
-        if phase in sage_which:
+        if phase in sage_which or phase in link_which:
             continue
         if phase in ht_phases:
             only_train[phase], extra = ht_phases[phase]()
-            merge_k1(extra)
+            merge_kernels(extra)
+        elif phase == "3s":
+            only_train[phase] = graph_example_phase(gnn, g.device)
         elif phase in train_only:
             only_train[phase] = train_only[phase](*node_inputs(g),
                                                   args.profile)[0]
@@ -4474,10 +4891,19 @@ def main() -> int:
         res, sage_kern = sage_phases(
             gnn, g.device, card, sage_which, args.profile,
             bool(args.sweep) and "k1" in args.sweep.split(","))
-        merge_k1(sage_kern)
+        merge_kernels(sage_kern)
+        return res
+
+    def run_link():
+        """2j and 3r; 2j's cases join phase 2's."""
+        res, link_kern = link_example_phases(gnn, g, card, link_which,
+                                             args.profile)
+        merge_kernels(link_kern)
         return res
 
     if args.only:
+        if link_which:
+            only_train["link_example"] = run_link()
         if sage_which:
             only_train["sage"] = run_sage()
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, "
@@ -4501,10 +4927,10 @@ def main() -> int:
     main_res["vs_cpu"].update(bf16_res.pop("vs_cpu"))
     main_res.update(bf16_res)
     main_res["hetero"], extra = ht_phases["3p"]()
-    merge_k1(extra)
+    merge_kernels(extra)
     main_res["vs_cpu"]["hetero"] = main_res["hetero"].pop("vs_cpu")
     main_res["temporal"], extra = ht_phases["3q"]()
-    merge_k1(extra)
+    merge_kernels(extra)
     main_res["vs_cpu"].update(
         {f"temporal_{k}": v
          for k, v in main_res["temporal"].pop("vs_cpu").items()})
@@ -4514,6 +4940,12 @@ def main() -> int:
         main_res["vs_cpu"][key] = sage[key].pop("vs_cpu")
     main_res["sage"] = sage
     cora = cora_phase(g.device)
+    main_res["link_example"] = run_link()
+    main_res["vs_cpu"]["link_example"] = main_res["link_example"].pop(
+        "vs_cpu")
+    main_res["graph_example"] = graph_example_phase(gnn, g.device)
+    main_res["vs_cpu"]["graph_example"] = main_res["graph_example"].pop(
+        "vs_cpu")
 
     def entry(key, name, src, line, path, pallas=None):
         head = kern[key]["variants"][0]

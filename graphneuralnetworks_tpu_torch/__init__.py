@@ -23,7 +23,12 @@ Attention aggregation (``gnn.ops.gat_attention``,
 ``ops.cuda.spmm``; max and min aggregation, the graph-wise ops of
 ``gnn.ops`` (``reduce_nodes``, ``softmax_nodes``, ...) and pooling on the
 segment-max kernel of ``ops.cuda.segment``. ``gnn.batch`` joins graphs into
-one for graph-level tasks.
+one for graph-level tasks, and ``gnn.data.DataLoader`` yields such batches
+of a dataset. The host transforms of ``gnn.transform`` (``add_self_loops``,
+``remove_edges``, ``negative_sample``, ``rand_edge_split``, ``unbatch``,
+...) rebuild a graph on its own device; ``generate``, ``convert``,
+``operators`` and ``datastore`` complete the graph toolkit, and
+``gnn.data`` reads TUDataset, OGB, METR-LA and TemporalBrains files.
 
 Sampled training on large graphs: ``gnn.NeighborLoader`` (the C++ sampler,
 ``gnn.native``, built with ``g++`` at first use) yields batches whose
@@ -66,12 +71,21 @@ def resolve_device(device) -> torch.device:
 from . import ops  # noqa: E402
 from .graph import (GraphTuple, graph, device_graph,  # noqa: E402
                     from_dense_adjacency)
-from .generate import rand_graph  # noqa: E402
+from .generate import (rand_graph, knn_graph, radius_graph,  # noqa: E402
+                       rand_temporal_radius_graph,
+                       rand_temporal_hyperbolic_graph)
 from . import query  # noqa: E402
 from .query import *  # noqa: E402,F401,F403
-from .utils import edge_decoding, normalize_graphdata  # noqa: E402
-from .transform import batch  # noqa: E402
-from . import models, training, data, interop, transform  # noqa: E402
+from .utils import (edge_encoding, edge_decoding,  # noqa: E402
+                    color_refinement, check_num_nodes, check_num_edges,
+                    normalize_graphdata)
+from . import transform  # noqa: E402
+from .transform import *  # noqa: E402,F401,F403
+from .datastore import DataStore  # noqa: E402
+from .operators import intersect_graphs  # noqa: E402
+from .convert import (from_adjacency_list, to_scipy_sparse,  # noqa: E402
+                      from_scipy_sparse, to_dense_adjacency)
+from . import models, training, data, interop  # noqa: E402
 from . import native, sampling, device_sampler  # noqa: E402
 from .sampling import (sample_neighbors, induced_subgraph,  # noqa: E402
                        NeighborLoader)
@@ -83,14 +97,19 @@ from .heterograph import (HeteroGraphTuple, Relation,  # noqa: E402
 from .temporal import TemporalGraph  # noqa: E402
 
 __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
-           "device_graph", "from_dense_adjacency", "rand_graph",
-           "edge_decoding", "normalize_graphdata", "batch", "models",
-           "training", "data", "interop", "transform", "query", "native",
-           "sampling", "device_sampler", "sample_neighbors",
-           "induced_subgraph", "NeighborLoader", "DeviceSampler",
-           "apply_blocks", "HeteroGraphTuple", "Relation", "heterograph",
-           "rand_heterograph", "rand_bipartite_heterograph",
-           "add_self_loops_hetero", "add_edges_hetero", "batch_hetero",
-           "TemporalGraph"] + query.__all__
+           "device_graph", "from_dense_adjacency", "rand_graph", "knn_graph",
+           "radius_graph", "rand_temporal_radius_graph",
+           "rand_temporal_hyperbolic_graph", "edge_encoding",
+           "edge_decoding", "color_refinement", "check_num_nodes",
+           "check_num_edges", "normalize_graphdata", "DataStore",
+           "intersect_graphs", "from_adjacency_list", "to_scipy_sparse",
+           "from_scipy_sparse", "to_dense_adjacency", "models", "training",
+           "data", "interop", "transform", "query", "native", "sampling",
+           "device_sampler", "sample_neighbors", "induced_subgraph",
+           "NeighborLoader", "DeviceSampler", "apply_blocks",
+           "HeteroGraphTuple", "Relation", "heterograph", "rand_heterograph",
+           "rand_bipartite_heterograph", "add_self_loops_hetero",
+           "add_edges_hetero", "batch_hetero",
+           "TemporalGraph"] + query.__all__ + transform.__all__
 
 __version__ = "0.1.0"

@@ -31,7 +31,7 @@ import torch
 from . import resolve_device
 from .graph import GraphTuple, _tensor, graph
 from .ops.segment import count_as
-from .transform import _host
+from .utils import _host
 
 EType = tuple[str, str, str]
 

@@ -33,6 +33,7 @@ import torch
 
 from . import native, resolve_device
 from .graph import GraphTuple, device_graph, graph, group_by
+from .utils import _host
 
 __all__ = ["sample_neighbors", "induced_subgraph", "NeighborLoader",
            "Prefetcher", "in_csr"]
@@ -171,10 +172,6 @@ def in_csr(senders: torch.Tensor, receivers: torch.Tensor, num_nodes: int):
     edge list takes a fraction of a second where the host's takes tens."""
     _, order, ptr = group_by(receivers, num_nodes)
     return senders.int()[order], order.int(), ptr.long()
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
 
 
 def sample_neighbors(g: GraphTuple, nodes, K: int = -1, *,

@@ -80,3 +80,32 @@ def t(a, dtype=torch.float64, grad=False):
     """numpy -> CPU tensor."""
     out = torch.tensor(np.asarray(a), dtype=dtype)
     return out.requires_grad_() if grad else out
+
+
+def assert_same_graph(jg, tg, *, weights_tol=None):
+    """Counts, edges in stored order, node graph ids, weights and features
+    of a JAX graph (its real rows) and a port graph, exactly (weights at
+    ``weights_tol`` if given)."""
+    nn, ne, ng = int(jg.num_nodes), int(jg.num_edges), int(jg.num_graphs)
+    assert (tg.num_nodes, tg.num_edges, tg.num_graphs) == (nn, ne, ng)
+    np.testing.assert_array_equal(tg.senders.numpy(),
+                                  np.asarray(jg.senders)[:ne])
+    np.testing.assert_array_equal(tg.receivers.numpy(),
+                                  np.asarray(jg.receivers)[:ne])
+    np.testing.assert_array_equal(tg.node_graph_id.numpy(),
+                                  np.asarray(jg.node_graph_id)[:nn])
+    assert (jg.edge_weight is None) == (tg.edge_weight is None)
+    if tg.edge_weight is not None:
+        want = np.asarray(jg.edge_weight)[:ne]
+        if weights_tol is None:
+            np.testing.assert_array_equal(tg.edge_weight.numpy(), want)
+        else:
+            np.testing.assert_allclose(tg.edge_weight.numpy(), want,
+                                       **weights_tol)
+    for what, n in (("nodes", nn), ("edges", ne), ("globals_", ng)):
+        jf, tf = getattr(jg, what), getattr(tg, what)
+        assert set(jf) == set(tf), what
+        for k in jf:
+            np.testing.assert_array_equal(tf[k].numpy(),
+                                          np.asarray(jf[k])[:n],
+                                          err_msg=f"{what}[{k}]")
