@@ -171,6 +171,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Adam at 1e-3 for 30 epochs; ms per batch, the loader's host ms per
    batch, K1's 3 launches a batch, the train and test accuracy, the steps
    profiled, one short batch (fillers included) card vs CPU in float64.
+6. The multi-device path (``parallel/``) on ``benchmarks/scaling.py``'s
+   defaults (:64-76, :120-140): its ``community`` graph (a copy of its
+   ``make_graph``: N = 65,536, E = 1,000,000, 64 hidden communities), D =
+   128, parts from ``partition_nodes``. Every rank runs in a process of its
+   own (the ``spawn`` start method) on the one card: these are several
+   ranks sharing one card, a test of correctness, not of scaling. 2k: K1
+   at the shapes of the P = 4 parts (each part's receiver CSR over its
+   halo buffer, part 0's sender CSR, owned and remote halves, and the
+   backward of the gather of its shipped rows) against the plain version
+   and ``torch.sparse.mm``, timed. 3t: ``make_sharded_propagate`` at P = 1
+   (nccl), 2 and 4 (gloo: nccl refuses two ranks on one device; gloo takes
+   the CUDA tensors and stages them through the host itself), the split
+   path and the combined one: one step gathered against the single-card
+   ``propagate(copy_xj)``, ms per step over 10 chained steps (the slowest
+   rank), cut fraction, halo bytes, K1 launches per rank. 3u:
+   ``make_mesh_train_step`` on a (data 2 x graph 2) mesh of 4 gloo ranks
+   over two community graphs (seeds 0 and 1), 3a's GCN and the dryrun's
+   ``GCNConv(128, 128, relu)``, ``GATConv(128, 128, heads=2,
+   concat=False)``, ``Linear(128, 8)`` (``__graft_entry__.py:38-146``), 10
+   Adam steps timed by ``profiling.StepTimer``: losses and parameters
+   against one card training the same model on both graphs, K1/K3/K4/K5
+   launches per rank, a checkpoint after step 5 restored into fresh
+   modules and optimizers that repeat steps 6-10 bit for bit, and 3
+   profiled steps under ``profiling.trace`` (a non-empty trace per rank;
+   the ranks' kernel time over the wall: the card's busy share).
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -191,7 +216,8 @@ and the train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3s, 2j, 3r, 3m and
 3n, with ``--profile`` their profiles; 3o, 3p, 3q, 3r and 3s always
 profile, and with ``--profile`` 3r also breaks the host's split and draw
 down by function under ``cProfile``; ``--only 3p,3q`` runs 2i with
-them, ``--only 3m,3n`` 2g, ``--only 2j,3r,3s`` the examples' phases:
+them, ``--only 3m,3n`` 2g, ``--only 2j,3r,3s`` the examples' phases,
+``--only 2k,3t,3u`` the multi-device path:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
 """
@@ -4689,6 +4715,613 @@ def graph_example_phase(gnn, dev) -> dict:
     return res
 
 
+# ---- phases 2k, 3t and 3u: the multi-device path ---------------------------
+
+# benchmarks/scaling.py's defaults (:64-76, :120-140): the community graph,
+# N = 65,536, E = 1,000,000, D = 128, the bfs partitioner, 10 chained steps
+PAR_N, PAR_E, PAR_STEPS = 65_536, 1_000_000, 10
+# 3t's parts and their backends. Every rank runs on the one card; nccl
+# refuses two ranks on one device, so P > 1 runs on gloo, which takes the
+# CUDA tensors itself (it stages them through the host: checked on an H100
+# before this phase was written). P = 1 runs on nccl.
+PAR_BACKEND = {1: "nccl", 2: "gloo", 4: "gloo"}
+# 3u: __graft_entry__.py's (data x graph) mesh at 4 ranks, two community
+# graphs (seeds 0 and 1), 8 classes; the checkpoint after step 5
+PAR_MESH = (2, 2)
+PAR_CKPT_STEP = 5
+PAR_LR = 1e-3
+# a spawn's limit: the ranks start together, build their views and run;
+# a hang in a collective fails the phase here
+PAR_TIMEOUT_S = 300
+# 3u, the mesh against one card training the same model, both float32 on
+# the card. The losses: each is a mean of 2N = 131,072 terms ~2.1 summed in
+# another order (a part's sum, then the all_reduce), each side's rounding
+# ~eps * sqrt(2N) ~ 4e-5 relative at worst for the sum and 1e-7 for a
+# pairwise one; held to 1e-5, 10x what a few-ulp difference in the logits
+# moves. The parameters: Adam's update m / sqrt(v) is ~lr a component
+# whatever the gradient's size, so a component whose gradient lies within
+# float32 rounding of 0 (|g| < ~2e-5 of its scale: ~1.6e-5 of 34k
+# components a step, ~5 in 10 steps) may step the other way on the other
+# side: 2 lr apart. Against the total update's norm (~lr * 10 * sqrt(34k)
+# ~ 1,800 lr) each such component is ~1e-3; held to 1e-2 (~100 of them).
+PAR_LOSS_RTOL = 1e-5
+PAR_PARAM_RTOL = 1e-2
+
+
+def community_graph(n: int, e: int, seed: int = 0):
+    """Host edge list (senders, receivers) of ``benchmarks/scaling.py``'s
+    ``community`` family: a copy of its ``make_graph`` (:34-61) for that
+    family (64 hidden communities, 80 % intra edges, ids shuffled)."""
+    rng = np.random.default_rng(seed)
+    ncomm, p_intra = 64, 0.8
+    comm = rng.permutation(n) % ncomm            # hidden, id-shuffled
+    members = [np.nonzero(comm == c)[0] for c in range(ncomm)]
+    s = rng.integers(0, n, e, dtype=np.int64)
+    r = rng.integers(0, n, e, dtype=np.int64)
+    intra = rng.random(e) < p_intra
+    cs = comm[s]
+    for c in range(ncomm):
+        m = intra & (cs == c)
+        if m.any():
+            r[m] = rng.choice(members[c], int(m.sum()))
+    return s.astype(np.int32), r.astype(np.int32)
+
+
+def par_features(seed: int, n: int | None = None):
+    """``x [n, D]`` float32 and ``n`` (default ``PAR_N``) labels of
+    ``OUT_D`` classes."""
+    n = PAR_N if n is None else n
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, D), dtype=np.float32),
+            rng.integers(0, OUT_D, n))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank, fn, nprocs, backend, dev, port, out_dir, args):
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the parent's
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", world_size=nprocs,
+        rank=rank, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        out = fn(rank, nprocs, dev, *args)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, nprocs: int, backend: str, dev, *args) -> list:
+    """``fn(rank, nprocs, dev, *args)`` in ``nprocs`` processes (the
+    ``spawn`` start method), each on ``dev`` (the card: device 0) with
+    ``init_process_group(backend)`` on a free localhost port; their results
+    in rank order. A rank that
+    raises fails the phase; ranks still running after
+    :data:`PAR_TIMEOUT_S` are killed and fail it too."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(
+            _rank_entry, args=(fn, nprocs, backend, str(dev), _free_port(),
+                               out_dir, args),
+            nprocs=nprocs, join=False, start_method="spawn")
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{nprocs} ranks did not finish "
+                                         f"in {PAR_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(nprocs)]
+
+
+def device_split(prof, steps: int) -> tuple[float, float]:
+    """``(device ms, of it copies between host and card)`` per step of a
+    profiler run of ``steps`` steps (gloo stages CUDA tensors through the
+    host: its copies are device time that no kernel spends)."""
+    rows = device_rows(prof, steps)
+    return (sum(ms for ms, _, _ in rows),
+            sum(ms for ms, _, key in rows if key.startswith("Memcpy")))
+
+
+def propagate_rank(rank, nprocs, dev, s, r, parts) -> dict:
+    """3t on one rank: its part of ``make_sharded_propagate`` over the
+    split path (the default) and the combined one: one step's output, then
+    :data:`PAR_STEPS` chained steps (``y = run(y) * 1e-3``, as scaling.py
+    chains them) after two warm-up steps, timed on the host from a barrier
+    to a synchronise, with their K1 launches; then 3 steps profiled (the
+    device time and its copies, per step)."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    import graphneuralnetworks_tpu_torch as gnn
+    from graphneuralnetworks_tpu_torch import parallel as par
+
+    n = len(parts)
+    g = gnn.graph(s, r, num_nodes=n, device=dev)
+    mesh = par.Mesh((nprocs,), ("graph",))
+    pg = par.partition_graph(g, nprocs, parts=parts)
+    run = par.make_sharded_propagate(mesh, pg, device=dev)
+    x = pg.scatter_nodes(torch.as_tensor(par_features(0, n)[0],
+                                         device=dev))[rank]
+    out = {"owned": pg.owned[rank], "src_rows": run.graph.src_rows,
+           "rem_rows": run.graph.split.halo.rows}
+    for path, sg in (("split", run.graph),
+                     ("combined", run.graph.replace(split=None))):
+        out[f"{path}_y"] = par.halo_propagate_local(x, sg).cpu()
+        v = x
+        for _ in range(2):
+            v = par.halo_propagate_local(v, sg) * 1e-3
+        _sync(dev)
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        v = x
+        for _ in range(PAR_STEPS):
+            v = par.halo_propagate_local(v, sg) * 1e-3
+        _sync(dev)
+        out[f"{path}_ms"] = (time.perf_counter() - t0) * 1e3 / PAR_STEPS
+        out[f"{path}_launches"] = read_counts()
+        dist.barrier()
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with tprofile(activities=acts) as prof:
+            v = x
+            for _ in range(3):
+                v = par.halo_propagate_local(v, sg) * 1e-3
+            _sync(dev)
+        out[f"{path}_device_ms"], out[f"{path}_copy_ms"] = device_split(
+            prof, 3)
+        dist.barrier()
+    return out
+
+
+def par_model(M, name: str, dev, seed: int = 0):
+    """3u's models: 3a's GCN, and __graft_entry__.py's dryrun chain at this
+    width (``GCNConv(128, 128, relu)``, ``GATConv(128, 128, heads=2,
+    concat=False)``, ``Linear(128, 8)``), from ``seed``."""
+    if name == "gcn":
+        return gcn(M, seed, dev)
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    return M.GNNChain(
+        M.GCNConv(D, D, torch.relu, generator=gen, device=dev),
+        M.GATConv(D, D, heads=2, concat=False, generator=gen, device=dev),
+        torch.nn.Linear(D, OUT_D).to(dev))
+
+
+def nll_sum(logits, y):
+    return -torch.log_softmax(logits, -1).gather(
+        -1, y.long()[:, None]).sum()
+
+
+def par_local_loss(m, sg, x, y):
+    """A part's summed negative log-likelihood over its owned nodes and
+    their count (the dryrun's ``local_loss``)."""
+    return nll_sum(m(sg, x), y), sg.node_mask.sum().to(x.dtype)
+
+
+# K1, K3, K4, K5 launches a step on one rank of 3u, and a step of one card
+# per graph it trains on: GCNConv(128, 128) propagates before its weight
+# and its input needs no gradient (1 K1); GCNConv(128, 8) propagates after
+# it (1 K1 forward, 1 for x's gradient over the sender CSR); GATConv one
+# K3, K4, K5. On the mesh every exchange that a gradient flows back through
+# adds fast_gather's K1 over the shipped rows: GCN's second layer 1, GAT's
+# pj and values 2.
+PAR_PER_STEP = {"gcn": ({"k1": 4}, {"k1": 3}),
+                "chain": ({"k1": 3, "k3": 1, "k4": 1, "k5": 1},
+                          {"k1": 1, "k3": 1, "k4": 1, "k5": 1})}
+
+
+def mesh_train_rank(rank, nprocs, dev, graphs, parts, name, ckpt_dir,
+                    trace_dir) -> dict:
+    """3u on one rank: ``make_mesh_train_step`` on the (data x graph) mesh,
+    :data:`PAR_STEPS` Adam steps timed by ``profiling.StepTimer``, a
+    checkpoint after step :data:`PAR_CKPT_STEP` (rank 0 writes it), then
+    fresh modules and optimizer restored from it and the steps after it
+    again; last, three more steps under ``profiling.trace``."""
+    import torch.distributed as dist
+
+    import graphneuralnetworks_tpu_torch as gnn
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch import parallel as par
+    from graphneuralnetworks_tpu_torch import profiling
+    from graphneuralnetworks_tpu_torch.checkpoint import (restore_checkpoint,
+                                                          save_checkpoint)
+
+    n = len(parts[0])
+    mesh = par.Mesh(PAR_MESH, ("data", "graph"))
+    pgs = [par.partition_graph(gnn.graph(s, r, num_nodes=n, device=dev),
+                               PAR_MESH[1], parts=p)
+           for (s, r), p in zip(graphs, parts)]
+    d, part = mesh.index("data"), mesh.index("graph")
+    x, y = (torch.as_tensor(a, device=dev) for a in par_features(10 + d, n))
+    x, y = pgs[d].scatter_nodes(x)[part], pgs[d].scatter_nodes(y)[part]
+
+    def trainer(seed):
+        model = par_model(M, name, dev, seed)
+        opt = torch.optim.Adam(model.parameters(), lr=PAR_LR)
+        return model, opt, par.make_mesh_train_step(
+            model, opt, mesh, pgs, par_local_loss, device=dev)
+
+    model, opt, step = trainer(0)
+    timer = profiling.StepTimer(
+        num_edges=sum(len(s) for s, _ in graphs), device=dev)
+    losses = []
+    _sync(dev)
+    reset_counts()
+    for i in range(PAR_STEPS):
+        with timer:
+            losses.append(float(step(x, y)))
+        if i + 1 == PAR_CKPT_STEP:
+            if rank == 0:
+                save_checkpoint(ckpt_dir, PAR_CKPT_STEP,
+                                {"model": model, "opt": opt})
+            dist.barrier()
+    launches = read_counts()
+    final = {k: p.detach().to("cpu", copy=True)
+             for k, p in model.named_parameters()}
+    model2, opt2, _ = trainer(1)
+    restore_checkpoint(ckpt_dir, {"model": model2, "opt": opt2})
+    step2 = par.make_mesh_train_step(model2, opt2, mesh, pgs,
+                                     par_local_loss, device=dev)
+    resumed = [float(step2(x, y)) for _ in range(PAR_STEPS - PAR_CKPT_STEP)]
+    same = resumed == losses[PAR_CKPT_STEP:] and all(
+        torch.equal(p.detach().cpu(), final[k])
+        for k, p in model2.named_parameters())
+    with profiling.trace(os.path.join(trace_dir, f"rank{rank}")) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(x, y)
+        _sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+    device, copies = device_split(prof, 3)
+    return {"losses": losses, "resumed": resumed, "resume_same": same,
+            "final": final, "launches": launches, "step_s": timer.history,
+            "report": timer.report(), "profiled_wall_ms": wall,
+            "device_ms": device, "copy_ms": copies,
+            "trace_bytes": os.path.getsize(prof.trace_path),
+            "n_owned": int(x.shape[0]), "src_rows": step.graph.src_rows}
+
+
+def shard_gat_cases(res, card, label, lg, h, d, gen) -> None:
+    """K3, K4 and K5 on a part's view ``lg`` (its receiver CSR over the
+    owned rows, its sender CSR over the halo buffer) at ``(h, d)``, each
+    held to its plain version and timed, as phase 2b holds them on one
+    graph: per-node scalars and value rows of the receivers (``n_dst``)
+    and of the buffer's senders (``n_src``) are counted apart."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev = lg.indptr_r.device
+    ir, cr, is_, cs = lg.indptr_r, lg.col_r, lg.indptr_s, lg.col_s
+    n_dst, n_src, e = lg.num_nodes, lg.indptr_s.numel() - 1, lg.num_edges
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    pi, pj, v, dy = rn(n_dst, h), rn(n_src, h), rn(n_src, h, d), \
+        rn(n_dst, h, d)
+    sl, sv = rn(n_dst, h), rn(n_dst, h, d)
+    hd = f"{label} H={h} D={d}"
+    # compulsory bytes, float32 and int32: a CSR's indptr and col; per-node
+    # scalars (h each) and value rows (h*d each) of receivers and senders;
+    # outputs once. The no-reuse bound adds the per-edge gathers' re-reads.
+    idx_r, idx_s = 4 * (n_dst + 1 + e), 4 * (n_src + 1 + e)
+    dst, src = 4 * h * n_dst, 4 * h * n_src
+    dst_rows, src_rows = d * dst, d * src
+    src_again = 4 * e * h * (d + 1) - src_rows - src
+    dst_again = 4 * e * h * (d + 4) - dst_rows - 4 * dst
+    num, m, s_ = kernel_case(
+        res, card, "k3", hd, ES.gat_softmax, ES.gat_softmax_plain,
+        (ir, cr, pi, pj, v, 0.2), idx_r + dst + src + src_rows + dst_rows
+        + 2 * dst, e * h * (2 * d + 6), src_again)
+    out, mx, den = ES.finalize_softmax(num, m, s_, sl, sv)
+    bwd = (pi, pj, v, mx, den, (out * dy).sum(-1), dy, 0.2)
+    # in: pi, mx, den, s_n and dy of the receivers, pj and v of the
+    # senders; out: dpi (K4) or dpj and dv (K5)
+    ins = 4 * dst + src + dst_rows + src_rows
+    kernel_case(res, card, "k4", hd, ES.gat_bwd_dpi, ES.gat_bwd_dpi_plain,
+                (ir, cr) + bwd, idx_r + ins + dst, e * h * (2 * d + 10),
+                src_again)
+    kernel_case(res, card, "k5", hd, ES.gat_bwd_rev, ES.gat_bwd_rev_plain,
+                (is_, cs) + bwd, idx_s + ins + src + src_rows,
+                e * h * (4 * d + 10), dst_again)
+
+
+def shard_kernel_cases(kern, card, pgs, dev) -> None:
+    """2k: the kernels of 3t and 3u at the shapes their parts give them,
+    each held to its plain version (K1 also to ``torch.sparse.mm`` over the
+    same CSR) and timed. 3t, P = 4: every part's combined receiver CSR
+    (its owned rows over its halo buffer) and part 0's owned and remote
+    halves of the split path, at D = 128. 3u, P = 2 (graph 0's partition,
+    part 0): the receiver CSR at D = 128 (both models' first layer) and 8
+    (GCN's second), the sender CSR at 8 (that layer's x gradient), the
+    backward of the gather of its shipped rows (``fast_gather`` over their
+    grouping by node) at 8 (GCN), 2 (GATConv's pj) and 256 (its values),
+    and K3, K4, K5 at GATConv's (H, D) = (2, 128)."""
+    from graphneuralnetworks_tpu_torch.graph import group_by
+    from graphneuralnetworks_tpu_torch.parallel.shardgraph import local_graph
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def case(label, paths, indptr, col, eid, n_src, d=D):
+        n_rows = indptr.numel() - 1
+        src = torch.randn(n_src, d, generator=gen, device=dev)
+        a = torch.sparse_csr_tensor(
+            indptr, col, torch.ones(col.numel(), device=dev),
+            (n_rows, n_src))
+        k1_timed_case(kern, card, label, paths, (indptr, col, eid, None, src),
+                      lambda: torch.sparse.mm(a, src))
+
+    def view(pg, p):
+        n_own, rows = len(pg.owned[p]), pg.buffer_rows(p)
+        return local_graph(pg.recv_local[p], pg.send_buf[p], n_own, rows,
+                           device=dev)
+
+    pg = pgs[4]
+    for p in range(pg.num_parts):
+        lg = view(pg, p)
+        case(f"3t P=4 part {p} fwd receiver-CSR D=128 ({lg.num_nodes} rows "
+             f"from {lg.indptr_s.numel() - 1})", "3t combined path",
+             lg.indptr_r, lg.col_r, None, lg.indptr_s.numel() - 1)
+    n_own = len(pg.owned[0])
+    own = local_graph(pg.own_recv[0], pg.own_send[0], n_own, n_own,
+                      device=dev)
+    case("3t P=4 part 0 split own fwd D=128", "3t split path (owned half)",
+         own.indptr_r, own.col_r, None, n_own)
+    n_rem = sum(len(pg.halo[q][0]) for q in range(1, pg.num_parts))
+    rem = local_graph(pg.rem_recv[0], pg.rem_send[0], n_own, n_rem,
+                      device=dev)
+    case(f"3t P=4 part 0 split remote fwd D=128 (from {n_rem})",
+         "3t split path (remote half)", rem.indptr_r, rem.col_r, None, n_rem)
+
+    pg = pgs[PAR_MESH[1]]
+    lg = view(pg, 0)
+    n_own, rows = lg.num_nodes, lg.indptr_s.numel() - 1
+    for d, paths in ((D, "3u layers (fwd at 128)"),
+                     (OUT_D, "3u GCN's second layer (fwd)")):
+        case(f"3u P=2 part 0 fwd receiver-CSR D={d} ({n_own} rows from "
+             f"{rows})", paths, lg.indptr_r, lg.col_r, None, rows, d)
+    case(f"3u P=2 part 0 bwd sender-CSR D={OUT_D} ({rows} rows from "
+         f"{n_own})", "3u GCN's second layer (x's gradient)", lg.indptr_s,
+         lg.col_s, lg.eid_s, n_own, OUT_D)
+    send = torch.as_tensor(np.concatenate(
+        [pg.halo[0][q] for q in range(pg.num_parts)]), device=dev)
+    _, order, indptr = group_by(send, n_own)
+    for d, paths in ((OUT_D, "3u GCN exchange backward"),
+                     (2, "3u GAT pj exchange backward"),
+                     (2 * D, "3u GAT values exchange backward")):
+        case(f"3u P=2 part 0 halo gather bwd D={d} ({send.numel()} shipped "
+             "rows)", f"{paths} (fast_gather)", indptr, order.int(), None,
+             send.numel(), d)
+    for key in ("k3", "k4", "k5"):
+        kern.setdefault(key, {"err": 0.0, "variants": []})
+    shard_gat_cases(kern, card, "3u P=2 part 0", lg, 2, D, gen)
+
+
+def multi_device_phases(gnn, card, which, out_dir,
+                        dev=torch.device("cuda")) -> tuple:
+    """2k, 3t and 3u (those of ``which``) on ``dev``. Returns the results
+    and 2k's cases by kernel (K1, K3, K4, K5)."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch import parallel as par
+    from graphneuralnetworks_tpu_torch.training import make_train_step
+
+    res, kern = {}, {"k1": {"err": 0.0, "variants": []}}
+    t0 = time.perf_counter()
+    s, r = community_graph(PAR_N, PAR_E, seed=0)
+    g = gnn.graph(s, r, num_nodes=PAR_N, device=dev)
+    parts = {p: par.partition_nodes(s, r, PAR_N, p) for p in PAR_BACKEND}
+    log(f"phases 2k/3t/3u set-up: community graph N={PAR_N} E={PAR_E} "
+        f"(benchmarks/scaling.py:34-61), partition_nodes for P = "
+        f"{list(parts)}: {time.perf_counter() - t0:.2f} s")
+    pgs = {p: par.partition_graph(g, p, parts=parts[p]) for p in parts}
+    if "2k" in which:
+        log("phase 2k: K1 at the shapes of 3t's P = 4 parts and 3u's P = 2 "
+            "part vs the plain version and torch.sparse.mm; K3-K5 at 3u's "
+            "GATConv shapes vs their plain versions")
+        shard_kernel_cases(kern, card, pgs, dev)
+        log_times(kern, 66)
+    if "3t" in which:
+        log(f"phase 3t: make_sharded_propagate on the community graph, D = "
+            f"{D}, P = {list(PAR_BACKEND)} (backends {PAR_BACKEND}); all "
+            "ranks share the one card, so these times are of several ranks "
+            "on one card, not scaling figures; gloo ships CUDA tensors "
+            "through the host itself")
+        x = torch.as_tensor(par_features(0)[0], device=dev)
+        y_ref = gnn.ops.propagate(gnn.ops.copy_xj, g, "sum", xj=x)
+        res["3t"] = {}
+        for p, backend in PAR_BACKEND.items():
+            ranks = spawn_ranks(propagate_rank, p, backend, dev, s, r,
+                                parts[p])
+            pg, row = pgs[p], {"backend": backend}
+            for path, per_step in (("split", 2), ("combined", 1)):
+                y = pg.gather_nodes([v[f"{path}_y"] for v in ranks])
+                row[f"{path}_err"] = compare(
+                    f"3t P={p} {path} vs one card", y.to(dev), y_ref)
+                for i, v in enumerate(ranks):
+                    expect_counts(f"3t P={p} {path} rank {i}",
+                                  v[f"{path}_launches"], {"k1": per_step},
+                                  steps=PAR_STEPS)
+                row[f"{path}_ms"] = max(v[f"{path}_ms"] for v in ranks)
+                row[f"{path}_ms_by_rank"] = [v[f"{path}_ms"] for v in ranks]
+                for key in ("device_ms", "copy_ms"):
+                    row[f"{path}_{key}"] = sum(v[f"{path}_{key}"]
+                                               for v in ranks)
+            row.update(cut_fraction=pg.cut_fraction,
+                       halo_bytes=pg.halo_bytes_per_step(D),
+                       owned=[len(o) for o in pg.owned],
+                       buffer_rows=[v["src_rows"] for v in ranks],
+                       remote_rows=[v["rem_rows"] for v in ranks])
+            log(f"  P={p} ({backend}): split {row['split_ms']:.3f} ms/step, "
+                f"combined {row['combined_ms']:.3f} ms/step (slowest rank "
+                f"of {p} on one card, {PAR_STEPS} chained steps); cut "
+                f"fraction {row['cut_fraction']:.4f}, halo "
+                f"{row['halo_bytes']} bytes/exchange; owned "
+                f"{row['owned']}, buffer rows {row['buffer_rows']}, remote "
+                f"{row['remote_rows']}; K1 per rank a step: split 2, "
+                "combined 1")
+            for path in ("split", "combined"):
+                dm, cm = row[f"{path}_device_ms"], row[f"{path}_copy_ms"]
+                log(f"    {path}, 3 steps profiled on every rank: the ranks' "
+                    f"device time {dm:.3f} ms/step, of it gloo's copies "
+                    f"between host and card {cm:.3f} and kernels "
+                    f"{dm - cm:.3f}; busy {100 * dm / row[f'{path}_ms']:.1f}"
+                    f" % of the step (kernels "
+                    f"{100 * (dm - cm) / row[f'{path}_ms']:.1f} %)")
+            res["3t"][p] = row
+    if "3u" in which:
+        graphs = [community_graph(PAR_N, PAR_E, seed=i)
+                  for i in range(PAR_MESH[0])]
+        mparts = [par.partition_nodes(a, b, PAR_N, PAR_MESH[1])
+                  for a, b in graphs]
+        res["3u"] = {}
+        for name in ("gcn", "chain"):
+            res["3u"][name] = mesh_train_phase(
+                gnn, M, par, make_train_step, dev, graphs, mparts, name,
+                out_dir)
+    return res, kern
+
+
+def mesh_train_phase(gnn, M, par, make_train_step, dev, graphs, parts, name,
+                     out_dir) -> dict:
+    """3u for one model: one forward+backward on the card is held to the
+    CPU plain path in float64, one card trains it on both graphs (the
+    global mean loss), then the mesh of 4 ranks does
+    (:func:`mesh_train_rank`); losses, parameters, launches, the resume and
+    the trace are checked."""
+    import tempfile
+
+    log(f"phase 3u ({name}): make_mesh_train_step on a (data {PAR_MESH[0]} "
+        f"x graph {PAR_MESH[1]}) mesh of {PAR_MESH[0] * PAR_MESH[1]} gloo "
+        f"ranks on the one card, two community graphs, {PAR_STEPS} Adam "
+        "steps, against one card training the same model on both graphs")
+    gs = [gnn.graph(s, r, num_nodes=PAR_N, device=dev) for s, r in graphs]
+    data = [tuple(torch.as_tensor(a, device=dev) for a in par_features(10 + i))
+            for i in range(len(gs))]
+    model = par_model(M, name, dev)
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    def graph0_loss(m, gg, xx, extra):
+        logits = m(gg, xx)
+        return logits, nll_sum(logits, data[0][1].to(logits.device)) / PAR_N
+
+    log("  one forward+backward on graph 0, the card (its kernels) vs the "
+        "CPU plain path in float64: the one-card run that the mesh is held "
+        "to below")
+    vs_cpu = compare_model(f"3u {name}", model, gs[0], data[0][0], None,
+                           forward=graph0_loss)
+    opt = torch.optim.Adam(model.parameters(), lr=PAR_LR)
+
+    def loss_fn(m):
+        return sum(nll_sum(m(g, x), y) for g, (x, y) in zip(gs, data)) \
+            / (PAR_N * len(gs))
+
+    step = make_train_step(model, opt, loss_fn)
+    _sync(dev)
+    reset_counts()
+    ref_losses, ref_ms = [], []
+    for _ in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        ref_losses.append(float(step()))
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+    mesh_per_step, per_graph = PAR_PER_STEP[name]
+    card_per_step = {k: v * len(gs) for k, v in per_graph.items()}
+    expect_counts(f"3u {name} one card", read_counts(), card_per_step)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = out_dir or tmp
+        ckpt = os.path.join(base, f"3u_{name}_ckpt")
+        traces = os.path.join(base, f"3u_{name}_trace")
+        ranks = spawn_ranks(mesh_train_rank, PAR_MESH[0] * PAR_MESH[1],
+                            "gloo", dev, graphs, parts, name, ckpt, traces)
+    losses = ranks[0]["losses"]
+    for i, v in enumerate(ranks):
+        expect_counts(f"3u {name} rank {i}", v["launches"], mesh_per_step)
+        if v["losses"] != losses:
+            raise AssertionError(f"3u {name}: rank {i}'s losses "
+                                 f"{v['losses']} differ from rank 0's")
+        for k, t in v["final"].items():
+            if not torch.equal(t, ranks[0]["final"][k]):
+                raise AssertionError(f"3u {name}: rank {i}'s {k} differs")
+        if not v["resume_same"]:
+            raise AssertionError(f"3u {name}: rank {i} resumed from step "
+                                 f"{PAR_CKPT_STEP} to {v['resumed']}, not "
+                                 f"{v['losses'][PAR_CKPT_STEP:]} bit for bit")
+        if v["trace_bytes"] <= 0:
+            raise AssertionError(f"3u {name}: rank {i}'s trace is empty")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"3u {name}: loss did not fall: {losses}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if loss_err > PAR_LOSS_RTOL:
+        raise AssertionError(f"3u {name}: losses {losses} vs one card "
+                             f"{ref_losses} (rel {loss_err:.3e})")
+    final = {k: p.detach() for k, p in model.named_parameters()}
+    diff = torch.sqrt(sum(((ranks[0]["final"][k].to(dev) - final[k]) ** 2)
+                          .sum() for k in final))
+    moved = torch.sqrt(sum(((final[k] - init[k]) ** 2).sum()
+                           for k in final))
+    param_err = float(diff / moved)
+    if not param_err <= PAR_PARAM_RTOL:
+        raise AssertionError(f"3u {name}: parameters {param_err:.3e} of "
+                             f"their update's norm from one card's")
+    ms = [1e3 * t for t in ranks[0]["step_s"]]
+    busy = sum(v["device_ms"] for v in ranks)
+    copies = sum(v["copy_ms"] for v in ranks)
+    wall = max(v["profiled_wall_ms"] for v in ranks)
+    log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f} (one card "
+        f"{ref_losses[0]:.6f} -> {ref_losses[-1]:.6f}; max rel "
+        f"{loss_err:.3e}, rtol {PAR_LOSS_RTOL:g}); parameters after "
+        f"{PAR_STEPS} steps {param_err:.3e} of the update's norm (tol "
+        f"{PAR_PARAM_RTOL:g})")
+    log(f"  StepTimer (CUDA events, rank 0; 4 ranks share the card): "
+        f"{ranks[0]['report']}; ms/step {[round(t, 3) for t in ms]}; one "
+        f"card median {statistics.median(ref_ms):.3f} ms/step")
+    log(f"  profiled 3 steps: wall {wall:.3f} ms/step; the 4 ranks' device "
+        f"time {busy:.3f} ms/step (by rank "
+        f"{[round(v['device_ms'], 3) for v in ranks]}), of it gloo's "
+        f"copies between host and card {copies:.3f} and kernels "
+        f"{busy - copies:.3f}; busy {100 * busy / wall:.1f} % (kernels "
+        f"{100 * (busy - copies) / wall:.1f} %); traces "
+        f"{[v['trace_bytes'] for v in ranks]} bytes")
+    log(f"  launches a step per rank {mesh_per_step}, one card "
+        f"{card_per_step}; resume from step {PAR_CKPT_STEP}: steps "
+        f"{PAR_CKPT_STEP + 1}-{PAR_STEPS} bit for bit on every rank")
+    return {"losses": losses, "card_losses": ref_losses, "vs_cpu": vs_cpu,
+            "loss_rel_err": loss_err, "param_rel_err": param_err,
+            "ms_per_step_rank0": ms, "report": ranks[0]["report"],
+            "card_ms_per_step": ref_ms, "profiled_wall_ms": wall,
+            "device_ms_per_step": busy, "copy_ms_per_step": copies,
+            "device_ms_by_rank": [v["device_ms"] for v in ranks],
+            "launches_per_rank": [v["launches"] for v in ranks],
+            "owned": [v["n_owned"] for v in ranks],
+            "buffer_rows": [v["src_rows"] for v in ranks],
+            "trace_bytes": [v["trace_bytes"] for v in ranks]}
+
+
 def cora_phase(dev) -> dict:
     from graphneuralnetworks_tpu_torch import models as M
     from graphneuralnetworks_tpu_torch.data import load_cora
@@ -4795,9 +5428,10 @@ def main() -> int:
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f,2h and the "
                          "train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3s, "
-                         "3m and 3n, and 2j and 3r; 3p and 3q run 2i's "
-                         "cases with them; 2j and 3r run after the others "
-                         "(on one edge split), 3m and 3n last, with 2g), "
+                         "3m and 3n, 2j and 3r, and 2k, 3t and 3u; 3p and "
+                         "3q run 2i's cases with them; 2k, 3t and 3u run "
+                         "after the others (on one partition), then 2j and "
+                         "3r (on one edge split), 3m and 3n last, with 2g), "
                          "then stop without a result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
@@ -4864,11 +5498,12 @@ def main() -> int:
     only = args.only.split(",") if args.only else None
     sage_which = [p for p in ("3m", "3n") if only is None or p in only]
     link_which = [p for p in ("2j", "3r") if only is None or p in only]
+    par_which = [p for p in ("2k", "3t", "3u") if only is None or p in only]
     for phase in (only if only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
                       "3l": propagation_phase, "3o": precision_phase}
-        if phase in sage_which or phase in link_which:
+        if phase in sage_which or phase in link_which or phase in par_which:
             continue
         if phase in ht_phases:
             only_train[phase], extra = ht_phases[phase]()
@@ -4901,7 +5536,15 @@ def main() -> int:
         merge_kernels(link_kern)
         return res
 
+    def run_par():
+        """2k, 3t and 3u; 2k's cases join phase 2's."""
+        res, par_kern = multi_device_phases(gnn, card, par_which, args.out)
+        merge_kernels(par_kern)
+        return res
+
     if args.only:
+        if par_which:
+            only_train["multi_device"] = run_par()
         if link_which:
             only_train["link_example"] = run_link()
         if sage_which:
@@ -4946,6 +5589,7 @@ def main() -> int:
     main_res["graph_example"] = graph_example_phase(gnn, g.device)
     main_res["vs_cpu"]["graph_example"] = main_res["graph_example"].pop(
         "vs_cpu")
+    main_res["multi_device"] = run_par()
 
     def entry(key, name, src, line, path, pallas=None):
         head = kern[key]["variants"][0]

@@ -36,6 +36,14 @@ groupings are built on the card (``gnn.device_graph``), and
 ``sampling.Prefetcher`` samples ahead in threads; ``gnn.DeviceSampler``
 samples on the card itself, with ``apply_blocks`` for its per-layer blocks.
 
+Across devices: ``gnn.parallel`` partitions a graph
+(``partition_graph``) and runs one process per part over
+``torch.distributed``: each part's view (``ShardGraph``) ships the rows its
+edges read in one halo exchange, the layers run on it unchanged, and
+``make_mesh_train_step`` trains over a (data x graph) ``Mesh``.
+``save_checkpoint``/``restore_checkpoint`` keep model and optimizer state;
+``profiling`` has ``trace``, ``StepTimer`` and ``benchmark_layers``.
+
 Heterogeneous graphs: ``gnn.heterograph`` builds typed node sets and
 relations (each relation's groupings built once, on the card), and
 ``models.HeteroGraphConv`` runs one layer per relation. Temporal graphs:
@@ -95,6 +103,9 @@ from .heterograph import (HeteroGraphTuple, Relation,  # noqa: E402
                           batch_hetero, heterograph,
                           rand_bipartite_heterograph, rand_heterograph)
 from .temporal import TemporalGraph  # noqa: E402
+from .checkpoint import (save_checkpoint, restore_checkpoint,  # noqa: E402
+                         latest_step)
+from . import parallel, profiling  # noqa: E402
 
 __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
            "device_graph", "from_dense_adjacency", "rand_graph", "knn_graph",
@@ -110,6 +121,8 @@ __all__ = ["default_device", "resolve_device", "ops", "GraphTuple", "graph",
            "HeteroGraphTuple", "Relation", "heterograph", "rand_heterograph",
            "rand_bipartite_heterograph", "add_self_loops_hetero",
            "add_edges_hetero", "batch_hetero",
-           "TemporalGraph"] + query.__all__ + transform.__all__
+           "TemporalGraph", "save_checkpoint", "restore_checkpoint",
+           "latest_step", "parallel", "profiling"] + query.__all__ \
+    + transform.__all__
 
 __version__ = "0.1.0"

@@ -29,7 +29,7 @@ from torch import nn
 from .. import resolve_device
 from ..graph import GraphTuple, no_edge_valid
 from ..ops import (aggregate_neighbors, apply_edges, copy_xj, e_mul_xj,
-                   propagate, w_mul_xj)
+                   propagate, to_src_space, w_mul_xj)
 from ..ops.attention import (attention_aggregate, dot_attention,
                              gat_attention, gatv2_attention)
 from ..ops.cuda.edge_softmax import lrelu
@@ -400,7 +400,8 @@ class GATConv(GNNLayer):
             if e is None or self.dense_e is None:
                 raise ValueError("edge features required/not configured")
             We = self.dense_e(e).reshape(-1, H, O)
-            raw = (gather(pi, g.receivers) + gather(pj, g.senders)
+            raw = (gather(pi, g.receivers)
+                   + gather(to_src_space(g, pj), g.senders)
                    + torch.einsum("ehf,fh->eh", We, a[2 * O:]))
             out = attention_aggregate(g, lrelu(raw, slope), Wxj,
                                       self_logits=self_logits,
@@ -488,7 +489,8 @@ class GATv2Conv(GNNLayer):
         else:
             if e is None or self.dense_e is None:
                 raise ValueError("edge features required/not configured")
-            wx = (gather(Wxi, g.receivers) + gather(Wxj, g.senders)
+            wx = (gather(Wxi, g.receivers)
+                  + gather(to_src_space(g, Wxj), g.senders)
                   + self.dense_e(e).reshape(-1, H, O))
             out = attention_aggregate(g, self._logits(wx), Wxj,
                                       self_logits=self_logits,
@@ -642,8 +644,8 @@ class TransformerConv(GNNLayer):
             if self.W6 is None:
                 raise ValueError("edge features not configured")
             W6e = self.W6(e).reshape(-1, H, O)
-            key = gather(W4x, g.senders) + W6e
-            val = gather(W2x, g.senders) + W6e
+            key = gather(to_src_space(g, W4x), g.senders) + W6e
+            val = gather(to_src_space(g, W2x), g.senders) + W6e
             logits = (gather(W3x, g.receivers) * key).sum(-1) / self.sqrt_out
             h = attention_aggregate(g, logits, val, self_logits=self_logits,
                                     self_values=self_values)

@@ -35,6 +35,7 @@ from .cuda.edge_softmax import (dot_attention_nodes, edge_softmax_aggregate,
                                 lrelu)
 from .cuda.sddmm import sddmm
 from .cuda.spmm import _work_dtype
+from .msgpass import to_src_space
 from .segment import gather, segment_max, segment_sum
 
 __all__ = ["attention_aggregate", "gat_attention", "gatv2_attention",
@@ -79,6 +80,8 @@ def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
     accepted for the JAX package's signature and not used.
     """
     no_edge_valid(g, "gat_attention")
+    pj = to_src_space(g, pj)   # identity unless g is a part's view
+    values = to_src_space(g, values)
     if _kernel_route(values) and dropout_masks is None:
         return gat_attention_nodes(g, pi, pj, values, slope,
                                    self_logits=self_logits,
@@ -107,6 +110,7 @@ def gatv2_attention(g: GraphTuple, q, k, a, slope: float, *,
     gathered and :func:`attention_aggregate` takes over.
     """
     no_edge_valid(g, "gatv2_attention")
+    k = to_src_space(g, k)
     if _kernel_route(k) and dropout_masks is None:
         return gatv2_attention_nodes(g, q, k, a, slope,
                                      self_logits=self_logits,
@@ -134,6 +138,8 @@ def dot_attention(g: GraphTuple, q, k, values, scale: float = 1.0, *,
     :func:`dot_attention_logits` and :func:`attention_aggregate` take over.
     """
     no_edge_valid(g, "dot_attention")
+    k = to_src_space(g, k)
+    values = to_src_space(g, values)
     if _kernel_route(values):
         shape_h, d = tuple(q.shape[1:-1]), values.shape[-1]
         heads = functools.partial(_flat_heads, h=math.prod(shape_h))
@@ -153,6 +159,7 @@ def dot_attention_logits(g: GraphTuple, qi, kj):
     ``[E, *H]`` (``[N, O]`` -> ``[E]``). On the card, one launch of K13
     for all heads (:func:`~.cuda.sddmm.sddmm`)."""
     no_edge_valid(g, "dot_attention_logits")
+    kj = to_src_space(g, kj)
     if _kernel_route(kj):
         return sddmm(g, qi, kj)
     return (gather(qi, g.receivers) * gather(kj, g.senders)).sum(-1)
@@ -178,6 +185,8 @@ def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,
     """
     no_edge_valid(g, "attention_aggregate")
     n = num_segments if num_segments is not None else g.num_nodes
+    if node_values:
+        values = to_src_space(g, values)
     if values.dim() != logits.dim() + 1:
         raise ValueError(f"values {tuple(values.shape)} must have one more "
                          f"dimension than logits {tuple(logits.shape)}")

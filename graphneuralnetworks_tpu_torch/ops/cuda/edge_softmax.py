@@ -1345,10 +1345,13 @@ def _senders(g, n_src: int):
 
 
 def _cut(g, indptr, n, side, what):
-    if n > g.num_nodes:
-        raise ValueError(f"{what}, but the graph has {g.num_nodes} nodes")
+    # the grouping's own rows: num_nodes on a graph, the halo buffer's on
+    # the sender side of a part's view across devices (parallel.ShardGraph)
+    rows = indptr.numel() - 1
+    if n > rows:
+        raise ValueError(f"{what}, but the graph has {rows} nodes")
     indptr = indptr[: n + 1]
-    if n < g.num_nodes and int(indptr[-1]) != g.num_edges:
+    if n < rows and int(indptr[-1]) != g.num_edges:
         raise ValueError(f"{what}, but some edges have a {side} at or past "
                          f"it")
     return indptr

@@ -20,6 +20,11 @@ GNNlib msgpass.jl:69-238), with the same message vocabulary.
   it: in ``y``'s dtype, so a bfloat16 count stops at 256
   (:func:`~.segment.count_as`).
 
+On a part's view across devices (``parallel.ShardGraph``) senders index
+the halo buffer: :func:`to_src_space` moves a sender-side node array there
+(one exchange) wherever an op reads one by sender, and is the identity on
+a plain :class:`~..graph.GraphTuple`.
+
 On a graph with ``edge_valid`` (``DeviceSampler``'s) that SpMM route is the
 one that honours it: an invalid edge weighs 0 and mean divides by the
 count of valid in-edges. ``apply_edges`` and ``aggregate_neighbors`` raise
@@ -41,7 +46,8 @@ from .cuda.sddmm import sddmm
 from .cuda.spmm import spmm
 from .segment import count_as, gather, is_extreme, segment_reduce
 
-__all__ = ["apply_edges", "aggregate_neighbors", "propagate", "copy_xi",
+__all__ = ["apply_edges", "aggregate_neighbors", "propagate",
+           "to_src_space", "copy_xi",
            "copy_xj", "xi_dot_xj", "xi_sub_xj", "xj_sub_xi", "e_mul_xj",
            "w_mul_xj"]
 
@@ -61,6 +67,23 @@ def _kernel_route(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def to_src_space(g, v):
+    """A sender-side NODE array (or dict of them) in the graph's sender
+    index space.
+
+    The identity on a plain :class:`~..graph.GraphTuple`. On a part's view
+    across devices (``parallel.ShardGraph``) it is the halo exchange that
+    ships the owned rows other parts read into each part's buffer. Arrays
+    already there (leading dimension other than ``g.num_nodes``; a view's
+    buffer never has that many rows) pass through.
+    """
+    convert = getattr(g, "src_space", None)
+    if convert is None or v is None:
+        return v
+    return _map_leaves(
+        lambda a: convert(a) if a.shape[0] == g.num_nodes else a, v)
+
+
 def _sddmm_message(f, g, xi, xj, e) -> bool:
     """Whether ``f(xi, xj, e)`` is one SDDMM on the card: ``xi_dot_xj`` of
     two ``[num_nodes, D]`` CUDA tensors and no edge features."""
@@ -78,6 +101,7 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
     ``f`` returns on edge-shaped inputs.
     """
     no_edge_valid(g, "apply_edges")
+    xj = to_src_space(g, xj)   # identity unless g is a part's view
     if _sddmm_message(f, g, xi, xj, e):
         return sddmm(g, xi, xj)[:, None]
 
@@ -87,7 +111,7 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
         return gather(v, g.receivers)
 
     def take_s(v):
-        if v.dim() == 2 and v.shape[0] == g.num_nodes:
+        if v.dim() == 2 and v.shape[0] == g.indptr_s.numel() - 1:
             return fast_gather(v, g.senders, g.indptr_s, g.eid_s)
         return gather(v, g.senders)
 
@@ -151,6 +175,7 @@ def _in_degree(g: GraphTuple) -> torch.Tensor:
 def propagate(f: Callable, g: GraphTuple, aggr, *, xi=None, xj=None, e=None):
     """``aggregate_neighbors(g, aggr, apply_edges(f, g, xi, xj, e))``, with
     the SpMM fast path described in the module docstring."""
+    xj = to_src_space(g, xj)   # identity unless g is a part's view
     if ((aggr in _SUM or aggr == "mean") and isinstance(xj, torch.Tensor)
             and xj.dim() == 2):
         y = _spmm_message(f, g, xj, e)

@@ -53,6 +53,13 @@ def degree(g: GraphTuple, *, dir: str = "out", edge_weight=None,
     ``edge_weight=None`` uses ``g.edge_weight`` if present, ``False`` forces
     unweighted, and a tensor gives the weights. ``dir`` is "out", "in" or
     "both".
+
+    On a part's view across devices (``parallel.ShardGraph``), whose
+    senders index the halo buffer, the out-degree of the owned nodes is
+    their in-degree over the reversed partition's view (``g.reverse()``,
+    local like every receiver-keyed count), weighted by that view's own
+    weights; explicit weights raise there, since its edges are in another
+    order.
     """
     if dir not in ("out", "in", "both"):
         raise ValueError(f"dir must be out/in/both, got {dir!r}")
@@ -66,6 +73,18 @@ def degree(g: GraphTuple, *, dir: str = "out", edge_weight=None,
         ew = (g.edge_valid.to(dtype) if ew is None
               else torch.where(g.edge_valid, ew, torch.zeros_like(ew)))
     out = 0
+    if dir in ("out", "both") and hasattr(g, "src_space"):
+        if edge_weight is not None and edge_weight is not False:
+            raise ValueError(
+                "out-degree on a part's view across devices cannot take "
+                "explicit edge weights (the reversed partition's edges are "
+                "in another order); use the graph's own edge_weight")
+        gr = g.reverse()
+        out = degree(gr, dir="in", dtype=dtype,
+                     edge_weight=None if ew is not None else False)
+        if dir == "out":
+            return out
+        dir = "in"
     for side, indptr, idx in (("out", g.indptr_s, g.senders),
                               ("in", g.indptr_r, g.receivers)):
         if dir in (side, "both"):

@@ -3,7 +3,8 @@
 - In a fresh interpreter whose import system refuses ``jax``, ``flax``,
   ``optax`` and ``graphneuralnetworks_tpu`` (whole module names: the port's
   own name starts with the last one), the port imports and runs a forward
-  and backward pass on the CPU.
+  and backward pass on the CPU, partitions a graph (``parallel``), plans
+  and runs a gather (``ops.runs``), checkpoints and times a step.
 - Neither ``chip_smoke.py`` nor any module of the port names one of them in
   an import statement.
 - Entry points given no device place tensors on the CUDA card, and raise
@@ -69,6 +70,18 @@ u = (M.GlobalPool("max")(gb, h).sum() + M.Set2Set(6, 2, device="cpu")(gb, h).sum
      + M.TopKPool(6, 3, device="cpu")(gb, h)[0].sum()
      + gnn.ops.softmax_edge_neighbors(gb, h[gb.senders]).sum())
 u.backward()
+import tempfile
+from graphneuralnetworks_tpu_torch import checkpoint, parallel, profiling
+from graphneuralnetworks_tpu_torch.ops import runs
+pg = parallel.partition_graph(g, 2, parts="bfs", with_reverse=True)
+assert sum(len(o) for o in pg.owned) == 20
+meta = runs.build_run_meta([3, 4, 5, 20], ch=2, dummy_idx=20, device="cpu")
+assert runs.run_gather(torch.arange(20.0), meta).tolist() == [3, 4, 5, 0]
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_checkpoint(d, 1, {{"model": model}})
+    checkpoint.restore_checkpoint(d, {{"model": model}})
+with profiling.StepTimer(device="cpu"):
+    pass
 bad = sorted(m for m in sys.modules if blocked(m))
 assert not bad, bad
 print("OK")
