@@ -44,14 +44,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    beside the plain version, the library yardstick
    ``torch.segment_reduce(data, "max", offsets=indptr)`` and
    ``scatter_reduce("amax")``.
-   2h: the bfloat16 kernels (``spmm_csr_bf16``, ``gat_softmax_bf16``,
-   ``gat_bwd_dpi_bf16``, ``gat_bwd_rev_bf16``): K1 over the receiver CSR
-   at D = 128 (bench.py's ``large_pallas_bf16``) and 8 and over the sender
-   CSR at D = 128 and 8, K3, K4 and K5 at (H, D) = (4, 32), (1, 8) and
-   (1, 128) (bench.py's ``attention_bf16``), each held to its plain version
-   within one bfloat16 ulp, timed beside the float32 kernel on the same
-   values (device ms) and, for K1, ``torch.sparse.mm`` on a bfloat16 CSR
-   where it runs.
+   2h: the bfloat16 kernels (``spmm_csr_bf16``, ``spmm_sddmm_csr_bf16``,
+   ``gat_softmax_bf16``, ``gat_bwd_dpi_bf16``, ``gat_bwd_rev_bf16``,
+   ``edge_softmax_bf16``, ``sddmm_csr_bf16``, ``segment_max_csr_bf16``,
+   ``segment_max_bwd_csr_bf16``): K1 over the receiver CSR at D = 128
+   (bench.py's ``large_pallas_bf16``) and 8, over the sender CSR at D =
+   128 and 8 and weighted at D = 128, over ``[E, D]`` edge rows at D = 128
+   and 8 and by edge id over the sender CSR at D = 128; K2 at D =
+   128, 8 and (H, D) = (4, 32) in one launch; K3, K4 and K5 at (4, 32),
+   (1, 8) and (1, 128) (bench.py's ``attention_bf16``); K12 at (4, 32)
+   with node values, with them and a dropout mask, with edge values and
+   the mask, and at (1, 8) with the mask; K13 at D = 128, 32 and (4, 32);
+   each held to its plain version within one bfloat16 ulp; K14 (max, min)
+   and its backward at F = 128, 8, 4 and over the 3k batch's graph CSR at
+   F = 64, bit for bit with ties, a NaN and empty rows, as 2f; each timed
+   beside the float32 kernel on the same values (device ms) and beside
+   ``torch.sparse.mm`` (K1), ``torch.sparse.sampled_addmm`` (K13) or
+   ``torch.segment_reduce`` (K14) in bfloat16 where it runs.
    Every timed row of phase 2 has ``ms`` (CUDA events around 10
    back-to-back calls: the host's gaps between launches count),
    ``device_ms`` (the kernels' own time per call from ``torch.profiler``),
@@ -97,12 +106,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its ``reverse``, ResGatedGraphConv, and ``GatedGraphConv(128, 2)`` then
    ``Linear(128, 8)`` (all K1), each trained and held card vs CPU as 3c
    holds the others, with DConv also on the reverse of a weighted graph.
-   3o: 3a's GCN and 3d's GAT in ``models.Precision`` (bfloat16 compute,
-   float32 master parameters and Adam), a float32 loss of the bfloat16
-   logits, 10 steps each, profiled: K1's bfloat16 variant 3 times a GCN
-   step, K3's, K4's and K5's twice a GAT step, no float32 kernel; one step
-   of each card vs CPU in bfloat16 and in float64, and every parameter
-   gradient float32.
+   3o: seven paths in ``models.Precision`` (bfloat16 compute, float32
+   master parameters and Adam), each with its float32 phase's model and
+   graph, a float32 loss of the bfloat16 output, 10 steps each, profiled,
+   only bfloat16 variants launched: 3a's GCN (K1 3 a step), 3d's GAT (K3,
+   K4, K5 2 each), 3b's GCN with learned edge weights (K1 2, K2 2), 3e's
+   GAT with attention dropout 0.6 (K12 2, K2 2), 3i's link step (K13 2,
+   K1 7), 3j's EdgeConv (K14 2, its backward 2, K1 2) and 3k's graph
+   classification (K1 3, K14 1, its backward 1); one step of each card vs
+   CPU in bfloat16 and in float64 (the card's dropout masks replayed on
+   the CPU), and every parameter gradient float32.
    3p: heterogeneous graphs, ``benchmarks/hetero_temporal_bench_r5.py:
    57-111``: two node types of 65,536 nodes, three relations of 350,000
    uniform edges each (``user rates item``, ``item rated_by user``, ``user
@@ -320,21 +333,34 @@ EDGECONV_GRAD_NORM_RTOL = 5e-3
 # leaky_relu, the attention sum (num), its normalisation (out), + bias and
 # the mean over heads, 9. Each moves a value by at most u of the values'
 # scale on each side, and the layers' gains are about 1 (normalised
-# propagation and attention, Glorot weights), so two layers of R put the
-# logits within 2 * 2R u of max |logits| of the CPU's bfloat16 path (both
-# sides round: GCN 28 u = 0.11, GAT 36 u = 0.14) and within (2R +
-# BF16_CASTS) u of float64, which also sees x and the parameters cast to
-# bfloat16, 3 casts a layer (GCN 20 u, GAT 24 u). A cross-entropy moves by
-# at most twice its logits' largest move (the label's logit, the
-# log-sum-exp), and so does their mean, the loss. A gradient carries the
-# forward's error (the activations it multiplies) and the backward's own
-# roundings, which a layer takes at most as often as its forward, and one
-# more, the weight gradient's product: by norm within 2 * (4R + 1) u of the
-# CPU's bfloat16 path (GCN 58 u = 0.23, GAT 74 u = 0.29) and (4R +
-# BF16_CASTS + 1) u of float64 (GCN 35 u = 0.14, GAT 43 u = 0.17).
+# propagation and attention, Glorot weights), so R such roundings on a path
+# through the model put the output within 2R u of max |output| of the
+# CPU's bfloat16 path (both sides round: GCN's two layers 28 u = 0.11,
+# GAT's 36 u = 0.14) and within (R + C) u of float64, which also sees the C
+# inputs and parameters cast to bfloat16 (GCN 20 u, GAT 24 u). A
+# cross-entropy moves by at most twice its logits' largest move (the
+# label's logit, the log-sum-exp), and so does their mean, the loss; so
+# does the link step's binary cross-entropy (log-sigmoid is 1-Lipschitz).
+# A gradient carries the forward's error (the activations it multiplies)
+# and the backward's own roundings, which a layer takes at most as often
+# as its forward, and one more, the weight gradient's product: by norm
+# within 2 (2R + 1) u of the CPU's bfloat16 path (GCN 58 u = 0.23, GAT 74
+# u = 0.29) and (2R + C + 1) u of float64 (GCN 35 u = 0.14, GAT 43 u =
+# 0.17). The other cells: GCN with learned edge weights adds the weighted
+# degree a layer (R = 16) and the weights' cast (C = 7); GAT (b)'s dropout
+# masks are exact (0 or 2.5); the link step is 3a's encoder and one
+# rounded dot (R = 15), whose error follows max ||h_i||^2 (Cauchy-Schwarz:
+# each score's sum of |h_i h_j| is below it), not max |score|; EdgeConv,
+# per layer x_j - x_i, the product and + bias (R = 6; x, two weights, two
+# biases: C = 5), its maxima exact; graph classification, per GraphConv
+# two products, the SpMM, their sum and + bias, then the head's product and
+# bias (R = 12; x and 8 parameters: C = 9).
 BF16_U = 2.0 ** -8
-BF16_ROUNDINGS = {"GCN": 7, "GAT": 9}   # per layer, see above
-BF16_CASTS = 6
+# per cell: (R, C), see above
+BF16_CELLS = {"GCN": (14, 6), "GAT": (18, 6),
+              "GCN learned edge weights": (16, 7), "GAT (b)": (18, 6),
+              "link prediction": (15, 6), "EdgeConv": (6, 5),
+              "graph classification": (12, 9)}
 
 
 def log(msg: str) -> None:
@@ -811,8 +837,10 @@ def compare_bf16(name: str, got: torch.Tensor, ref: torch.Tensor, *,
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite values")
     a, b = got.detach().double(), ref.detach().double()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        b.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 7)
+    # 2^(e - 8) for |b| in [2^(e-1), 2^e): frexp's exponent is exact, where
+    # the card's log2 of a power of two may land below the integer
+    _, e = torch.frexp(b.abs().clamp(min=torch.finfo(torch.float32).tiny))
+    ulp = torch.exp2(e.double() - 8)
     diff = (a - b).abs()
     err = float(diff.max()) if diff.numel() else 0.0
     worst = float((diff / (ulp + ATOL)).max()) if diff.numel() else 0.0
@@ -825,36 +853,61 @@ def compare_bf16(name: str, got: torch.Tensor, ref: torch.Tensor, *,
     return err
 
 
-def bf16_phase(g, card: str) -> dict:
-    """2h: the bfloat16 kernels, K1, K3, K4 and K5, against their plain
-    versions on the card: K1 over the receiver CSR at D=128 (bench.py's
-    ``large_pallas_bf16``, :142-147) and 8, over the sender CSR at D=128
-    and 8 (3o's GCN launches the D=8 ones and the receiver D=128); K3, K4
-    and K5 at (H, D) = (4, 32) and (1, 8) (3o's GAT) and (1, 128) (bench.py's
-    ``attention_bf16``, :235-250). Each row has the bfloat16 kernel's times,
-    the float32 kernel's device time on the same values widened
-    (``f32_device_ms``, this call), the bound at 2 bytes a row element (4 an
-    index or a float32 state entry) and, for K1, ``torch.sparse.mm`` on a
-    bfloat16 CSR, or the error it raised (``library_error``)."""
+def bf16_phase(g, gb, card: str) -> dict:
+    """2h: the bfloat16 kernels against their plain versions on the card:
+    K1 over the receiver CSR at D=128 (bench.py's ``large_pallas_bf16``,
+    :142-147) and 8, over the sender CSR at D=128 and 8 (3o's GCN launches
+    the D=8 ones and the receiver D=128) and weighted at D=128 (3o's
+    ``DotDecoder`` backward), over ``[E, D]`` edge rows at D=128 and 8 and
+    by edge id over the sender CSR at D=128 (the endpoint gathers'
+    backward: 3o's EdgeConv); K3, K4
+    and K5 at (H, D) = (4, 32) and (1, 8) (3o's GAT) and (1, 128)
+    (bench.py's ``attention_bf16``, :235-250); K2 over the sender CSR at
+    D=128 and 8 (3o's GCN with learned edge weights) and at H=4, D=32 in
+    one launch (3o's GAT (b) layer 1); K12 at (4, 32) with node values,
+    with them and the dropout mask, with edge values and the mask, and at
+    (1, 8) with node values and the mask (3o's GAT (b)); K13 at D=128 (3o's
+    link step), 32 and (4, 32); K14 (max and min) and its backward over the
+    receiver CSR at F=128, 8 and 4 (3o's EdgeConv) and over the 3k batch's
+    graph CSR at F=64 (3o's graph classification), held bit for bit on
+    values on a grid of 1/4 (ties) with a NaN entry and rows emptied, as
+    2f holds the float32 ones. The other kernels are held within one
+    bfloat16 ulp of the plain version (``compare_bf16``). Each row has the
+    bfloat16 kernel's times, the float32 kernel's device time on the same
+    values widened (``f32_device_ms``, this call), the bound at 2 bytes a
+    bfloat16 element (4 an index or a float32 state entry) and, where one
+    PyTorch call computes the same function in bfloat16
+    (``torch.sparse.mm`` for K1, ``torch.sparse.sampled_addmm`` for K13,
+    ``torch.segment_reduce`` for K14), its times or the error it raised
+    (``library_error``)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+    from graphneuralnetworks_tpu_torch.ops.cuda import sddmm as SD
+    from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
     dev, bf = g.device, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(11)
     ir, cr, is_, cs, es = g.indptr_r, g.col_r, g.indptr_s, g.col_s, g.eid_s
     res = {k: {"err": 0.0, "variants": []}
-           for k in ("k1_bf16", "k3_bf16", "k4_bf16", "k5_bf16")}
+           for k in ("k1_bf16", "k2_bf16", "k3_bf16", "k4_bf16", "k5_bf16",
+                     "k12_bf16", "k13_bf16", "k14_bf16", "k14_bwd_bf16")}
     log(f"phase 2h: bfloat16 kernels vs plain versions (N={N}, E={E})")
 
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(bf)
 
-    def case(key, label, fn, plain, args, byt, flops, lib=None):
+    def case(key, label, fn, plain, args, byt, flops, lib=None,
+             exact=False):
         got, want = fn(*args), plain(*args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        err = max(compare_bf16(f"{key.upper()} {label} out{i}", a, b)
-                  for i, (a, b) in enumerate(zip(got, want)))
+        if exact:
+            for i, (a, b) in enumerate(zip(got, want)):
+                same_bits(f"{key.upper()} {label} out{i}", a, b)
+            err = 0.0
+        else:
+            err = max(compare_bf16(f"{key.upper()} {label} out{i}", a, b)
+                      for i, (a, b) in enumerate(zip(got, want)))
         res[key]["err"] = max(res[key]["err"], err)
         wide = tuple(t.float() if isinstance(t, torch.Tensor)
                      and t.dtype == bf else t for t in args)
@@ -877,25 +930,128 @@ def bf16_phase(g, card: str) -> dict:
             "max_abs_err": err})
         return want
 
-    def csr(indptr, col):
-        return torch.sparse_csr_tensor(indptr, col,
-                                       torch.ones(E, dtype=bf, device=dev),
-                                       (N, N))
+    def csr(indptr, col, vals=None, cols=N):
+        vals = torch.ones(E, dtype=bf, device=dev) if vals is None else vals
+        return torch.sparse_csr_tensor(indptr, col, vals, (N, cols))
 
+    # K1: the library's matrix is the CSR with the weights in its order
+    # (w[eid] over the sender CSR); the endpoint gathers' backward sums
+    # [E, D] edge rows in receiver order (col None: the rows in order) or
+    # by edge id over the sender CSR (3j's x_j)
+    w = rn(E)
     a_r, a_s = csr(ir, cr), csr(is_, cs)
+    a_sw = csr(is_, cs, w.index_select(0, es.long()))
+    a_e = csr(ir, torch.arange(E, dtype=torch.int32, device=dev), cols=E)
+    a_eid = csr(is_, es, cols=E)
     for label, args, a in (
             (f"fwd receiver-CSR D={D}", (ir, cr, None, None, rn(N, D)), a_r),
             (f"fwd receiver-CSR D={OUT_D}", (ir, cr, None, None,
                                              rn(N, OUT_D)), a_r),
             (f"bwd sender-CSR D={D}", (is_, cs, es, None, rn(N, D)), a_s),
             (f"bwd sender-CSR D={OUT_D}", (is_, cs, es, None,
-                                           rn(N, OUT_D)), a_s)):
-        rows, d = args[0].numel() - 1, args[4].shape[1]
-        src = k1_source_rows(args[1], args[2], None, N)
-        byt = 4 * (rows + 1 + E) + 2 * (src + rows) * d
-        case("k1_bf16", label, S.spmm_csr, S.spmm_plain, args, byt, E * d,
-             lambda a=a, x=args[4]: torch.sparse.mm(a, x))
-    del a_r, a_s
+                                           rn(N, OUT_D)), a_s),
+            (f"bwd sender-CSR weighted D={D}", (is_, cs, es, w, rn(N, D)),
+             a_sw),
+            (f"gather-bwd edge rows D={D}", (ir, None, None, None,
+                                             rn(E, D)), a_e),
+            (f"gather-bwd edge rows D={OUT_D}", (ir, None, None, None,
+                                                 rn(E, OUT_D)), a_e),
+            (f"gather-bwd edge rows by eid D={D}", (is_, es, None, None,
+                                                    rn(E, D)), a_eid)):
+        indptr, col, eid, w_, x = args
+        rows, d = indptr.numel() - 1, x.shape[1]
+        # indptr and col (int32, col None: none), eid where w is read
+        # through it, w in bfloat16; the source rows the function reads
+        # and the output
+        idx = (4 * (rows + 1 + E * (col is not None)
+                    + E * (eid is not None and w_ is not None))
+               + 2 * E * (w_ is not None))
+        src = k1_source_rows(col, eid, w_, x.shape[0])
+        case("k1_bf16", label, S.spmm_csr, S.spmm_plain, args,
+             idx + 2 * (src + rows) * d, (1 + (w_ is not None)) * E * d,
+             lambda a=a, x=x: torch.sparse.mm(a, x))
+    del a_r, a_s, a_sw, a_e, a_eid
+
+    # K2 over the sender CSR: int32 CSR and eid, bfloat16 w, dy, x, dx, dw
+    for h, d in ((1, D), (1, OUT_D), (GAT_HEADS, D // GAT_HEADS)):
+        rows = (N, d) if h == 1 else (N, h, d)
+        w = rn(*((E,) if h == 1 else (E, h)))
+        args = (is_, cs, es, w, rn(*rows), rn(*rows))
+        case("k2_bf16", f"bwd sender-CSR H={h} D={d}", S.spmm_sddmm,
+             S.spmm_sddmm_plain, args,
+             4 * (N + 1 + 2 * E) + 2 * 2 * E * h + 3 * 2 * N * h * d,
+             4 * E * h * d)
+
+    # K12: int32 CSR, bfloat16 logits and mask ([E, H]) and values, the
+    # float32 state
+    for h, d, mask, node in ((GAT_HEADS, D // GAT_HEADS, False, True),
+                             (GAT_HEADS, D // GAT_HEADS, True, True),
+                             (GAT_HEADS, D // GAT_HEADS, True, False),
+                             (1, OUT_D, True, True)):
+        keep = (torch.rand(E, h, generator=gen, device=dev) < 0.4).to(bf)
+        args = (ir, cr if node else None, rn(E, h), keep * 2.5 if mask
+                else None, rn(N if node else E, h, d))
+        label = (f"{'node' if node else 'edge'} values"
+                 f"{' + dropout mask' if mask else ''} H={h} D={d}")
+        case("k12_bf16", label, ES.edge_softmax, ES.edge_softmax_plain,
+             args, 4 * (N + 1 + E * node) + 2 * E * h * (1 + mask)
+             + 2 * (N if node else E) * h * d + 2 * N * h * d + 8 * N * h,
+             E * h * (2 * d + 6))
+
+    # K13: int32 CSR, bfloat16 xi, xj and out
+    for h, d in ((1, D), (1, 32), (GAT_HEADS, D // GAT_HEADS)):
+        xi, xj = rn(N, h, d), rn(N, h, d)
+        if h == 1:
+            pattern = torch.sparse_csr_tensor(
+                ir, cr, torch.ones(E, dtype=bf, device=dev), (N, N))
+            a, b = xi[:, 0], xj[:, 0].t()
+        else:
+            pattern = torch.sparse_csr_tensor(
+                ir.expand(h, -1).contiguous(), cr.expand(h, -1).contiguous(),
+                torch.ones(h, E, dtype=bf, device=dev), (h, N, N))
+            a, b = xi.transpose(0, 1).contiguous(), xj.permute(1, 2, 0)
+        case("k13_bf16", f"H={h} D={d}", SD.sddmm_csr, SD.sddmm_plain,
+             (ir, cr, xi, xj), 4 * (N + 1 + E) + 2 * 2 * N * h * d
+             + 2 * E * h, 2 * E * h * d,
+             lambda p=pattern, a=a, b=b, h=h: torch.sparse.sampled_addmm(
+                 p, a, b, beta=0.0).values().reshape(h, E).t())
+        del xi, xj, pattern, a, b
+
+    # K14 and its backward: bit for bit on a grid of 1/4 with a NaN and
+    # rows emptied (2f's checks), then timed over the CSR as it is
+    for label, ip, f, every in (
+            (f"receiver CSR F={D}", ir, D, 1024),
+            (f"receiver CSR F={OUT_D}", ir, OUT_D, 1024),
+            (f"receiver CSR F={GAT_HEADS}", ir, GAT_HEADS, 1024),
+            (f"graph CSR of the 3k batch F={TUD_HIDDEN}", gb.indptr_g,
+             TUD_HIDDEN, 64)):
+        n_rows, rows = ip.numel() - 1, int(ip[-1])
+        data = (torch.round(torch.randn(rows, f, generator=gen, device=dev)
+                            * 4) / 4).to(bf)
+        dy = rn(n_rows, f)
+        checked = data.clone()
+        checked[rows // 3, f // 2] = float("nan")
+        holes, _ = _empty_rows(ip, every)
+        for op, kern, plain in (("max", SG.segment_max_csr,
+                                 SG.segment_max_plain),
+                                ("min", SG.segment_min_csr,
+                                 SG.segment_min_plain)):
+            same_bits(f"K14 bf16 {op} {label} (NaN, empty rows)",
+                      kern(holes, checked), plain(holes, checked))
+        out = SG.segment_max_plain(holes, checked)
+        same_bits(f"K14 bf16 backward {label} (NaN, empty rows)",
+                  SG.segment_max_bwd_csr(holes, checked, out, dy),
+                  SG.segment_max_bwd_plain(holes, checked, out, dy))
+        case("k14_bf16", label, SG.segment_max_csr, SG.segment_max_plain,
+             (ip, data), 4 * (n_rows + 1) + 2 * (rows + n_rows) * f,
+             rows * f, lambda ip=ip, data=data: torch.segment_reduce(
+                 data, "max", offsets=ip), exact=True)
+        out = SG.segment_max_csr(ip, data)
+        case("k14_bwd_bf16", label, SG.segment_max_bwd_csr,
+             SG.segment_max_bwd_plain, (ip, data, out, dy),
+             4 * (n_rows + 1) + 2 * (2 * rows + 2 * n_rows) * f,
+             2 * rows * f, exact=True)
+        del data, dy, checked, out
 
     for h, d in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D), (1, D)):
         pi, pj, v, dy, sl, sv = (rn(N, h), rn(N, h), rn(N, h, d),
@@ -2787,6 +2943,7 @@ class LinkModel(torch.nn.Module):
 
     def forward(self, g_msg, pos_g, neg_g, x):
         h = self.enc(g_msg, x)
+        self.h = h.detach()    # the encoder's rows: 3o's score scale
         return self.dec(pos_g, h)[:, 0], self.dec(neg_g, h)[:, 0]
 
 
@@ -2888,55 +3045,124 @@ def gatv2_train_phase(g, x, y, mask, profile: bool):
                        {"k9": 2, "k10": 4, "k11": 2}, profile), model
 
 
-def compare_precision_model(name, model, g, x) -> dict:
-    """3o's card vs CPU: one forward and backward of the Precision model
-    ``model`` (float32 loss of its bfloat16 logits) on the card, against
-    the same model on the CPU plain path in bfloat16 and, unwrapped, in
-    float64, from the same weights; the tolerances of BF16_ROUNDINGS."""
-    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+def _side(v, dev, dtype=None):
+    """A comparison input on ``dev``: a graph moved, a floating tensor also
+    cast to ``dtype`` (None: its own), a copy that needs a gradient where
+    the original does."""
+    if not isinstance(v, torch.Tensor):
+        return v.to(dev)
+    t = v.detach().to(dev, dtype if v.is_floating_point() else None,
+                      copy=True)
+    return t.requires_grad_(v.requires_grad)
 
-    gc = g.to("cpu")
-    sides = {"card": (model, g, x),
-             "CPU bfloat16": (copy.deepcopy(model).to("cpu"), gc, x.cpu()),
-             "CPU float64": (copy.deepcopy(model.module).to(
-                 "cpu", torch.float64), gc, x.cpu().double())}
+
+def _copy_model(model, dev, dtype=None):
+    """``model`` copied to ``dev`` (and ``dtype``), without the dropout
+    generators the GAT layers hold on the card (the comparison replays the
+    card's masks, so the copies draw none)."""
+    gens = {m: m._gen for m in model.modules() if hasattr(m, "_gen")}
+    for m in gens:
+        m._gen = None
+    try:
+        out = copy.deepcopy(model)
+    finally:
+        for m, gen in gens.items():
+            m._gen = gen
+    return out.to(dev, dtype) if dtype is not None else out.to(dev)
+
+
+class DropoutReplay:
+    """Records the dropout masks the GAT layers draw on the card and hands
+    the same masks, moved and cast, to the calls that follow ``replay()``
+    (the CPU sides of a comparison), in the order they were drawn."""
+
+    def __init__(self):
+        from graphneuralnetworks_tpu_torch.models import conv as C
+        self.conv, self.real, self.drawn, self.i = C, C._attn_dropout_masks, \
+            [], None
+
+    def __enter__(self):
+        def masks(p, gen, n_edges, n_dst, heads, with_self, device, dtype):
+            if self.i is None:
+                out = self.real(p, gen, n_edges, n_dst, heads, with_self,
+                                device, dtype)
+                self.drawn.append(out)
+                return out
+            me, ms = self.drawn[self.i]
+            self.i += 1
+            return (me.to(device, dtype),
+                    None if ms is None else ms.to(device, dtype))
+        self.conv._attn_dropout_masks = masks
+        return self
+
+    def replay(self):
+        self.i = 0
+
+    def __exit__(self, *exc):
+        self.conv._attn_dropout_masks = self.real
+
+
+def compare_precision_model(name, model, g, inputs, forward, extra=(),
+                            out_scale=None) -> dict:
+    """3o's card vs CPU: one forward and backward of the Precision model
+    ``model`` (``forward(m, g, *inputs, *extra) -> (out, loss)``, a
+    float32 loss of its bfloat16 output) on the card, against the same
+    model on the CPU plain path in bfloat16 and, unwrapped, in float64,
+    from the same weights, inputs and dropout masks (the card's, replayed);
+    ``extra``: float32 parameters beside the model's (learned edge
+    weights), whose gradients are compared too. The output is held within
+    the tolerances of BF16_CELLS of its scale: max |out| of the float64
+    side, or ``out_scale(m)`` of the float64 model after its forward."""
+    rounds, casts = BF16_CELLS[name]
+    cpu = torch.device("cpu")
+    sides = {"card": (model, g, inputs, extra),
+             "CPU bfloat16": (_copy_model(model, cpu), g.to(cpu),
+                              [_side(v, cpu) for v in inputs],
+                              [_side(e, cpu) for e in extra]),
+             "CPU float64": (_copy_model(model.module, cpu, torch.float64),
+                             g.to(cpu), [_side(v, cpu, torch.float64)
+                                         for v in inputs],
+                             [_side(e, cpu, torch.float64) for e in extra])}
     results = {}
-    for side, (m, gg, xx) in sides.items():
-        m.zero_grad(set_to_none=True)
-        logits = m(gg, xx)
-        loss = masked_cross_entropy(
-            logits if logits.dtype == torch.float64 else logits.float(),
-            gg.nodes["y"], gg.node_mask)
-        loss.backward()
-        results[side] = (logits.detach().cpu().double(),
-                         loss.detach().cpu().double().reshape(1),
-                         [p.grad.cpu().double() for p in m.parameters()])
+    with DropoutReplay() as masks:
+        for side, (m, gg, ins, ext) in sides.items():
+            if side != "card":
+                masks.replay()
+            m.zero_grad(set_to_none=True)
+            for e in ext:
+                e.grad = None
+            out, loss = forward(m, gg, *ins, *ext)
+            loss.backward()
+            results[side] = (out.detach().cpu().double(),
+                             loss.detach().cpu().double().reshape(1),
+                             [p.grad.cpu().double() for p in
+                              list(m.parameters()) + list(ext)])
+    scale = (float(out_scale(sides["CPU float64"][0])) if out_scale
+             else float(results["CPU float64"][0].abs().max()))
     bad = [n for n, p in model.named_parameters()
            if p.grad.dtype != torch.float32 or not torch.isfinite(
                p.grad).all()]
     if bad:
         raise AssertionError(f"{name} bf16: gradients not finite float32: "
                              f"{bad}")
-    rounds = 2 * BF16_ROUNDINGS[name]       # two layers
-    names = [n for n, _ in model.named_parameters()]
+    names = [n for n, _ in model.named_parameters()] + [
+        f"extra{i}" for i in range(len(extra))]
     lg, ls, gr = results["card"]
-    out = {}
+    out = {"out_scale": scale}
     for side, k in (("CPU bfloat16", 2 * rounds),
-                    ("CPU float64", rounds + BF16_CASTS)):
+                    ("CPU float64", rounds + casts)):
         lc, lsc, grc = results[side]
         tol = k * BF16_U
         out[side] = {
-            "logits_err": compare(f"{name} bf16: logits card vs {side}", lg,
-                                  lc, rtol=0, atol=tol * float(
-                                      lc.abs().max())),
+            "logits_err": compare(f"{name} bf16: output card vs {side}", lg,
+                                  lc, rtol=0, atol=tol * scale),
             "loss_err": compare(f"{name} bf16: loss card vs {side}", ls, lsc,
-                                rtol=0, atol=2 * tol * float(
-                                    lc.abs().max()))}
+                                rtol=0, atol=2 * tol * scale)}
         rels = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
                 for n, a, b in zip(names, gr, grc)}
         worst = max(rels, key=rels.get)
-        limit = BF16_U * (2 * (2 * rounds + 1) if side == "CPU bfloat16"
-                          else 2 * rounds + BF16_CASTS + 1)
+        limit = (BF16_U * 2 * (2 * rounds + 1) if side == "CPU bfloat16"
+                 else BF16_U * (2 * rounds + casts + 1))
         ok = rels[worst] <= limit
         log(f"  {name} bf16: gradients card vs {side}, worst |a-b|/|b|="
             f"{rels[worst]:.3e} ({worst}; limit {limit:.4g}) "
@@ -2949,37 +3175,108 @@ def compare_precision_model(name, model, g, x) -> dict:
     return out
 
 
-def precision_phase(g, x, y, mask, profile: bool):
-    """3o: 3a's GCN and 3d's GAT (a) in ``models.Precision``: bfloat16
-    compute with float32 master parameters, 10 Adam steps each on a float32
-    loss of the bfloat16 logits. Per step the GCN launches K1's bfloat16
-    variant 3 times, the GAT K3's, K4's and K5's twice each, and nothing in
-    float32. Each is profiled (ms per step, device ms, busy) and one step is
-    held card vs CPU (:func:`compare_precision_model`). Returns the results
-    and None (the ``--only`` form); ``profile`` is not needed, 3o always
-    profiles."""
-    from graphneuralnetworks_tpu_torch import models as M
+def precision_phase(g, x, y, mask, profile: bool, gb=None):
+    """3o: seven paths in ``models.Precision`` (bfloat16 compute, float32
+    master parameters), each with its float32 phase's model and graph, 10
+    Adam steps on a float32 loss of the bfloat16 output: 3a's GCN (K1's
+    bfloat16 variant 3 times a step) and 3d's GAT (K3, K4, K5 twice each);
+    3b's GCN with learned edge weights (K1 2, K2 2); 3e's GAT (b) with
+    attention dropout 0.6 in training mode (K12 2, K2 2); 3i's link step,
+    the GCN encoder and ``DotDecoder`` on the 2M edges and 2M negatives
+    (K13 2, K1 7); 3j's EdgeConv (K14 2, its backward 2, K1 2 over edge
+    rows); 3k's graph classification with ``GlobalPool("max")`` on the
+    batch ``gb`` of 4,096 graphs (K1 3, K14 1, its backward 1). Each step
+    launches only bfloat16 variants. Each is profiled (ms per step, device
+    ms, busy) and one step is held card vs CPU in bfloat16 and in float64
+    (:func:`compare_precision_model`, the dropout masks the card's).
+    Returns the results and None (the ``--only`` form); ``profile`` is not
+    needed, 3o always profiles."""
+    from graphneuralnetworks_tpu_torch import models as M, rand_graph
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
 
     del profile
+    dev = g.device
 
-    def loss_fn(m, g, x, y, mask):
-        return masked_cross_entropy(m(g, x).float(), y, mask)
+    def node_forward(m, gg, xx, *ew, **kw):
+        if ew:
+            kw["edge_weight"] = ew[0]
+        logits = m(gg, xx, **kw)
+        wide = logits if logits.dtype == torch.float64 else logits.float()
+        return logits, masked_cross_entropy(wide, gg.nodes["y"],
+                                            gg.node_mask)
 
+    def dropout_forward(m, gg, xx):
+        return node_forward(m, gg, xx, deterministic=False)
+
+    def link_forward(m, gg, neg, xx):
+        pos, negs = m(gg, gg, neg, xx)
+        wide = torch.float64 if pos.dtype == torch.float64 else torch.float32
+        return torch.cat([pos, negs]), link_loss(pos.to(wide),
+                                                 negs.to(wide))
+
+    def graph_forward(m, gg, xx):
+        logits = m(gg, xx)
+        wide = logits if logits.dtype == torch.float64 else logits.float()
+        return logits, graph_loss(wide, gg)
+
+    def link_scale(m):
+        """max ||h_i||^2 over the encoder's rows: by Cauchy-Schwarz at least
+        each score's sum of |h_i h_j|, the scale its errors follow."""
+        return float((m.h.double() ** 2).sum(-1).max())
+
+    ew = torch.nn.Parameter(torch.ones(E, device=dev))
+    gneg = rand_graph(N, E, seed=2, device=dev)
+    cells = [
+        # name, result key, float32 phase, model, step args, per step,
+        # comparison inputs, forward, extra parameters, output scale (the
+        # models with a max aggregation: EdgeConv, graph classification)
+        ("GCN", "gcn_bf16", "3a", gcn(M, 0, dev), (g, x), {"k1_bf16": 3},
+         (x,), node_forward, (), None),
+        ("GAT", "gat_bf16", "3d", gat(M, 2, dev), (g, x),
+         {"k3_bf16": 2, "k4_bf16": 2, "k5_bf16": 2}, (x,), node_forward, (),
+         None),
+        ("GCN learned edge weights", "gcn_learned_bf16", "3b",
+         gcn(M, 1, dev), (g, x), {"k1_bf16": 2, "k2_bf16": 2}, (x,),
+         node_forward, (ew,), None),
+        ("GAT (b)", "gat_dropout_bf16", "3e", gat(M, 3, dev, dropout=0.6),
+         (g, x), {"k12_bf16": 2, "k2_bf16": 2}, (x,), dropout_forward, (),
+         None),
+        ("link prediction", "link_bf16", "3i", LinkModel(M, 9, dev),
+         (g, gneg, x), {"k13_bf16": 2, "k1_bf16": 3 + 4}, (gneg, x),
+         link_forward, (), link_scale),
+        ("EdgeConv", "edgeconv_bf16", "3j", edgeconv(M, 11, dev), (g, x),
+         {"k14_bf16": 2, "k14_bwd_bf16": 2, "k1_bf16": 2}, (x,),
+         node_forward, (), None),
+        ("graph classification", "graph_classification_bf16", "3k",
+         graph_classifier(M, 12, dev, "max"), (gb, gb.x),
+         {"k1_bf16": 3, "k14_bf16": 1, "k14_bwd_bf16": 1}, (gb.x,),
+         graph_forward, (), None),
+    ]
     res = {"vs_cpu": {}}
-    for name, key, build, seed, per_step in (
-            ("GCN", "gcn_bf16", gcn, 0, {"k1_bf16": 3}),
-            ("GAT", "gat_bf16", gat, 2,
-             {"k3_bf16": 2, "k4_bf16": 2, "k5_bf16": 2})):
-        log(f"phase 3o: {name} of 3{'a' if name == 'GCN' else 'd'} in "
-            f"bfloat16 (models.Precision, float32 master parameters, Adam "
-            f"lr=1e-3), {STEPS} steps")
-        model = M.Precision(build(M, seed, g.device))
-        res[key] = train_phase(f"{name} bf16", model, (g, x, y, mask),
-                               loss_fn, per_step, True)
+    for (name, key, base, inner, args, per_step, ins, fwd, extra,
+         scale) in cells:
+        log(f"phase 3o: {name} of {base} in bfloat16 (models.Precision, "
+            f"float32 master parameters, Adam lr=1e-3), {STEPS} steps")
+        model = M.Precision(inner)
+        gg = args[0]
+
+        def loss_fn(m, *a, fwd=fwd, extra=extra):
+            return fwd(m, *a, *extra)[1]
+
+        eval_loss = None
+        if fwd is dropout_forward:
+            def eval_loss(model=model):
+                with torch.no_grad():
+                    return node_forward(model, g, x)[1]
+        res[key] = train_phase(
+            f"{name} bf16", model, args, loss_fn, per_step, True,
+            params=list(model.parameters()) + list(extra),
+            eval_loss=eval_loss)
         log(f"phase 3o (3c): one step of the {name} bf16 model on the card "
             "vs the CPU plain path in bfloat16 and in float64")
-        res["vs_cpu"][key] = compare_precision_model(name, model, g, x)
+        res["vs_cpu"][key] = compare_precision_model(
+            name, model, gg, ins, fwd, extra, scale)
+        del model
     return res, None
 
 
@@ -5478,7 +5775,7 @@ def main() -> int:
     gb, tud = tud_batch(gnn, g.device)
 
     kernel_phases = {"2": lambda: kernel_phase(gnn, g, card),
-                     "2h": lambda: bf16_phase(g, card),
+                     "2h": lambda: bf16_phase(g, gb, card),
                      "2b": lambda: attention_phase(g, card),
                      "2c": lambda: gatv2_phase(g, card),
                      "2d": lambda: dot_phase(g, card),
@@ -5502,7 +5799,8 @@ def main() -> int:
     for phase in (only if only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
-                      "3l": propagation_phase, "3o": precision_phase}
+                      "3l": propagation_phase,
+                      "3o": functools.partial(precision_phase, gb=gb)}
         if phase in sage_which or phase in link_which or phase in par_which:
             continue
         if phase in ht_phases:
@@ -5566,7 +5864,7 @@ def main() -> int:
     zoo_res, _ = propagation_phase(*node_inputs(g), args.profile)
     main_res["vs_cpu"].update(zoo_res.pop("vs_cpu"))
     main_res["propagation"] = zoo_res
-    bf16_res, _ = precision_phase(*node_inputs(g), args.profile)
+    bf16_res, _ = precision_phase(*node_inputs(g), args.profile, gb=gb)
     main_res["vs_cpu"].update(bf16_res.pop("vs_cpu"))
     main_res.update(bf16_res)
     main_res["hetero"], extra = ht_phases["3p"]()
@@ -5613,6 +5911,8 @@ def main() -> int:
         entry("k2", "spmm_sddmm_csr_f32", "spmm", 331,
               "gcn_learned_edge_weight"),
         entry("k1_bf16", "spmm_csr_bf16", "spmm", 256, "gcn_bf16"),
+        entry("k2_bf16", "spmm_sddmm_csr_bf16", "spmm", 331,
+              "gcn_learned_bf16"),
         entry("k3", "gat_softmax_f32", "edge_softmax", 804, "gat"),
         entry("k3_bf16", "gat_softmax_bf16", "edge_softmax", 804,
               "gat_bf16"),
@@ -5623,6 +5923,8 @@ def main() -> int:
         entry("k5_bf16", "gat_bwd_rev_bf16", "edge_softmax", 1045,
               "gat_bf16"),
         entry("k12", "edge_softmax_f32", "edge_softmax", 281, "gat_dropout"),
+        entry("k12_bf16", "edge_softmax_bf16", "edge_softmax", 281,
+              "gat_dropout_bf16"),
         entry("k9", "gatv2_softmax_f32", "edge_softmax", 1237, "gatv2"),
         entry("k10", "gatv2_bwd_dq_f32 + gatv2_da_reduce_f32",
               "edge_softmax", 1398, "gatv2"),
@@ -5631,10 +5933,15 @@ def main() -> int:
         entry("k7", "dot_bwd_dq_f32", "edge_softmax", 546, "transformer"),
         entry("k8", "dot_bwd_rev_f32", "edge_softmax", 599, "transformer"),
         entry("k13", "sddmm_csr_f32", "sddmm", 36, "link"),
+        entry("k13_bf16", "sddmm_csr_bf16", "sddmm", 36, "link_bf16"),
         entry("k14", "segment_max_csr_f32", "segment", 51, "edgeconv",
               "edge_softmax"),
         entry("k14_bwd", "segment_max_bwd_csr_f32", "segment", 51,
               "edgeconv", "edge_softmax"),
+        entry("k14_bf16", "segment_max_csr_bf16", "segment", 51,
+              "edgeconv_bf16", "edge_softmax"),
+        entry("k14_bwd_bf16", "segment_max_bwd_csr_bf16", "segment", 51,
+              "edgeconv_bf16", "edge_softmax"),
     ]
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")

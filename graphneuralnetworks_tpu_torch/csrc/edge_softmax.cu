@@ -1,5 +1,5 @@
 // Edge softmax over a node's in-edges, with aggregation: K3 to K12, float32
-// (K3, K4 and K5 also bfloat16, vec.cuh), for sm_90a.
+// (K3, K4, K5 and K12 also bfloat16, vec.cuh), for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
 //   K12 _flash_kernel         softmax of given per-edge logits, numerator
@@ -1561,12 +1561,18 @@ gat_softmax_rows_kernel(const int* __restrict__ indptr,
 // The first port gave a (row, head) pair a warp, heads side by side, and
 // took two passes over a row's edges, each edge waiting on its index
 // before its value row.
+//
+// V is the values' storage vector, as K3's: bfloat16 values take bfloat16
+// logits and mask, widened to float where they are read; m, s and the
+// sums stay float32 and num is rounded once when stored (the TPU kernel
+// rounds its numerator at every 512-edge block). The bfloat16 instances
+// hold one register chunk (NC = 1): wider rows take passes of 32 vectors.
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 edge_softmax_rows_kernel(const int* __restrict__ indptr,
                          const int* __restrict__ col,
-                         const float* __restrict__ lg,
-                         const float* __restrict__ mask,
+                         const Scalar<V>* __restrict__ lg,
+                         const Scalar<V>* __restrict__ mask,
                          const V* __restrict__ v, V* __restrict__ num,
                          float* __restrict__ m, float* __restrict__ s,
                          int n_rows, int heads, int dv, int log_g,
@@ -1579,8 +1585,8 @@ edge_softmax_rows_kernel(const int* __restrict__ indptr,
   const int g = 1 << log_g;                  // lanes per edge group
   const int sub = lane & (g - 1);
   // head h's logit and mask of edge e: at e * heads from lg_h and mask_h
-  const float* lg_h = lg + h;
-  const float* mask_h = mask ? mask + h : nullptr;
+  const Scalar<V>* lg_h = lg + h;
+  const Scalar<V>* mask_h = mask ? mask + h : nullptr;
   walk_rows(indptr, rb, lane, n_rows, log_rows,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const Seg S(lane, log_seg, log_g);
@@ -1591,14 +1597,14 @@ edge_softmax_rows_kernel(const int* __restrict__ indptr,
       const int j = w0 + S.sl;
       const long long e = (long long)beg + j;
       c = col && j < len ? col[e] : 0;
-      l = j < len ? __ldcs(lg_h + e * heads) : -INFINITY;
-      k = mask_h && j < len ? __ldcs(mask_h + e * heads) : 1.f;
+      l = j < len ? widen(ld_cs(lg_h + e * heads)) : -INFINITY;
+      k = mask_h && j < len ? widen(ld_cs(mask_h + e * heads)) : 1.f;
     };
     // at least one pass, so that s is summed when D == 0
     for (int f0 = 0; f0 == 0 || f0 < dv; f0 += NC * g) {
-      V acc[NC];
+      Acc<V> acc[NC];
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) acc[cc] = vzero<V>();
+      for (int cc = 0; cc < NC; ++cc) acc[cc] = vzero<Acc<V>>();
       float mg = -INFINITY, sg = 0.f;   // this edge group's running max, sum
       int c, nc;
       float l, nl, k, nk;
@@ -1626,7 +1632,7 @@ edge_softmax_rows_kernel(const int* __restrict__ indptr,
               if (!ok[u] || f >= dv)
                 vg[u][cc] = vzero<V>();
               else
-                vg[u][cc] = col ? v[sh * dv + f] : __ldcs(v + sh * dv + f);
+                vg[u][cc] = col ? v[sh * dv + f] : ld_cs(v + sh * dv + f);
             }
           }
           // the batch's max first, so that the group rescales once and the
@@ -1650,7 +1656,8 @@ edge_softmax_rows_kernel(const int* __restrict__ indptr,
             sg += pe;
             const float w = pe * mk[u];
 #pragma unroll
-            for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], w, vg[u][cc]);
+            for (int cc = 0; cc < NC; ++cc)
+              axpy(acc[cc], w, widen(vg[u][cc]));
           }
         }
         c = nc;
@@ -1675,7 +1682,7 @@ edge_softmax_rows_kernel(const int* __restrict__ indptr,
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
           const int f = f0 + sub + cc * g;
-          if (f < dv) __stcs(num + rh * dv + f, acc[cc]);
+          if (f < dv) st_cs(num + rh * dv + f, narrow<V>(acc[cc]));
         }
       }
       if (live && S.sl == 0 && f0 == 0) {
@@ -2282,15 +2289,16 @@ int launch_gat_softmax(const int* indptr, const int* col,
 }
 
 // K12 in rows (see edge_softmax_rows_kernel), at the instances
-// with_row_instances holds: rows up to 256 vectors in registers, wider ones
-// in passes of 256. interleave is 0 or 1.
+// with_row_instances holds: rows up to 256 vectors in registers (32 for
+// bfloat16), wider ones in passes of that many. interleave is 0 or 1.
 template <typename V>
-int launch_edge_softmax(const int* indptr, const int* col, const float* lg,
-                        const float* mask, const float* v, float* num,
-                        float* m, float* s, int n_rows, int heads, int dv,
-                        int log_rows, int unroll, int reg_cap, int interleave,
+int launch_edge_softmax(const int* indptr, const int* col,
+                        const Scalar<V>* lg, const Scalar<V>* mask,
+                        const void* v, void* num, float* m, float* s,
+                        int n_rows, int heads, int dv, int log_rows,
+                        int unroll, int reg_cap, int interleave,
                         cudaStream_t st) {
-  const int wide = dv < 256 ? dv : 256;
+  const int wide = dv < kMaxWide<V> ? dv : kMaxWide<V>;
   const int lg_ = log_group(wide);
   if (!dot_layout_ok(lg_, log_rows, interleave ? 1 : heads) ||
       interleave & ~1)
@@ -2301,13 +2309,13 @@ int launch_edge_softmax(const int* indptr, const int* col, const float* lg,
       return static_cast<int>(cudaErrorInvalidValue);
     grid = dim3(grid.x * heads, 1);
   }
-  return with_row_instances<K12Pick>(
+  return with_row_instances<K12Pick, kLow<V>>(
       wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         edge_softmax_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
                                  decltype(minb)::value>
             <<<grid, kThreads, 0, st>>>(
-                indptr, col, lg, mask, reinterpret_cast<const V*>(v),
-                reinterpret_cast<V*>(num), m, s, n_rows, heads, dv, lg_,
+                indptr, col, lg, mask, static_cast<const V*>(v),
+                static_cast<V*>(num), m, s, n_rows, heads, dv, lg_,
                 log_rows, interleave);
       });
 }
@@ -2374,6 +2382,33 @@ int edge_softmax_f32(const int* indptr, const int* col, const float* lg,
   return launch_edge_softmax<float>(indptr, col, lg, mask, v, num, m, s,
                                     n_rows, heads, d, log_rows, unroll,
                                     reg_cap, interleave, st);
+}
+
+// K12 on bfloat16 logits, mask and values, with the float32 softmax state
+// (m, s), as edge_softmax_f32: the sums in float32, num rounded once. A row
+// loads in the widest vector it takes (bf16_vec_bytes of the value and
+// output rows: 8 values, 4, or one); the instances hold one register chunk
+// of 32 vectors (see with_row_instances), wider rows take passes of 32.
+int edge_softmax_bf16(const int* indptr, const int* col, const bf16x1* lg,
+                      const bf16x1* mask, const bf16x1* v, bf16x1* num,
+                      float* m, float* s, int n_rows, int heads, int d,
+                      int log_rows, int unroll, int reg_cap, int interleave,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bf16_vec_bytes(d, {v, num})) {
+    case 16:
+      return launch_edge_softmax<bf16x8>(indptr, col, lg, mask, v, num, m, s,
+                                         n_rows, heads, d / 8, log_rows,
+                                         unroll, reg_cap, interleave, st);
+    case 8:
+      return launch_edge_softmax<bf16x4>(indptr, col, lg, mask, v, num, m, s,
+                                         n_rows, heads, d / 4, log_rows,
+                                         unroll, reg_cap, interleave, st);
+    default:
+      return launch_edge_softmax<bf16x1>(indptr, col, lg, mask, v, num, m, s,
+                                         n_rows, heads, d, log_rows, unroll,
+                                         reg_cap, interleave, st);
+  }
 }
 
 // K3. pi [n_rows, H], pj [n_src, H], v [n_src, H, d]; outputs as K12.

@@ -1,4 +1,5 @@
-// Per-edge dot of endpoint features (SDDMM): K13, float32, for sm_90a.
+// Per-edge dot of endpoint features (SDDMM): K13, float32 and bfloat16
+// (vec.cuh), for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/sddmm.py:_sddmm_kernel (receiver
 // rows distributed to edge slots by a one-hot MXU matmul over 128x512 blocks,
@@ -40,6 +41,14 @@
 // Every output is written by one lane in a fixed order: no atomics, the
 // same bits in every run.
 //
+// bfloat16 (sddmm_csr_bf16): the rows load as bf16x8, bf16x4 or bf16x1
+// (vec.cuh), each product is taken on the values widened to float and the
+// dot summed in float32 and rounded once to bfloat16, as the TPU kernel
+// sums an f32 dot of each 128-512 lane block and rounds it to the rows'
+// type. Rows wider than one chunk (256 values in bf16x8) keep the partial
+// dots of the chunks before the last in a float32 [E, H] scratch, and the
+// last chunk rounds the sum once.
+//
 // Tried and dropped (chip_smoke.py --sweep on an H100 at 700 W): cutting the
 // senders into contiguous tiles that fit an L2 budget, the grid ordered tile
 // by tile and each warp taking only its row's edges in its tile. Tiles of
@@ -60,19 +69,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kUnroll = 4;   // gathers a group issues before reducing
 constexpr int kPairs = 4;    // (row, head) pairs per warp
-
-template <typename V> __device__ __forceinline__ V vzero();
-template <> __device__ __forceinline__ float vzero<float>() { return 0.f; }
-template <> __device__ __forceinline__ float4 vzero<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
 
 // L2 eviction priorities (sm_80+): the gathered rows are loaded with an
 // evict_last policy (createpolicy and the .L2::cache_hint load qualifier),
@@ -98,10 +102,26 @@ __device__ __forceinline__ float4 ld_keep(const float4* a,
       : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(a), "l"(p));
   return v;
 }
-
-__device__ __forceinline__ float vdot(float a, float b) { return a * b; }
-__device__ __forceinline__ float vdot(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+__device__ __forceinline__ bf16x8 ld_keep(const bf16x8* a,
+                                          unsigned long long p) {
+  bf16x8 v;
+  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(a), "l"(p));
+  return v;
+}
+__device__ __forceinline__ bf16x4 ld_keep(const bf16x4* a,
+                                          unsigned long long p) {
+  bf16x4 v;
+  asm("ld.global.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+      : "=r"(v.x), "=r"(v.y) : "l"(a), "l"(p));
+  return v;
+}
+__device__ __forceinline__ bf16x1 ld_keep(const bf16x1* a,
+                                          unsigned long long p) {
+  bf16x1 v;
+  asm("ld.global.L2::cache_hint.u16 %0, [%1], %2;"
+      : "=h"(v) : "l"(a), "l"(p));
+  return v;
 }
 
 // K13 over the receiver CSR for column vectors [c0, c0 + G) of each head:
@@ -110,13 +130,16 @@ __device__ __forceinline__ float vdot(const float4& a, const float4& b) {
 // one after the other: the indptr entries of all their rows come in one
 // load, and the next pair's xi vector and first 32 column indices are
 // loaded before the current pair's gathers, so that only the gathers wait
-// on memory.
-template <typename V>
+// on memory. V is the rows' storage vector (vec.cuh). The float32 dots
+// (the float32 out, or a bfloat16 row's chunks before the last) sum into
+// acc [E, H]; with kRound (a bfloat16 row's last chunk) the share is added
+// to acc's and stored to out[e, h] in the rows' type, rounded once.
+template <typename V, bool kRound>
 __global__ void __launch_bounds__(kThreads, 4)
 sddmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
                  const V* __restrict__ xi, const V* __restrict__ xj,
-                 float* __restrict__ out, int n_rows, int heads, int dv,
-                 int log_g, int c0) {
+                 float* __restrict__ acc, Scalar<V>* __restrict__ out,
+                 int n_rows, int heads, int dv, int log_g, int c0) {
   const int lane = threadIdx.x & 31;
   const long long n_pairs = (long long)n_rows * heads;
   const long long q0 =
@@ -140,7 +163,7 @@ sddmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
     beg = __shfl_sync(kFull, ip, r);
     end = __shfl_sync(kFull, ip, r + 1);
     c = beg + lane < end ? __ldcs(col + beg + lane) : 0;
-    xr = active ? __ldcs(xi + q * dv + f) : vzero<V>();
+    xr = active ? ld_cs(xi + q * dv + f) : vzero<V>();
   };
   int beg, end, c;
   V xr;
@@ -165,7 +188,8 @@ sddmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
         }
         float part[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) part[u] = vdot(xr, v[u]);
+        for (int u = 0; u < kUnroll; ++u)
+          part[u] = vdot(widen(xr), widen(v[u]));
         for (int off = 1; off < g; off <<= 1) {
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u)
@@ -175,8 +199,13 @@ sddmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
         for (int u = 0; u < kUnroll; ++u) {
           const int k = k0 + u * p + grp;
           if (k < n && sub == 0) {
-            float* o = out + (long long)(base + k) * heads + h;
-            *o = c0 > 0 ? *o + part[u] : part[u];
+            const long long o = (long long)(base + k) * heads + h;
+            if constexpr (kRound) {
+              stf(out + o, c0 > 0 ? acc[o] + part[u] : part[u]);
+            } else {
+              float* a = acc + o;
+              *a = c0 > 0 ? *a + part[u] : part[u];
+            }
           }
         }
       }
@@ -194,23 +223,26 @@ int log_group(int dv) {
   return lg;
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-// One launch per chunk of 32 vectors of a head's row, in order.
+// One launch per chunk of 32 vectors of a head's row, in order, each
+// summing into acc; out (bfloat16 rows only, else NULL) takes the last
+// chunk's rounded sums.
 template <typename V>
-int launch(const int* indptr, const int* col, const float* xi,
-           const float* xj, float* out, int n_rows, int heads, int dv,
-           cudaStream_t st) {
+int launch(const int* indptr, const int* col, const void* xi,
+           const void* xj, float* acc, Scalar<V>* out, int n_rows,
+           int heads, int dv, cudaStream_t st) {
   const long long warps = ((long long)n_rows * heads + kPairs - 1) / kPairs;
   const unsigned blocks =
       (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const int lg = log_group(dv);
   for (int c0 = 0; c0 < dv; c0 += 1 << lg) {
-    sddmm_csr_kernel<V><<<blocks, kThreads, 0, st>>>(
-        indptr, col, reinterpret_cast<const V*>(xi),
-        reinterpret_cast<const V*>(xj), out, n_rows, heads, dv, lg, c0);
+    const V* a = static_cast<const V*>(xi);
+    const V* b = static_cast<const V*>(xj);
+    if (out != nullptr && c0 + (1 << lg) >= dv)
+      sddmm_csr_kernel<V, true><<<blocks, kThreads, 0, st>>>(
+          indptr, col, a, b, acc, out, n_rows, heads, dv, lg, c0);
+    else
+      sddmm_csr_kernel<V, false><<<blocks, kThreads, 0, st>>>(
+          indptr, col, a, b, acc, out, n_rows, heads, dv, lg, c0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -222,21 +254,48 @@ int launch(const int* indptr, const int* col, const float* xi,
 extern "C" {
 
 // Returns cudaGetLastError() after the launches (0 on success), or
-// cudaErrorInvalidValue without launching when vec4 is set but d % 4 != 0 or
-// xi, xj are not 16-byte aligned. The caller allocates out [E, heads] and
-// makes sure n_rows > 0, heads > 0, d > 0 and n_rows * heads < 2^35.
-// vec4: load rows as float4.
+// cudaErrorInvalidValue without launching when vec_bytes is not one
+// f32_vec_ok allows (16: float4, d % 4 == 0, xi and xj 16-byte aligned; 4:
+// one float). The caller allocates out [E, heads] and makes sure
+// n_rows > 0, heads > 0, d > 0 and n_rows * heads < 2^35. vec_bytes: the
+// vector a row loads in.
 int sddmm_csr_f32(const int* indptr, const int* col, const float* xi,
                   const float* xj, float* out, int n_rows, int heads, int d,
-                  int vec4, void* stream) {
+                  int vec_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    if (d % 4 != 0 || !aligned16(xi) || !aligned16(xj))
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch<float4>(indptr, col, xi, xj, out, n_rows, heads, d / 4,
+  if (!f32_vec_ok(d, vec_bytes, {xi, xj}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_bytes == 16)
+    return launch<float4>(indptr, col, xi, xj, out, nullptr, n_rows, heads,
+                          d / 4, st);
+  return launch<float>(indptr, col, xi, xj, out, nullptr, n_rows, heads, d,
+                       st);
+}
+
+// K13 on bfloat16 rows: out [E, heads] in bfloat16, each dot summed in
+// float32 and rounded once. vec_bytes: the vector a row loads in (16: 8
+// values, d % 8 == 0, xi and xj 16-byte aligned; 8: 4 values, 8-byte
+// aligned; 2: one); anything else returns cudaErrorInvalidValue with
+// nothing launched, as does a row of more than one chunk of 32 vectors
+// without acc, a float32 [E, heads] scratch for the chunks' partial dots
+// (NULL otherwise). The caller's checks as sddmm_csr_f32's.
+int sddmm_csr_bf16(const int* indptr, const int* col, const bf16x1* xi,
+                   const bf16x1* xj, bf16x1* out, float* acc, int n_rows,
+                   int heads, int d, int vec_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!bf16_vec_ok(d, vec_bytes, {xi, xj}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dv = d / (vec_bytes / 2);
+  if (dv > 32 && acc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_bytes == 16)
+    return launch<bf16x8>(indptr, col, xi, xj, acc, out, n_rows, heads, dv,
                           st);
-  }
-  return launch<float>(indptr, col, xi, xj, out, n_rows, heads, d, st);
+  if (vec_bytes == 8)
+    return launch<bf16x4>(indptr, col, xi, xj, acc, out, n_rows, heads, dv,
+                          st);
+  return launch<bf16x1>(indptr, col, xi, xj, acc, out, n_rows, heads, dv,
+                        st);
 }
 
 const char* gnn_cuda_error_string(int code) {

@@ -1,5 +1,5 @@
-// Per-row max or min over a CSR (segment max): K14 and its backward, float32,
-// for sm_90a.
+// Per-row max or min over a CSR (segment max): K14 and its backward, float32
+// and bfloat16 (vec.cuh), for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:_segmax_kernel
 // (reached through segment_max_grouped: the running max of [E, H] logits per
@@ -55,22 +55,31 @@
 // another, took 8-13 % off the forward at F = 4 and 8 and 7-8 % off the
 // backward. Not built: a warp that reads its rows' contiguous span coalesced
 // and reduces it by a segmented scan over lanes.
+//
+// bfloat16 (segment_max_csr_bf16, segment_max_bwd_csr_bf16): the columns
+// load as bf16x8, bf16x4 or bf16x1 (vec.cuh) and are widened to float,
+// which holds every bfloat16 exactly, so the max, the min and the tie test
+// are the float32 ones and the stored extreme is exact. The backward
+// divides dy by the count in float32 and rounds the share once to
+// bfloat16: the bits of a bfloat16 division dy / count (the plain
+// version's). The count stops at 256, as a sum of ones in bfloat16 does
+// (ops.segment.count_as; JAX's segment max gradient counts so): past 256
+// ties each gets dy / 256, as on the CPU and in JAX. V below is the storage
+// vector, A = Acc<V> the float vector it is compared and divided in; for
+// float32 both are float4 or float.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "vec.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
-
-template <typename V> __device__ __forceinline__ V vfill(float a);
-template <> __device__ __forceinline__ float vfill<float>(float a) { return a; }
-template <> __device__ __forceinline__ float4 vfill<float4>(float a) {
-  return make_float4(a, a, a, a);
-}
 
 // The running max (min) with NaN kept: b wins when it is larger (smaller)
 // or NaN; once the running value is NaN, no comparison with it is true.
@@ -84,6 +93,10 @@ __device__ __forceinline__ float4 pick(const float4& a, const float4& b) {
   return make_float4(pick<kMin>(a.x, b.x), pick<kMin>(a.y, b.y),
                      pick<kMin>(a.z, b.z), pick<kMin>(a.w, b.w));
 }
+template <bool kMin>
+__device__ __forceinline__ f8 pick(const f8& a, const f8& b) {
+  return {pick<kMin>(a.lo, b.lo), pick<kMin>(a.hi, b.hi)};
+}
 
 __device__ __forceinline__ float shfl(float v, int off) {
   return __shfl_xor_sync(kFull, v, off);
@@ -91,6 +104,9 @@ __device__ __forceinline__ float shfl(float v, int off) {
 __device__ __forceinline__ float4 shfl(const float4& v, int off) {
   return make_float4(shfl(v.x, off), shfl(v.y, off), shfl(v.z, off),
                      shfl(v.w, off));
+}
+__device__ __forceinline__ f8 shfl(const f8& v, int off) {
+  return {shfl(v.lo, off), shfl(v.hi, off)};
 }
 
 // 1 where the entry equals the row's extreme, else 0
@@ -101,10 +117,28 @@ __device__ __forceinline__ float4 hit(const float4& d, const float4& o) {
   return make_float4(hit(d.x, o.x), hit(d.y, o.y), hit(d.z, o.z),
                      hit(d.w, o.w));
 }
+__device__ __forceinline__ f8 hit(const f8& d, const f8& o) {
+  return {hit(d.lo, o.lo), hit(d.hi, o.hi)};
+}
 
 __device__ __forceinline__ float add(float a, float b) { return a + b; }
 __device__ __forceinline__ float4 add(const float4& a, const float4& b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ f8 add(const f8& a, const f8& b) {
+  return {add(a.lo, b.lo), add(a.hi, b.hi)};
+}
+
+// the count at most c (bfloat16's stop: see above)
+__device__ __forceinline__ float cap(float cnt, float c) {
+  return fminf(cnt, c);
+}
+__device__ __forceinline__ float4 cap(const float4& cnt, float c) {
+  return make_float4(cap(cnt.x, c), cap(cnt.y, c), cap(cnt.z, c),
+                     cap(cnt.w, c));
+}
+__device__ __forceinline__ f8 cap(const f8& cnt, float c) {
+  return {cap(cnt.lo, c), cap(cnt.hi, c)};
 }
 
 // dy / count, 0 where no entry ties (a NaN output)
@@ -115,6 +149,9 @@ __device__ __forceinline__ float4 share(const float4& dy, const float4& cnt) {
   return make_float4(share(dy.x, cnt.x), share(dy.y, cnt.y),
                      share(dy.z, cnt.z), share(dy.w, cnt.w));
 }
+__device__ __forceinline__ f8 share(const f8& dy, const f8& cnt) {
+  return {share(dy.lo, cnt.lo), share(dy.hi, cnt.hi)};
+}
 
 __device__ __forceinline__ float route(float d, float o, float s) {
   return d == o ? s : 0.f;
@@ -123,6 +160,9 @@ __device__ __forceinline__ float4 route(const float4& d, const float4& o,
                                         const float4& s) {
   return make_float4(route(d.x, o.x, s.x), route(d.y, o.y, s.y),
                      route(d.z, o.z, s.z), route(d.w, o.w, s.w));
+}
+__device__ __forceinline__ f8 route(const f8& d, const f8& o, const f8& s) {
+  return {route(d.lo, o.lo, s.lo), route(d.hi, o.hi, s.hi)};
 }
 
 // The (row, chunk) a lane works on and the column vector it handles.
@@ -171,10 +211,11 @@ segment_extreme_kernel(const int* __restrict__ indptr,
                        const V* __restrict__ data, V* __restrict__ out,
                        int n_rows, int fv, int chunks, int log_g,
                        int log_rows) {
+  using A = Acc<V>;
   Task t;
   if (!task(indptr, n_rows, fv, chunks, log_g, log_rows, t)) return;
-  const V none = vfill<V>(kMin ? CUDART_INF_F : -CUDART_INF_F);
-  V acc = none;
+  const A none = vfill<A>(kMin ? CUDART_INF_F : -CUDART_INF_F);
+  A acc = none;
   if (t.active) {
     const V* col = data + t.f;
     const int s = t.p;
@@ -183,10 +224,11 @@ segment_extreme_kernel(const int* __restrict__ indptr,
     // tail of a short row does not wait on one load after another; entries
     // in order
     for (int e = t.beg + t.grp; e < t.end; e += 4 * s) {
-      V a[4];
+      A a[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        a[u] = e + u * s < t.end ? col[(long long)(e + u * s) * fv] : none;
+        a[u] = e + u * s < t.end ? widen(col[(long long)(e + u * s) * fv])
+                                 : none;
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc = pick<kMin>(acc, a[u]);
     }
@@ -194,7 +236,7 @@ segment_extreme_kernel(const int* __restrict__ indptr,
   // the groups' lanes of one column are G apart, within the row's lanes
   for (int off = t.g; off < t.seg; off <<= 1)
     acc = pick<kMin>(acc, shfl(acc, off));
-  if (t.active && t.grp == 0) out[t.o] = acc;
+  if (t.active && t.grp == 0) out[t.o] = narrow<V>(acc);
 }
 
 // K14's backward: count the entries of each (row, column) that equal the
@@ -207,18 +249,20 @@ segment_extreme_bwd_kernel(const int* __restrict__ indptr,
                            const V* __restrict__ dy, V* __restrict__ ddata,
                            int n_rows, int fv, int chunks, int log_g,
                            int log_rows) {
+  using A = Acc<V>;
   Task t;
   if (!task(indptr, n_rows, fv, chunks, log_g, log_rows, t)) return;
-  const V o = t.active ? out[t.o] : vfill<V>(0.f);
-  const V zero = vfill<V>(0.f);
-  V cnt = zero;
+  const A zero = vfill<A>(0.f);
+  const A o = t.active ? widen(out[t.o]) : zero;
+  A cnt = zero;
   if (t.active) {   // four loads in flight, as in the forward
     for (int e = t.beg + t.grp; e < t.end; e += 4 * t.p) {
-      V h[4];
+      A h[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int k = e + u * t.p;
-        h[u] = k < t.end ? hit(data[(long long)k * fv + t.f], o) : zero;
+        h[u] = k < t.end ? hit(widen(data[(long long)k * fv + t.f]), o)
+                         : zero;
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) cnt = add(cnt, h[u]);
@@ -227,18 +271,20 @@ segment_extreme_bwd_kernel(const int* __restrict__ indptr,
   for (int off = t.g; off < t.seg; off <<= 1)   // exact: small integers
     cnt = add(cnt, shfl(cnt, off));
   if (!t.active) return;
-  const V s = share(dy[t.o], cnt);
+  if constexpr (std::is_same<Scalar<V>, bf16x1>::value) cnt = cap(cnt, 256.f);
+  const A s = share(widen(dy[t.o]), cnt);
   for (int e = t.beg + t.grp; e < t.end; e += 4 * t.p) {
     V d[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int k = e + u * t.p;
-      d[u] = k < t.end ? data[(long long)k * fv + t.f] : zero;
+      d[u] = k < t.end ? data[(long long)k * fv + t.f] : vzero<V>();
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int k = e + u * t.p;
-      if (k < t.end) ddata[(long long)k * fv + t.f] = route(d[u], o, s);
+      if (k < t.end)
+        ddata[(long long)k * fv + t.f] = narrow<V>(route(widen(d[u]), o, s));
     }
   }
 }
@@ -247,10 +293,6 @@ int log_group(int fv) {
   int lg = 0;
   while ((1 << lg) < fv && lg < 5) ++lg;
   return lg;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 // Grid of one warp per (R rows, chunk of 32 vectors); 0 blocks when the
@@ -274,13 +316,37 @@ Shape shape(int n_rows, int fv, int log_rows) {
 }
 
 template <typename V, bool kMin>
-int launch_fwd(const int* indptr, const float* data, float* out, int n_rows,
+int launch_fwd(const int* indptr, const void* data, void* out, int n_rows,
                int fv, int log_rows, cudaStream_t st) {
   const Shape s = shape(n_rows, fv, log_rows);
   if (s.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   segment_extreme_kernel<V, kMin><<<s.blocks, kThreads, 0, st>>>(
-      indptr, reinterpret_cast<const V*>(data), reinterpret_cast<V*>(out),
-      n_rows, s.fv, s.chunks, s.log_g, log_rows);
+      indptr, static_cast<const V*>(data), static_cast<V*>(out), n_rows,
+      s.fv, s.chunks, s.log_g, log_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K14, max or min, on rows of fv storage vectors V.
+template <typename V>
+int launch_extreme(const int* indptr, const void* data, void* out,
+                   int n_rows, int fv, int op_min, int log_rows,
+                   cudaStream_t st) {
+  return op_min
+      ? launch_fwd<V, true>(indptr, data, out, n_rows, fv, log_rows, st)
+      : launch_fwd<V, false>(indptr, data, out, n_rows, fv, log_rows, st);
+}
+
+// K14's backward on rows of fv storage vectors V.
+template <typename V>
+int launch_bwd(const int* indptr, const void* data, const void* out,
+               const void* dy, void* ddata, int n_rows, int fv,
+               int log_rows, cudaStream_t st) {
+  const Shape s = shape(n_rows, fv, log_rows);
+  if (s.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  segment_extreme_bwd_kernel<V><<<s.blocks, kThreads, 0, st>>>(
+      indptr, static_cast<const V*>(data), static_cast<const V*>(out),
+      static_cast<const V*>(dy), static_cast<V*>(ddata), n_rows, s.fv,
+      s.chunks, s.log_g, log_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,55 +355,80 @@ int launch_fwd(const int* indptr, const float* data, float* out, int n_rows,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue without launching when vec4 is set but f % 4 != 0 or
-// a pointer is not 16-byte aligned, or when log_rows is negative or R rows
-// of the width do not fit in a warp (log2 G + log_rows > 5). The caller
-// allocates out [n_rows, f] and makes sure n_rows > 0, f > 0, that indptr's
-// last entry is data's row count, and that the grid has fewer than 2^34
-// warps. vec4: load the columns as float4; log_rows: log2 of the rows per
-// warp.
+// cudaErrorInvalidValue without launching when vec_bytes is not one
+// f32_vec_ok allows (16: float4, f % 4 == 0, the pointers 16-byte aligned;
+// 4: one float), or when log_rows is negative or R rows of the width do not
+// fit in a warp (log2 G + log_rows > 5). The caller allocates out
+// [n_rows, f] and makes sure n_rows > 0, f > 0, that indptr's last entry is
+// data's row count, and that the grid has fewer than 2^34 warps. vec_bytes:
+// the vector the columns load in; log_rows: log2 of the rows per warp.
 int segment_max_csr_f32(const int* indptr, const float* data, float* out,
-                        int n_rows, int f, int op_min, int vec4,
+                        int n_rows, int f, int op_min, int vec_bytes,
                         int log_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    if (f % 4 != 0 || !aligned16(data) || !aligned16(out))
-      return static_cast<int>(cudaErrorInvalidValue);
-    return op_min
-        ? launch_fwd<float4, true>(indptr, data, out, n_rows, f / 4,
-                                   log_rows, st)
-        : launch_fwd<float4, false>(indptr, data, out, n_rows, f / 4,
-                                    log_rows, st);
-  }
-  return op_min ? launch_fwd<float, true>(indptr, data, out, n_rows, f,
-                                          log_rows, st)
-                : launch_fwd<float, false>(indptr, data, out, n_rows, f,
-                                           log_rows, st);
+  if (!f32_vec_ok(f, vec_bytes, {data, out}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_bytes == 16)
+    return launch_extreme<float4>(indptr, data, out, n_rows, f / 4, op_min,
+                                  log_rows, st);
+  return launch_extreme<float>(indptr, data, out, n_rows, f, op_min,
+                               log_rows, st);
 }
 
 // The same contract; ddata [rows, f] gets every entry of the CSR. Max and
 // min share it: it routes dy to the entries that equal out.
 int segment_max_bwd_csr_f32(const int* indptr, const float* data,
                             const float* out, const float* dy, float* ddata,
-                            int n_rows, int f, int vec4, int log_rows,
+                            int n_rows, int f, int vec_bytes, int log_rows,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec4 && (f % 4 != 0 || !aligned16(data) || !aligned16(out) ||
-               !aligned16(dy) || !aligned16(ddata)))
+  if (!f32_vec_ok(f, vec_bytes, {data, out, dy, ddata}))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s = shape(n_rows, vec4 ? f / 4 : f, log_rows);
-  if (s.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (vec4)
-    segment_extreme_bwd_kernel<float4><<<s.blocks, kThreads, 0, st>>>(
-        indptr, reinterpret_cast<const float4*>(data),
-        reinterpret_cast<const float4*>(out),
-        reinterpret_cast<const float4*>(dy), reinterpret_cast<float4*>(ddata),
-        n_rows, s.fv, s.chunks, s.log_g, log_rows);
-  else
-    segment_extreme_bwd_kernel<float><<<s.blocks, kThreads, 0, st>>>(
-        indptr, data, out, dy, ddata, n_rows, s.fv, s.chunks, s.log_g,
-        log_rows);
-  return static_cast<int>(cudaGetLastError());
+  if (vec_bytes == 16)
+    return launch_bwd<float4>(indptr, data, out, dy, ddata, n_rows, f / 4,
+                              log_rows, st);
+  return launch_bwd<float>(indptr, data, out, dy, ddata, n_rows, f,
+                           log_rows, st);
+}
+
+// K14 and its backward on bfloat16 columns, as segment_max_csr_f32 and
+// segment_max_bwd_csr_f32, with vec_bytes the vector a
+// row's columns load in (16: 8 values, f % 8 == 0, the pointers 16-byte
+// aligned; 8: 4 values, 8-byte aligned; 2: one). Anything else returns
+// cudaErrorInvalidValue with nothing launched.
+int segment_max_csr_bf16(const int* indptr, const bf16x1* data, bf16x1* out,
+                         int n_rows, int f, int op_min, int vec_bytes,
+                         int log_rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!bf16_vec_ok(f, vec_bytes, {data, out}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int fv = f / (vec_bytes / 2);
+  if (vec_bytes == 16)
+    return launch_extreme<bf16x8>(indptr, data, out, n_rows, fv, op_min,
+                                  log_rows, st);
+  if (vec_bytes == 8)
+    return launch_extreme<bf16x4>(indptr, data, out, n_rows, fv, op_min,
+                                  log_rows, st);
+  return launch_extreme<bf16x1>(indptr, data, out, n_rows, fv, op_min,
+                                log_rows, st);
+}
+
+int segment_max_bwd_csr_bf16(const int* indptr, const bf16x1* data,
+                             const bf16x1* out, const bf16x1* dy,
+                             bf16x1* ddata, int n_rows, int f, int vec_bytes,
+                             int log_rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!bf16_vec_ok(f, vec_bytes, {data, out, dy, ddata}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int fv = f / (vec_bytes / 2);
+  if (vec_bytes == 16)
+    return launch_bwd<bf16x8>(indptr, data, out, dy, ddata, n_rows, fv,
+                              log_rows, st);
+  if (vec_bytes == 8)
+    return launch_bwd<bf16x4>(indptr, data, out, dy, ddata, n_rows, fv,
+                              log_rows, st);
+  return launch_bwd<bf16x1>(indptr, data, out, dy, ddata, n_rows, fv,
+                            log_rows, st);
 }
 
 const char* gnn_cuda_error_string(int code) {

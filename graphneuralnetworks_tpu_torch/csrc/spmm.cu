@@ -1,5 +1,5 @@
 // CSR sparse x dense products for message passing: K1 (SpMM) and K2 (the
-// fused weighted-SpMM backward), float32 (K1 also bfloat16, vec.cuh), for
+// fused weighted-SpMM backward), float32 and bfloat16 (vec.cuh), for
 // sm_90a.
 //
 // Both kernels walk a compressed-sparse-row edge grouping:
@@ -50,6 +50,13 @@
 // Every output entry is written exactly once, by one lane, so no atomics
 // are needed and the summation order is fixed: results are bitwise
 // reproducible from run to run. Rows with no edges are written as zeros.
+//
+// bfloat16 (spmm_csr_bf16, spmm_sddmm_csr_bf16): rows, weights and outputs
+// are bfloat16, loaded as bf16x8, bf16x4 or bf16x1 (vec.cuh) and widened
+// to float where they are used; every sum (y, dx, each dot and each
+// strip's share of it) is float32, and y, dx and dw are rounded once when
+// stored. K2's scratch of dots by position stays float32; its weights in
+// sender-CSR order are a copy of the bfloat16 ones.
 //
 // Bound on an H100: memory. Each edge costs one gathered row of D floats
 // (E*D*4 bytes, ~1.1 GB at E=2M, D=128) against 2*D flops, far below the
@@ -217,14 +224,17 @@ spmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 // position, one run of the row's positions. The first port gave a row one
 // warp, whole rows from all of the table, and waited on each edge's gather,
 // then its 5-step dot tree, then its dw write, one edge at a time.
+//
+// V is the rows' storage vector as K1's: bfloat16 rows take bfloat16
+// weights and dots, with float32 sums and part.
 template <typename V, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
                       const int* __restrict__ col,
                       const int* __restrict__ eid,
-                      const float* __restrict__ w,
+                      const Scalar<V>* __restrict__ w,
                       const V* __restrict__ dy, const V* __restrict__ x,
-                      V* __restrict__ dx, float* __restrict__ dw,
+                      V* __restrict__ dx, Scalar<V>* __restrict__ dw,
                       float* __restrict__ part, int n_rows, int heads,
                       int dv, int n_strips, long long n_edges,
                       long long w_row, long long w_head, int log_g,
@@ -238,7 +248,7 @@ spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
   const int f = (blockIdx.y - h * n_strips) * g + sub;
   const bool on = f < dv;
   float* out = part ? part + (long long)blockIdx.y * n_edges : nullptr;
-  const float* wh = w ? w + h * w_head : nullptr;
+  const Scalar<V>* wh = w ? w + h * w_head : nullptr;
   walk_rows(indptr, rb, lane, n_rows, log_rows,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const int seg = 1 << log_seg;             // lanes per row
@@ -249,8 +259,9 @@ spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
     const bool live = row < n_rows;
     // x, the dots, dx and the weights in CSR order stream past the L2
     // (evict-first), which keeps the slice of dy that the pass gathers from
-    const V xs = live && on ? __ldcs(x + ((long long)row * heads + h) * dv + f)
-                            : vzero<V>();
+    const Acc<V> xs =
+        live && on ? widen(ld_cs(x + ((long long)row * heads + h) * dv + f))
+                   : vzero<Acc<V>>();
     // lane sl of the row holds window position w0 + sl: its source row,
     // edge id and weight
     auto fetch = [&](int w0, int& c, int& id, float& wt) {
@@ -262,13 +273,15 @@ spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
         c = col[k];
         id = eid ? eid[k] : k;
         // weights in CSR order stream; by edge id a sector serves 8 edges
-        wt = !wh ? 1.f : eid ? wh[id * w_row] : __ldcs(wh + k * w_row);
+        wt = !wh    ? 1.f
+             : eid  ? ldf(wh + id * w_row)
+                    : widen(ld_cs(wh + k * w_row));
       }
     };
     int c, id, nc, nid;
     float wt, nwt;
     fetch(0, c, id, wt);
-    V acc = vzero<V>();
+    Acc<V> acc = vzero<Acc<V>>();
     for (int w0 = 0; w0 < longest; w0 += seg) {   // warp-uniform trips
       fetch(w0 + seg, nc, nid, nwt);              // the next window, ahead
       const int cnt = min(seg, longest - w0);
@@ -289,8 +302,9 @@ spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          axpy(acc, wj[u], v[u]);
-          dt[u] = vdot(v[u], xs);
+          const Acc<V> vu = widen(v[u]);
+          axpy(acc, wj[u], vu);
+          dt[u] = vdot(vu, xs);
         }
         // Position j0 + u * p + q is group q's edge u; its dot goes to
         // lane j0 + u * p + q of the row.
@@ -340,7 +354,7 @@ spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
         if (out)
           __stcs(out + beg + w0 + sl, mine);
         else
-          dw[(long long)id * heads + h] = mine;
+          stf(dw + (long long)id * heads + h, mine);
       }
       c = nc;
       id = nid;
@@ -349,46 +363,56 @@ spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
     // the groups' lanes of one column are G apart, within the row's lanes
     for (int off = g; off < seg; off <<= 1) add_xor(acc, off);
     if (live && on && grp == 0)
-      __stcs(dx + ((long long)row * heads + h) * dv + f, acc);
+      st_cs(dx + ((long long)row * heads + h) * dv + f, narrow<V>(acc));
   });
 }
 
 // K2's passes around the sweep in sender-CSR position order, one thread a
 // position k, id = eid[k] (k where eid is NULL), all H heads of an edge in
-// one thread so that its H floats of w and dw [E, H] are one run (float4
-// loads and stores where vec: H % 4 == 0 and the rows 16-byte aligned).
-// Before: wk[h, k] = w[id, h], the
-// weights in the order the sweep reads them. After: dw[id, h] = the sum of
-// part[h * n_strips + j, k] over the strips j in order.
+// one thread so that its H weights of w and dw [E, H] are one run, loaded
+// and stored 4 at a time where vec (H % 4 == 0 and the rows aligned to 4
+// weights: a float4, or 4 bfloat16 in 8 bytes). Before: wk[h, k] = w[id,
+// h], the weights in the order the sweep reads them, in their own type W.
+// After: dw[id, h] = the sum of part[h * n_strips + j, k] over the strips
+// j in order, in float32, stored as W (rounded once for bfloat16).
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
 spmm_sddmm_weights_kernel(const int* __restrict__ eid,
-                          const float* __restrict__ w,
-                          float* __restrict__ wk, long long n_edges,
-                          int heads, bool vec) {
+                          const W* __restrict__ w, W* __restrict__ wk,
+                          long long n_edges, int heads, bool vec) {
   const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (k >= n_edges) return;
-  const float* src = w + (long long)(eid ? eid[k] : k) * heads;
+  const W* src = w + (long long)(eid ? eid[k] : k) * heads;
   if (vec) {
     for (int h = 0; h < heads; h += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(src + h);
-      wk[h * n_edges + k] = v.x;
-      wk[(h + 1) * n_edges + k] = v.y;
-      wk[(h + 2) * n_edges + k] = v.z;
-      wk[(h + 3) * n_edges + k] = v.w;
+      if constexpr (std::is_same<W, float>::value) {
+        const float4 v = *reinterpret_cast<const float4*>(src + h);
+        wk[h * n_edges + k] = v.x;
+        wk[(h + 1) * n_edges + k] = v.y;
+        wk[(h + 2) * n_edges + k] = v.z;
+        wk[(h + 3) * n_edges + k] = v.w;
+      } else {   // 4 bfloat16 in one 8-byte load, copied bit for bit
+        const bf16x4 v = *reinterpret_cast<const bf16x4*>(src + h);
+        wk[h * n_edges + k] = static_cast<W>(v.x & 0xffffu);
+        wk[(h + 1) * n_edges + k] = static_cast<W>(v.x >> 16);
+        wk[(h + 2) * n_edges + k] = static_cast<W>(v.y & 0xffffu);
+        wk[(h + 3) * n_edges + k] = static_cast<W>(v.y >> 16);
+      }
     }
-  } else {
-    for (int h = 0; h < heads; ++h) wk[h * n_edges + k] = src[h];
+    return;
   }
+  for (int h = 0; h < heads; ++h) wk[h * n_edges + k] = src[h];
 }
 
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
 spmm_sddmm_sum_kernel(const int* __restrict__ eid,
-                      const float* __restrict__ part, float* __restrict__ dw,
+                      const float* __restrict__ part, W* __restrict__ dw,
                       long long n_edges, int heads, int n_strips,
                       bool vec) {
   const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (k >= n_edges) return;
-  float* dst = dw + (long long)(eid ? eid[k] : k) * heads;
+  W* dst = dw + (long long)(eid ? eid[k] : k) * heads;
   auto strip_sum = [&](int h) {
     const float* ph = part + (long long)h * n_strips * n_edges + k;
     float t = 0.f;
@@ -396,22 +420,23 @@ spmm_sddmm_sum_kernel(const int* __restrict__ eid,
     return t;
   };
   if (vec) {
-    for (int h = 0; h < heads; h += 4)
-      *reinterpret_cast<float4*>(dst + h) = make_float4(
-          strip_sum(h), strip_sum(h + 1), strip_sum(h + 2), strip_sum(h + 3));
-  } else {
-    for (int h = 0; h < heads; ++h) dst[h] = strip_sum(h);
+    for (int h = 0; h < heads; h += 4) {
+      const float4 t = make_float4(strip_sum(h), strip_sum(h + 1),
+                                   strip_sum(h + 2), strip_sum(h + 3));
+      if constexpr (std::is_same<W, float>::value)
+        *reinterpret_cast<float4*>(dst + h) = t;
+      else   // one 8-byte store of 4 bfloat16, each rounded once
+        *reinterpret_cast<bf16x4*>(dst + h) = narrow<bf16x4>(t);
+    }
+    return;
   }
+  for (int h = 0; h < heads; ++h) stf(dst + h, strip_sum(h));
 }
 
 int log_group(int dv) {
   int lg = 0;
   while ((1 << lg) < dv && lg < 5) ++lg;
   return lg;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 // Whether a strip of 2^log_strip vectors fits rows of dv vectors (at most
@@ -512,30 +537,85 @@ int launch_spmm_csr(const int* indptr, const int* col, const int* eid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 over rows of dv vectors V with weights and dots of Scalar<V> (see
+// spmm_sddmm_csr_f32 for the checks and the scratch): the passes around the
+// sweep where needed, the sweep at the instance of (unroll, reg_cap), then
+// cudaGetLastError().
+template <typename V>
+int launch_spmm_sddmm(const int* indptr, const int* col, const int* eid,
+                      const Scalar<V>* w, const void* dy, const void* x,
+                      void* dx, Scalar<V>* dw, float* scratch, int n_rows,
+                      int heads, int dv, int n_edges, int log_rows,
+                      int log_strip, int unroll, int reg_cap,
+                      int by_position, cudaStream_t s) {
+  using W = Scalar<V>;
+  // the weight passes move H weights 4 at a time where each edge's run of
+  // them is aligned to 4 (16 bytes of float32, 8 of bfloat16)
+  auto vec4 = [&](const void* p) {
+    return heads % 4 == 0 &&
+           (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(W) - 1)) == 0;
+  };
+  if (!layout_ok(dv, log_rows, log_strip))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_strips = (dv + (1 << log_strip) - 1) >> log_strip;
+  const bool part_needed = by_position || n_strips > 1;
+  if (heads <= 0 || (long long)heads * n_strips >= 65536 ||
+      (part_needed && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* part = part_needed ? scratch : nullptr;
+  // by position: the weights in sender-CSR order, head after head, in wk
+  W* wk = by_position && w != nullptr
+              ? reinterpret_cast<W*>(scratch +
+                                     (long long)heads * n_strips * n_edges)
+              : nullptr;
+  const dim3 edge_grid((n_edges + kThreads - 1) / kThreads);
+  const dim3 grid = row_grid(n_rows, log_rows, heads * n_strips);
+  const bool launched = with_instances<K2Pick>(
+      unroll, reg_cap, [&](auto un, auto minb) {
+        if (wk != nullptr && n_edges > 0)
+          spmm_sddmm_weights_kernel<W><<<edge_grid, kThreads, 0, s>>>(
+              eid, w, wk, n_edges, heads, vec4(w));
+        spmm_sddmm_csr_kernel<V, decltype(un)::value, decltype(minb)::value>
+            <<<grid, kThreads, 0, s>>>(
+                indptr, col, by_position ? nullptr : eid,
+                by_position ? wk : w, static_cast<const V*>(dy),
+                static_cast<const V*>(x), static_cast<V*>(dx), dw, part,
+                n_rows, heads, dv, n_strips, n_edges,
+                by_position ? 1LL : heads, by_position ? n_edges : 1LL,
+                log_strip, log_rows);
+      });
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  if (part != nullptr && n_edges > 0)
+    spmm_sddmm_sum_kernel<W><<<edge_grid, kThreads, 0, s>>>(
+        eid, part, dw, n_edges, heads, n_strips, vec4(dw));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1. Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue without launching when vec4 is set but d % 4 != 0
-// or x, y are not 16-byte aligned, when log_strip is negative or wider
-// than the row's G, when R rows of a strip do not fit in a warp (log_strip
-// + log_rows > 5), or when the library holds no instance of (unroll,
-// reg_cap) (see with_instances and K1Pick). The caller allocates y
-// [n_rows, d] and makes sure n_rows > 0, d > 0, that the strips fit the
-// grid's second dimension (fewer than 2^16) and n_rows < 2^31 - 32. vec4:
-// load rows as float4; log_rows: log2 of the rows per warp; log_strip: log2
-// of the vectors of a strip, the lanes of an edge group; unroll: the
-// gathers an edge group issues before it adds them; reg_cap: registers per
-// thread (0: none; 64: 4 blocks of 8 warps per SM).
+// cudaErrorInvalidValue without launching when vec_bytes is not one
+// f32_vec_ok allows (16: float4, d % 4 == 0, x and y 16-byte aligned; 4:
+// one float), when log_strip is negative or wider than the row's G, when R
+// rows of a strip do not fit in a warp (log_strip + log_rows > 5), or when
+// the library holds no instance of (unroll, reg_cap) (see with_instances
+// and K1Pick). The caller allocates y [n_rows, d] and makes sure
+// n_rows > 0, d > 0, that the strips fit the grid's second dimension
+// (fewer than 2^16) and n_rows < 2^31 - 32. vec_bytes: the vector a row
+// loads in; log_rows: log2 of the rows per warp; log_strip: log2 of the
+// vectors of a strip, the lanes of an edge group; unroll: the gathers an
+// edge group issues before it adds them; reg_cap: registers per thread (0:
+// none; 64: 4 blocks of 8 warps per SM).
 int spmm_csr_f32(const int* indptr, const int* col, const int* eid,
                  const float* w, const float* x, float* y, int n_rows, int d,
-                 int vec4, int log_rows, int log_strip, int unroll,
+                 int vec_bytes, int log_rows, int log_strip, int unroll,
                  int reg_cap, void* stream) {
-  if (vec4 && (d % 4 != 0 || !aligned16(x) || !aligned16(y)))
+  if (!f32_vec_ok(d, vec_bytes, {x, y}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4)
+  if (vec_bytes == 16)
     return launch_spmm_csr<float4>(indptr, col, eid, w, x, y, n_rows, d / 4,
                                    log_rows, log_strip, unroll, reg_cap, s);
   return launch_spmm_csr<float>(indptr, col, eid, w, x, y, n_rows, d,
@@ -543,8 +623,8 @@ int spmm_csr_f32(const int* indptr, const int* col, const int* eid,
 }
 
 // K1 on bfloat16 rows and weights, summed in float32 and rounded once (see
-// spmm_csr_kernel): as spmm_csr_f32, with vec_bytes in place of vec4, the
-// bytes of the vector a row is loaded in: 16 (8 values; d % 8 == 0, x and y
+// spmm_csr_kernel): as spmm_csr_f32, with vec_bytes the bytes of the
+// vector a row is loaded in: 16 (8 values; d % 8 == 0, x and y
 // 16-byte aligned), 8 (4 values; d % 4 == 0, 8-byte aligned) or 2 (one
 // value). Anything else returns cudaErrorInvalidValue with nothing
 // launched. The library holds the instances of K1Pick for each vector.
@@ -568,7 +648,8 @@ int spmm_csr_bf16(const int* indptr, const int* col, const int* eid,
 // K2. Over the sender CSR of n_rows senders and n_edges edges: dy
 // [n_dy, H, d] (the receivers'), x [n_rows, H, d], w [n_edges, H] by edge
 // id (NULL: unweighted); dx [n_rows, H, d] and dw [n_edges, H], every entry
-// of both written. vec4, log_rows, log_strip, unroll and reg_cap as K1's
+// of both written. vec_bytes, log_rows, log_strip, unroll and reg_cap as
+// K1's
 // (see with_instances and K2Pick for the instances built). by_position: the
 // sweep reads the weights and writes the dots in sender-CSR order, head
 // after head, and two passes around it move them from and to edge-id order
@@ -583,51 +664,54 @@ int spmm_csr_bf16(const int* indptr, const int* col, const int* eid,
 int spmm_sddmm_csr_f32(const int* indptr, const int* col, const int* eid,
                        const float* w, const float* dy, const float* x,
                        float* dx, float* dw, float* scratch, int n_rows,
-                       int heads, int d, int n_edges, int vec4, int log_rows,
-                       int log_strip, int unroll, int reg_cap,
+                       int heads, int d, int n_edges, int vec_bytes,
+                       int log_rows, int log_strip, int unroll, int reg_cap,
                        int by_position, void* stream) {
-  if (vec4 && (d % 4 != 0 || !aligned16(dy) || !aligned16(x) ||
-               !aligned16(dx)))
+  if (!f32_vec_ok(d, vec_bytes, {dy, x, dx}))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dv = vec4 ? d / 4 : d;
-  if (!layout_ok(dv, log_rows, log_strip))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_strips = (dv + (1 << log_strip) - 1) >> log_strip;
-  const bool part_needed = by_position || n_strips > 1;
-  if (heads <= 0 || (long long)heads * n_strips >= 65536 ||
-      (part_needed && scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  float* part = part_needed ? scratch : nullptr;
-  // by position: the weights in sender-CSR order, head after head, in wk
-  float* wk = by_position && w != nullptr
-                  ? scratch + (long long)heads * n_strips * n_edges
-                  : nullptr;
-  const dim3 edge_grid((n_edges + kThreads - 1) / kThreads);
-  const dim3 grid = row_grid(n_rows, log_rows, heads * n_strips);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto vec) {
-    using V = decltype(vec);
-    return with_instances<K2Pick>(unroll, reg_cap, [&](auto un, auto minb) {
-      if (wk != nullptr && n_edges > 0)
-        spmm_sddmm_weights_kernel<<<edge_grid, kThreads, 0, s>>>(
-            eid, w, wk, n_edges, heads, heads % 4 == 0 && aligned16(w));
-      spmm_sddmm_csr_kernel<V, decltype(un)::value, decltype(minb)::value>
-          <<<grid, kThreads, 0, s>>>(
-              indptr, col, by_position ? nullptr : eid,
-              by_position ? wk : w, reinterpret_cast<const V*>(dy),
-              reinterpret_cast<const V*>(x), reinterpret_cast<V*>(dx), dw,
-              part, n_rows, heads, dv, n_strips, n_edges,
-              by_position ? 1LL : heads, by_position ? n_edges : 1LL,
-              log_strip, log_rows);
-    });
-  };
-  if (!(vec4 ? launch(float4{}) : launch(float{})))
+  if (vec_bytes == 16)
+    return launch_spmm_sddmm<float4>(indptr, col, eid, w, dy, x, dx, dw,
+                                     scratch, n_rows, heads, d / 4, n_edges,
+                                     log_rows, log_strip, unroll, reg_cap,
+                                     by_position, s);
+  return launch_spmm_sddmm<float>(indptr, col, eid, w, dy, x, dx, dw,
+                                  scratch, n_rows, heads, d, n_edges,
+                                  log_rows, log_strip, unroll, reg_cap,
+                                  by_position, s);
+}
+
+// K2 on bfloat16 rows, weights and dots (w and dw [E, H] bfloat16), summed
+// in float32 and each output rounded once (see spmm_sddmm_csr_kernel): as
+// spmm_sddmm_csr_f32, with vec_bytes as spmm_csr_bf16 takes it (the rows
+// dy, x and dx). The scratch is as many floats as
+// spmm_sddmm_csr_f32's; by position, its last H * n_edges floats hold the
+// bfloat16 weights in sender-CSR order (half of them used). The library
+// holds the instances of K2Pick for each vector.
+int spmm_sddmm_csr_bf16(const int* indptr, const int* col, const int* eid,
+                        const bf16x1* w, const bf16x1* dy, const bf16x1* x,
+                        bf16x1* dx, bf16x1* dw, float* scratch, int n_rows,
+                        int heads, int d, int n_edges, int vec_bytes,
+                        int log_rows, int log_strip, int unroll, int reg_cap,
+                        int by_position, void* stream) {
+  if (!bf16_vec_ok(d, vec_bytes, {dy, x, dx}))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (part != nullptr && n_edges > 0)
-    spmm_sddmm_sum_kernel<<<edge_grid, kThreads, 0, s>>>(
-        eid, part, dw, n_edges, heads, n_strips,
-        heads % 4 == 0 && aligned16(dw));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dv = d / (vec_bytes / 2);
+  if (vec_bytes == 16)
+    return launch_spmm_sddmm<bf16x8>(indptr, col, eid, w, dy, x, dx, dw,
+                                     scratch, n_rows, heads, dv, n_edges,
+                                     log_rows, log_strip, unroll, reg_cap,
+                                     by_position, s);
+  if (vec_bytes == 8)
+    return launch_spmm_sddmm<bf16x4>(indptr, col, eid, w, dy, x, dx, dw,
+                                     scratch, n_rows, heads, dv, n_edges,
+                                     log_rows, log_strip, unroll, reg_cap,
+                                     by_position, s);
+  return launch_spmm_sddmm<bf16x1>(indptr, col, eid, w, dy, x, dx, dw,
+                                   scratch, n_rows, heads, dv, n_edges,
+                                   log_rows, log_strip, unroll, reg_cap,
+                                   by_position, s);
 }
 
 const char* gnn_cuda_error_string(int code) {

@@ -1,19 +1,23 @@
-// Row vectors of the row-walking kernels (spmm.cu, edge_softmax.cu): the
-// type a row is loaded and stored in, and the float type it is summed in.
+// Row vectors of the row-walking kernels (spmm.cu, edge_softmax.cu,
+// sddmm.cu, segment.cu): the type a row is loaded and stored in, and the
+// float type it is summed in.
 //
 // float32 rows load as float4 (16 bytes) or float and are summed in the
 // same type. bfloat16 rows load as 8 values in 16 bytes (bf16x8, a uint4),
 // 4 in 8 bytes (bf16x4, a uint2) or one (bf16x1, the 16 bits), are widened
 // to float in registers (f8, float4, float), summed in float32, and
 // rounded once to bfloat16 (round to nearest even, __float2bfloat16_rn)
-// when stored. Per-node scalars of a bfloat16 kernel (GAT's pi, pj, dpi,
-// dpj; K1's edge weights) are bf16x1 as well; the softmax state (m, s, mx,
-// den, s_n) stays float32.
+// when stored. Per-node and per-edge scalars of a bfloat16 kernel (GAT's
+// pi, pj, dpi, dpj; K1's and K2's edge weights, K2's dots; K12's logits
+// and mask; K13's dots) are bf16x1 as well; the softmax state (m, s, mx,
+// den, s_n) and K2's and K13's partial sums stay float32.
 //
 // Acc<V> names the sum type of storage type V, Scalar<V> the scalar type
 // that goes with V's rows. widen() and narrow<V>() convert; for float32
 // both are the identity, so the float32 kernels compile as before.
-// ld_cs and st_cs are __ldcs / __stcs (evict-first) for every storage type.
+// vzero<T>() and vfill<T>(a) are a vector of zeros and of a, for the sum
+// types and (vzero) the storage types. ld_cs and st_cs are __ldcs / __stcs
+// (evict-first) for every storage type.
 
 #ifndef GNN_CSRC_VEC_CUH_
 #define GNN_CSRC_VEC_CUH_
@@ -64,6 +68,17 @@ template <> __device__ __forceinline__ bf16x4 vzero<bf16x4>() {
   return make_uint2(0u, 0u);
 }
 template <> __device__ __forceinline__ bf16x1 vzero<bf16x1>() { return 0; }
+
+template <typename T> __device__ __forceinline__ T vfill(float a);
+template <> __device__ __forceinline__ float vfill<float>(float a) {
+  return a;
+}
+template <> __device__ __forceinline__ float4 vfill<float4>(float a) {
+  return make_float4(a, a, a, a);
+}
+template <> __device__ __forceinline__ f8 vfill<f8>(float a) {
+  return {vfill<float4>(a), vfill<float4>(a)};
+}
 
 // ---- bfloat16 <-> float ------------------------------------------------------
 
@@ -180,20 +195,32 @@ __device__ __forceinline__ void vscale(f8& a, float s) {
 
 // ---- host side -------------------------------------------------------------
 
-// Whether bfloat16 rows of d values at the pointers `rows` (NULL ones
-// aside) load as vectors of vec_bytes: 16 (bf16x8) needs d % 8 == 0 and
-// 16-byte aligned rows, 8 (bf16x4) d % 4 == 0 and 8-byte aligned ones, 2
-// (bf16x1) nothing.
-inline bool bf16_vec_ok(int d, int vec_bytes,
-                        std::initializer_list<const void*> rows) {
-  if (vec_bytes == 2) return true;
-  if ((vec_bytes != 16 && vec_bytes != 8) || d % (vec_bytes / 2) != 0)
+// Whether rows of d values of elem bytes at the pointers `rows` (NULL ones
+// aside) load as vectors of vec_bytes: one value (vec_bytes == elem) needs
+// nothing; 16 bytes (float4, bf16x8) or, for bfloat16, 8 (bf16x4) need d a
+// multiple of the vector's values and rows aligned to its bytes. Every
+// library entry point takes the vector's bytes and refuses any other.
+inline bool vec_ok(int elem, int d, int vec_bytes,
+                   std::initializer_list<const void*> rows) {
+  if (vec_bytes == elem) return true;
+  if ((vec_bytes != 16 && (vec_bytes != 8 || elem != 2)) ||
+      d % (vec_bytes / elem) != 0)
     return false;
   for (const void* p : rows)
     if (p != nullptr &&
         (reinterpret_cast<uintptr_t>(p) & (vec_bytes - 1)) != 0)
       return false;
   return true;
+}
+// float32 rows: 16 (float4) or 4
+inline bool f32_vec_ok(int d, int vec_bytes,
+                       std::initializer_list<const void*> rows) {
+  return vec_ok(4, d, vec_bytes, rows);
+}
+// bfloat16 rows: 16 (bf16x8), 8 (bf16x4) or 2 (bf16x1)
+inline bool bf16_vec_ok(int d, int vec_bytes,
+                        std::initializer_list<const void*> rows) {
+  return vec_ok(2, d, vec_bytes, rows);
 }
 
 // The widest vector bfloat16 rows of d values at `rows` load in (see

@@ -174,7 +174,8 @@ class Precision(GNNLayer):
     ``torch.func.functional_call``, so gradients flow back through the
     casts and reach the parameters in their own type: the optimizer's
     state and updates stay float32. The kernels keep their sums and softmax
-    state in float32 (K1, K3-K5; ``ops/cuda``). This is not
+    state in float32 (K1-K5 and K12-K14 in bfloat16; ``ops/cuda``; GATv2's
+    and dot attention's kernels raise on bfloat16). This is not
     ``torch.autocast``, which keeps some ops in float32 and casts per op.
 
     Example::

@@ -15,10 +15,14 @@ all heads in one launch), at any number of head dimensions; a shape the
 kernels cannot take raises. Only CPU tensors take the plain path below, the
 counterpart of the JAX package's XLA path.
 
-bfloat16: on the card only :func:`gat_attention` without dropout takes it
-(K3-K5); every other kernel route raises ``TypeError``. The plain path
-computes bfloat16 values as those kernels do: logits, softmax and sums in
-float32, the output rounded once to bfloat16.
+bfloat16: on the card :func:`gat_attention` without dropout takes it on
+K3-K5, :func:`attention_aggregate` (and so :func:`gat_attention` with
+dropout) on K12 with bfloat16 logits, masks and values, its node-values
+backward on K2, and :func:`dot_attention_logits` on K13; the gradients
+come back in their inputs' types. :func:`gatv2_attention` without dropout
+and :func:`dot_attention` raise ``TypeError`` (K9-K11 and K6-K8 are
+float32 only). The plain path computes bfloat16 values as the kernels do:
+logits, softmax and sums in float32, each output rounded once to bfloat16.
 """
 
 from __future__ import annotations
@@ -76,8 +80,10 @@ def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
     projections and ``values [N_src, H, D]`` the senders' node values. On
     the card without dropout the logits are computed inside the kernels
     (:func:`~.cuda.edge_softmax.gat_attention_nodes`); otherwise they are
-    gathered and :func:`attention_aggregate` takes over. ``pj_weight`` is
-    accepted for the JAX package's signature and not used.
+    gathered and :func:`attention_aggregate` takes over: in float32 without
+    dropout (the CPU path, as K3 computes them), in the projections' type
+    with it (as the JAX package gathers them; K12 takes that type).
+    ``pj_weight`` is accepted for the JAX package's signature and not used.
     """
     no_edge_valid(g, "gat_attention")
     pj = to_src_space(g, pj)   # identity unless g is a part's view
@@ -88,9 +94,10 @@ def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
                                    self_values=self_values,
                                    num_segments=num_segments,
                                    pj_weight=pj_weight)
-    work = _work_dtype(values.dtype)   # float32 logits for bfloat16
-    logits = lrelu(gather(pi.to(work), g.receivers)
-                   + gather(pj.to(work), g.senders), slope)
+    if dropout_masks is None:   # float32 logits for bfloat16, as K3's
+        work = _work_dtype(values.dtype)
+        pi, pj = pi.to(work), pj.to(work)
+    logits = lrelu(gather(pi, g.receivers) + gather(pj, g.senders), slope)
     return attention_aggregate(g, logits, values, self_logits=self_logits,
                                self_values=self_values,
                                dropout_masks=dropout_masks,
@@ -157,12 +164,15 @@ def dot_attention(g: GraphTuple, q, k, values, scale: float = 1.0, *,
 def dot_attention_logits(g: GraphTuple, qi, kj):
     """Per-edge endpoint dots ``<qi[r_e], kj[s_e]>``: ``[N, *H, O]`` ->
     ``[E, *H]`` (``[N, O]`` -> ``[E]``). On the card, one launch of K13
-    for all heads (:func:`~.cuda.sddmm.sddmm`)."""
+    for all heads (:func:`~.cuda.sddmm.sddmm`); the plain path computes
+    bfloat16 as K13 does, in float32 with each dot rounded once."""
     no_edge_valid(g, "dot_attention_logits")
     kj = to_src_space(g, kj)
     if _kernel_route(kj):
         return sddmm(g, qi, kj)
-    return (gather(qi, g.receivers) * gather(kj, g.senders)).sum(-1)
+    work = _work_dtype(kj.dtype)
+    return (gather(qi.to(work), g.receivers)
+            * gather(kj.to(work), g.senders)).sum(-1).to(kj.dtype)
 
 
 def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,

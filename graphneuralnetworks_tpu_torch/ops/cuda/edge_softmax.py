@@ -41,16 +41,21 @@ K2 for all heads), :func:`gat_attention_nodes` (backward K4 and K5),
 :func:`dot_attention_nodes` (forward K6, backward K7 and K8).
 
 Mixed precision: K3, K4 and K5 also take bfloat16 node values, ``dy``
-and ``pi``/``pj``, with the softmax state (``m``, ``s``; ``mx``, ``den``,
-``s_n``) in float32, as the TPU kernels keep it: every sum is float32 and
-each bfloat16 output (``num``, ``dpi``, ``dpj``, ``dv``) is rounded once,
-in its primal's type; :func:`finalize_softmax` returns ``num``'s type. The
-plain versions compute bfloat16 inputs the same way. Every other kernel
-here raises ``TypeError`` on bfloat16.
+and ``pi``/``pj``, and K12 bfloat16 logits, mask and values, with the
+softmax state (``m``, ``s``; ``mx``, ``den``, ``s_n``) in float32, as the
+TPU kernels keep it: every sum is float32 and each bfloat16 output
+(``num``, ``dpi``, ``dpj``, ``dv``) is rounded once, in its primal's type;
+:func:`finalize_softmax` returns ``num``'s type. K12's node-values
+backward hands K2 the attention weights ``mask * alpha`` rounded to the
+values' type, as JAX's scatter casts them (``edge_softmax.py:1756-1790``),
+and every gradient comes back in its primal's type. The plain versions
+compute bfloat16 inputs the same way. GATv2's K9-K11 and dot attention's
+K6-K8 raise ``TypeError`` on bfloat16.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``*_plain``); a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches (``k3_bf16``, ...: the bfloat16 variants), and
+counts kernel launches (``k3_bf16``, ``k12_bf16``, ...: the bfloat16
+variants), and
 nothing else adds to it. leaky_relu's slope at
 ``raw == 0`` is 1, as ``jax.nn.leaky_relu`` differentiates it.
 """
@@ -82,15 +87,16 @@ __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
 
 launches = {"k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0, "k9": 0,
             "k10": 0, "k11": 0, "k12": 0, "k3_bf16": 0, "k4_bf16": 0,
-            "k5_bf16": 0}
+            "k5_bf16": 0, "k12_bf16": 0}
 
 _NEG_INF = float("-inf")
 # The GATv2 and dot kernels hold a row in at most 8 register chunks of 32
 # vectors per lane (csrc/edge_softmax.cu): float4 vectors when the widths
 # are multiples of 4 and the row operands 16-byte aligned.
 _MAX_VECTORS = 256
-# K3, K4 and K5 on bfloat16 rows hold one register chunk (csrc/edge_softmax.cu
-# with_row_instances): wider rows take passes of 32 vectors (256 values).
+# K3, K4, K5 and K12 on bfloat16 rows hold one register chunk
+# (csrc/edge_softmax.cu with_row_instances): wider rows take passes of 32
+# vectors (256 values).
 _BF16_MAX_VECTORS = 32
 
 # The dot kernels' layouts (csrc/edge_softmax.cu), from chip_smoke.py
@@ -177,6 +183,7 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
     lib = load("edge_softmax", sweep=sweep)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, n_ptr, n_int, n_f32 in (("edge_softmax_f32", 8, 7, 0),
+                                    ("edge_softmax_bf16", 8, 7, 0),
                                     ("gat_softmax_f32", 8, 7, 1),
                                     ("gat_bwd_dpi_f32", 10, 7, 1),
                                     ("gat_bwd_rev_f32", 12, 6, 1),
@@ -259,10 +266,16 @@ def edge_softmax_plain(indptr, col, logits, mask, values):
     ``s[i] = sum_e exp(lg_e - m[i])`` and ``num[i] = sum_e exp(lg_e - m[i])
     * mask_e * v_e`` with ``v_e = values[col[e]]`` (node values) or
     ``values[e]`` (``col=None``, edge values); ``mask=None`` is all ones.
+    bfloat16 inputs as the kernel takes them: ``m``, ``s`` and the sums in
+    float32 from the widened values, ``num`` rounded once to bfloat16.
     """
     rows = _row_ids(indptr, logits.shape[0])
+    work = _work_dtype(values.dtype)
     v_e = values if col is None else values.index_select(0, col.long())
-    return _softmax_sums(rows, indptr.numel() - 1, logits, mask, v_e)
+    num, m, s = _softmax_sums(rows, indptr.numel() - 1, logits.to(work),
+                              None if mask is None else mask.to(work),
+                              v_e.to(work))
+    return num.to(values.dtype), m, s
 
 
 def gat_softmax_plain(indptr, col, pi, pj, values_n, slope):
@@ -437,7 +450,7 @@ def dot_bwd_rev_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
 def _check_launch(indptr, col, scalars, rows3, values3=None, state=None,
                   bf16=False) -> torch.device:
     """``[rows, H]`` scalars and ``[rows, H, D]`` rows of one float type,
-    float32 or, with ``bf16`` (K3, K4 and K5), bfloat16 (a mix raises
+    float32 or, with ``bf16`` (K3, K4, K5 and K12), bfloat16 (a mix raises
     ``TypeError``, as does bfloat16 without ``bf16``); the float32 softmax
     state ``state`` ``[rows, H]``; int32 CSR; all contiguous on one card,
     with one H and one D. ``values3``: rows of a width of their own (dot
@@ -491,16 +504,17 @@ def _forward_outputs(n, heads, d, device, dtype=torch.float32):
 
 
 def _edge_softmax_layout(dv: int, vec_bytes: int, n_rows: int, entries: int,
-                         node_values: bool) -> tuple[int, int, int, int]:
+                         node_values: bool, max_vectors: int = _MAX_VECTORS
+                         ) -> tuple[int, int, int, int]:
     """K12's ``(log_rows, unroll, reg_cap, interleave)`` for a head of
-    ``dv`` vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
-    n_rows`` edges per receiver on average, with node values or edge
-    values: :func:`_windowed_rows` of ``G``-lane edge groups at
-    ``_K12_WINDOWS_PER_ROW`` (rows wider than 256 vectors go in passes of
-    256, groups of 32 lanes), :func:`_rows_instance` of ``_K12_ROWS_LINE``
-    and ``_K12_ROWS_NARROW``, and the heads interleaved in the grid for
-    edge values only."""
-    wide = min(max(dv, 1), _MAX_VECTORS)
+    ``dv`` vectors of ``vec_bytes`` (:func:`~.spmm._row_vectors`: 16, 8, 4
+    or 2) and ``entries / n_rows`` edges per receiver on average, with node
+    values or edge values: :func:`_windowed_rows` of ``G``-lane edge groups
+    at ``_K12_WINDOWS_PER_ROW`` (rows wider than ``max_vectors`` go in
+    passes of that many, groups of 32 lanes), :func:`_rows_instance` of
+    ``_K12_ROWS_LINE`` and ``_K12_ROWS_NARROW``, and the heads interleaved
+    in the grid for edge values only."""
+    wide = min(max(dv, 1), max_vectors)
     log_g = min((wide - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K12_WINDOWS_PER_ROW)
     return ((log_rows,) + _rows_instance(wide, vec_bytes << log_g,
@@ -512,23 +526,24 @@ def _edge_softmax_kernel(indptr, col, logits, mask, values, layout=None):
     """K12 at :func:`_edge_softmax_layout`'s layout, or at ``layout``
     (``(log_rows, unroll, reg_cap, interleave)``) from the sweep build of
     the library, which holds every (unroll, reg_cap) instance
-    (``build.load``)."""
+    (``build.load``). bfloat16 logits, mask and values take
+    ``edge_softmax_bf16``, ``num`` in bfloat16."""
     device = _check_launch(indptr, col, {"logits": logits, "mask": mask},
-                           {"values": values})
+                           {"values": values}, bf16=True)
     n, (_, heads, d) = indptr.numel() - 1, values.shape
     n_edges = col.numel() if col is not None else values.shape[0]
     _same_rows(n_edges, logits=logits, mask=mask)
-    num, m, s = _forward_outputs(n, heads, d, device)
+    num, m, s = _forward_outputs(n, heads, d, device, values.dtype)
     if n == 0 or heads == 0:
         return num, m, s
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(d, values, num)
-        layout = _edge_softmax_layout(_vectors(d, vec), 16 if vec else 4, n,
-                                      n_edges, col is not None)
-    _launch("edge_softmax_f32", "k12", device, _ptr(indptr), _ptr(col),
-            _ptr(logits), _ptr(mask), _ptr(values), _ptr(num), _ptr(m),
-            _ptr(s), n, heads, d, *layout, sweep=sweep)
+        layout = _edge_softmax_layout(
+            *_row_vectors(d, values.element_size(), values, num), n, n_edges,
+            col is not None, _max_vectors(values))
+    _launch(*_gat_fn("edge_softmax", "k12", values), device, _ptr(indptr),
+            _ptr(col), _ptr(logits), _ptr(mask), _ptr(values), _ptr(num),
+            _ptr(m), _ptr(s), n, heads, d, *layout, sweep=sweep)
     return num, m, s
 
 
@@ -575,16 +590,17 @@ def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope, layout=None):
 
 
 def _gat_fn(fn: str, key: str, values: torch.Tensor) -> tuple[str, str]:
-    """The library function ``fn`` of a GAT kernel and its launch counter
-    ``key`` for ``values``' type."""
+    """The library function ``fn`` of a kernel with a bfloat16 variant
+    (K3, K4, K5, K12) and its launch counter ``key`` for ``values``'
+    type."""
     if values.dtype == torch.bfloat16:
         return f"{fn}_bf16", f"{key}_bf16"
     return f"{fn}_f32", key
 
 
 def _max_vectors(values: torch.Tensor) -> int:
-    """The widest row, in vectors, the GAT kernels hold in registers for
-    ``values``' type (wider rows take passes)."""
+    """The widest row, in vectors, the GAT kernels and K12 hold in
+    registers for ``values``' type (wider rows take passes)."""
     return (_BF16_MAX_VECTORS if values.dtype == torch.bfloat16
             else _MAX_VECTORS)
 
@@ -1145,7 +1161,8 @@ def _edge_alpha(logits, mask_e, mx, den, receivers):
 
 class EdgeSoftmaxFunction(torch.autograd.Function):
     """Softmax over in-edges and sum of EDGE values; K12 forward, eager
-    backward (edge_softmax.py:182-212)."""
+    backward (edge_softmax.py:182-212): the attention weights in float32
+    against the float32 state, each gradient in its primal's type."""
 
     @staticmethod
     def forward(ctx, logits, values, self_logits, self_values, mask_e,
@@ -1170,15 +1187,19 @@ class EdgeSoftmaxFunction(torch.autograd.Function):
               - alpha * s_n.index_select(0, r))
         dsl, dsv = _self_grads(self_logits, self_values, mask_self, mx, den,
                                s_n, dy)
-        return (dl, m_alpha[..., None] * dy_e, dsl, dsv, None, None, None,
-                None)
+        return (dl.to(logits.dtype),
+                (m_alpha[..., None] * dy_e).to(values.dtype), dsl, dsv, None,
+                None, None, None)
 
 
 class EdgeSoftmaxNodesFunction(torch.autograd.Function):
     """Softmax over in-edges and sum of the senders' NODE values; K12
     forward. Backward: one K2 sweep over the sender CSR, every head in one
     launch, with ``w = mask * alpha`` gives both ``dv`` and the per-edge
-    ``<v[s_e], dy[r_e]>`` of the logit gradient (edge_softmax.py:1756)."""
+    ``<v[s_e], dy[r_e]>`` of the logit gradient (edge_softmax.py:1756). The
+    weights reach K2 in the values' type, as JAX's scatter casts them
+    (``spmm.py:327``), so bfloat16 values take K2's bfloat16 variant; the
+    logit gradient is taken in float32 and returned in the logits' type."""
 
     @staticmethod
     def forward(ctx, logits, values_n, self_logits, self_values, mask_e,
@@ -1199,13 +1220,13 @@ class EdgeSoftmaxNodesFunction(torch.autograd.Function):
         (logits, values_n, self_logits, self_values, mask_e, mask_self, out,
          mx, den, indptr_s, col_s, eid_s, r) = ctx.saved_tensors
         alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r)
-        dy, m_alpha = _contiguous(dy, m_alpha)
+        dy, w = _contiguous(dy, m_alpha.to(values_n.dtype))
         s_n = (out * dy).sum(-1)
-        dv, dots = spmm_sddmm(indptr_s, col_s, eid_s, m_alpha, dy, values_n)
+        dv, dots = spmm_sddmm(indptr_s, col_s, eid_s, w, dy, values_n)
         dl = m_alpha * dots - alpha * s_n.index_select(0, r)
         dsl, dsv = _self_grads(self_logits, self_values, mask_self, mx, den,
                                s_n, dy)
-        return (dl, dv, dsl, dsv) + (None,) * 8
+        return (dl.to(logits.dtype), dv, dsl, dsv) + (None,) * 8
 
 
 class GatAttentionFunction(torch.autograd.Function):

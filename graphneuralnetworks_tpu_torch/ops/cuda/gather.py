@@ -9,9 +9,9 @@ edge ids are CSR positions, rows read in order) and the sender CSR for
 the gradient is summed in a fixed order within one warp (several narrow
 rows share a warp), with no atomics.
 
-On the card the backward takes float32 only: a bfloat16 ``dy`` raises
-``TypeError`` (K1 over edge rows is not among the bfloat16 routes yet;
-ROADMAP.md queue 1), where a CPU tensor takes the plain version.
+A bfloat16 ``dy`` takes K1's bfloat16 variant (``spmm_csr_bf16``: float32
+sums, each node row rounded once), as JAX's ``_fg_bwd`` runs its scatter
+kernel in ``dy``'s type.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .spmm import _BF16_NOT_PORTED, spmm_csr
+from .spmm import spmm_csr
 
 __all__ = ["fast_gather"]
 
@@ -35,10 +35,8 @@ class _GatherFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         indptr, col = ctx.saved_tensors
-        if dy.is_cuda and dy.dtype == torch.bfloat16:
-            raise TypeError("fast_gather's backward on the card (K1 over "
-                            f"edge rows) takes float32: {_BF16_NOT_PORTED}")
-        return spmm_csr(indptr, col, None, None, dy.contiguous()), None, None, None
+        return (spmm_csr(indptr, col, None, None, dy.contiguous()), None,
+                None, None)
 
 
 def fast_gather(x: torch.Tensor, idx: torch.Tensor, indptr: torch.Tensor,

@@ -16,9 +16,15 @@ Its gradient is two weighted SpMMs on K1 (sddmm.py:143-155): ``dxi[r] =
 sum_{e -> r} dl_e xj[s_e]`` over the receiver CSR and ``dxj[s] = sum_{e:
 s_e = s} dl_e xi[r_e]`` over the sender CSR, once per head.
 
+bfloat16 rows take ``sddmm_csr_bf16``: each dot summed in float32 from the
+widened values and rounded once to bfloat16, as the TPU kernel rounds its
+f32 sum of a lane block; the backward is K1's bfloat16 variant, weighted by
+the bfloat16 ``dl``. The plain version computes bfloat16 the same way.
+
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``sddmm_plain``); a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches, and nothing else adds to it. Unlike
+``launches`` counts kernel launches (``k13_bf16``: the bfloat16 variant),
+and nothing else adds to it. Unlike
 the JAX package, which takes its kernel only at widths above 256, the card
 takes K13 at every width.
 """
@@ -33,13 +39,17 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .build import load
-from .edge_softmax import _float4_rows, _rows, _senders
+from .edge_softmax import _rows, _senders
 from .spmm import (_call_on, _check, _ptr, _raise_on_error, _route, _row_ids,
-                   spmm_csr)
+                   _row_vectors, _work_dtype, spmm_csr)
 
 __all__ = ["launches", "sddmm_csr", "sddmm_plain", "SddmmFunction", "sddmm"]
 
-launches = {"k13": 0}
+launches = {"k13": 0, "k13_bf16": 0}
+
+# K13 holds a chunk of 32 vectors a lane; the chunks of a wider row launch
+# in turn (csrc/sddmm.cu)
+_CHUNK_VECTORS = 32
 
 
 @functools.cache
@@ -48,6 +58,8 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sddmm_csr_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.sddmm_csr_f32.restype = i32
+    lib.sddmm_csr_bf16.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.sddmm_csr_bf16.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -56,17 +68,26 @@ def _lib() -> ctypes.CDLL:
 def sddmm_plain(indptr, col, xi, xj):
     """K13's function over the receiver CSR: ``out[e] = <xi[r_e], xj[col_e]>``
     per head, ``xi [n, H, D]`` and ``xj [N_src, H, D]`` -> ``[E, H]`` in CSR
-    (edge) order."""
+    (edge) order. bfloat16 rows are multiplied and summed in float32 and
+    each dot rounded once."""
     rows = _row_ids(indptr, col.numel())
-    return (xi.index_select(0, rows) * xj.index_select(0, col.long())).sum(-1)
+    work = _work_dtype(xi.dtype)
+    return (xi.to(work).index_select(0, rows)
+            * xj.to(work).index_select(0, col.long())).sum(-1).to(xi.dtype)
 
 
 def _sddmm_kernel(indptr, col, xi, xj):
-    device = xi.device
+    """K13: ``sddmm_csr_f32``, or ``sddmm_csr_bf16`` for bfloat16 ``xi``
+    and ``xj`` (a mix raises ``TypeError``), with a float32 ``[E, H]``
+    scratch for the partial dots where a row spans several chunks."""
+    device, dtype = xi.device, xi.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the K13 kernel takes float32 or bfloat16 rows, got "
+                        f"{dtype}")
     _check(indptr, "indptr", torch.int32, device)
     _check(col, "col", torch.int32, device)
     for name, t in (("xi", xi), ("xj", xj)):
-        _check(t, name, torch.float32, device)
+        _check(t, name, dtype, device)
         if t.dim() != 3:
             raise ValueError(f"{name} must be [rows, H, D], got "
                              f"{tuple(t.shape)}")
@@ -82,11 +103,21 @@ def _sddmm_kernel(indptr, col, xi, xj):
     if d == 0:
         return out.zero_()
     lib = _lib()
-    code = _call_on(device, lib.sddmm_csr_f32, _ptr(indptr), _ptr(col),
-                    _ptr(xi), _ptr(xj), _ptr(out), n, heads, d,
-                    int(_float4_rows(d, xi, xj)))
-    _raise_on_error(lib, code, "sddmm_csr_f32")
-    launches["k13"] += 1
+    fv, vec_bytes = _row_vectors(d, xi.element_size(), xi, xj)
+    if dtype == torch.bfloat16:
+        acc = (torch.empty(out.shape, dtype=torch.float32, device=device)
+               if fv > _CHUNK_VECTORS else None)
+        code = _call_on(device, lib.sddmm_csr_bf16, _ptr(indptr), _ptr(col),
+                        _ptr(xi), _ptr(xj), _ptr(out), _ptr(acc), n, heads,
+                        d, vec_bytes)
+        fn, key = "sddmm_csr_bf16", "k13_bf16"
+    else:
+        code = _call_on(device, lib.sddmm_csr_f32, _ptr(indptr), _ptr(col),
+                        _ptr(xi), _ptr(xj), _ptr(out), n, heads, d,
+                        vec_bytes)
+        fn, key = "sddmm_csr_f32", "k13"
+    launches[key] += 1
+    _raise_on_error(lib, code, fn)
     return out
 
 
@@ -100,7 +131,9 @@ def sddmm_csr(indptr, col, xi, xj):
 class SddmmFunction(torch.autograd.Function):
     """``out[e, h] = <xi[r_e, h], xj[s_e, h]>`` for ``xi [n, H, D]``, ``xj
     [N_src, H, D]``: K13 forward; backward K1 over the receiver CSR for
-    ``dxi`` and over the sender CSR for ``dxj``, per head."""
+    ``dxi`` and over the sender CSR for ``dxj``, per head, in the rows'
+    type (bfloat16 rows: K1's bfloat16 variant, weighted by the bfloat16
+    ``dl``)."""
 
     @staticmethod
     def forward(ctx, xi, xj, indptr_r, col_r, indptr_s, col_s, eid_s):

@@ -13,14 +13,21 @@ rows of the data (``csrc/segment.cu``):
   for a row without entries, NaN where an entry is NaN.
 - its backward ``segment_max_bwd_csr``: the cotangent of each output split
   evenly over the entries that equal it (ties), 0 for the others. JAX's
-  K14 has no gradient of its own; this is the gradient JAX and PyTorch give
-  their segment max, without the two ``[rows, F]`` gathers of ``out`` and
-  ``dy`` an eager backward needs.
+  K14 has no gradient of its own; this is the gradient JAX gives its
+  segment max (``ops.segment.extreme_grad``: in bfloat16 the tie count
+  stops at 256, as JAX's scatter-add of ones does), without the two
+  ``[rows, F]`` gathers of ``out`` and ``dy`` an eager backward needs.
+
+Both take float32 or bfloat16 (``*_bf16``; every operand of one type, a
+mix raises ``TypeError``): a max or min of bfloat16 values is exact, and
+the backward's share ``dy / count`` is divided in float32 and rounded once,
+the bits of the plain version's bfloat16 division.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``*_plain``, the port's ``ops.segment`` reductions over ids expanded from
 ``indptr``); a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches, and nothing else adds to it.
+counts kernel launches (``k14_bf16``, ``k14_bwd_bf16``: the bfloat16
+variants), and nothing else adds to it.
 """
 
 from __future__ import annotations
@@ -34,15 +41,14 @@ from torch.autograd.function import once_differentiable
 
 from .. import segment as _segment
 from .build import load
-from .edge_softmax import _float4_rows
 from .spmm import (_INT32_MAX, _call_on, _check, _ptr, _raise_on_error,
-                   _route, _row_ids)
+                   _route, _row_ids, _row_vectors)
 
 __all__ = ["launches", "segment_max_csr", "segment_min_csr",
            "segment_max_bwd_csr", "segment_max_plain", "segment_min_plain",
            "segment_max_bwd_plain", "SegmentMaxFunction"]
 
-launches = {"k14": 0, "k14_bwd": 0}
+launches = {"k14": 0, "k14_bwd": 0, "k14_bf16": 0, "k14_bwd_bf16": 0}
 
 
 # Entries of a row that each edge group of K14 walks at least, on average,
@@ -57,10 +63,13 @@ _BWD_ENTRIES_PER_GROUP = 2
 def _lib() -> ctypes.CDLL:
     lib = load("segment")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.segment_max_csr_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-    lib.segment_max_csr_f32.restype = i32
-    lib.segment_max_bwd_csr_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-    lib.segment_max_bwd_csr_f32.restype = i32
+    for sfx in ("f32", "bf16"):
+        fwd = getattr(lib, f"segment_max_csr_{sfx}")
+        fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        fwd.restype = i32
+        bwd = getattr(lib, f"segment_max_bwd_csr_{sfx}")
+        bwd.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        bwd.restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,24 +97,30 @@ def segment_min_plain(indptr, data):
 def segment_max_bwd_plain(indptr, data, out, dy):
     """``ddata[e] = dy[r] * (data[e] == out[r]) / count`` for entry ``e`` of
     row ``r``, ``count`` the entries of the row equal to ``out[r]`` (0 where
-    there are none: a NaN output)."""
-    rows = _row_ids(indptr, data.shape[0])
-    hit = data == out.index_select(0, rows)
-    count = torch.zeros_like(out).index_add_(0, rows, hit.to(out.dtype))
-    share = dy / count.clamp(min=1)
-    return torch.where(hit, share.index_select(0, rows), 0)
+    there are none: a NaN output), at most 256 in bfloat16 as JAX counts
+    (``ops.segment.extreme_grad``). In bfloat16 the share is one bfloat16
+    division, rounded once."""
+    return _segment.extreme_grad(data, out, _row_ids(indptr, data.shape[0]),
+                                 dy)
 
 
 # ---- kernel wrappers -------------------------------------------------------
 
-def _check_launch(indptr, *dense) -> None:
-    device = dense[0].device
+def _check_launch(indptr, *dense) -> bool:
+    """K14's operands: ``dense`` of one float type, float32 or bfloat16 (a
+    mix raises ``TypeError``), int32 ``indptr``, all contiguous on one
+    device. Returns whether they are bfloat16."""
+    device, dtype = dense[0].device, dense[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the K14 kernels take float32 or bfloat16, got "
+                        f"{dtype}")
     _check(indptr, "indptr", torch.int32, device)
     for i, t in enumerate(dense):
-        _check(t, f"dense operand {i}", torch.float32, device)
+        _check(t, f"dense operand {i}", dtype, device)
     if dense[0].shape[0] > _INT32_MAX:
         raise ValueError("the CUDA kernels index entries with int32: at most "
                          f"{_INT32_MAX} rows of data")
+    return dtype == torch.bfloat16
 
 
 def _rows_per_warp(fv: int, n_rows: int, entries: int,
@@ -127,27 +142,28 @@ def _rows_per_warp(fv: int, n_rows: int, entries: int,
 
 
 def _segment_extreme_kernel(op_min: bool, indptr, data, log_rows=None):
-    _check_launch(indptr, data)
+    bf16 = _check_launch(indptr, data)
     n_rows = indptr.numel() - 1
     out = data.new_empty((n_rows, *data.shape[1:]))
     f = math.prod(data.shape[1:])
     if n_rows == 0 or f == 0:
         return out
-    vec = _float4_rows(f, data, out)
+    fv, vec_bytes = _row_vectors(f, data.element_size(), data, out)
     if log_rows is None:
-        log_rows = _rows_per_warp(f // 4 if vec else f, n_rows,
-                                  data.shape[0], _FWD_ENTRIES_PER_GROUP)
+        log_rows = _rows_per_warp(fv, n_rows, data.shape[0],
+                                  _FWD_ENTRIES_PER_GROUP)
     lib = _lib()
-    code = _call_on(data.device, lib.segment_max_csr_f32, _ptr(indptr),
-                    _ptr(data), _ptr(out), n_rows, f, int(op_min), int(vec),
-                    log_rows)
-    _raise_on_error(lib, code, "segment_max_csr_f32")
-    launches["k14"] += 1
+    fn = f"segment_max_csr_{'bf16' if bf16 else 'f32'}"
+    code = _call_on(data.device, getattr(lib, fn), _ptr(indptr), _ptr(data),
+                    _ptr(out), n_rows, f, int(op_min),
+                    vec_bytes, log_rows)
+    _raise_on_error(lib, code, fn)
+    launches["k14_bf16" if bf16 else "k14"] += 1
     return out
 
 
 def _segment_max_bwd_kernel(indptr, data, out, dy, log_rows=None):
-    _check_launch(indptr, data, out, dy)
+    bf16 = _check_launch(indptr, data, out, dy)
     n_rows = indptr.numel() - 1
     if out.shape != dy.shape or out.shape[1:] != data.shape[1:] \
             or out.shape[0] != n_rows:
@@ -158,16 +174,18 @@ def _segment_max_bwd_kernel(indptr, data, out, dy, log_rows=None):
     f = math.prod(data.shape[1:])
     if n_rows == 0 or f == 0 or data.shape[0] == 0:
         return ddata.zero_()
-    vec = _float4_rows(f, data, out, dy, ddata)
+    fv, vec_bytes = _row_vectors(f, data.element_size(), data, out, dy,
+                                 ddata)
     if log_rows is None:
-        log_rows = _rows_per_warp(f // 4 if vec else f, n_rows,
-                                  data.shape[0], _BWD_ENTRIES_PER_GROUP)
+        log_rows = _rows_per_warp(fv, n_rows, data.shape[0],
+                                  _BWD_ENTRIES_PER_GROUP)
     lib = _lib()
-    code = _call_on(data.device, lib.segment_max_bwd_csr_f32, _ptr(indptr),
-                    _ptr(data), _ptr(out), _ptr(dy), _ptr(ddata), n_rows, f,
-                    int(vec), log_rows)
-    _raise_on_error(lib, code, "segment_max_bwd_csr_f32")
-    launches["k14_bwd"] += 1
+    fn = f"segment_max_bwd_csr_{'bf16' if bf16 else 'f32'}"
+    code = _call_on(data.device, getattr(lib, fn), _ptr(indptr), _ptr(data),
+                    _ptr(out), _ptr(dy), _ptr(ddata), n_rows, f,
+                    vec_bytes, log_rows)
+    _raise_on_error(lib, code, fn)
+    launches["k14_bwd_bf16" if bf16 else "k14_bwd"] += 1
     return ddata
 
 

@@ -18,17 +18,18 @@ their rows (``csrc/spmm.cu``):
   heads go through scratch by sender-CSR position, and a pass after the
   sweep adds them and writes them by edge id.
 
-K1 takes float32 or bfloat16 rows (``x``, ``w`` and ``y`` of one type):
-bfloat16 rows are loaded 8, 4 or 1 to a vector, summed in float32 and
-rounded once (``csrc/vec.cuh``), as the TPU kernel sums each block with an
-f32 dot. K2 takes float32 only and raises ``TypeError`` on bfloat16. The
-plain versions take bfloat16 the same way: computed in float32 from the
-bfloat16 values, rounded once at the end.
+Both take float32 or bfloat16 operands of one type (K1's ``x``, ``w`` and
+``y``; K2's ``dy``, ``x``, ``w``, ``dx`` and ``dw``): bfloat16 rows are
+loaded 8, 4 or 1 to a vector, summed in float32 and each output rounded
+once (``csrc/vec.cuh``), as the TPU kernels sum each block with an f32 dot.
+K2's scratch of per-strip dots stays float32. The plain versions take
+bfloat16 the same way: computed in float32 from the bfloat16 values,
+rounded once at the end.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``spmm_plain`` / ``spmm_sddmm_plain``); a CUDA tensor launches the kernel
 or raises. ``launches`` counts kernel launches, and nothing else adds to it
-(``k1_bf16``: K1's bfloat16 variant).
+(``k1_bf16``, ``k2_bf16``: the bfloat16 variants).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from .build import load
 __all__ = ["launches", "spmm_csr", "spmm_sddmm", "spmm_plain",
            "spmm_sddmm_plain", "SpmmFunction", "spmm"]
 
-launches = {"k1": 0, "k2": 0, "k1_bf16": 0}
+launches = {"k1": 0, "k2": 0, "k1_bf16": 0, "k2_bf16": 0}
 
 _INT32_MAX = 2**31 - 1
 
@@ -79,8 +80,9 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
     for fn in ("spmm_csr_f32", "spmm_csr_bf16"):
         getattr(lib, fn).argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
         getattr(lib, fn).restype = i32
-    lib.spmm_sddmm_csr_f32.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
-    lib.spmm_sddmm_csr_f32.restype = i32
+    for fn in ("spmm_sddmm_csr_f32", "spmm_sddmm_csr_bf16"):
+        getattr(lib, fn).argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
+        getattr(lib, fn).restype = i32
     lib.gnn_cuda_error_string.argtypes = [i32]
     lib.gnn_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -198,9 +200,9 @@ def _raise_on_error(lib, code: int, what: str) -> None:
 
 
 # Where a float32-only kernel meets bfloat16
-_BF16_NOT_PORTED = ("bfloat16 runs on K1 and on GAT's K3, K4 and K5 only; "
-                    "this kernel's bfloat16 variant is not ported yet "
-                    "(ROADMAP.md queue 1 item 2b)")
+_BF16_NOT_PORTED = ("bfloat16 runs on K1-K5 and K12-K14; the bfloat16 "
+                    "variants of GATv2's K9-K11 and dot attention's K6-K8 "
+                    "are not ported yet (ROADMAP.md queue 2)")
 
 
 def _check(t, name: str, dtype, device) -> None:
@@ -312,27 +314,30 @@ def _spmm_csr_kernel(indptr, col, eid, w, x, layout=None):
     if layout is None:
         n_edges = col.numel() if col is not None else x.shape[0]
         layout = _spmm_layout(fv, vec_bytes, x.shape[0], n_rows, n_edges)
-    # the float32 library takes whether rows are float4, the bfloat16 one
-    # the vector's bytes
     fn = "spmm_csr_bf16" if bf16 else "spmm_csr_f32"
     code = _call_on(x.device, getattr(lib, fn), _ptr(indptr), _ptr(col),
                     _ptr(eid), _ptr(w), _ptr(x), _ptr(y), n_rows, d,
-                    vec_bytes if bf16 else int(vec_bytes == 16), *layout)
+                    vec_bytes, *layout)
     launches["k1_bf16" if bf16 else "k1"] += 1
     _raise_on_error(lib, code, fn)
     return y
 
 
 def _check_sddmm(indptr, col, eid, w, dy, x) -> int:
-    """K2's operands: float32 rows ``dy``, ``x`` of one shape past the first
+    """K2's operands: rows ``dy``, ``x`` of one shape past the first
     dimension, ``[., D]`` or ``[., H, D]``; ``w`` ``[E]`` or ``[E, H]`` to
-    match, or None; int32 CSR; all contiguous on one device. Returns H."""
-    device = x.device
+    match, or None; ``dy``, ``x`` and ``w`` of one float type, float32 or
+    bfloat16 (a mix raises ``TypeError``); int32 CSR; all contiguous on one
+    device. Returns H."""
+    device, dtype = x.device, x.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the K2 kernel takes float32 or bfloat16 rows, got "
+                        f"{dtype}")
     if x.dim() not in (2, 3) or dy.shape[1:] != x.shape[1:]:
         raise ValueError(f"dy {tuple(dy.shape)} and x {tuple(x.shape)} must "
                          "be [rows, D] or [rows, H, D] alike")
     for name, t in (("dy", dy), ("x", x), ("w", w)):
-        _check(t, name, torch.float32, device)
+        _check(t, name, dtype, device)
     for name, t in (("indptr", indptr), ("col", col), ("eid", eid)):
         _check(t, name, torch.int32, device)
     if w is not None and w.shape != (col.numel(),) + x.shape[1:-1]:
@@ -348,38 +353,41 @@ def _spmm_sddmm_kernel(indptr, col, eid, w, dy, x, layout=None):
     """K2 at :func:`_spmm_sddmm_layout`'s layout, or at ``layout``
     (``(log_rows, log_strip, unroll, reg_cap, by_position)``) from the sweep
     build of the library, which holds every (unroll, reg_cap) instance
-    (``build.load``). Scratch: by position, ``H * strips * E`` floats for
-    the dots of every strip and ``H * E`` for the weights; else the dots'
-    where a head spans several strips."""
+    (``build.load``). Scratch (float32): by position, ``H * strips * E``
+    floats for the dots of every strip and ``H * E`` for the weights (the
+    bfloat16 ones take half of it); else the dots' where a head spans
+    several strips. bfloat16 rows take ``spmm_sddmm_csr_bf16``: ``dx`` and
+    ``dw`` in bfloat16, each rounded once from its float32 sum."""
     heads = _check_sddmm(indptr, col, eid, w, dy, x)
     n_rows, d, n_edges = indptr.numel() - 1, x.shape[-1], col.numel()
     if x.shape[0] != n_rows:
         raise ValueError(f"x {tuple(x.shape)} does not match a sender CSR "
                          f"of {n_rows} rows")
     dx = torch.empty_like(x)
-    dw = torch.empty((n_edges,) + x.shape[1:-1], dtype=torch.float32,
+    dw = torch.empty((n_edges,) + x.shape[1:-1], dtype=x.dtype,
                      device=x.device)
     if n_rows == 0 or n_edges == 0 or heads == 0:
         return dx.zero_(), dw
     if d == 0:
         return dx, dw.zero_()
-    vec = _float4_rows(d, dy, x, dx)
-    fv = d // 4 if vec else d
+    bf16 = x.dtype == torch.bfloat16
+    fv, vec_bytes = _row_vectors(d, x.element_size(), dy, x, dx)
     lib = _lib(sweep=layout is not None)
     if layout is None:
-        layout = _spmm_sddmm_layout(fv, 16 if vec else 4, dy.shape[0], n_rows,
+        layout = _spmm_sddmm_layout(fv, vec_bytes, dy.shape[0], n_rows,
                                     n_edges, heads)
     strips = -(-fv >> layout[1])
     parts = (strips + (w is not None) if layout[4] else
              strips if strips > 1 else 0)
     scratch = (torch.empty(heads * parts * n_edges, dtype=torch.float32,
                            device=x.device) if parts else None)
-    code = _call_on(x.device, lib.spmm_sddmm_csr_f32, _ptr(indptr),
-                    _ptr(col), _ptr(eid), _ptr(w), _ptr(dy), _ptr(x),
-                    _ptr(dx), _ptr(dw), _ptr(scratch), n_rows, heads, d,
-                    n_edges, int(vec), *layout)
-    launches["k2"] += 1
-    _raise_on_error(lib, code, "spmm_sddmm_csr_f32")
+    fn = "spmm_sddmm_csr_bf16" if bf16 else "spmm_sddmm_csr_f32"
+    code = _call_on(x.device, getattr(lib, fn), _ptr(indptr), _ptr(col),
+                    _ptr(eid), _ptr(w), _ptr(dy), _ptr(x), _ptr(dx),
+                    _ptr(dw), _ptr(scratch), n_rows, heads, d, n_edges,
+                    vec_bytes, *layout)
+    launches["k2_bf16" if bf16 else "k2"] += 1
+    _raise_on_error(lib, code, fn)
     return dx, dw
 
 
@@ -400,8 +408,7 @@ def spmm_sddmm(indptr, col, eid, w, dy, x):
     """K2 on CUDA tensors, :func:`spmm_sddmm_plain` on CPU tensors: ``(dx,
     dw)`` over a sender CSR, for rows ``dy``, ``x`` of ``[., D]`` (``w``,
     ``dw``: ``[E]``) or ``[., H, D]`` (``[E, H]``, every head in one
-    launch). The plain version takes bfloat16 as :func:`spmm_plain` does;
-    the kernel raises on it."""
+    launch). Both take bfloat16 as :func:`spmm_plain` does."""
     if _route(x) == "cpu":
         return spmm_sddmm_plain(indptr, col, eid, w, dy, x)
     return _spmm_sddmm_kernel(indptr, col, eid, w, dy, x)

@@ -13,7 +13,10 @@ order, segment by segment (the receiver grouping of receiver-sorted edges,
 or the graph grouping of a batch). Given one, a CUDA tensor reduces on the
 K14 kernel (``ops/cuda/segment.py``); without one, or on the CPU, the
 reduction is PyTorch's ``scatter_reduce`` over arbitrary ids, as JAX's is
-XLA's.
+XLA's. Their gradient splits a cotangent evenly over an extreme's ties,
+counted as JAX counts them (``extreme_grad``: a bfloat16 count stops at
+256), where PyTorch's own gradient, kept for float32 and float64, counts
+exactly.
 
 Every reduction takes JAX's ``sorted=`` keyword (``indices_are_sorted``,
 a hint to XLA) and ignores it: the results here do not depend on the order
@@ -25,10 +28,12 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .cuda.segment import SegmentMaxFunction
 
-__all__ = ["gather", "count_as", "segment_sum", "segment_mean",
+__all__ = ["gather", "count_as", "extreme_grad", "segment_sum",
+           "segment_mean",
            "segment_max", "segment_min", "segment_prod", "segment_reduce",
            "segment_softmax", "AGGREGATIONS"]
 
@@ -83,6 +88,46 @@ def segment_mean(data, segment_ids, num_segments, *, mask=None,
     return s / cnt.reshape(cnt.shape + (1,) * (s.dim() - 1))
 
 
+def extreme_grad(data, out, segment_ids, dy):
+    """The gradient of a segment max or min ``out`` of ``data``: ``dy`` of
+    each output split evenly over the rows that equal it (ties), 0 for the
+    others and for a NaN output. The ties are counted as :func:`count_as`
+    counts in ``dy``'s type, as JAX's gradient of its segment max counts
+    them (a scatter-add of ones): a bfloat16 count stops at 256. K14's
+    backward kernel computes the same."""
+    hit = data == out.index_select(0, segment_ids)
+    count = torch.zeros(out.shape, dtype=torch.int32,
+                        device=out.device).index_add_(
+        0, segment_ids, hit.to(torch.int32))
+    share = dy / count_as(count, dy.dtype).clamp(min=1)
+    return torch.where(hit, share.index_select(0, segment_ids), 0)
+
+
+class _ScatterExtreme(torch.autograd.Function):
+    """``apply(data, segment_ids, num_segments, op_min)``: PyTorch's
+    ``scatter_reduce`` max (min), ``-inf`` (``+inf``) for an empty segment,
+    with the gradient of :func:`extreme_grad`. Taken for 16-bit floats,
+    whose tie counts stop where JAX's do; PyTorch's own gradient counts
+    them exactly."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, op_min):
+        idx = segment_ids.reshape(segment_ids.shape
+                                  + (1,) * (data.dim() - 1))
+        fill = float("inf") if op_min else float("-inf")
+        out = _out(data, num_segments, fill).scatter_reduce(
+            0, idx.expand_as(data), data, "amin" if op_min else "amax",
+            include_self=False)
+        ctx.save_for_backward(data, out, segment_ids)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        data, out, segment_ids = ctx.saved_tensors
+        return extreme_grad(data, out, segment_ids, dy), None, None, None
+
+
 def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
                      mask=None, empty_value=0.0, indptr=None):
     fill = float("inf") if op_min else float("-inf")
@@ -97,6 +142,8 @@ def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
                          f"{data.shape[0]} rows of data")
     if indptr is not None and _kernel_route(data):
         out = SegmentMaxFunction.apply(data, indptr, op_min)
+    elif data.dtype in (torch.bfloat16, torch.float16):
+        out = _ScatterExtreme.apply(data, segment_ids, num_segments, op_min)
     else:
         idx = segment_ids.reshape(segment_ids.shape
                                   + (1,) * (data.dim() - 1))

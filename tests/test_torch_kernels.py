@@ -1,8 +1,8 @@
 """The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2),
 edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11; dot attention's K6,
 K7, K8), the per-edge dot (K13) and the segment max (K14 and its
-backward); K1, K3, K4 and K5 also on bfloat16, and every other route's
-raise on it.
+backward); K1-K5 and K12-K14 (and K14's backward) also on bfloat16, and
+the raise of the routes that take float32 only (K6-K11).
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
   held to) against a dense adjacency product or per-edge loops in float64.
@@ -1040,7 +1040,7 @@ def test_start_vector_on_card_equals_cpu():
                                    rtol=0, atol=0)
 
 
-# ---- bfloat16: K1, K3, K4, K5 ----------------------------------------------
+# ---- bfloat16: K1-K5, K12-K14 ---------------------------------------------
 
 def _assert_bf16_close(got, want):
     """Kernel and plain version each round one float32 sum to bfloat16;
@@ -1048,8 +1048,8 @@ def _assert_bf16_close(got, want):
     a rounding may land one bfloat16 ulp apart."""
     assert got.dtype == want.dtype == torch.bfloat16
     g, w = got.double().cpu(), want.double().cpu()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        w.abs().clamp(min=torch.finfo(torch.float32).tiny))) - 7)
+    _, e = torch.frexp(w.abs().clamp(min=torch.finfo(torch.float32).tiny))
+    ulp = torch.exp2(e.double() - 8)          # |w| in [2^(e-1), 2^e)
     err = (g - w).abs()
     assert bool((err <= ulp + 1e-4).all()), float((err / (ulp + 1e-4)).max())
 
@@ -1134,33 +1134,202 @@ def test_bf16_kernels_refuse_a_mix_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["K2", "K6-K8", "K9-K11", "K12", "K13",
-                                   "K14", "gather backward"])
+@pytest.mark.parametrize("heads,d", [(1, 7), (1, 12), (1, 8), (1, 128),
+                                     (4, 32), (2, 264)])
+def test_spmm_sddmm_bf16_kernel_matches_plain_on_card(heads, d):
+    """K2 on bfloat16 rows and weights, over the sender CSR: single values
+    (7), 8-byte vectors (12), 16-byte ones (8, 128: two strips of 64
+    values), several heads by sender-CSR position (4, 32; 2, 264: two
+    strips a head), against the plain version; dx and dw in bfloat16, and
+    only K2's bfloat16 variant launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(16, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(heads * 1000 + d)
+    n, ne = g.num_nodes, g.num_edges
+    shape = (n, d) if heads == 1 else (n, heads, d)
+
+    def rn(*sh):
+        return torch.randn(*sh, device="cuda", generator=gen).bfloat16()
+    dy, x = rn(*shape), rn(*shape)
+    w = rn(*((ne,) if heads == 1 else (ne, heads)))
+    before = dict(S.launches)
+    for weights in (w, None):
+        args = (g.indptr_s, g.col_s, g.eid_s, weights, dy, x)
+        for a, b in zip(S.spmm_sddmm(*args), S.spmm_sddmm_plain(*args)):
+            _assert_bf16_close(a, b)
+    torch.cuda.synchronize()
+    assert {k: S.launches[k] - before[k] for k in before
+            if S.launches[k] != before[k]} == {"k2_bf16": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 7), (2, 12), (1, 8), (4, 32),
+                                     (1, 264)])
+def test_edge_softmax_bf16_kernel_matches_plain_on_card(heads, d):
+    """K12 on bfloat16 logits, mask and values with the float32 state:
+    node values with and without the dropout mask, edge values with it;
+    16-byte vectors (8, 32; 264: 33 vectors, two passes), 8-byte ones (12)
+    and single values (7); nodes 40-49 have no in-edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g, x = _attention_inputs(heads, d, "cuda")
+    x = {k: v.bfloat16() for k, v in x.items()}
+    before = dict(ES.launches)
+    for args in ((g.indptr_r, g.col_r, x["lg"], None, x["v"]),
+                 (g.indptr_r, g.col_r, x["lg"], x["mask"], x["v"]),
+                 (g.indptr_r, None, x["lg"], x["mask"], x["ve"])):
+        (num, m, s), (pnum, pm, ps) = (ES.edge_softmax(*args),
+                                       ES.edge_softmax_plain(*args))
+        _assert_bf16_close(num, pnum)
+        for a, b in ((m, pm), (s, ps)):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+        assert torch.isneginf(m[40:]).all() and (num[40:] == 0).all()
+    torch.cuda.synchronize()
+    assert {k: ES.launches[k] - before[k] for k in before
+            if ES.launches[k] != before[k]} == {"k12_bf16": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 7), (1, 12), (1, 128),
+                                     (4, 32), (1, 300), (2, 520)])
+def test_sddmm_bf16_kernel_matches_plain_on_card(heads, d):
+    """K13 on bfloat16 rows against the plain version: single values (1,
+    7), 8-byte vectors (12; 300: 75 vectors, three chunks through the
+    float32 scratch), 16-byte ones (128, 32; 520: 65 vectors, three
+    chunks), one dot rounded once; then its backward (K1 in bfloat16
+    twice) through ``sddmm`` against K1's plain version weighted by the
+    bfloat16 ``dl``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _ragged_graph(17)
+    gen = torch.Generator(device="cuda").manual_seed(heads * 1000 + d)
+    n = g.num_nodes
+    xi, xj = (torch.randn(n, heads, d, device="cuda", generator=gen)
+              .bfloat16() for _ in range(2))
+    before = (dict(SD.launches), dict(S.launches))
+    _assert_bf16_close(SD.sddmm_csr(g.indptr_r, g.col_r, xi, xj),
+                       SD.sddmm_plain(g.indptr_r, g.col_r, xi, xj))
+    dl = torch.randn(g.num_edges, heads, device="cuda",
+                     generator=gen).bfloat16()
+    a, b = xi.clone().requires_grad_(), xj.clone().requires_grad_()
+    SD.sddmm(g, a, b).backward(dl)
+    for h in range(heads):   # K1's plain version, weighted by dl
+        w = dl[:, h].contiguous()
+        _assert_bf16_close(a.grad[:, h], S.spmm_plain(
+            g.indptr_r, g.col_r, None, w, xj[:, h].contiguous()))
+        _assert_bf16_close(b.grad[:, h], S.spmm_plain(
+            g.indptr_s, g.col_s, g.eid_s, w, xi[:, h].contiguous()))
+    torch.cuda.synchronize()
+    assert SD.launches["k13_bf16"] == before[0]["k13_bf16"] + 2
+    assert S.launches["k1_bf16"] == before[1]["k1_bf16"] + 2 * heads
+    assert SD.launches["k13"] == before[0]["k13"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 3, 4, 8, 12, 64, 128, 264])
+def test_segment_max_bf16_kernels_match_plain_on_card(f):
+    """K14 (max, min) and its backward on bfloat16 against the plain
+    versions bit for bit: rows without entries, exact ties, a NaN entry;
+    16-byte vectors (8, 64, 128, 264: 33 vectors, two chunks), 8-byte ones
+    (4, 12) and single values (1, 3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    _, indptr, data, dy = _segment_inputs(f, "cuda", seed=f)
+    data, dy = data.bfloat16(), dy.bfloat16()
+    before = dict(SG.launches)
+    for kernel, plain in ((SG.segment_max_csr, SG.segment_max_plain),
+                          (SG.segment_min_csr, SG.segment_min_plain)):
+        got = kernel(indptr, data)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, plain(indptr, data), rtol=0, atol=0,
+                                   equal_nan=True)
+    out = SG.segment_max_plain(indptr, data)
+    torch.testing.assert_close(SG.segment_max_bwd_csr(indptr, data, out, dy),
+                               SG.segment_max_bwd_plain(indptr, data, out,
+                                                        dy), rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert {k: SG.launches[k] - before[k] for k in before
+            if SG.launches[k] != before[k]} == {"k14_bf16": 2,
+                                                "k14_bwd_bf16": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 4, 8, 128])
+def test_segment_max_bf16_backward_past_256_ties_on_card(f):
+    """K14's bfloat16 backward where a row's maximum ties 300 and 260
+    times: its count stops at 256, as the plain version's and JAX's do
+    (``ops.segment.extreme_grad``), so each tie gets dy / 256, bit for bit;
+    beside them a row of 3 ties, an empty row and a row without ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    indptr = torch.tensor([0, 300, 303, 303, 700, 710], dtype=torch.int32,
+                          device="cuda")
+    data = torch.randn(710, f, device="cuda", generator=gen)
+    data[:300] = 0.5
+    data[300:303] = 2.0
+    data[303:563] = 9.0
+    dy = torch.randn(5, f, device="cuda", generator=gen).bfloat16()
+    data = data.bfloat16()
+    out = SG.segment_max_csr(indptr, data)
+    torch.testing.assert_close(out, SG.segment_max_plain(indptr, data),
+                               rtol=0, atol=0)
+    before = dict(SG.launches)
+    got = SG.segment_max_bwd_csr(indptr, data, out, dy)
+    want = SG.segment_max_bwd_plain(indptr, data, out, dy)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got[:300], (dy[:1] / 256).expand(300, f),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got[303:563], (dy[3:4] / 256).expand(260, f),
+                               rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert SG.launches["k14_bwd_bf16"] == before["k14_bwd_bf16"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [7, 8, 128])
+def test_gather_backward_bf16_on_card(d):
+    """apply_edges' endpoint gathers of a bfloat16 table: each backward is
+    one launch of K1's bfloat16 variant over the edge rows (by receiver,
+    by sender), against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(18, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.randn(g.num_nodes, d, device="cuda", generator=gen).bfloat16()
+    cot = torch.randn(g.num_edges, d, device="cuda", generator=gen).bfloat16()
+    ops = tgnn.ops
+    for msg, indptr, eid in ((ops.copy_xi, g.indptr_r, g.eid_r),
+                             (ops.copy_xj, g.indptr_s, g.eid_s)):
+        before = dict(S.launches)
+        a = x.clone().requires_grad_()
+        ops.apply_edges(msg, g, xi=a, xj=a).backward(cot)
+        torch.cuda.synchronize()
+        assert {k: S.launches[k] - before[k] for k in before
+                if S.launches[k] != before[k]} == {"k1_bf16": 1}
+        _assert_bf16_close(a.grad, S.spmm_plain(indptr, eid, None, None,
+                                                cot))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["K6-K8", "K9-K11"])
 def test_float32_only_routes_raise_on_bf16_on_card(route):
-    """Every kernel route but K1 and K3-K5 raises TypeError naming bfloat16
-    on a bfloat16 CUDA tensor; there is no cast to float32."""
+    """GATv2's and dot attention's kernel routes raise TypeError naming
+    bfloat16 on a bfloat16 CUDA tensor; there is no cast to float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     g = _graph(9, "cuda", torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    n, ne = g.num_nodes, g.num_edges
+    n = g.num_nodes
 
     def rn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
-    x, w = rn(n, 8).requires_grad_(), rn(ne).requires_grad_()
     q = rn(n, 2, 4)
-    ops = tgnn.ops
     calls = {
-        "K2": lambda: ops.propagate(ops.e_mul_xj, g, "sum", xj=x,
-                                    e=w).float().sum().backward(),
         "K6-K8": lambda: TA.dot_attention(g, q, q, q),
         "K9-K11": lambda: TA.gatv2_attention(g, q, q, rn(4, 2), SLOPE),
-        "K12": lambda: TA.attention_aggregate(g, rn(ne, 2), q,
-                                              node_values=True),
-        "K13": lambda: TA.dot_attention_logits(g, q, q),
-        "K14": lambda: ops.aggregate_neighbors(g, "max", rn(ne, 8)),
-        "gather backward": lambda: ops.apply_edges(
-            ops.copy_xj, g, xj=x).float().sum().backward(),
     }
     with pytest.raises(TypeError, match="bfloat16"):
         calls[route]()

@@ -71,7 +71,6 @@ from graphneuralnetworks_tpu_torch import ops as tops  # noqa: E402
 from graphneuralnetworks_tpu_torch.interop import load_jax_params  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops import attention as TA  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES  # noqa: E402
-from graphneuralnetworks_tpu_torch.ops.cuda import gather as GA  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import sddmm as SD  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S  # noqa: E402
@@ -119,11 +118,12 @@ def _pair(a):
 # ---- K1: spmm -----------------------------------------------------------
 
 @pytest.mark.parametrize("msg", ["copy_xj", "w_mul_xj", "e_mul_xj"])
-@pytest.mark.parametrize("width", [8, 13])
+@pytest.mark.parametrize("width", [8, 13, 128])
 def test_spmm_bf16_matches_pallas(msg, width):
     """propagate(sum) in bfloat16: y and dx (and the learned weights' dw
-    for e_mul_xj) against the Pallas kernels, within one ulp plus the
-    float32 tolerance."""
+    for e_mul_xj: K2's bfloat16 variant on the card, two strips at 128)
+    against the Pallas kernels, within one ulp plus the float32
+    tolerance."""
     jg, tg, rng = _graphs(1)
     ne = tg.num_edges
     x = rng.standard_normal((N, width)).astype(np.float32)
@@ -442,23 +442,16 @@ def _bf16_checks():
     """Each float32-only kernel's input check on bfloat16 CPU tensors (the
     checks run before any launch)."""
     g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
-    ir, cr, is_, cs, es = g.indptr_r, g.col_r, g.indptr_s, g.col_s, g.eid_s
+    ir, cr = g.indptr_r, g.col_r
     b = torch.bfloat16
 
     def z(*shape, dtype=b):
         return torch.zeros(shape, dtype=dtype)
     return {
-        "K2": lambda: S._check_sddmm(is_, cs, es, None, z(16, 4), z(16, 4)),
-        "K12": lambda: ES._check_launch(ir, cr, {"logits": z(40, 2)},
-                                        {"values": z(16, 2, 4)}),
         "K9-K11": lambda: ES._gatv2_args(ir, cr, z(16, 2, 4), z(16, 2, 4),
                                          z(4, 2), {}, {}),
         "K6-K8": lambda: ES._dot_args(ir, cr, z(16, 2, 4), z(16, 2, 4),
                                       z(16, 2, 4), {}, {}, {}),
-        "K13": lambda: SD._sddmm_kernel(ir, cr, z(16, 2, 4), z(16, 2, 4)),
-        "K14": lambda: SG._check_launch(ir, z(40, 4)),
-        "K14 backward": lambda: SG._check_launch(ir, z(40, 4), z(16, 4),
-                                                 z(16, 4)),
     }
 
 
@@ -468,30 +461,14 @@ def test_float32_only_routes_raise_on_bf16(route):
         _bf16_checks()[route]()
 
 
-def test_gather_backward_raises_on_bf16_on_the_card_only():
-    """fast_gather's backward (K1 over edge rows) raises on a bfloat16
-    CUDA tensor before any launch; on the CPU it takes the plain version.
-    The CUDA side runs here on a tensor that claims to be on the card."""
-    g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
-    dy = torch.ones(40, 4, dtype=torch.bfloat16)
-    out = GA._GatherFunction.backward(
-        type("Ctx", (), {"saved_tensors": (g.indptr_r, None)})(), dy)[0]
-    assert out.dtype == torch.bfloat16
-
-    class OnCard(torch.Tensor):
-        is_cuda = True
-    with pytest.raises(TypeError, match="bfloat16"):
-        GA._GatherFunction.backward(
-            type("Ctx", (), {"saved_tensors": (g.indptr_r, None)})(),
-            dy.as_subclass(OnCard))
-
-
-@pytest.mark.parametrize("case", ["K1 w", "K3 pi", "K4 mx", "K5 dy"])
+@pytest.mark.parametrize("case", ["K1 w", "K3 pi", "K4 mx", "K5 dy", "K2 w",
+                                  "K12 mask", "K13 xj", "K14 dy"])
 def test_bf16_kernels_refuse_a_mix_of_types(case):
-    """K1's rows and weights, and GAT's rows and scalars, are all float32
-    or all bfloat16; the softmax state float32. A mix raises."""
+    """K1's and K2's rows and weights, GAT's and K12's rows and scalars,
+    K13's two row tables and K14's operands are all float32 or all
+    bfloat16; the softmax state float32. A mix raises."""
     g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
-    ir, cr = g.indptr_r, g.col_r
+    ir, cr, is_, cs, es = g.indptr_r, g.col_r, g.indptr_s, g.col_s, g.eid_s
     b, f = torch.bfloat16, torch.float32
 
     def z(*shape, dtype=b):
@@ -508,11 +485,25 @@ def test_bf16_kernels_refuse_a_mix_of_types(case):
                              {"values_n": z(16, 2, 4)}, bf16=True)
         elif case == "K4 mx":
             ES._gat_bwd_args(ir, cr, **{**bwd, "mx": z(16, 2)})
-        else:
+        elif case == "K5 dy":
             ES._gat_bwd_args(ir, cr, **{**bwd, "dy": z(16, 2, 4, dtype=f)})
+        elif case == "K2 w":
+            S._check_sddmm(is_, cs, es, z(40, dtype=f), z(16, 4), z(16, 4))
+        elif case == "K12 mask":
+            ES._check_launch(ir, cr, {"logits": z(40, 2),
+                                      "mask": z(40, 2, dtype=f)},
+                             {"values": z(16, 2, 4)}, bf16=True)
+        elif case == "K13 xj":
+            SD._sddmm_kernel(ir, cr, z(16, 2, 4), z(16, 2, 4, dtype=f))
+        else:
+            SG._check_launch(ir, z(40, 4), z(16, 4), z(16, 4, dtype=f))
     # the same operands, all of one type, pass
     S._check_launch(ir, cr, None, z(40), z(16, 4))
     ES._gat_bwd_args(ir, cr, **bwd)
+    S._check_sddmm(is_, cs, es, z(40), z(16, 4), z(16, 4))
+    ES._check_launch(ir, cr, {"logits": z(40, 2), "mask": z(40, 2)},
+                     {"values": z(16, 2, 4)}, bf16=True)
+    assert SG._check_launch(ir, z(40, 4), z(16, 4), z(16, 4))
 
 
 # ---- degree counts in the requested dtype --------------------------------

@@ -619,7 +619,7 @@ def test_spmm_sddmm_wrapper_passes_the_layout(monkeypatch, heads, d):
     assert [c[1][-6:-1] for c in calls] == [want] + layouts
     assert [len(libs[False].calls), len(libs[True].calls)] == [1, 2]
     assert all(c[0] == "spmm_sddmm_csr_f32" for c in calls)
-    assert all(c[1][9:14] == (40, heads, d, n_edges, int(vec))
+    assert all(c[1][9:14] == (40, heads, d, n_edges, 16 if vec else 4)
                for c in calls)
     strips = -(-fv >> want[1])
     assert want[4] == int(heads > 1)
@@ -1648,8 +1648,8 @@ def test_shipped_build_holds_only_the_chosen_instances():
                               ((1, 0), False), ((4, 64), False),
                               ((2, 64), False), ((8, 0), False)):
         code = S._call_on(x.device, lib.spmm_csr_f32, S._ptr(ir), S._ptr(cr),
-                          None, None, S._ptr(x), S._ptr(y), 260, 8, 1, 0, 1,
-                          unroll, cap)
+                          None, None, S._ptr(x), S._ptr(y), 260, 8, 16, 0,
+                          1, unroll, cap)
         assert (code == 0) == ok, (unroll, cap, code)
     xs, dys = torch.randn(300, 8, device="cuda"), torch.randn(260, 8,
                                                               device="cuda")
@@ -1660,7 +1660,7 @@ def test_shipped_build_holds_only_the_chosen_instances():
         code = S._call_on(x.device, lib.spmm_sddmm_csr_f32,
                           *(S._ptr(t) for t in (is_, cs, None, None, dys, xs,
                                                 dx, dw, None)),
-                          300, 1, 8, cs.numel(), 1, 0, 1, unroll, cap, 0)
+                          300, 1, 8, cs.numel(), 16, 0, 1, unroll, cap, 0)
         assert (code == 0) == ok, ("k2", unroll, cap, code)
     for o, (unroll, cap), ok in ((8, (2, 64), True), (8, (1, 0), False),
                                  (8, (4, 64), False), (256, (1, 0), True),
