@@ -1,5 +1,5 @@
 // Edge softmax over a node's in-edges, with aggregation: K3 to K12, float32
-// (K3, K4, K5 and K12 also bfloat16, vec.cuh), for sm_90a.
+// (K3, K4, K5, K9, K10, K11 and K12 also bfloat16, vec.cuh), for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
 //   K12 _flash_kernel         softmax of given per-edge logits, numerator
@@ -87,14 +87,21 @@ __device__ __forceinline__ float dlrelu(float raw, float slope) {
   return raw >= 0.f ? 1.f : slope;
 }
 
-// Vector forms for GATv2, whose logits need whole O-wide rows.
+// Vector forms for GATv2, whose logits need whole O-wide rows, on the sum
+// types (float, float4, f8: vec.cuh).
 __device__ __forceinline__ float4 lrelu(const float4& r, float slope) {
   return make_float4(lrelu(r.x, slope), lrelu(r.y, slope), lrelu(r.z, slope),
                      lrelu(r.w, slope));
 }
+__device__ __forceinline__ f8 lrelu(const f8& r, float slope) {
+  return {lrelu(r.lo, slope), lrelu(r.hi, slope)};
+}
 __device__ __forceinline__ float vadd(float a, float b) { return a + b; }
 __device__ __forceinline__ float4 vadd(const float4& a, const float4& b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ f8 vadd(const f8& a, const f8& b) {
+  return {vadd(a.lo, b.lo), vadd(a.hi, b.hi)};
 }
 // acc += w * a * lrelu'(raw), componentwise
 __device__ __forceinline__ void axpy_dlrelu(float& acc, float w, float a,
@@ -109,8 +116,14 @@ __device__ __forceinline__ void axpy_dlrelu(float4& acc, float w,
   axpy_dlrelu(acc.z, w, a.z, raw.z, slope);
   axpy_dlrelu(acc.w, w, a.w, raw.w, slope);
 }
+__device__ __forceinline__ void axpy_dlrelu(f8& acc, float w, const f8& a,
+                                            const f8& raw, float slope) {
+  axpy_dlrelu(acc.lo, w, a.lo, raw.lo, slope);
+  axpy_dlrelu(acc.hi, w, a.hi, raw.hi, slope);
+}
 
-// Vector f of head h's attention weights, read from a [O, H] (row-major).
+// Vector f of head h's attention weights, read from a [O, H] (row-major),
+// in a sum type: float (one value), float4 (4) or f8 (8; bf16x8 rows).
 template <typename V>
 __device__ V load_a(const float* a, int f, int heads, int h);
 template <>
@@ -123,6 +136,12 @@ __device__ __forceinline__ float4 load_a<float4>(const float* a, int f,
                                                  int heads, int h) {
   const float* p = a + (long long)4 * f * heads + h;
   return make_float4(p[0], p[heads], p[2 * heads], p[3 * heads]);
+}
+template <>
+__device__ __forceinline__ f8 load_a<f8>(const float* a, int f, int heads,
+                                         int h) {
+  return {load_a<float4>(a, 2 * f, heads, h),
+          load_a<float4>(a, 2 * f + 1, heads, h)};
 }
 
 // ---- GATv2: K9, K10, K11 ---------------------------------------------------
@@ -829,6 +848,7 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 // an edge in place of three 4-byte ones. The first port gave a (row,
 // head) pair a warp, heads interleaved in the grid, and waited on col[e],
 // then the receiver's scalars and rows, then the tree, one edge at a time.
+// V, the rows' storage vector, as K9's.
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
@@ -847,25 +867,26 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
   const int g = 1 << log_g;                  // lanes per edge group
   const int sub = lane & (g - 1);
   const int h = blockIdx.y;
-  V av[NC];
+  using A = Acc<V>;
+  A av[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int f = sub + c * g;
-    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
+    av[c] = f < dv ? load_a<A>(a, f, heads, h) : vzero<A>();
   }
   walk_rows(indptr, rb, lane, n_rows, log_rows,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long sh = (long long)row * heads + h;
-    V kv[NC], acc[NC];
+    A kv[NC], acc[NC];
     // k and dk stream past the L2 (evict-first), which keeps the head's
     // slices of q and dy that the pass gathers from
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int f = sub + c * g;
-      kv[c] = live && f < dv ? __ldcs(k + sh * dv + f) : vzero<V>();
-      acc[c] = vzero<V>();
+      kv[c] = live && f < dv ? widen(ld_cs(k + sh * dv + f)) : vzero<A>();
+      acc[c] = vzero<A>();
     }
     int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
     for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
@@ -873,7 +894,8 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
           w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
       const int cnt = min(S.seg, longest - w0);
       for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
-        V raw[U][NC], dyg[U][NC];
+        A raw[U][NC];
+        V dyg[U][NC];
         float mxr[U], denr[U], snr[U], plg[U], pvd[U];
         bool ok[U];
 #pragma unroll
@@ -896,7 +918,8 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc) {
             const int f = sub + cc * g;
-            raw[u][cc] = ok[u] && f < dv ? q[rh * dv + f] : vzero<V>();
+            raw[u][cc] =
+                ok[u] && f < dv ? widen(q[rh * dv + f]) : vzero<A>();
             dyg[u][cc] = ok[u] && f < dv ? dy[rh * dv + f] : vzero<V>();
           }
         }
@@ -908,7 +931,7 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
           for (int cc = 0; cc < NC; ++cc) {
             raw[u][cc] = vadd(raw[u][cc], kv[cc]);
             plg[u] += vdot(av[cc], lrelu(raw[u][cc], slope));
-            pvd[u] += vdot(kv[cc], dyg[u][cc]);
+            pvd[u] += vdot(kv[cc], widen(dyg[u][cc]));
           }
         }
         for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
@@ -926,7 +949,7 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc) {
             axpy_dlrelu(acc[cc], dlg, av[cc], raw[u][cc], slope);
-            axpy(acc[cc], alpha, dyg[u][cc]);
+            axpy(acc[cc], alpha, widen(dyg[u][cc]));
           }
         }
       }
@@ -941,7 +964,7 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int f = sub + cc * g;
-        if (f < dv) __stcs(dk + sh * dv + f, acc[cc]);
+        if (f < dv) st_cs(dk + sh * dv + f, narrow<V>(acc[cc]));
       }
     }
   });
@@ -963,6 +986,7 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
 // by side for gatv2_da_reduce_kernel to read in order. The first port gave
 // a (row, head) pair a warp in a persistent grid, heads interleaved, and
 // waited on col[e], then the k row, then the tree, one edge at a time.
+// V, the rows' storage vector, as K9's; da's shares stay float32.
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
@@ -979,12 +1003,13 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
   const int g = 1 << log_g;                  // lanes per edge group
   const int sub = lane & (g - 1);
   const int h = blockIdx.y;
-  V av[NC], dav[NC];
+  using A = Acc<V>;
+  A av[NC], dav[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int f = sub + c * g;
-    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
-    dav[c] = vzero<V>();
+    av[c] = f < dv ? load_a<A>(a, f, heads, h) : vzero<A>();
+    dav[c] = vzero<A>();
   }
   const int rb = row_block(n_rows, log_rows);
   if (rb >= 0) {                    // warp-uniform; every warp meets below
@@ -993,15 +1018,15 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
       const Seg S(lane, log_seg, log_g);
       const bool live = row < n_rows;
       const long long rh = (long long)row * heads + h;
-      V qv[NC], dyv[NC], dqa[NC];
+      A qv[NC], dyv[NC], dqa[NC];
       // q, dy and dq stream past the L2 (evict-first), which keeps the
       // head's slice of k that the pass gathers from
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int f = sub + c * g;
-        qv[c] = live && f < dv ? __ldcs(q + rh * dv + f) : vzero<V>();
-        dyv[c] = live && f < dv ? __ldcs(dy + rh * dv + f) : vzero<V>();
-        dqa[c] = vzero<V>();
+        qv[c] = live && f < dv ? widen(ld_cs(q + rh * dv + f)) : vzero<A>();
+        dyv[c] = live && f < dv ? widen(ld_cs(dy + rh * dv + f)) : vzero<A>();
+        dqa[c] = vzero<A>();
       }
       const float mxr = live ? mx[rh] : 0.f, denr = live ? den[rh] : 1.f;
       const float snr = live ? s_n[rh] : 0.f;
@@ -1011,7 +1036,8 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
             w0 + S.seg + S.sl < len ? col[beg + w0 + S.seg + S.sl] : 0;
         const int cnt = min(S.seg, longest - w0);
         for (int j0 = 0; j0 < cnt; j0 += S.p * U) {   // warp-uniform trips
-          V raw[U][NC];
+          V kg[U][NC];
+          A raw[U][NC];
           float plg[U], pvd[U];
           bool ok[U];
 #pragma unroll
@@ -1023,7 +1049,7 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
 #pragma unroll
             for (int cc = 0; cc < NC; ++cc) {
               const int f = sub + cc * g;
-              raw[u][cc] = ok[u] && f < dv ? k[sh * dv + f] : vzero<V>();
+              kg[u][cc] = ok[u] && f < dv ? k[sh * dv + f] : vzero<V>();
             }
           }
 #pragma unroll
@@ -1032,8 +1058,9 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
             pvd[u] = 0.f;
 #pragma unroll
             for (int cc = 0; cc < NC; ++cc) {
-              pvd[u] += vdot(raw[u][cc], dyv[cc]);
-              raw[u][cc] = vadd(qv[cc], raw[u][cc]);
+              const A kw = widen(kg[u][cc]);
+              pvd[u] += vdot(kw, dyv[cc]);
+              raw[u][cc] = vadd(qv[cc], kw);
               plg[u] += vdot(av[cc], lrelu(raw[u][cc], slope));
             }
           }
@@ -1067,7 +1094,7 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
           const int f = sub + cc * g;
-          if (f < dv) __stcs(dq + rh * dv + f, dqa[cc]);
+          if (f < dv) st_cs(dq + rh * dv + f, narrow<V>(dqa[cc]));
         }
       }
     });
@@ -1077,7 +1104,7 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) add_xor(dav[cc], off);
   }
-  V* mine = reinterpret_cast<V*>(da_warps) + (threadIdx.x >> 5) * dv;
+  A* mine = reinterpret_cast<A*>(da_warps) + (threadIdx.x >> 5) * dv;
   if (lane < g) {
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
@@ -1086,7 +1113,7 @@ gatv2_bwd_dq_kernel(const int* __restrict__ indptr,
     }
   }
   __syncthreads();
-  const int o = dv * (int)(sizeof(V) / sizeof(float));
+  const int o = dv * (int)(sizeof(A) / sizeof(float));
   for (int f = threadIdx.x; f < o; f += kThreads) {   // the warps in order
     float t = 0.f;
     for (int w = 0; w < kWarpsPerBlock; ++w) t += da_warps[w * o + f];
@@ -1260,6 +1287,15 @@ gat_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 // num stream past the L2 (evict-first). The first port gave a (row, head)
 // pair a warp, heads side by side, and waited on col[e], then the k row,
 // then the tree, then the exp, one edge at a time.
+//
+// V is the rows' storage vector (vec.cuh): float4 or float, or for
+// bfloat16 q, k and num bf16x8, bf16x4 or bf16x1 (K10 and K11 the same,
+// with dy, dq and dk). a is float32 (the wrapper widens a bfloat16 a,
+// exactly). q[r], a and the sums are kept in the sum type Acc<V>, each
+// gathered row widened where it is used: raw, act, the logit, the softmax
+// state and every sum are float32, and each bfloat16 output row is rounded
+// once when stored. Every instance holds a row in NC register chunks of 32
+// vectors, as the float32 ones (the logit needs the whole row: no passes).
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 gatv2_softmax_rows_kernel(const int* __restrict__ indptr,
@@ -1274,23 +1310,24 @@ gatv2_softmax_rows_kernel(const int* __restrict__ indptr,
   const int g = 1 << log_g;                  // lanes per edge group
   const int sub = lane & (g - 1);
   const int h = blockIdx.y;
-  V av[NC];
+  using A = Acc<V>;
+  A av[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int f = sub + c * g;
-    av[c] = f < dv ? load_a<V>(a, f, heads, h) : vzero<V>();
+    av[c] = f < dv ? load_a<A>(a, f, heads, h) : vzero<A>();
   }
   walk_rows(indptr, rb, lane, n_rows, log_rows,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long rh = (long long)row * heads + h;
-    V qv[NC], acc[NC];
+    A qv[NC], acc[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int f = sub + c * g;
-      qv[c] = live && f < dv ? __ldcs(q + rh * dv + f) : vzero<V>();
-      acc[c] = vzero<V>();
+      qv[c] = live && f < dv ? widen(ld_cs(q + rh * dv + f)) : vzero<A>();
+      acc[c] = vzero<A>();
     }
     float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
     int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
@@ -1319,7 +1356,8 @@ gatv2_softmax_rows_kernel(const int* __restrict__ indptr,
           lg[u] = 0.f;
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc)
-            lg[u] += vdot(av[cc], lrelu(vadd(qv[cc], kg[u][cc]), slope));
+            lg[u] +=
+                vdot(av[cc], lrelu(vadd(qv[cc], widen(kg[u][cc])), slope));
         }
         for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
 #pragma unroll
@@ -1346,7 +1384,8 @@ gatv2_softmax_rows_kernel(const int* __restrict__ indptr,
           const float pe = lg[u] == -INFINITY ? 0.f : expf(lg[u] - mg);
           sg += pe;
 #pragma unroll
-          for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], pe, kg[u][cc]);
+          for (int cc = 0; cc < NC; ++cc)
+            axpy(acc[cc], pe, widen(kg[u][cc]));
         }
       }
       c = nc;
@@ -1369,7 +1408,7 @@ gatv2_softmax_rows_kernel(const int* __restrict__ indptr,
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int f = sub + cc * g;
-        if (f < dv) __stcs(num + rh * dv + f, acc[cc]);
+        if (f < dv) st_cs(num + rh * dv + f, narrow<V>(acc[cc]));
       }
     }
     if (live && S.sl == 0) {
@@ -1871,10 +1910,12 @@ using MinBlocks = std::integral_constant<int, CAP == 64 ? 4 : 1>;
 // library holds U in {1, 2, 4} with NC * U <= 4 (U = 1 at every NC), each
 // uncapped and, at NC <= 2, at 64 registers; the shipped library holds
 // only the pairs for which Pick::holds(NC, U, cap), the ones the wrapper
-// picks. With kOneChunk (the bfloat16 instances of K3, K4 and K5) only NC
-// = 1 (rows of at most 32 vectors; the launcher takes wider rows in passes
-// of 32) and only Pick's pairs, in either build.
-template <typename Pick, bool kOneChunk = false, typename Go>
+// picks. With kPickOnly (the bfloat16 instances) only Pick's pairs, in
+// either build; with kOneChunk (the bfloat16 instances of K3, K4, K5 and
+// K12) also only NC = 1 (rows of at most 32 vectors; the launcher takes
+// wider rows in passes of 32).
+template <typename Pick, bool kOneChunk = false,
+          bool kPickOnly = kOneChunk, typename Go>
 int with_row_instances(int wide, int unroll, int reg_cap, Go&& go) {
   if (kOneChunk && wide > 32) return static_cast<int>(cudaErrorInvalidValue);
   bool launched = false;
@@ -1888,7 +1929,7 @@ int with_row_instances(int wide, int unroll, int reg_cap, Go&& go) {
       constexpr bool sweep = false;
 #endif
       constexpr bool built =
-          kOneChunk ? NC == 1 && Pick::holds(NC, UU, C)
+          kPickOnly ? (!kOneChunk || NC == 1) && Pick::holds(NC, UU, C)
           : sweep   ? (UU == 1 || NC * UU <= 4) && (C == 0 || NC <= 2)
                     : Pick::holds(NC, UU, C);
       if constexpr (built) {
@@ -2160,12 +2201,13 @@ int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
 }
 
 // K11 in rows (see gatv2_bwd_rev_kernel), at the instances
-// with_row_instances holds.
+// with_row_instances holds (bfloat16: only the shipped ones, in either
+// build).
 template <typename V>
-int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
-                         const float* k, const float* a, const float* mx,
+int launch_gatv2_bwd_rev(const int* indptr, const int* col, const void* q,
+                         const void* k, const float* a, const float* mx,
                          const float* den, const float* s_n,
-                         const float* stats, const float* dy, float* dk,
+                         const float* stats, const void* dy, void* dk,
                          int n_rows, int heads, int dv,
                          int log_rows, int unroll, int reg_cap, float slope,
                          cudaStream_t st) {
@@ -2173,43 +2215,50 @@ int launch_gatv2_bwd_rev(const int* indptr, const int* col, const float* q,
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K11Pick>(
+  return with_row_instances<K11Pick, false, kLow<V>>(
       dv, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         gatv2_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
                              decltype(minb)::value>
             <<<grid, kThreads, 0, st>>>(
-                indptr, col, reinterpret_cast<const V*>(q),
-                reinterpret_cast<const V*>(k), a, mx, den, s_n,
+                indptr, col, static_cast<const V*>(q),
+                static_cast<const V*>(k), a, mx, den, s_n,
                 reinterpret_cast<const float4*>(stats),
-                reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dk),
-                n_rows, heads, dv, lg, log_rows, slope);
+                static_cast<const V*>(dy), static_cast<V*>(dk), n_rows,
+                heads, dv, lg, log_rows, slope);
       });
 }
 
 // K10 in rows (see gatv2_bwd_dq_kernel), at the instances
-// with_row_instances holds; the block's warps share O floats each of
-// dynamic shared memory.
+// with_row_instances holds (bfloat16: only the shipped ones, in either
+// build); the block's warps share O floats each of dynamic shared memory
+// (above 48 KB, at bfloat16 rows of more than 1,536 values a head, asked
+// for with cudaFuncSetAttribute).
 template <typename V>
-int launch_gatv2_bwd_dq(const int* indptr, const int* col, const float* q,
-                        const float* k, const float* a, const float* mx,
-                        const float* den, const float* s_n, const float* dy,
-                        float* dq, float* da_part, int n_rows, int heads,
+int launch_gatv2_bwd_dq(const int* indptr, const int* col, const void* q,
+                        const void* k, const float* a, const float* mx,
+                        const float* den, const float* s_n, const void* dy,
+                        void* dq, float* da_part, int n_rows, int heads,
                         int dv, int log_rows, int unroll, int reg_cap,
                         float slope, cudaStream_t st) {
   const int lg = log_group(dv);
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  const size_t smem = sizeof(V) * kWarpsPerBlock * dv;
-  return with_row_instances<K10Pick>(
+  const size_t smem = sizeof(Acc<V>) * kWarpsPerBlock * dv;
+  return with_row_instances<K10Pick, false, kLow<V>>(
       dv, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
-        gatv2_bwd_dq_kernel<V, decltype(nc)::value, decltype(un)::value,
-                            decltype(minb)::value>
-            <<<grid, kThreads, smem, st>>>(
-                indptr, col, reinterpret_cast<const V*>(q),
-                reinterpret_cast<const V*>(k), a, mx, den, s_n,
-                reinterpret_cast<const V*>(dy), reinterpret_cast<V*>(dq),
-                da_part, n_rows, heads, dv, lg, log_rows, slope);
+        auto kernel =
+            gatv2_bwd_dq_kernel<V, decltype(nc)::value, decltype(un)::value,
+                                decltype(minb)::value>;
+        if (smem > 48 * 1024 &&
+            cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem)) != cudaSuccess)
+          return;   // the error stays for with_row_instances to return
+        kernel<<<grid, kThreads, smem, st>>>(
+            indptr, col, static_cast<const V*>(q), static_cast<const V*>(k),
+            a, mx, den, s_n, static_cast<const V*>(dy), static_cast<V*>(dq),
+            da_part, n_rows, heads, dv, lg, log_rows, slope);
       });
 }
 
@@ -2240,10 +2289,11 @@ int launch_gat_bwd_rev(const int* indptr, const int* col,
 }
 
 // K9 in rows (see gatv2_softmax_rows_kernel), at the instances
-// with_row_instances holds.
+// with_row_instances holds (bfloat16: only the shipped ones, in either
+// build).
 template <typename V>
-int launch_gatv2_softmax(const int* indptr, const int* col, const float* q,
-                         const float* k, const float* a, float* num, float* m,
+int launch_gatv2_softmax(const int* indptr, const int* col, const void* q,
+                         const void* k, const float* a, void* num, float* m,
                          float* s, int n_rows, int heads, int dv,
                          int log_rows, int unroll, int reg_cap, float slope,
                          cudaStream_t st) {
@@ -2251,14 +2301,14 @@ int launch_gatv2_softmax(const int* indptr, const int* col, const float* q,
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K9Pick>(
+  return with_row_instances<K9Pick, false, kLow<V>>(
       dv, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         gatv2_softmax_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
                                   decltype(minb)::value>
             <<<grid, kThreads, 0, st>>>(
-                indptr, col, reinterpret_cast<const V*>(q),
-                reinterpret_cast<const V*>(k), a, reinterpret_cast<V*>(num),
-                m, s, n_rows, heads, dv, lg, log_rows, slope);
+                indptr, col, static_cast<const V*>(q),
+                static_cast<const V*>(k), a, static_cast<V*>(num), m, s,
+                n_rows, heads, dv, lg, log_rows, slope);
       });
 }
 
@@ -2631,6 +2681,88 @@ int gatv2_bwd_rev_f32(const int* indptr, const int* col, const float* q,
   return launch_gatv2_bwd_rev<float>(indptr, col, q, k, a, mx, den, s_n,
                                      stats, dy, dk, n_rows, heads, d,
                                      log_rows, unroll, reg_cap, slope, st);
+}
+
+// K9, K10 (the dq walk; its da shares and gatv2_da_reduce_f32 stay
+// float32) and K11 on bfloat16 rows (q, k, dy; num, dq, dk), with a in
+// float32 and the float32 softmax state (m, s; mx, den, s_n; stats), as
+// gatv2_softmax_f32, gatv2_bwd_dq_f32 and gatv2_bwd_rev_f32: each sum in
+// float32, each bfloat16 output rounded once. A row loads in the widest
+// vector it takes (bf16_vec_bytes of the row operands: 8 values, 4, or
+// one); the instances hold up to 256 vectors, as the float32 ones (so 2,048
+// values a head at 8 a vector, 256 at one).
+int gatv2_softmax_bf16(const int* indptr, const int* col, const bf16x1* q,
+                       const bf16x1* k, const float* a, bf16x1* num, float* m,
+                       float* s, int n_rows, int heads, int d, int log_rows,
+                       int unroll, int reg_cap, float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bf16_vec_bytes(d, {q, k, num})) {
+    case 16:
+      return launch_gatv2_softmax<bf16x8>(indptr, col, q, k, a, num, m, s,
+                                          n_rows, heads, d / 8, log_rows,
+                                          unroll, reg_cap, slope, st);
+    case 8:
+      return launch_gatv2_softmax<bf16x4>(indptr, col, q, k, a, num, m, s,
+                                          n_rows, heads, d / 4, log_rows,
+                                          unroll, reg_cap, slope, st);
+    default:
+      return launch_gatv2_softmax<bf16x1>(indptr, col, q, k, a, num, m, s,
+                                          n_rows, heads, d, log_rows, unroll,
+                                          reg_cap, slope, st);
+  }
+}
+
+int gatv2_bwd_dq_bf16(const int* indptr, const int* col, const bf16x1* q,
+                      const bf16x1* k, const float* a, const float* mx,
+                      const float* den, const float* s_n, const bf16x1* dy,
+                      bf16x1* dq, float* da_part, int n_rows, int heads,
+                      int d, int log_rows, int unroll, int reg_cap,
+                      float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bf16_vec_bytes(d, {q, k, dy, dq})) {
+    case 16:
+      return launch_gatv2_bwd_dq<bf16x8>(indptr, col, q, k, a, mx, den, s_n,
+                                         dy, dq, da_part, n_rows, heads,
+                                         d / 8, log_rows, unroll, reg_cap,
+                                         slope, st);
+    case 8:
+      return launch_gatv2_bwd_dq<bf16x4>(indptr, col, q, k, a, mx, den, s_n,
+                                         dy, dq, da_part, n_rows, heads,
+                                         d / 4, log_rows, unroll, reg_cap,
+                                         slope, st);
+    default:
+      return launch_gatv2_bwd_dq<bf16x1>(indptr, col, q, k, a, mx, den, s_n,
+                                         dy, dq, da_part, n_rows, heads, d,
+                                         log_rows, unroll, reg_cap, slope,
+                                         st);
+  }
+}
+
+int gatv2_bwd_rev_bf16(const int* indptr, const int* col, const bf16x1* q,
+                       const bf16x1* k, const float* a, const float* mx,
+                       const float* den, const float* s_n,
+                       const float* stats, const bf16x1* dy, bf16x1* dk,
+                       int n_rows, int heads, int d, int log_rows,
+                       int unroll, int reg_cap, float slope, void* stream) {
+  if (!aligned16(stats)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bf16_vec_bytes(d, {q, k, dy, dk})) {
+    case 16:
+      return launch_gatv2_bwd_rev<bf16x8>(indptr, col, q, k, a, mx, den, s_n,
+                                          stats, dy, dk, n_rows, heads, d / 8,
+                                          log_rows, unroll, reg_cap, slope,
+                                          st);
+    case 8:
+      return launch_gatv2_bwd_rev<bf16x4>(indptr, col, q, k, a, mx, den, s_n,
+                                          stats, dy, dk, n_rows, heads, d / 4,
+                                          log_rows, unroll, reg_cap, slope,
+                                          st);
+    default:
+      return launch_gatv2_bwd_rev<bf16x1>(indptr, col, q, k, a, mx, den, s_n,
+                                          stats, dy, dk, n_rows, heads, d,
+                                          log_rows, unroll, reg_cap, slope,
+                                          st);
+  }
 }
 
 // K6. Over the receiver CSR of n_rows receivers and n_edges edges:

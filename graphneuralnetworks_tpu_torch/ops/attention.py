@@ -16,11 +16,12 @@ kernels cannot take raises. Only CPU tensors take the plain path below, the
 counterpart of the JAX package's XLA path.
 
 bfloat16: on the card :func:`gat_attention` without dropout takes it on
-K3-K5, :func:`attention_aggregate` (and so :func:`gat_attention` with
-dropout) on K12 with bfloat16 logits, masks and values, its node-values
-backward on K2, and :func:`dot_attention_logits` on K13; the gradients
-come back in their inputs' types. :func:`gatv2_attention` without dropout
-and :func:`dot_attention` raise ``TypeError`` (K9-K11 and K6-K8 are
+K3-K5, :func:`gatv2_attention` without dropout on K9-K11,
+:func:`attention_aggregate` (and so :func:`gat_attention` and
+:func:`gatv2_attention` with dropout) on K12 with bfloat16 logits, masks
+and values, its node-values backward on K2, and
+:func:`dot_attention_logits` on K13; the gradients come back in their
+inputs' types. :func:`dot_attention` raises ``TypeError`` (K6-K8 are
 float32 only). The plain path computes bfloat16 values as the kernels do:
 logits, softmax and sums in float32, each output rounded once to bfloat16.
 """
@@ -114,7 +115,9 @@ def gatv2_attention(g: GraphTuple, q, k, a, slope: float, *,
     projections and ``a [O, H]`` the attention weights. On the card without
     dropout the logits are computed inside the kernels
     (:func:`~.cuda.edge_softmax.gatv2_attention_nodes`); otherwise they are
-    gathered and :func:`attention_aggregate` takes over.
+    gathered and :func:`attention_aggregate` takes over: in float32 without
+    dropout (the CPU path, as K9 computes them), in the projections' type
+    with it (as the JAX package gathers them; K12 takes that type).
     """
     no_edge_valid(g, "gatv2_attention")
     k = to_src_space(g, k)
@@ -123,8 +126,12 @@ def gatv2_attention(g: GraphTuple, q, k, a, slope: float, *,
                                      self_logits=self_logits,
                                      self_values=self_values,
                                      num_segments=num_segments)
-    wx = gather(q, g.receivers) + gather(k, g.senders)
-    logits = torch.einsum("ehf,fh->eh", lrelu(wx, slope), a)
+    qw, kw, aw = q, k, a
+    if dropout_masks is None:   # float32 logits for bfloat16, as K9's
+        work = _work_dtype(k.dtype)
+        qw, kw, aw = q.to(work), k.to(work), a.to(work)
+    wx = gather(qw, g.receivers) + gather(kw, g.senders)
+    logits = torch.einsum("ehf,fh->eh", lrelu(wx, slope), aw)
     return attention_aggregate(g, logits, k, self_logits=self_logits,
                                self_values=self_values,
                                dropout_masks=dropout_masks,

@@ -41,16 +41,18 @@ K2 for all heads), :func:`gat_attention_nodes` (backward K4 and K5),
 :func:`dot_attention_nodes` (forward K6, backward K7 and K8).
 
 Mixed precision: K3, K4 and K5 also take bfloat16 node values, ``dy``
-and ``pi``/``pj``, and K12 bfloat16 logits, mask and values, with the
-softmax state (``m``, ``s``; ``mx``, ``den``, ``s_n``) in float32, as the
-TPU kernels keep it: every sum is float32 and each bfloat16 output
-(``num``, ``dpi``, ``dpj``, ``dv``) is rounded once, in its primal's type;
-:func:`finalize_softmax` returns ``num``'s type. K12's node-values
-backward hands K2 the attention weights ``mask * alpha`` rounded to the
-values' type, as JAX's scatter casts them (``edge_softmax.py:1756-1790``),
-and every gradient comes back in its primal's type. The plain versions
-compute bfloat16 inputs the same way. GATv2's K9-K11 and dot attention's
-K6-K8 raise ``TypeError`` on bfloat16.
+and ``pi``/``pj``, K9, K10 and K11 bfloat16 ``q``, ``k``, ``dy`` and
+``a`` (widened to float32 for the kernels, exactly), and K12 bfloat16
+logits, mask and values, with the softmax state (``m``, ``s``; ``mx``,
+``den``, ``s_n``) in float32, as the TPU kernels keep it: every sum is
+float32 and each bfloat16 output (``num``, ``dpi``, ``dpj``, ``dv``,
+``dq``, ``dk``) is rounded once, in its primal's type; K10's ``da`` is
+float32; :func:`finalize_softmax` returns ``num``'s type. K12's
+node-values backward hands K2 the attention weights ``mask * alpha``
+rounded to the values' type, as JAX's scatter casts them
+(``edge_softmax.py:1756-1790``), and every gradient comes back in its
+primal's type. The plain versions compute bfloat16 inputs the same way.
+Dot attention's K6-K8 raise ``TypeError`` on bfloat16.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``*_plain``); a CUDA tensor launches the kernel or raises. ``launches``
@@ -87,12 +89,14 @@ __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
 
 launches = {"k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0, "k9": 0,
             "k10": 0, "k11": 0, "k12": 0, "k3_bf16": 0, "k4_bf16": 0,
-            "k5_bf16": 0, "k12_bf16": 0}
+            "k5_bf16": 0, "k9_bf16": 0, "k10_bf16": 0, "k11_bf16": 0,
+            "k12_bf16": 0}
 
 _NEG_INF = float("-inf")
 # The GATv2 and dot kernels hold a row in at most 8 register chunks of 32
 # vectors per lane (csrc/edge_softmax.cu): float4 vectors when the widths
-# are multiples of 4 and the row operands 16-byte aligned.
+# are multiples of 4 and the row operands 16-byte aligned (GATv2's
+# bfloat16 rows: spmm._row_vectors, 8, 4 or 1 values).
 _MAX_VECTORS = 256
 # K3, K4, K5 and K12 on bfloat16 rows hold one register chunk
 # (csrc/edge_softmax.cu with_row_instances): wider rows take passes of 32
@@ -194,6 +198,9 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
                                     ("gatv2_bwd_dq_f32", 11, 6, 1),
                                     ("gatv2_da_reduce_f32", 2, 3, 0),
                                     ("gatv2_bwd_rev_f32", 11, 6, 1),
+                                    ("gatv2_softmax_bf16", 8, 6, 1),
+                                    ("gatv2_bwd_dq_bf16", 11, 6, 1),
+                                    ("gatv2_bwd_rev_bf16", 11, 6, 1),
                                     ("dot_softmax_f32", 10, 9, 2),
                                     ("dot_bwd_dq_f32", 12, 9, 2),
                                     ("dot_bwd_rev_f32", 11, 7, 2)):
@@ -333,54 +340,65 @@ def gat_bwd_rev_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
 
 
 def _gatv2_logits(r, s, q, k, a, slope):
-    """Per edge: ``k[s]``, ``raw = q[r] + k[s]``, ``act = leaky_relu(raw)``
-    and the logit ``<a[:, h], act>`` (``a`` is ``[O, H]``)."""
-    k_e = k.index_select(0, s)
-    raw = q.index_select(0, r) + k_e
+    """Per edge, in the work type of ``k`` (float32 for bfloat16 inputs,
+    widened before any arithmetic): ``k[s]``, ``raw = q[r] + k[s]``,
+    ``act = leaky_relu(raw)`` and the logit ``<a[:, h], act>`` (``a`` is
+    ``[O, H]``)."""
+    work = _work_dtype(k.dtype)
+    k_e = k.index_select(0, s).to(work)
+    raw = q.index_select(0, r).to(work) + k_e
     act = lrelu(raw, slope)
-    return k_e, raw, act, (act * a.t()).sum(-1)
+    return k_e, raw, act, (act * a.t().to(work)).sum(-1)
 
 
 def gatv2_softmax_plain(indptr, col, q, k, a, slope):
     """K9's function over the receiver CSR: :func:`edge_softmax_plain` of
     the values ``k[s_e]`` with logits ``<a_h, leaky_relu(q[r_e] +
-    k[s_e])>``."""
+    k[s_e])>``. bfloat16 inputs as the kernel takes them: logits, ``m``,
+    ``s`` and the sums in float32, ``num`` rounded once to bfloat16."""
     rows = _row_ids(indptr, col.numel())
     k_e, _, _, lg = _gatv2_logits(rows, col.long(), q, k, a, slope)
-    return _softmax_sums(rows, indptr.numel() - 1, lg, None, k_e)
+    num, m, s = _softmax_sums(rows, indptr.numel() - 1, lg, None, k_e)
+    return num.to(k.dtype), m, s
 
 
 def _gatv2_edge_terms(r, s, q, k, a, mx, den, s_n, dy, slope):
-    """Per edge: ``alpha``, ``dy[r]``, ``act``, ``dlg = alpha * (<k[s],
-    dy[r]> - s_n[r])`` and ``dlg * a * leaky_relu'(raw)``."""
+    """Per edge, in the work type of ``k``: ``alpha``, ``dy[r]``, ``act``,
+    ``dlg = alpha * (<k[s], dy[r]> - s_n[r])`` and ``dlg * a *
+    leaky_relu'(raw)``."""
     k_e, raw, act, lg = _gatv2_logits(r, s, q, k, a, slope)
-    alpha = torch.exp(lg - mx.index_select(0, r)) / den.index_select(0, r)
-    dy_e = dy.index_select(0, r)
-    dlg = alpha * ((k_e * dy_e).sum(-1) - s_n.index_select(0, r))
-    draw = dlg[..., None] * a.t() * _dlrelu(raw, slope)
+    work = k_e.dtype
+    alpha = (torch.exp(lg - mx.index_select(0, r).to(work))
+             / den.index_select(0, r).to(work))
+    dy_e = dy.index_select(0, r).to(work)
+    dlg = alpha * ((k_e * dy_e).sum(-1) - s_n.index_select(0, r).to(work))
+    draw = dlg[..., None] * a.t().to(work) * _dlrelu(raw, slope)
     return alpha, dy_e, act, dlg, draw
 
 
 def gatv2_bwd_dq_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
     """K10's function over the receiver CSR: ``(dq, da)`` with ``dq[r] =
     sum_e dlg_e a lrelu'(raw_e)`` and ``da [O, H] = sum_e act_e^T dlg_e``
-    (edge_softmax.py:1444-1459)."""
+    (edge_softmax.py:1444-1459). bfloat16 inputs as the kernels take them:
+    summed in float32, ``dq`` rounded once to bfloat16, ``da`` float32."""
     rows = _row_ids(indptr, col.numel())
     _, _, act, dlg, draw = _gatv2_edge_terms(rows, col.long(), q, k, a, mx,
                                              den, s_n, dy, slope)
-    dq = q.new_zeros(q.shape).index_add_(0, rows, draw)
-    return dq, torch.einsum("ehf,eh->fh", act, dlg)
+    dq = draw.new_zeros(q.shape).index_add_(0, rows, draw)
+    return dq.to(q.dtype), torch.einsum("ehf,eh->fh", act, dlg)
 
 
 def gatv2_bwd_rev_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
     """K11's function over the sender CSR (``col``: the receivers):
     ``dk[s] = sum_e dlg_e a lrelu'(raw_e) + alpha_e dy[r_e]``
-    (edge_softmax.py:1506-1516)."""
+    (edge_softmax.py:1506-1516), in ``k``'s type (summed in float32 for
+    bfloat16)."""
     rows = _row_ids(indptr, col.numel())
     alpha, dy_e, _, _, draw = _gatv2_edge_terms(col.long(), rows, q, k, a,
                                                 mx, den, s_n, dy, slope)
-    return k.new_zeros(k.shape).index_add_(0, rows,
-                                           draw + alpha[..., None] * dy_e)
+    dk = draw.new_zeros(k.shape).index_add_(0, rows,
+                                            draw + alpha[..., None] * dy_e)
+    return dk.to(k.dtype)
 
 
 def _dot_logits(r, s, q, k, scale, slope):
@@ -591,8 +609,8 @@ def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope, layout=None):
 
 def _gat_fn(fn: str, key: str, values: torch.Tensor) -> tuple[str, str]:
     """The library function ``fn`` of a kernel with a bfloat16 variant
-    (K3, K4, K5, K12) and its launch counter ``key`` for ``values``'
-    type."""
+    (K3, K4, K5, K9, K10, K11, K12) and its launch counter ``key`` for
+    ``values``' type."""
     if values.dtype == torch.bfloat16:
         return f"{fn}_bf16", f"{key}_bf16"
     return f"{fn}_f32", key
@@ -730,14 +748,25 @@ def _check_width(kernels: str, widths: str, d: int, vec: bool) -> None:
 
 
 def _check_gatv2_width(d: int, *rows) -> None:
-    _check_width("GATv2", "O", d, _float4_rows(d, *rows))
+    """The GATv2 kernels' widths: 256 vectors a head (float32: float4 or
+    float; bfloat16: 8, 4 or 1 values, :func:`~.spmm._row_vectors`)."""
+    if rows[0].dtype != torch.bfloat16:
+        _check_width("GATv2", "O", d, _float4_rows(d, *rows))
+    elif _row_vectors(d, 2, *rows)[0] > _MAX_VECTORS:
+        raise ValueError(
+            f"the GATv2 kernels take bfloat16 rows of at most "
+            f"{_MAX_VECTORS} vectors per head (of 8 values when O % 8 == 0 "
+            f"and the row operands are 16-byte aligned, 4 when O % 4 == 0 "
+            f"and 8-byte aligned, else 1), got {d}")
 
 
-def _gatv2_args(indptr, col, q, k, a, scalars, rows3) -> torch.device:
-    """Checks shared by K9-K11: float32 contiguous ``[rows, H, O]`` rows and
-    ``[rows, H]`` scalars on one card, ``a [O, H]``, a width they take."""
-    device = _check_launch(indptr, col, {"a": a, **scalars},
-                           {"q": q, "k": k, **rows3})
+def _gatv2_args(indptr, col, q, k, a, state, rows3) -> torch.device:
+    """Checks shared by K9-K11: contiguous ``[rows, H, O]`` rows ``q``,
+    ``k`` and ``rows3`` and ``a [O, H]``, all float32 or all bfloat16 (a
+    mix raises ``TypeError``), the float32 softmax ``state`` ``[rows, H]``,
+    on one card; a width they take."""
+    device = _check_launch(indptr, col, {"a": a}, {"q": q, "k": k, **rows3},
+                           state=state, bf16=True)
     if a.shape[0] != q.shape[2]:
         raise ValueError(f"a must be [O, H] = [{q.shape[2]}, {q.shape[1]}], "
                          f"got {tuple(a.shape)}")
@@ -748,9 +777,10 @@ def _gatv2_args(indptr, col, q, k, a, scalars, rows3) -> torch.device:
 def _gatv2_softmax_layout(ov: int, vec_bytes: int, n_rows: int,
                           entries: int) -> tuple[int, int, int]:
     """K9's ``(log_rows, unroll, reg_cap)`` for a head of ``ov`` vectors of
-    ``vec_bytes`` (16: float4, 4: float) and ``entries / n_rows`` edges per
-    receiver on average: :func:`_windowed_rows` of ``G``-lane edge groups
-    at ``_K9_WINDOWS_PER_ROW``, and :func:`_rows_instance` of
+    ``vec_bytes`` (:func:`~.spmm._row_vectors`: 16, 8, 4 or 2) and
+    ``entries / n_rows`` edges per receiver on average:
+    :func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K9_WINDOWS_PER_ROW``, and :func:`_rows_instance` of
     ``_K9_ROWS_LINE`` and ``_K9_ROWS_NARROW``."""
     log_g = min((max(ov, 1) - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K9_WINDOWS_PER_ROW)
@@ -761,30 +791,36 @@ def _gatv2_softmax_layout(ov: int, vec_bytes: int, n_rows: int,
 def _gatv2_softmax_kernel(indptr, col, q, k, a, slope, layout=None):
     """K9 at :func:`_gatv2_softmax_layout`'s layout, or at ``layout``
     (``(log_rows, unroll, reg_cap)``) from the sweep build of the library,
-    which holds every (unroll, reg_cap) instance (``build.load``)."""
+    which holds every (unroll, reg_cap) instance (``build.load``; bfloat16
+    rows: only the shipped ones). bfloat16 rows take
+    ``gatv2_softmax_bf16``, ``num`` in bfloat16."""
     device = _gatv2_args(indptr, col, q, k, a, {}, {})
     n, (_, heads, d) = indptr.numel() - 1, q.shape
     _same_rows(n, q=q)
-    num, m, s = _forward_outputs(n, heads, d, device)
+    num, m, s = _forward_outputs(n, heads, d, device, k.dtype)
     if n == 0 or heads == 0:
         return num, m, s
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(d, q, k, num)
-        layout = _gatv2_softmax_layout(_vectors(d, vec), 16 if vec else 4, n,
-                                       col.numel())
-    _launch("gatv2_softmax_f32", "k9", device, _ptr(indptr), _ptr(col),
-            _ptr(q), _ptr(k), _ptr(a), _ptr(num), _ptr(m), _ptr(s), n,
-            heads, d, *layout, float(slope), sweep=sweep)
+        layout = _gatv2_softmax_layout(
+            *_row_vectors(d, k.element_size(), q, k, num), n, col.numel())
+    a32 = a.float()
+    _launch(*_gat_fn("gatv2_softmax", "k9", k), device, _ptr(indptr),
+            _ptr(col), _ptr(q), _ptr(k), _ptr(a32), _ptr(num), _ptr(m),
+            _ptr(s), n, heads, d, *layout, float(slope), sweep=sweep)
     return num, m, s
 
 
 def _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy):
+    """The checks of K10 and K11 and their operands' pointers, ``a``
+    widened to float32 (exact for bfloat16), which the returned tuple
+    keeps alive past the launch."""
     device = _gatv2_args(indptr, col, q, k, a,
                          {"mx": mx, "den": den, "s_n": s_n}, {"dy": dy})
     _same_rows(q.shape[0], mx=mx, den=den, s_n=s_n, dy=dy)   # receivers
-    return device, tuple(_ptr(t) for t in (indptr, col, q, k, a, mx, den,
-                                           s_n, dy))
+    a32 = a.float()
+    return device, tuple(_ptr(t) for t in (indptr, col, q, k, a32, mx, den,
+                                           s_n, dy)), a32
 
 
 _WARPS_PER_BLOCK = 8     # kWarpsPerBlock of csrc/edge_softmax.cu
@@ -793,9 +829,10 @@ _WARPS_PER_BLOCK = 8     # kWarpsPerBlock of csrc/edge_softmax.cu
 def _gatv2_bwd_dq_layout(ov: int, vec_bytes: int, n_rows: int,
                          entries: int) -> tuple[int, int, int]:
     """K10's ``(log_rows, unroll, reg_cap)`` for a head of ``ov`` vectors
-    of ``vec_bytes`` (16: float4, 4: float) and ``entries / n_rows`` edges
-    per receiver on average: :func:`_windowed_rows` of ``G``-lane edge
-    groups at ``_K10_WINDOWS_PER_ROW``, and :func:`_rows_instance`."""
+    of ``vec_bytes`` (:func:`~.spmm._row_vectors`: 16, 8, 4 or 2) and
+    ``entries / n_rows`` edges per receiver on average:
+    :func:`_windowed_rows` of ``G``-lane edge groups at
+    ``_K10_WINDOWS_PER_ROW``, and :func:`_rows_instance`."""
     log_g = min((max(ov, 1) - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K10_WINDOWS_PER_ROW)
     return (log_rows,) + _rows_instance(ov, vec_bytes << log_g)
@@ -814,27 +851,32 @@ def _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
                          layout=None):
     """K10 at :func:`_gatv2_bwd_dq_layout`'s layout, or at ``layout``
     (``(log_rows, unroll, reg_cap)``) from the sweep build of the library,
-    which holds every (unroll, reg_cap) instance (``build.load``). The dq
-    walk writes each block's share of ``da`` to ``[H, O, blocks]`` scratch
-    (:func:`_dq_blocks`), which a second launch sums in a fixed order."""
-    device, args = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy)
+    which holds every (unroll, reg_cap) instance (``build.load``; bfloat16
+    rows: only the shipped ones). The dq walk writes each block's share of
+    ``da`` to ``[H, O, blocks]`` float32 scratch (:func:`_dq_blocks`),
+    which a second launch sums in a fixed order. bfloat16 rows take
+    ``gatv2_bwd_dq_bf16``, ``dq`` in bfloat16; ``da`` is float32 either
+    way, and both launches count under ``k10_bf16``."""
+    device, args, _a32 = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n,
+                                         dy)
     n, heads, d = indptr.numel() - 1, q.shape[1], q.shape[2]
     _same_rows(n, q=q)
-    dq = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    dq = torch.empty((n, heads, d), dtype=q.dtype, device=device)
     da = torch.empty((d, heads), dtype=torch.float32, device=device)
     if n == 0 or heads == 0 or d == 0:
         return dq, da.zero_()
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(d, q, k, dy, dq)
-        layout = _gatv2_bwd_dq_layout(_vectors(d, vec), 16 if vec else 4, n,
-                                      col.numel())
+        layout = _gatv2_bwd_dq_layout(
+            *_row_vectors(d, dy.element_size(), q, k, dy, dq), n,
+            col.numel())
     blocks = _dq_blocks(n, layout[0])
     part = torch.empty((heads, d, blocks), dtype=torch.float32,
                        device=device)
-    _launch("gatv2_bwd_dq_f32", "k10", device, *args, _ptr(dq), _ptr(part),
-            n, heads, d, *layout, float(slope), sweep=sweep)
-    _launch("gatv2_da_reduce_f32", "k10", device, _ptr(part), _ptr(da),
+    fn, key = _gat_fn("gatv2_bwd_dq", "k10", dy)
+    _launch(fn, key, device, *args, _ptr(dq), _ptr(part), n, heads, d,
+            *layout, float(slope), sweep=sweep)
+    _launch("gatv2_da_reduce_f32", key, device, _ptr(part), _ptr(da),
             blocks, heads, d, sweep=sweep)
     return dq, da
 
@@ -842,9 +884,9 @@ def _gatv2_bwd_dq_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
 def _gatv2_bwd_rev_layout(ov: int, vec_bytes: int, n_rows: int,
                           entries: int) -> tuple[int, int, int, int]:
     """K11's ``(log_rows, unroll, reg_cap, packed)`` for a head of ``ov``
-    vectors of ``vec_bytes`` (16: float4, 4: float) and ``entries /
-    n_rows`` edges per sender on average: K8's rows per warp
-    (:func:`_windowed_rows` of ``G``-lane edge groups at
+    vectors of ``vec_bytes`` (:func:`~.spmm._row_vectors`: 16, 8, 4 or 2)
+    and ``entries / n_rows`` edges per sender on average: K8's rows per
+    warp (:func:`_windowed_rows` of ``G``-lane edge groups at
     ``_K8_WINDOWS_PER_ROW``); ``_K11_UNROLL`` edges in flight at
     ``_K11_REG_CAP`` registers for rows of one register chunk (at most 32
     vectors), one edge and no cap for wider rows; the receivers' scalars
@@ -861,24 +903,27 @@ def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
                           layout=None):
     """K11 at :func:`_gatv2_bwd_rev_layout`'s layout, or at ``layout``
     (``(log_rows, unroll, reg_cap, packed)``) from the sweep build of the
-    library, which holds every (unroll, reg_cap) instance (``build.load``).
-    ``packed`` stacks the receivers' ``(mx, den, s_n)`` into ``[rows, H,
-    4]`` for the kernel to read in one load an edge."""
-    device, args = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n, dy)
+    library, which holds every (unroll, reg_cap) instance (``build.load``;
+    bfloat16 rows: only the shipped ones). ``packed`` stacks the
+    receivers' float32 ``(mx, den, s_n)`` into ``[rows, H, 4]`` for the
+    kernel to read in one load an edge. bfloat16 rows take
+    ``gatv2_bwd_rev_bf16``, ``dk`` in bfloat16."""
+    device, args, _a32 = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n,
+                                         dy)
     n, heads, d = indptr.numel() - 1, k.shape[1], k.shape[2]
     _same_rows(n, k=k)
-    dk = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    dk = torch.empty((n, heads, d), dtype=k.dtype, device=device)
     if n == 0 or heads == 0 or d == 0:
         return dk
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(d, q, k, dy, dk)
-        layout = _gatv2_bwd_rev_layout(_vectors(d, vec), 16 if vec else 4, n,
-                                       col.numel())
+        layout = _gatv2_bwd_rev_layout(
+            *_row_vectors(d, dy.element_size(), q, k, dy, dk), n,
+            col.numel())
     stats = torch.stack((mx, den, s_n, mx), -1) if layout[3] else None
-    _launch("gatv2_bwd_rev_f32", "k11", device, *args[:8], _ptr(stats),
-            args[8], _ptr(dk), n, heads, d, *layout[:3], float(slope),
-            sweep=sweep)
+    _launch(*_gat_fn("gatv2_bwd_rev", "k11", dy), device, *args[:8],
+            _ptr(stats), args[8], _ptr(dk), n, heads, d, *layout[:3],
+            float(slope), sweep=sweep)
     return dk
 
 
@@ -1287,12 +1332,15 @@ class GatV2AttentionFunction(torch.autograd.Function):
         (q, k, a, self_logits, self_values, out, mx, den, indptr_r, col_r,
          indptr_s, col_s) = ctx.saved_tensors
         dy = dy.contiguous()
-        s_n = (out * dy).sum(-1)
+        # float32 for bfloat16 rows, as the state (edge_softmax.py:1545)
+        work = _work_dtype(out.dtype)
+        s_n = (out.to(work) * dy.to(work)).sum(-1)
         args = (q, k, a, mx, den, s_n, dy, ctx.slope)
         need = ctx.needs_input_grad
         dq = dk = da = None
         if need[0] or need[2]:
             dq, da = gatv2_bwd_dq(indptr_r, col_r, *args)
+            da = da.to(a.dtype)   # float32 sums, rounded once
         if need[1]:
             dk = gatv2_bwd_rev(indptr_s, col_s, *args)
         dsl, dsv = _self_grads(self_logits, self_values, None, mx, den, s_n,

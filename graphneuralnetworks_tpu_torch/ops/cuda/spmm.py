@@ -200,9 +200,9 @@ def _raise_on_error(lib, code: int, what: str) -> None:
 
 
 # Where a float32-only kernel meets bfloat16
-_BF16_NOT_PORTED = ("bfloat16 runs on K1-K5 and K12-K14; the bfloat16 "
-                    "variants of GATv2's K9-K11 and dot attention's K6-K8 "
-                    "are not ported yet (ROADMAP.md queue 2)")
+_BF16_NOT_PORTED = ("bfloat16 runs on K1-K5 and K9-K14; the bfloat16 "
+                    "variants of dot attention's K6-K8 are not ported yet "
+                    "(ROADMAP.md queue 2)")
 
 
 def _check(t, name: str, dtype, device) -> None:

@@ -1,8 +1,8 @@
 """The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2),
 edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11; dot attention's K6,
 K7, K8), the per-edge dot (K13) and the segment max (K14 and its
-backward); K1-K5 and K12-K14 (and K14's backward) also on bfloat16, and
-the raise of the routes that take float32 only (K6-K11).
+backward); K1-K5 and K9-K14 (and K14's backward) also on bfloat16, and
+the raise of the routes that take float32 only (K6-K8).
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
   held to) against a dense adjacency product or per-edge loops in float64.
@@ -1040,7 +1040,7 @@ def test_start_vector_on_card_equals_cpu():
                                    rtol=0, atol=0)
 
 
-# ---- bfloat16: K1-K5, K12-K14 ---------------------------------------------
+# ---- bfloat16: K1-K5, K9-K14 ----------------------------------------------
 
 def _assert_bf16_close(got, want):
     """Kernel and plain version each round one float32 sum to bfloat16;
@@ -1114,9 +1114,188 @@ def test_gat_bf16_kernels_match_plain_on_card(heads, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads,o", [(1, 8), (2, 4), (4, 32), (1, 13),
+                                     (1, 264)])
+def test_gatv2_bf16_kernels_match_plain_on_card(heads, o):
+    """K9, K10 (dq and da) and K11 on bfloat16 q, k, dy and a with the
+    float32 state: 16-byte vectors (8, 32; 264: 33 vectors, two register
+    chunks), 8-byte ones (4) and single values (13); nodes 40-49 have no
+    in-edges and no out-edges. num, dq and dk within one bfloat16 ulp of
+    the plain versions; m, s and da (float32) at the float32 tolerance;
+    only the bfloat16 variants launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = _graph(13, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(heads * 1000 + o)
+    n = g.num_nodes
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).bfloat16()
+
+    q, k, dy = rn(n, heads, o), rn(n, heads, o), rn(n, heads, o)
+    a = rn(o, heads, scale=(2.0 / (o + heads)) ** 0.5)
+    tol = dict(rtol=1e-5, atol=1e-4)
+    before = dict(ES.launches)
+    args = (g.indptr_r, g.col_r, q, k, a, SLOPE)
+    (num, m, s), (pnum, pm, ps) = (ES.gatv2_softmax(*args),
+                                   ES.gatv2_softmax_plain(*args))
+    _assert_bf16_close(num, pnum)
+    for x, y in ((m, pm), (s, ps)):
+        assert x.dtype == torch.float32
+        torch.testing.assert_close(x, y, **tol)
+    assert torch.isneginf(pm[40:]).all() and (num[40:] == 0).all()
+    out, mx, den = ES.finalize_softmax(pnum, pm, ps, rn(n, heads),
+                                       rn(n, heads, o))
+    bwd = (q, k, a, mx, den, (out.float() * dy.float()).sum(-1), dy, SLOPE)
+    (dq, da), (pdq, pda) = (ES.gatv2_bwd_dq(g.indptr_r, g.col_r, *bwd),
+                            ES.gatv2_bwd_dq_plain(g.indptr_r, g.col_r, *bwd))
+    _assert_bf16_close(dq, pdq)
+    assert da.dtype == pda.dtype == torch.float32
+    torch.testing.assert_close(da, pda, **tol)
+    _assert_bf16_close(ES.gatv2_bwd_rev(g.indptr_s, g.col_s, *bwd),
+                       ES.gatv2_bwd_rev_plain(g.indptr_s, g.col_s, *bwd))
+    torch.cuda.synchronize()
+    assert {k_: ES.launches[k_] - before[k_] for k_ in before
+            if ES.launches[k_] != before[k_]} == {"k9_bf16": 1,
+                                                  "k10_bf16": 2,
+                                                  "k11_bf16": 1}
+
+
+def _gatv2_scales(g, n_dst, q, k, a, sl, sv, dy, slope):
+    """S of gatv2_attention's output and of the gradients of ``q, k, a,
+    sl, sv``: each the same sum over the absolute values of its terms, in
+    float64 (tests/test_torch_gatv2_bf16.py derives the bounds)."""
+    q, k, a, sl, sv, dy = (t.detach().double().cpu()
+                           for t in (q, k, a, sl, sv, dy))
+    s, r = g.senders.long().cpu(), g.receivers.long().cpu()
+    raw = q[r] + k[s]
+    act = torch.where(raw >= 0, raw, slope * raw)
+    dsig = torch.where(raw >= 0, 1.0, slope)
+    lg = torch.einsum("eho,oh->eh", act, a)
+    mx = torch.full(q.shape[:2], float("-inf"), dtype=torch.float64)
+    mx = mx.scatter_reduce(0, r[:, None].expand_as(lg), lg, "amax")
+    mx = torch.maximum(mx, sl)
+    ex = torch.exp(lg - mx[r])
+    ex_self = torch.exp(sl - mx)
+    den = torch.zeros_like(mx).index_add_(0, r, ex) + ex_self
+    alpha, a_self = ex / den[r], ex_self / den
+    s_out = (a_self[..., None] * sv.abs()).index_add_(
+        0, r, alpha[..., None] * k[s].abs())
+    sn_abs = (s_out * dy.abs()).sum(-1)
+    terms = alpha * ((k[s] * dy[r]).abs().sum(-1) + sn_abs[r])
+    draw = terms[..., None] * a.t().abs() * dsig
+    s_dq = torch.zeros(q.shape, dtype=torch.float64).index_add_(0, r, draw)
+    s_dk = torch.zeros(k.shape, dtype=torch.float64).index_add_(
+        0, s, draw + alpha[..., None] * dy[r].abs())
+    s_da = torch.einsum("eh,eho->oh", terms, act.abs())
+    s_dsl = a_self * ((sv * dy).abs().sum(-1) + sn_abs)
+    s_dsv = a_self[..., None] * dy.abs()
+    assert q.shape[0] == n_dst
+    return s_out, [s_dq, s_dk, s_da, s_dsl, s_dsv]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_src,n_dst", [(50, 50), (30, 50), (50, 30)])
+def test_gatv2_bf16_attention_on_card_matches_cpu(monkeypatch, n_src,
+                                                  n_dst):
+    """gatv2_attention on bfloat16 CUDA tensors (K9, K10, K11 in bfloat16,
+    no cast: only the _bf16 launches) against the same autograd function
+    on the CPU (the kernels' plain versions), at (H, O) = (4, 32), also
+    with N_src != N_dst through the cut CSRs (``_rows``, ``_senders``):
+    the output within 5 u S, the gradients of q, k, a and the self logits
+    within 9 u S, the self values' within 2 u S, S the same sums over
+    absolute values (the bounds of tests/test_torch_gatv2_bf16.py, which
+    also count the JAX kernels' extra roundings)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    heads, o, u = 4, 32, 2.0 ** -8
+    rng = np.random.default_rng(n_src * 7 + n_dst)
+    s = rng.integers(0, n_src, 400)
+    r = rng.integers(0, min(n_dst, 40), 400)   # the last rows: no in-edges
+    g = tgnn.graph(s, r, num_nodes=max(n_src, n_dst), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(n_src + n_dst)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).bfloat16()
+    ins = [rn(n_dst, heads, o), rn(n_src, heads, o),
+           rn(o, heads, scale=(2.0 / (o + heads)) ** 0.5), rn(n_dst, heads),
+           rn(n_dst, heads, o)]
+    cot = torch.randn(n_dst, heads, o, device="cuda", generator=gen)
+    results = {}
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
+        ts = [t.to(device, copy=True).requires_grad_() for t in ins]
+        before = dict(ES.launches)
+        out = TA.gatv2_attention(g.to(device), *ts[:3], SLOPE,
+                                 self_logits=ts[3], self_values=ts[4],
+                                 num_segments=n_dst)
+        (out.float() * cot.to(device)).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: ES.launches[k] - before[k] for k in before
+                    if ES.launches[k] != before[k]}
+        assert launched == ({"k9_bf16": 1, "k10_bf16": 2, "k11_bf16": 1}
+                            if device == "cuda" else {})
+        assert out.dtype == torch.bfloat16
+        assert all(t.grad.dtype == torch.bfloat16 for t in ts)
+        results[device] = [out] + [t.grad for t in ts]
+    s_out, s_grads = _gatv2_scales(g, n_dst, *ins,
+                                   cot.bfloat16().double(), SLOPE)
+    for i, (x, y, scale, k) in enumerate(zip(
+            results["cuda"], results["cpu"], [s_out] + s_grads,
+            [5, 9, 9, 9, 9, 2])):
+        err = (x.detach().double().cpu() - y.detach().double()).abs()
+        tol = k * u * scale + 1e-5 * scale + 1e-6
+        assert bool((err <= tol).all()), (i, float((err / tol).max()))
+
+
+@pytest.mark.gpu
+def test_precision_gatv2_step_on_card_matches_cpu(monkeypatch):
+    """One forward and backward of ``Precision(GNNChain(GATv2Conv(heads=4),
+    GATv2Conv))`` on the card (only K9, K10 and K11 in bfloat16: 2, 4 and
+    2 launches) against the same model on the CPU through the same
+    autograd functions (plain versions): the output within 18 u of max
+    |out|, the float32 gradients within 18 u by norm (two layers of 9 u:
+    tests/test_torch_gatv2_bf16.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    u = 2.0 ** -8
+    g = _graph(14, "cuda", torch.float32)
+    gen = torch.Generator().manual_seed(14)
+    model = tgnn.models.Precision(tgnn.models.GNNChain(
+        tgnn.models.GATv2Conv(16, 8, torch.relu, heads=4, generator=gen,
+                              device="cuda"),
+        tgnn.models.GATv2Conv(32, 4, generator=gen, device="cuda")))
+    x = torch.randn(g.num_nodes, 16, generator=gen)
+    results = {}
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
+        m = copy.deepcopy(model).to(device)
+        before = dict(ES.launches)
+        out = m(g.to(device), x.to(device))
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: ES.launches[k] - before[k] for k in before
+                    if ES.launches[k] != before[k]}
+        assert launched == ({"k9_bf16": 2, "k10_bf16": 4, "k11_bf16": 2}
+                            if device == "cuda" else {})
+        assert out.dtype == torch.bfloat16
+        results[device] = (out.detach().double().cpu(),
+                           [p.grad.double().cpu() for p in m.parameters()])
+    (oc, gc), (oh, gh) = results["cuda"], results["cpu"]
+    assert float((oc - oh).abs().max()) <= 18 * u * float(oh.abs().max())
+    for a, b in zip(gc, gh):
+        assert float((a - b).norm() / b.norm()) <= 18 * u
+
+
+@pytest.mark.gpu
 def test_bf16_kernels_refuse_a_mix_on_card():
     """float32 weights with bfloat16 rows (K1), a float32 pi with bfloat16
-    values (K3) or a bfloat16 state (K4): TypeError, nothing launched."""
+    values (K3), a bfloat16 state (K4), a float32 q with bfloat16 k (K9)
+    or a bfloat16 s_n (K11): TypeError, nothing launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     g, x = _attention_inputs(2, 8, "cuda")
@@ -1130,6 +1309,12 @@ def test_bf16_kernels_refuse_a_mix_on_card():
     with pytest.raises(TypeError):
         ES.gat_bwd_dpi(g.indptr_r, g.col_r, b["pi"], b["pj"], b["v"],
                        b["pi"], b["pi"], b["pi"], b["dy"], SLOPE)
+    a = b["v"][0].t().contiguous()            # [O, H]
+    with pytest.raises(TypeError):
+        ES.gatv2_softmax(g.indptr_r, g.col_r, x["v"], b["v"], a, SLOPE)
+    with pytest.raises(TypeError):
+        ES.gatv2_bwd_rev(g.indptr_s, g.col_s, b["v"], b["v"], a, x["pi"],
+                         x["pi"], b["pi"], b["dy"], SLOPE)
     assert {**S.launches, **ES.launches} == before
 
 
@@ -1314,10 +1499,10 @@ def test_gather_backward_bf16_on_card(d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["K6-K8", "K9-K11"])
+@pytest.mark.parametrize("route", ["K6-K8"])
 def test_float32_only_routes_raise_on_bf16_on_card(route):
-    """GATv2's and dot attention's kernel routes raise TypeError naming
-    bfloat16 on a bfloat16 CUDA tensor; there is no cast to float32."""
+    """Dot attention's kernel route raises TypeError naming bfloat16 on a
+    bfloat16 CUDA tensor; there is no cast to float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     g = _graph(9, "cuda", torch.float32)
@@ -1329,7 +1514,6 @@ def test_float32_only_routes_raise_on_bf16_on_card(route):
     q = rn(n, 2, 4)
     calls = {
         "K6-K8": lambda: TA.dot_attention(g, q, q, q),
-        "K9-K11": lambda: TA.gatv2_attention(g, q, q, rn(4, 2), SLOPE),
     }
     with pytest.raises(TypeError, match="bfloat16"):
         calls[route]()

@@ -263,7 +263,8 @@ def _rand_csr_args(rng, heads, d):
 
 
 PLAIN_CASES = ["spmm", "spmm_weighted", "spmm_sddmm", "gat_softmax",
-               "gat_bwd_dpi", "gat_bwd_rev"]
+               "gat_bwd_dpi", "gat_bwd_rev", "gatv2_softmax", "gatv2_bwd_dq",
+               "gatv2_bwd_rev"]
 
 
 @pytest.mark.parametrize("case", PLAIN_CASES)
@@ -281,6 +282,18 @@ def test_plain_versions_bf16_are_float32_rounded_once(case):
                 "spmm_weighted": (S.spmm_plain, (is_, cs, es, w, x)),
                 "spmm_sddmm": (S.spmm_sddmm_plain,
                                (is_, cs, es, w, bf(n, 6), x))}[case]
+    elif case.startswith("gatv2"):
+        h, o = 2, 6
+        q, k, dy, a = bf(n, h, o), bf(n, h, o), bf(n, h, o), bf(o, h)
+        num, m, s = ES.gatv2_softmax_plain(ir, cr, q, k, a, SLOPE)
+        out, mx, den = ES.finalize_softmax(num, m, s)
+        s_n = (out.float() * dy.float()).sum(-1)
+        bwd = (q, k, a, mx, den, s_n, dy, SLOPE)
+        args = {"gatv2_softmax": (ES.gatv2_softmax_plain,
+                                  (ir, cr, q, k, a, SLOPE)),
+                "gatv2_bwd_dq": (ES.gatv2_bwd_dq_plain, (ir, cr) + bwd),
+                "gatv2_bwd_rev": (ES.gatv2_bwd_rev_plain,
+                                  (is_, cs) + bwd)}[case]
     else:
         h, d = 2, 6
         pi, pj, v, dy = bf(n, h), bf(n, h), bf(n, h, d), bf(n, h, d)
@@ -330,6 +343,32 @@ def test_finalize_softmax_returns_num_dtype():
         ref, _, _ = ES.finalize_softmax(num.float(), m, s, *(
             None if a is None else a.float() for a in extra))
         assert torch.equal(out, ref.to(torch.bfloat16))
+
+
+def test_gatv2_backward_takes_s_n_in_float32(monkeypatch):
+    """GatV2AttentionFunction's backward hands K10 and K11 ``s_n`` in
+    float32 for bfloat16 rows (JAX ``edge_softmax.py:1545-1547``), and
+    returns every gradient in its primal's type."""
+    seen = []
+    for name in ("gatv2_bwd_dq", "gatv2_bwd_rev"):
+        def spy(*args, real=getattr(ES, name), name=name):
+            seen.append((name, args[7].dtype))        # s_n
+            return real(*args)
+        monkeypatch.setattr(ES, name, spy)
+    rng = np.random.default_rng(5)
+    g = tgnn.rand_graph(30, 120, seed=5, device="cpu")
+
+    def bf(*shape):
+        return torch.tensor(rng.standard_normal(shape),
+                            dtype=torch.float32).to(
+            torch.bfloat16).requires_grad_()
+    ins = [bf(30, 2, 4), bf(30, 2, 4), bf(4, 2), bf(30, 2), bf(30, 2, 4)]
+    out = ES.gatv2_attention_nodes(g, *ins[:3], SLOPE, self_logits=ins[3],
+                                   self_values=ins[4])
+    out.float().sum().backward()
+    assert seen == [("gatv2_bwd_dq", torch.float32),
+                    ("gatv2_bwd_rev", torch.float32)]
+    assert all(t.grad.dtype == torch.bfloat16 for t in ins)
 
 
 def test_gat_backward_takes_s_n_in_float32(monkeypatch):
@@ -448,8 +487,6 @@ def _bf16_checks():
     def z(*shape, dtype=b):
         return torch.zeros(shape, dtype=dtype)
     return {
-        "K9-K11": lambda: ES._gatv2_args(ir, cr, z(16, 2, 4), z(16, 2, 4),
-                                         z(4, 2), {}, {}),
         "K6-K8": lambda: ES._dot_args(ir, cr, z(16, 2, 4), z(16, 2, 4),
                                       z(16, 2, 4), {}, {}, {}),
     }
@@ -462,11 +499,12 @@ def test_float32_only_routes_raise_on_bf16(route):
 
 
 @pytest.mark.parametrize("case", ["K1 w", "K3 pi", "K4 mx", "K5 dy", "K2 w",
-                                  "K12 mask", "K13 xj", "K14 dy"])
+                                  "K12 mask", "K13 xj", "K14 dy", "K9 q",
+                                  "K10 dy", "K11 mx"])
 def test_bf16_kernels_refuse_a_mix_of_types(case):
-    """K1's and K2's rows and weights, GAT's and K12's rows and scalars,
-    K13's two row tables and K14's operands are all float32 or all
-    bfloat16; the softmax state float32. A mix raises."""
+    """K1's and K2's rows and weights, GAT's, GATv2's and K12's rows and
+    scalars, K13's two row tables and K14's operands are all float32 or
+    all bfloat16; the softmax state float32. A mix raises."""
     g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
     ir, cr, is_, cs, es = g.indptr_r, g.col_r, g.indptr_s, g.col_s, g.eid_s
     b, f = torch.bfloat16, torch.float32
@@ -476,6 +514,8 @@ def test_bf16_kernels_refuse_a_mix_of_types(case):
     bwd = dict(pi=z(16, 2), pj=z(16, 2), values_n=z(16, 2, 4),
                mx=z(16, 2, dtype=f), den=z(16, 2, dtype=f),
                s_n=z(16, 2, dtype=f), dy=z(16, 2, 4))
+    v2 = dict(q=z(16, 2, 4), k=z(16, 2, 4), a=z(4, 2), mx=z(16, 2, dtype=f),
+              den=z(16, 2, dtype=f), s_n=z(16, 2, dtype=f), dy=z(16, 2, 4))
     with pytest.raises(TypeError):
         if case == "K1 w":
             S._check_launch(ir, cr, None, z(40, dtype=f), z(16, 4))
@@ -495,11 +535,19 @@ def test_bf16_kernels_refuse_a_mix_of_types(case):
                              {"values": z(16, 2, 4)}, bf16=True)
         elif case == "K13 xj":
             SD._sddmm_kernel(ir, cr, z(16, 2, 4), z(16, 2, 4, dtype=f))
+        elif case == "K9 q":
+            ES._gatv2_args(ir, cr, z(16, 2, 4, dtype=f), z(16, 2, 4),
+                           z(4, 2), {}, {})
+        elif case == "K10 dy":
+            ES._gatv2_bwd_args(ir, cr, **{**v2, "dy": z(16, 2, 4, dtype=f)})
+        elif case == "K11 mx":
+            ES._gatv2_bwd_args(is_, cs, **{**v2, "mx": z(16, 2)})
         else:
             SG._check_launch(ir, z(40, 4), z(16, 4), z(16, 4, dtype=f))
     # the same operands, all of one type, pass
     S._check_launch(ir, cr, None, z(40), z(16, 4))
     ES._gat_bwd_args(ir, cr, **bwd)
+    ES._gatv2_bwd_args(ir, cr, **v2)
     S._check_sddmm(is_, cs, es, z(40), z(16, 4), z(16, 4))
     ES._check_launch(ir, cr, {"logits": z(40, 2), "mask": z(40, 2)},
                      {"values": z(16, 2, 4)}, bf16=True)
