@@ -47,6 +47,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    2h: the bfloat16 kernels (``spmm_csr_bf16``, ``spmm_sddmm_csr_bf16``,
    ``gat_softmax_bf16``, ``gat_bwd_dpi_bf16``, ``gat_bwd_rev_bf16``,
    ``gatv2_softmax_bf16``, ``gatv2_bwd_dq_bf16``, ``gatv2_bwd_rev_bf16``,
+   ``dot_softmax_bf16``, ``dot_bwd_dq_bf16``, ``dot_bwd_rev_bf16``,
    ``edge_softmax_bf16``, ``sddmm_csr_bf16``, ``segment_max_csr_bf16``,
    ``segment_max_bwd_csr_bf16``): K1 over the receiver CSR at D = 128
    (bench.py's ``large_pallas_bf16``) and 8, over the sender CSR at D =
@@ -55,7 +56,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    128, 8 and (H, D) = (4, 32) in one launch; K3, K4 and K5 at (4, 32),
    (1, 8) and (1, 128) (bench.py's ``attention_bf16``); K9, K10 (``dq``;
    its float32 ``da`` against the plain version in float64, as 2c) and
-   K11 at (H, O) = (4, 32) and (1, 8); K12 at (4, 32)
+   K11 at (H, O) = (4, 32) and (1, 8); K6 (writing the raw logits), K7
+   (from them) and K8 at 2d's (H, O, D) = (4, 32, 32), (1, 8, 8), (1, 128,
+   128) (K6 and K7 in strips) and (4, 32, 32) with a slope; K12 at (4, 32)
    with node values, with them and a dropout mask, with edge values and
    the mask, and at (1, 8) with the mask; K13 at D = 128, 32 and (4, 32);
    each held to its plain version within one bfloat16 ulp; K14 (max, min)
@@ -109,11 +112,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its ``reverse``, ResGatedGraphConv, and ``GatedGraphConv(128, 2)`` then
    ``Linear(128, 8)`` (all K1), each trained and held card vs CPU as 3c
    holds the others, with DConv also on the reverse of a weighted graph.
-   3o: eight paths in ``models.Precision`` (bfloat16 compute, float32
+   3o: ten paths in ``models.Precision`` (bfloat16 compute, float32
    master parameters and Adam), each with its float32 phase's model and
    graph, a float32 loss of the bfloat16 output, 10 steps each, profiled,
    only bfloat16 variants launched: 3a's GCN (K1 3 a step), 3d's GAT (K3,
-   K4, K5 2 each), 3f's GATv2 (K9 2, K10 4, K11 2), 3b's GCN with learned
+   K4, K5 2 each), 3f's GATv2 (K9 2, K10 4, K11 2), 3g's Transformer and
+   3h's AGNN (K6, K7, K8 2 each), 3b's GCN with learned
    edge weights (K1 2, K2 2), 3e's
    GAT with attention dropout 0.6 (K12 2, K2 2), 3i's link step (K13 2,
    K1 7), 3j's EdgeConv (K14 2, its backward 2, K1 2) and 3k's graph
@@ -373,13 +377,39 @@ EDGECONV_GRAD_NORM_RTOL = 5e-3
 # mean. The logit path's gradients (dq, so dense_i's weight) take kappa =
 # 0.6 / 0.4 = 1.5 times the count: BF16_KAPPA, on every gradient limit of
 # the cell. The CPU tests hold dq per element against S, the same sum
-# over absolute values (tests/test_torch_gatv2_bf16.py).
+# over absolute values (tests/test_torch_gatv2_bf16.py). Transformer (3g):
+# per TransformerConv the four dense products W3 x (q), W4 x (k), W2 x (v)
+# and W1 x (the root) and their + bias, 8, the attention sum (num) and its
+# normalisation (out), 2, and the root's + h, 1: 11 (the logits are
+# float32 from the rounded projections on both sides, as K6 and the CPU
+# path compute them: none; the head layer's mean over one head is exact),
+# R = 22; x and per layer four weights and four biases, C = 17. Its key
+# bias (W4.bias) has a gradient of 0 in exact arithmetic (see
+# ZERO_GRAD_FLOOR): each side's is the rounding of terms at the scale of
+# the other gradients, so it is held to the largest gradient's norm, not
+# its own. AGNN (3h): the input Linear's product and + bias, 2; per
+# AGNNConv the sum of x^2 and its square root, x / norm, beta * x_n, the
+# self logit's sum and its beta *, the attention sum (num) and its
+# normalisation (out), 8; the head Linear's product and + bias, 2: R = 20;
+# x, two weights, two biases and the two betas, C = 7. A beta's gradient
+# sum_e dlg_e lg_e / beta cancels: a receiver's dlg_e sum to about 0 (the
+# softmax's Jacobian), and after relu and an attention layer the rows x_n
+# are nearly parallel, so the logits lg_e of a row nearly equal. Its
+# rounding errors follow S, the same sum over absolute values, not the
+# gradient, so each beta is held by S (agnn_beta_scales, from the float64
+# side) in place of its norm. Neither cell takes a kappa: the
+# Transformer's dq = sum_e dlg_e k_e keeps the part of k_e that varies over
+# a row's edges, and the errors that do not sum to 0 (those of s_n) keep
+# the row's mean of k_e = W4 x_s + b, about 1/sqrt(15) of that part (x has
+# mean 0, b starts at 0); AGNN's cancelling sums are the betas', held by
+# S.
 BF16_U = 2.0 ** -8
 # per cell: (R, C), see above
 BF16_CELLS = {"GCN": (14, 6), "GAT": (18, 6), "GATv2": (16, 11),
               "GCN learned edge weights": (16, 7), "GAT (b)": (18, 6),
               "link prediction": (15, 6), "EdgeConv": (6, 5),
-              "graph classification": (12, 9)}
+              "graph classification": (12, 9), "Transformer": (22, 17),
+              "AGNN": (20, 7)}
 # per cell: the factor kappa of its gradient limits where the backward
 # cancels (GATv2's dq, see above); 1 for the others
 BF16_KAPPA = {"GATv2": 1.5}
@@ -886,7 +916,10 @@ def bf16_phase(g, gb, card: str) -> dict:
     and K5 at (H, D) = (4, 32) and (1, 8) (3o's GAT) and (1, 128)
     (bench.py's ``attention_bf16``, :235-250); K9, K10 (``dq``; its
     float32 ``da`` held to the plain version in float64, as 2c holds it)
-    and K11 at (H, O) = (4, 32) and (1, 8) (3o's GATv2); K2 over the
+    and K11 at (H, O) = (4, 32) and (1, 8) (3o's GATv2); K6 (writing the
+    raw logits), K7 (from them) and K8 at 2d's (H, O, D) = (4, 32, 32),
+    (1, 8, 8), (1, 128, 128), whose K6 and K7 take the strips (asserted),
+    and (4, 32, 32) with a slope (3o's Transformer and AGNN); K2 over the
     sender CSR at D=128 and 8 (3o's GCN with learned edge weights) and at
     H=4, D=32 in one launch (3o's GAT (b) layer 1); K12 at (4, 32) with
     node values,
@@ -915,8 +948,9 @@ def bf16_phase(g, gb, card: str) -> dict:
     ir, cr, is_, cs, es = g.indptr_r, g.col_r, g.indptr_s, g.col_s, g.eid_s
     res = {k: {"err": 0.0, "variants": []}
            for k in ("k1_bf16", "k2_bf16", "k3_bf16", "k4_bf16", "k5_bf16",
-                     "k9_bf16", "k10_bf16", "k11_bf16", "k12_bf16",
-                     "k13_bf16", "k14_bf16", "k14_bwd_bf16")}
+                     "k6_bf16", "k7_bf16", "k8_bf16", "k9_bf16", "k10_bf16",
+                     "k11_bf16", "k12_bf16", "k13_bf16", "k14_bf16",
+                     "k14_bwd_bf16")}
     log(f"phase 2h: bfloat16 kernels vs plain versions (N={N}, E={E})")
 
     def rn(*shape):
@@ -1137,6 +1171,49 @@ def bf16_phase(g, gb, card: str) -> dict:
              (is_, cs) + bwd, idx + 4 * rows + 3 * s4 + 2 * o * h,
              E * h * (11 * o + 8))
         del q, k, dy, sl, sv, num, out, bwd
+
+    # K6, K7 and K8 at 2d's shapes (3o Transformer's and AGNN's): int32
+    # indptr and col; bfloat16 rows q, k, v, dy and num, dq, dk, dv (2 N H
+    # O or 2 N H D bytes each); float32 state and s_n (4 N H each) and raw
+    # logits (4 E H). K6 writes the raw logits and K7 reads them, as
+    # DotAttentionFunction calls them; AGNN's K6 and K7 take the strips.
+    for h, o, d, slope in DOT_SHAPES:
+        q, k, v, dy = rn(N, h, o), rn(N, h, o), rn(N, h, d), rn(N, h, d)
+        scale = o ** -0.5
+        hd = f"H={h} O={o} D={d}" + ("" if slope is None else
+                                     f" slope={slope}")
+        ov, dv, vec = ES._dot_vectors(o, d, q, k, v)
+        strips = ES._dot_recv_layout(ov, dv, vec, N, N, E)[0]
+        log(f"  K6/K7 bf16 {hd}: {'strips' if strips else 'rows'} of "
+            f"{vec}-byte vectors")
+        if (h, o) == (1, D) and not strips:
+            raise AssertionError("K6 and K7 bf16 at AGNN's (1, 128, 128) "
+                                 "must take the strips")
+        idx, nh, eh = 4 * (N + 1 + E), 4 * N * h, 4 * E * h
+        no_, nd = 2 * N * h * o, 2 * N * h * d
+        raws = [torch.empty(E, h, device=dev) for _ in range(2)]
+
+        def k6(*a, _raw=raws[0]):
+            return ES.dot_softmax(*a, _raw) + (_raw,)
+
+        def k6_plain(*a, _raw=raws[1]):
+            return ES.dot_softmax_plain(*a, _raw) + (_raw,)
+
+        num, m, s_, raw = case("k6_bf16", hd, k6, k6_plain,
+                               (ir, cr, q, k, v, scale, slope),
+                               idx + 2 * no_ + 2 * nd + 2 * nh + eh,
+                               E * h * (2 * o + 2 * d + 8))
+        out, mx, den = ES.finalize_softmax(num, m, s_, rn(N, h),
+                                           rn(N, h, d))
+        bwd = (q, k, v, mx, den, (out.float() * dy.float()).sum(-1), dy,
+               scale, slope)
+        case("k7_bf16", hd, ES.dot_bwd_dq, ES.dot_bwd_dq_plain,
+             (ir, cr) + bwd + (raw,), idx + 2 * no_ + 2 * nd + 3 * nh + eh,
+             E * h * (2 * o + 2 * d + 10))
+        case("k8_bf16", hd, ES.dot_bwd_rev, ES.dot_bwd_rev_plain,
+             (is_, cs) + bwd, idx + 3 * no_ + 3 * nd + 3 * nh,
+             E * h * (4 * o + 4 * d + 10))
+        del q, k, v, dy, num, out, bwd, raw, raws
     for key, r in res.items():
         for v in r["variants"]:
             log(f"  time {key.upper():<8} {v['case']:<24} "
@@ -1276,6 +1353,13 @@ def gatv2_phase(g, card: str) -> dict:
     return res
 
 
+# (H, O, D, slope) of the dot-attention paths: Transformer layer 1, its
+# head layer, AGNN (K6 and K7 in strips) and layer 1 with a slope
+DOT_SHAPES = ((GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, None),
+              (1, OUT_D, OUT_D, None), (1, D, D, None),
+              (GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, 0.2))
+
+
 def dot_phase(g, card: str) -> dict:
     """K6, K7 and K8 against their plain versions at the dot-attention
     paths' shapes: (H, O, D) = (4, 32, 32) (Transformer layer 1), (1, 8, 8)
@@ -1292,9 +1376,7 @@ def dot_phase(g, card: str) -> dict:
 
     case = functools.partial(kernel_case, res, card)
 
-    for h, o, d, slope in ((GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, None),
-                           (1, OUT_D, OUT_D, None), (1, D, D, None),
-                           (GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, 0.2)):
+    for h, o, d, slope in DOT_SHAPES:
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device=dev)
         # scale 1/sqrt(O), as TransformerConv: logits of unit spread
@@ -3165,8 +3247,42 @@ class DropoutReplay:
         self.conv._attn_dropout_masks = self.real
 
 
+def agnn_beta_scales(m, g, inputs, forward) -> dict:
+    """S of each AGNNConv's ``beta`` gradient in the float64 model ``m``
+    (names without ``module.``): the same sum as the gradient, taken over
+    absolute values. beta enters every logit ``lg = beta <x_n[r], x_n[s]>``
+    and self logit, so ``dL/dbeta = sum_e dlg_e lg_e / beta`` (the self
+    logits' terms beside), and ``S = sum_e |dlg_e lg_e| / |beta|``, read
+    from the logits' gradients at the CPU path's ``attention_aggregate``
+    (one call per layer, in order)."""
+    from graphneuralnetworks_tpu_torch.ops import attention as TA
+
+    real, sums = TA.attention_aggregate, []
+
+    def spy(gg, logits, values, **kw):
+        acc = [0.0]
+        for t in (logits, kw.get("self_logits")):
+            if t is not None and t.requires_grad:
+                t.register_hook(lambda gr, t=t, acc=acc: acc.__setitem__(
+                    0, acc[0] + float((gr * t).abs().sum())))
+        sums.append(acc)
+        return real(gg, logits, values, **kw)
+    TA.attention_aggregate = spy
+    try:
+        m.zero_grad(set_to_none=True)
+        forward(m, g, *inputs)[1].backward()
+    finally:
+        TA.attention_aggregate = real
+    betas = [(n, p) for n, p in m.named_parameters() if n.endswith("beta")]
+    if len(betas) != len(sums):
+        raise AssertionError(f"{len(betas)} betas, {len(sums)} attention "
+                             "calls")
+    return {n: acc[0] / abs(float(p)) for (n, p), acc in zip(betas, sums)}
+
+
 def compare_precision_model(name, model, g, inputs, forward, extra=(),
-                            out_scale=None) -> dict:
+                            out_scale=None, zero_grads=(),
+                            grad_scales=None) -> dict:
     """3o's card vs CPU: one forward and backward of the Precision model
     ``model`` (``forward(m, g, *inputs, *extra) -> (out, loss)``, a
     float32 loss of its bfloat16 output) on the card, against the same
@@ -3175,7 +3291,13 @@ def compare_precision_model(name, model, g, inputs, forward, extra=(),
     ``extra``: float32 parameters beside the model's (learned edge
     weights), whose gradients are compared too. The output is held within
     the tolerances of BF16_CELLS of its scale: max |out| of the float64
-    side, or ``out_scale(m)`` of the float64 model after its forward."""
+    side, or ``out_scale(m)`` of the float64 model after its forward. The
+    parameters whose names end with one of ``zero_grads`` have a gradient
+    that is 0 in exact arithmetic, held by the largest gradient's norm
+    (see BF16_CELLS, the Transformer). ``grad_scales(m, g, inputs,
+    forward) -> {name: S}`` gives, from the float64 model, the sum over
+    absolute values of a gradient that cancels (AGNN's betas), which holds
+    it in place of its norm."""
     rounds, casts = BF16_CELLS[name]
     cpu = torch.device("cpu")
     sides = {"card": (model, g, inputs, extra),
@@ -3210,8 +3332,18 @@ def compare_precision_model(name, model, g, inputs, forward, extra=(),
                              f"{bad}")
     names = [n for n, _ in model.named_parameters()] + [
         f"extra{i}" for i in range(len(extra))]
+    sums = {}
+    if grad_scales is not None:
+        m64, g64, ins64, _ = sides["CPU float64"]
+        sums = {f"module.{n}": v for n, v in
+                grad_scales(m64, g64, ins64, forward).items()}
+        g64 = dict(zip(names, results["CPU float64"][2]))
+        log(f"  {name} bf16: gradients held by their sums over absolute "
+            "values S (|grad| / S in float64): " + ", ".join(
+                f"{n} S={v:.3e} ({float(g64[n].norm()) / v:.2e})"
+                for n, v in sums.items()))
     lg, ls, gr = results["card"]
-    out = {"out_scale": scale}
+    out = {"out_scale": scale, "grad_sums": sums}
     for side, k in (("CPU bfloat16", 2 * rounds),
                     ("CPU float64", rounds + casts)):
         lc, lsc, grc = results[side]
@@ -3221,7 +3353,11 @@ def compare_precision_model(name, model, g, inputs, forward, extra=(),
                                   lc, rtol=0, atol=tol * scale),
             "loss_err": compare(f"{name} bf16: loss card vs {side}", ls, lsc,
                                 rtol=0, atol=2 * tol * scale)}
-        rels = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
+        largest = max(float(b.norm()) for b in grc)
+        rels = {n: float((a - b).norm() / (
+                    sums[n] if n in sums else largest
+                    if n.endswith(zero_grads)
+                    else b.norm().clamp(min=1e-30)))
                 for n, a, b in zip(names, gr, grc)}
         worst = max(rels, key=rels.get)
         limit = BF16_KAPPA.get(name, 1.0) * (
@@ -3240,11 +3376,13 @@ def compare_precision_model(name, model, g, inputs, forward, extra=(),
 
 
 def precision_phase(g, x, y, mask, profile: bool, gb=None):
-    """3o: eight paths in ``models.Precision`` (bfloat16 compute, float32
+    """3o: ten paths in ``models.Precision`` (bfloat16 compute, float32
     master parameters), each with its float32 phase's model and graph, 10
     Adam steps on a float32 loss of the bfloat16 output: 3a's GCN (K1's
-    bfloat16 variant 3 times a step), 3d's GAT (K3, K4, K5 twice each) and
-    3f's GATv2 (K9 and K11 twice, K10 four times: walk and reduce);
+    bfloat16 variant 3 times a step), 3d's GAT (K3, K4, K5 twice each),
+    3f's GATv2 (K9 and K11 twice, K10 four times: walk and reduce), 3g's
+    Transformer (K6, K7, K8 twice each, in rows) and 3h's AGNN (the same,
+    K6 and K7 in strips);
     3b's GCN with learned edge weights (K1 2, K2 2); 3e's GAT (b) with
     attention dropout 0.6 in training mode (K12 2, K2 2); 3i's link step,
     the GCN encoder and ``DotDecoder`` on the 2M edges and 2M negatives
@@ -3303,6 +3441,12 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None):
         ("GATv2", "gatv2_bf16", "3f", gatv2(M, 4, dev), (g, x),
          {"k9_bf16": 2, "k10_bf16": 4, "k11_bf16": 2}, (x,), node_forward,
          (), None),
+        ("Transformer", "transformer_bf16", "3g", transformer(M, 5, dev),
+         (g, x), {"k6_bf16": 2, "k7_bf16": 2, "k8_bf16": 2}, (x,),
+         node_forward, (), None),
+        ("AGNN", "agnn_bf16", "3h", agnn(M, 8, dev), (g, x),
+         {"k6_bf16": 2, "k7_bf16": 2, "k8_bf16": 2}, (x,), node_forward, (),
+         None),
         ("GCN learned edge weights", "gcn_learned_bf16", "3b",
          gcn(M, 1, dev), (g, x), {"k1_bf16": 2, "k2_bf16": 2}, (x,),
          node_forward, (ew,), None),
@@ -3343,7 +3487,9 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None):
         log(f"phase 3o (3c): one step of the {name} bf16 model on the card "
             "vs the CPU plain path in bfloat16 and in float64")
         res["vs_cpu"][key] = compare_precision_model(
-            name, model, gg, ins, fwd, extra, scale)
+            name, model, gg, ins, fwd, extra, scale,
+            zero_grads=("W4.bias",) if name == "Transformer" else (),
+            grad_scales=agnn_beta_scales if name == "AGNN" else None)
         del model
     return res, None
 
@@ -6006,6 +6152,12 @@ def main() -> int:
         entry("k6", "dot_softmax_f32", "edge_softmax", 295, "transformer"),
         entry("k7", "dot_bwd_dq_f32", "edge_softmax", 546, "transformer"),
         entry("k8", "dot_bwd_rev_f32", "edge_softmax", 599, "transformer"),
+        entry("k6_bf16", "dot_softmax_bf16", "edge_softmax", 295,
+              "transformer_bf16"),
+        entry("k7_bf16", "dot_bwd_dq_bf16", "edge_softmax", 546,
+              "transformer_bf16"),
+        entry("k8_bf16", "dot_bwd_rev_bf16", "edge_softmax", 599,
+              "transformer_bf16"),
         entry("k13", "sddmm_csr_f32", "sddmm", 36, "link"),
         entry("k13_bf16", "sddmm_csr_bf16", "sddmm", 36, "link_bf16"),
         entry("k14", "segment_max_csr_f32", "segment", 51, "edgeconv",

@@ -1,5 +1,5 @@
 // Edge softmax over a node's in-edges, with aggregation: K3 to K12, float32
-// (K3, K4, K5, K9, K10, K11 and K12 also bfloat16, vec.cuh), for sm_90a.
+// and bfloat16 (vec.cuh), for sm_90a.
 //
 // Replaces graphneuralnetworks_tpu/ops/pallas/edge_softmax.py:
 //   K12 _flash_kernel         softmax of given per-edge logits, numerator
@@ -171,7 +171,10 @@ __device__ __forceinline__ f8 load_a<f8>(const float* a, int f, int heads,
 // when O % 4 == 0 and D % 4 == 0) and edge groups of G lanes (G = the wider
 // side's vector count rounded up to a power of two, at most 32; wider rows
 // in NC register chunks of G vectors); an edge group reduces its lanes'
-// shares of a dot with shuffles.
+// shares of a dot with shuffles. V, the rows' storage vector: float4 or
+// float, or for bfloat16 rows bf16x8, bf16x4 or bf16x1 (vec.cuh), widened
+// in registers to Acc<V>; the dots, logits, softmax state, strip partials
+// and every sum are float32, and each output row is rounded once to V.
 //
 // Bound on an H100: memory. K6 and K7 gather one k row (H*O floats) and
 // one v row (H*D floats) per edge, K8 one q and one dy row: 1 KB at H=4,
@@ -284,17 +287,18 @@ dot_softmax_rows_kernel(const int* __restrict__ indptr,
   const int g = 1 << log_g;
   const int sub = lane & (g - 1);
   const int h = blockIdx.y;
+  using A = Acc<V>;
   walk_rows(indptr, rb, lane, n_rows, log_rows,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long rh = (long long)row * heads + h;
-    V qv[NC], acc[NC];
+    A qv[NC], acc[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int f = sub + c * g;
-      qv[c] = live && f < ov ? q[rh * ov + f] : vzero<V>();
-      acc[c] = vzero<V>();
+      qv[c] = live && f < ov ? widen(q[rh * ov + f]) : vzero<A>();
+      acc[c] = vzero<A>();
     }
     float mg = -INFINITY, sg = 0.f;   // this edge group's running max and sum
     int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
@@ -323,7 +327,8 @@ dot_softmax_rows_kernel(const int* __restrict__ indptr,
         for (int u = 0; u < U; ++u) {
           lg[u] = 0.f;
 #pragma unroll
-          for (int cc = 0; cc < NC; ++cc) lg[u] += vdot(qv[cc], kg[u][cc]);
+          for (int cc = 0; cc < NC; ++cc)
+            lg[u] += vdot(qv[cc], widen(kg[u][cc]));
         }
         for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
 #pragma unroll
@@ -353,7 +358,7 @@ dot_softmax_rows_kernel(const int* __restrict__ indptr,
           const float pe = lg[u] == -INFINITY ? 0.f : expf(lg[u] - mg);
           sg += pe;
 #pragma unroll
-          for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], pe, vg[u][cc]);
+          for (int cc = 0; cc < NC; ++cc) axpy(acc[cc], pe, widen(vg[u][cc]));
         }
       }
       c = nc;
@@ -376,7 +381,7 @@ dot_softmax_rows_kernel(const int* __restrict__ indptr,
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int f = sub + cc * g;
-        if (f < dv) num[rh * dv + f] = acc[cc];
+        if (f < dv) num[rh * dv + f] = narrow<V>(acc[cc]);
       }
     }
     if (live && S.sl == 0) {
@@ -419,18 +424,19 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
   const int sub = lane & (g - 1);
   const int h = blockIdx.y;
   const bool given = raw != nullptr;         // uniform over the grid
+  using A = Acc<V>;
   walk_rows(indptr, rb, lane, n_rows, log_rows,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long rh = (long long)row * heads + h;
-    V qv[NC], dyv[NC], dqa[NC];
+    A qv[NC], dyv[NC], dqa[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int f = sub + c * g;
-      qv[c] = live && !given && f < ov ? q[rh * ov + f] : vzero<V>();
-      dyv[c] = live && f < dv ? dy[rh * dv + f] : vzero<V>();
-      dqa[c] = vzero<V>();
+      qv[c] = live && !given && f < ov ? widen(q[rh * ov + f]) : vzero<A>();
+      dyv[c] = live && f < dv ? widen(dy[rh * dv + f]) : vzero<A>();
+      dqa[c] = vzero<A>();
     }
     const float mxr = live ? mx[rh] : 0.f, denr = live ? den[rh] : 1.f;
     const float snr = live ? s_n[rh] : 0.f;
@@ -473,7 +479,8 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
         for (int u = 0; u < U; ++u) {
           pvd[u] = 0.f;
 #pragma unroll
-          for (int cc = 0; cc < NC; ++cc) pvd[u] += vdot(vg[u][cc], dyv[cc]);
+          for (int cc = 0; cc < NC; ++cc)
+            pvd[u] += vdot(widen(vg[u][cc]), dyv[cc]);
         }
         if (given) {
           for (int off = 1; off < g; off <<= 1) {
@@ -486,7 +493,8 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
           for (int u = 0; u < U; ++u) {
             plg[u] = 0.f;
 #pragma unroll
-            for (int cc = 0; cc < NC; ++cc) plg[u] += vdot(qv[cc], kg[u][cc]);
+            for (int cc = 0; cc < NC; ++cc)
+              plg[u] += vdot(qv[cc], widen(kg[u][cc]));
           }
           for (int off = 1; off < g; off <<= 1) {
 #pragma unroll
@@ -504,7 +512,8 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
           const float dlg =
               dot_dlg(plg[u], pvd[u], mxr, denr, snr, scale, slope);
 #pragma unroll
-          for (int cc = 0; cc < NC; ++cc) axpy(dqa[cc], dlg, kg[u][cc]);
+          for (int cc = 0; cc < NC; ++cc)
+            axpy(dqa[cc], dlg, widen(kg[u][cc]));
         }
       }
       c = nc;
@@ -518,7 +527,7 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int f = sub + cc * g;
-        if (f < ov) dq[rh * ov + f] = dqa[cc];
+        if (f < ov) dq[rh * ov + f] = narrow<V>(dqa[cc]);
       }
     }
   });
@@ -552,8 +561,9 @@ dot_strip_dots_kernel(const int* __restrict__ indptr,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const Seg S(lane, log_seg, log_s);
     const bool live = row < n_rows;
-    const V av = live && active ? a[((long long)row * heads + h) * width + f]
-                                : vzero<V>();
+    const Acc<V> av = live && active
+                          ? widen(a[((long long)row * heads + h) * width + f])
+                          : vzero<Acc<V>>();
     int c = S.sl < len ? col[beg + S.sl] : 0;
     for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
       const int nc =
@@ -573,7 +583,7 @@ dot_strip_dots_kernel(const int* __restrict__ indptr,
                       : vzero<V>();
         }
 #pragma unroll
-        for (int u = 0; u < U; ++u) dt[u] = vdot(av, bg[u]);
+        for (int u = 0; u < U; ++u) dt[u] = vdot(av, widen(bg[u]));
         for (int off = 1; off < g; off <<= 1) {
 #pragma unroll
           for (int u = 0; u < U; ++u)
@@ -682,7 +692,7 @@ dot_strip_spmm_kernel(const int* __restrict__ indptr,
     int c, nc;
     float wt, nwt;
     fetch(0, c, wt);
-    V acc = vzero<V>();
+    Acc<V> acc = vzero<Acc<V>>();
     for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
       fetch(w0 + S.seg, nc, nwt);                   // the next window, ahead
       const int cnt = min(S.seg, longest - w0);
@@ -701,14 +711,14 @@ dot_strip_spmm_kernel(const int* __restrict__ indptr,
                      : vzero<V>();
         }
 #pragma unroll
-        for (int u = 0; u < U; ++u) axpy(acc, wj[u], xg[u]);
+        for (int u = 0; u < U; ++u) axpy(acc, wj[u], widen(xg[u]));
       }
       c = nc;
       wt = nwt;
     }
     for (int off = g; off < S.seg; off <<= 1) add_xor(acc, off);
     if (live && active && S.grp == 0)
-      out[((long long)row * heads + h) * width + f] = acc;
+      out[((long long)row * heads + h) * width + f] = narrow<V>(acc);
   });
 }
 
@@ -741,19 +751,20 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
   const int g = 1 << log_g;                  // lanes per edge group
   const int sub = lane & (g - 1);
   const int h = blockIdx.y;
+  using A = Acc<V>;
   walk_rows(indptr, rb, lane, n_rows, log_rows,
             [&](int row, int beg, int len, int longest, int log_seg) {
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long sh = (long long)row * heads + h;
-    V kv[NC], vv[NC], dka[NC], dva[NC];
+    A kv[NC], vv[NC], dka[NC], dva[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int f = sub + c * g;
-      kv[c] = live && f < ov ? k[sh * ov + f] : vzero<V>();
-      vv[c] = live && f < dv ? v[sh * dv + f] : vzero<V>();
-      dka[c] = vzero<V>();
-      dva[c] = vzero<V>();
+      kv[c] = live && f < ov ? widen(k[sh * ov + f]) : vzero<A>();
+      vv[c] = live && f < dv ? widen(v[sh * dv + f]) : vzero<A>();
+      dka[c] = vzero<A>();
+      dva[c] = vzero<A>();
     }
     int c = S.sl < len ? col[beg + S.sl] : 0;   // the first window
     for (int w0 = 0; w0 < longest; w0 += S.seg) {   // warp-uniform trips
@@ -786,8 +797,8 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
           pvd[u] = 0.f;
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc) {
-            plg[u] += vdot(qg[u][cc], kv[cc]);
-            pvd[u] += vdot(vv[cc], dyg[u][cc]);
+            plg[u] += vdot(widen(qg[u][cc]), kv[cc]);
+            pvd[u] += vdot(vv[cc], widen(dyg[u][cc]));
           }
         }
         for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
@@ -806,8 +817,8 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
               alpha * (pvd[u] - snr[u]) * scale * dlrelu(raw, slope);
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc) {
-            axpy(dka[cc], dlg, qg[u][cc]);
-            axpy(dva[cc], alpha, dyg[u][cc]);
+            axpy(dka[cc], dlg, widen(qg[u][cc]));
+            axpy(dva[cc], alpha, widen(dyg[u][cc]));
           }
         }
       }
@@ -825,8 +836,8 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int f = sub + cc * g;
-        if (f < ov) dk[sh * ov + f] = dka[cc];
-        if (f < dv) dv_out[sh * dv + f] = dva[cc];
+        if (f < ov) dk[sh * ov + f] = narrow<V>(dka[cc]);
+        if (f < dv) dv_out[sh * dv + f] = narrow<V>(dva[cc]);
       }
     }
   });
@@ -1952,19 +1963,22 @@ int with_row_instances(int wide, int unroll, int reg_cap, Go&& go) {
 
 // The strip kernels' instances: go(un, minb) at U = unroll and reg_cap
 // where the library holds them (the sweep build: U in {1, 2, 4, 8}, each
-// uncapped and at 64 registers; the shipped library: Pick::kUnroll at
-// Pick::kCap). Returns cudaGetLastError() after it, or
-// cudaErrorInvalidValue with nothing launched.
-template <typename Pick, typename Go>
+// uncapped and at 64 registers; the shipped library, and with kPickOnly
+// (the bfloat16 instances) either build: Pick::kUnroll at Pick::kCap).
+// Returns cudaGetLastError() after it, or cudaErrorInvalidValue with
+// nothing launched.
+template <typename Pick, bool kPickOnly = false, typename Go>
 int with_strip_instances(int unroll, int reg_cap, Go&& go) {
   bool launched = false;
   auto pick = [&](auto un, auto cap) {
     constexpr int UU = decltype(un)::value, C = decltype(cap)::value;
 #ifdef GNN_SWEEP
-    constexpr bool built = true;
+    constexpr bool sweep = !kPickOnly;
 #else
-    constexpr bool built = Pick::kUnroll == UU && Pick::kCap == C;
+    constexpr bool sweep = false;
 #endif
+    constexpr bool built =
+        sweep || (Pick::kUnroll == UU && Pick::kCap == C);
     if constexpr (built) {
       if (unroll == UU && reg_cap == C) {
         go(un, MinBlocks<C>{});
@@ -2035,11 +2049,12 @@ constexpr bool kLow = !std::is_same<Acc<V>, V>::value;
 template <typename V>
 constexpr int kMaxWide = kLow<V> ? 32 : 256;
 
-// log2 of the vectors of one 128-byte line: a strip, and the lanes of its
-// edge groups.
+// log2 of the vectors of a strip, and the lanes of its edge groups: one
+// 128-byte line (8 float4 or bf16x8, 16 bf16x4, 32 floats), or 32 single
+// bfloat16 values (64 bytes: an edge group has at most 32 lanes).
 template <typename V>
 constexpr int log_line() {
-  return sizeof(V) == 16 ? 3 : 5;
+  return sizeof(V) == 16 ? 3 : sizeof(V) == 8 ? 4 : 5;
 }
 
 // The grid of a row-walking pass: blocks of 8 warps of 2^log_rows rows
@@ -2056,24 +2071,27 @@ bool dot_layout_ok(int log_g, int log_rows, long long columns) {
   return log_rows >= 0 && log_g + log_rows <= 5 && columns < 65536;
 }
 
+// K6 in rows or strips (see dot_softmax_rows_kernel and the strip
+// passes), at the instances with_row_instances and with_strip_instances
+// hold (bfloat16: only the shipped ones, in either build).
 template <typename V>
-int launch_dot_softmax(const int* indptr, const int* col, const float* q,
-                       const float* k, const float* v, float* num, float* m,
+int launch_dot_softmax(const int* indptr, const int* col, const void* q,
+                       const void* k, const void* v, void* num, float* m,
                        float* s, float* raw, float* scratch, int n_rows,
                        int heads, int ov, int dv, long long n_edges,
                        int strips, int log_rows, int unroll, int reg_cap,
                        float scale, float slope, cudaStream_t st) {
-  const V* qv = reinterpret_cast<const V*>(q);
-  const V* kv = reinterpret_cast<const V*>(k);
-  const V* vv = reinterpret_cast<const V*>(v);
-  V* numv = reinterpret_cast<V*>(num);
+  const V* qv = static_cast<const V*>(q);
+  const V* kv = static_cast<const V*>(k);
+  const V* vv = static_cast<const V*>(v);
+  V* numv = static_cast<V*>(num);
   const int wide = ov > dv ? ov : dv;
   if (!strips) {
     const int lg = log_group(wide);
     if (!dot_layout_ok(lg, log_rows, heads))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid = row_grid(n_rows, log_rows, heads);
-    return with_row_instances<RecvPick>(
+    return with_row_instances<RecvPick, false, kLow<V>>(
         wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
           dot_softmax_rows_kernel<V, decltype(nc)::value,
                                   decltype(un)::value, decltype(minb)::value>
@@ -2090,7 +2108,7 @@ int launch_dot_softmax(const int* indptr, const int* col, const float* q,
     return static_cast<int>(cudaErrorInvalidValue);
   float* part = scratch;
   float* w = scratch + (long long)heads * ns_o * n_edges;
-  return with_strip_instances<StripPick>(
+  return with_strip_instances<StripPick, kLow<V>>(
       unroll, reg_cap, [&](auto un, auto minb) {
         constexpr int U = decltype(un)::value, MINB = decltype(minb)::value;
         dot_strip_dots_kernel<6, V, U, MINB>
@@ -2109,27 +2127,29 @@ int launch_dot_softmax(const int* indptr, const int* col, const float* q,
       });
 }
 
+// K7 in rows or strips (see dot_bwd_dq_rows_kernel and the strip
+// passes), at the instances K6's launcher takes.
 template <typename V>
-int launch_dot_bwd_dq(const int* indptr, const int* col, const float* q,
-                      const float* k, const float* v, const float* mx,
-                      const float* den, const float* s_n, const float* dy,
-                      const float* raw, float* dq, float* scratch,
+int launch_dot_bwd_dq(const int* indptr, const int* col, const void* q,
+                      const void* k, const void* v, const float* mx,
+                      const float* den, const float* s_n, const void* dy,
+                      const float* raw, void* dq, float* scratch,
                       int n_rows, int heads, int ov, int dv,
                       long long n_edges, int strips, int log_rows, int unroll,
                       int reg_cap, float scale, float slope,
                       cudaStream_t st) {
-  const V* qv = reinterpret_cast<const V*>(q);
-  const V* kv = reinterpret_cast<const V*>(k);
-  const V* vv = reinterpret_cast<const V*>(v);
-  const V* dyv = reinterpret_cast<const V*>(dy);
-  V* dqv = reinterpret_cast<V*>(dq);
+  const V* qv = static_cast<const V*>(q);
+  const V* kv = static_cast<const V*>(k);
+  const V* vv = static_cast<const V*>(v);
+  const V* dyv = static_cast<const V*>(dy);
+  V* dqv = static_cast<V*>(dq);
   const int wide = ov > dv ? ov : dv;
   if (!strips) {
     const int lg = log_group(wide);
     if (!dot_layout_ok(lg, log_rows, heads))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid = row_grid(n_rows, log_rows, heads);
-    return with_row_instances<RecvPick>(
+    return with_row_instances<RecvPick, false, kLow<V>>(
         wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
           dot_bwd_dq_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
                                  decltype(minb)::value>
@@ -2149,7 +2169,7 @@ int launch_dot_bwd_dq(const int* indptr, const int* col, const float* q,
   float* w = scratch;
   float* part_vd = w + (long long)heads * n_edges;
   float* part_lg = part_vd + (long long)heads * ns_d * n_edges;
-  return with_strip_instances<StripPick>(
+  return with_strip_instances<StripPick, kLow<V>>(
       unroll, reg_cap, [&](auto un, auto minb) {
         constexpr int U = decltype(un)::value, MINB = decltype(minb)::value;
         if (dv > 0)
@@ -2175,12 +2195,12 @@ int launch_dot_bwd_dq(const int* indptr, const int* col, const float* q,
 }
 
 // K8 in rows (see dot_bwd_rev_kernel), at the instances with_row_instances
-// holds.
+// holds (bfloat16: only the shipped ones, in either build).
 template <typename V>
-int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
-                       const float* k, const float* v, const float* mx,
-                       const float* den, const float* s_n, const float* dy,
-                       float* dk, float* dv_out, int n_rows, int heads, int ov,
+int launch_dot_bwd_rev(const int* indptr, const int* col, const void* q,
+                       const void* k, const void* v, const float* mx,
+                       const float* den, const float* s_n, const void* dy,
+                       void* dk, void* dv_out, int n_rows, int heads, int ov,
                        int dv, int log_rows, int unroll, int reg_cap,
                        float scale, float slope, cudaStream_t st) {
   const int wide = ov > dv ? ov : dv;
@@ -2188,15 +2208,15 @@ int launch_dot_bwd_rev(const int* indptr, const int* col, const float* q,
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K8Pick>(
+  return with_row_instances<K8Pick, false, kLow<V>>(
       wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         dot_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
                            decltype(minb)::value><<<grid, kThreads, 0, st>>>(
-            indptr, col, reinterpret_cast<const V*>(q),
-            reinterpret_cast<const V*>(k), reinterpret_cast<const V*>(v), mx,
-            den, s_n, reinterpret_cast<const V*>(dy),
-            reinterpret_cast<V*>(dk), reinterpret_cast<V*>(dv_out), n_rows,
-            heads, ov, dv, lg, log_rows, scale, slope);
+            indptr, col, static_cast<const V*>(q), static_cast<const V*>(k),
+            static_cast<const V*>(v), mx, den, s_n,
+            static_cast<const V*>(dy), static_cast<V*>(dk),
+            static_cast<V*>(dv_out), n_rows, heads, ov, dv, lg, log_rows,
+            scale, slope);
       });
 }
 
@@ -2402,6 +2422,13 @@ bool dot_float4(int o, int d, std::initializer_list<const void*> rows) {
   for (const void* p : rows)
     if (!aligned16(p)) return false;
   return true;
+}
+
+// The widest vector bfloat16 dot rows take: one for q and k (o values) and
+// v, dy (d values) alike, so the narrower of bf16_vec_bytes' two picks.
+int dot_bf16_vec(int o, int d, std::initializer_list<const void*> rows) {
+  const int a = bf16_vec_bytes(o, rows), b = bf16_vec_bytes(d, rows);
+  return a < b ? a : b;
 }
 
 }  // namespace
@@ -2839,6 +2866,93 @@ int dot_bwd_rev_f32(const int* indptr, const int* col, const float* q,
   return launch_dot_bwd_rev<float>(indptr, col, q, k, v, mx, den, s_n, dy, dk,
                                    dv, n_rows, heads, o, d, log_rows, unroll,
                                    reg_cap, scale, slope, st);
+}
+
+// K6, K7 and K8 on bfloat16 rows (q, k, v, dy; num, dq, dk, dv), with the
+// float32 softmax state (m, s; mx, den, s_n), raw logits (raw) and strip
+// scratch, as dot_softmax_f32, dot_bwd_dq_f32 and dot_bwd_rev_f32: the
+// dots, the logits and every sum in float32, each bfloat16 output rounded
+// once (a strip writes its own columns). Rows load in the widest vector
+// both widths take (dot_bf16_vec: 8 values, 4, or one); the wider of o and
+// d may be 256 vectors (2,048 values at 8 a vector, 256 at one). Strips
+// are a 128-byte line wide (8 bf16x8 or 16 bf16x4 vectors) or 32 single
+// values: scratch as dot_softmax_f32's with S that many vectors.
+int dot_softmax_bf16(const int* indptr, const int* col, const bf16x1* q,
+                     const bf16x1* k, const bf16x1* v, bf16x1* num, float* m,
+                     float* s, float* raw, float* scratch, int n_rows,
+                     int heads, int o, int d, int n_edges, int strips,
+                     int log_rows, int unroll, int reg_cap, float scale,
+                     float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dot_bf16_vec(o, d, {q, k, v, num})) {
+    case 16:
+      return launch_dot_softmax<bf16x8>(
+          indptr, col, q, k, v, num, m, s, raw, scratch, n_rows, heads,
+          o / 8, d / 8, n_edges, strips, log_rows, unroll, reg_cap, scale,
+          slope, st);
+    case 8:
+      return launch_dot_softmax<bf16x4>(
+          indptr, col, q, k, v, num, m, s, raw, scratch, n_rows, heads,
+          o / 4, d / 4, n_edges, strips, log_rows, unroll, reg_cap, scale,
+          slope, st);
+    default:
+      return launch_dot_softmax<bf16x1>(
+          indptr, col, q, k, v, num, m, s, raw, scratch, n_rows, heads, o,
+          d, n_edges, strips, log_rows, unroll, reg_cap, scale, slope, st);
+  }
+}
+
+int dot_bwd_dq_bf16(const int* indptr, const int* col, const bf16x1* q,
+                    const bf16x1* k, const bf16x1* v, const float* mx,
+                    const float* den, const float* s_n, const bf16x1* dy,
+                    const float* raw, bf16x1* dq, float* scratch, int n_rows,
+                    int heads, int o, int d, int n_edges, int strips,
+                    int log_rows, int unroll, int reg_cap, float scale,
+                    float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dot_bf16_vec(o, d, {q, k, v, dy, dq})) {
+    case 16:
+      return launch_dot_bwd_dq<bf16x8>(
+          indptr, col, q, k, v, mx, den, s_n, dy, raw, dq, scratch, n_rows,
+          heads, o / 8, d / 8, n_edges, strips, log_rows, unroll, reg_cap,
+          scale, slope, st);
+    case 8:
+      return launch_dot_bwd_dq<bf16x4>(
+          indptr, col, q, k, v, mx, den, s_n, dy, raw, dq, scratch, n_rows,
+          heads, o / 4, d / 4, n_edges, strips, log_rows, unroll, reg_cap,
+          scale, slope, st);
+    default:
+      return launch_dot_bwd_dq<bf16x1>(
+          indptr, col, q, k, v, mx, den, s_n, dy, raw, dq, scratch, n_rows,
+          heads, o, d, n_edges, strips, log_rows, unroll, reg_cap, scale,
+          slope, st);
+  }
+}
+
+int dot_bwd_rev_bf16(const int* indptr, const int* col, const bf16x1* q,
+                     const bf16x1* k, const bf16x1* v, const float* mx,
+                     const float* den, const float* s_n, const bf16x1* dy,
+                     bf16x1* dk, bf16x1* dv, int n_rows, int heads, int o,
+                     int d, int log_rows, int unroll, int reg_cap,
+                     float scale, float slope, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dot_bf16_vec(o, d, {q, k, v, dy, dk, dv})) {
+    case 16:
+      return launch_dot_bwd_rev<bf16x8>(indptr, col, q, k, v, mx, den, s_n,
+                                        dy, dk, dv, n_rows, heads, o / 8,
+                                        d / 8, log_rows, unroll, reg_cap,
+                                        scale, slope, st);
+    case 8:
+      return launch_dot_bwd_rev<bf16x4>(indptr, col, q, k, v, mx, den, s_n,
+                                        dy, dk, dv, n_rows, heads, o / 4,
+                                        d / 4, log_rows, unroll, reg_cap,
+                                        scale, slope, st);
+    default:
+      return launch_dot_bwd_rev<bf16x1>(indptr, col, q, k, v, mx, den, s_n,
+                                        dy, dk, dv, n_rows, heads, o, d,
+                                        log_rows, unroll, reg_cap, scale,
+                                        slope, st);
+  }
 }
 
 const char* gnn_cuda_error_string(int code) {

@@ -173,10 +173,10 @@ class Precision(GNNLayer):
     as it is. ``module`` then runs entirely in ``dtype`` through
     ``torch.func.functional_call``, so gradients flow back through the
     casts and reach the parameters in their own type: the optimizer's
-    state and updates stay float32. The kernels keep their sums and softmax
-    state in float32 (K1-K5 and K12-K14 in bfloat16; ``ops/cuda``; GATv2's
-    and dot attention's kernels raise on bfloat16). This is not
-    ``torch.autocast``, which keeps some ops in float32 and casts per op.
+    state and updates stay float32. Every kernel (K1-K14, ``ops/cuda``)
+    takes bfloat16 and keeps its sums and softmax state in float32. This
+    is not ``torch.autocast``, which keeps some ops in float32 and casts
+    per op.
 
     Example::
 

@@ -17,12 +17,11 @@ counterpart of the JAX package's XLA path.
 
 bfloat16: on the card :func:`gat_attention` without dropout takes it on
 K3-K5, :func:`gatv2_attention` without dropout on K9-K11,
-:func:`attention_aggregate` (and so :func:`gat_attention` and
-:func:`gatv2_attention` with dropout) on K12 with bfloat16 logits, masks
-and values, its node-values backward on K2, and
-:func:`dot_attention_logits` on K13; the gradients come back in their
-inputs' types. :func:`dot_attention` raises ``TypeError`` (K6-K8 are
-float32 only). The plain path computes bfloat16 values as the kernels do:
+:func:`dot_attention` on K6-K8, :func:`attention_aggregate` (and so
+:func:`gat_attention` and :func:`gatv2_attention` with dropout) on K12
+with bfloat16 logits, masks and values, its node-values backward on K2,
+and :func:`dot_attention_logits` on K13; the gradients come back in their
+inputs' types. The plain path computes bfloat16 values as the kernels do:
 logits, softmax and sums in float32, each output rounded once to bfloat16.
 """
 
@@ -148,8 +147,10 @@ def dot_attention(g: GraphTuple, q, k, values, scale: float = 1.0, *,
     ``self_logits [n_dst, *H]`` (already scaled) and ``self_values`` add the
     virtual self-loop. On the card the logits are computed inside the
     kernels (:func:`~.cuda.edge_softmax.dot_attention_nodes`, the head
-    dimensions flattened into one); otherwise
-    :func:`dot_attention_logits` and :func:`attention_aggregate` take over.
+    dimensions flattened into one); otherwise the logits are gathered and
+    :func:`attention_aggregate` takes over, with ``scale * <q, k>`` in
+    float32 for bfloat16 projections (as K6 and JAX's Pallas kernel keep
+    it, ``edge_softmax.py:320-322``): not rounded before the softmax.
     """
     no_edge_valid(g, "dot_attention")
     k = to_src_space(g, k)
@@ -162,7 +163,9 @@ def dot_attention(g: GraphTuple, q, k, values, scale: float = 1.0, *,
             scale, self_logits=heads(self_logits),
             self_values=heads(self_values, d), num_segments=num_segments)
         return out.reshape((out.shape[0],) + shape_h + (d,))
-    logits = dot_attention_logits(g, q, k) * scale
+    work = _work_dtype(k.dtype)
+    logits = (gather(q.to(work), g.receivers)
+              * gather(k.to(work), g.senders)).sum(-1) * scale
     return attention_aggregate(g, logits, values, self_logits=self_logits,
                                self_values=self_values,
                                num_segments=num_segments, node_values=True)

@@ -27,8 +27,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "SWEEP_FLAGS", "HOST_FLAGS", "build",
-           "build_all", "build_logs", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "SWEEP_FLAGS", "SPLIT_SOURCES",
+           "SPLIT_FLAGS", "HOST_FLAGS", "build", "build_all", "build_logs",
+           "load"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -37,6 +38,11 @@ SOURCES = ("spmm", "edge_softmax", "sddmm", "segment")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 SWEEP_FLAGS = ("-DGNN_SWEEP",)
+# edge_softmax.cu, the longest of the parallel builds, runs nvcc's device
+# optimisations on every core (split compilation), which leaves its SASS as
+# it is; spmm.cu's SASS changes under it, so the others build without.
+SPLIT_SOURCES = ("edge_softmax",)
+SPLIT_FLAGS = ("--split-compile=0",)
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: dict[tuple[str, bool, bool], ctypes.CDLL] = {}
@@ -60,10 +66,12 @@ def _compiler(host: bool) -> str:
                        "source at first use and need the CUDA toolkit")
 
 
-def _flags(sweep: bool, host: bool = False) -> tuple[str, ...]:
+def _flags(sweep: bool, host: bool = False,
+           name: str = "") -> tuple[str, ...]:
     if host:
         return HOST_FLAGS
-    return NVCC_FLAGS + SWEEP_FLAGS if sweep else NVCC_FLAGS
+    return (NVCC_FLAGS + SWEEP_FLAGS * sweep
+            + SPLIT_FLAGS * (name in SPLIT_SOURCES))
 
 
 def _source(name: str, host: bool) -> Path:
@@ -74,7 +82,7 @@ def _library_path(name: str, sweep: bool, host: bool = False) -> Path:
     src = _source(name, host).read_bytes()
     if not host:
         src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha1(src + " ".join(_flags(sweep, host)).encode()
+    digest = hashlib.sha1(src + " ".join(_flags(sweep, host, name)).encode()
                           ).hexdigest()
     return BUILD_DIR / f"{name}{'-sweep' * sweep}-{digest[:16]}.so"
 
@@ -97,7 +105,7 @@ def build(*names: str, sweep: bool = False,
             continue
         cc = cc or _compiler(host)
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [cc, *_flags(sweep, host), "-o", str(tmp),
+        cmd = [cc, *_flags(sweep, host, n), "-o", str(tmp),
                str(_source(n, host))]
         running[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),

@@ -42,17 +42,17 @@ K2 for all heads), :func:`gat_attention_nodes` (backward K4 and K5),
 
 Mixed precision: K3, K4 and K5 also take bfloat16 node values, ``dy``
 and ``pi``/``pj``, K9, K10 and K11 bfloat16 ``q``, ``k``, ``dy`` and
-``a`` (widened to float32 for the kernels, exactly), and K12 bfloat16
-logits, mask and values, with the softmax state (``m``, ``s``; ``mx``,
-``den``, ``s_n``) in float32, as the TPU kernels keep it: every sum is
-float32 and each bfloat16 output (``num``, ``dpi``, ``dpj``, ``dv``,
-``dq``, ``dk``) is rounded once, in its primal's type; K10's ``da`` is
-float32; :func:`finalize_softmax` returns ``num``'s type. K12's
+``a`` (widened to float32 for the kernels, exactly), K6, K7 and K8
+bfloat16 ``q``, ``k``, ``v`` and ``dy``, and K12 bfloat16 logits, mask and
+values, with the softmax state (``m``, ``s``; ``mx``, ``den``, ``s_n``)
+and K6's raw logits in float32, as the TPU kernels keep them: every dot
+and sum is float32 and each bfloat16 output (``num``, ``dpi``, ``dpj``,
+``dv``, ``dq``, ``dk``) is rounded once, in its primal's type; K10's
+``da`` is float32; :func:`finalize_softmax` returns ``num``'s type. K12's
 node-values backward hands K2 the attention weights ``mask * alpha``
 rounded to the values' type, as JAX's scatter casts them
 (``edge_softmax.py:1756-1790``), and every gradient comes back in its
 primal's type. The plain versions compute bfloat16 inputs the same way.
-Dot attention's K6-K8 raise ``TypeError`` on bfloat16.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (``*_plain``); a CUDA tensor launches the kernel or raises. ``launches``
@@ -89,8 +89,8 @@ __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
 
 launches = {"k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0, "k9": 0,
             "k10": 0, "k11": 0, "k12": 0, "k3_bf16": 0, "k4_bf16": 0,
-            "k5_bf16": 0, "k9_bf16": 0, "k10_bf16": 0, "k11_bf16": 0,
-            "k12_bf16": 0}
+            "k5_bf16": 0, "k6_bf16": 0, "k7_bf16": 0, "k8_bf16": 0,
+            "k9_bf16": 0, "k10_bf16": 0, "k11_bf16": 0, "k12_bf16": 0}
 
 _NEG_INF = float("-inf")
 # The GATv2 and dot kernels hold a row in at most 8 register chunks of 32
@@ -203,7 +203,10 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
                                     ("gatv2_bwd_rev_bf16", 11, 6, 1),
                                     ("dot_softmax_f32", 10, 9, 2),
                                     ("dot_bwd_dq_f32", 12, 9, 2),
-                                    ("dot_bwd_rev_f32", 11, 7, 2)):
+                                    ("dot_bwd_rev_f32", 11, 7, 2),
+                                    ("dot_softmax_bf16", 10, 9, 2),
+                                    ("dot_bwd_dq_bf16", 12, 9, 2),
+                                    ("dot_bwd_rev_bf16", 11, 7, 2)):
         f = getattr(lib, fn)
         f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * n_f32 + [ptr]
         f.restype = i32
@@ -402,9 +405,12 @@ def gatv2_bwd_rev_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
 
 
 def _dot_logits(r, s, q, k, scale, slope):
-    """Per edge: ``raw = scale * <q[r], k[s]>`` and the logit, ``raw`` or
-    ``leaky_relu(raw, slope)``."""
-    raw = scale * (q.index_select(0, r) * k.index_select(0, s)).sum(-1)
+    """Per edge, in the work type of ``k`` (float32 for bfloat16 inputs,
+    widened before any arithmetic): ``raw = scale * <q[r], k[s]>`` and the
+    logit, ``raw`` or ``leaky_relu(raw, slope)``."""
+    work = _work_dtype(k.dtype)
+    raw = scale * (q.index_select(0, r).to(work)
+                   * k.index_select(0, s).to(work)).sum(-1)
     return raw, (raw if slope is None else lrelu(raw, slope))
 
 
@@ -413,63 +419,73 @@ def dot_softmax_plain(indptr, col, q, k, v, scale, slope, raw_out=None):
     the values ``v[s_e]`` with logits ``scale * <q[r_e], k[s_e]>``, through
     ``leaky_relu(., slope)`` unless ``slope`` is None
     (edge_softmax.py:295-339). ``raw_out [E, H]``, where given, receives
-    each edge's raw logit ``scale * <q[r_e], k[s_e]>``."""
+    each edge's raw logit ``scale * <q[r_e], k[s_e]>``. bfloat16 inputs as
+    the kernel takes them: logits, ``m``, ``s`` and the sums in float32,
+    ``num`` rounded once to bfloat16."""
     rows, cols = _row_ids(indptr, col.numel()), col.long()
     raw, lg = _dot_logits(rows, cols, q, k, scale, slope)
     if raw_out is not None:
         raw_out.copy_(raw)
-    return _softmax_sums(rows, indptr.numel() - 1, lg, None,
-                         v.index_select(0, cols))
+    num, m, s = _softmax_sums(rows, indptr.numel() - 1, lg, None,
+                              v.index_select(0, cols).to(lg.dtype))
+    return num.to(v.dtype), m, s
 
 
 def _dot_edge_terms(r, s, q, k, v, mx, den, s_n, dy, scale, slope,
                     raw=None):
-    """Per edge: ``alpha``, ``dy[r]`` and ``dlg = alpha * (<v[s], dy[r]> -
-    s_n[r]) * dsig`` with ``dsig = scale * leaky_relu'(raw)``; the raw
-    logits computed, or ``raw`` (by edge) where given."""
+    """Per edge, in the work type of ``k`` (float32 for bfloat16 inputs):
+    ``alpha``, ``dy[r]`` and ``dlg = alpha * (<v[s], dy[r]> - s_n[r]) *
+    dsig`` with ``dsig = scale * leaky_relu'(raw)``; the raw logits
+    computed, or ``raw`` (by edge) where given."""
+    work = _work_dtype(k.dtype)
     if raw is None:
         raw, lg = _dot_logits(r, s, q, k, scale, slope)
     else:
+        raw = raw.to(work)
         lg = raw if slope is None else lrelu(raw, slope)
-    alpha = torch.exp(lg - mx.index_select(0, r)) / den.index_select(0, r)
-    dy_e = dy.index_select(0, r)
+    alpha = (torch.exp(lg - mx.index_select(0, r).to(work))
+             / den.index_select(0, r).to(work))
+    dy_e = dy.index_select(0, r).to(work)
     dsig = scale if slope is None else scale * _dlrelu(raw, slope)
-    vd = (v.index_select(0, s) * dy_e).sum(-1)
-    return alpha, dy_e, alpha * (vd - s_n.index_select(0, r)) * dsig
+    vd = (v.index_select(0, s).to(work) * dy_e).sum(-1)
+    return alpha, dy_e, (alpha * (vd - s_n.index_select(0, r).to(work))
+                         * dsig)
 
 
 def dot_bwd_dq_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
                      raw=None):
     """K7's function over the receiver CSR: ``dq[r] = sum_e dlg_e k[s_e]``
     (edge_softmax.py:546-596), with the raw logits ``raw [E, H]`` (K6's
-    residual) where given."""
+    residual) where given; in ``q``'s type (summed in float32 for
+    bfloat16)."""
     rows, cols = _row_ids(indptr, col.numel()), col.long()
     _, _, dlg = _dot_edge_terms(rows, cols, q, k, v, mx, den, s_n, dy, scale,
                                 slope, raw)
-    return q.new_zeros(q.shape).index_add_(
-        0, rows, dlg[..., None] * k.index_select(0, cols))
+    dq = dlg.new_zeros(q.shape).index_add_(
+        0, rows, dlg[..., None] * k.index_select(0, cols).to(dlg.dtype))
+    return dq.to(q.dtype)
 
 
 def dot_bwd_rev_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
     """K8's function over the sender CSR (``col``: the receivers): ``(dk,
     dv)`` with ``dk[s] = sum_e dlg_e q[r_e]`` and ``dv[s] = sum_e alpha_e
-    dy[r_e]`` (edge_softmax.py:599-650)."""
+    dy[r_e]`` (edge_softmax.py:599-650), in ``k``'s and ``v``'s types
+    (summed in float32 for bfloat16)."""
     rows, recv = _row_ids(indptr, col.numel()), col.long()
     alpha, dy_e, dlg = _dot_edge_terms(recv, rows, q, k, v, mx, den, s_n, dy,
                                        scale, slope)
-    dk = k.new_zeros(k.shape).index_add_(
-        0, rows, dlg[..., None] * q.index_select(0, recv))
-    dv = v.new_zeros(v.shape).index_add_(0, rows, alpha[..., None] * dy_e)
-    return dk, dv
+    dk = dlg.new_zeros(k.shape).index_add_(
+        0, rows, dlg[..., None] * q.index_select(0, recv).to(dlg.dtype))
+    dv = dy_e.new_zeros(v.shape).index_add_(0, rows, alpha[..., None] * dy_e)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---- kernel wrappers -------------------------------------------------------
 
-def _check_launch(indptr, col, scalars, rows3, values3=None, state=None,
-                  bf16=False) -> torch.device:
+def _check_launch(indptr, col, scalars, rows3, values3=None,
+                  state=None) -> torch.device:
     """``[rows, H]`` scalars and ``[rows, H, D]`` rows of one float type,
-    float32 or, with ``bf16`` (K3, K4, K5 and K12), bfloat16 (a mix raises
-    ``TypeError``, as does bfloat16 without ``bf16``); the float32 softmax
+    float32 or bfloat16 (a mix raises ``TypeError``); the float32 softmax
     state ``state`` ``[rows, H]``; int32 CSR; all contiguous on one card,
     with one H and one D. ``values3``: rows of a width of their own (dot
     attention's values beside ``q`` and ``k``), one width among them."""
@@ -479,7 +495,7 @@ def _check_launch(indptr, col, scalars, rows3, values3=None, state=None,
     values3, state = values3 or {}, state or {}
     first = next(t for group in (rows3, values3, scalars)
                  for t in group.values() if t is not None)
-    dtype = (torch.bfloat16 if bf16 and first.dtype == torch.bfloat16
+    dtype = (torch.bfloat16 if first.dtype == torch.bfloat16
              else torch.float32)
     for ndim, group, want in ((2, scalars, dtype), (3, rows3, dtype),
                               (3, values3, dtype), (2, state, torch.float32)):
@@ -547,7 +563,7 @@ def _edge_softmax_kernel(indptr, col, logits, mask, values, layout=None):
     (``build.load``). bfloat16 logits, mask and values take
     ``edge_softmax_bf16``, ``num`` in bfloat16."""
     device = _check_launch(indptr, col, {"logits": logits, "mask": mask},
-                           {"values": values}, bf16=True)
+                           {"values": values})
     n, (_, heads, d) = indptr.numel() - 1, values.shape
     n_edges = col.numel() if col is not None else values.shape[0]
     _same_rows(n_edges, logits=logits, mask=mask)
@@ -588,7 +604,7 @@ def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope, layout=None):
     library, which holds every (unroll, reg_cap) instance
     (``build.load``)."""
     device = _check_launch(indptr, col, {"pi": pi, "pj": pj},
-                           {"values_n": values_n}, bf16=True)
+                           {"values_n": values_n})
     n, (_, heads, d) = indptr.numel() - 1, values_n.shape
     _same_rows(n, pi=pi)
     _same_rows(values_n.shape[0], pj=pj)
@@ -609,8 +625,7 @@ def _gat_softmax_kernel(indptr, col, pi, pj, values_n, slope, layout=None):
 
 def _gat_fn(fn: str, key: str, values: torch.Tensor) -> tuple[str, str]:
     """The library function ``fn`` of a kernel with a bfloat16 variant
-    (K3, K4, K5, K9, K10, K11, K12) and its launch counter ``key`` for
-    ``values``' type."""
+    (K3-K12) and its launch counter ``key`` for ``values``' type."""
     if values.dtype == torch.bfloat16:
         return f"{fn}_bf16", f"{key}_bf16"
     return f"{fn}_f32", key
@@ -626,8 +641,7 @@ def _max_vectors(values: torch.Tensor) -> int:
 def _gat_bwd_args(indptr, col, pi, pj, values_n, mx, den, s_n, dy):
     device = _check_launch(indptr, col, {"pi": pi, "pj": pj},
                            {"values_n": values_n, "dy": dy},
-                           state={"mx": mx, "den": den, "s_n": s_n},
-                           bf16=True)
+                           state={"mx": mx, "den": den, "s_n": s_n})
     # receiver side and sender side
     _same_rows(pi.shape[0], mx=mx, den=den, s_n=s_n, dy=dy)
     _same_rows(pj.shape[0], values_n=values_n)
@@ -766,7 +780,7 @@ def _gatv2_args(indptr, col, q, k, a, state, rows3) -> torch.device:
     mix raises ``TypeError``), the float32 softmax ``state`` ``[rows, H]``,
     on one card; a width they take."""
     device = _check_launch(indptr, col, {"a": a}, {"q": q, "k": k, **rows3},
-                           state=state, bf16=True)
+                           state=state)
     if a.shape[0] != q.shape[2]:
         raise ValueError(f"a must be [O, H] = [{q.shape[2]}, {q.shape[1]}], "
                          f"got {tuple(a.shape)}")
@@ -927,19 +941,19 @@ def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
     return dk
 
 
-def _dot_args(indptr, col, q, k, v, scalars, rows_o, rows_d):
-    """Checks shared by K6-K8: float32 contiguous ``[rows, H, O]`` (``q``,
-    ``k``, ``rows_o``) and ``[rows, H, D]`` (``v``, ``rows_d``) rows and
-    ``[rows, H]`` scalars on one card; ``k`` and ``v`` have the senders'
-    rows; a width the kernels take. Returns the device and the pointers
-    of ``indptr, col, q, k, v``."""
-    device = _check_launch(indptr, col, scalars, {"q": q, "k": k, **rows_o},
-                           {"v": v, **rows_d})
+def _dot_args(indptr, col, q, k, v, state, rows_o, rows_d):
+    """Checks shared by K6-K8: contiguous ``[rows, H, O]`` (``q``, ``k``,
+    ``rows_o``) and ``[rows, H, D]`` (``v``, ``rows_d``) rows, all float32
+    or all bfloat16 (a mix raises ``TypeError``), and the float32 ``state``
+    ``[rows, H]`` (the softmax state, ``s_n``, the raw logits), on one
+    card; ``k`` and ``v`` have the senders' rows; a width the kernels take
+    (:func:`_dot_vectors`). Returns the device and the pointers of
+    ``indptr, col, q, k, v``."""
+    device = _check_launch(indptr, col, {}, {"q": q, "k": k, **rows_o},
+                           {"v": v, **rows_d}, state=state)
     _same_rows(v.shape[0], k=k)
-    o, d = q.shape[2], v.shape[2]
-    rows = (q, k, v, *rows_o.values(), *rows_d.values())
-    _check_width("dot-attention", "O or D", max(o, d),
-                 _float4_rows(o, *rows) and d % 4 == 0)
+    _dot_vectors(q.shape[2], v.shape[2], q, k, v, *rows_o.values(),
+                 *rows_d.values())
     return device, tuple(_ptr(t) for t in (indptr, col, q, k, v))
 
 
@@ -949,25 +963,51 @@ def _kernel_slope(slope) -> float:
     return 1.0 if slope is None else float(slope)
 
 
-def _vectors(width: int, vec: bool) -> int:
-    return width // 4 if vec else width
+def _dot_vectors(o: int, d: int, *rows) -> tuple[int, int, int]:
+    """``(ov, dv, vec_bytes)``: the vectors of a head's ``o``-wide (q, k)
+    and ``d``-wide (v, dy) rows in the one vector both widths and every
+    row operand take (:func:`~.spmm._row_vectors` of each, the narrower:
+    float32 rows float4 or one float; bfloat16 rows 8, 4 or 1 values), and
+    its bytes. The kernels hold a head's wider side in at most 256
+    vectors; wider raises ``ValueError``."""
+    elem = rows[0].element_size()
+    vec = min(_row_vectors(o, elem, *rows)[1],
+              _row_vectors(d, elem, *rows)[1])
+    per = vec // elem
+    if elem == 4:
+        _check_width("dot-attention", "O or D", max(o, d), vec == 16)
+    elif max(o, d) // per > _MAX_VECTORS:
+        raise ValueError(
+            f"the dot-attention kernels take bfloat16 rows of at most "
+            f"{_MAX_VECTORS} vectors per head (of 8 values when O and D are "
+            f"multiples of 8 and the row operands 16-byte aligned, 4 when "
+            f"multiples of 4 and 8-byte aligned, else 1), got O = {o}, "
+            f"D = {d}")
+    return o // per, d // per, vec
+
+
+def _line_vectors(vec_bytes: int) -> int:
+    """The vectors of a strip: one ``_DOT_LINE_BYTES`` line, at most 32 (an
+    edge group's lanes: single bfloat16 values take 64-byte strips)."""
+    return min(_DOT_LINE_BYTES // vec_bytes, 32)
 
 
 def _dot_recv_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
                      n_rows: int, entries: int) -> tuple[int, int, int, int]:
     """K6's and K7's ``(strips, log_rows, unroll, reg_cap)`` for a head of
-    ``ov`` (q, k) and ``dv`` (v, dy) vectors of ``vec_bytes`` (16: float4,
-    4: float), ``n_src`` sender rows and ``entries / n_rows`` edges per
-    receiver on average.
+    ``ov`` (q, k) and ``dv`` (v, dy) vectors of ``vec_bytes`` (16: float4
+    or 8 bfloat16 values; 8: 4 bfloat16 values; 4: a float; 2: one
+    bfloat16 value), ``n_src`` sender rows and ``entries / n_rows`` edges
+    per receiver on average.
 
-    Strips (1) for a head wider than one ``_DOT_LINE_BYTES`` line whose
-    slice of the wider gathered table exceeds ``_DOT_STRIP_BYTES``:
-    :func:`_windowed_rows` rows of one-line edge groups at
+    Strips (1) for a head wider than one strip (:func:`_line_vectors`)
+    whose slice of the wider gathered table exceeds ``_DOT_STRIP_BYTES``:
+    :func:`_windowed_rows` rows of one-strip edge groups at
     ``_DOT_STRIP_INSTANCE``. Else rows (0), as many per warp as K8's:
     for rows of one register chunk ``_DOT_ROWS_LINE`` or
     ``_DOT_ROWS_NARROW``, for wider rows one edge in flight, uncapped."""
     wide = max(ov, dv, 1)
-    line = _DOT_LINE_BYTES // vec_bytes
+    line = _line_vectors(vec_bytes)
     if wide > line and n_src * wide * vec_bytes > _DOT_STRIP_BYTES:
         log_s = (line - 1).bit_length()
         return (1, _windowed_rows(log_s, n_rows, entries,
@@ -977,48 +1017,53 @@ def _dot_recv_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
     return (0, log_rows) + _rows_instance(wide, vec_bytes << log_g)
 
 
-def _strips(width: int, vec: bool) -> int:
-    """The one-line strips of a head of ``width`` floats."""
-    return -(-_vectors(width, vec) // (_DOT_LINE_BYTES // (16 if vec else 4)))
+def _strips(vectors: int, vec_bytes: int) -> int:
+    """The strips (:func:`_line_vectors`) of a head of ``vectors`` vectors
+    of ``vec_bytes``."""
+    return -(-vectors // _line_vectors(vec_bytes))
 
 
-def _recv_layout(layout, o, d, vec, n_src, n_rows, entries):
+def _recv_layout(layout, ov, dv, vec_bytes, n_src, n_rows, entries):
     """``layout``, or :func:`_dot_recv_layout`'s where it is None; and
     whether the call goes to the sweep build."""
     if layout is not None:
         return tuple(layout), True
-    return _dot_recv_layout(_vectors(o, vec), _vectors(d, vec),
-                            16 if vec else 4, n_src, n_rows, entries), False
+    return _dot_recv_layout(ov, dv, vec_bytes, n_src, n_rows,
+                            entries), False
 
 
 def _dot_softmax_kernel(indptr, col, q, k, v, scale, slope, raw_out=None,
                         layout=None):
     """K6 at :func:`_dot_recv_layout`'s layout, or at ``layout``
     (``(strips, log_rows, unroll, reg_cap)``) from the sweep build of the
-    library, which holds every instance (``build.load``). Strips allocate
-    their scratch: the partial logits of every strip and the weights,
-    ``H * (strips + 1) * E`` floats, and ``raw_out`` where not given."""
+    library, which holds every instance (``build.load``; bfloat16 rows:
+    only the shipped ones). Strips allocate their scratch: the partial
+    logits of every strip and the weights, ``H * (strips + 1) * E``
+    floats, and ``raw_out`` where not given. bfloat16 rows take
+    ``dot_softmax_bf16``, ``num`` in bfloat16; ``m``, ``s`` and ``raw_out``
+    are float32 either way."""
     device, args = _dot_args(indptr, col, q, k, v, {"raw_out": raw_out}, {},
                              {})
     n, heads, o, d = indptr.numel() - 1, q.shape[1], q.shape[2], v.shape[2]
     n_edges = col.numel()
     _same_rows(n, q=q)
     _same_rows(n_edges, raw_out=raw_out)
-    num, m, s = _forward_outputs(n, heads, d, device)
+    num, m, s = _forward_outputs(n, heads, d, device, v.dtype)
     if n == 0 or heads == 0:
         return num, m, s
-    vec = _float4_rows(o, q, k, v, num) and d % 4 == 0
-    layout, sweep = _recv_layout(layout, o, d, vec, k.shape[0], n, n_edges)
+    ov, dv, vec = _dot_vectors(o, d, q, k, v, num)
+    layout, sweep = _recv_layout(layout, ov, dv, vec, k.shape[0], n, n_edges)
     scratch = None
     if layout[0]:
         if raw_out is None:
             raw_out = torch.empty((n_edges, heads), dtype=torch.float32,
                                   device=device)
-        scratch = torch.empty(heads * (_strips(o, vec) + 1) * n_edges,
+        scratch = torch.empty(heads * (_strips(ov, vec) + 1) * n_edges,
                               dtype=torch.float32, device=device)
-    _launch("dot_softmax_f32", "k6", device, *args, _ptr(num), _ptr(m),
-            _ptr(s), _ptr(raw_out), _ptr(scratch), n, heads, o, d, n_edges,
-            *layout, float(scale), _kernel_slope(slope), sweep=sweep)
+    _launch(*_gat_fn("dot_softmax", "k6", v), device, *args, _ptr(num),
+            _ptr(m), _ptr(s), _ptr(raw_out), _ptr(scratch), n, heads, o, d,
+            n_edges, *layout, float(scale), _kernel_slope(slope),
+            sweep=sweep)
     return num, m, s
 
 
@@ -1035,26 +1080,28 @@ def _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
                        raw=None, layout=None):
     """K7 at :func:`_dot_recv_layout`'s layout, or at ``layout`` from the
     sweep build (as :func:`_dot_softmax_kernel`). ``raw [E, H]``: K6's raw
-    logits, else recomputed from ``q`` and ``k``. Strips allocate their
-    scratch: the weights and the partial ``<v, dy>`` of every strip, and
-    without ``raw`` the partial logits."""
+    logits (float32), else recomputed from ``q`` and ``k``. Strips
+    allocate their scratch: the weights and the partial ``<v, dy>`` of
+    every strip, and without ``raw`` the partial logits. bfloat16 rows take
+    ``dot_bwd_dq_bf16``, ``dq`` in bfloat16."""
     device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy, raw)
     n, heads, o, d = indptr.numel() - 1, q.shape[1], q.shape[2], v.shape[2]
     n_edges = col.numel()
     _same_rows(n, q=q)
-    dq = torch.empty((n, heads, o), dtype=torch.float32, device=device)
+    dq = torch.empty((n, heads, o), dtype=q.dtype, device=device)
     if n == 0 or heads == 0:
         return dq
-    vec = _float4_rows(o, q, k, v, dy, dq) and d % 4 == 0
-    layout, sweep = _recv_layout(layout, o, d, vec, k.shape[0], n, n_edges)
+    ov, dv, vec = _dot_vectors(o, d, q, k, v, dy, dq)
+    layout, sweep = _recv_layout(layout, ov, dv, vec, k.shape[0], n, n_edges)
     scratch = None
     if layout[0]:
-        parts = 1 + _strips(d, vec) + (_strips(o, vec) if raw is None else 0)
+        parts = (1 + _strips(dv, vec)
+                 + (_strips(ov, vec) if raw is None else 0))
         scratch = torch.empty(heads * parts * n_edges, dtype=torch.float32,
                               device=device)
-    _launch("dot_bwd_dq_f32", "k7", device, *args, _ptr(raw), _ptr(dq),
-            _ptr(scratch), n, heads, o, d, n_edges, *layout, float(scale),
-            _kernel_slope(slope), sweep=sweep)
+    _launch(*_gat_fn("dot_bwd_dq", "k7", dy), device, *args, _ptr(raw),
+            _ptr(dq), _ptr(scratch), n, heads, o, d, n_edges, *layout,
+            float(scale), _kernel_slope(slope), sweep=sweep)
     return dq
 
 
@@ -1078,22 +1125,23 @@ def _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
                         slope, layout=None):
     """K8 at :func:`_dot_bwd_rev_layout`'s layout, or at ``layout``
     (``(log_rows, unroll, reg_cap)``) from the sweep build of the library,
-    which holds every (unroll, reg_cap) instance (``build.load``)."""
+    which holds every (unroll, reg_cap) instance (``build.load``; bfloat16
+    rows: only the shipped ones). bfloat16 rows take ``dot_bwd_rev_bf16``,
+    ``dk`` and ``dv`` in bfloat16."""
     device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy)
     n, heads, o, d = indptr.numel() - 1, k.shape[1], k.shape[2], v.shape[2]
     _same_rows(n, k=k)
-    dk = torch.empty((n, heads, o), dtype=torch.float32, device=device)
-    dv = torch.empty((n, heads, d), dtype=torch.float32, device=device)
+    dk = torch.empty((n, heads, o), dtype=k.dtype, device=device)
+    dv = torch.empty((n, heads, d), dtype=v.dtype, device=device)
     if n == 0 or heads == 0:
         return dk, dv
     sweep = layout is not None
     if not sweep:
-        vec = _float4_rows(o, q, k, v, dy, dk, dv) and d % 4 == 0
-        layout = _dot_bwd_rev_layout(_vectors(o, vec), _vectors(d, vec), n,
-                                     col.numel())
-    _launch("dot_bwd_rev_f32", "k8", device, *args, _ptr(dk), _ptr(dv), n,
-            heads, o, d, *layout, float(scale), _kernel_slope(slope),
-            sweep=sweep)
+        layout = _dot_bwd_rev_layout(
+            *_dot_vectors(o, d, q, k, v, dy, dk, dv)[:2], n, col.numel())
+    _launch(*_gat_fn("dot_bwd_rev", "k8", dy), device, *args, _ptr(dk),
+            _ptr(dv), n, heads, o, d, *layout, float(scale),
+            _kernel_slope(slope), sweep=sweep)
     return dk, dv
 
 
@@ -1354,16 +1402,19 @@ class DotAttentionFunction(torch.autograd.Function):
     (``dq``) and K8 (``dk``, ``dv``) backward (edge_softmax.py:473-783).
 
     Where ``q`` needs a gradient, K6 also writes each edge's raw logit, an
-    ``[E, H]`` residual (8 MB at E = 2M, H = 1), from which K7 takes the
-    logits instead of building them again; the JAX package saves the
-    gathered ``k`` and ``v`` rows for the same reason
-    (edge_softmax.py:538-542)."""
+    ``[E, H]`` float32 residual (8 MB at E = 2M, H = 1; float32 for
+    bfloat16 rows too), from which K7 takes the logits instead of building
+    them again; the JAX package saves the gathered ``k`` and ``v`` rows for
+    the same reason (edge_softmax.py:538-542). The backward forms ``s_n``
+    in float32 and returns every gradient in its primal's type."""
 
     @staticmethod
     def forward(ctx, q, k, values_n, self_logits, self_values, indptr_r,
                 col_r, indptr_s, col_s, scale, slope):
         q, k, values_n = _contiguous(q, k, values_n)
-        raw = (q.new_empty((col_r.numel(), q.shape[1]))
+        # float32 for bfloat16 rows, as K6 keeps it (edge_softmax.py:320)
+        raw = (torch.empty((col_r.numel(), q.shape[1]),
+                           dtype=_work_dtype(q.dtype), device=q.device)
                if ctx.needs_input_grad[0] else None)
         num, m, s = dot_softmax(indptr_r, col_r, q, k, values_n, scale, slope,
                                 raw)
@@ -1379,7 +1430,9 @@ class DotAttentionFunction(torch.autograd.Function):
         (q, k, values_n, self_logits, self_values, out, mx, den, indptr_r,
          col_r, indptr_s, col_s, raw) = ctx.saved_tensors
         dy = dy.contiguous()
-        s_n = (out * dy).sum(-1)
+        # float32 for bfloat16 rows, as the state (edge_softmax.py:672)
+        work = _work_dtype(out.dtype)
+        s_n = (out.to(work) * dy.to(work)).sum(-1)
         args = (q, k, values_n, mx, den, s_n, dy, ctx.scale, ctx.slope)
         need = ctx.needs_input_grad
         dq = dot_bwd_dq(indptr_r, col_r, *args, raw) if need[0] else None

@@ -199,20 +199,12 @@ def _raise_on_error(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-# Where a float32-only kernel meets bfloat16
-_BF16_NOT_PORTED = ("bfloat16 runs on K1-K5 and K9-K14; the bfloat16 "
-                    "variants of dot attention's K6-K8 are not ported yet "
-                    "(ROADMAP.md queue 2)")
-
-
 def _check(t, name: str, dtype, device) -> None:
     if t is None:
         return
     if t.dtype != dtype:
-        why = (f": {_BF16_NOT_PORTED}" if t.dtype == torch.bfloat16
-               and dtype == torch.float32 else "")
         raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got "
-                        f"{t.dtype}{why}")
+                        f"{t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():

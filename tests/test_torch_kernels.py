@@ -1,8 +1,7 @@
 """The kernels' wrappers and plain versions (no JAX needed): SpMM (K1, K2),
 edge softmax (K3, K4, K5, K12; GATv2's K9, K10, K11; dot attention's K6,
 K7, K8), the per-edge dot (K13) and the segment max (K14 and its
-backward); K1-K5 and K9-K14 (and K14's backward) also on bfloat16, and
-the raise of the routes that take float32 only (K6-K8).
+backward); every one (and K14's backward) also on bfloat16.
 
 - The plain versions (the CPU path, and the reference the CUDA kernels are
   held to) against a dense adjacency product or per-edge loops in float64.
@@ -1040,7 +1039,7 @@ def test_start_vector_on_card_equals_cpu():
                                    rtol=0, atol=0)
 
 
-# ---- bfloat16: K1-K5, K9-K14 ----------------------------------------------
+# ---- bfloat16: K1-K14 -----------------------------------------------------
 
 def _assert_bf16_close(got, want):
     """Kernel and plain version each round one float32 sum to bfloat16;
@@ -1291,11 +1290,225 @@ def test_precision_gatv2_step_on_card_matches_cpu(monkeypatch):
         assert float((a - b).norm() / b.norm()) <= 18 * u
 
 
+def _dot_bf16_kernels_case(g, heads, o, d, seed):
+    """K6 (with the raw logits written), K7 (from them and recomputing
+    them) and K8 on bfloat16 rows over ``g``, plain dot and with a slope,
+    against their plain versions: num, dq, dk and dv within one bfloat16
+    ulp, m, s and the raw logits (float32) at the float32 tolerance; only
+    the bfloat16 variants launched."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, ne = g.num_nodes, g.num_edges
+    ir, cr, is_, cs = g.indptr_r, g.col_r, g.indptr_s, g.col_s
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+
+    q, k, v, dy = rn(n, heads, o), rn(n, heads, o), rn(n, heads, d), \
+        rn(n, heads, d)
+    scale, tol = o ** -0.5, dict(rtol=1e-5, atol=1e-4)
+    before = dict(ES.launches)
+    for slope in (None, SLOPE):
+        args = (ir, cr, q, k, v, scale, slope)
+        raw, praw = (torch.empty(ne, heads, device="cuda") for _ in range(2))
+        num, m, s = ES.dot_softmax(*args, raw)
+        pnum, pm, ps = ES.dot_softmax_plain(*args, praw)
+        _assert_bf16_close(num, pnum)
+        for x, y in ((m, pm), (s, ps), (raw, praw)):
+            assert x.dtype == torch.float32
+            torch.testing.assert_close(x, y, **tol)
+        out, mx, den = ES.finalize_softmax(pnum, pm, ps, rn(n, heads),
+                                           rn(n, heads, d))
+        bwd = (q, k, v, mx, den, (out.float() * dy.float()).sum(-1), dy,
+               scale, slope)
+        for given in (None, praw):
+            _assert_bf16_close(ES.dot_bwd_dq(ir, cr, *bwd, given),
+                               ES.dot_bwd_dq_plain(ir, cr, *bwd, given))
+        for x, y in zip(ES.dot_bwd_rev(is_, cs, *bwd),
+                        ES.dot_bwd_rev_plain(is_, cs, *bwd)):
+            _assert_bf16_close(x, y)
+    torch.cuda.synchronize()
+    assert {k_: ES.launches[k_] - before[k_] for k_ in before
+            if ES.launches[k_] != before[k_]} == {"k6_bf16": 2,
+                                                  "k7_bf16": 4,
+                                                  "k8_bf16": 2}
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o,d", [(4, 32, 32), (1, 8, 8), (1, 13, 13),
+                                       (2, 4, 12), (1, 264, 264)])
+def test_dot_bf16_kernels_match_plain_on_card(heads, o, d):
+    """K6, K7 and K8 on bfloat16 rows in rows: 16-byte vectors (32, 8;
+    264: 33 vectors, two register chunks), 8-byte ones (4 and 12) and
+    single values (13); nodes 40-49 have no in-edges and no out-edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    _dot_bf16_kernels_case(_graph(16, "cuda", torch.float32), heads, o, d,
+                           heads * 1000 + o + d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("o,vec_bytes", [(128, 16), (132, 8), (129, 2)])
+def test_dot_bf16_strips_match_plain_on_card(o, vec_bytes):
+    """K6 and K7 on bfloat16 rows in strips (AGNN's (1, 128, 128), and 4-
+    and 1-value vectors: strips of a 128-byte line, 16 or 32 vectors) on a
+    graph whose sender table is wider than ``_DOT_STRIP_BYTES``, asserted,
+    and K8 beside them, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = tgnn.rand_graph(80_000, 400_000, seed=o, device="cuda")
+    q, k, v = _dot_bf16_kernels_case(g, 1, o, o, o)
+    ov, dv, vec = ES._dot_vectors(o, o, q, k, v)
+    assert vec == vec_bytes
+    assert ES._dot_recv_layout(ov, dv, vec, g.num_nodes, g.num_nodes,
+                               g.num_edges)[0] == 1
+
+
+def _dot_scales(g, n_dst, q, k, v, sl, sv, dy, scale):
+    """S of dot_attention's output and of the gradients of ``q, k, v, sl,
+    sv``: each the same sum over the absolute values of its terms, in
+    float64 (tests/test_torch_dot_bf16.py derives the bounds)."""
+    q, k, v, sl, sv, dy = (t.detach().double().cpu()
+                           for t in (q, k, v, sl, sv, dy))
+    s, r = g.senders.long().cpu(), g.receivers.long().cpu()
+    lg = scale * (q[r] * k[s]).sum(-1)
+    mx = torch.full(q.shape[:2], float("-inf"), dtype=torch.float64)
+    mx = mx.scatter_reduce(0, r[:, None].expand_as(lg), lg, "amax")
+    mx = torch.maximum(mx, sl)
+    ex = torch.exp(lg - mx[r])
+    ex_self = torch.exp(sl - mx)
+    den = torch.zeros_like(mx).index_add_(0, r, ex) + ex_self
+    alpha, a_self = ex / den[r], ex_self / den
+    s_out = (a_self[..., None] * sv.abs()).index_add_(
+        0, r, alpha[..., None] * v[s].abs())
+    sn_abs = (s_out * dy.abs()).sum(-1)
+    terms = alpha * ((v[s] * dy[r]).abs().sum(-1) + sn_abs[r]) * scale
+    s_dq = torch.zeros(q.shape, dtype=torch.float64).index_add_(
+        0, r, terms[..., None] * k[s].abs())
+    s_dk = torch.zeros(k.shape, dtype=torch.float64).index_add_(
+        0, s, terms[..., None] * q[r].abs())
+    s_dv = torch.zeros(v.shape, dtype=torch.float64).index_add_(
+        0, s, alpha[..., None] * dy[r].abs())
+    s_dsl = a_self * ((sv * dy).abs().sum(-1) + sn_abs)
+    s_dsv = a_self[..., None] * dy.abs()
+    assert q.shape[0] == n_dst
+    return s_out, [s_dq, s_dk, s_dv, s_dsl, s_dsv]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_src,n_dst", [(50, 50), (30, 50), (50, 30)])
+def test_dot_bf16_attention_on_card_matches_cpu(monkeypatch, n_src, n_dst):
+    """dot_attention on bfloat16 CUDA tensors (K6, K7, K8 in bfloat16, no
+    cast: only the _bf16 launches) against the same autograd function on
+    the CPU (the kernels' plain versions), at (H, O, D) = (4, 32, 32) and
+    TransformerConv's scale, also with N_src != N_dst through the cut CSRs
+    (``_rows``, ``_senders``): the output within 5 u S, the gradients of
+    q, k and the self logits within 9 u S, of v and the self values within
+    2 u S, S the same sums over absolute values (the bounds of
+    tests/test_torch_dot_bf16.py, which also count the JAX kernels' extra
+    roundings)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    heads, o, u, scale = 4, 32, 2.0 ** -8, 32 ** -0.5
+    rng = np.random.default_rng(n_src * 11 + n_dst)
+    s = rng.integers(0, n_src, 400)
+    r = rng.integers(0, min(n_dst, 40), 400)   # the last rows: no in-edges
+    g = tgnn.graph(s, r, num_nodes=max(n_src, n_dst), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(n_src + n_dst + 1)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+    ins = [rn(n_dst, heads, o), rn(n_src, heads, o), rn(n_src, heads, o),
+           rn(n_dst, heads), rn(n_dst, heads, o)]
+    cot = torch.randn(n_dst, heads, o, device="cuda", generator=gen)
+    results = {}
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
+        ts = [t.to(device, copy=True).requires_grad_() for t in ins]
+        before = dict(ES.launches)
+        out = TA.dot_attention(g.to(device), *ts[:3], scale,
+                               self_logits=ts[3], self_values=ts[4],
+                               num_segments=n_dst)
+        (out.float() * cot.to(device)).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: ES.launches[k] - before[k] for k in before
+                    if ES.launches[k] != before[k]}
+        assert launched == ({"k6_bf16": 1, "k7_bf16": 1, "k8_bf16": 1}
+                            if device == "cuda" else {})
+        assert out.dtype == torch.bfloat16
+        assert all(t.grad.dtype == torch.bfloat16 for t in ts)
+        results[device] = [out] + [t.grad for t in ts]
+    s_out, s_grads = _dot_scales(g, n_dst, *ins, cot.bfloat16().double(),
+                                 scale)
+    for i, (x, y, sc, k) in enumerate(zip(
+            results["cuda"], results["cpu"], [s_out] + s_grads,
+            [5, 9, 9, 2, 9, 2])):
+        err = (x.detach().double().cpu() - y.detach().double()).abs()
+        tol = k * u * sc + 1e-5 * sc + 1e-6
+        assert bool((err <= tol).all()), (i, float((err / tol).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["transformer", "agnn"])
+def test_precision_dot_step_on_card_matches_cpu(monkeypatch, kind):
+    """One forward and backward of ``Precision(GNNChain(
+    TransformerConv(heads=4), TransformerConv))`` and of
+    ``Precision(GNNChain(AGNNConv(), AGNNConv()))`` on the card (only K6,
+    K7 and K8 in bfloat16: 2 launches each; AGNN's first layer takes no
+    K8, its k and v being the input's, which needs no gradient) against
+    the same model on the CPU through the same autograd functions (plain
+    versions): the output
+    within 26 u of max |out|, the float32 gradients within 26 u by norm
+    (two layers of 13 u: tests/test_torch_dot_bf16.py; the key bias's,
+    whose exact value is 0, of the largest gradient's norm)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    u = 2.0 ** -8
+    g = _graph(17, "cuda", torch.float32)
+    gen = torch.Generator().manual_seed(17)
+    M = tgnn.models
+    if kind == "transformer":
+        inner = M.GNNChain(
+            M.TransformerConv(16, 8, heads=4, generator=gen, device="cuda"),
+            M.TransformerConv(32, 4, generator=gen, device="cuda"))
+    else:
+        inner = M.GNNChain(M.AGNNConv(device="cuda"),
+                           M.AGNNConv(device="cuda"))
+    model = M.Precision(inner)
+    x = torch.randn(g.num_nodes, 16, generator=gen)
+    results = {}
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            monkeypatch.setattr(TA, "_kernel_route", lambda t: True)
+        m = copy.deepcopy(model).to(device)
+        before = dict(ES.launches)
+        out = m(g.to(device), x.to(device))
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: ES.launches[k] - before[k] for k in before
+                    if ES.launches[k] != before[k]}
+        want = {"k6_bf16": 2, "k7_bf16": 2,
+                "k8_bf16": 2 if kind == "transformer" else 1}
+        assert launched == (want if device == "cuda" else {})
+        assert out.dtype == torch.bfloat16
+        results[device] = (out.detach().double().cpu(),
+                           {n: p.grad.double().cpu()
+                            for n, p in m.named_parameters()})
+    (oc, gc), (oh, gh) = results["cuda"], results["cpu"]
+    assert float((oc - oh).abs().max()) <= 26 * u * float(oh.abs().max())
+    largest = max(float(b.norm()) for b in gh.values())
+    for name, b in gh.items():
+        sc = largest if name.endswith("W4.bias") else float(b.norm())
+        assert float((gc[name] - b).norm()) <= 26 * u * sc, name
+
+
 @pytest.mark.gpu
 def test_bf16_kernels_refuse_a_mix_on_card():
     """float32 weights with bfloat16 rows (K1), a float32 pi with bfloat16
-    values (K3), a bfloat16 state (K4), a float32 q with bfloat16 k (K9)
-    or a bfloat16 s_n (K11): TypeError, nothing launched."""
+    values (K3), a bfloat16 state (K4), a float32 q with bfloat16 k (K9),
+    float32 values with bfloat16 q and k (K6) or a bfloat16 s_n (K11,
+    K8): TypeError, nothing launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     g, x = _attention_inputs(2, 8, "cuda")
@@ -1312,6 +1525,12 @@ def test_bf16_kernels_refuse_a_mix_on_card():
     a = b["v"][0].t().contiguous()            # [O, H]
     with pytest.raises(TypeError):
         ES.gatv2_softmax(g.indptr_r, g.col_r, x["v"], b["v"], a, SLOPE)
+    with pytest.raises(TypeError):
+        ES.dot_softmax(g.indptr_r, g.col_r, b["v"], b["v"], x["v"], 1.0,
+                       None)
+    with pytest.raises(TypeError):              # a bfloat16 s_n
+        ES.dot_bwd_rev(g.indptr_s, g.col_s, b["v"], b["v"], b["v"],
+                       x["pi"], x["pi"], b["pi"], b["dy"], 1.0, None)
     with pytest.raises(TypeError):
         ES.gatv2_bwd_rev(g.indptr_s, g.col_s, b["v"], b["v"], a, x["pi"],
                          x["pi"], b["pi"], b["dy"], SLOPE)
@@ -1496,27 +1715,6 @@ def test_gather_backward_bf16_on_card(d):
                 if S.launches[k] != before[k]} == {"k1_bf16": 1}
         _assert_bf16_close(a.grad, S.spmm_plain(indptr, eid, None, None,
                                                 cot))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("route", ["K6-K8"])
-def test_float32_only_routes_raise_on_bf16_on_card(route):
-    """Dot attention's kernel route raises TypeError naming bfloat16 on a
-    bfloat16 CUDA tensor; there is no cast to float32."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    g = _graph(9, "cuda", torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    n = g.num_nodes
-
-    def rn(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
-    q = rn(n, 2, 4)
-    calls = {
-        "K6-K8": lambda: TA.dot_attention(g, q, q, q),
-    }
-    with pytest.raises(TypeError, match="bfloat16"):
-        calls[route]()
 
 
 @pytest.mark.gpu

@@ -264,7 +264,8 @@ def _rand_csr_args(rng, heads, d):
 
 PLAIN_CASES = ["spmm", "spmm_weighted", "spmm_sddmm", "gat_softmax",
                "gat_bwd_dpi", "gat_bwd_rev", "gatv2_softmax", "gatv2_bwd_dq",
-               "gatv2_bwd_rev"]
+               "gatv2_bwd_rev", "dot_softmax", "dot_softmax_slope",
+               "dot_bwd_dq", "dot_bwd_rev"]
 
 
 @pytest.mark.parametrize("case", PLAIN_CASES)
@@ -282,6 +283,19 @@ def test_plain_versions_bf16_are_float32_rounded_once(case):
                 "spmm_weighted": (S.spmm_plain, (is_, cs, es, w, x)),
                 "spmm_sddmm": (S.spmm_sddmm_plain,
                                (is_, cs, es, w, bf(n, 6), x))}[case]
+    elif case.startswith("dot"):
+        h, o, d = 2, 6, 5
+        slope = SLOPE if case == "dot_softmax_slope" else None
+        q, k, v, dy = bf(n, h, o), bf(n, h, o), bf(n, h, d), bf(n, h, d)
+        num, m, s = ES.dot_softmax_plain(ir, cr, q, k, v, 0.4, slope)
+        out, mx, den = ES.finalize_softmax(num, m, s)
+        s_n = (out.float() * dy.float()).sum(-1)
+        bwd = (q, k, v, mx, den, s_n, dy, 0.4, slope)
+        args = {"dot_softmax": (ES.dot_softmax_plain,
+                                (ir, cr, q, k, v, 0.4, slope)),
+                "dot_bwd_dq": (ES.dot_bwd_dq_plain, (ir, cr) + bwd),
+                "dot_bwd_rev": (ES.dot_bwd_rev_plain, (is_, cs) + bwd)
+                }[case.replace("_slope", "")]
     elif case.startswith("gatv2"):
         h, o = 2, 6
         q, k, dy, a = bf(n, h, o), bf(n, h, o), bf(n, h, o), bf(o, h)
@@ -475,36 +489,17 @@ def test_precision_casts_inputs_not_graph():
     assert model.module.w.dtype == model.module.w.grad.dtype == torch.float32
 
 
-# ---- the routes that take float32 only ---------------------------------
-
-def _bf16_checks():
-    """Each float32-only kernel's input check on bfloat16 CPU tensors (the
-    checks run before any launch)."""
-    g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
-    ir, cr = g.indptr_r, g.col_r
-    b = torch.bfloat16
-
-    def z(*shape, dtype=b):
-        return torch.zeros(shape, dtype=dtype)
-    return {
-        "K6-K8": lambda: ES._dot_args(ir, cr, z(16, 2, 4), z(16, 2, 4),
-                                      z(16, 2, 4), {}, {}, {}),
-    }
-
-
-@pytest.mark.parametrize("route", list(_bf16_checks()))
-def test_float32_only_routes_raise_on_bf16(route):
-    with pytest.raises(TypeError, match="bfloat16"):
-        _bf16_checks()[route]()
-
+# ---- the kernels refuse a mix of types ----------------------------------
 
 @pytest.mark.parametrize("case", ["K1 w", "K3 pi", "K4 mx", "K5 dy", "K2 w",
                                   "K12 mask", "K13 xj", "K14 dy", "K9 q",
-                                  "K10 dy", "K11 mx"])
+                                  "K10 dy", "K11 mx", "K6 v", "K7 dy",
+                                  "K8 mx"])
 def test_bf16_kernels_refuse_a_mix_of_types(case):
-    """K1's and K2's rows and weights, GAT's, GATv2's and K12's rows and
-    scalars, K13's two row tables and K14's operands are all float32 or
-    all bfloat16; the softmax state float32. A mix raises."""
+    """K1's and K2's rows and weights, GAT's, GATv2's, dot attention's and
+    K12's rows and scalars, K13's two row tables and K14's operands are all
+    float32 or all bfloat16; the softmax state (and K6's raw logits)
+    float32. A mix raises."""
     g = tgnn.rand_graph(16, 40, seed=0, device="cpu")
     ir, cr, is_, cs, es = g.indptr_r, g.col_r, g.indptr_s, g.col_s, g.eid_s
     b, f = torch.bfloat16, torch.float32
@@ -516,13 +511,16 @@ def test_bf16_kernels_refuse_a_mix_of_types(case):
                s_n=z(16, 2, dtype=f), dy=z(16, 2, 4))
     v2 = dict(q=z(16, 2, 4), k=z(16, 2, 4), a=z(4, 2), mx=z(16, 2, dtype=f),
               den=z(16, 2, dtype=f), s_n=z(16, 2, dtype=f), dy=z(16, 2, 4))
+    dot = dict(q=z(16, 2, 4), k=z(16, 2, 4), v=z(16, 2, 6),
+               mx=z(16, 2, dtype=f), den=z(16, 2, dtype=f),
+               s_n=z(16, 2, dtype=f), dy=z(16, 2, 6), raw=z(40, 2, dtype=f))
     with pytest.raises(TypeError):
         if case == "K1 w":
             S._check_launch(ir, cr, None, z(40, dtype=f), z(16, 4))
         elif case == "K3 pi":
             ES._check_launch(ir, cr, {"pi": z(16, 2, dtype=f),
                                       "pj": z(16, 2)},
-                             {"values_n": z(16, 2, 4)}, bf16=True)
+                             {"values_n": z(16, 2, 4)})
         elif case == "K4 mx":
             ES._gat_bwd_args(ir, cr, **{**bwd, "mx": z(16, 2)})
         elif case == "K5 dy":
@@ -532,7 +530,7 @@ def test_bf16_kernels_refuse_a_mix_of_types(case):
         elif case == "K12 mask":
             ES._check_launch(ir, cr, {"logits": z(40, 2),
                                       "mask": z(40, 2, dtype=f)},
-                             {"values": z(16, 2, 4)}, bf16=True)
+                             {"values": z(16, 2, 4)})
         elif case == "K13 xj":
             SD._sddmm_kernel(ir, cr, z(16, 2, 4), z(16, 2, 4, dtype=f))
         elif case == "K9 q":
@@ -542,15 +540,26 @@ def test_bf16_kernels_refuse_a_mix_of_types(case):
             ES._gatv2_bwd_args(ir, cr, **{**v2, "dy": z(16, 2, 4, dtype=f)})
         elif case == "K11 mx":
             ES._gatv2_bwd_args(is_, cs, **{**v2, "mx": z(16, 2)})
+        elif case == "K6 v":
+            ES._dot_args(ir, cr, dot["q"], dot["k"], z(16, 2, 6, dtype=f),
+                         {"raw_out": dot["raw"]}, {}, {})
+        elif case == "K7 dy":
+            ES._dot_bwd_args(ir, cr, **{**dot, "dy": z(16, 2, 6, dtype=f)})
+        elif case == "K8 mx":
+            ES._dot_bwd_args(is_, cs, **{**dot, "mx": z(16, 2),
+                                         "raw": None})
         else:
             SG._check_launch(ir, z(40, 4), z(16, 4), z(16, 4, dtype=f))
     # the same operands, all of one type, pass
     S._check_launch(ir, cr, None, z(40), z(16, 4))
     ES._gat_bwd_args(ir, cr, **bwd)
     ES._gatv2_bwd_args(ir, cr, **v2)
+    ES._dot_bwd_args(ir, cr, **dot)
+    ES._dot_args(ir, cr, dot["q"], dot["k"], dot["v"],
+                 {"raw_out": dot["raw"]}, {}, {})
     S._check_sddmm(is_, cs, es, z(40), z(16, 4), z(16, 4))
     ES._check_launch(ir, cr, {"logits": z(40, 2), "mask": z(40, 2)},
-                     {"values": z(16, 2, 4)}, bf16=True)
+                     {"values": z(16, 2, 4)})
     assert SG._check_launch(ir, z(40, 4), z(16, 4), z(16, 4))
 
 
