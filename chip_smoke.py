@@ -10,8 +10,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (N=131,072 nodes, E=2,000,000 edges, D=128, float32):
    K1 (``spmm_csr_f32``: every case a phase-3 path launches, each row
-   naming the paths, EdgeConv's gather backward over ``[E, 128]`` edge rows,
-   ChebConv's power iteration at D=1 and the forward over ``g.reverse()``'s
+   naming the paths, the gathers' backward over ``[E, D]`` edge rows at
+   EdgeConv's D=128 and 3v's 64, 48, 32, 24 and 3, ChebConv's power iteration at D=1 and the forward over ``g.reverse()``'s
    receiver CSR through its edge-id map included) and K2
    (``spmm_sddmm_csr_f32``, also at D=32 and 8 and at GAT (b)'s H=4, D=32
    in one launch with dropped attention weights), forward and backward,
@@ -112,6 +112,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its ``reverse``, ResGatedGraphConv, and ``GatedGraphConv(128, 2)`` then
    ``Linear(128, 8)`` (all K1), each trained and held card vs CPU as 3c
    holds the others, with DConv also on the reverse of a weighted graph.
+   3v: the edge-featured layers, each twice at its published model's
+   widths with Adam for 10 steps, profiled (the ``index_add`` sums of
+   their edge messages apart), K1 (their endpoint gathers' backward)
+   asserted, peak memory: ``NNConv(64, 64, MLP([5, 128, 4096]), relu,
+   aggr="mean")`` (MPNN on QM9) on ``rand_graph(N, 500,000)`` with 5 edge
+   features, ``CGConv(64, 64, softplus, edge_features=41, residual=True)``
+   (CGCNN), ``GMMConv(128, 16, relu, K=3)`` then ``GMMConv(16, 8, K=3)``
+   on MoNet's degree pseudo-coordinates, ``MEGNetConv(phi_e=MLP([96, 64,
+   32]), phi_v=MLP([64, 64, 32]))`` (MEGNet, 100 edge features through a
+   Linear to 32) and ``EGNNConv(128, 128, hidden_size=128)`` (EGNN on QM9,
+   3-D positions), a Linear from 128 first where the width differs and a
+   head to 8; the loss reads every output (MEGNet's edges and EGNN's
+   positions by their mean square). One step each card vs CPU in float64
+   on ``rand_graph(16,384, 262,144)`` (NNConv's 65,536 edges), every
+   output, the relus' masks of the card replayed on the CPU.
    3o: ten paths in ``models.Precision`` (bfloat16 compute, float32
    master parameters and Adam), each with its float32 phase's model and
    graph, a float32 loss of the bfloat16 output, 10 steps each, profiled,
@@ -223,7 +238,8 @@ limit, and as its last line ``{"ok": true, "device": {...}}``. ``--out DIR``
 also writes every measurement to ``DIR/chip_smoke.json``; ``--profile``
 adds a ``torch.profiler`` breakdown of three train steps of GCN (3a, 3b),
 of GAT (3d, 3e), GATv2 (3f), Transformer (3g), AGNN (3h), link prediction
-(3i), EdgeConv (3j), graph classification (3k) and each 3l model, and of
+(3i), EdgeConv (3j), graph classification (3k) and each 3l model (3v's
+always), and of
 three batches of 3m and of 3n (sampling included), with
 the device time per step of each kernel of :data:`STEP_KERNELS` (K1-K12).
 ``--sweep`` times K1-K12, K14 and its backward at every layout (the
@@ -233,9 +249,9 @@ K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees (``--sweep
 k12,k4,skew`` runs the named sweeps only; with k1, K1 also at 2g's shapes);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
-and the train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3s, 2j, 3r, 3m and
-3n, with ``--profile`` their profiles; 3o, 3p, 3q, 3r and 3s always
-profile, and with ``--profile`` 3r also breaks the host's split and draw
+and the train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, 3q, 3s, 2j, 3r, 3m
+and 3n, with ``--profile`` their profiles; 3v, 3o, 3p, 3q, 3r and 3s
+always profile, and with ``--profile`` 3r also breaks the host's split and draw
 down by function under ``cProfile``; ``--only 3p,3q`` runs 2i with
 them, ``--only 3m,3n`` 2g, ``--only 2j,3r,3s`` the examples' phases,
 ``--only 2k,3t,3u`` the multi-device path:
@@ -807,13 +823,45 @@ def kernel_phase(gnn, g, card: str) -> dict:
     # gathers them by edge id in sender order
     e128 = torch.randn(E, D, generator=gen, device=dev)
     k1_case("gather-bwd edge rows D=128", "EdgeConv layer 2 bwd x_i "
-            "(3j, 1/step)", (ir, None, None, None, e128),
+            "(3j, 1/step); EGNNConv layer 2 bwd h_i (3v, 1/step)",
+            (ir, None, None, None, e128),
             lambda: torch.segment_reduce(e128, "sum", offsets=ir))
     s_eid = csr(is_, es, torch.ones(E, device=dev), cols=E)
     k1_case("gather-bwd edge rows by eid D=128",
-            "EdgeConv layer 2 bwd x_j (3j, 1/step)",
+            "EdgeConv layer 2 bwd x_j (3j, 1/step); EGNNConv layer 2 bwd h_j "
+            "(3v, 1/step)",
             (is_, es, None, None, e128), lambda: torch.sparse.mm(s_eid, e128))
-    del e128, s_eid
+    del e128
+    # 3v's endpoint gathers at their own widths, each by receiver and by
+    # sender (edge ids over the sender CSR): CGConv's 64, GMMConv's [N, K*O]
+    # projections 48 and 24, MEGNetConv's 32 and EGNNConv's positions 3 (the
+    # scalar path); a generator of their own leaves the other cases' inputs
+    gen_v = torch.Generator(device=dev).manual_seed(22)
+    for d, at_r, at_s in (
+            (64, "CGConv bwd x_i (3v, 2/step)", "CGConv bwd x_j (3v, 2/step)"),
+            (48, None, "GMMConv layer 1 bwd dense_x(x)[s] (3v, 1/step)"),
+            (32, "MEGNetConv bwd x_i (3v, 2/step)",
+             "MEGNetConv bwd x_j (3v, 2/step)"),
+            (24, None, "GMMConv layer 2 bwd dense_x(h)[s] (3v, 1/step)"),
+            (3, "EGNNConv layer 2 bwd pos_i (3v, 1/step)",
+             "EGNNConv layer 2 bwd pos_j (3v, 1/step)")):
+        ed = torch.randn(E, d, generator=gen_v, device=dev)
+        k1_case(f"gather-bwd edge rows D={d}",
+                at_r or "none of phase 3 (3v gathers this width by sender)",
+                (ir, None, None, None, ed),
+                lambda: torch.segment_reduce(ed, "sum", offsets=ir))
+        k1_case(f"gather-bwd edge rows by eid D={d}", at_s,
+                (is_, es, None, None, ed), lambda: torch.sparse.mm(s_eid, ed))
+    # NNConv's x_j on its own graph (3v cuts it to NNCONV_E edges)
+    gn = gnn.rand_graph(N, NNCONV_E, seed=3, device=dev)
+    ed = torch.randn(NNCONV_E, 64, generator=gen_v, device=dev)
+    sn_eid = csr(gn.indptr_s, gn.eid_s, torch.ones(NNCONV_E, device=dev),
+                 cols=NNCONV_E)
+    k1_case(f"gather-bwd edge rows by eid D=64 on rand_graph(N, {NNCONV_E})",
+            "NNConv bwd x_j (3v, 2/step)",
+            (gn.indptr_s, gn.eid_s, None, None, ed),
+            lambda: torch.sparse.mm(sn_eid, ed))
+    del ed, s_eid, gn, sn_eid
     # ChebConv's power iteration: one [N, 1] column (one graph)
     x1 = torch.randn(N, 1, generator=gen, device=dev)
     k1_case("fwd receiver-CSR D=1",
@@ -2981,9 +3029,11 @@ def expect_launched(name: str, before: dict, want: dict) -> None:
 def compare_model(name, model, g, x, args_fn, extra_params=(),
                   grad_rtol=GRAD_NORM_RTOL, forward=None, zero_grads=()):
     """One forward+backward on the card vs the CPU plain path in float64,
-    from the same weights and inputs. ``forward(m, g, x, extra) -> (out,
-    loss)`` replaces the default: masked cross-entropy of ``m(g, x,
-    **args_fn(extra))``. The parameters whose names end with one of
+    from the same weights and inputs. ``x`` may be a tuple of inputs, each
+    moved to the CPU (a floating one in float64). ``forward(m, g, x, extra)
+    -> (out, loss)`` replaces the default: masked cross-entropy of ``m(g,
+    x, **args_fn(extra))``; its ``out`` may be a tuple of outputs, each
+    compared. The parameters whose names end with one of
     ``zero_grads`` have a gradient that is 0 in exact arithmetic (see
     ZERO_GRAD_FLOOR)."""
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
@@ -2993,13 +3043,17 @@ def compare_model(name, model, g, x, args_fn, extra_params=(),
         return logits, masked_cross_entropy(logits, gg.nodes["y"],
                                             gg.node_mask)
 
+    def to_cpu(t):
+        return t.cpu().double() if t.is_floating_point() else t.cpu()
+
     forward = forward or node_classes
     cpu_model = copy.deepcopy(model).to("cpu", torch.float64)
     gc = g.to("cpu")
     out = {}
     results = []
+    xc = tuple(map(to_cpu, x)) if isinstance(x, tuple) else to_cpu(x)
     for m, gg, xx, extra in ((model, g, x, extra_params),
-                             (cpu_model, gc, x.cpu().double(),
+                             (cpu_model, gc, xc,
                               [p.detach().cpu().double().requires_grad_()
                                for p in extra_params])):
         m.zero_grad(set_to_none=True)
@@ -3008,10 +3062,13 @@ def compare_model(name, model, g, x, args_fn, extra_params=(),
         logits, loss = forward(m, gg, xx, extra)
         loss.backward()
         grads = [p.grad for p in m.parameters()] + [p.grad for p in extra]
-        results.append((logits.detach(), loss.detach(), grads))
+        outs = logits if isinstance(logits, tuple) else (logits,)
+        results.append(([o.detach() for o in outs], loss.detach(), grads))
     (lg, ls, gr), (lc, lsc, grc) = results
-    out["logits_err"] = compare(f"{name}: logits card vs CPU", lg.cpu(), lc,
-                                rtol=MODEL_RTOL, atol=MODEL_ATOL)
+    out["logits_err"] = max(
+        compare(f"{name}: {f'output {i}' if i else 'logits'} card vs CPU",
+                a.cpu(), b, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+        for i, (a, b) in enumerate(zip(lg, lc)))
     compare(f"{name}: loss card vs CPU", ls.cpu().reshape(1),
             lsc.reshape(1), rtol=MODEL_RTOL, atol=MODEL_ATOL)
     names = [n for n, _ in model.named_parameters()] + [
@@ -3709,6 +3766,230 @@ def propagation_phase(g, x, y, mask, profile: bool):
     return res, None
 
 
+# 3v: NNConv's per-edge [64, 64] matrices take 8.2 GB a layer at 500,000
+# edges, kept for the backward, and their gradient as much again; at E = 2M
+# two layers' would pass the card's 80 GB, so its graph is cut to these
+NNCONV_E = 500_000
+# 3v's card step held to the CPU in float64 on smaller graphs (NNConv's
+# float64 matrices at 65,536 edges: 2.1 GB on the host)
+EDGE_CHECK_N, EDGE_CHECK_E, NNCONV_CHECK_E = 16_384, 262_144, 65_536
+# A float32 pre-activation that lands on the other side of 0 than in
+# float64 passes or stops one cotangent g of a relu. At the check's size
+# NNConv's two layers hold 2.1M pre-activations (rounding ~5e-7 at a spread
+# ~1: ~2 * 5e-7 * 0.4 = 4e-7 of them flip, ~0.8 a check) and its edge
+# network 16.8M hidden ones (~1.3 a check); one flip of a layer moves its
+# bias gradient by g against a norm of ~|g| sqrt(N / 2 * 64) = 724 |g|
+# (terms of random sign): 1.4e-3, and every gradient below it alike (one
+# check on an H100 read 1.8e-3, another 7e-7). GMMConv's first layer:
+# 262,144 pre-activations, ~0.02 flip a check, 2.8e-3 each. So 3v's relus
+# replay the card's masks on the CPU (ReluReplay) and every model keeps
+# GRAD_NORM_RTOL; the masks may differ from the CPU's own signs in at most
+# RELU_FLIP_SHARE of the elements (25x the 4e-7 above).
+RELU_FLIP_SHARE = 1e-5
+
+
+class ReluReplay:
+    """relu that, inside ``with``, keeps the masks ``x > 0`` of its float32
+    calls (the card's side of a card-vs-CPU check) and applies them, in
+    order, to its float64 calls (the CPU's side: ``x * mask``, relu's value
+    and gradient where the signs agree), so that both sides take the same
+    side of its kink (see RELU_FLIP_SHARE). Outside ``with`` it is
+    ``torch.relu``. A deepcopy is the same object, so a model and its CPU
+    copy share it. ``flips`` and ``size`` count the replayed elements whose
+    float64 sign differs, and all."""
+
+    def __init__(self):
+        self.masks, self.i, self.flips, self.size = None, 0, 0, 0
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def __enter__(self):
+        self.masks, self.i, self.flips, self.size = [], 0, 0, 0
+        return self
+
+    def __exit__(self, *exc):
+        masks, self.masks = self.masks, None
+        if exc[0] is None and self.i != len(masks):
+            raise AssertionError(f"relu replay: {self.i} of {len(masks)} "
+                                 "masks replayed")
+
+    def __call__(self, x):
+        if self.masks is None:
+            return torch.relu(x)
+        if x.dtype != torch.float64:
+            self.masks.append(x > 0)
+            return torch.relu(x)
+        mask = self.masks[self.i].to(x.device)
+        self.i += 1
+        self.flips += int((mask != (x > 0)).sum())
+        self.size += mask.numel()
+        return x * mask
+
+
+class EdgeModel(torch.nn.Module):
+    """A 3v model: ``pre`` (a Linear from the graph's 128 features, or None
+    where the first layer takes them), two edge-featured ``convs`` called
+    as ``conv(g, h, side)``, and ``head`` (a Linear to OUT_D, or None).
+    ``side`` is the edge features (through ``pre_e`` where given) or, for
+    EGNNConv, the positions. A layer that returns a pair (MEGNetConv,
+    EGNNConv) hands its second output to the next layer as its side, and
+    the model returns the last one beside the logits."""
+
+    def __init__(self, convs, pre=None, pre_e=None, head=None):
+        super().__init__()
+        self.pre, self.pre_e, self.head = pre, pre_e, head
+        self.convs = torch.nn.ModuleList(convs)
+
+    def forward(self, g, x, side):
+        h = self.pre(x) if self.pre is not None else x
+        s = self.pre_e(side) if self.pre_e is not None else side
+        paired = None
+        for conv in self.convs:
+            out = conv(g, h, s)
+            if isinstance(out, tuple):
+                h, s = out
+                paired = s
+            else:
+                h = out
+        return self.head(h) if self.head is not None else h, paired
+
+
+def edge_objective(m, g, x, side, y, mask):
+    """3v's ``(outputs, loss)`` of the :class:`EdgeModel` ``m`` on ``(g, x,
+    side)``: the logits and a paired layer's last edge or position output;
+    masked cross-entropy of the logits plus the mean square of the paired
+    output, so that every output and every gradient path counts."""
+    from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
+
+    logits, paired = m(g, x, side)
+    loss = masked_cross_entropy(logits, y, mask)
+    if paired is None:
+        return (logits,), loss
+    return (logits, paired), loss + paired.pow(2).mean()
+
+
+def edge_models(M, dev, relu) -> dict:
+    """Phase 3v: each edge-featured layer twice at its published model's
+    widths, name -> (model, side input: edge features of that width,
+    ``"monet"`` or ``"pos"``, K1 launches a train step); the relus are
+    ``relu`` (a :class:`ReluReplay`). K1 is the backward of each endpoint
+    gather of a node array that needs a gradient: a layer whose input comes
+    from a Linear or a layer gathers it by sender (NNConv, GMMConv's
+    ``dense_x(x)``) or by both ends (CGConv, MEGNetConv, and EGNNConv's
+    ``h`` and positions, which need none in its first layer).
+    - NNConv: MPNN on QM9 (Gilmer et al. 2017; PyG
+      ``examples/qm9_nn_conv.py``): width 64, 5 edge features, edge network
+      5 -> 128 -> 64 * 64, mean; 1 + 1;
+    - CGConv: CGCNN (Xie & Grossman 2018; ``cgcnn`` defaults): atom
+      features 64, 41 bond features, softplus, residual; 2 + 2;
+    - GMMConv: MoNet on citation graphs (Monti et al. 2017): pseudo-
+      coordinates ``(deg(i)^-1/2, deg(j)^-1/2)``, K = 3, hidden 16; 1 + 1;
+    - MEGNetConv: MEGNet (Chen et al. 2019; ``megnet`` defaults): block
+      units [64, 32], 100 Gaussian bond centres (a Linear to 32), softplus;
+      2 + 2;
+    - EGNNConv: EGNN on QM9 (Satorras et al. 2021): hidden 128, no edge
+      features, 3-D positions; 0 + 4.
+    """
+    torch.manual_seed(22)
+    gen = torch.Generator().manual_seed(22)
+    kw = dict(generator=gen, device=dev)
+    softplus = torch.nn.functional.softplus
+
+    def lin(a, b):
+        return torch.nn.Linear(a, b, device=dev)
+
+    return {
+        "NNConv": (EdgeModel(
+            [M.NNConv(64, 64, M.MLP([5, 128, 64 * 64], relu, **kw), relu,
+                      aggr="mean", **kw) for _ in range(2)],
+            pre=lin(D, 64), head=lin(64, OUT_D)), 5, 2),
+        "CGConv": (EdgeModel(
+            [M.CGConv(64, 64, softplus, edge_features=41, residual=True,
+                      **kw) for _ in range(2)],
+            pre=lin(D, 64), head=lin(64, OUT_D)), 41, 4),
+        "GMMConv": (EdgeModel(
+            [M.GMMConv(D, 16, relu, edge_features=2, K=3, **kw),
+             M.GMMConv(16, OUT_D, edge_features=2, K=3, **kw)]), "monet", 2),
+        "MEGNetConv": (EdgeModel(
+            [M.MEGNetConv(phi_e=M.MLP([96, 64, 32], softplus, **kw),
+                          phi_v=M.MLP([64, 64, 32], softplus, **kw))
+             for _ in range(2)],
+            pre=lin(D, 32), pre_e=lin(100, 32), head=lin(32, OUT_D)), 100,
+            4),
+        "EGNNConv": (EdgeModel(
+            [M.EGNNConv(D, D, hidden_size=D, **kw) for _ in range(2)],
+            head=lin(D, OUT_D)), "pos", 4),
+    }
+
+
+def edge_side(g, side, seed: int):
+    """A 3v model's side input on ``g``, made on the card: positions ``[N,
+    3]``, MoNet's degree pseudo-coordinates ``[E, 2]``, or ``[E, side]``
+    edge features, normal from ``seed``."""
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    if side == "pos":
+        return torch.randn(g.num_nodes, 3, generator=gen, device=g.device)
+    if side == "monet":
+        d = torch.diff(g.indptr_r).clamp(min=1).float().rsqrt()
+        return torch.stack([d[g.receivers], d[g.senders]], 1)
+    return torch.randn(g.num_edges, side, generator=gen, device=g.device)
+
+
+def edge_layers_phase(g, x, y, mask, profile: bool):
+    """3v: each :func:`edge_models` model trained for STEPS steps on the
+    main graph (NNConv on ``rand_graph(N, NNCONV_E)``) with its K1 launches
+    asserted, profiled (with the ``index_add`` sums of the edge messages),
+    its peak memory; then one forward and backward on the card against the
+    CPU plain path in float64 (3c's tolerances, every output; the relus'
+    masks replayed, see RELU_FLIP_SHARE) on a smaller graph, with its
+    launches. Returns the results and None (the ``--only`` form)."""
+    import graphneuralnetworks_tpu_torch as gnn
+    from graphneuralnetworks_tpu_torch import models as M
+
+    dev = g.device
+    res = {"vs_cpu": {}}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    xs = torch.randn(EDGE_CHECK_N, D, generator=gen, device=dev)
+    ys = torch.randint(0, OUT_D, (EDGE_CHECK_N,), generator=gen, device=dev)
+    relu = ReluReplay()
+    for name, (model, side, k1) in edge_models(M, dev, relu).items():
+        nn_conv = name == "NNConv"
+        gg = gnn.rand_graph(N, NNCONV_E, seed=3, device=dev) if nn_conv else g
+        log(f"phase 3v: {name} train step ({gg.num_edges} edges, side input "
+            f"{side}), {STEPS} steps")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = train_phase(name, model,
+                                (gg, x, edge_side(gg, side, 23), y, mask),
+                                lambda *a: edge_objective(*a)[1],
+                                {"k1": k1}, True)
+        res[name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  peak memory {res[name]['peak_gb']:.2f} GB")
+        gs = gnn.rand_graph(EDGE_CHECK_N, NNCONV_CHECK_E if nn_conv
+                            else EDGE_CHECK_E, seed=4, device=dev)
+        log(f"phase 3c ({name}): one forward+backward on "
+            f"rand_graph({EDGE_CHECK_N}, {gs.num_edges}), card vs the CPU "
+            "plain path in float64")
+        before = read_counts()
+        with relu:
+            res["vs_cpu"][name] = compare_model(
+                name, model, gs, (xs, edge_side(gs, side, 24), ys), None,
+                forward=lambda m, g_, ins, extra: edge_objective(
+                    m, g_, *ins, g_.node_mask))
+        expect_launched(name, before, {"k1": k1})
+        if relu.size:
+            log(f"  relu masks replayed: {relu.flips} of {relu.size} "
+                "elements differ from the CPU's own signs")
+            res["vs_cpu"][name]["relu_flips"] = relu.flips
+            if relu.flips > RELU_FLIP_SHARE * relu.size:
+                raise AssertionError(f"{name}: {relu.flips} relu masks of "
+                                     f"{relu.size} differ")
+        del model, gg, gs
+        torch.cuda.empty_cache()
+    return res, None
+
+
 def edgeconv(M, seed: int, dev):
     """The conv zoo's ``EdgeConv(MLP([2d, d]))`` at d=128
     (``benchmarks/zoo_sweep_r5.py:61``), relu, and an 8-class EdgeConv
@@ -4048,6 +4329,22 @@ def op_sites(step) -> list:
                    for (name, where), (ms, n) in sums.items()), reverse=True)
 
 
+def op_device_ms(prof, names, steps: int) -> float:
+    """The device ms a step of the kernels launched inside the aten ops
+    ``names`` (by the outermost of them, so that one nested in another
+    counts once; ``index_select``'s backward runs ``index_add_``)."""
+    total = 0.0
+    for ev in prof.events():
+        if ev.name not in names or str(ev.device_type).endswith("CUDA"):
+            continue
+        parent = ev.cpu_parent
+        while parent is not None and parent.name not in names:
+            parent = parent.cpu_parent
+        if parent is None:
+            total += ev.device_time_total
+    return total / 1e3 / steps
+
+
 def profile_steps(model, args, loss_fn, out_dir, params=None) -> dict:
     from graphneuralnetworks_tpu_torch.training import make_train_step
 
@@ -4081,6 +4378,8 @@ def profile_calls(step, out_dir) -> dict:
                    and ev.key.startswith("aten::")), reverse=True)
     busy = sum(r[0] for r in rows)
     n_ops = sum(r[1] for r in host)
+    index_add = op_device_ms(prof, ("aten::index_add", "aten::index_add_"),
+                             3)
     kernels = {k: sum(ms for ms, _, key in rows
                       if any(p in key for p in pats))
                for k, pats in STEP_KERNELS.items()}
@@ -4090,7 +4389,9 @@ def profile_calls(step, out_dir) -> dict:
         f"{busy:.3f} ms/step ({100 * busy / (wall / 3):.1f}%), "
         f"{n_ops} aten op calls/step on the host (nested counted); "
         + ", ".join(f"{k.upper()} {v:.4f} ms/step ({100 * v / busy:.1f}%)"
-                    for k, v in kernels.items()))
+                    for k, v in kernels.items())
+        + f"; index_add {index_add:.4f} ms/step "
+          f"({100 * index_add / max(busy, 1e-12):.1f}%)")
     for k, v in launches.items():
         log(f"    {k.upper()} per launch, in step order: "
             + (", ".join(f"{ms:.4f}" for ms in v) + " ms" if v else
@@ -4108,6 +4409,7 @@ def profile_calls(step, out_dir) -> dict:
             for ms, cnt, key, where in sites[:12]))
     return {"wall_ms_per_step": wall / 3, "device_ms_per_step": busy,
             "aten_ops_per_step": n_ops, "kernel_ms_per_step": kernels,
+            "index_add_ms_per_step": index_add,
             "kernel_ms_per_launch": launches,
             "sites": [{"ms": ms, "calls": c, "op": k, "at": w}
                       for ms, c, k, w in sites[:30]],
@@ -5938,7 +6240,8 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
                          "(comma-separated, of 2,2b,2c,2d,2e,2f,2h and the "
-                         "train phases 3b, 3d, 3e, 3f, 3l, 3o, 3p, 3q, 3s, "
+                         "train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, 3q, "
+                         "3s, "
                          "3m and 3n, 2j and 3r, and 2k, 3t and 3u; 3p and "
                          "3q run 2i's cases with them; 2k, 3t and 3u run "
                          "after the others (on one partition), then 2j and "
@@ -6013,7 +6316,7 @@ def main() -> int:
     for phase in (only if only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
-                      "3l": propagation_phase,
+                      "3l": propagation_phase, "3v": edge_layers_phase,
                       "3o": functools.partial(precision_phase, gb=gb)}
         if phase in sage_which or phase in link_which or phase in par_which:
             continue
@@ -6078,6 +6381,9 @@ def main() -> int:
     zoo_res, _ = propagation_phase(*node_inputs(g), args.profile)
     main_res["vs_cpu"].update(zoo_res.pop("vs_cpu"))
     main_res["propagation"] = zoo_res
+    edge_res, _ = edge_layers_phase(*node_inputs(g), args.profile)
+    main_res["vs_cpu"].update(edge_res.pop("vs_cpu"))
+    main_res["edge_layers"] = edge_res
     bf16_res, _ = precision_phase(*node_inputs(g), args.profile, gb=gb)
     main_res["vs_cpu"].update(bf16_res.pop("vs_cpu"))
     main_res.update(bf16_res)

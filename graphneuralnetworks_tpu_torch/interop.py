@@ -98,7 +98,13 @@ def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
     the cells' convs (``conv_x_r``, ``dconv_u``, ``conv_z``, ...), TGCN's
     and A3TGCN's Dense layers (``dense_z``, ``dense1``: kernels
     transposed) and GConvLSTM's peephole vectors ``w_i``, ... and biases
-    ``b_i``, ... (copied as they are).
+    ``b_i``, ... (copied as they are). The edge-featured layers keep
+    JAX's names too: ``NNConv``'s ``weight`` and ``bias`` (copied) and
+    ``nn`` (its module's); ``CGConv``'s ``dense_f`` and ``dense_s``,
+    ``GMMConv``'s ``dense_x`` (Dense: kernels transposed) and its ``mu``,
+    ``sigma_inv`` and ``bias`` (copied); ``MEGNetConv``'s ``phi_e`` and
+    ``phi_v``; ``EGNNConv``'s ``phi_e`` and ``phi_h`` (:class:`~.models.MLP`)
+    and ``phi_x_hidden`` and ``phi_x_out`` (Dense, the last without bias).
     Raises on a name or shape that does not match.
     """
     with torch.no_grad():

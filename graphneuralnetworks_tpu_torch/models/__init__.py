@@ -2,10 +2,11 @@
 
 from .basic import (DotDecoder, GNNChain, GNNLayer, Precision, WithGraph,
                     glorot_uniform)
-from .conv import (AGNNConv, BatchNorm, ChebConv, DConv, EdgeConv, GATConv,
-                   GATv2Conv, GatedGraphConv, GCNConv, GINConv, GraphConv,
-                   GRUCell, MLP, ResGatedGraphConv, SAGEConv, SGConv,
-                   TAGConv, TransformerConv, cheb_lambda_max)
+from .conv import (AGNNConv, BatchNorm, CGConv, ChebConv, DConv, EdgeConv,
+                   EGNNConv, GATConv, GATv2Conv, GatedGraphConv, GCNConv,
+                   GINConv, GMMConv, GraphConv, GRUCell, MEGNetConv, MLP,
+                   NNConv, ResGatedGraphConv, SAGEConv, SGConv, TAGConv,
+                   TransformerConv, cheb_lambda_max)
 from .heteroconv import HeteroGraphConv
 from .temporalconv import (A3TGCN, DCGRU, DCGRUCell, EvolveGCNO,
                            EvolveGCNOCell, GConvGRU, GConvGRUCell, GConvLSTM,
@@ -18,7 +19,8 @@ __all__ = ["DotDecoder", "GNNChain", "GNNLayer", "Precision", "WithGraph",
            "GATv2Conv", "GCNConv", "GINConv", "GraphConv", "MLP", "SAGEConv",
            "TransformerConv", "ResGatedGraphConv", "GatedGraphConv",
            "GRUCell", "ChebConv", "cheb_lambda_max", "SGConv", "TAGConv",
-           "DConv", "GlobalAttentionPool", "GlobalPool", "Set2Set",
+           "DConv", "NNConv", "CGConv", "MEGNetConv", "GMMConv", "EGNNConv",
+           "GlobalAttentionPool", "GlobalPool", "Set2Set",
            "TopKPool", "topk_index", "HeteroGraphConv", "GNNRecurrence",
            "GConvGRUCell", "GConvLSTMCell", "DCGRUCell", "EvolveGCNOCell",
            "TGCNCell", "GConvGRU", "GConvLSTM", "DCGRU", "EvolveGCNO", "TGCN",

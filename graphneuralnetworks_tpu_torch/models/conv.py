@@ -1,6 +1,7 @@
-"""Convolution layers: GCN, GraphConv, GIN, SAGE, EdgeConv, MLP, GAT,
-GATv2, AGNN, Transformer, ResGatedGraph, GatedGraph, and the propagation
-family Cheb, SG, TAG and DConv.
+"""Convolution layers: GCN, GraphConv, GIN, SAGE, EdgeConv, MLP, the
+edge-featured NNConv, CGConv, MEGNet, GMM and EGNN, GAT, GATv2, AGNN,
+Transformer, ResGatedGraph, GatedGraph, and the propagation family Cheb,
+SG, TAG and DConv.
 
 Counterpart of ``graphneuralnetworks_tpu/models/conv.py`` (surfaces from
 GraphNeuralNetworks conv.jl, math from GNNlib conv.jl). Weights are stored
@@ -14,7 +15,10 @@ init), ``device`` (``None``: the CUDA card) and ``dtype``. The attention
 layers' self-loops are virtual too (:mod:`..ops.attention`). The
 propagation family runs every hop as one SpMM (K1) through ``propagate``;
 ``DConv`` also over ``g.reverse()``, whose forward reads the edge weights
-through the reversed graph's edge-id map.
+through the reversed graph's edge-id map. The edge-featured layers compute
+their messages on the edges from endpoint gathers (``fast_gather``, whose
+backward is K1) and reduce them with the segment ops, as the JAX package
+leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from torch import nn
 from .. import resolve_device
 from ..graph import GraphTuple, no_edge_valid
 from ..ops import (aggregate_neighbors, apply_edges, copy_xj, e_mul_xj,
-                   propagate, to_src_space, w_mul_xj)
+                   propagate, to_src_space, w_mul_xj, xi_sub_xj)
 from ..ops.attention import (attention_aggregate, dot_attention,
                              gat_attention, gatv2_attention)
 from ..ops.cuda.edge_softmax import lrelu
@@ -40,7 +44,8 @@ from .basic import GNNLayer, glorot_uniform
 __all__ = ["GCNConv", "GraphConv", "GINConv", "SAGEConv", "EdgeConv", "MLP",
            "GATConv", "GATv2Conv", "AGNNConv", "TransformerConv",
            "BatchNorm", "ResGatedGraphConv", "GatedGraphConv", "GRUCell",
-           "ChebConv", "cheb_lambda_max", "SGConv", "TAGConv", "DConv"]
+           "ChebConv", "cheb_lambda_max", "SGConv", "TAGConv", "DConv",
+           "NNConv", "CGConv", "MEGNetConv", "GMMConv", "EGNNConv"]
 
 # ChebConv takes the matrix-free path where the JAX package's default padded
 # node count round_up(N + 1, 8) exceeds 2048 (its ``g.n_pad > 2048``,
@@ -305,6 +310,226 @@ class EdgeConv(GNNLayer):
 
         m = apply_edges(msg, g, xi=xi, xj=xj)
         return aggregate_neighbors(g, self.aggr, m, num_segments=xi.shape[0])
+
+
+# ---- edge-featured layers: NNConv, CGConv, MEGNet, GMM, EGNN ---------------
+
+class NNConv(GNNLayer):
+    """Edge-conditioned conv (Gilmer et al., MPNN; reference conv.jl:701-730,
+    GNNlib conv.jl:260-273): ``act(x W + aggr_j x_j reshape(nn(e), [in,
+    out]) + b)``. ``nn`` maps each edge's features to an ``[in, out]``
+    matrix, so the edges hold ``E * in * out`` values (and their gradient
+    as many again). Parameters ``weight [in, out]``, ``bias`` and ``nn``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 nn_module: nn.Module, act: Callable | None = None, *,
+                 aggr="sum", use_bias: bool = True, generator=None,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = _weight((in_features, out_features), generator, device,
+                              dtype)
+        self.bias = _bias(out_features, device, dtype) if use_bias else None
+        self.nn = nn_module
+        self.act = act
+        self.aggr = aggr
+        self.in_features, self.out_features = in_features, out_features
+
+    def forward(self, g: GraphTuple, x=None, e=None):
+        if x is None:
+            x = g.x
+        if e is None:
+            e = g.e
+
+        def msg(xi_e, xj_e, ee):
+            W = self.nn(ee).reshape(-1, self.in_features, self.out_features)
+            return torch.einsum("ei,eio->eo", xj_e, W)
+
+        out = x @ self.weight + propagate(msg, g, self.aggr, xj=x, e=e)
+        if self.bias is not None:
+            out = out + self.bias
+        return self.act(out) if self.act is not None else out
+
+
+class CGConv(GNNLayer):
+    """Crystal graph conv (Xie & Grossman; reference conv.jl:914-943, GNNlib
+    conv.jl:304-333): ``sum_j sigmoid(dense_f(z)) * act(dense_s(z))`` with
+    ``z = [x_i; x_j; e]`` (``e`` optional), plus ``x_i`` when ``residual``
+    and the widths match. Takes ``(x_src, x_dst)``. ``dense_f`` and
+    ``dense_s`` are ``nn.Linear``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 act: Callable | None = None, *, edge_features: int = 0,
+                 residual: bool = False, use_bias: bool = True,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        zdim = 2 * in_features + edge_features
+        self.dense_f = _dense(zdim, out_features, use_bias, generator, device,
+                              dtype)
+        self.dense_s = _dense(zdim, out_features, use_bias, generator, device,
+                              dtype)
+        self.act = act
+        self.residual = residual
+
+    def forward(self, g: GraphTuple, x=None, e=None):
+        if x is None:
+            x = g.x
+        xj, xi = _expand_srcdst(x)
+
+        def msg(xi_e, xj_e, ee):
+            z = torch.cat([xi_e, xj_e] + ([ee] if ee is not None else []), -1)
+            s = self.dense_s(z)
+            if self.act is not None:
+                s = self.act(s)
+            return torch.sigmoid(self.dense_f(z)) * s
+
+        m = propagate(msg, g, "sum", xi=xi, xj=xj, e=e)[: xi.shape[0]]
+        if self.residual and xi.shape[-1] == m.shape[-1]:
+            m = m + xi
+        return m
+
+
+class MEGNetConv(GNNLayer):
+    """MEGNet conv (Chen et al.; reference conv.jl:1035-1061, GNNlib
+    conv.jl:356-368), returning ``(x_bar, e_bar)``: ``e_bar = phi_e([x_i;
+    x_j; e])`` per edge, ``x_bar = phi_v([x; aggr_j e_bar])``. The default
+    ``phi_e`` and ``phi_v`` are ``MLP([3 in, out, out])`` and ``MLP([in +
+    out, out, out])`` with relu."""
+
+    def __init__(self, in_features: int | None = None,
+                 out_features: int | None = None, *, phi_e=None, phi_v=None,
+                 aggr="mean", generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        if phi_e is None:
+            phi_e = MLP([3 * in_features, out_features, out_features],
+                        torch.relu, **kw)
+        if phi_v is None:
+            phi_v = MLP([in_features + out_features, out_features,
+                         out_features], torch.relu, **kw)
+        self.phi_e, self.phi_v = phi_e, phi_v
+        self.aggr = aggr
+
+    def forward(self, g: GraphTuple, x=None, e=None):
+        if x is None:
+            x = g.x
+        if e is None:
+            e = g.e
+
+        def msg(xi_e, xj_e, ee):
+            return self.phi_e(torch.cat([xi_e, xj_e, ee], -1))
+
+        ebar = apply_edges(msg, g, xi=x, xj=x, e=e)
+        xe = aggregate_neighbors(g, self.aggr, ebar)
+        return self.phi_v(torch.cat([x, xe], -1)), ebar
+
+
+class GMMConv(GNNLayer):
+    """Gaussian mixture model conv (Monti et al., MoNet; reference
+    conv.jl:1111-1148, GNNlib conv.jl:372-401): per edge ``K`` Gaussian
+    weights ``w_k(e) = exp(-1/2 sum_d ((e_d - mu_kd) sigma_inv_kd)^2)``, the
+    mean over in-edges of ``w_k * (dense_x x_j)_k``, then the mean over the
+    ``K`` kernels, ``+ bias``, ``act`` and ``+ x`` when ``residual`` and the
+    widths match. ``reference_exact=True`` takes the reference's ``exp(+1/2
+    ...)``, as the JAX package's option does (conv.py:922-971). The ``[N, K
+    * out]`` projection is gathered whole (its backward K1) and split into
+    the ``K`` kernels on the edges. Parameters ``mu``, ``sigma_inv`` (``[K,
+    edge_features]``), ``bias`` and ``dense_x`` (``nn.Linear``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 act: Callable | None = None, *, edge_features: int = 1,
+                 K: int = 1, residual: bool = False, use_bias: bool = True,
+                 reference_exact: bool = False, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        self.mu = _weight((K, edge_features), generator, device, dtype)
+        self.sigma_inv = _weight((K, edge_features), generator, device, dtype)
+        self.bias = _bias(out_features, device, dtype) if use_bias else None
+        self.dense_x = _dense(in_features, out_features * K, False, generator,
+                              device, dtype)
+        self.act = act
+        self.K = K
+        self.residual = residual
+        self.reference_exact = reference_exact
+        self.out_features = out_features
+
+    def forward(self, g: GraphTuple, x=None, e=None):
+        if x is None:
+            x = g.x
+        if e is None:
+            e = g.e
+        K, O = self.K, self.out_features
+        sign = 0.5 if self.reference_exact else -0.5
+        w = torch.exp(sign * (((e[:, None, :] - self.mu)
+                               * self.sigma_inv) ** 2).sum(-1))   # [E, K]
+
+        def msg(xi_e, xj_e, we):
+            return we[:, :, None] * xj_e.reshape(-1, K, O)
+
+        m = propagate(msg, g, "mean", xj=self.dense_x(x), e=w).mean(1)
+        if self.bias is not None:
+            m = m + self.bias
+        if self.act is not None:
+            m = self.act(m)
+        if self.residual and x.shape[-1] == m.shape[-1]:
+            m = m + x
+        return m
+
+
+class EGNNConv(GNNLayer):
+    """E(n)-equivariant conv (Satorras et al.; reference conv.jl:1349-1399,
+    GNNlib conv.jl:459-495), returning ``(h', x')``. Per edge ``m_h =
+    phi_e([h_i; h_j; |x_i - x_j|^2; e])`` and ``m_x = phi_x(m_h) (x_i -
+    x_j) / (|x_i - x_j| + 1e-6)``; ``h' = phi_h([h; sum_j m_h])`` (``+ h``
+    when ``residual``, which needs ``in == out``), ``x' = x + mean_j m_x``.
+    By default ``h`` is ``g.nodes["h"]`` and ``x`` is ``g.x``. Parameters
+    ``phi_e``, ``phi_h`` (:class:`MLP`, swish), ``phi_x_hidden`` and
+    ``phi_x_out`` (``nn.Linear``, the last without bias)."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 edge_features: int = 0, hidden_size: int | None = None,
+                 residual: bool = False, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if residual and in_features != out_features:
+            raise ValueError("residual requires in == out")
+        device = resolve_device(device)
+        hid = hidden_size if hidden_size is not None else 2 * in_features
+        act = nn.functional.silu
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.phi_e = MLP([2 * in_features + edge_features + 1, hid, hid], act,
+                         final_act=act, **kw)
+        self.phi_h = MLP([in_features + hid, hid, out_features], act, **kw)
+        self.phi_x_hidden = _dense(hid, hid, True, generator, device, dtype)
+        self.phi_x_out = _dense(hid, 1, False, generator, device, dtype)
+        self.residual = residual
+
+    def forward(self, g: GraphTuple, h=None, x=None, e=None):
+        if h is None:
+            h = g.nodes["h"]
+        if x is None:
+            x = g.x
+        x_diff = apply_edges(xi_sub_xj, g, xi=x, xj=x)
+        sqnorm = (x_diff ** 2).sum(-1, keepdim=True)
+        x_diff = x_diff / (torch.sqrt(sqnorm) + 1e-6)
+
+        def msg(xi_e, xj_e, ee):
+            parts = [xi_e["h"], xj_e["h"], ee["sqnorm"]]
+            if ee["e"] is not None:
+                parts.append(ee["e"])
+            mh = self.phi_e(torch.cat(parts, -1))
+            mx = self.phi_x_out(nn.functional.silu(self.phi_x_hidden(mh)))
+            return {"h": mh, "x": mx * ee["x_diff"]}
+
+        m = apply_edges(msg, g, xi={"h": h}, xj={"h": h},
+                        e={"e": e, "x_diff": x_diff, "sqnorm": sqnorm})
+        hnew = self.phi_h(torch.cat([h, aggregate_neighbors(g, "sum",
+                                                            m["h"])], -1))
+        h = h + hnew if self.residual else hnew
+        return h, x + aggregate_neighbors(g, "mean", m["x"])
 
 
 # ---- attention family ------------------------------------------------------

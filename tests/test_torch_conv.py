@@ -400,9 +400,30 @@ def test_layers_default_to_the_card(monkeypatch):
                  lambda: TM.ResGatedGraphConv(3, 4),
                  lambda: TM.GatedGraphConv(4, 2), lambda: TM.GRUCell(3, 4),
                  lambda: TM.ChebConv(3, 4, 2), lambda: TM.SGConv(3, 4),
-                 lambda: TM.TAGConv(3, 4), lambda: TM.DConv(3, 4, 2)):
+                 lambda: TM.TAGConv(3, 4), lambda: TM.DConv(3, 4, 2),
+                 lambda: TM.NNConv(3, 4, torch.nn.Linear(2, 12)),
+                 lambda: TM.CGConv(3, 4), lambda: TM.MEGNetConv(3, 4),
+                 lambda: TM.GMMConv(3, 4), lambda: TM.EGNNConv(3, 4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def test_port_has_every_layer_of_the_jax_conv_module():
+    """Every name in the JAX package's ``models/conv.py`` ``__all__`` (read
+    from its source, no JAX import) is in the port's."""
+    import ast
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "graphneuralnetworks_tpu", "models",
+        "conv.py")
+    tree = ast.parse(open(path).read(), filename=path)
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and any(getattr(t, "id", None) == "__all__"
+                         for t in node.targets))
+    from graphneuralnetworks_tpu_torch.models import conv
+    assert len(names) == 21
+    assert not set(names) - set(conv.__all__)
 
 
 def test_gcn_bipartite_matches_jax():
