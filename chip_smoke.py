@@ -156,7 +156,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    profiled; 10 Adam steps of TGCN on a regression loss (72 K1 a step);
    TGCN and GConvGRU card vs CPU in float64 over the first 2 steps, and
    GConvLSTM, DCGRU, EvolveGCNO and A3TGCN at d = 16 over T = 8, forward
-   and backward, card vs CPU with their K1 launches. Before them, 2i holds
+   and backward, card vs CPU with their K1 launches; TGCN over
+   ``TemporalGraph.from_snapshots(uniform=True)`` of three snapshots of
+   16,384, 14,336 and 12,288 nodes (padded to one size, the pad edges
+   invalid), card vs CPU with its K1 launches. Before them, 2i holds
    K1 at their shapes to the plain version and ``torch.sparse.mm`` and
    times it: 3p's relation receiver CSR at D = 128 and its sender CSR cut
    to the ``user`` rows, 3q's receiver CSR at D = 128 and D = 1 and its
@@ -180,6 +183,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    block 1's at D = 256 and its sender CSR at D = 256 (weighted by the
    edge validity), 3m's batch graph at D = 100 and 256 forward and 256
    backward.
+   2l, 3w, 3x: the receiver-order kernels over ``graph.csr_view``, the
+   reversed graph's groupings read through their edge-id maps and an
+   ``edge_valid`` graph's CSRs compacted to its valid edges. 2l holds K3
+   (also bfloat16), K4, K5, K12, K9-K11, K6-K8, K13 and K14 and its
+   backward (also bfloat16) over the main graph's reverse (3d's, 3f's,
+   3g's and 3j's widths) and over block 0 of a 3n draw without
+   replacement (3n's own draws have no invalid edge on this graph; 3w's
+   widths) to plain computations over the receiver ids of the edges that
+   count, and times them with the view's build. 3w trains GAT (PyG's
+   examples/ogbn_products_gat.py widths, 100 -> 4 heads x 128 -> 47, 2 of
+   its 3 hops) and SAGE with max aggregation (3n's widths) over such
+   draws, 10 Adam steps each with their launches, one draw card vs CPU.
+   3x trains 3d's GAT and 3j's EdgeConv on ``g.reverse()``, 5 steps each
+   with their launches and device ms, one step card vs CPU.
 4. The Cora accuracy bar on the card: GCN, GraphConv, SAGE, GIN, GAT,
    GATv2, ResGated and Transformer, 40 epochs, train accuracy > 0.94 and
    test accuracy > 0.69.
@@ -253,7 +270,8 @@ and the train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, 3q, 3s, 2j, 3r, 3m
 and 3n, with ``--profile`` their profiles; 3v, 3o, 3p, 3q, 3r and 3s
 always profile, and with ``--profile`` 3r also breaks the host's split and draw
 down by function under ``cProfile``; ``--only 3p,3q`` runs 2i with
-them, ``--only 3m,3n`` 2g, ``--only 2j,3r,3s`` the examples' phases,
+them, ``--only 3m,3n`` 2g, ``--only 2l,3w,3x`` the views' phases with
+3n's set-up, ``--only 2j,3r,3s`` the examples' phases,
 ``--only 2k,3t,3u`` the multi-device path:
 this script copied into an older checkout profiles that checkout's
 steps), and prints no result line.
@@ -512,14 +530,18 @@ def device_rows(prof, steps: int = 1) -> list:
 DEVICE_RECORDS = []   # per device_ms call: kernels seen, calls made
 
 
-def device_ms(fn, calls: int = 20, retries: int = 3) -> float:
+def device_ms(fn, calls: int = 20, retries: int = 5,
+              required: bool = True) -> float | None:
     """The card's own time per call: every kernel that ``calls`` calls
     launch, by ``torch.profiler`` (CUPTI's start and end of each kernel), so
     that the host's time between launches is not counted. Per kernel name,
     its mean time times its launches per call (its records over ``calls``,
     rounded, at least 1): a record the profiler loses does not shrink the
     sum. Each call's counts and per-kernel times go to
-    ``DEVICE_RECORDS``."""
+    ``DEVICE_RECORDS``. When the profiler returns no kernel record (now
+    and then, more often late in a full run), it measures again over twice
+    the calls; after ``retries`` such runs it raises, or, where not
+    ``required``, returns None (not measured)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
@@ -533,7 +555,10 @@ def device_ms(fn, calls: int = 20, retries: int = 3) -> float:
     if not rows:
         if retries:   # the profiler now and then returns no kernel records
             log("  (the profiler saw no device time: measuring again)")
-            return device_ms(fn, calls, retries - 1)
+            return device_ms(fn, 2 * calls, retries - 1, required)
+        if not required:
+            log("  (the profiler saw no device time: not measured)")
+            return None
         raise AssertionError("the profiler saw no device time")
     DEVICE_RECORDS.append({"calls": calls, "records": {
         name[:60]: n for _, n, name in rows}, "ms_per_call": {
@@ -612,19 +637,21 @@ def host_us(fn, *, batches: int = 10, calls: int = 100) -> float:
     return min(times)
 
 
-def timings(fn, plain=None, lib=None) -> dict:
+def timings(fn, plain=None, lib=None, device_required=True) -> dict:
     """A kernel wrapper's times: ``ms`` (CUDA events over back-to-back
-    calls, host gaps included), ``device_ms`` (the profiler's kernel time),
+    calls, host gaps included), ``device_ms`` (the profiler's kernel time;
+    None where the profiler saw none and not ``device_required``),
     ``host_us`` (:func:`host_us`); the plain version's CUDA-event time and
     the library call's CUDA-event and device times where given."""
-    out = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+    out = {"ms": cuda_ms(fn),
+           "device_ms": device_ms(fn, required=device_required),
            "host_us": host_us(fn), "plain_ms": None, "library_ms": None,
            "library_device_ms": None}
     if plain is not None:
         out["plain_ms"] = cuda_ms(plain, warmup=1, batches=3, per_batch=2)
     if lib is not None:
         out["library_ms"] = cuda_ms(lib)
-        out["library_device_ms"] = device_ms(lib)
+        out["library_device_ms"] = device_ms(lib, required=device_required)
     return out
 
 
@@ -694,7 +721,7 @@ def log_times(res, width: int) -> None:
     for key, r in res.items():
         for v in r["variants"]:
             log(f"  time {key.upper():<3} {v['case']:<{width}} "
-                f"kernel={v['ms']:.4f} ms device={v['device_ms']:.4f} ms "
+                f"kernel={v['ms']:.4f} ms device={fmt_ms(v['device_ms'])} "
                 f"host={v['host_us']:.1f} us plain={fmt_ms(v['plain_ms'])} "
                 f"library={fmt_ms(v['library_ms'])} (device "
                 f"{fmt_ms(v['library_device_ms'])})"
@@ -4419,6 +4446,523 @@ def profile_calls(step, out_dir) -> dict:
                           "name": k} for ms, c, k in host[:30]]}
 
 
+# ---- phases 2l, 3w and 3x: the receiver-order kernels over CSR views ------
+
+# 3w: GAT at the widths of PyG's examples/ogbn_products_gat.py (hidden 128,
+# 4 heads; its 3 hops cut to 3n's 2), its last layer's heads averaged
+GAT_OGB_HIDDEN, GAT_OGB_HEADS = 128, 4
+# 3q (extended): TGCN over three snapshots of unequal node and edge counts,
+# padded by from_snapshots(uniform=True): nodes and 16 edges a node
+TQ_NODES = (16_384, 14_336, 12_288)
+
+
+def view_edges(g):
+    """The ids of the edges of ``g`` that count (every edge, or those of
+    ``edge_valid``) and their receivers and senders (int64), read from the
+    graph's own edge order: the index arrays of 2l's references, which use
+    no CSR."""
+    ids = (torch.arange(g.num_edges, device=g.device)
+           if g.edge_valid is None else torch.nonzero(g.edge_valid)[:, 0])
+    return ids, g.receivers.index_select(0, ids), g.senders.index_select(
+        0, ids)
+
+
+def view_refs(g):
+    """Plain PyTorch references of K3-K12 over the receiver and sender ids
+    of the edges that count (segment ops over ids, no CSR): each returns
+    what its kernel returns. Edge arrays come in edge order."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+    from graphneuralnetworks_tpu_torch.ops.cuda.spmm import _work_dtype
+
+    ids, r, s = view_edges(g)
+    n = g.num_nodes
+
+    def sums(lg, mask, v_e, dtype):
+        num, m, s_ = ES._softmax_sums(r, n, lg, mask, v_e)
+        return num.to(dtype), m, s_
+
+    def into(rows, shape, vals, dtype):
+        return vals.new_zeros(shape).index_add_(0, rows, vals).to(dtype)
+
+    def k3(pi, pj, v, slope):
+        w = _work_dtype(v.dtype)
+        lg = ES.lrelu(pi.index_select(0, r).to(w)
+                      + pj.index_select(0, s).to(w), slope)
+        return sums(lg, None, v.index_select(0, s).to(w), v.dtype)
+
+    def k4(pi, pj, v, mx, den, s_n, dy, slope):
+        dlg = ES._gat_edge_terms(r, s, pi, pj, v, mx, den, s_n, dy, slope)[2]
+        return into(r, pi.shape, dlg, pi.dtype)
+
+    def k5(pi, pj, v, mx, den, s_n, dy, slope):
+        alpha, dy_e, dlg = ES._gat_edge_terms(r, s, pi, pj, v, mx, den, s_n,
+                                              dy, slope)
+        return (into(s, pj.shape, dlg, pj.dtype),
+                into(s, v.shape, alpha[..., None] * dy_e, v.dtype))
+
+    def k12(logits, mask, v):
+        return sums(logits.index_select(0, ids), mask.index_select(0, ids),
+                    v.index_select(0, s), v.dtype)
+
+    def k9(q, k, a, slope):
+        k_e, _, _, lg = ES._gatv2_logits(r, s, q, k, a, slope)
+        return sums(lg, None, k_e, k.dtype)
+
+    def k10(q, k, a, mx, den, s_n, dy, slope):
+        _, _, act, dlg, draw = ES._gatv2_edge_terms(r, s, q, k, a, mx, den,
+                                                    s_n, dy, slope)
+        return (into(r, q.shape, draw, q.dtype),
+                torch.einsum("ehf,eh->fh", act, dlg))
+
+    def k11(q, k, a, mx, den, s_n, dy, slope):
+        alpha, dy_e, _, _, draw = ES._gatv2_edge_terms(r, s, q, k, a, mx, den,
+                                                       s_n, dy, slope)
+        return into(s, k.shape, draw + alpha[..., None] * dy_e, k.dtype)
+
+    def k6(q, k, v, scale, slope):
+        _, lg = ES._dot_logits(r, s, q, k, scale, slope)
+        return sums(lg, None, v.index_select(0, s), v.dtype)
+
+    def k7(q, k, v, mx, den, s_n, dy, scale, slope):
+        dlg = ES._dot_edge_terms(r, s, q, k, v, mx, den, s_n, dy, scale,
+                                 slope)[2]
+        return into(r, q.shape, dlg[..., None] * k.index_select(0, s), q.dtype)
+
+    def k8(q, k, v, mx, den, s_n, dy, scale, slope):
+        alpha, dy_e, dlg = ES._dot_edge_terms(r, s, q, k, v, mx, den, s_n,
+                                              dy, scale, slope)
+        return (into(s, k.shape, dlg[..., None] * q.index_select(0, r),
+                     k.dtype),
+                into(s, v.shape, alpha[..., None] * dy_e, v.dtype))
+
+    return dict(k3=k3, k4=k4, k5=k5, k12=k12, k9=k9, k10=k10, k11=k11, k6=k6,
+                k7=k7, k8=k8)
+
+
+def view_case(res, card, key, label, run, ref, byt, flops, checks=None,
+              lib=None, out=None, again=0):
+    """Hold ``out(run())`` (default ``run()``: a kernel over a CSR view) to
+    ``ref()`` (the plain computation over receiver ids), time both and
+    ``lib()`` where given (:func:`timings`), bound it (:func:`bound`) and
+    add the case to ``res[key]``; returns ``run()``. ``checks``: per output,
+    its name and tolerance (default RTOL / ATOL; None: the same bits,
+    :func:`same_bits`). ``again``: the bytes the per-edge gathers read
+    again when L2 keeps nothing (the no-reuse bound)."""
+    got = run()
+    mapped = got if out is None else out(got)
+    mapped = mapped if isinstance(mapped, tuple) else (mapped,)
+    want = ref()
+    want = want if isinstance(want, tuple) else (want,)
+    checks = checks or [(f"out{i}", {}) for i in range(len(want))]
+    err = 0.0
+    for (name, tol), a, b in zip(checks, mapped, want):
+        if tol is None:
+            same_bits(f"{key.upper()} {label} {name}", a, b)
+        else:
+            # rows without entries: -inf in both (the softmax state), then
+            # the finite values within the tolerance
+            a, b = a.float(), b.float()
+            inf = torch.isinf(b)
+            if not torch.equal(torch.isinf(a), inf) or not torch.equal(
+                    a[inf], b[inf]):
+                raise AssertionError(f"{key.upper()} {label} {name}: "
+                                     "infinities differ")
+            err = max(err, compare(f"{key.upper()} {label} {name}",
+                                   a.masked_fill(inf, 0),
+                                   b.masked_fill(inf, 0), **tol))
+    res.setdefault(key, {"err": 0.0, "variants": []})
+    res[key]["err"] = max(res[key]["err"], err)
+    b_ms, b_by = bound(byt, flops, card)
+    res[key]["variants"].append({
+        "case": label, **timings(run, ref, lib, device_required=False),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "no_reuse_bound_ms": (byt + again) / peaks(card)[0] * 1e3,
+        "max_abs_err": err})
+    return got
+
+
+def view_kernel_cases(res, card, g, name, shapes) -> dict:
+    """Phase 2l's cases over the CSR view of ``g`` (``graph.csr_view``: a
+    reversed graph's groupings through their edge-id maps, or a sampled
+    graph's CSRs compacted to its valid edges), each held to the plain
+    computation over the receiver and sender ids of the edges that count
+    (:func:`view_refs`), not to the kernel's plain version over the same
+    view, so that the view's mapping is checked too. ``shapes``: the
+    attention ``(H, D)``, GATv2 ``(H, O)``, dot ``(H, O, D)``, K13 ``(H,
+    D)`` and K14 widths. Returns the view's build time (device ms)."""
+    from graphneuralnetworks_tpu_torch.graph import csr_view
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+    from graphneuralnetworks_tpu_torch.ops.cuda import sddmm as SD
+    from graphneuralnetworks_tpu_torch.ops.cuda import segment as SG
+    from graphneuralnetworks_tpu_torch.ops import segment as OS
+
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(23)
+    # a reversed graph's view is its own groupings: nothing to build
+    build_ms = (device_ms(lambda: csr_view(g.replace()), calls=5)
+                if g.edge_valid is not None else 0.0)
+    v = csr_view(g)
+    n, e = g.num_nodes, g.num_edges
+    ent = int(v.indptr_r[-1])
+    refs = view_refs(g)
+    log(f"  {name}: {n} rows, {ent} of {e} edges in the view; the view's "
+        f"build {build_ms:.4f} device-ms")
+    ir, cr, is_, cs = v.indptr_r, v.col_r, v.indptr_s, v.col_s
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def by_pos(t):
+        return t if v.eid_r is None else t.index_select(0, v.eid_r.long())
+
+    idx = 4 * (n + 1 + ent)
+    for h, d, dt in shapes["gat"]:
+        b = 2 if dt == torch.bfloat16 else 4
+        pi, pj, vals, dy = rn(n, h, dtype=dt), rn(n, h, dtype=dt), \
+            rn(n, h, d, dtype=dt), rn(n, h, d, dtype=dt)
+        nh, nhd = b * n * h, b * n * h * d
+        # with no L2 reuse every edge reads a value row and a scalar of its
+        # sender (K3, K4, K12) or its receiver's row and scalars (K5)
+        rows_again, scalar_again = b * ent * h * d - nhd, b * ent * h - nh
+        sfx = "" if dt == torch.float32 else " bf16"
+        hd = f"{name} H={h} D={d}{sfx}"
+        key = "k3" + sfx.replace(" ", "_")
+        num, m, s = view_case(
+            res, card, key, hd, lambda: ES.gat_softmax(ir, cr, pi, pj, vals,
+                                                       0.2),
+            lambda: refs["k3"](pi, pj, vals, 0.2),
+            idx + 2 * nh + 2 * nhd + 8 * n * h, ent * h * (2 * d + 6),
+            [("num", {"rtol": 1e-2 if sfx else RTOL}), ("m", {}),
+             ("s", {})], again=rows_again + scalar_again)
+        if sfx:
+            continue
+        out, mx, den = ES.finalize_softmax(num, m, s, rn(n, h), rn(n, h, d))
+        bwd = (pi, pj, vals, mx, den, (out * dy).sum(-1), dy, 0.2)
+        view_case(res, card, "k4", hd, lambda: ES.gat_bwd_dpi(ir, cr, *bwd),
+                  lambda: refs["k4"](*bwd), idx + 6 * nh + 2 * nhd,
+                  ent * h * (2 * d + 10), again=rows_again + scalar_again)
+        view_case(res, card, "k5", hd, lambda: ES.gat_bwd_rev(is_, cs, *bwd),
+                  lambda: refs["k5"](*bwd), idx + 6 * nh + 3 * nhd,
+                  ent * h * (4 * d + 10),
+                  again=rows_again + 4 * scalar_again)
+        lg, mask = rn(e, h), (rn(e, h) > 0).float() * 2
+        lg_p, mask_p = by_pos(lg), by_pos(mask)
+        view_case(res, card, "k12", f"{hd} node values + dropout mask",
+                  lambda: ES.edge_softmax(ir, cr, lg_p, mask_p, vals),
+                  lambda: refs["k12"](lg, mask, vals),
+                  idx + 8 * ent * h + 2 * nhd + 2 * nh,
+                  ent * h * (2 * d + 6), again=rows_again)
+        del pi, pj, vals, dy, num, out, bwd, lg, mask, lg_p, mask_p
+    for h, o in shapes["gatv2"]:
+        q, k, dy = rn(n, h, o), rn(n, h, o), rn(n, h, o)
+        a = rn(o, h) * (2.0 / (o + h)) ** 0.5
+        nh, nhd, ah = 4 * n * h, 4 * n * h * o, 4 * o * h
+        rows_again, scalar_again = 4 * ent * h * o - nhd, 4 * ent * h - nh
+        hd = f"{name} H={h} O={o}"
+        num, m, s = view_case(
+            res, card, "k9", hd, lambda: ES.gatv2_softmax(ir, cr, q, k, a,
+                                                          0.2),
+            lambda: refs["k9"](q, k, a, 0.2), idx + 3 * nhd + ah + 2 * nh,
+            ent * h * (6 * o + 6), again=rows_again)
+        out, mx, den = ES.finalize_softmax(num, m, s, rn(n, h), rn(n, h, o))
+        bwd = (q, k, a, mx, den, (out * dy).sum(-1), dy, 0.2)
+        # da sums one term per edge: held to the float64 reference, as
+        # phase 2c holds it (DA_ATOL_REL)
+        da64 = refs["k10"](*[t.double() if torch.is_tensor(t) else t
+                             for t in bwd])[1]
+        view_case(res, card, "k10", hd, lambda: ES.gatv2_bwd_dq(ir, cr, *bwd),
+                  lambda: (refs["k10"](*bwd)[0], da64),
+                  idx + 4 * nhd + 3 * nh + 2 * ah, ent * h * (11 * o + 8),
+                  [("dq", {}), ("da vs float64", {
+                      "atol": DA_ATOL_REL * float(da64.abs().max())})],
+                  again=rows_again)
+        view_case(res, card, "k11", hd, lambda: ES.gatv2_bwd_rev(is_, cs, *bwd),
+                  lambda: refs["k11"](*bwd), idx + 4 * nhd + 3 * nh + ah,
+                  ent * h * (11 * o + 8),
+                  again=2 * rows_again + 3 * scalar_again)
+        del q, k, dy, num, out, bwd
+    for h, o, d in shapes["dot"]:
+        q, k, vals, dy = rn(n, h, o), rn(n, h, o), rn(n, h, d), rn(n, h, d)
+        scale, nh = o ** -0.5, 4 * n * h
+        no_, nd, eh = 4 * n * h * o, 4 * n * h * d, 4 * ent * h
+        rows_again = 4 * ent * h * (o + d) - no_ - nd
+        hd = f"{name} H={h} O={o} D={d}"
+        raw = torch.empty(e, h, device=dev)
+        num, m, s = view_case(
+            res, card, "k6", hd,
+            lambda: ES.dot_softmax(ir, cr, q, k, vals, scale, None, raw),
+            lambda: refs["k6"](q, k, vals, scale, None),
+            idx + 2 * no_ + 2 * nd + 2 * nh + eh,
+            ent * h * (2 * o + 2 * d + 8), again=rows_again)
+        out, mx, den = ES.finalize_softmax(num, m, s, rn(n, h), rn(n, h, d))
+        bwd = (q, k, vals, mx, den, (out * dy).sum(-1), dy, scale, None)
+        view_case(res, card, "k7", hd,
+                  lambda: ES.dot_bwd_dq(ir, cr, *bwd, raw),
+                  lambda: refs["k7"](*bwd),
+                  idx + 2 * no_ + 2 * nd + 3 * nh + eh,
+                  ent * h * (2 * o + 2 * d + 10), again=rows_again)
+        view_case(res, card, "k8", hd, lambda: ES.dot_bwd_rev(is_, cs, *bwd),
+                  lambda: refs["k8"](*bwd),
+                  idx + 3 * no_ + 3 * nd + 3 * nh,
+                  ent * h * (4 * o + 4 * d + 10),
+                  again=rows_again + 3 * (eh - nh))
+        del q, k, vals, dy, num, out, bwd, raw
+    # K13 computes every edge, the invalid ones too (JAX's apply_edges and
+    # dot_attention_logits read no mask): the graph's own receiver CSR,
+    # the dots written back to edge order through eid_r
+    r_all, s_all = g.receivers, g.senders
+    for h, d in shapes["k13"]:
+        xi, xj = rn(n, h, d), rn(n, h, d)
+        ip, col = g.indptr_r, g.col_r
+        # the library yardstick, as phase 2e's: the CSR with all-ones
+        # values times xi @ xj^T, batched over the heads where there are
+        # several (its values in CSR order)
+        if h == 1:
+            pattern = torch.sparse_csr_tensor(
+                ip, col, torch.ones(e, device=dev), (n, n))
+            a_, b_ = xi[:, 0], xj[:, 0].t()
+        else:
+            pattern = torch.sparse_csr_tensor(
+                ip.expand(h, -1).contiguous(),
+                col.expand(h, -1).contiguous(),
+                torch.ones(h, e, device=dev), (h, n, n))
+            a_, b_ = xi.transpose(0, 1).contiguous(), xj.permute(1, 2, 0)
+        view_case(
+            res, card, "k13", f"{name} H={h} D={d} (every edge)",
+            lambda: SD.sddmm(g, xi, xj),
+            lambda: (xi.index_select(0, r_all)
+                     * xj.index_select(0, s_all)).sum(-1),
+            4 * (n + 1 + e) + 8 * n * h * d + 4 * e * h, 2 * e * h * d,
+            again=4 * e * h * d - 4 * n * h * d, lib=lambda: torch.sparse.sampled_addmm(pattern, a_, b_,
+                                                   beta=0.0))
+        del xi, xj, pattern, a_, b_
+    # K14 and its backward: the entries in CSR order (gathered through
+    # eid_r, as the route gathers them), the backward written back to edge
+    # order; the reference is the masked scatter max over receiver ids
+    ids, r, _ = view_edges(g)
+    for f, dt in shapes["k14"]:
+        b = 2 if dt == torch.bfloat16 else 4
+        sfx = "" if dt == torch.float32 else "_bf16"
+        data = (torch.round(rn(e, f) * 4) / 4).to(dt)   # ties
+        data_p, dy = by_pos(data), rn(n, f, dtype=dt)
+        lbl = f"{name} F={f}" + (" bf16" if sfx else "")
+        def want():
+            return OS._ScatterExtreme.apply(data.index_select(0, ids), r, n,
+                                            False)
+
+        out = view_case(
+            res, card, "k14" + sfx, lbl,
+            lambda: SG.segment_max_csr(ir, data_p), want,
+            4 * (n + 1) + b * ent * f + b * n * f, ent * f, [("out", None)],
+            lib=lambda: torch.segment_reduce(data_p[:ent], "max",
+                                             offsets=ir))
+
+        def bwd_in_edge_order(dd):
+            if v.eid_r is not None:
+                dd = torch.empty_like(dd).index_copy_(0, v.eid_r.long(), dd)
+            return dd.index_select(0, ids)
+
+        view_case(
+            res, card, "k14_bwd" + sfx, lbl,
+            lambda: SG.segment_max_bwd_csr(ir, data_p, out, dy),
+            lambda: OS.extreme_grad(data.index_select(0, ids), out, r, dy),
+            4 * (n + 1) + 2 * b * ent * f + 2 * b * n * f, 2 * ent * f,
+            [("ddata", None)], out=bwd_in_edge_order)
+        del data, data_p, dy, out
+    return build_ms
+
+
+def view_phase_main(g, card) -> dict:
+    """Phase 2l on the main graph's reverse (``g.reverse()``: its receiver
+    CSR is ``g``'s sender CSR, read through ``eid_r``) at 3d's (4, 32)
+    (K3, also bfloat16, K4, K5, K12 with a dropout mask), 3f's (K9-K11),
+    3g's (K6-K8) widths, K13 at 3g's (4, 32) and 3j's F = 128 (K14 and its
+    backward, also bfloat16). Returns the cases by kernel."""
+    log(f"phase 2l: K3-K14 over the reversed main graph's receiver CSR "
+        f"(N={N}, E={E}) vs plain computations over receiver ids")
+    t0, res = time.perf_counter(), {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    hd = D // GAT_HEADS
+    view_kernel_cases(res, card, g.reverse(), "reversed", {
+        "gat": [(GAT_HEADS, hd, f32), (GAT_HEADS, hd, bf16)],
+        "gatv2": [(GAT_HEADS, hd)], "dot": [(GAT_HEADS, hd, hd)],
+        "k13": [(GAT_HEADS, hd)], "k14": [(D, f32), (D, bf16)]})
+    log_times(res, 44)
+    log(f"  2l on the reversed main graph: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def view_phase_draw(blocks, card) -> dict:
+    """Phase 2l on a 3n draw without replacement: block 0 (the (15, 10)
+    slot graph of 1,024 seeds) compacted to its valid edges, at 3w's
+    widths: GAT (4, 128) (K3,
+    also bfloat16, K4, K5, K12) and (4, 47) (K3-K5, K12), GATv2 (4, 32),
+    dot (4, 32, 32), K13 at D = 100 (every edge) and SAGE's F = 100 (K14
+    and its backward, also bfloat16). Returns the cases by kernel."""
+    log("phase 2l: K3-K14 over a 3n draw's block 0 compacted to its valid "
+        "edges vs plain computations over receiver ids")
+    t0, res = time.perf_counter(), {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    res["view_build_device_ms"] = view_kernel_cases(
+        res, card, blocks[0], "3n block 0", {
+            "gat": [(GAT_OGB_HEADS, GAT_OGB_HIDDEN, f32),
+                    (GAT_OGB_HEADS, GAT_OGB_HIDDEN, bf16),
+                    (GAT_OGB_HEADS, SAGE_CLASSES, f32)],
+            "gatv2": [(GAT_HEADS, D // GAT_HEADS)],
+            "dot": [(GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS)],
+            "k13": [(1, SAGE_D)], "k14": [(SAGE_D, f32), (SAGE_D, bf16)]})
+    build = res.pop("view_build_device_ms")
+    log_times(res, 44)
+    log(f"  2l on the draw: {time.perf_counter() - t0:.1f} s")
+    res["k3"]["variants"][0]["view_build_device_ms"] = build
+    return res
+
+
+def gat_ogb(M, dev):
+    """3w's GAT: ``GATConv(100, 128, relu, heads=4)``, ``GATConv(512, 47,
+    heads=4, concat=False)`` (PyG's examples/ogbn_products_gat.py widths,
+    2 of its 3 hops)."""
+    gen = torch.Generator().manual_seed(15)
+    h, k = GAT_OGB_HIDDEN, GAT_OGB_HEADS
+    return M.GNNChain(
+        M.GATConv(SAGE_D, h, torch.relu, heads=k, generator=gen, device=dev),
+        M.GATConv(h * k, SAGE_CLASSES, heads=k, concat=False, generator=gen,
+                  device=dev))
+
+
+def sampled_attention_phase(gnn, data, sampler, dev) -> dict:
+    """3w: GAT and SAGE with ``aggr="max"`` (GraphSAGE's pooling
+    aggregator) over ``DeviceSampler.sample_blocks`` without replacement
+    (``sampler``; the slots past a node's degree invalid) on 3n's graph,
+    batch 1024, fanouts (15, 10), Adam at 1e-3: 10 timed steps each on one batch
+    of seeds (a fresh draw each step), whose loss must fall, with their
+    launches (GAT: K3, K4, K5 2 each a step; SAGE: K14 2, its backward 1
+    and K1 1, layer 2's, as its input needs a gradient), device ms a step;
+    one draw card vs the CPU plain path in float64 at 3c's tolerances."""
+    from graphneuralnetworks_tpu_torch import models as M
+
+    t_phase = time.perf_counter()
+    X, y = data["X"], data["y"]
+    seeds = torch.from_numpy(np.random.default_rng(12).choice(
+        data["seeds"], SAGE_BS, replace=False)).to(dev, torch.int32)
+    out = {"vs_cpu": {}}
+    cells = {"gat": (gat_ogb(M, dev), {"k3": 2, "k4": 2, "k5": 2},
+                     GRAD_NORM_RTOL),
+             # a max routes a cotangent to one edge: 3c's EdgeConv limit
+             "sage_max": (sage_model(M, dev, aggr="max"),
+                          {"k14": 2, "k14_bwd": 1, "k1": 1},
+                          EDGECONV_GRAD_NORM_RTOL)}
+    for name, (model, per_step, grad_rtol) in cells.items():
+        log(f"phase 3w: {name} over DeviceSampler.sample_blocks (batch "
+            f"{SAGE_BS}, fanouts {SAGE_FANOUTS}), {STEPS} Adam steps on one "
+            "batch of seeds")
+        layers = list(model.layers)
+        convs, head = layers[:2], (layers[2] if len(layers) > 2 else None)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        gen = torch.Generator(device=dev).manual_seed(16)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            blocks, nid = sampler.sample_blocks(gen, seeds)
+            h = gnn.apply_blocks(blocks, convs, X.index_select(0, nid))
+            loss = sage_loss(h if head is None else head(h[:SAGE_BS]), nid,
+                             y)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        step()
+        torch.cuda.synchronize()
+        reset_counts()
+        losses, times = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step()))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts()
+        log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f}; ms/step median="
+            f"{statistics.median(times):.3f} all={[round(t, 3) for t in times]}"
+            f"; launches over {STEPS} steps: {launches}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"3w {name}: the loss did not fall: {losses}")
+        expect_counts(f"3w {name}", launches, per_step)
+        res = {"losses": losses, "ms_per_step": times,
+               "median_ms_per_step": statistics.median(times),
+               "launches": launches, "device_ms_per_step": device_ms(step, 3)}
+        log(f"  device ms/step {res['device_ms_per_step']:.4f}")
+        blocks, nid = sampler.sample_blocks(gen, seeds)
+        blocks_cpu = [b.to("cpu") for b in blocks]
+        labels = y.index_select(0, nid[:SAGE_BS])
+
+        def forward(m, gg, xx, extra):
+            on_card = xx.device.type == "cuda"
+            ls = list(m.layers)
+            hh = gnn.apply_blocks(blocks if on_card else blocks_cpu, ls[:2],
+                                  xx)[:SAGE_BS]
+            lg = hh if len(ls) == 2 else ls[2](hh)
+            return lg, torch.nn.functional.cross_entropy(
+                lg, labels if on_card else labels.cpu())
+
+        log(f"phase 3c (3w): {name} on one draw, card vs the CPU plain path")
+        before = read_counts()
+        out["vs_cpu"][f"sampled_{name}"] = compare_model(
+            f"3w {name}", model, blocks[0], X.index_select(0, nid), None,
+            forward=forward, grad_rtol=grad_rtol)
+        expect_launched(f"3w {name} (3c)", before, per_step)
+        out[name] = res
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  3w: {out['seconds']:.1f} s")
+    return out
+
+
+def reversed_phase(g, x, y, mask, profile: bool):
+    """3x: 3d's GAT and 3j's EdgeConv on ``g.reverse()``: 5 Adam steps each
+    (the loss falls) with their launches (GAT: K3, K4, K5 2 each a step over
+    the reversed CSRs; EdgeConv: K14 and its backward 2 each, K1 2), device
+    ms a step, one step card vs the CPU plain path in float64 at 3d's and
+    3j's tolerances. Returns its results and None."""
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch.training import (make_train_step,
+                                                        masked_cross_entropy)
+
+    t0, gr = time.perf_counter(), g.reverse()
+    res = {"vs_cpu": {}}
+
+    def loss_fn(m, g, x, y, mask):
+        return masked_cross_entropy(m(g, x), y, mask)
+
+    for name, model, per_step, grad_rtol in (
+            ("gat", gat(M, 2, g.device), {"k3": 2, "k4": 2, "k5": 2},
+             GRAD_NORM_RTOL),
+            ("edgeconv", edgeconv(M, 11, g.device),
+             {"k14": 2, "k14_bwd": 2, "k1": 2}, EDGECONV_GRAD_NORM_RTOL)):
+        log(f"phase 3x: {name} on the reversed main graph, 5 Adam steps")
+        losses, times, launches, opt = train(model, model.parameters(),
+                                             (gr, x, y, mask), loss_fn,
+                                             steps=5)
+        log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f}; ms/step median="
+            f"{statistics.median(times):.3f}; launches {launches}")
+        expect_counts(f"3x {name}", launches, per_step, steps=5)
+        step = make_train_step(model, opt, loss_fn)
+        dms = device_ms(lambda: step(gr, x, y, mask), 3)
+        log(f"  device ms/step {dms:.4f}")
+        res[name] = {"losses": losses, "ms_per_step": times,
+                     "median_ms_per_step": statistics.median(times),
+                     "launches": launches, "device_ms_per_step": dms}
+        log(f"phase 3c (3x): {name} on the reversed graph, card vs the CPU "
+            "plain path")
+        before = read_counts()
+        res["vs_cpu"][f"reversed_{name}"] = compare_model(
+            f"3x {name}", model, gr, x, lambda extra: {},
+            grad_rtol=grad_rtol)
+        expect_launched(f"3x {name} (3c)", before, per_step)
+        del model, opt, step
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  3x: {res['seconds']:.1f} s")
+    return res, None
+
+
 # ---- phases 2g, 3m and 3n: neighbor-sampled GraphSAGE at ogbn scale -------
 
 # bench.py's north star (BASELINE.md: epoch time on ogbn-products, GraphSAGE,
@@ -4483,13 +5027,14 @@ def sage_data(dev) -> dict:
             "seeds": seeds, "X": X, "y": y, "setup": setup}
 
 
-def sage_model(M, dev):
+def sage_model(M, dev, aggr="mean"):
     gen = torch.Generator().manual_seed(14)
     torch.manual_seed(14)
     return M.GNNChain(
-        M.SAGEConv(SAGE_D, SAGE_HIDDEN, torch.relu, generator=gen, device=dev),
-        M.SAGEConv(SAGE_HIDDEN, SAGE_HIDDEN, torch.relu, generator=gen,
+        M.SAGEConv(SAGE_D, SAGE_HIDDEN, torch.relu, aggr=aggr, generator=gen,
                    device=dev),
+        M.SAGEConv(SAGE_HIDDEN, SAGE_HIDDEN, torch.relu, aggr=aggr,
+                   generator=gen, device=dev),
         torch.nn.Linear(SAGE_HIDDEN, SAGE_CLASSES, device=dev))
 
 
@@ -4740,10 +5285,11 @@ def sage_device_phase(gnn, data, sampler, dev, profile) -> dict:
 
 
 def sage_phases(gnn, dev, card, which, profile, sweep) -> tuple:
-    """Phases 2g, 3m and 3n (``which`` of "3m", "3n") on one north-star
-    graph: its set-up, the loader's and the sampler's, then 2g's K1 cases
-    on a 3m batch and a 3n draw (and, with ``sweep``, K1 at every layout
-    there), then 3m and 3n. Returns ``(results, {"k1": 2g's cases})``."""
+    """Phases 2g, 3m and 3n (``which`` of "3m", "3n", "2l", "3w") on one
+    north-star graph: its set-up, the loader's and the sampler's, then 2g's
+    K1 cases on a 3m batch and a 3n draw (and, with ``sweep``, K1 at every
+    layout there), then 3m and 3n; 2l's cases on a 3n draw and 3w. Returns
+    ``(results, {kernel: 2g's and 2l's cases})``."""
     from graphneuralnetworks_tpu_torch.device_sampler import DeviceSampler
     from graphneuralnetworks_tpu_torch.sampling import NeighborLoader
 
@@ -4763,7 +5309,7 @@ def sage_phases(gnn, dev, card, which, profile, sweep) -> tuple:
                                  np.random.default_rng(5))
         torch.cuda.synchronize()
         res["setup"]["loader_and_first_batch_s"] = time.perf_counter() - t0
-    if "3n" in which:
+    if {"3n", "2l", "3w"} & set(which):
         t0 = time.perf_counter()
         sampler = DeviceSampler.build(data["csr_send_t"], data["ptr_t"],
                                       fanouts=SAGE_FANOUTS,
@@ -4776,18 +5322,36 @@ def sage_phases(gnn, dev, card, which, profile, sweep) -> tuple:
     log("  set-up seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in res["setup"].items()
         if isinstance(v, float)))
-    log("phase 2g: K1 at the shapes of 3m and 3n vs the plain version")
     kern = {"k1": {"err": 0.0, "variants": []}}
-    cases = sage_kernel_cases(kern, card, gm, blocks)
-    log_times(kern, 50)
-    if sweep:
-        res["k1_sweep"] = k1_layout_sweep(cases)
-    del cases
+    if {"3m", "3n"} & set(which):
+        log("phase 2g: K1 at the shapes of 3m and 3n vs the plain version")
+        cases = sage_kernel_cases(kern, card, gm,
+                                  blocks if "3n" in which else None)
+        log_times(kern, 50)
+        if sweep:
+            res["k1_sweep"] = k1_layout_sweep(cases)
+        del cases
+    if {"2l", "3w"} & set(which):
+        # 3n's draws (with replacement) have no invalid edge on this graph,
+        # whose every node has in-edges: 2l and 3w draw without
+        # replacement, which leaves the slots past a node's degree invalid
+        sampler_nr = DeviceSampler.build(
+            data["csr_send_t"], data["ptr_t"], fanouts=SAGE_FANOUTS,
+            batch_size=SAGE_BS, replace=False, device=dev)
+    if "2l" in which:
+        blocks_nr, _ = sampler_nr.sample_blocks(
+            torch.Generator(device=dev).manual_seed(7),
+            torch.from_numpy(data["seeds"][:SAGE_BS]).to(dev))
+        kern.update(view_phase_draw(blocks_nr, card))
+        del blocks_nr
     if loader is not None:
         res["sage_host"] = sage_host_phase(data, loader, dev, profile)
-    if sampler is not None:
+    if "3n" in which:
         res["sage_device"] = sage_device_phase(gnn, data, sampler, dev,
                                                profile)
+    if "3w" in which:
+        res["sampled_attention"] = sampled_attention_phase(gnn, data,
+                                                           sampler_nr, dev)
     if profile:
         k1_in_step(res, kern)
     return res, kern
@@ -5141,6 +5705,43 @@ def temporal_phase(gnn, dev, card) -> tuple:
                         else ()))
         expect_launched(name, before,
                         {"k1": temporal_k1(name, HT_T, True)})
+
+    log(f"phase 3q (3c): TGCN({D}, {D}) over "
+        f"TemporalGraph.from_snapshots(uniform=True) of rand_graph(n, 16 n) "
+        f"snapshots of n = {TQ_NODES} nodes (padded to {TQ_NODES[0]} nodes "
+        f"and {16 * TQ_NODES[0]} edges, the pad edges invalid), forward and "
+        "backward, the card vs the CPU plain path in float64")
+    t0 = time.perf_counter()
+    tq = gnn.TemporalGraph.from_snapshots(
+        [gnn.rand_graph(n, 16 * n, seed=40 + i, device=dev)
+         for i, n in enumerate(TQ_NODES)], uniform=True)
+    tq_cpu = gnn.TemporalGraph.from_snapshots(
+        [s.to("cpu") for s in tq.snapshots])
+    res["uniform_build_s"] = time.perf_counter() - t0
+    if {(s.num_nodes, s.num_edges) for s in tq.snapshots} != {
+            (TQ_NODES[0], 16 * TQ_NODES[0])}:
+        raise AssertionError("3q: from_snapshots(uniform=True) left "
+                             "snapshots of unequal sizes")
+    xq = tuple(torch.randn(TQ_NODES[0], D, generator=gen, device=dev)
+               for _ in TQ_NODES)
+    tq_target = torch.randn(TQ_NODES[0], D, generator=gen, device=dev)
+
+    def tq_forward(m, gg, xx, extra):
+        on_card = xx[0].is_cuda
+        ys = m(tq if on_card else tq_cpu, list(xx))
+        tgt = tq_target if on_card else tq_target.cpu().double()
+        return tuple(ys), sum((y - tgt).square().mean() for y in ys)
+
+    before = read_counts()
+    res["vs_cpu"]["tgcn_uniform_snapshots"] = compare_model(
+        "TGCN over padded snapshots",
+        M.TGCN(D, D, generator=torch.Generator().manual_seed(3), device=dev),
+        tq.snapshots[0], xq, None, forward=tq_forward,
+        grad_rtol=RELU_GRAD_NORM_RTOL)
+    expect_launched("TGCN over padded snapshots", before,
+                    {"k1": temporal_k1("TGCN", len(TQ_NODES), True)})
+    res["uniform_check_s"] = time.perf_counter() - t0
+    log(f"  3q over padded snapshots: {res['uniform_check_s']:.1f} s")
     return res, kern
 
 
@@ -6239,14 +6840,15 @@ def main() -> int:
                     help="add a torch.profiler breakdown of the train step")
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run phase 1 and only these phases, in this order "
-                         "(comma-separated, of 2,2b,2c,2d,2e,2f,2h and the "
-                         "train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, 3q, "
-                         "3s, "
-                         "3m and 3n, 2j and 3r, and 2k, 3t and 3u; 3p and "
-                         "3q run 2i's cases with them; 2k, 3t and 3u run "
-                         "after the others (on one partition), then 2j and "
-                         "3r (on one edge split), 3m and 3n last, with 2g), "
-                         "then stop without a result line")
+                         "(comma-separated, of 2,2b,2c,2d,2e,2f,2h,2l and "
+                         "the train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, "
+                         "3q, 3s, 3x, "
+                         "3m, 3n and 3w, 2j and 3r, and 2k, 3t and 3u; 3p "
+                         "and 3q run 2i's cases with them; 2k, 3t and 3u "
+                         "run after the others (on one partition), then 2j "
+                         "and 3r (on one edge split), 3m, 3n and 3w last, "
+                         "with 2g for 3m and 3n and 2l's cases on a 3n "
+                         "draw), then stop without a result line")
     ap.add_argument("--sweep", nargs="?", const=",".join(SWEEPS),
                     default=None, metavar="NAMES",
                     help="after phase 2, time K1-K12, K14 and its "
@@ -6310,14 +6912,18 @@ def main() -> int:
     ht_phases = {"3p": lambda: hetero_phase(gnn, g.device, card),
                  "3q": lambda: temporal_phase(gnn, g.device, card)}
     only = args.only.split(",") if args.only else None
-    sage_which = [p for p in ("3m", "3n") if only is None or p in only]
+    sage_which = [p for p in ("3m", "3n", "2l", "3w")
+                  if only is None or p in only]
     link_which = [p for p in ("2j", "3r") if only is None or p in only]
     par_which = [p for p in ("2k", "3t", "3u") if only is None or p in only]
     for phase in (only if only else kernel_phases):
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
                       "3l": propagation_phase, "3v": edge_layers_phase,
-                      "3o": functools.partial(precision_phase, gb=gb)}
+                      "3o": functools.partial(precision_phase, gb=gb),
+                      "3x": reversed_phase}
+        if phase == "2l":   # the reversed main graph; a 3n draw with 3n's
+            merge_kernels(view_phase_main(g, card))
         if phase in sage_which or phase in link_which or phase in par_which:
             continue
         if phase in ht_phases:
@@ -6337,7 +6943,8 @@ def main() -> int:
              if args.sweep else None)
 
     def run_sage():
-        """2g, 3m, 3n; 2g's K1 cases join phase 2's."""
+        """2g, 3m, 3n, 2l's cases on a 3n draw, 3w; 2g's and 2l's cases
+        join phase 2's."""
         res, sage_kern = sage_phases(
             gnn, g.device, card, sage_which, args.profile,
             bool(args.sweep) and "k1" in args.sweep.split(","))
@@ -6384,6 +6991,9 @@ def main() -> int:
     edge_res, _ = edge_layers_phase(*node_inputs(g), args.profile)
     main_res["vs_cpu"].update(edge_res.pop("vs_cpu"))
     main_res["edge_layers"] = edge_res
+    merge_kernels(view_phase_main(g, card))
+    main_res["reversed"], _ = reversed_phase(*node_inputs(g), args.profile)
+    main_res["vs_cpu"].update(main_res["reversed"].pop("vs_cpu"))
     bf16_res, _ = precision_phase(*node_inputs(g), args.profile, gb=gb)
     main_res["vs_cpu"].update(bf16_res.pop("vs_cpu"))
     main_res.update(bf16_res)
@@ -6399,6 +7009,7 @@ def main() -> int:
     sage = run_sage()
     for key in ("sage_host", "sage_device"):
         main_res["vs_cpu"][key] = sage[key].pop("vs_cpu")
+    main_res["vs_cpu"].update(sage["sampled_attention"].pop("vs_cpu"))
     main_res["sage"] = sage
     cora = cora_phase(g.device)
     main_res["link_example"] = run_link()

@@ -537,7 +537,10 @@ class TemporalBrainsData:
                 device=None):
         """Subject ``i`` as a :class:`~..temporal.TemporalGraph` of one node
         count, with the reference's features ``x_t = [I(N) | activity_t]``
-        (temporalbrains.jl:28-30) and its label as ``tgdata["y"]``."""
+        (temporalbrains.jl:28-30) and its label as ``tgdata["y"]``. The
+        snapshots keep their true edge counts (JAX's pads them to the
+        dataset's largest); ``TemporalGraph.from_snapshots(g.snapshots,
+        uniform=True)`` pads them to one."""
         from ..temporal import TemporalGraph
 
         device = resolve_device(device)
@@ -552,7 +555,7 @@ class TemporalBrainsData:
             snaps.append(graph(self.senders[lo:hi], self.receivers[lo:hi],
                                num_nodes=n, nodes={"x": x}, device=device))
         return TemporalGraph.from_snapshots(
-            snaps, uniform=True,
+            snaps,
             tgdata={"y": torch.tensor(int(self.labels[i]), device=device)})
 
 

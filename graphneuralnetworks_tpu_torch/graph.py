@@ -9,11 +9,14 @@ so is ``edge_mask`` unless the graph carries ``edge_valid``.
 ``edge_valid`` (``bool[E]``, in edge order, as JAX's field) marks the edges
 that count. ``DeviceSampler`` sets it: its slot graph keeps one structure
 for every batch, and the draws below a node with no in-edges (or past a
-node's degree, without replacement) are invalid slots. ``edge_mask``
-returns it. The sum and mean of ``propagate``'s SpMM route honour it
-(invalid edges weigh 0; mean divides by the count of valid in-edges), and
-so do ``query.degree`` and the layers on those two; every other route that
-reads edges raises on such a graph (:func:`no_edge_valid`).
+node's degree, without replacement) are invalid slots; so does
+``TemporalGraph.from_snapshots(uniform=True)`` on its pad edges.
+``edge_mask`` returns it. Every route honours it as JAX's do through
+``edge_mask``: the segment ops take it as their mask, the SpMM weighs an
+invalid edge 0, and the receiver-order kernels walk the CSRs compacted to
+the valid edges (:func:`csr_view`). ``apply_edges`` computes every edge,
+as JAX's reads no mask; ``batch`` and the host transforms raise on such a
+graph, as JAX's do (:func:`no_edge_valid`).
 
 Edges are stored sorted by receiver (stable). ``graph()`` builds both edge
 groupings on the host once and moves them to the device; ``device_graph()``
@@ -44,14 +47,14 @@ positions are not edge ids: ``eid_r`` maps them (``g``'s ``eid_s``), and
 its sender grouping is ``g``'s receiver grouping, whose positions are
 (``eid_s`` None). A graph from ``graph()`` has ``eid_r`` None: its edges
 are receiver-sorted (``sorted_by_receivers``). A route that reads an edge
-array by receiver-CSR position either reads it through ``eid_r`` or raises
-on a reversed graph (:func:`receiver_positions_are_edge_ids`).
+array by CSR position reads it through the position's edge id
+(:func:`csr_view`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -175,25 +178,75 @@ class GraphTuple:
                 f"edges={list(self.edges)}, globals={list(self.globals_)})")
 
 
-def receiver_positions_are_edge_ids(g: GraphTuple, route: str) -> None:
-    """Raise ``ValueError`` if ``route``, which reads edge arrays by
-    receiver-CSR position, is given a reversed graph, whose receiver-CSR
-    positions are not edge ids (``eid_r``)."""
-    if g.eid_r is not None:
-        raise ValueError(f"{route} reads edge arrays in receiver-CSR order, "
-                         "which on a reversed graph (GraphTuple.reverse) is "
-                         "not the edge order: it does not take one")
+class CsrView(NamedTuple):
+    """The two CSRs that the receiver-order kernels walk (:func:`csr_view`).
+
+    ``eid_r`` / ``eid_s`` map each position of the receiver / sender CSR to
+    its edge id (None: the positions are the edge ids). A compacted view
+    keeps its arrays at the graph's ``E`` entries and fills the first
+    ``indptr[-1]`` of them; the kernels read no further."""
+
+    indptr_r: torch.Tensor
+    col_r: torch.Tensor
+    eid_r: torch.Tensor | None
+    indptr_s: torch.Tensor
+    col_s: torch.Tensor
+    eid_s: torch.Tensor | None
+
+
+def _compact(indptr, col, eid, valid):
+    """One CSR cut to its valid entries, on its device with no read back to
+    the host: a stable partition of the positions (valid ones first, in
+    order) from a running count of the validity in CSR order, the offsets
+    moved down by the invalid entries before them, and the map to edge ids
+    composed with ``eid``."""
+    v = valid if eid is None else valid.index_select(0, eid.long())
+    c = torch.cumsum(v, 0, dtype=torch.int32)
+    pos = torch.arange(v.numel(), device=v.device, dtype=torch.int32)
+    total = c[-1:] if v.numel() else c.new_zeros(1)
+    dest = torch.where(v, c - 1, total + pos - c)
+    perm = torch.empty_like(pos).index_put_((dest.long(),), pos)
+    kept = torch.cat([c.new_zeros(1), c])[indptr.long()]
+    new_eid = perm if eid is None else eid.index_select(0, perm.long())
+    return kept, col.index_select(0, perm.long()), new_eid
+
+
+def csr_view(g: GraphTuple) -> CsrView:
+    """The receiver and sender CSRs of ``g`` that a receiver-order kernel
+    walks, with the map from each position to its edge id, so that edge
+    arrays (in edge order) are read and written through it:
+
+    - a graph from ``graph()``: its groupings (receiver positions are edge
+      ids, ``eid_r`` None);
+    - a reversed graph: its groupings too, ``eid_r`` mapping the receiver
+      CSR (``g``'s sender CSR before ``reverse``);
+    - a graph with ``edge_valid``: both CSRs compacted to the valid edges
+      (:func:`_compact`), so an invalid edge is in no row and a receiver
+      whose edges are all invalid has an empty one; on a reversed graph
+      the maps compose.
+
+    Built once per graph and kept on it, like its groupings (``replace``
+    makes a new graph, without it)."""
+    view = g.__dict__.get("_csr_view")
+    if view is None:
+        view = CsrView(g.indptr_r, g.col_r, g.eid_r, g.indptr_s, g.col_s,
+                       g.eid_s)
+        if g.edge_valid is not None:
+            view = CsrView(
+                *_compact(g.indptr_r, g.col_r, g.eid_r, g.edge_valid),
+                *_compact(g.indptr_s, g.col_s, g.eid_s, g.edge_valid))
+        g.__dict__["_csr_view"] = view
+    return view
 
 
 def no_edge_valid(g: GraphTuple, route: str) -> None:
-    """Raise ``ValueError`` if ``route``, which does not honour
-    ``edge_valid`` (it would count the invalid edges), is given a graph that
-    carries it."""
+    """Raise ``ValueError`` if ``route`` is given a graph with
+    ``edge_valid``: ``batch``, which JAX's refuses too (its host
+    surgery would count the invalid edges as real)."""
     if g.edge_valid is not None:
-        raise ValueError(f"{route} does not honour edge_valid: it would "
-                         "count the invalid edges of a sampled slot graph "
-                         "(DeviceSampler); only propagate's sum and mean "
-                         "of copy_xj, w_mul_xj and e_mul_xj take one")
+        raise ValueError(f"{route} does not take a graph with edge_valid "
+                         "(a sampled slot graph or padded snapshot): its "
+                         "invalid edges would count as real")
 
 
 def _tensor(v, device) -> torch.Tensor:

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..graph import GraphTuple, no_edge_valid
+from ..graph import GraphTuple
 from ..ops import (aggregate_neighbors, apply_edges, copy_xj, e_mul_xj,
                    propagate, to_src_space, w_mul_xj, xi_sub_xj)
 from ..ops.attention import (attention_aggregate, dot_attention,
@@ -194,11 +194,10 @@ class GCNConv(GNNLayer):
         """Separate unweighted out/in-degree norms for source and target
         node sets, ``W`` after propagation, no self-loop (GNNlib
         conv.jl:45-70)."""
-        no_edge_valid(g, "GCNConv on a bipartite input")
         xj, xi = _expand_srcdst(x)
         ones = xj.new_ones(g.num_edges)
-        cout = segment_sum(ones, g.senders, xj.shape[0])
-        cin = segment_sum(ones, g.receivers, xi.shape[0])
+        cout = segment_sum(ones, g.senders, xj.shape[0], mask=g.edge_valid)
+        cin = segment_sum(ones, g.receivers, xi.shape[0], mask=g.edge_valid)
         nf = norm_fn if norm_fn is not None else _inv_sqrt
         xjc = xj * nf(cout)[:, None]
         if edge_weight is not None:

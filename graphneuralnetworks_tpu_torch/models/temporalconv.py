@@ -326,7 +326,9 @@ class A3TGCN(GNNLayer):
     the sequence (``tgcn``), each step scored by ``dense2(dense1(h))``, a
     softmax over time (axis 0), and the weighted sum ``[N, out]``. Over a
     :class:`~..temporal.TemporalGraph` the per-snapshot outputs are stacked
-    and must share one shape, else ``ValueError``."""
+    and must share one shape (``from_snapshots(uniform=True)`` pads
+    snapshots of unequal sizes to one, as JAX's does), else
+    ``ValueError``."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator=None, device=None, dtype=torch.float32, **kw):
@@ -347,7 +349,8 @@ class A3TGCN(GNNLayer):
                 raise ValueError(
                     "A3TGCN over a TemporalGraph needs one output shape per "
                     f"snapshot for the softmax over time; got "
-                    f"{sorted(shapes)}")
+                    f"{sorted(shapes)}: build the graph with "
+                    "from_snapshots(..., uniform=True)")
             h = torch.stack(h)
         a = torch.softmax(self.dense2(self.dense1(h)), dim=0)
         return (a * h).sum(0)

@@ -15,6 +15,15 @@ all heads in one launch), at any number of head dimensions; a shape the
 kernels cannot take raises. Only CPU tensors take the plain path below, the
 counterpart of the JAX package's XLA path.
 
+The kernels walk the CSRs of ``graph.csr_view``: on a reversed graph its
+groupings with their maps to edge ids, on a graph with ``edge_valid`` the
+CSRs compacted to the valid edges, so an invalid edge enters no softmax, as
+JAX's ``edge_mask`` keeps it out (a receiver whose edges are all invalid
+gets its self term alone, or 0); ``[E, *H]`` logits and dropout masks are
+read through the map. The plain path masks the same edges.
+:func:`dot_attention_logits` computes every edge, as JAX's reads no
+mask.
+
 bfloat16: on the card :func:`gat_attention` without dropout takes it on
 K3-K5, :func:`gatv2_attention` without dropout on K9-K11,
 :func:`dot_attention` on K6-K8, :func:`attention_aggregate` (and so
@@ -32,7 +41,7 @@ import math
 
 import torch
 
-from ..graph import GraphTuple, no_edge_valid
+from ..graph import GraphTuple
 from .cuda.edge_softmax import (dot_attention_nodes, edge_softmax_aggregate,
                                 edge_softmax_aggregate_nodes,
                                 gat_attention_nodes, gatv2_attention_nodes,
@@ -85,7 +94,6 @@ def gat_attention(g: GraphTuple, pi, pj, values, slope: float, *,
     with it (as the JAX package gathers them; K12 takes that type).
     ``pj_weight`` is accepted for the JAX package's signature and not used.
     """
-    no_edge_valid(g, "gat_attention")
     pj = to_src_space(g, pj)   # identity unless g is a part's view
     values = to_src_space(g, values)
     if _kernel_route(values) and dropout_masks is None:
@@ -118,7 +126,6 @@ def gatv2_attention(g: GraphTuple, q, k, a, slope: float, *,
     dropout (the CPU path, as K9 computes them), in the projections' type
     with it (as the JAX package gathers them; K12 takes that type).
     """
-    no_edge_valid(g, "gatv2_attention")
     k = to_src_space(g, k)
     if _kernel_route(k) and dropout_masks is None:
         return gatv2_attention_nodes(g, q, k, a, slope,
@@ -152,7 +159,6 @@ def dot_attention(g: GraphTuple, q, k, values, scale: float = 1.0, *,
     float32 for bfloat16 projections (as K6 and JAX's Pallas kernel keep
     it, ``edge_softmax.py:320-322``): not rounded before the softmax.
     """
-    no_edge_valid(g, "dot_attention")
     k = to_src_space(g, k)
     values = to_src_space(g, values)
     if _kernel_route(values):
@@ -176,7 +182,6 @@ def dot_attention_logits(g: GraphTuple, qi, kj):
     ``[E, *H]`` (``[N, O]`` -> ``[E]``). On the card, one launch of K13
     for all heads (:func:`~.cuda.sddmm.sddmm`); the plain path computes
     bfloat16 as K13 does, in float32 with each dot rounded once."""
-    no_edge_valid(g, "dot_attention_logits")
     kj = to_src_space(g, kj)
     if _kernel_route(kj):
         return sddmm(g, qi, kj)
@@ -203,7 +208,6 @@ def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,
 
     Returns ``[n, *H, D]``.
     """
-    no_edge_valid(g, "attention_aggregate")
     n = num_segments if num_segments is not None else g.num_nodes
     if node_values:
         values = to_src_space(g, values)
@@ -225,14 +229,18 @@ def attention_aggregate(g: GraphTuple, logits, values, *, self_logits=None,
             else tuple(up(m) for m in dropout_masks))
         return out.to(values.dtype)
 
-    r = g.receivers
+    r, valid = g.receivers, g.edge_valid
     if node_values:
         values = gather(values, g.senders)
-    mx = segment_max(logits, r, n, empty_value=None)   # -inf: no in-edges
+    mx = segment_max(logits, r, n, mask=valid,
+                     empty_value=None)   # -inf: no (valid) in-edges
     if self_logits is not None:
         mx = torch.maximum(mx, self_logits)
     mx = mx.masked_fill(torch.isneginf(mx), 0.0)
     ex = torch.exp(logits - gather(mx, r))
+    if valid is not None:
+        ex = torch.where(valid.reshape(valid.shape + (1,) * (ex.dim() - 1)),
+                         ex, 0.0)
     denom = segment_sum(ex, r, n)
     if self_logits is not None:
         ex_self = torch.exp(self_logits - mx)

@@ -70,11 +70,11 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...graph import receiver_positions_are_edge_ids
+from ...graph import csr_view
 from .build import load
 from .spmm import (_call_on, _check, _float4_rows, _ptr, _raise_on_error,
-                   _route, _row_ids, _row_vectors, _windowed_rows,
-                   _work_dtype, spmm_sddmm)
+                   _entries, _route, _row_ids, _row_vectors,
+                   _windowed_rows, _work_dtype, spmm_sddmm)
 
 __all__ = ["launches", "finalize_softmax", "edge_softmax", "gat_softmax",
            "gat_bwd_dpi", "gat_bwd_rev", "gatv2_softmax", "gatv2_bwd_dq",
@@ -256,6 +256,13 @@ def finalize_softmax(num, m, den, self_logits=None, self_values=None,
 
 # ---- plain PyTorch versions (the CPU path, and the reference on the card) --
 
+def _filled(indptr, col):
+    """``(rows, cols)``: the row id and ``col`` (int64) of each position
+    the CSR fills (``spmm._entries``)."""
+    n = _entries(indptr)
+    return _row_ids(indptr, n), col[:n].long()
+
+
 def _softmax_sums(rows, n, lg, mask, v_e):
     """``(num, m, s)`` of ``lg [E, H]`` and edge rows ``v_e [E, H, D]``
     grouped by ``rows``."""
@@ -279,11 +286,13 @@ def edge_softmax_plain(indptr, col, logits, mask, values):
     bfloat16 inputs as the kernel takes them: ``m``, ``s`` and the sums in
     float32 from the widened values, ``num`` rounded once to bfloat16.
     """
-    rows = _row_ids(indptr, logits.shape[0])
+    n = _entries(indptr)
+    rows = _row_ids(indptr, n)
     work = _work_dtype(values.dtype)
-    v_e = values if col is None else values.index_select(0, col.long())
-    num, m, s = _softmax_sums(rows, indptr.numel() - 1, logits.to(work),
-                              None if mask is None else mask.to(work),
+    v_e = values[:n] if col is None else values.index_select(0,
+                                                              col[:n].long())
+    num, m, s = _softmax_sums(rows, indptr.numel() - 1, logits[:n].to(work),
+                              None if mask is None else mask[:n].to(work),
                               v_e.to(work))
     return num.to(values.dtype), m, s
 
@@ -293,7 +302,7 @@ def gat_softmax_plain(indptr, col, pi, pj, values_n, slope):
     logits ``leaky_relu(pi[r_e] + pj[s_e])``. bfloat16 inputs as the
     kernel takes them: logits, ``m``, ``s`` and the sums in float32, ``num``
     rounded once to bfloat16."""
-    rows, cols = _row_ids(indptr, col.numel()), col.long()
+    rows, cols = _filled(indptr, col)
     work = _work_dtype(values_n.dtype)
     lg = lrelu(pi.index_select(0, rows).to(work)
                + pj.index_select(0, cols).to(work), slope)
@@ -321,9 +330,9 @@ def gat_bwd_dpi_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
                       slope):
     """K4's function over the receiver CSR: ``dpi[r] = sum_e dlg_e``, in
     ``pi``'s type (summed in float32 for bfloat16)."""
-    rows = _row_ids(indptr, col.numel())
-    _, _, dlg = _gat_edge_terms(rows, col.long(), pi, pj, values_n, mx, den,
-                                s_n, dy, slope)
+    rows, cols = _filled(indptr, col)
+    _, _, dlg = _gat_edge_terms(rows, cols, pi, pj, values_n, mx, den, s_n,
+                                dy, slope)
     return dlg.new_zeros(pi.shape).index_add_(0, rows, dlg).to(pi.dtype)
 
 
@@ -333,9 +342,9 @@ def gat_bwd_rev_plain(indptr, col, pi, pj, values_n, mx, den, s_n, dy,
     ``(dpj, dv)`` with ``dpj[s] = sum_e dlg_e``, ``dv[s] = sum_e alpha_e
     dy[r_e]``, in ``pj``'s and ``values_n``'s types (summed in float32 for
     bfloat16)."""
-    rows = _row_ids(indptr, col.numel())
-    alpha, dy_e, dlg = _gat_edge_terms(col.long(), rows, pi, pj, values_n,
-                                       mx, den, s_n, dy, slope)
+    rows, cols = _filled(indptr, col)
+    alpha, dy_e, dlg = _gat_edge_terms(cols, rows, pi, pj, values_n, mx, den,
+                                       s_n, dy, slope)
     dpj = dlg.new_zeros(pj.shape).index_add_(0, rows, dlg)
     dv = dy_e.new_zeros(values_n.shape).index_add_(
         0, rows, alpha[..., None] * dy_e)
@@ -359,8 +368,8 @@ def gatv2_softmax_plain(indptr, col, q, k, a, slope):
     the values ``k[s_e]`` with logits ``<a_h, leaky_relu(q[r_e] +
     k[s_e])>``. bfloat16 inputs as the kernel takes them: logits, ``m``,
     ``s`` and the sums in float32, ``num`` rounded once to bfloat16."""
-    rows = _row_ids(indptr, col.numel())
-    k_e, _, _, lg = _gatv2_logits(rows, col.long(), q, k, a, slope)
+    rows, cols = _filled(indptr, col)
+    k_e, _, _, lg = _gatv2_logits(rows, cols, q, k, a, slope)
     num, m, s = _softmax_sums(rows, indptr.numel() - 1, lg, None, k_e)
     return num.to(k.dtype), m, s
 
@@ -384,9 +393,9 @@ def gatv2_bwd_dq_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
     sum_e dlg_e a lrelu'(raw_e)`` and ``da [O, H] = sum_e act_e^T dlg_e``
     (edge_softmax.py:1444-1459). bfloat16 inputs as the kernels take them:
     summed in float32, ``dq`` rounded once to bfloat16, ``da`` float32."""
-    rows = _row_ids(indptr, col.numel())
-    _, _, act, dlg, draw = _gatv2_edge_terms(rows, col.long(), q, k, a, mx,
-                                             den, s_n, dy, slope)
+    rows, cols = _filled(indptr, col)
+    _, _, act, dlg, draw = _gatv2_edge_terms(rows, cols, q, k, a, mx, den,
+                                             s_n, dy, slope)
     dq = draw.new_zeros(q.shape).index_add_(0, rows, draw)
     return dq.to(q.dtype), torch.einsum("ehf,eh->fh", act, dlg)
 
@@ -396,9 +405,9 @@ def gatv2_bwd_rev_plain(indptr, col, q, k, a, mx, den, s_n, dy, slope):
     ``dk[s] = sum_e dlg_e a lrelu'(raw_e) + alpha_e dy[r_e]``
     (edge_softmax.py:1506-1516), in ``k``'s type (summed in float32 for
     bfloat16)."""
-    rows = _row_ids(indptr, col.numel())
-    alpha, dy_e, _, _, draw = _gatv2_edge_terms(col.long(), rows, q, k, a,
-                                                mx, den, s_n, dy, slope)
+    rows, cols = _filled(indptr, col)
+    alpha, dy_e, _, _, draw = _gatv2_edge_terms(cols, rows, q, k, a, mx, den,
+                                                s_n, dy, slope)
     dk = draw.new_zeros(k.shape).index_add_(0, rows,
                                             draw + alpha[..., None] * dy_e)
     return dk.to(k.dtype)
@@ -422,10 +431,10 @@ def dot_softmax_plain(indptr, col, q, k, v, scale, slope, raw_out=None):
     each edge's raw logit ``scale * <q[r_e], k[s_e]>``. bfloat16 inputs as
     the kernel takes them: logits, ``m``, ``s`` and the sums in float32,
     ``num`` rounded once to bfloat16."""
-    rows, cols = _row_ids(indptr, col.numel()), col.long()
+    rows, cols = _filled(indptr, col)
     raw, lg = _dot_logits(rows, cols, q, k, scale, slope)
     if raw_out is not None:
-        raw_out.copy_(raw)
+        raw_out[:cols.numel()].copy_(raw)
     num, m, s = _softmax_sums(rows, indptr.numel() - 1, lg, None,
                               v.index_select(0, cols).to(lg.dtype))
     return num.to(v.dtype), m, s
@@ -458,9 +467,10 @@ def dot_bwd_dq_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
     (edge_softmax.py:546-596), with the raw logits ``raw [E, H]`` (K6's
     residual) where given; in ``q``'s type (summed in float32 for
     bfloat16)."""
-    rows, cols = _row_ids(indptr, col.numel()), col.long()
+    rows, cols = _filled(indptr, col)
     _, _, dlg = _dot_edge_terms(rows, cols, q, k, v, mx, den, s_n, dy, scale,
-                                slope, raw)
+                                slope, None if raw is None
+                                else raw[:cols.numel()])
     dq = dlg.new_zeros(q.shape).index_add_(
         0, rows, dlg[..., None] * k.index_select(0, cols).to(dlg.dtype))
     return dq.to(q.dtype)
@@ -471,7 +481,7 @@ def dot_bwd_rev_plain(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope):
     dv)`` with ``dk[s] = sum_e dlg_e q[r_e]`` and ``dv[s] = sum_e alpha_e
     dy[r_e]`` (edge_softmax.py:599-650), in ``k``'s and ``v``'s types
     (summed in float32 for bfloat16)."""
-    rows, recv = _row_ids(indptr, col.numel()), col.long()
+    rows, recv = _filled(indptr, col)
     alpha, dy_e, dlg = _dot_edge_terms(recv, rows, q, k, v, mx, den, s_n, dy,
                                        scale, slope)
     dk = dlg.new_zeros(k.shape).index_add_(
@@ -1246,34 +1256,52 @@ def _self_grads(self_logits, self_values, mask_self, mx, den, s_n, dy):
             (m_alpha[..., None] * dy).to(self_values.dtype))
 
 
-def _edge_alpha(logits, mask_e, mx, den, receivers):
+def _edge_alpha(logits, mask_e, mx, den, receivers, valid):
+    """Each edge's attention weight, in edge order, and its product with
+    the dropout mask; 0 for an edge ``valid`` marks invalid (in no row of
+    the compacted CSR the forward walked)."""
     alpha = (torch.exp(logits - mx.index_select(0, receivers))
              / den.index_select(0, receivers))
+    if valid is not None:
+        alpha = torch.where(valid.reshape(valid.shape + (1,) * (
+            alpha.dim() - 1)), alpha, 0.0)
     return alpha, (alpha if mask_e is None else alpha * mask_e)
+
+
+def _by_position(eid, *ts):
+    """Edge arrays (or None) read in CSR-position order through ``eid``
+    (``graph.csr_view``'s map; None: already in that order), contiguous."""
+    return tuple(None if t is None else t.contiguous() if eid is None
+                 else t.index_select(0, eid.long()) for t in ts)
 
 
 class EdgeSoftmaxFunction(torch.autograd.Function):
     """Softmax over in-edges and sum of EDGE values; K12 forward, eager
     backward (edge_softmax.py:182-212): the attention weights in float32
-    against the float32 state, each gradient in its primal's type."""
+    against the float32 state, each gradient in its primal's type. The
+    edge arrays come in edge order; K12 reads them by receiver-CSR
+    position, through ``eid_r``; ``valid`` (the graph's ``edge_valid``, or
+    None) zeroes the weights of the edges the compacted CSR left out."""
 
     @staticmethod
     def forward(ctx, logits, values, self_logits, self_values, mask_e,
-                mask_self, indptr_r, receivers):
+                mask_self, indptr_r, eid_r, receivers, valid):
         logits, values, mask_e = _contiguous(logits, values, mask_e)
-        num, m, s = edge_softmax(indptr_r, None, logits, mask_e, values)
+        num, m, s = edge_softmax(indptr_r, None,
+                                 *_by_position(eid_r, logits, mask_e, values))
         out, mx, den = finalize_softmax(num, m, s, self_logits, self_values,
                                         mask_self)
         ctx.save_for_backward(logits, values, self_logits, self_values,
-                              mask_e, mask_self, out, mx, den, receivers)
+                              mask_e, mask_self, out, mx, den, receivers,
+                              valid)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
         (logits, values, self_logits, self_values, mask_e, mask_self, out,
-         mx, den, r) = ctx.saved_tensors
-        alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r)
+         mx, den, r, valid) = ctx.saved_tensors
+        alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r, valid)
         dy_e = dy.index_select(0, r)
         s_n = (out * dy).sum(-1)
         dl = (m_alpha * (values * dy_e).sum(-1)
@@ -1281,8 +1309,8 @@ class EdgeSoftmaxFunction(torch.autograd.Function):
         dsl, dsv = _self_grads(self_logits, self_values, mask_self, mx, den,
                                s_n, dy)
         return (dl.to(logits.dtype),
-                (m_alpha[..., None] * dy_e).to(values.dtype), dsl, dsv, None,
-                None, None, None)
+                (m_alpha[..., None] * dy_e).to(values.dtype), dsl, dsv,
+                None, None, None, None, None, None)
 
 
 class EdgeSoftmaxNodesFunction(torch.autograd.Function):
@@ -1292,34 +1320,43 @@ class EdgeSoftmaxNodesFunction(torch.autograd.Function):
     ``<v[s_e], dy[r_e]>`` of the logit gradient (edge_softmax.py:1756). The
     weights reach K2 in the values' type, as JAX's scatter casts them
     (``spmm.py:327``), so bfloat16 values take K2's bfloat16 variant; the
-    logit gradient is taken in float32 and returned in the logits' type."""
+    logit gradient is taken in float32 and returned in the logits' type.
+    The logits and mask come in edge order: K12 reads them through
+    ``eid_r``, K2 the weights through ``eid_s`` (``graph.csr_view``'s
+    maps); ``valid`` (the graph's ``edge_valid``, or None) zeroes the
+    weights and logit gradients of the edges the compacted CSRs left
+    out."""
 
     @staticmethod
     def forward(ctx, logits, values_n, self_logits, self_values, mask_e,
-                mask_self, indptr_r, col_r, indptr_s, col_s, eid_s,
-                receivers):
+                mask_self, indptr_r, col_r, eid_r, indptr_s, col_s, eid_s,
+                receivers, valid):
         logits, values_n, mask_e = _contiguous(logits, values_n, mask_e)
-        num, m, s = edge_softmax(indptr_r, col_r, logits, mask_e, values_n)
+        lg_p, mask_p = _by_position(eid_r, logits, mask_e)
+        num, m, s = edge_softmax(indptr_r, col_r, lg_p, mask_p, values_n)
         out, mx, den = finalize_softmax(num, m, s, self_logits, self_values,
                                         mask_self)
         ctx.save_for_backward(logits, values_n, self_logits, self_values,
                               mask_e, mask_self, out, mx, den, indptr_s,
-                              col_s, eid_s, receivers)
+                              col_s, eid_s, receivers, valid)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
         (logits, values_n, self_logits, self_values, mask_e, mask_self, out,
-         mx, den, indptr_s, col_s, eid_s, r) = ctx.saved_tensors
-        alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r)
+         mx, den, indptr_s, col_s, eid_s, r, valid) = ctx.saved_tensors
+        alpha, m_alpha = _edge_alpha(logits, mask_e, mx, den, r, valid)
         dy, w = _contiguous(dy, m_alpha.to(values_n.dtype))
         s_n = (out * dy).sum(-1)
         dv, dots = spmm_sddmm(indptr_s, col_s, eid_s, w, dy, values_n)
         dl = m_alpha * dots - alpha * s_n.index_select(0, r)
+        if valid is not None:   # K2 leaves the dots of those edges unset
+            dl = torch.where(valid.reshape(valid.shape + (1,) * (
+                dl.dim() - 1)), dl, 0.0)
         dsl, dsv = _self_grads(self_logits, self_values, mask_self, mx, den,
                                s_n, dy)
-        return (dl.to(logits.dtype), dv, dsl, dsv) + (None,) * 8
+        return (dl.to(logits.dtype), dv, dsl, dsv) + (None,) * 10
 
 
 class GatAttentionFunction(torch.autograd.Function):
@@ -1447,36 +1484,41 @@ class DotAttentionFunction(torch.autograd.Function):
 # ---- entry points ----------------------------------------------------------
 
 def _rows(g, num_segments):
-    """The receiver CSR cut to ``num_segments`` rows.
+    """``(indptr, col, eid)``: the receiver CSR of ``graph.csr_view`` (a
+    reversed graph's through its edge-id map, an ``edge_valid`` graph's
+    compacted to the valid edges) cut to ``num_segments`` rows.
 
-    Every receiver must be below ``num_segments``: the backward sweeps read
-    the per-receiver state of every edge. Edges are receiver-sorted, so
-    that holds when the cut CSR still holds every edge (read from the card
-    only when the cut drops rows).
+    Every receiver of an edge in it must be below ``num_segments``: the
+    backward sweeps read the per-receiver state of every edge. The CSR
+    groups its entries by receiver, so that holds when the cut CSR still
+    holds every entry (read from the card only when the cut drops rows).
     """
-    receiver_positions_are_edge_ids(g, "the card's attention and SDDMM "
-                                    "kernels (K3-K13)")
+    v = csr_view(g)
     n = g.num_nodes if num_segments is None else int(num_segments)
-    return _cut(g, g.indptr_r, n, "receiver", f"num_segments={n}")
+    return (_cut(v.indptr_r, n, "receiver", f"num_segments={n}"), v.col_r,
+            v.eid_r)
 
 
 def _senders(g, n_src: int):
-    """The sender CSR cut to the ``n_src`` rows of the node values; every
-    sender must be below it (the forward gathers ``values_n[s_e]``)."""
-    return _cut(g, g.indptr_s, n_src, "sender", f"{n_src} sender rows")
+    """``(indptr, col, eid)``: the sender CSR of ``graph.csr_view`` cut to
+    the ``n_src`` rows of the node values; every sender must be below it
+    (the forward gathers ``values_n[s_e]``)."""
+    v = csr_view(g)
+    return (_cut(v.indptr_s, n_src, "sender", f"{n_src} sender rows"),
+            v.col_s, v.eid_s)
 
 
-def _cut(g, indptr, n, side, what):
-    # the grouping's own rows: num_nodes on a graph, the halo buffer's on
-    # the sender side of a part's view across devices (parallel.ShardGraph)
+def _cut(indptr, n, side, what):
+    """``indptr`` cut to ``n`` rows (the grouping's own rows: num_nodes on
+    a graph, the halo buffer's on the sender side of a part's view across
+    devices, ``parallel.ShardGraph``), raising if that drops entries."""
     rows = indptr.numel() - 1
     if n > rows:
         raise ValueError(f"{what}, but the graph has {rows} nodes")
-    indptr = indptr[: n + 1]
-    if n < rows and int(indptr[-1]) != g.num_edges:
+    if n < rows and bool(indptr[n] != indptr[-1]):
         raise ValueError(f"{what}, but some edges have a {side} at or past "
                          f"it")
-    return indptr
+    return indptr[: n + 1]
 
 
 def edge_softmax_aggregate(g, logits, values, *, num_segments=None,
@@ -1491,9 +1533,10 @@ def edge_softmax_aggregate(g, logits, values, *, num_segments=None,
     denominator.
     """
     mask_e, mask_self = dropout_masks or (None, None)
+    indptr, _, eid = _rows(g, num_segments)
     return EdgeSoftmaxFunction.apply(logits, values, self_logits,
-                                     self_values, mask_e, mask_self,
-                                     _rows(g, num_segments), g.receivers)
+                                     self_values, mask_e, mask_self, indptr,
+                                     eid, g.receivers, g.edge_valid)
 
 
 def edge_softmax_aggregate_nodes(g, logits, values_n, *, num_segments=None,
@@ -1504,8 +1547,8 @@ def edge_softmax_aggregate_nodes(g, logits, values_n, *, num_segments=None,
     mask_e, mask_self = dropout_masks or (None, None)
     return EdgeSoftmaxNodesFunction.apply(
         logits, values_n, self_logits, self_values, mask_e, mask_self,
-        _rows(g, num_segments), g.col_r, _senders(g, values_n.shape[0]),
-        g.col_s, g.eid_s, g.receivers)
+        *_rows(g, num_segments), *_senders(g, values_n.shape[0]),
+        g.receivers, g.edge_valid)
 
 
 def gat_attention_nodes(g, pi, pj, values_n, slope, *, self_logits=None,
@@ -1521,8 +1564,8 @@ def gat_attention_nodes(g, pi, pj, values_n, slope, *, self_logits=None,
     del pj_weight
     n = pi.shape[0] if num_segments is None else num_segments
     return GatAttentionFunction.apply(
-        pi, pj, values_n, self_logits, self_values, _rows(g, n), g.col_r,
-        _senders(g, values_n.shape[0]), g.col_s, float(slope))
+        pi, pj, values_n, self_logits, self_values, *_rows(g, n)[:2],
+        *_senders(g, values_n.shape[0])[:2], float(slope))
 
 
 def gatv2_attention_nodes(g, q, k, a, slope, *, self_logits=None,
@@ -1536,8 +1579,8 @@ def gatv2_attention_nodes(g, q, k, a, slope, *, self_logits=None,
     """
     n = q.shape[0] if num_segments is None else num_segments
     return GatV2AttentionFunction.apply(
-        q, k, a, self_logits, self_values, _rows(g, n), g.col_r,
-        _senders(g, k.shape[0]), g.col_s, float(slope))
+        q, k, a, self_logits, self_values, *_rows(g, n)[:2],
+        *_senders(g, k.shape[0])[:2], float(slope))
 
 
 def dot_attention_nodes(g, q, k, values_n, scale, slope=None, *,
@@ -1553,6 +1596,6 @@ def dot_attention_nodes(g, q, k, values_n, scale, slope=None, *,
     """
     n = q.shape[0] if num_segments is None else num_segments
     return DotAttentionFunction.apply(
-        q, k, values_n, self_logits, self_values, _rows(g, n), g.col_r,
-        _senders(g, values_n.shape[0]), g.col_s, float(scale),
+        q, k, values_n, self_logits, self_values, *_rows(g, n)[:2],
+        *_senders(g, values_n.shape[0])[:2], float(scale),
         None if slope is None else float(slope))

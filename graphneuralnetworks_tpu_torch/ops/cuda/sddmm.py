@@ -39,9 +39,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .build import load
-from .edge_softmax import _rows, _senders
-from .spmm import (_call_on, _check, _ptr, _raise_on_error, _route, _row_ids,
-                   _row_vectors, _work_dtype, spmm_csr)
+from .edge_softmax import _cut
+from .spmm import (_call_on, _check, _entries, _ptr, _raise_on_error, _route,
+                   _row_ids, _row_vectors, _work_dtype, spmm_csr)
 
 __all__ = ["launches", "sddmm_csr", "sddmm_plain", "SddmmFunction", "sddmm"]
 
@@ -68,12 +68,16 @@ def _lib() -> ctypes.CDLL:
 def sddmm_plain(indptr, col, xi, xj):
     """K13's function over the receiver CSR: ``out[e] = <xi[r_e], xj[col_e]>``
     per head, ``xi [n, H, D]`` and ``xj [N_src, H, D]`` -> ``[E, H]`` in CSR
-    (edge) order. bfloat16 rows are multiplied and summed in float32 and
-    each dot rounded once."""
-    rows = _row_ids(indptr, col.numel())
+    position order. bfloat16 rows are multiplied and summed in float32 and
+    each dot rounded once. Positions past the CSR's entries
+    (``spmm._entries``) get 0."""
+    n = _entries(indptr)
+    rows = _row_ids(indptr, n)
     work = _work_dtype(xi.dtype)
-    return (xi.to(work).index_select(0, rows)
-            * xj.to(work).index_select(0, col.long())).sum(-1).to(xi.dtype)
+    out = xi.new_zeros((col.numel(), xi.shape[1]))
+    out[:n] = (xi.to(work).index_select(0, rows)
+               * xj.to(work).index_select(0, col[:n].long())).sum(-1)
+    return out
 
 
 def _sddmm_kernel(indptr, col, xi, xj):
@@ -130,34 +134,42 @@ def sddmm_csr(indptr, col, xi, xj):
 
 class SddmmFunction(torch.autograd.Function):
     """``out[e, h] = <xi[r_e, h], xj[s_e, h]>`` for ``xi [n, H, D]``, ``xj
-    [N_src, H, D]``: K13 forward; backward K1 over the receiver CSR for
-    ``dxi`` and over the sender CSR for ``dxj``, per head, in the rows'
-    type (bfloat16 rows: K1's bfloat16 variant, weighted by the bfloat16
-    ``dl``)."""
+    [N_src, H, D]``, in edge order: K13 forward over the receiver CSR,
+    whose positions ``eid_r`` maps to edge ids (a reversed graph's; None:
+    the positions are the edge ids), the dots written back through it;
+    backward K1 over the receiver CSR for ``dxi`` and over the sender CSR
+    for ``dxj``, per head, each reading ``dl`` through its map, in the
+    rows' type (bfloat16 rows: K1's bfloat16 variant, weighted by the
+    bfloat16 ``dl``)."""
 
     @staticmethod
-    def forward(ctx, xi, xj, indptr_r, col_r, indptr_s, col_s, eid_s):
+    def forward(ctx, xi, xj, indptr_r, col_r, eid_r, indptr_s, col_s,
+                eid_s):
         xi, xj = xi.contiguous(), xj.contiguous()
-        ctx.save_for_backward(xi, xj, indptr_r, col_r, indptr_s, col_s,
-                              eid_s)
-        return sddmm_csr(indptr_r, col_r, xi, xj)
+        ctx.save_for_backward(xi, xj, indptr_r, col_r, eid_r, indptr_s,
+                              col_s, eid_s)
+        out = sddmm_csr(indptr_r, col_r, xi, xj)
+        if eid_r is not None:
+            out = torch.empty_like(out).index_copy_(0, eid_r.long(), out)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dl):
-        xi, xj, indptr_r, col_r, indptr_s, col_s, eid_s = ctx.saved_tensors
+        (xi, xj, indptr_r, col_r, eid_r, indptr_s, col_s,
+         eid_s) = ctx.saved_tensors
         need_i, need_j = ctx.needs_input_grad[:2]
         dxi = torch.empty_like(xi) if need_i else None
         dxj = torch.empty_like(xj) if need_j else None
         for h in range(xi.shape[1]):
             w = dl[:, h].contiguous()
             if need_i:
-                dxi[:, h] = spmm_csr(indptr_r, col_r, None, w,
+                dxi[:, h] = spmm_csr(indptr_r, col_r, eid_r, w,
                                      xj[:, h].contiguous())
             if need_j:
                 dxj[:, h] = spmm_csr(indptr_s, col_s, eid_s, w,
                                      xi[:, h].contiguous())
-        return dxi, dxj, None, None, None, None, None
+        return (dxi, dxj) + (None,) * 6
 
 
 def sddmm(g, xi, xj):
@@ -165,15 +177,20 @@ def sddmm(g, xi, xj):
 
     ``xi [n, *H, D]`` holds the receivers, ``xj [N_src, *H, D]`` the
     senders; the head dimensions ``*H`` (none, one or more) flatten into
-    one for the kernel. Returns ``[E, *H]``.
+    one for the kernel. Returns ``[E, *H]``. Every edge is computed, those
+    that ``edge_valid`` marks invalid too, as the JAX package's
+    ``apply_edges`` and ``dot_attention_logits`` read no mask: K13 walks
+    the graph's own CSRs, not the compacted ones.
     """
     shape_h, d = tuple(xi.shape[1:-1]), xi.shape[-1]
     if tuple(xj.shape[1:]) != shape_h + (d,):
         raise ValueError(f"xi {tuple(xi.shape)} and xj {tuple(xj.shape)} "
                          "disagree on the head dimensions or D")
     h = math.prod(shape_h)
+    n = xi.shape[0]
     out = SddmmFunction.apply(
-        xi.reshape(xi.shape[0], h, d), xj.reshape(xj.shape[0], h, d),
-        _rows(g, xi.shape[0]), g.col_r, _senders(g, xj.shape[0]), g.col_s,
-        g.eid_s)
+        xi.reshape(n, h, d), xj.reshape(xj.shape[0], h, d),
+        _cut(g.indptr_r, n, "receiver", f"num_segments={n}"), g.col_r,
+        g.eid_r, _cut(g.indptr_s, xj.shape[0], "sender",
+                      f"{xj.shape[0]} sender rows"), g.col_s, g.eid_s)
     return out.reshape((out.shape[0],) + shape_h)

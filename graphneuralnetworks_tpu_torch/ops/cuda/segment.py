@@ -41,8 +41,8 @@ from torch.autograd.function import once_differentiable
 
 from .. import segment as _segment
 from .build import load
-from .spmm import (_INT32_MAX, _call_on, _check, _ptr, _raise_on_error,
-                   _route, _row_ids, _row_vectors)
+from .spmm import (_INT32_MAX, _call_on, _check, _entries, _ptr,
+                   _raise_on_error, _route, _row_ids, _row_vectors)
 
 __all__ = ["launches", "segment_max_csr", "segment_min_csr",
            "segment_max_bwd_csr", "segment_max_plain", "segment_min_plain",
@@ -78,9 +78,9 @@ def _lib() -> ctypes.CDLL:
 # ---- plain PyTorch versions (the CPU path, and the reference on the card) --
 
 def _extreme_plain(op_min: bool, indptr, data):
-    rows = _row_ids(indptr, data.shape[0])
-    return _segment._segment_extreme(op_min, data, rows, indptr.numel() - 1,
-                                     empty_value=None)
+    n = _entries(indptr)
+    return _segment._segment_extreme(op_min, data[:n], _row_ids(indptr, n),
+                                     indptr.numel() - 1, empty_value=None)
 
 
 def segment_max_plain(indptr, data):
@@ -99,9 +99,12 @@ def segment_max_bwd_plain(indptr, data, out, dy):
     row ``r``, ``count`` the entries of the row equal to ``out[r]`` (0 where
     there are none: a NaN output), at most 256 in bfloat16 as JAX counts
     (``ops.segment.extreme_grad``). In bfloat16 the share is one bfloat16
-    division, rounded once."""
-    return _segment.extreme_grad(data, out, _row_ids(indptr, data.shape[0]),
-                                 dy)
+    division, rounded once. Rows of ``data`` past the CSR's entries (a
+    compacted view's: ``spmm._entries``) get 0."""
+    n = _entries(indptr)
+    return torch.cat([
+        _segment.extreme_grad(data[:n], out, _row_ids(indptr, n), dy),
+        data.new_zeros((data.shape[0] - n,) + data.shape[1:])])
 
 
 # ---- kernel wrappers -------------------------------------------------------
@@ -215,21 +218,33 @@ def segment_max_bwd_csr(indptr, data, out, dy):
 
 
 class SegmentMaxFunction(torch.autograd.Function):
-    """``apply(data, indptr, op_min)``: ``out[r] = max`` (``op_min``: min)
-    ``of data[indptr[r]:indptr[r+1]]`` over the leading axis, ``-inf``
-    (``+inf``) for rows without entries: K14 forward, its backward kernel
-    backward."""
+    """``apply(data, indptr, op_min, eid=None)``: ``out[r] = max``
+    (``op_min``: min) ``of data[indptr[r]:indptr[r+1]]`` over the leading
+    axis, ``-inf`` (``+inf``) for rows without entries: K14 forward, its
+    backward kernel backward.
+
+    ``eid`` maps each CSR position to the row of ``data`` it reads (the
+    edge ids of ``graph.csr_view``: a reversed graph's, a compacted one's),
+    None where they are the same: the rows are gathered into CSR order
+    before K14 and the backward's written back through it. The rows that a
+    compacted view leaves out get whatever the backward kernel left in its
+    unfilled positions: the caller masks them (``ops.segment`` takes the
+    graph's ``edge_valid`` as its mask, and the mask's gradient is 0
+    there)."""
 
     @staticmethod
-    def forward(ctx, data, indptr, op_min):
-        data = data.contiguous()
+    def forward(ctx, data, indptr, op_min, eid=None):
+        data = (data.contiguous() if eid is None
+                else data.index_select(0, eid.long()))
         out = (segment_min_csr if op_min else segment_max_csr)(indptr, data)
-        ctx.save_for_backward(indptr, data, out)
+        ctx.save_for_backward(indptr, data, out, eid)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        indptr, data, out = ctx.saved_tensors
-        return (segment_max_bwd_csr(indptr, data, out, dy.contiguous()),
-                None, None)
+        indptr, data, out, eid = ctx.saved_tensors
+        dd = segment_max_bwd_csr(indptr, data, out, dy.contiguous())
+        if eid is not None:
+            dd = torch.empty_like(dd).index_copy_(0, eid.long(), dd)
+        return dd, None, None, None

@@ -243,6 +243,14 @@ def _row_ids(indptr: torch.Tensor, n_edges: int) -> torch.Tensor:
         output_size=n_edges)
 
 
+def _entries(indptr: torch.Tensor) -> int:
+    """The positions a CSR fills, ``indptr[-1]``: all of them but in a
+    compacted view (``graph.csr_view``), which keeps its arrays at the
+    graph's edge count and fills the first ``indptr[-1]``. The plain
+    versions read (and write) no further, as the kernels do."""
+    return int(indptr[-1])
+
+
 def _work_dtype(dtype: torch.dtype) -> torch.dtype:
     """The type the plain versions (and the kernels) compute a ``dtype``
     input in: float32 for bfloat16 and float16, else ``dtype`` itself."""
@@ -257,13 +265,13 @@ def spmm_plain(indptr, col, eid, w, x):
     ``eid=None`` reads ``w[k]``, ``w=None`` is unweighted. A bfloat16 ``x``
     (and ``w``) is summed in float32 and ``y`` rounded once to bfloat16.
     """
-    n_edges = col.numel() if col is not None else x.shape[0]
-    rows = _row_ids(indptr, n_edges)
+    n = _entries(indptr)
+    rows = _row_ids(indptr, n)
     work = _work_dtype(x.dtype)
-    src = x if col is None else x.index_select(0, col.long())
+    src = x[:n] if col is None else x.index_select(0, col[:n].long())
     src = src.to(work)
     if w is not None:
-        we = w if eid is None else w.index_select(0, eid.long())
+        we = w[:n] if eid is None else w.index_select(0, eid[:n].long())
         src = src * we.to(work).unsqueeze(-1)
     out = src.new_zeros((indptr.numel() - 1, x.shape[1]))
     return out.index_add_(0, rows, src).to(x.dtype)
@@ -273,19 +281,21 @@ def spmm_sddmm_plain(indptr, col, eid, w, dy, x):
     """Over a sender CSR: ``(dx, dw)`` with ``dx[s] = sum w_e dy[col_e]`` and
     ``dw[eid_e] = <dy[col_e], x[s]>`` (unweighted). ``dx`` has ``x``'s rows.
     Rows of ``[., H, D]`` take it per head, with ``w`` and ``dw`` ``[E,
-    H]``; rows of ``[., D]`` with ``[E]``.
+    H]``; rows of ``[., D]`` with ``[E]``. A compacted view's edges
+    outside it get ``dw`` 0.
     """
-    n_edges = col.numel()
-    rows = _row_ids(indptr, n_edges)
+    n = _entries(indptr)
+    rows = _row_ids(indptr, n)
     work = _work_dtype(x.dtype)
-    dyv = dy.index_select(0, col.long()).to(work)
-    ids = (eid.long() if eid is not None
-           else torch.arange(n_edges, device=dy.device))
+    dyv = dy.index_select(0, col[:n].long()).to(work)
+    ids = (eid[:n].long() if eid is not None
+           else torch.arange(n, device=dy.device))
     scaled = dyv if w is None else dyv * w.index_select(0, ids).to(
         work).unsqueeze(-1)
     dx = dyv.new_zeros(x.shape).index_add_(0, rows, scaled)
     dots = (dyv * x.index_select(0, rows).to(work)).sum(-1)
-    dw = dots.new_empty(dots.shape).index_copy_(0, ids, dots)
+    dw = dots.new_zeros((col.numel(),) + dots.shape[1:]).index_copy_(
+        0, ids, dots)
     return dx.to(x.dtype), dw.to(x.dtype if w is None else w.dtype)
 
 

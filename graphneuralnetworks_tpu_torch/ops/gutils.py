@@ -5,12 +5,14 @@ GNNlib/src/utils.jl:1-133): ``reduce_nodes``, ``reduce_edges``,
 ``softmax_nodes``, ``softmax_edges``, ``softmax_edge_neighbors``,
 ``broadcast_nodes``, ``broadcast_edges`` and ``edge_graph_id``. All are
 segment ops keyed by the graph indicator (graph-wise) or the receiver
-(neighbour-wise). The port's graphs carry no padding, so nothing is masked.
+(neighbour-wise). The port's graphs carry no padding; the edge-wise ones
+mask the edges that a graph's ``edge_valid`` marks invalid, as JAX's mask
+with ``edge_mask``.
 
 On the card every max and min among them (``reduce_*("max" | "min")`` and
 the max step of each softmax) is one K14 over a CSR the graph carries:
-``indptr_g`` for nodes and ``indptr_ge`` for edges by graph, ``indptr_r``
-for edges by receiver. A graph whose ``node_graph_id`` is not sorted has no
+``indptr_g`` for nodes and ``indptr_ge`` for edges by graph, the receiver
+CSR of ``graph.csr_view`` for edges by receiver. A graph whose ``node_graph_id`` is not sorted has no
 graph CSR; a graph-wise max of it raises on the card (JAX leaves it
 undefined: its ``reduce_nodes`` passes ``indices_are_sorted=True``) and
 runs on the CPU.
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..graph import GraphTuple, no_edge_valid
+from ..graph import GraphTuple
 from .msgpass import _receiver_csr
 from .segment import gather, is_extreme, segment_reduce, segment_softmax
 
@@ -53,10 +55,9 @@ def reduce_nodes(aggr, g: GraphTuple, x: torch.Tensor) -> torch.Tensor:
 
 def reduce_edges(aggr, g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
     """Per-graph reduction of edge features (utils.jl:33-42)."""
-    no_edge_valid(g, "reduce_edges")
     indptr = _graph_csr(g, g.indptr_ge, e) if is_extreme(aggr) else None
     return segment_reduce(aggr, e, edge_graph_id(g), g.num_graphs,
-                          indptr=indptr)
+                          mask=g.edge_valid, indptr=indptr)
 
 
 def softmax_nodes(g: GraphTuple, x: torch.Tensor) -> torch.Tensor:
@@ -67,19 +68,18 @@ def softmax_nodes(g: GraphTuple, x: torch.Tensor) -> torch.Tensor:
 
 def softmax_edges(g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
     """Graph-wise softmax over edges (utils.jl:63-72)."""
-    no_edge_valid(g, "softmax_edges")
     return segment_softmax(e, edge_graph_id(g), g.num_graphs,
+                           mask=g.edge_valid,
                            indptr=_graph_csr(g, g.indptr_ge, e))
 
 
 def softmax_edge_neighbors(g: GraphTuple, e: torch.Tensor) -> torch.Tensor:
     """Softmax over each node's incoming edges, the attention primitive
-    (utils.jl:84-97): max-subtracted for stability. Its max step is K14 over
-    the receiver CSR on the card, so a reversed graph raises there."""
-    no_edge_valid(g, "softmax_edge_neighbors")
-    indptr = _receiver_csr(g, g.num_nodes, e, "softmax_edge_neighbors on "
-                           "the card (K14)")
-    return segment_softmax(e, g.receivers, g.num_nodes, indptr=indptr)
+    (utils.jl:84-97): max-subtracted for stability; invalid edges give 0.
+    Its max step is K14 on the card, over the receiver CSR of
+    ``graph.csr_view``."""
+    return segment_softmax(e, g.receivers, g.num_nodes, mask=g.edge_valid,
+                           **_receiver_csr(g, g.num_nodes))
 
 
 def broadcast_nodes(g: GraphTuple, u: torch.Tensor) -> torch.Tensor:

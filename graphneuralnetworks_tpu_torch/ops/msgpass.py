@@ -9,10 +9,10 @@ GNNlib msgpass.jl:69-238), with the same message vocabulary.
   the card, ``xi_dot_xj`` of two node matrices is one SDDMM (K13, whose
   backward is K1 twice) at every width.
 - ``aggregate_neighbors(g, aggr, m)`` reduces edge messages onto receivers;
-  on the card ``max`` and ``min`` are one K14 over the receiver CSR (its
-  backward a kernel too), whatever the message width. K14 reads the
-  messages in receiver-CSR order, so on the card it raises for a reversed
-  graph (``GraphTuple.reverse``), whose edges are not in that order.
+  on the card ``max`` and ``min`` are one K14 over the receiver CSR of
+  ``graph.csr_view`` (its backward a kernel too), whatever the message
+  width, the messages read through the view's edge ids (a reversed
+  graph's, or those of the valid edges).
 - ``propagate(f, g, aggr, ...)`` composes the two, except that a sum (or
   mean) of ``copy_xj`` / ``w_mul_xj`` / ``e_mul_xj`` messages with scalar
   edge weights is one SpMM (:func:`~.cuda.spmm`); mean is that sum divided
@@ -25,10 +25,12 @@ the halo buffer: :func:`to_src_space` moves a sender-side node array there
 (one exchange) wherever an op reads one by sender, and is the identity on
 a plain :class:`~..graph.GraphTuple`.
 
-On a graph with ``edge_valid`` (``DeviceSampler``'s) that SpMM route is the
-one that honours it: an invalid edge weighs 0 and mean divides by the
-count of valid in-edges. ``apply_edges`` and ``aggregate_neighbors`` raise
-on such a graph (their messages and reductions would count every edge).
+On a graph with ``edge_valid`` (``DeviceSampler``'s, a padded snapshot's)
+every reduction honours it, as JAX's do through ``edge_mask``: the SpMM
+weighs an invalid edge 0 and mean divides by the count of valid in-edges;
+``aggregate_neighbors`` takes it as the mask of every ``aggr``, and K14
+walks the receiver CSR compacted to the valid edges. ``apply_edges``
+computes every edge, as JAX's reads no mask.
 """
 
 from __future__ import annotations
@@ -37,9 +39,7 @@ from typing import Callable, Mapping
 
 import torch
 
-from ..graph import (GraphTuple, no_edge_valid,
-                     receiver_positions_are_edge_ids)
-from . import segment
+from ..graph import GraphTuple
 from .cuda.edge_softmax import _rows
 from .cuda.gather import fast_gather
 from .cuda.sddmm import sddmm
@@ -98,9 +98,9 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
 
     ``xi``/``xj`` are node tensors ``[num_nodes, ...]`` (or dicts of them),
     ``e`` an edge tensor ``[num_edges, ...]`` (or dict); returns whatever
-    ``f`` returns on edge-shaped inputs.
+    ``f`` returns on edge-shaped inputs. On a graph with ``edge_valid``
+    the invalid edges are computed too (JAX's reads no mask).
     """
-    no_edge_valid(g, "apply_edges")
     xj = to_src_space(g, xj)   # identity unless g is a part's view
     if _sddmm_message(f, g, xi, xj, e):
         return sddmm(g, xi, xj)[:, None]
@@ -118,32 +118,29 @@ def apply_edges(f: Callable, g: GraphTuple, xi=None, xj=None, e=None):
     return f(_map_leaves(take_r, xi), _map_leaves(take_s, xj), e)
 
 
-def _receiver_csr(g: GraphTuple, n: int, v: torch.Tensor, route: str):
-    """The receiver CSR with ``n`` rows that K14 takes for the edge rows
-    ``v``: cut (every receiver must stay below ``n``) or extended by rows
-    without edges. A reversed graph's edges are not in its order: None
-    where ``v`` takes the plain reduction (which reads receiver ids), and
-    ``route`` raises on the card."""
-    if not g.sorted_by_receivers:
-        if segment._kernel_route(v):
-            receiver_positions_are_edge_ids(g, route)
-        return None
+def _receiver_csr(g: GraphTuple, n: int) -> dict:
+    """``indptr`` and ``eid`` for K14 over the receivers of ``g``: the
+    receiver CSR of ``graph.csr_view`` with ``n`` rows, cut (every receiver
+    must stay below ``n``) or extended by rows without edges, and its map
+    to edge ids."""
     if n <= g.num_nodes:
-        return _rows(g, n)
-    return torch.cat([g.indptr_r, g.indptr_r[-1:].expand(n - g.num_nodes)])
+        indptr, _, eid = _rows(g, n)
+    else:
+        indptr, _, eid = _rows(g, None)
+        indptr = torch.cat([indptr, indptr[-1:].expand(n - g.num_nodes)])
+    return {"indptr": indptr, "eid": eid}
 
 
 def aggregate_neighbors(g: GraphTuple, aggr, m, *, num_segments=None):
-    """Reduce edge messages onto receiving nodes; ``mean`` divides by the
-    true in-degree and empty segments give 0."""
-    no_edge_valid(g, f"aggregate_neighbors({aggr!r})")
+    """Reduce edge messages onto receiving nodes, leaving out the edges
+    that ``edge_valid`` marks invalid; ``mean`` divides by the true
+    in-degree and empty segments give 0."""
     n = num_segments if num_segments is not None else g.num_nodes
+    kw = _receiver_csr(g, n) if is_extreme(aggr) else {}
 
     def reduce(v):
-        indptr = (_receiver_csr(g, n, v, f"aggregate_neighbors({aggr!r}) "
-                                "on the card (K14)")
-                  if is_extreme(aggr) else None)
-        return segment_reduce(aggr, v, g.receivers, n, indptr=indptr)
+        return segment_reduce(aggr, v, g.receivers, n, mask=g.edge_valid,
+                              **kw)
 
     return _map_leaves(reduce, m)
 

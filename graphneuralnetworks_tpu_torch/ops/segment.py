@@ -5,15 +5,19 @@ semantics: ``mask`` (one bool per row of ``data``) excludes rows from the
 math, an empty segment sums to 0, ``mean`` divides by the true count of
 rows, and ``max``/``min`` give ``empty_value`` for an empty segment. These
 are the plain versions the kernels are held to. The port's graphs carry no
-padding, so the message-passing layer calls them without a mask.
+padding: the message-passing layer passes a graph's ``edge_valid`` as the
+mask, and None where it has none.
 
 ``segment_max``, ``segment_min`` and ``segment_softmax`` also take a CSR
-``indptr`` (``int32[num_segments + 1]``) that groups the rows of ``data`` in
-order, segment by segment (the receiver grouping of receiver-sorted edges,
-or the graph grouping of a batch). Given one, a CUDA tensor reduces on the
-K14 kernel (``ops/cuda/segment.py``); without one, or on the CPU, the
-reduction is PyTorch's ``scatter_reduce`` over arbitrary ids, as JAX's is
-XLA's. Their gradient splits a cotangent evenly over an extreme's ties,
+``indptr`` (``int32[num_segments + 1]``) that groups the rows of ``data``
+segment by segment (the receiver grouping of receiver-sorted edges, or the
+graph grouping of a batch), and ``eid``, the row of ``data`` at each CSR
+position where that is not the position itself (``graph.csr_view``: a
+reversed graph's receiver CSR, or one compacted to an ``edge_valid``
+graph's valid edges, whose left-out rows ``mask`` must mask). Given
+``indptr``, a CUDA tensor reduces on the K14 kernel
+(``ops/cuda/segment.py``); without one, or on the CPU, the reduction is
+PyTorch's ``scatter_reduce`` over arbitrary ids, as JAX's is XLA's. Their gradient splits a cotangent evenly over an extreme's ties,
 counted as JAX counts them (``extreme_grad``: a bfloat16 count stops at
 256), where PyTorch's own gradient, kept for float32 and float64, counts
 exactly.
@@ -129,7 +133,7 @@ class _ScatterExtreme(torch.autograd.Function):
 
 
 def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
-                     mask=None, empty_value=0.0, indptr=None):
+                     mask=None, empty_value=0.0, indptr=None, eid=None):
     fill = float("inf") if op_min else float("-inf")
     data = _masked(data, mask, fill)
     if indptr is not None and indptr.numel() != num_segments + 1:
@@ -141,7 +145,7 @@ def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
         raise ValueError(f"{segment_ids.shape[0]} segment ids for "
                          f"{data.shape[0]} rows of data")
     if indptr is not None and _kernel_route(data):
-        out = SegmentMaxFunction.apply(data, indptr, op_min)
+        out = SegmentMaxFunction.apply(data, indptr, op_min, eid)
     elif data.dtype in (torch.bfloat16, torch.float16):
         out = _ScatterExtreme.apply(data, segment_ids, num_segments, op_min)
     else:
@@ -157,21 +161,21 @@ def _segment_extreme(op_min: bool, data, segment_ids, num_segments, *,
 
 
 def segment_max(data, segment_ids, num_segments, *, mask=None, sorted=False,
-                empty_value=0.0, indptr=None):
+                empty_value=0.0, indptr=None, eid=None):
     """Masked segment max; empty segments get ``empty_value`` (None: -inf).
-    With ``indptr``, K14 on the card (module docstring)."""
+    With ``indptr`` (and ``eid``), K14 on the card (module docstring)."""
     return _segment_extreme(False, data, segment_ids, num_segments,
                             mask=mask, empty_value=empty_value,
-                            indptr=indptr)
+                            indptr=indptr, eid=eid)
 
 
 def segment_min(data, segment_ids, num_segments, *, mask=None, sorted=False,
-                empty_value=0.0, indptr=None):
+                empty_value=0.0, indptr=None, eid=None):
     """Masked segment min; empty segments get ``empty_value`` (None: +inf).
-    With ``indptr``, K14 on the card (module docstring)."""
+    With ``indptr`` (and ``eid``), K14 on the card (module docstring)."""
     return _segment_extreme(True, data, segment_ids, num_segments,
                             mask=mask, empty_value=empty_value,
-                            indptr=indptr)
+                            indptr=indptr, eid=eid)
 
 
 def segment_prod(data, segment_ids, num_segments, *, mask=None, sorted=False):
@@ -211,17 +215,17 @@ def is_extreme(aggr) -> bool:
 
 
 def segment_reduce(aggr, data, segment_ids, num_segments, *, mask=None,
-                   sorted=False, indptr=None):
+                   sorted=False, indptr=None, eid=None):
     """Dispatch on ``aggr`` in {sum, mean, max, min, prod} (and aliases),
-    passing ``sorted`` on as JAX's does. ``indptr`` reaches max and min
-    only; the others ignore it."""
-    kw = {"indptr": indptr} if is_extreme(aggr) else {}
+    passing ``sorted`` on as JAX's does. ``indptr`` and ``eid`` reach max
+    and min only; the others ignore them."""
+    kw = {"indptr": indptr, "eid": eid} if is_extreme(aggr) else {}
     return aggregation(aggr)(data, segment_ids, num_segments, mask=mask,
                              sorted=sorted, **kw)
 
 
 def segment_softmax(data, segment_ids, num_segments, *, mask=None,
-                    sorted=False, indptr=None):
+                    sorted=False, indptr=None, eid=None):
     """Numerically stable per-segment softmax over the leading axis (JAX
     ``ops/segment.py:segment_softmax``): segment max, exp of the shifted
     values, segment sum, normalise; masked entries give 0.
@@ -231,7 +235,7 @@ def segment_softmax(data, segment_ids, num_segments, *, mask=None,
     the card with ``indptr`` it is one K14 forward and no backward.
     """
     mx = segment_max(data.detach(), segment_ids, num_segments, mask=mask,
-                     empty_value=0.0, indptr=indptr)
+                     empty_value=0.0, indptr=indptr, eid=eid)
     ex = torch.exp(data - gather(mx, segment_ids))
     ex = _masked(ex, mask, 0)
     denom = segment_sum(ex, segment_ids, num_segments)

@@ -11,9 +11,11 @@ of ones in the requested dtype stops growing; a weighted one is a segment
 sum of the weights in that dtype. The dense queries (adjacency, Laplacians,
 ``khop_adj``) are for small graphs: they refuse the graph sizes the JAX
 package refuses (:func:`_check_dense`). ``degree`` and
-``adjacency_matrix`` (and the queries on them) count only the valid edges
-of a graph with ``edge_valid``, as JAX's do through ``edge_mask``; the
-structural queries on the edge list raise on one. The power iterations
+``adjacency_matrix`` (and the queries on them) and the structural queries
+on the edge list (``has_self_loops``, ``has_multi_edges``,
+``is_bidirected``, ``has_edge``) count only the valid edges of a graph with
+``edge_valid``, as JAX's do through ``edge_mask``; ``adjacency_list`` lists
+every edge, the invalid ones too, as JAX's does. The power iterations
 behind ``laplacian_lambda_max`` and ``scaled_laplacian`` start from a
 vector drawn by a ``torch.Generator`` seeded 20240607 on the CPU in
 float64 (:func:`start_vector`): the same vector on every device, but not
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from .graph import GraphTuple, no_edge_valid
+from .graph import GraphTuple
 from .ops.segment import count_as, gather, segment_sum
 
 __all__ = ["degree", "adjacency_matrix", "laplacian_matrix",
@@ -224,9 +226,16 @@ def graph_indicator(g: GraphTuple, *, edges: bool = False) -> torch.Tensor:
 
 
 def has_self_loops(g: GraphTuple) -> torch.Tensor:
-    """Any edge with ``s == r`` (query.jl:553-560)."""
-    no_edge_valid(g, "has_self_loops")
-    return (g.senders == g.receivers).any()
+    """Any valid edge with ``s == r`` (query.jl:553-560)."""
+    return (g.senders == g.receivers).logical_and(g.edge_mask).any()
+
+
+def _valid_edges(g: GraphTuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(senders, receivers)`` of the valid edges (all but those that
+    ``edge_valid`` marks invalid)."""
+    if g.edge_valid is None:
+        return g.senders, g.receivers
+    return g.senders[g.edge_valid], g.receivers[g.edge_valid]
 
 
 def _edge_keys(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
@@ -234,27 +243,27 @@ def _edge_keys(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def has_multi_edges(g: GraphTuple) -> torch.Tensor:
-    """Any ``(s, r)`` pair that appears twice (query.jl:562-568)."""
-    no_edge_valid(g, "has_multi_edges")
-    k = _edge_keys(g.senders, g.receivers, g.num_nodes)
+    """Any ``(s, r)`` pair that two valid edges share (query.jl:562-568)."""
+    k = _edge_keys(*_valid_edges(g), g.num_nodes)
     return (k[1:] == k[:-1]).any()
 
 
 def is_bidirected(g: GraphTuple) -> torch.Tensor:
-    """Every edge has its reverse (query.jl:570-579): the set of ``(s, r)``
-    pairs equals that of ``(r, s)``. The JAX package compares the dense
-    adjacency's support with its transpose; this needs no dense matrix."""
-    no_edge_valid(g, "is_bidirected")
+    """Every valid edge has its reverse (query.jl:570-579): the set of
+    ``(s, r)`` pairs equals that of ``(r, s)``. The JAX package compares the
+    dense adjacency's support with its transpose; this needs no dense
+    matrix."""
     n = g.num_nodes
-    a = torch.unique(_edge_keys(g.senders, g.receivers, n))
-    b = torch.unique(_edge_keys(g.receivers, g.senders, n))
+    s, r = _valid_edges(g)
+    a = torch.unique(_edge_keys(s, r, n))
+    b = torch.unique(_edge_keys(r, s, n))
     return torch.tensor(torch.equal(a, b), device=g.device)
 
 
 def has_edge(g: GraphTuple, i: int, j: int) -> torch.Tensor:
-    """Whether the edge ``i -> j`` exists (Graphs.has_edge)."""
-    no_edge_valid(g, "has_edge")
-    return ((g.senders == i) & (g.receivers == j)).any()
+    """Whether a valid edge ``i -> j`` exists (Graphs.has_edge)."""
+    return ((g.senders == i) & (g.receivers == j)).logical_and(
+        g.edge_mask).any()
 
 
 def has_isolated_nodes(g: GraphTuple, *, dir: str = "out") -> torch.Tensor:
@@ -305,8 +314,9 @@ def graph_features(g: GraphTuple):
 
 def adjacency_list(g: GraphTuple, *, dir: str = "out") -> list[list[int]]:
     """Each node's out-neighbours (``dir="out"``) or in-neighbours, in edge
-    order (query.jl:176-206). Reads the edges to the host."""
-    no_edge_valid(g, "adjacency_list")
+    order (query.jl:176-206). Reads the edges to the host. Every edge is
+    listed, those that ``edge_valid`` marks invalid too, as JAX's lists
+    every edge below ``num_edges``."""
     s = g.senders.cpu().numpy()
     r = g.receivers.cpu().numpy()
     a, b = (s, r) if dir == "out" else (r, s)

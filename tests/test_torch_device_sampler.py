@@ -404,65 +404,218 @@ def test_aggregation_oracle_mean_and_sum(J):
         np.testing.assert_allclose(ty, jy[:sp.n_slots], **J.P.F64_TOL)
 
 
-def _valid_graph():
+# ---- edge validity on every route, against JAX on JAX's draw --------------
+
+VH, VD = 2, 3
+
+
+@pytest.fixture(scope="module")
+def valid_draw(J):
+    """JAX's draw of a slot graph with invalid edges, as both packages'
+    graphs: fanout 3 without replacement over ``_skewed_csr``; seeds 0 and
+    1 have no in-edges, so every edge of theirs is invalid, and short rows
+    leave more. Also JAX's blocks of a (3, 2) draw, for the reversed
+    block."""
     cs, ptr, _, _ = _skewed_csr()
-    sp = DeviceSampler.build(cs, ptr, fanouts=(3,), batch_size=6,
-                             device="cpu")
-    return sp.sample(torch.Generator().manual_seed(1),
-                     torch.tensor([0, 1, 8, 9, 10, 30]))
+    seeds = np.array([0, 1, 8, 9, 10, 30])
+    kw = dict(batch_size=6, replace=False)
+    jsp = J.DS.build(cs, ptr, fanouts=(3,), build_spmm_aux=False, **kw)
+    tsp = DeviceSampler.build(cs, ptr, fanouts=(3,), device="cpu", **kw)
+    nid, ev, jgb = _jax_draw(J, jsp, seeds, 5, False)
+    tg = tsp.graph_of(torch.tensor(nid), torch.tensor(ev))
+    jsp2 = J.DS.build(cs, ptr, fanouts=(3, 2), build_spmm_aux=False, **kw)
+    tsp2 = DeviceSampler.build(cs, ptr, fanouts=(3, 2), device="cpu", **kw)
+    nid2, ev2, (jbl, _) = _jax_draw(J, jsp2, seeds, 6, True)
+    tb0 = tsp2.blocks_of(torch.tensor(nid2), torch.tensor(ev2))[0]
+    return SimpleNamespace(jg=jgb, tg=tg, jb0=jbl[0], tb0=tb0)
 
 
-def _routes():
-    n, h, d = 24, 2, 3
+def _valid_routes(J, side):
+    """name -> (function of the graph (and a model) and the inputs, the
+    inputs' (kind, shape), the port modules whose ``_kernel_route`` sends
+    CPU tensors through the card's route, the model builder or None).
+    ``side``: "jax" or "port"."""
+    from graphneuralnetworks_tpu.ops import attention as JA
+    o = (SimpleNamespace(**{**vars(J.ops), **vars(JA)}) if side == "jax"
+         else TO)
+    n, e, h, d = ("node", ()), ("edge", ()), VH, VD
+    mods = __import__("graphneuralnetworks_tpu_torch.ops", fromlist=[
+        "attention", "msgpass", "segment"])
+    TA, TMP, TS = mods.attention, mods.msgpass, mods.segment
 
-    def rn(*shape):
-        return torch.randn(*shape, dtype=torch.float64)
+    def spec(kind, *tail):
+        return (kind[0], tail)
 
-    kw = dict(device="cpu", dtype=torch.float64)
+    def gat(J):
+        jm = J.P.jax_params_f64(J.M.GATConv(d, 2, heads=h,
+                                            rngs=J.nnx.Rngs(0)))
+        return jm, J.P.port_from_jax(TM.GATConv(
+            d, 2, heads=h, device="cpu", dtype=torch.float64), jm)
+
+    def edgeconv(J):
+        jm = J.P.jax_params_f64(J.M.EdgeConv(J.M.MLP([2 * d, 2],
+                                                     rngs=J.nnx.Rngs(1))))
+        return jm, J.P.port_from_jax(TM.EdgeConv(TM.MLP(
+            [2 * d, 2], device="cpu", dtype=torch.float64)), jm)
+
+    def gcn(J):
+        jm = J.P.jax_params_f64(J.M.GCNConv(d, 2, rngs=J.nnx.Rngs(2)))
+        return jm, J.P.port_from_jax(TM.GCNConv(
+            d, 2, device="cpu", dtype=torch.float64), jm)
+
     return {
-        "apply_edges": lambda g: TO.apply_edges(TO.xi_sub_xj, g, xi=rn(n, d),
-                                                xj=rn(n, d)),
-        "apply_edges xi_dot_xj (K13)": lambda g: TO.apply_edges(
-            TO.xi_dot_xj, g, xi=rn(n, d), xj=rn(n, d)),
-        "aggregate_neighbors max (K14)": lambda g: TO.aggregate_neighbors(
-            g, "max", rn(g.num_edges, d)),
-        "aggregate_neighbors sum": lambda g: TO.aggregate_neighbors(
-            g, "sum", rn(g.num_edges, d)),
-        "propagate of an edge function": lambda g: TO.propagate(
-            TO.xi_sub_xj, g, "mean", xi=rn(n, d), xj=rn(n, d)),
-        "propagate max": lambda g: TO.propagate(TO.copy_xj, g, "max",
-                                                xj=rn(n, d)),
-        "softmax_edge_neighbors": lambda g: TO.softmax_edge_neighbors(
-            g, rn(g.num_edges, h)),
-        "reduce_edges": lambda g: TO.reduce_edges("sum", g,
-                                                  rn(g.num_edges, h)),
-        "gat_attention (K3-K5, K12)": lambda g: TO.gat_attention(
-            g, rn(n, h), rn(n, h), rn(n, h, d), 0.2),
-        "gatv2_attention (K9-K11)": lambda g: TO.gatv2_attention(
-            g, rn(n, h, d), rn(n, h, d), rn(d, h), 0.2),
-        "dot_attention (K6-K8)": lambda g: TO.dot_attention(
-            g, rn(n, h, d), rn(n, h, d), rn(n, h, d)),
-        "dot_attention_logits (K13)": lambda g: TO.dot_attention_logits(
-            g, rn(n, h, d), rn(n, h, d)),
-        "attention_aggregate (K12)": lambda g: TO.attention_aggregate(
-            g, rn(g.num_edges, h), rn(g.num_edges, h, d)),
-        "GATConv": lambda g: TM.GATConv(d, 2, heads=h, **kw)(g, rn(n, d)),
-        "EdgeConv": lambda g: TM.EdgeConv(TM.MLP([2 * d, 2], **kw))(
-            g, rn(n, d)),
-        "GCNConv bipartite": lambda g: TM.GCNConv(d, 2, **kw)(
-            g, (rn(n, d), rn(6, d))),
-        "query has_self_loops": lambda g: tgnn.has_self_loops(g),
-        "query adjacency_list": lambda g: tgnn.adjacency_list(g),
-        "batch": lambda g: tgnn.batch([g, g], device="cpu"),
+        "apply_edges": (lambda g, a, b: o.apply_edges(o.xi_sub_xj, g, a, b),
+                        [spec(n, d), spec(n, d)], (), None),
+        "apply_edges xi_dot_xj (K13)": (
+            lambda g, a, b: o.apply_edges(o.xi_dot_xj, g, a, b),
+            [spec(n, d), spec(n, d)], (TMP,), None),
+        "aggregate_neighbors max (K14)": (
+            lambda g, m: o.aggregate_neighbors(g, "max", m),
+            [spec(e, d)], (TS,), None),
+        "aggregate_neighbors sum": (
+            lambda g, m: o.aggregate_neighbors(g, "sum", m), [spec(e, d)],
+            (), None),
+        "propagate of an edge function": (
+            lambda g, a, b: o.propagate(o.xi_sub_xj, g, "mean", xi=a, xj=b),
+            [spec(n, d), spec(n, d)], (), None),
+        "propagate max": (
+            lambda g, x: o.propagate(o.copy_xj, g, "max", xj=x),
+            [spec(n, d)], (TS,), None),
+        "softmax_edge_neighbors": (o.softmax_edge_neighbors, [spec(e, h)],
+                                   (TS,), None),
+        "reduce_edges": (lambda g, v: o.reduce_edges("sum", g, v),
+                         [spec(e, h)], (), None),
+        "gat_attention (K3-K5, K12)": (
+            lambda g, pi, pj, v, sl, sv: o.gat_attention(
+                g, pi, pj, v, 0.2, self_logits=sl, self_values=sv),
+            [spec(n, h), spec(n, h), spec(n, h, d), spec(n, h),
+             spec(n, h, d)], (TA,), None),
+        "gatv2_attention (K9-K11)": (
+            lambda g, q, k, a: o.gatv2_attention(g, q, k, a, 0.2),
+            [spec(n, h, d), spec(n, h, d), ("dense", (d, h))], (TA,), None),
+        "dot_attention (K6-K8)": (
+            lambda g, q, k, v: o.dot_attention(g, q, k, v, 0.5),
+            [spec(n, h, d), spec(n, h, d), spec(n, h, d)], (TA,), None),
+        "dot_attention_logits (K13)": (
+            o.dot_attention_logits, [spec(n, h, d), spec(n, h, d)], (TA,),
+            None),
+        "attention_aggregate (K12)": (
+            lambda g, lg, v, m: o.attention_aggregate(
+                g, lg, v, dropout_masks=(m, None)),
+            [spec(e, h), spec(e, h, d), ("edge-const", (h,))], (TA,),
+            None),
+        "GATConv": (lambda m, g, x: m(g, x), [spec(n, d)], (TA,), gat),
+        "EdgeConv": (lambda m, g, x: m(g, x), [spec(n, d)], (TS,),
+                     edgeconv),
+        "GCNConv bipartite": (lambda m, g, a, b: m(g, (a, b)),
+                              [spec(n, d), ("dense", (6, d))], (), gcn),
     }
 
 
-@pytest.mark.parametrize("route", list(_routes()))
-def test_routes_that_do_not_honour_edge_valid_raise(route):
-    g = _valid_graph()
-    assert g.num_nodes == 24 and not g.edge_valid.all()
-    with pytest.raises(ValueError, match="edge_valid"):
-        _routes()[route](g)
+def _route_inputs(specs, n, e, seed):
+    rng = np.random.default_rng(seed)
+    sizes = {"node": (n,), "edge": (e,)}
+    return [(k, rng.standard_normal(sizes.get(k.split("-")[0], ()) + shape))
+            for k, shape in specs]
+
+
+QUERIES = ("query has_self_loops", "query adjacency_list", "batch")
+
+
+@pytest.mark.parametrize("route", list(_valid_routes(None, "port"))
+                         + list(QUERIES))
+def test_routes_that_do_not_honour_edge_valid_raise(J, valid_draw,
+                                                    monkeypatch, route):
+    """Every route on JAX's draw with invalid edges (and receivers whose
+    every edge is invalid) against JAX's, output and every gradient
+    (parameters too) in float64 on the real rows: by the plain route and,
+    where the card takes kernels, by the card's route on CPU tensors
+    (``graph.csr_view``'s compacted CSRs; the kernels' plain versions).
+    The four boolean queries count valid edges only; ``adjacency_list``
+    lists every edge, as JAX's; ``batch`` raises, as JAX's does: the only
+    route that refuses ``edge_valid``."""
+    jg, tg = valid_draw.jg, valid_draw.tg
+    assert tg.num_nodes == 24 and not tg.edge_valid.all()
+    # seed slots 0 and 1 receive only invalid edges
+    assert not tg.edge_valid[torch.isin(tg.receivers,
+                                        torch.tensor([0, 1]))].any()
+    if route == "batch":
+        with pytest.raises(ValueError, match="edge_valid"):
+            tgnn.batch([tg, tg], device="cpu")
+        with pytest.raises(ValueError, match="edge_valid"):
+            J.gnn.batch([jg, jg])
+        return
+    if route == "query adjacency_list":
+        for d in ("out", "in"):
+            assert (tgnn.adjacency_list(tg, dir=d)
+                    == J.gnn.adjacency_list(jg, dir=d)[:tg.num_nodes])
+        return
+    if route == "query has_self_loops":
+        _boolean_queries_match(J, tg)
+        return
+    tfn, specs, modules, build = _valid_routes(J, "port")[route]
+    jfn = _valid_routes(J, "jax")[route][0]
+    models = None if build is None else build(J)
+    J.P.route_parity(jfn, tfn, jg, tg,
+                     _route_inputs(specs, tg.num_nodes, tg.num_edges, 3),
+                     kernel_patches=modules, monkeypatch=monkeypatch,
+                     models=models)
+
+
+def _boolean_queries_match(J, tg):
+    """The four boolean queries on the draw's edges and on copies whose
+    invalid edges are a self-loop and a duplicate of a valid edge, each
+    also with every edge doubled the other way round: the port's and
+    JAX's count only the valid edges."""
+    s, r = tg.senders.numpy(), tg.receivers.numpy()
+    valid = tg.edge_valid.numpy()
+    inv, k = np.flatnonzero(~valid), np.flatnonzero(valid)[0]
+    s2, r2 = s.copy(), r.copy()
+    s2[inv[0]] = r2[inv[0]] = 5
+    s2[inv[1]], r2[inv[1]] = s[k], r[k]
+    cases = []
+    for ss, rr in ((s, r), (s2, r2)):
+        cases += [(ss, rr, valid), (np.r_[ss, rr], np.r_[rr, ss],
+                                    np.r_[valid, valid])]
+    for ss, rr, vv in cases:
+        order = np.argsort(rr, kind="stable")   # graph() keeps this order
+        ss, rr, vv = ss[order], rr[order], vv[order]
+        pg = tgnn.graph(ss, rr, num_nodes=24, device="cpu").replace(
+            edge_valid=torch.tensor(vv))
+        jv = J.gnn.graph(ss, rr, num_nodes=24)
+        jv = jv.replace(edge_valid=J.jnp.asarray(
+            np.pad(vv, (0, jv.e_pad - len(vv)))))
+        for q in ("has_self_loops", "has_multi_edges", "is_bidirected"):
+            assert bool(getattr(tgnn, q)(pg)) == bool(
+                getattr(J.gnn, q)(jv)), q
+        for i, j in ((5, 5), (int(s[k]), int(r[k]))):
+            assert bool(tgnn.has_edge(pg, i, j)) == bool(
+                J.gnn.has_edge(jv, i, j))
+    # the invalid self-loop and duplicate would count without the mask
+    pg = tgnn.graph(s2, r2, num_nodes=24, device="cpu")
+    assert bool(tgnn.has_self_loops(pg)) and bool(tgnn.has_multi_edges(pg))
+    assert not bool(tgnn.has_self_loops(pg.replace(
+        edge_valid=torch.tensor(valid[np.argsort(r2, kind="stable")]))))
+
+
+@pytest.mark.parametrize("route", ["aggregate_neighbors max (K14)",
+                                   "softmax_edge_neighbors",
+                                   "gat_attention (K3-K5, K12)",
+                                   "dot_attention (K6-K8)",
+                                   "attention_aggregate (K12)"])
+def test_reversed_valid_block_matches_jax(J, valid_draw, monkeypatch,
+                                          route):
+    """A reversed block with invalid edges (``graph.csr_view`` composes the
+    reversal's map with the compaction): the routes over it by both routes
+    against JAX's reversed block."""
+    jb = valid_draw.jb0.replace(senders_iota_offset=None).reverse()
+    tb = valid_draw.tb0.reverse()
+    assert not tb.edge_valid.all()
+    tfn, specs, modules, _ = _valid_routes(J, "port")[route]
+    jfn = _valid_routes(J, "jax")[route][0]
+    J.P.route_parity(jfn, tfn, jb, tb,
+                     _route_inputs(specs, tb.num_nodes, tb.num_edges, 4),
+                     kernel_patches=modules, monkeypatch=monkeypatch)
 
 
 def test_sage_train_smoke():

@@ -1805,3 +1805,135 @@ def test_hetero_conv_step_on_card_matches_cpu():
         a = a.cpu().double()
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+# ---- the CSR views: reversed and compacted graphs on the card -------------
+
+def _view_graph(which):
+    """A graph on the card and its ``graph.csr_view``: a ``DeviceSampler``
+    slot graph (fanout 4 without replacement, so short rows and the seeds
+    without in-edges leave invalid edges) compacted to its valid edges, or
+    a reversed graph, whose receiver CSR reads edges through ``eid_r``."""
+    from graphneuralnetworks_tpu_torch.device_sampler import DeviceSampler
+    from graphneuralnetworks_tpu_torch.graph import csr_view
+
+    if which == "reversed":
+        g = tgnn.rand_graph(20_000, 300_000, seed=3, device="cuda").reverse()
+    else:
+        rng = np.random.default_rng(3)
+        s = rng.integers(0, 4000, 12_000)
+        r = rng.integers(0, 3500, 12_000)   # nodes 3500-3999: no in-edges
+        order = np.argsort(r, kind="stable")
+        ptr = np.r_[0, np.cumsum(np.bincount(r, minlength=4000))]
+        sp = DeviceSampler.build(s[order].astype(np.int32), ptr,
+                                 fanouts=(4,), batch_size=2048,
+                                 replace=False, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        seeds = torch.randint(0, 4000, (2048,), generator=gen,
+                              device="cuda")
+        g = sp.sample(gen, seeds)
+        assert not g.edge_valid.all()
+    return g, csr_view(g)
+
+
+def _by_position(t, eid):
+    return t if eid is None else t.index_select(0, eid.long())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["compacted", "reversed"])
+def test_view_kernels_match_plain_on_card(which):
+    """K3 (float32 and bfloat16), K12 (node and edge values, with a mask,
+    read through the view's edge-id map) and K14 and its backward (float32
+    and bfloat16, bit for bit) over a compacted and a reversed receiver
+    CSR against their plain versions over the same view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g, v = _view_graph(which)
+    n, e, h, d = g.num_nodes, g.num_edges, 2, 16
+    entries = int(v.indptr_r[-1])
+    assert (entries < e) == (which == "compacted")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    before = {**ES.launches, **SG.launches}
+    pi, pj, vals = rn(n, h), rn(n, h), rn(n, h, d)
+    for dt in (torch.float32, torch.bfloat16):
+        args = (v.indptr_r, v.col_r, pi.to(dt), pj.to(dt), vals.to(dt),
+                SLOPE)
+        (num, m, s), (pnum, pm, ps) = (ES.gat_softmax(*args),
+                                       ES.gat_softmax_plain(*args))
+        if dt == torch.float32:
+            torch.testing.assert_close(num, pnum, rtol=1e-5, atol=1e-5)
+        else:
+            _assert_bf16_close(num, pnum)
+        torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-4)
+    lg, mask, vals_e = rn(e, h), (rn(e, h) > 0).float() * 2, rn(e, h, d)
+    for col, values in ((v.col_r, vals), (None, _by_position(vals_e,
+                                                             v.eid_r))):
+        args = (v.indptr_r, col, _by_position(lg, v.eid_r),
+                _by_position(mask, v.eid_r), values)
+        for a, b in zip(ES.edge_softmax(*args), ES.edge_softmax_plain(*args)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    data = torch.round(rn(e, 8) * 4) / 4      # ties on a grid of 1/4
+    for dt in (torch.float32, torch.bfloat16):
+        dp = _by_position(data, v.eid_r).to(dt)
+        out = SG.segment_max_csr(v.indptr_r, dp)
+        want = SG.segment_max_plain(v.indptr_r, dp)
+        assert torch.equal(out, want)
+        dy = rn(n, 8).to(dt)
+        got = SG.segment_max_bwd_csr(v.indptr_r, dp, want, dy)[:entries]
+        assert torch.equal(got, SG.segment_max_bwd_plain(
+            v.indptr_r, dp, want, dy)[:entries])
+    torch.cuda.synchronize()
+    launched = {k: c - before[k] for k, c in {**ES.launches,
+                                              **SG.launches}.items()
+                if c != before[k]}
+    assert launched == {"k3": 1, "k3_bf16": 1, "k12": 2, "k14": 1,
+                        "k14_bf16": 1, "k14_bwd": 1, "k14_bwd_bf16": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["compacted", "reversed"])
+def test_view_routes_card_vs_cpu(which):
+    """``aggregate_neighbors(max)``, ``gat_attention`` with and without
+    dropout masks and ``apply_edges(xi_dot_xj)`` on the card over the view
+    (K14, K3-K5, K12 with K2, K13 with K1) against the CPU's plain route
+    in float64, outputs and input gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g, _ = _view_graph(which)
+    gc = g.to("cpu")
+    n, e, h, d = g.num_nodes, g.num_edges, 2, 16
+    gen = torch.Generator().manual_seed(2)
+    masks = ((torch.rand(e, h, generator=gen) < 0.5) * 2.0, None)
+    routes = {
+        "max": (lambda gg, m: tgnn.ops.aggregate_neighbors(gg, "max", m),
+                [(e, d)]),
+        "gat": (lambda gg, pi, pj, vv: tgnn.ops.gat_attention(
+            gg, pi, pj, vv, SLOPE), [(n, h), (n, h), (n, h, d)]),
+        "gat_dropout": (lambda gg, pi, pj, vv: tgnn.ops.gat_attention(
+            gg, pi, pj, vv, SLOPE, dropout_masks=tuple(
+                None if mm is None else mm.to(pi) for mm in masks)),
+            [(n, h), (n, h), (n, h, d)]),
+        "xi_dot_xj": (lambda gg, a, b: tgnn.ops.apply_edges(
+            tgnn.ops.xi_dot_xj, gg, a, b), [(n, d), (n, d)]),
+    }
+    for name, (fn, shapes) in routes.items():
+        ins = [torch.randn(*s_, generator=gen, dtype=torch.float64)
+               for s_ in shapes]
+        res = []
+        for gg, dev, dt in ((g, "cuda", torch.float32),
+                            (gc, "cpu", torch.float64)):
+            ts = [x.to(dev, dt).requires_grad_() for x in ins]
+            out = fn(gg, *ts)
+            cot = torch.ones_like(out).cumsum(0) / out.shape[0]
+            (out * cot).sum().backward()
+            res.append([out.detach().double().cpu()]
+                       + [x.grad.double().cpu() for x in ts])
+        for a, b in zip(*res):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                       msg=name)

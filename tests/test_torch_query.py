@@ -14,8 +14,9 @@
   directions swapped; ``sorted_by_receivers``.
 - The routes that read edge arrays in receiver-CSR order (K14 under
   ``aggregate_neighbors`` and ``softmax_edge_neighbors``, the attention
-  kernels, K13 under ``apply_edges(xi_dot_xj)``) raise on a reversed graph,
-  each by its kernel route (the card's autograd functions on CPU tensors).
+  kernels, K13 under ``apply_edges(xi_dot_xj)``) on a reversed graph
+  against JAX's, each by its plain route and by its kernel route (the
+  card's autograd functions on CPU tensors).
 """
 
 import pytest
@@ -35,7 +36,7 @@ from graphneuralnetworks_tpu_torch.ops import attention as TA  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops import msgpass as TMP  # noqa: E402
 from graphneuralnetworks_tpu_torch.ops import segment as TS  # noqa: E402
 from torch_parity import (F64_TOL, directed_graph_arrays, graph_pair,  # noqa: E402
-                          pad_rows, t)
+                          pad_rows, route_parity, t)
 
 
 def _batch_pair():
@@ -364,58 +365,76 @@ def test_aggregate_neighbors_on_reverse_matches_jax(aggr):
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy)[:n], **F64_TOL)
 
 
-# ---- the routes that read edge arrays in receiver-CSR order raise -----------
+# ---- the routes that read edge arrays in receiver-CSR order ----------------
 
-def _reversed_inputs():
-    s, r, n, _ = directed_graph_arrays(seed=40)
-    tg = tgnn.graph(s, r, num_nodes=n, device="cpu").reverse()
-    rng = np.random.default_rng(40)
-    h, d = 2, 3
-
-    def rnd(*shape):
-        return torch.tensor(rng.standard_normal(shape))
-
-    return tg, n, len(s), h, d, rnd
+H, DH = 2, 3
 
 
-RAISING = {
-    "aggregate_neighbors_max": (TS, lambda g, n, e, h, d, rnd:
-                                tops.aggregate_neighbors(g, "max",
-                                                         rnd(e, d))),
-    "aggregate_neighbors_min_dict": (TS, lambda g, n, e, h, d, rnd:
-                                     tops.aggregate_neighbors(
-                                         g, "min", {"a": rnd(e, d)})),
-    "softmax_edge_neighbors": (TS, lambda g, n, e, h, d, rnd:
-                               tops.softmax_edge_neighbors(g, rnd(e, h))),
-    "gat_attention": (TA, lambda g, n, e, h, d, rnd: tops.gat_attention(
-        g, rnd(n, h), rnd(n, h), rnd(n, h, d), 0.2)),
-    "gatv2_attention": (TA, lambda g, n, e, h, d, rnd: tops.gatv2_attention(
-        g, rnd(n, h, d), rnd(n, h, d), rnd(d, h), 0.2)),
-    "dot_attention": (TA, lambda g, n, e, h, d, rnd: tops.dot_attention(
-        g, rnd(n, h, d), rnd(n, h, d), rnd(n, h, d), 0.5)),
-    "attention_aggregate_edge_values": (
-        TA, lambda g, n, e, h, d, rnd: tops.attention_aggregate(
-            g, rnd(e, h), rnd(e, h, d))),
-    "attention_aggregate_node_values": (
-        TA, lambda g, n, e, h, d, rnd: tops.attention_aggregate(
-            g, rnd(e, h), rnd(n, h, d), node_values=True)),
-    "dot_attention_logits": (TA, lambda g, n, e, h, d, rnd:
-                             tops.dot_attention_logits(g, rnd(n, h, d),
-                                                       rnd(n, h, d))),
-    "apply_edges_xi_dot_xj": (TMP, lambda g, n, e, h, d, rnd:
-                              tops.apply_edges(tops.xi_dot_xj, g, rnd(n, d),
-                                               rnd(n, d))),
-}
+def _jax_ops():
+    """The JAX package's ops with its attention functions beside them."""
+    from types import SimpleNamespace
+    from graphneuralnetworks_tpu.ops import attention
+    return SimpleNamespace(**{**vars(jops), **vars(attention)})
 
 
-@pytest.mark.parametrize("name", list(RAISING))
+def _rev_routes(ops):
+    """name -> (function of the graph and the inputs, the inputs' (kind,
+    shape) with ``n`` and ``e`` the graph's counts, the port module whose
+    ``_kernel_route`` sends CPU tensors through the card's route)."""
+    def n(*tail):
+        return ("node", tail)
+
+    def e(*tail):
+        return ("edge", tail)
+    return {
+        "aggregate_neighbors_max": (
+            lambda g, m: ops.aggregate_neighbors(g, "max", m),
+            [e(DH)], TS),
+        "aggregate_neighbors_min_dict": (
+            lambda g, m: ops.aggregate_neighbors(g, "min", {"a": m})["a"],
+            [e(DH)], TS),
+        "softmax_edge_neighbors": (ops.softmax_edge_neighbors, [e(H)], TS),
+        "gat_attention": (
+            lambda g, pi, pj, v: ops.gat_attention(g, pi, pj, v, 0.2),
+            [n(H), n(H), n(H, DH)], TA),
+        "gatv2_attention": (
+            lambda g, q, k, a: ops.gatv2_attention(g, q, k, a, 0.2),
+            [n(H, DH), n(H, DH), ("dense", (DH, H))], TA),
+        "dot_attention": (
+            lambda g, q, k, v: ops.dot_attention(g, q, k, v, 0.5),
+            [n(H, DH), n(H, DH), n(H, DH)], TA),
+        "attention_aggregate_edge_values": (
+            ops.attention_aggregate, [e(H), e(H, DH)], TA),
+        "attention_aggregate_node_values": (
+            lambda g, lg, v: ops.attention_aggregate(g, lg, v,
+                                                     node_values=True),
+            [e(H), n(H, DH)], TA),
+        "dot_attention_logits": (ops.dot_attention_logits,
+                                 [n(H, DH), n(H, DH)], TA),
+        "apply_edges_xi_dot_xj": (
+            lambda g, a, b: ops.apply_edges(ops.xi_dot_xj, g, a, b),
+            [n(DH), n(DH)], TMP),
+    }
+
+
+@pytest.mark.parametrize("name", list(_rev_routes(tops)))
 def test_receiver_order_routes_raise_on_reverse(monkeypatch, name):
-    """Each kernel route that reads edge arrays by receiver-CSR position
-    refuses a reversed graph (``ValueError`` naming ``reverse``) rather
-    than return a wrong result; its CPU route answers."""
-    module, call = RAISING[name]
-    args = _reversed_inputs()
-    call(*args)                                     # the plain route
-    monkeypatch.setattr(module, "_kernel_route", lambda t: True)
-    with pytest.raises(ValueError, match="reverse"):
-        call(*args)
+    """Each route that reads edge arrays by receiver-CSR position (K14
+    under ``aggregate_neighbors`` and ``softmax_edge_neighbors``, the
+    attention kernels K3-K12, K13 under ``dot_attention_logits`` and
+    ``apply_edges(xi_dot_xj)``) answers on a reversed graph, whose
+    receiver-CSR positions are not edge ids, and matches JAX's reversed
+    graph in float64, output and every gradient: by its plain route and by
+    the card's route (``graph.csr_view``'s edge-id map; the kernels' plain
+    versions on CPU tensors). No ``ValueError`` naming ``reverse`` is
+    left."""
+    s, r, n, _ = directed_graph_arrays(seed=40)
+    jg, tg = graph_pair(s, r, n)
+    tfn, specs, module = _rev_routes(tops)[name]
+    jfn = _rev_routes(_jax_ops())[name][0]
+    rng = np.random.default_rng(40)
+    sizes = {"node": n, "edge": len(s)}
+    inputs = [(k, rng.standard_normal((sizes.get(k, 0),) * (k in sizes)
+                                      + shape)) for k, shape in specs]
+    route_parity(jfn, tfn, jg.reverse(), tg.reverse(), inputs,
+                 kernel_patches=(module,), monkeypatch=monkeypatch)

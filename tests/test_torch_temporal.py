@@ -385,35 +385,51 @@ def test_temporal_graph_container_matches_jax():
 
 
 def test_uniform_and_stacked_need_equal_sizes():
-    """The gap in the port: JAX pads snapshots to one capacity for
-    ``from_snapshots(uniform=True)`` and ``stacked()``; the port pads
-    nothing, so it takes equal node counts (``uniform``) and equal node and
-    edge counts (``stacked``) and raises ``ValueError`` otherwise. Equal
-    snapshots stack on a leading time axis as JAX's do."""
-    jtg, ttg = _snapshots((8, 12, 8), 22)
-    jgnn.TemporalGraph.from_snapshots(jtg.snapshots, uniform=True)
-    with pytest.raises(ValueError, match="pad"):
-        tgnn.TemporalGraph.from_snapshots(ttg.snapshots, uniform=True)
-    with pytest.raises(ValueError, match="pad"):
-        ttg.stacked()
-    rng = np.random.default_rng(23)
-    j, p = [], []
-    for _ in range(3):
-        s, r = rng.integers(0, 8, 20), rng.integers(0, 8, 20)
-        x = rng.standard_normal((8, 2))
-        j.append(jgnn.graph(s, r, num_nodes=8, nodes={"x": x}))
-        p.append(tgnn.graph(s, r, num_nodes=8, nodes={"x": x},
-                            device="cpu"))
-    js = jgnn.TemporalGraph.from_snapshots(j, uniform=True).stacked()
-    ts = tgnn.TemporalGraph.from_snapshots(p, uniform=True).stacked()
-    assert ts.senders.shape == (3, 20) and ts.num_nodes == 8
-    np.testing.assert_array_equal(ts.senders.numpy(),
-                                  np.asarray(js.senders)[:, :20])
-    np.testing.assert_array_equal(ts.x.numpy(), np.asarray(js.x)[:, :8])
-    s, r = rng.integers(0, 8, 21), rng.integers(0, 8, 21)
-    p.append(tgnn.graph(s, r, num_nodes=8, device="cpu"))
-    with pytest.raises(ValueError, match="one node and one edge count"):
-        tgnn.TemporalGraph.from_snapshots(p, uniform=True).stacked()
+    """``from_snapshots(uniform=True)`` on snapshots of 8, 12 and 8 nodes
+    (24, 36 and 24 edges, node features and edge weights) against JAX's:
+    each padded to 12 nodes and 36 edges, the real edges and rows where
+    JAX has them, pad rows 0, pad edges marked invalid by ``edge_valid``;
+    ``stacked()`` stacks them as JAX's does; A3TGCN over them matches JAX
+    (outputs and every gradient) on the real rows. Snapshots of unequal
+    sizes not made uniform still refuse ``stacked()``."""
+    rng = np.random.default_rng(22)
+    sizes, j, p = (8, 12, 8), [], []
+    for n in sizes:
+        s, r = rng.integers(0, n, 3 * n), rng.integers(0, n, 3 * n)
+        x, w = rng.standard_normal((n, DIN)), rng.random(3 * n) + 0.5
+        j.append(jgnn.graph(s, r, num_nodes=n, nodes={"x": x},
+                            edge_weight=w))
+        p.append(tgnn.graph(s, r, num_nodes=n, nodes={"x": x},
+                            edge_weight=w, device="cpu"))
+    with pytest.raises(ValueError, match="uniform=True"):
+        tgnn.TemporalGraph.from_snapshots(p).stacked()
+    jtg = jgnn.TemporalGraph.from_snapshots(j, uniform=True)
+    ttg = tgnn.TemporalGraph.from_snapshots(p, uniform=True)
+    assert ttg.num_nodes == [12] * 3 and ttg.num_edges == [36] * 3
+    js, ts = jtg.stacked(), ttg.stacked()
+    assert ts.senders.shape == (3, 36) and ts.x.shape == (3, 12, DIN)
+    for i, n in enumerate(sizes):
+        e = 3 * n
+        np.testing.assert_array_equal(ts.edge_valid[i].numpy(),
+                                      np.arange(36) < e)
+        for f in ("senders", "receivers", "edge_weight"):
+            np.testing.assert_array_equal(getattr(ts, f)[i, :e].numpy(),
+                                          np.asarray(getattr(js, f))[i, :e])
+        np.testing.assert_array_equal(ts.x[i, :n].numpy(),
+                                      np.asarray(js.x)[i, :n])
+        assert not ts.x[i, n:].any() and not ts.edge_weight[i, e:].any()
+
+    xs = [pad_rows(rng.standard_normal((n, DIN)), 12) for n in sizes]
+    cot = rng.standard_normal((12, DOUT))
+    jm, tm = _a3tgcn(24)
+
+    def reduce_out(out, cots, xp):
+        c = jnp.asarray(cots) if xp is jnp else t(cots)
+        return xp.sum(out[:12] * c)
+
+    jout, tout = _run_snapshots(jm, tm, jtg, ttg, xs, cot, reduce_out)
+    np.testing.assert_allclose(tout.detach().numpy(),
+                               np.asarray(jout)[:12], **F64_TOL)
 
 
 def test_lambda_max_given_to_the_recurrence_skips_the_iteration(

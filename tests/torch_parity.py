@@ -109,3 +109,82 @@ def assert_same_graph(jg, tg, *, weights_tol=None):
             np.testing.assert_array_equal(tf[k].numpy(),
                                           np.asarray(jf[k])[:n],
                                           err_msg=f"{what}[{k}]")
+
+
+def route_parity(jfn, tfn, jg, tg, inputs, *, seed=0, kernel_patches=(),
+                 monkeypatch=None, models=None):
+    """Hold ``tfn(tg, *args)`` to ``jfn(jg, *args)`` in float64 at F64_TOL:
+    the output and the gradient of ``sum(out * cot)`` with respect to every
+    input, on the port's rows.
+
+    ``inputs``: ``(kind, array)`` pairs, ``kind`` "node" (the JAX side
+    padded to ``jg.n_pad`` rows), "edge" (to ``jg.e_pad``) or "dense" (as
+    it is), with "-const" for an input whose gradient is not compared
+    (a dropout mask). The output's leading axis holds the port's rows; JAX's is cut
+    to them. The JAX side runs under one ``jax.jit`` with the graph an
+    argument, so graphs padded alike compile once. ``models``: ``(jax
+    model, port module)`` whose parameters are the functions' first
+    argument (``jfn(m, jg, *args)``, ``tfn(m, tg, *args)``); their
+    gradients are compared too. With ``kernel_patches`` (modules) and
+    ``monkeypatch`` the port runs again with each module's
+    ``_kernel_route`` patched to True: the card's autograd functions and
+    CSR views on CPU tensors, whose kernels take their plain versions,
+    held to the same JAX numbers."""
+    pads = {"node": jg.n_pad, "edge": jg.e_pad}
+    arrays = [np.asarray(a, np.float64) for _, a in inputs]
+    kinds = [k.split("-")[0] for k, _ in inputs]
+    grads = [not k.endswith("-const") for k, _ in inputs]
+
+    def port_run():
+        ts = [t(a, grad=gr) for a, gr in zip(arrays, grads)]
+        if models is None:
+            return tfn(tg, *ts), ts
+        models[1].zero_grad(set_to_none=True)
+        return tfn(models[1], tg, *ts), ts
+
+    out, _ = port_run()
+    rows = out.shape[0]
+    cot = np.random.default_rng(seed).standard_normal(tuple(out.shape))
+
+    jargs = [jnp.asarray(pad_rows(a, pads[k]) if k in pads else a)
+             for k, a in zip(kinds, arrays)]
+    if models is not None:
+        gd, params, rest = nnx.split(models[0], nnx.Param, ...)
+
+        def loss(p, g, *a):
+            y = jfn(nnx.merge(gd, p, rest), g, *a)[:rows]
+            return jnp.sum(y * cot), y
+        first = (params,)
+    else:
+        def loss(g, *a):
+            y = jfn(g, *a)[:rows]
+            return jnp.sum(y * cot), y
+        first = ()
+    n_first = len(first)
+    argnums = tuple(i for i in range(n_first + 1 + len(jargs))
+                    if i != n_first)
+    (_, jy), jgrads = jax.jit(jax.value_and_grad(
+        loss, argnums=argnums, has_aux=True))(*first, jg, *jargs)
+
+    def check(route):
+        y, ts = port_run()
+        (y * t(cot)).sum().backward()
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
+                                   err_msg=f"{route}: output", **F64_TOL)
+        for i, (tt, jgr) in enumerate(zip(ts, jgrads[n_first:])):
+            if not grads[i]:
+                continue
+            want = np.asarray(jgr)[:tt.shape[0]]
+            got = (np.zeros_like(want) if tt.grad is None
+                   else tt.grad.numpy())
+            np.testing.assert_allclose(got, want, err_msg=f"{route}: d{i}",
+                                       **F64_TOL)
+        if models is not None:
+            assert_grads_match(models[1], jax.tree.map(
+                np.asarray, nnx.to_pure_dict(jgrads[0])), **F64_TOL)
+
+    check("plain")
+    if kernel_patches:
+        for module in kernel_patches:
+            monkeypatch.setattr(module, "_kernel_route", lambda _: True)
+        check("kernels")
