@@ -58,7 +58,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    its float32 ``da`` against the plain version in float64, as 2c) and
    K11 at (H, O) = (4, 32) and (1, 8); K6 (writing the raw logits), K7
    (from them) and K8 at 2d's (H, O, D) = (4, 32, 32), (1, 8, 8), (1, 128,
-   128) (K6 and K7 in strips) and (4, 32, 32) with a slope; K12 at (4, 32)
+   128) (K7 in strips) and (4, 32, 32) with a slope, and at (1, 264,
+   264) (K6 and K7 in strips), each at the layout its chooser gives
+   (logged: bfloat16 K6's and K8's tables of their own, K8's staged
+   kernel reading the receiver scalars packed); K12 at (4, 32)
    with node values, with them and a dropout mask, with edge values and
    the mask, and at (1, 8) with the mask; K13 at D = 128, 32 and (4, 32);
    each held to its plain version within one bfloat16 ulp; K14 (max, min)
@@ -263,7 +266,10 @@ the device time per step of each kernel of :data:`STEP_KERNELS` (K1-K12).
 measurement behind the wrappers' choices; each layout but K14's held to
 the plain version first), K1's gather-rate ceiling at D=128, and K1, K2,
 K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
-at one row per warp on an R-MAT graph of skewed degrees (``--sweep
+at one row per warp on an R-MAT graph of skewed degrees, and the
+bfloat16 K1, K3-K5, K6 and K8 at every layout of their sweep build
+(``bf16``; K6 and K8 also alone, ``bf16_dot``, and K6's rows against
+strips on tables of 32 to 128 MiB, ``bf16_strips``) (``--sweep
 k12,k4,skew`` runs the named sweeps only; with k1, K1 also at 2g's shapes);
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
 and the train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, 3q, 3s, 2j, 3r, 3m
@@ -284,6 +290,7 @@ import copy
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -449,7 +456,14 @@ BF16_CELLS = {"GCN": (14, 6), "GAT": (18, 6), "GATv2": (16, 11),
 BF16_KAPPA = {"GATv2": 1.5}
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's heading also gets the seconds since the
+    script started, so the log shows where the run's time goes."""
+    if msg.startswith("phase "):
+        msg += f"  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -480,6 +494,43 @@ def log_ptxas(name: str, text: str) -> None:
         f"{len(spills)} spill")
     for item in spills:
         log(f"    spills: {item}")
+
+
+# the row vectors of a kernel instance in its mangled name (vec.cuh)
+_MANGLED_VECTORS = {"5uint4": "bf16x8", "5uint2": "bf16x4", "t": "bf16x1",
+                    "6float4": "float4", "f": "float"}
+
+
+def log_dot_bf16_ptxas(text: str) -> list:
+    """Each bfloat16 instance of K6 (rows, strips) and K8 (register and
+    staged) in ``edge_softmax``'s ``-Xptxas=-v`` report: its kernel,
+    vector, template integers, registers and spill bytes (stores, loads),
+    logged and returned."""
+    pat = re.compile(r"(dot_(?:softmax|bwd_rev|strip_\w+?)(?:_rows|_staged)?"
+                     r"_kernel)I(Li\d+E)?(5uint4|5uint2|t|6float4|f)"
+                     r"((?:Li\d+E)*)E")
+    rows, fn = [], None
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn = pat.search(line)
+            spill = None
+        elif fn is not None and "bytes spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = nums[1:3]
+        elif fn is not None and "Used" in line and "registers" in line:
+            vec = _MANGLED_VECTORS[fn.group(3)]
+            if vec.startswith("bf16") and (fn.group(2) in (None, "Li6E")):
+                ints = [int(x) for x in re.findall(r"\d+", fn.group(4))]
+                rows.append({"kernel": fn.group(1), "vector": vec,
+                             "template": ints, "registers": int(
+                                 line.split("Used", 1)[1].split()[0]),
+                             "spill_bytes": spill})
+                log(f"  ptxas bf16 {fn.group(1)}<{vec}, "
+                    f"{', '.join(map(str, ints))}>: {rows[-1]['registers']} "
+                    f"registers, spill stores/loads {spill}")
+            fn = None
+    return rows
 
 
 def peaks(name: str) -> tuple[float, float]:
@@ -952,9 +1003,10 @@ def kernel_phase(gnn, g, card: str) -> dict:
 
 
 def compare_bf16(name: str, got: torch.Tensor, ref: torch.Tensor, *,
-                 quiet: bool = False) -> float:
+                 quiet: bool = False, extra=None) -> float:
     """Hold a bfloat16 output to its plain version within one bfloat16 ulp
-    of ``|ref|`` plus ATOL (see BF16_U); a float32 one (the softmax state)
+    of ``|ref|`` plus ATOL (see BF16_U), plus ``extra`` per element where
+    given (:func:`dot_kink_allowance`); a float32 one (the softmax state)
     by :func:`compare`."""
     if ref.dtype != torch.bfloat16:
         return compare(name, got, ref, quiet=quiet)
@@ -968,6 +1020,8 @@ def compare_bf16(name: str, got: torch.Tensor, ref: torch.Tensor, *,
     # the card's log2 of a power of two may land below the integer
     _, e = torch.frexp(b.abs().clamp(min=torch.finfo(torch.float32).tiny))
     ulp = torch.exp2(e.double() - 8)
+    if extra is not None:
+        ulp = ulp + extra
     diff = (a - b).abs()
     err = float(diff.max()) if diff.numel() else 0.0
     worst = float((diff / (ulp + ATOL)).max()) if diff.numel() else 0.0
@@ -993,8 +1047,10 @@ def bf16_phase(g, gb, card: str) -> dict:
     float32 ``da`` held to the plain version in float64, as 2c holds it)
     and K11 at (H, O) = (4, 32) and (1, 8) (3o's GATv2); K6 (writing the
     raw logits), K7 (from them) and K8 at 2d's (H, O, D) = (4, 32, 32),
-    (1, 8, 8), (1, 128, 128), whose K6 and K7 take the strips (asserted),
-    and (4, 32, 32) with a slope (3o's Transformer and AGNN); K2 over the
+    (1, 8, 8), (1, 128, 128), whose K7 takes the strips (asserted), and
+    (4, 32, 32) with a slope (3o's Transformer and AGNN), and at
+    (1, 264, 264) (K6 and K7 in strips, asserted; K8 in two register
+    chunks); K2 over the
     sender CSR at D=128 and 8 (3o's GCN with learned edge weights) and at
     H=4, D=32 in one launch (3o's GAT (b) layer 1); K12 at (4, 32) with
     node values,
@@ -1032,7 +1088,7 @@ def bf16_phase(g, gb, card: str) -> dict:
         return torch.randn(*shape, generator=gen, device=dev).to(bf)
 
     def case(key, label, fn, plain, args, byt, flops, lib=None,
-             exact=False):
+             exact=False, again=0, layout=None):
         got, want = fn(*args), plain(*args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -1062,7 +1118,9 @@ def bf16_phase(g, gb, card: str) -> dict:
                                      lib),
             "f32_device_ms": device_ms(lambda: fn(*wide)),
             "library_error": lib_error, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err})
+            "no_reuse_bound_ms": (byt + again) / peaks(card)[0] * 1e3,
+            "max_abs_err": err,
+            **({} if layout is None else {"layout": list(layout)})})
         return want
 
     def csr(indptr, col, vals=None, cols=N):
@@ -1102,9 +1160,11 @@ def bf16_phase(g, gb, card: str) -> dict:
                     + E * (eid is not None and w_ is not None))
                + 2 * E * (w_ is not None))
         src = k1_source_rows(col, eid, w_, x.shape[0])
+        # with no L2 reuse a gathered source row is read once an edge
         case("k1_bf16", label, S.spmm_csr, S.spmm_plain, args,
              idx + 2 * (src + rows) * d, (1 + (w_ is not None)) * E * d,
-             lambda a=a, x=x: torch.sparse.mm(a, x))
+             lambda a=a, x=x: torch.sparse.mm(a, x),
+             again=2 * (E - src) * d if col is not None else 0)
     del a_r, a_s, a_sw, a_e, a_eid
 
     # K2 over the sender CSR: int32 CSR and eid, bfloat16 w, dy, x, dx, dw
@@ -1115,7 +1175,7 @@ def bf16_phase(g, gb, card: str) -> dict:
         case("k2_bf16", f"bwd sender-CSR H={h} D={d}", S.spmm_sddmm,
              S.spmm_sddmm_plain, args,
              4 * (N + 1 + 2 * E) + 2 * 2 * E * h + 3 * 2 * N * h * d,
-             4 * E * h * d)
+             4 * E * h * d, again=2 * (E - N) * h * d)
 
     # K12: int32 CSR, bfloat16 logits and mask ([E, H]) and values, the
     # float32 state
@@ -1131,7 +1191,7 @@ def bf16_phase(g, gb, card: str) -> dict:
         case("k12_bf16", label, ES.edge_softmax, ES.edge_softmax_plain,
              args, 4 * (N + 1 + E * node) + 2 * E * h * (1 + mask)
              + 2 * (N if node else E) * h * d + 2 * N * h * d + 8 * N * h,
-             E * h * (2 * d + 6))
+             E * h * (2 * d + 6), again=2 * (E - N) * h * d * node)
 
     # K13: int32 CSR, bfloat16 xi, xj and out
     for h, d in ((1, D), (1, 32), (GAT_HEADS, D // GAT_HEADS)):
@@ -1147,8 +1207,8 @@ def bf16_phase(g, gb, card: str) -> dict:
             a, b = xi.transpose(0, 1).contiguous(), xj.permute(1, 2, 0)
         case("k13_bf16", f"H={h} D={d}", SD.sddmm_csr, SD.sddmm_plain,
              (ir, cr, xi, xj), 4 * (N + 1 + E) + 2 * 2 * N * h * d
-             + 2 * E * h, 2 * E * h * d,
-             lambda p=pattern, a=a, b=b, h=h: torch.sparse.sampled_addmm(
+             + 2 * E * h, 2 * E * h * d, again=2 * (E - N) * h * d,
+             lib=lambda p=pattern, a=a, b=b, h=h: torch.sparse.sampled_addmm(
                  p, a, b, beta=0.0).values().reshape(h, E).t())
         del xi, xj, pattern, a, b
 
@@ -1185,7 +1245,7 @@ def bf16_phase(g, gb, card: str) -> dict:
         case("k14_bwd_bf16", label, SG.segment_max_bwd_csr,
              SG.segment_max_bwd_plain, (ip, data, out, dy),
              4 * (n_rows + 1) + 2 * (2 * rows + 2 * n_rows) * f,
-             2 * rows * f, exact=True)
+             2 * rows * f, exact=True, again=2 * rows * f)
         del data, dy, checked, out
 
     for h, d in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D), (1, D)):
@@ -1196,19 +1256,22 @@ def bf16_phase(g, gb, card: str) -> dict:
         # each) and rows (2 N H D); float32 state (4 N H)
         idx, s2, s4, rows = 4 * (N + 1 + E), 2 * N * h, 4 * N * h, \
             2 * N * h * d
+        # with no L2 reuse: a gathered row (2 bytes a value) and each
+        # gathered scalar (pj 2 bytes; K5's pi 2, mx, den, s_n 4) an edge
+        again, eh = 2 * (E - N) * h * d, (E - N) * h
         num, m, s_ = case("k3_bf16", hd, ES.gat_softmax, ES.gat_softmax_plain,
                           (ir, cr, pi, pj, v, 0.2),
                           idx + 2 * s2 + rows + rows + 2 * s4,
-                          E * h * (2 * d + 6))
+                          E * h * (2 * d + 6), again=again + 2 * eh)
         out, mx, den = ES.finalize_softmax(num, m, s_, sl, sv)
         s_n = (out.float() * dy.float()).sum(-1)
         bwd = (pi, pj, v, mx, den, s_n, dy, 0.2)
         case("k4_bf16", hd, ES.gat_bwd_dpi, ES.gat_bwd_dpi_plain,
              (ir, cr) + bwd, idx + 2 * s2 + 3 * s4 + 2 * rows + s2,
-             E * h * (2 * d + 10))
+             E * h * (2 * d + 10), again=again + 2 * eh)
         case("k5_bf16", hd, ES.gat_bwd_rev, ES.gat_bwd_rev_plain,
              (is_, cs) + bwd, idx + 2 * s2 + 3 * s4 + 2 * rows + s2 + rows,
-             E * h * (4 * d + 10))
+             E * h * (4 * d + 10), again=again + 14 * eh)
 
     # K9, K10 and K11 at 3o GATv2's shapes: int32 indptr and col;
     # bfloat16 rows q, k, dy and num, dq, dk (2 N H O bytes each) and a
@@ -1223,10 +1286,13 @@ def bf16_phase(g, gb, card: str) -> dict:
              * (2.0 / (o + h)) ** 0.5).to(bf)   # Glorot's scale
         hd = f"H={h} O={o}"
         idx, s4, rows = 4 * (N + 1 + E), 4 * N * h, 2 * N * h * o
+        # with no L2 reuse: a gathered row (2 bytes a value) an edge, and
+        # K11's three receiver scalars (4 bytes each)
+        again, eh = 2 * (E - N) * h * o, (E - N) * h
         num, m, s_ = case("k9_bf16", hd, ES.gatv2_softmax,
                           ES.gatv2_softmax_plain, (ir, cr, q, k, a, 0.2),
                           idx + 3 * rows + 2 * o * h + 2 * s4,
-                          E * h * (6 * o + 6))
+                          E * h * (6 * o + 6), again=again)
         out, mx, den = ES.finalize_softmax(num, m, s_, sl, sv)
         bwd = (q, k, a, mx, den, (out.float() * dy.float()).sum(-1), dy,
                0.2)
@@ -1241,31 +1307,43 @@ def bf16_phase(g, gb, card: str) -> dict:
         case("k10_bf16", hd, lambda *a_: ES.gatv2_bwd_dq(*a_)[0],
              lambda *a_: ES.gatv2_bwd_dq_plain(*a_)[0], (ir, cr) + bwd,
              idx + 4 * rows + 3 * s4 + 2 * o * h + 4 * o * h,
-             E * h * (11 * o + 8))
+             E * h * (11 * o + 8), again=again)
         case("k11_bf16", hd, ES.gatv2_bwd_rev, ES.gatv2_bwd_rev_plain,
              (is_, cs) + bwd, idx + 4 * rows + 3 * s4 + 2 * o * h,
-             E * h * (11 * o + 8))
+             E * h * (11 * o + 8), again=2 * again + 12 * eh)
         del q, k, dy, sl, sv, num, out, bwd
 
     # K6, K7 and K8 at 2d's shapes (3o Transformer's and AGNN's): int32
     # indptr and col; bfloat16 rows q, k, v, dy and num, dq, dk, dv (2 N H
     # O or 2 N H D bytes each); float32 state and s_n (4 N H each) and raw
     # logits (4 E H). K6 writes the raw logits and K7 reads them, as
-    # DotAttentionFunction calls them; AGNN's K6 and K7 take the strips.
-    for h, o, d, slope in DOT_SHAPES:
+    # DotAttentionFunction calls them; AGNN's K7 takes the strips, and
+    # the last head K6's too.
+    o_s = BF16_STRIP_HEAD
+    for h, o, d, slope in DOT_SHAPES + ((1, o_s, o_s, None),):
         q, k, v, dy = rn(N, h, o), rn(N, h, o), rn(N, h, d), rn(N, h, d)
         scale = o ** -0.5
         hd = f"H={h} O={o} D={d}" + ("" if slope is None else
                                      f" slope={slope}")
         ov, dv, vec = ES._dot_vectors(o, d, q, k, v)
-        strips = ES._dot_recv_layout(ov, dv, vec, N, N, E)[0]
-        log(f"  K6/K7 bf16 {hd}: {'strips' if strips else 'rows'} of "
-            f"{vec}-byte vectors")
-        if (h, o) == (1, D) and not strips:
-            raise AssertionError("K6 and K7 bf16 at AGNN's (1, 128, 128) "
-                                 "must take the strips")
+        lay6 = ES._dot_recv_layout(ov, dv, vec, N, N, E, 2)
+        lay7 = ES._dot_recv_layout(ov, dv, vec, N, N, E, 2, 7)
+        lay8 = ES._dot_bwd_rev_layout(ov, dv, N, E, vec, 2)
+        log(f"  K6/K7/K8 bf16 {hd}: rows take {vec}-byte vectors; K6 "
+            f"{lay6}, K7 {lay7} (strips, log2 rows, unroll, cap), K8 "
+            f"{lay8} (log2 rows, unroll, cap, stages)")
+        if (h, o) in ((1, D), (1, o_s)) and not lay7[0]:
+            raise AssertionError(f"K7 bf16 at (1, {o}, {o}) must take the "
+                                 "strips")
+        if o == o_s and not lay6[0]:
+            raise AssertionError(f"K6 bf16 at (1, {o}, {o}) must take the "
+                                 "strips")
         idx, nh, eh = 4 * (N + 1 + E), 4 * N * h, 4 * E * h
         no_, nd = 2 * N * h * o, 2 * N * h * d
+        # with no L2 reuse every edge reads a whole gathered row (K6, K7:
+        # k[s] and v[s]; K8: q[r] and dy[r]; 2 bytes a value) and K8 the
+        # receivers' mx, den and s_n (4 bytes each)
+        rows_again = 2 * (E - N) * h * (o + d)
         raws = [torch.empty(E, h, device=dev) for _ in range(2)]
 
         def k6(*a, _raw=raws[0]):
@@ -1277,17 +1355,19 @@ def bf16_phase(g, gb, card: str) -> dict:
         num, m, s_, raw = case("k6_bf16", hd, k6, k6_plain,
                                (ir, cr, q, k, v, scale, slope),
                                idx + 2 * no_ + 2 * nd + 2 * nh + eh,
-                               E * h * (2 * o + 2 * d + 8))
+                               E * h * (2 * o + 2 * d + 8), again=rows_again,
+                               layout=lay6)
         out, mx, den = ES.finalize_softmax(num, m, s_, rn(N, h),
                                            rn(N, h, d))
         bwd = (q, k, v, mx, den, (out.float() * dy.float()).sum(-1), dy,
                scale, slope)
         case("k7_bf16", hd, ES.dot_bwd_dq, ES.dot_bwd_dq_plain,
              (ir, cr) + bwd + (raw,), idx + 2 * no_ + 2 * nd + 3 * nh + eh,
-             E * h * (2 * o + 2 * d + 10))
+             E * h * (2 * o + 2 * d + 10), again=rows_again, layout=lay7)
         case("k8_bf16", hd, ES.dot_bwd_rev, ES.dot_bwd_rev_plain,
              (is_, cs) + bwd, idx + 3 * no_ + 3 * nd + 3 * nh,
-             E * h * (4 * o + 4 * d + 10))
+             E * h * (4 * o + 4 * d + 10),
+             again=rows_again + 3 * 4 * (E - N) * h, layout=lay8)
         del q, k, v, dy, num, out, bwd, raw, raws
     for key, r in res.items():
         for v in r["variants"]:
@@ -1297,7 +1377,9 @@ def bf16_phase(g, gb, card: str) -> dict:
                 f"host={v['host_us']:.1f} us plain={fmt_ms(v['plain_ms'])} "
                 f"library={fmt_ms(v['library_ms'])} (device "
                 f"{fmt_ms(v['library_device_ms'])}) bound="
-                f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
+                f"{v['bound_ms']:.4f} ms ({v['bound_by']}) no-reuse bound="
+                f"{v['no_reuse_bound_ms']:.4f} ms"
+                + (f" layout={tuple(v['layout'])}" if "layout" in v else ""))
     return res
 
 
@@ -1433,6 +1515,12 @@ def gatv2_phase(g, card: str) -> dict:
 DOT_SHAPES = ((GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, None),
               (1, OUT_D, OUT_D, None), (1, D, D, None),
               (GAT_HEADS, D // GAT_HEADS, D // GAT_HEADS, 0.2))
+
+
+# 2h's one-head bfloat16 dot attention whose K6 takes the strips: 33
+# bf16x8 vectors a row, wider than _DOT_BF16_ROWS_BYTES (its 66 MiB table
+# exceeds _DOT_STRIP_BYTES), two register chunks for K8's staged kernel
+BF16_STRIP_HEAD = 264
 
 
 def dot_phase(g, card: str) -> dict:
@@ -2851,7 +2939,200 @@ def k14_sweep(g, gb) -> list:
     return out
 
 
-def bf16_sweep(g) -> list:
+def _dot_bf16_layouts(kernel: int, o: int, d: int, vec: int) -> list:
+    """Every layout of bfloat16 K6 (``kernel`` 6) or K8 (8) the sweep build
+    holds for heads of ``o`` (q, k) and ``d`` (v, dy) values whose rows
+    take bf16x8 vectors (``vec`` 16; none for narrower rows), at most 32 of
+    them: every rows per warp, the register kernel at (edges in flight,
+    register cap) (1, 0), (2, 0), (2, 64), (4, 64), K8 also the staged one
+    at (edges a stage, register cap, stages) of {1, 2} x {0, 64} x {2, 4,
+    6}; K6 also strips of a 128-byte line at every rows per warp for heads
+    wider than a line. K8's tuples are (log_rows, unroll, reg_cap,
+    stages), K6's (strips, log_rows, unroll, reg_cap)."""
+    wide = -(-max(o, d, 1) // 8)
+    if vec != 16 or wide > 32:
+        return []
+    out, log_g = [], min((wide - 1).bit_length(), 5)
+    pairs = ((1, 0), (2, 0), (2, 64), (4, 64))
+    for r in range(6 - log_g):
+        if kernel == 8:
+            out += [(r, u, c, 0) for u, c in pairs]
+            out += [(r, u, c, ns) for u in (1, 2) for c in (0, 64)
+                    for ns in (2, 4, 6)]
+        else:
+            out += [(0, r, u, c) for u, c in pairs]
+    if kernel == 6 and wide > 8:
+        out += [(1, r, 4, 0) for r in range(6 - 3)]
+    return out
+
+
+def dot_kink_allowance(indptr, col, q, k, v, mx, den, s_n, dy, scale,
+                       slope, chunk: int = 1 << 19):
+    """K8's ``dk`` is discontinuous where leaky_relu's slope jumps (raw =
+    0): an edge whose raw logit lies within the float32 rounding of its dot
+    (``|raw| <= 32 * 2^-24 * scale * sum |q_i k_i|``; the products of
+    bfloat16 values are exact, so only the order of the sum differs) may
+    fall on either side in the kernel and in the plain version. Per
+    element of ``dk`` over the sender CSR ``(indptr, col)``, float64: what
+    such edges may move it by, ``(1 - slope) |alpha (<v, dy> - s_n)
+    scale| |q[r]|`` summed over them; with the count of those edges. None
+    for the plain dot (no kink)."""
+    if slope is None:
+        return None, 0
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    rows, recv = ES._filled(indptr, col)
+    out = torch.zeros(k.shape, dtype=torch.float64, device=k.device)
+    near_n = 0
+    for i in range(0, rows.numel(), chunk):
+        s_, r_ = rows[i:i + chunk], recv[i:i + chunk]
+        qr = q.index_select(0, r_).double()
+        prod = qr * k.index_select(0, s_).double()
+        raw = scale * prod.sum(-1)
+        near = raw.abs() <= 32 * 2.0 ** -24 * scale * prod.abs().sum(-1)
+        if not bool(near.any()):
+            continue
+        near_n += int(near.sum())
+        alpha = (torch.exp(torch.where(raw >= 0, raw, slope * raw)
+                           - mx.index_select(0, r_).double())
+                 / den.index_select(0, r_).double())
+        pvd = (v.index_select(0, s_).double()
+               * dy.index_select(0, r_).double()).sum(-1)
+        t = ((1 - slope) * (alpha * (pvd - s_n.index_select(0, r_).double())
+                            * scale).abs() * near)
+        out.index_add_(0, s_, t[..., None] * qr.abs())
+    return out, near_n
+
+
+def bf16_dot_sweep(g) -> list:
+    """bfloat16 K6 and K8 at every layout :func:`_dot_bf16_layouts` gives,
+    at 2h's shapes (:data:`DOT_SHAPES`), each held to the plain version
+    (``compare_bf16``: num, dk, dv within one bfloat16 ulp, dk with a
+    slope plus :func:`dot_kink_allowance`; m, s and the raw logits at
+    RTOL / ATOL) before it is timed (device ms, the packing
+    of K8's receiver scalars included): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K6_BF16`` and ``_K8_BF16``. Each row
+    says whether the chooser takes the layout (``chosen``) and whether the
+    parent's chooser took it (``parent``: the float32 rule, the register
+    kernel)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev, bf = g.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    out = []
+    log("sweep: bf16 K6, K8 layouts (device ms, profiler; K6: strips, log2 "
+        "rows per warp, edges in flight, register cap; K8: log2 rows per "
+        "warp, edges in flight or a stage, register cap, stages)")
+    for h, o, d, slope in DOT_SHAPES:
+        q, k, v, dy = rn(N, h, o), rn(N, h, o), rn(N, h, d), rn(N, h, d)
+        scale = o ** -0.5
+        hd = f"H={h} O={o} D={d}" + ("" if slope is None else
+                                     f" slope={slope}")
+        ov, dv, vec = ES._dot_vectors(o, d, q, k, v)
+        raw_ref = torch.empty(E, h, device=dev)
+        fwd = (g.indptr_r, g.col_r, q, k, v, scale, slope)
+        ref6 = ES.dot_softmax_plain(*fwd, raw_ref)
+        outp, mx, den = ES.finalize_softmax(*ref6, rn(N, h), rn(N, h, d))
+        bwd = (g.indptr_s, g.col_s, q, k, v, mx, den,
+               (outp.float() * dy.float()).sum(-1), dy, scale, slope)
+        ref8 = ES.dot_bwd_rev_plain(*bwd)
+        kink, near = dot_kink_allowance(*bwd)
+        if slope is not None:
+            log(f"  K8 bf16 {hd}: {near} edges within their dot's float32 "
+                "rounding of the kink (dk held to one ulp plus what they "
+                "may move it by)")
+        raw = torch.empty(E, h, device=dev)
+        cases = (
+            (6, ES._dot_recv_layout(ov, dv, vec, N, N, E, 2),
+             ES._dot_recv_layout(ov, dv, vec, N, N, E, 2, 7),
+             lambda lay: ES._dot_softmax_kernel(*fwd, raw, lay) + (raw,),
+             ref6 + (raw_ref,), ("num", "m", "s", "raw")),
+            (8, ES._dot_bwd_rev_layout(ov, dv, N, E, vec, 2),
+             ES._dot_bwd_rev_layout(ov, dv, N, E) + (0,),
+             lambda lay: ES._dot_bwd_rev_kernel(*bwd, layout=lay), ref8,
+             ("dk", "dv")))
+        for kernel, chosen, parent, run, ref, names in cases:
+            for lay in _dot_bf16_layouts(kernel, o, d, vec):
+                err = max(compare_bf16(f"K{kernel} bf16 {hd} {lay} {nm}", a,
+                                       b, quiet=True,
+                                       extra=kink if nm == "dk" else None)
+                          for nm, a, b in zip(names, run(lay), ref))
+                row = {"kernel": f"K{kernel}", "case": hd,
+                       "layout": list(lay), "chosen": lay == chosen,
+                       "parent": lay == parent, "max_abs_err": err,
+                       "device_ms": device_ms(lambda: run(lay))}
+                out.append(row)
+                log(f"  K{kernel} bf16 {hd:<24} {lay} "
+                    f"{row['device_ms']:.4f} ms"
+                    f"{' (chosen)' * row['chosen']}"
+                    f"{' (parent)' * row['parent']}")
+        del q, k, v, dy, raw, raw_ref, ref6, ref8, outp, fwd, bwd, kink
+    return out
+
+
+# (rows, edges, O = D) of bf16_strip_sweep: the main graph's AGNN width
+# (32 MiB of k or v in bf16x8), wider heads on it (48, 66 and 96 MiB) and
+# AGNN's width on graphs of 2 and 4 times its rows and edges (64, 128 MiB)
+BF16_STRIP_CASES = ((N, E, D), (N, E, 192), (N, E, 264), (N, E, 384),
+                    (2 * N, 2 * E, D), (4 * N, 4 * E, D))
+
+
+def bf16_strip_sweep(gnn, g) -> list:
+    """bfloat16 K6 in rows against strips on one-head bf16x8 tables of 32
+    to 128 MiB (:data:`BF16_STRIP_CASES`, ``gnn.rand_graph`` beyond the
+    main graph ``g``): the chooser's rows and its strips
+    (``_dot_softmax_bf16_layout``'s ``strips``), each at its rows per warp
+    and one either side, each held to the plain version (num within one
+    bfloat16 ulp; m, s, the raw logits at RTOL / ATOL) before it is timed
+    (device ms): the measurement behind ``_DOT_BF16_ROWS_BYTES``."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev, bf = g.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = []
+    log("sweep: bf16 K6 rows against strips above 32 MiB (device ms; "
+        "strips, log2 rows per warp, edges in flight, register cap)")
+    for n, e, o in BF16_STRIP_CASES:
+        gg = g if n == N else gnn.rand_graph(n, e, seed=n, device=dev)
+        e = gg.num_edges
+        q, k, v = (torch.randn(n, 1, o, generator=gen, device=dev).to(bf)
+                   for _ in range(3))
+        ov, dv, vec = ES._dot_vectors(o, o, q, k, v)
+        mib = n * ov * vec / 2**20
+        fwd = (gg.indptr_r, gg.col_r, q, k, v, o ** -0.5, None)
+        raw_ref, raw = (torch.empty(e, 1, device=dev) for _ in range(2))
+        ref = ES.dot_softmax_plain(*fwd, raw_ref) + (raw_ref,)
+        chosen = ES._dot_recv_layout(ov, dv, vec, n, n, e, 2)
+        lays = []
+        for strips in (False, True):
+            s_, r0, u, c = ES._dot_softmax_bf16_layout(ov, dv, vec, n, n, e,
+                                                       strips)
+            top = 5 - (3 if s_ else min((ov - 1).bit_length(), 5))
+            lays += [(s_, r, u, c) for r in (r0 - 1, r0, r0 + 1)
+                     if 0 <= r <= top]
+        hd = f"N={n} H=1 O={o} ({mib:.0f} MiB)"
+        for lay in lays:
+            got = ES._dot_softmax_kernel(*fwd, raw, lay) + (raw,)
+            err = max(compare_bf16(f"K6 bf16 {hd} {lay} {nm}", a, b,
+                                   quiet=True)
+                      for nm, a, b in zip(("num", "m", "s", "raw"), got, ref))
+            row = {"kernel": "K6", "case": hd, "table_mib": mib,
+                   "layout": list(lay), "chosen": lay == chosen,
+                   "max_abs_err": err,
+                   "device_ms": device_ms(
+                       lambda: ES._dot_softmax_kernel(*fwd, raw, lay))}
+            out.append(row)
+            log(f"  K6 bf16 {hd:<32} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}")
+        del gg, q, k, v, raw, raw_ref, ref, got
+    return out
+
+
+def bf16_sweep(gnn, g) -> list:
     """The bfloat16 kernels at every layout their instances allow, at 2h's
     shapes, each held to the plain version (one ulp, :func:`compare_bf16`)
     before it is timed (device ms): K1 over the receiver CSR at D = 128 and
@@ -2860,7 +3141,8 @@ def bf16_sweep(g) -> list:
     (1, 8) and (1, 128) at every rows per warp, with and without ``pj``
     ahead (K3, K4) or the packed scalars (K5), at each (edges in flight,
     register cap) of their shipped bfloat16 instances (one register
-    chunk)."""
+    chunk); K6 and K8 at every layout of :func:`bf16_dot_sweep`, and K6's
+    rows against strips (:func:`bf16_strip_sweep`)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
@@ -2928,7 +3210,7 @@ def bf16_sweep(g) -> list:
               (is_, cs) + bwd,
               [(r, u, c, p) for r in rows for u, c in pairs for p in (0, 1)],
               ES._gat_bwd_rev_layout(fv, vec, N, E, ES._BF16_MAX_VECTORS))
-    return out
+    return out + bf16_dot_sweep(g) + bf16_strip_sweep(gnn, g)
 
 
 def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
@@ -2958,7 +3240,9 @@ def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
             "k10": lambda: {"k10": k10_sweep(g)},
             "k11": lambda: {"k11": k11_sweep(g)},
             "skew": lambda: {"skew": skew_sweep(gnn, names)},
-            "bf16": lambda: {"bf16": bf16_sweep(g)},
+            "bf16": lambda: {"bf16": bf16_sweep(gnn, g)},
+            "bf16_dot": lambda: {"bf16_dot": bf16_dot_sweep(g)},
+            "bf16_strips": lambda: {"bf16_strips": bf16_strip_sweep(gnn, g)},
             "k14": lambda: {"k14": k14_sweep(g, gb)}}
     out = {}
     for name in names:
@@ -3459,14 +3743,15 @@ def compare_precision_model(name, model, g, inputs, forward, extra=(),
     return out
 
 
-def precision_phase(g, x, y, mask, profile: bool, gb=None):
+def precision_phase(g, x, y, mask, profile: bool, gb=None, cells=None,
+                    repeat: int = 1):
     """3o: ten paths in ``models.Precision`` (bfloat16 compute, float32
     master parameters), each with its float32 phase's model and graph, 10
     Adam steps on a float32 loss of the bfloat16 output: 3a's GCN (K1's
     bfloat16 variant 3 times a step), 3d's GAT (K3, K4, K5 twice each),
     3f's GATv2 (K9 and K11 twice, K10 four times: walk and reduce), 3g's
     Transformer (K6, K7, K8 twice each, in rows) and 3h's AGNN (the same,
-    K6 and K7 in strips);
+    K7 in strips);
     3b's GCN with learned edge weights (K1 2, K2 2); 3e's GAT (b) with
     attention dropout 0.6 in training mode (K12 2, K2 2); 3i's link step,
     the GCN encoder and ``DotDecoder`` on the 2M edges and 2M negatives
@@ -3477,7 +3762,9 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None):
     ms, busy) and one step is held card vs CPU in bfloat16 and in float64
     (:func:`compare_precision_model`, the dropout masks the card's).
     Returns the results and None (the ``--only`` form); ``profile`` is not
-    needed, 3o always profiles."""
+    needed, 3o always profiles. ``cells`` (result keys) runs only those
+    cells, ``repeat`` times each in turn, without the card-vs-CPU step: a
+    measurement of their step times and its spread."""
     from graphneuralnetworks_tpu_torch import models as M, rand_graph
     from graphneuralnetworks_tpu_torch.training import masked_cross_entropy
 
@@ -3513,7 +3800,7 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None):
 
     ew = torch.nn.Parameter(torch.ones(E, device=dev))
     gneg = rand_graph(N, E, seed=2, device=dev)
-    cells = [
+    table = [
         # name, result key, float32 phase, model, step args, per step,
         # comparison inputs, forward, extra parameters, output scale (the
         # models with a max aggregation: EdgeConv, graph classification)
@@ -3549,11 +3836,13 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None):
          graph_forward, (), None),
     ]
     res = {"vs_cpu": {}}
-    for (name, key, base, inner, args, per_step, ins, fwd, extra,
-         scale) in cells:
+    if cells is not None:
+        table = [c for c in table if c[1] in cells] * repeat
+    for n_run, (name, key, base, inner, args, per_step, ins, fwd, extra,
+                scale) in enumerate(table):
         log(f"phase 3o: {name} of {base} in bfloat16 (models.Precision, "
             f"float32 master parameters, Adam lr=1e-3), {STEPS} steps")
-        model = M.Precision(inner)
+        model = M.Precision(copy.deepcopy(inner) if cells else inner)
         gg = args[0]
 
         def loss_fn(m, *a, fwd=fwd, extra=extra):
@@ -3564,10 +3853,13 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None):
             def eval_loss(model=model):
                 with torch.no_grad():
                     return node_forward(model, g, x)[1]
-        res[key] = train_phase(
+        res[key if cells is None else f"{key}_{n_run}"] = train_phase(
             f"{name} bf16", model, args, loss_fn, per_step, True,
             params=list(model.parameters()) + list(extra),
             eval_loss=eval_loss)
+        if cells is not None:
+            del model
+            continue
         log(f"phase 3o (3c): one step of the {name} bf16 model on the card "
             "vs the CPU plain path in bfloat16 and in float64")
         res["vs_cpu"][key] = compare_precision_model(
@@ -4300,11 +4592,11 @@ STEP_KERNELS = {
     "k1": ("spmm_csr_kernel<",),
     "k2": ("spmm_sddmm_csr_kernel<", "spmm_sddmm_weights_kernel",
            "spmm_sddmm_sum_kernel"),
-    "k6": ("dot_softmax_rows_kernel<", "dot_strip_dots_kernel<6,",
-           "dot_strip_stats_kernel<6>", "dot_strip_spmm_kernel<6,"),
+    "k6": ("dot_softmax_rows_kernel<", "dot_strip_dots_kernel<6,", "dot_strip_stats_kernel<6>",
+           "dot_strip_spmm_kernel<6,"),
     "k7": ("dot_bwd_dq_rows_kernel<", "dot_strip_dots_kernel<7,",
            "dot_strip_stats_kernel<7>", "dot_strip_spmm_kernel<7,"),
-    "k8": ("dot_bwd_rev_kernel<",),
+    "k8": ("dot_bwd_rev_kernel<", "dot_bwd_rev_staged_kernel<"),
     "k11": ("gatv2_bwd_rev_kernel<",),
     "k10": ("gatv2_bwd_dq_kernel<", "gatv2_da_reduce_kernel"),
     "k5": ("gat_bwd_rev_kernel<",),
@@ -6855,7 +7147,17 @@ def main() -> int:
                          "backward at every "
                          "layout, K1's gather-rate ceiling, and the R-MAT "
                          "graph (skew); NAMES (comma-separated, of "
-                         f"{','.join(SWEEPS)}) runs those only")
+                         f"{','.join(SWEEPS)}, bf16_dot, bf16_strips) runs "
+                         "those only")
+    ap.add_argument("--cells", default=None, metavar="KEYS",
+                    help="with --only 3o: run only these 3o cells (by "
+                         "result key, comma-separated, e.g. "
+                         "transformer_bf16,agnn_bf16), timed and profiled "
+                         "without the card-vs-CPU step, --repeat times "
+                         "each")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="with --cells: train each cell this many times "
+                         "in turn, for the spread of its host median")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6885,6 +7187,8 @@ def main() -> int:
     log(f"  kernel build: {build_s:.2f} s ({', '.join(B.SOURCES)})")
     for name, text in B.build_logs().items():
         log_ptxas(name, text)
+    if "edge_softmax" in B.build_logs():
+        log_dot_bf16_ptxas(B.build_logs()["edge_softmax"])
 
     t0 = time.perf_counter()
     g = gnn.rand_graph(N, E, seed=1)
@@ -6920,7 +7224,10 @@ def main() -> int:
         train_only = {"3b": learned_weights_phase, "3d": gat_a_phase,
                       "3e": gat_b_phase, "3f": gatv2_train_phase,
                       "3l": propagation_phase, "3v": edge_layers_phase,
-                      "3o": functools.partial(precision_phase, gb=gb),
+                      "3o": functools.partial(
+                          precision_phase, gb=gb,
+                          cells=args.cells and args.cells.split(","),
+                          repeat=args.repeat),
                       "3x": reversed_phase}
         if phase == "2l":   # the reversed main graph; a 3n draw with 3n's
             merge_kernels(view_phase_main(g, card))
@@ -6936,7 +7243,8 @@ def main() -> int:
                                                   args.profile)[0]
         else:
             kern.update(kernel_phases[phase]())
-    if args.sweep and not set(args.sweep.split(",")) <= set(SWEEPS):
+    if args.sweep and not set(args.sweep.split(",")) <= {
+            *SWEEPS, "bf16_dot", "bf16_strips"}:
         raise ValueError(f"--sweep takes names of {SWEEPS}, got "
                          f"{args.sweep}")
     sweep = (tuning_sweep(gnn, g, gb, tuple(args.sweep.split(",")))

@@ -206,6 +206,9 @@ __device__ __forceinline__ f8 load_a<f8>(const float* a, int f, int heads,
 //   row sums them in strip order into each edge's raw logit and weight
 //   (dot_strip_stats_kernel); a weighted SpMM over the strips of the other
 //   table writes the output (dot_strip_spmm_kernel).
+// - bfloat16 K8 may instead take the staged kernel (after
+//   dot_bwd_rev_kernel), as the wrapper picks it (_dot_bwd_rev_layout:
+//   bfloat16's own table, as is K6's in _dot_recv_layout).
 // Every output entry is written once by one lane, every sum taken in a fixed
 // order: results are the same bits from run to run, with no atomics.
 
@@ -838,6 +841,250 @@ dot_bwd_rev_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
         const int f = sub + cc * g;
         if (f < ov) dk[sh * ov + f] = narrow<V>(dka[cc]);
         if (f < dv) dv_out[sh * dv + f] = narrow<V>(dva[cc]);
+      }
+    }
+  });
+}
+
+// ---- bfloat16 K8: gathers staged in shared memory ------------------------
+//
+// The register kernel above holds each group's U gathered edges in
+// registers until the group reduces them. On bfloat16 rows a lane widens
+// its vector to Acc<V> (8 floats for bf16x8), so K8's k, v, dk and dv
+// state alone takes 32 registers at 4 lanes a 64-byte row, twice
+// float32's, and U = 2 edges of q and dy at a cap of 64 registers spill.
+// This kernel keeps the walk (walk_rows, Seg: R rows a warp, groups of G
+// lanes taking interleaved edges, the hub switch), the arithmetic and its
+// order (each group adds its edges in CSR order, the row's groups merge by
+// the same tree: the register kernel's bits at the same rows), but buys
+// edges in flight with shared memory instead of registers:
+// - Lanes take bf16x8 vectors (dot_bf16_vec). bf16x4 lanes at O = 32 (8
+//   lanes a row, float4 state as wide as float32's) measured slower in
+//   every layout of chip_smoke.py --sweep bf16 (an H100 at 700 W: K8 at
+//   best 0.570 against 0.441 ms, K6 0.435 against 0.374; PERF.md §6).
+// - Each warp keeps a ring of NS stages, each holding U edges of every
+//   group: each lane's q and dy vectors and the receiver's (mx, den, s_n)
+//   packed as one float4 [rows, H, 4] by the wrapper: one 16-byte copy an
+//   edge instead of three 4-byte loads. Each lane fills its own slots with
+//   cp.async.cg (16 bytes, through the L2 only) and reads back only what
+//   it copied, so the ring needs no barrier beyond cp.async.wait_group;
+//   while a group reduces stage t, stages t + 1 to t + NS - 1 are in
+//   flight. TMA's tiled mode cannot gather rows by an index, and
+//   cp.async.bulk would take one elected lane a row and an mbarrier a
+//   stage for rows of 16 to 256 bytes.
+// - The receivers of a stage are loaded one stage before their copies are
+//   issued, so no copy waits on col.
+// - The row's own vectors (k[s], v[s]) stay packed and are widened at each
+//   dot, and a staged vector is widened again from its slot for the sums
+//   rather than held across the shuffles: at U = 2 edges a stage the
+//   kernel takes 78 registers uncapped and no spill, where the register
+//   kernel at U = 2 spills 168 bytes at its cap of 64.
+// Shared memory: kWarpsPerBlock * NS * U slots of 32 * NC * 32 + 512
+// bytes. The shipped picks (NS = 2, U = 2 or 1): 48 KB a block at one
+// chunk, so 4 blocks fit an SM's 228 KB and the 78 registers (3 blocks of
+// 8 warps) bind first; two stages were the fastest ring in the sweep, more
+// stages cost blocks without gaining. Rows of any width (NC register
+// chunks of 32 vectors; past one chunk one edge, two stages: 139 KB a
+// block at NC = 8, one block an SM). K6 keeps the register kernel on
+// bfloat16: the same ring for K6's k and v gained 0.00015 ms at (1, 8, 8)
+// and lost 0.015 and 0.037 ms at (4, 32, 32) and (1, 128, 128) in that
+// sweep.
+
+// one lane's slots of a stage: its gathered q and dy vectors and the
+// receiver's packed scalars
+template <typename V, int NC>
+struct RevSlot {
+  V a[NC][32], b[NC][32];
+  float4 st[32];
+};
+
+template <typename V>
+__device__ __forceinline__ void cp_async(V* dst, const V* src) {
+  static_assert(sizeof(V) == 16, "cp.async.cg copies 16 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Runs a lane's ring over a row walk of n_st stages of U edges per group:
+// next(t, u) is stage t's edge u's gathered row index (-1: none),
+// issue(slot, u, r) the copies of that edge into its slots, and
+// reduce(t, slot) the reduction of stage t once it has landed. Stage t's
+// indices are loaded one stage before its copies are issued.
+template <int U, int NS, typename Slot, typename Next, typename Issue,
+          typename Reduce>
+__device__ __forceinline__ void staged_walk(Slot* ring, int n_st, Next&& next,
+                                            Issue&& issue, Reduce&& reduce) {
+  static_assert(NS >= 2, "a ring of at least two stages");
+  auto copy = [&](int t, const int (&r)[U]) {
+    Slot* slot = ring + (t % NS) * U;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (r[u] >= 0) issue(slot + u, r[u]);
+    cp_async_commit();   // an empty group past the walk's end
+  };
+  int rn[U];
+  {
+    int r0[NS - 1][U];   // the prologue's indices, all loads first
+#pragma unroll
+    for (int t = 0; t < NS - 1; ++t)
+#pragma unroll
+      for (int u = 0; u < U; ++u) r0[t][u] = next(t, u);
+#pragma unroll
+    for (int t = 0; t < NS - 1; ++t) copy(t, r0[t]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) rn[u] = next(NS - 1, u);
+  for (int t = 0; t < n_st; ++t) {   // warp-uniform trips
+    cp_async_wait<NS - 2>();         // stage t has landed
+    copy(t + NS - 1, rn);            // into the slots stage t - 1 left
+#pragma unroll
+    for (int u = 0; u < U; ++u) rn[u] = next(t + NS, u);
+    reduce(t, ring + (t % NS) * U);
+  }
+  cp_async_wait<0>();
+}
+
+// K8 on bfloat16 vectors, staged (see above): dot_bwd_rev_kernel's
+// function at NC register chunks, U edges a stage, NS stages, the
+// receivers' scalars packed (stats [rows, H, 4]: mx, den, s_n, unused).
+template <typename V, int NC, int U, int NS, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+dot_bwd_rev_staged_kernel(const int* __restrict__ indptr,
+                          const int* __restrict__ col,
+                          const V* __restrict__ q, const V* __restrict__ k,
+                          const V* __restrict__ v,
+                          const float4* __restrict__ stats,
+                          const V* __restrict__ dy, V* __restrict__ dk,
+                          V* __restrict__ dv_out, int n_rows, int heads,
+                          int ov, int dv, int log_g, int log_rows,
+                          float scale, float slope) {
+  extern __shared__ __align__(16) unsigned char staged_smem[];
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  using A = Acc<V>;
+  using Slot = RevSlot<V, NC>;
+  Slot* ring = reinterpret_cast<Slot*>(staged_smem) + (threadIdx.x >> 5) * NS * U;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long sh = (long long)row * heads + h;
+    // k[s] and v[s] stay packed, widened at each dot, and a gathered
+    // vector is widened again from its slot for the sums rather than held
+    // across the shuffles: registers. Past 4 chunks (rows of more than
+    // 1,024 values) they are read again (from L1) at each dot: the 128
+    // floats of dk and dv leave no room for them.
+    constexpr int NH = NC > 4 ? 1 : NC;
+    V kv[NH], vv[NH];
+    A dka[NC], dva[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = sub + c * g;
+      if constexpr (NC <= 4) {
+        kv[c] = live && f < ov ? k[sh * ov + f] : vzero<V>();
+        vv[c] = live && f < dv ? v[sh * dv + f] : vzero<V>();
+      }
+      dka[c] = vzero<A>();
+      dva[c] = vzero<A>();
+    }
+    auto k_at = [&](int c) -> V {
+      if constexpr (NC > 4) {
+        return k[sh * ov + sub + c * g];   // f < ov: the caller's test
+      } else {
+        return kv[c];
+      }
+    };
+    auto v_at = [&](int c) -> V {
+      if constexpr (NC > 4) {
+        return v[sh * dv + sub + c * g];
+      } else {
+        return vv[c];
+      }
+    };
+    auto pos = [&](int t, int u) { return (t * U + u) * S.p + S.grp; };
+    const int per = S.p * U;
+    staged_walk<U, NS>(
+        ring, (longest + per - 1) / per,
+        [&](int t, int u) {
+          const int j = pos(t, u);
+          return live && j < len ? col[beg + j] : -1;
+        },
+        [&](Slot* slot, int r) {
+          const long long rh = (long long)r * heads + h;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const int f = sub + c * g;
+            if (f < ov) cp_async(&slot->a[c][lane], q + rh * ov + f);
+            if (f < dv) cp_async(&slot->b[c][lane], dy + rh * dv + f);
+          }
+          cp_async(&slot->st[lane], stats + rh);
+        },
+        [&](int t, const Slot* slot) {
+          float plg[U], pvd[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            ok[u] = live && pos(t, u) < len;
+            plg[u] = 0.f;
+            pvd[u] = 0.f;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const int f = sub + c * g;
+              if (ok[u] && f < ov)
+                plg[u] += vdot(widen(slot[u].a[c][lane]), widen(k_at(c)));
+              if (ok[u] && f < dv)
+                pvd[u] += vdot(widen(v_at(c)), widen(slot[u].b[c][lane]));
+            }
+          }
+          for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              plg[u] += __shfl_xor_sync(kFull, plg[u], off);
+              pvd[u] += __shfl_xor_sync(kFull, pvd[u], off);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (!ok[u]) continue;
+            const float4 st = slot[u].st[lane];   // mx, den, s_n
+            const float raw = scale * plg[u];
+            const float alpha = expf(lrelu(raw, slope) - st.x) / st.y;
+            const float dlg =
+                alpha * (pvd[u] - st.z) * scale * dlrelu(raw, slope);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const int f = sub + c * g;
+              if (f < ov) axpy(dka[c], dlg, widen(slot[u].a[c][lane]));
+              if (f < dv) axpy(dva[c], alpha, widen(slot[u].b[c][lane]));
+            }
+          }
+        });
+    for (int off = g; off < S.seg; off <<= 1) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        add_xor(dka[c], off);
+        add_xor(dva[c], off);
+      }
+    }
+    if (live && S.grp == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = sub + c * g;
+        if (f < ov) dk[sh * ov + f] = narrow<V>(dka[c]);
+        if (f < dv) dv_out[sh * dv + f] = narrow<V>(dva[c]);
       }
     }
   });
@@ -1922,11 +2169,13 @@ using MinBlocks = std::integral_constant<int, CAP == 64 ? 4 : 1>;
 // uncapped and, at NC <= 2, at 64 registers; the shipped library holds
 // only the pairs for which Pick::holds(NC, U, cap), the ones the wrapper
 // picks. With kPickOnly (the bfloat16 instances) only Pick's pairs, in
-// either build; with kOneChunk (the bfloat16 instances of K3, K4, K5 and
-// K12) also only NC = 1 (rows of at most 32 vectors; the launcher takes
-// wider rows in passes of 32).
+// either build, but for kSweepOneChunk (bfloat16 K6 rows and K8) the sweep
+// build's pairs at NC = 1 too; with kOneChunk (the bfloat16 instances of
+// K3, K4, K5 and K12) also only NC = 1 (rows of at most 32 vectors; the
+// launcher takes wider rows in passes of 32).
 template <typename Pick, bool kOneChunk = false,
-          bool kPickOnly = kOneChunk, typename Go>
+          bool kPickOnly = kOneChunk, bool kSweepOneChunk = false,
+          typename Go>
 int with_row_instances(int wide, int unroll, int reg_cap, Go&& go) {
   if (kOneChunk && wide > 32) return static_cast<int>(cudaErrorInvalidValue);
   bool launched = false;
@@ -1939,9 +2188,11 @@ int with_row_instances(int wide, int unroll, int reg_cap, Go&& go) {
 #else
       constexpr bool sweep = false;
 #endif
+      constexpr bool swept = (UU == 1 || NC * UU <= 4) && (C == 0 || NC <= 2);
       constexpr bool built =
-          kPickOnly ? (!kOneChunk || NC == 1) && Pick::holds(NC, UU, C)
-          : sweep   ? (UU == 1 || NC * UU <= 4) && (C == 0 || NC <= 2)
+          kPickOnly ? ((!kOneChunk || NC == 1) && Pick::holds(NC, UU, C)) ||
+                          (sweep && kSweepOneChunk && NC == 1 && swept)
+          : sweep   ? swept
                     : Pick::holds(NC, UU, C);
       if constexpr (built) {
         if (unroll == UU && reg_cap == C) {
@@ -2041,6 +2292,90 @@ struct StripPick {
   static constexpr int kUnroll = 4;
   static constexpr int kCap = 0;
 };
+// bfloat16 K6's register instances on bf16x8 rows: RecvPick's and, at one
+// register chunk, one edge in flight uncapped, which
+// ops/cuda/edge_softmax.py's _K6_BF16 takes for rows of one vector (the
+// fastest of chip_smoke.py --sweep bf16 there, PERF.md §6)
+struct K6Bf16Pick {
+  static constexpr bool holds(int nc, int u, int cap) {
+    return RecvPick::holds(nc, u, cap) || (nc == 1 && u == 1 && cap == 0);
+  }
+};
+template <typename V>
+using K6RowPick =
+    std::conditional_t<std::is_same<V, bf16x8>::value, K6Bf16Pick, RecvPick>;
+// The staged bfloat16 K8's (edges a stage, stages, register cap) the
+// shipped library holds at one register chunk, as
+// ops/cuda/edge_softmax.py's _K8_BF16 picks them (the fastest of
+// chip_smoke.py --sweep bf16 without a spill, PERF.md §6).
+struct K8StagedPick {
+  static constexpr bool holds(int u, int ns, int cap) {
+    return (u == 1 && ns == 2 && cap == 0) || (u == 2 && ns == 2 && cap == 0);
+  }
+};
+// bfloat16 K8's register instances: K8Pick's, but on bf16x8 vectors, which
+// the staged kernel takes at every width, none (the sweep build keeps its
+// NC = 1 pairs: see with_row_instances)
+struct NoPick {
+  static constexpr bool holds(int, int, int) { return false; }
+};
+template <typename V>
+using K8RegisterPick =
+    std::conditional_t<std::is_same<V, bf16x8>::value, NoPick, K8Pick>;
+
+// The staged K8's instances at NC register chunks: go(un, ns, minb) at U =
+// unroll edges a stage, NS = stages and reg_cap where the library holds
+// them (NC = 1: in the sweep build U in {1, 2}, NS in {2, 4, 6}, uncapped
+// and at 64 registers, in the shipped library K8StagedPick's; wider rows:
+// U = 1, NS = 2, uncapped, in either). Returns cudaGetLastError() after
+// it, or cudaErrorInvalidValue with nothing launched.
+template <int NC, typename Go>
+int with_staged_instances(int unroll, int stages, int reg_cap, Go&& go) {
+  bool launched = false;
+  auto pick = [&](auto un, auto ns, auto cap) {
+    constexpr int UU = decltype(un)::value, NS = decltype(ns)::value,
+                  C = decltype(cap)::value;
+#ifdef GNN_SWEEP
+    constexpr bool sweep = true;
+#else
+    constexpr bool sweep = false;
+#endif
+    constexpr bool built = NC == 1 ? sweep || K8StagedPick::holds(UU, NS, C)
+                                   : UU == 1 && NS == 2 && C == 0;
+    if constexpr (built) {
+      if (unroll == UU && stages == NS && reg_cap == C) {
+        go(un, ns, MinBlocks<C>{});
+        launched = true;
+      }
+    }
+  };
+  auto caps = [&](auto un, auto ns) {
+    pick(un, ns, I0{});
+    pick(un, ns, I64{});
+  };
+  using I6 = std::integral_constant<int, 6>;
+  caps(I1{}, I2{});
+  caps(I1{}, I4{});
+  caps(I1{}, I6{});
+  caps(I2{}, I2{});
+  caps(I2{}, I4{});
+  caps(I2{}, I6{});
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches a staged kernel with its ring of dynamic shared memory (above
+// 48 KB asked for with cudaFuncSetAttribute; where that fails, nothing is
+// launched and the error stays for cudaGetLastError).
+template <typename Kernel, typename... Args>
+void launch_staged(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
+                   Args... args) {
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return;
+  kernel<<<grid, kThreads, smem, st>>>(args...);
+}
 
 // Whether V is a bfloat16 storage vector, and the widest rows, in vectors,
 // that its instances of K3, K4 and K5 hold in registers (passes beyond).
@@ -2091,7 +2426,7 @@ int launch_dot_softmax(const int* indptr, const int* col, const void* q,
     if (!dot_layout_ok(lg, log_rows, heads))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid = row_grid(n_rows, log_rows, heads);
-    return with_row_instances<RecvPick, false, kLow<V>>(
+    return with_row_instances<K6RowPick<V>, false, kLow<V>, kLow<V>>(
         wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
           dot_softmax_rows_kernel<V, decltype(nc)::value,
                                   decltype(un)::value, decltype(minb)::value>
@@ -2208,7 +2543,7 @@ int launch_dot_bwd_rev(const int* indptr, const int* col, const void* q,
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K8Pick, false, kLow<V>>(
+  return with_row_instances<K8RegisterPick<V>, false, kLow<V>, kLow<V>>(
       wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         dot_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
                            decltype(minb)::value><<<grid, kThreads, 0, st>>>(
@@ -2218,6 +2553,42 @@ int launch_dot_bwd_rev(const int* indptr, const int* col, const void* q,
             static_cast<V*>(dv_out), n_rows, heads, ov, dv, lg, log_rows,
             scale, slope);
       });
+}
+
+// K8, staged (see dot_bwd_rev_staged_kernel): bf16x8 rows in NC register
+// chunks (with_chunks), the receivers' scalars packed in stats, at the
+// instances with_staged_instances holds.
+int launch_dot_bwd_rev_staged(const int* indptr, const int* col,
+                              const void* q, const void* k, const void* v,
+                              const float* stats, const void* dy, void* dk,
+                              void* dv_out, int n_rows, int heads, int ov,
+                              int dv, int log_rows, int unroll, int stages,
+                              int reg_cap, float scale, float slope,
+                              cudaStream_t st) {
+  using V = bf16x8;
+  const int wide = ov > dv ? ov : dv;
+  const int lg = log_group(wide);
+  if (!dot_layout_ok(lg, log_rows, heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  int rc = 0;
+  const int chunks = with_chunks(wide, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    rc = with_staged_instances<NC>(
+        unroll, stages, reg_cap, [&](auto un, auto ns, auto minb) {
+          constexpr int U = decltype(un)::value, NS = decltype(ns)::value;
+          launch_staged(
+              dot_bwd_rev_staged_kernel<V, NC, U, NS, decltype(minb)::value>,
+              grid, sizeof(RevSlot<V, NC>) * U * NS * kWarpsPerBlock, st,
+              indptr, col, static_cast<const V*>(q), static_cast<const V*>(k),
+              static_cast<const V*>(v),
+              reinterpret_cast<const float4*>(stats),
+              static_cast<const V*>(dy), static_cast<V*>(dk),
+              static_cast<V*>(dv_out), n_rows, heads, ov, dv, lg, log_rows,
+              scale, slope);
+        });
+  });
+  return rc != 0 ? rc : chunks;
 }
 
 // K11 in rows (see gatv2_bwd_rev_kernel), at the instances
@@ -2876,7 +3247,12 @@ int dot_bwd_rev_f32(const int* indptr, const int* col, const float* q,
 // both widths take (dot_bf16_vec: 8 values, 4, or one); the wider of o and
 // d may be 256 vectors (2,048 values at 8 a vector, 256 at one). Strips
 // are a 128-byte line wide (8 bf16x8 or 16 bf16x4 vectors) or 32 single
-// values: scratch as dot_softmax_f32's with S that many vectors.
+// values: scratch as dot_softmax_f32's with S that many vectors. K8's
+// stages: 0, the register kernel (dot_bwd_rev_kernel); 2 or more, the
+// staged one (dot_bwd_rev_staged_kernel), on bf16x8 rows only, reading the
+// receivers' mx, den and s_n packed in stats [rows, H, 4], 16-byte aligned
+// (see with_staged_instances for the instances built); any other returns
+// cudaErrorInvalidValue.
 int dot_softmax_bf16(const int* indptr, const int* col, const bf16x1* q,
                      const bf16x1* k, const bf16x1* v, bf16x1* num, float* m,
                      float* s, float* raw, float* scratch, int n_rows,
@@ -2931,12 +3307,22 @@ int dot_bwd_dq_bf16(const int* indptr, const int* col, const bf16x1* q,
 
 int dot_bwd_rev_bf16(const int* indptr, const int* col, const bf16x1* q,
                      const bf16x1* k, const bf16x1* v, const float* mx,
-                     const float* den, const float* s_n, const bf16x1* dy,
-                     bf16x1* dk, bf16x1* dv, int n_rows, int heads, int o,
-                     int d, int log_rows, int unroll, int reg_cap,
-                     float scale, float slope, void* stream) {
+                     const float* den, const float* s_n, const float* stats,
+                     const bf16x1* dy, bf16x1* dk, bf16x1* dv, int n_rows,
+                     int heads, int o, int d, int log_rows, int unroll,
+                     int reg_cap, int stages, float scale, float slope,
+                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dot_bf16_vec(o, d, {q, k, v, dy, dk, dv})) {
+  const int vec = dot_bf16_vec(o, d, {q, k, v, dy, dk, dv});
+  if (stages) {
+    if (vec != 16 || stats == nullptr || !aligned16(stats))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dot_bwd_rev_staged(indptr, col, q, k, v, stats, dy, dk, dv,
+                                     n_rows, heads, o / 8, d / 8, log_rows,
+                                     unroll, stages, reg_cap, scale, slope,
+                                     st);
+  }
+  switch (vec) {
     case 16:
       return launch_dot_bwd_rev<bf16x8>(indptr, col, q, k, v, mx, den, s_n,
                                         dy, dk, dv, n_rows, heads, o / 8,

@@ -30,7 +30,10 @@ edges in flight (``csrc/edge_softmax.cu``):
   ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward. K6 and K7
   build a head wider than one 128-byte line whose table the L2 cannot hold
   in passes over column strips (:func:`_dot_recv_layout`,
-  :func:`_dot_bwd_rev_layout`).
+  :func:`_dot_bwd_rev_layout`). bfloat16 K6 and K8 have a layout table of
+  their own (``_K6_BF16``, ``_K8_BF16``), and K8 a kernel that stages the
+  gathered rows in shared memory and reads the receivers' scalars packed
+  (:func:`_receiver_stats`).
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
 self-loop folds in afterwards (:func:`finalize_softmax`). Five autograd
@@ -180,6 +183,24 @@ _DOT_ROWS_NARROW = (2, 64)
 _DOT_STRIP_BYTES = 16 * 2**20
 _DOT_LINE_BYTES = 128
 _DOT_STRIP_INSTANCE = (4, 0)
+# bfloat16 K6 and K8 have a table of their own, from chip_smoke.py --sweep
+# bf16 (PERF.md §6): for bf16x8 rows whose wider side is at most so many
+# bytes, K6's (edges in flight, register cap, index windows a row) and
+# K8's (edges in flight or a stage, register cap, stages, index windows a
+# row); stages 0 is the register kernel, more the staged one
+# (csrc/edge_softmax.cu), which takes bf16x8 rows of any width (past 512
+# bytes in register chunks of 32 vectors, one edge, two stages,
+# uncapped). Rows of 8-byte vectors or single values, and K6 rows wider
+# than its last entry, take the register kernel as float32 picks it (and
+# bfloat16 did before). K6 keeps bf16x8 heads of at most
+# _DOT_BF16_ROWS_BYTES in rows whatever their table's size (at AGNN's
+# (1, 128, 128) rows beat strips on tables of 32, 64 and 128 MiB); other
+# heads take float32's strips rule (wider bf16x8 heads: strips won at 48,
+# 66 and 96 MiB), in lines of the widest vector at _DOT_STRIP_INSTANCE;
+# K7 keeps the float32 rule.
+_K6_BF16 = ((32, (1, 0, 2)), (512, (4, 64, 2)))
+_K8_BF16 = ((32, (1, 0, 2, 2)), (512, (2, 0, 2, 4)), (4096, (1, 0, 2, 2)))
+_DOT_BF16_ROWS_BYTES = 256
 
 
 @functools.cache
@@ -206,7 +227,7 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
                                     ("dot_bwd_rev_f32", 11, 7, 2),
                                     ("dot_softmax_bf16", 10, 9, 2),
                                     ("dot_bwd_dq_bf16", 12, 9, 2),
-                                    ("dot_bwd_rev_bf16", 11, 7, 2)):
+                                    ("dot_bwd_rev_bf16", 12, 8, 2)):
         f = getattr(lib, fn)
         f.argtypes = [ptr] * n_ptr + [i32] * n_int + [f32] * n_f32 + [ptr]
         f.restype = i32
@@ -923,6 +944,13 @@ def _gatv2_bwd_rev_layout(ov: int, vec_bytes: int, n_rows: int,
     return log_rows, 1, 0, packed
 
 
+def _receiver_stats(mx, den, s_n):
+    """The receivers' ``(mx, den, s_n)`` packed as ``[rows, H, 4]``
+    float32 (the fourth ``mx`` again, unread) for one 16-byte load an
+    edge."""
+    return torch.stack((mx, den, s_n, mx), -1)
+
+
 def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
                           layout=None):
     """K11 at :func:`_gatv2_bwd_rev_layout`'s layout, or at ``layout``
@@ -944,7 +972,7 @@ def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
         layout = _gatv2_bwd_rev_layout(
             *_row_vectors(d, dy.element_size(), q, k, dy, dk), n,
             col.numel())
-    stats = torch.stack((mx, den, s_n, mx), -1) if layout[3] else None
+    stats = _receiver_stats(mx, den, s_n) if layout[3] else None
     _launch(*_gat_fn("gatv2_bwd_rev", "k11", dy), device, *args[:8],
             _ptr(stats), args[8], _ptr(dk), n, heads, d, *layout[:3],
             float(slope), sweep=sweep)
@@ -1003,19 +1031,25 @@ def _line_vectors(vec_bytes: int) -> int:
 
 
 def _dot_recv_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
-                     n_rows: int, entries: int) -> tuple[int, int, int, int]:
+                     n_rows: int, entries: int, elem: int = 4,
+                     kernel: int = 6) -> tuple[int, ...]:
     """K6's and K7's ``(strips, log_rows, unroll, reg_cap)`` for a head of
     ``ov`` (q, k) and ``dv`` (v, dy) vectors of ``vec_bytes`` (16: float4
     or 8 bfloat16 values; 8: 4 bfloat16 values; 4: a float; 2: one
     bfloat16 value), ``n_src`` sender rows and ``entries / n_rows`` edges
-    per receiver on average.
+    per receiver on average, rows of ``elem``-byte values.
 
     Strips (1) for a head wider than one strip (:func:`_line_vectors`)
     whose slice of the wider gathered table exceeds ``_DOT_STRIP_BYTES``:
     :func:`_windowed_rows` rows of one-strip edge groups at
     ``_DOT_STRIP_INSTANCE``. Else rows (0), as many per warp as K8's:
     for rows of one register chunk ``_DOT_ROWS_LINE`` or
-    ``_DOT_ROWS_NARROW``, for wider rows one edge in flight, uncapped."""
+    ``_DOT_ROWS_NARROW``, for wider rows one edge in flight, uncapped.
+    bfloat16 K6 (``elem`` 2, ``kernel`` 6) takes
+    :func:`_dot_softmax_bf16_layout`; bfloat16 K7 the rule above."""
+    if elem == 2 and kernel == 6:
+        return _dot_softmax_bf16_layout(ov, dv, vec_bytes, n_src, n_rows,
+                                        entries)
     wide = max(ov, dv, 1)
     line = _line_vectors(vec_bytes)
     if wide > line and n_src * wide * vec_bytes > _DOT_STRIP_BYTES:
@@ -1027,19 +1061,65 @@ def _dot_recv_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
     return (0, log_rows) + _rows_instance(wide, vec_bytes << log_g)
 
 
+def _bf16_dot_rows(table, ov: int, dv: int, vec_bytes: int, n_rows: int,
+                   entries: int) -> tuple[int, ...] | None:
+    """The rows of bfloat16 K6 or K8 that ``table`` (``_K6_BF16``,
+    ``_K8_BF16``) gives a head of ``ov`` and ``dv`` vectors of the widest
+    ``vec_bytes`` its rows take: ``log_rows`` (:func:`_windowed_rows` at
+    the entry's windows) and the entry's instance; None for rows of
+    narrower vectors than bf16x8 or wider than the table's last entry."""
+    row_bytes = max(ov, dv, 1) * vec_bytes
+    pick = next((e for most, e in table if row_bytes <= most), None)
+    if pick is None or vec_bytes != 16:
+        return None
+    log_g = min((max(ov, dv, 1) - 1).bit_length(), 5)
+    return (_windowed_rows(log_g, n_rows, entries, pick[-1]),) + pick[:-1]
+
+
+def _dot_softmax_bf16_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
+                             n_rows: int, entries: int,
+                             strips: bool | None = None
+                             ) -> tuple[int, int, int, int]:
+    """bfloat16 K6's ``(strips, log_rows, unroll, reg_cap)`` for a head of
+    ``ov`` and ``dv`` vectors of the widest ``vec_bytes`` its rows take
+    (16, 8 or 2), ``n_src`` sender rows and ``entries / n_rows`` edges per
+    receiver: strips (where ``strips`` is None) for a head wider than a
+    line whose wider table exceeds ``_DOT_STRIP_BYTES``, but for bf16x8
+    heads of at most ``_DOT_BF16_ROWS_BYTES``; else rows by ``_K6_BF16``
+    (:func:`_bf16_dot_rows`), or as float32 picks them."""
+    wide = max(ov, dv, 1)
+    line = _line_vectors(vec_bytes)
+    if strips is None:
+        strips = (wide > line and n_src * wide * vec_bytes > _DOT_STRIP_BYTES
+                  and not (vec_bytes == 16
+                           and wide * vec_bytes <= _DOT_BF16_ROWS_BYTES))
+    if strips:
+        log_s = (line - 1).bit_length()
+        return ((1, _windowed_rows(log_s, n_rows, entries,
+                                   _K8_WINDOWS_PER_ROW))
+                + _DOT_STRIP_INSTANCE)
+    rows = _bf16_dot_rows(_K6_BF16, ov, dv, vec_bytes, n_rows, entries)
+    if rows is not None:
+        return (0,) + rows
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
+    return (0, log_rows) + _rows_instance(wide, vec_bytes << log_g)
+
+
 def _strips(vectors: int, vec_bytes: int) -> int:
     """The strips (:func:`_line_vectors`) of a head of ``vectors`` vectors
     of ``vec_bytes``."""
     return -(-vectors // _line_vectors(vec_bytes))
 
 
-def _recv_layout(layout, ov, dv, vec_bytes, n_src, n_rows, entries):
+def _recv_layout(layout, ov, dv, vec_bytes, n_src, n_rows, entries,
+                 elem=4, kernel=6):
     """``layout``, or :func:`_dot_recv_layout`'s where it is None; and
     whether the call goes to the sweep build."""
     if layout is not None:
         return tuple(layout), True
-    return _dot_recv_layout(ov, dv, vec_bytes, n_src, n_rows,
-                            entries), False
+    return _dot_recv_layout(ov, dv, vec_bytes, n_src, n_rows, entries, elem,
+                            kernel), False
 
 
 def _dot_softmax_kernel(indptr, col, q, k, v, scale, slope, raw_out=None,
@@ -1047,7 +1127,8 @@ def _dot_softmax_kernel(indptr, col, q, k, v, scale, slope, raw_out=None,
     """K6 at :func:`_dot_recv_layout`'s layout, or at ``layout``
     (``(strips, log_rows, unroll, reg_cap)``) from the sweep build of the
     library, which holds every instance (``build.load``; bfloat16 rows:
-    only the shipped ones). Strips allocate their scratch: the partial
+    the shipped ones and, in rows of one register chunk, every (unroll,
+    reg_cap) one). Strips allocate their scratch: the partial
     logits of every strip and the weights, ``H * (strips + 1) * E``
     floats, and ``raw_out`` where not given. bfloat16 rows take
     ``dot_softmax_bf16``, ``num`` in bfloat16; ``m``, ``s`` and ``raw_out``
@@ -1062,7 +1143,8 @@ def _dot_softmax_kernel(indptr, col, q, k, v, scale, slope, raw_out=None,
     if n == 0 or heads == 0:
         return num, m, s
     ov, dv, vec = _dot_vectors(o, d, q, k, v, num)
-    layout, sweep = _recv_layout(layout, ov, dv, vec, k.shape[0], n, n_edges)
+    layout, sweep = _recv_layout(layout, ov, dv, vec, k.shape[0], n, n_edges,
+                                 v.element_size())
     scratch = None
     if layout[0]:
         if raw_out is None:
@@ -1102,7 +1184,8 @@ def _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
     if n == 0 or heads == 0:
         return dq
     ov, dv, vec = _dot_vectors(o, d, q, k, v, dy, dq)
-    layout, sweep = _recv_layout(layout, ov, dv, vec, k.shape[0], n, n_edges)
+    layout, sweep = _recv_layout(layout, ov, dv, vec, k.shape[0], n, n_edges,
+                                 dy.element_size(), kernel=7)
     scratch = None
     if layout[0]:
         parts = (1 + _strips(dv, vec)
@@ -1115,29 +1198,39 @@ def _dot_bwd_dq_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale, slope,
     return dq
 
 
-def _dot_bwd_rev_layout(ov: int, dv: int, n_rows: int,
-                        entries: int) -> tuple[int, int, int]:
+def _dot_bwd_rev_layout(ov: int, dv: int, n_rows: int, entries: int,
+                        vec_bytes: int = 16, elem: int = 4
+                        ) -> tuple[int, ...]:
     """K8's ``(log_rows, unroll, reg_cap)`` for a head of ``ov`` (q, k) and
     ``dv`` (v, dy) vectors and ``entries / n_rows`` edges per sender on
     average: :func:`_windowed_rows` rows of ``G``-lane edge groups at
     ``_K8_WINDOWS_PER_ROW``; ``_K8_UNROLL`` edges in flight at
     ``_K8_REG_CAP`` registers for rows of one register chunk (at most 32
-    vectors), one edge and no cap for wider rows."""
+    vectors), one edge and no cap for wider rows. bfloat16 rows (``elem``
+    2, vectors of the widest ``vec_bytes`` they take: 16, 8 or 2) add
+    ``stages``: ``_K8_BF16``'s rows (:func:`_bf16_dot_rows`), else the
+    above with stages 0."""
     wide = max(ov, dv, 1)
     log_g = min((wide - 1).bit_length(), 5)
     log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
-    if wide <= 32:
-        return log_rows, _K8_UNROLL, _K8_REG_CAP
-    return log_rows, 1, 0
+    rows = ((log_rows, _K8_UNROLL, _K8_REG_CAP) if wide <= 32
+            else (log_rows, 1, 0))
+    if elem == 4:
+        return rows
+    return (_bf16_dot_rows(_K8_BF16, ov, dv, vec_bytes, n_rows, entries)
+            or rows + (0,))
 
 
 def _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
                         slope, layout=None):
     """K8 at :func:`_dot_bwd_rev_layout`'s layout, or at ``layout``
-    (``(log_rows, unroll, reg_cap)``) from the sweep build of the library,
-    which holds every (unroll, reg_cap) instance (``build.load``; bfloat16
-    rows: only the shipped ones). bfloat16 rows take ``dot_bwd_rev_bf16``,
-    ``dk`` and ``dv`` in bfloat16."""
+    (``(log_rows, unroll, reg_cap)``; bfloat16 rows also ``stages``) from
+    the sweep build of the library, which holds every (unroll, reg_cap)
+    instance (``build.load``; bfloat16 rows: the shipped ones and, for
+    rows of one register chunk, every (unroll, reg_cap) and staged
+    instance). bfloat16 rows take ``dot_bwd_rev_bf16``,
+    ``dk`` and ``dv`` in bfloat16; its staged layouts read the receivers'
+    scalars packed (:func:`_receiver_stats`, built once a call)."""
     device, args = _dot_bwd_args(indptr, col, q, k, v, mx, den, s_n, dy)
     n, heads, o, d = indptr.numel() - 1, k.shape[1], k.shape[2], v.shape[2]
     _same_rows(n, k=k)
@@ -1146,10 +1239,17 @@ def _dot_bwd_rev_kernel(indptr, col, q, k, v, mx, den, s_n, dy, scale,
     if n == 0 or heads == 0:
         return dk, dv
     sweep = layout is not None
+    elem = dy.element_size()
     if not sweep:
-        layout = _dot_bwd_rev_layout(
-            *_dot_vectors(o, d, q, k, v, dy, dk, dv)[:2], n, col.numel())
-    _launch(*_gat_fn("dot_bwd_rev", "k8", dy), device, *args, _ptr(dk),
+        ov, dv_, vec = _dot_vectors(o, d, q, k, v, dy, dk, dv)
+        layout = _dot_bwd_rev_layout(ov, dv_, n, col.numel(), vec, elem)
+    fn, key = _gat_fn("dot_bwd_rev", "k8", dy)
+    if elem == 4:
+        _launch(fn, key, device, *args, _ptr(dk), _ptr(dv), n, heads, o, d,
+                *layout, float(scale), _kernel_slope(slope), sweep=sweep)
+        return dk, dv
+    stats = _receiver_stats(mx, den, s_n) if layout[3] else None
+    _launch(fn, key, device, *args[:8], _ptr(stats), args[8], _ptr(dk),
             _ptr(dv), n, heads, o, d, *layout, float(scale),
             _kernel_slope(slope), sweep=sweep)
     return dk, dv

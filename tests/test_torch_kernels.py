@@ -1334,17 +1334,76 @@ def _dot_bf16_kernels_case(g, heads, o, d, seed):
     return q, k, v
 
 
+# the graph sizes of chip_smoke.py's 2h (bench.py's train graph), whose
+# chosen bfloat16 K6 and K8 layouts the card tests run on their own graphs
+MAIN_N, MAIN_E = 131_072, 2_000_000
+
+
+def _dot_bf16_layouts_case(g, heads, o, d, seed, k6_layouts=()):
+    """bfloat16 K6 (writing the raw logits) and K8 at each layout their
+    choosers give at this graph's size and at 2h's (``MAIN_N``,
+    ``MAIN_E``), and K6 also at ``k6_layouts``, each from the sweep build,
+    plain dot and with a slope: num, dk and dv within one bfloat16 ulp of
+    the plain version, m, s and the raw logits at the float32 tolerance,
+    and a second run the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, ne = g.num_nodes, g.num_edges
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+
+    q, k, v, dy = rn(n, heads, o), rn(n, heads, o), rn(n, heads, d), \
+        rn(n, heads, d)
+    ov, dv, vec = ES._dot_vectors(o, d, q, k, v)
+    lays6 = {ES._dot_recv_layout(ov, dv, vec, n, rows, ent, 2)
+             for rows, ent in ((n, ne), (MAIN_N, MAIN_E))} | set(k6_layouts)
+    lays8 = {ES._dot_bwd_rev_layout(ov, dv, rows, ent, vec, 2)
+             for rows, ent in ((n, ne), (MAIN_N, MAIN_E))}
+    tol = dict(rtol=1e-5, atol=1e-4)
+    for slope in (None, SLOPE):
+        fwd = (g.indptr_r, g.col_r, q, k, v, o ** -0.5, slope)
+        praw = torch.empty(ne, heads, device="cuda")
+        want = ES.dot_softmax_plain(*fwd, praw)
+        for lay in sorted(lays6):
+            runs = []
+            for _ in range(2):
+                raw = torch.empty(ne, heads, device="cuda")
+                runs.append(ES._dot_softmax_kernel(*fwd, raw, lay) + (raw,))
+            _assert_bf16_close(runs[0][0], want[0])
+            for x, y in zip(runs[0][1:], want[1:] + (praw,)):
+                torch.testing.assert_close(x, y, **tol)
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), lay
+        out, mx, den = ES.finalize_softmax(*want, rn(n, heads),
+                                           rn(n, heads, d))
+        bwd = (g.indptr_s, g.col_s, q, k, v, mx, den,
+               (out.float() * dy.float()).sum(-1), dy, o ** -0.5, slope)
+        want8 = ES.dot_bwd_rev_plain(*bwd)
+        for lay in sorted(lays8):
+            runs = [ES._dot_bwd_rev_kernel(*bwd, layout=lay)
+                    for _ in range(2)]
+            for x, y in zip(runs[0], want8):
+                _assert_bf16_close(x, y)
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), lay
+    torch.cuda.synchronize()
+    return lays6, lays8
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("heads,o,d", [(4, 32, 32), (1, 8, 8), (1, 13, 13),
-                                       (2, 4, 12), (1, 264, 264)])
+                                       (2, 4, 12), (1, 264, 264),
+                                       (1, 128, 128), (1, 1032, 1032)])
 def test_dot_bf16_kernels_match_plain_on_card(heads, o, d):
     """K6, K7 and K8 on bfloat16 rows in rows: 16-byte vectors (32, 8;
-    264: 33 vectors, two register chunks), 8-byte ones (4 and 12) and
-    single values (13); nodes 40-49 have no in-edges and no out-edges."""
+    264: 33 vectors, two register chunks; 128; 1032: 129 vectors, eight
+    chunks, K8 reading k and v again at each dot), 8-byte ones (4 and 12) and
+    single values (13); nodes 40-49 have no in-edges and no out-edges. K6
+    and K8 also at each layout their choosers give here and at 2h's size,
+    forward and backward, the same bits in two runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    _dot_bf16_kernels_case(_graph(16, "cuda", torch.float32), heads, o, d,
-                           heads * 1000 + o + d)
+    g = _graph(16, "cuda", torch.float32)
+    _dot_bf16_kernels_case(g, heads, o, d, heads * 1000 + o + d)
+    _dot_bf16_layouts_case(g, heads, o, d, heads * 1000 + o + d + 1)
 
 
 @pytest.mark.gpu
@@ -1352,8 +1411,10 @@ def test_dot_bf16_kernels_match_plain_on_card(heads, o, d):
 def test_dot_bf16_strips_match_plain_on_card(o, vec_bytes):
     """K6 and K7 on bfloat16 rows in strips (AGNN's (1, 128, 128), and 4-
     and 1-value vectors: strips of a 128-byte line, 16 or 32 vectors) on a
-    graph whose sender table is wider than ``_DOT_STRIP_BYTES``, asserted,
-    and K8 beside them, against their plain versions."""
+    graph whose sender table is wider than ``_DOT_STRIP_BYTES`` (K7's
+    strips, asserted), and K8 beside them, against their plain versions;
+    K6 also at the strips and at its chooser's layouts here and at 2h's
+    size, and K8 at its, the same bits in two runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     g = tgnn.rand_graph(80_000, 400_000, seed=o, device="cuda")
@@ -1361,7 +1422,9 @@ def test_dot_bf16_strips_match_plain_on_card(o, vec_bytes):
     ov, dv, vec = ES._dot_vectors(o, o, q, k, v)
     assert vec == vec_bytes
     assert ES._dot_recv_layout(ov, dv, vec, g.num_nodes, g.num_nodes,
-                               g.num_edges)[0] == 1
+                               g.num_edges, 2, 7)[0] == 1
+    _dot_bf16_layouts_case(g, 1, o, o, o + 1, [ES._dot_softmax_bf16_layout(
+        ov, dv, vec, g.num_nodes, g.num_nodes, g.num_edges, strips=True)])
 
 
 def _dot_scales(g, n_dst, q, k, v, sl, sv, dy, scale):
