@@ -53,14 +53,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (bench.py's ``large_pallas_bf16``) and 8, over the sender CSR at D =
    128 and 8 and weighted at D = 128, over ``[E, D]`` edge rows at D = 128
    and 8 and by edge id over the sender CSR at D = 128; K2 at D =
-   128, 8 and (H, D) = (4, 32) in one launch; K3, K4 and K5 at (4, 32),
+   128, 8 and (H, D) = (4, 32) and (4, 128) in one launch (one case on
+   each path of its chooser); K3, K4 and K5 at (4, 32),
    (1, 8) and (1, 128) (bench.py's ``attention_bf16``); K9, K10 (``dq``;
    its float32 ``da`` against the plain version in float64, as 2c) and
    K11 at (H, O) = (4, 32) and (1, 8); K6 (writing the raw logits), K7
    (from them) and K8 at 2d's (H, O, D) = (4, 32, 32), (1, 8, 8), (1, 128,
-   128) (K7 in strips) and (4, 32, 32) with a slope, and at (1, 264,
+   128) (K6 and K7 in rows) and (4, 32, 32) with a slope, and at (1, 264,
    264) (K6 and K7 in strips), each at the layout its chooser gives
-   (logged: bfloat16 K6's and K8's tables of their own, K8's staged
+   (logged: bfloat16 K6's, K7's and K8's tables of their own, K8's staged
    kernel reading the receiver scalars packed); K12 at (4, 32)
    with node values, with them and a dropout mask, with edge values and
    the mask, and at (1, 8) with the mask; K13 at D = 128, 32 and (4, 32);
@@ -245,7 +246,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``make_mesh_train_step`` on a (data 2 x graph 2) mesh of 4 gloo ranks
    over two community graphs (seeds 0 and 1), 3a's GCN and the dryrun's
    ``GCNConv(128, 128, relu)``, ``GATConv(128, 128, heads=2,
-   concat=False)``, ``Linear(128, 8)`` (``__graft_entry__.py:38-146``), 10
+   concat=False)``, ``Linear(128, 8)`` (``__graft_entry__.py:38-146``),
+   one model after the other in one spawn of the ranks, 10
    Adam steps timed by ``profiling.StepTimer``: losses and parameters
    against one card training the same model on both graphs, K1/K3/K4/K5
    launches per rank, a checkpoint after step 5 restored into fresh
@@ -267,10 +269,12 @@ measurement behind the wrappers' choices; each layout but K14's held to
 the plain version first), K1's gather-rate ceiling at D=128, and K1, K2,
 K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees, and the
-bfloat16 K1, K3-K5, K6 and K8 at every layout of their sweep build
-(``bf16``; K6 and K8 also alone, ``bf16_dot``, and K6's rows against
-strips on tables of 32 to 128 MiB, ``bf16_strips``) (``--sweep
-k12,k4,skew`` runs the named sweeps only; with k1, K1 also at 2g's shapes);
+bfloat16 K1, K2, K3-K8 at every layout of their sweep build
+(``bf16``; K6 and K8 also alone, ``bf16_dot``, K6's rows against strips
+on tables of 32 to 128 MiB, ``bf16_strips``, K7, ``bf16_k7``, and K2,
+``bf16_k2``, each with a summary of the fastest, chosen and parent
+layouts) (``--sweep k12,k4,skew`` runs the named sweeps only; with k1,
+K1 also at 2g's shapes); the log ends with the seconds each phase took;
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
 and the train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, 3q, 3s, 2j, 3r, 3m
 and 3n, with ``--profile`` their profiles; 3v, 3o, 3p, 3q, 3r and 3s
@@ -457,14 +461,33 @@ BF16_KAPPA = {"GATv2": 1.5}
 
 
 _T0 = time.perf_counter()
+_HEADINGS = []   # (phase, seconds since the start) of each phase heading
 
 
 def log(msg: str) -> None:
     """Print ``msg``; a phase's heading also gets the seconds since the
     script started, so the log shows where the run's time goes."""
     if msg.startswith("phase "):
-        msg += f"  [{time.perf_counter() - _T0:.1f} s]"
+        t = time.perf_counter() - _T0
+        # "3o (3c)": 3o's card-vs-CPU steps apart from its training
+        head = msg.split(":")[0][6:]
+        _HEADINGS.append((head if head.endswith("(3c)")
+                          else head.split(" (")[0], t))
+        msg += f"  [{t:.1f} s]"
     print(msg, flush=True)
+
+
+def log_phase_seconds() -> dict:
+    """The seconds each phase took, from its headings to the next heading
+    (the last to now), summed over its headings; logged and returned."""
+    now = time.perf_counter() - _T0
+    spans = {}
+    for (name, t), (_, t_next) in zip(_HEADINGS,
+                                      _HEADINGS[1:] + [("", now)]):
+        spans[name] = spans.get(name, 0.0) + t_next - t
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in spans.items()))
+    return spans
 
 
 def smi(query: str) -> str:
@@ -502,11 +525,13 @@ _MANGLED_VECTORS = {"5uint4": "bf16x8", "5uint2": "bf16x4", "t": "bf16x1",
 
 
 def log_dot_bf16_ptxas(text: str) -> list:
-    """Each bfloat16 instance of K6 (rows, strips) and K8 (register and
-    staged) in ``edge_softmax``'s ``-Xptxas=-v`` report: its kernel,
-    vector, template integers, registers and spill bytes (stores, loads),
-    logged and returned."""
-    pat = re.compile(r"(dot_(?:softmax|bwd_rev|strip_\w+?)(?:_rows|_staged)?"
+    """Each bfloat16 instance of K6 (rows, strips), K7 (rows, strips) and
+    K8 (register and staged) in ``edge_softmax``'s
+    ``-Xptxas=-v`` report, or of K2 (per head, all heads) in ``spmm``'s:
+    its kernel, vector, template integers, registers and spill bytes
+    (stores, loads), logged and returned."""
+    pat = re.compile(r"((?:dot_(?:softmax|bwd_rev|bwd_dq|strip_\w+?)"
+                     r"(?:_rows|_staged)?|spmm_sddmm_(?:csr|heads))"
                      r"_kernel)I(Li\d+E)?(5uint4|5uint2|t|6float4|f)"
                      r"((?:Li\d+E)*)E")
     rows, fn = [], None
@@ -1047,12 +1072,14 @@ def bf16_phase(g, gb, card: str) -> dict:
     float32 ``da`` held to the plain version in float64, as 2c holds it)
     and K11 at (H, O) = (4, 32) and (1, 8) (3o's GATv2); K6 (writing the
     raw logits), K7 (from them) and K8 at 2d's (H, O, D) = (4, 32, 32),
-    (1, 8, 8), (1, 128, 128), whose K7 takes the strips (asserted), and
+    (1, 8, 8), (1, 128, 128), whose K6 and K7 take rows (asserted), and
     (4, 32, 32) with a slope (3o's Transformer and AGNN), and at
     (1, 264, 264) (K6 and K7 in strips, asserted; K8 in two register
     chunks); K2 over the
-    sender CSR at D=128 and 8 (3o's GCN with learned edge weights) and at
-    H=4, D=32 in one launch (3o's GAT (b) layer 1); K12 at (4, 32) with
+    sender CSR at D=128 (one whole-row strip) and 8 (3o's GCN with learned
+    edge weights), at H=4, D=32 in one launch (3o's GAT (b) layer 1: the
+    all-heads walk) and at H=4, D=128 (by sender-CSR position over several
+    strips), each layout asserted; K12 at (4, 32) with
     node values,
     with them and the dropout mask, with edge values and the mask, and at
     (1, 8) with node values and the mask (3o's GAT (b)); K13 at D=128 (3o's
@@ -1167,15 +1194,30 @@ def bf16_phase(g, gb, card: str) -> dict:
              again=2 * (E - src) * d if col is not None else 0)
     del a_r, a_s, a_sw, a_e, a_eid
 
-    # K2 over the sender CSR: int32 CSR and eid, bfloat16 w, dy, x, dx, dw
-    for h, d in ((1, D), (1, OUT_D), (GAT_HEADS, D // GAT_HEADS)):
+    # K2 over the sender CSR: int32 CSR and eid, bfloat16 w, dy, x, dx, dw;
+    # one case on each path of bfloat16's chooser (asserted): D=128 one
+    # whole-row strip, D=8 one head by edge id, (4, 32) the all-heads walk,
+    # (4, 128) by sender-CSR position over several strips
+    for h, d, mode, one_strip in ((1, D, 0, True), (1, OUT_D, 0, True),
+                                  (GAT_HEADS, D // GAT_HEADS, 2, True),
+                                  (GAT_HEADS, D, 1, False)):
         rows = (N, d) if h == 1 else (N, h, d)
         w = rn(*((E,) if h == 1 else (E, h)))
         args = (is_, cs, es, w, rn(*rows), rn(*rows))
+        S.spmm_sddmm(*args)   # the layout the wrapper chose and launched
+        lay, strips = S.last_layout["k2_bf16"]
+        log(f"  K2 bf16 H={h} D={d}: layout {lay} "
+            "(log2 rows, log2 strip, unroll, cap, mode: 0 by edge id, 1 by "
+            f"position, 2 all heads), {strips} strip(s)")
+        if lay[4] != mode or (strips == 1) != one_strip:
+            raise AssertionError(
+                f"K2 bf16 at H={h} D={d} must take mode {mode} in "
+                f"{'one' if one_strip else 'several'} strip(s), got {lay}")
         case("k2_bf16", f"bwd sender-CSR H={h} D={d}", S.spmm_sddmm,
              S.spmm_sddmm_plain, args,
              4 * (N + 1 + 2 * E) + 2 * 2 * E * h + 3 * 2 * N * h * d,
-             4 * E * h * d, again=2 * (E - N) * h * d)
+             4 * E * h * d, again=2 * (E - N) * h * d, layout=lay)
+        del w, args
 
     # K12: int32 CSR, bfloat16 logits and mask ([E, H]) and values, the
     # float32 state
@@ -1317,8 +1359,8 @@ def bf16_phase(g, gb, card: str) -> dict:
     # indptr and col; bfloat16 rows q, k, v, dy and num, dq, dk, dv (2 N H
     # O or 2 N H D bytes each); float32 state and s_n (4 N H each) and raw
     # logits (4 E H). K6 writes the raw logits and K7 reads them, as
-    # DotAttentionFunction calls them; AGNN's K7 takes the strips, and
-    # the last head K6's too.
+    # DotAttentionFunction calls them; AGNN's K6 and K7 take rows, the last
+    # head's both the strips (asserted).
     o_s = BF16_STRIP_HEAD
     for h, o, d, slope in DOT_SHAPES + ((1, o_s, o_s, None),):
         q, k, v, dy = rn(N, h, o), rn(N, h, o), rn(N, h, d), rn(N, h, d)
@@ -1332,12 +1374,12 @@ def bf16_phase(g, gb, card: str) -> dict:
         log(f"  K6/K7/K8 bf16 {hd}: rows take {vec}-byte vectors; K6 "
             f"{lay6}, K7 {lay7} (strips, log2 rows, unroll, cap), K8 "
             f"{lay8} (log2 rows, unroll, cap, stages)")
-        if (h, o) in ((1, D), (1, o_s)) and not lay7[0]:
-            raise AssertionError(f"K7 bf16 at (1, {o}, {o}) must take the "
-                                 "strips")
-        if o == o_s and not lay6[0]:
-            raise AssertionError(f"K6 bf16 at (1, {o}, {o}) must take the "
-                                 "strips")
+        if (h, o) == (1, D) and (lay6[0] or lay7[0]):
+            raise AssertionError(f"K6 and K7 bf16 at (1, {o}, {o}) must take "
+                                 "rows")
+        if o == o_s and not (lay6[0] and lay7[0]):
+            raise AssertionError(f"K6 and K7 bf16 at (1, {o}, {o}) must take "
+                                 "the strips")
         idx, nh, eh = 4 * (N + 1 + E), 4 * N * h, 4 * E * h
         no_, nd = 2 * N * h * o, 2 * N * h * d
         # with no L2 reuse every edge reads a whole gathered row (K6, K7:
@@ -1996,6 +2038,8 @@ GATV2_SHAPES = ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D))
 SWEEPS = ("k1", "k2", "k3", "k4", "k5", "k6_k7", "k8", "k9", "k10", "k11",
           "bf16",
           "k12", "k14", "skew")
+# parts of the bf16 sweep that run alone by name
+SWEEP_PARTS = ("bf16_dot", "bf16_strips", "bf16_k7", "bf16_k2")
 
 
 def _k11_args(ES, g, h, o, gen):
@@ -3132,6 +3176,149 @@ def bf16_strip_sweep(gnn, g) -> list:
     return out
 
 
+def _k7_bf16_layouts(o: int, d: int, vec: int) -> list:
+    """Every layout of bfloat16 K7 ``(strips, log_rows, unroll, reg_cap)``
+    the sweep build holds for heads of ``o`` (q, k) and ``d`` (v, dy)
+    values on bf16x8 rows (``vec`` 16; none for narrower rows) of at most
+    32 vectors: every rows per warp at every (edges in flight, register
+    cap) of {1, 2, 4} x {0, 64}; strips of a 128-byte line at every rows
+    per warp for heads wider than a line."""
+    wide = -(-max(o, d, 1) // 8)
+    if vec != 16 or wide > 32:
+        return []
+    log_g = min((wide - 1).bit_length(), 5)
+    out = [(0, r, u, c) for r in range(6 - log_g) for u in (1, 2, 4)
+           for c in (0, 64)]
+    if wide > 8:
+        out += [(1, r, 4, 0) for r in range(6 - 3)]
+    return out
+
+
+def bf16_k7_sweep(g) -> list:
+    """bfloat16 K7 at every layout :func:`_k7_bf16_layouts` gives, at 3o's
+    shapes (Transformer's (4, 32, 32) and (1, 8, 8), AGNN's (1, 128,
+    128)), from K6's raw logits as the main path runs it, each held to the
+    plain version (dq within one bfloat16 ulp, :func:`compare_bf16`) before
+    it is timed (device ms): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K7_BF16``. Each row says whether the
+    chooser takes the layout (``chosen``) and whether the float32 rule that
+    bfloat16 K7 took before took it (``parent``)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+
+    dev, bf = g.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    out = []
+    log("sweep: bf16 K7 layouts (device ms, profiler; strips, log2 rows per "
+        "warp, edges or gathers in flight, register cap)")
+    for h, o, d, slope in DOT_SHAPES[:3]:
+        q, k, v, dy = rn(N, h, o), rn(N, h, o), rn(N, h, d), rn(N, h, d)
+        scale = o ** -0.5
+        hd = f"H={h} O={o} D={d}"
+        ov, dv, vec = ES._dot_vectors(o, d, q, k, v)
+        raw = torch.empty(E, h, device=dev)
+        fwd = ES.dot_softmax_plain(g.indptr_r, g.col_r, q, k, v, scale,
+                                   slope, raw)
+        outp, mx, den = ES.finalize_softmax(*fwd, rn(N, h), rn(N, h, d))
+        bwd = (g.indptr_r, g.col_r, q, k, v, mx, den,
+               (outp.float() * dy.float()).sum(-1), dy, scale, slope)
+        ref = ES.dot_bwd_dq_plain(*bwd, raw)
+        chosen = ES._dot_recv_layout(ov, dv, vec, N, N, E, 2, 7)
+        parent = ES._dot_recv_layout(ov, dv, vec, N, N, E)
+        for lay in _k7_bf16_layouts(o, d, vec):
+            err = compare_bf16(f"K7 bf16 {hd} {lay}",
+                               ES._dot_bwd_dq_kernel(*bwd, raw, lay), ref,
+                               quiet=True)
+            row = {"kernel": "K7", "case": hd, "layout": list(lay),
+                   "chosen": lay == chosen, "parent": lay == parent,
+                   "max_abs_err": err, "device_ms": device_ms(
+                       lambda: ES._dot_bwd_dq_kernel(*bwd, raw, lay))}
+            out.append(row)
+            log(f"  K7 bf16 {hd:<16} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}"
+                f"{' (parent)' * row['parent']}")
+        del q, k, v, dy, raw, fwd, outp, bwd, ref
+    return out
+
+
+def bf16_k2_sweep(g) -> list:
+    """bfloat16 K2 at every layout of the sweep build, at 3o's cases (GCN
+    with learned edge weights' D = 128 and 8, GAT (b)'s H = 4, D = 32):
+    every strip of a line or more, rows per warp, gathers in flight of {1,
+    2, 4, 8} and register cap of {0, 64}, by edge id and by sender-CSR
+    position (modes 0, 1), and for several heads the all-heads walk (mode
+    2: one group of every head's lanes); each held to the plain version
+    (``dx``, ``dw`` within one bfloat16 ulp) before it is timed (device
+    ms): the measurement behind ``ops/cuda/spmm.py``'s ``_K2_BF16``,
+    ``_K2_BF16_WALK`` and ``_K2_BF16_ROW_BYTES``. ``parent``: the layout
+    float32's rule gives, which bfloat16 K2 took before."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    dev, bf = g.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(37)
+    is_, cs, es = g.indptr_s, g.col_s, g.eid_s
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    out = []
+    log("sweep: bf16 K2 layouts (device ms, profiler; log2 rows per warp, "
+        "log2 strip vectors, gathers in flight, register cap, mode)")
+    for h, d in ((1, D), (GAT_HEADS, D // GAT_HEADS), (1, OUT_D)):
+        rows = (N, d) if h == 1 else (N, h, d)
+        args = (is_, cs, es, rn(*((E,) if h == 1 else (E, h))), rn(*rows),
+                rn(*rows))
+        fv, vec = S._row_vectors(d, 2, *args[3:])
+        log_g = min((fv - 1).bit_length(), 5)
+        hd = f"H={h} D={d}"
+        chosen = S._spmm_sddmm_bf16_layout(fv, vec, N, N, E, h)
+        parent = S._spmm_sddmm_layout(fv, vec, N, N, E, h)
+        ref = S.spmm_sddmm_plain(*args)
+        lays = [(r, strip, u, c, mode) for mode in (0, 1)
+                for strip in range(min(log_g, 3), log_g + 1)
+                for r in range(6 - strip) for u in (1, 2, 4, 8)
+                for c in (0, 64)]
+        if h > 1:
+            lg = (h * fv - 1).bit_length()
+            lays += [(r, lg, u, c, 2) for r in range(6 - lg)
+                     for u in (1, 2, 4, 8) for c in (0, 64)]
+        for lay in lays:
+            got = S._spmm_sddmm_kernel(*args, layout=lay)
+            err = max(compare_bf16(f"K2 bf16 {hd} {lay} {nm}", a, b,
+                                   quiet=True)
+                      for nm, a, b in zip(("dx", "dw"), got, ref))
+            row = {"kernel": "K2", "case": hd, "layout": list(lay),
+                   "chosen": lay == chosen, "parent": lay == parent,
+                   "max_abs_err": err, "device_ms": device_ms(
+                       lambda: S._spmm_sddmm_kernel(*args, layout=lay))}
+            out.append(row)
+            log(f"  K2 bf16 {hd:<10} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}"
+                f"{' (parent)' * row['parent']}")
+        del args, ref, got
+    return out
+
+
+def sweep_summary(rows) -> None:
+    """Per kernel and case of a sweep's ``rows``: the fastest layout, the
+    chosen one's and the parent's device ms."""
+    cases = {}
+    for r in rows:
+        cases.setdefault((r["kernel"], r["case"]), []).append(r)
+    for (kernel, case), rs in cases.items():
+        best = min(rs, key=lambda r: r["device_ms"])
+        pick = {k: next((r for r in rs if r.get(k)), None)
+                for k in ("chosen", "parent")}
+        log(f"  summary {kernel} {case}: fastest {tuple(best['layout'])} "
+            f"{best['device_ms']:.4f} ms; "
+            + "; ".join(f"{k} {tuple(r['layout'])} {r['device_ms']:.4f} ms"
+                        if r else f"{k} not swept"
+                        for k, r in pick.items()))
+
+
 def bf16_sweep(gnn, g) -> list:
     """The bfloat16 kernels at every layout their instances allow, at 2h's
     shapes, each held to the plain version (one ulp, :func:`compare_bf16`)
@@ -3141,8 +3328,9 @@ def bf16_sweep(gnn, g) -> list:
     (1, 8) and (1, 128) at every rows per warp, with and without ``pj``
     ahead (K3, K4) or the packed scalars (K5), at each (edges in flight,
     register cap) of their shipped bfloat16 instances (one register
-    chunk); K6 and K8 at every layout of :func:`bf16_dot_sweep`, and K6's
-    rows against strips (:func:`bf16_strip_sweep`)."""
+    chunk); K6 and K8 at every layout of :func:`bf16_dot_sweep`, K6's
+    rows against strips (:func:`bf16_strip_sweep`), K7
+    (:func:`bf16_k7_sweep`) and K2 (:func:`bf16_k2_sweep`)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
@@ -3210,7 +3398,8 @@ def bf16_sweep(gnn, g) -> list:
               (is_, cs) + bwd,
               [(r, u, c, p) for r in rows for u, c in pairs for p in (0, 1)],
               ES._gat_bwd_rev_layout(fv, vec, N, E, ES._BF16_MAX_VECTORS))
-    return out + bf16_dot_sweep(g) + bf16_strip_sweep(gnn, g)
+    return (out + bf16_dot_sweep(g) + bf16_strip_sweep(gnn, g)
+            + bf16_k7_sweep(g) + bf16_k2_sweep(g))
 
 
 def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
@@ -3243,10 +3432,15 @@ def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
             "bf16": lambda: {"bf16": bf16_sweep(gnn, g)},
             "bf16_dot": lambda: {"bf16_dot": bf16_dot_sweep(g)},
             "bf16_strips": lambda: {"bf16_strips": bf16_strip_sweep(gnn, g)},
+            "bf16_k7": lambda: {"bf16_k7": bf16_k7_sweep(g)},
+            "bf16_k2": lambda: {"bf16_k2": bf16_k2_sweep(g)},
             "k14": lambda: {"k14": k14_sweep(g, gb)}}
     out = {}
     for name in names:
         out.update(runs[name]())
+    for name in ("bf16_k7", "bf16_k2"):
+        if name in out:
+            sweep_summary(out[name])
     log("  clocks.sm,power.draw,temperature.gpu: "
         + smi("clocks.sm,power.draw,temperature.gpu"))
     return out
@@ -3750,8 +3944,7 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None, cells=None,
     Adam steps on a float32 loss of the bfloat16 output: 3a's GCN (K1's
     bfloat16 variant 3 times a step), 3d's GAT (K3, K4, K5 twice each),
     3f's GATv2 (K9 and K11 twice, K10 four times: walk and reduce), 3g's
-    Transformer (K6, K7, K8 twice each, in rows) and 3h's AGNN (the same,
-    K7 in strips);
+    Transformer (K6, K7, K8 twice each, in rows) and 3h's AGNN (the same);
     3b's GCN with learned edge weights (K1 2, K2 2); 3e's GAT (b) with
     attention dropout 0.6 in training mode (K12 2, K2 2); 3i's link step,
     the GCN encoder and ``DotDecoder`` on the 2M edges and 2M negatives
@@ -3838,6 +4031,7 @@ def precision_phase(g, x, y, mask, profile: bool, gb=None, cells=None,
     res = {"vs_cpu": {}}
     if cells is not None:
         table = [c for c in table if c[1] in cells] * repeat
+
     for n_run, (name, key, base, inner, args, per_step, ins, fwd, extra,
                 scale) in enumerate(table):
         log(f"phase 3o: {name} of {base} in bfloat16 (models.Precision, "
@@ -4591,7 +4785,7 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
 STEP_KERNELS = {
     "k1": ("spmm_csr_kernel<",),
     "k2": ("spmm_sddmm_csr_kernel<", "spmm_sddmm_weights_kernel",
-           "spmm_sddmm_sum_kernel"),
+           "spmm_sddmm_sum_kernel", "spmm_sddmm_heads_kernel<"),
     "k6": ("dot_softmax_rows_kernel<", "dot_strip_dots_kernel<6,", "dot_strip_stats_kernel<6>",
            "dot_strip_spmm_kernel<6,"),
     "k7": ("dot_bwd_dq_rows_kernel<", "dot_strip_dots_kernel<7,",
@@ -6495,10 +6689,14 @@ def _free_port() -> int:
 
 
 def _rank_entry(rank, fn, nprocs, backend, dev, port, out_dir, args):
+    """A spawned rank: ``fn``'s result and the wall-clock times (host
+    clock, ``time.time``) at which the rank entered, joined its group and
+    finished, saved for :func:`spawn_ranks`."""
     import datetime
 
     import torch.distributed as dist
 
+    times = [time.time()]
     dev = torch.device(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(0)
@@ -6508,8 +6706,10 @@ def _rank_entry(rank, fn, nprocs, backend, dev, port, out_dir, args):
         backend, init_method=f"tcp://localhost:{port}", world_size=nprocs,
         rank=rank, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
     try:
+        times.append(time.time())
         out = fn(rank, nprocs, dev, *args)
-        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        times.append(time.time())
+        torch.save((out, times), os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -6526,6 +6726,7 @@ def spawn_ranks(fn, nprocs: int, backend: str, dev, *args) -> list:
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
         ctx = mp.start_processes(
             _rank_entry, args=(fn, nprocs, backend, str(dev), _free_port(),
                                out_dir, args),
@@ -6541,8 +6742,14 @@ def spawn_ranks(fn, nprocs: int, backend: str, dev, *args) -> list:
                 if p.is_alive():
                     p.kill()
                 p.join()
-        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                           weights_only=False) for r in range(nprocs)]
+        got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                          weights_only=False) for r in range(nprocs)]
+    log(f"  {nprocs} rank(s) of {fn.__name__}: started (spawn and imports) "
+        f"{max(t[0] for _, t in got) - t0:.1f} s after the spawn, joined "
+        f"their group {max(t[1] - t[0] for _, t in got):.1f} s later, ran "
+        f"{max(t[2] - t[1] for _, t in got):.1f} s; "
+        f"{time.time() - t0:.1f} s in all (the slowest rank each)")
+    return [out for out, _ in got]
 
 
 def device_split(prof, steps: int) -> tuple[float, float]:
@@ -6643,21 +6850,13 @@ PAR_PER_STEP = {"gcn": ({"k1": 4}, {"k1": 3}),
                           {"k1": 1, "k3": 1, "k4": 1, "k5": 1})}
 
 
-def mesh_train_rank(rank, nprocs, dev, graphs, parts, name, ckpt_dir,
-                    trace_dir) -> dict:
-    """3u on one rank: ``make_mesh_train_step`` on the (data x graph) mesh,
-    :data:`PAR_STEPS` Adam steps timed by ``profiling.StepTimer``, a
-    checkpoint after step :data:`PAR_CKPT_STEP` (rank 0 writes it), then
-    fresh modules and optimizer restored from it and the steps after it
-    again; last, three more steps under ``profiling.trace``."""
-    import torch.distributed as dist
-
+def mesh_train_rank(rank, nprocs, dev, graphs, parts, names,
+                    base_dir) -> dict:
+    """3u on one rank, for each model of ``names`` in turn
+    (:func:`mesh_train_model`) on one partition of the graphs; the results
+    by model."""
     import graphneuralnetworks_tpu_torch as gnn
-    from graphneuralnetworks_tpu_torch import models as M
     from graphneuralnetworks_tpu_torch import parallel as par
-    from graphneuralnetworks_tpu_torch import profiling
-    from graphneuralnetworks_tpu_torch.checkpoint import (restore_checkpoint,
-                                                          save_checkpoint)
 
     n = len(parts[0])
     mesh = par.Mesh(PAR_MESH, ("data", "graph"))
@@ -6667,6 +6866,27 @@ def mesh_train_rank(rank, nprocs, dev, graphs, parts, name, ckpt_dir,
     d, part = mesh.index("data"), mesh.index("graph")
     x, y = (torch.as_tensor(a, device=dev) for a in par_features(10 + d, n))
     x, y = pgs[d].scatter_nodes(x)[part], pgs[d].scatter_nodes(y)[part]
+    return {name: mesh_train_model(
+        rank, dev, mesh, pgs, x, y, graphs, name,
+        os.path.join(base_dir, f"3u_{name}_ckpt"),
+        os.path.join(base_dir, f"3u_{name}_trace")) for name in names}
+
+
+def mesh_train_model(rank, dev, mesh, pgs, x, y, graphs, name, ckpt_dir,
+                     trace_dir) -> dict:
+    """3u's model ``name`` on one rank: ``make_mesh_train_step`` on the
+    (data x graph) mesh, :data:`PAR_STEPS` Adam steps timed by
+    ``profiling.StepTimer``, a checkpoint after step :data:`PAR_CKPT_STEP`
+    (rank 0 writes it), then fresh modules and optimizer restored from it
+    and the steps after it again; last, three more steps under
+    ``profiling.trace``."""
+    import torch.distributed as dist
+
+    from graphneuralnetworks_tpu_torch import models as M
+    from graphneuralnetworks_tpu_torch import parallel as par
+    from graphneuralnetworks_tpu_torch import profiling
+    from graphneuralnetworks_tpu_torch.checkpoint import (restore_checkpoint,
+                                                          save_checkpoint)
 
     def trainer(seed):
         model = par_model(M, name, dev, seed)
@@ -6905,27 +7125,41 @@ def multi_device_phases(gnn, card, which, out_dir,
                   for i in range(PAR_MESH[0])]
         mparts = [par.partition_nodes(a, b, PAR_N, PAR_MESH[1])
                   for a, b in graphs]
-        res["3u"] = {}
-        for name in ("gcn", "chain"):
-            res["3u"][name] = mesh_train_phase(
-                gnn, M, par, make_train_step, dev, graphs, mparts, name,
-                out_dir)
+        res["3u"] = mesh_train_phases(gnn, M, make_train_step, dev, graphs,
+                                      mparts, ("gcn", "chain"), out_dir)
     return res, kern
 
 
-def mesh_train_phase(gnn, M, par, make_train_step, dev, graphs, parts, name,
-                     out_dir) -> dict:
-    """3u for one model: one forward+backward on the card is held to the
-    CPU plain path in float64, one card trains it on both graphs (the
-    global mean loss), then the mesh of 4 ranks does
+def mesh_train_phases(gnn, M, make_train_step, dev, graphs, parts, names,
+                      out_dir) -> dict:
+    """3u for each model of ``names``: one forward+backward on the card is
+    held to the CPU plain path in float64 and one card trains it on both
+    graphs (the global mean loss) (:func:`mesh_reference`); then the mesh
+    of 4 ranks trains every model in turn, in one spawn of the ranks
     (:func:`mesh_train_rank`); losses, parameters, launches, the resume and
-    the trace are checked."""
+    the trace are checked per model (:func:`mesh_check`)."""
     import tempfile
 
-    log(f"phase 3u ({name}): make_mesh_train_step on a (data {PAR_MESH[0]} "
-        f"x graph {PAR_MESH[1]}) mesh of {PAR_MESH[0] * PAR_MESH[1]} gloo "
-        f"ranks on the one card, two community graphs, {PAR_STEPS} Adam "
-        "steps, against one card training the same model on both graphs")
+    refs = {name: mesh_reference(gnn, M, make_train_step, dev, graphs, name)
+            for name in names}
+    log(f"phase 3u: make_mesh_train_step on a (data {PAR_MESH[0]} x graph "
+        f"{PAR_MESH[1]}) mesh of {PAR_MESH[0] * PAR_MESH[1]} gloo ranks on "
+        f"the one card, two community graphs, {PAR_STEPS} Adam steps of "
+        f"each of {list(names)} in one spawn of the ranks")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(mesh_train_rank, PAR_MESH[0] * PAR_MESH[1],
+                            "gloo", dev, graphs, parts, names, out_dir or tmp)
+    return {name: mesh_check(name, refs[name], [v[name] for v in ranks])
+            for name in names}
+
+
+def mesh_reference(gnn, M, make_train_step, dev, graphs, name) -> dict:
+    """3u's model ``name`` on one card: one forward+backward on graph 0
+    held to the CPU plain path in float64, then :data:`PAR_STEPS` Adam
+    steps on both graphs' global mean loss, with their launches, the run
+    the mesh is held to."""
+    log(f"phase 3u ({name}): one card trains the model the mesh trains on "
+        f"the same two community graphs, {PAR_STEPS} Adam steps")
     gs = [gnn.graph(s, r, num_nodes=PAR_N, device=dev) for s, r in graphs]
     data = [tuple(torch.as_tensor(a, device=dev) for a in par_features(10 + i))
             for i in range(len(gs))]
@@ -6955,15 +7189,21 @@ def mesh_train_phase(gnn, M, par, make_train_step, dev, graphs, parts, name,
         t0 = time.perf_counter()
         ref_losses.append(float(step()))
         ref_ms.append((time.perf_counter() - t0) * 1e3)
-    mesh_per_step, per_graph = PAR_PER_STEP[name]
+    per_graph = PAR_PER_STEP[name][1]
     card_per_step = {k: v * len(gs) for k, v in per_graph.items()}
     expect_counts(f"3u {name} one card", read_counts(), card_per_step)
-    with tempfile.TemporaryDirectory() as tmp:
-        base = out_dir or tmp
-        ckpt = os.path.join(base, f"3u_{name}_ckpt")
-        traces = os.path.join(base, f"3u_{name}_trace")
-        ranks = spawn_ranks(mesh_train_rank, PAR_MESH[0] * PAR_MESH[1],
-                            "gloo", dev, graphs, parts, name, ckpt, traces)
+    return {"model": model, "init": init, "vs_cpu": vs_cpu,
+            "losses": ref_losses, "ms": ref_ms,
+            "card_per_step": card_per_step}
+
+
+def mesh_check(name, ref, ranks) -> dict:
+    """3u's model ``name``: the mesh's ranks (:func:`mesh_train_model`)
+    against each other and against the one card's run ``ref``
+    (:func:`mesh_reference`): launches, losses, parameters, the resume and
+    the traces; logged and returned."""
+    model, init, ref_losses = ref["model"], ref["init"], ref["losses"]
+    mesh_per_step, card_per_step = PAR_PER_STEP[name][0], ref["card_per_step"]
     losses = ranks[0]["losses"]
     for i, v in enumerate(ranks):
         expect_counts(f"3u {name} rank {i}", v["launches"], mesh_per_step)
@@ -6986,6 +7226,7 @@ def mesh_train_phase(gnn, M, par, make_train_step, dev, graphs, parts, name,
         raise AssertionError(f"3u {name}: losses {losses} vs one card "
                              f"{ref_losses} (rel {loss_err:.3e})")
     final = {k: p.detach() for k, p in model.named_parameters()}
+    dev = next(iter(final.values())).device
     diff = torch.sqrt(sum(((ranks[0]["final"][k].to(dev) - final[k]) ** 2)
                           .sum() for k in final))
     moved = torch.sqrt(sum(((final[k] - init[k]) ** 2).sum()
@@ -6998,14 +7239,14 @@ def mesh_train_phase(gnn, M, par, make_train_step, dev, graphs, parts, name,
     busy = sum(v["device_ms"] for v in ranks)
     copies = sum(v["copy_ms"] for v in ranks)
     wall = max(v["profiled_wall_ms"] for v in ranks)
-    log(f"  loss {losses[0]:.6f} -> {losses[-1]:.6f} (one card "
+    log(f"  3u {name}: loss {losses[0]:.6f} -> {losses[-1]:.6f} (one card "
         f"{ref_losses[0]:.6f} -> {ref_losses[-1]:.6f}; max rel "
         f"{loss_err:.3e}, rtol {PAR_LOSS_RTOL:g}); parameters after "
         f"{PAR_STEPS} steps {param_err:.3e} of the update's norm (tol "
         f"{PAR_PARAM_RTOL:g})")
     log(f"  StepTimer (CUDA events, rank 0; 4 ranks share the card): "
         f"{ranks[0]['report']}; ms/step {[round(t, 3) for t in ms]}; one "
-        f"card median {statistics.median(ref_ms):.3f} ms/step")
+        f"card median {statistics.median(ref['ms']):.3f} ms/step")
     log(f"  profiled 3 steps: wall {wall:.3f} ms/step; the 4 ranks' device "
         f"time {busy:.3f} ms/step (by rank "
         f"{[round(v['device_ms'], 3) for v in ranks]}), of it gloo's "
@@ -7016,10 +7257,11 @@ def mesh_train_phase(gnn, M, par, make_train_step, dev, graphs, parts, name,
     log(f"  launches a step per rank {mesh_per_step}, one card "
         f"{card_per_step}; resume from step {PAR_CKPT_STEP}: steps "
         f"{PAR_CKPT_STEP + 1}-{PAR_STEPS} bit for bit on every rank")
-    return {"losses": losses, "card_losses": ref_losses, "vs_cpu": vs_cpu,
+    return {"losses": losses, "card_losses": ref_losses,
+            "vs_cpu": ref["vs_cpu"],
             "loss_rel_err": loss_err, "param_rel_err": param_err,
             "ms_per_step_rank0": ms, "report": ranks[0]["report"],
-            "card_ms_per_step": ref_ms, "profiled_wall_ms": wall,
+            "card_ms_per_step": ref["ms"], "profiled_wall_ms": wall,
             "device_ms_per_step": busy, "copy_ms_per_step": copies,
             "device_ms_by_rank": [v["device_ms"] for v in ranks],
             "launches_per_rank": [v["launches"] for v in ranks],
@@ -7147,8 +7389,8 @@ def main() -> int:
                          "backward at every "
                          "layout, K1's gather-rate ceiling, and the R-MAT "
                          "graph (skew); NAMES (comma-separated, of "
-                         f"{','.join(SWEEPS)}, bf16_dot, bf16_strips) runs "
-                         "those only")
+                         f"{','.join(SWEEPS + SWEEP_PARTS)}) runs those "
+                         "only")
     ap.add_argument("--cells", default=None, metavar="KEYS",
                     help="with --only 3o: run only these 3o cells (by "
                          "result key, comma-separated, e.g. "
@@ -7187,8 +7429,9 @@ def main() -> int:
     log(f"  kernel build: {build_s:.2f} s ({', '.join(B.SOURCES)})")
     for name, text in B.build_logs().items():
         log_ptxas(name, text)
-    if "edge_softmax" in B.build_logs():
-        log_dot_bf16_ptxas(B.build_logs()["edge_softmax"])
+    for name in ("spmm", "edge_softmax"):
+        if name in B.build_logs():
+            log_dot_bf16_ptxas(B.build_logs()[name])
 
     t0 = time.perf_counter()
     g = gnn.rand_graph(N, E, seed=1)
@@ -7244,7 +7487,7 @@ def main() -> int:
         else:
             kern.update(kernel_phases[phase]())
     if args.sweep and not set(args.sweep.split(",")) <= {
-            *SWEEPS, "bf16_dot", "bf16_strips"}:
+            *SWEEPS, *SWEEP_PARTS}:
         raise ValueError(f"--sweep takes names of {SWEEPS}, got "
                          f"{args.sweep}")
     sweep = (tuning_sweep(gnn, g, gb, tuple(args.sweep.split(",")))
@@ -7281,6 +7524,7 @@ def main() -> int:
             only_train["sage"] = run_sage()
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, "
             f"{args.only} only: no result)")
+        log_phase_seconds()
         if args.out:
             with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
                 json.dump({"card": card_line, "torch": torch.__version__,
@@ -7396,6 +7640,7 @@ def main() -> int:
     ]
     total_s = time.perf_counter() - t_start
     log(f"total {total_s:.1f} s")
+    phase_s = log_phase_seconds()
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"card": card_line, "torch": torch.__version__,
@@ -7403,7 +7648,7 @@ def main() -> int:
                        "kernels": kern, "sweep": sweep,
                        "device_records": DEVICE_RECORDS,
                        "main_path": main_res, "cora": cora,
-                       "total_s": total_s}, f, indent=1)
+                       "total_s": total_s, "phase_s": phase_s}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -407,7 +407,11 @@ __device__ __forceinline__ float dot_dlg(float raw, float pvd, float mxr,
 //   dq[r] = sum_e dlg_e * k[s_e]
 // with raw_e read from K6's residual raw [E, H] where given, else
 // recomputed from q[r] (then each edge's two dots reduce in one tree).
-// dy[r] and the row's mx, den and s_n stay in registers.
+// dy[r] (and q[r]) and the row's mx, den and s_n stay in registers, the
+// rows packed in their storage vector and widened at each dot: on bf16x8
+// rows that frees 8 of the 16 registers the widened pair took, which the
+// instance AGNN's rows take (2 edges in flight at 64 registers) spilled
+// (20 bytes; PERF.md §6).
 template <typename V, int NC, int U, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
@@ -433,12 +437,13 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
     const Seg S(lane, log_seg, log_g);
     const bool live = row < n_rows;
     const long long rh = (long long)row * heads + h;
-    A qv[NC], dyv[NC], dqa[NC];
+    V qv[NC], dyv[NC];
+    A dqa[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int f = sub + c * g;
-      qv[c] = live && !given && f < ov ? widen(q[rh * ov + f]) : vzero<A>();
-      dyv[c] = live && f < dv ? widen(dy[rh * dv + f]) : vzero<A>();
+      qv[c] = live && !given && f < ov ? q[rh * ov + f] : vzero<V>();
+      dyv[c] = live && f < dv ? dy[rh * dv + f] : vzero<V>();
       dqa[c] = vzero<A>();
     }
     const float mxr = live ? mx[rh] : 0.f, denr = live ? den[rh] : 1.f;
@@ -483,7 +488,7 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
           pvd[u] = 0.f;
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc)
-            pvd[u] += vdot(widen(vg[u][cc]), dyv[cc]);
+            pvd[u] += vdot(widen(vg[u][cc]), widen(dyv[cc]));
         }
         if (given) {
           for (int off = 1; off < g; off <<= 1) {
@@ -497,7 +502,7 @@ dot_bwd_dq_rows_kernel(const int* __restrict__ indptr,
             plg[u] = 0.f;
 #pragma unroll
             for (int cc = 0; cc < NC; ++cc)
-              plg[u] += vdot(qv[cc], widen(kg[u][cc]));
+              plg[u] += vdot(widen(qv[cc]), widen(kg[u][cc]));
           }
           for (int off = 1; off < g; off <<= 1) {
 #pragma unroll
@@ -2169,8 +2174,8 @@ using MinBlocks = std::integral_constant<int, CAP == 64 ? 4 : 1>;
 // uncapped and, at NC <= 2, at 64 registers; the shipped library holds
 // only the pairs for which Pick::holds(NC, U, cap), the ones the wrapper
 // picks. With kPickOnly (the bfloat16 instances) only Pick's pairs, in
-// either build, but for kSweepOneChunk (bfloat16 K6 rows and K8) the sweep
-// build's pairs at NC = 1 too; with kOneChunk (the bfloat16 instances of
+// either build, but for kSweepOneChunk (bfloat16 K6 rows, K7 rows and K8)
+// the sweep build's pairs at NC = 1 too; with kOneChunk (the bfloat16 instances of
 // K3, K4, K5 and K12) also only NC = 1 (rows of at most 32 vectors; the
 // launcher takes wider rows in passes of 32).
 template <typename Pick, bool kOneChunk = false,
@@ -2304,6 +2309,22 @@ struct K6Bf16Pick {
 template <typename V>
 using K6RowPick =
     std::conditional_t<std::is_same<V, bf16x8>::value, K6Bf16Pick, RecvPick>;
+// bfloat16 K7's register instances on bf16x8 rows, as
+// ops/cuda/edge_softmax.py's _K7_BF16 takes them at one register chunk
+// (the fastest of chip_smoke.py --sweep bf16_k7, PERF.md §6): one edge in
+// flight at 64 registers for rows of one vector, two for wider ones; wider
+// rows one edge, uncapped, up to 4 chunks (the 8-chunk instance spilled:
+// wider heads take the strips). RecvPick's 4 edges at 64 registers spilled
+// 88 bytes.
+struct K7Bf16Pick {
+  static constexpr bool holds(int nc, int u, int cap) {
+    return nc == 1 ? (u == 1 || u == 2) && cap == 64
+                   : nc <= 4 && u == 1 && cap == 0;
+  }
+};
+template <typename V>
+using K7RowPick =
+    std::conditional_t<std::is_same<V, bf16x8>::value, K7Bf16Pick, RecvPick>;
 // The staged bfloat16 K8's (edges a stage, stages, register cap) the
 // shipped library holds at one register chunk, as
 // ops/cuda/edge_softmax.py's _K8_BF16 picks them (the fastest of
@@ -2463,7 +2484,9 @@ int launch_dot_softmax(const int* indptr, const int* col, const void* q,
 }
 
 // K7 in rows or strips (see dot_bwd_dq_rows_kernel and the strip
-// passes), at the instances K6's launcher takes.
+// passes), at the instances K6's launcher takes (bfloat16's rows
+// K7Bf16Pick's on bf16x8 rows, and in the sweep build every pair of one
+// register chunk).
 template <typename V>
 int launch_dot_bwd_dq(const int* indptr, const int* col, const void* q,
                       const void* k, const void* v, const float* mx,
@@ -2484,7 +2507,7 @@ int launch_dot_bwd_dq(const int* indptr, const int* col, const void* q,
     if (!dot_layout_ok(lg, log_rows, heads))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid = row_grid(n_rows, log_rows, heads);
-    return with_row_instances<RecvPick, false, kLow<V>>(
+    return with_row_instances<K7RowPick<V>, false, kLow<V>, kLow<V>>(
         wide, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
           dot_bwd_dq_rows_kernel<V, decltype(nc)::value, decltype(un)::value,
                                  decltype(minb)::value>

@@ -45,7 +45,10 @@
 // and writes each dot to dw[eid] there, or, over several strips, its
 // shares to the scratch and the pass after adds them. Strips run as
 // separate block columns in no fixed order, so no strip adds to another's
-// dw.
+// dw. bfloat16 rows of 4 heads that together fit one group of lanes take
+// the all-heads walk instead (spmm_sddmm_heads_kernel): one group gathers
+// every head of dy[r] at once and reads and writes an edge's 4 weights and
+// dots by edge id in one access each, with no scratch and no passes.
 //
 // Every output entry is written exactly once, by one lane, so no atomics
 // are needed and the summation order is fixed: results are bitwise
@@ -367,6 +370,126 @@ spmm_sddmm_csr_kernel(const int* __restrict__ indptr,
   });
 }
 
+// K2 on bfloat16 rows, the four heads of a sender row in one edge group
+// (the all-heads walk, mode 2 of launch_spmm_sddmm): the function of
+// spmm_sddmm_csr_kernel at H = 4 heads of hv = 2^log_hv bf16x8 vectors,
+// where the heads' rows together are one gathered row of G = 4 * hv
+// vectors (at most 256 bytes: GAT (b)'s H = 4, D = 32 is 16 lanes of 16
+// bytes). Lane sub of a group holds vector sub of the [4, D] row, head
+// sub / hv. With the heads in the grid (spmm_sddmm_csr_kernel) each head's
+// pass reads its weight and writes its dot by edge id, a 2-byte access to
+// another 32-byte sector per edge, or goes through [H, E] float32 scratch
+// by sender-CSR position with a pass before and one after (by_position).
+// Here an edge's 4 weights are one 8-byte load by edge id, made by the
+// lane that holds its window position, one window ahead, and handed to the
+// group's lanes by two shuffles; the group's lanes of a head add its dot
+// (log2 hv shuffles), and two shuffles pack the four rounded dots into
+// the group's first lane, which stores them to dw[id, :] in one 8-byte
+// store. dy[r] is gathered once for all heads; no scratch, no pass before
+// or after. Every sum is float32 in a fixed order; dx and each dot are
+// rounded once. Four heads only: at 2 and 8 heads the instance of 4
+// gathers in flight at 64 registers spilled (PERF.md §6).
+template <typename V, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+spmm_sddmm_heads_kernel(const int* __restrict__ indptr,
+                        const int* __restrict__ col,
+                        const int* __restrict__ eid,
+                        const bf16x1* __restrict__ w,
+                        const V* __restrict__ dy, const V* __restrict__ x,
+                        V* __restrict__ dx, bf16x1* __restrict__ dw,
+                        int n_rows, int log_hv, int log_rows) {
+  constexpr unsigned kOnes = 0x3f803f80u;    // two bfloat16 1.0
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int hv = 1 << log_hv;                // lanes of a head
+  const int log_g = log_hv + 2;
+  const int g = 1 << log_g;                  // lanes of an edge group
+  const int sub = lane & (g - 1);
+  const int head = sub >> log_hv;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const int seg = 1 << log_seg;             // lanes per row
+    const int first = lane & ~(seg - 1);      // the row's first lane
+    const int sl = lane & (seg - 1);          // lane within the row
+    const int p = seg >> log_g;               // edge groups per row
+    const int grp = sl >> log_g;
+    const bool live = row < n_rows;
+    // x and dx stream past the L2 (evict-first), which keeps dy
+    const Acc<V> xs = live ? widen(ld_cs(x + (long long)row * g + sub))
+                           : vzero<Acc<V>>();
+    // lane sl of the row holds window position w0 + sl: its source row,
+    // edge id and the edge's 4 weights (heads 0, 1 in wt.x, 2, 3 in wt.y)
+    auto fetch = [&](int w0, int& c, int& id, uint2& wt) {
+      c = 0;
+      id = 0;
+      wt = make_uint2(kOnes, kOnes);
+      if (w0 + sl < len) {
+        const int k = beg + w0 + sl;
+        c = col[k];
+        id = eid ? eid[k] : k;
+        if (w) wt = *reinterpret_cast<const uint2*>(w + (long long)id * 4);
+      }
+    };
+    int c, id, nc, nid;
+    uint2 wt, nwt;
+    fetch(0, c, id, wt);
+    Acc<V> acc = vzero<Acc<V>>();
+    for (int w0 = 0; w0 < longest; w0 += seg) {   // warp-uniform trips
+      fetch(w0 + seg, nc, nid, nwt);              // the next window, ahead
+      const int cnt = min(seg, longest - w0);
+      for (int j0 = 0; j0 < cnt; j0 += p * U) {   // warp-uniform trips
+        V v[U];
+        float wj[U], dt[U];
+        int ej[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {   // the gathers of U edges first
+          const int j = j0 + u * p + grp;
+          const int src = first + (j & (seg - 1));
+          const int cj = __shfl_sync(kFull, c, src);
+          ej[u] = __shfl_sync(kFull, id, src);
+          const unsigned lo = __shfl_sync(kFull, wt.x, src);
+          const unsigned hi = __shfl_sync(kFull, wt.y, src);
+          const unsigned word = head < 2 ? lo : hi;
+          ok[u] = live && j < seg && w0 + j < len;
+          wj[u] = ok[u] ? (head & 1 ? bf_hi(word) : bf_lo(word)) : 0.f;
+          v[u] = ok[u] ? dy[(long long)cj * g + sub] : vzero<V>();
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const Acc<V> vu = widen(v[u]);
+          axpy(acc, wj[u], vu);
+          dt[u] = vdot(vu, xs);
+        }
+        for (int off = 1; off < hv; off <<= 1) {   // a head's lanes
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            dt[u] += __shfl_xor_sync(kFull, dt[u], off);
+        }
+        // every lane of head h holds dot h: heads 0 and 1 pack into one
+        // word, 2 and 3 into another, which the group's first lane takes
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const unsigned b = bf_bits(dt[u]);
+          const unsigned pair = b | (__shfl_down_sync(kFull, b, hv) << 16);
+          const unsigned upper = __shfl_down_sync(kFull, pair, 2 * hv);
+          if (ok[u] && sub == 0)
+            *reinterpret_cast<uint2*>(dw + (long long)ej[u] * 4) =
+                make_uint2(pair, upper);
+        }
+      }
+      c = nc;
+      id = nid;
+      wt = nwt;
+    }
+    // the groups' lanes of one column are G apart, within the row's lanes
+    for (int off = g; off < seg; off <<= 1) add_xor(acc, off);
+    if (live && grp == 0)
+      st_cs(dx + (long long)row * g + sub, narrow<V>(acc));
+  });
+}
+
 // K2's passes around the sweep in sender-CSR position order, one thread a
 // position k, id = eid[k] (k where eid is NULL), all H heads of an edge in
 // one thread so that its H weights of w and dw [E, H] are one run, loaded
@@ -513,6 +636,23 @@ struct K2Pick {
     return (u == 2 && cap == 0) || (u == 4 && cap == 64);
   }
 };
+// bfloat16 K2's: K2Pick's (rows of 8-byte vectors and single values take
+// float32's rule) and those of ops/cuda/spmm.py's _K2_BF16 for bf16x8
+// heads (the fastest of chip_smoke.py --sweep bf16_k2, PERF.md §6: one
+// gather in flight at 64 registers for 16-byte rows, 4 at 64 for 256-byte
+// ones); and the all-heads walk's, _K2_BF16_WALK (2 at 64: its instance
+// of 4 at 64 spilled 8 bytes)
+struct K2Bf16Pick {
+  static constexpr bool holds(int u, int cap) {
+    return K2Pick::holds(u, cap) || (u == 1 && cap == 64);
+  }
+};
+struct K2WalkPick {
+  static constexpr bool holds(int u, int cap) { return u == 2 && cap == 64; }
+};
+template <typename V>
+using K2RowPick =
+    std::conditional_t<std::is_same<Acc<V>, V>::value, K2Pick, K2Bf16Pick>;
 
 // K1 over rows of dv vectors V (see spmm_csr_f32 for the checks): the grid
 // of strips and the instance of (unroll, reg_cap), then cudaGetLastError().
@@ -537,18 +677,60 @@ int launch_spmm_csr(const int* indptr, const int* col, const int* eid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2's all-heads walk (spmm_sddmm_heads_kernel) on bf16x8 rows of 4 heads
+// of dv vectors: dv a power of two, 4 * dv at most 32 vectors, log_strip
+// their log2 (the group's lanes), w and dw aligned to 4 values;
+// cudaErrorInvalidValue, with nothing launched, for any other.
+template <typename V>
+int launch_spmm_sddmm_heads(const int* indptr, const int* col,
+                            const int* eid, const Scalar<V>* w,
+                            const void* dy, const void* x, void* dx,
+                            Scalar<V>* dw, int n_rows, int heads, int dv,
+                            int log_rows, int log_strip, int unroll,
+                            int reg_cap, cudaStream_t s) {
+  if constexpr (!std::is_same<V, bf16x8>::value) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    auto aligned = [](const void* p) {
+      return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+    };
+    const int lg = log_group(4 * dv);
+    if (heads != 4 || (dv & (dv - 1)) != 0 || dv > 8 || log_strip != lg ||
+        log_rows < 0 || log_rows + lg > 5 || !aligned(w) || !aligned(dw))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid = row_grid(n_rows, log_rows, 1);
+    const bool launched = with_instances<K2WalkPick>(
+        unroll, reg_cap, [&](auto un, auto minb) {
+          spmm_sddmm_heads_kernel<V, decltype(un)::value,
+                                  decltype(minb)::value>
+              <<<grid, kThreads, 0, s>>>(
+                  indptr, col, eid, w, static_cast<const V*>(dy),
+                  static_cast<const V*>(x), static_cast<V*>(dx), dw, n_rows,
+                  lg - 2, log_rows);
+        });
+    if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 // K2 over rows of dv vectors V with weights and dots of Scalar<V> (see
 // spmm_sddmm_csr_f32 for the checks and the scratch): the passes around the
 // sweep where needed, the sweep at the instance of (unroll, reg_cap), then
-// cudaGetLastError().
+// cudaGetLastError(); mode 2 the all-heads walk.
 template <typename V>
 int launch_spmm_sddmm(const int* indptr, const int* col, const int* eid,
                       const Scalar<V>* w, const void* dy, const void* x,
                       void* dx, Scalar<V>* dw, float* scratch, int n_rows,
                       int heads, int dv, int n_edges, int log_rows,
                       int log_strip, int unroll, int reg_cap,
-                      int by_position, cudaStream_t s) {
+                      int mode, cudaStream_t s) {
   using W = Scalar<V>;
+  if (mode == 2)
+    return launch_spmm_sddmm_heads<V>(indptr, col, eid, w, dy, x, dx, dw,
+                                      n_rows, heads, dv, log_rows, log_strip,
+                                      unroll, reg_cap, s);
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool by_position = mode == 1;
   // the weight passes move H weights 4 at a time where each edge's run of
   // them is aligned to 4 (16 bytes of float32, 8 of bfloat16)
   auto vec4 = [&](const void* p) {
@@ -570,7 +752,7 @@ int launch_spmm_sddmm(const int* indptr, const int* col, const int* eid,
               : nullptr;
   const dim3 edge_grid((n_edges + kThreads - 1) / kThreads);
   const dim3 grid = row_grid(n_rows, log_rows, heads * n_strips);
-  const bool launched = with_instances<K2Pick>(
+  const bool launched = with_instances<K2RowPick<V>>(
       unroll, reg_cap, [&](auto un, auto minb) {
         if (wk != nullptr && n_edges > 0)
           spmm_sddmm_weights_kernel<W><<<edge_grid, kThreads, 0, s>>>(
@@ -650,35 +832,38 @@ int spmm_csr_bf16(const int* indptr, const int* col, const int* eid,
 // id (NULL: unweighted); dx [n_rows, H, d] and dw [n_edges, H], every entry
 // of both written. vec_bytes, log_rows, log_strip, unroll and reg_cap as
 // K1's
-// (see with_instances and K2Pick for the instances built). by_position: the
-// sweep reads the weights and writes the dots in sender-CSR order, head
-// after head, and two passes around it move them from and to edge-id order
-// (spmm_sddmm_weights_kernel, spmm_sddmm_sum_kernel); scratch is then H *
-// (strips + 1) * n_edges floats (H * strips * n_edges without w). Else the
-// sweep reads w[eid[k], h] and writes dw[eid[k], h] itself, and needs H *
-// strips * n_edges floats of scratch only where a head spans more than one
-// strip of 2^log_strip vectors. Returns cudaGetLastError() after the
-// launches, or cudaErrorInvalidValue with nothing launched for what K1
-// refuses, for H * strips of 2^16 or more, or for a missing scratch. The
-// caller makes sure n_rows > 0, H > 0, d > 0 and n_edges < 2^31.
+// (see with_instances and K2Pick for the instances built). mode 1 (by
+// position): the sweep reads the weights and writes the dots in sender-CSR
+// order, head after head, and two passes around it move them from and to
+// edge-id order (spmm_sddmm_weights_kernel, spmm_sddmm_sum_kernel); scratch
+// is then H * (strips + 1) * n_edges floats (H * strips * n_edges without
+// w). mode 0: the sweep reads w[eid[k], h] and writes dw[eid[k], h]
+// itself, and needs H * strips * n_edges floats of scratch only where a
+// head spans more than one strip of 2^log_strip vectors. mode 2 (bfloat16,
+// 4 heads): the all-heads walk (launch_spmm_sddmm_heads), no scratch.
+// Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue with
+// nothing launched for what K1 refuses, for H * strips of 2^16 or more, for
+// a missing scratch, or for a mode the rows do not take. The caller makes
+// sure n_rows > 0, H > 0, d > 0 and n_edges < 2^31.
 int spmm_sddmm_csr_f32(const int* indptr, const int* col, const int* eid,
                        const float* w, const float* dy, const float* x,
                        float* dx, float* dw, float* scratch, int n_rows,
                        int heads, int d, int n_edges, int vec_bytes,
                        int log_rows, int log_strip, int unroll, int reg_cap,
-                       int by_position, void* stream) {
-  if (!f32_vec_ok(d, vec_bytes, {dy, x, dx}))
+                       int mode, void* stream) {
+  if (!f32_vec_ok(d, vec_bytes, {dy, x, dx}) || mode == 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_bytes == 16)
     return launch_spmm_sddmm<float4>(indptr, col, eid, w, dy, x, dx, dw,
                                      scratch, n_rows, heads, d / 4, n_edges,
                                      log_rows, log_strip, unroll, reg_cap,
-                                     by_position, s);
+                                     mode, s);
   return launch_spmm_sddmm<float>(indptr, col, eid, w, dy, x, dx, dw,
                                   scratch, n_rows, heads, d, n_edges,
                                   log_rows, log_strip, unroll, reg_cap,
-                                  by_position, s);
+                                  mode, s);
 }
 
 // K2 on bfloat16 rows, weights and dots (w and dw [E, H] bfloat16), summed
@@ -686,14 +871,16 @@ int spmm_sddmm_csr_f32(const int* indptr, const int* col, const int* eid,
 // spmm_sddmm_csr_f32, with vec_bytes as spmm_csr_bf16 takes it (the rows
 // dy, x and dx). The scratch is as many floats as
 // spmm_sddmm_csr_f32's; by position, its last H * n_edges floats hold the
-// bfloat16 weights in sender-CSR order (half of them used). The library
-// holds the instances of K2Pick for each vector.
+// bfloat16 weights in sender-CSR order (half of them used). Mode 2, the
+// all-heads walk, takes 4 heads of bf16x8 rows (vec_bytes 16). The library
+// holds the instances of K2Bf16Pick for each vector and K2WalkPick's for
+// the all-heads walk.
 int spmm_sddmm_csr_bf16(const int* indptr, const int* col, const int* eid,
                         const bf16x1* w, const bf16x1* dy, const bf16x1* x,
                         bf16x1* dx, bf16x1* dw, float* scratch, int n_rows,
                         int heads, int d, int n_edges, int vec_bytes,
                         int log_rows, int log_strip, int unroll, int reg_cap,
-                        int by_position, void* stream) {
+                        int mode, void* stream) {
   if (!bf16_vec_ok(d, vec_bytes, {dy, x, dx}))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -702,16 +889,16 @@ int spmm_sddmm_csr_bf16(const int* indptr, const int* col, const int* eid,
     return launch_spmm_sddmm<bf16x8>(indptr, col, eid, w, dy, x, dx, dw,
                                      scratch, n_rows, heads, dv, n_edges,
                                      log_rows, log_strip, unroll, reg_cap,
-                                     by_position, s);
+                                     mode, s);
   if (vec_bytes == 8)
     return launch_spmm_sddmm<bf16x4>(indptr, col, eid, w, dy, x, dx, dw,
                                      scratch, n_rows, heads, dv, n_edges,
                                      log_rows, log_strip, unroll, reg_cap,
-                                     by_position, s);
+                                     mode, s);
   return launch_spmm_sddmm<bf16x1>(indptr, col, eid, w, dy, x, dx, dw,
                                    scratch, n_rows, heads, dv, n_edges,
                                    log_rows, log_strip, unroll, reg_cap,
-                                   by_position, s);
+                                   mode, s);
 }
 
 const char* gnn_cuda_error_string(int code) {

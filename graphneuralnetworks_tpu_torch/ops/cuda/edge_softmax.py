@@ -30,9 +30,10 @@ edges in flight (``csrc/edge_softmax.cu``):
   ``dot_bwd_rev`` (sender CSR: ``dk`` and ``dv``): its backward. K6 and K7
   build a head wider than one 128-byte line whose table the L2 cannot hold
   in passes over column strips (:func:`_dot_recv_layout`,
-  :func:`_dot_bwd_rev_layout`). bfloat16 K6 and K8 have a layout table of
-  their own (``_K6_BF16``, ``_K8_BF16``), and K8 a kernel that stages the
-  gathered rows in shared memory and reads the receivers' scalars packed
+  :func:`_dot_bwd_rev_layout`). bfloat16 K6, K7 and K8 have a layout
+  table of their own (``_K6_BF16``, ``_K7_BF16``, ``_K8_BF16``; K6 and K7
+  one rule for the strips), and K8 a kernel that stages the gathered rows
+  in shared memory and reads the receivers' scalars packed
   (:func:`_receiver_stats`).
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
@@ -196,9 +197,17 @@ _DOT_STRIP_INSTANCE = (4, 0)
 # _DOT_BF16_ROWS_BYTES in rows whatever their table's size (at AGNN's
 # (1, 128, 128) rows beat strips on tables of 32, 64 and 128 MiB); other
 # heads take float32's strips rule (wider bf16x8 heads: strips won at 48,
-# 66 and 96 MiB), in lines of the widest vector at _DOT_STRIP_INSTANCE;
-# K7 keeps the float32 rule.
+# 66 and 96 MiB), in lines of the widest vector at _DOT_STRIP_INSTANCE.
+# K7 gathers the same k[s] and v[s] tables as K6 and takes the same rule
+# (:func:`_dot_bf16_strips`; and the strips for bf16x8 heads of more than
+# 4 register chunks, whose 8-chunk instance spilled), and in rows its own
+# table, _K7_BF16, K6's form, from chip_smoke.py --sweep bf16_k7 (PERF.md
+# §6): 16-byte rows one edge at 64 registers, wider ones two. A staged K7
+# (K8's ring carrying k, v and the raw logit) lost to this register kernel
+# at every shape once the kernel held its row's q and dy packed.
 _K6_BF16 = ((32, (1, 0, 2)), (512, (4, 64, 2)))
+_K7_BF16 = ((32, (1, 64, 2)), (512, (2, 64, 2)))
+_K7_BF16_MAX_ROWS = 4 * 32
 _K8_BF16 = ((32, (1, 0, 2, 2)), (512, (2, 0, 2, 4)), (4096, (1, 0, 2, 2)))
 _DOT_BF16_ROWS_BYTES = 256
 
@@ -1046,10 +1055,12 @@ def _dot_recv_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
     for rows of one register chunk ``_DOT_ROWS_LINE`` or
     ``_DOT_ROWS_NARROW``, for wider rows one edge in flight, uncapped.
     bfloat16 K6 (``elem`` 2, ``kernel`` 6) takes
-    :func:`_dot_softmax_bf16_layout`; bfloat16 K7 the rule above."""
-    if elem == 2 and kernel == 6:
-        return _dot_softmax_bf16_layout(ov, dv, vec_bytes, n_src, n_rows,
-                                        entries)
+    :func:`_dot_softmax_bf16_layout`, bfloat16 K7 (``kernel`` 7)
+    :func:`_dot_bwd_dq_bf16_layout`."""
+    if elem == 2:
+        pick = (_dot_softmax_bf16_layout if kernel == 6
+                else _dot_bwd_dq_bf16_layout)
+        return pick(ov, dv, vec_bytes, n_src, n_rows, entries)
     wide = max(ov, dv, 1)
     line = _line_vectors(vec_bytes)
     if wide > line and n_src * wide * vec_bytes > _DOT_STRIP_BYTES:
@@ -1076,6 +1087,41 @@ def _bf16_dot_rows(table, ov: int, dv: int, vec_bytes: int, n_rows: int,
     return (_windowed_rows(log_g, n_rows, entries, pick[-1]),) + pick[:-1]
 
 
+def _dot_bf16_strips(ov: int, dv: int, vec_bytes: int, n_src: int) -> bool:
+    """Whether bfloat16 K6 and K7 take the strips for a head of ``ov`` and
+    ``dv`` vectors of the widest ``vec_bytes`` its rows take (16, 8 or 2)
+    over ``n_src`` sender rows: a head wider than a line whose wider table
+    exceeds ``_DOT_STRIP_BYTES``, but for bf16x8 heads of at most
+    ``_DOT_BF16_ROWS_BYTES`` (rows at any size)."""
+    wide = max(ov, dv, 1)
+    return (wide > _line_vectors(vec_bytes)
+            and n_src * wide * vec_bytes > _DOT_STRIP_BYTES
+            and not (vec_bytes == 16
+                     and wide * vec_bytes <= _DOT_BF16_ROWS_BYTES))
+
+
+def _bf16_recv_layout(table, ov: int, dv: int, vec_bytes: int, n_src: int,
+                      n_rows: int, entries: int, strips: bool
+                      ) -> tuple[int, int, int, int]:
+    """bfloat16 K6's or K7's ``(strips, log_rows, unroll, reg_cap)`` on
+    ``table`` (``_K6_BF16``, ``_K7_BF16``): strips at
+    ``_DOT_STRIP_INSTANCE``, or rows by the table (:func:`_bf16_dot_rows`),
+    or as float32 picks them."""
+    wide = max(ov, dv, 1)
+    line = _line_vectors(vec_bytes)
+    if strips:
+        log_s = (line - 1).bit_length()
+        return ((1, _windowed_rows(log_s, n_rows, entries,
+                                   _K8_WINDOWS_PER_ROW))
+                + _DOT_STRIP_INSTANCE)
+    rows = _bf16_dot_rows(table, ov, dv, vec_bytes, n_rows, entries)
+    if rows is not None:
+        return (0,) + rows
+    log_g = min((wide - 1).bit_length(), 5)
+    log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
+    return (0, log_rows) + _rows_instance(wide, vec_bytes << log_g)
+
+
 def _dot_softmax_bf16_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
                              n_rows: int, entries: int,
                              strips: bool | None = None
@@ -1083,27 +1129,26 @@ def _dot_softmax_bf16_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
     """bfloat16 K6's ``(strips, log_rows, unroll, reg_cap)`` for a head of
     ``ov`` and ``dv`` vectors of the widest ``vec_bytes`` its rows take
     (16, 8 or 2), ``n_src`` sender rows and ``entries / n_rows`` edges per
-    receiver: strips (where ``strips`` is None) for a head wider than a
-    line whose wider table exceeds ``_DOT_STRIP_BYTES``, but for bf16x8
-    heads of at most ``_DOT_BF16_ROWS_BYTES``; else rows by ``_K6_BF16``
-    (:func:`_bf16_dot_rows`), or as float32 picks them."""
-    wide = max(ov, dv, 1)
-    line = _line_vectors(vec_bytes)
+    receiver: strips by :func:`_dot_bf16_strips` (where ``strips`` is
+    None), else rows by ``_K6_BF16`` (:func:`_bf16_dot_rows`), or as
+    float32 picks them."""
     if strips is None:
-        strips = (wide > line and n_src * wide * vec_bytes > _DOT_STRIP_BYTES
-                  and not (vec_bytes == 16
-                           and wide * vec_bytes <= _DOT_BF16_ROWS_BYTES))
-    if strips:
-        log_s = (line - 1).bit_length()
-        return ((1, _windowed_rows(log_s, n_rows, entries,
-                                   _K8_WINDOWS_PER_ROW))
-                + _DOT_STRIP_INSTANCE)
-    rows = _bf16_dot_rows(_K6_BF16, ov, dv, vec_bytes, n_rows, entries)
-    if rows is not None:
-        return (0,) + rows
-    log_g = min((wide - 1).bit_length(), 5)
-    log_rows = _windowed_rows(log_g, n_rows, entries, _K8_WINDOWS_PER_ROW)
-    return (0, log_rows) + _rows_instance(wide, vec_bytes << log_g)
+        strips = _dot_bf16_strips(ov, dv, vec_bytes, n_src)
+    return _bf16_recv_layout(_K6_BF16, ov, dv, vec_bytes, n_src, n_rows,
+                             entries, strips)
+
+
+def _dot_bwd_dq_bf16_layout(ov: int, dv: int, vec_bytes: int, n_src: int,
+                            n_rows: int, entries: int
+                            ) -> tuple[int, int, int, int]:
+    """bfloat16 K7's ``(strips, log_rows, unroll, reg_cap)``: K6's strips
+    rule (:func:`_dot_bf16_strips`), and the strips for bf16x8 heads wider
+    than ``_K7_BF16_MAX_ROWS`` vectors; else rows by ``_K7_BF16``, or as
+    float32 picks them."""
+    strips = (_dot_bf16_strips(ov, dv, vec_bytes, n_src)
+              or (vec_bytes == 16 and max(ov, dv) > _K7_BF16_MAX_ROWS))
+    return _bf16_recv_layout(_K7_BF16, ov, dv, vec_bytes, n_src, n_rows,
+                             entries, strips)
 
 
 def _strips(vectors: int, vec_bytes: int) -> int:

@@ -16,7 +16,10 @@ their rows (``csrc/spmm.cu``):
   head of rows of ``[., H, D]`` in one launch. K1's walk, strips and rows
   per warp (:func:`_spmm_sddmm_layout`); the dots of several strips or
   heads go through scratch by sender-CSR position, and a pass after the
-  sweep adds them and writes them by edge id.
+  sweep adds them and writes them by edge id. bfloat16 rows have a
+  chooser of their own (:func:`_spmm_sddmm_bf16_layout`): a head of up to
+  256 bytes is one strip, and four heads that together fit it take one
+  walk that reads and writes each edge's weights and dots at once.
 
 Both take float32 or bfloat16 operands of one type (K1's ``x``, ``w`` and
 ``y``; K2's ``dy``, ``x``, ``w``, ``dx`` and ``dw``): bfloat16 rows are
@@ -47,6 +50,9 @@ __all__ = ["launches", "spmm_csr", "spmm_sddmm", "spmm_plain",
            "spmm_sddmm_plain", "SpmmFunction", "spmm"]
 
 launches = {"k1": 0, "k2": 0, "k1_bf16": 0, "k2_bf16": 0}
+# K2's last launch of each dtype: its layout and the strips of a head, so
+# that a caller can see which path of the chooser ran
+last_layout = {"k2": None, "k2_bf16": None}
 
 _INT32_MAX = 2**31 - 1
 
@@ -71,6 +77,20 @@ _K1_NARROW = (2, 0)
 _K1_WIDE = (8, 64)
 _K2_NARROW = (2, 0)
 _K2_WIDE = (4, 64)
+# bfloat16 K2 has a chooser of its own, from chip_smoke.py --sweep bf16_k2
+# (PERF.md §6). On bf16x8 rows a head of at most _K2_BF16_ROW_BYTES bytes
+# is one whole-row strip whatever its table's size (at D = 128 a 32 MiB
+# dy table that float32's 16 MiB strip line cut in two: dy gathered twice,
+# each edge's two partial dots through float32 scratch and a third
+# launch), and four heads that together fit it take the all-heads walk
+# (csrc/spmm.cu spmm_sddmm_heads_kernel: GAT (b)'s H = 4, D = 32; no
+# weight pass, scratch or sum pass). _K2_BF16 gives, by the bytes
+# of one head's row, its (gathers in flight, register cap, index windows
+# a row), and _K2_BF16_WALK the all-heads walk's. Other bfloat16 rows take
+# float32's rule, in bytes.
+_K2_BF16_ROW_BYTES = 256
+_K2_BF16 = ((16, (1, 64, 2)), (256, (4, 64, 2)))
+_K2_BF16_WALK = (2, 64, 2)
 
 
 @functools.cache
@@ -180,17 +200,42 @@ def _spmm_layout(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
 def _spmm_sddmm_layout(fv: int, vec_bytes: int, table_rows: int,
                        n_rows: int, entries: int, heads: int = 1
                        ) -> tuple[int, int, int, int, int]:
-    """K2's ``(log_rows, log_strip, unroll, reg_cap, by_position)`` for
+    """float32 K2's ``(log_rows, log_strip, unroll, reg_cap, mode)`` for
     ``heads`` heads of ``fv`` vectors gathered from ``table_rows`` rows of
     ``dy``: K1's strip and rows per warp (:func:`_strip_rows`; heads run
     one after the other, so one head's slice is the table), ``_K2_WIDE``
-    (unroll, reg_cap) for groups of a line or more, else ``_K2_NARROW``; by
-    position for more than one head."""
+    (unroll, reg_cap) for groups of a line or more, else ``_K2_NARROW``;
+    mode 1 (the weights and dots by sender-CSR position) for more than one
+    head, else 0 (by edge id)."""
     log_rows, log_strip = _strip_rows(fv, vec_bytes, table_rows, n_rows,
                                       entries)
     wide = vec_bytes << log_strip >= _K1_LINE_BYTES
     return ((log_rows, log_strip) + (_K2_WIDE if wide else _K2_NARROW)
             + (int(heads > 1),))
+
+
+def _spmm_sddmm_bf16_layout(fv: int, vec_bytes: int, table_rows: int,
+                            n_rows: int, entries: int, heads: int = 1,
+                            heads_ok: bool = True
+                            ) -> tuple[int, int, int, int, int]:
+    """bfloat16 K2's layout (as :func:`_spmm_sddmm_layout`'s): on bf16x8
+    rows (``vec_bytes`` 16), four heads of a power of two of vectors that
+    together fit ``_K2_BF16_ROW_BYTES`` take the all-heads walk (mode 2,
+    one group of their lanes, where ``heads_ok``: the weights' rows are
+    aligned to load an edge's heads at once) at ``_K2_BF16_WALK``, one
+    head that fits it one whole-row strip (mode 0) at ``_K2_BF16``'s entry
+    for its bytes; other rows float32's rule."""
+    group = fv * heads
+    if vec_bytes == 16 and group * vec_bytes <= _K2_BF16_ROW_BYTES:
+        pow2 = fv & (fv - 1) == 0
+        if heads == 1 or (heads == 4 and pow2 and heads_ok):
+            log_g = (group - 1).bit_length()
+            unroll, cap, windows = (_K2_BF16_WALK if heads > 1 else next(
+                e for most, e in _K2_BF16 if group * vec_bytes <= most))
+            return (_windowed_rows(log_g, n_rows, entries, windows), log_g,
+                    unroll, cap, 0 if heads == 1 else 2)
+    return _spmm_sddmm_layout(fv, vec_bytes, table_rows, n_rows, entries,
+                              heads)
 
 
 def _raise_on_error(lib, code: int, what: str) -> None:
@@ -352,14 +397,16 @@ def _check_sddmm(indptr, col, eid, w, dy, x) -> int:
 
 
 def _spmm_sddmm_kernel(indptr, col, eid, w, dy, x, layout=None):
-    """K2 at :func:`_spmm_sddmm_layout`'s layout, or at ``layout``
-    (``(log_rows, log_strip, unroll, reg_cap, by_position)``) from the sweep
-    build of the library, which holds every (unroll, reg_cap) instance
-    (``build.load``). Scratch (float32): by position, ``H * strips * E``
-    floats for the dots of every strip and ``H * E`` for the weights (the
-    bfloat16 ones take half of it); else the dots' where a head spans
-    several strips. bfloat16 rows take ``spmm_sddmm_csr_bf16``: ``dx`` and
-    ``dw`` in bfloat16, each rounded once from its float32 sum."""
+    """K2 at :func:`_spmm_sddmm_layout`'s layout (bfloat16:
+    :func:`_spmm_sddmm_bf16_layout`'s), or at ``layout``
+    (``(log_rows, log_strip, unroll, reg_cap, mode)``) from the sweep build
+    of the library, which holds every (unroll, reg_cap) instance
+    (``build.load``). Scratch (float32): by position (mode 1), ``H * strips
+    * E`` floats for the dots of every strip and ``H * E`` for the weights
+    (the bfloat16 ones take half of it); by edge id (mode 0) the dots' where
+    a head spans several strips; none for the all-heads walk (mode 2).
+    bfloat16 rows take ``spmm_sddmm_csr_bf16``: ``dx`` and ``dw`` in
+    bfloat16, each rounded once from its float32 sum."""
     heads = _check_sddmm(indptr, col, eid, w, dy, x)
     n_rows, d, n_edges = indptr.numel() - 1, x.shape[-1], col.numel()
     if x.shape[0] != n_rows:
@@ -375,12 +422,17 @@ def _spmm_sddmm_kernel(indptr, col, eid, w, dy, x, layout=None):
     bf16 = x.dtype == torch.bfloat16
     fv, vec_bytes = _row_vectors(d, x.element_size(), dy, x, dx)
     lib = _lib(sweep=layout is not None)
-    if layout is None:
+    if layout is None and bf16:
+        heads_ok = w is None or w.data_ptr() % (2 * heads) == 0
+        layout = _spmm_sddmm_bf16_layout(fv, vec_bytes, dy.shape[0], n_rows,
+                                         n_edges, heads, heads_ok)
+    elif layout is None:
         layout = _spmm_sddmm_layout(fv, vec_bytes, dy.shape[0], n_rows,
                                     n_edges, heads)
     strips = -(-fv >> layout[1])
-    parts = (strips + (w is not None) if layout[4] else
-             strips if strips > 1 else 0)
+    mode = layout[4]
+    parts = (strips + (w is not None) if mode == 1 else
+             strips if mode == 0 and strips > 1 else 0)
     scratch = (torch.empty(heads * parts * n_edges, dtype=torch.float32,
                            device=x.device) if parts else None)
     fn = "spmm_sddmm_csr_bf16" if bf16 else "spmm_sddmm_csr_f32"
@@ -389,6 +441,7 @@ def _spmm_sddmm_kernel(indptr, col, eid, w, dy, x, layout=None):
                     _ptr(dw), _ptr(scratch), n_rows, heads, d, n_edges,
                     vec_bytes, *layout)
     launches["k2_bf16" if bf16 else "k2"] += 1
+    last_layout["k2_bf16" if bf16 else "k2"] = (layout, strips)
     _raise_on_error(lib, code, fn)
     return dx, dw
 

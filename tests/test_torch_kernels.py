@@ -1409,20 +1409,22 @@ def test_dot_bf16_kernels_match_plain_on_card(heads, o, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("o,vec_bytes", [(128, 16), (132, 8), (129, 2)])
 def test_dot_bf16_strips_match_plain_on_card(o, vec_bytes):
-    """K6 and K7 on bfloat16 rows in strips (AGNN's (1, 128, 128), and 4-
-    and 1-value vectors: strips of a 128-byte line, 16 or 32 vectors) on a
-    graph whose sender table is wider than ``_DOT_STRIP_BYTES`` (K7's
-    strips, asserted), and K8 beside them, against their plain versions;
-    K6 also at the strips and at its chooser's layouts here and at 2h's
-    size, and K8 at its, the same bits in two runs."""
+    """K6 and K7 on bfloat16 rows on a graph whose sender table is wider
+    than ``_DOT_STRIP_BYTES``: in strips for 4- and 1-value vectors (strips
+    of a 128-byte line, 16 or 32 vectors), in rows for AGNN's (1, 128,
+    128) bf16x8 head (both asserted: K6's and K7's one rule), and K8 beside
+    them, against their plain versions; K6 also at the strips and at its
+    chooser's layouts here and at 2h's size, and K8 at its, the same bits
+    in two runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     g = tgnn.rand_graph(80_000, 400_000, seed=o, device="cuda")
     q, k, v = _dot_bf16_kernels_case(g, 1, o, o, o)
     ov, dv, vec = ES._dot_vectors(o, o, q, k, v)
     assert vec == vec_bytes
-    assert ES._dot_recv_layout(ov, dv, vec, g.num_nodes, g.num_nodes,
-                               g.num_edges, 2, 7)[0] == 1
+    for kernel in (6, 7):
+        assert ES._dot_recv_layout(ov, dv, vec, g.num_nodes, g.num_nodes,
+                                   g.num_edges, 2, kernel)[0] == (vec != 16)
     _dot_bf16_layouts_case(g, 1, o, o, o + 1, [ES._dot_softmax_bf16_layout(
         ov, dv, vec, g.num_nodes, g.num_nodes, g.num_edges, strips=True)])
 

@@ -36,6 +36,9 @@ versions.
       python -m pytest tests/test_torch_spmm_layouts.py --noconftest -o addopts="" -m gpu
 """
 
+import re
+from pathlib import Path
+
 import pytest
 
 pytest.importorskip("torch")
@@ -50,6 +53,25 @@ MEAN_ROW_LENGTHS = [0, 0.5, 1, 3, 15.26, 100, 2048]
 # The (unroll, reg_cap) pairs the shipped library holds for K12 and K4
 # (csrc/edge_softmax.cu, K12Pick and K4Pick)
 K12_INSTANCES = K4_INSTANCES = ((1, 0), (2, 64), (4, 64))
+SPMM_SOURCE = (Path(S.__file__).resolve().parents[2] / "csrc"
+               / "spmm.cu").read_text()
+
+
+def _k2_pairs(name):
+    """The (unroll, reg_cap) pairs a K2 pick of ``csrc/spmm.cu`` holds
+    (its body's ``u == U && cap == C`` terms, and K2Pick's where it names
+    it)."""
+    body = re.search(r"struct %s \{(.*?)\};" % name, SPMM_SOURCE,
+                     re.S).group(1)
+    pairs = {tuple(int(x) for x in m) for m in re.findall(
+        r"u == (\d+) && cap == (\d+)", body)}
+    return pairs | (_k2_pairs("K2Pick") if "K2Pick::holds" in body else set())
+
+
+# the pairs bfloat16 K2 takes (K2Bf16Pick: float32's and its table's;
+# K2WalkPick: the all-heads walk's)
+K2_BF16_PAIRS = _k2_pairs("K2Bf16Pick")
+K2_WALK_PAIRS = _k2_pairs("K2WalkPick")
 
 
 def _log_g(vectors: int) -> int:
@@ -178,6 +200,83 @@ def test_spmm_sddmm_layout_at_the_measured_shapes(fv, vec_bytes, heads,
     position for several heads, by edge id for one."""
     assert S._spmm_sddmm_layout(fv, vec_bytes, 131_072, 131_072, 2_000_000,
                                 heads) == want
+
+
+@pytest.mark.parametrize("mean", MEAN_ROW_LENGTHS)
+def test_spmm_sddmm_bf16_layout_is_valid_for_every_width(mean):
+    """bfloat16 K2's chooser: for 1 to 4 and 8 heads of 1 to
+    300 values in each vector they may take, over tables small and large,
+    empty graphs included, a layout the shipped library builds: an
+    (unroll, reg_cap) pair of K2Bf16Pick (the walk's of K2WalkPick); the
+    all-heads walk (mode 2) only
+    for 4 heads of a power of two of bf16x8 vectors that together fit
+    ``_K2_BF16_ROW_BYTES``, one group of their lanes; else one head's
+    strip (mode 0, one head; 1, several) that R rows fit a warp, one
+    bf16x8 head of at most ``_K2_BF16_ROW_BYTES`` one whole-row strip."""
+    for n_rows in (0, 7, 131_072):
+        entries = round(mean * n_rows)
+        for table_rows in {n_rows, 2_000_000}:
+            for d in range(1, 301):
+                for vb in (16, 8, 2):
+                    fv = d // (vb // 2)
+                    if fv * (vb // 2) != d:
+                        continue
+                    for heads in (1, 2, 3, 4, 8):
+                        rows, strip, unroll, cap, mode = (
+                            S._spmm_sddmm_bf16_layout(fv, vb, table_rows,
+                                                      n_rows, entries,
+                                                      heads))
+                        walk = (vb == 16 and heads == 4
+                                and fv & (fv - 1) == 0
+                                and heads * fv * vb <= S._K2_BF16_ROW_BYTES)
+                        assert mode == (2 if walk else int(heads > 1))
+                        assert (unroll, cap) in (K2_WALK_PAIRS if walk
+                                                 else K2_BF16_PAIRS)
+                        if walk:
+                            assert 1 << strip == heads * fv
+                        else:
+                            assert 0 <= strip <= _log_g(fv)
+                            if (heads == 1 and vb == 16
+                                    and fv * vb <= S._K2_BF16_ROW_BYTES):
+                                assert strip == _log_g(fv)
+                        assert 0 <= rows and rows + strip <= 5
+
+
+def test_k2_bf16_table_is_built():
+    """Each entry of ``_K2_BF16`` names a pair the shipped library holds
+    (K2Bf16Pick), its last entry covers ``_K2_BF16_ROW_BYTES``, and the
+    walk's ``_K2_BF16_WALK`` is K2WalkPick's one pair."""
+    assert S._K2_BF16[-1][0] >= S._K2_BF16_ROW_BYTES
+    for _, (unroll, cap, windows) in S._K2_BF16:
+        assert (unroll, cap) in K2_BF16_PAIRS and windows > 0
+    assert {S._K2_BF16_WALK[:2]} == K2_WALK_PAIRS
+
+
+@pytest.mark.parametrize("fv,heads,want,f32", [
+    # D=128: one whole-row strip, 32 MiB table
+    (16, 1, (1, 4, 4, 64, 0), (2, 3, 4, 64, 0)),
+    # GAT (b) H=4, D=32: the all-heads walk
+    (4, 4, (1, 4, 2, 64, 2), (2, 2, 2, 0, 1)),
+    # D=8: one bf16x8 lane a group
+    (1, 1, (2, 0, 1, 64, 0), (2, 0, 2, 0, 0)),
+    # H=4, D=128: by position, two strips
+    (16, 4, (2, 3, 4, 64, 1), (2, 3, 4, 64, 1)),
+    # three heads: by position
+    (4, 3, (2, 2, 2, 0, 1), (2, 2, 2, 0, 1)),
+])
+def test_spmm_sddmm_bf16_layout_at_the_measured_shapes(fv, heads, want,
+                                                       f32):
+    """bfloat16 K2's layouts at N = 131,072, E = 2M (15.3 edges a row) on
+    bf16x8 rows, from chip_smoke.py --sweep bf16_k2 (PERF.md §6); float32's
+    chooser at the same vectors is unchanged (K1's strips, by position for
+    several heads)."""
+    n, e = 131_072, 2_000_000
+    assert S._spmm_sddmm_bf16_layout(fv, 16, n, n, e, heads) == want
+    # an unaligned weights' row: no all-heads walk
+    if want[4] == 2:
+        assert S._spmm_sddmm_bf16_layout(fv, 16, n, n, e, heads,
+                                         heads_ok=False)[4] == 1
+    assert S._spmm_sddmm_layout(fv, 16, n, n, e, heads) == f32
 
 
 @pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
@@ -629,6 +728,117 @@ def test_spmm_sddmm_wrapper_passes_the_layout(monkeypatch, heads, d):
     assert (calls[2][1][8] is None) == (fv == 1)
     assert calls[1][1][3] is None                  # w = None
     assert S.launches["k2"] == before + 3
+
+
+class _K2StandIn:
+    """Stands in for the K2 library on bfloat16 CPU tensors (``_ptr``
+    passes the tensors themselves): checks each call's integers and scratch
+    as ``spmm_sddmm_csr_bf16`` takes them (mode 2: 4 heads of a power of
+    two of bf16x8 vectors, one group of their lanes, no scratch;
+    mode 1: ``H * (strips + 1) * E`` floats with weights, ``H * strips *
+    E`` without; mode 0: ``H * strips * E`` past one strip, else none) and
+    writes the plain version's outputs."""
+
+    def __init__(self):
+        self.calls = []
+
+    def spmm_sddmm_csr_bf16(self, indptr, col, eid, w, dy, x, dx, dw,
+                            scratch, n_rows, heads, d, n_edges, vec,
+                            log_rows, log_strip, unroll, cap, mode, stream):
+        self.calls.append(((log_rows, log_strip, unroll, cap, mode),
+                           None if scratch is None else scratch.numel()))
+        fv = d // (vec // 2)
+        strips = -(-fv >> log_strip)
+        assert log_rows + log_strip <= 5
+        assert (unroll, cap) in (K2_WALK_PAIRS if mode == 2
+                                 else K2_BF16_PAIRS)
+        if mode == 2:
+            assert vec == 16 and heads == 4 and fv & (fv - 1) == 0
+            assert 1 << log_strip == heads * fv and scratch is None
+        elif mode == 1:
+            assert scratch.numel() == heads * (strips + (w is not None)) \
+                * n_edges
+        else:
+            assert mode == 0 and (scratch.numel() if strips > 1 else None) \
+                == (heads * strips * n_edges if strips > 1 else None)
+        a, b = S.spmm_sddmm_plain(indptr, col, eid, w, dy, x)
+        dx.copy_(a)
+        dw.copy_(b)
+        return 0
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("d", [8, 32, 128])
+def test_spmm_sddmm_bf16_stand_in_route_matches_plain(monkeypatch, heads,
+                                                      d):
+    """``_spmm_sddmm_kernel`` on bfloat16 CPU tensors, through a stand-in
+    library that checks the layout's integers and the scratch it was given
+    (none for the all-heads walk or one strip): dx and dw are
+    ``spmm_sddmm_plain``'s bits, weighted and unweighted, at the chooser's
+    layout and at one of each mode the rows take; the chooser's is the
+    walk at 4 heads of 8 or 32 values and one whole-row strip at one
+    head."""
+    lib = _K2StandIn()
+    monkeypatch.setattr(S, "_lib", lambda sweep=False: lib)
+    monkeypatch.setattr(S, "_ptr", lambda t: t)
+    monkeypatch.setattr(S, "_call_on", lambda device, fn, *a: fn(*a, None))
+    rng = np.random.default_rng(heads * 100 + d)
+    indptr, col = _csr(rng, 40, 50, empty_every=7)
+    n_edges = col.numel()
+    eid = torch.tensor(rng.permutation(n_edges), dtype=torch.int32)
+    shape = (heads, d) if heads > 1 else (d,)
+
+    def bf(*sh):
+        return torch.tensor(rng.standard_normal(sh),
+                            dtype=torch.float32).bfloat16()
+
+    dy, x, w = bf(50, *shape), bf(40, *shape), bf(n_edges, *shape[:-1])
+    fv = d // 8
+    lg = _log_g(fv)
+    lays = [None, (1, lg, 2, 0, 0), (1, lg, 2, 0, 1)]
+    if heads > 1 and heads * fv <= 32:
+        lays.append((0, _log_g(heads * fv), 2, 64, 2))
+    if fv > 8:
+        lays.append((2, 3, 4, 64, 0))
+    before = S.launches["k2_bf16"]
+    for ww in (w, None):
+        want = S.spmm_sddmm_plain(indptr, col, eid, ww, dy, x)
+        for lay in lays:
+            got = S._spmm_sddmm_kernel(indptr, col, eid, ww, dy, x,
+                                       layout=lay)
+            for a, b in zip(got, want):
+                assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    chosen = lib.calls[0][0]
+    assert chosen == S._spmm_sddmm_bf16_layout(fv, 16, 50, 40, n_edges,
+                                               heads)
+    # the wrapper records its last launch: the layout and a head's strips
+    assert S.last_layout["k2_bf16"] == (lib.calls[-1][0],
+                                        -(-fv >> lib.calls[-1][0][1]))
+    assert chosen[4] == (2 if heads == 4 and d < 128 else int(heads > 1))
+    if heads == 1:
+        assert chosen[1] == lg and lib.calls[0][1] is None
+    assert S.launches["k2_bf16"] == before + 2 * len(lays)
+
+
+def test_spmm_sddmm_bf16_walk_needs_aligned_weights(monkeypatch):
+    """The all-heads walk loads an edge's H weights at once: weights whose
+    rows are not aligned to H values (a view one value in) take the
+    position route (mode 1) instead, with its scratch."""
+    lib = _K2StandIn()
+    monkeypatch.setattr(S, "_lib", lambda sweep=False: lib)
+    monkeypatch.setattr(S, "_ptr", lambda t: t)
+    monkeypatch.setattr(S, "_call_on", lambda device, fn, *a: fn(*a, None))
+    rng = np.random.default_rng(3)
+    indptr, col = _csr(rng, 40, 50)
+    n_edges = col.numel()
+    dy = torch.randn(50, 4, 32).bfloat16()
+    x = torch.randn(40, 4, 32).bfloat16()
+    flat = torch.randn(n_edges * 4 + 1).bfloat16()
+    for w, mode in ((flat[:-1].view(n_edges, 4), 2),
+                    (flat[1:].view(n_edges, 4), 1)):
+        S._spmm_sddmm_kernel(indptr, col, None, w, dy, x)
+        assert lib.calls[-1][0][4] == mode
+        assert (lib.calls[-1][1] is None) == (mode == 2)
 
 
 @pytest.mark.parametrize("heads,o", [(4, 32), (1, 8), (3, 7)])
@@ -1273,6 +1483,119 @@ def test_spmm_sddmm_layouts_on_card(d):
                                                layout=lay + (by_position,))
                     for a, b in zip(got, want):
                         torch.testing.assert_close(a, b, **TOL)
+    torch.cuda.synchronize()
+
+
+def _bf16_close(got, want):
+    """A bfloat16 kernel output against its plain version: each rounds one
+    float32 sum (taken in another order: TOL's atol) to bfloat16, so the two
+    may land one bfloat16 ulp apart."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.double(), want.double()
+    _, e = torch.frexp(w.abs().clamp(min=torch.finfo(torch.float32).tiny))
+    ulp = torch.exp2(e.double() - 8)          # |w| in [2^(e-1), 2^e)
+    err = (g - w).abs()
+    assert bool((err <= ulp + TOL["atol"]).all()), float(
+        (err / (ulp + TOL["atol"])).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(1, 8), (1, 128), (2, 16), (4, 32),
+                                     (4, 8), (4, 64), (4, 128), (3, 16)])
+def test_spmm_sddmm_bf16_layouts_on_card(heads, d):
+    """bfloat16 K2 at every layout of the sweep build: by edge id and by
+    sender-CSR position at every strip of a line or more (modes 0, 1), and
+    for 4 heads of a power of two of bf16x8 vectors, at most 32 of them
+    together, the all-heads walk (mode 2); weighted and unweighted,
+    over a bipartite sender CSR with empty rows and rows of 40 and 1,100
+    edges, against ``spmm_sddmm_plain`` (dx, dw within one bfloat16 ulp);
+    the chooser's layout twice, the same bits."""
+    _needs_card()
+    _, (is_, cs, es), n_edges = _groupings(heads * 10 + d)
+    gen = torch.Generator(device="cuda").manual_seed(heads + d)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+
+    shape = (d,) if heads == 1 else (heads, d)
+    dy, x = rn(260, *shape), rn(300, *shape)
+    w = rn(n_edges, *shape[:-1])
+    fv, vec = S._row_vectors(d, 2, dy, x, w)
+    assert vec == 16
+    log_g = _log_g(fv)
+    lays = [(r, strip, u, c, mode) for mode in (0, 1)
+            for strip in range(min(log_g, 3), log_g + 1)
+            for r in range(6 - strip) for u in (1, 2, 4, 8) for c in (0, 64)]
+    walk = heads == 4 and fv & (fv - 1) == 0 and heads * fv <= 32
+    if walk:
+        lg = _log_g(heads * fv)
+        lays += [(r, lg, u, c, 2) for r in range(6 - lg)
+                 for u in (1, 2, 4, 8) for c in (0, 64)]
+    for ww in (w, None):
+        args = (is_, cs, es, ww, dy, x)
+        want = S.spmm_sddmm_plain(*args)
+        first, again = S.spmm_sddmm(*args), S.spmm_sddmm(*args)
+        for a, b, c in zip(first, want, again):
+            _bf16_close(a, b)
+            assert torch.equal(a, c)
+        for lay in lays:
+            for a, b in zip(S._spmm_sddmm_kernel(*args, layout=lay), want):
+                _bf16_close(a, b)
+    chosen = S._spmm_sddmm_bf16_layout(fv, vec, 260, 300, n_edges, heads)
+    assert chosen[4] == (2 if walk and heads * fv * 16 <= 256 else
+                         int(heads > 1))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,o,d", [(4, 32, 32), (1, 8, 8), (1, 128, 128),
+                                       (2, 64, 16), (1, 256, 256)])
+def test_dot_bwd_dq_bf16_layouts_on_card(heads, o, d):
+    """bfloat16 K7 at every layout of the sweep build on bf16x8 rows: the
+    register kernel at every rows per warp and (edges in flight, register
+    cap), strips of a line for heads wider than a line; from K6's raw
+    logits and
+    recomputing them, with and without a slope, over a bipartite receiver
+    CSR with empty rows and rows of 40 and 1,100 edges, against
+    ``dot_bwd_dq_plain`` (dq within one bfloat16 ulp); every rows layout
+    the same bits as one edge at a time at the same rows per warp (the same
+    sums in the same order)."""
+    _needs_card()
+    (ir, cr), _, n_edges = _groupings(heads * 100 + o + d)
+    gen = torch.Generator(device="cuda").manual_seed(heads * o + d)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, dy = rn(260, heads, o).bfloat16(), rn(260, heads, d).bfloat16()
+    k, v = rn(300, heads, o).bfloat16(), rn(300, heads, d).bfloat16()
+    ov, dv, vec = ES._dot_vectors(o, d, q, k, v)
+    assert vec == 16
+    wide = max(ov, dv)
+    log_g = _log_g(wide)
+    pairs = ([(u, c) for u in (1, 2, 4) for c in (0, 64)] if wide <= 32
+             else [(1, 0)])
+    rows = [(0, r) + p for r in range(6 - log_g) for p in pairs]
+    strips = [(1, r, 4, 0) for r in range(3)] if wide > 8 else []
+    for slope in (None, 0.2):
+        raw = torch.empty(n_edges, heads, device="cuda")
+        fwd = ES.dot_softmax_plain(ir, cr, q, k, v, o ** -0.5, slope, raw)
+        out, mx, den = ES.finalize_softmax(*fwd, rn(260, heads),
+                                           rn(260, heads, d).bfloat16())
+        bwd = (ir, cr, q, k, v, mx, den, (out.float() * dy.float()).sum(-1),
+               dy, o ** -0.5, slope)
+        for given in (raw, None):
+            want = ES.dot_bwd_dq_plain(*bwd, given)
+            first = ES.dot_bwd_dq(*bwd, given)
+            _bf16_close(first, want)
+            assert torch.equal(ES.dot_bwd_dq(*bwd, given), first)
+            base = {}
+            for lay in rows + strips:
+                got = ES._dot_bwd_dq_kernel(*bwd, given, lay)
+                _bf16_close(got, want)
+                if not lay[0]:
+                    ref = base.setdefault(lay[1], got)
+                    assert torch.equal(got, ref), lay
     torch.cuda.synchronize()
 
 
