@@ -52,17 +52,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``segment_max_bwd_csr_bf16``): K1 over the receiver CSR at D = 128
    (bench.py's ``large_pallas_bf16``) and 8, over the sender CSR at D =
    128 and 8 and weighted at D = 128, over ``[E, D]`` edge rows at D = 128
-   and 8 and by edge id over the sender CSR at D = 128; K2 at D =
+   and 8 and by edge id over the sender CSR at D = 128, each in one
+   whole-row strip (asserted: bfloat16 K1's chooser); K2 at D =
    128, 8 and (H, D) = (4, 32) and (4, 128) in one launch (one case on
    each path of its chooser); K3, K4 and K5 at (4, 32),
    (1, 8) and (1, 128) (bench.py's ``attention_bf16``); K9, K10 (``dq``;
    its float32 ``da`` against the plain version in float64, as 2c) and
-   K11 at (H, O) = (4, 32) and (1, 8); K6 (writing the raw logits), K7
-   (from them) and K8 at 2d's (H, O, D) = (4, 32, 32), (1, 8, 8), (1, 128,
-   128) (K6 and K7 in rows) and (4, 32, 32) with a slope, and at (1, 264,
-   264) (K6 and K7 in strips), each at the layout its chooser gives
-   (logged: bfloat16 K6's, K7's and K8's tables of their own, K8's staged
-   kernel reading the receiver scalars packed); K12 at (4, 32)
+   K11 at (H, O) = (4, 32) and (1, 8) (in K8's ring, asserted); K6
+   (writing the raw logits), K7 (from them) and K8 at 2d's (H, O, D) =
+   (4, 32, 32), (1, 8, 8), (1, 128, 128) (K6 and K7 in rows) and (4, 32,
+   32) with a slope, and at (1, 264, 264) (K6 and K7 in strips), each at
+   the layout its chooser gives (logged: bfloat16 K6's, K7's and K8's
+   tables of their own, K8's staged kernel reading the receiver scalars
+   packed); K12 at (4, 32)
    with node values, with them and a dropout mask, with edge values and
    the mask, and at (1, 8) with the mask; K13 at D = 128, 32 and (4, 32);
    each held to its plain version within one bfloat16 ulp; K14 (max, min)
@@ -269,12 +271,13 @@ measurement behind the wrappers' choices; each layout but K14's held to
 the plain version first), K1's gather-rate ceiling at D=128, and K1, K2,
 K6, K7, K8 and K11 at every rows per warp and K10, K5, K9, K3, K4 and K12
 at one row per warp on an R-MAT graph of skewed degrees, and the
-bfloat16 K1, K2, K3-K8 at every layout of their sweep build
+bfloat16 K1-K8 and K11 at every layout of their sweep build
 (``bf16``; K6 and K8 also alone, ``bf16_dot``, K6's rows against strips
-on tables of 32 to 128 MiB, ``bf16_strips``, K7, ``bf16_k7``, and K2,
-``bf16_k2``, each with a summary of the fastest, chosen and parent
-layouts) (``--sweep k12,k4,skew`` runs the named sweeps only; with k1,
-K1 also at 2g's shapes); the log ends with the seconds each phase took;
+on tables of 32 to 128 MiB, ``bf16_strips``, K7, ``bf16_k7``, K2,
+``bf16_k2``, K1, ``bf16_k1``, and K11, ``bf16_k11``, each with a summary
+of the fastest, chosen and parent layouts) (``--sweep k12,k4,skew`` runs
+the named sweeps only; with k1, K1 also at 2g's shapes); the log ends
+with the seconds each phase took;
 ``--only 2e,2f`` runs phase 1 and the named phases only (kernel phases,
 and the train phases 3b, 3d, 3e, 3f, 3l, 3v, 3o, 3p, 3q, 3s, 2j, 3r, 3m
 and 3n, with ``--profile`` their profiles; 3v, 3o, 3p, 3q, 3r and 3s
@@ -525,13 +528,15 @@ _MANGLED_VECTORS = {"5uint4": "bf16x8", "5uint2": "bf16x4", "t": "bf16x1",
 
 
 def log_dot_bf16_ptxas(text: str) -> list:
-    """Each bfloat16 instance of K6 (rows, strips), K7 (rows, strips) and
-    K8 (register and staged) in ``edge_softmax``'s
-    ``-Xptxas=-v`` report, or of K2 (per head, all heads) in ``spmm``'s:
-    its kernel, vector, template integers, registers and spill bytes
-    (stores, loads), logged and returned."""
+    """Each bfloat16 instance of K6 (rows, strips), K7 (rows, strips), K8
+    (register and staged) and K11 (register and staged) in
+    ``edge_softmax``'s ``-Xptxas=-v`` report, or of K2 (per head, all
+    heads) and K1 (groups, lanes) in ``spmm``'s: its kernel, vector,
+    template integers, registers and spill bytes (stores, loads), logged
+    and returned."""
     pat = re.compile(r"((?:dot_(?:softmax|bwd_rev|bwd_dq|strip_\w+?)"
-                     r"(?:_rows|_staged)?|spmm_sddmm_(?:csr|heads))"
+                     r"(?:_rows|_staged)?|gatv2_bwd_rev(?:_staged)?"
+                     r"|spmm_sddmm_(?:csr|heads)|spmm_csr(?:_lanes)?)"
                      r"_kernel)I(Li\d+E)?(5uint4|5uint2|t|6float4|f)"
                      r"((?:Li\d+E)*)E")
     rows, fn = [], None
@@ -1066,11 +1071,12 @@ def bf16_phase(g, gb, card: str) -> dict:
     the D=8 ones and the receiver D=128) and weighted at D=128 (3o's
     ``DotDecoder`` backward), over ``[E, D]`` edge rows at D=128 and 8 and
     by edge id over the sender CSR at D=128 (the endpoint gathers'
-    backward: 3o's EdgeConv); K3, K4
-    and K5 at (H, D) = (4, 32) and (1, 8) (3o's GAT) and (1, 128)
+    backward: 3o's EdgeConv), each in one whole-row strip (asserted); K3,
+    K4 and K5 at (H, D) = (4, 32) and (1, 8) (3o's GAT) and (1, 128)
     (bench.py's ``attention_bf16``, :235-250); K9, K10 (``dq``; its
     float32 ``da`` held to the plain version in float64, as 2c holds it)
-    and K11 at (H, O) = (4, 32) and (1, 8) (3o's GATv2); K6 (writing the
+    and K11 (in K8's ring, asserted) at (H, O) = (4, 32) and (1, 8) (3o's
+    GATv2); K6 (writing the
     raw logits), K7 (from them) and K8 at 2d's (H, O, D) = (4, 32, 32),
     (1, 8, 8), (1, 128, 128), whose K6 and K7 take rows (asserted), and
     (4, 32, 32) with a slope (3o's Transformer and AGNN), and at
@@ -1180,6 +1186,16 @@ def bf16_phase(g, gb, card: str) -> dict:
                                                     rn(E, D)), a_eid)):
         indptr, col, eid, w_, x = args
         rows, d = indptr.numel() - 1, x.shape[1]
+        # the layout the wrapper chose and launched: bf16x8 rows of at most
+        # 256 bytes in one whole-row strip (a row of one vector: the lanes
+        # kernel)
+        S.spmm_csr(*args)
+        lay = S.last_layout["k1_bf16"]
+        log(f"  K1 bf16 {label}: layout {lay} (log2 rows, log2 strip, "
+            "unroll, cap)")
+        if 1 << lay[1] < d // 8:
+            raise AssertionError(f"K1 bf16 {label} must take one whole-row "
+                                 f"strip, got {lay}")
         # indptr and col (int32, col None: none), eid where w is read
         # through it, w in bfloat16; the source rows the function reads
         # and the output
@@ -1191,7 +1207,7 @@ def bf16_phase(g, gb, card: str) -> dict:
         case("k1_bf16", label, S.spmm_csr, S.spmm_plain, args,
              idx + 2 * (src + rows) * d, (1 + (w_ is not None)) * E * d,
              lambda a=a, x=x: torch.sparse.mm(a, x),
-             again=2 * (E - src) * d if col is not None else 0)
+             again=2 * (E - src) * d if col is not None else 0, layout=lay)
     del a_r, a_s, a_sw, a_e, a_eid
 
     # K2 over the sender CSR: int32 CSR and eid, bfloat16 w, dy, x, dx, dw;
@@ -1350,9 +1366,18 @@ def bf16_phase(g, gb, card: str) -> dict:
              lambda *a_: ES.gatv2_bwd_dq_plain(*a_)[0], (ir, cr) + bwd,
              idx + 4 * rows + 3 * s4 + 2 * o * h + 4 * o * h,
              E * h * (11 * o + 8), again=again)
+        # the layout the wrapper chose and launched: bf16x8 rows on K8's
+        # ring, the receivers' scalars packed (their stack in the times)
+        ES.gatv2_bwd_rev(is_, cs, *bwd)
+        lay = ES.last_layout["k11_bf16"]
+        log(f"  K11 bf16 {hd}: layout {lay} (log2 rows, unroll, cap, "
+            "packed, stages)")
+        if not (lay[4] and lay[3]):
+            raise AssertionError(f"K11 bf16 {hd} must take the staged "
+                                 f"kernel, got {lay}")
         case("k11_bf16", hd, ES.gatv2_bwd_rev, ES.gatv2_bwd_rev_plain,
              (is_, cs) + bwd, idx + 4 * rows + 3 * s4 + 2 * o * h,
-             E * h * (11 * o + 8), again=2 * again + 12 * eh)
+             E * h * (11 * o + 8), again=2 * again + 12 * eh, layout=lay)
         del q, k, dy, sl, sv, num, out, bwd
 
     # K6, K7 and K8 at 2d's shapes (3o Transformer's and AGNN's): int32
@@ -2039,7 +2064,8 @@ SWEEPS = ("k1", "k2", "k3", "k4", "k5", "k6_k7", "k8", "k9", "k10", "k11",
           "bf16",
           "k12", "k14", "skew")
 # parts of the bf16 sweep that run alone by name
-SWEEP_PARTS = ("bf16_dot", "bf16_strips", "bf16_k7", "bf16_k2")
+SWEEP_PARTS = ("bf16_dot", "bf16_strips", "bf16_k7", "bf16_k2", "bf16_k1",
+               "bf16_k11")
 
 
 def _k11_args(ES, g, h, o, gen):
@@ -3302,6 +3328,164 @@ def bf16_k2_sweep(g) -> list:
     return out
 
 
+def _k1_bf16_cases(g, gen) -> list:
+    """bfloat16 K1's cases of 2h that phase 3 launches: ``(label, args)``
+    with ``args`` as ``spmm_csr`` takes them, random bfloat16 rows (and
+    weights) from ``gen``."""
+    dev, bf = g.device, torch.bfloat16
+    ir, cr, is_, cs, es = (g.indptr_r, g.col_r, g.indptr_s, g.col_s,
+                           g.eid_s)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    x, x8, e128 = rn(N, D), rn(N, OUT_D), rn(E, D)
+    return [(f"fwd receiver-CSR D={D}", (ir, cr, None, None, x)),
+            (f"fwd receiver-CSR D={OUT_D}", (ir, cr, None, None, x8)),
+            (f"bwd sender-CSR D={D}", (is_, cs, es, None, x)),
+            (f"bwd sender-CSR D={OUT_D}", (is_, cs, es, None, x8)),
+            (f"bwd sender-CSR weighted D={D}", (is_, cs, es, rn(E), x)),
+            (f"gather-bwd edge rows D={D}", (ir, None, None, None, e128)),
+            (f"gather-bwd edge rows by eid D={D}", (is_, es, None, None,
+                                                    e128))]
+
+
+def _k1_bf16_layouts(fv: int, vec: int) -> list:
+    """Every bfloat16 K1 layout ``(log_rows, log_strip, unroll, reg_cap)``
+    the sweep build holds on rows of ``fv`` bf16x8 vectors (``vec`` 16;
+    none for narrower rows): every strip of a 128-byte line or more up to
+    the whole row, rows per warp, gathers in flight of {1, 2, 4, 8} and
+    register cap of {0, 64} (a row of one vector: the lanes kernel)."""
+    if vec != 16:
+        return []
+    log_g = min((fv - 1).bit_length(), 5)
+    return [(r, strip, u, c) for strip in range(min(log_g, 3), log_g + 1)
+            for r in range(6 - strip) for u in (1, 2, 4, 8) for c in (0, 64)]
+
+
+def bf16_k1_sweep(g) -> list:
+    """bfloat16 K1 at every layout of the sweep build
+    (:func:`_k1_bf16_layouts`), at 2h's cases that phase 3 launches
+    (:func:`_k1_bf16_cases`: over the receiver CSR at D = 128 and 8, the
+    sender CSR at D = 128, 8 and weighted at D = 128, and the gathers'
+    backward over ``[E, 128]`` edge rows, in order and by edge id), each
+    held to the plain version (one bfloat16 ulp, :func:`compare_bf16`)
+    before it is timed (device ms): the measurement behind
+    ``ops/cuda/spmm.py``'s ``_K1_BF16`` and ``_K1_BF16_ROW_BYTES``.
+    ``parent``: the layout float32's rule gives, which bfloat16 K1 took
+    before (at D = 8 on the lanes kernel, which rows of one bf16x8 vector
+    take now: the parent's kernel is timed by its own 2h)."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    gen = torch.Generator(device=g.device).manual_seed(41)
+    out = []
+    log("sweep: bf16 K1 layouts (device ms, profiler; log2 rows per warp, "
+        "log2 strip vectors, gathers in flight, register cap)")
+    for label, args in _k1_bf16_cases(g, gen):
+        x = args[-1]
+        fv, vec = S._row_vectors(x.shape[1], 2, x)
+        n_rows = args[0].numel() - 1
+        n_edges = args[1].numel() if args[1] is not None else x.shape[0]
+        chosen = S._spmm_bf16_layout(fv, vec, x.shape[0], n_rows, n_edges)
+        parent = S._spmm_layout(fv, vec, x.shape[0], n_rows, n_edges)
+        ref = S.spmm_plain(*args)
+        for lay in _k1_bf16_layouts(fv, vec):
+            err = compare_bf16(f"K1 bf16 {label} {lay}",
+                               S._spmm_csr_kernel(*args, layout=lay), ref,
+                               quiet=True)
+            row = {"kernel": "K1", "case": label, "layout": list(lay),
+                   "chosen": lay == chosen, "parent": lay == parent,
+                   "max_abs_err": err, "device_ms": device_ms(
+                       lambda: S._spmm_csr_kernel(*args, layout=lay))}
+            out.append(row)
+            log(f"  K1 bf16 {label:<34} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}"
+                f"{' (parent)' * row['parent']}")
+        del ref
+    return out
+
+
+# (H, O) of bf16_k11_sweep: 3o GATv2's two layers and a head of two
+# register chunks of bf16x8 vectors (33)
+K11_BF16_SHAPES = GATV2_SHAPES + ((1, BF16_STRIP_HEAD),)
+
+
+def _k11_bf16_layouts(ov: int, vec: int) -> list:
+    """Every bfloat16 K11 layout ``(log_rows, unroll, reg_cap, packed,
+    stages)`` the sweep build holds for heads of ``ov`` bf16x8 vectors
+    (``vec`` 16; none for narrower rows): at every rows per warp, at one
+    register chunk the register kernel at every (edges in flight, register
+    cap) of {1, 2, 4} x {0, 64}, packed or not, and the staged one at (edges
+    a stage, register cap, stages) of {1, 2} x {0, 64} x {2, 4, 6}, its
+    scalars packed (and for one vector a row also with ``q`` in one
+    record, packed 2); wider rows the staged one at one edge, two stages,
+    uncapped."""
+    if vec != 16:
+        return []
+    rows = range(6 - min((ov - 1).bit_length(), 5))
+    if ov > 32:
+        return [(r, 1, 0, 1, 2) for r in rows]
+    return ([(r, u, c, p, 0) for r in rows for u in (1, 2, 4)
+             for c in (0, 64) for p in (0, 1)]
+            + [(r, u, c, p, ns) for r in rows for u in (1, 2)
+               for c in (0, 64) for ns in (2, 4, 6)
+               for p in ((1, 2) if ov == 1 else (1,))])
+
+
+def bf16_k11_sweep(g) -> list:
+    """bfloat16 K11 at every layout of the sweep build
+    (:func:`_k11_bf16_layouts`: the register and the staged kernel) at 3o
+    GATv2's (4, 32) and (1, 8) and at a head of two register chunks
+    (:data:`K11_BF16_SHAPES`), the receivers' row max and denominator from
+    the plain forward, each held to the plain version (``dk`` within one
+    bfloat16 ulp, :func:`compare_bf16`) before it is timed (device ms, the
+    packing of the receivers' scalars included): the measurement behind
+    ``ops/cuda/edge_softmax.py``'s ``_K11_BF16``. ``parent``: the layout
+    float32's rule gives, the register kernel, which bfloat16 K11 took
+    before."""
+    from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
+    from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
+
+    dev, bf = g.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(43)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    out = []
+    log("sweep: bf16 K11 layouts (device ms, profiler; log2 rows per warp, "
+        "edges in flight or a stage, register cap, packed scalars, stages)")
+    for h, o in K11_BF16_SHAPES:
+        q, k, dy = rn(N, h, o), rn(N, h, o), rn(N, h, o)
+        a = (torch.randn(o, h, generator=gen, device=dev)
+             * (2.0 / (o + h)) ** 0.5).to(bf)   # Glorot's scale
+        num, m, s_ = ES.gatv2_softmax_plain(g.indptr_r, g.col_r, q, k, a,
+                                            0.2)
+        outp, mx, den = ES.finalize_softmax(num, m, s_, rn(N, h),
+                                            rn(N, h, o))
+        args = (g.indptr_s, g.col_s, q, k, a, mx, den,
+                (outp.float() * dy.float()).sum(-1), dy, 0.2)
+        ref = ES.gatv2_bwd_rev_plain(*args)
+        fv, vec = S._row_vectors(o, 2, q, k, dy)
+        hd = f"H={h} O={o}"
+        chosen = ES._gatv2_bwd_rev_bf16_layout(fv, vec, N, E)
+        parent = ES._gatv2_bwd_rev_layout(fv, vec, N, E) + (0,)
+        for lay in _k11_bf16_layouts(fv, vec):
+            err = compare_bf16(f"K11 bf16 {hd} {lay}",
+                               ES._gatv2_bwd_rev_kernel(*args, layout=lay),
+                               ref, quiet=True)
+            row = {"kernel": "K11", "case": hd, "layout": list(lay),
+                   "chosen": lay == chosen, "parent": lay == parent,
+                   "max_abs_err": err, "device_ms": device_ms(
+                       lambda: ES._gatv2_bwd_rev_kernel(*args, layout=lay))}
+            out.append(row)
+            log(f"  K11 bf16 {hd:<12} {lay} {row['device_ms']:.4f} ms"
+                f"{' (chosen)' * row['chosen']}"
+                f"{' (parent)' * row['parent']}")
+        del q, k, dy, a, num, m, s_, outp, mx, den, args, ref
+    return out
+
+
 def sweep_summary(rows) -> None:
     """Per kernel and case of a sweep's ``rows``: the fastest layout, the
     chosen one's and the parent's device ms."""
@@ -3322,15 +3506,14 @@ def sweep_summary(rows) -> None:
 def bf16_sweep(gnn, g) -> list:
     """The bfloat16 kernels at every layout their instances allow, at 2h's
     shapes, each held to the plain version (one ulp, :func:`compare_bf16`)
-    before it is timed (device ms): K1 over the receiver CSR at D = 128 and
-    8 and the sender CSR at D = 8 (every rows per warp, strip, gathers in
-    flight and register cap of the sweep build); K3, K4 and K5 at (4, 32),
+    before it is timed (device ms): K3, K4 and K5 at (4, 32),
     (1, 8) and (1, 128) at every rows per warp, with and without ``pj``
     ahead (K3, K4) or the packed scalars (K5), at each (edges in flight,
     register cap) of their shipped bfloat16 instances (one register
     chunk); K6 and K8 at every layout of :func:`bf16_dot_sweep`, K6's
     rows against strips (:func:`bf16_strip_sweep`), K7
-    (:func:`bf16_k7_sweep`) and K2 (:func:`bf16_k2_sweep`)."""
+    (:func:`bf16_k7_sweep`), K2 (:func:`bf16_k2_sweep`), K1
+    (:func:`bf16_k1_sweep`) and K11 (:func:`bf16_k11_sweep`)."""
     from graphneuralnetworks_tpu_torch.ops.cuda import edge_softmax as ES
     from graphneuralnetworks_tpu_torch.ops.cuda import spmm as S
 
@@ -3357,21 +3540,6 @@ def bf16_sweep(gnn, g) -> list:
             log(f"  {key} {label:<24} {lay} {row['device_ms']:.4f} ms"
                 f"{' (chosen)' * row['chosen']}")
 
-    for label, indptr, col, eid, d in (
-            (f"fwd receiver-CSR D={D}", g.indptr_r, g.col_r, None, D),
-            (f"fwd receiver-CSR D={OUT_D}", g.indptr_r, g.col_r, None,
-             OUT_D),
-            (f"bwd sender-CSR D={OUT_D}", g.indptr_s, g.col_s, g.eid_s,
-             OUT_D)):
-        x = rn(N, d)
-        args = (indptr, col, eid, None, x)
-        fv, vec = S._row_vectors(d, 2, x, x)
-        log_g = min((fv - 1).bit_length(), 5)
-        chosen = S._spmm_layout(fv, vec, N, N, E)
-        sweep("K1", label, S._spmm_csr_kernel, S.spmm_plain, args,
-              [(rows, strip, unroll, cap) for strip in range(log_g + 1)
-               for rows in range(6 - strip) for unroll in (1, 2, 4, 8)
-               for cap in (0, 64)], chosen)
     ir, cr, is_, cs = g.indptr_r, g.col_r, g.indptr_s, g.col_s
     for h, d in ((GAT_HEADS, D // GAT_HEADS), (1, OUT_D), (1, D)):
         pi, pj, v, dy, sl, sv = (rn(N, h), rn(N, h), rn(N, h, d),
@@ -3399,7 +3567,8 @@ def bf16_sweep(gnn, g) -> list:
               [(r, u, c, p) for r in rows for u, c in pairs for p in (0, 1)],
               ES._gat_bwd_rev_layout(fv, vec, N, E, ES._BF16_MAX_VECTORS))
     return (out + bf16_dot_sweep(g) + bf16_strip_sweep(gnn, g)
-            + bf16_k7_sweep(g) + bf16_k2_sweep(g))
+            + bf16_k7_sweep(g) + bf16_k2_sweep(g) + bf16_k1_sweep(g)
+            + bf16_k11_sweep(g))
 
 
 def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
@@ -3434,11 +3603,13 @@ def tuning_sweep(gnn, g, gb, names=SWEEPS) -> dict:
             "bf16_strips": lambda: {"bf16_strips": bf16_strip_sweep(gnn, g)},
             "bf16_k7": lambda: {"bf16_k7": bf16_k7_sweep(g)},
             "bf16_k2": lambda: {"bf16_k2": bf16_k2_sweep(g)},
+            "bf16_k1": lambda: {"bf16_k1": bf16_k1_sweep(g)},
+            "bf16_k11": lambda: {"bf16_k11": bf16_k11_sweep(g)},
             "k14": lambda: {"k14": k14_sweep(g, gb)}}
     out = {}
     for name in names:
         out.update(runs[name]())
-    for name in ("bf16_k7", "bf16_k2"):
+    for name in ("bf16_k7", "bf16_k2", "bf16_k1", "bf16_k11"):
         if name in out:
             sweep_summary(out[name])
     log("  clocks.sm,power.draw,temperature.gpu: "
@@ -4783,7 +4954,7 @@ def compare_dropout_attention(g, label, fn_name, names, shapes,
 # before and after its sweep, K6 and K7 several passes in strips, told
 # apart by the template argument 6 or 7, K10 its da reduce after its walk.
 STEP_KERNELS = {
-    "k1": ("spmm_csr_kernel<",),
+    "k1": ("spmm_csr_kernel<", "spmm_csr_lanes_kernel<"),
     "k2": ("spmm_sddmm_csr_kernel<", "spmm_sddmm_weights_kernel",
            "spmm_sddmm_sum_kernel", "spmm_sddmm_heads_kernel<"),
     "k6": ("dot_softmax_rows_kernel<", "dot_strip_dots_kernel<6,", "dot_strip_stats_kernel<6>",
@@ -4791,7 +4962,7 @@ STEP_KERNELS = {
     "k7": ("dot_bwd_dq_rows_kernel<", "dot_strip_dots_kernel<7,",
            "dot_strip_stats_kernel<7>", "dot_strip_spmm_kernel<7,"),
     "k8": ("dot_bwd_rev_kernel<", "dot_bwd_rev_staged_kernel<"),
-    "k11": ("gatv2_bwd_rev_kernel<",),
+    "k11": ("gatv2_bwd_rev_kernel<", "gatv2_bwd_rev_staged_kernel<"),
     "k10": ("gatv2_bwd_dq_kernel<", "gatv2_da_reduce_kernel"),
     "k5": ("gat_bwd_rev_kernel<",),
     "k9": ("gatv2_softmax_rows_kernel<",),

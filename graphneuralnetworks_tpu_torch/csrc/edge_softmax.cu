@@ -160,7 +160,9 @@ __device__ __forceinline__ f8 load_a<f8>(const float* a, int f, int heads,
 // the value both: the softmax is one pass, each edge group keeping its own
 // running max, sum and accumulator (rescaled when its max grows), merged
 // across groups at the end. K9, K10 and K11 take K8's rows (after the dot
-// section).
+// section); bfloat16 K11 on bf16x8 rows may take K8's ring instead
+// (gatv2_bwd_rev_staged_kernel), as the wrapper picks it
+// (ops/cuda/edge_softmax.py:_gatv2_bwd_rev_bf16_layout).
 
 // ---- dot attention: K6, K7, K8 ---------------------------------------------
 //
@@ -903,13 +905,16 @@ struct RevSlot {
   float4 st[32];
 };
 
-template <typename V>
-__device__ __forceinline__ void cp_async(V* dst, const V* src) {
-  static_assert(sizeof(V) == 16, "cp.async.cg copies 16 bytes");
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src)
                : "memory");
+}
+template <typename V>
+__device__ __forceinline__ void cp_async(V* dst, const V* src) {
+  static_assert(sizeof(V) == 16, "cp.async.cg copies 16 bytes");
+  cp_async16(dst, src);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -921,19 +926,22 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Runs a lane's ring over a row walk of n_st stages of U edges per group:
 // next(t, u) is stage t's edge u's gathered row index (-1: none),
-// issue(slot, u, r) the copies of that edge into its slots, and
-// reduce(t, slot) the reduction of stage t once it has landed. Stage t's
-// indices are loaded one stage before its copies are issued.
-template <int U, int NS, typename Slot, typename Next, typename Issue,
-          typename Reduce>
+// issue(slot, r) the copies of that edge into its slots (called by every
+// lane, r < 0 where it has no edge), and reduce(t, slot) the reduction of
+// stage t once it has landed. Stage t's indices are loaded one stage
+// before its copies are issued. kShared: lanes copy into each other's
+// slots, so a __syncwarp() after each wait (and after the walk) makes the
+// partners' copies visible and keeps a slot's next copies behind every
+// lane's reads of it.
+template <int U, int NS, bool kShared = false, typename Slot, typename Next,
+          typename Issue, typename Reduce>
 __device__ __forceinline__ void staged_walk(Slot* ring, int n_st, Next&& next,
                                             Issue&& issue, Reduce&& reduce) {
   static_assert(NS >= 2, "a ring of at least two stages");
   auto copy = [&](int t, const int (&r)[U]) {
     Slot* slot = ring + (t % NS) * U;
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (r[u] >= 0) issue(slot + u, r[u]);
+    for (int u = 0; u < U; ++u) issue(slot + u, r[u]);
     cp_async_commit();   // an empty group past the walk's end
   };
   int rn[U];
@@ -950,12 +958,14 @@ __device__ __forceinline__ void staged_walk(Slot* ring, int n_st, Next&& next,
   for (int u = 0; u < U; ++u) rn[u] = next(NS - 1, u);
   for (int t = 0; t < n_st; ++t) {   // warp-uniform trips
     cp_async_wait<NS - 2>();         // stage t has landed
+    if constexpr (kShared) __syncwarp();
     copy(t + NS - 1, rn);            // into the slots stage t - 1 left
 #pragma unroll
     for (int u = 0; u < U; ++u) rn[u] = next(t + NS, u);
     reduce(t, ring + (t % NS) * U);
   }
   cp_async_wait<0>();
+  if constexpr (kShared) __syncwarp();   // before a next walk's copies
 }
 
 // K8 on bfloat16 vectors, staged (see above): dot_bwd_rev_kernel's
@@ -1028,6 +1038,7 @@ dot_bwd_rev_staged_kernel(const int* __restrict__ indptr,
           return live && j < len ? col[beg + j] : -1;
         },
         [&](Slot* slot, int r) {
+          if (r < 0) return;
           const long long rh = (long long)r * heads + h;
 #pragma unroll
           for (int c = 0; c < NC; ++c) {
@@ -1228,6 +1239,185 @@ gatv2_bwd_rev_kernel(const int* __restrict__ indptr,
       for (int cc = 0; cc < NC; ++cc) {
         const int f = sub + cc * g;
         if (f < dv) st_cs(dk + sh * dv + f, narrow<V>(acc[cc]));
+      }
+    }
+  });
+}
+
+// K11 on bfloat16 vectors, staged: gatv2_bwd_rev_kernel's function on K8's
+// ring (staged_walk, RevSlot; see dot_bwd_rev_staged_kernel). K11 gathers
+// K8's operands over the sender CSR: q[r], dy[r] and the receiver's (mx,
+// den, s_n). The register kernel holds each group's U gathered edges
+// widened until the group reduces them (raw[U][NC] and dy[U][NC]) beside
+// k[s], a and dk: on bf16x8 vectors 8 floats a lane each, twice float32's,
+// and it spilled (PERF.md §7). Here a lane's q[r] vectors go to slot a of a
+// stage, its dy[r] vectors to slot b and the receiver's packed scalars
+// (stats [rows, H, 4]: mx, den, s_n, unused) to st, by cp.async.cg of 16
+// bytes each; k[s] stays packed and is widened at each use, and raw =
+// q[r] + k[s] is formed again from the slot after the shuffles rather
+// than held across them. Past 4 register chunks k[s] and a are read again
+// at each use (from L1), as K8's k and v. The arithmetic and its order are
+// K11's: each group adds its edges in CSR order, and the row's groups
+// merge by the same tree. NC register chunks, U edges a stage, NS stages.
+//
+// Gathered at random, every 16-byte q[r], dy[r] or stats[r] costs an L2
+// sector (32 bytes) of its own: three an edge at 16-byte rows (O = 8, a
+// lane a group). With kRecord (16-byte rows only), the wrapper packs each
+// receiver's q[r] and scalars into one 32-byte record [rows, H, 8 floats]
+// (stats: q's 16 bytes, then mx, den, s_n, unused), and a lane pair copies
+// the two halves of one record in one instruction, one sector for both:
+// the pair's even lane's edge's record, then its odd lane's, each half into
+// its owner's slot (kShared's __syncwarp in staged_walk). Two sectors an
+// edge, with dy[r]: 0.0585 against 0.0604 ms at (1, 8) (PERF.md §6), so
+// the kernel runs at a rate of gathers more than of sectors.
+template <typename V, int NC, int U, int NS, int MINB, bool kRecord = false>
+__global__ void __launch_bounds__(kThreads, MINB)
+gatv2_bwd_rev_staged_kernel(const int* __restrict__ indptr,
+                            const int* __restrict__ col,
+                            const V* __restrict__ q, const V* __restrict__ k,
+                            const float* __restrict__ a,
+                            const float4* __restrict__ stats,
+                            const V* __restrict__ dy, V* __restrict__ dk,
+                            int n_rows, int heads, int dv, int log_g,
+                            int log_rows, float slope) {
+  extern __shared__ __align__(16) unsigned char staged_smem[];
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                        // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int g = 1 << log_g;                  // lanes per edge group
+  const int sub = lane & (g - 1);
+  const int h = blockIdx.y;
+  using A = Acc<V>;
+  using Slot = RevSlot<V, NC>;
+  Slot* ring =
+      reinterpret_cast<Slot*>(staged_smem) + (threadIdx.x >> 5) * NS * U;
+  constexpr int NH = NC > 4 ? 1 : NC;        // chunks held in registers
+  A av[NH];
+#pragma unroll
+  for (int c = 0; c < NH; ++c) {
+    const int f = sub + c * g;
+    av[c] = NC <= 4 && f < dv ? load_a<A>(a, f, heads, h) : vzero<A>();
+  }
+  auto a_at = [&](int c) -> A {
+    if constexpr (NC > 4) {
+      return load_a<A>(a, sub + c * g, heads, h);   // f < dv: the caller's
+    } else {
+      return av[c];
+    }
+  };
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int longest, int log_seg) {
+    const Seg S(lane, log_seg, log_g);
+    const bool live = row < n_rows;
+    const long long sh = (long long)row * heads + h;
+    // k and dk stream past the L2 (evict-first), which keeps the head's
+    // slices of q and dy that the pass gathers from
+    V kv[NH];
+    A acc[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int f = sub + c * g;
+      if constexpr (NC <= 4)
+        kv[c] = live && f < dv ? ld_cs(k + sh * dv + f) : vzero<V>();
+      acc[c] = vzero<A>();
+    }
+    auto k_at = [&](int c) -> V {
+      if constexpr (NC > 4) {
+        return k[sh * dv + sub + c * g];   // f < dv: the caller's test
+      } else {
+        return kv[c];
+      }
+    };
+    auto pos = [&](int t, int u) { return (t * U + u) * S.p + S.grp; };
+    const int per = S.p * U;
+    staged_walk<U, NS, kRecord>(
+        ring, (longest + per - 1) / per,
+        [&](int t, int u) {
+          const int j = pos(t, u);
+          return live && j < len ? col[beg + j] : -1;
+        },
+        [&](Slot* slot, int r) {
+          if constexpr (kRecord) {   // dv == 1, a lane a group
+            const int rp = __shfl_xor_sync(kFull, r, 1);
+            const int half = lane & 1, pair = lane & ~1;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {   // lane pair + i's edge
+              const int ri = half == i ? r : rp;
+              if (ri >= 0)
+                cp_async16(half ? static_cast<void*>(&slot->st[pair + i])
+                                : static_cast<void*>(&slot->a[0][pair + i]),
+                           stats + 2 * ((long long)ri * heads + h) + half);
+            }
+            if (r >= 0)
+              cp_async(&slot->b[0][lane], dy + (long long)r * heads + h);
+          } else {
+            if (r < 0) return;
+            const long long rh = (long long)r * heads + h;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const int f = sub + c * g;
+              if (f < dv) {
+                cp_async(&slot->a[c][lane], q + rh * dv + f);
+                cp_async(&slot->b[c][lane], dy + rh * dv + f);
+              }
+            }
+            cp_async(&slot->st[lane], stats + rh);
+          }
+        },
+        [&](int t, const Slot* slot) {
+          float plg[U], pvd[U];
+          bool ok[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            ok[u] = live && pos(t, u) < len;
+            plg[u] = 0.f;
+            pvd[u] = 0.f;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const int f = sub + c * g;
+              if (ok[u] && f < dv) {
+                const A kc = widen(k_at(c));
+                const A raw = vadd(widen(slot[u].a[c][lane]), kc);
+                plg[u] += vdot(a_at(c), lrelu(raw, slope));
+                pvd[u] += vdot(kc, widen(slot[u].b[c][lane]));
+              }
+            }
+          }
+          for (int off = 1; off < g; off <<= 1) {   // the group's G lanes
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              plg[u] += __shfl_xor_sync(kFull, plg[u], off);
+              pvd[u] += __shfl_xor_sync(kFull, pvd[u], off);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (!ok[u]) continue;
+            const float4 st = slot[u].st[lane];   // mx, den, s_n
+            const float alpha = expf(plg[u] - st.x) / st.y;
+            const float dlg = alpha * (pvd[u] - st.z);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const int f = sub + c * g;
+              if (f < dv) {
+                const A raw =
+                    vadd(widen(slot[u].a[c][lane]), widen(k_at(c)));
+                axpy_dlrelu(acc[c], dlg, a_at(c), raw, slope);
+                axpy(acc[c], alpha, widen(slot[u].b[c][lane]));
+              }
+            }
+          }
+        });
+    // the groups' lanes of one vector are G apart, within the row's lanes
+    for (int off = g; off < S.seg; off <<= 1) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) add_xor(acc[c], off);
+    }
+    if (live && S.grp == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int f = sub + c * g;
+        if (f < dv) st_cs(dk + sh * dv + f, narrow<V>(acc[c]));
       }
     }
   });
@@ -2334,6 +2524,14 @@ struct K8StagedPick {
     return (u == 1 && ns == 2 && cap == 0) || (u == 2 && ns == 2 && cap == 0);
   }
 };
+// The staged bfloat16 K11's, as ops/cuda/edge_softmax.py's _K11_BF16 picks
+// them (the fastest of chip_smoke.py --sweep bf16_k11 without a spill,
+// PERF.md §6).
+struct K11StagedPick {
+  static constexpr bool holds(int u, int ns, int cap) {
+    return (u == 1 && ns == 2 && cap == 0) || (u == 2 && ns == 2 && cap == 0);
+  }
+};
 // bfloat16 K8's register instances: K8Pick's, but on bf16x8 vectors, which
 // the staged kernel takes at every width, none (the sweep build keeps its
 // NC = 1 pairs: see with_row_instances)
@@ -2343,14 +2541,21 @@ struct NoPick {
 template <typename V>
 using K8RegisterPick =
     std::conditional_t<std::is_same<V, bf16x8>::value, NoPick, K8Pick>;
+// bfloat16 K11's register instances: K11Pick's, but on bf16x8 vectors, which
+// the staged kernel takes at every width, none (it spilled; the sweep
+// build keeps its NC = 1 pairs: see with_row_instances)
+template <typename V>
+using K11RegisterPick =
+    std::conditional_t<std::is_same<V, bf16x8>::value, NoPick, K11Pick>;
 
-// The staged K8's instances at NC register chunks: go(un, ns, minb) at U =
-// unroll edges a stage, NS = stages and reg_cap where the library holds
-// them (NC = 1: in the sweep build U in {1, 2}, NS in {2, 4, 6}, uncapped
-// and at 64 registers, in the shipped library K8StagedPick's; wider rows:
-// U = 1, NS = 2, uncapped, in either). Returns cudaGetLastError() after
-// it, or cudaErrorInvalidValue with nothing launched.
-template <int NC, typename Go>
+// The staged K8's and K11's instances at NC register chunks: go(un, ns,
+// minb) at U = unroll edges a stage, NS = stages and reg_cap where the
+// library holds them (NC = 1: in the sweep build U in {1, 2}, NS in {2, 4,
+// 6}, uncapped and at 64 registers, in the shipped library Pick's
+// (K8StagedPick, K11StagedPick); wider rows: U = 1, NS = 2, uncapped, in
+// either). Returns cudaGetLastError() after it, or cudaErrorInvalidValue
+// with nothing launched.
+template <typename Pick, int NC, typename Go>
 int with_staged_instances(int unroll, int stages, int reg_cap, Go&& go) {
   bool launched = false;
   auto pick = [&](auto un, auto ns, auto cap) {
@@ -2361,7 +2566,7 @@ int with_staged_instances(int unroll, int stages, int reg_cap, Go&& go) {
 #else
     constexpr bool sweep = false;
 #endif
-    constexpr bool built = NC == 1 ? sweep || K8StagedPick::holds(UU, NS, C)
+    constexpr bool built = NC == 1 ? sweep || Pick::holds(UU, NS, C)
                                    : UU == 1 && NS == 2 && C == 0;
     if constexpr (built) {
       if (unroll == UU && stages == NS && reg_cap == C) {
@@ -2597,7 +2802,7 @@ int launch_dot_bwd_rev_staged(const int* indptr, const int* col,
   int rc = 0;
   const int chunks = with_chunks(wide, [&](auto nc) {
     constexpr int NC = decltype(nc)::value;
-    rc = with_staged_instances<NC>(
+    rc = with_staged_instances<K8StagedPick, NC>(
         unroll, stages, reg_cap, [&](auto un, auto ns, auto minb) {
           constexpr int U = decltype(un)::value, NS = decltype(ns)::value;
           launch_staged(
@@ -2615,8 +2820,8 @@ int launch_dot_bwd_rev_staged(const int* indptr, const int* col,
 }
 
 // K11 in rows (see gatv2_bwd_rev_kernel), at the instances
-// with_row_instances holds (bfloat16: only the shipped ones, in either
-// build).
+// with_row_instances holds (bfloat16: the shipped ones and, in the sweep
+// build, every pair of one register chunk).
 template <typename V>
 int launch_gatv2_bwd_rev(const int* indptr, const int* col, const void* q,
                          const void* k, const float* a, const float* mx,
@@ -2629,7 +2834,7 @@ int launch_gatv2_bwd_rev(const int* indptr, const int* col, const void* q,
   if (!dot_layout_ok(lg, log_rows, heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows, heads);
-  return with_row_instances<K11Pick, false, kLow<V>>(
+  return with_row_instances<K11RegisterPick<V>, false, kLow<V>, kLow<V>>(
       dv, unroll, reg_cap, [&](auto nc, auto un, auto minb) {
         gatv2_bwd_rev_kernel<V, decltype(nc)::value, decltype(un)::value,
                              decltype(minb)::value>
@@ -2640,6 +2845,46 @@ int launch_gatv2_bwd_rev(const int* indptr, const int* col, const void* q,
                 static_cast<const V*>(dy), static_cast<V*>(dk), n_rows,
                 heads, dv, lg, log_rows, slope);
       });
+}
+
+// K11, staged (see gatv2_bwd_rev_staged_kernel): bf16x8 rows in NC
+// register chunks (with_chunks), the receivers' scalars packed in stats,
+// at the instances with_staged_instances holds.
+int launch_gatv2_bwd_rev_staged(const int* indptr, const int* col,
+                                const void* q, const void* k, const float* a,
+                                const float* stats, const void* dy, void* dk,
+                                int n_rows, int heads, int dv, int log_rows,
+                                int unroll, int stages, int reg_cap,
+                                bool record, float slope, cudaStream_t st) {
+  using V = bf16x8;
+  const int lg = log_group(dv);
+  if (!dot_layout_ok(lg, log_rows, heads) || (record && dv != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = row_grid(n_rows, log_rows, heads);
+  int rc = 0;
+  const int chunks = with_chunks(dv, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    rc = with_staged_instances<K11StagedPick, NC>(
+        unroll, stages, reg_cap, [&](auto un, auto ns, auto minb) {
+          constexpr int U = decltype(un)::value, NS = decltype(ns)::value,
+                        MINB = decltype(minb)::value;
+          auto go = [&](auto kernel) {
+            launch_staged(kernel, grid,
+                          sizeof(RevSlot<V, NC>) * U * NS * kWarpsPerBlock,
+                          st, indptr, col, static_cast<const V*>(q),
+                          static_cast<const V*>(k), a,
+                          reinterpret_cast<const float4*>(stats),
+                          static_cast<const V*>(dy), static_cast<V*>(dk),
+                          n_rows, heads, dv, lg, log_rows, slope);
+          };
+          if (!record) {
+            go(gatv2_bwd_rev_staged_kernel<V, NC, U, NS, MINB>);
+          } else if constexpr (NC == 1) {
+            go(gatv2_bwd_rev_staged_kernel<V, 1, U, NS, MINB, true>);
+          }
+        });
+  });
+  return rc != 0 ? rc : chunks;
 }
 
 // K10 in rows (see gatv2_bwd_dq_kernel), at the instances
@@ -3111,7 +3356,15 @@ int gatv2_bwd_rev_f32(const int* indptr, const int* col, const float* q,
 // float32, each bfloat16 output rounded once. A row loads in the widest
 // vector it takes (bf16_vec_bytes of the row operands: 8 values, 4, or
 // one); the instances hold up to 256 vectors, as the float32 ones (so 2,048
-// values a head at 8 a vector, 256 at one).
+// values a head at 8 a vector, 256 at one). K11's stages: 0, the register
+// kernel (gatv2_bwd_rev_kernel); 2 or more, the staged one
+// (gatv2_bwd_rev_staged_kernel), on bf16x8 rows only, reading the
+// receivers' mx, den and s_n packed in stats (see with_staged_instances
+// for the instances built). K11's packed: 0, stats NULL; 1, stats [rows,
+// H, 4] (mx, den, s_n, unused); 2 (staged, d == 8 only), stats [rows, H,
+// 8], 32-byte aligned, each receiver's q row (16 bytes) and then its mx,
+// den, s_n and an unused float (kRecord). Any other returns
+// cudaErrorInvalidValue.
 int gatv2_softmax_bf16(const int* indptr, const int* col, const bf16x1* q,
                        const bf16x1* k, const float* a, bf16x1* num, float* m,
                        float* s, int n_rows, int heads, int d, int log_rows,
@@ -3164,10 +3417,24 @@ int gatv2_bwd_rev_bf16(const int* indptr, const int* col, const bf16x1* q,
                        const float* den, const float* s_n,
                        const float* stats, const bf16x1* dy, bf16x1* dk,
                        int n_rows, int heads, int d, int log_rows,
-                       int unroll, int reg_cap, float slope, void* stream) {
-  if (!aligned16(stats)) return static_cast<int>(cudaErrorInvalidValue);
+                       int unroll, int reg_cap, int packed, int stages,
+                       float slope, void* stream) {
+  if (!aligned16(stats) || packed < 0 || packed > 2 ||
+      (packed == 0) != (stats == nullptr) ||
+      (packed == 2 && (stages == 0 ||
+                       (reinterpret_cast<uintptr_t>(stats) & 31u) != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bf16_vec_bytes(d, {q, k, dy, dk})) {
+  const int vec = bf16_vec_bytes(d, {q, k, dy, dk});
+  if (stages) {
+    if (vec != 16 || stats == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gatv2_bwd_rev_staged(indptr, col, q, k, a, stats, dy, dk,
+                                       n_rows, heads, d / 8, log_rows,
+                                       unroll, stages, reg_cap, packed == 2,
+                                       slope, st);
+  }
+  switch (vec) {
     case 16:
       return launch_gatv2_bwd_rev<bf16x8>(indptr, col, q, k, a, mx, den, s_n,
                                           stats, dy, dk, n_rows, heads, d / 8,

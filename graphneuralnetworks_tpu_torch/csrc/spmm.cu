@@ -72,7 +72,11 @@
 // 128 bytes (8 float4) make each pass over the rows gather from a 16 MB
 // slice of the table, which the L2 holds: 0.165 ms at D = 128 where whole
 // rows took 0.232 (PERF.md §6). Where even a strip's slice does not
-// fit (edge rows of [E, 128], 1 GB, read once), rows stay whole.
+// fit (edge rows of [E, 128], 1 GB, read once), rows stay whole. bfloat16
+// K1 takes a layout of its own (ops/cuda/spmm.py:_spmm_bf16_layout): a
+// bf16x8 row of at most 256 bytes is one whole-row strip at any table
+// size, so col, eid, w and the walk are read once, and a row of one
+// vector takes spmm_csr_lanes_kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -210,6 +214,70 @@ spmm_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
     // the groups' lanes of one column are G apart, within the row's lanes
     for (int off = g; off < seg; off <<= 1) add_xor(acc, off);
     if (active && grp == 0) y[(long long)row * dv + f] = narrow<V>(acc);
+  });
+}
+
+// K1 on rows of one vector (bf16x8 rows of D = 8 values, 16 bytes): each
+// lane an edge group that takes whole edges. spmm_csr_kernel's groups of
+// one lane take one edge a window, one window ahead: its U edges of a
+// window fall past the window's 32 / R positions, so at D = 8 it gathered
+// one 16-byte row at a time a lane (0.0239 ms against float32's 0.0201 on
+// twice the bytes, PERF.md §6). Here lane sl of a row's 32 / R lanes takes
+// positions sl, sl + 32 / R, ... in batches of U: it loads a batch's
+// indices (and weights) itself, one batch ahead, issues the batch's U
+// gathers before it adds any, and adds its edges in CSR order; the row's
+// lanes then merge by spmm_csr_kernel's tree (the same sums in the same
+// order as spmm_csr_kernel at groups of one lane). No shuffle in the walk,
+// so a lane's trips are its own; the hub switch (walk_rows) as K1's.
+template <typename V, int U, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+spmm_csr_lanes_kernel(const int* __restrict__ indptr,
+                      const int* __restrict__ col,
+                      const int* __restrict__ eid,
+                      const Scalar<V>* __restrict__ w,
+                      const V* __restrict__ x, V* __restrict__ y,
+                      int n_rows, int log_rows) {
+  const int rb = row_block(n_rows, log_rows);
+  if (rb < 0) return;                  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  walk_rows(indptr, rb, lane, n_rows, log_rows,
+            [&](int row, int beg, int len, int, int log_seg) {
+    const int seg = 1 << log_seg;             // lanes per row
+    const int sl = lane & (seg - 1);          // lane within the row
+    // this lane's edges j0 + u * seg + sl of a batch: source rows and
+    // weights, 0 past the row's end
+    auto fetch = [&](int j0, int (&c)[U], float (&wt)[U]) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * seg + sl;
+        c[u] = 0;
+        wt[u] = 0.f;
+        if (j < len) {
+          const int k = beg + j;
+          c[u] = col ? col[k] : k;
+          wt[u] = w ? ldf(w + (eid ? eid[k] : k)) : 1.f;
+        }
+      }
+    };
+    int c[U], nc[U];
+    float wt[U], nwt[U];
+    fetch(0, c, wt);
+    Acc<V> acc = vzero<Acc<V>>();
+    for (int j0 = 0; j0 < len; j0 += seg * U) {
+      fetch(j0 + seg * U, nc, nwt);              // the next batch, ahead
+      V v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[u] = j0 + u * seg + sl < len ? x[c[u]] : vzero<V>();
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        axpy(acc, wt[u], widen(v[u]));
+        c[u] = nc[u];
+        wt[u] = nwt[u];
+      }
+    }
+    for (int off = 1; off < seg; off <<= 1) add_xor(acc, off);
+    if (row < n_rows && sl == 0) y[row] = narrow<V>(acc);
   });
 }
 
@@ -636,6 +704,14 @@ struct K2Pick {
     return (u == 2 && cap == 0) || (u == 4 && cap == 64);
   }
 };
+// bfloat16 K1's rows of one bf16x8 vector in spmm_csr_lanes_kernel, as
+// ops/cuda/spmm.py's _K1_BF16 picks them (the fastest of chip_smoke.py
+// --sweep bf16_k1, PERF.md §6: 2 gathers in flight a lane, uncapped); its
+// whole-row strips of wider bf16x8 rows take K1Pick's 8 gathers in flight
+// at 64 registers, the fastest there too.
+struct K1LanePick {
+  static constexpr bool holds(int u, int cap) { return u == 2 && cap == 0; }
+};
 // bfloat16 K2's: K2Pick's (rows of 8-byte vectors and single values take
 // float32's rule) and those of ops/cuda/spmm.py's _K2_BF16 for bf16x8
 // heads (the fastest of chip_smoke.py --sweep bf16_k2, PERF.md §6: one
@@ -655,7 +731,8 @@ using K2RowPick =
     std::conditional_t<std::is_same<Acc<V>, V>::value, K2Pick, K2Bf16Pick>;
 
 // K1 over rows of dv vectors V (see spmm_csr_f32 for the checks): the grid
-// of strips and the instance of (unroll, reg_cap), then cudaGetLastError().
+// of strips and the instance of (unroll, reg_cap), then cudaGetLastError();
+// bf16x8 rows of one vector in spmm_csr_lanes_kernel.
 template <typename V>
 int launch_spmm_csr(const int* indptr, const int* col, const int* eid,
                     const Scalar<V>* w, const void* x, void* y, int n_rows,
@@ -665,6 +742,21 @@ int launch_spmm_csr(const int* indptr, const int* col, const int* eid,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = row_grid(n_rows, log_rows,
                              (dv + (1 << log_strip) - 1) >> log_strip);
+  if constexpr (std::is_same<V, bf16x8>::value) {
+    if (dv == 1) {
+      const bool launched = with_instances<K1LanePick>(
+          unroll, reg_cap, [&](auto un, auto minb) {
+            spmm_csr_lanes_kernel<V, decltype(un)::value,
+                                  decltype(minb)::value>
+                <<<grid, kThreads, 0, s>>>(indptr, col, eid, w,
+                                           static_cast<const V*>(x),
+                                           static_cast<V*>(y), n_rows,
+                                           log_rows);
+          });
+      if (!launched) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   const bool launched = with_instances<K1Pick>(
       unroll, reg_cap, [&](auto un, auto minb) {
         spmm_csr_kernel<V, decltype(un)::value, decltype(minb)::value>
@@ -809,7 +901,9 @@ int spmm_csr_f32(const int* indptr, const int* col, const int* eid,
 // vector a row is loaded in: 16 (8 values; d % 8 == 0, x and y
 // 16-byte aligned), 8 (4 values; d % 4 == 0, 8-byte aligned) or 2 (one
 // value). Anything else returns cudaErrorInvalidValue with nothing
-// launched. The library holds the instances of K1Pick for each vector.
+// launched. Rows of one bf16x8 vector (d == 8) take spmm_csr_lanes_kernel
+// (log_strip 0). The library holds the instances of K1Pick for each
+// vector and of K1LanePick for rows of one bf16x8 vector.
 int spmm_csr_bf16(const int* indptr, const int* col, const int* eid,
                   const bf16x1* w, const bf16x1* x, bf16x1* y, int n_rows,
                   int d, int vec_bytes, int log_rows, int log_strip,

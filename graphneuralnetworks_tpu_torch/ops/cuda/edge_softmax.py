@@ -34,7 +34,9 @@ edges in flight (``csrc/edge_softmax.cu``):
   table of their own (``_K6_BF16``, ``_K7_BF16``, ``_K8_BF16``; K6 and K7
   one rule for the strips), and K8 a kernel that stages the gathered rows
   in shared memory and reads the receivers' scalars packed
-  (:func:`_receiver_stats`).
+  (:func:`_receiver_stats`). bfloat16 K11 has a table of its own too
+  (``_K11_BF16``, :func:`_gatv2_bwd_rev_bf16_layout`) and K8's ring, the
+  same gathered operands over the sender CSR.
 
 The forward kernels return the unnormalised ``(num, m, s)``; the virtual
 self-loop folds in afterwards (:func:`finalize_softmax`). Five autograd
@@ -95,6 +97,9 @@ launches = {"k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0, "k9": 0,
             "k10": 0, "k11": 0, "k12": 0, "k3_bf16": 0, "k4_bf16": 0,
             "k5_bf16": 0, "k6_bf16": 0, "k7_bf16": 0, "k8_bf16": 0,
             "k9_bf16": 0, "k10_bf16": 0, "k11_bf16": 0, "k12_bf16": 0}
+# K11's last launch of each dtype (its layout), so that a caller can see
+# which path of the chooser ran
+last_layout = {"k11": None, "k11_bf16": None}
 
 _NEG_INF = float("-inf")
 # The GATv2 and dot kernels hold a row in at most 8 register chunks of 32
@@ -210,6 +215,17 @@ _K7_BF16 = ((32, (1, 64, 2)), (512, (2, 64, 2)))
 _K7_BF16_MAX_ROWS = 4 * 32
 _K8_BF16 = ((32, (1, 0, 2, 2)), (512, (2, 0, 2, 4)), (4096, (1, 0, 2, 2)))
 _DOT_BF16_ROWS_BYTES = 256
+# bfloat16 K11 gathers K8's operands over the sender CSR (q[r], dy[r] and
+# the receiver's mx, den and s_n) and keeps k[s] as K8 keeps k[s] and
+# v[s]: on bf16x8 rows it takes K8's ring (csrc/edge_softmax.cu
+# gatv2_bwd_rev_staged_kernel, the receivers' scalars always packed), by
+# _K11_BF16, _K8_BF16's form, from chip_smoke.py --sweep bf16_k11 (PERF.md
+# §6): for rows of at most so many bytes, (edges a stage, register cap,
+# stages, index windows a row), stages 0 the register kernel. Staged
+# 16-byte rows (O = 8) read each receiver's q row and scalars as one
+# 32-byte record (:func:`_receiver_records`, packed 2), two lanes a
+# record. Rows of 8-byte vectors or single values take float32's rule.
+_K11_BF16 = ((16, (1, 0, 2, 4)), (512, (2, 0, 2, 4)), (4096, (1, 0, 2, 2)))
 
 
 @functools.cache
@@ -230,7 +246,7 @@ def _lib(sweep: bool = False) -> ctypes.CDLL:
                                     ("gatv2_bwd_rev_f32", 11, 6, 1),
                                     ("gatv2_softmax_bf16", 8, 6, 1),
                                     ("gatv2_bwd_dq_bf16", 11, 6, 1),
-                                    ("gatv2_bwd_rev_bf16", 11, 6, 1),
+                                    ("gatv2_bwd_rev_bf16", 11, 8, 1),
                                     ("dot_softmax_f32", 10, 9, 2),
                                     ("dot_bwd_dq_f32", 12, 9, 2),
                                     ("dot_bwd_rev_f32", 11, 7, 2),
@@ -953,6 +969,27 @@ def _gatv2_bwd_rev_layout(ov: int, vec_bytes: int, n_rows: int,
     return log_rows, 1, 0, packed
 
 
+def _gatv2_bwd_rev_bf16_layout(ov: int, vec_bytes: int, n_rows: int,
+                               entries: int
+                               ) -> tuple[int, int, int, int, int]:
+    """bfloat16 K11's ``(log_rows, unroll, reg_cap, packed, stages)`` for a
+    head of ``ov`` vectors of ``vec_bytes`` (16, 8 or 2): on bf16x8 rows
+    ``_K11_BF16``'s entry for the row's bytes (:func:`_bf16_dot_rows`;
+    the staged kernel reads the receivers' scalars packed, ``packed`` 1,
+    and at one vector a row with ``q`` in one record, 2), else
+    :func:`_gatv2_bwd_rev_layout`'s with stages 0."""
+    rows = _bf16_dot_rows(_K11_BF16, ov, ov, vec_bytes, n_rows, entries)
+    if rows is None:
+        return _gatv2_bwd_rev_layout(ov, vec_bytes, n_rows, entries) + (0,)
+    log_rows, unroll, cap, stages = rows
+    if stages:
+        packed = 2 if ov == 1 else 1
+    else:
+        packed = int(vec_bytes << min((ov - 1).bit_length(), 5)
+                     < _K11_PACK_BELOW)
+    return log_rows, unroll, cap, packed, stages
+
+
 def _receiver_stats(mx, den, s_n):
     """The receivers' ``(mx, den, s_n)`` packed as ``[rows, H, 4]``
     float32 (the fourth ``mx`` again, unread) for one 16-byte load an
@@ -960,14 +997,28 @@ def _receiver_stats(mx, den, s_n):
     return torch.stack((mx, den, s_n, mx), -1)
 
 
+def _receiver_records(q, mx, den, s_n):
+    """Each receiver's bfloat16 ``q`` row of 8 values (16 bytes) and its
+    ``(mx, den, s_n)`` in one 32-byte record, ``[rows, H, 8]`` float32
+    (``q``'s bits, then the scalars and ``mx`` again, unread): one L2
+    sector an edge for both (K11's packed 2)."""
+    return torch.cat((q.view(torch.float32), mx[..., None], den[..., None],
+                      s_n[..., None], mx[..., None]), -1)
+
+
 def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
                           layout=None):
-    """K11 at :func:`_gatv2_bwd_rev_layout`'s layout, or at ``layout``
-    (``(log_rows, unroll, reg_cap, packed)``) from the sweep build of the
-    library, which holds every (unroll, reg_cap) instance (``build.load``;
-    bfloat16 rows: only the shipped ones). ``packed`` stacks the
-    receivers' float32 ``(mx, den, s_n)`` into ``[rows, H, 4]`` for the
-    kernel to read in one load an edge. bfloat16 rows take
+    """K11 at :func:`_gatv2_bwd_rev_layout`'s layout (bfloat16:
+    :func:`_gatv2_bwd_rev_bf16_layout`'s), or at ``layout`` (``(log_rows,
+    unroll, reg_cap, packed)``; bfloat16 rows also ``stages``, 0 where
+    left out) from the sweep build of the library, which holds every
+    (unroll, reg_cap) instance (``build.load``; bfloat16 rows: the shipped
+    ones and, at one register chunk, every (unroll, reg_cap) and staged
+    one). ``packed`` stacks the receivers' float32 ``(mx, den, s_n)`` into
+    ``[rows, H, 4]`` for the kernel to read in one load an edge (a staged
+    layout needs it); ``packed`` 2 (staged, one bf16x8 vector a row) puts
+    each receiver's ``q`` row in the same 32-byte record
+    (:func:`_receiver_records`). bfloat16 rows take
     ``gatv2_bwd_rev_bf16``, ``dk`` in bfloat16."""
     device, args, _a32 = _gatv2_bwd_args(indptr, col, q, k, a, mx, den, s_n,
                                          dy)
@@ -977,14 +1028,20 @@ def _gatv2_bwd_rev_kernel(indptr, col, q, k, a, mx, den, s_n, dy, slope,
     if n == 0 or heads == 0 or d == 0:
         return dk
     sweep = layout is not None
+    bf16 = dy.dtype == torch.bfloat16
     if not sweep:
-        layout = _gatv2_bwd_rev_layout(
+        layout = (_gatv2_bwd_rev_bf16_layout if bf16 else
+                  _gatv2_bwd_rev_layout)(
             *_row_vectors(d, dy.element_size(), q, k, dy, dk), n,
             col.numel())
-    stats = _receiver_stats(mx, den, s_n) if layout[3] else None
-    _launch(*_gat_fn("gatv2_bwd_rev", "k11", dy), device, *args[:8],
-            _ptr(stats), args[8], _ptr(dk), n, heads, d, *layout[:3],
-            float(slope), sweep=sweep)
+    layout = tuple(layout)
+    stats = (None if not layout[3] else _receiver_stats(mx, den, s_n)
+             if layout[3] == 1 else _receiver_records(q, mx, den, s_n))
+    modes = (layout[3], layout[4] if len(layout) > 4 else 0) if bf16 else ()
+    fn, key = _gat_fn("gatv2_bwd_rev", "k11", dy)
+    _launch(fn, key, device, *args[:8], _ptr(stats), args[8], _ptr(dk), n,
+            heads, d, *layout[:3], *modes, float(slope), sweep=sweep)
+    last_layout[key] = layout
     return dk
 
 

@@ -10,7 +10,9 @@ their rows (``csrc/spmm.cu``):
   the backward for ``x``. Wide rows split into strips whose slice of the
   gathered table the L2 holds; a warp takes several rows of one strip, and
   each edge group issues several gathers before it adds them
-  (:func:`_spmm_layout`).
+  (:func:`_spmm_layout`). bfloat16 rows have a chooser of their own
+  (:func:`_spmm_bf16_layout`): a row of up to 256 bytes is one strip,
+  and a row of one 16-byte vector a lane's, whole edges to a lane.
 - K2 ``spmm_sddmm``: over the sender CSR, ``dx[s] = sum w_e * dy[r_e]`` and
   ``dw_e = <dy[r_e], x[s]>`` in one sweep: the weighted backward, every
   head of rows of ``[., H, D]`` in one launch. K1's walk, strips and rows
@@ -50,9 +52,9 @@ __all__ = ["launches", "spmm_csr", "spmm_sddmm", "spmm_plain",
            "spmm_sddmm_plain", "SpmmFunction", "spmm"]
 
 launches = {"k1": 0, "k2": 0, "k1_bf16": 0, "k2_bf16": 0}
-# K2's last launch of each dtype: its layout and the strips of a head, so
-# that a caller can see which path of the chooser ran
-last_layout = {"k2": None, "k2_bf16": None}
+# K1's last launch of each dtype (its layout) and K2's (its layout and the
+# strips of a head), so that a caller can see which path of the chooser ran
+last_layout = {"k1": None, "k1_bf16": None, "k2": None, "k2_bf16": None}
 
 _INT32_MAX = 2**31 - 1
 
@@ -91,6 +93,17 @@ _K2_WIDE = (4, 64)
 _K2_BF16_ROW_BYTES = 256
 _K2_BF16 = ((16, (1, 64, 2)), (256, (4, 64, 2)))
 _K2_BF16_WALK = (2, 64, 2)
+# bfloat16 K1 has a chooser of its own too, from chip_smoke.py --sweep
+# bf16_k1 (PERF.md §6). On bf16x8 rows a row of at most _K1_BF16_ROW_BYTES
+# bytes is one whole-row strip whatever its table's size (at D = 128 a 32
+# MiB table that float32's 16 MiB strip line cut in two: col, eid, w and
+# the walk read twice), and a row of one vector (D = 8) takes the kernel
+# whose lanes take whole edges (csrc/spmm.cu spmm_csr_lanes_kernel).
+# _K1_BF16 gives, by the bytes of a row, its (gathers in flight, register
+# cap, index windows a row). Other bfloat16 rows take float32's rule, in
+# bytes.
+_K1_BF16_ROW_BYTES = 256
+_K1_BF16 = ((16, (2, 0, 4)), (256, (8, 64, 2)))
 
 
 @functools.cache
@@ -195,6 +208,23 @@ def _spmm_layout(fv: int, vec_bytes: int, table_rows: int, n_rows: int,
                                       entries)
     wide = vec_bytes << log_strip >= _K1_LINE_BYTES
     return (log_rows, log_strip) + (_K1_WIDE if wide else _K1_NARROW)
+
+
+def _spmm_bf16_layout(fv: int, vec_bytes: int, table_rows: int,
+                      n_rows: int, entries: int
+                      ) -> tuple[int, int, int, int]:
+    """bfloat16 K1's layout (as :func:`_spmm_layout`'s): on bf16x8 rows
+    (``vec_bytes`` 16) of at most ``_K1_BF16_ROW_BYTES`` bytes, one
+    whole-row strip at ``_K1_BF16``'s entry for the row's bytes (a row of
+    one vector: one lane a group, ``spmm_csr_lanes_kernel``); other rows
+    float32's rule."""
+    if vec_bytes == 16 and fv * vec_bytes <= _K1_BF16_ROW_BYTES:
+        log_g = (fv - 1).bit_length()
+        unroll, cap, windows = next(e for most, e in _K1_BF16
+                                    if fv * vec_bytes <= most)
+        return (_windowed_rows(log_g, n_rows, entries, windows), log_g,
+                unroll, cap)
+    return _spmm_layout(fv, vec_bytes, table_rows, n_rows, entries)
 
 
 def _spmm_sddmm_layout(fv: int, vec_bytes: int, table_rows: int,
@@ -347,7 +377,8 @@ def spmm_sddmm_plain(indptr, col, eid, w, dy, x):
 # ---- kernel wrappers -------------------------------------------------------
 
 def _spmm_csr_kernel(indptr, col, eid, w, x, layout=None):
-    """K1 at :func:`_spmm_layout`'s layout, or at ``layout`` (``(log_rows,
+    """K1 at :func:`_spmm_layout`'s layout (bfloat16:
+    :func:`_spmm_bf16_layout`'s), or at ``layout`` (``(log_rows,
     log_strip, unroll, reg_cap)``) from the sweep build of the library,
     which holds every (unroll, reg_cap) instance (``build.load``)."""
     _check_launch(indptr, col, eid, w, x)
@@ -360,12 +391,14 @@ def _spmm_csr_kernel(indptr, col, eid, w, x, layout=None):
     lib = _lib(sweep=layout is not None)
     if layout is None:
         n_edges = col.numel() if col is not None else x.shape[0]
-        layout = _spmm_layout(fv, vec_bytes, x.shape[0], n_rows, n_edges)
+        layout = (_spmm_bf16_layout if bf16 else _spmm_layout)(
+            fv, vec_bytes, x.shape[0], n_rows, n_edges)
     fn = "spmm_csr_bf16" if bf16 else "spmm_csr_f32"
     code = _call_on(x.device, getattr(lib, fn), _ptr(indptr), _ptr(col),
                     _ptr(eid), _ptr(w), _ptr(x), _ptr(y), n_rows, d,
                     vec_bytes, *layout)
     launches["k1_bf16" if bf16 else "k1"] += 1
+    last_layout["k1_bf16" if bf16 else "k1"] = tuple(layout)
     _raise_on_error(lib, code, fn)
     return y
 

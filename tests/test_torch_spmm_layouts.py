@@ -57,21 +57,27 @@ SPMM_SOURCE = (Path(S.__file__).resolve().parents[2] / "csrc"
                / "spmm.cu").read_text()
 
 
-def _k2_pairs(name):
-    """The (unroll, reg_cap) pairs a K2 pick of ``csrc/spmm.cu`` holds
-    (its body's ``u == U && cap == C`` terms, and K2Pick's where it names
-    it)."""
+def _pick_pairs(name):
+    """The (unroll, reg_cap) pairs a K1 or K2 pick of ``csrc/spmm.cu``
+    holds (its body's ``u == U && cap == C`` terms, and those of each pick
+    whose ``holds`` it calls)."""
     body = re.search(r"struct %s \{(.*?)\};" % name, SPMM_SOURCE,
                      re.S).group(1)
     pairs = {tuple(int(x) for x in m) for m in re.findall(
         r"u == (\d+) && cap == (\d+)", body)}
-    return pairs | (_k2_pairs("K2Pick") if "K2Pick::holds" in body else set())
+    for other in re.findall(r"(\w+Pick)::holds", body):
+        pairs |= _pick_pairs(other)
+    return pairs
 
 
 # the pairs bfloat16 K2 takes (K2Bf16Pick: float32's and its table's;
 # K2WalkPick: the all-heads walk's)
-K2_BF16_PAIRS = _k2_pairs("K2Bf16Pick")
-K2_WALK_PAIRS = _k2_pairs("K2WalkPick")
+K2_BF16_PAIRS = _pick_pairs("K2Bf16Pick")
+K2_WALK_PAIRS = _pick_pairs("K2WalkPick")
+# the pairs K1 takes: K1Pick's (float32, and bfloat16 but for rows of one
+# bf16x8 vector) and K1LanePick's (the lanes kernel)
+K1_PAIRS = _pick_pairs("K1Pick")
+K1_LANE_PAIRS = _pick_pairs("K1LanePick")
 
 
 def _log_g(vectors: int) -> int:
@@ -277,6 +283,142 @@ def test_spmm_sddmm_bf16_layout_at_the_measured_shapes(fv, heads, want,
         assert S._spmm_sddmm_bf16_layout(fv, 16, n, n, e, heads,
                                          heads_ok=False)[4] == 1
     assert S._spmm_sddmm_layout(fv, 16, n, n, e, heads) == f32
+
+
+def _bf16_row_widths():
+    """``(d, vector bytes, vectors)`` of bfloat16 rows of 1 to 300 values
+    in each vector they may take (16, 8 or 2 bytes)."""
+    for d in range(1, 301):
+        for vb in (16, 8, 2):
+            per = vb // 2
+            if d % per == 0:
+                yield d, vb, d // per
+
+
+@pytest.mark.parametrize("mean", MEAN_ROW_LENGTHS)
+def test_spmm_bf16_layout_is_valid_for_every_width(mean):
+    """bfloat16 K1's chooser: for rows of 1 to 300 values in each vector
+    they may take, over tables small and large, empty graphs included, a
+    layout the shipped library builds: a bf16x8 row of at most
+    ``_K1_BF16_ROW_BYTES`` one whole-row strip at a pair of K1Pick (a row
+    of one vector: K1LanePick's, the lanes kernel); other rows float32's
+    rule at K1Pick's pairs; R rows of a strip fit a warp."""
+    for n_rows in (0, 7, 131_072):
+        entries = round(mean * n_rows)
+        for table_rows in {n_rows, 2_000_000}:
+            for _, vb, fv in _bf16_row_widths():
+                lay = S._spmm_bf16_layout(fv, vb, table_rows, n_rows,
+                                          entries)
+                rows, strip, unroll, cap = lay
+                assert 0 <= strip <= _log_g(fv)
+                assert 0 <= rows <= 5 - strip
+                if vb == 16 and fv * vb <= S._K1_BF16_ROW_BYTES:
+                    assert strip == _log_g(fv)
+                    assert (unroll, cap) in (K1_LANE_PAIRS if fv == 1
+                                             else K1_PAIRS)
+                else:
+                    assert lay == S._spmm_layout(fv, vb, table_rows, n_rows,
+                                                 entries)
+                    assert (unroll, cap) in K1_PAIRS
+
+
+def test_k1_bf16_table_is_built():
+    """Each entry of ``_K1_BF16`` names a pair the shipped library holds:
+    the 16-byte row's K1LanePick's (the lanes kernel), the wider ones
+    K1Pick's; its last entry covers ``_K1_BF16_ROW_BYTES``; float32's
+    K1Pick is unchanged."""
+    assert S._K1_BF16[0][0] == 16 and S._K1_BF16[-1][0] >= \
+        S._K1_BF16_ROW_BYTES
+    for most, (unroll, cap, windows) in S._K1_BF16:
+        assert windows > 0
+        assert (unroll, cap) in (K1_LANE_PAIRS if most == 16
+                                 else K1_PAIRS)
+    assert K1_PAIRS == {S._K1_NARROW, S._K1_WIDE}
+
+
+@pytest.mark.parametrize("fv,table_rows,want,f32", [
+    # D=128 over either CSR: one whole-row strip of its 32 MiB table
+    (16, 131_072, (1, 4, 8, 64), (2, 3, 8, 64)),
+    # D=8: the lanes kernel, 4 lanes a row
+    (1, 131_072, (3, 0, 2, 0), (2, 0, 2, 0)),
+    # the gathers' backward over [E, 128] edge rows: whole rows either way
+    (16, 2_000_000, (1, 4, 8, 64), (1, 4, 8, 64)),
+    # [E, 8] edge rows: the lanes kernel
+    (1, 2_000_000, (3, 0, 2, 0), (2, 0, 2, 0)),
+])
+def test_spmm_bf16_layout_at_the_measured_shapes(fv, table_rows, want, f32):
+    """bfloat16 K1's layouts at N = 131,072, E = 2M (15.3 edges a row) on
+    bf16x8 rows, from chip_smoke.py --sweep bf16_k1 (PERF.md §6); float32's
+    chooser at the same vectors (what bfloat16 K1 took before) is
+    unchanged."""
+    n, e = 131_072, 2_000_000
+    assert S._spmm_bf16_layout(fv, 16, table_rows, n, e) == want
+    assert S._spmm_layout(fv, 16, table_rows, n, e) == f32
+
+
+class _K1StandIn:
+    """Stands in for the K1 library on bfloat16 CPU tensors (``_ptr``
+    passes the tensors themselves), the shipped one or (``sweep``) the
+    sweep build: checks each call's layout integers as ``spmm_csr_bf16``
+    takes them (a pair the library holds for the row's vector: the shipped
+    picks, or any of the sweep build; a strip no wider than the row, R rows
+    of it a warp) and writes the plain version's output."""
+
+    def __init__(self, sweep=False):
+        self.calls, self.sweep = [], sweep
+
+    def spmm_csr_bf16(self, indptr, col, eid, w, x, y, n_rows, d, vec,
+                      log_rows, log_strip, unroll, cap, stream):
+        self.calls.append((log_rows, log_strip, unroll, cap))
+        fv = d // (vec // 2)
+        assert 0 <= log_strip <= _log_g(fv) and log_rows + log_strip <= 5
+        pairs = ({(u, c) for u in (1, 2, 4, 8) for c in (0, 64)}
+                 if self.sweep else K1_LANE_PAIRS if fv == 1 and vec == 16
+                 else K1_PAIRS)
+        assert (unroll, cap) in pairs
+        y.copy_(S.spmm_plain(indptr, col, eid, w, x))
+        return 0
+
+
+@pytest.mark.parametrize("d", [8, 16, 128, 136, 12, 7])
+def test_spmm_bf16_stand_in_route_matches_plain(monkeypatch, d):
+    """``_spmm_csr_kernel`` on bfloat16 CPU tensors, through a stand-in
+    library that checks the layout's integers: over a receiver CSR, a
+    weighted sender CSR with ``eid`` and ``[E, D]`` edge rows, the output
+    is ``spmm_plain``'s bits at the chooser's layout (recorded in
+    ``last_layout``: a whole-row strip for bf16x8 rows of at most 256
+    bytes, float32's rule else) and at a given one."""
+    libs = {False: _K1StandIn(), True: _K1StandIn(sweep=True)}
+    monkeypatch.setattr(S, "_lib", lambda sweep=False: libs[sweep])
+    monkeypatch.setattr(S, "_ptr", lambda t: t)
+    monkeypatch.setattr(S, "_call_on", lambda device, fn, *a: fn(*a, None))
+    rng = np.random.default_rng(d)
+    indptr, col = _csr(rng, 40, 50, empty_every=7)
+    n_edges = col.numel()
+    eid = torch.tensor(rng.permutation(n_edges), dtype=torch.int32)
+
+    def bf(*sh):
+        return torch.tensor(rng.standard_normal(sh),
+                            dtype=torch.float32).bfloat16()
+
+    x, w, e = bf(50, d), bf(n_edges), bf(n_edges, d)
+    fv, vec = S._row_vectors(d, 2, x)
+    before = S.launches["k1_bf16"]
+    cases = ((indptr, col, None, None, x, 50),
+             (indptr, col, eid, w, x, 50),
+             (indptr, None, None, w, e, n_edges))
+    for *args, table_rows in cases:
+        want = S.spmm_plain(*args)
+        got = S._spmm_csr_kernel(*args)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        chosen = S._spmm_bf16_layout(fv, vec, table_rows, 40, n_edges)
+        assert libs[False].calls[-1] == chosen == S.last_layout["k1_bf16"]
+        if vec == 16 and d <= 128:
+            assert chosen[1] == _log_g(fv)       # one whole-row strip
+        lay = (0, 0, 1, 0)
+        assert torch.equal(S._spmm_csr_kernel(*args, layout=lay), want)
+        assert libs[True].calls[-1] == lay == S.last_layout["k1_bf16"]
+    assert S.launches["k1_bf16"] == before + 2 * len(cases)
 
 
 @pytest.mark.parametrize("n_rows,mean", [(0, 0)] + [
@@ -1497,6 +1639,43 @@ def _bf16_close(got, want):
     err = (g - w).abs()
     assert bool((err <= ulp + TOL["atol"]).all()), float(
         (err / (ulp + TOL["atol"])).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 16, 64, 128, 136])
+def test_spmm_bf16_layouts_on_card(d):
+    """bfloat16 K1 at every layout of the sweep build on bf16x8 rows (every
+    strip of a line or more up to the whole row, rows per warp, gathers in
+    flight and register cap; rows of one vector in the lanes kernel) and
+    the chooser's, weighted and unweighted, over the receiver CSR, the
+    sender CSR with ``eid`` and ``[E, D]`` edge rows, on a bipartite graph
+    with empty rows and rows of 40 and 1,100 edges, against ``spmm_plain``
+    (within one bfloat16 ulp); the chooser's layout twice, the same
+    bits."""
+    _needs_card()
+    (ir, cr), (is_, cs, es), n_edges = _groupings(d + 3, n_src=260)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+
+    x, e, w = rn(260, d), rn(n_edges, d), rn(n_edges)
+    fv, vec = S._row_vectors(d, 2, x, e)
+    assert vec == 16
+    log_g = _log_g(fv)
+    lays = [(r, strip, u, c) for strip in range(min(log_g, 3), log_g + 1)
+            for r in range(6 - strip) for u in (1, 2, 4, 8) for c in (0, 64)]
+    for args in ((ir, cr, None, None, x), (ir, cr, None, w, x),
+                 (is_, cs, es, None, x), (is_, cs, es, w, x),
+                 (ir, None, None, None, e), (ir, None, None, w, e)):
+        want = S.spmm_plain(*args)
+        assert (want[200:] == 0).all()
+        first = S.spmm_csr(*args)
+        _bf16_close(first, want)
+        assert torch.equal(S.spmm_csr(*args), first)
+        for lay in lays:
+            _bf16_close(S._spmm_csr_kernel(*args, layout=lay), want)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
